@@ -1,0 +1,586 @@
+r"""Sparse factor-graph Levenberg-Marquardt on torch tensors.
+
+Counterpart of ``pypose_tpu/optim/sparse.py:40-92, 153-320, 356-450,
+454-458, 496-568, 625-850, 851-978, 980-1063``.  Neither J nor J^T W J
+is ever formed: per LM step the per-edge tangent-space Jacobian blocks
+come from a closed form, the normal equations are assembled per node
+(diagonal blocks) and per circular offset (coupling channels,
+``ops/spmv.py``), and the whole preconditioned CG solve runs as one
+launch of the CUDA kernel of ``ops/stencil_cg.py`` (its plain PyTorch
+version on the CPU).
+
+This slice ports the path the sphere2500 pose graph takes: every factor
+an arity-2 factor over one [N, d] group, all edges in one merged stencil,
+the block-Jacobi preconditioner, and a TrustRegion strategy.  Where the
+JAX package would route elsewhere (coupling-block SpMV, einsum CG, the
+chain/BCR preconditioner, robust kernels, autodiff Jacobians) this class
+raises ``NotImplementedError`` naming the ROADMAP slice that brings it.
+
+The JAX package runs the LM reject loop and the plateau schedule inside
+``lax.while_loop``; here they are Python loops that read one host scalar
+per damping retry and one per LM step.
+"""
+
+import numpy as np
+import torch
+
+from ..lietensor.lietensor import LieTensor, SE3_type
+from ..ops.smallinv import blockinv
+from ..ops.spmv import StencilSpMV
+from ..ops.stencil_cg import stencil_cg, stencil_cg_fits
+from .strategy import TrustRegion
+
+
+def _tan_dim(v):
+    return v.ltype.manifold[0] if isinstance(v, LieTensor) else v.shape[-1]
+
+
+def _n_nodes(v):
+    return int(np.prod(tuple(v.shape[:-1])))
+
+
+def require_full_fp32(device):
+    """Turn TF32 off for matmuls and cuDNN, and check that it is off, when
+    ``device`` is a CUDA device: the JAX package pins
+    ``precision=HIGHEST`` throughout, and TF32 keeps ~3 decimal digits."""
+    if torch.device(device).type != 'cuda':
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError('TF32 could not be turned off')
+
+
+class Factor:
+    r"""A batch of E identical residual factors.
+
+    Args:
+        residual: ``residual(values, consts) -> [E, d]`` over the whole
+            batch, where ``values`` maps each group name to the gathered
+            nodes ``[E, arity, D]`` (LieTensor or tensor).
+        indices: dict ``name -> int [E, arity]`` (or ``[E]``) rows of each
+            variable group.
+        consts: per-edge constants, leading dim E (measurements).
+        weight: optional information matrices ``[E, d, d]`` or ``[d, d]``.
+        batched_jacobian: ``(values, consts) -> (r [E, d],
+            {name: J [E, d, arity, tan]})``, the closed-form tangent
+            Jacobian.  Autodiff Jacobians wait for the Lie-core slice.
+    """
+
+    def __init__(self, residual, indices, consts=None, weight=None,
+                 batched_jacobian=None):
+        self.residual = residual
+        self.batched_jacobian = batched_jacobian
+        self.indices = {}
+        for k, v in indices.items():
+            v = torch.as_tensor(v, dtype=torch.int64)
+            self.indices[k] = v[:, None] if v.ndim == 1 else v
+        self.consts = consts
+        self.weight = weight
+        self.num_edges = next(iter(self.indices.values())).shape[0]
+
+
+class SparseLM:
+    r"""Levenberg-Marquardt over a factor graph with a matvec-only
+    preconditioned-CG solve.
+
+    Args:
+        params: dict ``name -> LieTensor [N, D] | tensor [N, D]`` stacked
+            variable nodes, all on one device.
+        factors: list of :class:`Factor`.
+        strategy: damping strategy (default ``TrustRegion()``).
+        reject: most rejected damping retries per LM step.
+        min, max: clamp of the J^T W J diagonal before damping.
+        cg_iter, cg_tol: inner CG budget (default ``min(10 * nparam,
+            500)`` iterations).
+        fixed: dict ``name -> bool mask [N]`` of gauge-fixed nodes.
+        precond: 'auto', 'jacobi' or 'chain' (the chain preconditioner
+            is not ported; 'auto' picks it for chain-dominated graphs).
+
+    Example — a 30-pose odometry ring:
+
+        >>> import torch
+        >>> from pypose_tpu_torch.lietensor.utils import se3
+        >>> from pypose_tpu_torch.optim.sparse import SparseLM, pgo_factor
+        >>> from pypose_tpu_torch.optim.strategy import TrustRegion
+        >>> g = torch.Generator().manual_seed(0)
+        >>> N = 30
+        >>> truth = se3(0.3 * torch.randn(N, 6, generator=g)).Exp()
+        >>> i = torch.arange(N)
+        >>> edges = torch.stack([i, (i + 1) % N], 1)
+        >>> Z = truth[edges[:, 0]].Inv() @ truth[edges[:, 1]]
+        >>> noisy = se3(0.1 * torch.randn(N, 6, generator=g)).Exp() @ truth
+        >>> fixed = torch.zeros(N, dtype=torch.bool); fixed[0] = True
+        >>> opt = SparseLM({'poses': noisy}, [pgo_factor(edges, Z)],
+        ...                strategy=TrustRegion(radius=1e4),
+        ...                fixed={'poses': fixed})
+        >>> opt.optimize(steps=10, decreasing=1e-9, patience=2) < 1e-8
+        True
+    """
+
+    # transpose-accumulations gather through per-node incidence tables
+    # (scatter-free, fixed summation order) when the max node degree is
+    # below this
+    MAX_INCIDENCE_DEGREE = 64
+
+    def __init__(self, params, factors, strategy=None, reject=16, min=1e-6,
+                 max=1e32, cg_iter=None, cg_tol=1e-5, fixed=None,
+                 precond='auto'):
+        self.params = dict(params)
+        self.factors = list(factors)
+        self.strategy = TrustRegion() if strategy is None else strategy
+        if not isinstance(self.strategy, TrustRegion):
+            raise NotImplementedError(
+                'only TrustRegion is ported; Constant/Adaptive come with '
+                'the dense-optimizer slice (ROADMAP Queue A, slice 7)')
+        self.min, self.max = min, max
+        self.reject = reject
+        self.cg_iter = cg_iter
+        self.cg_tol = cg_tol
+        first = next(iter(self.params.values()))
+        self.device = first.device
+        self.dtype = first.tensor().dtype if isinstance(first, LieTensor) \
+            else first.dtype
+        require_full_fp32(self.device)
+        self.fixed = {n: torch.as_tensor(m, dtype=torch.bool,
+                                         device=self.device)
+                      for n, m in (fixed or {}).items()}
+        for f in self.factors:
+            f.indices = {n: v.to(self.device) for n, v in f.indices.items()}
+        self.strategy_state = None
+        self.loss = None
+        self.last = None
+        self.reject_count = 0
+        self.history = []
+        self.cg_iterations = []
+        self._build_incidence()
+        self._build_spmv()
+        if precond == 'auto':
+            # the chain-exact preconditioner pays off on chain-dominated
+            # graphs: few non-chain edges per node
+            has_chain = any(
+                s is not None and len(s) == 2 and s[1] == s[0] + 1
+                for s in self._slice.values())
+            n_nodes = sum(_n_nodes(v) for v in self.params.values())
+            non_chain_edges = sum(
+                f.num_edges for fi, f in enumerate(self.factors)
+                if not any(self._slice.get((fi, n)) is not None
+                           for n in f.indices))
+            self.precond = 'chain' if has_chain and \
+                non_chain_edges < 0.3 * (n_nodes if n_nodes > 1 else 1) \
+                else 'jacobi'
+        elif precond in ('jacobi', 'chain'):
+            self.precond = precond
+        else:
+            raise ValueError(f'precond must be auto|jacobi|chain, got '
+                             f'{precond!r}')
+        self._check_route()
+
+    def _build_spmv(self):
+        """The one merged stencil of all edges, when every factor is an
+        arity-2 factor over one shared [N, d] group (the PGO shape) and the
+        edge offsets cluster; None otherwise."""
+        self._stencil_all = None
+        self._spmv_name = None
+        names = {n for f in self.factors for n in f.indices}
+        if len(names) != 1:
+            return
+        name = names.pop()
+        v = self.params[name]
+        if len(v.shape) != 2 or any(f.indices[name].shape[1] != 2
+                                    for f in self.factors):
+            return
+        edges_all = torch.cat([f.indices[name] for f in self.factors])
+        try:
+            self._stencil_all = StencilSpMV(edges_all, v.shape[0],
+                                            _tan_dim(v), device=self.device)
+        except ValueError:
+            return
+        self._spmv_name = name
+
+    def _build_incidence(self):
+        """Static per-node incidence tables: for each (factor, group),
+        inc[n, k] = flattened (edge * arity + slot) position of the k-th
+        contribution to node n, plus a validity mask, so every J^T-side
+        accumulation is a gather and a masked sum.  Chain-structured
+        factors (``idx[:, a] == offset_a + arange(E)``) use static slices
+        instead."""
+        self._inc = {}
+        self._slice = {}
+        for fi, f in enumerate(self.factors):
+            for n, idx in f.indices.items():
+                idxn = idx.cpu().numpy()
+                E_, _ = idxn.shape
+                offs = idxn[0]
+                if E_ > 1 and np.all(
+                        idxn == offs[None, :] + np.arange(E_)[:, None]):
+                    self._slice[(fi, n)] = tuple(int(o) for o in offs)
+                    continue
+                self._slice[(fi, n)] = None
+                N = _n_nodes(self.params[n])
+                flat = idxn.reshape(-1)
+                deg = np.bincount(flat, minlength=N)
+                D = int(deg.max()) if len(flat) else 0
+                if D > self.MAX_INCIDENCE_DEGREE:
+                    self._inc[(fi, n)] = None  # scatter-add instead
+                    continue
+                # the k-th contribution to each node, in edge order
+                order = np.argsort(flat, kind='stable')
+                first = np.concatenate([[0], np.cumsum(deg)[:-1]])
+                k = np.arange(len(flat)) - first[flat[order]]
+                inc = np.zeros((N, max(D, 1)), dtype=np.int64)
+                mask = np.zeros((N, max(D, 1)), dtype=bool)
+                inc[flat[order], k] = order
+                mask[flat[order], k] = True
+                self._inc[(fi, n)] = (
+                    torch.as_tensor(inc, device=self.device),
+                    torch.as_tensor(mask, device=self.device))
+
+    def _accumulate(self, fi, n, contrib, idx):
+        """Sum per-(edge, slot) contributions into per-node rows:
+        contrib [E, arity, ...] -> [N, ...]."""
+        tail = contrib.shape[2:]
+        N = _n_nodes(self.params[n])
+        offs = self._slice.get((fi, n))
+        if offs is not None:
+            E = contrib.shape[0]
+            out = contrib.new_zeros((N,) + tail)
+            for a, o in enumerate(offs):
+                out[o:o + E] += contrib[:, a]
+            return out
+        flatc = contrib.reshape((-1,) + tail)
+        inc = self._inc.get((fi, n))
+        if inc is None:
+            return contrib.new_zeros((N,) + tail).index_add_(
+                0, idx.reshape(-1), flatc)
+        inc_idx, mask = inc
+        m = mask.reshape(mask.shape + (1,) * len(tail))
+        return torch.where(m, flatc[inc_idx], 0.0).sum(1)
+
+    def _gather_rows(self, fi, n, table, idx):
+        """Rows of ``table`` [N, ...] per edge -> [E, arity, ...]."""
+        offs = self._slice.get((fi, n))
+        if offs is not None:
+            E = idx.shape[0]
+            return torch.stack([table[o:o + E] for o in offs], dim=1)
+        return table[idx]
+
+    def _gather(self, params, factor, fi):
+        vals = {}
+        for name, idx in factor.indices.items():
+            p = params[name]
+            data = p.tensor() if isinstance(p, LieTensor) else p
+            data = self._gather_rows(fi, name, data, idx)
+            vals[name] = LieTensor(data, ltype=p.ltype) \
+                if isinstance(p, LieTensor) else data
+        return vals
+
+    # ------------------------------------------------------------------
+    # per-factor residuals + tangent Jacobian blocks
+    # ------------------------------------------------------------------
+    def _edge_r_jac(self, params, factor, fi):
+        if factor.batched_jacobian is None:
+            raise NotImplementedError(
+                'factors without a closed-form batched_jacobian need '
+                'autodiff Jacobians, which come with the Lie-core autograd '
+                'slice (ROADMAP Queue A, slice 1 item 2)')
+        return factor.batched_jacobian(self._gather(params, factor, fi),
+                                       factor.consts)
+
+    @staticmethod
+    def _weights(factor, E):
+        w = factor.weight
+        if w is not None and w.ndim == 2:
+            w = w.expand((E,) + tuple(w.shape))
+        return w
+
+    def _weighted(self, factor, r, J):
+        """Apply the information weights -> (r, J, W r, W J)."""
+        w = self._weights(factor, r.shape[0])
+        if w is None:
+            return r, J, r, J
+        WR = torch.einsum('eij,ej->ei', w, r)
+        WJ = {n: torch.einsum('eij,ejat->eiat', w, j) for n, j in J.items()}
+        return r, J, WR, WJ
+
+    def _chi2(self, params):
+        total = 0.0
+        for fi, f in enumerate(self.factors):
+            r = f.residual(self._gather(params, f, fi), f.consts)
+            w = self._weights(f, r.shape[0])
+            if w is not None:
+                chi = torch.sum(r * torch.einsum('eij,ej->ei', w, r), -1)
+            else:
+                chi = torch.sum(r * r, -1)
+            total = total + torch.sum(chi)
+        return total
+
+    # ------------------------------------------------------------------
+    # normal-equation pieces
+    # ------------------------------------------------------------------
+    def _mask(self, name, x):
+        m = self.fixed.get(name)
+        if m is None:
+            return x
+        return torch.where(m[:, None], 0.0, x)
+
+    def _rhs(self, blocks):
+        """b = -J^T W r."""
+        out = {}
+        for fi, (f, (r, J, WR, WJ)) in enumerate(zip(self.factors, blocks)):
+            for n in f.indices:
+                contrib = torch.einsum('edat,ed->eat', WJ[n], r)
+                acc = -self._accumulate(fi, n, contrib, f.indices[n])
+                out[n] = acc if n not in out else out[n] + acc
+        return {n: self._mask(n, v) for n, v in out.items()}
+
+    def _diag(self, blocks):
+        """diag(J^T W J) per tangent coordinate (for LM damping)."""
+        out = {}
+        for fi, (f, (r, J, WR, WJ)) in enumerate(zip(self.factors, blocks)):
+            for n in f.indices:
+                acc = self._accumulate(fi, n, torch.sum(J[n] * WJ[n], 1),
+                                       f.indices[n])
+                out[n] = acc if n not in out else out[n] + acc
+        return out
+
+    def _block_diag_accum(self, blocks):
+        """Per-node tan x tan diagonal blocks of J^T W J."""
+        out = {}
+        for fi, (f, (r, J, WR, WJ)) in enumerate(zip(self.factors, blocks)):
+            for n in f.indices:
+                B = torch.einsum('edat,edau->eatu', WJ[n], J[n])
+                acc = self._accumulate(fi, n, B, f.indices[n])
+                out[n] = acc if n not in out else out[n] + acc
+        return out
+
+    def _damped_blocks(self, accum, damped_scale):
+        """Clamp and damp the diagonal of the accumulated blocks (the same
+        treatment the solve's operator gets)."""
+        out = {}
+        for n, B in accum.items():
+            diag = torch.diagonal(B, dim1=-2, dim2=-1)
+            d = torch.clamp(diag, self.min, self.max) * damped_scale[n]
+            eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+            out[n] = B + (d - diag)[..., None] * eye + 1e-8 * eye
+        return out
+
+    # ------------------------------------------------------------------
+    def _check_route(self):
+        """Raise where the JAX package would leave the stencil kernel."""
+        if self.precond == 'chain':
+            raise NotImplementedError(
+                "precond='chain' (block-tridiagonal BCR preconditioner) "
+                'comes with the large-graph slice (ROADMAP Queue A, '
+                "slice 2); pass precond='jacobi'")
+        if self._stencil_all is None:
+            raise NotImplementedError(
+                'this graph does not fit one merged stencil; the '
+                'coupling-block SpMV and the einsum CG come with the '
+                'large-graph slice (ROADMAP Queue A, slice 2)')
+        v = self.params[self._spmv_name]
+        N, t = v.shape[0], _tan_dim(v)
+        if not stencil_cg_fits(N, t, len(self._stencil_all.offsets)):
+            raise NotImplementedError(
+                f'N={N} exceeds the whole-solve kernel\'s L2 budget; '
+                'oversize graphs come with the large-graph slice (ROADMAP '
+                'Queue A, slice 2)')
+
+    def _core(self, params, strat):
+        """One LM step: formation, then damping retries until a step is
+        taken or the reject budget is spent.  Returns (params, loss,
+        last, strategy state, rejections, CG iterations per solve)."""
+        blocks = [self._weighted(f, *self._edge_r_jac(params, f, fi))
+                  for fi, f in enumerate(self.factors)]
+        b = self._rhs(blocks)
+        diag_raw = self._diag(blocks)
+        diagA = {n: torch.clamp(v, self.min, self.max)
+                 for n, v in diag_raw.items()}
+        last = self._chi2(params)
+        nparam = sum(_n_nodes(v) * _tan_dim(v) for v in params.values())
+        maxiter = self.cg_iter if self.cg_iter is not None \
+            else min(10 * nparam, 500)
+        accum = self._block_diag_accum(blocks)
+        nm = self._spmv_name
+        C_all = self._stencil_all.precompute_multi(
+            [(blk[1][nm], blk[3][nm]) for blk in blocks])
+        offsets = tuple(self._stencil_all.offsets)
+
+        def solve(damping):
+            dcorr = diagA[nm] - diag_raw[nm] + damping * diagA[nm]
+            Minv = blockinv(self._damped_blocks(
+                accum, {nm: 1.0 + damping})[nm])
+            return stencil_cg(b[nm], accum[nm], dcorr, Minv, C_all, offsets,
+                              fixed_mask=self.fixed.get(nm),
+                              maxiter=maxiter, tol=self.cg_tol)
+
+        def retract_all(p, delta):
+            out = {}
+            for n, v in p.items():
+                d = self._mask(n, delta[n])
+                out[n] = v.add(d) if isinstance(v, LieTensor) else v + d
+            return out
+
+        def pred_reduction(delta):
+            """-(J D)^T W (2 R + J D), summed over factors."""
+            total = 0.0
+            for fi, (f, (r, J, WR, WJ)) in enumerate(
+                    zip(self.factors, blocks)):
+                Jd = 0.0
+                for n in f.indices:
+                    xg = self._gather_rows(fi, n, self._mask(n, delta[n]),
+                                           f.indices[n])
+                    Jd = Jd + torch.einsum('edat,eat->ed', J[n], xg)
+                w = self._weights(f, r.shape[0])
+                WJd = Jd if w is None else torch.einsum('eij,ej->ei', w, Jd)
+                total = total + torch.sum(WJd * (2.0 * r + Jd))
+            return -total
+
+        count = 0
+        its = []
+        while True:
+            x, it = solve(strat['damping'])
+            its.append(it)
+            bad = ~torch.all(torch.isfinite(x))
+            D = {nm: torch.where(bad, 0.0, x)}
+            cand = retract_all(params, D)
+            loss_new = self._chi2(cand)
+            # a non-finite candidate loss is as bad as a non-finite delta
+            bad = bad | ~torch.isfinite(loss_new)
+            pred = pred_reduction(D)
+            q = (last - loss_new) / torch.where(pred == 0, 1e-31, pred)
+            # a non-positive predicted reduction (unconverged-CG garbage
+            # step) is a hard reject; the reference divides blindly
+            q = torch.where(pred > 0, q, -1.0)
+            strat = self._strategy_update(strat, q)
+            rejectable = (last < loss_new) & ~bad
+            if count >= self.reject or not bool(rejectable):
+                take = ~bad
+                p_out = {n: self._where_param(take, cand[n], params[n])
+                         for n in params}
+                return (p_out, torch.where(take, loss_new, last), last,
+                        strat, count, its)
+            count += 1
+
+    @staticmethod
+    def _where_param(cond, a, b):
+        if isinstance(a, LieTensor):
+            return LieTensor(torch.where(cond, a.tensor(), b.tensor()),
+                             ltype=a.ltype)
+        return torch.where(cond, a, b)
+
+    def _strategy_update(self, strat, quality):
+        """TrustRegion update from a precomputed gain ratio (SparseLM never
+        forms J, so the dense strategies' (J, D, R) signature is
+        bypassed)."""
+        s = self.strategy
+        radius = 1.0 / strat['damping']
+        down = strat['down']
+        radius_new = torch.where(
+            quality > s.high, s.up * radius,
+            torch.where(quality > s.low, radius, radius * down))
+        down_new = torch.where(quality > s.low,
+                               torch.full_like(down, s.down0),
+                               down * s.factor)
+        return {'damping': 1.0 / torch.clamp(radius_new, s.min, s.max),
+                'down': torch.clamp(down_new, s.min, s.max)}
+
+    def _init_strategy(self):
+        if self.strategy_state is None:
+            self.strategy_state = self.strategy.init(self.dtype, self.device)
+
+    def step(self):
+        """One LM step; returns the new chi2."""
+        self._init_strategy()
+        p, loss, last, strat, count, its = self._core(
+            self.params, self.strategy_state)
+        self.params = p
+        self.strategy_state = strat
+        self.reject_count = count
+        self.last, self.loss = torch.stack([last, loss]).tolist()
+        self.cg_iterations = [[int(i) for i in its]]
+        return self.loss
+
+    def optimize(self, steps=10, patience=5, decreasing=1e-3):
+        """Run up to ``steps`` LM steps with the StopOnPlateau rule: stop
+        after ``patience`` steps whose chi2 fell by less than
+        ``decreasing``, or after a step with rejections that also fell by
+        less than that.  Returns the final chi2; per-step values land in
+        ``self.history`` and per-solve CG iterations in
+        ``self.cg_iterations``."""
+        self._init_strategy()
+        p, strat = self.params, self.strategy_state
+        loss = None
+        hist, its_all = [], []
+        pat = 0
+        for _ in range(steps):
+            p, loss, last, strat, count, its = self._core(p, strat)
+            its_all.append(its)
+            # one host read per LM step: chi2 and the progress test
+            lossv, small = torch.stack(
+                [loss, (last - loss < decreasing).to(loss.dtype)]).tolist()
+            hist.append(lossv)
+            pat = pat + 1 if small else 0
+            # quit on rejection only when the step also failed to make the
+            # required progress (the reference quits on any rejection)
+            if pat >= patience or (count > 0 and small):
+                break
+        self.params = p
+        self.strategy_state = strat
+        self.loss = hist[-1] if hist else None
+        self.history = hist
+        self.cg_iterations = [[int(i) for i in its] for its in its_all]
+        return self.loss
+
+
+def pgo_factor(edges, poses, infos=None, name='poses'):
+    r"""Relative-pose factor for SE3 pose-graph optimisation.
+
+    Residual per edge (i, j): ``Log(Z^{-1} (X_i^{-1} X_j))`` with optional
+    information-matrix weights; the tangent Jacobian is the closed form of
+    :func:`~pypose_tpu_torch.lietensor.scalarized.se3_pgo_blocks`.  SO3,
+    RxSO3 and Sim3 graphs come with later slices.
+    """
+    from ..lietensor.scalarized import se3_pgo_blocks
+
+    if poses.ltype is not SE3_type:
+        raise NotImplementedError(
+            f'pgo_factor over {poses.ltype} is not ported yet (ROADMAP '
+            'Queue A, slice 6); only SE3 is')
+
+    def residual(values, Z):
+        X = values[name]
+        return (Z.Inv() @ (X[:, 0].Inv() @ X[:, 1])).Log().tensor()
+
+    def batched_jacobian(values, Z):
+        X = values[name].tensor()
+        r, J = se3_pgo_blocks(X[:, 0], X[:, 1], Z.tensor())
+        return r, {name: J}
+
+    return Factor(residual, indices={name: edges}, consts=poses,
+                  weight=infos, batched_jacobian=batched_jacobian)
+
+
+def split_chain_edges(edges, min_run=64):
+    """Partition edge rows into maximal odometry runs (j == i+1 with
+    consecutive i, at least ``min_run`` long) and the rest.  Runs take
+    SparseLM's slice path.  Returns (list of row-index arrays for runs,
+    rest row-index array)."""
+    e = edges.cpu().numpy() if torch.is_tensor(edges) else np.asarray(edges)
+    rows = np.arange(e.shape[0])
+    cand = (e[:, 1] == e[:, 0] + 1)
+    chain_rows = rows[cand]
+    if len(chain_rows) == 0:
+        return [], rows
+    order = np.argsort(e[chain_rows, 0], kind='stable')
+    chain_rows = chain_rows[order]
+    ii = e[chain_rows, 0]
+    breaks = np.nonzero(np.diff(ii) != 1)[0] + 1
+    runs = np.split(chain_rows, breaks)
+    keep, rest_extra = [], []
+    for run in runs:
+        (keep if len(run) >= min_run else rest_extra).append(run)
+    rest = np.concatenate([rows[~cand]] + rest_extra) if rest_extra \
+        else rows[~cand]
+    return keep, rest
