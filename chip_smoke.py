@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sphere2500 pose-graph path once on one NVIDIA
-GPU and check it.
+"""Drive the PyTorch port's pose-graph paths once on one NVIDIA GPU and
+check them: sphere2500 through the whole-solve CG kernel, and a 100k-pose
+graph through the tiled CG kernels.
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
      turns TF32 off.
-  2. build: compiles pypose_tpu_torch/csrc/stencil_cg.cu with nvcc (timed
-     as set-up).
-  3. kernel vs plain: the whole-solve CG kernel against its plain PyTorch
-     version on the same random SPD stencil systems on the card, at N=40
-     and at sphere2500's shape (N=2500, t=6, offsets (1, 157), node 0
-     fixed, converged and run to a 150-iteration cap); both timed with
-     CUDA events (median of 7).
-  4. slice: data/synthetic_sphere2500_seed42.g2o through load_g2o,
-     split_chain_edges, pgo_factor and two SparseLM.optimize phases
-     (cg_iter 150 then 1200, cg_tol 1e-9), cold then warm; the final chi2
-     must reach pypose's converged chi2 (data/ref_anchor_sphere2500.json)
-     within 1e-4 relative, and the kernel must have been launched.
-  5. prints the kernels' JSON line, the card line and the result line.
+  2. build: compiles pypose_tpu_torch/csrc/stencil_cg{,_tiled,_fused}.cu,
+     one nvcc each, all at once (timed as set-up); prints ptxas' registers
+     and shared memory.
+  3. kernel vs plain, on the same random SPD stencil systems on the card,
+     each timed with CUDA events (median of 7):
+     - the whole-solve kernel at N=40 and at sphere2500's shape (N=2500,
+       offsets (1, 157), node 0 fixed; converged, and to a 150-iteration
+       cap);
+     - the tiled and the fused solvers at N=53 (offsets wrap) and at the
+       100k shape (offsets (1, 993), node 0 fixed) with tol 1e-3 /
+       maxiter 250 and with tol 0 / 250 iterations, fused beside tiled;
+     - the tiled matvec and block-Jacobi kernels alone, one launch each,
+       at the 100k shape.
+  4. sphere2500 slice: data/synthetic_sphere2500_seed42.g2o through
+     load_g2o, split_chain_edges, pgo_factor and two SparseLM.optimize
+     phases (cg_iter 150 then 1200, cg_tol 1e-9), cold then warm; the
+     final chi2 must reach pypose's converged chi2
+     (data/ref_anchor_sphere2500.json) within 1e-4 relative, and the
+     whole-solve kernel must have been launched.
+  5. pgo-100k slice: synthetic_sphere(100000, seed=42) (checked against
+     data/jax_anchor_pgo100k_seed42.json's instance checksum), factors as
+     bench.py:bench_pgo_100k builds them, SparseLM with TrustRegion(1e4),
+     cg_iter 250, cg_tol 1e-3, optimize(steps=6), cold then warm; the
+     final chi2 must be within 1e-3 relative of the JAX package's on the
+     same instance, the tiled kernels must have been launched and the
+     whole-solve kernel not.
+  6. prints the kernels' JSON line, the card line and the result line.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -51,33 +66,118 @@ def cuda_ms(fn, repeat=7):
     return statistics.median(times), out
 
 
-def kernel_vs_plain(name, N, loop_offset, n_loops, fixed, maxiter, tol):
+def stencil_system(N, loop_offset, n_loops, fixed):
     import torch
-    from pypose_tpu_torch.ops import stencil_cg as scg
     from pypose_tpu_torch.testing import random_stencil_system
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(1234 + N)
-    offsets, ops = random_stencil_system(N, loop_offset, n_loops, fixed, gen,
-                                         dev)
+    return random_stencil_system(N, loop_offset, n_loops, fixed, gen, dev)
+
+
+def solver_vs_plain(name, solver, plain, system, maxiter, tol):
+    """One solver on the card against its plain version on the same
+    operands: x within 1e-4 of max|x| (+1e-5), iterations within one.
+    Returns (max error, kernel ms, plain ms, kernel iterations)."""
+    import torch
+    offsets, ops = system
     t = 6
+    N = ops[0].shape[1]
     k_ms, (x_k, it_k) = cuda_ms(
-        lambda: scg.stencil_cg_transposed(*ops, offsets, t, maxiter, tol))
+        lambda: solver(*ops, offsets, t, maxiter, tol))
     p_ms, (x_p, it_p) = cuda_ms(
-        lambda: scg._cg_body_torch(ops[1], ops[2], ops[3], ops[0], offsets,
-                                   t, maxiter, tol))
+        lambda: plain(ops[1], ops[2], ops[3], ops[0], offsets, t, maxiter,
+                      tol))
     it_k, it_p = int(it_k), int(it_p)
     err = float((x_k - x_p).abs().max())
     bound = 1e-4 * float(x_p.abs().max()) + 1e-5
-    print(f'[kernel] {name}: N={N} offsets={offsets} fixed={fixed} '
-          f'maxiter={maxiter} tol={tol:g}: iterations kernel {it_k} plain '
-          f'{it_p}; max|x_k - x_p| {err:.3e} (bound {bound:.3e}); kernel '
+    print(f'[kernel] {name}: N={N} offsets={offsets} maxiter={maxiter} '
+          f'tol={tol:g}: iterations kernel {it_k} plain {it_p}; '
+          f'max|x_k - x_p| {err:.3e} (bound {bound:.3e}); kernel '
           f'{k_ms:.4f} ms/solve ({1e3 * k_ms / max(it_k, 1):.2f} us/it), '
           f'plain {p_ms:.4f} ms/solve ({1e3 * p_ms / max(it_p, 1):.2f} '
           'us/it), median of 7', flush=True)
     check(bool(torch.isfinite(x_k).all()), f'{name}: kernel result not finite')
     check(err <= bound, f'{name}: kernel disagrees with the plain version')
     check(abs(it_k - it_p) <= 1, f'{name}: iteration counts differ')
+    return err, k_ms, p_ms, it_k
+
+
+def whole_solve_vs_plain(name, N, loop_offset, n_loops, fixed, maxiter,
+                         tol):
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    err, k_ms, p_ms, _ = solver_vs_plain(
+        f'whole-solve, {name}', scg.stencil_cg_transposed,
+        scg._cg_body_torch,
+        stencil_system(N, loop_offset, n_loops, fixed), maxiter, tol)
     return err, k_ms, p_ms
+
+
+def oversize_solvers_vs_plain(name, system, maxiter, tol):
+    """The tiled and the fused solver on one system, each against its
+    plain version; returns {route: (err, ms, plain ms, iterations)}."""
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    out = {
+        'tiled': solver_vs_plain(f'tiled, {name}', scg.stencil_cg_tiled,
+                                 scg._tiled_cg_torch, system, maxiter, tol),
+        'fused': solver_vs_plain(f'fused, {name}', scg.stencil_cg_fused,
+                                 scg._fused_cg_torch, system, maxiter, tol)}
+    (_, t_ms, _, t_it), (_, f_ms, _, f_it) = out['tiled'], out['fused']
+    print(f'[kernel] {name}: fused {f_ms:.4f} ms/solve ({f_it} it, '
+          f'{1e3 * f_ms / max(f_it, 1):.2f} us/it) vs tiled {t_ms:.4f} '
+          f'ms/solve ({t_it} it, {1e3 * t_ms / max(t_it, 1):.2f} us/it): '
+          f'fused/tiled {f_ms / t_ms:.3f}', flush=True)
+    return out
+
+
+def tiled_kernels_vs_plain(system, launches=20):
+    """The tiled matvec and block-Jacobi kernels alone, one launch each on
+    a random vector, against their plain versions; times are per launch
+    (CUDA events over ``launches`` launches, median of 7).  Returns
+    {kernel: (err, us, plain us)}."""
+    import torch
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    offsets, (b_T, A_T, Minv_T, C_T) = system
+    t = 6
+    gen = torch.Generator(device=b_T.device).manual_seed(7)
+    v = torch.randn(b_T.shape, generator=gen, device=b_T.device)
+    pairs = {
+        'mv': (lambda: scg._tiled_mv_launch(A_T, C_T, v, offsets, t),
+               lambda: scg._stencil_matvec_torch(A_T, C_T, offsets, t, v),
+               4 * (t * t * (1 + len(offsets)) + 2 * t)),
+        'pc': (lambda: scg._tiled_pc_launch(Minv_T, v, t),
+               lambda: scg._block_mul(Minv_T, v, t),
+               4 * (t * t + 2 * t))}
+    out = {}
+    for kname, (kern, plain, bytes_per_node) in pairs.items():
+        k_ms, y_k = cuda_ms(lambda: [kern() for _ in range(launches)][-1])
+        p_ms, y_p = cuda_ms(lambda: [plain() for _ in range(launches)][-1])
+        err = float((y_k - y_p).abs().max())
+        bound = 1e-5 * float(y_p.abs().max()) + 1e-6
+        k_us, p_us = 1e3 * k_ms / launches, 1e3 * p_ms / launches
+        gbs = bytes_per_node * v.shape[1] / (k_us * 1e3)
+        print(f'[kernel] tiled {kname} alone, N={v.shape[1]}: max|y_k - '
+              f'y_p| {err:.3e} (bound {bound:.3e}); kernel {k_us:.2f} '
+              f'us/launch ({gbs:.0f} GB/s if every operand and vector '
+              f'byte is read or written once: {bytes_per_node} B/node), '
+              f'plain {p_us:.2f} us', flush=True)
+        check(err <= bound, f'tiled {kname} disagrees with its plain version')
+        out[kname] = (err, k_us, p_us)
+    return out
+
+
+COUNTERS = ('LAUNCHES', 'TILED_MV_LAUNCHES', 'TILED_PC_LAUNCHES',
+            'FUSED_AXPY_LAUNCHES', 'FUSED_MV_LAUNCHES')
+
+
+def reset_counts():
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    for name in COUNTERS:
+        setattr(scg, name, 0)
+
+
+def read_counts():
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    return {name: getattr(scg, name) for name in COUNTERS}
 
 
 def sphere2500_problem(dev):
@@ -128,7 +228,6 @@ def sphere2500_slice(dev):
     """The main path, cold then warm, against the pypose anchor."""
     import torch
     from pypose_tpu_torch.datasets import find_data
-    from pypose_tpu_torch.ops import stencil_cg as scg
 
     with open(find_data('ref_anchor_sphere2500.json')) as f:
         anchor = json.load(f)
@@ -183,15 +282,104 @@ def sphere2500_slice(dev):
         check(chi2 <= target,
               f'final chi2 {chi2} above the pypose anchor {target}')
 
-    # the main path's launches: counted from zero over the cold run only
-    scg.LAUNCHES = 0
+    # the path's launches: counted from zero over the cold run only
+    reset_counts()
     run('cold')
-    launches = scg.LAUNCHES
-    check(launches > 0, 'the slice never launched the stencil CG kernel')
-    print(f'[slice] cold run launched the stencil CG kernel {launches} '
-          'times', flush=True)
+    counts = read_counts()
+    check(counts['LAUNCHES'] > 0,
+          'the slice never launched the whole-solve CG kernel')
+    print(f'[slice] cold run launched the whole-solve CG kernel '
+          f'{counts["LAUNCHES"]} times; all counts {counts}', flush=True)
     run('warm')
-    return launches
+    return counts
+
+
+def pgo100k_slice(dev):
+    """The large pose graph, cold then warm, against the JAX anchor on the
+    same instance; returns the cold run's launch counts."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data, synthetic_sphere
+    from pypose_tpu_torch.ops.stencil_cg import stencil_cg_fits
+    from pypose_tpu_torch.optim.sparse import (SparseLM, pgo_factor,
+                                               split_chain_edges)
+    from pypose_tpu_torch.optim.strategy import TrustRegion
+    from pypose_tpu_torch.testing import instance_checksum
+
+    with open(find_data('jax_anchor_pgo100k_seed42.json')) as f:
+        anchor = json.load(f)
+    sched = anchor['schedule']
+    target = anchor['final_chi2'] * (1 + 1e-3)
+
+    t0 = time.perf_counter()
+    N = 100_000
+    ds = synthetic_sphere(N, seed=42, device=dev)
+    got, want = instance_checksum(ds), anchor['instance_checksum']
+    same = got['n_edges'] == want['n_edges'] and all(
+        abs(got[k] - want[k]) <= 1e-6 * abs(want[k])
+        for k in ('nodes_abs_sum', 'poses_abs_sum'))
+    check(same, f'pgo-100k instance checksum {got} differs from the '
+          f'anchor file\'s {want}: the JAX anchor does not apply to this '
+          'instance')
+    edges = ds['edges']
+    runs, rest = split_chain_edges(edges)
+    factors = [pgo_factor(edges[torch.as_tensor(r, device=dev)],
+                          ds['poses'][torch.as_tensor(r, device=dev)])
+               for r in list(runs) + ([rest] if len(rest) else [])]
+    fixed = torch.zeros(N, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    opt = SparseLM({'poses': ds['nodes']}, factors,
+                   strategy=TrustRegion(radius=sched['radius']),
+                   fixed={'poses': fixed}, cg_iter=sched['cg_iter'],
+                   cg_tol=sched['cg_tol'])
+    torch.cuda.synchronize()
+    offsets = opt._stencil_all.offsets
+    print(f'[pgo-100k] set-up: synthetic_sphere + factors + SparseLM in '
+          f'{time.perf_counter() - t0:.3f} s; {N} poses, {edges.shape[0]} '
+          f'edges, offsets {offsets}, precond {opt.precond}; instance '
+          f'checksum {got}', flush=True)
+    check(not stencil_cg_fits(N, 6, len(offsets)),
+          'pgo-100k fits the whole-solve budget: it would not test the '
+          'tiled route')
+
+    def run(label):
+        opt.params = {'poses': ds['nodes']}
+        opt.strategy_state = None
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        ev[0].record()
+        chi2 = opt.optimize(steps=sched['steps'],
+                            decreasing=sched['decreasing'],
+                            patience=sched['patience'])
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        ms = ev[0].elapsed_time(ev[1])
+        steps = len(opt.history)
+        print(f'[pgo-100k] {label}: chi2 history {opt.history}', flush=True)
+        print(f'[pgo-100k] {label}: CG iterations per solve, per LM step: '
+              f'{opt.cg_iterations}', flush=True)
+        print(f'[pgo-100k] {label}: {steps} LM steps in {ms:.3f} ms (CUDA '
+              f'events; host {1e3 * wall:.3f} ms), {ms / steps:.3f} ms/LM '
+              f'step; final chi2 {chi2:.6f}, target {target:.6f} (JAX '
+              f'{anchor["final_chi2"]} on this instance +1e-3 rel)',
+              flush=True)
+        X = opt.params['poses'].tensor()
+        check(tuple(X.shape) == (N, 7), f'poses have shape {tuple(X.shape)}')
+        check(bool(torch.isfinite(X).all()), 'poses are not finite')
+        check(chi2 <= target,
+              f'final chi2 {chi2} above the JAX anchor {target}')
+
+    reset_counts()
+    run('cold')
+    counts = read_counts()
+    check(counts['TILED_MV_LAUNCHES'] > 0 and counts['TILED_PC_LAUNCHES'] > 0,
+          'the pgo-100k slice never launched the tiled CG kernels')
+    check(counts['LAUNCHES'] == 0,
+          'the pgo-100k slice launched the whole-solve kernel')
+    print(f'[pgo-100k] cold run launch counts {counts}', flush=True)
+    run('warm')
+    return counts
 
 
 def main():
@@ -214,41 +402,76 @@ def main():
           f'{torch.version.cuda}; python {sys.version.split()[0]}; '
           f'{torch.cuda.device_count()} visible', flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, all at once
+    libs = ('stencil_cg', 'stencil_cg_tiled', 'stencil_cg_fused')
     t0 = time.perf_counter()
-    lib_path = _build.build('stencil_cg')
-    scg._kernel_lib()
-    print(f'[build] {lib_path.name} ready in {time.perf_counter() - t0:.2f} '
-          's (set-up)', flush=True)
-    log = lib_path.with_suffix('.log')
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if 'ptxas info' in line:
-                print(f'[build] {line.strip()}', flush=True)
+    paths = _build.build_all(libs)
+    for name in libs:
+        scg._kernel_lib(name)
+    print(f'[build] {", ".join(p.name for p in paths)} ready in '
+          f'{time.perf_counter() - t0:.2f} s (set-up)', flush=True)
+    for path in paths:
+        log = path.with_suffix('.log')
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if 'Used' in line or 'Compiling entry' in line:
+                    print(f'[build] {path.stem}: {line.strip()}', flush=True)
 
-    # 3. kernel vs plain on the card
-    err40, _, _ = kernel_vs_plain('N=40', 40, 9, 15, False, 500, 1e-6)
-    err2500, _, _ = kernel_vs_plain('sphere2500 shape', 2500, 157, 2000,
-                                    True, 500, 1e-6)
+    # 3. kernels vs plain versions on the card
+    err40, _, _ = whole_solve_vs_plain('N=40', 40, 9, 15, False, 500, 1e-6)
+    err2500, _, _ = whole_solve_vs_plain('sphere2500 shape', 2500, 157,
+                                         2000, True, 500, 1e-6)
     # tol 0 runs the full 150 iterations, as the first phase's solves do
-    err150, k_ms, p_ms = kernel_vs_plain('sphere2500 shape, 150 iterations',
-                                         2500, 157, 2000, True, 150, 0.0)
+    err150, k_ms, p_ms = whole_solve_vs_plain(
+        'sphere2500 shape, 150 iterations', 2500, 157, 2000, True, 150, 0.0)
+    small = oversize_solvers_vs_plain('N=53', stencil_system(53, 9, 15, False),
+                                      200, 1e-7)
+    big_system = stencil_system(100_000, 993, 80_000, True)
+    big = oversize_solvers_vs_plain('100k shape, tol 1e-3', big_system, 250,
+                                    1e-3)
+    full = oversize_solvers_vs_plain('100k shape, 250 iterations',
+                                     big_system, 250, 0.0)
+    alone = tiled_kernels_vs_plain(big_system)
+    del big_system
 
-    # 4. the slice
+    # 4. and 5. the paths, each counted from zero over its cold run
     first_step_agreement(dev)
-    launches = sphere2500_slice(dev)
+    sphere_counts = sphere2500_slice(dev)
+    pgo_counts = pgo100k_slice(dev)
 
-    # 5. results
-    print(json.dumps({'kernels': [{
-        'name': 'stencil_pcg',
-        'route': 'cuda',
-        'source': 'pypose_tpu_torch/csrc/stencil_cg.cu',
-        'replaces': 'pypose_tpu/ops/pallas_cg.py:101',
-        'launches': launches,
-        'max_abs_err': max(err40, err2500, err150),
-        'ms': k_ms,
-        'plain_ms': p_ms,
-    }]}))
+    # 6. results
+    def route_err(route):
+        return max(r[route][0] for r in (small, big, full))
+
+    src = 'pypose_tpu_torch/csrc/'
+    pallas = 'pypose_tpu/ops/pallas_cg.py:'
+    kernels = [
+        dict(name='stencil_pcg', route='cuda', source=src + 'stencil_cg.cu',
+             replaces=pallas + '101', launches=sphere_counts['LAUNCHES'],
+             max_abs_err=max(err40, err2500, err150), ms=k_ms, plain_ms=p_ms,
+             ms_of='one 150-iteration solve, sphere2500 shape'),
+        dict(name='stencil_tiled_mv', route='cuda',
+             source=src + 'stencil_cg_tiled.cu', replaces=pallas + '131',
+             launches=pgo_counts['TILED_MV_LAUNCHES'],
+             max_abs_err=max(alone['mv'][0], route_err('tiled')),
+             ms=alone['mv'][1] / 1e3, plain_ms=alone['mv'][2] / 1e3,
+             ms_of='one launch, 100k shape'),
+        dict(name='stencil_tiled_pc', route='cuda',
+             source=src + 'stencil_cg_tiled.cu', replaces=pallas + '149',
+             launches=pgo_counts['TILED_PC_LAUNCHES'],
+             max_abs_err=max(alone['pc'][0], route_err('tiled')),
+             ms=alone['pc'][1] / 1e3, plain_ms=alone['pc'][2] / 1e3,
+             ms_of='one launch, 100k shape')]
+    for kname, line, counter in (('axpy', '253', 'FUSED_AXPY_LAUNCHES'),
+                                 ('mv', '290', 'FUSED_MV_LAUNCHES')):
+        kernels.append(dict(
+            name=f'stencil_fused_{kname}', route='cuda',
+            source=src + 'stencil_cg_fused.cu', replaces=pallas + line,
+            launches=pgo_counts[counter], max_abs_err=route_err('fused'),
+            ms=full['fused'][1], plain_ms=full['fused'][2],
+            ms_of='one 250-iteration fused solve (both passes), 100k shape',
+            routed=False))
+    print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

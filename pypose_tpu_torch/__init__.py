@@ -2,10 +2,13 @@ r"""pypose_tpu_torch: the PyTorch / CUDA port of ``pypose_tpu``.
 
 Counterpart of ``pypose_tpu/__init__.py:1``.  The package mirrors the JAX
 package's file layout; each module names its JAX counterpart.  It imports
-torch and numpy, never jax.  This first slice covers the sphere2500
-pose-graph path: the SO3/SE3 Lie core (forward), the scalarized PGO
-blocks, g2o IO, the stencil normal equations, the whole-solve CG kernel
-(``csrc/stencil_cg.cu``) and ``optim.sparse.SparseLM``.
+torch and numpy, never jax.  It covers the pose-graph path of the
+sphere2500 and 100k-pose graphs: the SO3/SE3 Lie core (forward) with its
+random factories, the scalarized PGO blocks, g2o IO and the synthetic
+sphere graph, the stencil normal equations, the stencil CG kernels
+(``csrc/stencil_cg.cu`` whole-solve, ``csrc/stencil_cg_tiled.cu`` and
+``csrc/stencil_cg_fused.cu`` for systems past its L2 budget) and
+``optim.sparse.SparseLM``.
 """
 
 from . import lietensor  # noqa: F401
@@ -15,4 +18,4 @@ from . import optim  # noqa: F401
 from . import testing  # noqa: F401
 from .lietensor import (  # noqa: F401
     LieTensor, SO3, so3, SE3, se3, identity_SO3, identity_so3, identity_SE3,
-    identity_se3)
+    identity_se3, randn_SO3, randn_so3, randn_SE3, randn_se3, euler2SO3)

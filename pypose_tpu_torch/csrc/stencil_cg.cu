@@ -13,12 +13,7 @@
 //                              + C_k[(n-d_k) mod N]^T p_{(n-d_k) mod N} ],
 //
 // computed in gather form (each node reads its neighbours; no atomics).
-//
-// Layouts (float32, lane-major: node n is the fastest index, so
-// neighbouring threads read neighbouring addresses):
-//   vectors  [t, N]          entry i of node n at i*N + n
-//   blocks   [t*t, N]        block entry (i, u) of node n at (i*t+u)*N + n
-//   channels [n_off*t*t, N]  channel k, entry (i, u) at ((k*t+i)*t+u)*N + n
+// Layouts and the shared pieces: stencil_common.cuh.
 //
 // Design: ONE persistent thread block of 1024 threads runs the whole loop,
 // maxiter included.  Threads stride over nodes, so each thread owns the
@@ -41,65 +36,15 @@
 
 #include <cuda_runtime.h>
 
+#include "stencil_common.cuh"
+
 namespace {
 
+using ppt::block_mul_add;
+using ppt::block_sum2;
+using ppt::Offsets;
+
 constexpr int kThreads = 1024;
-constexpr int kMaxOffsets = 16;
-
-// Offsets travel by value in the kernel's parameter space.
-struct Offsets {
-  int d[kMaxOffsets];
-};
-
-// Block-wide sums of two values: shuffles within each warp, then warp 0
-// over the per-warp partials.  Fixed order, so the result is
-// deterministic.  Every thread returns both sums.
-__device__ __forceinline__ void block_sum2(float& a, float& b, float* sh) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, o);
-    b += __shfl_down_sync(0xffffffffu, b, o);
-  }
-  if (lane == 0) {
-    sh[warp] = a;
-    sh[32 + warp] = b;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-    a = lane < nwarps ? sh[lane] : 0.f;
-    b = lane < nwarps ? sh[32 + lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) {
-      a += __shfl_down_sync(0xffffffffu, a, o);
-      b += __shfl_down_sync(0xffffffffu, b, o);
-    }
-    if (lane == 0) {
-      sh[64] = a;
-      sh[65] = b;
-    }
-  }
-  __syncthreads();
-  a = sh[64];
-  b = sh[65];
-}
-
-// y = M_n v for the t x t block of node n (transposed: M_n^T v).
-template <int T, bool kTranspose>
-__device__ __forceinline__ void block_mul_add(const float* __restrict__ M,
-                                              size_t N, int n,
-                                              const float* v, float* y) {
-#pragma unroll
-  for (int i = 0; i < T; ++i) {
-    float acc = 0.f;
-#pragma unroll
-    for (int u = 0; u < T; ++u) {
-      const int e = kTranspose ? (u * T + i) : (i * T + u);
-      acc += M[e * N + n] * v[u];
-    }
-    y[i] += acc;
-  }
-}
 
 template <int T>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -110,7 +55,6 @@ stencil_pcg_kernel(const float* __restrict__ b, const float* __restrict__ A,
                    float* z, float* p, float* Ap, int* it_out) {
   __shared__ float sh[66];
   const size_t NN = static_cast<size_t>(N);
-  const size_t TT = static_cast<size_t>(T) * T;
 
   // x = 0, r = b, z = Minv r, p = z; gamma = r.z, |b|^2
   float gamma = 0.f, bb = 0.f;
@@ -141,27 +85,10 @@ stencil_pcg_kernel(const float* __restrict__ b, const float* __restrict__ A,
     // Ap = A p (gather form) and p.Ap
     float pap = 0.f, unused = 0.f;
     for (int n = threadIdx.x; n < N; n += blockDim.x) {
-      float pn[T], y[T], q[T];
+      float pn[T], y[T];
 #pragma unroll
-      for (int i = 0; i < T; ++i) {
-        pn[i] = p[i * NN + n];
-        y[i] = 0.f;
-      }
-      block_mul_add<T, false>(A, NN, n, pn, y);
-      for (int k = 0; k < n_off; ++k) {
-        const int d = offs.d[k];
-        const float* Ck = C + k * TT * NN;
-        int nf = n + d;
-        if (nf >= N) nf -= N;
-        int nb = n - d;
-        if (nb < 0) nb += N;
-#pragma unroll
-        for (int u = 0; u < T; ++u) q[u] = p[u * NN + nf];
-        block_mul_add<T, false>(Ck, NN, n, q, y);
-#pragma unroll
-        for (int u = 0; u < T; ++u) q[u] = p[u * NN + nb];
-        block_mul_add<T, true>(Ck, NN, nb, q, y);
-      }
+      for (int i = 0; i < T; ++i) pn[i] = p[i * NN + n];
+      ppt::stencil_row<T>(A, C, p, offs, n_off, N, n, pn, y);
 #pragma unroll
       for (int i = 0; i < T; ++i) {
         Ap[i * NN + n] = y[i];
@@ -219,10 +146,9 @@ int ppt_stencil_pcg(int t, const float* b, const float* A, const float* Minv,
                     const float* C, const int* offsets, int n_off, int N,
                     int maxiter, double tol, float* x, float* scratch,
                     int* it, void* stream) {
-  if (n_off < 0 || n_off > kMaxOffsets || N <= 0 || t != 6)
+  Offsets offs;
+  if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0 || t != 6)
     return static_cast<int>(cudaErrorInvalidValue);
-  Offsets offs = {};
-  for (int k = 0; k < n_off; ++k) offs.d[k] = offsets[k];
   // same rounding as (tol * tol) * |b|^2 with a float32 |b|^2
   const float tol2_scale = static_cast<float>(tol * tol);
   const size_t tN = static_cast<size_t>(t) * N;

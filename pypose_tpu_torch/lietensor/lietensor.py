@@ -4,10 +4,14 @@ Counterpart of ``pypose_tpu/lietensor/lietensor.py:32-340, 502-815``.  As
 in the JAX package, ``LieTensor`` is a thin wrapper (not a ``torch.Tensor``
 subclass): the storage tensor holds the data and ``ltype`` says which group
 or algebra it is.  This slice covers SO3/so3/SE3/se3, forward only, with
-the operations the pose-graph path uses; RxSO3/rxso3/Sim3/sim3 exist as
-types whose operations raise ``NotImplementedError`` until the
+the operations the pose-graph path uses, and the random factories
+(``randn``, ``pypose_tpu/lietensor/lietensor.py:215-217, 258-268,
+314-330``) on an explicit ``torch.Generator``; RxSO3/rxso3/Sim3/sim3 exist
+as types whose operations raise ``NotImplementedError`` until the
 remaining-groups slice ports them.
 """
+
+from numbers import Number
 
 import torch
 
@@ -77,6 +81,10 @@ class LieType:
     def identity(self, *size, dtype=torch.float32, device=None):
         self._missing('identity')
 
+    def randn(self, *size, sigma=1.0, generator=None, dtype=torch.float32,
+              device=None):
+        self._missing('randn')
+
     @staticmethod
     def to_tuple(size):
         out = ()
@@ -88,6 +96,43 @@ class LieType:
 
 def _data(x):
     return x.tensor() if isinstance(x, LieTensor) else x
+
+
+def _normal(generator, size, dtype):
+    """Standard normal draws on the generator's own device.  JAX keys
+    become an explicit generator: there is no global stream to fall back
+    on."""
+    if not isinstance(generator, torch.Generator):
+        raise TypeError('randn needs generator=torch.Generator(...); got '
+                        f'{type(generator).__name__}')
+    return torch.randn(size, generator=generator, dtype=dtype,
+                       device=generator.device)
+
+
+def _so3_randn(size, sigma, generator, dtype):
+    """Random axis times an N(0, sigma) angle (JAX draws: axis, angle)."""
+    if not isinstance(sigma, Number):
+        raise TypeError('so3 randn takes sigma as a single number')
+    data = _normal(generator, size + (3,), dtype)
+    dist = torch.linalg.norm(data, dim=-1, keepdim=True).clamp_min(
+        torch.finfo(dtype).tiny)
+    theta = sigma * _normal(generator, size + (1,), dtype)
+    return data / dist * theta
+
+
+def _se3_randn(size, sigma, generator, dtype):
+    """se3 noise with per-channel sigma: a number, ``(sigma_t, sigma_r)``
+    or ``(sx, sy, sz, sigma_r)``; rotation drawn first, as in JAX."""
+    if not isinstance(sigma, (tuple, list)):
+        sigma = (sigma,) * 4
+    elif len(sigma) == 2:
+        sigma = (sigma[0],) * 3 + (sigma[1],)
+    elif len(sigma) != 4:
+        raise ValueError('se3 randn takes sigma of size 1, 2 or 4')
+    rot = _so3_randn(size, sigma[-1], generator, dtype)
+    t_sigma = torch.tensor(sigma[:3], dtype=dtype, device=generator.device)
+    trans = t_sigma * _normal(generator, size + (3,), dtype)
+    return torch.cat([trans, rot], dim=-1)
 
 
 class _GroupType(LieType):
@@ -143,14 +188,24 @@ class _GroupType(LieType):
         data = torch.tensor(self._identity, dtype=dtype, device=device)
         return LieTensor(data.expand(size + data.shape), ltype=self)
 
+    def randn(self, *size, sigma=1.0, generator=None, dtype=torch.float32,
+              device=None):
+        """Exp of the algebra's randn, taken on the generator's device and
+        then moved, so one CPU generator gives the same values anywhere."""
+        x = self._algebra.randn(*size, sigma=sigma, generator=generator,
+                                dtype=dtype)
+        return LieTensor(x.Exp().tensor().to(device), ltype=self)
+
 
 class _AlgebraType(LieType):
     """so3 and se3: Exp to the group; identity is zero."""
 
-    def __init__(self, name, dimension, embedding, group_getter, exp):
+    def __init__(self, name, dimension, embedding, group_getter, exp,
+                 randn):
         super().__init__(name, dimension, embedding, dimension)
         self._group_getter = group_getter
         self._exp = exp
+        self._randn = randn
 
     def Exp(self, x):
         return LieTensor(self._exp(_data(x)), ltype=self._group_getter())
@@ -159,6 +214,13 @@ class _AlgebraType(LieType):
         size = self.to_tuple(size)
         return LieTensor(torch.zeros(size + self._dimension, dtype=dtype,
                                      device=device), ltype=self)
+
+    def randn(self, *size, sigma=1.0, generator=None, dtype=torch.float32,
+              device=None):
+        """Random algebra element, drawn on the generator's device and then
+        moved to ``device``."""
+        x = self._randn(self.to_tuple(size), sigma, generator, dtype)
+        return LieTensor(x.to(device), ltype=self)
 
 
 class _UnportedType(LieType):
@@ -175,13 +237,15 @@ SO3_type = _GroupType(
     'SO3', 4, 3, lambda: so3_type,
     dict(Log=op.SO3_Log, Act=op.SO3_Act, Mul=op.SO3_Mul, Inv=op.SO3_Inv,
          AdjXa=op.SO3_AdjXa, Matrix=op.SO3_Matrix), [0., 0., 0., 1.])
-so3_type = _AlgebraType('so3', 3, 4, lambda: SO3_type, op.so3_Exp)
+so3_type = _AlgebraType('so3', 3, 4, lambda: SO3_type, op.so3_Exp,
+                         _so3_randn)
 SE3_type = _GroupType(
     'SE3', 7, 6, lambda: se3_type,
     dict(Log=op.SE3_Log, Act=op.SE3_Act, Mul=op.SE3_Mul, Inv=op.SE3_Inv,
          AdjXa=op.SE3_AdjXa, Matrix=op.SE3_Matrix),
     [0., 0., 0., 0., 0., 0., 1.])
-se3_type = _AlgebraType('se3', 6, 7, lambda: SE3_type, op.se3_Exp)
+se3_type = _AlgebraType('se3', 6, 7, lambda: SE3_type, op.se3_Exp,
+                         _se3_randn)
 RxSO3_type = _UnportedType('RxSO3', 5, 5, 4)
 rxso3_type = _UnportedType('rxso3', 4, 5, 4)
 Sim3_type = _UnportedType('Sim3', 8, 8, 7)

@@ -2,9 +2,10 @@ r"""Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone into
 ``_build/lib<name>.so`` (listed in ``.gitignore``) at first use, for
-``sm_90a`` (H100).  The library is rebuilt when its source is newer.  A
-missing ``nvcc`` or a failed compile raises with the compiler's output;
-nothing falls back.  The compiler's report (``-Xptxas -v``: registers,
+``sm_90a`` (H100).  The library is rebuilt when its source, or a shared
+header ``csrc/*.cuh``, is newer.  :func:`build_all` runs one ``nvcc`` per
+source, all at once.  A missing ``nvcc`` or a failed compile raises with
+the compiler's output; nothing falls back.  The compiler's report (``-Xptxas -v``: registers,
 shared memory, spills) is kept beside the library as ``lib<name>.log``.
 """
 
@@ -36,23 +37,48 @@ def nvcc_path():
                        'build pypose_tpu_torch/csrc')
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` if its library is missing or older than
-    the source; returns the library's path."""
+def _stale(name):
     src = CSRC / f'{name}.cu'
     out = BUILD / f'lib{name}.so'
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
-        return out
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob('*.cuh')])
+    return out.stat().st_mtime < newest
+
+
+def build_all(names):
+    """Compile each ``csrc/<name>.cu`` whose library is missing or older
+    than its sources, in parallel nvcc processes; returns the libraries'
+    paths in the order of ``names``."""
     BUILD.mkdir(exist_ok=True)
-    tmp = BUILD / f'lib{name}.{os.getpid()}.so'
-    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}) building '
-                           f'{src}:\n{proc.stdout}{proc.stderr}')
-    (BUILD / f'lib{name}.log').write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a stub
-    return out
+    running = {}
+    for name in names:
+        if name in running or not _stale(name):
+            continue
+        tmp = BUILD / f'lib{name}.{os.getpid()}.so'
+        cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
+               str(CSRC / f'{name}.cu')]
+        running[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (tmp, proc) in running.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed ({proc.returncode}) building '
+                          f'{CSRC / name}.cu:\n{log}')
+            continue
+        (BUILD / f'lib{name}.log').write_text(log)
+        # atomic: a concurrent loader never sees a stub
+        os.replace(tmp, BUILD / f'lib{name}.so')
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return [BUILD / f'lib{name}.so' for name in names]
+
+
+def build(name):
+    """Compile ``csrc/<name>.cu`` if needed; returns the library's path."""
+    return build_all([name])[0]
 
 
 def load(name):

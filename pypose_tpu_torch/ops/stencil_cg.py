@@ -1,12 +1,24 @@
-r"""Whole-solve block-Jacobi PCG for stencil-form normal equations.
+r"""Block-Jacobi PCG for stencil-form normal equations: three solvers.
 
-Counterpart of ``pypose_tpu/ops/pallas_cg.py:36-128, 447-514``.  The
-Pallas kernel there (``_kernel``) becomes the hand-written CUDA kernel
-``csrc/stencil_cg.cu``, launched by :func:`stencil_cg_transposed` for
-CUDA tensors.  Its plain PyTorch version, :func:`_cg_body_torch`, is the
-same algorithm step for step; it runs for CPU tensors and is what tests
-and ``chip_smoke.py`` compare the kernel with.  On CUDA the wrapper
-launches the kernel or raises: it never falls back to the plain version.
+Counterpart of ``pypose_tpu/ops/pallas_cg.py``.  Each Pallas kernel there
+becomes a hand-written CUDA kernel, launched for CUDA tensors by its
+wrapper here; beside each wrapper is its plain PyTorch version, the same
+algorithm step for step, which runs for CPU tensors and is what tests and
+``chip_smoke.py`` compare the kernel with.  On CUDA a wrapper launches its
+kernel or raises: it never falls back to the plain version.
+
+- :func:`stencil_cg_transposed` (``pallas_cg.py:36-128``): the whole
+  solve in one launch of ``csrc/stencil_cg.cu``; plain version
+  :func:`_cg_body_torch`.  For systems within the L2 budget
+  (:func:`stencil_cg_fits`).
+- :func:`stencil_cg_tiled` (``pallas_cg.py:131-250``): per iteration one
+  matvec and one block-Jacobi launch of ``csrc/stencil_cg_tiled.cu``, the
+  CG state in torch ops; plain version :func:`_tiled_cg_torch`.  Past the
+  budget :func:`stencil_cg` routes here.
+- :func:`stencil_cg_fused` (``pallas_cg.py:253-444``): Chronopoulos-Gear
+  PCG in two fused launches of ``csrc/stencil_cg_fused.cu`` per
+  iteration, scalars on the device; plain version :func:`_fused_cg_torch`.
+  Nothing routes to it, as in the JAX package.
 
 Matvec (see ``ops/spmv.py``):
 
@@ -29,24 +41,41 @@ import torch
 
 from ._build import load
 
-# Launches of the CUDA kernel in this process (one per solve on the card).
+# Launches of each CUDA kernel in this process: the whole-solve kernel
+# (one per solve), the tiled matvec and block-Jacobi apply (one each per
+# CG iteration), and the fused passes (one each per iteration, plus the
+# init pass).
 LAUNCHES = 0
+TILED_MV_LAUNCHES = 0
+TILED_PC_LAUNCHES = 0
+FUSED_AXPY_LAUNCHES = 0
+FUSED_MV_LAUNCHES = 0
+
+# The tiled and fused solvers queue this many iterations between host
+# reads of their stop flag; a stopped solve makes the extra ones no-ops.
+CHECK_EVERY = 8
+
+# State of the fused kernels (csrc/stencil_cg_fused.cu, its enums): the
+# number of float scalars and of ints, and the index of the int that says
+# whether the next iteration runs.
+_FUSED_SCALARS, _FUSED_INTS, _FUSED_RUNNING = 9, 4, 1
 
 # The instantiated block size; StencilSpMV refuses more than 16 offsets.
 KERNEL_T = 6
 MAX_OFFSETS = 16
 
-# L2 budget for the kernel's operands and state.  The single-block kernel
-# is bounded by L2 bandwidth only while everything stays resident in the
-# H100's 50 MB L2; half of it leaves room for the rest of the LM step's
-# tensors.  Past it the one SM would stream from HBM: that size needs the
-# multi-SM or tiled kernels of the large-graph slice.
+# L2 budget for the whole-solve kernel's operands and state.  The
+# single-block kernel is bounded by L2 bandwidth only while everything
+# stays resident in the H100's 50 MB L2; half of it leaves room for the
+# rest of the LM step's tensors.  Past it the one SM would stream from
+# HBM, so larger systems take the tiled solver, whose grid spans all SMs.
 L2_BUDGET_BYTES = 25 * 10 ** 6
 
 
 def stencil_cg_fits(N, t, n_off):
-    """True when the kernel's operands (b, A, Minv, C), its output x and
-    its scratch (r, z, p, Ap) fit the L2 budget."""
+    """True when the whole-solve kernel's operands (b, A, Minv, C), its
+    output x and its scratch (r, z, p, Ap) fit the L2 budget; where False,
+    :func:`stencil_cg` takes the tiled route (an error nowhere)."""
     n_floats = N * (t + 2 * t * t + n_off * t * t + t + 4 * t)
     return 4 * n_floats <= L2_BUDGET_BYTES
 
@@ -100,22 +129,135 @@ def _cg_body_torch(A_T, Minv_T, C_T, b, offsets, t, maxiter, tol):
     return x, torch.tensor(it, dtype=torch.int32, device=b.device)
 
 
+def _dot(a, b):
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def _tiled_cg(matvec, precond, b, maxiter, tol):
+    """The CG iteration of ``pallas_cg.py:225-249`` around a matvec and a
+    preconditioner apply, with the ``while_loop``'s stop test on the
+    device: an ``active`` flag (|r|^2 > tol^2 |b|^2) zeroes alpha and
+    freezes the state once the solve is done and counts the iterations, so
+    the host reads it only every :data:`CHECK_EVERY` iterations.  Returns
+    the same x and count as the ``while_loop``."""
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    gamma = _dot(r, z)
+    rr = _dot(b, b)
+    tol2 = (tol * tol) * rr
+    p = z
+    it = torch.zeros((), dtype=torch.int32, device=b.device)
+    done = 0
+    while done < maxiter and bool(rr > tol2):
+        for _ in range(min(CHECK_EVERY, maxiter - done)):
+            active = rr > tol2
+            Ap = matvec(p)
+            denom = _dot(p, Ap)
+            alpha = torch.where(
+                active, gamma / torch.where(denom == 0, 1e-31, denom), 0.0)
+            x = torch.addcmul(x, alpha, p)
+            r = torch.addcmul(r, alpha, Ap, value=-1)
+            z = precond(r)
+            gamma_new = _dot(r, z)
+            beta = gamma_new / torch.where(gamma == 0, 1e-31, gamma)
+            p = torch.where(active, torch.addcmul(z, beta, p), p)
+            gamma = torch.where(active, gamma_new, gamma)
+            rr = torch.where(active, _dot(r, r), rr)
+            it = it + active
+            done += 1
+    return x, it
+
+
+def _tiled_cg_torch(A_T, Minv_T, C_T, b, offsets, t, maxiter, tol):
+    """Plain version of :func:`stencil_cg_tiled`: :func:`_tiled_cg` with
+    the plain matvec and block-Jacobi apply."""
+    return _tiled_cg(
+        lambda p: _stencil_matvec_torch(A_T, C_T, offsets, t, p),
+        lambda r: _block_mul(Minv_T, r, t), b, maxiter, tol)
+
+
+def _fused_cg_torch(A_T, Minv_T, C_T, b, offsets, t, maxiter, tol):
+    """Plain version of :func:`stencil_cg_fused`: the Chronopoulos-Gear
+    recursion of ``pallas_cg.py:408-444`` step for step, the init pass
+    (alpha = beta = 0 on zero u, p, s, w) included.  Reads |r|^2 on the
+    host once per iteration for the stop test."""
+
+    def axpy(alpha, beta, u, p, s, w, x, r):         # pass 1
+        p2 = u + beta * p
+        s2 = w + beta * s
+        x2 = x + alpha * p2
+        r2 = r - alpha * s2
+        u2 = _block_mul(Minv_T, r2, t)
+        return p2, s2, x2, r2, u2, torch.sum(r2 * u2), torch.sum(r2 * r2)
+
+    def matvec(u):                                   # pass 2
+        w = _stencil_matvec_torch(A_T, C_T, offsets, t, u)
+        return w, torch.sum(w * u)
+
+    zv = torch.zeros_like(b)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    _, _, x, r, u, gamma, rr = axpy(zero, zero, zv, zv, zv, zv, zv, b)
+    w, delta = matvec(u)
+    tol2 = (tol * tol) * rr
+    p = s = zv
+    gamma_pr = alpha_pr = torch.ones((), dtype=b.dtype, device=b.device)
+    it = 0
+    while it < maxiter and bool(rr > tol2):
+        if it == 0:
+            beta = zero
+            alpha = gamma / torch.where(delta == 0, 1e-31, delta)
+        else:
+            beta = gamma / torch.where(gamma_pr == 0, 1e-31, gamma_pr)
+            den = delta - beta * gamma / torch.where(alpha_pr == 0, 1e-31,
+                                                     alpha_pr)
+            alpha = gamma / torch.where(den == 0, 1e-31, den)
+        p, s, x, r, u, gamma_new, rr = axpy(alpha, beta, u, p, s, w, x, r)
+        w, delta = matvec(u)
+        gamma_pr, alpha_pr, gamma = gamma, alpha, gamma_new
+        it += 1
+    return x, torch.tensor(it, dtype=torch.int32, device=b.device)
+
+
 # ---------------------------------------------------------------------------
-# the kernel's wrapper
+# the kernels' wrappers
 # ---------------------------------------------------------------------------
 
+_INT, _PTR, _DBL = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
+
+# argument types of each library's C functions (all return an int)
+_SIGNATURES = {
+    'stencil_cg': {
+        'ppt_stencil_pcg': [_INT] + [_PTR] * 5 + [_INT] * 3 + [_DBL]
+        + [_PTR] * 4},
+    'stencil_cg_tiled': {
+        'ppt_tiled_mv': [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _PTR,
+                         _PTR],
+        'ppt_tiled_pc': [_INT, _PTR, _INT, _PTR, _PTR, _PTR]},
+    'stencil_cg_fused': {
+        'ppt_fused_slots': [_INT],
+        'ppt_fused_axpy': [_INT, _INT, _PTR, _INT] + [_PTR] * 10,
+        'ppt_fused_mv': [_INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR, _INT,
+                         _INT] + [_PTR] * 6},
+}
+
+
 @functools.cache
-def _kernel_lib():
-    lib = load('stencil_cg')
-    fn = lib.ppt_stencil_pcg
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_double]
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
+def _kernel_lib(name):
+    lib = load(name)
+    for fname, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.ppt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ppt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f'{what} launch failed: '
+                           + lib.ppt_cuda_error_string(rc).decode())
 
 
 def _check_operands(b_T, A_T, Minv_T, C_T, offsets, t):
@@ -130,6 +272,35 @@ def _check_operands(b_T, A_T, Minv_T, C_T, offsets, t):
         if tuple(a.shape) != shape:
             raise ValueError(f'{name} has shape {tuple(a.shape)}, '
                              f'expected {shape}')
+
+
+def _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t):
+    """What the CUDA kernels take: float32, contiguous, t = 6, at most 16
+    offsets, on a CUDA device."""
+    if b_T.device.type != 'cuda':
+        raise ValueError(f'unsupported device {b_T.device}')
+    for name, a in (('b_T', b_T), ('A_T', A_T), ('Minv_T', Minv_T),
+                    ('C_T', C_T)):
+        if a.dtype != torch.float32:
+            raise TypeError(f'{name} is {a.dtype}; the CUDA kernels take '
+                            'float32 only')
+        if not a.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    if t != KERNEL_T:
+        raise ValueError(f'the CUDA kernels are instantiated for '
+                         f't={KERNEL_T}, got t={t}')
+    if len(offsets) > MAX_OFFSETS:
+        raise ValueError(f'{len(offsets)} offsets > {MAX_OFFSETS}')
+
+
+def _c_offsets(offsets, N):
+    """Offsets as a host int array in [0, N), passed by value into the
+    kernels' parameter structs."""
+    return (ctypes.c_int * max(len(offsets), 1))(*(d % N for d in offsets))
+
+
+def _stream(a):
+    return torch.cuda.current_stream(a.device).cuda_stream
 
 
 def stencil_cg_transposed(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
@@ -147,37 +318,131 @@ def stencil_cg_transposed(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
     if b_T.device.type == 'cpu':
         return _cg_body_torch(A_T, Minv_T, C_T, b_T, offsets, t, maxiter,
                               tol)
-    if b_T.device.type != 'cuda':
-        raise ValueError(f'unsupported device {b_T.device}')
-    for name, a in (('b_T', b_T), ('A_T', A_T), ('Minv_T', Minv_T),
-                    ('C_T', C_T)):
-        if a.dtype != torch.float32:
-            raise TypeError(f'{name} is {a.dtype}; the CUDA kernel takes '
-                            'float32 only')
-        if not a.is_contiguous():
-            raise ValueError(f'{name} must be contiguous')
-    if t != KERNEL_T:
-        raise ValueError(f'the CUDA kernel is instantiated for t={KERNEL_T}'
-                         f', got t={t}')
-    if len(offsets) > MAX_OFFSETS:
-        raise ValueError(f'{len(offsets)} offsets > {MAX_OFFSETS}')
+    _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t)
     N = b_T.shape[1]
-    offs = (ctypes.c_int * max(len(offsets), 1))(*(d % N for d in offsets))
     x = torch.empty_like(b_T)
     scratch = torch.empty((4, t, N), dtype=torch.float32, device=b_T.device)
     it = torch.empty((1,), dtype=torch.int32, device=b_T.device)
-    lib = _kernel_lib()
+    lib = _kernel_lib('stencil_cg')
     with torch.cuda.device(b_T.device):
-        stream = torch.cuda.current_stream(b_T.device).cuda_stream
         rc = lib.ppt_stencil_pcg(
             t, b_T.data_ptr(), A_T.data_ptr(), Minv_T.data_ptr(),
-            C_T.data_ptr(), offs, len(offsets), N, int(maxiter), float(tol),
-            x.data_ptr(), scratch.data_ptr(), it.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError('stencil_pcg launch failed: '
-                           + lib.ppt_cuda_error_string(rc).decode())
+            C_T.data_ptr(), _c_offsets(offsets, N), len(offsets), N,
+            int(maxiter), float(tol), x.data_ptr(), scratch.data_ptr(),
+            it.data_ptr(), _stream(b_T))
+    _raise_on(lib, rc, 'stencil_pcg')
     LAUNCHES += 1
     return x, it[0]
+
+
+def stencil_cg_tiled(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
+    """Solve ``A x = b`` in the lane-major layout with the operands
+    streamed from device memory on every iteration (``pallas_cg.py:
+    stencil_cg_tiled``): zero initial guess, stop when |r|^2 <= tol^2
+    |b|^2 or at ``maxiter``, 1e-31 division guards.
+
+    Returns ``(x_T [t, N], iterations)``, the count a 0-d int32 tensor on
+    the operands' device.  CUDA tensors launch the matvec and
+    block-Jacobi kernels of ``csrc/stencil_cg_tiled.cu`` once each per
+    iteration (float32, contiguous, t = 6, at most 16 offsets; anything
+    else raises), with the CG state in torch ops; CPU tensors run
+    :func:`_tiled_cg_torch`.
+    """
+    offsets = tuple(int(d) for d in offsets)
+    _check_operands(b_T, A_T, Minv_T, C_T, offsets, t)
+    if b_T.device.type == 'cpu':
+        return _tiled_cg_torch(A_T, Minv_T, C_T, b_T, offsets, t, maxiter,
+                               tol)
+    _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t)
+    with torch.cuda.device(b_T.device):
+        return _tiled_cg(
+            lambda p: _tiled_mv_launch(A_T, C_T, p, offsets, t),
+            lambda r: _tiled_pc_launch(Minv_T, r, t),
+            b_T, maxiter, tol)
+
+
+def _tiled_mv_launch(A_T, C_T, p, offsets, t):
+    """``q = A p``: one launch of the tiled matvec kernel on the current
+    stream.  Unchecked (it runs once per CG iteration): takes operands
+    :func:`stencil_cg_tiled` has checked (CUDA, float32, contiguous,
+    t = 6)."""
+    global TILED_MV_LAUNCHES
+    lib = _kernel_lib('stencil_cg_tiled')
+    N = p.shape[1]
+    q = torch.empty_like(p)
+    _raise_on(lib, lib.ppt_tiled_mv(
+        t, A_T.data_ptr(), C_T.data_ptr(), _c_offsets(offsets, N),
+        len(offsets), N, p.data_ptr(), q.data_ptr(), _stream(p)),
+        'tiled_mv')
+    TILED_MV_LAUNCHES += 1
+    return q
+
+
+def _tiled_pc_launch(Minv_T, r, t):
+    """``z = Minv r``: one launch of the block-Jacobi kernel (operands as
+    :func:`_tiled_mv_launch`)."""
+    global TILED_PC_LAUNCHES
+    lib = _kernel_lib('stencil_cg_tiled')
+    z = torch.empty_like(r)
+    _raise_on(lib, lib.ppt_tiled_pc(
+        t, Minv_T.data_ptr(), r.shape[1], r.data_ptr(), z.data_ptr(),
+        _stream(r)), 'tiled_pc')
+    TILED_PC_LAUNCHES += 1
+    return z
+
+
+def stencil_cg_fused(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
+    """Solve ``A x = b`` in the lane-major layout by Chronopoulos-Gear PCG
+    (``pallas_cg.py:stencil_cg_fused`` with float32 operands): the same
+    answer as :func:`stencil_cg_tiled` up to rounding, with both dot
+    products of an iteration taken together.
+
+    Returns ``(x_T [t, N], iterations)``.  CUDA tensors launch the two
+    passes of ``csrc/stencil_cg_fused.cu`` per iteration, the scalar
+    recursion and the stop test on the device, the host reading the stop
+    flag every :data:`CHECK_EVERY` iterations (same checks as
+    :func:`stencil_cg_tiled`); CPU tensors run :func:`_fused_cg_torch`.
+    """
+    offsets = tuple(int(d) for d in offsets)
+    _check_operands(b_T, A_T, Minv_T, C_T, offsets, t)
+    if b_T.device.type == 'cpu':
+        return _fused_cg_torch(A_T, Minv_T, C_T, b_T, offsets, t, maxiter,
+                               tol)
+    _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t)
+    N = b_T.shape[1]
+    lib = _kernel_lib('stencil_cg_fused')
+    offs = _c_offsets(offsets, N)
+    dev = b_T.device
+    x, u, p, s, w = torch.zeros((5, t, N), dtype=torch.float32, device=dev)
+    r = b_T.clone()
+    sc = torch.zeros((_FUSED_SCALARS,), dtype=torch.float32, device=dev)
+    st = torch.zeros((_FUSED_INTS,), dtype=torch.int32, device=dev)
+    slots = torch.empty((lib.ppt_fused_slots(N),), dtype=torch.float32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        stream = _stream(b_T)
+
+        def iteration(init):
+            global FUSED_AXPY_LAUNCHES, FUSED_MV_LAUNCHES
+            _raise_on(lib, lib.ppt_fused_axpy(
+                t, init, Minv_T.data_ptr(), N, u.data_ptr(), p.data_ptr(),
+                s.data_ptr(), w.data_ptr(), x.data_ptr(), r.data_ptr(),
+                sc.data_ptr(), st.data_ptr(), slots.data_ptr(), stream),
+                'fused_axpy')
+            FUSED_AXPY_LAUNCHES += 1
+            _raise_on(lib, lib.ppt_fused_mv(
+                t, init, int(maxiter), float(tol), A_T.data_ptr(),
+                C_T.data_ptr(), offs, len(offsets), N, u.data_ptr(),
+                w.data_ptr(), sc.data_ptr(), st.data_ptr(), slots.data_ptr(),
+                stream), 'fused_mv')
+            FUSED_MV_LAUNCHES += 1
+
+        iteration(1)
+        for k in range(int(maxiter)):
+            if k % CHECK_EVERY == 0 and not bool(st[_FUSED_RUNNING]):
+                break
+            iteration(0)
+    return x, st[0]
 
 
 def fold_operands(b, Ablk, dcorr, Minv, C, offsets, fixed_mask=None):
@@ -218,8 +483,13 @@ def stencil_cg(b, Ablk, dcorr, Minv, C, offsets, fixed_mask=None,
         offsets: tuple of circular offsets.
         fixed_mask: optional bool [N]; fixed nodes are pinned to zero.
     Returns (x [N, t], iterations).
+
+    Systems within the L2 budget (:func:`stencil_cg_fits`) take the
+    whole-solve kernel, larger ones the tiled solver, on every device.
     """
+    N, t = b.shape
+    solve = stencil_cg_transposed if stencil_cg_fits(N, t, C.shape[0]) \
+        else stencil_cg_tiled
     operands = fold_operands(b, Ablk, dcorr, Minv, C, offsets, fixed_mask)
-    x_T, it = stencil_cg_transposed(*operands, offsets, b.shape[1], maxiter,
-                                    tol)
+    x_T, it = solve(*operands, offsets, t, maxiter, tol)
     return x_T.T, it

@@ -5,16 +5,20 @@ Counterpart of ``pypose_tpu/optim/sparse.py:40-92, 153-320, 356-450,
 is ever formed: per LM step the per-edge tangent-space Jacobian blocks
 come from a closed form, the normal equations are assembled per node
 (diagonal blocks) and per circular offset (coupling channels,
-``ops/spmv.py``), and the whole preconditioned CG solve runs as one
-launch of the CUDA kernel of ``ops/stencil_cg.py`` (its plain PyTorch
-version on the CPU).
+``ops/spmv.py``), and the preconditioned CG solve runs in the CUDA
+kernels of ``ops/stencil_cg.py`` (their plain PyTorch versions on the
+CPU): the whole solve in one launch while the system fits the L2 budget,
+else the tiled matvec and block-Jacobi kernels once per iteration.
 
-This slice ports the path the sphere2500 pose graph takes: every factor
-an arity-2 factor over one [N, d] group, all edges in one merged stencil,
-the block-Jacobi preconditioner, and a TrustRegion strategy.  Where the
-JAX package would route elsewhere (coupling-block SpMV, einsum CG, the
-chain/BCR preconditioner, robust kernels, autodiff Jacobians) this class
-raises ``NotImplementedError`` naming the ROADMAP slice that brings it.
+This class ports the path the sphere2500 and 100k-pose graphs take: every
+factor an arity-2 factor over one [N, d] group, all edges in one merged
+stencil, the block-Jacobi preconditioner, and a TrustRegion strategy.
+Where the JAX package would route elsewhere, this class raises
+``NotImplementedError`` naming the ROADMAP slice that brings it: graphs
+that need the coupling-block SpMV (``CouplingSpMV``) and the einsum CG
+with ``blockinv_scalar``, and the chain/BCR preconditioner
+(``precond='chain'``), both still to port in slice 2; robust kernels and
+autodiff Jacobians (later slices).
 
 The JAX package runs the LM reject loop and the plateau schedule inside
 ``lax.while_loop``; here they are Python loops that read one host scalar
@@ -27,7 +31,7 @@ import torch
 from ..lietensor.lietensor import LieTensor, SE3_type
 from ..ops.smallinv import blockinv
 from ..ops.spmv import StencilSpMV
-from ..ops.stencil_cg import stencil_cg, stencil_cg_fits
+from ..ops.stencil_cg import stencil_cg
 from .strategy import TrustRegion
 
 
@@ -368,24 +372,19 @@ class SparseLM:
 
     # ------------------------------------------------------------------
     def _check_route(self):
-        """Raise where the JAX package would leave the stencil kernel."""
+        """Raise where the JAX package would leave the stencil solvers
+        (any size: ``stencil_cg`` picks the whole-solve or tiled route)."""
         if self.precond == 'chain':
             raise NotImplementedError(
                 "precond='chain' (block-tridiagonal BCR preconditioner) "
-                'comes with the large-graph slice (ROADMAP Queue A, '
-                "slice 2); pass precond='jacobi'")
+                'is still to port in the large-graph slice (ROADMAP Queue '
+                "A, slice 2); pass precond='jacobi'")
         if self._stencil_all is None:
             raise NotImplementedError(
                 'this graph does not fit one merged stencil; the '
-                'coupling-block SpMV and the einsum CG come with the '
-                'large-graph slice (ROADMAP Queue A, slice 2)')
-        v = self.params[self._spmv_name]
-        N, t = v.shape[0], _tan_dim(v)
-        if not stencil_cg_fits(N, t, len(self._stencil_all.offsets)):
-            raise NotImplementedError(
-                f'N={N} exceeds the whole-solve kernel\'s L2 budget; '
-                'oversize graphs come with the large-graph slice (ROADMAP '
-                'Queue A, slice 2)')
+                'coupling-block SpMV (CouplingSpMV) and the einsum CG with '
+                'blockinv_scalar are still to port in the large-graph '
+                'slice (ROADMAP Queue A, slice 2)')
 
     def _core(self, params, strat):
         """One LM step: formation, then damping retries until a step is

@@ -6,8 +6,9 @@ Counterpart of ``pypose_tpu/testing/comparison.py:9-30`` (``assert_close``).
 the port's ``SparseLM`` from exactly the state the JAX package holds:
 the caller passes ``np.asarray(X.tensor())`` for each LieTensor, so both
 packages begin from bit-identical values.  ``random_stencil_system``
-makes the random SPD systems on which the CG kernel is held against its
-plain version.
+makes the random SPD systems on which the CG kernels are held against
+their plain versions, and ``instance_checksum`` identifies a generated
+pose-graph instance against a recorded anchor.
 """
 
 import numpy as np
@@ -74,6 +75,9 @@ def random_stencil_system(N, loop_offset, n_loops, fixed, generator,
     odometry chain plus ``n_loops`` loop edges on one circular offset,
     random 6x6 Jacobian blocks, LM damping 0.1, node 0 fixed if
     ``fixed`` (the generator of tests/ops/test_pallas_cg.py:make_system).
+    Drawn from ``generator`` on ``device``; the shapes the kernels are
+    held at are sphere2500's (2500, 157, 2000, True) and the 100k-pose
+    graph's (100_000, 993, 80_000, True), whose offsets are (1, 993).
     Returns (offsets, (b_T, A_T, Minv_T, C_T))."""
     from ..ops.smallinv import blockinv
     from ..ops.spmv import StencilSpMV
@@ -98,3 +102,14 @@ def random_stencil_system(N, loop_offset, n_loops, fixed, generator,
     return offsets, fold_operands(b, D, dcorr,
                                   blockinv(D + torch.diag_embed(dcorr)),
                                   sp.precompute(J, J), offsets, mask)
+
+
+def instance_checksum(ds):
+    """float64 sums of |nodes| and |poses| and the edge count of a pose
+    graph dict (``synthetic_sphere``, ``load_g2o``): enough to tell one
+    noise draw from another, on any device."""
+    def abs_sum(X):
+        return float(X.tensor().detach().double().abs().sum())
+    return {'nodes_abs_sum': abs_sum(ds['nodes']),
+            'poses_abs_sum': abs_sum(ds['poses']),
+            'n_edges': int(ds['edges'].shape[0])}

@@ -1,0 +1,97 @@
+"""The port's SparseLM on the tiled CG route (the route of graphs past the
+whole-solve kernel's L2 budget) against the JAX package's SparseLM, and
+stencil_cg's choice of route.  The route is forced at a small size by
+patching ``stencil_cg_fits`` where ``stencil_cg`` reads it
+(``pypose_tpu_torch.ops.stencil_cg``: SparseLM leaves the choice to
+stencil_cg).  The real 100k-pose graph is in
+test_torch_pgo100k_anchor.py.
+
+Tolerances as in test_torch_sparse_lm.py: chi2 per step rtol 1e-3 in
+float32 (CG to its 150-iteration cap, sums in another order) and 1e-8 in
+float64.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from pypose_tpu_torch.ops import stencil_cg as scg
+from pypose_tpu_torch.ops.spmv import StencilSpMV
+
+from test_torch_sparse_lm import jax_problem, torch_problem
+from test_torch_stencil_cg import make_system
+
+
+@pytest.fixture
+def tiled_route(monkeypatch):
+    """Every solve past the budget; counts the tiled and the whole-solve
+    plain versions' calls."""
+    calls = {'tiled': 0, 'whole': 0}
+
+    def spy(route, fn):
+        def wrapped(*args):
+            calls[route] += 1
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(scg, 'stencil_cg_fits', lambda *a: False)
+    monkeypatch.setattr(scg, '_tiled_cg_torch',
+                        spy('tiled', scg._tiled_cg_torch))
+    monkeypatch.setattr(scg, '_cg_body_torch',
+                        spy('whole', scg._cg_body_torch))
+    return calls
+
+
+def test_optimize_on_tiled_route_matches_jax_f32(tiled_route):
+    """synthetic_sphere(300) from the JAX package, carried over as numpy:
+    optimize(steps=4) on both sides, chi2 per step within rtol 1e-3."""
+    ds, jopt = jax_problem(300, jnp.float32)
+    topt = torch_problem(ds)
+    jopt.optimize(steps=4)
+    topt.optimize(steps=4)
+    assert len(topt.history) == len(jopt.history) == 4
+    np.testing.assert_allclose(topt.history, jopt.history, rtol=1e-3)
+    assert tiled_route['whole'] == 0
+    assert tiled_route['tiled'] == sum(len(s) for s in topt.cg_iterations)
+    assert all(0 < i <= 150 for s in topt.cg_iterations for i in s)
+
+
+def test_steps_on_tiled_route_match_jax_f64(tiled_route):
+    """float64 (the JAX optimize() cannot run under x64, so both packages
+    take four step() calls): chi2 per step within rtol 1e-8."""
+    with jax.enable_x64(True):
+        ds, jopt = jax_problem(300, jnp.float64)
+        jhist = [jopt.step() for _ in range(4)]
+    topt = torch_problem(ds)
+    assert topt.dtype == torch.float64
+    thist = [topt.step() for _ in range(4)]
+    np.testing.assert_allclose(thist, jhist, rtol=1e-8)
+    assert tiled_route['tiled'] >= 4 and tiled_route['whole'] == 0
+
+
+@pytest.mark.parametrize('fits', [True, False])
+def test_stencil_cg_picks_route_by_budget(monkeypatch, fits):
+    """stencil_cg takes the whole-solve route exactly where
+    stencil_cg_fits holds and the tiled route where it does not; either
+    way x is within the existing stencil tests' 5e-3 of the dense solve
+    (float32)."""
+    seen = []
+    monkeypatch.setattr(scg, 'stencil_cg_fits',
+                        lambda *a: seen.append(a) or fits)
+    for name in ('stencil_cg_transposed', 'stencil_cg_tiled'):
+        monkeypatch.setattr(scg, name, lambda *a, _fn=getattr(scg, name),
+                            _n=name: seen.append(_n) or _fn(*a))
+    edges, J, D, dcorr, Minv, b, A_dense = make_system(40, seed=3)
+    sp = StencilSpMV(edges, 40, 6)
+    x, it = scg.stencil_cg(
+        torch.from_numpy(b), torch.from_numpy(D), torch.from_numpy(dcorr),
+        torch.from_numpy(Minv),
+        sp.precompute(torch.from_numpy(J), torch.from_numpy(J)),
+        tuple(sp.offsets), maxiter=400, tol=1e-7)
+    assert seen == [(40, 6, 2), 'stencil_cg_transposed' if fits
+                    else 'stencil_cg_tiled']
+    x_ref = np.linalg.solve(A_dense, b.reshape(-1)).reshape(b.shape)
+    np.testing.assert_allclose(x.numpy(), x_ref, rtol=5e-3, atol=5e-4)
