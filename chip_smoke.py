@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's pose-graph paths once on one NVIDIA GPU and
-check them: sphere2500 through the whole-solve CG kernel, and a 100k-pose
-graph through the tiled CG kernels.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU and check them:
+sphere2500 through the whole-solve CG kernel, a 100k-pose graph through
+the tiled CG kernels, and ICP on 100k-point clouds through the
+nearest-neighbour kernel.
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
      turns TF32 off.
   2. build: compiles pypose_tpu_torch/csrc/stencil_cg{,_tiled,_fused}.cu,
-     one nvcc each, all at once (timed as set-up); prints ptxas' registers
-     and shared memory.
+     knn.cu and se3.cu, one nvcc each, all at once (timed as set-up);
+     prints ptxas' registers and shared memory.
   3. kernel vs plain, on the same random SPD stencil systems on the card,
      each timed with CUDA events (median of 7):
      - the whole-solve kernel at N=40 and at sphere2500's shape (N=2500,
@@ -18,7 +19,13 @@ Phases (any failure raises, so the script exits non-zero):
        100k shape (offsets (1, 993), node 0 fixed) with tol 1e-3 /
        maxiter 250 and with tol 0 / 250 iterations, fused beside tiled;
      - the tiled matvec and block-Jacobi kernels alone, one launch each,
-       at the 100k shape.
+       at the 100k shape;
+     - nn1 at 100k x 100k on ICP's clouds, and nnk at k = 4 and 16 on a
+       20k x 100k slice of them: indices equal on >= 99.99% of rows, d^2
+       within 1e-6 (|a|^2 + |b|^2) + 1e-6 everywhere;
+     - se3_mul/se3_act at N = 100,000 and 100,003, within
+       1e-6 (1 + max|input|); timed per call over 50 calls and, with
+       torch.profiler, by the device time of their kernels.
   4. sphere2500 slice: data/synthetic_sphere2500_seed42.g2o through
      load_g2o, split_chain_edges, pgo_factor and two SparseLM.optimize
      phases (cg_iter 150 then 1200, cg_tol 1e-9), cold then warm; the
@@ -32,7 +39,17 @@ Phases (any failure raises, so the script exits non-zero):
      final chi2 must be within 1e-3 relative of the JAX package's on the
      same instance, the tiled kernels must have been launched and the
      whole-solve kernel not.
-  6. prints the kernels' JSON line, the card line and the result line.
+  6. ICP, card against CPU: the same 9,000-point instance (81M pairs, the
+     auto-tiled knn route) on the card (nn1 kernel) and on the CPU (the
+     chunked Gram path, which the CPU tests hold against the JAX
+     package), 8 sweeps each; transforms within 1e-5 in
+     |Log(T_card^-1 T_cpu)|_inf.
+  7. ICP slice: bench.py:bench_modules' ICP (100,000 points x 3 scaled by
+     5.0, target T.Act(src) with T = randn_SE3(sigma=(0.3, 0.05)),
+     ReduceToBason(steps=8, patience=8, tol=1e-9)), cold then warm: ms per
+     run and per sweep, sweeps, align error |Log(T_est^-1 T)|_inf <= 1e-4,
+     and nn1 launched on every sweep of the cold run.
+  8. prints the kernels' JSON line, the card line and the result line.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -64,6 +81,23 @@ def cuda_ms(fn, repeat=7):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), out
+
+
+def device_ms(fn, calls=50):
+    """Device time per call of ``fn`` in ms: the sum of the kernels'
+    times that torch.profiler records over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if not e.key.startswith('aten::'))
+    check(total_us > 0, 'torch.profiler recorded no device time')
+    return total_us / calls / 1e3
 
 
 def stencil_system(N, loop_offset, n_loops, fixed):
@@ -165,19 +199,29 @@ def tiled_kernels_vs_plain(system, launches=20):
     return out
 
 
-COUNTERS = ('LAUNCHES', 'TILED_MV_LAUNCHES', 'TILED_PC_LAUNCHES',
-            'FUSED_AXPY_LAUNCHES', 'FUSED_MV_LAUNCHES')
+# each kernel module's launch counters
+COUNTERS = {
+    'stencil_cg': ('LAUNCHES', 'TILED_MV_LAUNCHES', 'TILED_PC_LAUNCHES',
+                   'FUSED_AXPY_LAUNCHES', 'FUSED_MV_LAUNCHES'),
+    'knn': ('NN1_LAUNCHES', 'NNK_LAUNCHES'),
+    'se3': ('SE3_MUL_LAUNCHES', 'SE3_ACT_LAUNCHES')}
+
+
+def _counters():
+    """(module, its counter names) for each kernel module."""
+    from pypose_tpu_torch import ops
+    return [(getattr(ops, mod), names) for mod, names in COUNTERS.items()]
 
 
 def reset_counts():
-    from pypose_tpu_torch.ops import stencil_cg as scg
-    for name in COUNTERS:
-        setattr(scg, name, 0)
+    for mod, names in _counters():
+        for name in names:
+            setattr(mod, name, 0)
 
 
 def read_counts():
-    from pypose_tpu_torch.ops import stencil_cg as scg
-    return {name: getattr(scg, name) for name in COUNTERS}
+    return {name: getattr(mod, name) for mod, names in _counters()
+            for name in names}
 
 
 def sphere2500_problem(dev):
@@ -382,12 +426,174 @@ def pgo100k_slice(dev):
     return counts
 
 
+def icp_instance(N, dev):
+    """bench.py:bench_modules' ICP instance: N points x 3 scaled by 5.0
+    (from torch.Generator seed 0) and T = randn_SE3(sigma=(0.3, 0.05))
+    (seed 3), target T.Act(src); made on the CPU, then moved, so every
+    device sees the same values.  Returns (src, T, tgt) on ``dev``."""
+    import torch
+    import pypose_tpu_torch as ppt
+    src = torch.randn((N, 3), generator=torch.Generator().manual_seed(0)) \
+        * 5.0
+    T = ppt.randn_SE3(sigma=(0.3, 0.05),
+                      generator=torch.Generator().manual_seed(3))
+    return src.to(dev), T.to(dev), T.Act(src).to(dev)
+
+
+def icp_stepper():
+    from pypose_tpu_torch.utils import ReduceToBason
+    return ReduceToBason(steps=8, patience=8, tol=1e-9)
+
+
+def align_err(T_est, T):
+    return float((T_est.Inv() @ T).Log().tensor().abs().max())
+
+
+def knn_vs_plain(name, kernel, plain, ref, nbr):
+    """A knn kernel against its plain version on the same clouds: indices
+    equal on >= 99.99% of rows, and d^2 (each row's k values, ascending)
+    within 1e-6 (|a|^2 + |b|^2) + 1e-6 of the plain version's everywhere,
+    so also on rows whose neighbours differ.  Returns (max|d2 error|,
+    kernel ms, plain ms)."""
+    import torch
+    k_ms, (d_k, i_k) = cuda_ms(kernel)
+    p_ms, (d_p, i_p) = cuda_ms(plain)
+    d_k, i_k = d_k.reshape(len(ref), -1), i_k.reshape(len(ref), -1)
+    d_p, i_p = d_p.reshape(len(ref), -1), i_p.reshape(len(ref), -1)
+    an = (ref * ref).sum(-1, keepdim=True)
+    bn = (nbr * nbr).sum(-1)[i_p]
+    bound = 1e-6 * (an + bn) + 1e-6
+    err = float((d_k - d_p).abs().max())
+    same_rows = float((i_k == i_p).all(-1).double().mean())
+    bitwise = bool(torch.equal(d_k, d_p) and torch.equal(i_k, i_p))
+    print(f'[kernel] {name}: {tuple(ref.shape)} x {tuple(nbr.shape)}, k='
+          f'{d_k.shape[1]}: rows with equal indices {same_rows:.6f}; '
+          f'max|d2_k - d2_p| {err:.3e} (bound >= {float(bound.min()):.3e}); '
+          f'bitwise equal {bitwise}; kernel {k_ms:.4f} ms, plain '
+          f'{p_ms:.4f} ms, median of 7', flush=True)
+    check(bool(torch.isfinite(d_k).all()), f'{name}: d2 not finite')
+    check(same_rows >= 0.9999, f'{name}: indices differ on more than 0.01% '
+          'of rows')
+    check(bool(((d_k - d_p).abs() <= bound).all()),
+          f'{name}: d2 outside the bound')
+    return err, k_ms, p_ms
+
+
+def point_kernels_vs_plain(dev):
+    """nn1, nnk and the SE3 kernels against their plain versions at the
+    ICP slice's shapes; returns {kernel: (err, ms, plain ms)}, the SE3
+    entries with the device ms of kernel and plain version appended."""
+    import torch
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.lietensor import operation as op
+    from pypose_tpu_torch.ops import knn as K, se3 as S
+    src, _, tgt = icp_instance(100_000, dev)
+    out = {'nn1': knn_vs_plain('nn1, ICP clouds', lambda: K.nn1(src, tgt),
+                               lambda: K._nn1_torch(src, tgt), src, tgt)}
+    ref = src[:20_000].contiguous()
+    for k in (4, 16):
+        out[f'nnk{k}'] = knn_vs_plain(
+            'nnk, ICP clouds', lambda: K.nnk(ref, tgt, k),
+            lambda: K._nnk_torch(ref, tgt, k), ref, tgt)
+    gen = torch.Generator().manual_seed(5)
+    for N in (100_000, 100_003):
+        X = ppt.randn_SE3(N, sigma=2.0, generator=gen).tensor().to(dev)
+        Y = ppt.randn_SE3(N, sigma=2.0, generator=gen).tensor().to(dev)
+        p = (5.0 * torch.randn((N, 3), generator=gen)).to(dev)
+        for kname, kern, plain, other in (
+                ('se3_mul', S.se3_mul_fused, op.SE3_Mul, Y),
+                ('se3_act', S.se3_act_fused, op.SE3_Act, p)):
+            err = float((kern(X, other) - plain(X, other)).abs().max())
+            bound = 1e-6 * (1 + max(float(X.abs().max()),
+                                    float(other.abs().max())))
+            check(err <= bound, f'{kname} disagrees with its plain version')
+            if kname in out:              # N = 100,003: correctness only
+                out[kname] = (max(err, out[kname][0]), *out[kname][1:])
+                print(f'[kernel] {kname}: N={N}: max|z_k - z_p| {err:.3e} '
+                      f'(bound {bound:.3e})', flush=True)
+                continue
+            # per call over 50 calls (the wrapper's host cost shows here),
+            # and the device time of the calls' kernels alone
+            k_ms, _ = cuda_ms(lambda: [kern(X, other) for _ in range(50)])
+            p_ms, _ = cuda_ms(lambda: [plain(X, other) for _ in range(50)])
+            k_dev, p_dev = (device_ms(lambda: kern(X, other)),
+                            device_ms(lambda: plain(X, other)))
+            print(f'[kernel] {kname}: N={N}: max|z_k - z_p| {err:.3e} '
+                  f'(bound {bound:.3e}); per call over 50 calls: kernel '
+                  f'{20 * k_ms:.2f} us, plain {20 * p_ms:.2f} us (CUDA '
+                  f'events, median of 7); device time per call: kernel '
+                  f'{1e3 * k_dev:.2f} us, plain {1e3 * p_dev:.2f} us '
+                  '(torch.profiler)', flush=True)
+            out[kname] = (err, k_ms / 50, p_ms / 50, k_dev, p_dev)
+    return out
+
+
+def icp_card_vs_cpu(dev):
+    """One 9,000-point instance through ICP on the card and on the CPU."""
+    import pypose_tpu_torch as ppt
+    est = {}
+    for d in (dev, 'cpu'):
+        src, T, tgt = icp_instance(9000, d)
+        est[str(d)] = ppt.ICP(stepper=icp_stepper())(src, tgt).to('cpu')
+    card, cpu = est[str(dev)], est['cpu']
+    T = icp_instance(9000, 'cpu')[1]
+    gap = align_err(card, cpu)
+    print(f'[icp-9000] |Log(T_card^-1 T_cpu)|_inf {gap:.3e} (bound 1e-5); '
+          f'align err card {align_err(card, T):.3e}, CPU '
+          f'{align_err(cpu, T):.3e}', flush=True)
+    check(gap <= 1e-5, 'ICP at 9,000 points disagrees between card and CPU')
+
+
+def icp_slice(dev):
+    """ICP at 100k points, cold then warm; returns the cold run's launch
+    counts."""
+    import torch
+    import pypose_tpu_torch as ppt
+
+    t0 = time.perf_counter()
+    src, T, tgt = icp_instance(100_000, dev)
+    icp = ppt.ICP(stepper=icp_stepper())
+    torch.cuda.synchronize()
+    print(f'[icp] set-up: clouds and ICP in {time.perf_counter() - t0:.3f} '
+          f's; {src.shape[0]} points, T = {T.tensor().tolist()}', flush=True)
+
+    def run(label):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        ev[0].record()
+        T_est = icp(src, tgt)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        ms = ev[0].elapsed_time(ev[1])
+        sweeps = icp.stepper.steps
+        err = align_err(T_est, T)
+        print(f'[icp] {label}: {sweeps} sweeps in {ms:.3f} ms (CUDA events; '
+              f'host {1e3 * wall:.3f} ms), {ms / sweeps:.3f} ms/sweep; '
+              f'align err {err:.3e} (bound 1e-4)', flush=True)
+        check(tuple(T_est.shape) == (7,), f'T has shape {tuple(T_est.shape)}')
+        check(bool(torch.isfinite(T_est.tensor()).all()), 'T is not finite')
+        check(err <= 1e-4, f'ICP align error {err} above 1e-4')
+        return sweeps
+
+    reset_counts()
+    sweeps = run('cold')
+    counts = read_counts()
+    # one association per sweep, and one more for the returned transform
+    check(counts['NN1_LAUNCHES'] == sweeps + 1,
+          f'nn1 launched {counts["NN1_LAUNCHES"]} times over {sweeps} sweeps')
+    print(f'[icp] cold run launch counts {counts}', flush=True)
+    run('warm')
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
                          'this script needs an NVIDIA GPU')
-    from pypose_tpu_torch.ops import _build
+    from pypose_tpu_torch.ops import _build, knn, se3
     from pypose_tpu_torch.ops import stencil_cg as scg
     from pypose_tpu_torch.optim.sparse import require_full_fp32
 
@@ -403,11 +609,13 @@ def main():
           f'{torch.cuda.device_count()} visible', flush=True)
 
     # 2. build: one nvcc per source, all at once
-    libs = ('stencil_cg', 'stencil_cg_tiled', 'stencil_cg_fused')
+    stencil = ('stencil_cg', 'stencil_cg_tiled', 'stencil_cg_fused')
     t0 = time.perf_counter()
-    paths = _build.build_all(libs)
-    for name in libs:
+    paths = _build.build_all(stencil + ('knn', 'se3'))
+    for name in stencil:
         scg._kernel_lib(name)
+    knn._kernel_lib()
+    se3._kernel_lib()
     print(f'[build] {", ".join(p.name for p in paths)} ready in '
           f'{time.perf_counter() - t0:.2f} s (set-up)', flush=True)
     for path in paths:
@@ -433,13 +641,16 @@ def main():
                                      big_system, 250, 0.0)
     alone = tiled_kernels_vs_plain(big_system)
     del big_system
+    point = point_kernels_vs_plain(dev)
 
-    # 4. and 5. the paths, each counted from zero over its cold run
+    # 4., 5. and 7. the paths, each counted from zero over its cold run
     first_step_agreement(dev)
     sphere_counts = sphere2500_slice(dev)
     pgo_counts = pgo100k_slice(dev)
+    icp_card_vs_cpu(dev)
+    icp_counts = icp_slice(dev)
 
-    # 6. results
+    # 8. results
     def route_err(route):
         return max(r[route][0] for r in (small, big, full))
 
@@ -471,6 +682,31 @@ def main():
             ms=full['fused'][1], plain_ms=full['fused'][2],
             ms_of='one 250-iteration fused solve (both passes), 100k shape',
             routed=False))
+    knn_src, se3_src = src + 'knn.cu', src + 'se3.cu'
+    kernels += [
+        dict(name='nn1', route='cuda', source=knn_src,
+             replaces='pypose_tpu/ops/pallas_knn.py:22',
+             launches=icp_counts['NN1_LAUNCHES'],
+             max_abs_err=point['nn1'][0], ms=point['nn1'][1],
+             plain_ms=point['nn1'][2], ms_of='100k x 100k, ICP clouds'),
+        dict(name='nnk', route='cuda', source=knn_src,
+             replaces='pypose_tpu/ops/pallas_knn.py:50',
+             launches=icp_counts['NNK_LAUNCHES'],
+             max_abs_err=max(point['nnk4'][0], point['nnk16'][0]),
+             ms=point['nnk16'][1], plain_ms=point['nnk16'][2],
+             ms_k4=point['nnk4'][1], plain_ms_k4=point['nnk4'][2],
+             ms_of='k=16 (ms_k4: k=4), 20k x 100k slice of the ICP clouds',
+             routed=False)]
+    for kname, line in (('se3_mul', '51'), ('se3_act', '68')):
+        kernels.append(dict(
+            name=kname, route='cuda', source=se3_src,
+            replaces='pypose_tpu/ops/pallas_se3.py:' + line,
+            launches=icp_counts[kname.upper() + '_LAUNCHES'],
+            max_abs_err=point[kname][0], ms=point[kname][1],
+            plain_ms=point[kname][2], device_ms=point[kname][3],
+            plain_device_ms=point[kname][4],
+            ms_of='per call over 50 calls, N=100,000 (device_ms: kernel '
+                  'time alone, torch.profiler)', routed=False))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -2,20 +2,33 @@ r"""pypose_tpu_torch: the PyTorch / CUDA port of ``pypose_tpu``.
 
 Counterpart of ``pypose_tpu/__init__.py:1``.  The package mirrors the JAX
 package's file layout; each module names its JAX counterpart.  It imports
-torch and numpy, never jax.  It covers the pose-graph path of the
-sphere2500 and 100k-pose graphs: the SO3/SE3 Lie core (forward) with its
-random factories, the scalarized PGO blocks, g2o IO and the synthetic
-sphere graph, the stencil normal equations, the stencil CG kernels
-(``csrc/stencil_cg.cu`` whole-solve, ``csrc/stencil_cg_tiled.cu`` and
-``csrc/stencil_cg_fused.cu`` for systems past its L2 budget) and
-``optim.sparse.SparseLM``.
+torch and numpy, never jax.  It covers two paths:
+
+- pose graphs (sphere2500 and 100k poses): the SO3/SE3 Lie core (forward)
+  with its random factories, views and matrix conversions, the scalarized
+  PGO blocks, g2o IO and the synthetic sphere graph, the stencil normal
+  equations, the stencil CG kernels (``csrc/stencil_cg.cu`` whole-solve,
+  ``csrc/stencil_cg_tiled.cu`` and ``csrc/stencil_cg_fused.cu`` for
+  systems past its L2 budget) and ``optim.sparse.SparseLM``;
+- point clouds: ``module.ICP`` over ``function.geometry.knn`` (the
+  nearest-neighbour kernels of ``csrc/knn.cu``) and ``svdtf``, with
+  ``utils.ReduceToBason``.  The SE3 composition and action kernels of
+  ``csrc/se3.cu`` (``ops.se3``) sit beside them, not routed.
 """
 
 from . import lietensor  # noqa: F401
 from . import datasets  # noqa: F401
 from . import ops  # noqa: F401
 from . import optim  # noqa: F401
+from . import function  # noqa: F401
+from . import utils  # noqa: F401
+from . import module  # noqa: F401
 from . import testing  # noqa: F401
 from .lietensor import (  # noqa: F401
     LieTensor, SO3, so3, SE3, se3, identity_SO3, identity_so3, identity_SE3,
-    identity_se3, randn_SO3, randn_so3, randn_SE3, randn_se3, euler2SO3)
+    identity_se3, randn_SO3, randn_so3, randn_SE3, randn_se3, euler2SO3,
+    mat2SO3, mat2SE3)
+from .function import (  # noqa: F401
+    KNNResult, knn, svdtf, is_lietensor, is_SE3)
+from .module import ICP  # noqa: F401
+from .utils import ReduceToBason  # noqa: F401

@@ -1,0 +1,123 @@
+r"""Nearest neighbours and rigid alignment: ``knn`` and ``svdtf``.
+
+Counterpart of ``pypose_tpu/function/geometry.py:22, 102-229``.  ``knn``
+keeps the JAX package's routes: the dense distance matrix up to 64 Mi
+pairs, above it (or with an explicit ``chunk``) :func:`_knn_tiled`, which
+sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel
+(``ops/knn.py``, in place of the JAX package's TPU test) and takes the
+chunked Gram form everywhere else.  Indices are int64 (torch's index
+type), where the JAX package returns int32.  Ties go to the lower index,
+as ``jax.lax.top_k`` gives them, through stable sorts.
+"""
+
+from collections import namedtuple
+
+import torch
+
+from ..lietensor.convert import mat2SE3
+from ..ops import knn as knn_ops
+from ..optim.sparse import require_full_fp32
+
+KNNResult = namedtuple('KNNResult', ['values', 'indices'])
+
+# Above this many pairs knn streams [chunk, N] tiles (geometry.py:127).
+_DENSE_PAIRS = 64 * 1024 * 1024
+
+
+def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
+        chunk=None):
+    """The ``k`` nearest (or, with ``largest``, farthest) ``nbr`` points
+    ``(*, N, D)`` of each ``ref`` point ``(*, R, D)`` in the ``ord`` norm:
+    ``KNNResult(values (*, R, k), indices (*, R, k))``, ascending
+    (descending with ``largest``).  ``sorted`` is accepted for the
+    signature's sake; results are always sorted.
+
+    Two-dimensional clouds with ``ord=2`` above 64 Mi pairs, or with an
+    explicit ``chunk``, go through :func:`_knn_tiled`; everything else
+    forms the dense ``(*, R, N)`` distance matrix.  On CUDA that route
+    takes the ``nn1`` kernel for k = 1, which raises for clouds other than
+    float32 with at most ``ops.knn.MAX_DIM`` coordinates.
+
+    Example:
+        >>> import torch
+        >>> from pypose_tpu_torch.function.geometry import knn
+        >>> ref = torch.tensor([[0., 0., 0.]])
+        >>> nbr = torch.tensor([[5., 0., 0.], [1., 0., 0.], [3., 0., 0.]])
+        >>> knn(ref, nbr, k=2).indices
+        tensor([[1, 2]])
+    """
+    R, N = ref.shape[-2], nbr.shape[-2]
+    flat = ref.ndim == 2 and nbr.ndim == 2
+    auto_tiled = chunk is None and ord == 2 and flat and R * N > _DENSE_PAIRS
+    if (chunk is not None or auto_tiled) and ord == 2 and flat:
+        if chunk is None:
+            chunk = max(128, _DENSE_PAIRS // max(N, 1))
+        return _knn_tiled(ref, nbr, k, largest, chunk)
+    diff = ref[..., :, None, :] - nbr[..., None, :, :]
+    dist = torch.linalg.vector_norm(diff, ord=ord, dim=dim)
+    values, indices = torch.sort(dist, dim=-1, descending=largest,
+                                 stable=True)
+    return KNNResult(values[..., :k], indices[..., :k])
+
+
+def _knn_tiled(ref, nbr, k, largest, chunk):
+    """Gram-form kNN of ``[R, D]`` in ``[N, D]``: k = 1 (not ``largest``)
+    on CUDA launches the ``nn1`` kernel; otherwise ``[chunk, N]`` distance
+    tiles, one ref chunk at a time (the JAX package's ``lax.map`` path,
+    which clamps d^2 at 0 before it picks).  Float32 Gram cancellation
+    can only swap neighbours whose true distances differ by less."""
+    R, N = ref.shape[0], nbr.shape[0]
+    if k == 1 and k <= N and not largest and ref.device.type == 'cuda':
+        d2, idx = knn_ops.nn1(ref.contiguous(), nbr.contiguous())
+        return KNNResult(torch.sqrt(d2)[:, None], idx[:, None])
+    require_full_fp32(ref.device)
+    nbr2 = torch.sum(nbr * nbr, dim=-1)
+    values, indices = [], []
+    for s in range(0, R, chunk):
+        tile = ref[s:s + chunk]
+        g = torch.matmul(tile, nbr.T)
+        d2 = (torch.sum(tile * tile, dim=-1)[:, None] + nbr2[None, :]
+              - 2.0 * g).clamp_min(0.0)
+        if k == 1:
+            idx = (torch.argmax(d2, dim=-1) if largest
+                   else torch.argmin(d2, dim=-1))[:, None]
+            val = d2.gather(-1, idx)
+        else:
+            val, idx = torch.sort(d2, dim=-1, descending=largest,
+                                  stable=True)
+            val, idx = val[:, :k], idx[:, :k]
+        values.append(torch.sqrt(val))
+        indices.append(idx)
+    return KNNResult(torch.cat(values), torch.cat(indices))
+
+
+def svdtf(source, target):
+    r"""Rigid alignment (Kabsch): the SE3 ``T`` minimizing
+    :math:`\sum_i \|T \cdot s_i - t_i\|^2` for ``(*, N, 3)`` clouds, where
+    a rotation with det(R) = -1 (within 1e-6) is negated, as in the JAX
+    package.  The 3x3 SVD and determinant go through torch.linalg (on CUDA,
+    cuSOLVER, which reads back to the host); TF32 is turned off.
+
+    Example:
+        >>> import torch
+        >>> from pypose_tpu_torch.function.geometry import svdtf
+        >>> src = torch.tensor([[0., 0, 0], [1, 0, 0], [0, 2, 0], [0, 0, 3]])
+        >>> T = svdtf(src, src + torch.tensor([1., 2., 3.])).tensor()
+        >>> bool(torch.allclose(T, torch.tensor([1., 2., 3., 0, 0, 0, 1]),
+        ...                     atol=1e-6))
+        True
+    """
+    if source.shape[-2] != target.shape[-2]:
+        raise ValueError('The number of points N has to be the same for '
+                         'both point clouds.')
+    require_full_fp32(source.device)
+    ctnsource = source.mean(dim=-2, keepdim=True)
+    ctntarget = target.mean(dim=-2, keepdim=True)
+    M = torch.einsum('...Na,...Nb->...ab', target - ctntarget,
+                     source - ctnsource)
+    U, _, Vh = torch.linalg.svd(M)
+    R = U @ Vh
+    flip = torch.abs(torch.linalg.det(R) + 1) < 1e-6
+    R = torch.where(flip[..., None, None], -R, R)
+    t = ctntarget.mT - R @ ctnsource.mT
+    return mat2SE3(torch.cat([R, t], dim=-1), check=False)

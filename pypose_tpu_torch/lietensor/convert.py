@@ -1,12 +1,122 @@
 r"""Conversions into LieTensors.
 
-Counterpart of ``pypose_tpu/lietensor/convert.py:239-268`` (``euler2SO3``);
-the rest of that module comes with the remaining-groups slice.
+Counterpart of ``pypose_tpu/lietensor/convert.py:24-158`` (``mat2SO3``,
+``mat2SE3`` and their checks) and ``:239-268`` (``euler2SO3``); the Sim3
+and RxSO3 conversions come with the remaining-groups slice.
 """
+
+import warnings
 
 import torch
 
-from .lietensor import LieTensor, SO3_type
+from .lietensor import LieTensor, SO3_type, SE3_type
+
+
+def _check_shape(mat):
+    mat = torch.as_tensor(mat)
+    if mat.ndim < 2:
+        raise ValueError('Input size must be at least 2 dimensions. Got '
+                         f'{tuple(mat.shape)}')
+    if tuple(mat.shape[-2:]) not in ((3, 3), (3, 4), (4, 4)):
+        raise ValueError('Input size must be a * x 3 x 3 or * x 3 x 4 or '
+                         f'* x 4 x 4 tensor. Got {tuple(mat.shape)}')
+    return mat
+
+
+def _check_rotation(mat, rtol, atol):
+    e0 = mat @ mat.mT
+    e1 = torch.eye(3, dtype=mat.dtype, device=mat.device).expand(e0.shape)
+    if not torch.allclose(e0, e1, rtol=rtol, atol=atol):
+        raise ValueError('Input rotation matrices are not all orthogonal '
+                         'matrix')
+    det = torch.linalg.det(mat)
+    if not torch.allclose(det, torch.ones_like(det), rtol=rtol, atol=atol):
+        raise ValueError("Input rotation matrices' determinant are not all "
+                         "equal to 1")
+
+
+def mat2SO3(mat, check=True, rtol=1e-5, atol=1e-5):
+    r"""Rotation matrices ``(*, 3, 3)`` (or the upper-left block of
+    ``(*, 3, 4)`` / ``(*, 4, 4)``) to SO3 quaternions ``(*, 4)``.
+
+    The four-branch extraction (one branch per dominant diagonal term) is
+    mask-combined, as in the JAX package, so every branch is computed and
+    the masks pick one.  With ``check`` it raises ``ValueError`` unless the
+    matrices are orthogonal with unit determinant within ``rtol``/``atol``
+    (a host read on a CUDA tensor).
+
+    Example:
+        >>> import torch
+        >>> from pypose_tpu_torch.lietensor.convert import mat2SO3
+        >>> mat2SO3(torch.eye(3)).tensor()
+        tensor([0., 0., 0., 1.])
+    """
+    mat = _check_shape(mat)[..., :3, :3]
+    if check:
+        _check_rotation(mat, rtol, atol)
+    rt = mat.mT
+
+    mask_d2 = rt[..., 2, 2] < atol
+    mask_d0_d1 = rt[..., 0, 0] > rt[..., 1, 1]
+    mask_d0_nd1 = rt[..., 0, 0] < -rt[..., 1, 1]
+
+    t0 = 1 + rt[..., 0, 0] - rt[..., 1, 1] - rt[..., 2, 2]
+    q0 = torch.stack([rt[..., 1, 2] - rt[..., 2, 1], t0,
+                      rt[..., 0, 1] + rt[..., 1, 0],
+                      rt[..., 2, 0] + rt[..., 0, 2]], dim=-1)
+    t1 = 1 - rt[..., 0, 0] + rt[..., 1, 1] - rt[..., 2, 2]
+    q1 = torch.stack([rt[..., 2, 0] - rt[..., 0, 2],
+                      rt[..., 0, 1] + rt[..., 1, 0], t1,
+                      rt[..., 1, 2] + rt[..., 2, 1]], dim=-1)
+    t2 = 1 - rt[..., 0, 0] - rt[..., 1, 1] + rt[..., 2, 2]
+    q2 = torch.stack([rt[..., 0, 1] - rt[..., 1, 0],
+                      rt[..., 2, 0] + rt[..., 0, 2],
+                      rt[..., 1, 2] + rt[..., 2, 1], t2], dim=-1)
+    t3 = 1 + rt[..., 0, 0] + rt[..., 1, 1] + rt[..., 2, 2]
+    q3 = torch.stack([t3, rt[..., 1, 2] - rt[..., 2, 1],
+                      rt[..., 2, 0] - rt[..., 0, 2],
+                      rt[..., 0, 1] - rt[..., 1, 0]], dim=-1)
+
+    c0 = (mask_d2 & mask_d0_d1)[..., None].to(mat.dtype)
+    c1 = (mask_d2 & ~mask_d0_d1)[..., None].to(mat.dtype)
+    c2 = (~mask_d2 & mask_d0_nd1)[..., None].to(mat.dtype)
+    c3 = (~mask_d2 & ~mask_d0_nd1)[..., None].to(mat.dtype)
+
+    q = q0 * c0 + q1 * c1 + q2 * c2 + q3 * c3
+    t = t0[..., None] * c0 + t1[..., None] * c1 + t2[..., None] * c2 \
+        + t3[..., None] * c3
+    q = q / (2.0 * torch.sqrt(t.clamp_min(torch.finfo(mat.dtype).tiny)))
+    return LieTensor(q[..., [1, 2, 3, 0]], ltype=SO3_type)    # wxyz -> xyzw
+
+
+def mat2SE3(mat, check=True, rtol=1e-5, atol=1e-5):
+    r"""Transformation matrices ``(*, 3|4, 3|4)`` to SE3 ``(*, 7)``: the
+    rotation block through :func:`mat2SO3`, the translation from the
+    fourth column (zeros for 3x3 input).  With ``check``, a 4x4 input whose
+    last row is not ``[0, 0, 0, 1]`` warns.
+
+    Example:
+        >>> import torch
+        >>> from pypose_tpu_torch.lietensor.convert import mat2SE3
+        >>> M = torch.eye(4)
+        >>> M[:3, 3] = torch.tensor([1., 2., 3.])
+        >>> mat2SE3(M).tensor()
+        tensor([1., 2., 3., 0., 0., 0., 1.])
+    """
+    mat = _check_shape(mat)
+    if tuple(mat.shape[-2:]) == (4, 4) and check:
+        zo = torch.tensor([0., 0., 0., 1.], dtype=mat.dtype, device=mat.device)
+        if not torch.allclose(mat[..., 3, :], zo.expand(mat[..., 3, :].shape),
+                              rtol=rtol, atol=atol):
+            warnings.warn(
+                'input of shape 4x4 last rows are not all equal [0, 0, 0, 1]')
+    q = mat2SO3(mat[..., :3, :3], check=check, rtol=rtol, atol=atol).tensor()
+    if mat.shape[-1] == 3:
+        t = torch.zeros(mat.shape[:-2] + (3,), dtype=mat.dtype,
+                        device=mat.device)
+    else:
+        t = mat[..., :3, 3]
+    return LieTensor(torch.cat([t, q], dim=-1), ltype=SE3_type)
 
 
 def euler2SO3(euler, dtype=None, device=None):

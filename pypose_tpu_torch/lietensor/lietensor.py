@@ -6,7 +6,10 @@ subclass): the storage tensor holds the data and ``ltype`` says which group
 or algebra it is.  This slice covers SO3/so3/SE3/se3, forward only, with
 the operations the pose-graph path uses, and the random factories
 (``randn``, ``pypose_tpu/lietensor/lietensor.py:215-217, 258-268,
-314-330``) on an explicit ``torch.Generator``; RxSO3/rxso3/Sim3/sim3 exist
+314-330``) on an explicit ``torch.Generator`` and the batch-dim views ICP
+uses (``unsqueeze``, ``squeeze``, ``expand``, ``view``, ``lview``);
+``Act`` and ``@`` broadcast a ``[..., 1, 7]`` SE3 against ``[..., N, 3]``
+points.  RxSO3/rxso3/Sim3/sim3 exist
 as types whose operations raise ``NotImplementedError`` until the
 remaining-groups slice ports them.
 """
@@ -320,8 +323,39 @@ class LieTensor:
     def to(self, *args, **kwargs):
         return LieTensor(self._data.to(*args, **kwargs), ltype=self._ltype)
 
+    # -- batch-dim views (pypose_tpu/lietensor/lietensor.py:639-668) --------
+    def _wrap(self, data):
+        return LieTensor(data, ltype=self._ltype)
+
     def __getitem__(self, key):
-        return LieTensor(self._data[key], ltype=self._ltype)
+        return self._wrap(self._data[key])
+
+    def detach(self):
+        return self._wrap(self._data.detach())
+
+    def reshape(self, *shape):
+        return self._wrap(self._data.reshape(LieType.to_tuple(shape)))
+
+    def view(self, *shape):
+        return self.reshape(*shape)
+
+    def lview(self, *shape):
+        """Reshape the batch dims only."""
+        shape = LieType.to_tuple(shape)
+        return self._wrap(self._data.reshape(shape + self._ltype.dimension))
+
+    def unsqueeze(self, dim):
+        return self._wrap(self._data.unsqueeze(dim))
+
+    def squeeze(self, dim=None):
+        return self._wrap(self._data.squeeze() if dim is None
+                          else self._data.squeeze(dim))
+
+    def expand(self, *shape):
+        return self._wrap(self._data.expand(LieType.to_tuple(shape)))
+
+    def broadcast_to(self, shape):
+        return self._wrap(self._data.broadcast_to(tuple(shape)))
 
     def Exp(self):
         return self._ltype.Exp(self)

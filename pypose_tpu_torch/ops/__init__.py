@@ -1,1 +1,1 @@
-from . import smallinv, spmv, stencil_cg  # noqa: F401
+from . import knn, se3, smallinv, spmv, stencil_cg  # noqa: F401

@@ -7,6 +7,9 @@ header ``csrc/*.cuh``, is newer.  :func:`build_all` runs one ``nvcc`` per
 source, all at once.  A missing ``nvcc`` or a failed compile raises with
 the compiler's output; nothing falls back.  The compiler's report (``-Xptxas -v``: registers,
 shared memory, spills) is kept beside the library as ``lib<name>.log``.
+:func:`bind` loads a library and declares its C functions, each of which
+returns ``cudaGetLastError()``; :func:`raise_on` turns a non-zero code
+into an exception.
 """
 
 import ctypes
@@ -84,3 +87,24 @@ def build(name):
 def load(name):
     """Build if needed and load ``lib<name>.so``."""
     return ctypes.CDLL(str(build(name)))
+
+
+def bind(name, signatures):
+    """Build if needed and load ``lib<name>.so``; declare the argument
+    types of each C function in ``signatures`` (name -> ctypes argtypes;
+    each returns an int error code) and of ``ppt_cuda_error_string``."""
+    lib = load(name)
+    for fname, argtypes in signatures.items():
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ppt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ppt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on(lib, rc, what):
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f'{what} launch failed: '
+                           + lib.ppt_cuda_error_string(rc).decode())

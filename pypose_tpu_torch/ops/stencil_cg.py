@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from ._build import load
+from ._build import bind, raise_on as _raise_on
 
 # Launches of each CUDA kernel in this process: the whole-solve kernel
 # (one per solve), the tiled matvec and block-Jacobi apply (one each per
@@ -244,20 +244,7 @@ _SIGNATURES = {
 
 @functools.cache
 def _kernel_lib(name):
-    lib = load(name)
-    for fname, argtypes in _SIGNATURES[name].items():
-        fn = getattr(lib, fname)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.ppt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.ppt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib, rc, what):
-    if rc != 0:
-        raise RuntimeError(f'{what} launch failed: '
-                           + lib.ppt_cuda_error_string(rc).decode())
+    return bind(name, _SIGNATURES[name])
 
 
 def _check_operands(b_T, A_T, Minv_T, C_T, offsets, t):

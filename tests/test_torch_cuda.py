@@ -1,5 +1,7 @@
 """The port's CUDA kernels on an NVIDIA GPU (marked ``cuda``; each test
-skips where torch has no CUDA device).  This file imports no jax, so it
+skips where torch has no CUDA device): the stencil CG solvers, the
+nearest-neighbour and SE3 kernels against their plain versions, and the
+paths through them.  This file imports no jax, so it
 runs on a machine without the JAX package:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -10,7 +12,7 @@ runs on a machine without the JAX package:
 import pytest
 import torch
 
-from pypose_tpu_torch.ops import stencil_cg as scg
+from pypose_tpu_torch.ops import knn, se3, stencil_cg as scg
 from pypose_tpu_torch.testing import random_stencil_system
 
 pytestmark = pytest.mark.cuda
@@ -139,3 +141,120 @@ def test_first_lm_step_card_matches_cpu(cuda):
         assert (scg.LAUNCHES > before) == (dev.type == 'cuda')
     assert abs(chi2[0] - chi2[1]) <= 1e-3 * abs(chi2[1])
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def _clouds(R, N, dev, seed=0, D=3):
+    gen = torch.Generator().manual_seed(seed)
+    return ((5.0 * torch.randn((R, D), generator=gen)).to(dev),
+            (5.0 * torch.randn((N, D), generator=gen)).to(dev))
+
+
+def _assert_knn_close(ref, nbr, d_k, i_k, d_p, i_p):
+    """Indices equal on >= 99.99% of rows, d2 within
+    1e-6 (|a|^2 + |b|^2) + 1e-6 everywhere."""
+    d_k, i_k = d_k.reshape(len(ref), -1), i_k.reshape(len(ref), -1)
+    d_p, i_p = d_p.reshape(len(ref), -1), i_p.reshape(len(ref), -1)
+    bound = 1e-6 * ((ref * ref).sum(-1, keepdim=True)
+                    + (nbr * nbr).sum(-1)[i_p]) + 1e-6
+    assert float((i_k == i_p).all(-1).double().mean()) >= 0.9999
+    assert bool(((d_k - d_p).abs() <= bound).all())
+    assert i_k.dtype == torch.int64
+
+
+@pytest.mark.parametrize('R,N,D', [(333, 777, 3), (1, 5, 3),
+                                   (100_000, 100_000, 3), (300, 2000, 1),
+                                   (300, 2000, 2), (300, 2000, 4)])
+def test_nn1_kernel_matches_plain(cuda, R, N, D):
+    ref, nbr = _clouds(R, N, cuda, D=D)
+    before = knn.NN1_LAUNCHES
+    d_k, i_k = knn.nn1(ref, nbr)
+    torch.cuda.synchronize()
+    assert knn.NN1_LAUNCHES == before + 1
+    _assert_knn_close(ref, nbr, d_k, i_k, *knn._nn1_torch(ref, nbr))
+
+
+@pytest.mark.parametrize('R,N,k', [(150, 333, 2), (150, 333, 7),
+                                   (150, 333, 16), (40, 16, 16),
+                                   (20_000, 100_000, 4),
+                                   (20_000, 100_000, 16)])
+def test_nnk_kernel_matches_plain(cuda, R, N, k):
+    ref, nbr = _clouds(R, N, cuda, seed=k)
+    before = knn.NNK_LAUNCHES
+    d_k, i_k = knn.nnk(ref, nbr, k)
+    torch.cuda.synchronize()
+    assert knn.NNK_LAUNCHES == before + 1
+    _assert_knn_close(ref, nbr, d_k, i_k, *knn._nnk_torch(ref, nbr, k))
+
+
+def test_knn_kernel_ties_and_refusals(cuda):
+    """Duplicated neighbours: the lower index first; k above the kernel's
+    largest, points of too many coordinates and float64 raise."""
+    base = _clouds(1, 200, cuda)[1]
+    nbr = torch.cat([base, base[:50]])
+    d2, idx = knn.nnk(base[:50] + 1e-3, nbr, 2)
+    assert torch.equal(idx[:, 0].cpu(), torch.arange(50))
+    assert torch.equal(idx[:, 1].cpu(), 200 + torch.arange(50))
+    with pytest.raises(ValueError, match='k=17'):
+        knn.nnk(base, base, knn.MAX_K + 1)
+    with pytest.raises(ValueError, match='coordinates'):
+        knn.nn1(torch.zeros((4, 5), device=cuda),
+                torch.zeros((6, 5), device=cuda))
+    with pytest.raises(TypeError, match='float32'):
+        knn.nn1(base.double(), base.double())
+
+
+def test_knn_above_64mi_pairs_launches_nn1(cuda):
+    """knn on CUDA past 64 Mi pairs routes k = 1 to the nn1 kernel, and
+    agrees with the CPU's chunked Gram route."""
+    from pypose_tpu_torch.function.geometry import knn as knn_fn
+    ref, nbr = _clouds(9000, 9000, cuda, seed=1)
+    before = knn.NN1_LAUNCHES
+    res = knn_fn(ref, nbr)
+    torch.cuda.synchronize()
+    assert knn.NN1_LAUNCHES == before + 1
+    cpu = knn_fn(ref.cpu(), nbr.cpu())
+    _assert_knn_close(ref, nbr, res.values ** 2, res.indices,
+                      (cpu.values ** 2).to(cuda), cpu.indices.to(cuda))
+
+
+@pytest.mark.parametrize('N', [1, 1000, 100_000, 100_003])
+def test_se3_kernels_match_plain(cuda, N):
+    """Within 1e-6 (1 + max|input|) of SE3_Mul / SE3_Act."""
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.lietensor import operation as op
+    gen = torch.Generator().manual_seed(N)
+    X = ppt.randn_SE3(N, sigma=2.0, generator=gen).tensor().to(cuda)
+    Y = ppt.randn_SE3(N, sigma=2.0, generator=gen).tensor().to(cuda)
+    p = (5.0 * torch.randn((N, 3), generator=gen)).to(cuda)
+    before = (se3.SE3_MUL_LAUNCHES, se3.SE3_ACT_LAUNCHES)
+    for kern, plain, other in ((se3.se3_mul_fused, op.SE3_Mul, Y),
+                               (se3.se3_act_fused, op.SE3_Act, p)):
+        err = float((kern(X, other) - plain(X, other)).abs().max())
+        bound = 1e-6 * (1 + max(float(X.abs().max()),
+                                float(other.abs().max())))
+        assert err <= bound
+    assert (se3.SE3_MUL_LAUNCHES, se3.SE3_ACT_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    with pytest.raises(TypeError, match='float32'):
+        se3.se3_mul_fused(X.double(), Y.double())
+
+
+def test_icp_card_matches_cpu(cuda):
+    """ICP on one 9,000-point instance (the auto-tiled route) on the card
+    and on the CPU: transforms within 1e-5, nn1 launched every sweep."""
+    import pypose_tpu_torch as ppt
+    src, _ = _clouds(9000, 1, 'cpu', seed=2)
+    T = ppt.randn_SE3(sigma=(0.3, 0.05),
+                      generator=torch.Generator().manual_seed(3))
+    tgt = T.Act(src)
+    est = []
+    for dev in (cuda, torch.device('cpu')):
+        icp = ppt.ICP(stepper=ppt.ReduceToBason(steps=8, patience=8,
+                                                tol=1e-9))
+        before = knn.NN1_LAUNCHES
+        est.append(icp(src.to(dev), tgt.to(dev)).to('cpu'))
+        launches = knn.NN1_LAUNCHES - before
+        assert launches == (icp.stepper.steps + 1 if dev.type == 'cuda'
+                            else 0)
+    assert float((est[0].Inv() @ est[1]).Log().tensor().abs().max()) <= 1e-5
+    assert float((est[0].Inv() @ T).Log().tensor().abs().max()) <= 1e-4

@@ -206,3 +206,35 @@ def test_unported_groups_raise():
         rxso3_type.Exp(torch.zeros(4))
     with pytest.raises(AttributeError):
         ppt.SE3(torch.zeros(7)).Exp()
+
+
+def test_lietensor_views_match_jax():
+    """The batch-dim views ICP uses, and Act / @ of an unsqueezed SE3
+    against a cloud, as in the JAX package (lietensor.py:642-668)."""
+    rng = np.random.default_rng(7)
+    x = tangents(rng, 6, 6, np.float32)
+    p = rng.normal(size=(2, 5, 3)).astype(np.float32)
+    Xj = pp.se3(jnp.asarray(x)).Exp()
+    Xt = ppt.se3(torch.from_numpy(x)).Exp()
+    cases = [
+        (Xj.unsqueeze(-2), Xt.unsqueeze(-2), (6, 1, 7)),
+        (Xj.unsqueeze(0).squeeze(0), Xt.unsqueeze(0).squeeze(0), (6, 7)),
+        (Xj[:1].squeeze(), Xt[:1].squeeze(), (7,)),
+        (Xj[:1].expand(4, 7), Xt[:1].expand(4, 7), (4, 7)),
+        (Xj[:1].broadcast_to((3, 7)), Xt[:1].broadcast_to((3, 7)), (3, 7)),
+        (Xj.reshape(2, 3, 7), Xt.reshape(2, 3, 7), (2, 3, 7)),
+        (Xj.view(3, 2, 7), Xt.view(3, 2, 7), (3, 2, 7)),
+        (Xj.lview(2, 3), Xt.lview(2, 3), (2, 3, 7)),
+        (Xj[:2].unsqueeze(-2).Act(jnp.asarray(p)),
+         Xt[:2].unsqueeze(-2).Act(torch.from_numpy(p)), (2, 5, 3)),
+        (Xj[0].unsqueeze(-2) @ jnp.asarray(p[0]),
+         Xt[0].unsqueeze(-2) @ torch.from_numpy(p[0]), (5, 3)),
+    ]
+    for cj, ct, shape in cases:
+        if hasattr(ct, 'ltype'):
+            assert ct.ltype is ppt.lietensor.SE3_type
+        cj = cj.tensor() if hasattr(cj, 'tensor') else cj
+        ct = ct.tensor() if hasattr(ct, 'tensor') else ct
+        assert tuple(ct.shape) == shape
+        np.testing.assert_allclose(np.asarray(ct), np.asarray(cj),
+                                   **TOL[np.float32])
