@@ -12,17 +12,24 @@ Phases (any failure raises, so the script exits non-zero):
      prints ptxas' registers and shared memory.
   3. kernel vs plain, on the same random SPD stencil systems on the card,
      each timed with CUDA events (median of 7):
-     - the whole-solve kernel at N=40 and at sphere2500's shape (N=2500,
-       offsets (1, 157), node 0 fixed; converged, and to a 150-iteration
-       cap);
+     - the whole-solve cluster kernel at N=40, at sphere2500's shape
+       (N=2500, offsets (1, 157), node 0 fixed; converged, and to a
+       150-iteration cap), and at N=20,000 (operands in L2, converged and
+       to 150 iterations);
      - the tiled and the fused solvers at N=53 (offsets wrap) and at the
        100k shape (offsets (1, 993), node 0 fixed) with tol 1e-3 /
        maxiter 250 and with tol 0 / 250 iterations, fused beside tiled;
      - the tiled matvec and block-Jacobi kernels alone, one launch each,
-       at the 100k shape;
-     - nn1 at 100k x 100k on ICP's clouds, and nnk at k = 4 and 16 on a
-       20k x 100k slice of them: indices equal on >= 99.99% of rows, d^2
-       within 1e-6 (|a|^2 + |b|^2) + 1e-6 everywhere;
+       at the 100k shape, with their device time (torch.profiler) and the
+       block-Jacobi apply also as one torch.einsum;
+     - nn1 at 100k x 100k on ICP's clouds and on a cloud with duplicated
+       points, under pypose_tpu_torch.testing.nn1_tolerance_failures
+       (each index the plain one or a near-tie, each d^2 within
+       1e-6 (|a|^2 + |b|^2) + 1e-6 of its pair's float64 d^2), with
+       chunked torch.cdist + torch.min timed beside it (two calls a
+       chunk); nnk at k = 4 and 16 on a 20k x 100k slice of them: indices
+       equal on >= 99.99% of rows, d^2 within 1e-6 (|a|^2 + |b|^2) + 1e-6
+       of the plain version's everywhere;
      - se3_mul/se3_act at N = 100,000 and 100,003, within
        1e-6 (1 + max|input|); timed per call over 50 calls and, with
        torch.profiler, by the device time of their kernels.
@@ -31,7 +38,9 @@ Phases (any failure raises, so the script exits non-zero):
      phases (cg_iter 150 then 1200, cg_tol 1e-9), cold then warm; the
      final chi2 must reach pypose's converged chi2
      (data/ref_anchor_sphere2500.json) within 1e-4 relative, and the
-     whole-solve kernel must have been launched.
+     whole-solve kernel must have been launched; prints the CG iterations
+     per solve of each phase, and a third, profiled run gives the
+     whole-solve kernel's share of the run's device time and wall time.
   5. pgo-100k slice: synthetic_sphere(100000, seed=42) (checked against
      data/jax_anchor_pgo100k_seed42.json's instance checksum), factors as
      bench.py:bench_pgo_100k builds them, SparseLM with TrustRegion(1e4),
@@ -49,7 +58,10 @@ Phases (any failure raises, so the script exits non-zero):
      ReduceToBason(steps=8, patience=8, tol=1e-9)), cold then warm: ms per
      run and per sweep, sweeps, align error |Log(T_est^-1 T)|_inf <= 1e-4,
      and nn1 launched on every sweep of the cold run.
-  8. prints the kernels' JSON line, the card line and the result line.
+  8. prints the kernels' JSON line (each kernel's launches on its path,
+     error, ms, plain ms, bound_ms from this run's shapes and iteration
+     counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms),
+     the card line and the result line.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -61,9 +73,24 @@ import sys
 import time
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): device
+# memory, and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def bound(n_bytes, n_flop):
+    """The least time the card could take for work that must move
+    ``n_bytes`` (each input read once, each output written once) and do
+    ``n_flop`` float32 operations: (ms, 'bytes' or 'operations')."""
+    b_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    o_ms = 1e3 * n_flop / FP32_FLOP_PER_S
+    return (b_ms, 'bytes') if b_ms >= o_ms else (o_ms, 'operations')
 
 
 def cuda_ms(fn, repeat=7):
@@ -138,12 +165,25 @@ def solver_vs_plain(name, solver, plain, system, maxiter, tol):
 
 def whole_solve_vs_plain(name, N, loop_offset, n_loops, fixed, maxiter,
                          tol):
+    """The cluster kernel against its plain version, and a second launch
+    that must repeat it bit for bit; returns (err, ms, plain ms,
+    iterations)."""
+    import torch
     from pypose_tpu_torch.ops import stencil_cg as scg
-    err, k_ms, p_ms, _ = solver_vs_plain(
-        f'whole-solve, {name}', scg.stencil_cg_transposed,
-        scg._cg_body_torch,
-        stencil_system(N, loop_offset, n_loops, fixed), maxiter, tol)
-    return err, k_ms, p_ms
+    system = stencil_system(N, loop_offset, n_loops, fixed)
+    offsets, ops = system
+    smem = scg.stencil_cg_smem_fits(N, 6, len(offsets))
+    check(scg.stencil_cg_fits(N, 6, len(offsets)),
+          f'N={N} is past the whole-solve kernel\'s budgets')
+    where = 'shared memory' if smem else 'L2'
+    out = solver_vs_plain(
+        f'whole-solve, {name}, operands in {where}',
+        scg.stencil_cg_transposed, scg._cg_body_torch, system, maxiter, tol)
+    x1, it1 = scg.stencil_cg_transposed(*ops, offsets, 6, maxiter, tol)
+    x2, it2 = scg.stencil_cg_transposed(*ops, offsets, 6, maxiter, tol)
+    check(torch.equal(x1, x2) and int(it1) == int(it2),
+          f'whole-solve, {name}: two launches differ')
+    return out
 
 
 def oversize_solvers_vs_plain(name, system, maxiter, tol):
@@ -166,36 +206,52 @@ def oversize_solvers_vs_plain(name, system, maxiter, tol):
 def tiled_kernels_vs_plain(system, launches=20):
     """The tiled matvec and block-Jacobi kernels alone, one launch each on
     a random vector, against their plain versions; times are per launch
-    (CUDA events over ``launches`` launches, median of 7).  Returns
-    {kernel: (err, us, plain us)}."""
+    (CUDA events over ``launches`` launches, median of 7).  The
+    block-Jacobi apply is also timed as one PyTorch call (``torch.einsum``
+    over the [t, t, N] blocks); no one call computes the stencil matvec.
+    Each kernel's device time per launch comes from torch.profiler.
+    Returns {kernel: (err, us, plain us, library us or None, device
+    us)}."""
     import torch
     from pypose_tpu_torch.ops import stencil_cg as scg
     offsets, (b_T, A_T, Minv_T, C_T) = system
     t = 6
     gen = torch.Generator(device=b_T.device).manual_seed(7)
     v = torch.randn(b_T.shape, generator=gen, device=b_T.device)
+    M3 = Minv_T.view(t, t, -1)
     pairs = {
         'mv': (lambda: scg._tiled_mv_launch(A_T, C_T, v, offsets, t),
                lambda: scg._stencil_matvec_torch(A_T, C_T, offsets, t, v),
-               4 * (t * t * (1 + len(offsets)) + 2 * t)),
+               None, 4 * (t * t * (1 + len(offsets)) + 2 * t)),
         'pc': (lambda: scg._tiled_pc_launch(Minv_T, v, t),
                lambda: scg._block_mul(Minv_T, v, t),
+               lambda: torch.einsum('iun,un->in', M3, v),
                4 * (t * t + 2 * t))}
     out = {}
-    for kname, (kern, plain, bytes_per_node) in pairs.items():
+    for kname, (kern, plain, library, bytes_per_node) in pairs.items():
         k_ms, y_k = cuda_ms(lambda: [kern() for _ in range(launches)][-1])
         p_ms, y_p = cuda_ms(lambda: [plain() for _ in range(launches)][-1])
         err = float((y_k - y_p).abs().max())
         bound = 1e-5 * float(y_p.abs().max()) + 1e-6
         k_us, p_us = 1e3 * k_ms / launches, 1e3 * p_ms / launches
-        gbs = bytes_per_node * v.shape[1] / (k_us * 1e3)
+        l_us = None
+        if library is not None:
+            l_ms, y_l = cuda_ms(
+                lambda: [library() for _ in range(launches)][-1])
+            l_us = 1e3 * l_ms / launches
+            check(float((y_l - y_p).abs().max()) <= bound,
+                  f'tiled {kname}: the library call disagrees')
+        d_us = 1e3 * device_ms(kern)
+        gbs = bytes_per_node * v.shape[1] / (d_us * 1e3)
         print(f'[kernel] tiled {kname} alone, N={v.shape[1]}: max|y_k - '
               f'y_p| {err:.3e} (bound {bound:.3e}); kernel {k_us:.2f} '
-              f'us/launch ({gbs:.0f} GB/s if every operand and vector '
+              f'us/launch, device time {d_us:.2f} us/launch ({gbs:.0f} GB/s '
+              f'if every operand and vector '
               f'byte is read or written once: {bytes_per_node} B/node), '
-              f'plain {p_us:.2f} us', flush=True)
+              f'plain {p_us:.2f} us, one library call '
+              f'{"none" if l_us is None else f"{l_us:.2f} us"}', flush=True)
         check(err <= bound, f'tiled {kname} disagrees with its plain version')
-        out[kname] = (err, k_us, p_us)
+        out[kname] = (err, k_us, p_us, l_us, d_us)
     return out
 
 
@@ -312,7 +368,8 @@ def sphere2500_slice(dev):
             to_target = ms1 + ms2 * (hit - n1) / n2
         print(f'[slice] {label}: chi2 history {hist}', flush=True)
         print(f'[slice] {label}: CG iterations per solve, per LM step: '
-              f'{opt.cg_iterations + opt2.cg_iterations}', flush=True)
+              f'phase 1 (cg_iter 150) {opt.cg_iterations}, phase 2 (cg_iter '
+              f'1200) {opt2.cg_iterations}', flush=True)
         print(f'[slice] {label}: {n1}+{n2} LM steps in {ms1 + ms2:.3f} ms '
               f'(CUDA events; host {1e3 * wall:.3f} ms), '
               f'{(ms1 + ms2) / (n1 + n2):.3f} ms/LM step; final chi2 '
@@ -325,6 +382,7 @@ def sphere2500_slice(dev):
         check(bool(torch.isfinite(X).all()), 'poses are not finite')
         check(chi2 <= target,
               f'final chi2 {chi2} above the pypose anchor {target}')
+        return ms1 + ms2
 
     # the path's launches: counted from zero over the cold run only
     reset_counts()
@@ -335,6 +393,20 @@ def sphere2500_slice(dev):
     print(f'[slice] cold run launched the whole-solve CG kernel '
           f'{counts["LAUNCHES"]} times; all counts {counts}', flush=True)
     run('warm')
+    # a third run under torch.profiler: the whole-solve kernel's share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ms = run('profiled')
+    kernels = [e for e in prof.key_averages()
+               if not e.key.startswith('aten::')]
+    pcg_us = sum(e.device_time_total for e in kernels
+                 if 'stencil_pcg' in e.key)
+    dev_us = sum(e.device_time_total for e in kernels)
+    check(pcg_us > 0, 'the profiler saw no whole-solve kernel')
+    print(f'[slice] profiled run: whole-solve kernel {pcg_us / 1e3:.3f} ms '
+          f'of {dev_us / 1e3:.3f} ms device time and {ms:.3f} ms of the run '
+          f'(CUDA events): {pcg_us / dev_us:.4f} of device time, '
+          f'{pcg_us / 1e3 / ms:.4f} of the run', flush=True)
     return counts
 
 
@@ -479,6 +551,42 @@ def knn_vs_plain(name, kernel, plain, ref, nbr):
     return err, k_ms, p_ms
 
 
+def cdist_min(ref, nbr):
+    """Nearest neighbours by two PyTorch calls a chunk of reference rows
+    (torch.cdist, then torch.min; chunks of 64 Mi pairs): a yardstick for
+    nn1, used nowhere in the port."""
+    import torch
+    chunk = max(1, (64 << 20) // nbr.shape[0])
+    vals, idxs = [], []
+    for s in range(0, ref.shape[0], chunk):
+        v, i = torch.cdist(ref[s:s + chunk], nbr).min(1)
+        vals.append(v)
+        idxs.append(i)
+    return torch.cat(vals) ** 2, torch.cat(idxs)
+
+
+def nn1_vs_plain(name, ref, nbr):
+    """nn1 against its plain version under the tolerance rule of
+    pypose_tpu_torch.testing.nn1_tolerance_failures; returns (max|d2_k -
+    d2_p|, kernel ms, plain ms, cdist + min ms)."""
+    import torch
+    from pypose_tpu_torch.ops import knn as K
+    from pypose_tpu_torch.testing import nn1_tolerance_failures
+    k_ms, (d_k, i_k) = cuda_ms(lambda: K.nn1(ref, nbr))
+    p_ms, (d_p, i_p) = cuda_ms(lambda: K._nn1_torch(ref, nbr))
+    c_ms, _ = cuda_ms(lambda: cdist_min(ref, nbr))
+    got = nn1_tolerance_failures(ref, nbr, d_k, i_k, i_p)
+    err = float((d_k - d_p).abs().max())
+    print(f'[kernel] nn1, {name}: {tuple(ref.shape)} x {tuple(nbr.shape)}: '
+          f'{got}; max|d2_k - d2_p| {err:.3e}; kernel {k_ms:.4f} ms, plain '
+          f'{p_ms:.4f} ms, torch.cdist + torch.min (two calls a chunk) '
+          f'{c_ms:.4f} ms, median of 7', flush=True)
+    check(bool(torch.isfinite(d_k).all()), f'nn1, {name}: d2 not finite')
+    check(got['index_failures'] == 0 and got['d2_failures'] == 0,
+          f'nn1, {name}: outside the tolerance: {got}')
+    return err, k_ms, p_ms, c_ms
+
+
 def point_kernels_vs_plain(dev):
     """nn1, nnk and the SE3 kernels against their plain versions at the
     ICP slice's shapes; returns {kernel: (err, ms, plain ms)}, the SE3
@@ -488,8 +596,12 @@ def point_kernels_vs_plain(dev):
     from pypose_tpu_torch.lietensor import operation as op
     from pypose_tpu_torch.ops import knn as K, se3 as S
     src, _, tgt = icp_instance(100_000, dev)
-    out = {'nn1': knn_vs_plain('nn1, ICP clouds', lambda: K.nn1(src, tgt),
-                               lambda: K._nn1_torch(src, tgt), src, tgt)}
+    icp_err, k_ms, p_ms, c_ms = nn1_vs_plain('ICP clouds', src, tgt)
+    # every target point twice, and a copy of 1000 source points
+    dup = torch.cat([tgt[:50_000], tgt[:50_000], src[:1000]])
+    dup_err = nn1_vs_plain('duplicated points', src[:50_000].contiguous(),
+                           dup)[0]
+    out = {'nn1': (max(icp_err, dup_err), k_ms, p_ms, c_ms)}
     ref = src[:20_000].contiguous()
     for k in (4, 16):
         out[f'nnk{k}'] = knn_vs_plain(
@@ -626,12 +738,18 @@ def main():
                     print(f'[build] {path.stem}: {line.strip()}', flush=True)
 
     # 3. kernels vs plain versions on the card
-    err40, _, _ = whole_solve_vs_plain('N=40', 40, 9, 15, False, 500, 1e-6)
-    err2500, _, _ = whole_solve_vs_plain('sphere2500 shape', 2500, 157,
-                                         2000, True, 500, 1e-6)
+    whole = [
+        whole_solve_vs_plain('N=40', 40, 9, 15, False, 500, 1e-6),
+        whole_solve_vs_plain('sphere2500 shape', 2500, 157, 2000, True, 500,
+                             1e-6),
+        whole_solve_vs_plain('N=20,000', 20_000, 157, 16_000, True, 500,
+                             1e-6),
+        whole_solve_vs_plain('N=20,000, 150 iterations', 20_000, 157, 16_000,
+                             True, 150, 0.0)]
     # tol 0 runs the full 150 iterations, as the first phase's solves do
-    err150, k_ms, p_ms = whole_solve_vs_plain(
-        'sphere2500 shape, 150 iterations', 2500, 157, 2000, True, 150, 0.0)
+    whole.append(whole_solve_vs_plain(
+        'sphere2500 shape, 150 iterations', 2500, 157, 2000, True, 150, 0.0))
+    _, k_ms, p_ms, k_it = whole[-1]
     small = oversize_solvers_vs_plain('N=53', stencil_system(53, 9, 15, False),
                                       200, 1e-7)
     big_system = stencil_system(100_000, 993, 80_000, True)
@@ -650,61 +768,94 @@ def main():
     icp_card_vs_cpu(dev)
     icp_counts = icp_slice(dev)
 
-    # 8. results
+    # 8. results: each kernel's bound from this run's shapes (t = 6, two
+    # offsets; float32 operands and vectors, 4 bytes a float)
     def route_err(route):
         return max(r[route][0] for r in (small, big, full))
 
+    t, tt, n_off = 6, 36, 2
+    N2500, N100k, icp_n, nnk_r = 2500, 100_000, 100_000, 20_000
+    # the whole solve: b, A, Minv, C read once, x written once; per node
+    # and iteration the matvec's tt (2 + 2 n_off) FMA with Minv, three dots
+    # and three updates of t
+    pcg_bytes = 4 * N2500 * (t + 2 * tt + n_off * tt + t)
+    pcg_flop = 2 * k_it * N2500 * (tt * (2 + 2 * n_off) + 6 * t)
+    mv_b = bound(4 * N100k * (tt * (1 + n_off) + 2 * t),
+                 2 * N100k * tt * (1 + 2 * n_off))
+    pc_b = bound(4 * N100k * (tt + 2 * t), 2 * N100k * tt)
+    # fused Chronopoulos-Gear solve: operands once; per iteration the
+    # matvec, Minv, three dots and four updates
+    f_it = full['fused'][3]
+    fused_b = bound(4 * N100k * (t + 2 * tt + n_off * tt + t),
+                    2 * f_it * N100k * (tt * (2 + 2 * n_off) + 7 * t))
+    # nearest neighbours: 3 FMA a pair; the clouds read once, d2 and the
+    # int64 index written once
+    nn1_b = bound(4 * 2 * icp_n * 3 + 12 * icp_n, 6 * icp_n * icp_n)
+    nnk_b = bound(4 * (nnk_r + icp_n) * 3 + 12 * nnk_r * 16,
+                  6 * nnk_r * icp_n)
+    # SE3: [N, 7] x [N, 7] -> [N, 7] (~60 flop), [N, 7] x [N, 3] -> [N, 3]
+    # (~30 flop)
+    se3_b = {'se3_mul': bound(4 * N100k * 21, 60 * N100k),
+             'se3_act': bound(4 * N100k * 13, 30 * N100k)}
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, b,
+              library_ms=None, **kw):
+        return dict(name=name, route='cuda', source=src + source,
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                    library_ms=library_ms, **kw)
+
     src = 'pypose_tpu_torch/csrc/'
     pallas = 'pypose_tpu/ops/pallas_cg.py:'
+    l2_ms = whole[3][1]
     kernels = [
-        dict(name='stencil_pcg', route='cuda', source=src + 'stencil_cg.cu',
-             replaces=pallas + '101', launches=sphere_counts['LAUNCHES'],
-             max_abs_err=max(err40, err2500, err150), ms=k_ms, plain_ms=p_ms,
-             ms_of='one 150-iteration solve, sphere2500 shape'),
-        dict(name='stencil_tiled_mv', route='cuda',
-             source=src + 'stencil_cg_tiled.cu', replaces=pallas + '131',
-             launches=pgo_counts['TILED_MV_LAUNCHES'],
-             max_abs_err=max(alone['mv'][0], route_err('tiled')),
-             ms=alone['mv'][1] / 1e3, plain_ms=alone['mv'][2] / 1e3,
-             ms_of='one launch, 100k shape'),
-        dict(name='stencil_tiled_pc', route='cuda',
-             source=src + 'stencil_cg_tiled.cu', replaces=pallas + '149',
-             launches=pgo_counts['TILED_PC_LAUNCHES'],
-             max_abs_err=max(alone['pc'][0], route_err('tiled')),
-             ms=alone['pc'][1] / 1e3, plain_ms=alone['pc'][2] / 1e3,
-             ms_of='one launch, 100k shape')]
+        entry('stencil_pcg', 'stencil_cg.cu', pallas + '101',
+              sphere_counts['LAUNCHES'], max(w[0] for w in whole), k_ms,
+              p_ms, bound(pcg_bytes, pcg_flop),
+              ms_of=f'one {k_it}-iteration solve, sphere2500 shape, '
+                    'operands in shared memory',
+              ms_l2_operands=l2_ms,
+              ms_l2_operands_of='one 150-iteration solve, N=20,000'),
+        entry('stencil_tiled_mv', 'stencil_cg_tiled.cu', pallas + '131',
+              pgo_counts['TILED_MV_LAUNCHES'],
+              max(alone['mv'][0], route_err('tiled')), alone['mv'][1] / 1e3,
+              alone['mv'][2] / 1e3, mv_b, device_ms=alone['mv'][4] / 1e3,
+              ms_of='one launch, 100k shape (device_ms: torch.profiler)'),
+        entry('stencil_tiled_pc', 'stencil_cg_tiled.cu', pallas + '149',
+              pgo_counts['TILED_PC_LAUNCHES'],
+              max(alone['pc'][0], route_err('tiled')), alone['pc'][1] / 1e3,
+              alone['pc'][2] / 1e3, pc_b, library_ms=alone['pc'][3] / 1e3,
+              library='torch.einsum over the [t, t, N] blocks',
+              device_ms=alone['pc'][4] / 1e3,
+              ms_of='one launch, 100k shape (device_ms: torch.profiler)')]
     for kname, line, counter in (('axpy', '253', 'FUSED_AXPY_LAUNCHES'),
                                  ('mv', '290', 'FUSED_MV_LAUNCHES')):
-        kernels.append(dict(
-            name=f'stencil_fused_{kname}', route='cuda',
-            source=src + 'stencil_cg_fused.cu', replaces=pallas + line,
-            launches=pgo_counts[counter], max_abs_err=route_err('fused'),
-            ms=full['fused'][1], plain_ms=full['fused'][2],
-            ms_of='one 250-iteration fused solve (both passes), 100k shape',
-            routed=False))
-    knn_src, se3_src = src + 'knn.cu', src + 'se3.cu'
+        kernels.append(entry(
+            f'stencil_fused_{kname}', 'stencil_cg_fused.cu', pallas + line,
+            pgo_counts[counter], route_err('fused'), full['fused'][1],
+            full['fused'][2], fused_b,
+            ms_of=f'one {f_it}-iteration fused solve (both passes), 100k '
+                  'shape', routed=False))
     kernels += [
-        dict(name='nn1', route='cuda', source=knn_src,
-             replaces='pypose_tpu/ops/pallas_knn.py:22',
-             launches=icp_counts['NN1_LAUNCHES'],
-             max_abs_err=point['nn1'][0], ms=point['nn1'][1],
-             plain_ms=point['nn1'][2], ms_of='100k x 100k, ICP clouds'),
-        dict(name='nnk', route='cuda', source=knn_src,
-             replaces='pypose_tpu/ops/pallas_knn.py:50',
-             launches=icp_counts['NNK_LAUNCHES'],
-             max_abs_err=max(point['nnk4'][0], point['nnk16'][0]),
-             ms=point['nnk16'][1], plain_ms=point['nnk16'][2],
-             ms_k4=point['nnk4'][1], plain_ms_k4=point['nnk4'][2],
-             ms_of='k=16 (ms_k4: k=4), 20k x 100k slice of the ICP clouds',
-             routed=False)]
+        entry('nn1', 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:22',
+              icp_counts['NN1_LAUNCHES'], point['nn1'][0], point['nn1'][1],
+              point['nn1'][2], nn1_b, ms_of='100k x 100k, ICP clouds',
+              two_call_reference_ms=point['nn1'][3],
+              two_call_reference='torch.cdist then torch.min, per chunk of '
+                                 '64 Mi pairs: two calls, no one call'),
+        entry('nnk', 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:50',
+              icp_counts['NNK_LAUNCHES'],
+              max(point['nnk4'][0], point['nnk16'][0]), point['nnk16'][1],
+              point['nnk16'][2], nnk_b, ms_k4=point['nnk4'][1],
+              plain_ms_k4=point['nnk4'][2],
+              ms_of='k=16 (ms_k4: k=4), 20k x 100k slice of the ICP clouds',
+              routed=False)]
     for kname, line in (('se3_mul', '51'), ('se3_act', '68')):
-        kernels.append(dict(
-            name=kname, route='cuda', source=se3_src,
-            replaces='pypose_tpu/ops/pallas_se3.py:' + line,
-            launches=icp_counts[kname.upper() + '_LAUNCHES'],
-            max_abs_err=point[kname][0], ms=point[kname][1],
-            plain_ms=point[kname][2], device_ms=point[kname][3],
-            plain_device_ms=point[kname][4],
+        kernels.append(entry(
+            kname, 'se3.cu', 'pypose_tpu/ops/pallas_se3.py:' + line,
+            icp_counts[kname.upper() + '_LAUNCHES'], point[kname][0],
+            point[kname][1], point[kname][2], se3_b[kname],
+            device_ms=point[kname][3], plain_device_ms=point[kname][4],
             ms_of='per call over 50 calls, N=100,000 (device_ms: kernel '
                   'time alone, torch.profiler)', routed=False))
     print(json.dumps({'kernels': kernels}))

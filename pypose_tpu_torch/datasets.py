@@ -59,13 +59,14 @@ def save_g2o(path, nodes, edges, poses, infos=None):
                     + ' '.join('%.12g' % x for x in w[iu]) + '\n')
 
 
-def load_g2o(path, dtype=torch.float32, device=None):
+def load_g2o(path, dtype=torch.float32, device='cuda'):
     """Parse a g2o file with VERTEX_SE3:QUAT / EDGE_SE3:QUAT records.
 
     Vertices are sorted by id and edges renumbered to rows.  Returns
     dict(nodes=SE3[N], edges=int64[E, 2], poses=SE3[E] relative
     measurements, infos=[E, 6, 6] information matrices), all on
-    ``device``.
+    ``device``: the card unless the caller asks for ``device='cpu'``.
+    Without a card the default raises, as torch does for a CUDA tensor.
     """
     verts, vids = [], []
     eii, ejj, emeas, einfo = [], [], [], []
@@ -102,7 +103,7 @@ def load_g2o(path, dtype=torch.float32, device=None):
 def synthetic_sphere(n_poses=2500, radius=25.0, loops_per_pose=0.8,
                      meas_sigma=(0.05, 0.02), init_sigma=(1.0, 0.3),
                      seed=42, dtype=torch.float32, info='identity',
-                     device=None):
+                     device='cuda'):
     """Deterministic sphere-world pose graph (sphere2500-like).
 
     Poses spiral over a sphere (golden angle); odometry edges chain
@@ -119,7 +120,9 @@ def synthetic_sphere(n_poses=2500, radius=25.0, loops_per_pose=0.8,
     ``device``: torch's float32 sin/cos/exp kernels differ between CPU
     vector paths (up to 2e-4 in cos between its AVX2 and AVX512 kernels),
     the float64 ones round to the same float32 values, so the instance
-    does not depend on the machine or the device.
+    does not depend on the machine or the device.  ``device`` is the card
+    unless the caller asks for ``device='cpu'``; without a card the
+    default raises, as torch does for a CUDA tensor.
 
     ``info``: 'identity' or 'natural' (``diag(1/sigma_t^2 x3,
     1/sigma_r^2 x3)``, the weighting real g2o graphs carry).
@@ -129,7 +132,7 @@ def synthetic_sphere(n_poses=2500, radius=25.0, loops_per_pose=0.8,
 
     Example:
         >>> from pypose_tpu_torch.datasets import synthetic_sphere
-        >>> ds = synthetic_sphere(100)
+        >>> ds = synthetic_sphere(100, device='cpu')
         >>> tuple(ds['nodes'].lshape), tuple(ds['edges'].shape)
         ((100,), (179, 2))
     """

@@ -7,15 +7,19 @@ plain PyTorch versions, which run for CPU tensors and are what tests and
 ``chip_smoke.py`` compare the kernels with.  On CUDA a wrapper launches
 its kernel or raises: it never falls back to the plain version.
 
-Both compute squared distances in the Gram form
+The plain versions compute squared distances in the Gram form
 ``(|a|^2 + |b|^2) - 2 a.b`` with every product and sum rounded once, in
 the order of the Pallas kernel (``cross`` summed over the coordinates
-from the first), so the kernel and its plain version give the same bits
-and pick the same neighbour: the first index among equal distances, as
-the Pallas kernels' first-occurrence argmin and merge do.  The distance
-is clamped at 0 after the neighbour is chosen (``pallas_knn.py:153,
-191``).  Indices are int64 (torch's index type), where the JAX package
-returns int32.
+from the first), and pick the first index among equal distances, as the
+Pallas kernels' first-occurrence argmin and merge do.  The ``nnk`` kernel
+rounds in the same order, so it gives its plain version's bits.  The
+``nn1`` kernel ranks by ``|b|^2 - 2 a.b`` in FMA form and adds ``|a|^2``
+after the scan, so on a near-tie it may pick another neighbour than its
+plain version: the card holds it to
+:func:`pypose_tpu_torch.testing.nn1_tolerance_failures`.  The distance is
+clamped at 0 after the neighbour is chosen (``pallas_knn.py:153, 191``).
+Indices are int64 (torch's index type), where the JAX package returns
+int32.
 
 ``function/geometry.py:_knn_tiled`` routes k = 1 (not ``largest``) on
 CUDA to :func:`nn1`; nothing routes to :func:`nnk`, as in the JAX package.
@@ -46,8 +50,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 @functools.cache
 def _kernel_lib():
-    return bind('knn', {'ppt_knn': [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR,
-                                    _PTR, _PTR]})
+    return bind('knn', {
+        'ppt_knn': [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR],
+        'ppt_nn1_splits': [_INT, _INT],
+        'ppt_nn1': [_PTR, _PTR] + [_INT] * 4 + [_PTR] * 5})
 
 
 # ---------------------------------------------------------------------------
@@ -116,9 +122,7 @@ def _check(ref, nbr):
         raise ValueError(f'ref is on {ref.device}, nbr on {nbr.device}')
 
 
-def _launch(ref, nbr, k):
-    """One launch of csrc/knn.cu: (d2 [R, k], idx [R, k] int64)."""
-    global NN1_LAUNCHES, NNK_LAUNCHES
+def _check_cuda(ref, nbr, k):
     if ref.device.type != 'cuda':
         raise ValueError(f'unsupported device {ref.device}')
     for name, a in (('ref', ref), ('nbr', nbr)):
@@ -127,13 +131,53 @@ def _launch(ref, nbr, k):
                             'float32 only')
         if not a.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-    R, D = ref.shape
-    if D > MAX_DIM:
+    if ref.shape[1] > MAX_DIM:
         raise ValueError(f'the knn kernels are instantiated for points of '
-                         f'at most {MAX_DIM} coordinates, got {D}')
+                         f'at most {MAX_DIM} coordinates, got '
+                         f'{ref.shape[1]}')
     if k > MAX_K:
         raise ValueError(f'k={k} > {MAX_K}, the largest k the nnk kernel '
                          'holds')
+
+
+def _stream(a):
+    return torch.cuda.current_stream(a.device).cuda_stream
+
+
+def _launch_nn1(ref, nbr):
+    """One launch of csrc/knn.cu's nn1 (its scan and merge passes):
+    (d2 [R], idx [R] int64)."""
+    global NN1_LAUNCHES
+    _check_cuda(ref, nbr, 1)
+    (R, D), N = ref.shape, nbr.shape[0]
+    d2 = torch.empty((R,), dtype=torch.float32, device=ref.device)
+    idx = torch.empty((R,), dtype=torch.int64, device=ref.device)
+    if R == 0:
+        return d2, idx
+    lib = _kernel_lib()
+    with torch.cuda.device(ref.device):
+        splits = lib.ppt_nn1_splits(R, N)
+        if splits < 1:
+            raise RuntimeError(f'nn1: no split of {N} neighbours for {R} '
+                               'rows (device query failed)')
+        part_s = torch.empty((splits, R), dtype=torch.float32,
+                             device=ref.device)
+        part_i = torch.empty((splits, R), dtype=torch.int32,
+                             device=ref.device)
+        raise_on(lib, lib.ppt_nn1(
+            ref.data_ptr(), nbr.data_ptr(), R, N, D, splits,
+            part_s.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
+            idx.data_ptr(), _stream(ref)), 'nn1')
+    NN1_LAUNCHES += 1
+    return d2, idx
+
+
+def _launch_nnk(ref, nbr, k):
+    """One launch of csrc/knn.cu's running top-k: (d2 [R, k], idx [R, k]
+    int64)."""
+    global NNK_LAUNCHES
+    _check_cuda(ref, nbr, k)
+    R, D = ref.shape
     d2 = torch.empty((R, k), dtype=torch.float32, device=ref.device)
     idx = torch.empty((R, k), dtype=torch.int64, device=ref.device)
     if R == 0:
@@ -142,13 +186,8 @@ def _launch(ref, nbr, k):
     with torch.cuda.device(ref.device):
         raise_on(lib, lib.ppt_knn(
             ref.data_ptr(), nbr.data_ptr(), R, nbr.shape[0], D, k,
-            d2.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(ref.device).cuda_stream),
-            'nn1' if k == 1 else 'nnk')
-    if k == 1:
-        NN1_LAUNCHES += 1
-    else:
-        NNK_LAUNCHES += 1
+            d2.data_ptr(), idx.data_ptr(), _stream(ref)), 'nnk')
+    NNK_LAUNCHES += 1
     return d2, idx
 
 
@@ -156,15 +195,16 @@ def nn1(ref, nbr):
     """Squared distance to, and index of, the nearest ``nbr`` row of each
     ``ref`` row: ``(d2 [R], idx [R] int64)``.
 
-    CUDA tensors launch the kernel of ``csrc/knn.cu`` on the current stream
-    (float32, contiguous, at most :data:`MAX_DIM` coordinates; anything
-    else raises); CPU tensors run :func:`_nn1_torch`.
+    CUDA tensors launch the register-tiled kernel of ``csrc/knn.cu`` on the
+    current stream (float32, contiguous, at most :data:`MAX_DIM`
+    coordinates; anything else raises); CPU tensors run
+    :func:`_nn1_torch`.  On a near-tie the two may return different
+    neighbours (module docstring).
     """
     _check(ref, nbr)
     if ref.device.type == 'cpu':
         return _nn1_torch(ref, nbr)
-    d2, idx = _launch(ref, nbr, 1)
-    return d2[:, 0], idx[:, 0]
+    return _launch_nn1(ref, nbr)
 
 
 def nnk(ref, nbr, k):
@@ -184,4 +224,4 @@ def nnk(ref, nbr, k):
         raise ValueError(f'k={k} > number of neighbors {nbr.shape[0]}')
     if ref.device.type == 'cpu':
         return _nnk_torch(ref, nbr, k)
-    return _launch(ref, nbr, k)
+    return _launch_nnk(ref, nbr, k)

@@ -8,9 +8,10 @@ algorithm step for step, which runs for CPU tensors and is what tests and
 kernel or raises: it never falls back to the plain version.
 
 - :func:`stencil_cg_transposed` (``pallas_cg.py:36-128``): the whole
-  solve in one launch of ``csrc/stencil_cg.cu``; plain version
-  :func:`_cg_body_torch`.  For systems within the L2 budget
-  (:func:`stencil_cg_fits`).
+  solve in one launch of ``csrc/stencil_cg.cu``, a cluster of 16 CTAs
+  exchanging their state through distributed shared memory; plain version
+  :func:`_cg_body_torch`.  For systems within its budgets
+  (:func:`stencil_cg_fits`, :func:`stencil_cg_smem_fits`).
 - :func:`stencil_cg_tiled` (``pallas_cg.py:131-250``): per iteration one
   matvec and one block-Jacobi launch of ``csrc/stencil_cg_tiled.cu``, the
   CG state in torch ops; plain version :func:`_tiled_cg_torch`.  Past the
@@ -64,20 +65,52 @@ _FUSED_SCALARS, _FUSED_INTS, _FUSED_RUNNING = 9, 4, 1
 KERNEL_T = 6
 MAX_OFFSETS = 16
 
-# L2 budget for the whole-solve kernel's operands and state.  The
-# single-block kernel is bounded by L2 bandwidth only while everything
-# stays resident in the H100's 50 MB L2; half of it leaves room for the
-# rest of the LM step's tensors.  Past it the one SM would stream from
-# HBM, so larger systems take the tiled solver, whose grid spans all SMs.
+# Budgets of the whole-solve kernel (csrc/stencil_cg.cu), one cluster of
+# CLUSTER CTAs on an H100.  Its operands stay resident in the 50 MB L2
+# within L2_BUDGET_BYTES (half of it leaves room for the rest of the LM
+# step's tensors); past it they would stream from HBM on 16 SMs, so larger
+# systems take the tiled solver, whose grid spans all SMs.  Each CTA's
+# shared memory holds at most SMEM_PER_BLOCK bytes (227 KB, the opt-in
+# limit), of which _HEADER_FLOATS floats are reduction slots.
 L2_BUDGET_BYTES = 25 * 10 ** 6
+CLUSTER = 16
+SMEM_PER_BLOCK = 232_448
+_HEADER_FLOATS = 128
+
+
+def _cta_nodes(N):
+    """Nodes each CTA of the cluster owns (the last ones may own fewer)."""
+    return -(-N // CLUSTER)
+
+
+def stencil_cg_smem_fits(N, t, n_off):
+    """True when the whole-solve kernel keeps its operands in shared
+    memory: per CTA, 4 * (128 + NL * (5t + 2 n_off t + 2tt + n_off tt))
+    bytes <= 232,448, NL = ceil(N / 16); a node's vectors p, r, x, z, Ap
+    (5t floats), the p at n + d_k and q_k at n - d_k that other CTAs push
+    to it (2 n_off t), A and Minv (2tt) and its channels (n_off tt).
+    sphere2500 (t = 6, 2 offsets): NL = 157, 198 floats a node, 124,856
+    bytes."""
+    per_node = 5 * t + 2 * n_off * t + 2 * t * t + n_off * t * t
+    return 4 * (_HEADER_FLOATS + _cta_nodes(N) * per_node) <= SMEM_PER_BLOCK
 
 
 def stencil_cg_fits(N, t, n_off):
-    """True when the whole-solve kernel's operands (b, A, Minv, C), its
-    output x and its scratch (r, z, p, Ap) fit the L2 budget; where False,
-    :func:`stencil_cg` takes the tiled route (an error nowhere)."""
-    n_floats = N * (t + 2 * t * t + n_off * t * t + t + 4 * t)
-    return 4 * n_floats <= L2_BUDGET_BYTES
+    """True when :func:`stencil_cg` takes the whole-solve kernel; where
+    False, the tiled route (an error nowhere).  Two sums must hold:
+
+    - L2: 4 N (t + 2tt + n_off tt + t + 2t) bytes <= 25e6, the operands
+      b, A, Minv, C, the output x and the scratch z, Ap (t = 6, 2 offsets:
+      168 floats a node, so N <= 37,202);
+    - shared memory, with the operands in L2: 4 * (128 + NL (2t + n_off t))
+      bytes <= 232,448 per CTA, NL = ceil(N / 16), for p, r and q_k (2
+      offsets: 24 floats a node, NL <= 2,416).
+
+    Within it, :func:`stencil_cg_smem_fits` says whether the operands go to
+    shared memory as well."""
+    l2 = 4 * N * (t + 2 * t * t + n_off * t * t + t + 2 * t)
+    state = 4 * (_HEADER_FLOATS + _cta_nodes(N) * (2 * t + n_off * t))
+    return l2 <= L2_BUDGET_BYTES and state <= SMEM_PER_BLOCK
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +341,7 @@ def stencil_cg_transposed(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
     _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t)
     N = b_T.shape[1]
     x = torch.empty_like(b_T)
-    scratch = torch.empty((4, t, N), dtype=torch.float32, device=b_T.device)
+    scratch = torch.empty((2, t, N), dtype=torch.float32, device=b_T.device)
     it = torch.empty((1,), dtype=torch.int32, device=b_T.device)
     lib = _kernel_lib('stencil_cg')
     with torch.cuda.device(b_T.device):

@@ -7,8 +7,10 @@ the port's ``SparseLM`` from exactly the state the JAX package holds:
 the caller passes ``np.asarray(X.tensor())`` for each LieTensor, so both
 packages begin from bit-identical values.  ``random_stencil_system``
 makes the random SPD systems on which the CG kernels are held against
-their plain versions, and ``instance_checksum`` identifies a generated
-pose-graph instance against a recorded anchor.
+their plain versions, ``instance_checksum`` identifies a generated
+pose-graph instance against a recorded anchor, and
+``nn1_tolerance_failures`` is the rule that holds the ``nn1`` kernel to
+its plain version.
 """
 
 import numpy as np
@@ -113,3 +115,35 @@ def instance_checksum(ds):
     return {'nodes_abs_sum': abs_sum(ds['nodes']),
             'poses_abs_sum': abs_sum(ds['poses']),
             'n_edges': int(ds['edges'].shape[0])}
+
+
+def nn1_tolerance_failures(ref, nbr, d2, idx, idx_plain, rtol=1e-6,
+                           atol=1e-6):
+    """Where a nearest-neighbour result ``(d2, idx)`` breaks the rule that
+    holds the ``nn1`` kernel to its plain version, whose indices are
+    ``idx_plain``.  In float64, with ``a`` a row of ``ref``, ``b`` its
+    returned neighbour and ``b'`` the plain version's, and
+    ``tol = rtol (|a|^2 + |b|^2) + atol``:
+
+    - the index: ``idx == idx_plain``, or a near-tie,
+      ``| |a - b|^2 - |a - b'|^2 | <= tol``;
+    - the distance: ``|d2 - |a - b|^2| <= tol``.
+
+    The kernel ranks by FMA-form float32 arithmetic and the plain version
+    by separately rounded products, so the two may pick different
+    neighbours where the distances agree to within their rounding.
+    Returns counts of rows, as ints: ``differ`` (indices differ),
+    ``index_failures``, ``d2_failures``, and ``max_d2_err`` (float)."""
+    a = ref.double()
+    b = nbr.double()[idx]
+    bp = nbr.double()[idx_plain]
+    dist = ((a - b) ** 2).sum(-1)
+    dist_p = ((a - bp) ** 2).sum(-1)
+    tol = rtol * ((a * a).sum(-1) + (b * b).sum(-1)) + atol
+    differ = idx != idx_plain
+    err = (d2.double() - dist).abs()
+    return {'differ': int(differ.sum()),
+            'index_failures': int((differ & ((dist - dist_p).abs() > tol))
+                                  .sum()),
+            'd2_failures': int((err > tol).sum()),
+            'max_d2_err': float(err.max()) if err.numel() else 0.0}

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from pypose_tpu_torch.ops import knn, se3, stencil_cg as scg
-from pypose_tpu_torch.testing import random_stencil_system
+from pypose_tpu_torch.testing import (nn1_tolerance_failures,
+                                      random_stencil_system)
 
 pytestmark = pytest.mark.cuda
 
@@ -27,10 +28,16 @@ def cuda():
 
 @pytest.mark.parametrize('N,loop_offset,fixed,maxiter,tol', [
     (40, 9, False, 500, 1e-6), (2500, 157, True, 500, 1e-6),
-    (2500, 157, True, 150, 0.0)])
+    (2500, 157, True, 150, 0.0), (2501, 157, True, 500, 1e-6),
+    (20_000, 157, True, 500, 1e-6)])
 def test_kernel_matches_plain(cuda, N, loop_offset, fixed, maxiter, tol):
     """x within 1e-4 of max|x| (+1e-5) of the plain version on the same
-    CUDA tensors, iterations within one, one launch counted."""
+    CUDA tensors, iterations within one, one launch counted: the cluster
+    kernel at N=40 (most CTAs own 2-3 nodes), the sphere2500 shape
+    (converged, and to 150 iterations), an N not divisible by the cluster
+    size, and N=20,000, where the operands stay in L2."""
+    assert scg.stencil_cg_smem_fits(N, 6, 2) == (N <= 2501)
+    assert scg.stencil_cg_fits(N, 6, 2)
     gen = torch.Generator(device=cuda).manual_seed(N)
     offsets, ops = random_stencil_system(N, loop_offset, max(15, N * 4 // 5),
                                          fixed, gen, cuda)
@@ -161,6 +168,15 @@ def _assert_knn_close(ref, nbr, d_k, i_k, d_p, i_p):
     assert i_k.dtype == torch.int64
 
 
+def _assert_nn1_within_tolerance(ref, nbr, d_k, i_k, i_p):
+    """The nn1 rule of pypose_tpu_torch.testing.nn1_tolerance_failures:
+    each index equal to the plain one or a near-tie, each d2 within
+    1e-6 (|a|^2 + |b|^2) + 1e-6 of its pair's float64 d2."""
+    got = nn1_tolerance_failures(ref, nbr, d_k, i_k, i_p)
+    assert got['index_failures'] == 0 and got['d2_failures'] == 0, got
+    assert i_k.dtype == torch.int64
+
+
 @pytest.mark.parametrize('R,N,D', [(333, 777, 3), (1, 5, 3),
                                    (100_000, 100_000, 3), (300, 2000, 1),
                                    (300, 2000, 2), (300, 2000, 4)])
@@ -170,7 +186,21 @@ def test_nn1_kernel_matches_plain(cuda, R, N, D):
     d_k, i_k = knn.nn1(ref, nbr)
     torch.cuda.synchronize()
     assert knn.NN1_LAUNCHES == before + 1
-    _assert_knn_close(ref, nbr, d_k, i_k, *knn._nn1_torch(ref, nbr))
+    _assert_nn1_within_tolerance(ref, nbr, d_k, i_k,
+                                 knn._nn1_torch(ref, nbr)[1])
+
+
+def test_nn1_kernel_on_duplicated_points(cuda):
+    """Neighbours that repeat (every point twice, and a copy of some
+    reference rows): the first index among exact ties, as the plain
+    version takes it, and the tolerance rule everywhere."""
+    ref, base = _clouds(50_000, 50_000, cuda, seed=3)
+    nbr = torch.cat([base, base, ref[:1000]])
+    d_k, i_k = knn.nn1(ref, nbr)
+    i_p = knn._nn1_torch(ref, nbr)[1]
+    _assert_nn1_within_tolerance(ref, nbr, d_k, i_k, i_p)
+    # an exact duplicate never wins over the copy at the lower index
+    assert not bool(((i_k >= 50_000) & (i_k < 100_000)).any())
 
 
 @pytest.mark.parametrize('R,N,k', [(150, 333, 2), (150, 333, 7),
@@ -213,8 +243,8 @@ def test_knn_above_64mi_pairs_launches_nn1(cuda):
     torch.cuda.synchronize()
     assert knn.NN1_LAUNCHES == before + 1
     cpu = knn_fn(ref.cpu(), nbr.cpu())
-    _assert_knn_close(ref, nbr, res.values ** 2, res.indices,
-                      (cpu.values ** 2).to(cuda), cpu.indices.to(cuda))
+    _assert_nn1_within_tolerance(ref, nbr, res.values[:, 0] ** 2,
+                                 res.indices[:, 0], cpu.indices[:, 0].to(cuda))
 
 
 @pytest.mark.parametrize('N', [1, 1000, 100_000, 100_003])

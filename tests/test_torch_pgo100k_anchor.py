@@ -42,7 +42,7 @@ SCHEDULE = dict(radius=1e4, cg_iter=250, cg_tol=1e-3, steps=6,
 def test_instance_matches_anchor():
     with open(find_data(ANCHOR)) as f:
         anchor = json.load(f)
-    got = instance_checksum(synthetic_sphere(N, seed=SEED))
+    got = instance_checksum(synthetic_sphere(N, seed=SEED, device='cpu'))
     want = anchor['instance_checksum']
     assert got['n_edges'] == want['n_edges'] == 179_999
     for key in ('nodes_abs_sum', 'poses_abs_sum'):
@@ -62,7 +62,7 @@ def test_first_step_matches_anchor(monkeypatch):
                         lambda *a: calls.append(a) or plain(*a))
     with open(find_data(ANCHOR)) as f:
         anchor = json.load(f)
-    opt = _port_optimizer(synthetic_sphere(N, seed=SEED))
+    opt = _port_optimizer(synthetic_sphere(N, seed=SEED, device='cpu'))
     chi2 = opt.step()
     np.testing.assert_allclose(chi2, anchor['history'][0], rtol=1e-4)
     assert len(calls) == len(opt.cg_iterations[0]) >= 1
@@ -126,7 +126,7 @@ def main():
     import jax
     jax.config.update('jax_platforms', 'cpu')
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    ds = synthetic_sphere(N, seed=SEED)
+    ds = synthetic_sphere(N, seed=SEED, device='cpu')
     t0 = time.perf_counter()
     hist, final = _jax_anchor(ds)
     jax_s = time.perf_counter() - t0

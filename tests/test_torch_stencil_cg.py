@@ -105,6 +105,28 @@ def test_fits_budget():
     assert not scg.stencil_cg_fits(100_000, 6, 2)
 
 
+@pytest.mark.parametrize('N,l2_bytes,state_bytes,smem_bytes,fits,smem', [
+    # sphere2500: NL = 157; operands in shared memory
+    (2500, 1_680_000, 15_584, 124_856, True, True),
+    # NL = 1250: operands in L2, the state alone in shared memory
+    (20_000, 13_440_000, 120_512, 990_512, True, False),
+    # past the L2 budget: the tiled route
+    (100_000, 67_200_000, 600_512, 4_950_512, False, False)])
+def test_budget_predicates(N, l2_bytes, state_bytes, smem_bytes, fits, smem):
+    """The predicates against the byte sums of their docstrings (t = 6,
+    2 offsets, a cluster of 16): L2 4 N (t + 2tt + 2tt + t + 2t) <= 25e6;
+    per CTA 4 (128 + NL (2t + 2t)) and 4 (128 + NL (5t + 4t + 2tt + 2tt))
+    against 232,448."""
+    t, n_off, NL = 6, 2, -(-N // 16)
+    assert 4 * N * (t + 2 * t * t + n_off * t * t + 3 * t) == l2_bytes
+    assert 4 * (128 + NL * (2 * t + n_off * t)) == state_bytes
+    assert 4 * (128 + NL * (9 * t + 4 * t * t)) == smem_bytes
+    assert scg.stencil_cg_fits(N, t, n_off) == fits == (
+        l2_bytes <= 25e6 and state_bytes <= 232_448)
+    assert scg.stencil_cg_smem_fits(N, t, n_off) == smem == (
+        smem_bytes <= 232_448)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv('PATH', str(tmp_path))
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))

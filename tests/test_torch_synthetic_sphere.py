@@ -21,7 +21,7 @@ def test_topology_and_ground_truth_match_jax(n):
     """Edges exactly; ground truth within 1e-6 (float32, rounded from
     float64 here and computed in float32 by XLA there); the 'natural'
     information matrices exactly."""
-    ds = synthetic_sphere(n, info='natural')
+    ds = synthetic_sphere(n, info='natural', device='cpu')
     ref = jax_synthetic_sphere(n, info='natural')
     np.testing.assert_array_equal(ds['edges'].numpy(),
                                   np.asarray(ref['edges']))
@@ -35,11 +35,11 @@ def test_topology_and_ground_truth_match_jax(n):
 
 
 def test_same_seed_same_instance():
-    a, b = synthetic_sphere(300, seed=7), synthetic_sphere(300, seed=7)
+    a, b = (synthetic_sphere(300, seed=7, device='cpu') for _ in range(2))
     for key in ('nodes', 'poses', 'gt'):
         assert torch.equal(a[key].tensor(), b[key].tensor()), key
     assert torch.equal(a['edges'], b['edges'])
-    c = synthetic_sphere(300, seed=8)
+    c = synthetic_sphere(300, seed=8, device='cpu')
     assert not torch.equal(a['nodes'].tensor(), c['nodes'].tensor())
     assert instance_checksum(a) == instance_checksum(b) != \
         instance_checksum(c)
@@ -47,7 +47,7 @@ def test_same_seed_same_instance():
 
 def test_dtype_and_device():
     """float64 keeps the float64 instance; float32 is its rounding."""
-    d64 = synthetic_sphere(200, dtype=torch.float64)
+    d64 = synthetic_sphere(200, dtype=torch.float64, device='cpu')
     d32 = synthetic_sphere(200, device='cpu')
     assert d64['nodes'].dtype == torch.float64
     assert d32['poses'].dtype == torch.float32
@@ -65,7 +65,7 @@ def test_noise_has_the_stated_sigma():
     uniform) within 6% of meas_sigma (0.05, 0.02) and init_sigma
     (1.0, 0.3).  At 4499 and 2500 samples the relative standard error of
     an rms is ~1.1% and ~1.4%, so 6% is over 4 of them."""
-    ds = synthetic_sphere(2500)
+    ds = synthetic_sphere(2500, device='cpu')
     gt, e = ds['gt'], ds['edges']
     meas = ((gt[e[:, 0]].Inv() @ gt[e[:, 1]]).Inv() @ ds['poses']).Log()
     init = (ds['nodes'] @ gt.Inv()).Log().tensor()[1:]
