@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU and check them:
 sphere2500 through the whole-solve CG kernel, a 100k-pose graph through
-the tiled CG kernels, and ICP on 100k-point clouds through the
-nearest-neighbour kernel.
+the fused (Chronopoulos-Gear) CG kernel, ICP on 100k-point clouds through
+the nearest-neighbour kernel, and knn(k=8) on those clouds through the
+k-nearest kernel.
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -16,20 +17,23 @@ Phases (any failure raises, so the script exits non-zero):
        (N=2500, offsets (1, 157), node 0 fixed; converged, and to a
        150-iteration cap), and at N=20,000 (operands in L2, converged and
        to 150 iterations);
-     - the tiled and the fused solvers at N=53 (offsets wrap) and at the
-       100k shape (offsets (1, 993), node 0 fixed) with tol 1e-3 /
-       maxiter 250 and with tol 0 / 250 iterations, fused beside tiled;
+     - the fused solver with float32 and with bf16 operands (the plain
+       version on the same bf16-rounded operands), and the tiled solver
+       beside it, at N=53 (offsets wrap), at the 100k shape (offsets (1,
+       993), node 0 fixed) with tol 1e-3 / maxiter 250 and with tol 0 /
+       250 iterations, and at N=200,000, past the fused kernel's
+       shared-memory mode; the fused kernel's two launches must give the
+       same bits, and its device time per solve comes from torch.profiler;
      - the tiled matvec and block-Jacobi kernels alone, one launch each,
        at the 100k shape, with their device time (torch.profiler) and the
        block-Jacobi apply also as one torch.einsum;
      - nn1 at 100k x 100k on ICP's clouds and on a cloud with duplicated
-       points, under pypose_tpu_torch.testing.nn1_tolerance_failures
-       (each index the plain one or a near-tie, each d^2 within
-       1e-6 (|a|^2 + |b|^2) + 1e-6 of its pair's float64 d^2), with
-       chunked torch.cdist + torch.min timed beside it (two calls a
-       chunk); nnk at k = 4 and 16 on a 20k x 100k slice of them: indices
-       equal on >= 99.99% of rows, d^2 within 1e-6 (|a|^2 + |b|^2) + 1e-6
-       of the plain version's everywhere;
+       points, and nnk at k = 4 and 16 on a 20k x 100k slice of them,
+       under pypose_tpu_torch.testing.nnk_tolerance_failures (each index
+       the plain one or a near-tie, distinct within a row, each d^2
+       within 1e-6 (|a|^2 + |b|^2) + 1e-6 of its pair's float64 d^2),
+       with chunked torch.cdist + torch.min (nn1) or torch.topk (nnk)
+       timed beside them (two calls a chunk of 64 Mi pairs);
      - se3_mul/se3_act at N = 100,000 and 100,003, within
        1e-6 (1 + max|input|); timed per call over 50 calls and, with
        torch.profiler, by the device time of their kernels.
@@ -46,8 +50,10 @@ Phases (any failure raises, so the script exits non-zero):
      bench.py:bench_pgo_100k builds them, SparseLM with TrustRegion(1e4),
      cg_iter 250, cg_tol 1e-3, optimize(steps=6), cold then warm; the
      final chi2 must be within 1e-3 relative of the JAX package's on the
-     same instance, the tiled kernels must have been launched and the
-     whole-solve kernel not.
+     same instance, the fused kernel must have been launched once per
+     solve and neither the tiled nor the whole-solve kernels; a third,
+     profiled run gives the fused kernel's share of device time and the
+     device's idle share.
   6. ICP, card against CPU: the same 9,000-point instance (81M pairs, the
      auto-tiled knn route) on the card (nn1 kernel) and on the CPU (the
      chunked Gram path, which the CPU tests hold against the JAX
@@ -58,7 +64,11 @@ Phases (any failure raises, so the script exits non-zero):
      ReduceToBason(steps=8, patience=8, tol=1e-9)), cold then warm: ms per
      run and per sweep, sweeps, align error |Log(T_est^-1 T)|_inf <= 1e-4,
      and nn1 launched on every sweep of the cold run.
-  8. prints the kernels' JSON line (each kernel's launches on its path,
+  8. knn-k8: pypose_tpu_torch.knn(src, tgt, k=8) on ICP's 100k-point
+     clouds, one nnk launch, held to the tolerance rule against the plain
+     version; timed beside the torch path it replaces on CUDA (matmul and
+     a stable sort a chunk) and chunked torch.cdist + torch.topk.
+  9. prints the kernels' JSON line (each kernel's launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms),
      the card line and the result line.
@@ -110,9 +120,10 @@ def cuda_ms(fn, repeat=7):
     return statistics.median(times), out
 
 
-def device_ms(fn, calls=50):
-    """Device time per call of ``fn`` in ms: the sum of the kernels'
-    times that torch.profiler records over ``calls`` calls."""
+def device_ms(fn, calls=50, match=None):
+    """Device time per call of ``fn`` in ms: the sum of the times of the
+    kernels (those whose name holds ``match``, if given) that
+    torch.profiler records over ``calls`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -122,7 +133,8 @@ def device_ms(fn, calls=50):
             fn()
         torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if not e.key.startswith('aten::'))
+                   if not e.key.startswith('aten::')
+                   and (match is None or match in e.key))
     check(total_us > 0, 'torch.profiler recorded no device time')
     return total_us / calls / 1e3
 
@@ -186,20 +198,72 @@ def whole_solve_vs_plain(name, N, loop_offset, n_loops, fixed, maxiter,
     return out
 
 
-def oversize_solvers_vs_plain(name, system, maxiter, tol):
-    """The tiled and the fused solver on one system, each against its
-    plain version; returns {route: (err, ms, plain ms, iterations)}."""
+def fused_vs_plain(name, system, maxiter, tol, operand_dtype):
+    """The fused kernel with float32 or bf16 operands against its plain
+    version on the same stored operands (bf16: rounded, then widened), as
+    solver_vs_plain holds it, and a second launch that must repeat it bit
+    for bit; returns (err, ms, plain ms, iterations)."""
+    import torch
     from pypose_tpu_torch.ops import stencil_cg as scg
+    offsets, (b_T, *ops) = system
+    stored = scg.round_operands(*ops, operand_dtype)
+    widened = [a.float() for a in stored]
+
+    def fused(*args):
+        return scg.stencil_cg_fused(b_T, *stored, *args[4:],
+                                    operand_dtype=operand_dtype)
+    out = solver_vs_plain(name, fused, scg._fused_cg_torch,
+                          (offsets, (b_T, *widened)), maxiter, tol)
+    x1, it1 = fused(*system[1], offsets, 6, maxiter, tol)
+    x2, it2 = fused(*system[1], offsets, 6, maxiter, tol)
+    check(torch.equal(x1, x2) and int(it1) == int(it2),
+          f'{name}: two launches differ')
+    return out
+
+
+def oversize_solvers_vs_plain(name, system, maxiter, tol):
+    """The tiled and the fused solver (float32 and bf16 operands) on one
+    system, each against its plain version; returns {route: (err, ms,
+    plain ms, iterations)} for routes 'tiled', 'fused', 'fused_bf16'."""
+    import torch
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    N = system[1][0].shape[1]
+    plan = scg.fused_plan(N, system[1][0].device)
+    print(f'[kernel] {name}: fused kernel plan {plan}', flush=True)
     out = {
         'tiled': solver_vs_plain(f'tiled, {name}', scg.stencil_cg_tiled,
                                  scg._tiled_cg_torch, system, maxiter, tol),
-        'fused': solver_vs_plain(f'fused, {name}', scg.stencil_cg_fused,
-                                 scg._fused_cg_torch, system, maxiter, tol)}
-    (_, t_ms, _, t_it), (_, f_ms, _, f_it) = out['tiled'], out['fused']
-    print(f'[kernel] {name}: fused {f_ms:.4f} ms/solve ({f_it} it, '
-          f'{1e3 * f_ms / max(f_it, 1):.2f} us/it) vs tiled {t_ms:.4f} '
-          f'ms/solve ({t_it} it, {1e3 * t_ms / max(t_it, 1):.2f} us/it): '
-          f'fused/tiled {f_ms / t_ms:.3f}', flush=True)
+        'fused': fused_vs_plain(f'fused f32, {name}', system, maxiter, tol,
+                                None),
+        'fused_bf16': fused_vs_plain(f'fused bf16, {name}', system, maxiter,
+                                     tol, torch.bfloat16)}
+    t_ms, t_it = out['tiled'][1], out['tiled'][3]
+    for route in ('fused', 'fused_bf16'):
+        f_ms, f_it = out[route][1], out[route][3]
+        print(f'[kernel] {name}: {route} {f_ms:.4f} ms/solve ({f_it} it, '
+              f'{1e3 * f_ms / max(f_it, 1):.2f} us/it) vs tiled {t_ms:.4f} '
+              f'ms/solve ({t_it} it, {1e3 * t_ms / max(t_it, 1):.2f} us/it): '
+              f'{route}/tiled {f_ms / t_ms:.3f}', flush=True)
+    return out, plan
+
+
+def fused_device_ms(system, maxiter, tol):
+    """Device time of one fused solve (torch.profiler, the kernel alone,
+    over 5 solves) with float32 and with bf16 operands; returns {route:
+    ms}."""
+    import torch
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    offsets, (b_T, *ops) = system
+    out = {}
+    for route, dtype in (('fused', None), ('fused_bf16', torch.bfloat16)):
+        stored = scg.round_operands(*ops, dtype)
+        out[route] = device_ms(
+            lambda: scg.stencil_cg_fused(b_T, *stored, offsets, 6, maxiter,
+                                         tol, operand_dtype=dtype),
+            calls=5, match='fused_pcg')
+        print(f'[kernel] {route}, 100k shape, {maxiter} iterations: device '
+              f'time {out[route]:.4f} ms/solve (torch.profiler, the kernel '
+              'alone)', flush=True)
     return out
 
 
@@ -257,8 +321,8 @@ def tiled_kernels_vs_plain(system, launches=20):
 
 # each kernel module's launch counters
 COUNTERS = {
-    'stencil_cg': ('LAUNCHES', 'TILED_MV_LAUNCHES', 'TILED_PC_LAUNCHES',
-                   'FUSED_AXPY_LAUNCHES', 'FUSED_MV_LAUNCHES'),
+    'stencil_cg': ('LAUNCHES', 'FUSED_LAUNCHES', 'TILED_MV_LAUNCHES',
+                   'TILED_PC_LAUNCHES'),
     'knn': ('NN1_LAUNCHES', 'NNK_LAUNCHES'),
     'se3': ('SE3_MUL_LAUNCHES', 'SE3_ACT_LAUNCHES')}
 
@@ -412,7 +476,9 @@ def sphere2500_slice(dev):
 
 def pgo100k_slice(dev):
     """The large pose graph, cold then warm, against the JAX anchor on the
-    same instance; returns the cold run's launch counts."""
+    same instance, then a profiled run; returns the cold run's launch
+    counts and {'ms_per_step', 'idle_share', 'fused_share'} of the
+    profiled run."""
     import torch
     from pypose_tpu_torch.datasets import find_data, synthetic_sphere
     from pypose_tpu_torch.ops.stencil_cg import stencil_cg_fits
@@ -455,7 +521,7 @@ def pgo100k_slice(dev):
           f'checksum {got}', flush=True)
     check(not stencil_cg_fits(N, 6, len(offsets)),
           'pgo-100k fits the whole-solve budget: it would not test the '
-          'tiled route')
+          'fused route')
 
     def run(label):
         opt.params = {'poses': ds['nodes']}
@@ -485,17 +551,41 @@ def pgo100k_slice(dev):
         check(bool(torch.isfinite(X).all()), 'poses are not finite')
         check(chi2 <= target,
               f'final chi2 {chi2} above the JAX anchor {target}')
+        return ms, steps
 
     reset_counts()
     run('cold')
     counts = read_counts()
-    check(counts['TILED_MV_LAUNCHES'] > 0 and counts['TILED_PC_LAUNCHES'] > 0,
-          'the pgo-100k slice never launched the tiled CG kernels')
+    solves = sum(len(s) for s in opt.cg_iterations)
+    check(counts['FUSED_LAUNCHES'] == solves,
+          f'the fused kernel launched {counts["FUSED_LAUNCHES"]} times for '
+          f'{solves} solves')
+    check(counts['TILED_MV_LAUNCHES'] == counts['TILED_PC_LAUNCHES'] == 0,
+          'the pgo-100k slice launched the tiled CG kernels')
     check(counts['LAUNCHES'] == 0,
           'the pgo-100k slice launched the whole-solve kernel')
-    print(f'[pgo-100k] cold run launch counts {counts}', flush=True)
+    print(f'[pgo-100k] cold run launch counts {counts} ({solves} solves)',
+          flush=True)
     run('warm')
-    return counts
+    # a third run under torch.profiler: the fused kernel's share of device
+    # time, and the share of the run the device is idle
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ms, steps = run('profiled')
+    kernels = [e for e in prof.key_averages()
+               if not e.key.startswith('aten::')]
+    fused_us = sum(e.device_time_total for e in kernels
+                   if 'fused_pcg' in e.key)
+    dev_us = sum(e.device_time_total for e in kernels)
+    check(fused_us > 0, 'the profiler saw no fused kernel')
+    profiled = {'ms_per_step': ms / steps,
+                'idle_share': 1 - dev_us / 1e3 / ms,
+                'fused_share': fused_us / dev_us}
+    print(f'[pgo-100k] profiled run: fused kernel {fused_us / 1e3:.3f} ms of '
+          f'{dev_us / 1e3:.3f} ms device time ({profiled["fused_share"]:.4f})'
+          f' and {ms:.3f} ms of the run (CUDA events); device idle share '
+          f'{profiled["idle_share"]:.4f}', flush=True)
+    return counts, profiled
 
 
 def icp_instance(N, dev):
@@ -521,34 +611,42 @@ def align_err(T_est, T):
     return float((T_est.Inv() @ T).Log().tensor().abs().max())
 
 
-def knn_vs_plain(name, kernel, plain, ref, nbr):
-    """A knn kernel against its plain version on the same clouds: indices
-    equal on >= 99.99% of rows, and d^2 (each row's k values, ascending)
-    within 1e-6 (|a|^2 + |b|^2) + 1e-6 of the plain version's everywhere,
-    so also on rows whose neighbours differ.  Returns (max|d2 error|,
-    kernel ms, plain ms)."""
+def cdist_topk(ref, nbr, k):
+    """The k nearest neighbours by two PyTorch calls a chunk of reference
+    rows (torch.cdist, then torch.topk; chunks of 64 Mi pairs): a
+    yardstick for nnk, used nowhere in the port."""
     import torch
-    k_ms, (d_k, i_k) = cuda_ms(kernel)
-    p_ms, (d_p, i_p) = cuda_ms(plain)
-    d_k, i_k = d_k.reshape(len(ref), -1), i_k.reshape(len(ref), -1)
-    d_p, i_p = d_p.reshape(len(ref), -1), i_p.reshape(len(ref), -1)
-    an = (ref * ref).sum(-1, keepdim=True)
-    bn = (nbr * nbr).sum(-1)[i_p]
-    bound = 1e-6 * (an + bn) + 1e-6
+    chunk = max(1, (64 << 20) // nbr.shape[0])
+    vals, idxs = [], []
+    for s in range(0, ref.shape[0], chunk):
+        v, i = torch.cdist(ref[s:s + chunk], nbr).topk(k, largest=False)
+        vals.append(v)
+        idxs.append(i)
+    return torch.cat(vals) ** 2, torch.cat(idxs)
+
+
+def nnk_vs_plain(name, ref, nbr, k):
+    """nnk against its plain version under the tolerance rule of
+    pypose_tpu_torch.testing.nnk_tolerance_failures, with chunked
+    torch.cdist + torch.topk timed beside it; returns (max|d2_k - d2_p|,
+    kernel ms, plain ms, cdist + topk ms)."""
+    import torch
+    from pypose_tpu_torch.ops import knn as K
+    from pypose_tpu_torch.testing import nnk_tolerance_failures
+    k_ms, (d_k, i_k) = cuda_ms(lambda: K.nnk(ref, nbr, k))
+    p_ms, (d_p, i_p) = cuda_ms(lambda: K._nnk_torch(ref, nbr, k))
+    c_ms, _ = cuda_ms(lambda: cdist_topk(ref, nbr, k))
+    got = nnk_tolerance_failures(ref, nbr, d_k, i_k, i_p)
     err = float((d_k - d_p).abs().max())
-    same_rows = float((i_k == i_p).all(-1).double().mean())
-    bitwise = bool(torch.equal(d_k, d_p) and torch.equal(i_k, i_p))
-    print(f'[kernel] {name}: {tuple(ref.shape)} x {tuple(nbr.shape)}, k='
-          f'{d_k.shape[1]}: rows with equal indices {same_rows:.6f}; '
-          f'max|d2_k - d2_p| {err:.3e} (bound >= {float(bound.min()):.3e}); '
-          f'bitwise equal {bitwise}; kernel {k_ms:.4f} ms, plain '
-          f'{p_ms:.4f} ms, median of 7', flush=True)
-    check(bool(torch.isfinite(d_k).all()), f'{name}: d2 not finite')
-    check(same_rows >= 0.9999, f'{name}: indices differ on more than 0.01% '
-          'of rows')
-    check(bool(((d_k - d_p).abs() <= bound).all()),
-          f'{name}: d2 outside the bound')
-    return err, k_ms, p_ms
+    print(f'[kernel] nnk, {name}: {tuple(ref.shape)} x {tuple(nbr.shape)}, '
+          f'k={k}: {got}; max|d2_k - d2_p| {err:.3e}; kernel {k_ms:.4f} ms, '
+          f'plain {p_ms:.4f} ms, torch.cdist + torch.topk (two calls a '
+          f'chunk) {c_ms:.4f} ms, median of 7', flush=True)
+    check(bool(torch.isfinite(d_k).all()), f'nnk, {name}: d2 not finite')
+    check(got['index_failures'] == got['repeat_failures']
+          == got['d2_failures'] == 0,
+          f'nnk, {name}: outside the tolerance: {got}')
+    return err, k_ms, p_ms, c_ms
 
 
 def cdist_min(ref, nbr):
@@ -589,12 +687,13 @@ def nn1_vs_plain(name, ref, nbr):
 
 def point_kernels_vs_plain(dev):
     """nn1, nnk and the SE3 kernels against their plain versions at the
-    ICP slice's shapes; returns {kernel: (err, ms, plain ms)}, the SE3
-    entries with the device ms of kernel and plain version appended."""
+    ICP slice's shapes; returns {kernel: (err, ms, plain ms, ...)}: nn1
+    and nnk with their two-call reference's ms, the SE3 entries with the
+    device ms of kernel and plain version."""
     import torch
     import pypose_tpu_torch as ppt
     from pypose_tpu_torch.lietensor import operation as op
-    from pypose_tpu_torch.ops import knn as K, se3 as S
+    from pypose_tpu_torch.ops import se3 as S
     src, _, tgt = icp_instance(100_000, dev)
     icp_err, k_ms, p_ms, c_ms = nn1_vs_plain('ICP clouds', src, tgt)
     # every target point twice, and a copy of 1000 source points
@@ -604,9 +703,7 @@ def point_kernels_vs_plain(dev):
     out = {'nn1': (max(icp_err, dup_err), k_ms, p_ms, c_ms)}
     ref = src[:20_000].contiguous()
     for k in (4, 16):
-        out[f'nnk{k}'] = knn_vs_plain(
-            'nnk, ICP clouds', lambda: K.nnk(ref, tgt, k),
-            lambda: K._nnk_torch(ref, tgt, k), ref, tgt)
+        out[f'nnk{k}'] = nnk_vs_plain('ICP clouds', ref, tgt, k)
     gen = torch.Generator().manual_seed(5)
     for N in (100_000, 100_003):
         X = ppt.randn_SE3(N, sigma=2.0, generator=gen).tensor().to(dev)
@@ -700,6 +797,50 @@ def icp_slice(dev):
     return counts
 
 
+def knn_k8_phase(dev):
+    """knn(k=8) on ICP's 100k-point clouds through the public entry point:
+    one nnk launch, held to the tolerance rule against the plain version,
+    timed beside the torch path it replaces on CUDA and beside chunked
+    torch.cdist + torch.topk.  Returns (launch counts, max|d2 - d2_p|, ms,
+    plain ms, torch path ms, cdist + topk ms)."""
+    import torch
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.function import geometry
+    from pypose_tpu_torch.ops import knn as K
+    from pypose_tpu_torch.testing import nnk_tolerance_failures
+    src, _, tgt = icp_instance(100_000, dev)
+    k = 8
+    reset_counts()
+    res = ppt.knn(src, tgt, k=k)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    others = {n: c for n, c in counts.items() if n != 'NNK_LAUNCHES' and c}
+    check(counts['NNK_LAUNCHES'] == 1 and not others,
+          f'knn(k=8) launched {counts}')
+    p_ms, (d_p, i_p) = cuda_ms(lambda: K._nnk_torch(src, tgt, k), repeat=3)
+    d2 = res.values ** 2
+    got = nnk_tolerance_failures(src, tgt, d2, res.indices, i_p)
+    err = float((d2 - d_p).abs().max())
+    check(tuple(res.indices.shape) == (100_000, k)
+          and bool(torch.isfinite(res.values).all()),
+          'knn(k=8): wrong shape or not finite')
+    check(got['index_failures'] == got['repeat_failures']
+          == got['d2_failures'] == 0,
+          f'knn(k=8): outside the tolerance: {got}')
+    k_ms, _ = cuda_ms(lambda: ppt.knn(src, tgt, k=k))
+    chunk = max(128, (64 << 20) // tgt.shape[0])
+    t_ms, _ = cuda_ms(lambda: geometry._knn_gram(src, tgt, k, False, chunk),
+                      repeat=3)
+    c_ms, _ = cuda_ms(lambda: cdist_topk(src, tgt, k), repeat=3)
+    print(f'[knn-k8] knn(src, tgt, k=8), 100k x 100k ICP clouds: launch '
+          f'counts {counts}; {got}; max|d2 - d2_p| {err:.3e}; knn '
+          f'{k_ms:.4f} ms (median of 7), the torch path it replaces '
+          f'(matmul + stable sort a chunk) {t_ms:.4f} ms, torch.cdist + '
+          f'torch.topk {c_ms:.4f} ms, plain nnk {p_ms:.4f} ms (median of '
+          '3)', flush=True)
+    return counts, err, k_ms, p_ms, t_ms, c_ms
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -750,28 +891,36 @@ def main():
     whole.append(whole_solve_vs_plain(
         'sphere2500 shape, 150 iterations', 2500, 157, 2000, True, 150, 0.0))
     _, k_ms, p_ms, k_it = whole[-1]
-    small = oversize_solvers_vs_plain('N=53', stencil_system(53, 9, 15, False),
-                                      200, 1e-7)
+    small, _ = oversize_solvers_vs_plain(
+        'N=53', stencil_system(53, 9, 15, False), 200, 1e-7)
     big_system = stencil_system(100_000, 993, 80_000, True)
-    big = oversize_solvers_vs_plain('100k shape, tol 1e-3', big_system, 250,
-                                    1e-3)
-    full = oversize_solvers_vs_plain('100k shape, 250 iterations',
-                                     big_system, 250, 0.0)
+    big, big_plan = oversize_solvers_vs_plain('100k shape, tol 1e-3',
+                                              big_system, 250, 1e-3)
+    full, _ = oversize_solvers_vs_plain('100k shape, 250 iterations',
+                                        big_system, 250, 0.0)
+    check(big_plan['smem'], 'the 100k shape is past the fused kernel\'s '
+          'shared-memory mode')
+    fused_dev = fused_device_ms(big_system, 250, 0.0)
     alone = tiled_kernels_vs_plain(big_system)
     del big_system
+    past, past_plan = oversize_solvers_vs_plain(
+        'N=200,000', stencil_system(200_000, 993, 160_000, True), 250, 1e-3)
+    check(not past_plan['smem'], 'N=200,000 is within the fused kernel\'s '
+          'shared-memory mode: it would not test the global mode')
     point = point_kernels_vs_plain(dev)
 
-    # 4., 5. and 7. the paths, each counted from zero over its cold run
+    # 4., 5., 7. and 8. the paths, each counted from zero over its cold run
     first_step_agreement(dev)
     sphere_counts = sphere2500_slice(dev)
-    pgo_counts = pgo100k_slice(dev)
+    pgo_counts, pgo_prof = pgo100k_slice(dev)
     icp_card_vs_cpu(dev)
     icp_counts = icp_slice(dev)
+    k8_counts, k8_err, k8_ms, k8_plain, k8_torch, k8_lib = knn_k8_phase(dev)
 
-    # 8. results: each kernel's bound from this run's shapes (t = 6, two
+    # 9. results: each kernel's bound from this run's shapes (t = 6, two
     # offsets; float32 operands and vectors, 4 bytes a float)
     def route_err(route):
-        return max(r[route][0] for r in (small, big, full))
+        return max(r[route][0] for r in (small, big, full, past))
 
     t, tt, n_off = 6, 36, 2
     N2500, N100k, icp_n, nnk_r = 2500, 100_000, 100_000, 20_000
@@ -820,36 +969,52 @@ def main():
               pgo_counts['TILED_MV_LAUNCHES'],
               max(alone['mv'][0], route_err('tiled')), alone['mv'][1] / 1e3,
               alone['mv'][2] / 1e3, mv_b, device_ms=alone['mv'][4] / 1e3,
-              ms_of='one launch, 100k shape (device_ms: torch.profiler)'),
+              ms_of='one launch, 100k shape (device_ms: torch.profiler)',
+              routed=False),
         entry('stencil_tiled_pc', 'stencil_cg_tiled.cu', pallas + '149',
               pgo_counts['TILED_PC_LAUNCHES'],
               max(alone['pc'][0], route_err('tiled')), alone['pc'][1] / 1e3,
               alone['pc'][2] / 1e3, pc_b, library_ms=alone['pc'][3] / 1e3,
               library='torch.einsum over the [t, t, N] blocks',
               device_ms=alone['pc'][4] / 1e3,
-              ms_of='one launch, 100k shape (device_ms: torch.profiler)')]
-    for kname, line, counter in (('axpy', '253', 'FUSED_AXPY_LAUNCHES'),
-                                 ('mv', '290', 'FUSED_MV_LAUNCHES')):
-        kernels.append(entry(
-            f'stencil_fused_{kname}', 'stencil_cg_fused.cu', pallas + line,
-            pgo_counts[counter], route_err('fused'), full['fused'][1],
-            full['fused'][2], fused_b,
-            ms_of=f'one {f_it}-iteration fused solve (both passes), 100k '
-                  'shape', routed=False))
-    kernels += [
+              ms_of='one launch, 100k shape (device_ms: torch.profiler)',
+              routed=False),
+        entry('stencil_fused', 'stencil_cg_fused.cu',
+              pallas + '253, :290', pgo_counts['FUSED_LAUNCHES'],
+              max(route_err('fused'), route_err('fused_bf16')),
+              full['fused'][1], full['fused'][2], fused_b,
+              ms_bf16=full['fused_bf16'][1],
+              plain_ms_bf16=full['fused_bf16'][2],
+              device_ms=fused_dev['fused'],
+              device_ms_bf16=fused_dev['fused_bf16'],
+              tiled_ms=full['tiled'][1],
+              ms_global_mode=past['fused'][1],
+              ms_global_mode_of=f'N=200,000, tol 1e-3, {past["fused"][3]} '
+                                'iterations, state in global memory',
+              ms_of=f'one {f_it}-iteration solve, 100k shape, float32 '
+                    'operands (ms_bf16: bf16 operands; device_ms: '
+                    'torch.profiler; tiled_ms: the tiled solver on the '
+                    'same system)', routed=True),
         entry('nn1', 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:22',
               icp_counts['NN1_LAUNCHES'], point['nn1'][0], point['nn1'][1],
               point['nn1'][2], nn1_b, ms_of='100k x 100k, ICP clouds',
               two_call_reference_ms=point['nn1'][3],
               two_call_reference='torch.cdist then torch.min, per chunk of '
-                                 '64 Mi pairs: two calls, no one call'),
+                                 '64 Mi pairs: two calls, no one call',
+              routed=True),
         entry('nnk', 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:50',
-              icp_counts['NNK_LAUNCHES'],
-              max(point['nnk4'][0], point['nnk16'][0]), point['nnk16'][1],
-              point['nnk16'][2], nnk_b, ms_k4=point['nnk4'][1],
-              plain_ms_k4=point['nnk4'][2],
-              ms_of='k=16 (ms_k4: k=4), 20k x 100k slice of the ICP clouds',
-              routed=False)]
+              k8_counts['NNK_LAUNCHES'],
+              max(point['nnk4'][0], point['nnk16'][0], k8_err),
+              point['nnk16'][1], point['nnk16'][2], nnk_b,
+              library_ms=point['nnk16'][3],
+              library='torch.cdist then torch.topk, per chunk of 64 Mi pairs',
+              ms_k4=point['nnk4'][1], plain_ms_k4=point['nnk4'][2],
+              library_ms_k4=point['nnk4'][3], knn_k8_ms=k8_ms,
+              knn_k8_torch_path_ms=k8_torch, knn_k8_library_ms=k8_lib,
+              knn_k8_plain_ms=k8_plain,
+              ms_of='k=16 (ms_k4: k=4), 20k x 100k slice of the ICP clouds; '
+                    'knn_k8: knn(k=8) at 100k x 100k, launches from it',
+              routed=True)]
     for kname, line in (('se3_mul', '51'), ('se3_act', '68')):
         kernels.append(entry(
             kname, 'se3.cu', 'pypose_tpu/ops/pallas_se3.py:' + line,
@@ -858,6 +1023,7 @@ def main():
             device_ms=point[kname][3], plain_device_ms=point[kname][4],
             ms_of='per call over 50 calls, N=100,000 (device_ms: kernel '
                   'time alone, torch.profiler)', routed=False))
+    print(f'[pgo-100k] profiled run {pgo_prof}', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

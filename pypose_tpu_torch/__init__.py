@@ -8,8 +8,8 @@ torch and numpy, never jax.  It covers two paths:
   with its random factories, views and matrix conversions, the scalarized
   PGO blocks, g2o IO and the synthetic sphere graph, the stencil normal
   equations, the stencil CG kernels (``csrc/stencil_cg.cu`` whole-solve,
-  ``csrc/stencil_cg_tiled.cu`` and ``csrc/stencil_cg_fused.cu`` for
-  systems past its L2 budget) and ``optim.sparse.SparseLM``;
+  ``csrc/stencil_cg_fused.cu`` for systems past its L2 budget,
+  ``csrc/stencil_cg_tiled.cu`` beside it) and ``optim.sparse.SparseLM``;
 - point clouds: ``module.ICP`` over ``function.geometry.knn`` (the
   nearest-neighbour kernels of ``csrc/knn.cu``) and ``svdtf``, with
   ``utils.ReduceToBason``.  The SE3 composition and action kernels of

@@ -1,5 +1,5 @@
-// Brute-force nearest neighbours: nn1 (k = 1), a register-tiled scan of
-// its own, and nnk (a running top-k; the wrappers send it k >= 2).
+// Brute-force nearest neighbours: nn1 (k = 1) and nnk (2 <= k <= 16), two
+// register-tiled scans of one design.
 //
 // Replaces the TPU kernels of pypose_tpu/ops/pallas_knn.py:
 //   _knn1_kernel (:22)  per [Tr, Tn] tile, the Gram-form squared distance
@@ -9,46 +9,54 @@
 // Both return, among equal distances, the lowest index: the Pallas
 // kernels' first occurrence within a tile and earlier tile across tiles.
 //
-// nn1.  Neighbours are staged through shared memory as one float4 each,
-// (-2 b_0, -2 b_1, -2 b_2, |b|^2) (D = 4: the four -2 b_c and |b|^2 in a
-// second array), and each thread holds kRT = 8 reference rows in
-// registers, so one broadcast LDS.128 feeds eight rows and a pair costs
+// Both scans.  Neighbours are staged through shared memory as one float4
+// each, (-2 b_0, -2 b_1, -2 b_2, |b|^2) (D = 4: the four -2 b_c and |b|^2
+// in a second array), and each thread holds several reference rows in
+// registers, so one broadcast LDS.128 feeds them all and a pair costs
 // three FFMA, s = fma(a_2, -2 b_2, fma(a_1, -2 b_1, fma(a_0, -2 b_0,
-// |b|^2))), and one FMNMX.  Min first, index later: a row keeps only the
-// running min of s, and after each sub-tile of kSub neighbours notes the
+// |b|^2))), and a compare.  Rows are ranked by s = |b|^2 - 2 a.b; |a|^2 is
+// added after the scan, and d^2 clamped at 0, as pallas_knn.py:153 and
+// :191 do.  The neighbour range is split over blockIdx.y so that enough
+// blocks are in flight; a merge pass combines each row's results over the
+// splits in split order.  d^2 rounds differently from the plain version
+// (ops/knn.py:_gram_d2, every product and sum rounded alone), so on a
+// near-tie the two may pick different neighbours: the card is held to the
+// tolerance of pypose_tpu_torch/testing:nnk_tolerance_failures (for k = 1,
+// nn1_tolerance_failures).
+//
+// nn1: min first, index later.  A row keeps only the running min of s (one
+// FMNMX a pair), and after each sub-tile of kSub neighbours notes the
 // sub-tile if the min fell in it (a strict <, so a tie keeps the earlier
 // one).  At the end of a staged tile, a row whose min fell there scans that
 // sub-tile again in ascending order for the first exact match under the
 // same arithmetic.  Rescanning every sub-tile where some row of a warp
 // improved would cost more than the scan itself: in a warp of 256 rows
-// some row improves in most early sub-tiles.  The
-// neighbour range is split over blockIdx.y so that ~16 blocks an SM are in
-// flight; a merge pass takes each row's best over the splits in order
-// (strict <, so the lower index on ties), adds |a|^2 and clamps at 0, as
-// pallas_knn.py:153 does.  d^2 rounds differently from the plain version
-// (ops/knn.py:_gram_d2, every product and sum rounded alone), so on a
-// near-tie the two may pick different neighbours: the card is held to the
-// tolerance of pypose_tpu_torch/testing:nn1_tolerance_failures.
+// some row improves in most early sub-tiles.
 //
-// nnk.  Each thread owns one reference row and scans every neighbour in
-// ascending index, keeping its best K as a list sorted by (d^2, index).  A
-// neighbour enters only with a strictly smaller d^2 than the entry it
-// displaces, so among equal distances the lower index stays first.  d^2 =
-// (|a|^2 + |b|^2) - 2 a.b with every product and sum rounded once
-// (__fmul_rn/__fadd_rn: no contraction), the cross term summed from the
-// first coordinate: the order of the plain PyTorch version, so both give
-// the same bits.  The clamp at 0 comes after the choice, as in
-// pallas_knn.py:191.  128 threads a block; neighbours staged through
-// shared memory kTile at a time with their |b|^2; no padding: bounds
-// checks replace the Pallas kernels' +inf rows.
+// nnk: a threshold scan.  Each row keeps its best K (s, index) pairs,
+// sorted by (s, index), in registers (K the least of 2, 4, 8, 16 that holds
+// k; 4 rows a thread, 2 at K = 16), and the K-th s as its threshold.  Over
+// a batch of kBatch = 64 neighbours a pair costs its three FFMA, one
+// compare with the threshold and one OR into a 64-bit mask of candidates;
+// after the batch each candidate is scored again (the same function, the
+// same bits) in ascending index and inserted into the list, which raises
+// it past nothing it does not beat (a strict <: among equal s the lower
+// index stays first).  A warp runs an insert round whenever one of its
+// lanes has a candidate, so batching halves the rounds of the scan's long
+// tail, where candidates are rare but some lane has one.  A random cloud makes ~k (1 + ln(M / k)) entries a row over
+// a split of M neighbours, so the inserts, divergent as they are, stay a
+// small part of the scan.  Each split keeps its first k pairs; the merge
+// inserts the splits' lists in split order, each in its order, into one
+// list per row, so among equal s the lower index again comes first.
 //
 // What bounds them on an H100: instruction issue.  nn1 needs 3 FMA a pair:
 // 1e10 pairs (ICP's 100k x 100k) are 6e10 flop, 0.90 ms at 67 TFLOP/s;
 // with the FMNMX and one LDS.128 per kRT pairs the scan issues ~4.2
 // instructions a pair, ~1.3e9 warp instructions, ~1.3 ms at one per
-// cycle per scheduler.  nnk issues ~12 a pair (3 FMUL + 3 FADD + 1 FFMA,
-// the list's compares and selects, loop overhead).  Device memory sees
-// only the clouds (each block rereads its neighbours from L2).
+// cycle per scheduler.  nnk issues ~5.5 a pair (3 FFMA, the compare and the
+// OR, a share of the LDS) plus its inserts.  Device memory sees only the
+// clouds and the splits' partial results (each block rereads its
+// neighbours from L2).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (see pypose_tpu_torch/ops/_build.py)
@@ -60,21 +68,15 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;  // neighbours in shared memory per pass
-constexpr int kMaxDim = 4;   // ops/knn.py:MAX_DIM
-constexpr int kMaxK = 16;    // ops/knn.py:MAX_K
+constexpr int kThreads = 128;   // threads a block, both scans
+constexpr int kTile = 1024;     // neighbours staged a pass
+constexpr int kSub = 32;        // neighbours a sub-tile
+constexpr int kMinSplit = 2048; // neighbours a split, least
+constexpr int kMaxDim = 4;      // ops/knn.py:MAX_DIM
+constexpr int kMaxK = 16;       // ops/knn.py:MAX_K
 
-template <int D>
-__device__ __forceinline__ float sqnorm(const float* x) {
-  float s = __fmul_rn(x[0], x[0]);
-#pragma unroll
-  for (int c = 1; c < D; ++c) s = __fadd_rn(s, __fmul_rn(x[c], x[c]));
-  return s;
-}
-
-// Inserts (d, j) into the list (v, id) sorted by (d^2, index); j is above
-// every index already held.
+// Inserts (d, j) into the list (v, id) sorted by (d^2, index), behind
+// every entry whose d^2 it does not beat (a strict <).
 template <int K>
 __device__ __forceinline__ void insert(float d, int j, float* v, int* id) {
   if (!(d < v[K - 1])) return;
@@ -94,108 +96,9 @@ __device__ __forceinline__ void insert(float d, int j, float* v, int* id) {
   }
 }
 
-template <int D, int K>
-__global__ void __launch_bounds__(kThreads)
-knn_kernel(const float* __restrict__ ref, const float* __restrict__ nbr,
-           int R, int N, int k, float* __restrict__ d2_out,
-           long long* __restrict__ idx_out) {
-  // each neighbour: D coordinates then |b|^2
-  __shared__ __align__(16) float tile[kTile * (D + 1)];
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = row < R;
-  float a[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c)
-    a[c] = live ? ref[static_cast<size_t>(row) * D + c] : 0.f;
-  const float an = sqnorm<D>(a);
-  float v[K];
-  int id[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    v[s] = CUDART_INF_F;
-    id[s] = 0;
-  }
-  for (int j0 = 0; j0 < N; j0 += kTile) {
-    const int n = min(kTile, N - j0);
-    __syncthreads();  // the previous tile has been read
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      float b[D];
-#pragma unroll
-      for (int c = 0; c < D; ++c)
-        b[c] = nbr[static_cast<size_t>(j0 + t) * D + c];
-#pragma unroll
-      for (int c = 0; c < D; ++c) tile[t * (D + 1) + c] = b[c];
-      tile[t * (D + 1) + D] = sqnorm<D>(b);
-    }
-    __syncthreads();
-    for (int t = 0; t < n; ++t) {
-      float b[D + 1];
-      if constexpr (D == 3) {
-        const float4 q = reinterpret_cast<const float4*>(tile)[t];
-        b[0] = q.x;
-        b[1] = q.y;
-        b[2] = q.z;
-        b[3] = q.w;
-      } else {
-#pragma unroll
-        for (int c = 0; c <= D; ++c) b[c] = tile[t * (D + 1) + c];
-      }
-      float cross = __fmul_rn(a[0], b[0]);
-#pragma unroll
-      for (int c = 1; c < D; ++c)
-        cross = __fadd_rn(cross, __fmul_rn(a[c], b[c]));
-      // 2 * cross is exact, so this rounds once, as (an + bn) - 2 cross does
-      const float d = __fmaf_rn(-2.f, cross, __fadd_rn(an, b[D]));
-      insert<K>(d, j0 + t, v, id);
-    }
-  }
-  if (!live) return;
-  const size_t out = static_cast<size_t>(row) * k;
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (s < k) {
-      d2_out[out + s] = fmaxf(v[s], 0.f);
-      idx_out[out + s] = id[s];
-    }
-  }
-}
-
-template <int D, int K>
-void launch_k(const float* ref, const float* nbr, int R, int N, int k,
-              float* d2, long long* idx, cudaStream_t stream) {
-  knn_kernel<D, K><<<(R + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      ref, nbr, R, N, k, d2, idx);
-}
-
-template <int D>
-cudaError_t launch(const float* ref, const float* nbr, int R, int N, int k,
-                   float* d2, long long* idx, cudaStream_t stream) {
-  // the smallest list that holds k; its first k entries are the answer
-  // (k = 1 reaches here only by a direct call: the wrappers send it to nn1)
-  if (k <= 2)
-    launch_k<D, 2>(ref, nbr, R, N, k, d2, idx, stream);
-  else if (k <= 4)
-    launch_k<D, 4>(ref, nbr, R, N, k, d2, idx, stream);
-  else if (k <= 8)
-    launch_k<D, 8>(ref, nbr, R, N, k, d2, idx, stream);
-  else
-    launch_k<D, kMaxK>(ref, nbr, R, N, k, d2, idx, stream);
-  return cudaGetLastError();
-}
-
-// ---- nn1 ------------------------------------------------------------------
-
-constexpr int kNn1Threads = 128;
-constexpr int kRT = 8;                          // reference rows a thread
-constexpr int kNn1Rows = kNn1Threads * kRT;     // reference rows a block
-constexpr int kNn1Tile = 1024;                  // neighbours staged a pass
-constexpr int kSub = 32;                        // neighbours a sub-tile
-constexpr int kMinSplit = 2048;                 // neighbours a split, least
-constexpr int kBlocksPerSm = 16;                // blocks in flight, aim
-
 // s = |b|^2 - 2 a.b from the staged (-2 b, |b|^2), FMA from the first
-// coordinate; the scan and its rescan call this one function, so a rescan
-// finds the min's bits again.
+// coordinate; a scan and its second look at a neighbour call this one
+// function, so both see the same bits.
 template <int D>
 __device__ __forceinline__ float score(const float* a, float4 w, float bn) {
   float s = __fmaf_rn(a[0], w.x, bn);
@@ -205,15 +108,76 @@ __device__ __forceinline__ float score(const float* a, float4 w, float bn) {
   return s;
 }
 
+// Stages neighbours [t0, t0 + n) into tw (and tb for D = 4), padded to
+// n_pad with zero coordinates and |b|^2 = inf, so s = inf.
+template <int D>
+__device__ __forceinline__ void stage(const float* __restrict__ nbr, int t0,
+                                      int n, int n_pad, float4* tw,
+                                      float* tb) {
+  for (int t = threadIdx.x; t < n_pad; t += kThreads) {
+    float b[4] = {0.f, 0.f, 0.f, 0.f};
+    float bn = CUDART_INF_F;
+    if (t < n) {
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        b[c] = nbr[static_cast<size_t>(t0 + t) * D + c];
+      bn = b[0] * b[0];
+#pragma unroll
+      for (int c = 1; c < D; ++c) bn = __fmaf_rn(b[c], b[c], bn);
+    }
+    tw[t] = make_float4(-2.f * b[0], -2.f * b[1], -2.f * b[2],
+                        D == 4 ? -2.f * b[3] : bn);
+    if (D == 4) tb[t] = bn;
+  }
+}
+
+// |a|^2 of reference row `row`, FMA from the first coordinate.
+template <int D>
+__device__ __forceinline__ float ref_sqnorm(const float* ref, int row) {
+  const float* a = ref + static_cast<size_t>(row) * D;
+  float an = a[0] * a[0];
+#pragma unroll
+  for (int c = 1; c < D; ++c) an = __fmaf_rn(a[c], a[c], an);
+  return an;
+}
+
+// Neighbours a split: ceil(N / splits) rounded up to whole sub-tiles.
+int split_chunk(int N, int splits) {
+  const int c = (N + splits - 1) / splits;
+  return (c + kSub - 1) / kSub * kSub;
+}
+
+// Splits of N neighbours for R rows at `rows` rows a block on the current
+// device: enough for `per_sm` blocks an SM, at least kMinSplit neighbours
+// each; 0 on invalid sizes or a device query failure.
+int splits_for(int R, int N, int rows, int per_sm) {
+  int dev = 0, sms = 0;
+  if (R <= 0 || N <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  const int row_blocks = (R + rows - 1) / rows;
+  const int want = (per_sm * sms + row_blocks - 1) / row_blocks;
+  const int splits = std::max(1, std::min(want, N / kMinSplit));
+  const int chunk = split_chunk(N, splits);
+  return (N + chunk - 1) / chunk;
+}
+
+// ---- nn1 ------------------------------------------------------------------
+
+constexpr int kRT = 8;                      // reference rows a thread
+constexpr int kNn1Rows = kThreads * kRT;    // reference rows a block
+constexpr int kNn1BlocksPerSm = 16;         // blocks in flight, aim
+
 // Each row's least s over the neighbours [split * chunk, + chunk), and the
 // first index that gives it, into part_s / part_i [splits, R].
 template <int D>
-__global__ void __launch_bounds__(kNn1Threads, 4)
+__global__ void __launch_bounds__(kThreads, 4)
 nn1_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
          int R, int N, int chunk, float* __restrict__ part_s,
          int* __restrict__ part_i) {
-  __shared__ float4 tw[kNn1Tile];
-  __shared__ float tb[D == 4 ? kNn1Tile : 1];
+  __shared__ float4 tw[kTile];
+  __shared__ float tb[D == 4 ? kTile : 1];
   const int j_begin = blockIdx.y * chunk;
   const int j_end = min(N, j_begin + chunk);
   const int row0 = blockIdx.x * kNn1Rows + threadIdx.x;
@@ -221,33 +185,18 @@ nn1_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
   int bidx[kRT];
 #pragma unroll
   for (int r = 0; r < kRT; ++r) {
-    const int row = row0 + r * kNn1Threads;
+    const int row = row0 + r * kThreads;
 #pragma unroll
     for (int c = 0; c < D; ++c)
       a[r][c] = row < R ? ref[static_cast<size_t>(row) * D + c] : 0.f;
     best[r] = CUDART_INF_F;
     bidx[r] = 0;
   }
-  for (int t0 = j_begin; t0 < j_end; t0 += kNn1Tile) {
-    const int n = min(kNn1Tile, j_end - t0);
+  for (int t0 = j_begin; t0 < j_end; t0 += kTile) {
+    const int n = min(kTile, j_end - t0);
     const int n_pad = (n + kSub - 1) / kSub * kSub;
     __syncthreads();  // the previous tile has been read
-    for (int t = threadIdx.x; t < n_pad; t += kNn1Threads) {
-      // padding: zero coordinates and |b|^2 = inf, so s = inf
-      float b[4] = {0.f, 0.f, 0.f, 0.f};
-      float bn = CUDART_INF_F;
-      if (t < n) {
-#pragma unroll
-        for (int c = 0; c < D; ++c)
-          b[c] = nbr[static_cast<size_t>(t0 + t) * D + c];
-        bn = b[0] * b[0];
-#pragma unroll
-        for (int c = 1; c < D; ++c) bn = __fmaf_rn(b[c], b[c], bn);
-      }
-      tw[t] = make_float4(-2.f * b[0], -2.f * b[1], -2.f * b[2],
-                          D == 4 ? -2.f * b[3] : bn);
-      if (D == 4) tb[t] = bn;
-    }
+    stage<D>(nbr, t0, n, n_pad, tw, tb);
     __syncthreads();
     // the running min of each row, and the sub-tile of this tile where it
     // last fell (-1: not in this tile)
@@ -288,7 +237,7 @@ nn1_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
   }
 #pragma unroll
   for (int r = 0; r < kRT; ++r) {
-    const int row = row0 + r * kNn1Threads;
+    const int row = row0 + r * kThreads;
     if (row < R) {
       part_s[static_cast<size_t>(blockIdx.y) * R + row] = best[r];
       part_i[static_cast<size_t>(blockIdx.y) * R + row] = bidx[r];
@@ -315,18 +264,8 @@ __global__ void nn1_merge(const float* __restrict__ ref, int R, int splits,
       bi = part_i[static_cast<size_t>(sp) * R + row];
     }
   }
-  const float* a = ref + static_cast<size_t>(row) * D;
-  float an = a[0] * a[0];
-#pragma unroll
-  for (int c = 1; c < D; ++c) an = __fmaf_rn(a[c], a[c], an);
-  d2[row] = fmaxf(__fadd_rn(best, an), 0.f);
+  d2[row] = fmaxf(__fadd_rn(best, ref_sqnorm<D>(ref, row)), 0.f);
   idx[row] = bi;
-}
-
-// Neighbours a split: ceil(N / splits) rounded up to whole sub-tiles.
-int nn1_chunk(int N, int splits) {
-  const int c = (N + splits - 1) / splits;
-  return (c + kSub - 1) / kSub * kSub;
 }
 
 template <int D>
@@ -334,8 +273,8 @@ cudaError_t launch_nn1(const float* ref, const float* nbr, int R, int N,
                        int splits, float* part_s, int* part_i, float* d2,
                        long long* idx, cudaStream_t stream) {
   const dim3 grid((R + kNn1Rows - 1) / kNn1Rows, splits);
-  nn1_scan<D><<<grid, kNn1Threads, 0, stream>>>(
-      ref, nbr, R, N, nn1_chunk(N, splits), part_s, part_i);
+  nn1_scan<D><<<grid, kThreads, 0, stream>>>(
+      ref, nbr, R, N, split_chunk(N, splits), part_s, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   nn1_merge<D><<<(R + 255) / 256, 256, 0, stream>>>(ref, R, splits, part_s,
@@ -343,44 +282,175 @@ cudaError_t launch_nn1(const float* ref, const float* nbr, int R, int N,
   return cudaGetLastError();
 }
 
+// ---- nnk ------------------------------------------------------------------
+
+// blocks in flight, aim: fewer splits than nn1's, since each split fills
+// its lists from scratch
+constexpr int kNnkBlocksPerSm = 4;
+constexpr int kBatch = 64;  // neighbours a candidate mask covers
+
+// The list length for k (the least of 2, 4, 8, 16 that holds it), and the
+// reference rows a thread keeps in registers with lists of K.
+int list_len(int k) { return k <= 2 ? 2 : k <= 4 ? 4 : k <= 8 ? 8 : 16; }
+__host__ __device__ constexpr int nnk_rows(int K) { return K >= 16 ? 2 : 4; }
+
+// Each row's best k (s, index) pairs over the neighbours [split * chunk,
+// + chunk), sorted by (s, index), into part_s / part_i [splits, k, R].
+template <int D, int K>
+__global__ void __launch_bounds__(kThreads)
+nnk_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
+         int R, int N, int k, int chunk, float* __restrict__ part_s,
+         int* __restrict__ part_i) {
+  constexpr int RT = nnk_rows(K);
+  __shared__ float4 tw[kTile];
+  __shared__ float tb[D == 4 ? kTile : 1];
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(N, j_begin + chunk);
+  const int row0 = blockIdx.x * (kThreads * RT) + threadIdx.x;
+  float a[RT][D], v[RT][K];
+  int id[RT][K];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int row = row0 + r * kThreads;
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      a[r][c] = row < R ? ref[static_cast<size_t>(row) * D + c] : 0.f;
+#pragma unroll
+    for (int e = 0; e < K; ++e) {
+      v[r][e] = CUDART_INF_F;
+      id[r][e] = 0;
+    }
+  }
+  for (int t0 = j_begin; t0 < j_end; t0 += kTile) {
+    const int n = min(kTile, j_end - t0);
+    const int n_pad = (n + kBatch - 1) / kBatch * kBatch;
+    __syncthreads();  // the previous tile has been read
+    stage<D>(nbr, t0, n, n_pad, tw, tb);
+    __syncthreads();
+    for (int s0 = 0; s0 < n_pad; s0 += kBatch) {
+      // the candidates of the batch: s under the row's threshold
+      unsigned long long m[RT];
+      float thr[RT];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        m[r] = 0ull;
+        thr[r] = v[r][K - 1];
+      }
+#pragma unroll
+      for (int s = 0; s < kBatch; ++s) {
+        const float4 w = tw[s0 + s];
+        const float bn = D == 4 ? tb[s0 + s] : w.w;
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+          m[r] |= score<D>(a[r], w, bn) < thr[r] ? 1ull << s : 0ull;
+      }
+      // each candidate again, in ascending index, into the list
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        while (m[r]) {
+          const int s = s0 + __ffsll(m[r]) - 1;
+          m[r] &= m[r] - 1ull;
+          const float4 w = tw[s];
+          insert<K>(score<D>(a[r], w, D == 4 ? tb[s] : w.w), t0 + s, v[r],
+                    id[r]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int row = row0 + r * kThreads;
+    if (row < R) {
+#pragma unroll
+      for (int e = 0; e < K; ++e) {
+        if (e < k) {
+          const size_t o = (static_cast<size_t>(blockIdx.y) * k + e) * R + row;
+          part_s[o] = v[r][e];
+          part_i[o] = id[r][e];
+        }
+      }
+    }
+  }
+}
+
+// Each row's best k over the splits: the splits' lists inserted in split
+// order, each in its (s, index) order, so that among equal s the lower
+// index stays first; then d^2 = s + |a|^2 clamped at 0.
+template <int D, int K>
+__global__ void nnk_merge(const float* __restrict__ ref, int R, int k,
+                          int splits, const float* __restrict__ part_s,
+                          const int* __restrict__ part_i,
+                          float* __restrict__ d2,
+                          long long* __restrict__ idx) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= R) return;
+  float v[K];
+  int id[K];
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    v[e] = CUDART_INF_F;
+    id[e] = 0;
+  }
+  for (int sp = 0; sp < splits; ++sp) {
+    for (int e = 0; e < k; ++e) {
+      const size_t o = (static_cast<size_t>(sp) * k + e) * R + row;
+      const float s = part_s[o];
+      if (!(s < v[K - 1])) break;  // the split's later entries are no less
+      insert<K>(s, part_i[o], v, id);
+    }
+  }
+  const float an = ref_sqnorm<D>(ref, row);
+  const size_t out = static_cast<size_t>(row) * k;
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    if (e < k) {
+      d2[out + e] = fmaxf(__fadd_rn(v[e], an), 0.f);
+      idx[out + e] = id[e];
+    }
+  }
+}
+
+template <int D, int K>
+cudaError_t launch_nnk_k(const float* ref, const float* nbr, int R, int N,
+                         int k, int splits, float* part_s, int* part_i,
+                         float* d2, long long* idx, cudaStream_t stream) {
+  constexpr int rows = kThreads * nnk_rows(K);
+  const dim3 grid((R + rows - 1) / rows, splits);
+  nnk_scan<D, K><<<grid, kThreads, 0, stream>>>(
+      ref, nbr, R, N, k, split_chunk(N, splits), part_s, part_i);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  nnk_merge<D, K><<<(R + 255) / 256, 256, 0, stream>>>(
+      ref, R, k, splits, part_s, part_i, d2, idx);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_nnk(const float* ref, const float* nbr, int R, int N,
+                       int k, int splits, float* part_s, int* part_i,
+                       float* d2, long long* idx, cudaStream_t stream) {
+  switch (list_len(k)) {
+    case 2: return launch_nnk_k<D, 2>(ref, nbr, R, N, k, splits, part_s,
+                                      part_i, d2, idx, stream);
+    case 4: return launch_nnk_k<D, 4>(ref, nbr, R, N, k, splits, part_s,
+                                      part_i, d2, idx, stream);
+    case 8: return launch_nnk_k<D, 8>(ref, nbr, R, N, k, splits, part_s,
+                                      part_i, d2, idx, stream);
+    default: return launch_nnk_k<D, kMaxK>(ref, nbr, R, N, k, splits, part_s,
+                                           part_i, d2, idx, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
-
-// The k nearest of N neighbours (nbr [N, D]) of each of R reference rows
-// (ref [R, D]), both float32 row-major: d2 [R, k] ascending, clamped at 0,
-// and idx [R, k] int64, on `stream`.  Returns cudaGetLastError() (0 on
-// success); invalid sizes (1 <= k <= min(N, 16), 1 <= D <= 4, R >= 1)
-// return cudaErrorInvalidValue without launching.
-int ppt_knn(const float* ref, const float* nbr, int R, int N, int D, int k,
-            float* d2, long long* idx, void* stream) {
-  if (R <= 0 || N <= 0 || k < 1 || k > N || k > kMaxK || D < 1 ||
-      D > kMaxDim)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 1: return static_cast<int>(launch<1>(ref, nbr, R, N, k, d2, idx, s));
-    case 2: return static_cast<int>(launch<2>(ref, nbr, R, N, k, d2, idx, s));
-    case 3: return static_cast<int>(launch<3>(ref, nbr, R, N, k, d2, idx, s));
-    default: return static_cast<int>(launch<4>(ref, nbr, R, N, k, d2, idx, s));
-  }
-}
 
 // Splits of the neighbour range that nn1 uses for R rows and N
 // neighbours on the current device: enough for ~16 blocks an SM, at least
 // 2048 neighbours each.  ppt_nn1's scratch holds splits * R floats and
 // splits * R ints.  Returns 0 on invalid sizes or a device query failure.
 int ppt_nn1_splits(int R, int N) {
-  int dev = 0, sms = 0;
-  if (R <= 0 || N <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  const int row_blocks = (R + kNn1Rows - 1) / kNn1Rows;
-  const int want = (kBlocksPerSm * sms + row_blocks - 1) / row_blocks;
-  const int splits = std::max(1, std::min(want, N / kMinSplit));
-  const int chunk = nn1_chunk(N, splits);
-  return (N + chunk - 1) / chunk;
+  return splits_for(R, N, kNn1Rows, kNn1BlocksPerSm);
 }
 
 // The nearest of N neighbours (nbr [N, D]) of each of R reference rows
@@ -405,6 +475,41 @@ int ppt_nn1(const float* ref, const float* nbr, int R, int N, int D,
                                                   part_s, part_i, d2, idx, s));
     default: return static_cast<int>(launch_nn1<4>(
         ref, nbr, R, N, splits, part_s, part_i, d2, idx, s));
+  }
+}
+
+// Splits of the neighbour range that nnk uses for R rows, N neighbours
+// and k on the current device: enough for ~4 blocks an SM, at least 2048
+// neighbours each.  ppt_nnk's scratch holds splits * k * R floats and as
+// many ints.  Returns 0 on invalid sizes or a device query failure.
+int ppt_nnk_splits(int R, int N, int k) {
+  if (k < 1 || k > kMaxK) return 0;
+  return splits_for(R, N, kThreads * nnk_rows(list_len(k)), kNnkBlocksPerSm);
+}
+
+// The k nearest of N neighbours (nbr [N, D]) of each of R reference rows
+// (ref [R, D]), both float32 row-major: d2 [R, k] ascending by (d^2,
+// index), clamped at 0, and idx [R, k] int64, on `stream`, through
+// `splits` (ppt_nnk_splits) partial lists in part_s / part_i [splits, k,
+// R].  Returns cudaGetLastError() (0 on success); invalid sizes (R >= 1,
+// 1 <= k <= min(N, 16), 1 <= D <= 4, 1 <= splits <= N) return
+// cudaErrorInvalidValue without launching.
+int ppt_nnk(const float* ref, const float* nbr, int R, int N, int D, int k,
+            int splits, float* part_s, int* part_i, float* d2,
+            long long* idx, void* stream) {
+  if (R <= 0 || N <= 0 || k < 1 || k > N || k > kMaxK || D < 1 ||
+      D > kMaxDim || splits < 1 || splits > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 1: return static_cast<int>(launch_nnk<1>(
+        ref, nbr, R, N, k, splits, part_s, part_i, d2, idx, s));
+    case 2: return static_cast<int>(launch_nnk<2>(
+        ref, nbr, R, N, k, splits, part_s, part_i, d2, idx, s));
+    case 3: return static_cast<int>(launch_nnk<3>(
+        ref, nbr, R, N, k, splits, part_s, part_i, d2, idx, s));
+    default: return static_cast<int>(launch_nnk<4>(
+        ref, nbr, R, N, k, splits, part_s, part_i, d2, idx, s));
   }
 }
 

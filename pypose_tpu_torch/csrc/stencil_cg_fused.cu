@@ -1,236 +1,451 @@
-// Chronopoulos-Gear block-Jacobi PCG on stencil-form normal equations in
-// two fused passes per iteration, with the scalar recursion on the device.
+// Chronopoulos-Gear block-Jacobi PCG on stencil-form normal equations: the
+// whole solve in one persistent, cooperative launch over all SMs.
 //
-// Replaces the TPU kernels of pypose_tpu/ops/pallas_cg.py:stencil_cg_fused:
+// Replaces the TPU kernels of pypose_tpu/ops/pallas_cg.py:stencil_cg_fused,
+// and the while_loop that drives them (:408-444):
 //   _fused_axpy_kernel (:253)  pass 1: given (alpha, beta),
 //                              p = u + beta p, s = w + beta s,
 //                              x += alpha p, r -= alpha s, u = Minv r,
-//                              and the dots (r, u), (r, r);
-//   _fused_mv_kernel (:290)    pass 2: w = A u and the dot (w, u).
-// The Pallas passes accumulate their dots in SMEM across the sequential
-// TPU grid and leave the rolls of the back-products and the scalar
-// recursion (:408-436) to XLA.  Here pass 2 computes the whole matvec in
-// gather form (stencil_common.cuh), so (w, u) is complete after one pass
-// and the roll identity of :296-299 is not needed; and the scalars never
-// leave the device:
-//   - each block reduces its dot partials in a fixed order and writes them
-//     to its own slot; the last block to finish (an integer ticket, no
-//     float atomics) sums the slots in slot order, so the iteration count
-//     is the same on every run;
-//   - pass 1 forms alpha and beta from the previous iteration's dots
-//     (:423-430) in every thread; pass 2's last block commits the
-//     iteration (gamma, delta, rr, the previous gamma and alpha, the
-//     iteration count) and decides whether the next one runs
-//     (it < maxiter and |r|^2 > tol^2 |b|^2, the while_loop's cond);
-//   - once the solve has stopped, further launches return at once, so the
-//     host may queue several iterations and read the flag only now and
-//     then.
-// An init pass (init = 1: alpha = beta = 0 on zero u, p, s, w, x and r = b)
-// gives x0 = 0, r0 = b, u0 = Minv b, gamma0, |b|^2 and w0 = A u0, delta0,
-// as :408-415 do.
+//                              and the dots gamma = (r, u), rr = (r, r);
+//   _fused_mv_kernel (:290)    pass 2: w = A u and the dot delta = (w, u).
+// It computes what that loop computes: an init pass 1 with alpha = beta = 0
+// on zero u, p, s, w, x and r = b (x0 = 0, r0 = b, u0 = Minv b, gamma0,
+// rr0 = |b|^2) and its pass 2 (w0, delta0); then, while it < maxiter and
+// rr > tol^2 rr0, beta = gamma / gamma_prev (0 at it = 0), alpha = gamma /
+// (delta - beta gamma / alpha_prev) (gamma / delta at it = 0), with the
+// 1e-31 guards on every divisor.  The last pass 2, whose w no iterate
+// reads, is skipped.  Operands are float32 or bf16 (operand_dtype of the
+// JAX function: each entry widened exactly, all arithmetic float32).
 //
-// Design: one thread per node, 256 threads a block, the grid over all
-// nodes.  Updates are node-local and in place (each thread reads and
-// writes only its own node's entries), except w = A u, which reads u at
-// the neighbours and writes the separate w.
+// Design: G co-resident CTAs, one per SM (G = ceil(N / NL), NL =
+// ceil(N / SMs), fewer CTAs for systems under 8 nodes a CTA), launched
+// cooperatively so that every CTA is resident.  CTA c owns nodes
+// [c NL, c NL + NL) for the whole solve, one thread per node.  Only u
+// crosses CTAs (the matvec reads u at n +- d_k), through a global [t, N]
+// copy read past L1.  Two grid-wide exchanges an iteration:
+//   after pass 1   u, and each CTA's gamma and rr partials;
+//   after pass 2   each CTA's delta partial.
+// An exchange is its own barrier: each CTA sums its threads' partials in a
+// fixed order (stencil_common.cuh), and one thread posts them to the CTA's
+// mailbox as 64-bit words (partial, exchange number) by release stores;
+// every CTA polls all G mailboxes by acquire loads, one a lane spread over
+// its warps so that the polls wait at once, until each shows the
+// exchange's number, and adds the partials in an order fixed by G, so
+// every CTA computes the same alpha, beta and stop decision bit for bit,
+// and two launches give the same bits.  No atomics, and the sums arrive
+// with the barrier.  Mailboxes alternate between two sets (pass 1 and
+// pass 2), so a CTA never overwrites a post another CTA has yet to read.
+// A poll that spins 2^26 times traps, so a lost post fails the launch
+// instead of hanging.
+// Two modes, one template:
+//   kSmem = true   x, r, p, s, w, this CTA's u (6t floats a node) and its
+//                  Minv, widened to float32 (tt floats), live in shared
+//                  memory: 288 B a node, 218 KB a CTA at the 100k-pose
+//                  graph (N = 100,000 on 132 SMs: NL = 758);
+//   kSmem = false  past that, they stay in global memory (x in the output,
+//                  r, p, s, w in scratch, u in the global copy), each
+//                  thread touching only its own nodes.
+// A and C are read from L2 / device memory on every pass 2.
 //
-// What bounds it on an H100: device-memory bandwidth.  At the 100k-pose
-// graph pass 1 moves 11 vectors and Minv (~41 MB) and pass 2 A, both
-// channels, u and w (~48 MB) per iteration, against ~67 MB for the tiled
-// kernels plus the ~10 state-vector passes of the torch CG around them.
+// The loop moves the recursion's p = u + beta p, s = w + beta s to the end
+// of the previous iteration (beta needs gamma alone), so they run while a
+// CTA waits for the delta exchange, and computes A u at its own nodes
+// while it waits for the others' u: the same operations in the same order
+// per node.
+//
+// What bounds it on an H100 (probes/fused_probes.py, cycles of thread 0 a
+// CTA per iteration): in float32 at the 100k shape, device memory: A and
+// C (43.2 MB) do not stay in the 50 MB L2 from one iteration to the next
+// (L2 eviction hints and prefetches did not change that), and the
+// couplings of pass 2 take ~27k of ~47k cycles; in bf16 (21.6 MB, L2-
+// resident) the latency of each thread's chain of operand loads in pass 2
+// (~15k cycles); under both, ~6-7k cycles of exchanges, and at N=53, a
+// latency floor of ~18k cycles an iteration.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (see pypose_tpu_torch/ops/_build.py)
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "stencil_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using ppt::Offsets;
 
-// The solver's scalars, float sc[kNumScalars]: the committed state of the
-// recursion, then what pass 1 hands to pass 2.
-enum {
-  kGamma, kDelta, kGammaPrev, kAlphaPrev, kRR, kTol2,
-  kGammaNew, kRRNew, kAlpha, kNumScalars
-};
-// int st[kNumInts]: iterations done, whether the next iteration runs, and
-// the two passes' tickets (always back at 0 between launches).
-enum { kIt, kRunning, kTicketAxpy, kTicketMv, kNumInts };
+constexpr int kT = 6;
+constexpr int kTT = kT * kT;
+// 85 registers a thread: enough loads in flight for the matvec
+constexpr int kMaxThreads = 768;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMinNodes = 8;  // nodes a CTA, least
+// bytes of static shared memory kept clear of the dynamic allocation
+constexpr int kStaticBytes = 512;
+constexpr unsigned kMaxPolls = 1u << 26;
+
+// Floats of dynamic shared memory a CTA holds in the first mode.
+size_t smem_floats(int NL) {
+  return static_cast<size_t>(NL) * (6 * kT + kTT);
+}
 
 __device__ __forceinline__ float guard(float v) {
   return v == 0.f ? 1e-31f : v;
 }
 
-// Publishes this block's two partial sums to its slots and returns, in
-// every thread, whether this block is the last of the grid to do so.
-__device__ bool publish_partials(float a, float b, float* slots,
-                                 int* ticket) {
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    slots[blockIdx.x] = a;
-    slots[gridDim.x + blockIdx.x] = b;
-    __threadfence();  // the slots are visible before the ticket is
-    last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+__device__ __forceinline__ unsigned long long word(float v, unsigned e) {
+  return (static_cast<unsigned long long>(e) << 32) | __float_as_uint(v);
+}
+
+// Posts this CTA's partials (v0, v1) of exchange e to its mailbox `mb`
+// (two words); one thread, after a barrier that follows every write the
+// exchange publishes (the release covers them).
+__device__ __forceinline__ void post(unsigned long long* mb, float v0,
+                                     float v1, unsigned e) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(mb + 1), "l"(word(v1, e)) : "memory");
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(mb), "l"(word(v0, e)) : "memory");
+}
+
+// Waits for exchange e in all G mailboxes of `set` and returns, in every
+// thread, the sums of their NV partials: mailbox m is polled by lane
+// m % 32 of warp (m / 32) % W (W warps a CTA), so that the polls of up to
+// 32 W mailboxes wait at once; each lane adds its mailboxes in order, each
+// warp shuffles its lanes' sums down, and every thread adds the warps'
+// sums in warp order (through `tot`, kMaxWarps * NV floats).  The order is
+// fixed by G and W alone, the same in every CTA.
+template <int NV>
+__device__ __forceinline__ void gather(const unsigned long long* set, int G,
+                                       unsigned e, float (&v)[NV],
+                                       float* tot) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float a[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) a[c] = 0.f;
+  for (int m = threadIdx.x; m < G; m += blockDim.x) {
+    const unsigned long long* mb = set + 2 * m;
+    unsigned long long w0;
+    for (unsigned polls = 0;; ++polls) {
+      if (polls == kMaxPolls) __trap();
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                   : "=l"(w0) : "l"(mb) : "memory");
+      if (static_cast<unsigned>(w0 >> 32) == e) break;
+    }
+    a[0] += __uint_as_float(static_cast<unsigned>(w0));
+    if (NV > 1) {
+      unsigned long long w1;
+      asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                   : "=l"(w1) : "l"(mb + 1) : "memory");
+      a[NV - 1] += __uint_as_float(static_cast<unsigned>(w1));
+    }
+  }
+  const int warps = min(static_cast<int>(blockDim.x) >> 5, (G + 31) >> 5);
+  if (warp < warps) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      for (int o = 16; o > 0; o >>= 1)
+        a[c] += __shfl_down_sync(0xffffffffu, a[c], o);
+      if (lane == 0) tot[warp * NV + c] = a[c];
+    }
   }
   __syncthreads();
-  return last;
-}
-
-// In the last block: the sums of both slot rows, in slot order.
-__device__ void sum_slots(const float* slots, float& a, float& b,
-                          float* sh) {
-  a = 0.f;
-  b = 0.f;
-  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x);
-       i += blockDim.x) {
-    a += __ldcg(slots + i);  // past L1: other SMs wrote them
-    b += __ldcg(slots + gridDim.x + i);
-  }
-  ppt::block_sum2(a, b, sh);
-}
-
-template <int T>
-__global__ void __launch_bounds__(kThreads)
-fused_axpy_kernel(int init, const float* __restrict__ Minv, int N,
-                  float* __restrict__ u, float* __restrict__ p,
-                  float* __restrict__ s, const float* __restrict__ w,
-                  float* __restrict__ x, float* __restrict__ r, float* sc,
-                  int* st, float* slots) {
-  __shared__ float sh[66];
-  if (!init && !st[kRunning]) return;  // the same in every block
-  float alpha = 0.f, beta = 0.f;
-  if (!init) {
-    const float gamma = sc[kGamma], delta = sc[kDelta];
-    const bool first = st[kIt] == 0;
-    beta = first ? 0.f : gamma / guard(sc[kGammaPrev]);
-    const float den = delta - beta * gamma / guard(sc[kAlphaPrev]);
-    alpha = gamma / (first ? guard(delta) : guard(den));
-  }
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  float ru = 0.f, rr = 0.f;
-  if (n < N) {
-    const size_t NN = static_cast<size_t>(N);
-    float rv[T], zv[T];
 #pragma unroll
-    for (int i = 0; i < T; ++i) {
-      const size_t j = i * NN + n;
-      const float p2 = u[j] + beta * p[j];
-      const float s2 = w[j] + beta * s[j];
-      p[j] = p2;
-      s[j] = s2;
-      x[j] = x[j] + alpha * p2;
-      rv[i] = r[j] - alpha * s2;
-      r[j] = rv[i];
-      zv[i] = 0.f;
-    }
-    ppt::block_mul_add<T, false>(Minv, NN, n, rv, zv);
-#pragma unroll
-    for (int i = 0; i < T; ++i) {
-      u[i * NN + n] = zv[i];
-      ru += rv[i] * zv[i];
-      rr += rv[i] * rv[i];
-    }
-  }
-  ppt::block_sum2(ru, rr, sh);  // threads past N add zeros
-  if (!publish_partials(ru, rr, slots, st + kTicketAxpy)) return;
-  float gamma_new, rr_new;
-  sum_slots(slots, gamma_new, rr_new, sh);
-  if (threadIdx.x == 0) {
-    sc[kGammaNew] = gamma_new;
-    sc[kRRNew] = rr_new;
-    sc[kAlpha] = alpha;
-    st[kTicketAxpy] = 0;
+  for (int c = 0; c < NV; ++c) {
+    float sum = 0.f;
+    for (int k = 0; k < warps; ++k) sum += tot[k * NV + c];
+    v[c] = sum;
   }
 }
 
-template <int T>
-__global__ void __launch_bounds__(kThreads)
-fused_mv_kernel(int init, int maxiter, float tol2_scale,
-                const float* __restrict__ A, const float* __restrict__ C,
-                ppt::Offsets offs, int n_off, int N,
-                const float* __restrict__ u, float* __restrict__ w,
-                float* sc, int* st, float* slots) {
-  __shared__ float sh[66];
-  if (!init && !st[kRunning]) return;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  float wu = 0.f, unused = 0.f;
-  if (n < N) {
-    const size_t NN = static_cast<size_t>(N);
-    float un[T], y[T];
+template <typename OpT, bool kSmem>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
+          const OpT* __restrict__ Minv, const OpT* __restrict__ C,
+          Offsets offs, int n_off, int N, int NL, int maxiter,
+          float tol2_scale, float* __restrict__ x_out, float* u,
+          float* __restrict__ scratch, unsigned long long* mail,
+          int* it_out) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red[66];  // ppt::block_sum2
+  __shared__ float tot[kMaxWarps * 2];
+  const int G = static_cast<int>(gridDim.x);
+  const int n0 = static_cast<int>(blockIdx.x) * NL;
+  const int n_own = max(0, min(NL, N - n0));
+  const size_t NN = static_cast<size_t>(N);
+
+  // x, r, p, s, w and this CTA's u as [t][vs] (node nl of this CTA at
+  // i * vs + nl)
+  float *x, *r, *p, *s, *w, *uo;
+  const float* Ms = nullptr;  // this CTA's Minv, [tt][NL], first mode
+  int vs;
+  if constexpr (kSmem) {
+    x = sm;
+    vs = NL;
+    float* m = sm + 6 * kT * NL;
+    for (int e = threadIdx.x; e < kTT * n_own; e += blockDim.x) {
+      const int i = e / n_own, nl = e - i * n_own;
+      m[i * NL + nl] = ppt::to_f32(Minv[i * NN + n0 + nl]);
+    }
+    Ms = m;
+  } else {
+    x = x_out + n0;
+    vs = N;
+  }
+  r = (kSmem ? x + kT * NL : scratch + n0);
+  p = r + kT * static_cast<size_t>(vs);
+  s = p + kT * static_cast<size_t>(vs);
+  w = s + kT * static_cast<size_t>(vs);
+  uo = kSmem ? w + kT * NL : u + n0;
+
+  // x = p = s = w = u = 0, r = b: pass 1 with alpha = 0 then gives the
+  // init pass's x0, r0, u0
+  for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
 #pragma unroll
-    for (int i = 0; i < T; ++i) un[i] = u[i * NN + n];
-    ppt::stencil_row<T>(A, C, u, offs, n_off, N, n, un, y);
-#pragma unroll
-    for (int i = 0; i < T; ++i) {
-      w[i * NN + n] = y[i];
-      wu += y[i] * un[i];
+    for (int i = 0; i < kT; ++i) {
+      const int j = i * vs + nl;
+      r[j] = b[i * NN + n0 + nl];
+      x[j] = p[j] = s[j] = w[j] = uo[j] = 0.f;
     }
   }
-  ppt::block_sum2(wu, unused, sh);
-  if (!publish_partials(wu, unused, slots, st + kTicketMv)) return;
-  float delta;
-  sum_slots(slots, delta, unused, sh);
-  if (threadIdx.x == 0) {
-    int it;
-    if (init) {
-      sc[kTol2] = tol2_scale * sc[kRRNew];
-      sc[kGammaPrev] = 1.f;
-      sc[kAlphaPrev] = 1.f;
-      it = 0;
-    } else {
-      sc[kGammaPrev] = sc[kGamma];
-      sc[kAlphaPrev] = sc[kAlpha];
-      it = st[kIt] + 1;
+  __syncthreads();  // Minv staged
+
+  unsigned long long* mail_1 = mail + 2 * G;  // pass 1's mailboxes
+  unsigned long long* mail_2 = mail;          // pass 2's mailboxes
+  unsigned e = 0;                             // exchanges so far
+  float alpha = 0.f, gamma = 0.f, tol2 = 0.f;
+  int it = 0;
+  for (bool init = true;; init = false) {
+    // pass 1: x += alpha p, r -= alpha s, u = Minv r, (r, u) and (r, r)
+    float part[2] = {0.f, 0.f};
+    for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+      const size_t n = static_cast<size_t>(n0 + nl);
+      float rv[kT], zv[kT];
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        const int j = i * vs + nl;
+        x[j] = x[j] + alpha * p[j];
+        rv[i] = r[j] - alpha * s[j];
+        r[j] = rv[i];
+        zv[i] = 0.f;
+      }
+      if constexpr (kSmem)
+        ppt::block_mul_add<kT, false>(Ms, NL, nl, rv, zv);
+      else
+        ppt::block_mul_add<kT, false>(Minv, NN, static_cast<int>(n), rv, zv);
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        uo[i * vs + nl] = zv[i];
+        if (kSmem) u[i * NN + n] = zv[i];
+        part[0] += rv[i] * zv[i];
+        part[1] += rv[i] * rv[i];
+      }
     }
-    sc[kGamma] = sc[kGammaNew];
-    sc[kRR] = sc[kRRNew];
-    sc[kDelta] = delta;
-    st[kIt] = it;
-    st[kRunning] = it < maxiter && sc[kRR] > sc[kTol2];
-    st[kTicketMv] = 0;
+    ppt::block_sum2(part[0], part[1], red);  // after every u write
+    ++e;
+    if (threadIdx.x == 0) post(mail_1 + 2 * blockIdx.x, part[0], part[1], e);
+
+    // while the others post: w = A u at this CTA's nodes (own u only)
+    for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+      float un[kT], y[kT];
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        un[i] = uo[i * vs + nl];
+        y[i] = 0.f;
+      }
+      ppt::block_mul_add<kT, false>(A, NN, n0 + nl, un, y);
+#pragma unroll
+      for (int i = 0; i < kT; ++i) w[i * vs + nl] = y[i];
+    }
+    float dots[2];
+    gather<2>(mail_1, G, e, dots, tot);
+    if (init)
+      tol2 = tol2_scale * dots[1];
+    else
+      ++it;
+    if (!(it < maxiter && dots[1] > tol2)) break;
+
+    // pass 2: w += the couplings (u at n +- d_k), (w, u)
+    float wu = 0.f, unused = 0.f;
+    for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+      const int n = n0 + nl;
+      float y[kT], q[kT];
+#pragma unroll
+      for (int i = 0; i < kT; ++i) y[i] = w[i * vs + nl];
+      for (int k = 0; k < n_off; ++k) {
+        const int d = offs.d[k];
+        const OpT* Ck = C + k * kTT * NN;
+        int nf = n + d;
+        if (nf >= N) nf -= N;
+        int nb = n - d;
+        if (nb < 0) nb += N;
+#pragma unroll
+        for (int v = 0; v < kT; ++v) q[v] = __ldcg(u + v * NN + nf);
+        ppt::block_mul_add<kT, false>(Ck, NN, n, q, y);
+#pragma unroll
+        for (int v = 0; v < kT; ++v) q[v] = __ldcg(u + v * NN + nb);
+        ppt::block_mul_add<kT, true>(Ck, NN, nb, q, y);
+      }
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        w[i * vs + nl] = y[i];
+        wu += y[i] * uo[i * vs + nl];
+      }
+    }
+    ppt::block_sum2(wu, unused, red);
+    ++e;
+    if (threadIdx.x == 0) post(mail_2 + 2 * blockIdx.x, wu, 0.f, e);
+
+    // while the others post: beta (0 in the first iteration), then
+    // p = u + beta p, s = w + beta s
+    const float beta = init ? 0.f : dots[0] / guard(gamma);
+    for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        const int j = i * vs + nl;
+        p[j] = uo[j] + beta * p[j];
+        s[j] = w[j] + beta * s[j];
+      }
+    }
+    float delta[1];
+    gather<1>(mail_2, G, e, delta, tot);
+    // alpha = gamma / delta in the first iteration, else gamma / (delta -
+    // beta gamma / alpha_prev)
+    const float den =
+        init ? delta[0] : delta[0] - beta * dots[0] / guard(alpha);
+    alpha = dots[0] / guard(den);
+    gamma = dots[0];
   }
+  if constexpr (kSmem) {
+    for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+#pragma unroll
+      for (int i = 0; i < kT; ++i) x_out[i * NN + n0 + nl] = x[i * vs + nl];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *it_out = it;
 }
 
-int blocks_for(int N) { return (N + kThreads - 1) / kThreads; }
+struct Plan {
+  int grid, NL, threads, smem;
+};
+
+// The layout of a solve of N nodes on the current device (see the file
+// comment); false if the device query fails.
+bool make_plan(int N, Plan* out) {
+  int dev = 0, sms = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  const int want = std::max(1, std::min(sms, N / kMinNodes));
+  const int NL = (N + want - 1) / want;
+  out->NL = NL;
+  out->grid = (N + NL - 1) / NL;
+  out->threads = std::min(kMaxThreads, (NL + 31) / 32 * 32);
+  out->smem = sizeof(float) * smem_floats(NL) + kStaticBytes <=
+              static_cast<size_t>(optin);
+  return true;
+}
+
+template <typename OpT, bool kSmem>
+cudaError_t launch(const Plan& plan, const float* b, const OpT* A,
+                   const OpT* Minv, const OpT* C, Offsets offs, int n_off,
+                   int N, int maxiter, float tol2_scale, float* x, float* u,
+                   float* scratch, unsigned long long* mail, int* it,
+                   cudaStream_t stream) {
+  auto kernel = fused_pcg<OpT, kSmem>;
+  const size_t bytes = kSmem ? sizeof(float) * smem_floats(plan.NL) : 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  // every CTA must be resident at once: an exchange waits for all of them
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      plan.threads, bytes);
+  if (e != cudaSuccess) return e;
+  if (per_sm * sms < plan.grid) return cudaErrorCooperativeLaunchTooLarge;
+  int NL = plan.NL;
+  void* args[] = {&b, &A, &Minv, &C, &offs, &n_off, &N, &NL, &maxiter,
+                  &tol2_scale, &x, &u, &scratch, &mail, &it};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                  dim3(plan.grid), dim3(plan.threads), args,
+                                  bytes, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename OpT>
+int solve(const float* b, const void* A, const void* Minv, const void* C,
+          const int* offsets, int n_off, int N, int maxiter, double tol,
+          float* x, float* u, float* scratch, unsigned long long* mail,
+          int* it, void* stream) {
+  Offsets offs;
+  Plan plan;
+  if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_plan(N, &plan)) return static_cast<int>(cudaErrorInvalidDevice);
+  // same rounding as (tol * tol) * |b|^2 with a float32 |b|^2
+  const float tol2_scale = static_cast<float>(tol * tol);
+  const auto* a = static_cast<const OpT*>(A);
+  const auto* m = static_cast<const OpT*>(Minv);
+  const auto* c = static_cast<const OpT*>(C);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      plan.smem ? launch<OpT, true>(plan, b, a, m, c, offs, n_off, N, maxiter,
+                                    tol2_scale, x, u, scratch, mail, it, s)
+                : launch<OpT, false>(plan, b, a, m, c, offs, n_off, N,
+                                     maxiter, tol2_scale, x, u, scratch,
+                                     mail, it, s);
+  return static_cast<int>(e);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Floats of dot-product slots the passes need for N nodes.
-int ppt_fused_slots(int N) { return 2 * blocks_for(N); }
-
-// Pass 1 on `stream`; returns cudaGetLastError() (0 on success).  `sc`
-// holds kNumScalars floats and `st` kNumInts ints (zeroed before the init
-// pass), `slots` ppt_fused_slots(N) floats.  t = 6 only.
-int ppt_fused_axpy(int t, int init, const float* Minv, int N, float* u,
-                   float* p, float* s, const float* w, float* x, float* r,
-                   float* sc, int* st, float* slots, void* stream) {
-  if (N <= 0 || t != 6) return static_cast<int>(cudaErrorInvalidValue);
-  fused_axpy_kernel<6><<<blocks_for(N), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      init, Minv, N, u, p, s, w, x, r, sc, st, slots);
-  return static_cast<int>(cudaGetLastError());
+// The layout of a solve of N nodes on the current device: out[0] CTAs,
+// out[1] nodes a CTA, out[2] threads a CTA, out[3] 1 if the state and Minv
+// live in shared memory.  ppt_fused_pcg's mailboxes hold 4 * out[0]
+// 64-bit words.  Returns a CUDA error code (0 on success).
+int ppt_fused_plan(int N, int* out) {
+  Plan plan;
+  if (N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_plan(N, &plan)) return static_cast<int>(cudaErrorInvalidDevice);
+  out[0] = plan.grid;
+  out[1] = plan.NL;
+  out[2] = plan.threads;
+  out[3] = plan.smem;
+  return 0;
 }
 
-// Pass 2 on `stream`; returns cudaGetLastError().  `offsets` is a host
-// array of n_off circular offsets in [0, N).  t = 6 only.
-int ppt_fused_mv(int t, int init, int maxiter, double tol, const float* A,
-                 const float* C, const int* offsets, int n_off, int N,
-                 const float* u, float* w, float* sc, int* st, float* slots,
-                 void* stream) {
-  ppt::Offsets offs;
-  if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0 || t != 6)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // same rounding as (tol * tol) * |b|^2 with a float32 |b|^2
-  const float tol2_scale = static_cast<float>(tol * tol);
-  fused_mv_kernel<6><<<blocks_for(N), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      init, maxiter, tol2_scale, A, C, offs, n_off, N, u, w, sc, st, slots);
-  return static_cast<int>(cudaGetLastError());
+// The whole solve in one launch on `stream`; returns a CUDA error code (0
+// on success; a launch the device cannot hold all at once returns
+// cudaErrorCooperativeLaunchTooLarge).  b, x, u [t, N] float32; A, Minv
+// [t*t, N] and C [n_off*t*t, N] float32 (bf16 = 0) or bf16 (bf16 = 1);
+// `offsets` a host array of n_off circular offsets in [0, N); scratch
+// 4*t*N floats (r, p, s, w, used past the shared-memory mode); `mail`
+// 4 * ppt_fused_plan's CTAs 64-bit words, zero; `it` receives the
+// iteration count.  t = 6 only.
+int ppt_fused_pcg(int t, int bf16, const float* b, const void* A,
+                  const void* Minv, const void* C, const int* offsets,
+                  int n_off, int N, int maxiter, double tol, float* x,
+                  float* u, float* scratch, unsigned long long* mail,
+                  int* it, void* stream) {
+  if (t != kT) return static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? solve<__nv_bfloat16>(b, A, Minv, C, offsets, n_off, N,
+                                     maxiter, tol, x, u, scratch, mail,
+                                     it, stream)
+              : solve<float>(b, A, Minv, C, offsets, n_off, N, maxiter, tol,
+                             x, u, scratch, mail, it, stream);
 }
 
 const char* ppt_cuda_error_string(int code) {

@@ -15,11 +15,19 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ppt {
 
 constexpr int kMaxOffsets = 16;
+
+// An operand entry as float32: operands are stored as float32 or, in the
+// fused solver, as bf16 (widened exactly; the arithmetic stays float32).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 // Offsets travel by value in the kernel's parameter space.
 struct Offsets {
@@ -35,9 +43,10 @@ inline bool make_offsets(const int* offsets, int n_off, Offsets* out) {
   return true;
 }
 
-// y += M_n v for the t x t block of node n (transposed: M_n^T v).
-template <int T, bool kTranspose>
-__device__ __forceinline__ void block_mul_add(const float* __restrict__ M,
+// y += M_n v for the t x t block of node n (transposed: M_n^T v); M holds
+// float32 or bf16 entries.
+template <int T, bool kTranspose, typename OpT>
+__device__ __forceinline__ void block_mul_add(const OpT* __restrict__ M,
                                               size_t N, int n,
                                               const float* v, float* y) {
 #pragma unroll
@@ -46,7 +55,7 @@ __device__ __forceinline__ void block_mul_add(const float* __restrict__ M,
 #pragma unroll
     for (int u = 0; u < T; ++u) {
       const int e = kTranspose ? (u * T + i) : (i * T + u);
-      acc += M[e * N + n] * v[u];
+      acc += to_f32(M[e * N + n]) * v[u];
     }
     y[i] += acc;
   }

@@ -3,11 +3,13 @@ r"""Nearest neighbours and rigid alignment: ``knn`` and ``svdtf``.
 Counterpart of ``pypose_tpu/function/geometry.py:22, 102-229``.  ``knn``
 keeps the JAX package's routes: the dense distance matrix up to 64 Mi
 pairs, above it (or with an explicit ``chunk``) :func:`_knn_tiled`, which
-sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel
-(``ops/knn.py``, in place of the JAX package's TPU test) and takes the
-chunked Gram form everywhere else.  Indices are int64 (torch's index
-type), where the JAX package returns int32.  Ties go to the lower index,
-as ``jax.lax.top_k`` gives them, through stable sorts.
+sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel and
+2 <= k <= 16 to the ``nnk`` kernel (``ops/knn.py``, in place of the JAX
+package's TPU test) and takes the chunked Gram form everywhere else.
+Indices are int64 (torch's index type), where the JAX package returns
+int32.  Ties go to the lower index, as ``jax.lax.top_k`` gives them,
+through stable sorts on the CPU and the kernels' strict comparisons on
+CUDA.
 """
 
 from collections import namedtuple
@@ -35,8 +37,9 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
     Two-dimensional clouds with ``ord=2`` above 64 Mi pairs, or with an
     explicit ``chunk``, go through :func:`_knn_tiled`; everything else
     forms the dense ``(*, R, N)`` distance matrix.  On CUDA that route
-    takes the ``nn1`` kernel for k = 1, which raises for clouds other than
-    float32 with at most ``ops.knn.MAX_DIM`` coordinates.
+    takes the ``nn1`` kernel for k = 1 and the ``nnk`` kernel for
+    2 <= k <= ``ops.knn.MAX_K`` (not ``largest``), which raise for clouds
+    other than float32 with at most ``ops.knn.MAX_DIM`` coordinates.
 
     Example:
         >>> import torch
@@ -61,16 +64,24 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
 
 
 def _knn_tiled(ref, nbr, k, largest, chunk):
-    """Gram-form kNN of ``[R, D]`` in ``[N, D]``: k = 1 (not ``largest``)
-    on CUDA launches the ``nn1`` kernel; otherwise ``[chunk, N]`` distance
-    tiles, one ref chunk at a time (the JAX package's ``lax.map`` path,
-    which clamps d^2 at 0 before it picks).  Float32 Gram cancellation
-    can only swap neighbours whose true distances differ by less."""
-    R, N = ref.shape[0], nbr.shape[0]
-    if k == 1 and k <= N and not largest and ref.device.type == 'cuda':
-        d2, idx = knn_ops.nn1(ref.contiguous(), nbr.contiguous())
-        return KNNResult(torch.sqrt(d2)[:, None], idx[:, None])
+    """Gram-form kNN of ``[R, D]`` in ``[N, D]``: on CUDA, k = 1 (not
+    ``largest``) launches the ``nn1`` kernel and 2 <= k <= ``MAX_K`` the
+    ``nnk`` kernel; everything else takes :func:`_knn_gram`."""
+    N = nbr.shape[0]
+    if (ref.device.type == 'cuda' and not largest
+            and 1 <= k <= min(N, knn_ops.MAX_K)):
+        d2, idx = knn_ops.nnk(ref.contiguous(), nbr.contiguous(), k)
+        return KNNResult(torch.sqrt(d2), idx)
+    return _knn_gram(ref, nbr, k, largest, chunk)
+
+
+def _knn_gram(ref, nbr, k, largest, chunk):
+    """``[chunk, N]`` Gram-form distance tiles, one ref chunk at a time
+    (the JAX package's ``lax.map`` path, which clamps d^2 at 0 before it
+    picks).  Float32 Gram cancellation can only swap neighbours whose true
+    distances differ by less."""
     require_full_fp32(ref.device)
+    R = ref.shape[0]
     nbr2 = torch.sum(nbr * nbr, dim=-1)
     values, indices = [], []
     for s in range(0, R, chunk):
@@ -85,7 +96,8 @@ def _knn_tiled(ref, nbr, k, largest, chunk):
         else:
             val, idx = torch.sort(d2, dim=-1, descending=largest,
                                   stable=True)
-            val, idx = val[:, :k], idx[:, :k]
+            # a copy: a slice would keep the whole [chunk, N] block alive
+            val, idx = val[:, :k], idx[:, :k].contiguous()
         values.append(torch.sqrt(val))
         indices.append(idx)
     return KNNResult(torch.cat(values), torch.cat(indices))

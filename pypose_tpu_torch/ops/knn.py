@@ -11,18 +11,16 @@ The plain versions compute squared distances in the Gram form
 ``(|a|^2 + |b|^2) - 2 a.b`` with every product and sum rounded once, in
 the order of the Pallas kernel (``cross`` summed over the coordinates
 from the first), and pick the first index among equal distances, as the
-Pallas kernels' first-occurrence argmin and merge do.  The ``nnk`` kernel
-rounds in the same order, so it gives its plain version's bits.  The
-``nn1`` kernel ranks by ``|b|^2 - 2 a.b`` in FMA form and adds ``|a|^2``
-after the scan, so on a near-tie it may pick another neighbour than its
-plain version: the card holds it to
-:func:`pypose_tpu_torch.testing.nn1_tolerance_failures`.  The distance is
-clamped at 0 after the neighbour is chosen (``pallas_knn.py:153, 191``).
-Indices are int64 (torch's index type), where the JAX package returns
-int32.
+Pallas kernels' first-occurrence argmin and merge do.  Both kernels rank
+by ``|b|^2 - 2 a.b`` in FMA form and add ``|a|^2`` after the scan, so on a
+near-tie they may pick another neighbour than their plain versions: the
+card holds them to :func:`pypose_tpu_torch.testing.nnk_tolerance_failures`
+(for ``nn1``, ``nn1_tolerance_failures``).  The distance is clamped at 0
+after the neighbours are chosen (``pallas_knn.py:153, 191``).  Indices
+are int64 (torch's index type), where the JAX package returns int32.
 
 ``function/geometry.py:_knn_tiled`` routes k = 1 (not ``largest``) on
-CUDA to :func:`nn1`; nothing routes to :func:`nnk`, as in the JAX package.
+CUDA to :func:`nn1` and 2 <= k <= :data:`MAX_K` to :func:`nnk`.
 """
 
 import ctypes
@@ -51,9 +49,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _kernel_lib():
     return bind('knn', {
-        'ppt_knn': [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR],
         'ppt_nn1_splits': [_INT, _INT],
-        'ppt_nn1': [_PTR, _PTR] + [_INT] * 4 + [_PTR] * 5})
+        'ppt_nn1': [_PTR, _PTR] + [_INT] * 4 + [_PTR] * 5,
+        'ppt_nnk_splits': [_INT, _INT, _INT],
+        'ppt_nnk': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 5})
 
 
 # ---------------------------------------------------------------------------
@@ -103,8 +102,9 @@ def _nnk_torch(ref, nbr, k):
     vals, idxs = [], []
     for d2 in _plain_blocks(ref, nbr):
         v, i = torch.sort(d2, dim=1, stable=True)
-        vals.append(v[:, :k])
-        idxs.append(i[:, :k])
+        # copies: a slice would keep the whole sorted block alive
+        vals.append(v[:, :k].contiguous())
+        idxs.append(i[:, :k].contiguous())
     return torch.cat(vals).clamp_min(0.0), torch.cat(idxs)
 
 
@@ -173,20 +173,29 @@ def _launch_nn1(ref, nbr):
 
 
 def _launch_nnk(ref, nbr, k):
-    """One launch of csrc/knn.cu's running top-k: (d2 [R, k], idx [R, k]
-    int64)."""
+    """One launch of csrc/knn.cu's nnk (its threshold scan and merge
+    passes): (d2 [R, k], idx [R, k] int64)."""
     global NNK_LAUNCHES
     _check_cuda(ref, nbr, k)
-    R, D = ref.shape
+    (R, D), N = ref.shape, nbr.shape[0]
     d2 = torch.empty((R, k), dtype=torch.float32, device=ref.device)
     idx = torch.empty((R, k), dtype=torch.int64, device=ref.device)
     if R == 0:
         return d2, idx
     lib = _kernel_lib()
     with torch.cuda.device(ref.device):
-        raise_on(lib, lib.ppt_knn(
-            ref.data_ptr(), nbr.data_ptr(), R, nbr.shape[0], D, k,
-            d2.data_ptr(), idx.data_ptr(), _stream(ref)), 'nnk')
+        splits = lib.ppt_nnk_splits(R, N, k)
+        if splits < 1:
+            raise RuntimeError(f'nnk: no split of {N} neighbours for {R} '
+                               'rows (device query failed)')
+        part_s = torch.empty((splits, k, R), dtype=torch.float32,
+                             device=ref.device)
+        part_i = torch.empty((splits, k, R), dtype=torch.int32,
+                             device=ref.device)
+        raise_on(lib, lib.ppt_nnk(
+            ref.data_ptr(), nbr.data_ptr(), R, N, D, k, splits,
+            part_s.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
+            idx.data_ptr(), _stream(ref)), 'nnk')
     NNK_LAUNCHES += 1
     return d2, idx
 
@@ -212,9 +221,10 @@ def nnk(ref, nbr, k):
     (distance, index): ``(d2 [R, k], idx [R, k] int64)``.  ``k = 1`` is
     :func:`nn1`; ``k`` above the number of neighbours raises.
 
-    CUDA tensors launch the running top-k kernel of ``csrc/knn.cu`` (as
+    CUDA tensors launch the threshold-scan kernel of ``csrc/knn.cu`` (as
     :func:`nn1`, and ``k`` at most :data:`MAX_K`); CPU tensors run
-    :func:`_nnk_torch`.
+    :func:`_nnk_torch`.  On a near-tie the two may return different
+    neighbours (module docstring).
     """
     if k == 1:
         d2, idx = nn1(ref, nbr)

@@ -12,14 +12,15 @@ kernel or raises: it never falls back to the plain version.
   exchanging their state through distributed shared memory; plain version
   :func:`_cg_body_torch`.  For systems within its budgets
   (:func:`stencil_cg_fits`, :func:`stencil_cg_smem_fits`).
+- :func:`stencil_cg_fused` (``pallas_cg.py:253-444``): Chronopoulos-Gear
+  PCG, the whole solve in one persistent cooperative launch of
+  ``csrc/stencil_cg_fused.cu`` over all SMs, operands in float32 or bf16;
+  plain version :func:`_fused_cg_torch`.  Past the budget
+  :func:`stencil_cg` routes here, with float32 operands.
 - :func:`stencil_cg_tiled` (``pallas_cg.py:131-250``): per iteration one
   matvec and one block-Jacobi launch of ``csrc/stencil_cg_tiled.cu``, the
-  CG state in torch ops; plain version :func:`_tiled_cg_torch`.  Past the
-  budget :func:`stencil_cg` routes here.
-- :func:`stencil_cg_fused` (``pallas_cg.py:253-444``): Chronopoulos-Gear
-  PCG in two fused launches of ``csrc/stencil_cg_fused.cu`` per
-  iteration, scalars on the device; plain version :func:`_fused_cg_torch`.
-  Nothing routes to it, as in the JAX package.
+  CG state in torch ops; plain version :func:`_tiled_cg_torch`.  Nothing
+  routes to it.
 
 Matvec (see ``ops/spmv.py``):
 
@@ -42,24 +43,17 @@ import torch
 
 from ._build import bind, raise_on as _raise_on
 
-# Launches of each CUDA kernel in this process: the whole-solve kernel
-# (one per solve), the tiled matvec and block-Jacobi apply (one each per
-# CG iteration), and the fused passes (one each per iteration, plus the
-# init pass).
+# Launches of each CUDA kernel in this process: the whole-solve kernel and
+# the fused solver (one per solve each), the tiled matvec and block-Jacobi
+# apply (one each per CG iteration).
 LAUNCHES = 0
+FUSED_LAUNCHES = 0
 TILED_MV_LAUNCHES = 0
 TILED_PC_LAUNCHES = 0
-FUSED_AXPY_LAUNCHES = 0
-FUSED_MV_LAUNCHES = 0
 
-# The tiled and fused solvers queue this many iterations between host
-# reads of their stop flag; a stopped solve makes the extra ones no-ops.
+# The tiled solver queues this many iterations between host reads of its
+# stop flag; a stopped solve makes the extra ones no-ops.
 CHECK_EVERY = 8
-
-# State of the fused kernels (csrc/stencil_cg_fused.cu, its enums): the
-# number of float scalars and of ints, and the index of the int that says
-# whether the next iteration runs.
-_FUSED_SCALARS, _FUSED_INTS, _FUSED_RUNNING = 9, 4, 1
 
 # The instantiated block size; StencilSpMV refuses more than 16 offsets.
 KERNEL_T = 6
@@ -69,7 +63,7 @@ MAX_OFFSETS = 16
 # CLUSTER CTAs on an H100.  Its operands stay resident in the 50 MB L2
 # within L2_BUDGET_BYTES (half of it leaves room for the rest of the LM
 # step's tensors); past it they would stream from HBM on 16 SMs, so larger
-# systems take the tiled solver, whose grid spans all SMs.  Each CTA's
+# systems take the fused solver, whose grid spans all SMs.  Each CTA's
 # shared memory holds at most SMEM_PER_BLOCK bytes (227 KB, the opt-in
 # limit), of which _HEADER_FLOATS floats are reduction slots.
 L2_BUDGET_BYTES = 25 * 10 ** 6
@@ -97,7 +91,7 @@ def stencil_cg_smem_fits(N, t, n_off):
 
 def stencil_cg_fits(N, t, n_off):
     """True when :func:`stencil_cg` takes the whole-solve kernel; where
-    False, the tiled route (an error nowhere).  Two sums must hold:
+    False, the fused solver (an error nowhere).  Two sums must hold:
 
     - L2: 4 N (t + 2tt + n_off tt + t + 2t) bytes <= 25e6, the operands
       b, A, Minv, C, the output x and the scratch z, Ap (t = 6, 2 offsets:
@@ -268,10 +262,9 @@ _SIGNATURES = {
                          _PTR],
         'ppt_tiled_pc': [_INT, _PTR, _INT, _PTR, _PTR, _PTR]},
     'stencil_cg_fused': {
-        'ppt_fused_slots': [_INT],
-        'ppt_fused_axpy': [_INT, _INT, _PTR, _INT] + [_PTR] * 10,
-        'ppt_fused_mv': [_INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR, _INT,
-                         _INT] + [_PTR] * 6},
+        'ppt_fused_plan': [_INT, _PTR],
+        'ppt_fused_pcg': [_INT, _INT] + [_PTR] * 5 + [_INT] * 3 + [_DBL]
+        + [_PTR] * 6},
 }
 
 
@@ -294,16 +287,19 @@ def _check_operands(b_T, A_T, Minv_T, C_T, offsets, t):
                              f'expected {shape}')
 
 
-def _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t):
-    """What the CUDA kernels take: float32, contiguous, t = 6, at most 16
-    offsets, on a CUDA device."""
+def _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t, operand_dtype=None):
+    """What the CUDA kernels take: float32 (the operands A, Minv, C in
+    ``operand_dtype`` where the fused solver stores them so), contiguous,
+    t = 6, at most 16 offsets, on a CUDA device."""
     if b_T.device.type != 'cuda':
         raise ValueError(f'unsupported device {b_T.device}')
     for name, a in (('b_T', b_T), ('A_T', A_T), ('Minv_T', Minv_T),
                     ('C_T', C_T)):
-        if a.dtype != torch.float32:
+        want = torch.float32 if name == 'b_T' or operand_dtype is None \
+            else operand_dtype
+        if a.dtype != want:
             raise TypeError(f'{name} is {a.dtype}; the CUDA kernels take '
-                            'float32 only')
+                            f'{want} here')
         if not a.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
     if t != KERNEL_T:
@@ -411,58 +407,78 @@ def _tiled_pc_launch(Minv_T, r, t):
     return z
 
 
-def stencil_cg_fused(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
-    """Solve ``A x = b`` in the lane-major layout by Chronopoulos-Gear PCG
-    (``pallas_cg.py:stencil_cg_fused`` with float32 operands): the same
-    answer as :func:`stencil_cg_tiled` up to rounding, with both dot
-    products of an iteration taken together.
+def round_operands(A_T, Minv_T, C_T, operand_dtype):
+    """A, Minv and C stored in ``operand_dtype`` (``None``: as they are;
+    ``torch.bfloat16``: rounded to nearest even, as ``astype`` rounds in
+    ``pallas_cg.py:363-366``)."""
+    if operand_dtype is None:
+        return A_T, Minv_T, C_T
+    if operand_dtype != torch.bfloat16:
+        raise ValueError(f'operand_dtype {operand_dtype}: the fused solver '
+                         'stores operands as float32 (None) or bfloat16')
+    return tuple(a.to(torch.bfloat16) for a in (A_T, Minv_T, C_T))
 
-    Returns ``(x_T [t, N], iterations)``.  CUDA tensors launch the two
-    passes of ``csrc/stencil_cg_fused.cu`` per iteration, the scalar
-    recursion and the stop test on the device, the host reading the stop
-    flag every :data:`CHECK_EVERY` iterations (same checks as
-    :func:`stencil_cg_tiled`); CPU tensors run :func:`_fused_cg_torch`.
+
+def fused_plan(N, device=None):
+    """How the fused kernel lays out a solve of N nodes on a CUDA
+    ``device``: ``{'ctas', 'nodes_per_cta', 'threads', 'smem'}``, ``smem``
+    True where each CTA keeps its state and Minv in shared memory (else in
+    global memory)."""
+    lib = _kernel_lib('stencil_cg_fused')
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _raise_on(lib, lib.ppt_fused_plan(int(N), out), 'fused_plan')
+    return {'ctas': out[0], 'nodes_per_cta': out[1], 'threads': out[2],
+            'smem': bool(out[3])}
+
+
+def stencil_cg_fused(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
+                     operand_dtype=None):
+    """Solve ``A x = b`` in the lane-major layout by Chronopoulos-Gear PCG
+    (``pallas_cg.py:stencil_cg_fused``): zero initial guess, stop when
+    |r|^2 <= tol^2 |b|^2 or at ``maxiter``, 1e-31 division guards; the
+    same answer as :func:`stencil_cg_tiled` up to rounding, with both dot
+    products of an iteration taken together.  ``operand_dtype=
+    torch.bfloat16`` stores A, Minv and C in bf16 (:func:`round_operands`);
+    the arithmetic stays in b's dtype.
+
+    Returns ``(x_T [t, N], iterations)``, the count a 0-d int32 tensor on
+    the operands' device.  CUDA tensors go through one launch of
+    ``csrc/stencil_cg_fused.cu`` on the current stream, without
+    synchronising (b float32; A, Minv, C float32, or bf16 where
+    ``operand_dtype`` says so; contiguous, t = 6, at most 16 offsets;
+    anything else raises); CPU tensors run :func:`_fused_cg_torch` on the
+    stored operands widened back to b's dtype.
     """
+    global FUSED_LAUNCHES
     offsets = tuple(int(d) for d in offsets)
     _check_operands(b_T, A_T, Minv_T, C_T, offsets, t)
+    A_T, Minv_T, C_T = round_operands(A_T, Minv_T, C_T, operand_dtype)
     if b_T.device.type == 'cpu':
+        A_T, Minv_T, C_T = (a.to(b_T.dtype) for a in (A_T, Minv_T, C_T))
         return _fused_cg_torch(A_T, Minv_T, C_T, b_T, offsets, t, maxiter,
                                tol)
-    _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t)
+    _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t, operand_dtype)
     N = b_T.shape[1]
-    lib = _kernel_lib('stencil_cg_fused')
-    offs = _c_offsets(offsets, N)
     dev = b_T.device
-    x, u, p, s, w = torch.zeros((5, t, N), dtype=torch.float32, device=dev)
-    r = b_T.clone()
-    sc = torch.zeros((_FUSED_SCALARS,), dtype=torch.float32, device=dev)
-    st = torch.zeros((_FUSED_INTS,), dtype=torch.int32, device=dev)
-    slots = torch.empty((lib.ppt_fused_slots(N),), dtype=torch.float32,
-                        device=dev)
+    plan = fused_plan(N, dev)
+    lib = _kernel_lib('stencil_cg_fused')
+    x = torch.empty_like(b_T)
+    u = torch.empty_like(b_T)
+    scratch = torch.empty((0 if plan['smem'] else 4, t, N),
+                          dtype=torch.float32, device=dev)
+    mail = torch.zeros((2, plan['ctas'], 2), dtype=torch.int64, device=dev)
+    it = torch.empty((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = _stream(b_T)
-
-        def iteration(init):
-            global FUSED_AXPY_LAUNCHES, FUSED_MV_LAUNCHES
-            _raise_on(lib, lib.ppt_fused_axpy(
-                t, init, Minv_T.data_ptr(), N, u.data_ptr(), p.data_ptr(),
-                s.data_ptr(), w.data_ptr(), x.data_ptr(), r.data_ptr(),
-                sc.data_ptr(), st.data_ptr(), slots.data_ptr(), stream),
-                'fused_axpy')
-            FUSED_AXPY_LAUNCHES += 1
-            _raise_on(lib, lib.ppt_fused_mv(
-                t, init, int(maxiter), float(tol), A_T.data_ptr(),
-                C_T.data_ptr(), offs, len(offsets), N, u.data_ptr(),
-                w.data_ptr(), sc.data_ptr(), st.data_ptr(), slots.data_ptr(),
-                stream), 'fused_mv')
-            FUSED_MV_LAUNCHES += 1
-
-        iteration(1)
-        for k in range(int(maxiter)):
-            if k % CHECK_EVERY == 0 and not bool(st[_FUSED_RUNNING]):
-                break
-            iteration(0)
-    return x, st[0]
+        rc = lib.ppt_fused_pcg(
+            t, int(operand_dtype is not None), b_T.data_ptr(),
+            A_T.data_ptr(), Minv_T.data_ptr(), C_T.data_ptr(),
+            _c_offsets(offsets, N), len(offsets), N, int(maxiter),
+            float(tol), x.data_ptr(), u.data_ptr(), scratch.data_ptr(),
+            mail.data_ptr(), it.data_ptr(), _stream(b_T))
+    _raise_on(lib, rc, 'fused_pcg')
+    FUSED_LAUNCHES += 1
+    return x, it
 
 
 def fold_operands(b, Ablk, dcorr, Minv, C, offsets, fixed_mask=None):
@@ -505,11 +521,12 @@ def stencil_cg(b, Ablk, dcorr, Minv, C, offsets, fixed_mask=None,
     Returns (x [N, t], iterations).
 
     Systems within the L2 budget (:func:`stencil_cg_fits`) take the
-    whole-solve kernel, larger ones the tiled solver, on every device.
+    whole-solve kernel, larger ones the fused solver with float32
+    operands, on every device.
     """
     N, t = b.shape
     solve = stencil_cg_transposed if stencil_cg_fits(N, t, C.shape[0]) \
-        else stencil_cg_tiled
+        else stencil_cg_fused
     operands = fold_operands(b, Ablk, dcorr, Minv, C, offsets, fixed_mask)
     x_T, it = solve(*operands, offsets, t, maxiter, tol)
     return x_T.T, it

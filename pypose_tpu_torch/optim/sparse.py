@@ -7,8 +7,8 @@ come from a closed form, the normal equations are assembled per node
 (diagonal blocks) and per circular offset (coupling channels,
 ``ops/spmv.py``), and the preconditioned CG solve runs in the CUDA
 kernels of ``ops/stencil_cg.py`` (their plain PyTorch versions on the
-CPU): the whole solve in one launch while the system fits the L2 budget,
-else the tiled matvec and block-Jacobi kernels once per iteration.
+CPU): the whole solve in one launch, of the cluster kernel while the
+system fits the L2 budget, else of the fused Chronopoulos-Gear kernel.
 
 This class ports the path the sphere2500 and 100k-pose graphs take: every
 factor an arity-2 factor over one [N, d] group, all edges in one merged
@@ -373,7 +373,7 @@ class SparseLM:
     # ------------------------------------------------------------------
     def _check_route(self):
         """Raise where the JAX package would leave the stencil solvers
-        (any size: ``stencil_cg`` picks the whole-solve or tiled route)."""
+        (any size: ``stencil_cg`` picks the whole-solve or fused route)."""
         if self.precond == 'chain':
             raise NotImplementedError(
                 "precond='chain' (block-tridiagonal BCR preconditioner) "

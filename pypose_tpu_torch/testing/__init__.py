@@ -9,8 +9,8 @@ packages begin from bit-identical values.  ``random_stencil_system``
 makes the random SPD systems on which the CG kernels are held against
 their plain versions, ``instance_checksum`` identifies a generated
 pose-graph instance against a recorded anchor, and
-``nn1_tolerance_failures`` is the rule that holds the ``nn1`` kernel to
-its plain version.
+``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
+rule that holds the nearest-neighbour kernels to their plain versions.
 """
 
 import numpy as np
@@ -117,24 +117,29 @@ def instance_checksum(ds):
             'n_edges': int(ds['edges'].shape[0])}
 
 
-def nn1_tolerance_failures(ref, nbr, d2, idx, idx_plain, rtol=1e-6,
+def nnk_tolerance_failures(ref, nbr, d2, idx, idx_plain, rtol=1e-6,
                            atol=1e-6):
-    """Where a nearest-neighbour result ``(d2, idx)`` breaks the rule that
-    holds the ``nn1`` kernel to its plain version, whose indices are
-    ``idx_plain``.  In float64, with ``a`` a row of ``ref``, ``b`` its
-    returned neighbour and ``b'`` the plain version's, and
+    """Where a k-nearest-neighbour result ``(d2 [R, k], idx [R, k])``
+    breaks the rule that holds the ``nnk`` kernel to its plain version,
+    whose indices are ``idx_plain [R, k]``.  In float64, with ``a`` a row
+    of ``ref``, ``b`` the neighbour returned at a position and ``b'`` the
+    plain version's at the same position, and
     ``tol = rtol (|a|^2 + |b|^2) + atol``:
 
     - the index: ``idx == idx_plain``, or a near-tie,
       ``| |a - b|^2 - |a - b'|^2 | <= tol``;
+    - the row: its k indices are distinct;
     - the distance: ``|d2 - |a - b|^2| <= tol``.
 
     The kernel ranks by FMA-form float32 arithmetic and the plain version
-    by separately rounded products, so the two may pick different
-    neighbours where the distances agree to within their rounding.
-    Returns counts of rows, as ints: ``differ`` (indices differ),
-    ``index_failures``, ``d2_failures``, and ``max_d2_err`` (float)."""
-    a = ref.double()
+    by separately rounded products, so the two may order or pick
+    neighbours differently where the distances agree to within their
+    rounding.  Returns counts of rows, as ints: ``differ`` (some index
+    differs), ``index_failures``, ``repeat_failures``, ``d2_failures``,
+    and ``max_d2_err`` (float)."""
+    R = len(ref)
+    idx, idx_plain, d2 = (a.reshape(R, -1) for a in (idx, idx_plain, d2))
+    a = ref.double()[:, None, :]
     b = nbr.double()[idx]
     bp = nbr.double()[idx_plain]
     dist = ((a - b) ** 2).sum(-1)
@@ -142,8 +147,20 @@ def nn1_tolerance_failures(ref, nbr, d2, idx, idx_plain, rtol=1e-6,
     tol = rtol * ((a * a).sum(-1) + (b * b).sum(-1)) + atol
     differ = idx != idx_plain
     err = (d2.double() - dist).abs()
-    return {'differ': int(differ.sum()),
+    srt = idx.sort(-1).values
+    repeats = (srt[:, 1:] == srt[:, :-1]).any(-1)
+    return {'differ': int(differ.any(-1).sum()),
             'index_failures': int((differ & ((dist - dist_p).abs() > tol))
-                                  .sum()),
-            'd2_failures': int((err > tol).sum()),
+                                  .any(-1).sum()),
+            'repeat_failures': int(repeats.sum()),
+            'd2_failures': int((err > tol).any(-1).sum()),
             'max_d2_err': float(err.max()) if err.numel() else 0.0}
+
+
+def nn1_tolerance_failures(ref, nbr, d2, idx, idx_plain, rtol=1e-6,
+                           atol=1e-6):
+    """:func:`nnk_tolerance_failures` for a nearest-neighbour result
+    ``(d2 [R], idx [R])`` (k = 1), the rule that holds the ``nn1`` kernel
+    to its plain version."""
+    return nnk_tolerance_failures(ref, nbr, d2[:, None], idx[:, None],
+                                  idx_plain[:, None], rtol, atol)

@@ -14,6 +14,7 @@ import torch
 
 from pypose_tpu_torch.ops import knn, se3, stencil_cg as scg
 from pypose_tpu_torch.testing import (nn1_tolerance_failures,
+                                      nnk_tolerance_failures,
                                       random_stencil_system)
 
 pytestmark = pytest.mark.cuda
@@ -55,37 +56,82 @@ def test_kernel_matches_plain(cuda, N, loop_offset, fixed, maxiter, tol):
     assert torch.equal(x_k, x_k2) and int(it_k) == int(it_k2)
 
 
-@pytest.mark.parametrize('solver', ['tiled', 'fused'])
+@pytest.mark.parametrize('solver', ['tiled', 'fused', 'fused_bf16'])
 @pytest.mark.parametrize('N,loop_offset,n_loops,fixed,maxiter,tol', [
     (53, 9, 15, False, 200, 1e-7),
     (100_000, 993, 80_000, True, 250, 1e-3),
-    (100_000, 993, 80_000, True, 250, 0.0)])
+    (100_000, 993, 80_000, True, 250, 0.0),
+    (200_000, 993, 160_000, True, 250, 1e-3)])
 def test_oversize_solvers_match_plain(cuda, solver, N, loop_offset, n_loops,
                                       fixed, maxiter, tol):
-    """The tiled and the fused solver against their plain versions on the
-    same CUDA tensors (N=53 with wrapping offsets; the 100k shape,
-    converged at tol 1e-3 and run to 250 iterations): x within 1e-4 of
-    max|x| (+1e-5), iterations within one, kernels launched, and a second
-    run repeats bit for bit (fixed-order reductions)."""
+    """The tiled and the fused solver (float32 and bf16 operands) against
+    their plain versions on the same CUDA tensors (bf16: the same rounded
+    operands, widened; N=53 with wrapping offsets; the 100k shape,
+    converged at tol 1e-3 and run to 250 iterations, with the fused
+    kernel's state in shared memory; N=200,000, past that mode): x within
+    1e-4 of max|x| (+1e-5), iterations within one, kernels launched (the
+    fused kernel once a solve), and a second run repeats bit for bit
+    (fixed-order reductions)."""
     gen = torch.Generator(device=cuda).manual_seed(N)
-    offsets, ops = random_stencil_system(N, loop_offset, n_loops, fixed, gen,
-                                         cuda)
-    kernel, plain, counters = {
-        'tiled': (scg.stencil_cg_tiled, scg._tiled_cg_torch,
-                  ('TILED_MV_LAUNCHES', 'TILED_PC_LAUNCHES')),
-        'fused': (scg.stencil_cg_fused, scg._fused_cg_torch,
-                  ('FUSED_AXPY_LAUNCHES', 'FUSED_MV_LAUNCHES'))}[solver]
+    offsets, (b_T, *ops) = random_stencil_system(N, loop_offset, n_loops,
+                                                 fixed, gen, cuda)
+    if solver == 'tiled':
+        counters = ('TILED_MV_LAUNCHES', 'TILED_PC_LAUNCHES')
+        plain = scg._tiled_cg_torch
+
+        def kernel():
+            return scg.stencil_cg_tiled(b_T, *ops, offsets, 6, maxiter, tol)
+    else:
+        counters = ('FUSED_LAUNCHES',)
+        plain = scg._fused_cg_torch
+        dtype = torch.bfloat16 if solver == 'fused_bf16' else None
+        ops = scg.round_operands(*ops, dtype)
+        assert scg.fused_plan(N, cuda)['smem'] == (N <= 100_000)
+
+        def kernel():
+            return scg.stencil_cg_fused(b_T, *ops, offsets, 6, maxiter, tol,
+                                        operand_dtype=dtype)
     before = [getattr(scg, c) for c in counters]
-    x_k, it_k = kernel(*ops, offsets, 6, maxiter, tol)
+    x_k, it_k = kernel()
     torch.cuda.synchronize()
-    assert all(getattr(scg, c) > b for c, b in zip(counters, before))
-    x_p, it_p = plain(ops[1], ops[2], ops[3], ops[0], offsets, 6, maxiter,
+    launched = [getattr(scg, c) - b for c, b in zip(counters, before)]
+    assert launched == [1] if solver != 'tiled' else min(launched) > 0
+    x_p, it_p = plain(*(a.float() for a in ops), b_T, offsets, 6, maxiter,
                       tol)
     err = float((x_k - x_p).abs().max())
     assert err <= 1e-4 * float(x_p.abs().max()) + 1e-5
     assert abs(int(it_k) - int(it_p)) <= 1
-    x_k2, it_k2 = kernel(*ops, offsets, 6, maxiter, tol)
+    x_k2, it_k2 = kernel()
     assert torch.equal(x_k, x_k2) and int(it_k) == int(it_k2)
+
+
+def test_stencil_cg_routes_oversize_to_fused(cuda):
+    """stencil_cg past the whole-solve budget: one fused launch, no tiled
+    or whole-solve launch."""
+    from pypose_tpu_torch.ops.smallinv import blockinv
+    from pypose_tpu_torch.ops.spmv import StencilSpMV
+    N = 100_000
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ar = torch.arange(N, device=cuda)
+    edges = torch.cat([torch.stack([ar[:-1], ar[1:]], 1),
+                       torch.stack([ar[:-993], ar[993:]], 1)])
+    J = torch.randn((edges.shape[0], 6, 2, 6), generator=gen, device=cuda)
+    sp = StencilSpMV(edges, N, 6, device=cuda)
+    D = torch.zeros((N, 6, 6), device=cuda)
+    for a in range(2):
+        D.index_add_(0, edges[:, a],
+                     torch.einsum('edt,edu->etu', J[:, :, a], J[:, :, a]))
+    dcorr = 0.1 * torch.diagonal(D, dim1=-2, dim2=-1)
+    Minv = blockinv(D + torch.diag_embed(dcorr))
+    b = torch.randn((N, 6), generator=gen, device=cuda)
+    before = (scg.FUSED_LAUNCHES, scg.TILED_MV_LAUNCHES, scg.LAUNCHES)
+    assert not scg.stencil_cg_fits(N, 6, len(sp.offsets))
+    x, it = scg.stencil_cg(b, D, dcorr, Minv, sp.precompute(J, J),
+                           tuple(sp.offsets), maxiter=50, tol=1e-3)
+    torch.cuda.synchronize()
+    assert (scg.FUSED_LAUNCHES - before[0], scg.TILED_MV_LAUNCHES - before[1],
+            scg.LAUNCHES - before[2]) == (1, 0, 0)
+    assert bool(torch.isfinite(x).all()) and 0 < int(it) <= 50
 
 
 def test_tiled_kernels_match_plain(cuda):
@@ -156,15 +202,14 @@ def _clouds(R, N, dev, seed=0, D=3):
             (5.0 * torch.randn((N, D), generator=gen)).to(dev))
 
 
-def _assert_knn_close(ref, nbr, d_k, i_k, d_p, i_p):
-    """Indices equal on >= 99.99% of rows, d2 within
-    1e-6 (|a|^2 + |b|^2) + 1e-6 everywhere."""
-    d_k, i_k = d_k.reshape(len(ref), -1), i_k.reshape(len(ref), -1)
-    d_p, i_p = d_p.reshape(len(ref), -1), i_p.reshape(len(ref), -1)
-    bound = 1e-6 * ((ref * ref).sum(-1, keepdim=True)
-                    + (nbr * nbr).sum(-1)[i_p]) + 1e-6
-    assert float((i_k == i_p).all(-1).double().mean()) >= 0.9999
-    assert bool(((d_k - d_p).abs() <= bound).all())
+def _assert_nnk_within_tolerance(ref, nbr, d_k, i_k, i_p):
+    """The rule of pypose_tpu_torch.testing.nnk_tolerance_failures: each
+    index equal to the plain one or a near-tie, distinct within its row,
+    each d2 within 1e-6 (|a|^2 + |b|^2) + 1e-6 of its pair's float64
+    d2."""
+    got = nnk_tolerance_failures(ref, nbr, d_k, i_k, i_p)
+    assert got['index_failures'] == got['repeat_failures'] == 0, got
+    assert got['d2_failures'] == 0, got
     assert i_k.dtype == torch.int64
 
 
@@ -213,7 +258,9 @@ def test_nnk_kernel_matches_plain(cuda, R, N, k):
     d_k, i_k = knn.nnk(ref, nbr, k)
     torch.cuda.synchronize()
     assert knn.NNK_LAUNCHES == before + 1
-    _assert_knn_close(ref, nbr, d_k, i_k, *knn._nnk_torch(ref, nbr, k))
+    assert d_k.shape == i_k.shape == (R, k)
+    _assert_nnk_within_tolerance(ref, nbr, d_k, i_k,
+                                 knn._nnk_torch(ref, nbr, k)[1])
 
 
 def test_knn_kernel_ties_and_refusals(cuda):
@@ -245,6 +292,19 @@ def test_knn_above_64mi_pairs_launches_nn1(cuda):
     cpu = knn_fn(ref.cpu(), nbr.cpu())
     _assert_nn1_within_tolerance(ref, nbr, res.values[:, 0] ** 2,
                                  res.indices[:, 0], cpu.indices[:, 0].to(cuda))
+
+
+def test_knn_k8_launches_nnk(cuda):
+    """knn(k=8) on CUDA past 64 Mi pairs makes exactly one nnk launch and
+    holds to the tolerance rule against the plain version."""
+    from pypose_tpu_torch.function.geometry import knn as knn_fn
+    ref, nbr = _clouds(9000, 9000, cuda, seed=8)
+    before = (knn.NNK_LAUNCHES, knn.NN1_LAUNCHES)
+    res = knn_fn(ref, nbr, k=8)
+    torch.cuda.synchronize()
+    assert (knn.NNK_LAUNCHES, knn.NN1_LAUNCHES) == (before[0] + 1, before[1])
+    _assert_nnk_within_tolerance(ref, nbr, res.values ** 2, res.indices,
+                                 knn._nnk_torch(ref, nbr, 8)[1])
 
 
 @pytest.mark.parametrize('N', [1, 1000, 100_000, 100_003])

@@ -185,3 +185,18 @@ def test_knn_tiled_cpu_does_not_launch(monkeypatch):
     res = tgeo._knn_tiled(torch.from_numpy(ref), torch.from_numpy(nbr), 1,
                           False, 16)
     assert res.indices.shape == (50, 1)
+
+
+def test_knn_tiled_cpu_k8_does_not_launch(monkeypatch):
+    """k = 8 on the CPU takes the chunked Gram path, as the JAX package
+    does off the TPU: the nnk wrapper is not called (on CUDA it is)."""
+    def boom(*args):
+        raise AssertionError('nnk called on the CPU route')
+    monkeypatch.setattr(tknn, 'nnk', boom)
+    ref, nbr = clouds(2, 50, 80)
+    rt, nt = torch.from_numpy(ref), torch.from_numpy(nbr)
+    res = tgeo._knn_tiled(rt, nt, 8, False, 16)
+    gram = tgeo._knn_gram(rt, nt, 8, False, 16)
+    assert res.indices.shape == (50, 8)
+    assert torch.equal(res.indices, gram.indices)
+    assert torch.equal(res.values, gram.values)

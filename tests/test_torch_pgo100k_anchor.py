@@ -52,13 +52,14 @@ def test_instance_matches_anchor():
 
 def test_first_step_matches_anchor(monkeypatch):
     """One LM step of the port's SparseLM on the CPU at full size, past
-    the whole-solve budget so on the tiled route: chi2 within 1e-4 of the
-    JAX package's first step (float32; both CGs stop at the same
-    tolerance, in another summation order)."""
+    the whole-solve budget so on the fused solver's route: chi2 within
+    1e-4 of the JAX package's first step (float32; both CGs stop at the
+    same tolerance, by another recursion and in another summation
+    order)."""
     from pypose_tpu_torch.ops import stencil_cg as scg
     calls = []
-    plain = scg._tiled_cg_torch
-    monkeypatch.setattr(scg, '_tiled_cg_torch',
+    plain = scg._fused_cg_torch
+    monkeypatch.setattr(scg, '_fused_cg_torch',
                         lambda *a: calls.append(a) or plain(*a))
     with open(find_data(ANCHOR)) as f:
         anchor = json.load(f)
@@ -114,7 +115,8 @@ def _port_optimizer(ds):
 
 
 def _port_cpu(ds):
-    """The port's SparseLM on the CPU (the tiled route's plain version)."""
+    """The port's SparseLM on the CPU (the oversize route's plain
+    version)."""
     opt = _port_optimizer(ds)
     final = opt.optimize(steps=SCHEDULE['steps'],
                          decreasing=SCHEDULE['decreasing'],

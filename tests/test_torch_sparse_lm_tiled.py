@@ -1,9 +1,11 @@
-"""The port's SparseLM on the tiled CG route (the route of graphs past the
-whole-solve kernel's L2 budget) against the JAX package's SparseLM, and
+"""The port's SparseLM on the oversize CG routes (graphs past the
+whole-solve kernel's L2 budget: the fused solver, which stencil_cg takes,
+and the tiled solver beside it) against the JAX package's SparseLM, and
 stencil_cg's choice of route.  The route is forced at a small size by
 patching ``stencil_cg_fits`` where ``stencil_cg`` reads it
 (``pypose_tpu_torch.ops.stencil_cg``: SparseLM leaves the choice to
-stencil_cg).  The real 100k-pose graph is in
+stencil_cg), and the tiled solver put in the fused solver's place for
+the ``tiled`` case.  The real 100k-pose graph is in
 test_torch_pgo100k_anchor.py.
 
 Tolerances as in test_torch_sparse_lm.py: chi2 per step rtol 1e-3 in
@@ -25,10 +27,11 @@ from test_torch_sparse_lm import jax_problem, torch_problem
 from test_torch_stencil_cg import make_system
 
 
-@pytest.fixture
-def tiled_route(monkeypatch):
-    """Every solve past the budget; counts the tiled and the whole-solve
-    plain versions' calls."""
+@pytest.fixture(params=['tiled', 'fused'])
+def tiled_route(request, monkeypatch):
+    """Every solve past the budget, on the fused solver or, for 'tiled',
+    the tiled one; counts the calls of that route's and of the
+    whole-solve plain versions (key 'tiled': the oversize route's)."""
     calls = {'tiled': 0, 'whole': 0}
 
     def spy(route, fn):
@@ -38,8 +41,11 @@ def tiled_route(monkeypatch):
         return wrapped
 
     monkeypatch.setattr(scg, 'stencil_cg_fits', lambda *a: False)
-    monkeypatch.setattr(scg, '_tiled_cg_torch',
-                        spy('tiled', scg._tiled_cg_torch))
+    if request.param == 'tiled':
+        monkeypatch.setattr(scg, 'stencil_cg_fused', scg.stencil_cg_tiled)
+    plain = '_tiled_cg_torch' if request.param == 'tiled' \
+        else '_fused_cg_torch'
+    monkeypatch.setattr(scg, plain, spy('tiled', getattr(scg, plain)))
     monkeypatch.setattr(scg, '_cg_body_torch',
                         spy('whole', scg._cg_body_torch))
     return calls
@@ -75,13 +81,13 @@ def test_steps_on_tiled_route_match_jax_f64(tiled_route):
 @pytest.mark.parametrize('fits', [True, False])
 def test_stencil_cg_picks_route_by_budget(monkeypatch, fits):
     """stencil_cg takes the whole-solve route exactly where
-    stencil_cg_fits holds and the tiled route where it does not; either
+    stencil_cg_fits holds and the fused solver where it does not; either
     way x is within the existing stencil tests' 5e-3 of the dense solve
     (float32)."""
     seen = []
     monkeypatch.setattr(scg, 'stencil_cg_fits',
                         lambda *a: seen.append(a) or fits)
-    for name in ('stencil_cg_transposed', 'stencil_cg_tiled'):
+    for name in ('stencil_cg_transposed', 'stencil_cg_fused'):
         monkeypatch.setattr(scg, name, lambda *a, _fn=getattr(scg, name),
                             _n=name: seen.append(_n) or _fn(*a))
     edges, J, D, dcorr, Minv, b, A_dense = make_system(40, seed=3)
@@ -92,6 +98,6 @@ def test_stencil_cg_picks_route_by_budget(monkeypatch, fits):
         sp.precompute(torch.from_numpy(J), torch.from_numpy(J)),
         tuple(sp.offsets), maxiter=400, tol=1e-7)
     assert seen == [(40, 6, 2), 'stencil_cg_transposed' if fits
-                    else 'stencil_cg_tiled']
+                    else 'stencil_cg_fused']
     x_ref = np.linalg.solve(A_dense, b.reshape(-1)).reshape(b.shape)
     np.testing.assert_allclose(x.numpy(), x_ref, rtol=5e-3, atol=5e-4)

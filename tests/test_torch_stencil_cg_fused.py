@@ -1,8 +1,9 @@
 """The port's fused (Chronopoulos-Gear) stencil CG: its plain version on
 the CPU against the JAX package's stencil_cg_fused, whose Pallas passes
-run here in interpret mode (their SMEM dot accumulators included), against
-a dense solve in float64, and against the tiled solver at the 100k-pose
-shape.  The CUDA kernels' own tests are in test_torch_cuda.py.
+run here in interpret mode (their SMEM dot accumulators included), with
+float32 and with bf16 operand storage, against a dense solve in float64,
+and against the tiled solver at the 100k-pose shape.  The CUDA kernel's
+own tests are in test_torch_cuda.py.
 """
 
 import numpy as np
@@ -39,6 +40,41 @@ def test_fused_matches_jax_fused(seed):
                                    atol=1e-5)
         assert abs(int(it_t) - int(it_j)) <= 1
     assert int(it_t) < 200
+
+
+@pytest.mark.parametrize('seed', [5, 6])
+def test_fused_bf16_matches_jax_fused_bf16(seed):
+    """bf16 operand storage (operand_dtype) on both sides, N=53: each
+    rounds A, Minv and C to bf16 (round to nearest even) and computes in
+    float32; x within rtol 1e-4 / atol 1e-5 of JAX's fused solver in
+    interpret mode, iterations within one."""
+    *ops, offsets = lane_major(*make_system(53, seed=seed)[:6])
+    x_t, it_t = scg.stencil_cg_fused(*map(torch.from_numpy, ops), offsets, 6,
+                                     200, 1e-7, operand_dtype=torch.bfloat16)
+    x_j, it_j = jax_stencil_cg_fused(*map(jnp.asarray, ops), offsets, 6, 200,
+                                     1e-7, tile=16, interpret=True,
+                                     operand_dtype=jnp.bfloat16)
+    assert x_t.dtype == torch.float32
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=1e-4,
+                               atol=1e-5)
+    assert abs(int(it_t) - int(it_j)) <= 1
+    assert int(it_t) < 200
+
+
+def test_round_operands_is_round_to_nearest_even():
+    """bf16 storage rounds as numpy's ml_dtypes astype does (the JAX
+    package's ``astype``), and refuses other dtypes."""
+    a = np.array([[1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -2.5e-3, 3e38]],
+                 np.float32)
+    t = torch.from_numpy(a)
+    got = scg.round_operands(t, t, t, torch.bfloat16)
+    want = np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+    for g in got:
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_array_equal(g.float().numpy(), want)
+    assert scg.round_operands(t, t, t, None) == (t, t, t)
+    with pytest.raises(ValueError, match='operand_dtype'):
+        scg.round_operands(t, t, t, torch.float16)
 
 
 def test_fused_matches_dense_solve_f64():

@@ -87,8 +87,9 @@ def test_tiled_matches_dense_solve_f64(N):
 
 
 def test_stencil_cg_tiled_route_with_fixed_mask(monkeypatch):
-    """stencil_cg forced past the budget folds the fixed node and solves
-    on the tiled route: x within rtol 1e-4 / atol 1e-5 of JAX
+    """stencil_cg forced past the budget, with the tiled solver in the
+    oversize route's place (the fused solver's), folds the fixed node and
+    solves on the tiled route: x within rtol 1e-4 / atol 1e-5 of JAX
     stencil_cg(use_pallas=False), iterations within one, node 0 exactly
     zero."""
     edges, J, D, dcorr, Minv, b, _ = make_system(53, seed=2)
@@ -98,6 +99,7 @@ def test_stencil_cg_tiled_route_with_fixed_mask(monkeypatch):
     calls = []
     plain = scg._tiled_cg_torch
     monkeypatch.setattr(scg, 'stencil_cg_fits', lambda *a: False)
+    monkeypatch.setattr(scg, 'stencil_cg_fused', scg.stencil_cg_tiled)
     monkeypatch.setattr(scg, '_tiled_cg_torch',
                         lambda *a: calls.append(a) or plain(*a))
     ts = StencilSpMV(edges, N, t)
