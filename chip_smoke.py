@@ -2,15 +2,17 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU and check them:
 sphere2500 through the whole-solve CG kernel, a 100k-pose graph through
 the fused (Chronopoulos-Gear) CG kernel, ICP on 100k-point clouds through
-the nearest-neighbour kernel, and knn(k=8) on those clouds through the
-k-nearest kernel.
+the nearest-neighbour kernel, knn(k=8) on those clouds through the
+k-nearest kernel, knn on 6-coordinate clouds, and the general factor-graph
+routes (no kernel): a chain-dominated and a random-loop pose graph, and
+the inputs the stencil kernels do not take.
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
      turns TF32 off.
   2. build: compiles pypose_tpu_torch/csrc/stencil_cg{,_tiled,_fused}.cu,
      knn.cu and se3.cu, one nvcc each, all at once (timed as set-up);
-     prints ptxas' registers and shared memory.
+     prints ptxas' registers and shared memory (knn.cu: for D = 3 and 8).
   3. kernel vs plain, on the same random SPD stencil systems on the card,
      each timed with CUDA events (median of 7):
      - the whole-solve cluster kernel at N=40, at sphere2500's shape
@@ -68,10 +70,32 @@ Phases (any failure raises, so the script exits non-zero):
      clouds, one nnk launch, held to the tolerance rule against the plain
      version; timed beside the torch path it replaces on CUDA (matmul and
      a stable sort a chunk) and chunked torch.cdist + torch.topk.
-  9. prints the kernels' JSON line (each kernel's launches on its path,
+  9. knn-d6: knn(ref, nbr, k=1) and k=8 on [10000, 6] float32 clouds
+     (torch.Generator seed 0; 1e8 pairs, the auto-tiled route), one nn1
+     and one nnk launch, held to the near-tie rules against the plain
+     versions and timed beside chunked torch.cdist + torch.min / topk;
+     then the same clouds in float64 through the kernels' float64
+     instantiation, held to the rules at rtol = atol = 1e-13.
+ 10. sparse-f64: synthetic_sphere(100) in float64 (four step() calls) and
+     a Euclidean [64, 3] ring factor (testing.ring3_problem, t = 3, three
+     calls), card against CPU, both on the 'einsum' route with no kernel
+     launched.
+ 11. pgo-chain: synthetic_sphere(5000, loops_per_pose=0.04, seed=5),
+     bench.py:bench_pgo_chain's factors and schedule (route 'chain': the
+     einsum CG with the block cyclic reduction preconditioner), and
+     pgo-loops: testing.pgo_loops_instance(10000) (bench.py:
+     bench_pgo_groups' topology over SE3; route 'einsum' through
+     CouplingSpMV), each cold, warm and profiled: 0 kernel launches, chi2
+     against its JAX anchor (data/jax_anchor_pgo_chain5k_seed5.json: the
+     first step within 3e-4, the final within 1e-2; data/
+     jax_anchor_pgo_loops10k.json: entries above 1e-3 within 1e-3, the
+     final below 1e-5 of the initial chi2), ms per LM step, CG host
+     reads, device operations per LM step and the device's idle share.
+ 12. prints the kernels' JSON line (each kernel's launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
-     counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms),
-     the card line and the result line.
+     counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
+     nn1 and nnk also at D = 6, bound at 2 D flop a pair, in float32 and
+     in float64 at 34 TFLOP/s), the card line and the result line.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -94,12 +118,13 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def bound(n_bytes, n_flop):
+def bound(n_bytes, n_flop, flop_per_s=FP32_FLOP_PER_S):
     """The least time the card could take for work that must move
     ``n_bytes`` (each input read once, each output written once) and do
-    ``n_flop`` float32 operations: (ms, 'bytes' or 'operations')."""
+    ``n_flop`` operations at ``flop_per_s`` (float32 by default): (ms,
+    'bytes' or 'operations')."""
     b_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
-    o_ms = 1e3 * n_flop / FP32_FLOP_PER_S
+    o_ms = 1e3 * n_flop / flop_per_s
     return (b_ms, 'bytes') if b_ms >= o_ms else (o_ms, 'operations')
 
 
@@ -404,7 +429,10 @@ def sphere2500_slice(dev):
     n = nodes.lshape[0]
     print(f'[slice] set-up: load_g2o + factors + SparseLM in '
           f'{time.perf_counter() - t0:.3f} s; {n} poses, offsets '
-          f'{opt._stencil_all.offsets}, precond {opt.precond}', flush=True)
+          f'{opt._stencil_all.offsets}, precond {opt.precond}, route '
+          f'{opt.route}', flush=True)
+    check(opt.route == opt2.route == 'stencil',
+          f'sphere2500 takes route {opt.route}, not the stencil kernels')
 
     def run(label):
         opt.params = {'poses': nodes}
@@ -452,8 +480,10 @@ def sphere2500_slice(dev):
     reset_counts()
     run('cold')
     counts = read_counts()
-    check(counts['LAUNCHES'] > 0,
-          'the slice never launched the whole-solve CG kernel')
+    solves = sum(len(s) for o in (opt, opt2) for s in o.cg_iterations)
+    check(counts['LAUNCHES'] == solves > 0 and counts['FUSED_LAUNCHES'] == 0,
+          f'the slice launched the whole-solve CG kernel '
+          f'{counts["LAUNCHES"]} times for {solves} solves')
     print(f'[slice] cold run launched the whole-solve CG kernel '
           f'{counts["LAUNCHES"]} times; all counts {counts}', flush=True)
     run('warm')
@@ -517,8 +547,10 @@ def pgo100k_slice(dev):
     offsets = opt._stencil_all.offsets
     print(f'[pgo-100k] set-up: synthetic_sphere + factors + SparseLM in '
           f'{time.perf_counter() - t0:.3f} s; {N} poses, {edges.shape[0]} '
-          f'edges, offsets {offsets}, precond {opt.precond}; instance '
-          f'checksum {got}', flush=True)
+          f'edges, offsets {offsets}, precond {opt.precond}, route '
+          f'{opt.route}; instance checksum {got}', flush=True)
+    check(opt.route == 'stencil',
+          f'pgo-100k takes route {opt.route}, not the stencil kernels')
     check(not stencil_cg_fits(N, 6, len(offsets)),
           'pgo-100k fits the whole-solve budget: it would not test the '
           'fused route')
@@ -841,6 +873,236 @@ def knn_k8_phase(dev):
     return counts, err, k_ms, p_ms, t_ms, c_ms
 
 
+def profiled_run(run):
+    """``run('profiled')`` -> (ms, steps) under torch.profiler: (ms,
+    steps, device ms, device operations), the operations being the
+    kernels, copies and sets the profiler saw."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ms, steps = run('profiled')
+    ops = [e for e in prof.key_averages() if not e.key.startswith('aten::')]
+    return (ms, steps, sum(e.device_time_total for e in ops) / 1e3,
+            sum(e.count for e in ops))
+
+
+def general_graph_phase(tag, ds, anchor_name, route, hold):
+    """A pose graph of the general routes (no stencil kernel) through
+    testing.pgo_optimizer with the anchor file's schedule, cold, warm and
+    profiled: route, launch counts (every kernel count 0), CG host reads,
+    chi2 against the JAX anchor (``hold(history, anchor)`` raises if
+    outside), ms per LM step, device operations per LM step and the
+    device's idle share.  Returns a dict of those numbers."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.optim import solver
+    from pypose_tpu_torch.testing import instance_checksum, pgo_optimizer
+
+    with open(find_data(anchor_name)) as f:
+        anchor = json.load(f)
+    sched = anchor['schedule']
+    got, want = instance_checksum(ds), anchor['instance_checksum']
+    check(got['n_edges'] == want['n_edges'] and all(
+        abs(got[k] - want[k]) <= 1e-6 * abs(want[k])
+        for k in ('nodes_abs_sum', 'poses_abs_sum')),
+        f'{tag}: instance checksum {got} differs from the anchor\'s {want}')
+    t0 = time.perf_counter()
+    opt = pgo_optimizer(ds, **sched)
+    torch.cuda.synchronize()
+    n = ds['nodes'].shape[0]
+    print(f'[{tag}] set-up: SparseLM in {time.perf_counter() - t0:.3f} s; '
+          f'{n} poses, {ds["edges"].shape[0]} edges, route {opt.route}, '
+          f'precond {opt.precond} (JAX: {anchor["jax_precond"]}), matvecs '
+          f'{[type(sp).__name__ for sp in opt._spmv]}', flush=True)
+    check(opt.route == route, f'{tag}: route {opt.route}, expected {route}')
+
+    def run(label):
+        opt.params = {'poses': ds['nodes']}
+        opt.strategy_state = None
+        reads = solver.CG_HOST_READS
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        ev[0].record()
+        chi2 = opt.optimize(steps=sched['steps'],
+                            decreasing=sched['decreasing'],
+                            patience=sched['patience'])
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        ms, steps = ev[0].elapsed_time(ev[1]), len(opt.history)
+        print(f'[{tag}] {label}: chi2 history {opt.history} (JAX anchor '
+              f'{anchor["history"]})', flush=True)
+        print(f'[{tag}] {label}: CG iterations per solve, per LM step: '
+              f'{opt.cg_iterations}; CG host reads '
+              f'{solver.CG_HOST_READS - reads}', flush=True)
+        print(f'[{tag}] {label}: {steps} LM steps in {ms:.3f} ms (CUDA '
+              f'events; host {1e3 * wall:.3f} ms), {ms / steps:.3f} ms/LM '
+              f'step; final chi2 {chi2:.7g}, JAX anchor '
+              f'{anchor["final_chi2"]:.7g} (relative gap '
+              f'{chi2 / anchor["final_chi2"] - 1:.3e})', flush=True)
+        X = opt.params['poses'].tensor()
+        check(tuple(X.shape) == (n, 7) and bool(torch.isfinite(X).all()),
+              f'{tag}: poses of shape {tuple(X.shape)} or not finite')
+        hold(opt.history, anchor)
+        return ms, steps
+
+    reset_counts()
+    cold_ms, cold_steps = run('cold')
+    counts = read_counts()
+    check(not any(counts.values()),
+          f'{tag}: the general route launched kernels: {counts}')
+    print(f'[{tag}] cold run launch counts {counts}', flush=True)
+    warm_ms, warm_steps = run('warm')
+    ms, steps, dev_ms, n_ops = profiled_run(run)
+    out = {'route': opt.route, 'final_chi2': opt.history[-1],
+           'anchor_chi2': anchor['final_chi2'],
+           'ms_per_step_cold': cold_ms / cold_steps,
+           'ms_per_step_warm': warm_ms / warm_steps,
+           'ms_per_step_profiled': ms / steps,
+           'device_ops_per_step': n_ops / steps,
+           'idle_share': 1 - dev_ms / ms}
+    print(f'[{tag}] profiled run: {dev_ms:.3f} ms device time of {ms:.3f} '
+          f'ms (idle share {out["idle_share"]:.4f}), {n_ops} device '
+          f'operations, {out["device_ops_per_step"]:.1f} an LM step',
+          flush=True)
+    return out
+
+
+def hold_chain(hist, anchor):
+    """pgo-chain's tolerances (tests/test_torch_pgo_chain_anchor.py): the
+    first step within 3e-4 of the anchor's, the final chi2 within 1e-2."""
+    first = hist[0] / anchor['history'][0] - 1
+    final = hist[-1] / anchor['final_chi2'] - 1
+    check(abs(first) <= 3e-4 and abs(final) <= 1e-2,
+          f'pgo-chain: first step {first:.3e} or final {final:.3e} '
+          'outside its tolerance of the JAX anchor')
+
+
+def hold_loops(hist, anchor):
+    """pgo-loops-10k's tolerances (tests/test_torch_pgo_loops_anchor.py):
+    entries above 1e-3 within 1e-3 of the anchor's, the final below 1e-5
+    of the initial chi2."""
+    want = anchor['history']
+    check(len(hist) == len(want) and all(
+        abs(h / w - 1) <= 1e-3 for h, w in zip(hist, want) if w > 1e-3)
+        and hist[-1] < 1e-5 * anchor['initial_chi2'],
+        'pgo-loops: chi2 history outside its tolerance of the JAX anchor')
+
+
+def pgo_chain_phase(dev):
+    from pypose_tpu_torch.datasets import synthetic_sphere
+    return general_graph_phase(
+        'pgo-chain', synthetic_sphere(5000, loops_per_pose=0.04, seed=5,
+                                      device=dev),
+        'jax_anchor_pgo_chain5k_seed5.json', 'chain', hold_chain)
+
+
+def pgo_loops_phase(dev):
+    from pypose_tpu_torch.testing import pgo_loops_instance
+    return general_graph_phase(
+        'pgo-loops', pgo_loops_instance(10_000, device=dev),
+        'jax_anchor_pgo_loops10k.json', 'einsum', hold_loops)
+
+
+def sparse_f64_phase(dev):
+    """The inputs the stencil kernels do not take, card against CPU:
+    synthetic_sphere(100) in float64 (four step() calls, cg_iter 150,
+    cg_tol 1e-9; chi2 within 1e-8) and a Euclidean [64, 3] ring factor in
+    float32 (testing.ring3_problem, three step() calls; chi2 within
+    1e-4), both on the 'einsum' route with no kernel launched."""
+    import torch
+    from pypose_tpu_torch.datasets import synthetic_sphere
+    from pypose_tpu_torch.optim.sparse import SparseLM
+    from pypose_tpu_torch.optim.strategy import TrustRegion
+    from pypose_tpu_torch.testing import pgo_optimizer, ring3_problem
+
+    def sphere(d):
+        return pgo_optimizer(synthetic_sphere(100, dtype=torch.float64,
+                                              device=d),
+                             radius=1e4, cg_iter=150, cg_tol=1e-9)
+
+    def ring(d):
+        params, factors, fixed = ring3_problem(device=d)
+        return SparseLM(params, factors, strategy=TrustRegion(radius=1e4),
+                        fixed=fixed, cg_iter=100, cg_tol=1e-8)
+
+    for name, make, steps, rtol in (('sphere100 float64', sphere, 4, 1e-8),
+                                    ('ring3 float32', ring, 3, 1e-4)):
+        hist = {}
+        for d in (dev, 'cpu'):
+            opt = make(d)
+            check(opt.route == 'einsum',
+                  f'sparse-f64, {name}: route {opt.route}')
+            reset_counts()
+            t0 = time.perf_counter()
+            hist[str(d)] = [opt.step() for _ in range(steps)]
+            ms = 1e3 * (time.perf_counter() - t0) / steps
+            counts = read_counts()
+            check(not any(counts.values()),
+                  f'sparse-f64, {name}: kernels launched: {counts}')
+            print(f'[sparse-f64] {name} on {d}: route {opt.route}, chi2 '
+                  f'{hist[str(d)]}, CG iterations {opt.cg_iterations}, '
+                  f'{ms:.3f} ms/LM step (host clock), launch counts '
+                  f'{counts}', flush=True)
+        card, cpu = hist[str(dev)], hist['cpu']
+        gap = max(abs(a / b - 1) for a, b in zip(card, cpu))
+        print(f'[sparse-f64] {name}: card against CPU, largest relative '
+              f'chi2 gap {gap:.3e} (bound {rtol:g})', flush=True)
+        check(gap <= rtol, f'sparse-f64, {name}: card and CPU disagree')
+
+
+# The float64 instantiations' near-tie rule: nnk_tolerance_failures at
+# rtol = atol = 1e-13 (~450 float64 ulps of |a|^2 + |b|^2).
+F64_TOL = dict(rtol=1e-13, atol=1e-13)
+
+
+def knn_d6_phase(dev):
+    """knn(ref, nbr, k=1) and k=8 on [10000, 6] clouds (1e8 pairs, the
+    auto-tiled route), in float32 and then in float64: one nn1 and one
+    nnk launch each, held to the near-tie rules against the plain
+    versions (float64 at F64_TOL).  Returns {kernel: (err, ms, plain ms,
+    cdist ms)} for 'nn1', 'nnk', 'nn1_f64' and 'nnk_f64'."""
+    import torch
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.ops import knn as K
+    from pypose_tpu_torch.testing import nnk_tolerance_failures
+    gen = torch.Generator().manual_seed(0)
+    ref = torch.randn((10_000, 6), generator=gen).to(dev)
+    nbr = torch.randn((10_000, 6), generator=gen).to(dev)
+    out = {}
+    for suffix, r, n, tol in (('', ref, nbr, {}),
+                              ('_f64', ref.double(), nbr.double(), F64_TOL)):
+        for k, counter in ((1, 'NN1_LAUNCHES'), (8, 'NNK_LAUNCHES')):
+            reset_counts()
+            res = ppt.knn(r, n, k=k)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            others = {c: v for c, v in counts.items() if c != counter and v}
+            check(counts[counter] == 1 and not others
+                  and res.values.dtype == r.dtype,
+                  f'knn-d6, k={k}, {r.dtype}: launch counts {counts}')
+            plain = (lambda: [a[:, None] for a in K._nn1_torch(r, n)]) \
+                if k == 1 else (lambda: K._nnk_torch(r, n, k))
+            p_ms, (d_p, i_p) = cuda_ms(plain, repeat=3)
+            got = nnk_tolerance_failures(r, n, res.values ** 2, res.indices,
+                                         i_p, **tol)
+            err = float((res.values ** 2 - d_p).abs().max())
+            check(got['index_failures'] == got['repeat_failures']
+                  == got['d2_failures'] == 0,
+                  f'knn-d6, k={k}, {r.dtype}: outside the tolerance: {got}')
+            k_ms, _ = cuda_ms(lambda: K.nnk(r, n, k))
+            c_ms, _ = cuda_ms((lambda: cdist_min(r, n)) if k == 1 else
+                              (lambda: cdist_topk(r, n, k)), repeat=3)
+            print(f'[knn-d6] knn(k={k}), [10000, 6] x [10000, 6] {r.dtype}: '
+                  f'launch counts {counts}; {got}; max|d2 - d2_p| {err:.3e}; '
+                  f'kernel {k_ms:.4f} ms (median of 7), plain {p_ms:.4f} ms, '
+                  f'torch.cdist + torch.{"min" if k == 1 else "topk"} '
+                  f'{c_ms:.4f} ms (median of 3)', flush=True)
+            out[('nn1' if k == 1 else 'nnk') + suffix] = (err, k_ms, p_ms,
+                                                          c_ms)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -873,10 +1135,20 @@ def main():
           f'{time.perf_counter() - t0:.2f} s (set-up)', flush=True)
     for path in paths:
         log = path.with_suffix('.log')
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if 'Used' in line or 'Compiling entry' in line:
-                    print(f'[build] {path.stem}: {line.strip()}', flush=True)
+        if not log.exists():
+            continue
+        entry = spill = ''
+        for line in log.read_text().splitlines():
+            if 'Compiling entry' in line:
+                entry = line.strip()
+            elif 'spill' in line:
+                spill = line.strip()
+            # csrc/knn.cu: the float32 and float64 instantiations for D = 3
+            # and D = 8 only
+            elif 'Used' in line and (path.stem != 'libknn' or any(
+                    f'I{t}Li{d}E' in entry for t in 'fd' for d in (3, 8))):
+                print(f'[build] {path.stem}: {entry}\n[build] {path.stem}: '
+                      f'{spill}; {line.strip()}', flush=True)
 
     # 3. kernels vs plain versions on the card
     whole = [
@@ -909,13 +1181,17 @@ def main():
           'shared-memory mode: it would not test the global mode')
     point = point_kernels_vs_plain(dev)
 
-    # 4., 5., 7. and 8. the paths, each counted from zero over its cold run
+    # 4., 5., 7.-11. the paths, each counted from zero over its cold run
     first_step_agreement(dev)
     sphere_counts = sphere2500_slice(dev)
     pgo_counts, pgo_prof = pgo100k_slice(dev)
     icp_card_vs_cpu(dev)
     icp_counts = icp_slice(dev)
     k8_counts, k8_err, k8_ms, k8_plain, k8_torch, k8_lib = knn_k8_phase(dev)
+    d6 = knn_d6_phase(dev)
+    sparse_f64_phase(dev)
+    general = {'pgo-chain': pgo_chain_phase(dev),
+               'pgo-loops': pgo_loops_phase(dev)}
 
     # 9. results: each kernel's bound from this run's shapes (t = 6, two
     # offsets; float32 operands and vectors, 4 bytes a float)
@@ -942,6 +1218,15 @@ def main():
     nn1_b = bound(4 * 2 * icp_n * 3 + 12 * icp_n, 6 * icp_n * icp_n)
     nnk_b = bound(4 * (nnk_r + icp_n) * 3 + 12 * nnk_r * 16,
                   6 * nnk_r * icp_n)
+    # knn-d6: 2 D flop a pair at D = 6, 10k x 10k
+    d6_n = 10_000
+    nn1_d6_b = bound(4 * 2 * d6_n * 6 + 12 * d6_n, 12 * d6_n * d6_n)
+    nnk_d6_b = bound(4 * 2 * d6_n * 6 + 12 * d6_n * 8, 12 * d6_n * d6_n)
+    # the same in float64, its operations at 34 TFLOP/s (NVIDIA's H100 SXM
+    # data sheet, float64 outside the tensor cores)
+    nn1_d6_b64 = bound(8 * 2 * d6_n * 6 + 16 * d6_n, 12 * d6_n * d6_n, 34e12)
+    nnk_d6_b64 = bound(8 * 2 * d6_n * 6 + 16 * d6_n * 8, 12 * d6_n * d6_n,
+                       34e12)
     # SE3: [N, 7] x [N, 7] -> [N, 7] (~60 flop), [N, 7] x [N, 3] -> [N, 3]
     # (~30 flop)
     se3_b = {'se3_mul': bound(4 * N100k * 21, 60 * N100k),
@@ -996,15 +1281,24 @@ def main():
                     'torch.profiler; tiled_ms: the tiled solver on the '
                     'same system)', routed=True),
         entry('nn1', 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:22',
-              icp_counts['NN1_LAUNCHES'], point['nn1'][0], point['nn1'][1],
+              icp_counts['NN1_LAUNCHES'], max(point['nn1'][0], d6['nn1'][0]),
+              point['nn1'][1],
               point['nn1'][2], nn1_b, ms_of='100k x 100k, ICP clouds',
               two_call_reference_ms=point['nn1'][3],
               two_call_reference='torch.cdist then torch.min, per chunk of '
                                  '64 Mi pairs: two calls, no one call',
+              ms_d6=d6['nn1'][1], plain_ms_d6=d6['nn1'][2],
+              bound_ms_d6=nn1_d6_b[0], bound_by_d6=nn1_d6_b[1],
+              two_call_reference_ms_d6=d6['nn1'][3],
+              ms_d6_of='knn(k=1), [10000, 6] x [10000, 6] float32, one '
+                       'launch (max_abs_err includes it)',
+              ms_d6_f64=d6['nn1_f64'][1], plain_ms_d6_f64=d6['nn1_f64'][2],
+              bound_ms_d6_f64=nn1_d6_b64[0], bound_by_d6_f64=nn1_d6_b64[1],
+              max_abs_err_d6_f64=d6['nn1_f64'][0],
               routed=True),
         entry('nnk', 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:50',
               k8_counts['NNK_LAUNCHES'],
-              max(point['nnk4'][0], point['nnk16'][0], k8_err),
+              max(point['nnk4'][0], point['nnk16'][0], k8_err, d6['nnk'][0]),
               point['nnk16'][1], point['nnk16'][2], nnk_b,
               library_ms=point['nnk16'][3],
               library='torch.cdist then torch.topk, per chunk of 64 Mi pairs',
@@ -1012,6 +1306,14 @@ def main():
               library_ms_k4=point['nnk4'][3], knn_k8_ms=k8_ms,
               knn_k8_torch_path_ms=k8_torch, knn_k8_library_ms=k8_lib,
               knn_k8_plain_ms=k8_plain,
+              ms_d6_k8=d6['nnk'][1], plain_ms_d6_k8=d6['nnk'][2],
+              bound_ms_d6_k8=nnk_d6_b[0], bound_by_d6_k8=nnk_d6_b[1],
+              library_ms_d6_k8=d6['nnk'][3],
+              ms_d6_f64_k8=d6['nnk_f64'][1],
+              plain_ms_d6_f64_k8=d6['nnk_f64'][2],
+              bound_ms_d6_f64_k8=nnk_d6_b64[0],
+              bound_by_d6_f64_k8=nnk_d6_b64[1],
+              max_abs_err_d6_f64_k8=d6['nnk_f64'][0],
               ms_of='k=16 (ms_k4: k=4), 20k x 100k slice of the ICP clouds; '
                     'knn_k8: knn(k=8) at 100k x 100k, launches from it',
               routed=True)]
@@ -1024,6 +1326,8 @@ def main():
             ms_of='per call over 50 calls, N=100,000 (device_ms: kernel '
                   'time alone, torch.profiler)', routed=False))
     print(f'[pgo-100k] profiled run {pgo_prof}', flush=True)
+    for tag, numbers in general.items():
+        print(f'[{tag}] {numbers}', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -4,12 +4,16 @@ Counterpart of ``pypose_tpu/__init__.py:1``.  The package mirrors the JAX
 package's file layout; each module names its JAX counterpart.  It imports
 torch and numpy, never jax.  It covers two paths:
 
-- pose graphs (sphere2500 and 100k poses): the SO3/SE3 Lie core (forward)
-  with its random factories, views and matrix conversions, the scalarized
-  PGO blocks, g2o IO and the synthetic sphere graph, the stencil normal
-  equations, the stencil CG kernels (``csrc/stencil_cg.cu`` whole-solve,
-  ``csrc/stencil_cg_fused.cu`` for systems past its L2 budget,
-  ``csrc/stencil_cg_tiled.cu`` beside it) and ``optim.sparse.SparseLM``;
+- factor graphs (sphere2500, 100k poses, chain-dominated and random-loop
+  graphs): the SO3/SE3 Lie core (forward) with its random factories,
+  views and matrix conversions, the scalarized PGO blocks, g2o IO and the
+  synthetic sphere graph, the stencil and coupling-block normal
+  equations (``ops.spmv``), the stencil CG kernels
+  (``csrc/stencil_cg.cu`` whole-solve, ``csrc/stencil_cg_fused.cu`` for
+  systems past its L2 budget, ``csrc/stencil_cg_tiled.cu`` beside it),
+  the einsum CG (``optim.solver``) with block-Jacobi or the block cyclic
+  reduction chain preconditioner (``ops.block_tridiag``), and
+  ``optim.sparse.SparseLM``, which picks among them;
 - point clouds: ``module.ICP`` over ``function.geometry.knn`` (the
   nearest-neighbour kernels of ``csrc/knn.cu``) and ``svdtf``, with
   ``utils.ReduceToBason``.  The SE3 composition and action kernels of

@@ -9,12 +9,14 @@
 // Both return, among equal distances, the lowest index: the Pallas
 // kernels' first occurrence within a tile and earlier tile across tiles.
 //
-// Both scans.  Neighbours are staged through shared memory as one float4
-// each, (-2 b_0, -2 b_1, -2 b_2, |b|^2) (D = 4: the four -2 b_c and |b|^2
-// in a second array), and each thread holds several reference rows in
-// registers, so one broadcast LDS.128 feeds them all and a pair costs
-// three FFMA, s = fma(a_2, -2 b_2, fma(a_1, -2 b_1, fma(a_0, -2 b_0,
-// |b|^2))), and a compare.  Rows are ranked by s = |b|^2 - 2 a.b; |a|^2 is
+// Both scans.  Neighbours are staged through shared memory as float4s of
+// -2 b_c, four coordinates each, with |b|^2 in the last float4's free w
+// slot (D = 1-3: (-2 b_0, -2 b_1, -2 b_2, |b|^2); D = 5-7: a second float4
+// (-2 b_4, .., |b|^2)) or, when D is 4 or 8 and no slot is free, in an
+// array of its own; each thread holds several reference rows in registers,
+// so one broadcast LDS.128 (two past D = 4) feeds them all and a pair costs
+// D FFMA, s = fma(a_{D-1}, -2 b_{D-1}, ... fma(a_0, -2 b_0, |b|^2)), and a
+// compare.  Rows are ranked by s = |b|^2 - 2 a.b; |a|^2 is
 // added after the scan, and d^2 clamped at 0, as pallas_knn.py:153 and
 // :191 do.  The neighbour range is split over blockIdx.y so that enough
 // blocks are in flight; a merge pass combines each row's results over the
@@ -22,7 +24,12 @@
 // (ops/knn.py:_gram_d2, every product and sum rounded alone), so on a
 // near-tie the two may pick different neighbours: the card is held to the
 // tolerance of pypose_tpu_torch/testing:nnk_tolerance_failures (for k = 1,
-// nn1_tolerance_failures).
+// nn1_tolerance_failures).  Both scans are instantiated for 1 <= D <= 8
+// and for float32 and float64 clouds (T); a float64 neighbour is staged
+// as double-precision 4-vectors (two LDS.128 each) in a tile of half the
+// length, and a thread keeps half the rows, so that the rows' coordinates
+// stay at 32 registers as they do in float32 (nn1: 8 rows a thread in
+// float32 up to D = 4, 4 past it).
 //
 // nn1: min first, index later.  A row keeps only the running min of s (one
 // FMNMX a pair), and after each sub-tile of kSub neighbours notes the
@@ -49,7 +56,8 @@
 // inserts the splits' lists in split order, each in its order, into one
 // list per row, so among equal s the lower index again comes first.
 //
-// What bounds them on an H100: instruction issue.  nn1 needs 3 FMA a pair:
+// What bounds them on an H100: instruction issue.  nn1 needs D FMA a pair;
+// at D = 3:
 // 1e10 pairs (ICP's 100k x 100k) are 6e10 flop, 0.90 ms at 67 TFLOP/s;
 // with the FMNMX and one LDS.128 per kRT pairs the scan issues ~4.2
 // instructions a pair, ~1.3e9 warp instructions, ~1.3 ms at one per
@@ -69,16 +77,48 @@
 namespace {
 
 constexpr int kThreads = 128;   // threads a block, both scans
-constexpr int kTile = 1024;     // neighbours staged a pass
 constexpr int kSub = 32;        // neighbours a sub-tile
 constexpr int kMinSplit = 2048; // neighbours a split, least
-constexpr int kMaxDim = 4;      // ops/knn.py:MAX_DIM
+constexpr int kMaxDim = 8;      // ops/knn.py:MAX_DIM
 constexpr int kMaxK = 16;       // ops/knn.py:MAX_K
+
+// Neighbours staged a pass: 1024 in float32, 512 in float64 (36 KB of
+// shared memory at D = 8 either way).
+template <typename T>
+__host__ __device__ constexpr int tile_len() { return 4096 / sizeof(T); }
+
+// The scalar type's arithmetic, each operation rounded once.
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_of(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float max_of(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_of(double a, double b) { return fmax(a, b); }
+template <typename T> __device__ __forceinline__ T inf();
+template <> __device__ __forceinline__ float inf<float>() { return CUDART_INF_F; }
+template <> __device__ __forceinline__ double inf<double>() { return CUDART_INF; }
+
+// Four coordinates of a staged neighbour: a float4, or its float64 peer.
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+struct alignas(16) Double4 { double x, y, z, w; };
+template <> struct Vec4<double> { using type = Double4; };
+template <typename T> using vec4_t = typename Vec4<T>::type;
 
 // Inserts (d, j) into the list (v, id) sorted by (d^2, index), behind
 // every entry whose d^2 it does not beat (a strict <).
-template <int K>
-__device__ __forceinline__ void insert(float d, int j, float* v, int* id) {
+template <int K, typename T>
+__device__ __forceinline__ void insert(T d, int j, T* v, int* id) {
   if (!(d < v[K - 1])) return;
 #pragma unroll
   for (int s = K - 1; s > 0; --s) {
@@ -96,48 +136,86 @@ __device__ __forceinline__ void insert(float d, int j, float* v, int* id) {
   }
 }
 
+// Where a staged neighbour keeps |b|^2: the free w slot of its last
+// 4-vector, unless D fills it (D = 4, 8), then an array of its own.
+template <int D>
+__host__ __device__ constexpr bool own_bn() { return D % 4 == 0; }
+
+// The shared-memory tile of tile_len<T>() staged neighbours: the
+// 4-vectors of coordinates 0-3 and 4-7 (the second only past D = 4), and
+// |b|^2 where own_bn<D>().
+template <typename T, int D>
+struct Tile {
+  vec4_t<T> w0[tile_len<T>()];
+  vec4_t<T> w1[D > 4 ? tile_len<T>() : 1];
+  T bn[own_bn<D>() ? tile_len<T>() : 1];
+};
+
+// A staged neighbour as a scan reads it.
+template <typename T>
+struct Nbr {
+  vec4_t<T> w0, w1;
+  T bn;
+};
+
+template <typename T, int D>
+__device__ __forceinline__ Nbr<T> load(const Tile<T, D>& tl, int t) {
+  Nbr<T> b;
+  b.w0 = tl.w0[t];
+  b.w1 = D > 4 ? tl.w1[t] : b.w0;
+  b.bn = own_bn<D>() ? tl.bn[t] : D > 4 ? b.w1.w : b.w0.w;
+  return b;
+}
+
 // s = |b|^2 - 2 a.b from the staged (-2 b, |b|^2), FMA from the first
 // coordinate; a scan and its second look at a neighbour call this one
 // function, so both see the same bits.
-template <int D>
-__device__ __forceinline__ float score(const float* a, float4 w, float bn) {
-  float s = __fmaf_rn(a[0], w.x, bn);
-  if (D > 1) s = __fmaf_rn(a[1], w.y, s);
-  if (D > 2) s = __fmaf_rn(a[2], w.z, s);
-  if (D > 3) s = __fmaf_rn(a[3], w.w, s);
+template <typename T, int D>
+__device__ __forceinline__ T score(const T* a, const Nbr<T>& b) {
+  T s = fma_rn(a[0], b.w0.x, b.bn);
+  if (D > 1) s = fma_rn(a[1], b.w0.y, s);
+  if (D > 2) s = fma_rn(a[2], b.w0.z, s);
+  if (D > 3) s = fma_rn(a[3], b.w0.w, s);
+  if (D > 4) s = fma_rn(a[4], b.w1.x, s);
+  if (D > 5) s = fma_rn(a[5], b.w1.y, s);
+  if (D > 6) s = fma_rn(a[6], b.w1.z, s);
+  if (D > 7) s = fma_rn(a[7], b.w1.w, s);
   return s;
 }
 
-// Stages neighbours [t0, t0 + n) into tw (and tb for D = 4), padded to
-// n_pad with zero coordinates and |b|^2 = inf, so s = inf.
-template <int D>
-__device__ __forceinline__ void stage(const float* __restrict__ nbr, int t0,
-                                      int n, int n_pad, float4* tw,
-                                      float* tb) {
+// Stages neighbours [t0, t0 + n) into the tile, padded to n_pad with zero
+// coordinates and |b|^2 = inf, so s = inf.
+template <typename T, int D>
+__device__ __forceinline__ void stage(const T* __restrict__ nbr, int t0,
+                                      int n, int n_pad, Tile<T, D>& tl) {
   for (int t = threadIdx.x; t < n_pad; t += kThreads) {
-    float b[4] = {0.f, 0.f, 0.f, 0.f};
-    float bn = CUDART_INF_F;
+    T b[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    T bn = inf<T>();
     if (t < n) {
 #pragma unroll
       for (int c = 0; c < D; ++c)
         b[c] = nbr[static_cast<size_t>(t0 + t) * D + c];
       bn = b[0] * b[0];
 #pragma unroll
-      for (int c = 1; c < D; ++c) bn = __fmaf_rn(b[c], b[c], bn);
+      for (int c = 1; c < D; ++c) bn = fma_rn(b[c], b[c], bn);
     }
-    tw[t] = make_float4(-2.f * b[0], -2.f * b[1], -2.f * b[2],
-                        D == 4 ? -2.f * b[3] : bn);
-    if (D == 4) tb[t] = bn;
+    T w[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) w[c] = T(-2) * b[c];
+    if (!own_bn<D>()) w[D > 4 ? 7 : 3] = bn;
+    tl.w0[t] = vec4_t<T>{w[0], w[1], w[2], w[3]};
+    if (D > 4) tl.w1[t] = vec4_t<T>{w[4], w[5], w[6], w[7]};
+    if (own_bn<D>()) tl.bn[t] = bn;
   }
 }
 
 // |a|^2 of reference row `row`, FMA from the first coordinate.
-template <int D>
-__device__ __forceinline__ float ref_sqnorm(const float* ref, int row) {
-  const float* a = ref + static_cast<size_t>(row) * D;
-  float an = a[0] * a[0];
+template <typename T, int D>
+__device__ __forceinline__ T ref_sqnorm(const T* ref, int row) {
+  const T* a = ref + static_cast<size_t>(row) * D;
+  T an = a[0] * a[0];
 #pragma unroll
-  for (int c = 1; c < D; ++c) an = __fmaf_rn(a[c], a[c], an);
+  for (int c = 1; c < D; ++c) an = fma_rn(a[c], a[c], an);
   return an;
 }
 
@@ -165,38 +243,41 @@ int splits_for(int R, int N, int rows, int per_sm) {
 
 // ---- nn1 ------------------------------------------------------------------
 
-constexpr int kRT = 8;                      // reference rows a thread
-constexpr int kNn1Rows = kThreads * kRT;    // reference rows a block
+// reference rows a thread: in float32 8, 4 past D = 4; half in float64
+// (32 registers of coordinates either way)
+template <typename T>
+__host__ __device__ constexpr int nn1_rt(int D) {
+  return (D > 4 ? 4 : 8) * 4 / static_cast<int>(sizeof(T));
+}
 constexpr int kNn1BlocksPerSm = 16;         // blocks in flight, aim
 
 // Each row's least s over the neighbours [split * chunk, + chunk), and the
 // first index that gives it, into part_s / part_i [splits, R].
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 4)
-nn1_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
-         int R, int N, int chunk, float* __restrict__ part_s,
-         int* __restrict__ part_i) {
-  __shared__ float4 tw[kTile];
-  __shared__ float tb[D == 4 ? kTile : 1];
+nn1_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R, int N,
+         int chunk, T* __restrict__ part_s, int* __restrict__ part_i) {
+  constexpr int kRT = nn1_rt<T>(D);
+  __shared__ Tile<T, D> tl;
   const int j_begin = blockIdx.y * chunk;
   const int j_end = min(N, j_begin + chunk);
-  const int row0 = blockIdx.x * kNn1Rows + threadIdx.x;
-  float a[kRT][D], best[kRT];
+  const int row0 = blockIdx.x * (kThreads * kRT) + threadIdx.x;
+  T a[kRT][D], best[kRT];
   int bidx[kRT];
 #pragma unroll
   for (int r = 0; r < kRT; ++r) {
     const int row = row0 + r * kThreads;
 #pragma unroll
     for (int c = 0; c < D; ++c)
-      a[r][c] = row < R ? ref[static_cast<size_t>(row) * D + c] : 0.f;
-    best[r] = CUDART_INF_F;
+      a[r][c] = row < R ? ref[static_cast<size_t>(row) * D + c] : T(0);
+    best[r] = inf<T>();
     bidx[r] = 0;
   }
-  for (int t0 = j_begin; t0 < j_end; t0 += kTile) {
-    const int n = min(kTile, j_end - t0);
+  for (int t0 = j_begin; t0 < j_end; t0 += tile_len<T>()) {
+    const int n = min(tile_len<T>(), j_end - t0);
     const int n_pad = (n + kSub - 1) / kSub * kSub;
     __syncthreads();  // the previous tile has been read
-    stage<D>(nbr, t0, n, n_pad, tw, tb);
+    stage<T, D>(nbr, t0, n, n_pad, tl);
     __syncthreads();
     // the running min of each row, and the sub-tile of this tile where it
     // last fell (-1: not in this tile)
@@ -204,16 +285,15 @@ nn1_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
 #pragma unroll
     for (int r = 0; r < kRT; ++r) sub[r] = -1;
     for (int s0 = 0; s0 < n_pad; s0 += kSub) {
-      float m[kRT];
+      T m[kRT];
 #pragma unroll
       for (int r = 0; r < kRT; ++r) m[r] = best[r];
 #pragma unroll 8
       for (int s = 0; s < kSub; ++s) {
-        const float4 w = tw[s0 + s];
-        const float bn = D == 4 ? tb[s0 + s] : w.w;
+        const Nbr<T> b = load<T, D>(tl, s0 + s);
 #pragma unroll
         for (int r = 0; r < kRT; ++r)
-          m[r] = fminf(m[r], score<D>(a[r], w, bn));
+          m[r] = min_of(m[r], score<T, D>(a[r], b));
       }
 #pragma unroll
       for (int r = 0; r < kRT; ++r) {
@@ -227,9 +307,7 @@ nn1_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
       if (sub[r] >= 0) {
         int s = 0;
         for (; s < kSub - 1; ++s) {
-          const float4 w = tw[sub[r] + s];
-          if (score<D>(a[r], w, D == 4 ? tb[sub[r] + s] : w.w) == best[r])
-            break;
+          if (score<T, D>(a[r], load<T, D>(tl, sub[r] + s)) == best[r]) break;
         }
         bidx[r] = t0 + sub[r] + s;
       }
@@ -247,39 +325,53 @@ nn1_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
 
 // Each row's best over the splits in order (strict <: the lower index on
 // ties), then d^2 = s + |a|^2 clamped at 0.
-template <int D>
-__global__ void nn1_merge(const float* __restrict__ ref, int R, int splits,
-                          const float* __restrict__ part_s,
-                          const int* __restrict__ part_i,
-                          float* __restrict__ d2,
+template <typename T, int D>
+__global__ void nn1_merge(const T* __restrict__ ref, int R, int splits,
+                          const T* __restrict__ part_s,
+                          const int* __restrict__ part_i, T* __restrict__ d2,
                           long long* __restrict__ idx) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= R) return;
-  float best = part_s[row];
+  T best = part_s[row];
   int bi = part_i[row];
   for (int sp = 1; sp < splits; ++sp) {
-    const float v = part_s[static_cast<size_t>(sp) * R + row];
+    const T v = part_s[static_cast<size_t>(sp) * R + row];
     if (v < best) {
       best = v;
       bi = part_i[static_cast<size_t>(sp) * R + row];
     }
   }
-  d2[row] = fmaxf(__fadd_rn(best, ref_sqnorm<D>(ref, row)), 0.f);
+  d2[row] = max_of(add_rn(best, ref_sqnorm<T, D>(ref, row)), T(0));
   idx[row] = bi;
 }
 
-template <int D>
-cudaError_t launch_nn1(const float* ref, const float* nbr, int R, int N,
-                       int splits, float* part_s, int* part_i, float* d2,
-                       long long* idx, cudaStream_t stream) {
-  const dim3 grid((R + kNn1Rows - 1) / kNn1Rows, splits);
-  nn1_scan<D><<<grid, kThreads, 0, stream>>>(
+template <typename T, int D>
+cudaError_t launch_nn1(const T* ref, const T* nbr, int R, int N, int splits,
+                       T* part_s, int* part_i, T* d2, long long* idx,
+                       cudaStream_t stream) {
+  constexpr int rows = kThreads * nn1_rt<T>(D);
+  const dim3 grid((R + rows - 1) / rows, splits);
+  nn1_scan<T, D><<<grid, kThreads, 0, stream>>>(
       ref, nbr, R, N, split_chunk(N, splits), part_s, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  nn1_merge<D><<<(R + 255) / 256, 256, 0, stream>>>(ref, R, splits, part_s,
-                                                    part_i, d2, idx);
+  nn1_merge<T, D><<<(R + 255) / 256, 256, 0, stream>>>(ref, R, splits,
+                                                       part_s, part_i, d2,
+                                                       idx);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t nn1_any(const void* ref, const void* nbr, int R, int N, int D,
+                    int splits, void* part_s, int* part_i, void* d2,
+                    long long* idx, cudaStream_t stream) {
+  cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, T*, int*,
+                                 T*, long long*, cudaStream_t) = {
+      launch_nn1<T, 1>, launch_nn1<T, 2>, launch_nn1<T, 3>, launch_nn1<T, 4>,
+      launch_nn1<T, 5>, launch_nn1<T, 6>, launch_nn1<T, 7>, launch_nn1<T, 8>};
+  return launch[D - 1](static_cast<const T*>(ref), static_cast<const T*>(nbr),
+                       R, N, splits, static_cast<T*>(part_s), part_i,
+                       static_cast<T*>(d2), idx, stream);
 }
 
 // ---- nnk ------------------------------------------------------------------
@@ -290,47 +382,49 @@ constexpr int kNnkBlocksPerSm = 4;
 constexpr int kBatch = 64;  // neighbours a candidate mask covers
 
 // The list length for k (the least of 2, 4, 8, 16 that holds it), and the
-// reference rows a thread keeps in registers with lists of K.
+// reference rows a thread keeps in registers with lists of K (in float64
+// half as many).
 int list_len(int k) { return k <= 2 ? 2 : k <= 4 ? 4 : k <= 8 ? 8 : 16; }
-__host__ __device__ constexpr int nnk_rows(int K) { return K >= 16 ? 2 : 4; }
+template <typename T>
+__host__ __device__ constexpr int nnk_rows(int K) {
+  return (K >= 16 ? 2 : 4) * 4 / static_cast<int>(sizeof(T));
+}
 
 // Each row's best k (s, index) pairs over the neighbours [split * chunk,
 // + chunk), sorted by (s, index), into part_s / part_i [splits, k, R].
-template <int D, int K>
+template <typename T, int D, int K>
 __global__ void __launch_bounds__(kThreads)
-nnk_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
-         int R, int N, int k, int chunk, float* __restrict__ part_s,
-         int* __restrict__ part_i) {
-  constexpr int RT = nnk_rows(K);
-  __shared__ float4 tw[kTile];
-  __shared__ float tb[D == 4 ? kTile : 1];
+nnk_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R, int N,
+         int k, int chunk, T* __restrict__ part_s, int* __restrict__ part_i) {
+  constexpr int RT = nnk_rows<T>(K);
+  __shared__ Tile<T, D> tl;
   const int j_begin = blockIdx.y * chunk;
   const int j_end = min(N, j_begin + chunk);
   const int row0 = blockIdx.x * (kThreads * RT) + threadIdx.x;
-  float a[RT][D], v[RT][K];
+  T a[RT][D], v[RT][K];
   int id[RT][K];
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int row = row0 + r * kThreads;
 #pragma unroll
     for (int c = 0; c < D; ++c)
-      a[r][c] = row < R ? ref[static_cast<size_t>(row) * D + c] : 0.f;
+      a[r][c] = row < R ? ref[static_cast<size_t>(row) * D + c] : T(0);
 #pragma unroll
     for (int e = 0; e < K; ++e) {
-      v[r][e] = CUDART_INF_F;
+      v[r][e] = inf<T>();
       id[r][e] = 0;
     }
   }
-  for (int t0 = j_begin; t0 < j_end; t0 += kTile) {
-    const int n = min(kTile, j_end - t0);
+  for (int t0 = j_begin; t0 < j_end; t0 += tile_len<T>()) {
+    const int n = min(tile_len<T>(), j_end - t0);
     const int n_pad = (n + kBatch - 1) / kBatch * kBatch;
     __syncthreads();  // the previous tile has been read
-    stage<D>(nbr, t0, n, n_pad, tw, tb);
+    stage<T, D>(nbr, t0, n, n_pad, tl);
     __syncthreads();
     for (int s0 = 0; s0 < n_pad; s0 += kBatch) {
       // the candidates of the batch: s under the row's threshold
       unsigned long long m[RT];
-      float thr[RT];
+      T thr[RT];
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
         m[r] = 0ull;
@@ -338,11 +432,10 @@ nnk_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
       }
 #pragma unroll
       for (int s = 0; s < kBatch; ++s) {
-        const float4 w = tw[s0 + s];
-        const float bn = D == 4 ? tb[s0 + s] : w.w;
+        const Nbr<T> b = load<T, D>(tl, s0 + s);
 #pragma unroll
         for (int r = 0; r < RT; ++r)
-          m[r] |= score<D>(a[r], w, bn) < thr[r] ? 1ull << s : 0ull;
+          m[r] |= score<T, D>(a[r], b) < thr[r] ? 1ull << s : 0ull;
       }
       // each candidate again, in ascending index, into the list
 #pragma unroll
@@ -350,8 +443,7 @@ nnk_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
         while (m[r]) {
           const int s = s0 + __ffsll(m[r]) - 1;
           m[r] &= m[r] - 1ull;
-          const float4 w = tw[s];
-          insert<K>(score<D>(a[r], w, D == 4 ? tb[s] : w.w), t0 + s, v[r],
+          insert<K>(score<T, D>(a[r], load<T, D>(tl, s)), t0 + s, v[r],
                     id[r]);
         }
       }
@@ -376,141 +468,151 @@ nnk_scan(const float* __restrict__ ref, const float* __restrict__ nbr,
 // Each row's best k over the splits: the splits' lists inserted in split
 // order, each in its (s, index) order, so that among equal s the lower
 // index stays first; then d^2 = s + |a|^2 clamped at 0.
-template <int D, int K>
-__global__ void nnk_merge(const float* __restrict__ ref, int R, int k,
-                          int splits, const float* __restrict__ part_s,
-                          const int* __restrict__ part_i,
-                          float* __restrict__ d2,
+template <typename T, int D, int K>
+__global__ void nnk_merge(const T* __restrict__ ref, int R, int k, int splits,
+                          const T* __restrict__ part_s,
+                          const int* __restrict__ part_i, T* __restrict__ d2,
                           long long* __restrict__ idx) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= R) return;
-  float v[K];
+  T v[K];
   int id[K];
 #pragma unroll
   for (int e = 0; e < K; ++e) {
-    v[e] = CUDART_INF_F;
+    v[e] = inf<T>();
     id[e] = 0;
   }
   for (int sp = 0; sp < splits; ++sp) {
     for (int e = 0; e < k; ++e) {
       const size_t o = (static_cast<size_t>(sp) * k + e) * R + row;
-      const float s = part_s[o];
+      const T s = part_s[o];
       if (!(s < v[K - 1])) break;  // the split's later entries are no less
       insert<K>(s, part_i[o], v, id);
     }
   }
-  const float an = ref_sqnorm<D>(ref, row);
+  const T an = ref_sqnorm<T, D>(ref, row);
   const size_t out = static_cast<size_t>(row) * k;
 #pragma unroll
   for (int e = 0; e < K; ++e) {
     if (e < k) {
-      d2[out + e] = fmaxf(__fadd_rn(v[e], an), 0.f);
+      d2[out + e] = max_of(add_rn(v[e], an), T(0));
       idx[out + e] = id[e];
     }
   }
 }
 
-template <int D, int K>
-cudaError_t launch_nnk_k(const float* ref, const float* nbr, int R, int N,
-                         int k, int splits, float* part_s, int* part_i,
-                         float* d2, long long* idx, cudaStream_t stream) {
-  constexpr int rows = kThreads * nnk_rows(K);
+template <typename T, int D, int K>
+cudaError_t launch_nnk_k(const T* ref, const T* nbr, int R, int N, int k,
+                         int splits, T* part_s, int* part_i, T* d2,
+                         long long* idx, cudaStream_t stream) {
+  constexpr int rows = kThreads * nnk_rows<T>(K);
   const dim3 grid((R + rows - 1) / rows, splits);
-  nnk_scan<D, K><<<grid, kThreads, 0, stream>>>(
+  nnk_scan<T, D, K><<<grid, kThreads, 0, stream>>>(
       ref, nbr, R, N, k, split_chunk(N, splits), part_s, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  nnk_merge<D, K><<<(R + 255) / 256, 256, 0, stream>>>(
+  nnk_merge<T, D, K><<<(R + 255) / 256, 256, 0, stream>>>(
       ref, R, k, splits, part_s, part_i, d2, idx);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_nnk(const float* ref, const float* nbr, int R, int N,
-                       int k, int splits, float* part_s, int* part_i,
-                       float* d2, long long* idx, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
+                       int splits, T* part_s, int* part_i, T* d2,
+                       long long* idx, cudaStream_t stream) {
   switch (list_len(k)) {
-    case 2: return launch_nnk_k<D, 2>(ref, nbr, R, N, k, splits, part_s,
-                                      part_i, d2, idx, stream);
-    case 4: return launch_nnk_k<D, 4>(ref, nbr, R, N, k, splits, part_s,
-                                      part_i, d2, idx, stream);
-    case 8: return launch_nnk_k<D, 8>(ref, nbr, R, N, k, splits, part_s,
-                                      part_i, d2, idx, stream);
-    default: return launch_nnk_k<D, kMaxK>(ref, nbr, R, N, k, splits, part_s,
-                                           part_i, d2, idx, stream);
+    case 2: return launch_nnk_k<T, D, 2>(ref, nbr, R, N, k, splits, part_s,
+                                         part_i, d2, idx, stream);
+    case 4: return launch_nnk_k<T, D, 4>(ref, nbr, R, N, k, splits, part_s,
+                                         part_i, d2, idx, stream);
+    case 8: return launch_nnk_k<T, D, 8>(ref, nbr, R, N, k, splits, part_s,
+                                         part_i, d2, idx, stream);
+    default: return launch_nnk_k<T, D, kMaxK>(ref, nbr, R, N, k, splits,
+                                              part_s, part_i, d2, idx,
+                                              stream);
   }
+}
+
+template <typename T>
+cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
+                    int k, int splits, void* part_s, int* part_i, void* d2,
+                    long long* idx, cudaStream_t stream) {
+  cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, int, T*,
+                                 int*, T*, long long*, cudaStream_t) = {
+      launch_nnk<T, 1>, launch_nnk<T, 2>, launch_nnk<T, 3>, launch_nnk<T, 4>,
+      launch_nnk<T, 5>, launch_nnk<T, 6>, launch_nnk<T, 7>, launch_nnk<T, 8>};
+  return launch[D - 1](static_cast<const T*>(ref), static_cast<const T*>(nbr),
+                       R, N, k, splits, static_cast<T*>(part_s), part_i,
+                       static_cast<T*>(d2), idx, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Splits of the neighbour range that nn1 uses for R rows and N
-// neighbours on the current device: enough for ~16 blocks an SM, at least
-// 2048 neighbours each.  ppt_nn1's scratch holds splits * R floats and
-// splits * R ints.  Returns 0 on invalid sizes or a device query failure.
-int ppt_nn1_splits(int R, int N) {
-  return splits_for(R, N, kNn1Rows, kNn1BlocksPerSm);
+// Splits of the neighbour range that nn1 uses for R rows of D coordinates
+// (float64 if f64, else float32) and N neighbours on the current device:
+// enough for ~16 blocks an SM, at least 2048 neighbours each.  ppt_nn1's
+// scratch holds splits * R values of the clouds' type and splits * R
+// ints.  Returns 0 on invalid sizes or a device query failure.
+int ppt_nn1_splits(int R, int N, int D, int f64) {
+  if (D < 1 || D > kMaxDim) return 0;
+  const int rt = f64 ? nn1_rt<double>(D) : nn1_rt<float>(D);
+  return splits_for(R, N, kThreads * rt, kNn1BlocksPerSm);
 }
 
 // The nearest of N neighbours (nbr [N, D]) of each of R reference rows
-// (ref [R, D]), both float32 row-major: d2 [R] clamped at 0 and idx [R]
-// int64, on `stream`, through `splits` (ppt_nn1_splits) partial results in
-// part_s [splits, R] / part_i [splits, R].  Returns cudaGetLastError()
-// (0 on success); invalid sizes (R, N, splits >= 1, 1 <= D <= 4) return
+// (ref [R, D]), both row-major float64 if f64, else float32: d2 [R] of
+// the same type, clamped at 0, and idx [R] int64, on `stream`, through
+// `splits` (ppt_nn1_splits) partial results in part_s [splits, R] (the
+// clouds' type) / part_i [splits, R].  Returns cudaGetLastError() (0 on
+// success); invalid sizes (R, N, splits >= 1, 1 <= D <= 8) return
 // cudaErrorInvalidValue without launching.
-int ppt_nn1(const float* ref, const float* nbr, int R, int N, int D,
-            int splits, float* part_s, int* part_i, float* d2,
-            long long* idx, void* stream) {
+int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
+            int splits, void* part_s, int* part_i, void* d2, long long* idx,
+            void* stream) {
   if (R <= 0 || N <= 0 || splits < 1 || splits > N || D < 1 ||
       D > kMaxDim)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 1: return static_cast<int>(launch_nn1<1>(ref, nbr, R, N, splits,
-                                                  part_s, part_i, d2, idx, s));
-    case 2: return static_cast<int>(launch_nn1<2>(ref, nbr, R, N, splits,
-                                                  part_s, part_i, d2, idx, s));
-    case 3: return static_cast<int>(launch_nn1<3>(ref, nbr, R, N, splits,
-                                                  part_s, part_i, d2, idx, s));
-    default: return static_cast<int>(launch_nn1<4>(
-        ref, nbr, R, N, splits, part_s, part_i, d2, idx, s));
-  }
+  return static_cast<int>(
+      f64 ? nn1_any<double>(ref, nbr, R, N, D, splits, part_s, part_i, d2,
+                            idx, s)
+          : nn1_any<float>(ref, nbr, R, N, D, splits, part_s, part_i, d2, idx,
+                           s));
 }
 
 // Splits of the neighbour range that nnk uses for R rows, N neighbours
-// and k on the current device: enough for ~4 blocks an SM, at least 2048
-// neighbours each.  ppt_nnk's scratch holds splits * k * R floats and as
-// many ints.  Returns 0 on invalid sizes or a device query failure.
-int ppt_nnk_splits(int R, int N, int k) {
+// and k (float64 if f64, else float32) on the current device: enough for
+// ~4 blocks an SM, at least 2048 neighbours each.  ppt_nnk's scratch
+// holds splits * k * R values of the clouds' type and as many ints.
+// Returns 0 on invalid sizes or a device query failure.
+int ppt_nnk_splits(int R, int N, int k, int f64) {
   if (k < 1 || k > kMaxK) return 0;
-  return splits_for(R, N, kThreads * nnk_rows(list_len(k)), kNnkBlocksPerSm);
+  const int K = list_len(k);
+  const int rt = f64 ? nnk_rows<double>(K) : nnk_rows<float>(K);
+  return splits_for(R, N, kThreads * rt, kNnkBlocksPerSm);
 }
 
 // The k nearest of N neighbours (nbr [N, D]) of each of R reference rows
-// (ref [R, D]), both float32 row-major: d2 [R, k] ascending by (d^2,
-// index), clamped at 0, and idx [R, k] int64, on `stream`, through
-// `splits` (ppt_nnk_splits) partial lists in part_s / part_i [splits, k,
-// R].  Returns cudaGetLastError() (0 on success); invalid sizes (R >= 1,
-// 1 <= k <= min(N, 16), 1 <= D <= 4, 1 <= splits <= N) return
-// cudaErrorInvalidValue without launching.
-int ppt_nnk(const float* ref, const float* nbr, int R, int N, int D, int k,
-            int splits, float* part_s, int* part_i, float* d2,
+// (ref [R, D]), both row-major float64 if f64, else float32: d2 [R, k] of
+// the same type, ascending by (d^2, index), clamped at 0, and idx [R, k]
+// int64, on `stream`, through `splits` (ppt_nnk_splits) partial lists in
+// part_s / part_i [splits, k, R].  Returns cudaGetLastError() (0 on
+// success); invalid sizes (R >= 1, 1 <= k <= min(N, 16), 1 <= D <= 8,
+// 1 <= splits <= N) return cudaErrorInvalidValue without launching.
+int ppt_nnk(const void* ref, const void* nbr, int R, int N, int D, int k,
+            int f64, int splits, void* part_s, int* part_i, void* d2,
             long long* idx, void* stream) {
   if (R <= 0 || N <= 0 || k < 1 || k > N || k > kMaxK || D < 1 ||
       D > kMaxDim || splits < 1 || splits > N)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 1: return static_cast<int>(launch_nnk<1>(
-        ref, nbr, R, N, k, splits, part_s, part_i, d2, idx, s));
-    case 2: return static_cast<int>(launch_nnk<2>(
-        ref, nbr, R, N, k, splits, part_s, part_i, d2, idx, s));
-    case 3: return static_cast<int>(launch_nnk<3>(
-        ref, nbr, R, N, k, splits, part_s, part_i, d2, idx, s));
-    default: return static_cast<int>(launch_nnk<4>(
-        ref, nbr, R, N, k, splits, part_s, part_i, d2, idx, s));
-  }
+  return static_cast<int>(
+      f64 ? nnk_any<double>(ref, nbr, R, N, D, k, splits, part_s, part_i, d2,
+                            idx, s)
+          : nnk_any<float>(ref, nbr, R, N, D, k, splits, part_s, part_i, d2,
+                           idx, s));
 }
 
 const char* ppt_cuda_error_string(int code) {

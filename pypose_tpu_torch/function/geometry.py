@@ -4,8 +4,9 @@ Counterpart of ``pypose_tpu/function/geometry.py:22, 102-229``.  ``knn``
 keeps the JAX package's routes: the dense distance matrix up to 64 Mi
 pairs, above it (or with an explicit ``chunk``) :func:`_knn_tiled`, which
 sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel and
-2 <= k <= 16 to the ``nnk`` kernel (``ops/knn.py``, in place of the JAX
-package's TPU test) and takes the chunked Gram form everywhere else.
+2 <= k <= 16 to the ``nnk`` kernel (in place of the JAX package's TPU
+test; float32 or float64 clouds of at most 8 coordinates, others raise)
+and takes the chunked Gram form everywhere else.
 Indices are int64 (torch's index type), where the JAX package returns
 int32.  Ties go to the lower index, as ``jax.lax.top_k`` gives them,
 through stable sorts on the CPU and the kernels' strict comparisons on
@@ -38,8 +39,9 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
     explicit ``chunk``, go through :func:`_knn_tiled`; everything else
     forms the dense ``(*, R, N)`` distance matrix.  On CUDA that route
     takes the ``nn1`` kernel for k = 1 and the ``nnk`` kernel for
-    2 <= k <= ``ops.knn.MAX_K`` (not ``largest``), which raise for clouds
-    other than float32 with at most ``ops.knn.MAX_DIM`` coordinates.
+    2 <= k <= ``ops.knn.MAX_K`` (not ``largest``), which take float32 and
+    float64 clouds of at most ``ops.knn.MAX_DIM`` coordinates and raise
+    for others, and the chunked Gram path for larger k and ``largest``.
 
     Example:
         >>> import torch
@@ -66,7 +68,8 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
 def _knn_tiled(ref, nbr, k, largest, chunk):
     """Gram-form kNN of ``[R, D]`` in ``[N, D]``: on CUDA, k = 1 (not
     ``largest``) launches the ``nn1`` kernel and 2 <= k <= ``MAX_K`` the
-    ``nnk`` kernel; everything else takes :func:`_knn_gram`."""
+    ``nnk`` kernel (which raise for clouds they are not instantiated for);
+    everything else takes :func:`_knn_gram`."""
     N = nbr.shape[0]
     if (ref.device.type == 'cuda' and not largest
             and 1 <= k <= min(N, knn_ops.MAX_K)):

@@ -1,1 +1,2 @@
-from . import knn, se3, smallinv, spmv, stencil_cg  # noqa: F401
+from . import (block_tridiag, knn, se3, smallinv, spmv,  # noqa: F401
+               stencil_cg)

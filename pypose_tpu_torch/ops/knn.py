@@ -19,8 +19,10 @@ card holds them to :func:`pypose_tpu_torch.testing.nnk_tolerance_failures`
 after the neighbours are chosen (``pallas_knn.py:153, 191``).  Indices
 are int64 (torch's index type), where the JAX package returns int32.
 
-``function/geometry.py:_knn_tiled`` routes k = 1 (not ``largest``) on
-CUDA to :func:`nn1` and 2 <= k <= :data:`MAX_K` to :func:`nnk`.
+Both kernels are instantiated for float32 and float64 clouds of 1 to
+:data:`MAX_DIM` coordinates.  ``function/geometry.py:_knn_tiled`` routes
+k = 1 (not ``largest``) on CUDA to :func:`nn1` and 2 <= k <=
+:data:`MAX_K` to :func:`nnk`; clouds of more coordinates raise there.
 """
 
 import ctypes
@@ -33,11 +35,11 @@ from ._build import bind, raise_on
 # Launches of each kernel in this process.
 NN1_LAUNCHES = 0
 NNK_LAUNCHES = 0
-
-# What csrc/knn.cu is instantiated for: points of 1 to MAX_DIM coordinates
-# and k up to MAX_K.  Anything else raises on CUDA.
-MAX_DIM = 4
+# What csrc/knn.cu is instantiated for: float32 and float64 points of 1 to
+# MAX_DIM coordinates, and k up to MAX_K.  Anything else raises on CUDA.
+MAX_DIM = 8
 MAX_K = 16
+_DTYPES = (torch.float32, torch.float64)
 
 # Pairs in one [chunk, N] block of the plain versions (the JAX package's
 # 64 Mi budget of function/geometry.py:_knn_tiled).
@@ -49,10 +51,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _kernel_lib():
     return bind('knn', {
-        'ppt_nn1_splits': [_INT, _INT],
-        'ppt_nn1': [_PTR, _PTR] + [_INT] * 4 + [_PTR] * 5,
-        'ppt_nnk_splits': [_INT, _INT, _INT],
-        'ppt_nnk': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 5})
+        'ppt_nn1_splits': [_INT] * 4,
+        'ppt_nn1': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 5,
+        'ppt_nnk_splits': [_INT] * 4,
+        'ppt_nnk': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 5})
 
 
 # ---------------------------------------------------------------------------
@@ -126,9 +128,10 @@ def _check_cuda(ref, nbr, k):
     if ref.device.type != 'cuda':
         raise ValueError(f'unsupported device {ref.device}')
     for name, a in (('ref', ref), ('nbr', nbr)):
-        if a.dtype != torch.float32:
-            raise TypeError(f'{name} is {a.dtype}; the knn kernels take '
-                            'float32 only')
+        if a.dtype not in _DTYPES or a.dtype != ref.dtype:
+            raise TypeError(f'ref is {ref.dtype} and nbr {nbr.dtype}; the '
+                            'knn kernels take two float32 or two float64 '
+                            'clouds')
         if not a.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
     if ref.shape[1] > MAX_DIM:
@@ -150,22 +153,23 @@ def _launch_nn1(ref, nbr):
     global NN1_LAUNCHES
     _check_cuda(ref, nbr, 1)
     (R, D), N = ref.shape, nbr.shape[0]
-    d2 = torch.empty((R,), dtype=torch.float32, device=ref.device)
+    f64 = int(ref.dtype == torch.float64)
+    d2 = torch.empty((R,), dtype=ref.dtype, device=ref.device)
     idx = torch.empty((R,), dtype=torch.int64, device=ref.device)
     if R == 0:
         return d2, idx
     lib = _kernel_lib()
     with torch.cuda.device(ref.device):
-        splits = lib.ppt_nn1_splits(R, N)
+        splits = lib.ppt_nn1_splits(R, N, D, f64)
         if splits < 1:
             raise RuntimeError(f'nn1: no split of {N} neighbours for {R} '
                                'rows (device query failed)')
-        part_s = torch.empty((splits, R), dtype=torch.float32,
+        part_s = torch.empty((splits, R), dtype=ref.dtype,
                              device=ref.device)
         part_i = torch.empty((splits, R), dtype=torch.int32,
                              device=ref.device)
         raise_on(lib, lib.ppt_nn1(
-            ref.data_ptr(), nbr.data_ptr(), R, N, D, splits,
+            ref.data_ptr(), nbr.data_ptr(), R, N, D, f64, splits,
             part_s.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
             idx.data_ptr(), _stream(ref)), 'nn1')
     NN1_LAUNCHES += 1
@@ -178,22 +182,23 @@ def _launch_nnk(ref, nbr, k):
     global NNK_LAUNCHES
     _check_cuda(ref, nbr, k)
     (R, D), N = ref.shape, nbr.shape[0]
-    d2 = torch.empty((R, k), dtype=torch.float32, device=ref.device)
+    f64 = int(ref.dtype == torch.float64)
+    d2 = torch.empty((R, k), dtype=ref.dtype, device=ref.device)
     idx = torch.empty((R, k), dtype=torch.int64, device=ref.device)
     if R == 0:
         return d2, idx
     lib = _kernel_lib()
     with torch.cuda.device(ref.device):
-        splits = lib.ppt_nnk_splits(R, N, k)
+        splits = lib.ppt_nnk_splits(R, N, k, f64)
         if splits < 1:
             raise RuntimeError(f'nnk: no split of {N} neighbours for {R} '
                                'rows (device query failed)')
-        part_s = torch.empty((splits, k, R), dtype=torch.float32,
+        part_s = torch.empty((splits, k, R), dtype=ref.dtype,
                              device=ref.device)
         part_i = torch.empty((splits, k, R), dtype=torch.int32,
                              device=ref.device)
         raise_on(lib, lib.ppt_nnk(
-            ref.data_ptr(), nbr.data_ptr(), R, N, D, k, splits,
+            ref.data_ptr(), nbr.data_ptr(), R, N, D, k, f64, splits,
             part_s.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
             idx.data_ptr(), _stream(ref)), 'nnk')
     NNK_LAUNCHES += 1
@@ -205,8 +210,8 @@ def nn1(ref, nbr):
     ``ref`` row: ``(d2 [R], idx [R] int64)``.
 
     CUDA tensors launch the register-tiled kernel of ``csrc/knn.cu`` on the
-    current stream (float32, contiguous, at most :data:`MAX_DIM`
-    coordinates; anything else raises); CPU tensors run
+    current stream (two float32 or two float64 clouds, contiguous, at most
+    :data:`MAX_DIM` coordinates; anything else raises); CPU tensors run
     :func:`_nn1_torch`.  On a near-tie the two may return different
     neighbours (module docstring).
     """

@@ -1,37 +1,49 @@
 r"""Sparse factor-graph Levenberg-Marquardt on torch tensors.
 
-Counterpart of ``pypose_tpu/optim/sparse.py:40-92, 153-320, 356-450,
-454-458, 496-568, 625-850, 851-978, 980-1063``.  Neither J nor J^T W J
-is ever formed: per LM step the per-edge tangent-space Jacobian blocks
-come from a closed form, the normal equations are assembled per node
-(diagonal blocks) and per circular offset (coupling channels,
-``ops/spmv.py``), and the preconditioned CG solve runs in the CUDA
-kernels of ``ops/stencil_cg.py`` (their plain PyTorch versions on the
-CPU): the whole solve in one launch, of the cluster kernel while the
-system fits the L2 budget, else of the fused Chronopoulos-Gear kernel.
+Counterpart of ``pypose_tpu/optim/sparse.py``.  Neither J nor J^T W J is
+ever formed: per LM step the per-edge tangent-space Jacobian blocks come
+from a closed form, the normal equations are assembled per node
+(diagonal blocks) and per edge or circular offset (coupling blocks,
+``ops/spmv.py``), and a preconditioned CG solves them.  ``SparseLM``
+decides its route at construction (:attr:`SparseLM.route`), by one
+predicate that holds alike on every device:
 
-This class ports the path the sphere2500 and 100k-pose graphs take: every
-factor an arity-2 factor over one [N, d] group, all edges in one merged
-stencil, the block-Jacobi preconditioner, and a TrustRegion strategy.
-Where the JAX package would route elsewhere, this class raises
-``NotImplementedError`` naming the ROADMAP slice that brings it: graphs
-that need the coupling-block SpMV (``CouplingSpMV``) and the einsum CG
-with ``blockinv_scalar``, and the chain/BCR preconditioner
-(``precond='chain'``), both still to port in slice 2; robust kernels and
-autodiff Jacobians (later slices).
+- ``'stencil'``: all edges merge into one circulant stencil, the
+  preconditioner is block-Jacobi, the parameters are float32 and t = 6
+  (``ops/stencil_cg.KERNEL_T``).  The whole solve runs in the CUDA
+  kernels of ``ops/stencil_cg.py`` (their plain PyTorch versions on the
+  CPU): the cluster kernel while the system fits the L2 budget, else the
+  fused Chronopoulos-Gear kernel.
+- ``'chain'``: the block-tridiagonal chain preconditioner, solved exactly
+  by block cyclic reduction (``ops/block_tridiag.py``), inside the
+  einsum CG.
+- ``'einsum'``: every other graph.  The einsum CG
+  (``optim/solver.py:cg``, ``jax.scipy.sparse.linalg.cg``'s recursion)
+  with per-factor stencil or coupling-block (``CouplingSpMV``) matvecs,
+  or the generic gather matvec where the graph is not one arity-2 group,
+  and block-Jacobi through ``ops/smallinv.py:blockinv_scalar`` (t = 3,
+  6) or ``blockinv``.
 
-The JAX package runs the LM reject loop and the plateau schedule inside
-``lax.while_loop``; here they are Python loops that read one host scalar
-per damping retry and one per LM step.
+This mirrors the JAX package's own predicate
+(``pypose_tpu/optim/sparse.py:671-687``): systems its kernel does not take
+go to the einsum CG.  Robust kernels and autodiff Jacobians are still to
+port; their factors raise ``NotImplementedError``.
+
+The JAX package runs the LM reject loop, the plateau schedule and the
+einsum CG inside ``lax.while_loop``; here they are Python loops that read
+one host scalar per damping retry, one per LM step, and, on the einsum
+and chain routes, one per CG iteration.
 """
 
 import numpy as np
 import torch
 
 from ..lietensor.lietensor import LieTensor, SE3_type
-from ..ops.smallinv import blockinv
-from ..ops.spmv import StencilSpMV
-from ..ops.stencil_cg import stencil_cg
+from ..ops.block_tridiag import bcr_factor, bcr_solve
+from ..ops.smallinv import blockinv, blockinv_scalar
+from ..ops.spmv import CouplingSpMV, StencilSpMV
+from ..ops.stencil_cg import KERNEL_T, stencil_cg
+from .solver import cg
 from .strategy import TrustRegion
 
 
@@ -69,7 +81,8 @@ class Factor:
         weight: optional information matrices ``[E, d, d]`` or ``[d, d]``.
         batched_jacobian: ``(values, consts) -> (r [E, d],
             {name: J [E, d, arity, tan]})``, the closed-form tangent
-            Jacobian.  Autodiff Jacobians wait for the Lie-core slice.
+            Jacobian.  Autodiff Jacobians wait for the Lie-core slice:
+            ``SparseLM`` refuses a factor without one.
     """
 
     def __init__(self, residual, indices, consts=None, weight=None,
@@ -99,8 +112,13 @@ class SparseLM:
         cg_iter, cg_tol: inner CG budget (default ``min(10 * nparam,
             500)`` iterations).
         fixed: dict ``name -> bool mask [N]`` of gauge-fixed nodes.
-        precond: 'auto', 'jacobi' or 'chain' (the chain preconditioner
-            is not ported; 'auto' picks it for chain-dominated graphs).
+        precond: 'auto', 'jacobi' or 'chain' ('auto' picks the chain
+            preconditioner for chain-dominated graphs: a chain factor and
+            fewer than 0.3 non-chain edges a node).
+
+    Attributes:
+        route: 'stencil', 'chain' or 'einsum', the solve's route (module
+            docstring), fixed at construction; read-only.
 
     Example — a 30-pose odometry ring:
 
@@ -134,10 +152,6 @@ class SparseLM:
         self.params = dict(params)
         self.factors = list(factors)
         self.strategy = TrustRegion() if strategy is None else strategy
-        if not isinstance(self.strategy, TrustRegion):
-            raise NotImplementedError(
-                'only TrustRegion is ported; Constant/Adaptive come with '
-                'the dense-optimizer slice (ROADMAP Queue A, slice 7)')
         self.min, self.max = min, max
         self.reject = reject
         self.cg_iter = cg_iter
@@ -158,8 +172,9 @@ class SparseLM:
         self.reject_count = 0
         self.history = []
         self.cg_iterations = []
+        self._check_route()
         self._build_incidence()
-        self._build_spmv()
+        self._build_stencil()
         if precond == 'auto':
             # the chain-exact preconditioner pays off on chain-dominated
             # graphs: few non-chain edges per node
@@ -179,29 +194,66 @@ class SparseLM:
         else:
             raise ValueError(f'precond must be auto|jacobi|chain, got '
                              f'{precond!r}')
-        self._check_route()
+        if self.precond == 'chain':
+            self._route = 'chain'
+        elif (self._stencil_all is not None and self.dtype == torch.float32
+              and self._stencil_all.tan == KERNEL_T):
+            self._route = 'stencil'
+        else:
+            self._route = 'einsum'
+        self._spmv = None
+        if self._route != 'stencil' and self._spmv_name is not None:
+            self._build_spmv()
 
-    def _build_spmv(self):
-        """The one merged stencil of all edges, when every factor is an
-        arity-2 factor over one shared [N, d] group (the PGO shape) and the
-        edge offsets cluster; None otherwise."""
-        self._stencil_all = None
-        self._spmv_name = None
+    @property
+    def route(self):
+        """'stencil', 'chain' or 'einsum': the solve's route, fixed at
+        construction (module docstring); read-only."""
+        return self._route
+
+    def _pgo_shape(self):
+        """The one group's name when every factor is an arity-2 factor over
+        one shared [N, d] group (the PGO shape), else None."""
         names = {n for f in self.factors for n in f.indices}
         if len(names) != 1:
+            return None
+        name = next(iter(names))
+        if len(self.params[name].shape) != 2 or any(
+                f.indices[name].shape[1] != 2 for f in self.factors):
+            return None
+        return name
+
+    def _build_stencil(self):
+        """The one merged stencil of all edges, for a graph of the PGO shape
+        whose edge offsets cluster; None otherwise."""
+        self._stencil_all = None
+        self._spmv_name = self._pgo_shape()
+        if self._spmv_name is None:
             return
-        name = names.pop()
-        v = self.params[name]
-        if len(v.shape) != 2 or any(f.indices[name].shape[1] != 2
-                                    for f in self.factors):
-            return
-        edges_all = torch.cat([f.indices[name] for f in self.factors])
+        v = self.params[self._spmv_name]
+        edges_all = torch.cat([f.indices[self._spmv_name]
+                               for f in self.factors])
         try:
             self._stencil_all = StencilSpMV(edges_all, v.shape[0],
                                             _tan_dim(v), device=self.device)
         except ValueError:
-            return
-        self._spmv_name = name
+            pass
+
+    def _build_spmv(self):
+        """Per-factor coupling structures of the einsum and chain routes:
+        each factor's gather-free stencil where its offsets cluster, else
+        its ``CouplingSpMV``."""
+        name = self._spmv_name
+        v = self.params[name]
+        N, t = v.shape[0], _tan_dim(v)
+
+        def build(f):
+            try:
+                return StencilSpMV(f.indices[name], N, t, device=self.device)
+            except ValueError:
+                return CouplingSpMV(f.indices[name], N, t,
+                                    device=self.device, dtype=self.dtype)
+        self._spmv = [build(f) for f in self.factors]
 
     def _build_incidence(self):
         """Static per-node incidence tables: for each (factor, group),
@@ -284,11 +336,6 @@ class SparseLM:
     # per-factor residuals + tangent Jacobian blocks
     # ------------------------------------------------------------------
     def _edge_r_jac(self, params, factor, fi):
-        if factor.batched_jacobian is None:
-            raise NotImplementedError(
-                'factors without a closed-form batched_jacobian need '
-                'autodiff Jacobians, which come with the Lie-core autograd '
-                'slice (ROADMAP Queue A, slice 1 item 2)')
         return factor.batched_jacobian(self._gather(params, factor, fi),
                                        factor.consts)
 
@@ -370,21 +417,86 @@ class SparseLM:
             out[n] = B + (d - diag)[..., None] * eye + 1e-8 * eye
         return out
 
+    def _matvec(self, blocks, x):
+        """y = J^T W J x over the tangent dict x (name -> [N, tan]), by
+        gathers and incidence accumulation: the route of graphs that are
+        not one arity-2 group."""
+        out = {n: torch.zeros_like(v) for n, v in x.items()}
+        for fi, (f, (r, J, WR, WJ)) in enumerate(zip(self.factors, blocks)):
+            Jx = 0.0
+            for n in f.indices:
+                xg = self._gather_rows(fi, n, self._mask(n, x[n]),
+                                       f.indices[n])
+                E, A, T = xg.shape
+                Jx = Jx + torch.einsum('eij,ej->ei', J[n].reshape(E, -1, A * T),
+                                       xg.reshape(E, A * T))
+            for n in f.indices:
+                E, A = Jx.shape[0], f.indices[n].shape[1]
+                contrib = torch.einsum(
+                    'eij,ei->ej', WJ[n].reshape(E, Jx.shape[1], -1),
+                    Jx).reshape(E, A, -1)
+                out[n] = out[n] + self._accumulate(fi, n, contrib,
+                                                   f.indices[n])
+        return {n: self._mask(n, v) for n, v in out.items()}
+
+    def _block_jacobi(self, accum, damped_scale):
+        """Per-node damped blocks of J^T W J, inverted."""
+        return {n: blockinv(B)
+                for n, B in self._damped_blocks(accum, damped_scale).items()}
+
+    def _chain_offdiag(self, blocks, n):
+        """Super-diagonal blocks U[i] (node i -> i+1) of group ``n`` from
+        its chain-structured factors; None if it has no chain."""
+        N, t = _n_nodes(self.params[n]), _tan_dim(self.params[n])
+        U = None
+        for fi, (f, (r, J, WR, WJ)) in enumerate(zip(self.factors, blocks)):
+            offs = self._slice.get((fi, n))
+            if offs is None or len(offs) != 2 or offs[1] != offs[0] + 1:
+                continue
+            blk = torch.einsum('edt,edu->etu', WJ[n][:, :, 0, :],
+                               J[n][:, :, 1, :])
+            if U is None:
+                U = blk.new_zeros((N, t, t))
+            U[offs[0]:offs[0] + blk.shape[0]] += blk
+        return U
+
+    def _chain_preconditioner(self, blocks, accum, damped_scale):
+        """The block-tridiagonal (chain-exact) preconditioner where a group
+        has chain factors, block-Jacobi elsewhere: M(x) over tangent dicts.
+        Fixed nodes get identity diagonal blocks and no couplings."""
+        appliers = {}
+        for n, D in self._damped_blocks(accum, damped_scale).items():
+            U = self._chain_offdiag(blocks, n)
+            if U is None:
+                appliers[n] = (lambda inv: lambda x: torch.einsum(
+                    'ntu,nu->nt', inv, x))(blockinv(D))
+                continue
+            m = self.fixed.get(n)
+            if m is not None:
+                eye = torch.eye(D.shape[-1], dtype=D.dtype, device=D.device)
+                D = torch.where(m[:, None, None], eye, D)
+                kill = torch.cat([m[:-1] | m[1:], m.new_ones(1)])
+                U = torch.where(kill[:, None, None], 0.0, U)
+            L = torch.cat([torch.zeros_like(U[:1]),
+                           U[:-1].transpose(-1, -2)])
+            appliers[n] = (lambda fac: lambda x: bcr_solve(fac, x))(
+                bcr_factor(D, L, U))
+        return lambda x: {n: appliers[n](x[n]) for n in x}
+
     # ------------------------------------------------------------------
     def _check_route(self):
-        """Raise where the JAX package would leave the stencil solvers
-        (any size: ``stencil_cg`` picks the whole-solve or fused route)."""
-        if self.precond == 'chain':
+        """Raise for what is still to port: strategies other than
+        TrustRegion, and factors without a closed-form Jacobian
+        (``pgo_factor`` refuses groups other than SE3 itself)."""
+        if not isinstance(self.strategy, TrustRegion):
             raise NotImplementedError(
-                "precond='chain' (block-tridiagonal BCR preconditioner) "
-                'is still to port in the large-graph slice (ROADMAP Queue '
-                "A, slice 2); pass precond='jacobi'")
-        if self._stencil_all is None:
+                'only TrustRegion is ported; Constant/Adaptive come with '
+                'the dense-optimizer slice (ROADMAP Queue A, slice 7)')
+        if any(f.batched_jacobian is None for f in self.factors):
             raise NotImplementedError(
-                'this graph does not fit one merged stencil; the '
-                'coupling-block SpMV (CouplingSpMV) and the einsum CG with '
-                'blockinv_scalar are still to port in the large-graph '
-                'slice (ROADMAP Queue A, slice 2)')
+                'factors without a closed-form batched_jacobian need '
+                'autodiff Jacobians, which come with the Lie-core autograd '
+                'slice (ROADMAP Queue A, slice 1 item 2)')
 
     def _core(self, params, strat):
         """One LM step: formation, then damping retries until a step is
@@ -401,18 +513,10 @@ class SparseLM:
         maxiter = self.cg_iter if self.cg_iter is not None \
             else min(10 * nparam, 500)
         accum = self._block_diag_accum(blocks)
-        nm = self._spmv_name
-        C_all = self._stencil_all.precompute_multi(
-            [(blk[1][nm], blk[3][nm]) for blk in blocks])
-        offsets = tuple(self._stencil_all.offsets)
-
-        def solve(damping):
-            dcorr = diagA[nm] - diag_raw[nm] + damping * diagA[nm]
-            Minv = blockinv(self._damped_blocks(
-                accum, {nm: 1.0 + damping})[nm])
-            return stencil_cg(b[nm], accum[nm], dcorr, Minv, C_all, offsets,
-                              fixed_mask=self.fixed.get(nm),
-                              maxiter=maxiter, tol=self.cg_tol)
+        solve = self._stencil_solver(b, diagA, diag_raw, accum, blocks,
+                                     maxiter) if self.route == 'stencil' \
+            else self._einsum_solver(b, diagA, diag_raw, accum, blocks,
+                                     maxiter)
 
         def retract_all(p, delta):
             out = {}
@@ -441,8 +545,9 @@ class SparseLM:
         while True:
             x, it = solve(strat['damping'])
             its.append(it)
-            bad = ~torch.all(torch.isfinite(x))
-            D = {nm: torch.where(bad, 0.0, x)}
+            bad = ~torch.all(torch.isfinite(
+                torch.cat([v.reshape(-1) for v in x.values()])))
+            D = {n: torch.where(bad, 0.0, v) for n, v in x.items()}
             cand = retract_all(params, D)
             loss_new = self._chi2(cand)
             # a non-finite candidate loss is as bad as a non-finite delta
@@ -461,6 +566,90 @@ class SparseLM:
                 return (p_out, torch.where(take, loss_new, last), last,
                         strat, count, its)
             count += 1
+
+    def _stencil_solver(self, b, diagA, diag_raw, accum, blocks, maxiter):
+        """solve(damping) -> ({name: x}, iterations) of the 'stencil'
+        route: the merged channels, once a step, and ``stencil_cg``."""
+        nm = self._spmv_name
+        C_all = self._stencil_all.precompute_multi(
+            [(blk[1][nm], blk[3][nm]) for blk in blocks])
+        offsets = tuple(self._stencil_all.offsets)
+
+        def solve(damping):
+            dcorr = diagA[nm] - diag_raw[nm] + damping * diagA[nm]
+            Minv = blockinv(self._damped_blocks(
+                accum, {nm: 1.0 + damping})[nm])
+            x, it = stencil_cg(b[nm], accum[nm], dcorr, Minv, C_all, offsets,
+                               fixed_mask=self.fixed.get(nm),
+                               maxiter=maxiter, tol=self.cg_tol)
+            return {nm: x}, it
+        return solve
+
+    def _einsum_solver(self, b, diagA, diag_raw, accum, blocks, maxiter):
+        """solve(damping) -> (x, iterations) of the 'einsum' and 'chain'
+        routes: the einsum CG (``solver.cg``) on the clamped and damped
+        operator, with per-factor stencil or coupling-block matvecs for
+        graphs of the PGO shape and the generic gather matvec otherwise;
+        preconditioned by the chain's BCR ('chain'), else by block-Jacobi
+        (scalarized for one group of t = 3 or 6)."""
+        if self._spmv is not None:
+            nm = self._spmv_name
+            # coupling blocks once a step, for every CG iteration of every
+            # damping retry
+            states = [sp.precompute(blk[1][nm], blk[3][nm])
+                      for sp, blk in zip(self._spmv, blocks)]
+            D_spmv = accum[nm]
+
+            def raw_matvec(x):
+                xm = self._mask(nm, x[nm])
+                y = torch.einsum('ntu,nu->nt', D_spmv, xm)
+                for sp, st in zip(self._spmv, states):
+                    y = y + sp.couple(st, xm)
+                return {nm: self._mask(nm, y)}
+        else:
+            def raw_matvec(x):
+                return self._matvec(blocks, x)
+
+        names = list(diagA)
+        scalar_pc = (self.route == 'einsum' and len(names) == 1
+                     and accum[names[0]].shape[-1] in (3, 6))
+        if scalar_pc:
+            # the blocks' t*t components as [N] vectors, once a step
+            n0 = names[0]
+            t0 = accum[n0].shape[-1]
+            acc_T = accum[n0].permute(1, 2, 0)
+            pc_comps = [acc_T[i, j] for i in range(t0) for j in range(t0)]
+            pc_diag_cl = [torch.clamp(pc_comps[i * t0 + i], self.min,
+                                      self.max) for i in range(t0)]
+
+        def solve(damping):
+            def Avp(x):
+                # the diagonal clamped to [min, max], then damped
+                y = raw_matvec(x)
+                return {n: y[n] + (diagA[n] - diag_raw[n]
+                                   + damping * diagA[n]) * self._mask(n, x[n])
+                        for n in y}
+
+            scale = {n: 1.0 + damping for n in diagA}
+            if self.route == 'chain':
+                M = self._chain_preconditioner(blocks, accum, scale)
+            elif scalar_pc:
+                comps = list(pc_comps)
+                for i in range(t0):
+                    comps[i * t0 + i] = pc_diag_cl[i] * (1.0 + damping) + 1e-8
+                Binv = torch.stack(blockinv_scalar(comps)).reshape(
+                    t0, t0, -1).permute(2, 0, 1)
+
+                def M(x):
+                    return {n0: torch.einsum('ntu,nu->nt', Binv, x[n0])}
+            else:
+                Binv = self._block_jacobi(accum, scale)
+
+                def M(x):
+                    return {n: torch.einsum('ntu,nu->nt', Binv[n], x[n])
+                            for n in x}
+            return cg(Avp, b, tol=self.cg_tol, maxiter=maxiter, M=M)
+        return solve
 
     @staticmethod
     def _where_param(cond, a, b):

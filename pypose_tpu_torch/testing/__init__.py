@@ -7,9 +7,11 @@ the port's ``SparseLM`` from exactly the state the JAX package holds:
 the caller passes ``np.asarray(X.tensor())`` for each LieTensor, so both
 packages begin from bit-identical values.  ``random_stencil_system``
 makes the random SPD systems on which the CG kernels are held against
-their plain versions, ``instance_checksum`` identifies a generated
-pose-graph instance against a recorded anchor, and
-``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
+their plain versions, ``pgo_loops_instance`` builds the random-loop pose
+graph of the einsum route and ``ring3_problem`` a Euclidean one of t = 3,
+``pgo_optimizer`` the port's optimizer on such graphs,
+``instance_checksum`` identifies a generated pose-graph instance against
+a recorded anchor, and ``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
 rule that holds the nearest-neighbour kernels to their plain versions.
 """
 
@@ -104,6 +106,99 @@ def random_stencil_system(N, loop_offset, n_loops, fixed, generator,
     return offsets, fold_operands(b, D, dcorr,
                                   blockinv(D + torch.diag_embed(dcorr)),
                                   sp.precompute(J, J), offsets, mask)
+
+
+def pgo_loops_instance(N=10_000, dtype=torch.float32, device='cuda'):
+    """The random-loop SE3 pose graph of ``bench.py:bench_pgo_groups``'s
+    topology: the ring i -> i+1, the edge N-1 -> 0 and N // 10 random loops
+    from ``np.random.default_rng(0)``, self-loops dropped.  Truth
+    ``randn_SE3(N, sigma=1.0)`` and noise ``randn_SE3(N, sigma=0.1)`` come
+    from ``torch.Generator`` seeds 0 and 1, the initial poses are
+    ``truth @ noise`` and the measurements exact, ``Z = truth_i^-1
+    truth_j``; all computed in float64 on the CPU, then rounded to
+    ``dtype`` and moved to ``device`` (the card unless the caller asks for
+    ``device='cpu'``), so the instance does not depend on the machine.
+    Returns dict(nodes=SE3[N], edges=int64[E, 2], poses=SE3[E], gt=SE3[N]).
+    """
+    from ..lietensor.utils import SE3, randn_SE3
+    ii = np.arange(N - 1)
+    loops = np.random.default_rng(0).integers(0, N, size=(N // 10, 2))
+    loops = loops[loops[:, 0] != loops[:, 1]]
+    edges = torch.as_tensor(np.concatenate(
+        [np.stack([ii, ii + 1], 1), [[N - 1, 0]], loops]), dtype=torch.int64)
+    work = torch.float64
+    truth = randn_SE3(N, sigma=1.0, generator=torch.Generator().manual_seed(0),
+                      dtype=work)
+    noise = randn_SE3(N, sigma=0.1, generator=torch.Generator().manual_seed(1),
+                      dtype=work)
+    Z = truth[edges[:, 0]].Inv() @ truth[edges[:, 1]]
+    return dict(nodes=SE3((truth @ noise).tensor(), dtype=dtype,
+                          device=device),
+                edges=edges.to(device),
+                poses=Z.to(device=device, dtype=dtype),
+                gt=truth.to(device=device, dtype=dtype))
+
+
+def pgo_optimizer(ds, radius, cg_iter, cg_tol, split_chains=True, **_):
+    """The port's SparseLM on a pose-graph dict ``ds`` (``synthetic_sphere``,
+    ``pgo_loops_instance``) as ``bench.py`` builds its pose-graph
+    workloads: one ``pgo_factor`` for each odometry run of
+    ``split_chain_edges`` and one for the rest (or one for every edge, if
+    not ``split_chains``), TrustRegion(``radius``), node 0 fixed, on the
+    tensors' device.  Extra keys of a schedule dict are ignored."""
+    from ..optim.sparse import SparseLM, pgo_factor, split_chain_edges
+    from ..optim.strategy import TrustRegion
+    edges, poses = ds['edges'], ds['poses']
+    dev = edges.device
+    if split_chains:
+        runs, rest = split_chain_edges(edges)
+        rows = [torch.as_tensor(r, device=dev)
+                for r in list(runs) + ([rest] if len(rest) else [])]
+        factors = [pgo_factor(edges[r], poses[r]) for r in rows]
+    else:
+        factors = [pgo_factor(edges, poses)]
+    fixed = torch.zeros(ds['nodes'].shape[0], dtype=torch.bool, device=dev)
+    fixed[0] = True
+    return SparseLM({'poses': ds['nodes']}, factors,
+                    strategy=TrustRegion(radius=radius),
+                    fixed={'poses': fixed}, cg_iter=cg_iter, cg_tol=cg_tol)
+
+
+def ring3_problem(N=64, loop_offset=5, dtype=torch.float32, device='cuda'):
+    """An arity-2 factor over a Euclidean [N, 3] group with a closed-form
+    ``batched_jacobian``: points joined i -> i+1 and i -> i+loop_offset
+    (mod N, one merged stencil of t = 3), residual ``x_j - x_i - z_ij``
+    with ``z`` the true differences plus 0.01-sigma noise, initial points
+    0.5-sigma off the truth; drawn in float64 from ``torch.Generator``
+    seed 0 on the CPU, then rounded to ``dtype`` and moved to ``device``.
+    Returns (params {'x': [N, 3]}, [factor], fixed {'x': node 0})."""
+    from ..optim.sparse import Factor
+    gen = torch.Generator().manual_seed(0)
+    w = torch.float64
+    i = torch.arange(N)
+    edges = torch.cat([torch.stack([i, (i + 1) % N], 1),
+                       torch.stack([i, (i + loop_offset) % N], 1)])
+    truth = torch.randn((N, 3), generator=gen, dtype=w)
+    z = truth[edges[:, 1]] - truth[edges[:, 0]] \
+        + 0.01 * torch.randn((edges.shape[0], 3), generator=gen, dtype=w)
+    x0 = truth + 0.5 * torch.randn((N, 3), generator=gen, dtype=w)
+    z, x0 = z.to(device=device, dtype=dtype), x0.to(device=device,
+                                                    dtype=dtype)
+    eye = torch.eye(3, dtype=dtype, device=device)
+    J = torch.stack([-eye, eye], 1).expand(edges.shape[0], 3, 2, 3)
+
+    def residual(values, consts):
+        X = values['x']
+        return X[:, 1] - X[:, 0] - consts
+
+    def batched_jacobian(values, consts):
+        return residual(values, consts), {'x': J}
+
+    fixed = torch.zeros(N, dtype=torch.bool, device=device)
+    fixed[0] = True
+    return ({'x': x0}, [Factor(residual, {'x': edges.to(device)}, z,
+                               batched_jacobian=batched_jacobian)],
+            {'x': fixed})
 
 
 def instance_checksum(ds):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on an NVIDIA GPU (marked ``cuda``; each test
 skips where torch has no CUDA device): the stencil CG solvers, the
-nearest-neighbour and SE3 kernels against their plain versions, and the
-paths through them.  This file imports no jax, so it
+nearest-neighbour and SE3 kernels against their plain versions, the paths
+through them, and the general SparseLM routes (no kernel) card against
+CPU.  This file imports no jax, so it
 runs on a machine without the JAX package:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -265,7 +266,8 @@ def test_nnk_kernel_matches_plain(cuda, R, N, k):
 
 def test_knn_kernel_ties_and_refusals(cuda):
     """Duplicated neighbours: the lower index first; k above the kernel's
-    largest, points of too many coordinates and float64 raise."""
+    largest, points of more than 8 coordinates, float16 clouds and
+    clouds of two dtypes raise."""
     base = _clouds(1, 200, cuda)[1]
     nbr = torch.cat([base, base[:50]])
     d2, idx = knn.nnk(base[:50] + 1e-3, nbr, 2)
@@ -274,10 +276,151 @@ def test_knn_kernel_ties_and_refusals(cuda):
     with pytest.raises(ValueError, match='k=17'):
         knn.nnk(base, base, knn.MAX_K + 1)
     with pytest.raises(ValueError, match='coordinates'):
-        knn.nn1(torch.zeros((4, 5), device=cuda),
-                torch.zeros((6, 5), device=cuda))
+        knn.nn1(torch.zeros((4, 9), device=cuda),
+                torch.zeros((6, 9), device=cuda))
     with pytest.raises(TypeError, match='float32'):
-        knn.nn1(base.double(), base.double())
+        knn.nn1(base.half(), base.half())
+    with pytest.raises(TypeError, match='float32'):
+        knn.nnk(base, base.double(), 2)
+
+
+@pytest.mark.parametrize('D', [5, 6, 7, 8])
+def test_wide_point_kernels_match_plain(cuda, D):
+    """nn1 and nnk (k = 2, 8, 16) on points of 5 to 8 coordinates, one
+    launch each, under the near-tie rules."""
+    ref, nbr = _clouds(3000, 20_000, cuda, seed=D, D=D)
+    before = knn.NN1_LAUNCHES
+    d_k, i_k = knn.nn1(ref, nbr)
+    torch.cuda.synchronize()
+    assert knn.NN1_LAUNCHES == before + 1
+    _assert_nn1_within_tolerance(ref, nbr, d_k, i_k,
+                                 knn._nn1_torch(ref, nbr)[1])
+    for k in (2, 8, 16):
+        before = knn.NNK_LAUNCHES
+        d_k, i_k = knn.nnk(ref, nbr, k)
+        torch.cuda.synchronize()
+        assert knn.NNK_LAUNCHES == before + 1
+        _assert_nnk_within_tolerance(ref, nbr, d_k, i_k,
+                                     knn._nnk_torch(ref, nbr, k)[1])
+
+
+# The float64 instantiations' rule: nnk_tolerance_failures at rtol = atol
+# = 1e-13 (~450 float64 ulps of |a|^2 + |b|^2).
+F64_TOL = dict(rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize('D', [3, 8])
+def test_float64_kernels_match_plain(cuda, D):
+    """nn1 and nnk (k = 2, 8, 16) on float64 clouds, one launch each,
+    under the near-tie rules at F64_TOL."""
+    ref, nbr = (a.double() for a in _clouds(3000, 20_000, cuda, seed=D, D=D))
+    for k in (1, 2, 8, 16):
+        name = 'NN1_LAUNCHES' if k == 1 else 'NNK_LAUNCHES'
+        before = getattr(knn, name)
+        d_k, i_k = knn.nnk(ref, nbr, k)
+        torch.cuda.synchronize()
+        assert getattr(knn, name) == before + 1
+        assert d_k.dtype == torch.float64 and d_k.shape == (3000, k)
+        got = nnk_tolerance_failures(ref, nbr, d_k, i_k,
+                                     knn._nnk_torch(ref, nbr, k)[1],
+                                     **F64_TOL)
+        assert got['index_failures'] == got['repeat_failures'] == \
+            got['d2_failures'] == 0, got
+
+
+@pytest.mark.parametrize('k', [1, 8])
+def test_knn_float64_launches_kernels(cuda, k):
+    """float64 clouds past 64 Mi pairs launch the kernels' float64
+    instantiation through knn, held to the near-tie rule at F64_TOL
+    against the CPU's result; D = 9 raises on the card."""
+    from pypose_tpu_torch.function.geometry import knn as knn_fn
+    ref, nbr = (a.double() for a in _clouds(9000, 9000, cuda, seed=6, D=6))
+    before = (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES)
+    res = knn_fn(ref, nbr, k=k)
+    torch.cuda.synchronize()
+    assert (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES) == \
+        (before[0] + (k == 1), before[1] + (k > 1))
+    assert res.values.dtype == torch.float64
+    cpu = knn_fn(ref.cpu(), nbr.cpu(), k=k)
+    got = nnk_tolerance_failures(ref, nbr, res.values ** 2, res.indices,
+                                 cpu.indices.to(cuda), **F64_TOL)
+    assert got['index_failures'] == got['repeat_failures'] == \
+        got['d2_failures'] == 0, got
+    with pytest.raises(ValueError, match='coordinates'):
+        knn_fn(*_clouds(9000, 9000, cuda, D=9), k=k)
+
+
+def _steps_card_and_cpu(make, steps):
+    """chi2 of ``steps`` step() calls of ``make(device)``'s optimizer on
+    the card and on the CPU, with no stencil kernel launched."""
+    out = []
+    for dev in ('cuda', 'cpu'):
+        before = (scg.LAUNCHES, scg.FUSED_LAUNCHES)
+        opt = make(dev)
+        assert opt.route == 'einsum'
+        out.append([opt.step() for _ in range(steps)])
+        assert (scg.LAUNCHES, scg.FUSED_LAUNCHES) == before
+    return out
+
+
+def test_sparse_lm_float64_card_matches_cpu(cuda):
+    """The C2 input, synthetic_sphere(100) in float64 on the card: the
+    'einsum' route, chi2 within 1e-8 of the CPU's."""
+    from pypose_tpu_torch.datasets import synthetic_sphere
+    from pypose_tpu_torch.testing import pgo_optimizer
+    card, cpu = _steps_card_and_cpu(lambda d: pgo_optimizer(
+        synthetic_sphere(100, dtype=torch.float64, device=d), radius=1e4,
+        cg_iter=150, cg_tol=1e-9), 3)
+    assert max(abs(a / b - 1) for a, b in zip(card, cpu)) <= 1e-8
+
+
+def test_ring3_card_matches_cpu(cuda):
+    """The C3 input, a Euclidean [64, 3] factor on stencil edges (t = 3):
+    the 'einsum' route, chi2 within 1e-4 of the CPU's."""
+    from pypose_tpu_torch.optim.sparse import SparseLM
+    from pypose_tpu_torch.optim.strategy import TrustRegion
+    from pypose_tpu_torch.testing import ring3_problem
+
+    def make(dev):
+        params, factors, fixed = ring3_problem(device=dev)
+        return SparseLM(params, factors, strategy=TrustRegion(radius=1e4),
+                        fixed=fixed, cg_iter=100, cg_tol=1e-8)
+    card, cpu = _steps_card_and_cpu(make, 2)
+    assert max(abs(a / b - 1) for a, b in zip(card, cpu)) <= 1e-4
+
+
+def test_general_route_ops_card_match_cpu(cuda):
+    """CouplingSpMV.couple, bcr_solve and the tree CG on the card against
+    the same calls on the CPU (float32; rtol 1e-5 / 1e-4)."""
+    from pypose_tpu_torch.ops.block_tridiag import bcr_factor, bcr_solve
+    from pypose_tpu_torch.ops.spmv import CouplingSpMV
+    from pypose_tpu_torch.optim.solver import cg
+    gen = torch.Generator().manual_seed(0)
+    N, t = 1000, 6
+    ii = torch.arange(N - 1)
+    loops = torch.randint(0, N, (300, 2), generator=gen)
+    loops = loops[(loops[:, 1] - loops[:, 0]).abs() > 1]
+    edges = torch.cat([torch.stack([ii, ii + 1], 1), loops])
+    J = torch.randn((edges.shape[0], 6, 2, t), generator=gen)
+    x = torch.randn((N, t), generator=gen)
+    A = torch.randn((N, t, t), generator=gen)
+    D = A @ A.mT + 4 * t * torch.eye(t)
+    U = 0.3 * torch.randn((N, t, t), generator=gen)
+    L = torch.cat([torch.zeros(1, t, t), U[:-1].mT])
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        sp = CouplingSpMV(edges, N, t, device=dev)
+        st = sp.precompute(J.to(dev), J.to(dev))
+        y = sp.couple(st, x.to(dev))
+        z = bcr_solve(bcr_factor(D.to(dev), L.to(dev), U.to(dev)), x.to(dev))
+        Dd = D.to(dev)
+        w, k = cg(lambda v: {'x': torch.einsum('ntu,nu->nt', Dd, v['x'])},
+                  {'x': x.to(dev)}, tol=1e-6, maxiter=50)
+        out[dev] = [a.cpu() for a in (y, z, w['x'])] + [k]
+    for a, b in zip(out['cuda'][:3], out['cpu'][:3]):
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+    assert abs(out['cuda'][3] - out['cpu'][3]) <= 1
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_knn_above_64mi_pairs_launches_nn1(cuda):

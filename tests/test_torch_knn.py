@@ -200,3 +200,60 @@ def test_knn_tiled_cpu_k8_does_not_launch(monkeypatch):
     assert res.indices.shape == (50, 8)
     assert torch.equal(res.indices, gram.indices)
     assert torch.equal(res.values, gram.values)
+
+
+@pytest.mark.parametrize('D', [5, 6, 7, 8])
+def test_nn1_matches_pallas_wide_points(D):
+    """Points of 5 to 8 coordinates (a point with its normal is D = 6),
+    which the CUDA kernels take since the D <= 8 instantiations."""
+    ref, nbr = clouds(D, 150, 333, D)
+    d2_t, idx_t = tknn.nn1(torch.from_numpy(ref), torch.from_numpy(nbr))
+    d2_j, idx_j = pallas_knn.nn1(jnp.asarray(ref), jnp.asarray(nbr), tr=64,
+                                 tn=128, interpret=True)
+    assert_knn_agree(ref, nbr, d2_t[:, None], idx_t[:, None],
+                     np.asarray(d2_j)[:, None], np.asarray(idx_j)[:, None])
+
+
+@pytest.mark.parametrize('D', [5, 6, 7, 8])
+@pytest.mark.parametrize('k', [2, 8])
+def test_nnk_matches_pallas_wide_points(k, D):
+    ref, nbr = clouds(10 * D + k, 150, 333, D)
+    d2_t, idx_t = tknn.nnk(torch.from_numpy(ref), torch.from_numpy(nbr), k)
+    d2_j, idx_j = pallas_knn.nnk(jnp.asarray(ref), jnp.asarray(nbr), k,
+                                 tr=64, tn=128, interpret=True)
+    assert_knn_agree(ref, nbr, d2_t, idx_t, d2_j, idx_j)
+
+
+@pytest.mark.parametrize('k', [1, 8])
+def test_plain_versions_float64_match_jax(k):
+    """The plain versions of nn1 and nnk in float64, which the card's
+    float64 instantiations are held to, against the JAX package's Gram
+    path under x64 at D = 6: d2 within rtol 1e-12 (atol 1e-12), indices
+    equal."""
+    import jax
+    ref, nbr = (a.astype(np.float64) for a in clouds(60 + k, 100, 300, 6))
+    with jax.enable_x64(True):
+        res_j = jgeo._knn_tiled(jnp.asarray(ref), jnp.asarray(nbr), k, False,
+                                64)
+        d2_j, i_j = np.asarray(res_j.values) ** 2, np.asarray(res_j.indices)
+    d2_t, i_t = tknn.nnk(torch.from_numpy(ref), torch.from_numpy(nbr), k)
+    assert d2_t.dtype == torch.float64 and i_t.shape == (100, k)
+    np.testing.assert_allclose(d2_t.numpy(), d2_j, rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(i_t.numpy(), i_j)
+
+
+@pytest.mark.parametrize('D', [6, 9])
+def test_knn_tiled_float64_matches_jax(D):
+    """float64 clouds, of 6 and of more than 8 coordinates, take the Gram
+    path on the CPU, as the JAX package does off the TPU under x64."""
+    import jax
+    ref, nbr = (a.astype(np.float64) for a in clouds(D, 100, 200, D))
+    with jax.enable_x64(True):
+        res_j = jgeo._knn_tiled(jnp.asarray(ref), jnp.asarray(nbr), 4, False,
+                                64)
+        v_j, i_j = np.asarray(res_j.values), np.asarray(res_j.indices)
+    res_t = tgeo.knn(torch.from_numpy(ref), torch.from_numpy(nbr), k=4,
+                     chunk=64)
+    np.testing.assert_allclose(res_t.values.numpy(), v_j, rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_array_equal(res_t.indices.numpy(), i_j)

@@ -166,21 +166,30 @@ def test_split_chain_edges_matches_jax():
 
 
 def test_refusals():
+    """What is still to port raises: strategies other than TrustRegion,
+    factors without a closed-form Jacobian, pgo_factor over groups other
+    than SE3.  precond='chain' and graphs off one merged stencil, which
+    raised before the general routes were ported, now build."""
     opt = torch_problem(synthetic_sphere(100))
-    with pytest.raises(NotImplementedError, match='slice 2'):
-        tsp.SparseLM(opt.params, opt.factors, precond='chain')
+    assert opt.route == 'stencil'
+    assert tsp.SparseLM(opt.params, opt.factors,
+                        precond='chain').route == 'chain'
     with pytest.raises(NotImplementedError, match='TrustRegion'):
         tsp.SparseLM(opt.params, opt.factors, strategy=object())
     with pytest.raises(NotImplementedError, match='slice 6'):
         tsp.pgo_factor(torch.zeros((3, 2), dtype=torch.int64),
                        ppt.SO3(torch.zeros(3, 4)))
+    f = opt.factors[0]
+    autodiff = tsp.Factor(f.residual, f.indices, f.consts)
+    with pytest.raises(NotImplementedError, match='autodiff'):
+        tsp.SparseLM(opt.params, [autodiff])
     # every edge offset distinct: no merged stencil
     N = 40
     edges = torch.stack([torch.arange(20), torch.arange(20) * 2 + 1], 1)
     Z = ppt.identity_SE3(20)
-    with pytest.raises(NotImplementedError, match='merged stencil'):
-        tsp.SparseLM({'poses': ppt.identity_SE3(N)},
-                     [tsp.pgo_factor(edges, Z)])
+    off = tsp.SparseLM({'poses': ppt.identity_SE3(N)},
+                       [tsp.pgo_factor(edges, Z)])
+    assert off.route == 'einsum' and off._stencil_all is None
 
 
 def test_docstring_examples():

@@ -66,16 +66,47 @@ def test_optimize_on_tiled_route_matches_jax_f32(tiled_route):
 
 
 def test_steps_on_tiled_route_match_jax_f64(tiled_route):
-    """float64 (the JAX optimize() cannot run under x64, so both packages
-    take four step() calls): chi2 per step within rtol 1e-8."""
+    """float64.  SparseLM routes float64 to the einsum CG (the stencil
+    kernels take float32 only), so the oversize solvers' plain versions,
+    which take float64, are held on the system SparseLM assembles for
+    synthetic_sphere(300) from the JAX package: its normal equations at
+    the initial poses, at two dampings, solved by the port's stencil
+    solve (``SparseLM._stencil_solver``, stencil_cg on the fixture's
+    route) and by the JAX package's stencil_cg(use_pallas=False) on the
+    same arrays; x within rtol 1e-8 of the larger entries (atol 1e-10)."""
+    from pypose_tpu.ops.pallas_cg import stencil_cg as jax_stencil_cg
+    from pypose_tpu_torch.ops.smallinv import blockinv
     with jax.enable_x64(True):
-        ds, jopt = jax_problem(300, jnp.float64)
-        jhist = [jopt.step() for _ in range(4)]
+        ds, _ = jax_problem(300, jnp.float64)
     topt = torch_problem(ds)
-    assert topt.dtype == torch.float64
-    thist = [topt.step() for _ in range(4)]
-    np.testing.assert_allclose(thist, jhist, rtol=1e-8)
-    assert tiled_route['tiled'] >= 4 and tiled_route['whole'] == 0
+    assert topt.dtype == torch.float64 and topt.route == 'einsum'
+    nm = topt._spmv_name
+    blocks = [topt._weighted(f, *topt._edge_r_jac(topt.params, f, fi))
+              for fi, f in enumerate(topt.factors)]
+    b, diag_raw = topt._rhs(blocks), topt._diag(blocks)
+    accum = topt._block_diag_accum(blocks)
+    diagA = {n: torch.clamp(v, topt.min, topt.max)
+             for n, v in diag_raw.items()}
+    solve = topt._stencil_solver(b, diagA, diag_raw, accum, blocks,
+                                 topt.cg_iter)
+    C_all = topt._stencil_all.precompute_multi(
+        [(blk[1][nm], blk[3][nm]) for blk in blocks])
+    for damping in (1e-4, 1e-1):
+        x, it = solve(damping)
+        dcorr = diagA[nm] - diag_raw[nm] + damping * diagA[nm]
+        Minv = blockinv(topt._damped_blocks(accum, {nm: 1.0 + damping})[nm])
+        with jax.enable_x64(True):
+            x_j, it_j = jax_stencil_cg(
+                *(jnp.asarray(a.numpy()) for a in (b[nm], accum[nm], dcorr,
+                                                   Minv, C_all)),
+                tuple(topt._stencil_all.offsets),
+                fixed_mask=jnp.asarray(topt.fixed[nm].numpy()),
+                maxiter=topt.cg_iter, tol=topt.cg_tol, use_pallas=False)
+            x_j = np.asarray(x_j)
+        assert x[nm].dtype == torch.float64
+        np.testing.assert_allclose(x[nm].numpy(), x_j,
+                                   rtol=1e-8, atol=1e-10)
+    assert tiled_route['tiled'] == 2 and tiled_route['whole'] == 0
 
 
 @pytest.mark.parametrize('fits', [True, False])
