@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU and check them:
 sphere2500 through the whole-solve CG kernel, a 100k-pose graph through
-the fused (Chronopoulos-Gear) CG kernel, ICP on 100k-point clouds through
-the nearest-neighbour kernel, knn(k=8) on those clouds through the
-k-nearest kernel, knn on 6-coordinate clouds, and the general factor-graph
-routes (no kernel): a chain-dominated and a random-loop pose graph, and
-the inputs the stencil kernels do not take.
+the fused (Chronopoulos-Gear) CG kernel, the same two graphs over SO3,
+RxSO3 and Sim3 through those kernels' t = 3, 4 and 7 instantiations, ICP
+on 100k-point clouds through the nearest-neighbour kernel, knn(k=8) on
+those clouds through the k-nearest kernel, knn on 6-coordinate clouds, and
+the general factor-graph routes (no kernel): a chain-dominated and three
+random-loop pose graphs, and the inputs the stencil kernels do not take.
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -29,6 +30,13 @@ Phases (any failure raises, so the script exits non-zero):
      - the tiled matvec and block-Jacobi kernels alone, one launch each,
        at the 100k shape, with their device time (torch.profiler) and the
        block-Jacobi apply also as one torch.einsum;
+     - the same three sources at block sizes t = 3, 4 and 7 (SO3, RxSO3,
+       Sim3): the whole solve at N=40 and at sphere2500's shape
+       (converged and to 60 iterations, two launches bit-equal), the
+       tiled and fused (float32, bf16) solvers at N=53 and at the 100k
+       shape (tol 1e-3 and 60 iterations; the fused plan printed:
+       shared-memory mode at t = 3 and 4, global-memory mode at t = 7),
+       the tiled kernels alone; t = 5 must raise;
      - nn1 at 100k x 100k on ICP's clouds and on a cloud with duplicated
        points, and nnk at k = 4 and 16 on a 20k x 100k slice of them,
        under pypose_tpu_torch.testing.nnk_tolerance_failures (each index
@@ -56,6 +64,19 @@ Phases (any failure raises, so the script exits non-zero):
      solve and neither the tiled nor the whole-solve kernels; a third,
      profiled run gives the fused kernel's share of device time and the
      device's idle share.
+  5b. groups: testing.pgo_group_instance of the sphere2500 graph and of
+     synthetic_sphere(100000, seed=42) over SO3, RxSO3 and Sim3 (rotations
+     only; scale 1 lifted, the initial scales drifted by exp(0.05 N(0,
+     1))), each through testing.pgo_optimizer with its anchor file's
+     schedule (data/jax_anchor_{so3,rxso3,sim3}_{sphere2500,100k}.json),
+     cold then warm: route 'stencil', the whole-solve kernel (sphere2500)
+     or the fused kernel (100k) launched once a solve and the other not
+     at all, chi2 first step within 1e-4 and final within 1e-3 of the JAX
+     anchor, ms per LM step; sim3-sphere2500 also profiled (kernel share,
+     idle share).  Then bench.py:bench_pgo_groups' SO3 and Sim3
+     ring-plus-random-loops instances at N = 10,000
+     (testing.pgo_loops_instance): route 'einsum', no launch, chi2 down
+     by at least 1e3 times.
   6. ICP, card against CPU: the same 9,000-point instance (81M pairs, the
      auto-tiled knn route) on the card (nn1 kernel) and on the CPU (the
      chunked Gram path, which the CPU tests hold against the JAX
@@ -76,10 +97,11 @@ Phases (any failure raises, so the script exits non-zero):
      versions and timed beside chunked torch.cdist + torch.min / topk;
      then the same clouds in float64 through the kernels' float64
      instantiation, held to the rules at rtol = atol = 1e-13.
- 10. sparse-f64: synthetic_sphere(100) in float64 (four step() calls) and
-     a Euclidean [64, 3] ring factor (testing.ring3_problem, t = 3, three
-     calls), card against CPU, both on the 'einsum' route with no kernel
-     launched.
+ 10. sparse-f64: synthetic_sphere(100) in float64 (four step() calls,
+     route 'einsum', no kernel), a Euclidean [64, 3] ring factor
+     (testing.ring3_problem, t = 3, three calls: route 'stencil', one
+     whole-solve launch a solve on the card) and the same ring at t = 5
+     ('einsum', no kernel), card against CPU.
  11. pgo-chain: synthetic_sphere(5000, loops_per_pose=0.04, seed=5),
      bench.py:bench_pgo_chain's factors and schedule (route 'chain': the
      einsum CG with the block cyclic reduction preconditioner), and
@@ -91,7 +113,8 @@ Phases (any failure raises, so the script exits non-zero):
      jax_anchor_pgo_loops10k.json: entries above 1e-3 within 1e-3, the
      final below 1e-5 of the initial chi2), ms per LM step, CG host
      reads, device operations per LM step and the device's idle share.
- 12. prints the kernels' JSON line (each kernel's launches on its path,
+ 12. prints the kernels' JSON line (each kernel's, and each of the t = 3,
+     4, 7 instantiations', launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
      nn1 and nnk also at D = 6, bound at 2 D flop a pair, in float32 and
@@ -153,47 +176,57 @@ def device_ms(fn, calls=50, match=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if not e.key.startswith('aten::')
-                   and (match is None or match in e.key))
-    check(total_us > 0, 'torch.profiler recorded no device time')
-    return total_us / calls / 1e3
+    # the tracer now and then hands back an empty trace (seen once, on a
+    # trace of 50 launches of a 2 us kernel, the 13th trace of its run):
+    # trace again, up to three times, before failing
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if not e.key.startswith('aten::')
+                       and (match is None or match in e.key))
+        if total_us > 0:
+            return total_us / calls / 1e3
+    raise RuntimeError('torch.profiler recorded no device time in three '
+                       'traces')
 
 
-def stencil_system(N, loop_offset, n_loops, fixed):
+def stencil_system(N, loop_offset, n_loops, fixed, t=6):
     import torch
     from pypose_tpu_torch.testing import random_stencil_system
     dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(1234 + N)
-    return random_stencil_system(N, loop_offset, n_loops, fixed, gen, dev)
+    gen = torch.Generator(device=dev).manual_seed(
+        1234 + N + (0 if t == 6 else t))
+    return random_stencil_system(N, loop_offset, n_loops, fixed, gen, dev,
+                                 t=t)
 
 
 def solver_vs_plain(name, solver, plain, system, maxiter, tol):
     """One solver on the card against its plain version on the same
-    operands: x within 1e-4 of max|x| (+1e-5), iterations within one.
-    Returns (max error, kernel ms, plain ms, kernel iterations)."""
+    operands (the block size t read from their shapes): x within 1e-4 of
+    max|x| (+1e-5), iterations within one.  Returns (max error, kernel ms,
+    plain ms, kernel iterations)."""
     import torch
     offsets, ops = system
-    t = 6
-    N = ops[0].shape[1]
+    t, N = ops[0].shape
+    plain_runs = 7 if t == 6 else 3
     k_ms, (x_k, it_k) = cuda_ms(
         lambda: solver(*ops, offsets, t, maxiter, tol))
     p_ms, (x_p, it_p) = cuda_ms(
         lambda: plain(ops[1], ops[2], ops[3], ops[0], offsets, t, maxiter,
-                      tol))
+                      tol), repeat=plain_runs)
     it_k, it_p = int(it_k), int(it_p)
     err = float((x_k - x_p).abs().max())
     bound = 1e-4 * float(x_p.abs().max()) + 1e-5
-    print(f'[kernel] {name}: N={N} offsets={offsets} maxiter={maxiter} '
+    print(f'[kernel] {name}: t={t} N={N} offsets={offsets} '
+          f'maxiter={maxiter} '
           f'tol={tol:g}: iterations kernel {it_k} plain {it_p}; '
           f'max|x_k - x_p| {err:.3e} (bound {bound:.3e}); kernel '
           f'{k_ms:.4f} ms/solve ({1e3 * k_ms / max(it_k, 1):.2f} us/it), '
           f'plain {p_ms:.4f} ms/solve ({1e3 * p_ms / max(it_p, 1):.2f} '
-          'us/it), median of 7', flush=True)
+          f'us/it), median of 7 (plain: of {plain_runs})', flush=True)
     check(bool(torch.isfinite(x_k).all()), f'{name}: kernel result not finite')
     check(err <= bound, f'{name}: kernel disagrees with the plain version')
     check(abs(it_k - it_p) <= 1, f'{name}: iteration counts differ')
@@ -201,23 +234,23 @@ def solver_vs_plain(name, solver, plain, system, maxiter, tol):
 
 
 def whole_solve_vs_plain(name, N, loop_offset, n_loops, fixed, maxiter,
-                         tol):
-    """The cluster kernel against its plain version, and a second launch
-    that must repeat it bit for bit; returns (err, ms, plain ms,
-    iterations)."""
+                         tol, t=6):
+    """The cluster kernel at block size t against its plain version, and a
+    second launch that must repeat it bit for bit; returns (err, ms, plain
+    ms, iterations)."""
     import torch
     from pypose_tpu_torch.ops import stencil_cg as scg
-    system = stencil_system(N, loop_offset, n_loops, fixed)
+    system = stencil_system(N, loop_offset, n_loops, fixed, t)
     offsets, ops = system
-    smem = scg.stencil_cg_smem_fits(N, 6, len(offsets))
-    check(scg.stencil_cg_fits(N, 6, len(offsets)),
+    smem = scg.stencil_cg_smem_fits(N, t, len(offsets))
+    check(scg.stencil_cg_fits(N, t, len(offsets)),
           f'N={N} is past the whole-solve kernel\'s budgets')
     where = 'shared memory' if smem else 'L2'
     out = solver_vs_plain(
         f'whole-solve, {name}, operands in {where}',
         scg.stencil_cg_transposed, scg._cg_body_torch, system, maxiter, tol)
-    x1, it1 = scg.stencil_cg_transposed(*ops, offsets, 6, maxiter, tol)
-    x2, it2 = scg.stencil_cg_transposed(*ops, offsets, 6, maxiter, tol)
+    x1, it1 = scg.stencil_cg_transposed(*ops, offsets, t, maxiter, tol)
+    x2, it2 = scg.stencil_cg_transposed(*ops, offsets, t, maxiter, tol)
     check(torch.equal(x1, x2) and int(it1) == int(it2),
           f'whole-solve, {name}: two launches differ')
     return out
@@ -231,6 +264,7 @@ def fused_vs_plain(name, system, maxiter, tol, operand_dtype):
     import torch
     from pypose_tpu_torch.ops import stencil_cg as scg
     offsets, (b_T, *ops) = system
+    t = b_T.shape[0]
     stored = scg.round_operands(*ops, operand_dtype)
     widened = [a.float() for a in stored]
 
@@ -239,8 +273,8 @@ def fused_vs_plain(name, system, maxiter, tol, operand_dtype):
                                     operand_dtype=operand_dtype)
     out = solver_vs_plain(name, fused, scg._fused_cg_torch,
                           (offsets, (b_T, *widened)), maxiter, tol)
-    x1, it1 = fused(*system[1], offsets, 6, maxiter, tol)
-    x2, it2 = fused(*system[1], offsets, 6, maxiter, tol)
+    x1, it1 = fused(*system[1], offsets, t, maxiter, tol)
+    x2, it2 = fused(*system[1], offsets, t, maxiter, tol)
     check(torch.equal(x1, x2) and int(it1) == int(it2),
           f'{name}: two launches differ')
     return out
@@ -252,9 +286,10 @@ def oversize_solvers_vs_plain(name, system, maxiter, tol):
     plain ms, iterations)} for routes 'tiled', 'fused', 'fused_bf16'."""
     import torch
     from pypose_tpu_torch.ops import stencil_cg as scg
-    N = system[1][0].shape[1]
-    plan = scg.fused_plan(N, system[1][0].device)
-    print(f'[kernel] {name}: fused kernel plan {plan}', flush=True)
+    t, N = system[1][0].shape
+    plan = scg.fused_plan(N, t, system[1][0].device)
+    print(f'[kernel] {name}: fused kernel plan at t={t}: {plan} (state in '
+          f'{"shared" if plan["smem"] else "global"} memory)', flush=True)
     out = {
         'tiled': solver_vs_plain(f'tiled, {name}', scg.stencil_cg_tiled,
                                  scg._tiled_cg_torch, system, maxiter, tol),
@@ -304,7 +339,7 @@ def tiled_kernels_vs_plain(system, launches=20):
     import torch
     from pypose_tpu_torch.ops import stencil_cg as scg
     offsets, (b_T, A_T, Minv_T, C_T) = system
-    t = 6
+    t = b_T.shape[0]
     gen = torch.Generator(device=b_T.device).manual_seed(7)
     v = torch.randn(b_T.shape, generator=gen, device=b_T.device)
     M3 = Minv_T.view(t, t, -1)
@@ -332,8 +367,8 @@ def tiled_kernels_vs_plain(system, launches=20):
                   f'tiled {kname}: the library call disagrees')
         d_us = 1e3 * device_ms(kern)
         gbs = bytes_per_node * v.shape[1] / (d_us * 1e3)
-        print(f'[kernel] tiled {kname} alone, N={v.shape[1]}: max|y_k - '
-              f'y_p| {err:.3e} (bound {bound:.3e}); kernel {k_us:.2f} '
+        print(f'[kernel] tiled {kname} alone, t={t} N={v.shape[1]}: '
+              f'max|y_k - y_p| {err:.3e} (bound {bound:.3e}); kernel {k_us:.2f} '
               f'us/launch, device time {d_us:.2f} us/launch ({gbs:.0f} GB/s '
               f'if every operand and vector '
               f'byte is read or written once: {bytes_per_node} B/node), '
@@ -1005,11 +1040,13 @@ def pgo_loops_phase(dev):
 
 
 def sparse_f64_phase(dev):
-    """The inputs the stencil kernels do not take, card against CPU:
+    """The inputs at the edge of the stencil kernels, card against CPU:
     synthetic_sphere(100) in float64 (four step() calls, cg_iter 150,
-    cg_tol 1e-9; chi2 within 1e-8) and a Euclidean [64, 3] ring factor in
-    float32 (testing.ring3_problem, three step() calls; chi2 within
-    1e-4), both on the 'einsum' route with no kernel launched."""
+    cg_tol 1e-9; chi2 within 1e-8; route 'einsum', no kernel), a Euclidean
+    [64, 3] ring factor in float32 (testing.ring3_problem, three step()
+    calls; chi2 within 1e-4; route 'stencil': t = 3 is a block size the
+    kernels are built for, so on the card one whole-solve launch a solve)
+    and the same ring at t = 5 (route 'einsum', no kernel)."""
     import torch
     from pypose_tpu_torch.datasets import synthetic_sphere
     from pypose_tpu_torch.optim.sparse import SparseLM
@@ -1021,29 +1058,41 @@ def sparse_f64_phase(dev):
                                               device=d),
                              radius=1e4, cg_iter=150, cg_tol=1e-9)
 
-    def ring(d):
-        params, factors, fixed = ring3_problem(device=d)
-        return SparseLM(params, factors, strategy=TrustRegion(radius=1e4),
-                        fixed=fixed, cg_iter=100, cg_tol=1e-8)
+    def ring(t):
+        def make(d):
+            params, factors, fixed = ring3_problem(device=d, t=t)
+            return SparseLM(params, factors,
+                            strategy=TrustRegion(radius=1e4), fixed=fixed,
+                            cg_iter=100, cg_tol=1e-8)
+        return make
 
-    for name, make, steps, rtol in (('sphere100 float64', sphere, 4, 1e-8),
-                                    ('ring3 float32', ring, 3, 1e-4)):
+    for name, make, steps, rtol, route in (
+            ('sphere100 float64', sphere, 4, 1e-8, 'einsum'),
+            ('ring3 float32', ring(3), 3, 1e-4, 'stencil'),
+            ('ring t=5 float32', ring(5), 3, 1e-4, 'einsum')):
         hist = {}
         for d in (dev, 'cpu'):
             opt = make(d)
-            check(opt.route == 'einsum',
-                  f'sparse-f64, {name}: route {opt.route}')
+            check(opt.route == route,
+                  f'sparse-f64, {name}: route {opt.route}, expected {route}')
             reset_counts()
             t0 = time.perf_counter()
-            hist[str(d)] = [opt.step() for _ in range(steps)]
+            hist[str(d)] = []
+            solves = 0
+            for _ in range(steps):
+                hist[str(d)].append(opt.step())
+                solves += len(opt.cg_iterations[0])
             ms = 1e3 * (time.perf_counter() - t0) / steps
             counts = read_counts()
-            check(not any(counts.values()),
-                  f'sparse-f64, {name}: kernels launched: {counts}')
+            whole = solves if route == 'stencil' and d != 'cpu' else 0
+            check(counts.pop('LAUNCHES') == whole
+                  and not any(counts.values()),
+                  f'sparse-f64, {name} on {d}: launch counts {read_counts()}'
+                  f' for {solves} solves on route {route}')
             print(f'[sparse-f64] {name} on {d}: route {opt.route}, chi2 '
                   f'{hist[str(d)]}, CG iterations {opt.cg_iterations}, '
-                  f'{ms:.3f} ms/LM step (host clock), launch counts '
-                  f'{counts}', flush=True)
+                  f'{ms:.3f} ms/LM step (host clock), whole-solve launches '
+                  f'{whole}, no other kernel', flush=True)
         card, cpu = hist[str(dev)], hist['cpu']
         gap = max(abs(a / b - 1) for a, b in zip(card, cpu))
         print(f'[sparse-f64] {name}: card against CPU, largest relative '
@@ -1100,6 +1149,229 @@ def knn_d6_phase(dev):
                   f'{c_ms:.4f} ms (median of 3)', flush=True)
             out[('nn1' if k == 1 else 'nnk') + suffix] = (err, k_ms, p_ms,
                                                           c_ms)
+    return out
+
+
+GROUP_TAN = {'SO3': 3, 'RxSO3': 4, 'SE3': 6, 'Sim3': 7}
+
+
+def group_instance(anchor, dev):
+    """The instance a group anchor file was computed on
+    (tests/test_torch_pgo_groups_anchor.py): pgo_group_instance of the
+    vendored sphere2500 graph or of synthetic_sphere(100000, seed=42) over
+    the file's group, its scale draw from the file's seed."""
+    import torch
+    from pypose_tpu_torch.datasets import (find_data, load_g2o,
+                                           synthetic_sphere)
+    from pypose_tpu_torch.testing import pgo_group_instance
+    if anchor['graph'] == 'sphere2500':
+        ds = load_g2o(find_data('synthetic_sphere2500_seed42.g2o'),
+                      device=dev)
+    else:
+        ds = synthetic_sphere(100_000, seed=42, device=dev)
+    return pgo_group_instance(
+        ds, anchor['group'],
+        torch.Generator().manual_seed(anchor['scale_seed']))
+
+
+def group_graph_phase(name, dev, kernel, profiled=False):
+    """A pose graph over SO3, RxSO3 or Sim3 on the 'stencil' route, built
+    by testing.pgo_optimizer with its anchor file's schedule
+    (data/jax_anchor_<name>.json), cold then warm (and, if asked, under
+    torch.profiler): route 'stencil'; ``kernel`` ('whole' or 'fused')
+    launched once a solve and the other not at all; the chi2 history held
+    to the JAX anchor (first step within 1e-4 relative, final within
+    1e-3); ms per LM step.  Returns a dict of the cold run's launch counts
+    and those numbers."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    from pypose_tpu_torch.testing import instance_checksum, pgo_optimizer
+
+    tag = name.replace('_', '-')
+    with open(find_data(f'jax_anchor_{name}.json')) as f:
+        anchor = json.load(f)
+    sched, group = anchor['schedule'], anchor['group']
+    t = GROUP_TAN[group]
+    t0 = time.perf_counter()
+    ds = group_instance(anchor, dev)
+    got, want = instance_checksum(ds), anchor['instance_checksum']
+    check(got['n_edges'] == want['n_edges'] and all(
+        abs(got[k] - want[k]) <= 1e-6 * abs(want[k])
+        for k in ('nodes_abs_sum', 'poses_abs_sum')),
+        f'{tag}: instance checksum {got} differs from the anchor\'s {want}')
+    opt = pgo_optimizer(ds, **sched)
+    torch.cuda.synchronize()
+    n = ds['nodes'].shape[0]
+    offsets = opt._stencil_all.offsets
+    whole_fits = scg.stencil_cg_fits(n, t, len(offsets))
+    where = ('operands in shared memory'
+             if scg.stencil_cg_smem_fits(n, t, len(offsets))
+             else 'operands in L2') if whole_fits else \
+        f'fused kernel plan {scg.fused_plan(n, t, dev)}'
+    print(f'[{tag}] set-up: instance + SparseLM in '
+          f'{time.perf_counter() - t0:.3f} s; {n} {group} nodes (t = {t}), '
+          f'{ds["edges"].shape[0]} edges, offsets {offsets}, route '
+          f'{opt.route}, {where}', flush=True)
+    check(opt.route == 'stencil', f'{tag}: route {opt.route}, not stencil')
+    check(whole_fits == (kernel == 'whole'),
+          f'{tag}: the whole-solve budget says {whole_fits}, expected the '
+          f'{kernel} kernel')
+
+    def run(label):
+        opt.params = {'poses': ds['nodes']}
+        opt.strategy_state = None
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        ev[0].record()
+        chi2 = opt.optimize(steps=sched['steps'],
+                            decreasing=sched['decreasing'],
+                            patience=sched['patience'])
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        ms, steps = ev[0].elapsed_time(ev[1]), len(opt.history)
+        first = opt.history[0] / anchor['history'][0] - 1
+        final = chi2 / anchor['final_chi2'] - 1
+        print(f'[{tag}] {label}: chi2 history {opt.history} (JAX anchor '
+              f'{anchor["history"]}); CG iterations per solve, per LM '
+              f'step: {opt.cg_iterations}', flush=True)
+        print(f'[{tag}] {label}: {steps} LM steps in {ms:.3f} ms (CUDA '
+              f'events; host {1e3 * wall:.3f} ms), {ms / steps:.3f} ms/LM '
+              f'step; against the JAX anchor: first step {first:.3e} (bound '
+              f'1e-4), final {final:.3e} (bound 1e-3)', flush=True)
+        X = opt.params['poses'].tensor()
+        check(tuple(X.shape) == tuple(ds['nodes'].shape)
+              and bool(torch.isfinite(X).all()),
+              f'{tag}: nodes of shape {tuple(X.shape)} or not finite')
+        check(steps == len(anchor['history']) and abs(first) <= 1e-4
+              and abs(final) <= 1e-3,
+              f'{tag}: chi2 history outside its tolerance of the JAX anchor')
+        return ms, steps
+
+    reset_counts()
+    cold_ms, cold_steps = run('cold')
+    counts = read_counts()
+    solves = sum(len(s) for s in opt.cg_iterations)
+    mine, other = ('LAUNCHES', 'FUSED_LAUNCHES') if kernel == 'whole' \
+        else ('FUSED_LAUNCHES', 'LAUNCHES')
+    check(counts[mine] == solves > 0 and counts[other] == 0
+          and counts['TILED_MV_LAUNCHES'] == counts['TILED_PC_LAUNCHES'] == 0,
+          f'{tag}: launch counts {counts} for {solves} solves on the '
+          f'{kernel} kernel')
+    print(f'[{tag}] cold run launch counts {counts} ({solves} solves)',
+          flush=True)
+    warm_ms, warm_steps = run('warm')
+    out = {'counts': counts, 'final_chi2': opt.history[-1],
+           'anchor_chi2': anchor['final_chi2'],
+           'ms_per_step_cold': cold_ms / cold_steps,
+           'ms_per_step_warm': warm_ms / warm_steps}
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ms, steps = run('profiled')
+        kernels = [e for e in prof.key_averages()
+                   if not e.key.startswith('aten::')]
+        match = 'stencil_pcg' if kernel == 'whole' else 'fused_pcg'
+        k_us = sum(e.device_time_total for e in kernels if match in e.key)
+        dev_us = sum(e.device_time_total for e in kernels)
+        check(k_us > 0, f'{tag}: the profiler saw no {match} kernel')
+        out.update(ms_per_step_profiled=ms / steps,
+                   idle_share=1 - dev_us / 1e3 / ms,
+                   kernel_share=k_us / dev_us,
+                   device_ops_per_step=sum(e.count for e in kernels) / steps)
+        print(f'[{tag}] profiled run: {match} {k_us / 1e3:.3f} ms of '
+              f'{dev_us / 1e3:.3f} ms device time '
+              f'({out["kernel_share"]:.4f}) and {ms:.3f} ms of the run '
+              f'(CUDA events); device idle share {out["idle_share"]:.4f}; '
+              f'{out["device_ops_per_step"]:.1f} device operations an LM '
+              'step', flush=True)
+    return out
+
+
+def pgo_groups_phase(dev):
+    """bench.py:bench_pgo_groups' two instances (SO3 rotation averaging
+    and Sim3 scale drift on a ring with random loops, N = 10,000, exact
+    measurements; cg_iter 100, cg_tol 1e-8, six steps), cold then warm:
+    route 'einsum', no kernel launched, chi2 down by at least 1e3 times.
+    Returns {group: numbers}."""
+    import torch
+    from pypose_tpu_torch.testing import pgo_loops_instance, pgo_optimizer
+    out = {}
+    for group in ('SO3', 'Sim3'):
+        ds = pgo_loops_instance(10_000, device=dev, group=group)
+        opt = pgo_optimizer(ds, radius=1e4, cg_iter=100, cg_tol=1e-8,
+                            split_chains=False)
+        check(opt.route == 'einsum',
+              f'pgo-groups, {group}: route {opt.route}')
+        initial = float(opt._chi2(opt.params))
+        reset_counts()
+        times = {}
+        for label in ('cold', 'warm'):
+            opt.params = {'poses': ds['nodes']}
+            opt.strategy_state = None
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            chi2 = opt.optimize(steps=6, decreasing=1e-10, patience=2)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times[label] = ev[0].elapsed_time(ev[1]) / len(opt.history)
+        counts = read_counts()
+        X = opt.params['poses'].tensor()
+        print(f'[pgo-groups] {group}: {ds["nodes"].shape[0]} nodes, '
+              f'{ds["edges"].shape[0]} edges, route {opt.route}, matvecs '
+              f'{[type(sp).__name__ for sp in opt._spmv]}; chi2 {initial:.6g}'
+              f' -> {opt.history}; CG iterations {opt.cg_iterations}; '
+              f'{times["cold"]:.3f} ms/LM step cold, {times["warm"]:.3f} '
+              f'warm (CUDA events); launch counts {counts}', flush=True)
+        check(not any(counts.values()),
+              f'pgo-groups, {group}: kernels launched: {counts}')
+        check(bool(torch.isfinite(X).all()) and chi2 * 1e3 <= initial,
+              f'pgo-groups, {group}: chi2 {initial} -> {chi2}: not down by '
+              '1e3 times')
+        out[group] = {'initial_chi2': initial, 'final_chi2': chi2,
+                      'ms_per_step_cold': times['cold'],
+                      'ms_per_step_warm': times['warm']}
+    return out
+
+
+BLOCK_SIZE_CAP = 60
+
+
+def block_size_kernels(t):
+    """The whole-solve, tiled and fused kernels' instantiation for block
+    size t against their plain versions, as t = 6 is held: N = 53 (40 for
+    the whole solve), sphere2500's shape (converged, and to a cap, two
+    launches bit-equal) and the 100k shape (tol 1e-3, and to a cap), and
+    the tiled matvec and block-Jacobi kernels alone.  The capped runs stop
+    at 60 iterations: these systems converge by 1e-6 in ~30 (sphere2500
+    shape) or by 1e-3 in ~15 (100k shape), so past ~120 iterations |r|^2
+    underflows float32, and with a tol of 0 the kernel and the plain
+    version, summing in another order, may then stop at different counts.
+    Returns {'whole': (err, ms, plain ms, it), 'tiled' / 'fused' /
+    'fused_bf16': the same at the 100k cap, 'err': {route: largest
+    error}, 'plan': the fused plan at the 100k shape, 'alone':
+    tiled_kernels_vs_plain's}."""
+    whole = [whole_solve_vs_plain('N=40', 40, 9, 15, False, 500, 1e-6, t),
+             whole_solve_vs_plain('sphere2500 shape', 2500, 157, 2000, True,
+                                  500, 1e-6, t),
+             whole_solve_vs_plain('sphere2500 shape, 60 iterations', 2500,
+                                  157, 2000, True, BLOCK_SIZE_CAP, 0.0, t)]
+    small, _ = oversize_solvers_vs_plain(
+        'N=53', stencil_system(53, 9, 15, False, t), 200, 1e-7)
+    big_system = stencil_system(100_000, 993, 80_000, True, t)
+    big, plan = oversize_solvers_vs_plain('100k shape, tol 1e-3', big_system,
+                                          250, 1e-3)
+    full, _ = oversize_solvers_vs_plain('100k shape, 60 iterations',
+                                        big_system, BLOCK_SIZE_CAP, 0.0)
+    alone = tiled_kernels_vs_plain(big_system)
+    out = {'whole': (max(w[0] for w in whole), *whole[-1][1:]),
+           'plan': plan, 'alone': alone,
+           'err': {r: max(x[r][0] for x in (small, big, full))
+                   for r in ('tiled', 'fused', 'fused_bf16')}}
+    out.update(full)
     return out
 
 
@@ -1179,12 +1451,38 @@ def main():
         'N=200,000', stencil_system(200_000, 993, 160_000, True), 250, 1e-3)
     check(not past_plan['smem'], 'N=200,000 is within the fused kernel\'s '
           'shared-memory mode: it would not test the global mode')
+    # the same kernels' instantiations for the other groups' block sizes
+    by_t = {t: block_size_kernels(t) for t in (3, 4, 7)}
+    check(by_t[3]['plan']['smem'] and by_t[4]['plan']['smem']
+          and not by_t[7]['plan']['smem'],
+          'the fused plan at the 100k shape: shared-memory mode expected at '
+          't = 3 and 4 (27 and 40 floats a node), global-memory mode at '
+          't = 7 (91 floats a node, 758 nodes a CTA)')
+    for solver in (scg.stencil_cg_transposed, scg.stencil_cg_tiled,
+                   scg.stencil_cg_fused):
+        offsets5, ops5 = stencil_system(40, 9, 15, False, 5)
+        try:
+            solver(*ops5, offsets5, 5, 5, 1e-6)
+        except ValueError as e:
+            print(f'[kernel] {solver.__name__} at t=5 raises: {e}',
+                  flush=True)
+        else:
+            raise RuntimeError(f'{solver.__name__} took t=5 on the card')
     point = point_kernels_vs_plain(dev)
 
     # 4., 5., 7.-11. the paths, each counted from zero over its cold run
     first_step_agreement(dev)
     sphere_counts = sphere2500_slice(dev)
     pgo_counts, pgo_prof = pgo100k_slice(dev)
+    groups = {name: group_graph_phase(name, dev, kernel,
+                                      profiled=name == 'sim3_sphere2500')
+              for name, kernel in (('so3_sphere2500', 'whole'),
+                                   ('rxso3_sphere2500', 'whole'),
+                                   ('sim3_sphere2500', 'whole'),
+                                   ('so3_100k', 'fused'),
+                                   ('rxso3_100k', 'fused'),
+                                   ('sim3_100k', 'fused'))}
+    groups_loops = pgo_groups_phase(dev)
     icp_card_vs_cpu(dev)
     icp_counts = icp_slice(dev)
     k8_counts, k8_err, k8_ms, k8_plain, k8_torch, k8_lib = knn_k8_phase(dev)
@@ -1193,26 +1491,37 @@ def main():
     general = {'pgo-chain': pgo_chain_phase(dev),
                'pgo-loops': pgo_loops_phase(dev)}
 
-    # 9. results: each kernel's bound from this run's shapes (t = 6, two
-    # offsets; float32 operands and vectors, 4 bytes a float)
+    # results: each kernel's bound from this run's shapes (two offsets;
+    # float32 operands and vectors, 4 bytes a float)
     def route_err(route):
         return max(r[route][0] for r in (small, big, full, past))
 
-    t, tt, n_off = 6, 36, 2
+    n_off = 2
     N2500, N100k, icp_n, nnk_r = 2500, 100_000, 100_000, 20_000
+
     # the whole solve: b, A, Minv, C read once, x written once; per node
     # and iteration the matvec's tt (2 + 2 n_off) FMA with Minv, three dots
     # and three updates of t
-    pcg_bytes = 4 * N2500 * (t + 2 * tt + n_off * tt + t)
-    pcg_flop = 2 * k_it * N2500 * (tt * (2 + 2 * n_off) + 6 * t)
-    mv_b = bound(4 * N100k * (tt * (1 + n_off) + 2 * t),
-                 2 * N100k * tt * (1 + 2 * n_off))
-    pc_b = bound(4 * N100k * (tt + 2 * t), 2 * N100k * tt)
+    def pcg_bound(t, its):
+        return bound(4 * N2500 * (2 * t + (2 + n_off) * t * t),
+                     2 * its * N2500 * (t * t * (2 + 2 * n_off) + 6 * t))
+
+    def mv_bound(t):
+        return bound(4 * N100k * (t * t * (1 + n_off) + 2 * t),
+                     2 * N100k * t * t * (1 + 2 * n_off))
+
+    def pc_bound(t):
+        return bound(4 * N100k * (t * t + 2 * t), 2 * N100k * t * t)
+
     # fused Chronopoulos-Gear solve: operands once; per iteration the
     # matvec, Minv, three dots and four updates
+    def fused_bound(t, its):
+        return bound(4 * N100k * (2 * t + (2 + n_off) * t * t),
+                     2 * its * N100k * (t * t * (2 + 2 * n_off) + 7 * t))
+
+    mv_b, pc_b = mv_bound(6), pc_bound(6)
     f_it = full['fused'][3]
-    fused_b = bound(4 * N100k * (t + 2 * tt + n_off * tt + t),
-                    2 * f_it * N100k * (tt * (2 + 2 * n_off) + 7 * t))
+    fused_b = fused_bound(6, f_it)
     # nearest neighbours: 3 FMA a pair; the clouds read once, d2 and the
     # int64 index written once
     nn1_b = bound(4 * 2 * icp_n * 3 + 12 * icp_n, 6 * icp_n * icp_n)
@@ -1245,7 +1554,7 @@ def main():
     kernels = [
         entry('stencil_pcg', 'stencil_cg.cu', pallas + '101',
               sphere_counts['LAUNCHES'], max(w[0] for w in whole), k_ms,
-              p_ms, bound(pcg_bytes, pcg_flop),
+              p_ms, pcg_bound(6, k_it),
               ms_of=f'one {k_it}-iteration solve, sphere2500 shape, '
                     'operands in shared memory',
               ms_l2_operands=l2_ms,
@@ -1317,6 +1626,51 @@ def main():
               ms_of='k=16 (ms_k4: k=4), 20k x 100k slice of the ICP clouds; '
                     'knn_k8: knn(k=8) at 100k x 100k, launches from it',
               routed=True)]
+    # the same three sources at block sizes 3, 4 and 7: launches from the
+    # cold runs of the group's sphere2500 graph (whole solve) and 100k
+    # graph (fused)
+    for t, g in ((3, 'so3'), (4, 'rxso3'), (7, 'sim3')):
+        r = by_t[t]
+        w_err, w_ms, w_plain, w_it = r['whole']
+        kernels += [
+            entry(f'stencil_pcg_t{t}', 'stencil_cg.cu', pallas + '101',
+                  groups[f'{g}_sphere2500']['counts']['LAUNCHES'], w_err,
+                  w_ms, w_plain, pcg_bound(t, w_it), block_size=t,
+                  ms_of=f'one {w_it}-iteration solve, sphere2500 shape, '
+                        'operands in shared memory; launches from '
+                        f'{g}-sphere2500', routed=True),
+            entry(f'stencil_tiled_mv_t{t}', 'stencil_cg_tiled.cu',
+                  pallas + '131', 0,
+                  max(r['alone']['mv'][0], r['err']['tiled']),
+                  r['alone']['mv'][1] / 1e3, r['alone']['mv'][2] / 1e3,
+                  mv_bound(t), device_ms=r['alone']['mv'][4] / 1e3,
+                  block_size=t, routed=False,
+                  ms_of='one launch, 100k shape (device_ms: '
+                        'torch.profiler)'),
+            entry(f'stencil_tiled_pc_t{t}', 'stencil_cg_tiled.cu',
+                  pallas + '149', 0,
+                  max(r['alone']['pc'][0], r['err']['tiled']),
+                  r['alone']['pc'][1] / 1e3, r['alone']['pc'][2] / 1e3,
+                  pc_bound(t), library_ms=r['alone']['pc'][3] / 1e3,
+                  library='torch.einsum over the [t, t, N] blocks',
+                  device_ms=r['alone']['pc'][4] / 1e3, block_size=t,
+                  routed=False,
+                  ms_of='one launch, 100k shape (device_ms: '
+                        'torch.profiler)'),
+            entry(f'stencil_fused_t{t}', 'stencil_cg_fused.cu',
+                  pallas + '253, :290',
+                  groups[f'{g}_100k']['counts']['FUSED_LAUNCHES'],
+                  max(r['err']['fused'], r['err']['fused_bf16']),
+                  r['fused'][1], r['fused'][2],
+                  fused_bound(t, r['fused'][3]),
+                  ms_bf16=r['fused_bf16'][1],
+                  plain_ms_bf16=r['fused_bf16'][2], tiled_ms=r['tiled'][1],
+                  state_in='shared memory' if r['plan']['smem']
+                  else 'global memory', block_size=t, routed=True,
+                  ms_of=f'one {r["fused"][3]}-iteration solve, 100k shape, '
+                        'float32 operands (ms_bf16: bf16 operands; '
+                        'tiled_ms: the tiled solver on the same system); '
+                        f'launches from {g}-100k')]
     for kname, line in (('se3_mul', '51'), ('se3_act', '68')):
         kernels.append(entry(
             kname, 'se3.cu', 'pypose_tpu/ops/pallas_se3.py:' + line,
@@ -1328,6 +1682,13 @@ def main():
     print(f'[pgo-100k] profiled run {pgo_prof}', flush=True)
     for tag, numbers in general.items():
         print(f'[{tag}] {numbers}', flush=True)
+    for name, numbers in groups.items():
+        print(f'[{name.replace("_", "-")}] {numbers}', flush=True)
+    print(f'[pgo-groups] {groups_loops}', flush=True)
+    routed_unlaunched = [k['name'] for k in kernels
+                         if k.get('routed', True) and k['launches'] < 1]
+    check(not routed_unlaunched,
+          f'kernels on a path with no launch there: {routed_unlaunched}')
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

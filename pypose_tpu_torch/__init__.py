@@ -5,8 +5,9 @@ package's file layout; each module names its JAX counterpart.  It imports
 torch and numpy, never jax.  It covers two paths:
 
 - factor graphs (sphere2500, 100k poses, chain-dominated and random-loop
-  graphs): the SO3/SE3 Lie core (forward) with its random factories,
-  views and matrix conversions, the scalarized PGO blocks, g2o IO and the
+  graphs, over SE3 and, on the same topologies, SO3, RxSO3 and Sim3): the
+  Lie core of all four groups (forward) with its random factories, views
+  and matrix conversions, the scalarized SE3 PGO blocks, g2o IO and the
   synthetic sphere graph, the stencil and coupling-block normal
   equations (``ops.spmv``), the stencil CG kernels
   (``csrc/stencil_cg.cu`` whole-solve, ``csrc/stencil_cg_fused.cu`` for
@@ -15,7 +16,7 @@ torch and numpy, never jax.  It covers two paths:
   reduction chain preconditioner (``ops.block_tridiag``), and
   ``optim.sparse.SparseLM``, which picks among them;
 - point clouds: ``module.ICP`` over ``function.geometry.knn`` (the
-  nearest-neighbour kernels of ``csrc/knn.cu``) and ``svdtf``, with
+  nearest-neighbour kernels of ``csrc/knn.cu``), ``svdtf`` and ``svdstf``, with
   ``utils.ReduceToBason``.  The SE3 composition and action kernels of
   ``csrc/se3.cu`` (``ops.se3``) sit beside them, not routed.
 """
@@ -29,10 +30,15 @@ from . import utils  # noqa: F401
 from . import module  # noqa: F401
 from . import testing  # noqa: F401
 from .lietensor import (  # noqa: F401
-    LieTensor, SO3, so3, SE3, se3, identity_SO3, identity_so3, identity_SE3,
-    identity_se3, randn_SO3, randn_so3, randn_SE3, randn_se3, euler2SO3,
-    mat2SO3, mat2SE3)
+    LieTensor, SO3, so3, SE3, se3, Sim3, sim3, RxSO3, rxso3, identity_SO3,
+    identity_so3, identity_SE3, identity_se3, identity_Sim3, identity_sim3,
+    identity_RxSO3, identity_rxso3, randn_SO3, randn_so3, randn_SE3,
+    randn_se3, randn_Sim3, randn_sim3, randn_RxSO3, randn_rxso3, randn_like,
+    identity_like, Exp, Log, Inv, Mul, Retr, Act, Adj, AdjT, Jinvp, Jr,
+    euler2SO3, mat2SO3, mat2SE3, mat2Sim3, mat2RxSO3, from_matrix,
+    translation, rotation, scale, matrix, euler, quat2unit, vec2skew, add,
+    add_, mul)
 from .function import (  # noqa: F401
-    KNNResult, knn, svdtf, is_lietensor, is_SE3)
+    KNNResult, knn, svdtf, svdstf, is_lietensor, is_SE3)
 from .module import ICP  # noqa: F401
 from .utils import ReduceToBason  # noqa: F401

@@ -18,12 +18,17 @@
 // Design: one cluster of kCluster = 16 CTAs (a non-portable size, on 16
 // SMs of one GPC) of up to 1024 threads runs the whole loop.  CTA c owns
 // nodes [c*NL, c*NL + NL), NL = ceil(N / 16), one thread per (node, block
-// row).  Only 6-float vectors cross SMs, never 36-float blocks: node n
-// needs p at n + d_k and the back-product q_k = C_k^T p at n - d_k, both
-// computed by their owners.  Two modes, one template:
+// row), or a stride of rows a thread where t NL passes 1024 (t = 7 at
+// sphere2500: 1,099 rows).  The block size t is a template parameter,
+// instantiated for the tangent dimensions of SO3, RxSO3, SE3 and Sim3 (3,
+// 4, 6, 7; the Pallas kernel takes any static t).  Only t-float vectors
+// cross SMs, never t*t-float blocks: node n needs p at n + d_k and the
+// back-product q_k = C_k^T p at n - d_k, both computed by their owners.
+// Two modes, one template:
 //   kSmemOps = true   A, Minv, every C_k and x, z, Ap live in shared
-//                     memory, copied there once per solve (sphere2500: 792
-//                     B a node, 125 KB a CTA).  After updating p, each
+//                     memory, copied there once per solve (sphere2500 at
+//                     t = 6: 792 B a node, 125 KB a CTA; at t = 7 163 KB,
+//                     at t = 3 40 KB).  After updating p, each
 //                     owner pushes p and q_k of its rows into the CTAs that
 //                     need them (st.async into their buffers pf, qg, each
 //                     store completing on the receiver's mbarrier); a CTA
@@ -49,8 +54,9 @@
 // reduction to which every receiver contributed after its last read.
 //
 // What bounds it on an H100: the chain of dependent steps, not bytes or
-// FLOPs.  The arithmetic is ~252 FMA per node per iteration (2500 nodes:
-// 2.8 us for 150 iterations at 67 TFLOP/s) and the operands are 1.56 MB;
+// FLOPs.  At t = 6 the arithmetic is ~252 FMA per node per iteration (2500
+// nodes: 2.8 us for 150 iterations at 67 TFLOP/s) and the operands are
+// 1.56 MB;
 // each iteration waits for three cluster-wide exchanges and four in-CTA
 // barriers, and with ~30 warps an SM each phase's instructions take
 // hundreds of issue cycles (pypose_tpu_torch/probes/cluster_probes.py
@@ -72,8 +78,6 @@ namespace {
 
 using ppt::Offsets;
 
-constexpr int kT = 6;
-constexpr int kTT = kT * kT;
 constexpr int kCluster = 16;
 constexpr int kMaxThreads = 1024;
 // floats ahead of the vectors: the p.Ap slots [16], the r.z / |r|^2 slots
@@ -86,10 +90,11 @@ constexpr int kMbarA = 0, kMbarB = 1, kMbarG = 2;
 // (n_off t) with the operands in L2; with the operands in shared memory,
 // x, z, Ap (3t), the pushed p at n + d_k and q_k at n - d_k (2 n_off t),
 // A, Minv (2tt) and every C_k (n_off tt).
-size_t smem_floats(bool smem_ops, int NL, int n_off) {
+size_t smem_floats(bool smem_ops, int NL, int n_off, int t) {
   const size_t k = static_cast<size_t>(n_off);
-  size_t per_node = 2 * kT;
-  per_node += smem_ops ? 3 * kT + 2 * k * kT + 2 * kTT + k * kTT : k * kT;
+  const size_t tt = static_cast<size_t>(t) * t;
+  size_t per_node = 2 * t;
+  per_node += smem_ops ? 3 * t + 2 * k * t + 2 * tt + k * tt : k * t;
   return kHeader + per_node * NL;
 }
 
@@ -187,7 +192,7 @@ __device__ __forceinline__ void cluster_sum(float (&v)[NV], float* sm,
   }
 }
 
-template <bool kSmemOps>
+template <int T, bool kSmemOps>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
                     const float* __restrict__ Minv,
@@ -195,6 +200,7 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
                     int N, int NL, int maxiter, float tol2_scale,
                     float* x_out, float* scratch, int* it_out) {
   extern __shared__ __align__(16) float sm[];
+  constexpr int TT = T * T;
   cg::cluster_group cl = cg::this_cluster();
   const int rank = static_cast<int>(cl.block_rank());
   const int n0 = rank * NL;
@@ -202,7 +208,7 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
   const size_t NN = static_cast<size_t>(N);
 
   float* p = sm + kHeader;  // [t][NL]
-  float* r = p + kT * NL;   // [t][NL]
+  float* r = p + T * NL;    // [t][NL]
   float* q = nullptr;       // [n_off][t][NL], operands in L2: read remotely
   float* pf = nullptr;      // [n_off][t][NL]: p at n + d_k, pushed here
   float* qg = nullptr;      // [n_off][t][NL]: q_k at n - d_k, pushed here
@@ -210,20 +216,20 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
   const float *Ao, *Mo, *Co;  // [tt][os], [tt][os], [n_off*tt][os]
   int vs, os;               // row strides (N < 2^31 / (16 tt) here)
   if constexpr (kSmemOps) {
-    x = r + kT * NL;
-    z = x + kT * NL;
-    Ap = z + kT * NL;
-    pf = Ap + kT * NL;
-    qg = pf + n_off * kT * NL;
-    float* a = qg + n_off * kT * NL;
-    float* m = a + kTT * NL;
-    float* c = m + kTT * NL;
-    for (int e = threadIdx.x; e < kTT * n_own; e += blockDim.x) {
+    x = r + T * NL;
+    z = x + T * NL;
+    Ap = z + T * NL;
+    pf = Ap + T * NL;
+    qg = pf + n_off * T * NL;
+    float* a = qg + n_off * T * NL;
+    float* m = a + TT * NL;
+    float* c = m + TT * NL;
+    for (int e = threadIdx.x; e < TT * n_own; e += blockDim.x) {
       const int i = e / n_own, nl = e - i * n_own;
       a[i * NL + nl] = A[i * NN + n0 + nl];
       m[i * NL + nl] = Minv[i * NN + n0 + nl];
     }
-    for (int e = threadIdx.x; e < n_off * kTT * n_own; e += blockDim.x) {
+    for (int e = threadIdx.x; e < n_off * TT * n_own; e += blockDim.x) {
       const int i = e / n_own, nl = e - i * n_own;
       c[i * NL + nl] = C[i * NN + n0 + nl];
     }
@@ -232,10 +238,10 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
     Co = c;
     vs = os = NL;
   } else {
-    q = r + kT * NL;
+    q = r + T * NL;
     x = x_out + n0;
     z = scratch + n0;
-    Ap = scratch + kT * NN + n0;
+    Ap = scratch + T * NN + n0;
     Ao = A + n0;
     Mo = Minv + n0;
     Co = C + n0;
@@ -253,13 +259,13 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
 
   // This thread's rows j = threadIdx.x + m * blockDim.x, as (block row i,
   // local node nl) with j = i * n_own + nl, stepped without divisions.
-  const int i0 = n_own > 0 ? static_cast<int>(threadIdx.x) / n_own : kT;
+  const int i0 = n_own > 0 ? static_cast<int>(threadIdx.x) / n_own : T;
   const int nl0 = n_own > 0 ? static_cast<int>(threadIdx.x) - i0 * n_own : 0;
   const int di = n_own > 0 ? static_cast<int>(blockDim.x) / n_own : 0;
   const int dnl = static_cast<int>(blockDim.x) - di * n_own;
   auto for_rows = [&](auto&& f) {
     int i = i0, nl = nl0;
-    while (i < kT) {
+    while (i < T) {
       f(i, nl);
       i += di;
       nl += dnl;
@@ -278,11 +284,11 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
   };
   // q_k = C_k^T p at row (i, nl), from this CTA's p
   auto back = [&](int k, int i, int nl) {
-    const float* ck = Co + k * kTT * os;
+    const float* ck = Co + k * TT * os;
     float acc = 0.f;
 #pragma unroll
-    for (int u = 0; u < kT; ++u)
-      acc += ck[(u * kT + i) * os + nl] * p[u * NL + nl];
+    for (int u = 0; u < T; ++u)
+      acc += ck[(u * T + i) * os + nl] * p[u * NL + nl];
     return acc;
   };
   // operands in shared memory: push p_i at node n0 + nl to the node at
@@ -294,7 +300,7 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
       int n = m - offs.d[k];
       if (n < 0) n += N;
       const int o = owner(n);
-      push(in_rank(smem_addr(pf + (k * kT + i) * NL + n - o * NL), o), v,
+      push(in_rank(smem_addr(pf + (k * T + i) * NL + n - o * NL), o), v,
            in_rank(mbar0 + 8 * kMbarG, o));
     }
   };
@@ -304,20 +310,20 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
       int n = m + offs.d[k];
       if (n >= N) n -= N;
       const int o = owner(n);
-      push(in_rank(smem_addr(qg + (k * kT + i) * NL + n - o * NL), o),
+      push(in_rank(smem_addr(qg + (k * T + i) * NL + n - o * NL), o),
            back(k, i, nl), in_rank(mbar0 + 8 * kMbarG, o));
     }
   };
   // operands in L2: store q for the readers
   auto store_q = [&](int i, int nl) {
-    for (int k = 0; k < n_off; ++k) q[(k * kT + i) * NL + nl] = back(k, i, nl);
+    for (int k = 0; k < n_off; ++k) q[(k * T + i) * NL + nl] = back(k, i, nl);
   };
   // z = Minv r at row (i, nl)
   auto precond = [&](int i, int nl) {
     float acc = 0.f;
 #pragma unroll
-    for (int u = 0; u < kT; ++u)
-      acc += Mo[(i * kT + u) * os + nl] * r[u * NL + nl];
+    for (int u = 0; u < T; ++u)
+      acc += Mo[(i * T + u) * os + nl] * r[u * NL + nl];
     return acc;
   };
 
@@ -359,7 +365,7 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
     // Ap = A p (p at n + d_k, q_k at n - d_k) and p.Ap
     if constexpr (kSmemOps) {
       if (threadIdx.x == 0)
-        expect(mbar0 + 8 * kMbarG, 4 * 2 * n_off * kT * n_own);
+        expect(mbar0 + 8 * kMbarG, 4 * 2 * n_off * T * n_own);
       wait_phase(mbar0 + 8 * kMbarG, phase_g);
       phase_g ^= 1;
     }
@@ -368,14 +374,14 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
       const int n = n0 + nl;
       float y = 0.f;
 #pragma unroll
-      for (int u = 0; u < kT; ++u)
-        y += Ao[(i * kT + u) * os + nl] * p[u * NL + nl];
+      for (int u = 0; u < T; ++u)
+        y += Ao[(i * T + u) * os + nl] * p[u * NL + nl];
       for (int k = 0; k < n_off; ++k) {
         const float* pk;
         float qb;
         if constexpr (kSmemOps) {
-          pk = pf + k * kT * NL + nl;
-          qb = qg[(k * kT + i) * NL + nl];
+          pk = pf + k * T * NL + nl;
+          qb = qg[(k * T + i) * NL + nl];
         } else {
           const int d = offs.d[k];
           int nf = n + d;
@@ -384,12 +390,12 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
           if (nb < 0) nb += N;
           const int of = owner(nf), ob = owner(nb);
           pk = cl.map_shared_rank(p, of) + nf - of * NL;
-          qb = cl.map_shared_rank(q, ob)[(k * kT + i) * NL + nb - ob * NL];
+          qb = cl.map_shared_rank(q, ob)[(k * T + i) * NL + nb - ob * NL];
         }
-        const float* ck = Co + (k * kT + i) * kT * os;
+        const float* ck = Co + (k * T + i) * T * os;
         float acc = 0.f;
 #pragma unroll
-        for (int u = 0; u < kT; ++u) acc += ck[u * os + nl] * pk[u * NL];
+        for (int u = 0; u < T; ++u) acc += ck[u * os + nl] * pk[u * NL];
         y += acc;
         y += qb;
       }
@@ -456,13 +462,13 @@ int smem_optin_bytes() {
   return bytes;
 }
 
-template <bool kSmemOps>
+template <int T, bool kSmemOps>
 cudaError_t launch(const float* b, const float* A, const float* Minv,
                    const float* C, const Offsets& offs, int n_off, int N,
                    int NL, int maxiter, float tol2_scale, float* x,
                    float* scratch, int* it, size_t bytes,
                    cudaStream_t stream) {
-  auto kernel = stencil_pcg_cluster<kSmemOps>;
+  auto kernel = stencil_pcg_cluster<T, kSmemOps>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess)
@@ -472,7 +478,7 @@ cudaError_t launch(const float* b, const float* A, const float* Minv,
   if (e != cudaSuccess) return e;
   // one thread per (node, block row) of the largest CTA, whole warps
   const int threads =
-      std::min(kMaxThreads, std::max(32, (kT * NL + 31) / 32 * 32));
+      std::min(kMaxThreads, std::max(32, (T * NL + 31) / 32 * 32));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster);
   cfg.blockDim = dim3(threads);
@@ -495,6 +501,32 @@ cudaError_t launch(const float* b, const float* A, const float* Minv,
   return cudaGetLastError();
 }
 
+// The solve at block size T: operands in shared memory if they fit, else
+// in L2 (see ppt_stencil_pcg).
+template <int T>
+int solve(const float* b, const float* A, const float* Minv, const float* C,
+          const int* offsets, int n_off, int N, int maxiter, double tol,
+          float* x, float* scratch, int* it, void* stream) {
+  Offsets offs;
+  if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // same rounding as (tol * tol) * |b|^2 with a float32 |b|^2
+  const float tol2_scale = static_cast<float>(tol * tol);
+  const int NL = (N + kCluster - 1) / kCluster;
+  const size_t limit = static_cast<size_t>(smem_optin_bytes());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t with_ops = sizeof(float) * smem_floats(true, NL, n_off, T);
+  if (with_ops <= limit)
+    return static_cast<int>(launch<T, true>(b, A, Minv, C, offs, n_off, N,
+                                            NL, maxiter, tol2_scale, x,
+                                            scratch, it, with_ops, s));
+  const size_t state = sizeof(float) * smem_floats(false, NL, n_off, T);
+  if (state > limit) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<T, false>(b, A, Minv, C, offs, n_off, N, NL,
+                                           maxiter, tol2_scale, x, scratch,
+                                           it, state, s));
+}
+
 }  // namespace
 
 extern "C" {
@@ -502,33 +534,31 @@ extern "C" {
 // Launches the solve on `stream` and returns a CUDA error code (0 on
 // success).  `offsets` is a host array of n_off circular offsets in
 // [0, N); `scratch` holds 2*t*N floats (z and Ap when the operands do not
-// fit shared memory); `it` receives the iteration count.  Only t = 6 is
-// instantiated.  The operands go to shared memory when smem_floats(true)
-// fits the device's opt-in limit, else the state alone must fit
-// (cudaErrorInvalidValue if not); a cluster of 16 that cannot be placed
-// returns cudaErrorInvalidClusterSize.
+// fit shared memory); `it` receives the iteration count.  Instantiated for
+// t = 3, 4, 6 and 7 (any other t: cudaErrorInvalidValue).  The operands go
+// to shared memory when smem_floats(true) fits the device's opt-in limit,
+// else the state alone must fit (cudaErrorInvalidValue if not); a cluster
+// of 16 that cannot be placed returns cudaErrorInvalidClusterSize.
 int ppt_stencil_pcg(int t, const float* b, const float* A, const float* Minv,
                     const float* C, const int* offsets, int n_off, int N,
                     int maxiter, double tol, float* x, float* scratch,
                     int* it, void* stream) {
-  Offsets offs;
-  if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0 || t != kT)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // same rounding as (tol * tol) * |b|^2 with a float32 |b|^2
-  const float tol2_scale = static_cast<float>(tol * tol);
-  const int NL = (N + kCluster - 1) / kCluster;
-  const size_t limit = static_cast<size_t>(smem_optin_bytes());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t with_ops = sizeof(float) * smem_floats(true, NL, n_off);
-  if (with_ops <= limit)
-    return static_cast<int>(launch<true>(b, A, Minv, C, offs, n_off, N, NL,
-                                         maxiter, tol2_scale, x, scratch, it,
-                                         with_ops, s));
-  const size_t state = sizeof(float) * smem_floats(false, NL, n_off);
-  if (state > limit) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<false>(b, A, Minv, C, offs, n_off, N, NL,
-                                        maxiter, tol2_scale, x, scratch, it,
-                                        state, s));
+  switch (t) {
+    case 3:
+      return solve<3>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+    case 4:
+      return solve<4>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+    case 6:
+      return solve<6>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+    case 7:
+      return solve<7>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* ppt_cuda_error_string(int code) {

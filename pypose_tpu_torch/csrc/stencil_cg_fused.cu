@@ -37,11 +37,15 @@
 // pass 2), so a CTA never overwrites a post another CTA has yet to read.
 // A poll that spins 2^26 times traps, so a lost post fails the launch
 // instead of hanging.
-// Two modes, one template:
+// The block size t is a template parameter, instantiated for 3, 4, 6 and 7
+// (the tangent dimensions of SO3, RxSO3, SE3 and Sim3; the Pallas kernels
+// take any static t).  Two modes, one template:
 //   kSmem = true   x, r, p, s, w, this CTA's u (6t floats a node) and its
 //                  Minv, widened to float32 (tt floats), live in shared
-//                  memory: 288 B a node, 218 KB a CTA at the 100k-pose
-//                  graph (N = 100,000 on 132 SMs: NL = 758);
+//                  memory: at t = 6 288 B a node, 218 KB a CTA at the
+//                  100k-pose graph (N = 100,000 on 132 SMs: NL = 758); at
+//                  t = 7 364 B a node, so at most 637 nodes a CTA and the
+//                  100k-pose graph takes the second mode;
 //   kSmem = false  past that, they stay in global memory (x in the output,
 //                  r, p, s, w in scratch, u in the global copy), each
 //                  thread touching only its own nodes.
@@ -54,8 +58,8 @@
 // per node.
 //
 // What bounds it on an H100 (probes/fused_probes.py, cycles of thread 0 a
-// CTA per iteration): in float32 at the 100k shape, device memory: A and
-// C (43.2 MB) do not stay in the 50 MB L2 from one iteration to the next
+// CTA per iteration; t = 6): in float32 at the 100k shape, device memory:
+// A and C (43.2 MB) do not stay in the 50 MB L2 from one iteration to the next
 // (L2 eviction hints and prefetches did not change that), and the
 // couplings of pass 2 take ~27k of ~47k cycles; in bf16 (21.6 MB, L2-
 // resident) the latency of each thread's chain of operand loads in pass 2
@@ -76,8 +80,6 @@ namespace {
 
 using ppt::Offsets;
 
-constexpr int kT = 6;
-constexpr int kTT = kT * kT;
 // 85 registers a thread: enough loads in flight for the matvec
 constexpr int kMaxThreads = 768;
 constexpr int kMaxWarps = kMaxThreads / 32;
@@ -87,8 +89,8 @@ constexpr int kStaticBytes = 512;
 constexpr unsigned kMaxPolls = 1u << 26;
 
 // Floats of dynamic shared memory a CTA holds in the first mode.
-size_t smem_floats(int NL) {
-  return static_cast<size_t>(NL) * (6 * kT + kTT);
+size_t smem_floats(int NL, int t) {
+  return static_cast<size_t>(NL) * (6 * t + t * t);
 }
 
 __device__ __forceinline__ float guard(float v) {
@@ -160,7 +162,7 @@ __device__ __forceinline__ void gather(const unsigned long long* set, int G,
   }
 }
 
-template <typename OpT, bool kSmem>
+template <int T, typename OpT, bool kSmem>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
           const OpT* __restrict__ Minv, const OpT* __restrict__ C,
@@ -169,6 +171,7 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
           float* __restrict__ scratch, unsigned long long* mail,
           int* it_out) {
   extern __shared__ __align__(16) float sm[];
+  constexpr int TT = T * T;
   __shared__ float red[66];  // ppt::block_sum2
   __shared__ float tot[kMaxWarps * 2];
   const int G = static_cast<int>(gridDim.x);
@@ -184,8 +187,8 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
   if constexpr (kSmem) {
     x = sm;
     vs = NL;
-    float* m = sm + 6 * kT * NL;
-    for (int e = threadIdx.x; e < kTT * n_own; e += blockDim.x) {
+    float* m = sm + 6 * T * NL;
+    for (int e = threadIdx.x; e < TT * n_own; e += blockDim.x) {
       const int i = e / n_own, nl = e - i * n_own;
       m[i * NL + nl] = ppt::to_f32(Minv[i * NN + n0 + nl]);
     }
@@ -194,17 +197,17 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
     x = x_out + n0;
     vs = N;
   }
-  r = (kSmem ? x + kT * NL : scratch + n0);
-  p = r + kT * static_cast<size_t>(vs);
-  s = p + kT * static_cast<size_t>(vs);
-  w = s + kT * static_cast<size_t>(vs);
-  uo = kSmem ? w + kT * NL : u + n0;
+  r = (kSmem ? x + T * NL : scratch + n0);
+  p = r + T * static_cast<size_t>(vs);
+  s = p + T * static_cast<size_t>(vs);
+  w = s + T * static_cast<size_t>(vs);
+  uo = kSmem ? w + T * NL : u + n0;
 
   // x = p = s = w = u = 0, r = b: pass 1 with alpha = 0 then gives the
   // init pass's x0, r0, u0
   for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
+    for (int i = 0; i < T; ++i) {
       const int j = i * vs + nl;
       r[j] = b[i * NN + n0 + nl];
       x[j] = p[j] = s[j] = w[j] = uo[j] = 0.f;
@@ -222,9 +225,9 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
     float part[2] = {0.f, 0.f};
     for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
       const size_t n = static_cast<size_t>(n0 + nl);
-      float rv[kT], zv[kT];
+      float rv[T], zv[T];
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
+      for (int i = 0; i < T; ++i) {
         const int j = i * vs + nl;
         x[j] = x[j] + alpha * p[j];
         rv[i] = r[j] - alpha * s[j];
@@ -232,11 +235,11 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
         zv[i] = 0.f;
       }
       if constexpr (kSmem)
-        ppt::block_mul_add<kT, false>(Ms, NL, nl, rv, zv);
+        ppt::block_mul_add<T, false>(Ms, NL, nl, rv, zv);
       else
-        ppt::block_mul_add<kT, false>(Minv, NN, static_cast<int>(n), rv, zv);
+        ppt::block_mul_add<T, false>(Minv, NN, static_cast<int>(n), rv, zv);
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
+      for (int i = 0; i < T; ++i) {
         uo[i * vs + nl] = zv[i];
         if (kSmem) u[i * NN + n] = zv[i];
         part[0] += rv[i] * zv[i];
@@ -249,15 +252,15 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
 
     // while the others post: w = A u at this CTA's nodes (own u only)
     for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
-      float un[kT], y[kT];
+      float un[T], y[T];
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
+      for (int i = 0; i < T; ++i) {
         un[i] = uo[i * vs + nl];
         y[i] = 0.f;
       }
-      ppt::block_mul_add<kT, false>(A, NN, n0 + nl, un, y);
+      ppt::block_mul_add<T, false>(A, NN, n0 + nl, un, y);
 #pragma unroll
-      for (int i = 0; i < kT; ++i) w[i * vs + nl] = y[i];
+      for (int i = 0; i < T; ++i) w[i * vs + nl] = y[i];
     }
     float dots[2];
     gather<2>(mail_1, G, e, dots, tot);
@@ -271,25 +274,25 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
     float wu = 0.f, unused = 0.f;
     for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
       const int n = n0 + nl;
-      float y[kT], q[kT];
+      float y[T], q[T];
 #pragma unroll
-      for (int i = 0; i < kT; ++i) y[i] = w[i * vs + nl];
+      for (int i = 0; i < T; ++i) y[i] = w[i * vs + nl];
       for (int k = 0; k < n_off; ++k) {
         const int d = offs.d[k];
-        const OpT* Ck = C + k * kTT * NN;
+        const OpT* Ck = C + k * TT * NN;
         int nf = n + d;
         if (nf >= N) nf -= N;
         int nb = n - d;
         if (nb < 0) nb += N;
 #pragma unroll
-        for (int v = 0; v < kT; ++v) q[v] = __ldcg(u + v * NN + nf);
-        ppt::block_mul_add<kT, false>(Ck, NN, n, q, y);
+        for (int v = 0; v < T; ++v) q[v] = __ldcg(u + v * NN + nf);
+        ppt::block_mul_add<T, false>(Ck, NN, n, q, y);
 #pragma unroll
-        for (int v = 0; v < kT; ++v) q[v] = __ldcg(u + v * NN + nb);
-        ppt::block_mul_add<kT, true>(Ck, NN, nb, q, y);
+        for (int v = 0; v < T; ++v) q[v] = __ldcg(u + v * NN + nb);
+        ppt::block_mul_add<T, true>(Ck, NN, nb, q, y);
       }
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
+      for (int i = 0; i < T; ++i) {
         w[i * vs + nl] = y[i];
         wu += y[i] * uo[i * vs + nl];
       }
@@ -303,7 +306,7 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
     const float beta = init ? 0.f : dots[0] / guard(gamma);
     for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
+      for (int i = 0; i < T; ++i) {
         const int j = i * vs + nl;
         p[j] = uo[j] + beta * p[j];
         s[j] = w[j] + beta * s[j];
@@ -321,7 +324,7 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
   if constexpr (kSmem) {
     for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
 #pragma unroll
-      for (int i = 0; i < kT; ++i) x_out[i * NN + n0 + nl] = x[i * vs + nl];
+      for (int i = 0; i < T; ++i) x_out[i * NN + n0 + nl] = x[i * vs + nl];
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *it_out = it;
@@ -333,7 +336,7 @@ struct Plan {
 
 // The layout of a solve of N nodes on the current device (see the file
 // comment); false if the device query fails.
-bool make_plan(int N, Plan* out) {
+bool make_plan(int N, int t, Plan* out) {
   int dev = 0, sms = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -346,19 +349,19 @@ bool make_plan(int N, Plan* out) {
   out->NL = NL;
   out->grid = (N + NL - 1) / NL;
   out->threads = std::min(kMaxThreads, (NL + 31) / 32 * 32);
-  out->smem = sizeof(float) * smem_floats(NL) + kStaticBytes <=
+  out->smem = sizeof(float) * smem_floats(NL, t) + kStaticBytes <=
               static_cast<size_t>(optin);
   return true;
 }
 
-template <typename OpT, bool kSmem>
+template <int T, typename OpT, bool kSmem>
 cudaError_t launch(const Plan& plan, const float* b, const OpT* A,
                    const OpT* Minv, const OpT* C, Offsets offs, int n_off,
                    int N, int maxiter, float tol2_scale, float* x, float* u,
                    float* scratch, unsigned long long* mail, int* it,
                    cudaStream_t stream) {
-  auto kernel = fused_pcg<OpT, kSmem>;
-  const size_t bytes = kSmem ? sizeof(float) * smem_floats(plan.NL) : 0;
+  auto kernel = fused_pcg<T, OpT, kSmem>;
+  const size_t bytes = kSmem ? sizeof(float) * smem_floats(plan.NL, T) : 0;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -383,7 +386,7 @@ cudaError_t launch(const Plan& plan, const float* b, const OpT* A,
   return cudaGetLastError();
 }
 
-template <typename OpT>
+template <int T, typename OpT>
 int solve(const float* b, const void* A, const void* Minv, const void* C,
           const int* offsets, int n_off, int N, int maxiter, double tol,
           float* x, float* u, float* scratch, unsigned long long* mail,
@@ -392,7 +395,8 @@ int solve(const float* b, const void* A, const void* Minv, const void* C,
   Plan plan;
   if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!make_plan(N, &plan)) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!make_plan(N, T, &plan))
+    return static_cast<int>(cudaErrorInvalidDevice);
   // same rounding as (tol * tol) * |b|^2 with a float32 |b|^2
   const float tol2_scale = static_cast<float>(tol * tol);
   const auto* a = static_cast<const OpT*>(A);
@@ -400,26 +404,55 @@ int solve(const float* b, const void* A, const void* Minv, const void* C,
   const auto* c = static_cast<const OpT*>(C);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      plan.smem ? launch<OpT, true>(plan, b, a, m, c, offs, n_off, N, maxiter,
-                                    tol2_scale, x, u, scratch, mail, it, s)
-                : launch<OpT, false>(plan, b, a, m, c, offs, n_off, N,
-                                     maxiter, tol2_scale, x, u, scratch,
-                                     mail, it, s);
+      plan.smem
+          ? launch<T, OpT, true>(plan, b, a, m, c, offs, n_off, N, maxiter,
+                                 tol2_scale, x, u, scratch, mail, it, s)
+          : launch<T, OpT, false>(plan, b, a, m, c, offs, n_off, N, maxiter,
+                                  tol2_scale, x, u, scratch, mail, it, s);
   return static_cast<int>(e);
+}
+
+// True for the block sizes the kernel is instantiated for.
+bool block_size_ok(int t) { return t == 3 || t == 4 || t == 6 || t == 7; }
+
+template <typename OpT>
+int solve_t(int t, const float* b, const void* A, const void* Minv,
+            const void* C, const int* offsets, int n_off, int N, int maxiter,
+            double tol, float* x, float* u, float* scratch,
+            unsigned long long* mail, int* it, void* stream) {
+  switch (t) {
+    case 3:
+      return solve<3, OpT>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                           u, scratch, mail, it, stream);
+    case 4:
+      return solve<4, OpT>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                           u, scratch, mail, it, stream);
+    case 6:
+      return solve<6, OpT>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                           u, scratch, mail, it, stream);
+    case 7:
+      return solve<7, OpT>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                           u, scratch, mail, it, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// The layout of a solve of N nodes on the current device: out[0] CTAs,
-// out[1] nodes a CTA, out[2] threads a CTA, out[3] 1 if the state and Minv
-// live in shared memory.  ppt_fused_pcg's mailboxes hold 4 * out[0]
-// 64-bit words.  Returns a CUDA error code (0 on success).
-int ppt_fused_plan(int N, int* out) {
+// The layout of a solve of N nodes of block size t on the current device:
+// out[0] CTAs, out[1] nodes a CTA, out[2] threads a CTA, out[3] 1 if the
+// state and Minv live in shared memory (6t + tt floats a node).
+// ppt_fused_pcg's mailboxes hold 4 * out[0] 64-bit words.  Returns a CUDA
+// error code (0 on success).
+int ppt_fused_plan(int N, int t, int* out) {
   Plan plan;
-  if (N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (!make_plan(N, &plan)) return static_cast<int>(cudaErrorInvalidDevice);
+  if (N <= 0 || !block_size_ok(t))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_plan(N, t, &plan))
+    return static_cast<int>(cudaErrorInvalidDevice);
   out[0] = plan.grid;
   out[1] = plan.NL;
   out[2] = plan.threads;
@@ -434,18 +467,18 @@ int ppt_fused_plan(int N, int* out) {
 // `offsets` a host array of n_off circular offsets in [0, N); scratch
 // 4*t*N floats (r, p, s, w, used past the shared-memory mode); `mail`
 // 4 * ppt_fused_plan's CTAs 64-bit words, zero; `it` receives the
-// iteration count.  t = 6 only.
+// iteration count.  Instantiated for t = 3, 4, 6 and 7 (any other t:
+// cudaErrorInvalidValue).
 int ppt_fused_pcg(int t, int bf16, const float* b, const void* A,
                   const void* Minv, const void* C, const int* offsets,
                   int n_off, int N, int maxiter, double tol, float* x,
                   float* u, float* scratch, unsigned long long* mail,
                   int* it, void* stream) {
-  if (t != kT) return static_cast<int>(cudaErrorInvalidValue);
-  return bf16 ? solve<__nv_bfloat16>(b, A, Minv, C, offsets, n_off, N,
-                                     maxiter, tol, x, u, scratch, mail,
-                                     it, stream)
-              : solve<float>(b, A, Minv, C, offsets, n_off, N, maxiter, tol,
-                             x, u, scratch, mail, it, stream);
+  return bf16 ? solve_t<__nv_bfloat16>(t, b, A, Minv, C, offsets, n_off, N,
+                                       maxiter, tol, x, u, scratch, mail,
+                                       it, stream)
+              : solve_t<float>(t, b, A, Minv, C, offsets, n_off, N, maxiter,
+                               tol, x, u, scratch, mail, it, stream);
 }
 
 const char* ppt_cuda_error_string(int code) {

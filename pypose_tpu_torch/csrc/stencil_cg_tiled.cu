@@ -14,7 +14,8 @@
 // (pypose_tpu_torch/ops/stencil_cg.py:_tiled_cg).
 //
 // Design: one thread per node, 256 threads a block, the grid over all
-// nodes, so every SM streams its share of the operands.  Neighbouring
+// nodes, so every SM streams its share of the operands.  The block size t
+// is a template parameter, instantiated for 3, 4, 6 and 7.  Neighbouring
 // threads read neighbouring addresses of every [*, N] row.
 //
 // What bounds it on an H100: device-memory bandwidth.  At the 100k-pose
@@ -74,30 +75,72 @@ tiled_pc_kernel(const float* __restrict__ Minv, int N,
 
 int blocks_for(int N) { return (N + kThreads - 1) / kThreads; }
 
+template <int T>
+void launch_mv(const float* A, const float* C, const ppt::Offsets& offs,
+               int n_off, int N, const float* p, float* q, cudaStream_t s) {
+  tiled_mv_kernel<T><<<blocks_for(N), kThreads, 0, s>>>(A, C, offs, n_off, N,
+                                                        p, q);
+}
+
+template <int T>
+void launch_pc(const float* Minv, int N, const float* r, float* z,
+               cudaStream_t s) {
+  tiled_pc_kernel<T><<<blocks_for(N), kThreads, 0, s>>>(Minv, N, r, z);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q = A p on `stream`; returns cudaGetLastError() (0 on success).
-// `offsets` is a host array of n_off circular offsets in [0, N).  Only
-// t = 6 is instantiated.
+// `offsets` is a host array of n_off circular offsets in [0, N).
+// Instantiated for t = 3, 4, 6 and 7 (any other t: cudaErrorInvalidValue).
 int ppt_tiled_mv(int t, const float* A, const float* C, const int* offsets,
                  int n_off, int N, const float* p, float* q, void* stream) {
   ppt::Offsets offs;
-  if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0 || t != 6)
+  if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  tiled_mv_kernel<6><<<blocks_for(N), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      A, C, offs, n_off, N, p, q);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (t) {
+    case 3:
+      launch_mv<3>(A, C, offs, n_off, N, p, q, s);
+      break;
+    case 4:
+      launch_mv<4>(A, C, offs, n_off, N, p, q, s);
+      break;
+    case 6:
+      launch_mv<6>(A, C, offs, n_off, N, p, q, s);
+      break;
+    case 7:
+      launch_mv<7>(A, C, offs, n_off, N, p, q, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// z = Minv r on `stream`; returns cudaGetLastError().  t = 6 only.
+// z = Minv r on `stream`; returns cudaGetLastError().  t as ppt_tiled_mv.
 int ppt_tiled_pc(int t, const float* Minv, int N, const float* r, float* z,
                  void* stream) {
-  if (N <= 0 || t != 6) return static_cast<int>(cudaErrorInvalidValue);
-  tiled_pc_kernel<6><<<blocks_for(N), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(Minv, N, r, z);
+  if (N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (t) {
+    case 3:
+      launch_pc<3>(Minv, N, r, z, s);
+      break;
+    case 4:
+      launch_pc<4>(Minv, N, r, z, s);
+      break;
+    case 6:
+      launch_pc<6>(Minv, N, r, z, s);
+      break;
+    case 7:
+      launch_pc<7>(Minv, N, r, z, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
-r"""Nearest neighbours and rigid alignment: ``knn`` and ``svdtf``.
+r"""Nearest neighbours and rigid or similarity alignment: ``knn``,
+``svdtf`` and ``svdstf``.
 
-Counterpart of ``pypose_tpu/function/geometry.py:22, 102-229``.  ``knn``
+Counterpart of ``pypose_tpu/function/geometry.py:22, 102-268``.  ``knn``
 keeps the JAX package's routes: the dense distance matrix up to 64 Mi
 pairs, above it (or with an explicit ``chunk``) :func:`_knn_tiled`, which
 sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel and
@@ -17,7 +18,7 @@ from collections import namedtuple
 
 import torch
 
-from ..lietensor.convert import mat2SE3
+from ..lietensor.convert import mat2SE3, mat2Sim3
 from ..ops import knn as knn_ops
 from ..optim.sparse import require_full_fp32
 
@@ -136,3 +137,46 @@ def svdtf(source, target):
     R = torch.where(flip[..., None, None], -R, R)
     t = ctntarget.mT - R @ ctnsource.mT
     return mat2SE3(torch.cat([R, t], dim=-1), check=False)
+
+
+def svdstf(source, target, with_scale=True):
+    r"""Similarity alignment (Umeyama): the Sim3 ``T`` minimizing
+    :math:`\sum_i \|T \cdot s_i - t_i\|^2` for ``(*, N, 3)`` clouds; with
+    ``with_scale=False`` the scale is 1.  The 3x3 SVD and determinant go
+    through torch.linalg; TF32 is turned off.
+
+    Example:
+        >>> import torch
+        >>> from pypose_tpu_torch.function.geometry import svdstf
+        >>> src = torch.tensor([[0., 0, 0], [1, 0, 0], [0, 2, 0], [0, 0, 3]])
+        >>> T = svdstf(src, 2 * src + torch.tensor([1., 2., 3.])).tensor()
+        >>> bool(torch.allclose(
+        ...     T, torch.tensor([1., 2., 3., 0, 0, 0, 1, 2]), atol=1e-6))
+        True
+    """
+    if source.shape[-2] != target.shape[-2]:
+        raise ValueError('The number of points N has to be the same for '
+                         'both point clouds.')
+    if source.shape[-1] != 3 or target.shape[-1] != 3:
+        raise ValueError('svdstf takes (*, N, 3) clouds')
+    require_full_fp32(source.device)
+    N = source.shape[-2]
+    ctnsource = source.mean(dim=-2, keepdim=True)
+    ctntarget = target.mean(dim=-2, keepdim=True)
+    source_ = source - ctnsource
+    target_ = target - ctntarget
+    U, D, V = torch.linalg.svd(target_.mT @ source_ / N)
+    M = torch.eye(3, dtype=U.dtype, device=U.device).repeat(
+        U.shape[:-2] + (1, 1))
+    M[..., -1, -1] = torch.sign(torch.linalg.det(U @ V))
+    if with_scale:
+        var_source = (torch.linalg.norm(source_, dim=-1) ** 2).mean(
+            dim=-1, keepdim=True)
+        scale = torch.sum(torch.diagonal(M, dim1=-2, dim2=-1) * D, dim=-1,
+                          keepdim=True) / var_source
+    else:
+        scale = torch.ones_like(D[..., 0:1])
+    scale = scale[..., None]
+    R = U @ M @ V
+    t = ctntarget.mT - scale * R @ ctnsource.mT
+    return mat2Sim3(torch.cat([scale * R, t], dim=-1), check=False)

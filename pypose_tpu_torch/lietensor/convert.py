@@ -1,15 +1,16 @@
-r"""Conversions into LieTensors.
+r"""Conversions into and out of LieTensors.
 
-Counterpart of ``pypose_tpu/lietensor/convert.py:24-158`` (``mat2SO3``,
-``mat2SE3`` and their checks) and ``:239-268`` (``euler2SO3``); the Sim3
-and RxSO3 conversions come with the remaining-groups slice.
+Counterpart of ``pypose_tpu/lietensor/convert.py:24-350``: ``mat2SO3``,
+``mat2SE3``, ``mat2Sim3``, ``mat2RxSO3`` and their checks, ``from_matrix``,
+``euler2SO3``, the part accessors and ``quat2unit``.
 """
 
 import warnings
 
 import torch
 
-from .lietensor import LieTensor, SO3_type, SE3_type
+from .lietensor import (LieTensor, SO3_type, SE3_type, Sim3_type, RxSO3_type,
+                        liegroup)
 
 
 def _check_shape(mat):
@@ -89,6 +90,35 @@ def mat2SO3(mat, check=True, rtol=1e-5, atol=1e-5):
     return LieTensor(q[..., [1, 2, 3, 0]], ltype=SO3_type)    # wxyz -> xyzw
 
 
+def _check_last_row(mat, rtol, atol):
+    zo = torch.tensor([0., 0., 0., 1.], dtype=mat.dtype, device=mat.device)
+    if not torch.allclose(mat[..., 3, :], zo.expand(mat[..., 3, :].shape),
+                          rtol=rtol, atol=atol):
+        warnings.warn(
+            'input of shape 4x4 last rows are not all equal [0, 0, 0, 1]')
+
+
+def _translation_column(mat):
+    if mat.shape[-1] == 3:
+        return mat.new_zeros(mat.shape[:-2] + (3,))
+    return mat[..., :3, 3]
+
+
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+
+
+def _scale_and_rotation(mat, check, rtol, atol):
+    """Scale ``det(sR)^(1/3)`` [*, 1] and the de-scaled block's quaternion
+    [*, 4]; raises if the block is not full rank (a host read)."""
+    rot = mat[..., :3, :3]
+    s = _cbrt(torch.linalg.det(rot))[..., None]
+    if torch.allclose(s, torch.zeros_like(s), rtol=rtol, atol=atol):
+        raise ValueError('Rotation matrix not full rank.')
+    q = mat2SO3(rot / s[..., None], check=check, rtol=rtol, atol=atol)
+    return s, q.tensor()
+
+
 def mat2SE3(mat, check=True, rtol=1e-5, atol=1e-5):
     r"""Transformation matrices ``(*, 3|4, 3|4)`` to SE3 ``(*, 7)``: the
     rotation block through :func:`mat2SO3`, the translation from the
@@ -105,18 +135,51 @@ def mat2SE3(mat, check=True, rtol=1e-5, atol=1e-5):
     """
     mat = _check_shape(mat)
     if tuple(mat.shape[-2:]) == (4, 4) and check:
-        zo = torch.tensor([0., 0., 0., 1.], dtype=mat.dtype, device=mat.device)
-        if not torch.allclose(mat[..., 3, :], zo.expand(mat[..., 3, :].shape),
-                              rtol=rtol, atol=atol):
-            warnings.warn(
-                'input of shape 4x4 last rows are not all equal [0, 0, 0, 1]')
+        _check_last_row(mat, rtol, atol)
     q = mat2SO3(mat[..., :3, :3], check=check, rtol=rtol, atol=atol).tensor()
-    if mat.shape[-1] == 3:
-        t = torch.zeros(mat.shape[:-2] + (3,), dtype=mat.dtype,
-                        device=mat.device)
-    else:
-        t = mat[..., :3, 3]
-    return LieTensor(torch.cat([t, q], dim=-1), ltype=SE3_type)
+    return LieTensor(torch.cat([_translation_column(mat), q], dim=-1),
+                     ltype=SE3_type)
+
+
+def mat2Sim3(mat, check=True, rtol=1e-5, atol=1e-5):
+    r"""Similarity matrices ``(*, 3|4, 3|4)`` to Sim3 ``(*, 8)``: the scale
+    is ``det(sR)^(1/3)``, the de-scaled block goes through :func:`mat2SO3`.
+
+    Example:
+        >>> import torch
+        >>> from pypose_tpu_torch.lietensor.convert import mat2Sim3
+        >>> mat2Sim3(2.0 * torch.eye(3)).tensor()
+        tensor([0., 0., 0., 0., 0., 0., 1., 2.])
+    """
+    mat = _check_shape(mat)
+    if tuple(mat.shape[-2:]) == (4, 4) and check:
+        _check_last_row(mat, rtol, atol)
+    s, q = _scale_and_rotation(mat, check, rtol, atol)
+    return LieTensor(torch.cat([_translation_column(mat), q, s], dim=-1),
+                     ltype=Sim3_type)
+
+
+def mat2RxSO3(mat, check=True, rtol=1e-5, atol=1e-5):
+    r"""Scaled rotations ``(*, 3, 3)`` to RxSO3 ``(*, 5)``.
+
+    Example:
+        >>> import torch
+        >>> from pypose_tpu_torch.lietensor.convert import mat2RxSO3
+        >>> mat2RxSO3(3.0 * torch.eye(3)).tensor()
+        tensor([0., 0., 0., 1., 3.])
+    """
+    s, q = _scale_and_rotation(_check_shape(mat), check, rtol, atol)
+    return LieTensor(torch.cat([q, s], dim=-1), ltype=RxSO3_type)
+
+
+def from_matrix(mat, ltype, check=True, rtol=1e-5, atol=1e-5):
+    """Matrix to LieTensor of the group ``ltype``."""
+    to = {SO3_type: mat2SO3, SE3_type: mat2SE3, Sim3_type: mat2Sim3,
+          RxSO3_type: mat2RxSO3}.get(ltype)
+    if to is None:
+        raise ValueError('Input ltype must be one of SO3_type, SE3_type, '
+                         f'Sim3_type or RxSO3_type. Got {ltype}')
+    return to(mat, check=check, rtol=rtol, atol=atol)
 
 
 def euler2SO3(euler, dtype=None, device=None):
@@ -142,3 +205,48 @@ def euler2SO3(euler, dtype=None, device=None):
                      cr * cp * sy - sr * sp * cy,
                      cr * cp * cy + sr * sp * sy], dim=-1)
     return LieTensor(q, ltype=SO3_type)
+
+
+def tensor(inputs):
+    """Storage tensor of a LieTensor."""
+    return inputs.tensor()
+
+
+def translation(inputs):
+    """Translation part ``(*, 3)`` (zeros for SO3/RxSO3)."""
+    return inputs.translation()
+
+
+def rotation(inputs):
+    """Rotation part as an SO3 LieTensor."""
+    return inputs.rotation()
+
+
+def scale(inputs):
+    """Scale part ``(*, 1)`` (ones for SO3/SE3)."""
+    return inputs.scale()
+
+
+def matrix(inputs):
+    """Dense matrix form: 3x3 (SO3/RxSO3) or 4x4 (SE3/Sim3)."""
+    return inputs.matrix()
+
+
+def euler(inputs, eps=2e-4):
+    """Roll, pitch, yaw of the rotation part (``LieTensor.euler``)."""
+    return inputs.euler(eps=eps)
+
+
+def quat2unit(input, eps=1e-12):
+    """Normalize the quaternion part of a group LieTensor; anything else
+    warns and is returned as it is."""
+    if not (isinstance(input, LieTensor) and input.ltype in liegroup):
+        warnings.warn('Input is not Lie group, doing nothing and returning '
+                      'input.')
+        return input
+    data = input.tensor()
+    a = 0 if input.ltype in (SO3_type, RxSO3_type) else 3
+    q = data[..., a:a + 4]
+    n = torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(eps)
+    return LieTensor(torch.cat([data[..., :a], q / n, data[..., a + 4:]],
+                               dim=-1), ltype=input.ltype)

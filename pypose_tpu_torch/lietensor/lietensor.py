@@ -3,15 +3,13 @@ r"""LieTensor for torch: a storage tensor plus a static group type.
 Counterpart of ``pypose_tpu/lietensor/lietensor.py:32-340, 502-815``.  As
 in the JAX package, ``LieTensor`` is a thin wrapper (not a ``torch.Tensor``
 subclass): the storage tensor holds the data and ``ltype`` says which group
-or algebra it is.  This slice covers SO3/so3/SE3/se3, forward only, with
-the operations the pose-graph path uses, and the random factories
+or algebra it is.  All four groups (SO3, SE3, RxSO3, Sim3) and their
+algebras, forward only (no autograd rules yet), with the random factories
 (``randn``, ``pypose_tpu/lietensor/lietensor.py:215-217, 258-268,
-314-330``) on an explicit ``torch.Generator`` and the batch-dim views ICP
-uses (``unsqueeze``, ``squeeze``, ``expand``, ``view``, ``lview``);
-``Act`` and ``@`` broadcast a ``[..., 1, 7]`` SE3 against ``[..., N, 3]``
-points.  RxSO3/rxso3/Sim3/sim3 exist
-as types whose operations raise ``NotImplementedError`` until the
-remaining-groups slice ports them.
+314-330, 377-394, 442-454``) on an explicit ``torch.Generator`` and the
+batch-dim views ICP uses (``unsqueeze``, ``squeeze``, ``expand``,
+``view``, ``lview``); ``Act`` and ``@`` broadcast a ``[..., 1, 7]`` SE3
+against ``[..., N, 3]`` points, and take homogeneous 4-points too.
 """
 
 from numbers import Number
@@ -19,6 +17,7 @@ from numbers import Number
 import torch
 
 from . import operation as op
+from .jacobian import so3_Jr
 
 
 class LieType:
@@ -72,14 +71,43 @@ class LieType:
     def Mul(self, X, Y):
         self._missing('Mul')
 
+    def Retr(self, X, a):
+        self._missing('Retr')
+
     def Adj(self, X, a):
         self._missing('Adj')
+
+    def AdjT(self, X, a):
+        self._missing('AdjT')
+
+    def Jinvp(self, X, p):
+        self._missing('Jinvp')
+
+    def Jr(self, X):
+        raise NotImplementedError(f'{self} has no Jr attribute')
 
     def add(self, X, other, alpha=1):
         self._missing('add')
 
     def matrix(self, X):
         self._missing('matrix')
+
+    def rotation(self, X):
+        raise NotImplementedError(
+            'Rotation is not implemented for the instance.')
+
+    def translation(self, X):
+        return X.tensor().new_zeros(X.lshape + (3,))
+
+    def scale(self, X):
+        return X.tensor().new_ones(X.lshape + (1,))
+
+    def identity_like(self, X):
+        return self.identity(*X.lshape, dtype=X.dtype, device=X.device)
+
+    def randn_like(self, X, sigma=1.0, generator=None):
+        return self.randn(*X.lshape, sigma=sigma, generator=generator,
+                          dtype=X.dtype, device=X.device)
 
     def identity(self, *size, dtype=torch.float32, device=None):
         self._missing('identity')
@@ -138,15 +166,47 @@ def _se3_randn(size, sigma, generator, dtype):
     return torch.cat([trans, rot], dim=-1)
 
 
+def _rxso3_randn(size, sigma, generator, dtype):
+    """rxso3 noise: sigma a number or ``(sigma_r, sigma_s)``; rotation
+    drawn first, then the log-scale, as in JAX."""
+    if not isinstance(sigma, (tuple, list)):
+        sigma = (sigma, sigma)
+    elif len(sigma) != 2:
+        raise ValueError('rxso3 randn takes sigma of size 1 or 2')
+    rot = _so3_randn(size, sigma[0], generator, dtype)
+    scale = sigma[1] * _normal(generator, size + (1,), dtype)
+    return torch.cat([rot, scale], dim=-1)
+
+
+def _sim3_randn(size, sigma, generator, dtype):
+    """sim3 noise: sigma a number, ``(sigma_t, sigma_r, sigma_s)`` or
+    ``(sx, sy, sz, sigma_r, sigma_s)``; drawn in JAX's order: rotation,
+    log-scale, translation."""
+    if not isinstance(sigma, (tuple, list)):
+        sigma = (sigma,) * 5
+    elif len(sigma) == 3:
+        sigma = (sigma[0],) * 3 + (sigma[1], sigma[2])
+    elif len(sigma) != 5:
+        raise ValueError('sim3 randn takes sigma of size 1, 3 or 5')
+    rot = _so3_randn(size, sigma[-2], generator, dtype)
+    scale = sigma[-1] * _normal(generator, size + (1,), dtype)
+    t_sigma = torch.tensor(sigma[:3], dtype=dtype, device=generator.device)
+    trans = t_sigma * _normal(generator, size + (3,), dtype)
+    return torch.cat([trans, rot, scale], dim=-1)
+
+
 class _GroupType(LieType):
-    """SO3 and SE3: dispatch to the ``operation`` functions."""
+    """The four group types: dispatch to the ``operation`` functions.
+    ``parts`` maps 'rotation', 'translation', 'scale' to the storage
+    slices the group has (the others fall to the base class)."""
 
     def __init__(self, name, dimension, manifold, algebra_getter, ops,
-                 identity):
+                 identity, parts):
         super().__init__(name, dimension, dimension, manifold)
         self._algebra_getter = algebra_getter
         self._ops = ops
         self._identity = identity
+        self._parts = parts
 
     @property
     def _algebra(self):
@@ -157,10 +217,11 @@ class _GroupType(LieType):
 
     def Act(self, X, p):
         p = _data(p)
-        if p.shape[-1] != 3:
-            raise NotImplementedError(
-                'Act on homogeneous 4-points is not ported yet')
-        return self._ops['Act'](_data(X), p)
+        if p.shape[-1] not in (3, 4):
+            raise ValueError('Act takes points of last dimension 3 or 4, '
+                             f'got {tuple(p.shape)}')
+        fn = self._ops['Act'] if p.shape[-1] == 3 else self._ops['Act4']
+        return fn(_data(X), p)
 
     def Mul(self, X, Y):
         if isinstance(Y, LieTensor) and not Y.ltype.on_manifold:
@@ -173,12 +234,39 @@ class _GroupType(LieType):
     def Inv(self, X):
         return LieTensor(self._ops['Inv'](_data(X)), ltype=self)
 
+    def Retr(self, X, a):
+        return a.Exp() * X
+
     def Adj(self, X, a):
         return LieTensor(self._ops['AdjXa'](_data(X), _data(a)),
                          ltype=self._algebra)
 
+    def AdjT(self, X, a):
+        return LieTensor(self._ops['AdjTXa'](_data(X), _data(a)),
+                         ltype=self._algebra)
+
+    def Jinvp(self, X, p):
+        return LieTensor(self._ops['Jinvp'](_data(X), _data(p)),
+                         ltype=self._algebra)
+
+    def Jr(self, X):
+        return X.Log().Jr()
+
     def matrix(self, X):
         return self._ops['Matrix'](_data(X))
+
+    def rotation(self, X):
+        return LieTensor(_data(X)[..., self._parts['rotation']],
+                         ltype=SO3_type)
+
+    def translation(self, X):
+        part = self._parts.get('translation')
+        return super().translation(X) if part is None \
+            else _data(X)[..., part]
+
+    def scale(self, X):
+        part = self._parts.get('scale')
+        return super().scale(X) if part is None else _data(X)[..., part]
 
     def add(self, X, other, alpha=1):
         """Left retraction: ``Exp(alpha * other[..., :m]) * X``."""
@@ -201,7 +289,8 @@ class _GroupType(LieType):
 
 
 class _AlgebraType(LieType):
-    """so3 and se3: Exp to the group; identity is zero."""
+    """The four algebra types: Exp to the group; plain vector add, negation
+    and scaling; identity is zero; matrix and parts through the group."""
 
     def __init__(self, name, dimension, embedding, group_getter, exp,
                  randn):
@@ -212,6 +301,36 @@ class _AlgebraType(LieType):
 
     def Exp(self, x):
         return LieTensor(self._exp(_data(x)), ltype=self._group_getter())
+
+    def add(self, X, other, alpha=1):
+        m = self._manifold[0]
+        return LieTensor(X.tensor() + alpha * _data(other)[..., :m],
+                         ltype=self)
+
+    def Inv(self, X):
+        return LieTensor(-X.tensor(), ltype=self)
+
+    def Mul(self, X, Y):
+        """(number or tensor) * algebra element."""
+        return LieTensor(X.tensor() * _data(Y), ltype=self)
+
+    def Jr(self, x):
+        """Right Jacobian Jl(-x); so3 only, as in the JAX package."""
+        if self is not so3_type:
+            return super().Jr(x)
+        return so3_Jr(_data(x))
+
+    def matrix(self, X):
+        return X.Exp().matrix()
+
+    def rotation(self, X):
+        return X.Exp().rotation()
+
+    def translation(self, X):
+        return X.Exp().translation()
+
+    def scale(self, X):
+        return X.Exp().scale()
 
     def identity(self, *size, dtype=torch.float32, device=None):
         size = self.to_tuple(size)
@@ -226,33 +345,41 @@ class _AlgebraType(LieType):
         return LieTensor(x.to(device), ltype=self)
 
 
-class _UnportedType(LieType):
-    """RxSO3/Sim3 and their algebras: every operation raises until the
-    remaining-groups slice (ROADMAP Queue A, slice 6) ports them."""
-
-    def _missing(self, name):
-        raise NotImplementedError(
-            f'{self.name} is not ported yet (ROADMAP Queue A, slice 6: '
-            'remaining groups)')
-
-
 SO3_type = _GroupType(
     'SO3', 4, 3, lambda: so3_type,
-    dict(Log=op.SO3_Log, Act=op.SO3_Act, Mul=op.SO3_Mul, Inv=op.SO3_Inv,
-         AdjXa=op.SO3_AdjXa, Matrix=op.SO3_Matrix), [0., 0., 0., 1.])
+    dict(Log=op.SO3_Log, Act=op.SO3_Act, Act4=op.SO3_Act4, Mul=op.SO3_Mul,
+         Inv=op.SO3_Inv, AdjXa=op.SO3_AdjXa, AdjTXa=op.SO3_AdjTXa,
+         Jinvp=op.SO3_Jinvp, Matrix=op.SO3_Matrix),
+    [0., 0., 0., 1.], dict(rotation=slice(0, 4)))
 so3_type = _AlgebraType('so3', 3, 4, lambda: SO3_type, op.so3_Exp,
                          _so3_randn)
 SE3_type = _GroupType(
     'SE3', 7, 6, lambda: se3_type,
-    dict(Log=op.SE3_Log, Act=op.SE3_Act, Mul=op.SE3_Mul, Inv=op.SE3_Inv,
-         AdjXa=op.SE3_AdjXa, Matrix=op.SE3_Matrix),
-    [0., 0., 0., 0., 0., 0., 1.])
+    dict(Log=op.SE3_Log, Act=op.SE3_Act, Act4=op.SE3_Act4, Mul=op.SE3_Mul,
+         Inv=op.SE3_Inv, AdjXa=op.SE3_AdjXa, AdjTXa=op.SE3_AdjTXa,
+         Jinvp=op.SE3_Jinvp, Matrix=op.SE3_Matrix),
+    [0., 0., 0., 0., 0., 0., 1.],
+    dict(rotation=slice(3, 7), translation=slice(0, 3)))
 se3_type = _AlgebraType('se3', 6, 7, lambda: SE3_type, op.se3_Exp,
                          _se3_randn)
-RxSO3_type = _UnportedType('RxSO3', 5, 5, 4)
-rxso3_type = _UnportedType('rxso3', 4, 5, 4)
-Sim3_type = _UnportedType('Sim3', 8, 8, 7)
-sim3_type = _UnportedType('sim3', 7, 8, 7)
+RxSO3_type = _GroupType(
+    'RxSO3', 5, 4, lambda: rxso3_type,
+    dict(Log=op.RxSO3_Log, Act=op.RxSO3_Act, Act4=op.RxSO3_Act4,
+         Mul=op.RxSO3_Mul, Inv=op.RxSO3_Inv, AdjXa=op.RxSO3_AdjXa,
+         AdjTXa=op.RxSO3_AdjTXa, Jinvp=op.RxSO3_Jinvp,
+         Matrix=op.RxSO3_Matrix),
+    [0., 0., 0., 1., 1.], dict(rotation=slice(0, 4), scale=slice(4, 5)))
+rxso3_type = _AlgebraType('rxso3', 4, 5, lambda: RxSO3_type, op.rxso3_Exp,
+                           _rxso3_randn)
+Sim3_type = _GroupType(
+    'Sim3', 8, 7, lambda: sim3_type,
+    dict(Log=op.Sim3_Log, Act=op.Sim3_Act, Act4=op.Sim3_Act4,
+         Mul=op.Sim3_Mul, Inv=op.Sim3_Inv, AdjXa=op.Sim3_AdjXa,
+         AdjTXa=op.Sim3_AdjTXa, Jinvp=op.Sim3_Jinvp, Matrix=op.Sim3_Matrix),
+    [0., 0., 0., 0., 0., 0., 1., 1.],
+    dict(rotation=slice(3, 7), translation=slice(0, 3), scale=slice(7, 8)))
+sim3_type = _AlgebraType('sim3', 7, 8, lambda: Sim3_type, op.sim3_Exp,
+                          _sim3_randn)
 liegroup = [SO3_type, SE3_type, Sim3_type, RxSO3_type]
 liealgebra = [so3_type, se3_type, sim3_type, rxso3_type]
 
@@ -372,11 +499,71 @@ class LieTensor:
     def Adj(self, a):
         return self._ltype.Adj(self, a)
 
+    def AdjT(self, a):
+        return self._ltype.AdjT(self, a)
+
+    def Jinvp(self, p):
+        return self._ltype.Jinvp(self, p)
+
+    def Jr(self):
+        return self._ltype.Jr(self)
+
+    def Retr(self, a):
+        return self._ltype.Retr(self, a)
+
     def add(self, other, alpha=1):
         return self._ltype.add(self, other, alpha)
 
+    def mul(self, other):
+        return self._ltype.Mul(self, other)
+
     def matrix(self):
         return self._ltype.matrix(self)
+
+    def rotation(self):
+        return self._ltype.rotation(self)
+
+    def translation(self):
+        return self._ltype.translation(self)
+
+    def scale(self):
+        return self._ltype.scale(self)
+
+    def identity_like(self):
+        return self._ltype.identity_like(self)
+
+    def euler(self, eps=2e-4):
+        """Roll, pitch, yaw of the rotation part, with the gimbal-lock
+        branch taken when |sin(pitch)| is within ``eps`` of 1
+        (``pypose_tpu/lietensor/lietensor.py:732-750``)."""
+        data = self.rotation().tensor()
+        x, y, z, w = data.unbind(-1)
+        xx, yy, zz, ww = x * x, y * y, z * z, w * w
+        t0 = 2 * (w * x + y * z)
+        t1 = (ww + zz) - (xx + yy)
+        t2 = 2 * (w * y - z * x) / (xx + yy + zz + ww)
+        t3 = 2 * (w * z + x * y)
+        t4 = (ww + xx) - (yy + zz)
+        flag = torch.abs(t2) < 1. - eps
+        pm = torch.where(t2 >= 0, 1.0, -1.0)
+        roll = torch.where(flag, torch.atan2(t0, t1), 0.0)
+        pitch = torch.asin(torch.clamp(t2, -1, 1))
+        yaw = torch.where(flag, torch.atan2(t3, t4),
+                          -2 * pm * torch.atan2(x, w))
+        return torch.stack([roll, pitch, yaw], dim=-1)
+
+    def __add__(self, other):
+        return self.add(other)
+
+    def __neg__(self):
+        if self._ltype.on_manifold:
+            return self._wrap(-self._data)
+        raise NotImplementedError('Lie Group has no __neg__; use Inv()')
+
+    def __rmul__(self, other):
+        if self._ltype.on_manifold and isinstance(other, Number):
+            return self._ltype.Mul(self, other)
+        raise NotImplementedError('Invalid __rmul__ operation')
 
     def __mul__(self, other):
         return self._ltype.Mul(self, other)

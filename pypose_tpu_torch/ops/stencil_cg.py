@@ -22,6 +22,11 @@ kernel or raises: it never falls back to the plain version.
   CG state in torch ops; plain version :func:`_tiled_cg_torch`.  Nothing
   routes to it.
 
+The Pallas kernels take the block size t as a static argument; the CUDA
+kernels are templates on it, built for :data:`KERNEL_T` (3, 4, 6, 7: the
+tangent dimensions of SO3, RxSO3, SE3 and Sim3).  Any other t raises on
+CUDA tensors; the plain versions take any t.
+
 Matvec (see ``ops/spmv.py``):
 
     A x = Ablk x + sum_k [ C_k . roll(x, -d_k) + roll(C_k^T . x, +d_k) ]
@@ -55,8 +60,9 @@ TILED_PC_LAUNCHES = 0
 # stop flag; a stopped solve makes the extra ones no-ops.
 CHECK_EVERY = 8
 
-# The instantiated block size; StencilSpMV refuses more than 16 offsets.
-KERNEL_T = 6
+# The block sizes the kernels are instantiated for (the tangent dimensions
+# of SO3, RxSO3, SE3 and Sim3); StencilSpMV refuses more than 16 offsets.
+KERNEL_T = frozenset({3, 4, 6, 7})
 MAX_OFFSETS = 16
 
 # Budgets of the whole-solve kernel (csrc/stencil_cg.cu), one cluster of
@@ -262,7 +268,7 @@ _SIGNATURES = {
                          _PTR],
         'ppt_tiled_pc': [_INT, _PTR, _INT, _PTR, _PTR, _PTR]},
     'stencil_cg_fused': {
-        'ppt_fused_plan': [_INT, _PTR],
+        'ppt_fused_plan': [_INT, _INT, _PTR],
         'ppt_fused_pcg': [_INT, _INT] + [_PTR] * 5 + [_INT] * 3 + [_DBL]
         + [_PTR] * 6},
 }
@@ -290,7 +296,7 @@ def _check_operands(b_T, A_T, Minv_T, C_T, offsets, t):
 def _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t, operand_dtype=None):
     """What the CUDA kernels take: float32 (the operands A, Minv, C in
     ``operand_dtype`` where the fused solver stores them so), contiguous,
-    t = 6, at most 16 offsets, on a CUDA device."""
+    t in :data:`KERNEL_T`, at most 16 offsets, on a CUDA device."""
     if b_T.device.type != 'cuda':
         raise ValueError(f'unsupported device {b_T.device}')
     for name, a in (('b_T', b_T), ('A_T', A_T), ('Minv_T', Minv_T),
@@ -302,9 +308,9 @@ def _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t, operand_dtype=None):
                             f'{want} here')
         if not a.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-    if t != KERNEL_T:
-        raise ValueError(f'the CUDA kernels are instantiated for '
-                         f't={KERNEL_T}, got t={t}')
+    if t not in KERNEL_T:
+        raise ValueError(f'the CUDA kernels are instantiated for t in '
+                         f'{sorted(KERNEL_T)}, got t={t}')
     if len(offsets) > MAX_OFFSETS:
         raise ValueError(f'{len(offsets)} offsets > {MAX_OFFSETS}')
 
@@ -324,8 +330,9 @@ def stencil_cg_transposed(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
 
     Returns ``(x_T [t, N], iterations)`` with the iteration count as a
     0-d int32 tensor on the operands' device.  CUDA tensors go through the
-    kernel (float32, contiguous, t = 6, at most 16 offsets; anything else
-    raises), launched on the current stream without synchronising; CPU
+    kernel (float32, contiguous, t in :data:`KERNEL_T`, at most 16
+    offsets; anything else raises), launched on the current stream without
+    synchronising; CPU
     tensors run :func:`_cg_body_torch`.
     """
     global LAUNCHES
@@ -360,8 +367,9 @@ def stencil_cg_tiled(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
     Returns ``(x_T [t, N], iterations)``, the count a 0-d int32 tensor on
     the operands' device.  CUDA tensors launch the matvec and
     block-Jacobi kernels of ``csrc/stencil_cg_tiled.cu`` once each per
-    iteration (float32, contiguous, t = 6, at most 16 offsets; anything
-    else raises), with the CG state in torch ops; CPU tensors run
+    iteration (float32, contiguous, t in :data:`KERNEL_T`, at most 16
+    offsets; anything else raises), with the CG state in torch ops; CPU
+    tensors run
     :func:`_tiled_cg_torch`.
     """
     offsets = tuple(int(d) for d in offsets)
@@ -381,7 +389,7 @@ def _tiled_mv_launch(A_T, C_T, p, offsets, t):
     """``q = A p``: one launch of the tiled matvec kernel on the current
     stream.  Unchecked (it runs once per CG iteration): takes operands
     :func:`stencil_cg_tiled` has checked (CUDA, float32, contiguous,
-    t = 6)."""
+    t in :data:`KERNEL_T`)."""
     global TILED_MV_LAUNCHES
     lib = _kernel_lib('stencil_cg_tiled')
     N = p.shape[1]
@@ -419,15 +427,16 @@ def round_operands(A_T, Minv_T, C_T, operand_dtype):
     return tuple(a.to(torch.bfloat16) for a in (A_T, Minv_T, C_T))
 
 
-def fused_plan(N, device=None):
-    """How the fused kernel lays out a solve of N nodes on a CUDA
-    ``device``: ``{'ctas', 'nodes_per_cta', 'threads', 'smem'}``, ``smem``
-    True where each CTA keeps its state and Minv in shared memory (else in
-    global memory)."""
+def fused_plan(N, t, device=None):
+    """How the fused kernel lays out a solve of N nodes of block size ``t``
+    on a CUDA ``device``: ``{'ctas', 'nodes_per_cta', 'threads', 'smem'}``,
+    ``smem`` True where each CTA keeps its state and Minv in shared memory
+    (6t + tt floats a node: 72 at t = 6, 91 at t = 7, 27 at t = 3), else
+    in global memory."""
     lib = _kernel_lib('stencil_cg_fused')
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        _raise_on(lib, lib.ppt_fused_plan(int(N), out), 'fused_plan')
+        _raise_on(lib, lib.ppt_fused_plan(int(N), int(t), out), 'fused_plan')
     return {'ctas': out[0], 'nodes_per_cta': out[1], 'threads': out[2],
             'smem': bool(out[3])}
 
@@ -446,8 +455,8 @@ def stencil_cg_fused(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
     the operands' device.  CUDA tensors go through one launch of
     ``csrc/stencil_cg_fused.cu`` on the current stream, without
     synchronising (b float32; A, Minv, C float32, or bf16 where
-    ``operand_dtype`` says so; contiguous, t = 6, at most 16 offsets;
-    anything else raises); CPU tensors run :func:`_fused_cg_torch` on the
+    ``operand_dtype`` says so; contiguous, t in :data:`KERNEL_T`, at most
+    16 offsets; anything else raises); CPU tensors run :func:`_fused_cg_torch` on the
     stored operands widened back to b's dtype.
     """
     global FUSED_LAUNCHES
@@ -461,7 +470,7 @@ def stencil_cg_fused(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
     _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t, operand_dtype)
     N = b_T.shape[1]
     dev = b_T.device
-    plan = fused_plan(N, dev)
+    plan = fused_plan(N, t, dev)
     lib = _kernel_lib('stencil_cg_fused')
     x = torch.empty_like(b_T)
     u = torch.empty_like(b_T)

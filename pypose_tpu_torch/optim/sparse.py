@@ -9,8 +9,10 @@ decides its route at construction (:attr:`SparseLM.route`), by one
 predicate that holds alike on every device:
 
 - ``'stencil'``: all edges merge into one circulant stencil, the
-  preconditioner is block-Jacobi, the parameters are float32 and t = 6
-  (``ops/stencil_cg.KERNEL_T``).  The whole solve runs in the CUDA
+  preconditioner is block-Jacobi, the parameters are float32 and the
+  tangent dimension t is one the kernels are built for
+  (``ops/stencil_cg.KERNEL_T``: 3, 4, 6, 7, the four groups' and a
+  Euclidean group's of those sizes).  The whole solve runs in the CUDA
   kernels of ``ops/stencil_cg.py`` (their plain PyTorch versions on the
   CPU): the cluster kernel while the system fits the L2 budget, else the
   fused Chronopoulos-Gear kernel.
@@ -26,8 +28,10 @@ predicate that holds alike on every device:
 
 This mirrors the JAX package's own predicate
 (``pypose_tpu/optim/sparse.py:671-687``): systems its kernel does not take
-go to the einsum CG.  Robust kernels and autodiff Jacobians are still to
-port; their factors raise ``NotImplementedError``.
+go to the einsum CG.  Its Pallas kernels take any static block size; the
+CUDA kernels are built for the four groups' and other sizes take the
+einsum CG.  Robust kernels and autodiff Jacobians are still to port; their
+factors raise ``NotImplementedError``.
 
 The JAX package runs the LM reject loop, the plateau schedule and the
 einsum CG inside ``lax.while_loop``; here they are Python loops that read
@@ -38,7 +42,10 @@ and chain routes, one per CG iteration.
 import numpy as np
 import torch
 
-from ..lietensor.lietensor import LieTensor, SE3_type
+from ..lietensor import jacobian as _jac
+from ..lietensor import operation as _op
+from ..lietensor.lietensor import (LieTensor, SO3_type, SE3_type, RxSO3_type,
+                                   Sim3_type)
 from ..ops.block_tridiag import bcr_factor, bcr_solve
 from ..ops.smallinv import blockinv, blockinv_scalar
 from ..ops.spmv import CouplingSpMV, StencilSpMV
@@ -197,7 +204,7 @@ class SparseLM:
         if self.precond == 'chain':
             self._route = 'chain'
         elif (self._stencil_all is not None and self.dtype == torch.float32
-              and self._stencil_all.tan == KERNEL_T):
+              and self._stencil_all.tan in KERNEL_T):
             self._route = 'stencil'
         else:
             self._route = 'einsum'
@@ -487,7 +494,7 @@ class SparseLM:
     def _check_route(self):
         """Raise for what is still to port: strategies other than
         TrustRegion, and factors without a closed-form Jacobian
-        (``pgo_factor`` refuses groups other than SE3 itself)."""
+        (``pgo_factor`` refuses types other than the four groups itself)."""
         if not isinstance(self.strategy, TrustRegion):
             raise NotImplementedError(
                 'only TrustRegion is ported; Constant/Adaptive come with '
@@ -591,7 +598,8 @@ class SparseLM:
         operator, with per-factor stencil or coupling-block matvecs for
         graphs of the PGO shape and the generic gather matvec otherwise;
         preconditioned by the chain's BCR ('chain'), else by block-Jacobi
-        (scalarized for one group of t = 3 or 6)."""
+        (scalarized for one group of t = 3 or 6, ``blockinv`` and so
+        ``torch.linalg.inv`` for other sizes, as in the JAX package)."""
         if self._spmv is not None:
             nm = self._spmv_name
             # coupling blocks once a step, for every CG iteration of every
@@ -722,29 +730,51 @@ class SparseLM:
         return self.loss
 
 
+# Jl^-1 on the algebra and Adj on the group, for pgo_factor's closed form
+_PGO_FORMS = {SO3_type: (_jac.so3_Jl_inv, _op.SO3_Adj),
+              RxSO3_type: (_jac.rxso3_Jl_inv, _op.RxSO3_Adj),
+              Sim3_type: (_jac.sim3_Jl_inv, _op.Sim3_Adj)}
+
+
 def pgo_factor(edges, poses, infos=None, name='poses'):
-    r"""Relative-pose factor for SE3 pose-graph optimisation.
+    r"""Relative-pose factor for pose-graph optimisation over SO3 (rotation
+    averaging), SE3, RxSO3 or Sim3 (scale-drift graphs).
 
     Residual per edge (i, j): ``Log(Z^{-1} (X_i^{-1} X_j))`` with optional
-    information-matrix weights; the tangent Jacobian is the closed form of
-    :func:`~pypose_tpu_torch.lietensor.scalarized.se3_pgo_blocks`.  SO3,
-    RxSO3 and Sim3 graphs come with later slices.
+    tangent-dimension information-matrix weights.  The tangent Jacobian is
+    closed-form: with ``M = Z^-1 X_i^-1`` and ``r = Log(M X_j)``,
+    ``dr/d(delta_j) = Jl^-1(r) Adj(M)`` and ``dr/d(delta_i) = -dr/d(delta_j)``
+    (left perturbation), written over the whole edge batch; SE3 takes the
+    scalarized :func:`~pypose_tpu_torch.lietensor.scalarized.se3_pgo_blocks`.
+    Sim3's ``Jl^-1`` is exact (scaling and squaring, then a batched 7x7
+    solve).  Other types raise: autodiff Jacobians come with the Lie-core
+    autograd slice.
     """
     from ..lietensor.scalarized import se3_pgo_blocks
 
-    if poses.ltype is not SE3_type:
+    if poses.ltype is not SE3_type and poses.ltype not in _PGO_FORMS:
         raise NotImplementedError(
-            f'pgo_factor over {poses.ltype} is not ported yet (ROADMAP '
-            'Queue A, slice 6); only SE3 is')
+            f'pgo_factor over {poses.ltype} has no closed-form Jacobian; '
+            'autodiff Jacobians come with the Lie-core autograd slice')
 
     def residual(values, Z):
         X = values[name]
         return (Z.Inv() @ (X[:, 0].Inv() @ X[:, 1])).Log().tensor()
 
-    def batched_jacobian(values, Z):
-        X = values[name].tensor()
-        r, J = se3_pgo_blocks(X[:, 0], X[:, 1], Z.tensor())
-        return r, {name: J}
+    if poses.ltype is SE3_type:
+        def batched_jacobian(values, Z):
+            X = values[name].tensor()
+            r, J = se3_pgo_blocks(X[:, 0], X[:, 1], Z.tensor())
+            return r, {name: J}
+    else:
+        Jl_inv, Adj = _PGO_FORMS[poses.ltype]
+
+        def batched_jacobian(values, Z):
+            X = values[name]
+            M = Z.Inv() @ X[:, 0].Inv()
+            r = (M @ X[:, 1]).Log().tensor()
+            Jj = torch.matmul(Jl_inv(r), Adj(M.tensor()))
+            return r, {name: torch.stack([-Jj, Jj], dim=2)}
 
     return Factor(residual, indices={name: edges}, consts=poses,
                   weight=infos, batched_jacobian=batched_jacobian)

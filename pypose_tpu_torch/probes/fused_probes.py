@@ -32,7 +32,7 @@ MAX_CTAS = 1024
 MARKS = [
     ('pass 1', '    ppt::block_sum2(part[0], part[1], red);'
                '  // after every u write\n'),
-    ('A u', '      for (int i = 0; i < kT; ++i) w[i * vs + nl] = y[i];\n    }\n'),
+    ('A u', '      for (int i = 0; i < T; ++i) w[i * vs + nl] = y[i];\n    }\n'),
     ('exchange 1', '    gather<2>(mail_1, G, e, dots, tot);\n'),
     ('pass 2', '    ppt::block_sum2(wu, unused, red);\n'),
     ('p, s update', '        s[j] = w[j] + beta * s[j];\n      }\n    }\n'),
@@ -96,7 +96,7 @@ def phase_times(lib, N, operand_dtype, solves=5, maxiter=250):
     torch.cuda.synchronize()
     buf = (ctypes.c_longlong * (MAX_CTAS * len(MARKS)))()
     lib.ppt_phase_read(ctypes.cast(buf, ctypes.c_void_p))
-    plan = scg.fused_plan(N, dev)
+    plan = scg.fused_plan(N, 6, dev)
     G, n = plan['ctas'], solves * int(it)
     per = [[buf[c * len(MARKS) + k] / n for k in range(len(MARKS))]
            for c in range(G)]

@@ -8,7 +8,9 @@ the caller passes ``np.asarray(X.tensor())`` for each LieTensor, so both
 packages begin from bit-identical values.  ``random_stencil_system``
 makes the random SPD systems on which the CG kernels are held against
 their plain versions, ``pgo_loops_instance`` builds the random-loop pose
-graph of the einsum route and ``ring3_problem`` a Euclidean one of t = 3,
+graph of the einsum route (over SE3, SO3 or Sim3), ``pgo_group_instance``
+an SE3 pose graph's counterpart over SO3, RxSO3 or Sim3, and
+``ring3_problem`` a Euclidean graph of t = 3 (or another t),
 ``pgo_optimizer`` the port's optimizer on such graphs,
 ``instance_checksum`` identifies a generated pose-graph instance against
 a recorded anchor, and ``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
@@ -18,11 +20,9 @@ rule that holds the nearest-neighbour kernels to their plain versions.
 import numpy as np
 import torch
 
-from ..lietensor.lietensor import LieTensor, SO3_type, so3_type, SE3_type, \
-    se3_type
+from ..lietensor.lietensor import LieTensor, liealgebra, liegroup
 
-_LTYPES = {'SO3': SO3_type, 'so3': so3_type, 'SE3': SE3_type,
-           'se3': se3_type}
+_LTYPES = {lt.name: lt for lt in liegroup + liealgebra}
 
 
 def params_from_numpy(params, ltypes, device=None, dtype=None):
@@ -30,8 +30,9 @@ def params_from_numpy(params, ltypes, device=None, dtype=None):
 
     Args:
         params: dict ``name -> np.ndarray [N, D]``.
-        ltypes: dict ``name -> 'SO3' | 'so3' | 'SE3' | 'se3'``; names not
-            listed stay plain tensors.
+        ltypes: dict ``name -> 'SO3' | 'so3' | 'SE3' | 'se3' | 'RxSO3' |
+            'rxso3' | 'Sim3' | 'sim3'``; names not listed stay plain
+            tensors.
         device, dtype: of the returned tensors (dtype defaults to the
             array's).
     """
@@ -74,10 +75,12 @@ def assert_close(actual, expected, rtol=None, atol=None, **kwargs):
 
 
 def random_stencil_system(N, loop_offset, n_loops, fixed, generator,
-                          device=None):
+                          device=None, t=6):
     """Folded lane-major operands of a random SPD stencil system: an
     odometry chain plus ``n_loops`` loop edges on one circular offset,
-    random 6x6 Jacobian blocks, LM damping 0.1, node 0 fixed if
+    random ``t`` x ``t`` Jacobian blocks (residual dimension t, as a pose
+    graph over a group of tangent dimension t has), LM damping 0.1, node 0
+    fixed if
     ``fixed`` (the generator of tests/ops/test_pallas_cg.py:make_system).
     Drawn from ``generator`` on ``device``; the shapes the kernels are
     held at are sphere2500's (2500, 157, 2000, True) and the 100k-pose
@@ -86,12 +89,11 @@ def random_stencil_system(N, loop_offset, n_loops, fixed, generator,
     from ..ops.smallinv import blockinv
     from ..ops.spmv import StencilSpMV
     from ..ops.stencil_cg import fold_operands
-    t = 6
     ar = torch.arange(N, device=device)
     li = torch.randint(0, N, (n_loops,), generator=generator, device=device)
     edges = torch.cat([torch.stack([ar[:-1], ar[1:]], 1),
                        torch.stack([li, (li + loop_offset) % N], 1)])
-    J = torch.randn((edges.shape[0], 6, 2, t), generator=generator,
+    J = torch.randn((edges.shape[0], t, 2, t), generator=generator,
                     device=device)
     sp = StencilSpMV(edges, N, t, device=device)
     D = torch.zeros((N, t, t), device=device)
@@ -108,35 +110,86 @@ def random_stencil_system(N, loop_offset, n_loops, fixed, generator,
                                   sp.precompute(J, J), offsets, mask)
 
 
-def pgo_loops_instance(N=10_000, dtype=torch.float32, device='cuda'):
-    """The random-loop SE3 pose graph of ``bench.py:bench_pgo_groups``'s
-    topology: the ring i -> i+1, the edge N-1 -> 0 and N // 10 random loops
-    from ``np.random.default_rng(0)``, self-loops dropped.  Truth
-    ``randn_SE3(N, sigma=1.0)`` and noise ``randn_SE3(N, sigma=0.1)`` come
-    from ``torch.Generator`` seeds 0 and 1, the initial poses are
-    ``truth @ noise`` and the measurements exact, ``Z = truth_i^-1
-    truth_j``; all computed in float64 on the CPU, then rounded to
-    ``dtype`` and moved to ``device`` (the card unless the caller asks for
-    ``device='cpu'``), so the instance does not depend on the machine.
-    Returns dict(nodes=SE3[N], edges=int64[E, 2], poses=SE3[E], gt=SE3[N]).
+# truth and noise sigmas of pgo_loops_instance: bench.py:bench_pgo_groups'
+# for SO3 and Sim3, and its topology over SE3
+_LOOPS_SIGMAS = {'SE3': (1.0, 0.1), 'SO3': (1.0, 0.1),
+                 'Sim3': ((0.3, 0.2, 0.1), (0.1, 0.05, 0.05))}
+
+
+def pgo_loops_instance(N=10_000, dtype=torch.float32, device='cuda',
+                       group='SE3'):
+    """The random-loop pose graph of ``bench.py:bench_pgo_groups``: the
+    ring i -> i+1, the edge N-1 -> 0 and N // 10 random loops from
+    ``np.random.default_rng(0)``, self-loops dropped.  ``group`` is 'SO3'
+    (rotation averaging: truth ``randn_SO3(N)``, noise ``randn_SO3(N,
+    sigma=0.1)``), 'Sim3' (truth ``randn_Sim3(N, sigma=(0.3, 0.2, 0.1))``,
+    noise sigma (0.1, 0.05, 0.05)), as that benchmark draws them, or 'SE3'
+    (truth sigma 1.0, noise 0.1: its topology over the group the other
+    phases use).  Truth and noise come from ``torch.Generator`` seeds 0 and
+    1, the initial poses are ``truth @ noise`` and the measurements exact,
+    ``Z = truth_i^-1 truth_j``; all computed in float64 on the CPU, then
+    rounded to ``dtype`` and moved to ``device`` (the card unless the
+    caller asks for ``device='cpu'``), so the instance does not depend on
+    the machine.  Returns dict(nodes=group[N], edges=int64[E, 2],
+    poses=group[E], gt=group[N]).
     """
-    from ..lietensor.utils import SE3, randn_SE3
+    ltype = _LTYPES[group]
     ii = np.arange(N - 1)
     loops = np.random.default_rng(0).integers(0, N, size=(N // 10, 2))
     loops = loops[loops[:, 0] != loops[:, 1]]
     edges = torch.as_tensor(np.concatenate(
         [np.stack([ii, ii + 1], 1), [[N - 1, 0]], loops]), dtype=torch.int64)
     work = torch.float64
-    truth = randn_SE3(N, sigma=1.0, generator=torch.Generator().manual_seed(0),
-                      dtype=work)
-    noise = randn_SE3(N, sigma=0.1, generator=torch.Generator().manual_seed(1),
-                      dtype=work)
+    s_truth, s_noise = _LOOPS_SIGMAS[group]
+    truth = ltype.randn(N, sigma=s_truth, dtype=work,
+                        generator=torch.Generator().manual_seed(0))
+    noise = ltype.randn(N, sigma=s_noise, dtype=work,
+                        generator=torch.Generator().manual_seed(1))
     Z = truth[edges[:, 0]].Inv() @ truth[edges[:, 1]]
-    return dict(nodes=SE3((truth @ noise).tensor(), dtype=dtype,
-                          device=device),
+    return dict(nodes=(truth @ noise).to(device=device, dtype=dtype),
                 edges=edges.to(device),
                 poses=Z.to(device=device, dtype=dtype),
                 gt=truth.to(device=device, dtype=dtype))
+
+
+def pgo_group_instance(ds, group, generator=None):
+    """The pose graph of an SE3 dataset dict ``ds`` (``load_g2o``,
+    ``synthetic_sphere``) over another group, on ``ds``'s device and dtype:
+
+    - ``'SO3'``: the poses' and measurements' rotations (rotation
+      averaging), infos I_3;
+    - ``'Sim3'``: poses and measurements lifted with scale 1, then each
+      initial pose's scale multiplied by ``exp(0.05 N(0, 1))`` (a scale
+      drift for the optimizer to remove), infos I_7;
+    - ``'RxSO3'``: the rotations with the same scale draw, infos I_4;
+    - ``'SE3'``: ``ds`` itself.
+
+    The scale draw is made in float64 from ``generator`` (a CPU
+    ``torch.Generator``, required for Sim3 and RxSO3) and then rounded and
+    moved, so one seed gives one instance on every machine.  Returns
+    dict(nodes, edges, poses, infos).
+    """
+    if group == 'SE3':
+        return ds
+    ltype = _LTYPES[group]
+    X, Z = ds['nodes'].tensor(), ds['poses'].tensor()
+    N, E = X.shape[0], Z.shape[0]
+    if group == 'SO3':
+        nodes, poses = X[:, 3:7], Z[:, 3:7]
+    else:
+        if not isinstance(generator, torch.Generator) \
+                or generator.device.type != 'cpu':
+            raise TypeError(f'pgo_group_instance({group!r}) needs a CPU '
+                            'torch.Generator for its scale draw')
+        s = torch.exp(0.05 * torch.randn((N, 1), generator=generator,
+                                         dtype=torch.float64)).to(X)
+        keep = slice(0, 7) if group == 'Sim3' else slice(3, 7)
+        nodes = torch.cat([X[:, keep], s], dim=-1)
+        poses = torch.cat([Z[:, keep], Z.new_ones((E, 1))], dim=-1)
+    t = ltype.manifold[0]
+    infos = torch.eye(t, dtype=X.dtype, device=X.device).expand(E, t, t)
+    return dict(nodes=LieTensor(nodes, ltype=ltype), edges=ds['edges'],
+                poses=LieTensor(poses, ltype=ltype), infos=infos)
 
 
 def pgo_optimizer(ds, radius, cg_iter, cg_tol, split_chains=True, **_):
@@ -164,28 +217,30 @@ def pgo_optimizer(ds, radius, cg_iter, cg_tol, split_chains=True, **_):
                     fixed={'poses': fixed}, cg_iter=cg_iter, cg_tol=cg_tol)
 
 
-def ring3_problem(N=64, loop_offset=5, dtype=torch.float32, device='cuda'):
-    """An arity-2 factor over a Euclidean [N, 3] group with a closed-form
-    ``batched_jacobian``: points joined i -> i+1 and i -> i+loop_offset
-    (mod N, one merged stencil of t = 3), residual ``x_j - x_i - z_ij``
+def ring3_problem(N=64, loop_offset=5, dtype=torch.float32, device='cuda',
+                  t=3):
+    """An arity-2 factor over a Euclidean [N, t] group (t = 3 unless asked
+    otherwise) with a closed-form ``batched_jacobian``: points joined
+    i -> i+1 and i -> i+loop_offset (mod N, one merged stencil of block
+    size t), residual ``x_j - x_i - z_ij``
     with ``z`` the true differences plus 0.01-sigma noise, initial points
     0.5-sigma off the truth; drawn in float64 from ``torch.Generator``
     seed 0 on the CPU, then rounded to ``dtype`` and moved to ``device``.
-    Returns (params {'x': [N, 3]}, [factor], fixed {'x': node 0})."""
+    Returns (params {'x': [N, t]}, [factor], fixed {'x': node 0})."""
     from ..optim.sparse import Factor
     gen = torch.Generator().manual_seed(0)
     w = torch.float64
     i = torch.arange(N)
     edges = torch.cat([torch.stack([i, (i + 1) % N], 1),
                        torch.stack([i, (i + loop_offset) % N], 1)])
-    truth = torch.randn((N, 3), generator=gen, dtype=w)
+    truth = torch.randn((N, t), generator=gen, dtype=w)
     z = truth[edges[:, 1]] - truth[edges[:, 0]] \
-        + 0.01 * torch.randn((edges.shape[0], 3), generator=gen, dtype=w)
-    x0 = truth + 0.5 * torch.randn((N, 3), generator=gen, dtype=w)
+        + 0.01 * torch.randn((edges.shape[0], t), generator=gen, dtype=w)
+    x0 = truth + 0.5 * torch.randn((N, t), generator=gen, dtype=w)
     z, x0 = z.to(device=device, dtype=dtype), x0.to(device=device,
                                                     dtype=dtype)
-    eye = torch.eye(3, dtype=dtype, device=device)
-    J = torch.stack([-eye, eye], 1).expand(edges.shape[0], 3, 2, 3)
+    eye = torch.eye(t, dtype=dtype, device=device)
+    J = torch.stack([-eye, eye], 1).expand(edges.shape[0], t, 2, t)
 
     def residual(values, consts):
         X = values['x']

@@ -49,3 +49,40 @@ def write_jax_anchor(name, problem, ds, schedule, jax_run, port_optimizer,
     with open(os.path.join(repo, 'data', name), 'w') as f:
         json.dump(out, f, indent=1)
         f.write('\n')
+
+
+def jax_pgo_run(ds, group, schedule):
+    """The JAX package's SparseLM over ``group`` ('SO3', 'SE3', 'RxSO3',
+    'Sim3') on a port pose-graph dict, crossed over as numpy, built as
+    ``pypose_tpu_torch.testing.pgo_optimizer`` builds the port's (one
+    ``pgo_factor`` an odometry run and one for the rest, or one for every
+    edge, node 0 fixed): (chi2 history, final chi2, its preconditioner,
+    initial chi2), the ``jax_run`` of :func:`write_jax_anchor`."""
+    import jax.numpy as jnp
+    import numpy as np
+    import pypose_tpu as jpp
+    from pypose_tpu.optim.sparse import (SparseLM, pgo_factor,
+                                         split_chain_edges)
+    from pypose_tpu.optim.strategy import TrustRegion
+
+    def lie(x):
+        return getattr(jpp, group)(jnp.asarray(x.tensor().numpy()))
+    edges = jnp.asarray(ds['edges'].numpy().astype(np.int32))
+    Z = lie(ds['poses'])
+    if schedule.get('split_chains', True):
+        runs, rest = split_chain_edges(edges)
+        factors = [pgo_factor(edges[jnp.asarray(r)], Z[jnp.asarray(r)])
+                   for r in list(runs) + ([rest] if len(rest) else [])]
+    else:
+        factors = [pgo_factor(edges, Z)]
+    N = ds['nodes'].shape[0]
+    opt = SparseLM({'poses': lie(ds['nodes'])}, factors,
+                   strategy=TrustRegion(radius=schedule['radius']),
+                   fixed={'poses': jnp.zeros(N, bool).at[0].set(True)},
+                   cg_iter=schedule['cg_iter'], cg_tol=schedule['cg_tol'])
+    initial = float(opt._chi2(opt.params, opt._factor_data()))
+    final = opt.optimize(steps=schedule['steps'],
+                         decreasing=schedule['decreasing'],
+                         patience=schedule['patience'])
+    return [float(h) for h in opt.history], float(final), opt.precond, \
+        initial

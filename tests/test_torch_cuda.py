@@ -87,7 +87,7 @@ def test_oversize_solvers_match_plain(cuda, solver, N, loop_offset, n_loops,
         plain = scg._fused_cg_torch
         dtype = torch.bfloat16 if solver == 'fused_bf16' else None
         ops = scg.round_operands(*ops, dtype)
-        assert scg.fused_plan(N, cuda)['smem'] == (N <= 100_000)
+        assert scg.fused_plan(N, 6, cuda)['smem'] == (N <= 100_000)
 
         def kernel():
             return scg.stencil_cg_fused(b_T, *ops, offsets, 6, maxiter, tol,
@@ -350,16 +350,21 @@ def test_knn_float64_launches_kernels(cuda, k):
         knn_fn(*_clouds(9000, 9000, cuda, D=9), k=k)
 
 
-def _steps_card_and_cpu(make, steps):
+def _steps_card_and_cpu(make, steps, route='einsum'):
     """chi2 of ``steps`` step() calls of ``make(device)``'s optimizer on
-    the card and on the CPU, with no stencil kernel launched."""
+    the card and on the CPU: on the 'einsum' route with no stencil kernel
+    launched, on the 'stencil' route with the whole-solve kernel launched
+    on the card (once a solve) and nowhere else."""
     out = []
     for dev in ('cuda', 'cpu'):
         before = (scg.LAUNCHES, scg.FUSED_LAUNCHES)
         opt = make(dev)
-        assert opt.route == 'einsum'
+        assert opt.route == route
         out.append([opt.step() for _ in range(steps)])
-        assert (scg.LAUNCHES, scg.FUSED_LAUNCHES) == before
+        whole = steps if (route, dev) == ('stencil', 'cuda') else 0
+        assert scg.LAUNCHES - before[0] >= whole
+        assert (scg.LAUNCHES - before[0] > 0) == (whole > 0)
+        assert scg.FUSED_LAUNCHES == before[1]
     return out
 
 
@@ -376,7 +381,8 @@ def test_sparse_lm_float64_card_matches_cpu(cuda):
 
 def test_ring3_card_matches_cpu(cuda):
     """The C3 input, a Euclidean [64, 3] factor on stencil edges (t = 3):
-    the 'einsum' route, chi2 within 1e-4 of the CPU's."""
+    the 'stencil' route through the whole-solve kernel at t = 3, chi2
+    within 1e-4 of the CPU's; the same graph at t = 5 takes 'einsum'."""
     from pypose_tpu_torch.optim.sparse import SparseLM
     from pypose_tpu_torch.optim.strategy import TrustRegion
     from pypose_tpu_torch.testing import ring3_problem
@@ -385,7 +391,14 @@ def test_ring3_card_matches_cpu(cuda):
         params, factors, fixed = ring3_problem(device=dev)
         return SparseLM(params, factors, strategy=TrustRegion(radius=1e4),
                         fixed=fixed, cg_iter=100, cg_tol=1e-8)
-    card, cpu = _steps_card_and_cpu(make, 2)
+    card, cpu = _steps_card_and_cpu(make, 2, route='stencil')
+    assert max(abs(a / b - 1) for a, b in zip(card, cpu)) <= 1e-4
+
+    def make5(dev):
+        params, factors, fixed = ring3_problem(device=dev, t=5)
+        return SparseLM(params, factors, strategy=TrustRegion(radius=1e4),
+                        fixed=fixed, cg_iter=100, cg_tol=1e-8)
+    card, cpu = _steps_card_and_cpu(make5, 2)
     assert max(abs(a / b - 1) for a, b in zip(card, cpu)) <= 1e-4
 
 
@@ -491,3 +504,130 @@ def test_icp_card_matches_cpu(cuda):
                             else 0)
     assert float((est[0].Inv() @ est[1]).Log().tensor().abs().max()) <= 1e-5
     assert float((est[0].Inv() @ T).Log().tensor().abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize('t', [3, 4, 7])
+@pytest.mark.parametrize('N,loop_offset,fixed,maxiter,tol', [
+    (40, 9, False, 500, 1e-6), (2500, 157, True, 60, 0.0),
+    (20_000, 157, True, 60, 0.0)])
+def test_kernel_matches_plain_at_block_size(cuda, t, N, loop_offset, fixed,
+                                            maxiter, tol):
+    """The whole-solve kernel's t = 3, 4 and 7 instantiations as
+    test_kernel_matches_plain holds t = 6: at the sphere2500 shape with
+    t = 7 a CTA's 157 nodes make 1,099 rows for 1,024 threads (some
+    threads own two rows).  The capped runs stop at 60 iterations: these
+    systems converge by 1e-6 in ~30, so past ~120 iterations |r|^2
+    underflows float32 and a tol of 0 stops kernel and plain version at
+    different counts."""
+    assert scg.stencil_cg_smem_fits(N, t, 2) == (N <= 2500)
+    gen = torch.Generator(device=cuda).manual_seed(N + t)
+    offsets, ops = random_stencil_system(N, loop_offset, max(15, N * 4 // 5),
+                                         fixed, gen, cuda, t=t)
+    before = scg.LAUNCHES
+    x_k, it_k = scg.stencil_cg_transposed(*ops, offsets, t, maxiter, tol)
+    torch.cuda.synchronize()
+    assert scg.LAUNCHES == before + 1
+    x_p, it_p = scg._cg_body_torch(ops[1], ops[2], ops[3], ops[0], offsets,
+                                   t, maxiter, tol)
+    err = float((x_k - x_p).abs().max())
+    assert err <= 1e-4 * float(x_p.abs().max()) + 1e-5
+    assert abs(int(it_k) - int(it_p)) <= 1
+    x_k2, it_k2 = scg.stencil_cg_transposed(*ops, offsets, t, maxiter, tol)
+    assert torch.equal(x_k, x_k2) and int(it_k) == int(it_k2)
+
+
+@pytest.mark.parametrize('t', [3, 4, 7])
+@pytest.mark.parametrize('solver', ['tiled', 'fused', 'fused_bf16'])
+@pytest.mark.parametrize('N,loop_offset,n_loops,fixed,maxiter,tol', [
+    (53, 9, 15, False, 200, 1e-7),
+    (100_000, 993, 80_000, True, 250, 1e-3)])
+def test_oversize_solvers_match_plain_at_block_size(
+        cuda, t, solver, N, loop_offset, n_loops, fixed, maxiter, tol):
+    """The tiled and fused solvers' t = 3, 4 and 7 instantiations as
+    test_oversize_solvers_match_plain holds t = 6."""
+    gen = torch.Generator(device=cuda).manual_seed(N + t)
+    offsets, (b_T, *ops) = random_stencil_system(N, loop_offset, n_loops,
+                                                 fixed, gen, cuda, t=t)
+    if solver == 'tiled':
+        plain = scg._tiled_cg_torch
+
+        def kernel():
+            return scg.stencil_cg_tiled(b_T, *ops, offsets, t, maxiter, tol)
+    else:
+        plain = scg._fused_cg_torch
+        dtype = torch.bfloat16 if solver == 'fused_bf16' else None
+        ops = scg.round_operands(*ops, dtype)
+
+        def kernel():
+            return scg.stencil_cg_fused(b_T, *ops, offsets, t, maxiter, tol,
+                                        operand_dtype=dtype)
+    before = (scg.FUSED_LAUNCHES, scg.TILED_MV_LAUNCHES)
+    x_k, it_k = kernel()
+    torch.cuda.synchronize()
+    if solver == 'tiled':
+        assert scg.TILED_MV_LAUNCHES > before[1]
+    else:
+        assert scg.FUSED_LAUNCHES == before[0] + 1
+    x_p, it_p = plain(*(a.float() for a in ops), b_T, offsets, t, maxiter,
+                      tol)
+    err = float((x_k - x_p).abs().max())
+    assert err <= 1e-4 * float(x_p.abs().max()) + 1e-5
+    assert abs(int(it_k) - int(it_p)) <= 1
+    x_k2, it_k2 = kernel()
+    assert torch.equal(x_k, x_k2) and int(it_k) == int(it_k2)
+
+
+@pytest.mark.parametrize('t,nodes_in_smem', [(3, 2147), (4, 1449), (6, 805),
+                                             (7, 637)])
+def test_fused_plan_takes_block_size(cuda, t, nodes_in_smem):
+    """The fused kernel's shared-memory mode holds 6t + tt floats a node
+    within 232,448 - 512 bytes a CTA: 2,147 nodes a CTA at t = 3, 1,449 at
+    t = 4, 805 at t = 6 and 637 at t = 7; the 100k shape (758 nodes a CTA
+    on 132 SMs) is within it at t <= 6 and in global-memory mode at
+    t = 7; other block sizes are refused."""
+    assert (232_448 - 512) // (4 * (6 * t + t * t)) == nodes_in_smem
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for N in (53, 100_000, 200_000):
+        plan = scg.fused_plan(N, t, cuda)
+        assert plan['nodes_per_cta'] == -(-N // min(sms, max(1, N // 8)))
+        assert plan['smem'] == (plan['nodes_per_cta'] <= nodes_in_smem)
+    with pytest.raises(RuntimeError, match='invalid argument'):
+        scg.fused_plan(100, 5, cuda)
+
+
+def test_other_block_sizes_raise_on_card(cuda):
+    """t = 5: every wrapper raises on CUDA tensors (no fall to the plain
+    version); the C entry points refuse it too."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    offsets, ops = random_stencil_system(40, 9, 15, False, gen, cuda, t=5)
+    before = (scg.LAUNCHES, scg.FUSED_LAUNCHES, scg.TILED_MV_LAUNCHES)
+    for solver in (scg.stencil_cg_transposed, scg.stencil_cg_tiled,
+                   scg.stencil_cg_fused):
+        with pytest.raises(ValueError, match='instantiated'):
+            solver(*ops, offsets, 5, 5, 1e-6)
+    with pytest.raises(RuntimeError, match='invalid argument'):
+        scg._tiled_pc_launch(ops[2], ops[0], 5)
+    assert (scg.LAUNCHES, scg.FUSED_LAUNCHES,
+            scg.TILED_MV_LAUNCHES) == before
+
+
+@pytest.mark.parametrize('group', ['SO3', 'RxSO3', 'Sim3'])
+def test_group_sphere2500_routes_through_whole_solve(cuda, group):
+    """sphere2500 over SO3, RxSO3 and Sim3: route 'stencil', one
+    whole-solve launch a solve and no fused launch; the first LM step's
+    chi2 within 1e-3 of the CPU's (float32, a 150-iteration cap)."""
+    from pypose_tpu_torch.datasets import find_data, load_g2o
+    from pypose_tpu_torch.testing import pgo_group_instance, pgo_optimizer
+    chi2 = []
+    for dev in (cuda, torch.device('cpu')):
+        ds = pgo_group_instance(
+            load_g2o(find_data('synthetic_sphere2500_seed42.g2o'),
+                     device=dev), group, torch.Generator().manual_seed(7))
+        opt = pgo_optimizer(ds, radius=1e4, cg_iter=150, cg_tol=1e-8)
+        assert opt.route == 'stencil'
+        before = (scg.LAUNCHES, scg.FUSED_LAUNCHES)
+        chi2.append(opt.step())
+        solves = len(opt.cg_iterations[0]) if dev.type == 'cuda' else 0
+        assert scg.LAUNCHES - before[0] == solves
+        assert scg.FUSED_LAUNCHES == before[1]
+    assert abs(chi2[0] - chi2[1]) <= 1e-3 * abs(chi2[1])

@@ -199,13 +199,20 @@ def test_lietensor_api_matches_jax():
 
 
 def test_unported_groups_raise():
+    """RxSO3 and Sim3, which raised until the remaining-groups slice, are
+    real types now (tests/test_torch_groups.py holds them against the JAX
+    package); what no type has still raises."""
     from pypose_tpu_torch.lietensor import Sim3_type, rxso3_type
-    with pytest.raises(NotImplementedError, match='slice 6'):
-        Sim3_type.identity(2)
-    with pytest.raises(NotImplementedError, match='slice 6'):
-        rxso3_type.Exp(torch.zeros(4))
+    np.testing.assert_array_equal(
+        Sim3_type.identity(2).numpy(),
+        np.asarray(pp.identity_Sim3(2).tensor()))
+    X = rxso3_type.Exp(torch.zeros(4))
+    assert X.ltype.name == 'RxSO3'
+    np.testing.assert_array_equal(X.numpy(), [0., 0., 0., 1., 1.])
     with pytest.raises(AttributeError):
         ppt.SE3(torch.zeros(7)).Exp()
+    with pytest.raises(AttributeError):
+        ppt.sim3(torch.zeros(7)).Log()
 
 
 def test_lietensor_views_match_jax():

@@ -167,18 +167,22 @@ def test_split_chain_edges_matches_jax():
 
 def test_refusals():
     """What is still to port raises: strategies other than TrustRegion,
-    factors without a closed-form Jacobian, pgo_factor over groups other
-    than SE3.  precond='chain' and graphs off one merged stencil, which
-    raised before the general routes were ported, now build."""
+    factors without a closed-form Jacobian, pgo_factor over types other
+    than the four groups.  precond='chain', graphs off one merged stencil
+    and pgo_factor over SO3, RxSO3 and Sim3, which raised before they
+    were ported, now build."""
     opt = torch_problem(synthetic_sphere(100))
     assert opt.route == 'stencil'
     assert tsp.SparseLM(opt.params, opt.factors,
                         precond='chain').route == 'chain'
     with pytest.raises(NotImplementedError, match='TrustRegion'):
         tsp.SparseLM(opt.params, opt.factors, strategy=object())
-    with pytest.raises(NotImplementedError, match='slice 6'):
+    so3 = tsp.pgo_factor(torch.zeros((3, 2), dtype=torch.int64),
+                         ppt.identity_SO3(3))
+    assert so3.batched_jacobian is not None and so3.num_edges == 3
+    with pytest.raises(NotImplementedError, match='closed-form'):
         tsp.pgo_factor(torch.zeros((3, 2), dtype=torch.int64),
-                       ppt.SO3(torch.zeros(3, 4)))
+                       ppt.so3(torch.zeros(3, 3)))
     f = opt.factors[0]
     autodiff = tsp.Factor(f.residual, f.indices, f.consts)
     with pytest.raises(NotImplementedError, match='autodiff'):

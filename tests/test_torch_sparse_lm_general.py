@@ -2,7 +2,8 @@
 numpy inputs: 'chain' (the BCR chain preconditioner), 'einsum' through
 per-factor CouplingSpMV and through the generic gather matvec (two
 variable groups), the inputs the stencil kernels do not take (float64
-sphere graphs, a Euclidean t = 3 factor), and the route predicate.
+sphere graphs; a Euclidean t = 3 factor in float64, which in float32 now
+takes 'stencil', and one of t = 5), and the route predicate.
 
 Tolerances.  float64 against the JAX package: chi2 per step rtol 1e-8
 and poses within 1e-8, except where the JAX package's stencil couple
@@ -250,13 +251,15 @@ def jax_ring3(params, factors, fixed):
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
 def test_c3_ring3_matches_jax(dtype):
     """The C3 input (an arity-2 factor over a Euclidean [64, 3] group on
-    stencil edges, t = 3): route 'einsum' here, the plain stencil CG in
-    the JAX package."""
+    stencil edges, t = 3): route 'stencil' in float32 (t = 3 is a block
+    size the kernels are built for; its plain version here) and 'einsum'
+    in float64, the plain stencil CG in the JAX package."""
     params, factors, fixed = ring3_problem(dtype=getattr(torch, dtype),
                                            device='cpu')
     topt = tsp.SparseLM(params, factors, strategy=TrustRegion(radius=1e4),
                         fixed=fixed, cg_iter=100, cg_tol=1e-8)
-    assert topt.route == 'einsum' and topt._stencil_all is not None
+    assert topt.route == ('stencil' if dtype == 'float32' else 'einsum')
+    assert topt._stencil_all is not None
     with jax.enable_x64(dtype == 'float64'):
         jopt = jax_ring3(params, factors, fixed)
         jhist = [jopt.step() for _ in range(3)]
@@ -270,7 +273,8 @@ def test_c3_ring3_matches_jax(dtype):
 
 def test_route_predicate():
     """'stencil' only for one merged stencil, block-Jacobi, float32 and
-    t = 6; 'chain' for the chain preconditioner; 'einsum' otherwise."""
+    t in {3, 4, 6, 7}; 'chain' for the chain preconditioner; 'einsum'
+    otherwise (t = 5 here)."""
     def sphere(dtype, **kw):
         return pgo_optimizer(synthetic_sphere(100, dtype=dtype,
                                               device='cpu'),
@@ -282,6 +286,8 @@ def test_route_predicate():
                         precond='chain').route == 'chain'
     assert opt._spmv is None          # the stencil route builds none
     params, factors, fixed = ring3_problem(device='cpu')
+    assert tsp.SparseLM(params, factors).route == 'stencil'
+    params, factors, fixed = ring3_problem(device='cpu', t=5)
     assert tsp.SparseLM(params, factors).route == 'einsum'
     chain = pgo_optimizer(chain_instance(torch.float32), **CHAIN)
     assert chain.route == chain.precond == 'chain'

@@ -132,3 +132,64 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     with pytest.raises(RuntimeError, match='nvcc not found'):
         _build.nvcc_path()
+
+
+@pytest.mark.parametrize('fixed', [False, True])
+@pytest.mark.parametrize('t', [3, 4, 7])
+def test_stencil_cg_matches_jax_kernel_at_block_size(t, fixed):
+    """Block sizes 3, 4 and 7 (SO3, RxSO3, Sim3): the port's plain version
+    against the JAX package's Pallas whole-solve kernel in interpret mode
+    and its XLA version, x within rtol 1e-4 / atol 1e-5 and iterations
+    within one (float32, sums in another order); both within 5e-3 of the
+    dense solve."""
+    from jax.experimental.pallas import tpu as pltpu
+    N = 53
+    edges, J, D, dcorr, Minv, b, A_dense = make_system(N, t=t, seed=t)
+    mask = np.zeros(N, bool)
+    mask[0] = fixed
+    js = JStencil(edges, N, t)
+    args = (jnp.asarray(b), jnp.asarray(D), jnp.asarray(dcorr),
+            jnp.asarray(Minv),
+            js.precompute(jnp.asarray(J), jnp.asarray(J)), tuple(js.offsets))
+    kw = dict(fixed_mask=jnp.asarray(mask) if fixed else None, maxiter=400,
+              tol=1e-7)
+    x_x, it_x = jax_stencil_cg(*args, use_pallas=False, **kw)
+    with pltpu.force_tpu_interpret_mode():
+        x_p, it_p = jax_stencil_cg(*args, use_pallas=True, **kw)
+    ts = StencilSpMV(edges, N, t)
+    x_t, it_t = scg.stencil_cg(
+        torch.from_numpy(b), torch.from_numpy(D), torch.from_numpy(dcorr),
+        torch.from_numpy(Minv),
+        ts.precompute(torch.from_numpy(J), torch.from_numpy(J)),
+        tuple(ts.offsets),
+        fixed_mask=torch.from_numpy(mask) if fixed else None, maxiter=400,
+        tol=1e-7)
+    x_t = x_t.numpy()
+    for x_j, it_j in ((x_p, it_p), (x_x, it_x)):
+        np.testing.assert_allclose(x_t, np.asarray(x_j), rtol=1e-4,
+                                   atol=1e-5)
+        assert abs(int(it_t) - int(it_j)) <= 1
+    assert int(it_t) < 400
+    keep = np.ones(N * t, bool)
+    keep[:t] = not fixed
+    x_ref = np.linalg.solve(A_dense[np.ix_(keep, keep)], b.reshape(-1)[keep])
+    np.testing.assert_allclose(x_t.reshape(-1)[keep], x_ref, rtol=5e-3,
+                               atol=5e-4)
+
+
+@pytest.mark.parametrize('t,per_node,smem_bytes', [
+    (3, 63, 40_076), (4, 100, 63_312), (6, 198, 124_856), (7, 259, 163_164)])
+def test_smem_budget_by_block_size(t, per_node, smem_bytes):
+    """sphere2500's shape (NL = 157, 2 offsets) at each block size the
+    kernels are built for: 5t + 4t + 2tt + 2tt floats a node, all within
+    the 232,448 bytes a CTA may use; the 100k shape is past the whole-solve
+    budgets at every size (at t = 3 its 19.2 MB are within the L2 budget,
+    but p, r and q of 6,250 nodes a CTA take 300,512 bytes of shared
+    memory), so it takes the fused solver."""
+    assert 9 * t + 4 * t * t == per_node
+    assert 4 * (128 + 157 * per_node) == smem_bytes <= scg.SMEM_PER_BLOCK
+    assert scg.stencil_cg_smem_fits(2500, t, 2)
+    assert scg.stencil_cg_fits(2500, t, 2)
+    assert not scg.stencil_cg_fits(100_000, t, 2)
+    assert 4 * (128 + 6250 * 4 * 3) == 300_512 > scg.SMEM_PER_BLOCK
+    assert t in scg.KERNEL_T and 5 not in scg.KERNEL_T

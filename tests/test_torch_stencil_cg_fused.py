@@ -133,3 +133,40 @@ def test_fused_edge_cases():
     with pytest.raises(ValueError, match='Minv_T has shape'):
         scg.stencil_cg_fused(ok[0], ok[1], z(t, N), ok[3], (1, 3), t, 5,
                              1e-5)
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+@pytest.mark.parametrize('t', [3, 4, 7])
+def test_fused_matches_jax_fused_at_block_size(t, bf16):
+    """Block sizes 3, 4 and 7 at N=53, float32 and bf16 operand storage:
+    the fused plain version against the JAX package's stencil_cg_fused in
+    interpret mode, x within rtol 1e-4 / atol 1e-5, iterations within
+    one."""
+    *ops, offsets = lane_major(*make_system(53, t=t, seed=20 + t)[:6])
+    x_t, it_t = scg.stencil_cg_fused(
+        *map(torch.from_numpy, ops), offsets, t, 200, 1e-7,
+        operand_dtype=torch.bfloat16 if bf16 else None)
+    x_j, it_j = jax_stencil_cg_fused(
+        *map(jnp.asarray, ops), offsets, t, 200, 1e-7, tile=16,
+        interpret=True, operand_dtype=jnp.bfloat16 if bf16 else None)
+    assert x_t.dtype == torch.float32 and tuple(x_t.shape) == (t, 53)
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=1e-4,
+                               atol=1e-5)
+    assert abs(int(it_t) - int(it_j)) <= 1
+    assert int(it_t) < 200
+
+
+@pytest.mark.parametrize('t', [3, 4, 7])
+def test_random_stencil_system_block_size(t):
+    """testing.random_stencil_system at another block size: operand
+    shapes, and the three plain solvers agree on it."""
+    gen = torch.Generator().manual_seed(t)
+    offsets, ops = random_stencil_system(53, 9, 15, True, gen, t=t)
+    assert [tuple(o.shape) for o in ops] == [
+        (t, 53), (t * t, 53), (t * t, 53), (len(offsets) * t * t, 53)]
+    x_w, it_w = scg.stencil_cg_transposed(*ops, offsets, t, 200, 1e-6)
+    for solve in (scg.stencil_cg_fused, scg.stencil_cg_tiled):
+        x, it = solve(*ops, offsets, t, 200, 1e-6)
+        assert abs(int(it) - int(it_w)) <= 1 < int(it_w) < 200
+        assert float((x - x_w).abs().max()) <= 1e-4 * float(x_w.abs().max())
+    np.testing.assert_array_equal(x_w[:, 0].numpy(), 0.0)

@@ -161,3 +161,23 @@ def test_tiled_f64_matches_jax_x64():
         x_j = np.asarray(x_j)
     assert int(it_t) == int(it_j) == 60
     np.testing.assert_allclose(x_t.numpy(), x_j, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize('t', [3, 4, 7])
+def test_tiled_matches_jax_tiled_at_block_size(t):
+    """Block sizes 3, 4 and 7 at N=53: the tiled plain version against the
+    JAX package's stencil_cg_tiled in interpret mode and its _cg_body, x
+    within rtol 1e-4 / atol 1e-5, iterations within one."""
+    *ops, offsets = lane_major(*make_system(53, t=t, seed=5 + t)[:6])
+    x_t, it_t = scg.stencil_cg_tiled(*map(torch.from_numpy, ops), offsets, t,
+                                     200, 1e-7)
+    b_T, A_T, Minv_T, C_T = map(jnp.asarray, ops)
+    x_jt, it_jt = jax_stencil_cg_tiled(b_T, A_T, Minv_T, C_T, offsets, t, 200,
+                                       1e-7, tile=16, interpret=True)
+    x_jb, it_jb = jax_cg_body(A_T, Minv_T, C_T, b_T, offsets, t, 200, 1e-7)
+    for x_j, it_j in ((x_jt, it_jt), (x_jb, it_jb)):
+        np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=1e-4,
+                                   atol=1e-5)
+        assert abs(int(it_t) - int(it_j)) <= 1
+    assert int(it_t) < 200
+    assert tuple(x_t.shape) == (t, 53)
