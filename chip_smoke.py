@@ -6,7 +6,10 @@ RxSO3 and Sim3 through those kernels' t = 3, 4 and 7 instantiations, ICP
 on 100k-point clouds through the nearest-neighbour kernel, knn(k=8) on
 those clouds through the k-nearest kernel, knn on 6-coordinate clouds, and
 the general factor-graph routes (no kernel): a chain-dominated and three
-random-loop pose graphs, and the inputs the stencil kernels do not take.
+random-loop pose graphs, and the inputs the stencil kernels do not take;
+then the Lie core's autograd and the paths it opens: Jacobians by
+autodiff and robust kernels in SparseLM through the whole-solve kernel,
+and the reprojection pose graph.
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -113,12 +116,39 @@ Phases (any failure raises, so the script exits non-zero):
      jax_anchor_pgo_loops10k.json: entries above 1e-3 within 1e-3, the
      final below 1e-5 of the initial chi2), ms per LM step, CG host
      reads, device operations per LM step and the device's idle share.
- 12. prints the kernels' JSON line (each kernel's, and each of the t = 3,
+ 13. autograd: the 32 autograd Functions of lietensor/operation.py at a
+     batch of 100,000 on the card against the CPU in float64 (inputs from
+     testing.autograd_inputs): the forward, a VJP with a random cotangent
+     and a torch.func.jvp, in float64 (within 1e-9 of 1 + max|CPU|, Sim3
+     1e-8) and float32 (1e-5, Sim3 1e-4), each op's largest error printed;
+     bench.py:130-139's micro-jacrev, vmap(jacrev(SE3(X).Act(p))) at 100k,
+     held to [I, skew(-out), 0], ms per call and Jacobians/s.
+ 14. sphere2500-autodiff: the first step's autodiff J blocks against
+     se3_pgo_blocks on the card (1e-5 of 1 + max|J|); then sphere2500
+     through bench.py:199-205's two-phase schedule (testing.two_phase)
+     with residual-only factors, cold then warm: route 'stencil',
+     whole-solve launches only (one a solve), the final chi2 at pypose's
+     anchor, ms per LM step beside the closed form's from phase 4.
+ 15. sim3-sphere2500-autodiff: phase 5b's sim3-sphere2500 with
+     residual-only factors, held to its JAX anchor as 5b holds it.
+ 16. sphere2500-huber: the closed form and the residual-only factor, both
+     with Huber(delta=5), the two-phase schedule, cold then warm: route
+     'stencil', whole-solve launches only, first step within 1e-4 and
+     final within 1e-3 of data/jax_anchor_sphere2500_huber.json, the
+     final at pypose's anchor.
+ 17. reproj-pgo: testing.reproj_pgo_instance (examples/reproj_pgo.py at
+     2,500 poses and 7,500 landmarks) on the card (cold, warm) and on the
+     CPU: route 'einsum', no kernel; first step within 1e-4 and final
+     within 1e-3 of data/jax_anchor_reproj_pgo.json, card against CPU
+     alike.
+ 18. prints the kernels' JSON line (each kernel's, and each of the t = 3,
      4, 7 instantiations', launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
      nn1 and nnk also at D = 6, bound at 2 D flop a pair, in float32 and
-     in float64 at 34 TFLOP/s), the card line and the result line.
+     in float64 at 34 TFLOP/s; the whole solve's launches on each
+     sphere2500 path, launches_by_path), the card line and the result
+     line.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -509,11 +539,11 @@ def sphere2500_slice(dev):
         check(bool(torch.isfinite(X).all()), 'poses are not finite')
         check(chi2 <= target,
               f'final chi2 {chi2} above the pypose anchor {target}')
-        return ms1 + ms2
+        return ms1 + ms2, n1 + n2
 
     # the path's launches: counted from zero over the cold run only
     reset_counts()
-    run('cold')
+    cold_ms, cold_steps = run('cold')
     counts = read_counts()
     solves = sum(len(s) for o in (opt, opt2) for s in o.cg_iterations)
     check(counts['LAUNCHES'] == solves > 0 and counts['FUSED_LAUNCHES'] == 0,
@@ -521,11 +551,11 @@ def sphere2500_slice(dev):
           f'{counts["LAUNCHES"]} times for {solves} solves')
     print(f'[slice] cold run launched the whole-solve CG kernel '
           f'{counts["LAUNCHES"]} times; all counts {counts}', flush=True)
-    run('warm')
+    warm_ms, warm_steps = run('warm')
     # a third run under torch.profiler: the whole-solve kernel's share
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ms = run('profiled')
+        ms, _ = run('profiled')
     kernels = [e for e in prof.key_averages()
                if not e.key.startswith('aten::')]
     pcg_us = sum(e.device_time_total for e in kernels
@@ -536,7 +566,8 @@ def sphere2500_slice(dev):
           f'of {dev_us / 1e3:.3f} ms device time and {ms:.3f} ms of the run '
           f'(CUDA events): {pcg_us / dev_us:.4f} of device time, '
           f'{pcg_us / 1e3 / ms:.4f} of the run', flush=True)
-    return counts
+    return counts, {'ms_per_step_cold': cold_ms / cold_steps,
+                    'ms_per_step_warm': warm_ms / warm_steps}
 
 
 def pgo100k_slice(dev):
@@ -1174,21 +1205,22 @@ def group_instance(anchor, dev):
         torch.Generator().manual_seed(anchor['scale_seed']))
 
 
-def group_graph_phase(name, dev, kernel, profiled=False):
+def group_graph_phase(name, dev, kernel, profiled=False, autodiff=False):
     """A pose graph over SO3, RxSO3 or Sim3 on the 'stencil' route, built
     by testing.pgo_optimizer with its anchor file's schedule
     (data/jax_anchor_<name>.json), cold then warm (and, if asked, under
     torch.profiler): route 'stencil'; ``kernel`` ('whole' or 'fused')
     launched once a solve and the other not at all; the chi2 history held
     to the JAX anchor (first step within 1e-4 relative, final within
-    1e-3); ms per LM step.  Returns a dict of the cold run's launch counts
-    and those numbers."""
+    1e-3); ms per LM step.  ``autodiff``: residual-only factors (the
+    Jacobian by autodiff), tagged '-autodiff'.  Returns a dict of the cold
+    run's launch counts and those numbers."""
     import torch
     from pypose_tpu_torch.datasets import find_data
     from pypose_tpu_torch.ops import stencil_cg as scg
     from pypose_tpu_torch.testing import instance_checksum, pgo_optimizer
 
-    tag = name.replace('_', '-')
+    tag = name.replace('_', '-') + ('-autodiff' if autodiff else '')
     with open(find_data(f'jax_anchor_{name}.json')) as f:
         anchor = json.load(f)
     sched, group = anchor['schedule'], anchor['group']
@@ -1200,7 +1232,9 @@ def group_graph_phase(name, dev, kernel, profiled=False):
         abs(got[k] - want[k]) <= 1e-6 * abs(want[k])
         for k in ('nodes_abs_sum', 'poses_abs_sum')),
         f'{tag}: instance checksum {got} differs from the anchor\'s {want}')
-    opt = pgo_optimizer(ds, **sched)
+    opt = pgo_optimizer(ds, autodiff=autodiff, **sched)
+    check(all((f.batched_jacobian is None) == autodiff
+              for f in opt.factors), f'{tag}: factors not as asked')
     torch.cuda.synchronize()
     n = ds['nodes'].shape[0]
     offsets = opt._stencil_all.offsets
@@ -1334,6 +1368,240 @@ def pgo_groups_phase(dev):
         out[group] = {'initial_chi2': initial, 'final_chi2': chi2,
                       'ms_per_step_cold': times['cold'],
                       'ms_per_step_warm': times['warm']}
+    return out
+
+
+AUTOGRAD_N = 100_000
+
+
+def autograd_phase(dev, smi):
+    """The 32 autograd Functions at a batch of 100,000 on the card against
+    the CPU in float64: the forward, a VJP with a random cotangent and a
+    torch.func.jvp, in float64 (within 1e-9 of 1 + max|CPU|; 1e-8 for the
+    Sim3 ops) and in float32 (1e-5; 1e-4 for Sim3, whose rules go through
+    sim3_Jl's float32 squarings: tests/test_torch_autograd.py's bounds),
+    the largest error of each printed; then
+    bench.py:130-139's micro-jacrev, vmap(jacrev(SE3(X).Act(p))) at 100k
+    in float32, held to its closed form [I, skew(-out), 0] and timed.
+    Returns {op: (float64 error, float32 error)} and the jacrev numbers."""
+    import numpy as np
+    import torch
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.lietensor import operation as op
+    from pypose_tpu_torch.testing import autograd_inputs
+
+    def evaluate(fn, args, ct, tans):
+        args = [a.clone().requires_grad_() for a in args]
+        out = fn(*args)
+        vjp = torch.autograd.grad(out, args, ct)
+        _, tan = torch.func.jvp(fn, tuple(a.detach() for a in args),
+                                tuple(tans))
+        return [out.detach(), *vjp, tan]
+
+    errs = {}
+    t0 = time.perf_counter()
+    for i, (name, cls) in enumerate(op.FUNCTIONS.items()):
+        rng = np.random.default_rng(i)
+        args, on_group = autograd_inputs(name, AUTOGRAD_N, rng)
+        fn = getattr(op, name)
+        out = fn(*args)
+        ct = torch.from_numpy(rng.normal(size=out.shape))
+        tans = []
+        for a, g in zip(args, on_group):
+            t = torch.from_numpy(rng.normal(size=a.shape))
+            if g:
+                t[..., -1] = 0.0
+            tans.append(t)
+        ref = evaluate(fn, args, ct, tans)
+        got = {}
+        for dtype in (torch.float64, torch.float32):
+            def to(x):
+                return x.to(device=dev, dtype=dtype)
+            res = evaluate(fn, [to(a) for a in args], to(ct),
+                           tuple(to(t) for t in tans))
+            got[dtype] = max(float((r.double().cpu() - w).abs().max())
+                             / (1 + float(w.abs().max()))
+                             for r, w in zip(res, ref))
+            check(all(bool(torch.isfinite(r).all()) for r in res),
+                  f'autograd, {name} {dtype}: non-finite result on the card')
+        sim3 = name.split('_')[0] in ('Sim3', 'sim3')
+        b64, b32 = (1e-8, 1e-4) if sim3 else (1e-9, 1e-5)
+        print(f'[autograd] {name}: forward, VJP, JVP at {AUTOGRAD_N}, card '
+              f'against CPU float64: float64 {got[torch.float64]:.3e} '
+              f'(bound {b64:g}), float32 {got[torch.float32]:.3e} (bound '
+              f'{b32:g})', flush=True)
+        check(got[torch.float64] <= b64 and got[torch.float32] <= b32,
+              f'autograd, {name}: the card disagrees with the CPU')
+        errs[name] = (got[torch.float64], got[torch.float32])
+    print(f'[autograd] 32 Functions checked in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    gen = torch.Generator().manual_seed(0)
+    X = ppt.randn_SE3(AUTOGRAD_N, generator=gen).tensor().to(dev)
+    p = torch.randn((AUTOGRAD_N, 3), generator=gen).to(dev)
+    jac = torch.func.vmap(torch.func.jacrev(
+        lambda X, p: ppt.SE3(X).Act(p)))
+    ms, J = cuda_ms(lambda: jac(X, p))
+    out = ppt.SE3(X).Act(p)
+    want = torch.cat([op.SE3_Act_Jacobian(out),
+                      torch.zeros_like(out[..., None])], -1)
+    err = float((J - want).abs().max()) / (1 + float(out.abs().max()))
+    check(tuple(J.shape) == (AUTOGRAD_N, 3, 7) and err <= 1e-5,
+          f'micro-jacrev: shape {tuple(J.shape)}, error {err:.3e}')
+    print(f'[autograd] micro-jacrev (bench.py:130-139), vmap(jacrev(SE3(X)'
+          f'.Act(p))) at {AUTOGRAD_N} in float32: {ms:.3f} ms/call, '
+          f'{AUTOGRAD_N / ms * 1e3:.4e} Jacobians/s (CUDA events, median of '
+          f'7; {smi}); against [I, skew(-out), 0] {err:.3e}', flush=True)
+    return errs, {'ms': ms, 'jacobians_per_s': AUTOGRAD_N / ms * 1e3,
+                  'err': err}
+
+
+def sphere2500_variant(tag, dev, kernel=None, autodiff=False, anchor=None):
+    """sphere2500 through bench.py:199-205's two-phase schedule
+    (testing.two_phase) with ``kernel`` and/or residual-only factors
+    (``autodiff``), cold then warm: route 'stencil', whole-solve launches
+    only, one a solve; the final chi2 at pypose's anchor; with ``anchor``
+    (a data/jax_anchor_*.json name) the first step within 1e-4 and the
+    final within 1e-3 of the JAX package's.  Returns the cold run's launch
+    counts, the final chi2 and ms per LM step cold and warm."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data, load_g2o
+    from pypose_tpu_torch.testing import pgo_optimizer, two_phase
+
+    with open(find_data('ref_anchor_sphere2500.json')) as f:
+        target = json.load(f)['final_chi2'] * (1 + 1e-4)
+    if anchor is not None:
+        with open(find_data(f'jax_anchor_{anchor}.json')) as f:
+            anchor = json.load(f)
+    ds = load_g2o(find_data('synthetic_sphere2500_seed42.g2o'), device=dev)
+    kw = dict(radius=1e4, cg_tol=1e-9, kernel=kernel, autodiff=autodiff)
+    opt, opt2 = (pgo_optimizer(ds, cg_iter=150, **kw),
+                 pgo_optimizer(ds, cg_iter=1200, **kw))
+    check(opt.route == opt2.route == 'stencil',
+          f'{tag}: route {opt.route}, not stencil')
+    check(all((f.batched_jacobian is None) == autodiff
+              and (f.kernel is kernel) for f in opt.factors),
+          f'{tag}: factors not as asked')
+
+    def run(label):
+        opt.params, opt.strategy_state = {'poses': ds['nodes']}, None
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        final, hist = two_phase(opt, opt2)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        X = opt2.params['poses'].tensor()
+        check(bool(torch.isfinite(X).all()), f'{tag}: poses not finite')
+        line = (f'[{tag}] {label}: chi2 history {hist}; {len(hist)} LM steps '
+                f'in {ms:.3f} ms (CUDA events), {ms / len(hist):.3f} ms/LM '
+                f'step; final {final:.6f}, pypose target {target:.6f}')
+        if anchor is not None:
+            first = hist[0] / anchor['history'][0] - 1
+            last = final / anchor['final_chi2'] - 1
+            line += (f'; against the JAX anchor: first step {first:.3e} '
+                     f'(bound 1e-4), final {last:.3e} (bound 1e-3)')
+            check(abs(first) <= 1e-4 and abs(last) <= 1e-3,
+                  f'{tag}: chi2 outside its tolerance of the JAX anchor')
+        print(line, flush=True)
+        check(final <= target, f'{tag}: final chi2 {final} above the pypose '
+              f'anchor {target}')
+        return ms / len(hist), final
+
+    reset_counts()
+    cold, final = run('cold')
+    counts = read_counts()
+    solves = sum(len(s) for o in (opt, opt2) for s in o.cg_iterations)
+    launched = {k: v for k, v in counts.items() if v and k != 'LAUNCHES'}
+    check(counts['LAUNCHES'] == solves > 0 and not launched,
+          f'{tag}: launch counts {counts} for {solves} solves')
+    print(f'[{tag}] cold run launch counts {counts} ({solves} solves)',
+          flush=True)
+    warm, _ = run('warm')
+    return {'counts': counts, 'final_chi2': final, 'ms_per_step_cold': cold,
+            'ms_per_step_warm': warm}
+
+
+def autodiff_blocks_phase(dev):
+    """sphere2500's first-step Jacobian blocks on the card: the autodiff
+    blocks of each residual-only factor against se3_pgo_blocks' closed
+    form, within 1e-5 (1 + max|J|) (the CPU: 1.5e-6)."""
+    from pypose_tpu_torch.datasets import find_data, load_g2o
+    from pypose_tpu_torch.optim.sparse import SparseLM
+    from pypose_tpu_torch.testing import pgo_factors
+    ds = load_g2o(find_data('synthetic_sphere2500_seed42.g2o'), device=dev)
+    closed, auto = pgo_factors(ds), pgo_factors(ds, autodiff=True)
+    opt = SparseLM({'poses': ds['nodes']}, closed + auto)
+    worst = 0.0
+    for i, (c, a) in enumerate(zip(closed, auto)):
+        _, Jc = opt._edge_r_jac(opt.params, c, i)
+        _, Ja = opt._edge_r_jac(opt.params, a, len(closed) + i)
+        Jc, Ja = Jc['poses'], Ja['poses']
+        check(Ja.shape == Jc.shape, f'autodiff blocks {tuple(Ja.shape)}')
+        worst = max(worst, float((Ja - Jc).abs().max())
+                    / (1 + float(Jc.abs().max())))
+    print(f'[sphere2500-autodiff] first step on the card: autodiff J blocks '
+          f'against se3_pgo_blocks {worst:.3e} (bound 1e-5)', flush=True)
+    check(worst <= 1e-5, 'sphere2500-autodiff: J blocks disagree')
+    return worst
+
+
+def reproj_phase(dev):
+    """testing.reproj_pgo_instance (examples/reproj_pgo.py at 2,500 poses
+    and 7,500 landmarks) with its anchor file's schedule, on the card
+    (cold, warm) and on the CPU: route 'einsum', no kernel launched; each
+    chi2 history's first step within 1e-4 and final within 1e-3 of the
+    JAX anchor (data/jax_anchor_reproj_pgo.json) and the card's of the
+    CPU's.  Returns the card's numbers."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.testing import (reproj_pgo_instance,
+                                          reproj_pgo_optimizer)
+    with open(find_data('jax_anchor_reproj_pgo.json')) as f:
+        anchor = json.load(f)
+    sched = anchor['schedule']
+
+    def held(hist, want, what):
+        first = hist[0] / want[0] - 1
+        final = hist[-1] / want[-1] - 1
+        print(f'[reproj-pgo] {what}: first step {first:.3e} (bound 1e-4), '
+              f'final {final:.3e} (bound 1e-3)', flush=True)
+        check(abs(first) <= 1e-4 and abs(final) <= 1e-3,
+              f'reproj-pgo: {what} outside its tolerance')
+
+    hist, out = {}, {}
+    for d, labels in ((dev, ('cold', 'warm')), ('cpu', ('cpu',))):
+        ds = reproj_pgo_instance(device=d)
+        got = {k: float((v.tensor() if hasattr(v, 'ltype') else v)
+                        .double().abs().sum())
+               for k, v in ds.items() if k in anchor['instance_checksum']}
+        check(all(abs(got[k] - v) <= 1e-6 * abs(v)
+                  for k, v in anchor['instance_checksum'].items()),
+              f'reproj-pgo on {d}: instance checksum {got}')
+        opt = reproj_pgo_optimizer(ds, **sched)
+        check(opt.route == 'einsum', f'reproj-pgo: route {opt.route}')
+        reset_counts()
+        for label in labels:
+            opt.params = {'poses': ds['poses'], 'landmarks': ds['landmarks']}
+            opt.strategy_state = None
+            w0 = time.perf_counter()
+            opt.optimize(steps=sched['steps'], decreasing=sched['decreasing'],
+                         patience=sched['patience'])
+            if d != 'cpu':
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - w0) / len(opt.history)
+            out[f'ms_per_step_{label}'] = ms
+            print(f'[reproj-pgo] {label} on {d}: chi2 history {opt.history};'
+                  f' CG iterations {opt.cg_iterations}; {ms:.3f} ms/LM step '
+                  '(host clock, synchronized)', flush=True)
+        counts = read_counts()
+        check(not any(counts.values()),
+              f'reproj-pgo on {d}: kernels launched: {counts}')
+        hist[d] = list(opt.history)
+        held(hist[d], anchor['history'], f'{d} against the JAX anchor')
+    held(hist[dev], hist['cpu'], 'card against the CPU')
+    out['final_chi2'] = hist[dev][-1]
     return out
 
 
@@ -1472,7 +1740,7 @@ def main():
 
     # 4., 5., 7.-11. the paths, each counted from zero over its cold run
     first_step_agreement(dev)
-    sphere_counts = sphere2500_slice(dev)
+    sphere_counts, sphere_ms = sphere2500_slice(dev)
     pgo_counts, pgo_prof = pgo100k_slice(dev)
     groups = {name: group_graph_phase(name, dev, kernel,
                                       profiled=name == 'sim3_sphere2500')
@@ -1490,6 +1758,25 @@ def main():
     sparse_f64_phase(dev)
     general = {'pgo-chain': pgo_chain_phase(dev),
                'pgo-loops': pgo_loops_phase(dev)}
+    # 13.-17. the Lie core's autograd and the paths it opens
+    from pypose_tpu_torch.optim.kernel import Huber
+    autograd_errs, jacrev = autograd_phase(dev, smi)
+    blocks_err = autodiff_blocks_phase(dev)
+    autodiff = {'sphere2500-autodiff': sphere2500_variant(
+        'sphere2500-autodiff', dev, autodiff=True)}
+    print(f'[sphere2500-autodiff] ms/LM step cold, warm: autodiff '
+          f'{autodiff["sphere2500-autodiff"]["ms_per_step_cold"]:.3f}, '
+          f'{autodiff["sphere2500-autodiff"]["ms_per_step_warm"]:.3f}; '
+          f'closed form (the [slice] phase of this run) '
+          f'{sphere_ms["ms_per_step_cold"]:.3f}, '
+          f'{sphere_ms["ms_per_step_warm"]:.3f}', flush=True)
+    autodiff['sim3-sphere2500-autodiff'] = group_graph_phase(
+        'sim3_sphere2500', dev, 'whole', autodiff=True)
+    for form in ('closed form', 'autodiff'):
+        autodiff[f'sphere2500-huber {form}'] = sphere2500_variant(
+            f'sphere2500-huber {form}', dev, kernel=Huber(delta=5.0),
+            autodiff=form == 'autodiff', anchor='sphere2500_huber')
+    reproj = reproj_phase(dev)
 
     # results: each kernel's bound from this run's shapes (two offsets;
     # float32 operands and vectors, 4 bytes a float)
@@ -1558,7 +1845,11 @@ def main():
               ms_of=f'one {k_it}-iteration solve, sphere2500 shape, '
                     'operands in shared memory',
               ms_l2_operands=l2_ms,
-              ms_l2_operands_of='one 150-iteration solve, N=20,000'),
+              ms_l2_operands_of='one 150-iteration solve, N=20,000',
+              launches_by_path={
+                  'sphere2500': sphere_counts['LAUNCHES'],
+                  **{k: v['counts']['LAUNCHES'] for k, v in autodiff.items()
+                     if k.startswith('sphere2500')}}),
         entry('stencil_tiled_mv', 'stencil_cg_tiled.cu', pallas + '131',
               pgo_counts['TILED_MV_LAUNCHES'],
               max(alone['mv'][0], route_err('tiled')), alone['mv'][1] / 1e3,
@@ -1636,6 +1927,12 @@ def main():
             entry(f'stencil_pcg_t{t}', 'stencil_cg.cu', pallas + '101',
                   groups[f'{g}_sphere2500']['counts']['LAUNCHES'], w_err,
                   w_ms, w_plain, pcg_bound(t, w_it), block_size=t,
+                  **({'launches_by_path': {
+                      'sim3-sphere2500': groups['sim3_sphere2500'][
+                          'counts']['LAUNCHES'],
+                      'sim3-sphere2500-autodiff': autodiff[
+                          'sim3-sphere2500-autodiff']['counts']['LAUNCHES']}}
+                     if t == 7 else {}),
                   ms_of=f'one {w_it}-iteration solve, sphere2500 shape, '
                         'operands in shared memory; launches from '
                         f'{g}-sphere2500', routed=True),
@@ -1685,6 +1982,14 @@ def main():
     for name, numbers in groups.items():
         print(f'[{name.replace("_", "-")}] {numbers}', flush=True)
     print(f'[pgo-groups] {groups_loops}', flush=True)
+    print(f'[sphere2500] closed form {sphere_ms}', flush=True)
+    for tag, numbers in autodiff.items():
+        print(f'[{tag}] {numbers}', flush=True)
+    print(f'[reproj-pgo] {reproj}', flush=True)
+    print(f'[autograd] micro-jacrev {jacrev}; largest float64 error '
+          f'{max(e[0] for e in autograd_errs.values()):.3e}, float32 '
+          f'{max(e[1] for e in autograd_errs.values()):.3e}; autodiff J '
+          f'blocks {blocks_err:.3e}', flush=True)
     routed_unlaunched = [k['name'] for k in kernels
                          if k.get('routed', True) and k['launches'] < 1]
     check(not routed_unlaunched,

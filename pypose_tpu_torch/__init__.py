@@ -6,7 +6,9 @@ torch and numpy, never jax.  It covers two paths:
 
 - factor graphs (sphere2500, 100k poses, chain-dominated and random-loop
   graphs, over SE3 and, on the same topologies, SO3, RxSO3 and Sim3): the
-  Lie core of all four groups (forward) with its random factories, views
+  Lie core of all four groups, differentiable (the 32 autograd Functions
+  of ``lietensor/operation.py``; LieTensor a torch pytree node; ``nn``
+  and ``func``), with its random factories, views
   and matrix conversions, the scalarized SE3 PGO blocks, g2o IO and the
   synthetic sphere graph, the stencil and coupling-block normal
   equations (``ops.spmv``), the stencil CG kernels
@@ -14,7 +16,9 @@ torch and numpy, never jax.  It covers two paths:
   systems past its L2 budget, ``csrc/stencil_cg_tiled.cu`` beside it),
   the einsum CG (``optim.solver``) with block-Jacobi or the block cyclic
   reduction chain preconditioner (``ops.block_tridiag``), and
-  ``optim.sparse.SparseLM``, which picks among them;
+  ``optim.sparse.SparseLM``, which picks among them and takes
+  closed-form or autodiff Jacobians and the robust kernels of
+  ``optim.kernel``;
 - point clouds: ``module.ICP`` over ``function.geometry.knn`` (the
   nearest-neighbour kernels of ``csrc/knn.cu``), ``svdtf`` and ``svdstf``, with
   ``utils.ReduceToBason``.  The SE3 composition and action kernels of
@@ -29,6 +33,9 @@ from . import function  # noqa: F401
 from . import utils  # noqa: F401
 from . import module  # noqa: F401
 from . import testing  # noqa: F401
+from . import nn  # noqa: F401
+from . import func  # noqa: F401
+from .nn import Parameter, Module  # noqa: F401
 from .lietensor import (  # noqa: F401
     LieTensor, SO3, so3, SE3, se3, Sim3, sim3, RxSO3, rxso3, identity_SO3,
     identity_so3, identity_SE3, identity_se3, identity_Sim3, identity_sim3,

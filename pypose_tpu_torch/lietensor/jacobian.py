@@ -1,4 +1,4 @@
-r"""Closed-form Lie-group Jacobian helpers on torch tensors (forward only).
+r"""Closed-form Lie-group Jacobian helpers on torch tensors.
 
 Counterpart of ``pypose_tpu/lietensor/jacobian.py``: the Taylor-guarded
 coefficient functions, skew matrices, the SO3 left Jacobian and its
@@ -20,7 +20,7 @@ __all__ = [
     'sinc1', 'cosc', 'sinc3', 'coef_Jl_inv', 'coefQ2', 'coefQ3', 'vec2skew',
     'so3_Jl', 'so3_Jl_inv', 'so3_Jl_apply', 'so3_Jl_inv_apply', 'so3_Jr',
     'so3_adj', 'so3_adj_apply', 'calcQ', 'calcQ_apply', 'se3_Jl',
-    'se3_Jl_inv', 'se3_Jl_inv_apply', 'se3_adj',
+    'se3_Jl_inv', 'se3_Jl_apply', 'se3_Jl_inv_apply', 'se3_adj',
     'se3_adj_apply', 'rxso3_Ws', 'rxso3_Ws_apply', 'rxso3_Jl',
     'rxso3_Jl_inv', 'rxso3_adj', 'rxso3_adj_apply', 'sim3_adj',
     'sim3_adj_apply', 'sim3_Jl', 'sim3_Jl_inv',
@@ -302,6 +302,16 @@ def calcQ_apply(tau, phi, v):
             + c3 * (_cross(phi, tppv) + _cross(phi, ptpv)))
 
 
+def se3_Jl_apply(x, v):
+    """``se3_Jl(x) @ v`` without building the matrix:
+    [[Jl, Q], [0, Jl]] @ [v1, v2] = [Jl v1 + Q v2, Jl v2]."""
+    tau, phi = x[..., :3], x[..., 3:6]
+    v1, v2 = v[..., :3], v[..., 3:6]
+    top = so3_Jl_apply(phi, v1) + calcQ_apply(tau, phi, v2)
+    return torch.cat(torch.broadcast_tensors(top, so3_Jl_apply(phi, v2)),
+                     dim=-1)
+
+
 def se3_Jl_inv_apply(x, v):
     """``se3_Jl_inv(x) @ v`` without building the matrix:
     [[A, -A Q A], [0, A]] @ [v1, v2] = [A (v1 - Q (A v2)), A v2]."""
@@ -443,12 +453,15 @@ def rxso3_Ws_apply(x, tau):
 
 
 def _embed(block, n):
-    """The n x n identity with ``block`` [*, k, k] in its top-left corner."""
+    """The n x n identity with ``block`` [*, k, k] in its top-left corner
+    (built by concatenation, so ``torch.func.vmap`` can batch ``block``)."""
     k = block.shape[-1]
-    out = torch.eye(n, dtype=block.dtype, device=block.device).repeat(
-        block.shape[:-2] + (1, 1))
-    out[..., :k, :k] = block
-    return out
+    batch = block.shape[:-2]
+    eye = torch.eye(n - k, dtype=block.dtype, device=block.device)
+    top = torch.cat([block, block.new_zeros(batch + (k, n - k))], dim=-1)
+    bot = torch.cat([block.new_zeros(batch + (n - k, k)),
+                     eye.expand(batch + (n - k, n - k))], dim=-1)
+    return torch.cat([top, bot], dim=-2)
 
 
 def rxso3_Jl(x):
@@ -462,9 +475,9 @@ def rxso3_Jl_inv(x):
 
 def rxso3_adj(x):
     """4x4 adjoint of rxso3: skew(phi) in the rotation block, zero else."""
-    A = x.new_zeros(x.shape[:-1] + (4, 4))
-    A[..., :3, :3] = vec2skew(x[..., :3])
-    return A
+    K = vec2skew(x[..., :3])
+    top = torch.cat([K, K.new_zeros(K.shape[:-1] + (1,))], dim=-1)
+    return torch.cat([top, K.new_zeros(K.shape[:-2] + (1, 4))], dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -472,15 +485,16 @@ def rxso3_adj(x):
 # ---------------------------------------------------------------------------
 
 def sim3_adj(x):
-    """7x7 adjoint of sim3."""
+    """7x7 adjoint of sim3: [[skew(phi) + sigma I, skew(tau), -tau],
+    [0, skew(phi), 0], [0, 0, 0]]."""
     tau, phi, sigma = x[..., :3], x[..., 3:6], x[..., 6:7]
     I3 = torch.eye(3, dtype=x.dtype, device=x.device)
-    ad = x.new_zeros(x.shape[:-1] + (7, 7))
-    ad[..., :3, :3] = vec2skew(phi) + sigma[..., None] * I3
-    ad[..., :3, 3:6] = vec2skew(tau)
-    ad[..., :3, 6] = -tau
-    ad[..., 3:6, 3:6] = vec2skew(phi)
-    return ad
+    P, T = vec2skew(phi), vec2skew(tau)
+    Z3 = torch.zeros_like(P)
+    top = torch.cat([P + sigma[..., None] * I3, T, -tau[..., None]], dim=-1)
+    mid = torch.cat([Z3, P, Z3[..., :1]], dim=-1)
+    bot = x.new_zeros(x.shape[:-1] + (1, 7))
+    return torch.cat([top, mid, bot], dim=-2)
 
 
 def _expint(A, n_sq=8, order=10):

@@ -4,17 +4,24 @@ Counterpart of ``pypose_tpu/lietensor/lietensor.py:32-340, 502-815``.  As
 in the JAX package, ``LieTensor`` is a thin wrapper (not a ``torch.Tensor``
 subclass): the storage tensor holds the data and ``ltype`` says which group
 or algebra it is.  All four groups (SO3, SE3, RxSO3, Sim3) and their
-algebras, forward only (no autograd rules yet), with the random factories
+algebras, their operations differentiable through the autograd Functions
+of ``operation.py``, with the random factories
 (``randn``, ``pypose_tpu/lietensor/lietensor.py:215-217, 258-268,
 314-330, 377-394, 442-454``) on an explicit ``torch.Generator`` and the
 batch-dim views ICP uses (``unsqueeze``, ``squeeze``, ``expand``,
 ``view``, ``lview``); ``Act`` and ``@`` broadcast a ``[..., 1, 7]`` SE3
 against ``[..., N, 3]`` points, and take homogeneous 4-points too.
+
+``LieTensor`` is a torch pytree node (``torch.utils._pytree``; its
+storage the leaf, its ``ltype`` the context), as it is a JAX pytree node
+in the JAX package, so ``torch.func.vmap``, ``jacrev``, ``jacfwd`` and
+``grad`` take and return LieTensors with their ltype kept.
 """
 
 from numbers import Number
 
 import torch
+import torch.utils._pytree as pytree
 
 from . import operation as op
 from .jacobian import so3_Jr
@@ -572,3 +579,21 @@ class LieTensor:
         if isinstance(other, LieTensor):
             return self._ltype.Mul(self, other)
         return self.Act(other)
+
+
+def _flatten(x):
+    return [x._data], x._ltype
+
+
+def _unflatten(children, ltype):
+    """Rebuild without ``__init__``: a transform may put any leaf there (a
+    batched tensor, or a nested LieTensor in a Jacobian)."""
+    obj = object.__new__(LieTensor)
+    obj._data = children[0]
+    obj._ltype = ltype
+    return obj
+
+
+pytree.register_pytree_node(
+    LieTensor, _flatten, _unflatten,
+    serialized_type_name='pypose_tpu_torch.lietensor.LieTensor')

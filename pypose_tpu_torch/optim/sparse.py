@@ -2,7 +2,10 @@ r"""Sparse factor-graph Levenberg-Marquardt on torch tensors.
 
 Counterpart of ``pypose_tpu/optim/sparse.py``.  Neither J nor J^T W J is
 ever formed: per LM step the per-edge tangent-space Jacobian blocks come
-from a closed form, the normal equations are assembled per node
+from a closed form or, for a factor without one, from reverse-mode
+autodiff of its residual under a left retraction (the Lie ops' autograd
+Functions); robust kernels rescale them (FastTriggs).  The normal
+equations are assembled per node
 (diagonal blocks) and per edge or circular offset (coupling blocks,
 ``ops/spmv.py``), and a preconditioned CG solves them.  ``SparseLM``
 decides its route at construction (:attr:`SparseLM.route`), by one
@@ -30,8 +33,7 @@ This mirrors the JAX package's own predicate
 (``pypose_tpu/optim/sparse.py:671-687``): systems its kernel does not take
 go to the einsum CG.  Its Pallas kernels take any static block size; the
 CUDA kernels are built for the four groups' and other sizes take the
-einsum CG.  Robust kernels and autodiff Jacobians are still to port; their
-factors raise ``NotImplementedError``.
+einsum CG.  How a factor's Jacobian is formed does not change its route.
 
 The JAX package runs the LM reject loop, the plateau schedule and the
 einsum CG inside ``lax.while_loop``; here they are Python loops that read
@@ -81,20 +83,27 @@ class Factor:
     Args:
         residual: ``residual(values, consts) -> [E, d]`` over the whole
             batch, where ``values`` maps each group name to the gathered
-            nodes ``[E, arity, D]`` (LieTensor or tensor).
+            nodes ``[E, arity, D]`` (LieTensor or tensor).  Row e must
+            depend on edge e's values and constants alone: the autodiff
+            Jacobian differentiates the whole batch at once, which is
+            exact only then (the JAX package's per-edge residual makes
+            this structural; here it is the residual's contract).
         indices: dict ``name -> int [E, arity]`` (or ``[E]``) rows of each
             variable group.
         consts: per-edge constants, leading dim E (measurements).
         weight: optional information matrices ``[E, d, d]`` or ``[d, d]``.
-        batched_jacobian: ``(values, consts) -> (r [E, d],
-            {name: J [E, d, arity, tan]})``, the closed-form tangent
-            Jacobian.  Autodiff Jacobians wait for the Lie-core slice:
-            ``SparseLM`` refuses a factor without one.
+        kernel: optional robust kernel on ``chi2 = r^T W r``
+            (``optim.kernel``; FastTriggs scaling of r and J).
+        batched_jacobian: optional ``(values, consts) -> (r [E, d],
+            {name: J [E, d, arity, tan]})``, a closed-form tangent
+            Jacobian; without one ``SparseLM`` takes the Jacobian of
+            ``residual`` by reverse-mode autodiff.
     """
 
     def __init__(self, residual, indices, consts=None, weight=None,
-                 batched_jacobian=None):
+                 kernel=None, batched_jacobian=None):
         self.residual = residual
+        self.kernel = kernel
         self.batched_jacobian = batched_jacobian
         self.indices = {}
         for k, v in indices.items():
@@ -343,8 +352,27 @@ class SparseLM:
     # per-factor residuals + tangent Jacobian blocks
     # ------------------------------------------------------------------
     def _edge_r_jac(self, params, factor, fi):
-        return factor.batched_jacobian(self._gather(params, factor, fi),
-                                       factor.consts)
+        """(r [E, d], {name: J [E, d, arity, tan]}): the closed form, or
+        the tangent Jacobian of the residual at ``Retr(eps)``, eps = 0, by
+        one ``torch.func.vjp`` and a ``vmap`` of its pullback over the d
+        one-hot cotangents (``jacrev``'s own construction)."""
+        vals = self._gather(params, factor, fi)
+        if factor.batched_jacobian is not None:
+            return factor.batched_jacobian(vals, factor.consts)
+
+        def f(eps):
+            return factor.residual(
+                {n: v.add(eps[n]) if isinstance(v, LieTensor) else v + eps[n]
+                 for n, v in vals.items()}, factor.consts)
+
+        eps0 = {n: torch.zeros(idx.shape + (_tan_dim(params[n]),),
+                               dtype=params[n].dtype, device=self.device)
+                for n, idx in factor.indices.items()}
+        r, pullback = torch.func.vjp(f, eps0)
+        eye = torch.eye(r.shape[-1], dtype=r.dtype, device=r.device)
+        J, = torch.func.vmap(pullback)(
+            eye[:, None, :].expand((-1,) + tuple(r.shape)))
+        return r.detach(), {n: j.movedim(0, 1) for n, j in J.items()}
 
     @staticmethod
     def _weights(factor, E):
@@ -354,8 +382,19 @@ class SparseLM:
         return w
 
     def _weighted(self, factor, r, J):
-        """Apply the information weights -> (r, J, W r, W J)."""
+        """Apply the robust kernel (FastTriggs: r and J scaled by
+        sqrt(rho'(chi2))) and the information weights -> (r, J, W r,
+        W J)."""
         w = self._weights(factor, r.shape[0])
+        if factor.kernel is not None:
+            Wr = r if w is None else torch.einsum('eij,ej->ei', w, r)
+            with torch.enable_grad():
+                chi = torch.sum(r * Wr, -1, keepdim=True).detach() \
+                    .requires_grad_()
+                g1, = torch.autograd.grad(factor.kernel(chi).sum(), chi)
+            s = torch.sqrt(torch.clamp(g1, min=0.0))
+            r = s * r
+            J = {n: s[..., None, None] * j for n, j in J.items()}
         if w is None:
             return r, J, r, J
         WR = torch.einsum('eij,ej->ei', w, r)
@@ -371,6 +410,8 @@ class SparseLM:
                 chi = torch.sum(r * torch.einsum('eij,ej->ei', w, r), -1)
             else:
                 chi = torch.sum(r * r, -1)
+            if f.kernel is not None:
+                chi = f.kernel(chi)
             total = total + torch.sum(chi)
         return total
 
@@ -493,17 +534,11 @@ class SparseLM:
     # ------------------------------------------------------------------
     def _check_route(self):
         """Raise for what is still to port: strategies other than
-        TrustRegion, and factors without a closed-form Jacobian
-        (``pgo_factor`` refuses types other than the four groups itself)."""
+        TrustRegion."""
         if not isinstance(self.strategy, TrustRegion):
             raise NotImplementedError(
                 'only TrustRegion is ported; Constant/Adaptive come with '
                 'the dense-optimizer slice (ROADMAP Queue A, slice 7)')
-        if any(f.batched_jacobian is None for f in self.factors):
-            raise NotImplementedError(
-                'factors without a closed-form batched_jacobian need '
-                'autodiff Jacobians, which come with the Lie-core autograd '
-                'slice (ROADMAP Queue A, slice 1 item 2)')
 
     def _core(self, params, strat):
         """One LM step: formation, then damping retries until a step is
@@ -736,7 +771,7 @@ _PGO_FORMS = {SO3_type: (_jac.so3_Jl_inv, _op.SO3_Adj),
               Sim3_type: (_jac.sim3_Jl_inv, _op.Sim3_Adj)}
 
 
-def pgo_factor(edges, poses, infos=None, name='poses'):
+def pgo_factor(edges, poses, infos=None, kernel=None, name='poses'):
     r"""Relative-pose factor for pose-graph optimisation over SO3 (rotation
     averaging), SE3, RxSO3 or Sim3 (scale-drift graphs).
 
@@ -747,26 +782,23 @@ def pgo_factor(edges, poses, infos=None, name='poses'):
     (left perturbation), written over the whole edge batch; SE3 takes the
     scalarized :func:`~pypose_tpu_torch.lietensor.scalarized.se3_pgo_blocks`.
     Sim3's ``Jl^-1`` is exact (scaling and squaring, then a batched 7x7
-    solve).  Other types raise: autodiff Jacobians come with the Lie-core
-    autograd slice.
+    solve).  Another type gets a residual-only factor, whose Jacobian
+    ``SparseLM`` takes by autodiff.  ``kernel``: an optional robust kernel
+    (``optim.kernel``).
     """
     from ..lietensor.scalarized import se3_pgo_blocks
-
-    if poses.ltype is not SE3_type and poses.ltype not in _PGO_FORMS:
-        raise NotImplementedError(
-            f'pgo_factor over {poses.ltype} has no closed-form Jacobian; '
-            'autodiff Jacobians come with the Lie-core autograd slice')
 
     def residual(values, Z):
         X = values[name]
         return (Z.Inv() @ (X[:, 0].Inv() @ X[:, 1])).Log().tensor()
 
+    batched_jacobian = None
     if poses.ltype is SE3_type:
         def batched_jacobian(values, Z):
             X = values[name].tensor()
             r, J = se3_pgo_blocks(X[:, 0], X[:, 1], Z.tensor())
             return r, {name: J}
-    else:
+    elif poses.ltype in _PGO_FORMS:
         Jl_inv, Adj = _PGO_FORMS[poses.ltype]
 
         def batched_jacobian(values, Z):
@@ -777,7 +809,8 @@ def pgo_factor(edges, poses, infos=None, name='poses'):
             return r, {name: torch.stack([-Jj, Jj], dim=2)}
 
     return Factor(residual, indices={name: edges}, consts=poses,
-                  weight=infos, batched_jacobian=batched_jacobian)
+                  weight=infos, kernel=kernel,
+                  batched_jacobian=batched_jacobian)
 
 
 def split_chain_edges(edges, min_run=64):

@@ -11,7 +11,12 @@ their plain versions, ``pgo_loops_instance`` builds the random-loop pose
 graph of the einsum route (over SE3, SO3 or Sim3), ``pgo_group_instance``
 an SE3 pose graph's counterpart over SO3, RxSO3 or Sim3, and
 ``ring3_problem`` a Euclidean graph of t = 3 (or another t),
-``pgo_optimizer`` the port's optimizer on such graphs,
+``pgo_factors`` and ``pgo_optimizer`` the port's factors and optimizer on
+such graphs (with a robust kernel, or residual-only: ``residual_only``),
+``two_phase`` sphere2500's two-phase schedule, ``reproj_pgo_instance`` and
+``reproj_pgo_optimizer`` the reprojection pose graph of
+``examples/reproj_pgo.py``, ``autograd_inputs`` the inputs at which the
+autograd Functions are held on the card,
 ``instance_checksum`` identifies a generated pose-graph instance against
 a recorded anchor, and ``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
 rule that holds the nearest-neighbour kernels to their plain versions.
@@ -192,29 +197,59 @@ def pgo_group_instance(ds, group, generator=None):
                 poses=LieTensor(poses, ltype=ltype), infos=infos)
 
 
-def pgo_optimizer(ds, radius, cg_iter, cg_tol, split_chains=True, **_):
-    """The port's SparseLM on a pose-graph dict ``ds`` (``synthetic_sphere``,
-    ``pgo_loops_instance``) as ``bench.py`` builds its pose-graph
-    workloads: one ``pgo_factor`` for each odometry run of
-    ``split_chain_edges`` and one for the rest (or one for every edge, if
-    not ``split_chains``), TrustRegion(``radius``), node 0 fixed, on the
-    tensors' device.  Extra keys of a schedule dict are ignored."""
-    from ..optim.sparse import SparseLM, pgo_factor, split_chain_edges
-    from ..optim.strategy import TrustRegion
+def residual_only(factor):
+    """``factor`` without its closed-form Jacobian: ``SparseLM`` takes the
+    Jacobian of its residual by autodiff."""
+    from ..optim.sparse import Factor
+    return Factor(factor.residual, factor.indices, factor.consts,
+                  factor.weight, kernel=factor.kernel)
+
+
+def pgo_factors(ds, split_chains=True, kernel=None, autodiff=False):
+    """The factors ``bench.py`` builds for a pose-graph dict ``ds``: one
+    ``pgo_factor`` for each odometry run of ``split_chain_edges`` and one
+    for the rest (or one for every edge, if not ``split_chains``), with
+    the robust ``kernel`` if given, residual-only if ``autodiff``."""
+    from ..optim.sparse import pgo_factor, split_chain_edges
     edges, poses = ds['edges'], ds['poses']
     dev = edges.device
     if split_chains:
         runs, rest = split_chain_edges(edges)
         rows = [torch.as_tensor(r, device=dev)
                 for r in list(runs) + ([rest] if len(rest) else [])]
-        factors = [pgo_factor(edges[r], poses[r]) for r in rows]
     else:
-        factors = [pgo_factor(edges, poses)]
+        rows = [slice(None)]
+    factors = [pgo_factor(edges[r], poses[r], kernel=kernel) for r in rows]
+    return [residual_only(f) for f in factors] if autodiff else factors
+
+
+def pgo_optimizer(ds, radius, cg_iter, cg_tol, split_chains=True,
+                  kernel=None, autodiff=False, **_):
+    """The port's SparseLM on a pose-graph dict ``ds`` (``synthetic_sphere``,
+    ``pgo_loops_instance``) as ``bench.py`` builds its pose-graph
+    workloads: :func:`pgo_factors`, TrustRegion(``radius``), node 0
+    fixed, on the tensors' device.  Extra keys of a schedule dict are
+    ignored."""
+    from ..optim.sparse import SparseLM
+    from ..optim.strategy import TrustRegion
+    dev = ds['edges'].device
+    factors = pgo_factors(ds, split_chains, kernel, autodiff)
     fixed = torch.zeros(ds['nodes'].shape[0], dtype=torch.bool, device=dev)
     fixed[0] = True
     return SparseLM({'poses': ds['nodes']}, factors,
                     strategy=TrustRegion(radius=radius),
                     fixed={'poses': fixed}, cg_iter=cg_iter, cg_tol=cg_tol)
+
+
+def two_phase(opt, opt2):
+    """``bench.py:199-205``'s sphere2500 schedule: ``opt.optimize(steps=6,
+    decreasing=1e-6, patience=2)``, then ``opt2`` (the same problem with a
+    deeper CG) from where it stopped, ``optimize(steps=6, decreasing=1e-7,
+    patience=2)``.  Returns (final chi2, the history of both phases)."""
+    opt.optimize(steps=6, decreasing=1e-6, patience=2)
+    opt2.params, opt2.strategy_state = opt.params, opt.strategy_state
+    final = opt2.optimize(steps=6, decreasing=1e-7, patience=2)
+    return final, list(opt.history) + list(opt2.history)
 
 
 def ring3_problem(N=64, loop_offset=5, dtype=torch.float32, device='cuda',
@@ -256,6 +291,83 @@ def ring3_problem(N=64, loop_offset=5, dtype=torch.float32, device='cuda',
             {'x': fixed})
 
 
+def reproj_pgo_instance(N=2500, L=7500, obs_per=6, seed=0,
+                        dtype=torch.float32, device='cuda'):
+    """The reprojection pose graph of ``examples/reproj_pgo.py`` at N poses
+    and L landmarks: SE3 poses on a circle of radius 8 facing along it, R^3
+    landmarks ``6 N(0, 1)``, odometry i -> i+1 (mod N) measured through
+    ``Exp(0.01 N(0, 1))``, ``obs_per`` observations a pose of landmarks
+    drawn uniformly, ``X.Act(lm)`` plus ``0.01 N(0, 1)``; initial poses
+    ``Exp(0.2 N(0, 1)) @ truth`` (pose 0 exact), initial landmarks 0.5
+    N(0, 1) off the truth.  Drawn from ``np.random.default_rng(seed)`` and
+    computed in float64 on the CPU, then rounded to ``dtype`` and moved to
+    ``device``, so both packages and every machine get the same arrays.
+    Returns dict(poses, landmarks (initial values), gt_poses, gt_landmarks,
+    edges [N, 2], odometry (SE3 [N]), obs_pose, obs_landmark [N obs_per],
+    meas [N obs_per, 3])."""
+    from ..lietensor.lietensor import SE3_type, se3_type
+    rng = np.random.default_rng(seed)
+    w = torch.float64
+    t = np.linspace(0, 2 * np.pi, N, endpoint=False)
+    half_yaw = (t + np.pi / 2) / 2
+    z = np.zeros_like(t)
+    gt = LieTensor(torch.tensor(np.stack(
+        [8 * np.cos(t), 8 * np.sin(t), z, z, z, np.sin(half_yaw),
+         np.cos(half_yaw)], -1)), ltype=SE3_type)
+    gt_lm = torch.tensor(6.0 * rng.normal(size=(L, 3)))
+
+    def exp(sigma, n):
+        return LieTensor(torch.tensor(sigma * rng.normal(size=(n, 6))),
+                         ltype=se3_type).Exp()
+    ii = torch.arange(N)
+    jj = (ii + 1) % N
+    odo = (gt[ii].Inv() @ gt[jj]) @ exp(0.01, N)
+    pi = torch.arange(N).repeat_interleave(obs_per)
+    li = torch.as_tensor(rng.integers(0, L, size=N * obs_per))
+    meas = gt[pi].Act(gt_lm[li]) \
+        + 0.01 * torch.tensor(rng.normal(size=(N * obs_per, 3)))
+    init = (exp(0.2, N) @ gt).tensor()
+    init = torch.cat([gt.tensor()[:1], init[1:]])
+    init_lm = gt_lm + 0.5 * torch.tensor(rng.normal(size=(L, 3)))
+
+    def out(x):
+        x = x.tensor() if isinstance(x, LieTensor) else x
+        return x.to(device=device, dtype=dtype if x.dtype == w else x.dtype)
+    return dict(poses=LieTensor(out(init), ltype=SE3_type),
+                landmarks=out(init_lm),
+                gt_poses=LieTensor(out(gt), ltype=SE3_type),
+                gt_landmarks=out(gt_lm),
+                edges=out(torch.stack([ii, jj], 1)),
+                odometry=LieTensor(out(odo), ltype=SE3_type),
+                obs_pose=out(pi), obs_landmark=out(li), meas=out(meas))
+
+
+def reproj_pgo_optimizer(ds, cg_iter=150, cg_tol=1e-7, radius=1e6, **_):
+    """The port's SparseLM on :func:`reproj_pgo_instance`'s dict, as
+    ``examples/reproj_pgo.py`` builds it: a ``pgo_factor`` over the
+    odometry and a residual-only factor ``X.Act(lm) - meas`` over (pose,
+    landmark) pairs, pose 0 fixed, TrustRegion(``radius``, the example's
+    default).  Extra keys of a schedule dict are ignored."""
+    from ..optim.sparse import Factor, SparseLM, pgo_factor
+    from ..optim.strategy import TrustRegion
+    dev = ds['edges'].device
+
+    def obs_residual(values, meas):
+        return values['poses'][:, 0].Act(values['landmarks'][:, 0]) - meas
+
+    obs = Factor(obs_residual, indices={'poses': ds['obs_pose'],
+                                        'landmarks': ds['obs_landmark']},
+                 consts=ds['meas'])
+    N, L = ds['poses'].shape[0], ds['landmarks'].shape[0]
+    fixed = {'poses': torch.zeros(N, dtype=torch.bool, device=dev),
+             'landmarks': torch.zeros(L, dtype=torch.bool, device=dev)}
+    fixed['poses'][0] = True
+    return SparseLM({'poses': ds['poses'], 'landmarks': ds['landmarks']},
+                    [pgo_factor(ds['edges'], ds['odometry']), obs],
+                    strategy=TrustRegion(radius=radius), fixed=fixed,
+                    cg_iter=cg_iter, cg_tol=cg_tol)
+
+
 def instance_checksum(ds):
     """float64 sums of |nodes| and |poses| and the edge count of a pose
     graph dict (``synthetic_sphere``, ``load_g2o``): enough to tell one
@@ -265,6 +377,44 @@ def instance_checksum(ds):
     return {'nodes_abs_sum': abs_sum(ds['nodes']),
             'poses_abs_sum': abs_sum(ds['poses']),
             'n_edges': int(ds['edges'].shape[0])}
+
+
+# group -> (algebra, tangent dimension)
+_AUTOGRAD_GROUPS = {'SO3': ('so3', 3), 'SE3': ('se3', 6),
+                    'RxSO3': ('rxso3', 4), 'Sim3': ('sim3', 7)}
+
+
+def autograd_inputs(name, n, rng):
+    """float64 CPU inputs of the op ``name`` at batch n, drawn from the
+    numpy generator ``rng`` (rotation angles up to 2.5, log-scales ~0.4),
+    and which of them are group-valued."""
+    prefix, kind = name.split('_', 1)
+    group = {alg: g for g, (alg, _) in _AUTOGRAD_GROUPS.items()}.get(
+        prefix, prefix)
+    alg, tan = _AUTOGRAD_GROUPS[group]
+
+    def algebra():
+        x = rng.normal(size=(n, tan))
+        if group in ('RxSO3', 'Sim3'):
+            x[:, -1] *= 0.4
+        rot = slice(0, 3) if group in ('SO3', 'RxSO3') else slice(3, 6)
+        angle = np.linalg.norm(x[:, rot], axis=-1, keepdims=True)
+        x[:, rot] *= np.minimum(1.0, 2.5 / angle)
+        return torch.from_numpy(x)
+
+    def grp():
+        return LieTensor(algebra(), ltype=_LTYPES[alg]).Exp().tensor()
+    if kind == 'Exp':
+        return [algebra()], [False]
+    if kind in ('Log', 'Inv'):
+        return [grp()], [True]
+    if kind in ('Act', 'Act4'):
+        p = torch.from_numpy(2.0 * rng.normal(size=(n, 4 if kind == 'Act4'
+                                                    else 3)))
+        return [grp(), p], [True, False]
+    if kind == 'Mul':
+        return [grp(), grp()], [True, True]
+    return [grp(), algebra()], [True, False]
 
 
 def nnk_tolerance_failures(ref, nbr, d2, idx, idx_plain, rtol=1e-6,

@@ -51,13 +51,28 @@ def write_jax_anchor(name, problem, ds, schedule, jax_run, port_optimizer,
         f.write('\n')
 
 
-def jax_pgo_run(ds, group, schedule):
+def write_anchor(name, script, out):
+    """Write ``out`` to the repository's ``data/jax_anchor_<name>.json``
+    with the commit it was computed on and the command that writes it
+    (``PYTHONPATH=. JAX_PLATFORMS=cpu python <script>``)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    commit = subprocess.run(['git', 'rev-parse', 'HEAD'], cwd=repo,
+                            capture_output=True, text=True).stdout.strip()
+    out['commit'] = f'{commit} with the working tree that added this file'
+    out['command'] = f'PYTHONPATH=. JAX_PLATFORMS=cpu python {script}'
+    with open(os.path.join(repo, 'data', f'jax_anchor_{name}.json'),
+              'w') as f:
+        json.dump(out, f, indent=1)
+        f.write('\n')
+
+
+def jax_pgo_optimizer(ds, group, schedule, kernel=None, cg_iter=None):
     """The JAX package's SparseLM over ``group`` ('SO3', 'SE3', 'RxSO3',
     'Sim3') on a port pose-graph dict, crossed over as numpy, built as
     ``pypose_tpu_torch.testing.pgo_optimizer`` builds the port's (one
     ``pgo_factor`` an odometry run and one for the rest, or one for every
-    edge, node 0 fixed): (chi2 history, final chi2, its preconditioner,
-    initial chi2), the ``jax_run`` of :func:`write_jax_anchor`."""
+    edge, node 0 fixed), with the robust ``kernel`` if given and
+    ``cg_iter`` in place of the schedule's if given."""
     import jax.numpy as jnp
     import numpy as np
     import pypose_tpu as jpp
@@ -71,15 +86,24 @@ def jax_pgo_run(ds, group, schedule):
     Z = lie(ds['poses'])
     if schedule.get('split_chains', True):
         runs, rest = split_chain_edges(edges)
-        factors = [pgo_factor(edges[jnp.asarray(r)], Z[jnp.asarray(r)])
+        factors = [pgo_factor(edges[jnp.asarray(r)], Z[jnp.asarray(r)],
+                              kernel=kernel)
                    for r in list(runs) + ([rest] if len(rest) else [])]
     else:
-        factors = [pgo_factor(edges, Z)]
+        factors = [pgo_factor(edges, Z, kernel=kernel)]
     N = ds['nodes'].shape[0]
-    opt = SparseLM({'poses': lie(ds['nodes'])}, factors,
-                   strategy=TrustRegion(radius=schedule['radius']),
-                   fixed={'poses': jnp.zeros(N, bool).at[0].set(True)},
-                   cg_iter=schedule['cg_iter'], cg_tol=schedule['cg_tol'])
+    return SparseLM({'poses': lie(ds['nodes'])}, factors,
+                    strategy=TrustRegion(radius=schedule['radius']),
+                    fixed={'poses': jnp.zeros(N, bool).at[0].set(True)},
+                    cg_iter=cg_iter or schedule['cg_iter'],
+                    cg_tol=schedule['cg_tol'])
+
+
+def jax_pgo_run(ds, group, schedule):
+    """:func:`jax_pgo_optimizer` run with ``schedule``'s optimize: (chi2
+    history, final chi2, its preconditioner, initial chi2), the
+    ``jax_run`` of :func:`write_jax_anchor`."""
+    opt = jax_pgo_optimizer(ds, group, schedule)
     initial = float(opt._chi2(opt.params, opt._factor_data()))
     final = opt.optimize(steps=schedule['steps'],
                          decreasing=schedule['decreasing'],

@@ -13,6 +13,7 @@ runs on a machine without the JAX package:
 import pytest
 import torch
 
+from pypose_tpu_torch.lietensor.operation import FUNCTIONS
 from pypose_tpu_torch.ops import knn, se3, stencil_cg as scg
 from pypose_tpu_torch.testing import (nn1_tolerance_failures,
                                       nnk_tolerance_failures,
@@ -631,3 +632,69 @@ def test_group_sphere2500_routes_through_whole_solve(cuda, group):
         assert scg.LAUNCHES - before[0] == solves
         assert scg.FUSED_LAUNCHES == before[1]
     assert abs(chi2[0] - chi2[1]) <= 1e-3 * abs(chi2[1])
+
+
+@pytest.mark.parametrize('name', list(FUNCTIONS))
+def test_autograd_functions_card_match_cpu(cuda, name):
+    """Each of the 32 autograd Functions on the card against the CPU, both
+    in float64, at a batch of 1,000: the forward, the VJP of a random
+    cotangent and a torch.func.jvp within 1e-9 of 1 + max|CPU| (1e-8 for
+    the Sim3 ops)."""
+    import numpy as np
+    from pypose_tpu_torch.lietensor import operation as op
+    from pypose_tpu_torch.testing import autograd_inputs
+    rng = np.random.default_rng(0)
+    args, on_group = autograd_inputs(name, 1000, rng)
+    fn = getattr(op, name)
+    ct = torch.from_numpy(rng.normal(size=fn(*args).shape))
+    tans = tuple(torch.from_numpy(rng.normal(size=a.shape)) for a in args)
+
+    def evaluate(dev):
+        x = [a.to(dev).detach().requires_grad_() for a in args]
+        out = fn(*x)
+        vjp = torch.autograd.grad(out, x, ct.to(dev))
+        _, tan = torch.func.jvp(fn, tuple(a.to(dev) for a in args),
+                                tuple(t.to(dev) for t in tans))
+        return [out.detach(), *vjp, tan]
+    bound = 1e-8 if name.split('_')[0] in ('Sim3', 'sim3') else 1e-9
+    for got, want in zip(evaluate(cuda), evaluate('cpu')):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= bound * (1 + float(want.abs().max()))
+
+
+def test_autodiff_sparse_lm_step_card_matches_cpu(cuda):
+    """A residual-only factor (Jacobian by autodiff) over a 200-node Sim3
+    ring with random loops (no merged stencil: route 'einsum', no kernel):
+    the first two LM steps' chi2 on the card within 1e-4 of the CPU's."""
+    from pypose_tpu_torch.testing import (pgo_loops_instance, pgo_optimizer)
+    chi2 = []
+    for dev in (cuda, 'cpu'):
+        ds = pgo_loops_instance(200, device=dev, group='Sim3')
+        opt = pgo_optimizer(ds, radius=1e4, cg_iter=100, cg_tol=1e-8,
+                            split_chains=False, autodiff=True)
+        assert opt.route == 'einsum'
+        chi2.append([opt.step(), opt.step()])
+    for card, cpu in zip(*chi2):
+        assert abs(card - cpu) <= 1e-4 * abs(cpu)
+
+
+def test_residual_only_factor_routes_through_whole_solve(cuda):
+    """A residual-only factor on a t = 6 stencil graph (sphere2500, with
+    a Huber kernel): route 'stencil' and one whole-solve launch a solve,
+    no other kernel."""
+    from pypose_tpu_torch.datasets import find_data, load_g2o
+    from pypose_tpu_torch.optim.kernel import Huber
+    from pypose_tpu_torch.testing import pgo_optimizer
+    ds = load_g2o(find_data('synthetic_sphere2500_seed42.g2o'), device=cuda)
+    opt = pgo_optimizer(ds, radius=1e4, cg_iter=150, cg_tol=1e-9,
+                        kernel=Huber(delta=5.0), autodiff=True)
+    assert opt.route == 'stencil'
+    assert all(f.batched_jacobian is None for f in opt.factors)
+    before = (scg.LAUNCHES, scg.FUSED_LAUNCHES, scg.TILED_MV_LAUNCHES,
+              scg.TILED_PC_LAUNCHES)
+    for _ in range(2):
+        opt.step()
+        assert scg.LAUNCHES - before[0] == len(opt.cg_iterations[0])
+        before = (scg.LAUNCHES,) + before[1:]
+    assert (scg.FUSED_LAUNCHES, scg.TILED_MV_LAUNCHES,
+            scg.TILED_PC_LAUNCHES) == before[1:]

@@ -103,9 +103,13 @@ def test_pgo_factor_r_and_J_match_jax(group, dtype):
 
 
 def test_pgo_factor_refuses_other_types():
+    """A type with no closed form (it raised until the autograd slice)
+    gets a residual-only factor, as in the JAX package
+    (``pypose_tpu/optim/sparse.py:1021-1022``): SparseLM takes its
+    Jacobian by autodiff."""
     x = ppt.identity_se3(4)
-    with pytest.raises(NotImplementedError, match='closed-form'):
-        tsp.pgo_factor(torch.tensor([[0, 1]]), x[:1])
+    f = tsp.pgo_factor(torch.tensor([[0, 1]]), x[:1])
+    assert f.batched_jacobian is None and f.num_edges == 1
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

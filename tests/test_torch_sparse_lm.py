@@ -166,11 +166,12 @@ def test_split_chain_edges_matches_jax():
 
 
 def test_refusals():
-    """What is still to port raises: strategies other than TrustRegion,
-    factors without a closed-form Jacobian, pgo_factor over types other
-    than the four groups.  precond='chain', graphs off one merged stencil
-    and pgo_factor over SO3, RxSO3 and Sim3, which raised before they
-    were ported, now build."""
+    """What is still to port raises: strategies other than TrustRegion.
+    precond='chain', graphs off one merged stencil, pgo_factor over SO3,
+    RxSO3 and Sim3, factors without a closed-form Jacobian and
+    pgo_factor over other types (a residual-only factor), which raised
+    before they were ported, now build; a residual-only factor keeps the
+    'stencil' route."""
     opt = torch_problem(synthetic_sphere(100))
     assert opt.route == 'stencil'
     assert tsp.SparseLM(opt.params, opt.factors,
@@ -180,13 +181,12 @@ def test_refusals():
     so3 = tsp.pgo_factor(torch.zeros((3, 2), dtype=torch.int64),
                          ppt.identity_SO3(3))
     assert so3.batched_jacobian is not None and so3.num_edges == 3
-    with pytest.raises(NotImplementedError, match='closed-form'):
-        tsp.pgo_factor(torch.zeros((3, 2), dtype=torch.int64),
-                       ppt.so3(torch.zeros(3, 3)))
-    f = opt.factors[0]
-    autodiff = tsp.Factor(f.residual, f.indices, f.consts)
-    with pytest.raises(NotImplementedError, match='autodiff'):
-        tsp.SparseLM(opt.params, [autodiff])
+    alg = tsp.pgo_factor(torch.zeros((3, 2), dtype=torch.int64),
+                         ppt.so3(torch.zeros(3, 3)))
+    assert alg.batched_jacobian is None
+    autodiff = [tsp.Factor(f.residual, f.indices, f.consts)
+                for f in opt.factors]
+    assert tsp.SparseLM(opt.params, autodiff).route == 'stencil'
     # every edge offset distinct: no merged stencil
     N = 40
     edges = torch.stack([torch.arange(20), torch.arange(20) * 2 + 1], 1)
