@@ -9,7 +9,8 @@ the general factor-graph routes (no kernel): a chain-dominated and three
 random-loop pose graphs, and the inputs the stencil kernels do not take;
 then the Lie core's autograd and the paths it opens: Jacobians by
 autodiff and robust kernels in SparseLM through the whole-solve kernel,
-and the reprojection pose graph.
+and the reprojection pose graph; then bundle adjustment in both Schur
+modes (no kernel on its path).
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -141,7 +142,32 @@ Phases (any failure raises, so the script exits non-zero):
      CPU: route 'einsum', no kernel; first step within 1e-4 and final
      within 1e-3 of data/jax_anchor_reproj_pgo.json, card against CPU
      alike.
- 18. prints the kernels' JSON line (each kernel's, and each of the t = 3,
+ 18. ba-anchored: the JAX package's C=16, P=300 instance
+     (data/jax_instance_bal_16_300.npz) through BundleAdjustment with
+     TrustRegion(1e4), no gauge, optimize(20, 5, 1e-4) (bench.py:475-480;
+     dense Schur), cold then warm: some step at pypose's chi2 352.88898
+     (+1e-3, data/ref_anchor_bal_16_300.json), the step printed.
+ 19. ba-trafalgar: testing.ba_instance('ba-trafalgar') (synthetic_bal at
+     257 cameras, 65,132 points, 225,911 observations; checksum against
+     data/jax_anchor_ba_trafalgar.json), dense Schur with camera windows,
+     bench.py:370-385's schedule, cold, warm and profiled: no kernel
+     launched, the first accepted step within 3e-4 and the final within
+     1e-3 of the JAX anchor; ms per LM step, RMSE, rejections, host
+     reads, idle share; the Gram (optim.ba.schur_gram) and the Cholesky
+     timed alone at the cell's shape, their share of device time, the
+     Gram's bound and one library call beside it.
+ 20. ba-large: synthetic_bal at C=2048, P=49,152, 6 observations a
+     point: schur='auto' routes to Schur-CG with camera windows;
+     bench.py:414-442's schedule, cold, warm and profiled; first accepted
+     step and final within 1e-3 of data/jax_anchor_ba_large.json; ms per
+     LM step, CG iterations and host reads per step, rejections, idle
+     share.
+ 21. ba-autodiff-huber: bench.py:318-342's C=64, P=8000 problem with
+     Huber(5) and a copy of reproj_residual_bal (Jacobians by
+     vmap(jacrev)): chi2 per step on the card within 1e-5 of the CPU's;
+     its Jacobians against the closed form's on the card (1e-5 of
+     max|J|); the closed form cold and warm beside it.
+ 22. prints the kernels' JSON line (each kernel's, and each of the t = 3,
      4, 7 instantiations', launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
@@ -1605,6 +1631,262 @@ def reproj_phase(dev):
     return out
 
 
+def ba_user_residual(pose, point, camera, pixel):
+    """A copy of optim.ba.reproj_residual_bal: not the same function, so
+    BundleAdjustment takes its Jacobians by vmap(jacrev)."""
+    import torch
+    Xc = pose.Act(point)
+    p = -Xc[..., :2] / Xc[..., 2:3]
+    r2 = torch.sum(p * p, -1, keepdim=True)
+    distortion = 1.0 + camera[..., 1:2] * r2 + camera[..., 2:3] * r2 * r2
+    return camera[..., 0:1] * distortion * p - pixel
+
+
+def ba_runner(tag, opt, ds, sched):
+    """run(label) -> (ms, steps): ``opt.optimize`` with the cell's schedule
+    from the initial problem, timed by CUDA events; prints the chi2
+    history, rejections, CG iterations and host reads (BundleAdjustment's
+    and the Schur CG's) and keeps the last run's in ``run.last``."""
+    import torch
+    from pypose_tpu_torch.optim import ba, solver
+
+    def run(label):
+        opt.poses, opt.points, opt.strategy_state = (ds['poses'],
+                                                      ds['points'], None)
+        reads, cg_reads = ba.HOST_READS, solver.CG_HOST_READS
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        ev[0].record()
+        opt.optimize(steps=sched['steps'], patience=sched['patience'],
+                     decreasing=sched['decreasing'])
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        ms, steps = ev[0].elapsed_time(ev[1]), len(opt.history)
+        run.last = {'history': list(opt.history),
+                    'rejections': list(opt.rejections),
+                    'cg_iterations': opt.cg_iterations,
+                    'host_reads': ba.HOST_READS - reads,
+                    'cg_host_reads': solver.CG_HOST_READS - cg_reads}
+        print(f'[{tag}] {label}: chi2 history {opt.history}; rejections '
+              f'{opt.rejections}; CG iterations per solve '
+              f'{opt.cg_iterations}; host reads {run.last["host_reads"]} '
+              f'(BundleAdjustment) + {run.last["cg_host_reads"]} (Schur CG);'
+              f' {steps} LM steps in {ms:.3f} ms (CUDA events; host '
+              f'{1e3 * wall:.3f} ms), {ms / steps:.3f} ms/LM step',
+              flush=True)
+        check(bool(torch.isfinite(opt.points).all())
+              and bool(torch.isfinite(opt.poses.tensor()).all()),
+              f'{tag}: parameters not finite')
+        return ms, steps
+    return run
+
+
+def ba_cell(tag, dev, name, route, anchor=None, profiled=False,
+            **overrides):
+    """A bundle-adjustment cell through testing.ba_instance and
+    ba_optimizer with its bench.py schedule (testing.BA_SCHEDULES), cold
+    and warm (and profiled): the route ('dense' or 'cg') and the camera
+    windows asserted, no kernel launched (the path has none), the
+    instance checksum and the chi2 against the JAX anchor ``anchor``
+    (the first accepted step and the final within testing.BA_HOLD).
+    ``overrides`` go to ba_optimizer.  Returns the numbers and the
+    optimizer."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.testing import (BA_HOLD, BA_SCHEDULES, ba_instance,
+                                          ba_optimizer, bal_checksum)
+    sched = BA_SCHEDULES[name]
+    t0 = time.perf_counter()
+    ds = ba_instance(name, device=dev)
+    opt = ba_optimizer(ds, name, **overrides)
+    torch.cuda.synchronize()
+    O = ds['pixels'].shape[0]
+    print(f'[{tag}] set-up: problem and BundleAdjustment in '
+          f'{time.perf_counter() - t0:.3f} s; C={opt.C} P={opt.P} O={O}, '
+          f'route {"dense" if opt._use_dense_schur else "cg"}, camera '
+          f'windows {opt._cam_win is not None}', flush=True)
+    check(opt._use_dense_schur == (route == 'dense'),
+          f'{tag}: route not {route}')
+    if anchor is not None:
+        with open(find_data(f'jax_anchor_{anchor}.json')) as f:
+            anchor = json.load(f)
+        got, want = bal_checksum(ds), anchor['instance_checksum']
+        check(got['n_obs'] == want['n_obs'] and all(
+            abs(got[k] - want[k]) <= 1e-9 * abs(want[k])
+            for k in ('poses_abs_sum', 'points_abs_sum', 'pixels_abs_sum')),
+            f'{tag}: instance checksum {got} differs from {want}')
+        check(opt._cam_win is not None, f'{tag}: camera windows off')
+    run = ba_runner(tag, opt, ds, sched)
+    reset_counts()
+    cold_ms, cold_steps = run('cold')
+    counts = read_counts()
+    check(not any(counts.values()), f'{tag}: kernels launched: {counts}')
+    print(f'[{tag}] cold run launch counts {counts}', flush=True)
+    warm_ms, warm_steps = run('warm')
+    last = run.last
+    hist = last['history']
+    out = {'ms_per_step_cold': cold_ms / cold_steps,
+           'ms_per_step_warm': warm_ms / warm_steps, 'steps': warm_steps,
+           'history': hist, 'final_chi2': hist[-1],
+           'rmse_px': (hist[-1] / O) ** 0.5,
+           'rejections': sum(last['rejections']),
+           'host_reads_per_step': (last['host_reads']
+                                   + last['cg_host_reads']) / warm_steps,
+           'cg_iterations_per_step': sum(map(sum, last['cg_iterations']))
+           / warm_steps}
+    if anchor is not None:
+        first_tol, final_tol = BA_HOLD[name]
+        init = anchor['initial_chi2']
+        first = next(h for h in hist if h < init) / next(
+            h for h in anchor['history'] if h < init) - 1
+        final = hist[-1] / anchor['final_chi2'] - 1
+        print(f'[{tag}] against the JAX anchor (initial {init:.7g}, '
+              f'history {anchor["history"]}): first accepted step '
+              f'{first:.3e} (bound {first_tol:g}), final {final:.3e} (bound '
+              f'{final_tol:g}); reprojection RMSE {out["rmse_px"]:.4f} px',
+              flush=True)
+        check(abs(first) <= first_tol and abs(final) <= final_tol,
+              f'{tag}: chi2 outside its tolerance of the JAX anchor')
+        out.update(first_gap=first, final_gap=final)
+    if profiled:
+        ms, steps, dev_ms, n_ops = profiled_run(run)
+        out.update(idle_share=1 - dev_ms / ms, device_ms=dev_ms,
+                   device_ops_per_step=n_ops / steps,
+                   solves=sum(map(len, run.last['cg_iterations'])))
+        print(f'[{tag}] profiled run: {dev_ms:.3f} ms device time of '
+              f'{ms:.3f} ms (idle share {out["idle_share"]:.4f}), {n_ops} '
+              f'device operations, {n_ops / steps:.1f} an LM step',
+              flush=True)
+    return out, opt
+
+
+def schur_pieces_ms(opt, solves, dev_ms):
+    """The dense solve's Gram (optim.ba.schur_gram on a bf16 T1 of the
+    cell's shape, random values) and its Cholesky factor and four solves
+    (one and three refinement passes) on an SPD S of the cell's size,
+    timed alone by CUDA events; their share of the profiled run's device
+    time at ``solves`` dense solves; the Gram's bound (the bytes of T1
+    and M once; 2 (6C)^2 3P operations at the bf16 tensor-core peak, the
+    least the same product of bf16 values could take, and at the
+    float32 peak, which the float32 product runs at) and one library
+    call, ``torch.mm(..., out_dtype=torch.float32)`` on the bf16 values,
+    where the card's torch has it."""
+    import torch
+    from pypose_tpu_torch.optim.ba import schur_gram
+    C, P, dev = opt.C, opt.P, opt.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T1 = torch.randn((3 * P, 6 * C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    gram_ms, M = cuda_ms(lambda: schur_gram(T1))
+    n = 6 * C
+    flop = 2.0 * n * n * 3 * P
+    bytes_ = 2 * T1.numel() + 4 * n * n
+    b_bf16 = bound(bytes_, flop, 989e12)
+    b_f32 = bound(bytes_, flop)
+    try:
+        lib_ms, M_lib = cuda_ms(lambda: torch.mm(
+            T1.T, T1, out_dtype=torch.float32))
+        lib_err = float((M_lib - M).abs().max() / M.abs().max())
+    except (RuntimeError, TypeError) as e:
+        lib_ms, lib_err = None, f'not available: {e}'[:80]
+    S = (M.double() + n * torch.eye(n, device=dev,
+                                    dtype=torch.float64)).float()
+    rhs = torch.randn((n, 1), generator=gen, device=dev)
+
+    def chol():
+        L, _ = torch.linalg.cholesky_ex(S)
+        for _ in range(4):
+            torch.cholesky_solve(rhs, L)
+    chol_ms, _ = cuda_ms(chol)
+    out = {'gram_ms': gram_ms, 'gram_bound_ms': b_bf16[0],
+           'gram_bound_by': b_bf16[1], 'gram_f32_bound_ms': b_f32[0],
+           'gram_library_ms': lib_ms, 'gram_library_rel_err': lib_err,
+           'cholesky_ms': chol_ms,
+           'gram_share_of_device_time': solves * gram_ms / dev_ms,
+           'cholesky_share_of_device_time': solves * chol_ms / dev_ms}
+    print(f'[ba-trafalgar] Schur pieces alone at T1 [{3 * P}, {n}] bf16: '
+          f'Gram {gram_ms:.3f} ms (bound {b_bf16[0]:.3f} ms by '
+          f'{b_bf16[1]} at 989 TFLOP/s bf16; {b_f32[0]:.3f} ms at 67 '
+          f'TFLOP/s float32), one library call (torch.mm, bf16 in, float32 '
+          f'out) {lib_ms} (relative difference {lib_err}); Cholesky and '
+          f'four solves of S [{n}, {n}] {chol_ms:.3f} ms; shares of the '
+          f'profiled run\'s device time at {solves} solves: Gram '
+          f'{out["gram_share_of_device_time"]:.4f}, Cholesky '
+          f'{out["cholesky_share_of_device_time"]:.4f}', flush=True)
+    return out
+
+
+def ba_phase(dev):
+    """[ba-anchored], [ba-trafalgar], [ba-large], [ba-autodiff-huber]:
+    BundleAdjustment on the card (no kernel on its path: torch ops and
+    library products).  Returns each cell's numbers."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.testing import (BA_SCHEDULES, ba_instance,
+                                          ba_optimizer)
+    out = {}
+    # [ba-anchored]: the JAX package's C=16 instance to pypose's chi2
+    with open(find_data('ref_anchor_bal_16_300.json')) as f:
+        ref = json.load(f)
+    target = ref['final_chi2'] * (1 + 1e-3)
+    anchored, _ = ba_cell('ba-anchored', dev, 'ba-anchored', 'dense')
+    hist = anchored['history']
+    hit = next((i + 1 for i, h in enumerate(hist) if h <= target), None)
+    print(f'[ba-anchored] chi2 {ref["initial_chi2"]:.7g} -> {hist}; pypose '
+          f'target {ref["final_chi2"]:.8g} (+1e-3) '
+          + (f'hit at step {hit}' if hit else 'NOT HIT'), flush=True)
+    check(hit is not None, '[ba-anchored] pypose\'s chi2 not reached')
+    out['ba-anchored'] = dict(anchored, hit_step=hit)
+
+    # [ba-trafalgar]: dense Schur at trafalgar scale
+    traf, opt = ba_cell('ba-trafalgar', dev, 'ba-trafalgar', 'dense',
+                        anchor='ba_trafalgar', profiled=True)
+    traf.update(schur_pieces_ms(opt, traf['solves'], traf['device_ms']))
+    out['ba-trafalgar'] = traf
+    del opt
+    torch.cuda.empty_cache()
+
+    # [ba-large]: C=2048, auto-routed Schur-CG with windowed camera sums
+    out['ba-large'], opt = ba_cell('ba-large', dev, 'ba-large', 'cg',
+                                   anchor='ba_large', profiled=True)
+    del opt
+    torch.cuda.empty_cache()
+
+    # [ba-autodiff-huber]: vmap(jacrev) Jacobians and a Huber kernel,
+    # card against the CPU, and the closed form beside it
+    name = 'ba-autodiff-huber'
+    sched = BA_SCHEDULES[name]
+    ds = ba_instance(name, device='cpu')
+    opt = ba_optimizer(ds, name, residual=ba_user_residual)
+    opt.optimize(steps=sched['steps'], patience=sched['patience'],
+                 decreasing=sched['decreasing'])
+    hists = {'cpu': list(opt.history)}
+    auto, opt = ba_cell(f'{name} autodiff', dev, name, 'dense',
+                        residual=ba_user_residual)
+    hists['card'] = auto['history']
+    closed_out, closed = ba_cell(f'{name} closed form', dev, name, 'dense')
+    obs = closed._obs_data()
+    ds = ba_instance(name, device=dev)
+    T, X = ds['poses'].tensor(), ds['points']
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(opt._r_jac(obs, T, X)[1:],
+                              closed._r_jac(obs, T, X)[1:]))
+    print(f'[{name}] Jc, Jp by vmap(jacrev) against the closed form on the '
+          f'card: largest error {err:.3e} of max|J| (bound 1e-5)', flush=True)
+    check(err <= 1e-5, f'[{name}] autodiff Jacobians off')
+    out[name] = dict(auto, jacobian_err=err)
+    out[f'{name} closed form'] = closed_out
+    gaps = [abs(a / b - 1) for a, b in zip(hists['card'], hists['cpu'])]
+    print(f'[{name}] card {hists["card"]} against the CPU {hists["cpu"]}: '
+          f'largest relative gap {max(gaps):.3e} (bound 1e-5)', flush=True)
+    check(len(hists['card']) == len(hists['cpu']) and max(gaps) <= 1e-5,
+          f'[{name}] card and CPU chi2 differ')
+    out[name]['card_cpu_gap'] = max(gaps)
+    return out
+
+
 BLOCK_SIZE_CAP = 60
 
 
@@ -1777,6 +2059,8 @@ def main():
             f'sphere2500-huber {form}', dev, kernel=Huber(delta=5.0),
             autodiff=form == 'autodiff', anchor='sphere2500_huber')
     reproj = reproj_phase(dev)
+    # 18.-21. bundle adjustment (no kernel on its path)
+    ba_cells = ba_phase(dev)
 
     # results: each kernel's bound from this run's shapes (two offsets;
     # float32 operands and vectors, 4 bytes a float)
@@ -1986,6 +2270,8 @@ def main():
     for tag, numbers in autodiff.items():
         print(f'[{tag}] {numbers}', flush=True)
     print(f'[reproj-pgo] {reproj}', flush=True)
+    for tag, numbers in ba_cells.items():
+        print(f'[{tag}] {numbers}', flush=True)
     print(f'[autograd] micro-jacrev {jacrev}; largest float64 error '
           f'{max(e[0] for e in autograd_errs.values()):.3e}, float32 '
           f'{max(e[1] for e in autograd_errs.values()):.3e}; autodiff J '

@@ -19,6 +19,11 @@ torch and numpy, never jax.  It covers two paths:
   ``optim.sparse.SparseLM``, which picks among them and takes
   closed-form or autodiff Jacobians and the robust kernels of
   ``optim.kernel``;
+- bundle adjustment: ``optim.ba.BundleAdjustment`` (dense Schur or
+  Schur-CG, camera sums in a fixed order), the scalarized BAL
+  reprojection blocks, BAL IO through the native tokenizer
+  (``native/``, which ``load_g2o`` takes too), ``synthetic_bal`` and the
+  projections of ``function.geometry``;
 - point clouds: ``module.ICP`` over ``function.geometry.knn`` (the
   nearest-neighbour kernels of ``csrc/knn.cu``), ``svdtf`` and ``svdstf``, with
   ``utils.ReduceToBason``.  The SE3 composition and action kernels of
@@ -35,6 +40,7 @@ from . import module  # noqa: F401
 from . import testing  # noqa: F401
 from . import nn  # noqa: F401
 from . import func  # noqa: F401
+from . import native  # noqa: F401
 from .nn import Parameter, Module  # noqa: F401
 from .lietensor import (  # noqa: F401
     LieTensor, SO3, so3, SE3, se3, Sim3, sim3, RxSO3, rxso3, identity_SO3,
@@ -46,6 +52,7 @@ from .lietensor import (  # noqa: F401
     translation, rotation, scale, matrix, euler, quat2unit, vec2skew, add,
     add_, mul)
 from .function import (  # noqa: F401
-    KNNResult, knn, svdtf, svdstf, is_lietensor, is_SE3)
+    KNNResult, cart2homo, homo2cart, point2pixel, pixel2point, reprojerr,
+    knn, svdtf, svdstf, is_lietensor, is_SE3)
 from .module import ICP  # noqa: F401
 from .utils import ReduceToBason  # noqa: F401

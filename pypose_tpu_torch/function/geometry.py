@@ -1,7 +1,8 @@
-r"""Nearest neighbours and rigid or similarity alignment: ``knn``,
-``svdtf`` and ``svdstf``.
+r"""Projections, nearest neighbours and rigid or similarity alignment:
+``cart2homo``, ``homo2cart``, ``point2pixel``, ``pixel2point``,
+``reprojerr``, ``knn``, ``svdtf`` and ``svdstf``.
 
-Counterpart of ``pypose_tpu/function/geometry.py:22, 102-268``.  ``knn``
+Counterpart of ``pypose_tpu/function/geometry.py:22-268``.  ``knn``
 keeps the JAX package's routes: the dense distance matrix up to 64 Mi
 pairs, above it (or with an explicit ``chunk``) :func:`_knn_tiled`, which
 sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel and
@@ -19,10 +20,77 @@ from collections import namedtuple
 import torch
 
 from ..lietensor.convert import mat2SE3, mat2Sim3
+from ..lietensor.lietensor import LieTensor
 from ..ops import knn as knn_ops
 from ..optim.sparse import require_full_fp32
 
 KNNResult = namedtuple('KNNResult', ['values', 'indices'])
+
+def cart2homo(coordinates):
+    """Cartesian ``(*, N)`` -> homogeneous ``(*, N+1)`` (a column of
+    ones appended)."""
+    if isinstance(coordinates, LieTensor):
+        coordinates = coordinates.tensor()
+    return torch.cat([coordinates, torch.ones_like(coordinates[..., :1])],
+                     dim=-1)
+
+
+def homo2cart(coordinates):
+    """Homogeneous ``(*, N+1)`` -> cartesian ``(*, N)``: divides by the
+    last coordinate, whose magnitude is held at least float's ``tiny`` and
+    whose sign at 0 counts as +."""
+    last = coordinates[..., -1:]
+    tiny = torch.finfo(coordinates.dtype).tiny
+    denum = torch.where(last >= 0, 1.0, -1.0) * torch.clamp(last.abs(),
+                                                             min=tiny)
+    return coordinates[..., :-1] / denum
+
+
+def point2pixel(points, intrinsics, extrinsics=None):
+    """Project points ``(*, N, 3)`` to pixels ``(*, N, 2)`` through the
+    pinhole ``intrinsics`` ``(*, 3, 3)``, after the SE3 ``extrinsics``
+    ``(*, 7)`` if given."""
+    assert points.shape[-1] == 3, 'Points shape incorrect'
+    assert intrinsics.shape[-1] == intrinsics.shape[-2] == 3, \
+        'Intrinsics shape incorrect.'
+    if extrinsics is not None:
+        assert isinstance(extrinsics, LieTensor) and \
+            extrinsics.shape[-1] == 7, 'Type incorrect.'
+        points = extrinsics.unsqueeze(-2) @ points
+    return homo2cart(points @ intrinsics.mT)
+
+
+def pixel2point(pixels, depth, intrinsics):
+    """Back-project pixels ``(*, N, 2)`` at ``depth`` ``(*, N)`` through
+    the pinhole ``intrinsics`` to points ``(*, N, 3)``."""
+    assert pixels.shape[-1] == 2, 'Pixels shape incorrect'
+    assert depth.shape[-1] == pixels.shape[-2], \
+        'Depth shape does not match pixels'
+    assert intrinsics.shape[-1] == intrinsics.shape[-2] == 3, \
+        'Intrinsics shape incorrect.'
+    fx, fy = intrinsics[..., 0, 0], intrinsics[..., 1, 1]
+    cx, cy = intrinsics[..., 0, 2], intrinsics[..., 1, 2]
+    x = (pixels[..., 0] - cx[..., None]) * depth / fx[..., None]
+    y = (pixels[..., 1] - cy[..., None]) * depth / fy[..., None]
+    return torch.stack([x, y, depth], dim=-1)
+
+
+def reprojerr(points, pixels, intrinsics, extrinsics=None, reduction='none'):
+    """Reprojection error of ``points`` against ``pixels``: per point
+    (``'none'``, ``(*, N, 2)``), its norm (``'norm'``) or the sum of its
+    two components (``'sum'``)."""
+    assert points.shape[-1] == 3 and pixels.shape[-1] == 2 and \
+        intrinsics.shape[-1] == intrinsics.shape[-2] == 3, \
+        'Shape not compatible.'
+    assert reduction in {'norm', 'sum', 'none'}, \
+        "Reduction method can only be 'norm'|'sum'|'none'."
+    err = point2pixel(points, intrinsics, extrinsics) - pixels
+    if reduction == 'norm':
+        return torch.linalg.norm(err, dim=-1)
+    if reduction == 'sum':
+        return torch.sum(err, dim=-1)
+    return err
+
 
 # Above this many pairs knn streams [chunk, N] tiles (geometry.py:127).
 _DENSE_PAIRS = 64 * 1024 * 1024

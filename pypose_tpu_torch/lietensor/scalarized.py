@@ -1,6 +1,7 @@
-r"""Scalarized SE3 pose-graph residual and Jacobian blocks.
+r"""Scalarized SE3 pose-graph and BAL reprojection residual and Jacobian
+blocks.
 
-Counterpart of ``pypose_tpu/lietensor/scalarized.py:40-218``.  Every
+Counterpart of ``pypose_tpu/lietensor/scalarized.py:40-292``.  Every
 intermediate is an ``[E]`` vector (3x3 matrices are nested tuples of
 them) and only the final ``r [E, 6]`` and ``J [E, 6, 2, 6]`` are stacked.
 On the card this keeps the chain elementwise at width E, with no small
@@ -21,7 +22,7 @@ import torch
 
 from .jacobian import coef_Jl_inv, coefQ2, coefQ3, sinc3
 
-__all__ = ['se3_pgo_blocks']
+__all__ = ['se3_pgo_blocks', 'bal_reproj_blocks']
 
 
 def _qconj(q):
@@ -184,3 +185,60 @@ def se3_pgo_blocks(Xi, Xj, Z):
     Jj = torch.stack(rows, dim=-2)                   # [E, 6, 6]
     J = torch.stack([-Jj, Jj], dim=-2)               # [E, 6, 2, 6]
     return r, J
+
+
+def bal_reproj_blocks(Tc, Xp, cams, pix):
+    """Residual and closed-form tangent Jacobians of a batch of BAL
+    reprojection observations, every intermediate an [O] vector.
+
+    Math (``optim.ba.reproj_residual_bal``): with the camera point
+    ``Xc = R(q) X + t``, BAL projects ``p = -Xc_xy / Xc_z`` and distorts
+    radially, ``res = f (1 + k1 r2 + k2 r2^2) p - pix``.  Left
+    perturbation (``pose.add(eps) = Exp(eps) pose``): ``dXc/d[tau, phi] =
+    [I, -skew(Xc)]`` and ``dXc/dX = R(q)``.
+
+    Args:
+        Tc: [O, 7] SE3 storage of the observing cameras.
+        Xp: [O, 3] world points.
+        cams: [O, 3] BAL intrinsics (f, k1, k2).
+        pix: [O, 2] observed pixels.
+
+    Returns:
+        (r [O, 2], Jc [O, 2, 6], Jp [O, 2, 3]).
+    """
+    t = tuple(Tc[..., i] for i in range(3))
+    q = tuple(Tc[..., i] for i in range(3, 7))
+    X = tuple(Xp[..., i] for i in range(3))
+    f, k1, k2 = cams[..., 0], cams[..., 1], cams[..., 2]
+
+    R = _quat2R(q)
+    xc, yc, zc = (a + b for a, b in zip(_mv3(R, X), t))   # Xc = R X + t
+    iz = 1.0 / zc
+    px = -xc * iz
+    py = -yc * iz
+    r2 = px * px + py * py
+    dist = 1.0 + k1 * r2 + k2 * r2 * r2
+    rx = f * dist * px - pix[..., 0]
+    ry = f * dist * py - pix[..., 1]
+
+    # dres/dp = f [dist I + 2 (k1 + 2 k2 r2) p p^T]   (2x2)
+    g = 2.0 * (k1 + 2.0 * k2 * r2)
+    a00 = f * (dist + g * px * px)
+    a01 = f * (g * px * py)
+    a11 = f * (dist + g * py * py)
+
+    # Jpix = dres/dp @ dp/dXc, dp/dXc = [[-iz, 0, -px iz], [0, -iz, -py iz]]
+    Jpix = ((-a00 * iz, -a01 * iz, -(a00 * px + a01 * py) * iz),
+            (-a01 * iz, -a11 * iz, -(a01 * px + a11 * py) * iz))
+
+    # Jc = Jpix @ [I | -skew(Xc)]
+    mskew = _mscale(-1.0, _skew((xc, yc, zc)))
+    rot = [tuple(sum(Jpix[i][k] * mskew[k][j] for k in range(3))
+                 for j in range(3)) for i in range(2)]
+    Jc = torch.stack([torch.stack(Jpix[i] + rot[i], dim=-1)
+                      for i in range(2)], dim=-2)           # [O, 2, 6]
+    # Jp = Jpix @ R
+    Jp = torch.stack([torch.stack(
+        tuple(sum(Jpix[i][k] * R[k][j] for k in range(3)) for j in range(3)),
+        dim=-1) for i in range(2)], dim=-2)                 # [O, 2, 3]
+    return torch.stack([rx, ry], dim=-1), Jc, Jp

@@ -705,17 +705,7 @@ class SparseLM:
         """TrustRegion update from a precomputed gain ratio (SparseLM never
         forms J, so the dense strategies' (J, D, R) signature is
         bypassed)."""
-        s = self.strategy
-        radius = 1.0 / strat['damping']
-        down = strat['down']
-        radius_new = torch.where(
-            quality > s.high, s.up * radius,
-            torch.where(quality > s.low, radius, radius * down))
-        down_new = torch.where(quality > s.low,
-                               torch.full_like(down, s.down0),
-                               down * s.factor)
-        return {'damping': 1.0 / torch.clamp(radius_new, s.min, s.max),
-                'down': torch.clamp(down_new, s.min, s.max)}
+        return self.strategy.step(strat, quality)
 
     def _init_strategy(self):
         if self.strategy_state is None:

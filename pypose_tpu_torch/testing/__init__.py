@@ -18,7 +18,9 @@ such graphs (with a robust kernel, or residual-only: ``residual_only``),
 ``examples/reproj_pgo.py``, ``autograd_inputs`` the inputs at which the
 autograd Functions are held on the card,
 ``instance_checksum`` identifies a generated pose-graph instance against
-a recorded anchor, and ``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
+a recorded anchor (``bal_checksum`` a bundle-adjustment one),
+``ba_instance`` and ``ba_optimizer`` build the bundle-adjustment cells,
+and ``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
 rule that holds the nearest-neighbour kernels to their plain versions.
 """
 
@@ -464,3 +466,80 @@ def nn1_tolerance_failures(ref, nbr, d2, idx, idx_plain, rtol=1e-6,
     to its plain version."""
     return nnk_tolerance_failures(ref, nbr, d2[:, None], idx[:, None],
                                   idx_plain[:, None], rtol, atol)
+
+
+# the bundle-adjustment cells: the problem (synthetic_bal's arguments, or
+# the vendored JAX instance) and the optimizer (bench.py:318-495)
+BA_PROBLEMS = {
+    'ba-anchored': 'jax_instance_bal_16_300.npz',
+    'ba-trafalgar': dict(n_cams=257, n_points=65132,
+                         obs_per_point=225911 / 65132, seed=0,
+                         pose_noise=(0.3, 0.1), point_noise=0.5),
+    'ba-large': dict(n_cams=2048, n_points=49152, obs_per_point=6, seed=0,
+                     pose_noise=(0.2, 0.05), point_noise=0.3),
+    'ba-autodiff-huber': dict(n_cams=64, n_points=8000, obs_per_point=6)}
+BA_SCHEDULES = {
+    'ba-anchored': dict(radius=1e4, fix_first_pose=False, steps=20,
+                        patience=5, decreasing=1e-4),
+    'ba-trafalgar': dict(fix_first_pose=True, cg_iter=40, cg_tol=1e-6,
+                         steps=5, patience=3, decreasing=1e-3),
+    'ba-large': dict(fix_first_pose=True, cg_iter=100, cg_tol=1e-6,
+                     steps=10, patience=5, decreasing=1e-3),
+    'ba-autodiff-huber': dict(fix_first_pose=True, cg_iter=40, cg_tol=1e-6,
+                              steps=6, patience=6, decreasing=1e-3,
+                              huber=5.0)}
+
+
+# (first accepted step, final chi2) tolerances against the JAX anchors:
+# tests/test_torch_ba_anchor.py says how they were measured
+BA_HOLD = {'ba-trafalgar': (3e-4, 1e-3), 'ba-large': (1e-3, 1e-3)}
+
+
+def ba_instance(name, device='cuda', dtype=torch.float32):
+    """The problem of a bundle-adjustment cell (``BA_PROBLEMS``):
+    ``synthetic_bal`` built by the port, or for 'ba-anchored' the JAX
+    package's own instance (its pose noise is a ``jax.random`` draw)
+    from ``data/``.  On the card unless the caller asks for the CPU."""
+    from ..datasets import find_data, synthetic_bal
+    from ..lietensor.utils import SE3
+    spec = BA_PROBLEMS[name]
+    if isinstance(spec, dict):
+        return synthetic_bal(**spec, dtype=dtype, device=device)
+    with np.load(find_data(spec)) as z:
+        arrays = {k: torch.as_tensor(z[k], device=device) for k in z.files}
+    for k in ('poses', 'gt_poses'):
+        arrays[k] = SE3(arrays[k].to(dtype))
+    for k in ('points', 'pixels', 'cameras', 'gt_points'):
+        arrays[k] = arrays[k].to(dtype)
+    return arrays
+
+
+def ba_optimizer(ds, name, **overrides):
+    """``BundleAdjustment`` of a bundle-adjustment cell on ``ds`` with the
+    cell's arguments (``BA_SCHEDULES``; its optimize arguments are
+    ignored), ``overrides`` taking their place.  'huber' is the delta of a
+    Huber kernel."""
+    from ..optim.ba import BundleAdjustment
+    from ..optim.kernel import Huber
+    from ..optim.strategy import TrustRegion
+    kw = {k: v for k, v in BA_SCHEDULES[name].items()
+          if k not in ('steps', 'patience', 'decreasing')}
+    kw.update(overrides)
+    if 'radius' in kw:
+        kw['strategy'] = TrustRegion(radius=kw.pop('radius'))
+    if 'huber' in kw:
+        kw['kernel'] = Huber(delta=kw.pop('huber'))
+    return BundleAdjustment(ds['poses'], ds['points'], ds['cam_idx'],
+                            ds['pt_idx'], ds['pixels'], ds['cameras'], **kw)
+
+
+def bal_checksum(ds):
+    """float64 sums of |poses|, |points| and |pixels| and the observation
+    count of a bundle-adjustment problem dict, on any device."""
+    def abs_sum(X):
+        X = X.tensor() if isinstance(X, LieTensor) else X
+        return float(X.detach().double().abs().sum())
+    return {'poses_abs_sum': abs_sum(ds['poses']),
+            'points_abs_sum': abs_sum(ds['points']),
+            'pixels_abs_sum': abs_sum(ds['pixels']),
+            'n_obs': int(ds['pixels'].shape[0])}

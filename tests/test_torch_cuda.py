@@ -698,3 +698,145 @@ def test_residual_only_factor_routes_through_whole_solve(cuda):
         before = (scg.LAUNCHES,) + before[1:]
     assert (scg.FUSED_LAUNCHES, scg.TILED_MV_LAUNCHES,
             scg.TILED_PC_LAUNCHES) == before[1:]
+
+
+# ---------------------------------------------------------------------------
+# bundle adjustment (no kernel on its path: library products and torch ops)
+# ---------------------------------------------------------------------------
+
+def _ba_pair(cuda, C=48, P=2100, k=5, seed=3, dtype=torch.float32, **kw):
+    """The same synthetic_bal problem and BundleAdjustment on the card and
+    on the CPU."""
+    from pypose_tpu_torch.datasets import synthetic_bal
+    from pypose_tpu_torch.optim.ba import BundleAdjustment
+    out = []
+    for dev in (cuda, 'cpu'):
+        ds = synthetic_bal(C, P, k, seed=seed, pose_noise=(0.1, 0.02),
+                           point_noise=0.1, dtype=dtype, device=dev)
+        out.append((ds, BundleAdjustment(
+            ds['poses'], ds['points'], ds['cam_idx'], ds['pt_idx'],
+            ds['pixels'], ds['cameras'], fix_first_pose=True, **kw)))
+    return out
+
+
+def test_bal_blocks_and_instance_card_match_cpu(cuda):
+    """synthetic_bal gives the same bits on the card; bal_reproj_blocks on
+    the card within 1e-6 of the CPU's (of each array's largest entry)."""
+    from pypose_tpu_torch.lietensor.scalarized import bal_reproj_blocks
+    (dg, g), (dc, c) = _ba_pair(cuda)
+    for key in ('poses', 'points', 'pixels', 'cam_idx', 'pt_idx'):
+        a, b = dg[key], dc[key]
+        a, b = (a.tensor(), b.tensor()) if hasattr(a, 'tensor') else (a, b)
+        assert torch.equal(a.cpu(), b), key
+    T, X = g.poses.tensor(), g.points
+    got = bal_reproj_blocks(T[g.cam_idx], X[g.pt_idx], g.cameras, g.pixels)
+    want = bal_reproj_blocks(c.poses.tensor()[c.cam_idx], c.points[c.pt_idx],
+                             c.cameras, c.pixels)
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-6 * float(
+            b.abs().max())
+    # BAL IO and the projections
+    from pypose_tpu_torch.datasets import find_data, load_bal
+    from pypose_tpu_torch.function import reprojerr
+    path = find_data('realformat_excerpt_bal.txt')
+    a, b = load_bal(path, device=cuda), load_bal(path, device='cpu')
+    assert torch.equal(a['poses'].tensor().cpu(), b['poses'].tensor())
+    assert torch.equal(a['pixels'].cpu(), b['pixels'])
+    K = torch.tensor([[500., 0., 320.], [0., 500., 240.], [0., 0., 1.]])
+    X = c.points[:, None] + torch.tensor([0., 0., 30.])
+    err = reprojerr(X.to(cuda), X[..., :2].to(cuda), K.to(cuda),
+                    reduction='norm')
+    want = reprojerr(X, X[..., :2], K, reduction='norm')
+    assert torch.allclose(err.cpu(), want, rtol=1e-6, atol=1e-4)
+
+
+def test_ba_windowed_sums_deterministic_on_card(cuda):
+    """The windowed camera sums repeat their bits over calls on the card
+    and agree with the CPU's (2e-5); the windowed broadcast is exact."""
+    (_, g), (_, c) = _ba_pair(cuda)
+    assert g._cam_win is not None
+    gen = torch.Generator().manual_seed(0)
+    O = g.pixels.shape[0]
+    for shape in ((O, 6), (O, 6, 6)):
+        x = torch.randn(shape, generator=gen)
+        first = g._acc_cams(g._obs_data(), x.to(cuda))
+        for _ in range(3):
+            assert torch.equal(first, g._acc_cams(g._obs_data(), x.to(cuda)))
+        want = c._acc_cams(c._obs_data(), x)
+        assert torch.allclose(first.cpu(), want, rtol=2e-5, atol=2e-5)
+    xc = torch.randn((g.C, 6), generator=gen)
+    assert torch.equal(g._bcast_cams(g._obs_data(), xc.to(cuda)).cpu(),
+                       xc[c.cam_idx])
+
+
+def test_ba_schur_gram_float32_on_card(cuda):
+    """The dense Gram of bf16 operands returns float32 on the card, within
+    2e-6 (of its diagonal's scale) of the float64 product of the same
+    values."""
+    from pypose_tpu_torch.optim.ba import schur_gram
+    gen = torch.Generator().manual_seed(1)
+    T1 = torch.randn((30_000, 6 * 40), generator=gen).to(torch.bfloat16)
+    M = schur_gram(T1.to(cuda))
+    assert M.dtype == torch.float32 and M.device.type == 'cuda'
+    exact = T1.double().T @ T1.double()
+    scale = torch.sqrt(torch.diagonal(exact)[:, None]
+                       * torch.diagonal(exact)[None, :])
+    assert float(((M.cpu().double() - exact).abs() / scale).max()) <= 2e-6
+
+
+@pytest.mark.parametrize('schur', ['dense', 'cg'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_ba_steps_card_match_cpu(cuda, schur, dtype):
+    """Three LM steps on the card against the CPU's: float32 within 1e-5
+    (Schur-CG: the third, converged step; the first two within 1e-3),
+    float64 within 1e-9 (Schur-CG) or 1e-6 (dense, whose Gram runs on
+    bf16 operands).  A truncated float32 CG's first step moves with its
+    iteration count (measured on the CPU: 866.387 at 21 iterations,
+    866.410 at 26, 883.051 at 40), and the iteration at which it meets
+    its tolerance may differ by one between devices; run to a cap past
+    float32's reach, its iterates wander (a first step 8e-4 apart)."""
+    tol_cg = 1e-6 if dtype == torch.float32 else 1e-10
+    (_, g), (_, c) = _ba_pair(cuda, 16, 600, 4, 1, dtype, schur=schur,
+                              cg_iter=60, cg_tol=tol_cg)
+    got = [g.step() for _ in range(3)]
+    want = [c.step() for _ in range(3)]
+    tol = 1e-5 if dtype == torch.float32 else (
+        1e-6 if schur == 'dense' else 1e-9)
+    early = 1e-3 if (dtype, schur) == (torch.float32, 'cg') else tol
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert abs(a - b) <= (tol if i == 2 else early) * abs(b), (got, want)
+
+
+def test_ba_non_pd_factor_rejects_on_card(cuda):
+    """No boost, no gauge, damping 1e-12: the factor fails, the step is
+    not taken, and nothing raises."""
+    from pypose_tpu_torch.datasets import synthetic_bal
+    from pypose_tpu_torch.optim.ba import BundleAdjustment
+    from pypose_tpu_torch.optim.strategy import Constant
+    ds = synthetic_bal(6, 100, 3, seed=3, device=cuda)
+    ba = BundleAdjustment(ds['poses'], ds['points'], ds['cam_idx'],
+                          ds['pt_idx'], ds['pixels'], ds['cameras'],
+                          schur='dense', schur_refine=0,
+                          strategy=Constant(1e-12))
+    loss = ba.step()
+    assert loss == ba.last and ba.reject_count == 0
+    assert torch.equal(ba.points, ds['points'])
+
+
+def test_ba_segment_sum_fallbacks_on_card(cuda, monkeypatch):
+    """Past the degree caps the camera and point sums are segment sums:
+    on the card they repeat their bits and agree with the CPU's (1e-5)."""
+    from pypose_tpu_torch.optim.ba import BundleAdjustment
+    monkeypatch.setattr(BundleAdjustment, 'MAX_POINT_DEGREE', 2)
+    monkeypatch.setattr(BundleAdjustment, 'MAX_CAM_DEGREE', 2)
+    (_, g), (_, c) = _ba_pair(cuda, 8, 300, 4, 1, schur='cg')
+    assert g._pt_inc is None and g._cam_inc is None
+    x = torch.randn((g.pixels.shape[0], 3, 3),
+                    generator=torch.Generator().manual_seed(2))
+    for name in ('_acc_cams', '_acc_points'):
+        got = getattr(g, name)(dict(g._obs_data(), cam_win=None), x.to(cuda))
+        again = getattr(g, name)(dict(g._obs_data(), cam_win=None),
+                                 x.to(cuda))
+        want = getattr(c, name)(dict(c._obs_data(), cam_win=None), x)
+        assert torch.equal(got, again)
+        assert torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5)
