@@ -10,7 +10,9 @@ random-loop pose graphs, and the inputs the stencil kernels do not take;
 then the Lie core's autograd and the paths it opens: Jacobians by
 autodiff and robust kernels in SparseLM through the whole-solve kernel,
 and the reprojection pose graph; then bundle adjustment in both Schur
-modes (no kernel on its path).
+modes (no kernel on its path); then IMU preintegration at a million
+frames, the dense optimizers (4,096 problems batched), SparseLM's
+Adaptive strategy and the point-cloud filters.
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -167,7 +169,31 @@ Phases (any failure raises, so the script exits non-zero):
      vmap(jacrev)): chi2 per step on the card within 1e-5 of the CPU's;
      its Jacobians against the closed form's on the card (1e-5 of
      max|J|); the closed form cold and warm beside it.
- 22. prints the kernels' JSON line (each kernel's, and each of the t = 3,
+ 23. imu-1m: bench.py:bench_imu at B = 1, F = 1,000,000 (float32,
+     IMUPreintegrator(reset=True, prop_cov=True); no kernel), cold, warm
+     (median of 3) and profiled: ms a call, frames/s, device idle share
+     and operations a call; the last frame's rot, vel, pos and 9x9 cov
+     against data/jax_anchor_imu_1m.json (twice the port's CPU spread
+     plus 1e-6 of each quantity's magnitude) and against the port's CPU
+     run (1e-5 of the magnitude), and |q| beside the anchor's 0.99120563.
+ 24. imu-synth: testing.imu_instance('synth', 100_000) in two halves with
+     reset=False: card against CPU in float32 (outputs and carried state,
+     Rij included), and in float64 against one call (rot, vel, pos, Rij).
+ 25. batch-lm: bench.py:bench_batch_lm (4,096 PoseInvB problems, 4 steps,
+     Constant(1e-6), testing.batch_lm_instance(4096, 7)), cold, warm and
+     profiled: problems/s, max loss, no host read inside the solve
+     (sync debug mode 'error'), each loss against
+     data/jax_anchor_batch_lm.json and the CPU, no kernel.
+ 26. dense-lm: a PoseInv module through LM and StopOnPlateau (the loss
+     from ~1 to below 1e-6 within 5 steps), GN and make_batch_optimizer
+     card against CPU.
+ 27. sparse-strategies: sphere2500 through SparseLM with Adaptive() (phase
+     4's capped CG: chi2 within 1e-3 of the CPU's) and with
+     Adaptive(damping=1e-2) (converged CG: within 1e-5) for three steps
+     each: route 'stencil', one whole-solve launch a solve.
+ 28. filters: nbr_filter, knn_filter, voxel_filter (mean and random) and
+     random_filter on 4,096 points, card against CPU.
+ 29. prints the kernels' JSON line (each kernel's, and each of the t = 3,
      4, 7 instantiations', launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
@@ -462,7 +488,8 @@ def read_counts():
 
 def sphere2500_problem(dev):
     """The main path's problem as bench.py:bench_pgo_sphere2500 builds it;
-    returns (initial poses, make_optimizer(cg_iter, cg_tol))."""
+    returns (initial poses, make_optimizer(cg_iter, cg_tol, strategy),
+    TrustRegion(1e4) unless another strategy is given)."""
     import torch
     from pypose_tpu_torch.datasets import find_data, load_g2o
     from pypose_tpu_torch.optim.sparse import (SparseLM, pgo_factor,
@@ -480,9 +507,10 @@ def sphere2500_problem(dev):
         rows = torch.as_tensor(rows, device=dev)
         factors.append(pgo_factor(edges[rows], ds['poses'][rows]))
 
-    def mk(cg_iter, cg_tol):
+    def mk(cg_iter, cg_tol, strategy=None):
         return SparseLM({'poses': ds['nodes']}, factors,
-                        strategy=TrustRegion(radius=1e4),
+                        strategy=TrustRegion(radius=1e4) if strategy is None
+                        else strategy,
                         fixed={'poses': fixed}, cg_iter=cg_iter,
                         cg_tol=cg_tol)
     return ds['nodes'], mk
@@ -1887,6 +1915,456 @@ def ba_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 23.-28. IMU preintegration, the dense optimizers, SparseLM's other
+# strategies and the point-cloud filters (no kernel on these paths)
+# ---------------------------------------------------------------------------
+
+def synced_ms(fn):
+    """(host milliseconds of ``fn()`` between two synchronizations, its
+    result)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def profiled_call(fn):
+    """One call of ``fn`` under torch.profiler: (host ms between
+    synchronizations, device ms, device operations)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ms, _ = synced_ms(fn)
+    ops = [e for e in prof.key_averages() if not e.key.startswith('aten::')]
+    return (ms, sum(e.device_time_total for e in ops) / 1e3,
+            sum(e.count for e in ops))
+
+
+def no_launches(tag):
+    counts = read_counts()
+    check(not any(counts.values()),
+          f'{tag}: a path without kernels launched some: {counts}')
+    return counts
+
+
+def imu_last_frame(out):
+    """rot, vel, pos at the last frame, the 9x9 cov (float64 numpy) and
+    |q| at the last frame."""
+    import numpy as np
+    res = {}
+    for k in ('rot', 'vel', 'pos', 'cov'):
+        v = out[k].tensor() if hasattr(out[k], 'tensor') else out[k]
+        v = v.detach().cpu().double().numpy()[0]
+        res[k] = v if k == 'cov' else v[-1]
+    res['q_norm'] = float(np.linalg.norm(res['rot']))
+    return res
+
+
+# card against the port's CPU run: the largest difference of each quantity
+# within this share of its largest magnitude (the measured gap is printed)
+IMU_CARD_CPU_RTOL = 1e-5
+
+
+def imu_phase(dev):
+    """imu-1m: bench.py:bench_imu at B = 1, F = 1,000,000 (float32,
+    reset, with the covariance), cold, warm and profiled; the last frame
+    against data/jax_anchor_imu_1m.json (twice the port's CPU spread plus
+    1e-6 of the quantity's magnitude, tests/test_torch_imu_anchor.py) and
+    against the port's CPU run (IMU_CARD_CPU_RTOL)."""
+    import numpy as np
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.module import IMUPreintegrator
+    from pypose_tpu_torch.testing import imu_instance
+
+    with open(find_data('jax_anchor_imu_1m.json')) as f:
+        anchor = json.load(f)
+    F = 1_000_000
+    t0 = time.perf_counter()
+    x = imu_instance('bench', F, device=dev)
+    integ = IMUPreintegrator(reset=True, prop_cov=True, device=dev)
+    torch.cuda.synchronize()
+    print(f'[imu-1m] set-up: input and module in '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    reset_counts()
+    cold_ms, out = synced_ms(lambda: integ(*x))
+    counts = no_launches('imu-1m')
+    warm = [synced_ms(lambda: integ(*x))[0] for _ in range(3)]
+    warm_ms = statistics.median(warm)
+    prof_ms, dev_ms, n_ops = profiled_call(lambda: integ(*x))
+    got = imu_last_frame(out)
+    t0 = time.perf_counter()
+    cpu = imu_last_frame(IMUPreintegrator(reset=True, prop_cov=True)(
+        *imu_instance('bench', F, device='cpu')))
+    cpu_s = time.perf_counter() - t0
+    gaps, bad = {}, []
+    for k in ('rot', 'vel', 'pos', 'cov', 'q_norm'):
+        want = np.asarray(anchor['float32'][k])
+        tol = 2 * anchor['port_cpu_spread'][k] + 1e-6 * np.abs(want).max()
+        err = float(np.abs(np.asarray(got[k]) - want).max())
+        cerr = float(np.abs(np.asarray(got[k]) - np.asarray(cpu[k])).max())
+        ctol = IMU_CARD_CPU_RTOL * max(np.abs(want).max(), 1e-30)
+        gaps[k] = {'anchor': err, 'anchor_tol': tol, 'cpu': cerr,
+                   'cpu_tol': ctol}
+        if not (err <= tol and cerr <= ctol):
+            bad.append(k)
+    print(f'[imu-1m] last frame on the card: rot {got["rot"].tolist()}, vel '
+          f'{got["vel"].tolist()}, pos {got["pos"].tolist()}; |q| '
+          f'{got["q_norm"]:.8f} (JAX anchor {anchor["float32"]["q_norm"]:.8f}'
+          f', 0.99120563 expected; float64 pos {anchor["float64"]["pos"]})',
+          flush=True)
+    print(f'[imu-1m] largest difference and its bound, against the JAX '
+          f'anchor and against the port\'s CPU run ({cpu_s:.2f} s): {gaps}',
+          flush=True)
+    check(not bad, f'imu-1m: {bad} outside their tolerances')
+    check(all(np.isfinite(np.asarray(v)).all() for v in got.values()),
+          'imu-1m: a result is not finite')
+    out = {'frames': F, 'ms_cold': cold_ms, 'ms_warm': warm_ms,
+           'ms_warm_runs': warm, 'frames_per_s': F / (warm_ms / 1e3),
+           'ms_profiled': prof_ms, 'device_ms': dev_ms,
+           'idle_share': 1 - dev_ms / prof_ms, 'device_ops_per_call': n_ops,
+           'q_norm': got['q_norm'], 'counts': counts}
+    print(f'[imu-1m] {F} frames: cold {cold_ms:.3f} ms, warm {warm_ms:.3f} '
+          f'ms (median of {warm}) = {out["frames_per_s"]:.4e} frames/s; '
+          f'profiled call {prof_ms:.3f} ms, device {dev_ms:.3f} ms (idle '
+          f'share {out["idle_share"]:.4f}), {n_ops} device operations; '
+          f'launch counts {counts}', flush=True)
+    return out
+
+
+def imu_synth_phase(dev):
+    """imu-synth: testing.imu_instance('synth', 100_000) through
+    IMUPreintegrator(reset=False) in two halves, on the card against the
+    CPU in float32 (every output of both calls and the carried state: pos,
+    rot, vel, cov and Rij), and in float64 on the card against one call
+    over all frames.  float32 bound: each frame's so3 Exp takes sin and
+    cos of its own angle, whose last bits differ between the card's and
+    the CPU's math libraries, and the unrenormalised product carries every
+    such bit through 1e5 frames; so each quantity is held within twice the
+    largest gap that one-ulp nudges of the input (gyro up, gyro down, acc
+    up) make on the CPU in this run.  float64: on the card against one call
+    over all
+    frames (rot, vel, pos and Rij continue exactly up to rounding: 1e-7
+    of each quantity's magnitude; float32's unrenormalised quaternion
+    products drift apart between the two ways, so the float32 halves are
+    held to the CPU's halves).  The covariance continued across calls is
+    not the one-call covariance in either package (the reference's
+    ascending product A_1 ... A_F does not split at a call boundary), so
+    the float64 halves' covariance is held to the CPU's (1e-9)."""
+    import torch
+    from pypose_tpu_torch.module import IMUPreintegrator
+    from pypose_tpu_torch.testing import imu_instance
+
+    F, h = 100_000, 50_000
+
+    def halves(d, dtype, nudge=None):
+        x = imu_instance('synth', F, device=d, dtype=dtype)
+        if nudge is not None:
+            i, sign = nudge
+            x = list(x)
+            x[i] = torch.nextafter(x[i], torch.full_like(x[i], sign * 1e30))
+        m = IMUPreintegrator(reset=False, prop_cov=True, dtype=dtype,
+                             device=d)
+        outs = [m(*(v[:, :h] for v in x)), m(*(v[:, h:] for v in x))]
+        state = {k: getattr(m, k) for k in ('pos', 'rot', 'vel', 'cov')}
+        state['Rij'] = m.Rij
+        return outs, state, x
+
+    def arr(v):
+        v = v.tensor() if hasattr(v, 'tensor') else v
+        return v.detach().cpu().double()
+
+    def rel_gap(a, b):
+        a, b = arr(a), arr(b)
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+    def all_gaps(a, b):
+        (ao, astate), (bo, bstate) = a, b
+        gaps = {f'call{i + 1}.{k}': rel_gap(ao[i][k], bo[i][k])
+                for i in range(2) for k in ('rot', 'vel', 'pos', 'cov')}
+        gaps.update({f'state.{k}': rel_gap(astate[k], bstate[k])
+                     for k in astate})
+        return gaps
+
+    reset_counts()
+    card = halves(dev, torch.float32)[:2]
+    counts = no_launches('imu-synth')
+    cpu = halves('cpu', torch.float32)[:2]
+    gaps = all_gaps(card, cpu)
+    nudged = [all_gaps(halves('cpu', torch.float32, n)[:2], cpu)
+              for n in ((1, 1), (1, -1), (2, 1))]
+    bound = {k: 2 * max(g[k] for g in nudged) for k in gaps}
+    print(f'[imu-synth] float32 halves, card against CPU (relative to each '
+          f'quantity\'s magnitude) and the bound (twice the CPU\'s one-ulp '
+          f'nudge spread): ' + ', '.join(
+              f'{k} {gaps[k]:.3e} ({bound[k]:.3e})' for k in gaps),
+          flush=True)
+    check(all(gaps[k] <= bound[k] for k in gaps),
+          'imu-synth: card and CPU halves differ by more than the nudge '
+          'spread')
+    h64, s64, x64 = halves(dev, torch.float64)
+    c64 = halves('cpu', torch.float64)[0]
+    one = IMUPreintegrator(reset=False, prop_cov=True, dtype=torch.float64,
+                           device=dev)
+    whole = one(*x64)
+    cont = {k: rel_gap(arr(h64[1][k])[0, -1], arr(whole[k])[0, -1])
+            for k in ('rot', 'vel', 'pos')}
+    cont['Rij'] = rel_gap(s64['Rij'], one.Rij)
+    cov_cpu = rel_gap(h64[1]['cov'], c64[1]['cov'])
+    cov_one = rel_gap(h64[1]['cov'], whole['cov'])
+    print(f'[imu-synth] float64 on the card, two halves against one call: '
+          f'{cont} (bound 1e-7); the halves\' covariance against the CPU\'s '
+          f'{cov_cpu:.3e} (bound 1e-9), against one call\'s {cov_one:.3e} '
+          f'(the reference\'s product order); launch counts {counts}',
+          flush=True)
+    check(max(cont.values()) <= 1e-7 and cov_cpu <= 1e-9,
+          'imu-synth: the float64 continuation differs')
+    return {'card_cpu_gap': gaps, 'bound': bound,
+            'continuation_gap_f64': max(cont.values()),
+            'cov_halves_vs_one_call_f64': cov_one}
+
+
+def batch_lm_phase(dev):
+    """batch-lm: bench.py:bench_batch_lm at B = 4,096, 4 steps,
+    Constant(1e-6), targets testing.batch_lm_instance(4096, 7), cold,
+    warm and profiled; no host read inside the solve
+    (torch.cuda.set_sync_debug_mode('error') around one), one to read the
+    max loss; each problem's loss within 1e-10 of
+    data/jax_anchor_batch_lm.json and below 1e-8, the params checksum
+    within 1e-6; the card against the port's CPU run (losses 1e-10,
+    params 1e-5)."""
+    import numpy as np
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.optim import make_batch_optimizer
+    from pypose_tpu_torch.optim.strategy import Constant
+    from pypose_tpu_torch.testing import batch_lm_instance
+
+    with open(find_data('jax_anchor_batch_lm.json')) as f:
+        anchor = json.load(f)
+    B, steps = 4096, 4
+
+    def checksum(v):
+        v = v.tensor() if hasattr(v, 'tensor') else v
+        return float(v.detach().double().abs().sum())
+
+    targets, model = batch_lm_instance(B, 7, device=dev)
+    solve = make_batch_optimizer(model, steps=steps,
+                                 strategy=Constant(damping=1e-6))
+    reset_counts()
+    cold_ms, (params, losses) = synced_ms(lambda: solve(targets))
+    counts = no_launches('batch-lm')
+    warm = [synced_ms(lambda: solve(targets))[0] for _ in range(3)]
+    warm_ms = statistics.median(warm)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        params, losses = solve(targets)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    max_loss = float(losses.max())          # the solve's one host read
+    prof_ms, dev_ms, n_ops = profiled_call(lambda: solve(targets))
+    la = np.asarray(anchor['losses'])
+    lerr = float(np.abs(losses.double().cpu().numpy() - la).max())
+    prel = checksum(params['pose']) / anchor['params_checksum'] - 1
+    trel = checksum(targets) / anchor['targets_checksum'] - 1
+    t0 = time.perf_counter()
+    ct, cm = batch_lm_instance(B, 7, device='cpu')
+    cparams, closses = make_batch_optimizer(
+        cm, steps=steps, strategy=Constant(damping=1e-6))(ct)
+    cpu_s = time.perf_counter() - t0
+    cl = float((losses.cpu() - closses).abs().max())
+    cp = float((params['pose'].tensor().cpu()
+                - cparams['pose'].tensor()).abs().max())
+    print(f'[batch-lm] {B} problems x {steps} steps: max loss {max_loss:.3e} '
+          f'(JAX anchor {anchor["max_loss"]:.3e}); each loss within '
+          f'{lerr:.3e} of the anchor (bound 1e-10), params checksum '
+          f'{prel:.3e}, targets checksum {trel:.3e} (bounds 1e-6); card '
+          f'against the CPU ({cpu_s:.2f} s): losses {cl:.3e} (1e-10), params '
+          f'{cp:.3e} (1e-5)', flush=True)
+    check(max_loss < 1e-8 and lerr <= 1e-10 and abs(prel) <= 1e-6
+          and abs(trel) <= 1e-6, 'batch-lm: outside the JAX anchor')
+    check(cl <= 1e-10 and cp <= 1e-5, 'batch-lm: card and CPU differ')
+    out = {'problems': B, 'steps': steps, 'ms_cold': cold_ms,
+           'ms_warm': warm_ms, 'ms_warm_runs': warm,
+           'problems_per_s': B / (warm_ms / 1e3), 'max_loss': max_loss,
+           'host_reads_in_solve': 0, 'host_reads_per_solve': 1,
+           'ms_profiled': prof_ms, 'device_ms': dev_ms,
+           'idle_share': 1 - dev_ms / prof_ms, 'device_ops_per_solve': n_ops,
+           'counts': counts}
+    print(f'[batch-lm] cold {cold_ms:.3f} ms, warm {warm_ms:.3f} ms (median '
+          f'of {warm}) = {out["problems_per_s"]:.4e} problems/s; host reads '
+          f'a solve: 0 inside it (sync debug mode "error" raised nothing), 1 '
+          f'for the max loss; profiled solve {prof_ms:.3f} ms, device '
+          f'{dev_ms:.3f} ms (idle share {out["idle_share"]:.4f}), {n_ops} '
+          f'device operations; launch counts {counts}', flush=True)
+    return out
+
+
+def dense_lm_phase(dev):
+    """dense-lm: .claude/skills/verify/SKILL.md's flow 2 on the card, a
+    PoseInv module (2 x 2 se3 from zero, SE3 inputs of sigma 0.3) through
+    LM under StopOnPlateau: the loss from ~1 to below 1e-6 within 5 steps; GN's steps and a
+    make_batch_optimizer solve (64 problems) on the card against the
+    CPU (losses 1e-4 relative plus 1e-9, parameters 1e-5)."""
+    import torch
+    import pypose_tpu_torch as pp
+    from pypose_tpu_torch.optim.scheduler import StopOnPlateau
+    from pypose_tpu_torch.optim.strategy import Constant
+    from pypose_tpu_torch.testing import batch_lm_instance
+
+    start = pp.identity_se3(2, 2)
+    inp = pp.randn_SE3(2, 2, sigma=0.3,
+                       generator=torch.Generator().manual_seed(1))
+
+    class PoseInv(pp.Module):
+        def __init__(self):
+            super().__init__()
+            self.pose = pp.Parameter(pp.se3(start.tensor().clone()))
+
+        def forward(self, x):
+            return (self.pose.Exp() @ x).Log().tensor()
+
+    reset_counts()
+    m = PoseInv().to(dev)
+    x = inp.to(dev)
+    opt = pp.optim.LM(m)
+    initial = float(opt.model.loss(opt._params(), x))
+    ms, loss = synced_ms(lambda: StopOnPlateau(
+        opt, steps=10, patience=3, decreasing=1e-9).optimize(x))
+    hit = next((i + 1 for i, h in enumerate(opt.history) if h < 1e-6), None)
+    print(f'[dense-lm] LM + StopOnPlateau: loss {initial:.4e} -> '
+          f'{opt.history} ({ms:.3f} ms, one host read); below 1e-6 at step '
+          f'{hit}', flush=True)
+    check(0.1 < initial < 10 and hit is not None and hit < 6,
+          'dense-lm: the loss did not fall below 1e-6 within 5 steps')
+    hist = {}
+    for d in (dev, 'cpu'):
+        g = PoseInv().to(d)
+        o = pp.optim.GN(g)
+        hist[str(d)] = ([o.step(inp.to(d)) for _ in range(5)],
+                        g.pose.tensor().detach().cpu())
+    (gc, pc), (gh, ph) = hist[str(dev)], hist['cpu']
+    gap = max(abs(a - b) / (abs(b) + 1e-5) for a, b in zip(gc, gh))
+    pgap = float((pc - ph).abs().max())
+    print(f'[dense-lm] GN 5 steps, card {gc}, CPU {gh}; parameters '
+          f'{pgap:.3e} apart', flush=True)
+    check(all(abs(a - b) <= 1e-4 * abs(b) + 1e-9 for a, b in zip(gc, gh))
+          and pgap <= 1e-5, 'dense-lm: GN card and CPU differ')
+    res = {}
+    for d in (dev, 'cpu'):
+        tg, mod = batch_lm_instance(64, 3, device=d)
+        res[str(d)] = pp.optim.make_batch_optimizer(
+            mod, steps=4, strategy=Constant(damping=1e-6))(tg)
+    (bp, bl), (cp, cl) = res[str(dev)], res['cpu']
+    lgap = float((bl.cpu() - cl).abs().max())
+    bgap = float((bp['pose'].tensor().cpu() - cp['pose'].tensor()).abs()
+                 .max())
+    print(f'[dense-lm] make_batch_optimizer, 64 problems: card against CPU '
+          f'losses {lgap:.3e}, params {bgap:.3e}', flush=True)
+    check(lgap <= 1e-9 and bgap <= 1e-5 and float(bl.max()) < 1e-8,
+          'dense-lm: the batched solve differs between card and CPU')
+    counts = no_launches('dense-lm')
+    return {'history': opt.history, 'ms': ms, 'gn_gap': gap,
+            'batch_gap': lgap, 'counts': counts}
+
+
+def sparse_strategies_phase(dev):
+    """sparse-strategies: sphere2500 (phase 4's factors) through SparseLM
+    with Adaptive for three LM steps, route 'stencil', one whole-solve
+    launch a solve, card against the port's CPU run of the same schedule:
+    - Adaptive() with phase 4's capped CG (cg_iter 150, cg_tol 1e-9): its
+      damping sits at its floor (1e-6), the capped CG does not converge
+      and its last bits follow the summation order (three CPU processes
+      gave first steps 3216.6526, 3216.6597 and 3216.6755), so each step
+      is held within 1e-3, as phase 4 holds its first step;
+    - Adaptive(damping=1e-2) with converged solves (cg_iter 500, cg_tol
+      1e-6: 87, 138 and 228 iterations on the CPU), whose damping halves
+      each step: each step within 1e-5."""
+    from pypose_tpu_torch.optim.strategy import Adaptive
+    out = {}
+    for tag, strategy, cg, bound in (
+            ('Adaptive()', Adaptive, (150, 1e-9), 1e-3),
+            ('Adaptive(damping=1e-2)', lambda: Adaptive(damping=1e-2),
+             (500, 1e-6), 1e-5)):
+        hist = {}
+        for d in (dev, 'cpu'):
+            _, mk = sphere2500_problem(d)
+            opt = mk(*cg, strategy=strategy())
+            check(opt.route == 'stencil', f'sparse-strategies: route '
+                  f'{opt.route}')
+            if d == dev:
+                reset_counts()
+            h, its, damp = [], [], []
+            for _ in range(3):
+                h.append(opt.step())
+                its.append(opt.cg_iterations[0])
+                damp.append(opt.strategy_state['damping'].item())
+            if d == dev:
+                counts, solves = read_counts(), sum(len(i) for i in its)
+            hist[str(d)] = (h, its, damp)
+        (card, its, dcard), (cpu, cits, dcpu) = hist[str(dev)], hist['cpu']
+        gaps = [abs(a / b - 1) for a, b in zip(card, cpu)]
+        print(f'[sparse-strategies] {tag}, cg_iter {cg[0]}, cg_tol {cg[1]}: '
+              f'chi2 card {card}, CPU {cpu} (largest relative gap '
+              f'{max(gaps):.3e}, bound {bound}); CG iterations card {its}, '
+              f'CPU {cits}; damping {dcard} / {dcpu}; launch counts '
+              f'{counts}', flush=True)
+        check(max(gaps) <= bound, f'sparse-strategies: {tag} card and CPU '
+              'chi2 differ')
+        check(counts['LAUNCHES'] == solves and counts['FUSED_LAUNCHES'] == 0
+              and not any(v for k, v in counts.items() if k != 'LAUNCHES'),
+              f'sparse-strategies: {counts["LAUNCHES"]} whole-solve launches '
+              f'for {solves} solves')
+        out[tag] = {'history': card, 'card_cpu_gap': max(gaps),
+                    'damping': dcard, 'counts': counts}
+    out['counts'] = {'LAUNCHES': sum(v['counts']['LAUNCHES']
+                                     for v in out.values())}
+    return out
+
+
+def filters_phase(dev):
+    """filters: nbr_filter, knn_filter (the dense 4,096^2 distance matrix),
+    voxel_filter (mean and random) and random_filter on a 4,096-point
+    cloud (torch.Generator seed 0) on the card against the CPU, the
+    random ones from equal generators: equal masks and rows, values
+    within 1e-5."""
+    import torch
+    import pypose_tpu_torch as pp
+    pts = torch.randn(4096, 3, generator=torch.Generator().manual_seed(0))
+
+    def run(d):
+        P = pts.to(d)
+        return {'nbr': pp.nbr_filter(P, 8, 0.25, return_mask=True)[1],
+                'knn': pp.knn_filter(P, 8),
+                'knn_radius': pp.knn_filter(P, 4, radius=0.25),
+                'voxel': pp.voxel_filter(P, [0.25, 0.25, 0.25]),
+                'voxel_random': pp.voxel_filter(
+                    P, [0.25] * 3, random=True,
+                    generator=torch.Generator().manual_seed(1)),
+                'random': pp.random_filter(
+                    P, 1000, torch.Generator().manual_seed(2))}
+    reset_counts()
+    ms, card = synced_ms(lambda: run(dev))
+    counts = no_launches('filters')
+    cpu = run('cpu')
+    gaps = {}
+    for k in card:
+        a, b = card[k].cpu(), cpu[k]
+        check(a.shape == b.shape, f'filters: {k} shapes {tuple(a.shape)} '
+              f'and {tuple(b.shape)}')
+        gaps[k] = float((a.double() - b.double()).abs().max()) if \
+            a.numel() else 0.0
+    print(f'[filters] 4,096 points: card {ms:.3f} ms; card against CPU '
+          f'{gaps} (bound 1e-5; masks equal); kept {int(cpu["nbr"].sum())} '
+          f'by nbr_filter, {cpu["voxel"].shape[0]} voxels; launch counts '
+          f'{counts}', flush=True)
+    check(max(gaps.values()) <= 1e-5, 'filters: card and CPU differ')
+    return {'ms': ms, 'gaps': gaps}
+
+
 BLOCK_SIZE_CAP = 60
 
 
@@ -2061,6 +2539,13 @@ def main():
     reproj = reproj_phase(dev)
     # 18.-21. bundle adjustment (no kernel on its path)
     ba_cells = ba_phase(dev)
+    # 23.-28. IMU, the dense optimizers, SparseLM's other strategies and
+    # the filters (no kernel on their paths but the whole solve's)
+    newer = {'imu-1m': imu_phase(dev), 'imu-synth': imu_synth_phase(dev),
+             'batch-lm': batch_lm_phase(dev),
+             'dense-lm': dense_lm_phase(dev),
+             'sparse-strategies': sparse_strategies_phase(dev),
+             'filters': filters_phase(dev)}
 
     # results: each kernel's bound from this run's shapes (two offsets;
     # float32 operands and vectors, 4 bytes a float)
@@ -2133,7 +2618,9 @@ def main():
               launches_by_path={
                   'sphere2500': sphere_counts['LAUNCHES'],
                   **{k: v['counts']['LAUNCHES'] for k, v in autodiff.items()
-                     if k.startswith('sphere2500')}}),
+                     if k.startswith('sphere2500')},
+                  'sparse-strategies (Adaptive)': newer['sparse-strategies'][
+                      'counts']['LAUNCHES']}),
         entry('stencil_tiled_mv', 'stencil_cg_tiled.cu', pallas + '131',
               pgo_counts['TILED_MV_LAUNCHES'],
               max(alone['mv'][0], route_err('tiled')), alone['mv'][1] / 1e3,
@@ -2271,6 +2758,8 @@ def main():
         print(f'[{tag}] {numbers}', flush=True)
     print(f'[reproj-pgo] {reproj}', flush=True)
     for tag, numbers in ba_cells.items():
+        print(f'[{tag}] {numbers}', flush=True)
+    for tag, numbers in newer.items():
         print(f'[{tag}] {numbers}', flush=True)
     print(f'[autograd] micro-jacrev {jacrev}; largest float64 error '
           f'{max(e[0] for e in autograd_errs.values()):.3e}, float32 '

@@ -26,8 +26,18 @@ torch and numpy, never jax.  It covers two paths:
   projections of ``function.geometry``;
 - point clouds: ``module.ICP`` over ``function.geometry.knn`` (the
   nearest-neighbour kernels of ``csrc/knn.cu``), ``svdtf`` and ``svdstf``, with
-  ``utils.ReduceToBason``.  The SE3 composition and action kernels of
-  ``csrc/se3.cu`` (``ops.se3``) sit beside them, not routed.
+  ``utils.ReduceToBason``, and the filters (``nbr_filter``,
+  ``random_filter``, ``voxel_filter``, ``knn_filter``).  The SE3
+  composition and action kernels of ``csrc/se3.cu`` (``ops.se3``) sit
+  beside them, not routed;
+- IMU preintegration: ``module.IMUPreintegrator`` over the O(log N)
+  scans of ``basics`` (``cumops``, ``cummul``, ``cumprod``) and the
+  closed-form covariance, with KITTI oxts IO in ``datasets``;
+- dense least squares: ``optim.GN`` and ``optim.LM`` with their
+  correctors, ``optim.scheduler.StopOnPlateau``,
+  ``optim.make_batch_optimizer`` (``torch.func.vmap`` over independent
+  problems) and ``optim.least_squares`` (differentiable by the implicit
+  function theorem), with ``function.linalg``.
 """
 
 from . import lietensor  # noqa: F401
@@ -41,6 +51,9 @@ from . import testing  # noqa: F401
 from . import nn  # noqa: F401
 from . import func  # noqa: F401
 from . import native  # noqa: F401
+from . import basics  # noqa: F401
+from .basics import (  # noqa: F401
+    pm, cumops, cummul, cumprod, cumops_, cummul_, cumprod_)
 from .nn import Parameter, Module  # noqa: F401
 from .lietensor import (  # noqa: F401
     LieTensor, SO3, so3, SE3, se3, Sim3, sim3, RxSO3, rxso3, identity_SO3,
@@ -53,6 +66,7 @@ from .lietensor import (  # noqa: F401
     add_, mul)
 from .function import (  # noqa: F401
     KNNResult, cart2homo, homo2cart, point2pixel, pixel2point, reprojerr,
-    knn, svdtf, svdstf, is_lietensor, is_SE3)
-from .module import ICP  # noqa: F401
+    knn, svdtf, svdstf, is_lietensor, is_SE3, nbr_filter, random_filter,
+    voxel_filter, knn_filter, bvv, bmv, bvmv)
+from .module import ICP, IMUPreintegrator  # noqa: F401
 from .utils import ReduceToBason  # noqa: F401

@@ -1,7 +1,8 @@
-r"""g2o pose graphs and BAL bundle-adjustment problems: files and
-synthetic generators.
+r"""g2o pose graphs, BAL bundle-adjustment problems and KITTI IMU
+streams: files and synthetic generators.
 
-Counterpart of ``pypose_tpu/datasets.py:20-263, 266-345``.  ``load_g2o``
+Counterpart of ``pypose_tpu/datasets.py:20-263, 266-345, 355-474``
+(the KITTI oxts IO at the end).  ``load_g2o``
 and ``load_bal`` parse through the native tokenizer (``native/``, built
 with g++ at first use; a failed build or parse raises).
 ``synthetic_sphere`` and ``synthetic_bal`` rebuild the JAX generators'
@@ -310,3 +311,131 @@ def synthetic_sphere(n_poses=2500, radius=25.0, loops_per_pose=0.8,
                 poses=Z.to(device=device, dtype=dtype),
                 infos=infos.to(device),
                 gt=gt.to(device=device, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# KITTI raw IMU (oxts).  Counterpart of pypose_tpu/datasets.py:355-474: a
+# parser of oxts/timestamps.txt and oxts/data/*.txt (30-field packets)
+# that derives what the reference's KITTI dataset exposes (dt, gyro, acc,
+# ground-truth rotation, velocity and Mercator-projected position).
+# ---------------------------------------------------------------------------
+
+_OXTS_FIELDS = ('lat lon alt roll pitch yaw vn ve vf vl vu ax ay az af al '
+                'au wx wy wz wf wl wu pos_accuracy vel_accuracy navstat '
+                'numsats posmode velmode orimode').split()
+
+
+def _parse_kitti_timestamps(path):
+    """timestamps.txt: 'YYYY-MM-DD HH:MM:SS.nnnnnnnnn' per line -> seconds
+    (float64; only differences are used)."""
+    from datetime import datetime, timezone
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            base, frac = line.rsplit('.', 1)
+            t = datetime.strptime(base, '%Y-%m-%d %H:%M:%S').replace(
+                tzinfo=timezone.utc)
+            out.append(t.timestamp() + float('0.' + frac))
+    return np.asarray(out, np.float64)
+
+
+def load_kitti_imu(root, dtype=torch.float32, device='cuda'):
+    """Load a KITTI raw drive's oxts stream for IMU preintegration.
+
+    Args:
+        root: directory holding ``oxts/timestamps.txt`` and
+            ``oxts/data/NNNNNNNNNN.txt`` (an extracted raw drive).
+        dtype, device: of the returned tensors (the card unless the
+            caller asks for ``device='cpu'``).
+
+    Returns a dict: ``dt [F, 1]``, ``gyro [F, 3]``, ``acc [F, 3]`` (body
+    frame), ``gt_rot`` SO3 ``[F]``, ``gt_vel [F, 3]`` (world frame),
+    ``gt_pos [F, 3]`` (Mercator-projected, frame 0 at the origin), for
+    F = frames - 1.  The packets are parsed in float64 with numpy, then
+    rounded to ``dtype``.  Ref: pypose_tpu/datasets.py:load_kitti_imu.
+    """
+    oxts = os.path.join(root, 'oxts')
+    stamps = _parse_kitti_timestamps(os.path.join(oxts, 'timestamps.txt'))
+    ddir = os.path.join(oxts, 'data')
+    files = sorted(os.listdir(ddir))
+    pk = np.stack([np.loadtxt(os.path.join(ddir, f)) for f in files])
+    assert pk.shape[0] == stamps.shape[0], 'timestamps/data length mismatch'
+    F = pk.shape[0] - 1
+    idx = {k: i for i, k in enumerate(_OXTS_FIELDS)}
+    kw = dict(dtype=dtype, device=device)
+
+    dt = (stamps[1:] - stamps[:-1])[:, None]
+    gyro = pk[:F, [idx['wx'], idx['wy'], idx['wz']]]
+    acc = pk[:F, [idx['ax'], idx['ay'], idx['az']]]
+    rpy = pk[:F, [idx['roll'], idx['pitch'], idx['yaw']]]
+    gt_rot = euler2SO3(torch.as_tensor(rpy, **kw))
+    vbody = pk[:F, [idx['vf'], idx['vl'], idx['vu']]]
+    gt_vel = gt_rot @ torch.as_tensor(vbody, **kw)
+
+    # Mercator projection at the first frame's latitude, shifted so frame
+    # 0 sits at the origin
+    er = 6378137.0
+    lat, lon = pk[:, idx['lat']], pk[:, idx['lon']]
+    scale = np.cos(lat[0] * np.pi / 180.0)
+    px = scale * lon * np.pi * er / 180.0
+    py = scale * er * np.log(np.tan((90.0 + lat) * np.pi / 360.0))
+    pz = pk[:, idx['alt']]
+    pos = np.stack([px, py, pz], -1)
+    pos = pos - pos[0]
+
+    return {'dt': torch.as_tensor(dt, **kw),
+            'gyro': torch.as_tensor(gyro, **kw),
+            'acc': torch.as_tensor(acc, **kw),
+            'gt_rot': gt_rot,
+            'gt_vel': gt_vel,
+            'gt_pos': torch.as_tensor(pos[:F], **kw)}
+
+
+def save_kitti_oxts(root, stamps, packets):
+    """Write a KITTI raw oxts directory (timestamps.txt and
+    data/NNNNNNNNNN.txt), the counterpart of :func:`load_kitti_imu`.
+    ``packets`` is [F, 30] in oxts field order.  Ref:
+    pypose_tpu/datasets.py:save_kitti_oxts."""
+    from datetime import datetime, timezone
+    ddir = os.path.join(root, 'oxts', 'data')
+    os.makedirs(ddir, exist_ok=True)
+    packets = np.asarray(packets, np.float64)
+    with open(os.path.join(root, 'oxts', 'timestamps.txt'), 'w') as f:
+        for t in np.asarray(stamps, np.float64):
+            sec = float(np.floor(t))
+            ns = round((float(t) - sec) * 1e9)
+            if ns >= 1_000_000_000:  # a fraction within 0.5 ns of the next
+                sec += 1.0           # second carries into it
+                ns = 0
+            whole = datetime.fromtimestamp(sec, tz=timezone.utc)
+            f.write(whole.strftime('%Y-%m-%d %H:%M:%S')
+                    + ('.%09d' % ns) + '\n')
+    for i, row in enumerate(packets):
+        np.savetxt(os.path.join(ddir, '%010d.txt' % i), row[None],
+                   fmt='%.12g')
+
+
+def kitti_imu_windows(data, duration=10, step=1):
+    """Slice a loaded KITTI IMU stream into fixed-length windows (dt,
+    gyro, acc and the initial and ground-truth states), as the
+    reference dataset's ``__getitem__`` does.  Returns a list of dicts.
+    Ref: pypose_tpu/datasets.py:kitti_imu_windows."""
+    F = data['dt'].shape[0]
+    out = []
+    for s in range(0, F - duration, step):
+        e = s + duration
+        out.append({
+            'dt': data['dt'][s:e],
+            'gyro': data['gyro'][s:e],
+            'acc': data['acc'][s:e],
+            'gt_pos': data['gt_pos'][s + 1:e + 1],
+            'gt_rot': data['gt_rot'][s + 1:e + 1],
+            'gt_vel': data['gt_vel'][s + 1:e + 1],
+            'init_pos': data['gt_pos'][s][None],
+            'init_rot': data['gt_rot'][s:e],
+            'init_vel': data['gt_vel'][s][None],
+        })
+    return out

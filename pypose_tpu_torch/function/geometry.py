@@ -1,8 +1,9 @@
-r"""Projections, nearest neighbours and rigid or similarity alignment:
-``cart2homo``, ``homo2cart``, ``point2pixel``, ``pixel2point``,
-``reprojerr``, ``knn``, ``svdtf`` and ``svdstf``.
+r"""Projections, nearest neighbours, rigid or similarity alignment and
+point-cloud filters: ``cart2homo``, ``homo2cart``, ``point2pixel``,
+``pixel2point``, ``reprojerr``, ``knn``, ``svdtf``, ``svdstf``,
+``nbr_filter``, ``random_filter``, ``voxel_filter`` and ``knn_filter``.
 
-Counterpart of ``pypose_tpu/function/geometry.py:22-268``.  ``knn``
+Counterpart of ``pypose_tpu/function/geometry.py``.  ``knn``
 keeps the JAX package's routes: the dense distance matrix up to 64 Mi
 pairs, above it (or with an explicit ``chunk``) :func:`_knn_tiled`, which
 sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel and
@@ -248,3 +249,109 @@ def svdstf(source, target, with_scale=True):
     R = U @ M @ V
     t = ctntarget.mT - scale * R @ ctnsource.mT
     return mat2Sim3(torch.cat([scale * R, t], dim=-1), check=False)
+
+
+def nbr_filter(points, nbr, radius, pdim=None, ord=2, return_mask=False):
+    """Keep the points with at least ``nbr`` neighbours within ``radius``
+    (a dense distance matrix over the first ``pdim`` coordinates; the
+    output size depends on the data).
+
+    Ref: pypose_tpu/function/geometry.py:271.
+    """
+    assert points.dim() == 2, 'The point cloud dimension has to be 2.'
+    pdim = points.shape[-1] if pdim is None else pdim
+    assert points.shape[-1] >= pdim, \
+        'The last dim of points should not less than pdim.'
+    diff = points[:, None, :pdim] - points[None, :, :pdim]
+    count = torch.sum(torch.linalg.vector_norm(diff, ord=ord, dim=-1)
+                      <= radius, dim=-1) - 1
+    mask = count >= nbr
+    out = points[mask]
+    if return_mask:
+        return out, mask
+    return out
+
+
+def random_filter(points, num, generator=None):
+    """Randomly sample ``num`` points (a permutation drawn from
+    ``generator``, a ``torch.Generator``, on its device and then moved,
+    so one CPU generator gives the same points on any device; torch's
+    global generator when None).
+
+    Ref: pypose_tpu/function/geometry.py:292 (a ``jax.random`` key there).
+    """
+    assert points.shape[-1] >= 1
+    assert num <= points.shape[-2], \
+        'Number of points to sample must not larger than the number of ' \
+        'input points.'
+    dev = points.device if generator is None else generator.device
+    perm = torch.randperm(points.shape[-2], generator=generator, device=dev)
+    return points[..., perm[:num].to(points.device), :]
+
+
+def voxel_filter(points, voxel, random=False, generator=None):
+    """Voxel downsampling: the mean (or, if ``random``, one point drawn
+    with ``generator``) of each occupied voxel.  A host path through
+    numpy, as in the JAX package: the output size depends on the data.
+    The result comes back in ``points``' dtype on its device.
+
+    Ref: pypose_tpu/function/geometry.py:305.
+
+    Example:
+        >>> import torch, pypose_tpu_torch as pp
+        >>> pts = torch.tensor([[0., 0., 0.], [0.2, 0., 0.], [5., 5., 5.]])
+        >>> pp.voxel_filter(pts, [1., 1., 1.])     # two occupied voxels
+        tensor([[0.1000, 0.0000, 0.0000],
+                [5.0000, 5.0000, 5.0000]])
+    """
+    import numpy as np
+    assert points.dim() == 2, 'The point cloud dimension has to be 2.'
+    pts = points.detach().cpu().numpy()
+    D, vdim = pts.shape[-1], len(voxel)
+    assert D >= vdim
+    assert all(v != 0 for v in voxel), 'Voxel size should be nonzero.'
+    minp = pts[:, :vdim].min(axis=0)
+    indices = ((pts[:, :vdim] - minp) // np.asarray(voxel)).astype(np.int64)
+    uniq, inverse, counts = np.unique(indices, axis=0, return_inverse=True,
+                                      return_counts=True)
+    inverse = inverse.reshape(-1)
+
+    def out(a):
+        return torch.as_tensor(a, dtype=points.dtype, device=points.device)
+    if random:
+        dev = 'cpu' if generator is None else generator.device
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                 device=dev))
+        rng = np.random.default_rng(seed)
+        order = np.argsort(inverse, kind='stable')
+        starts = np.cumsum(counts) - counts
+        picks = starts + rng.integers(0, counts)
+        return out(pts[order][picks])
+    sums = np.zeros((len(uniq), D))
+    np.add.at(sums, inverse, pts)
+    return out(sums / counts[:, None])
+
+
+def knn_filter(points, k, pdim=None, radius=None, ord=2):
+    """Replace each point by the mean of its k + 1 nearest neighbours
+    (itself included), dropping first, if ``radius`` is given, the points
+    with fewer than k neighbours within it.  The dense distance matrix and
+    a top-(k + 1) of its negation, as the JAX package computes it (not
+    :func:`knn`).
+
+    Ref: pypose_tpu/function/geometry.py:342.
+    """
+    if radius is not None:
+        assert points.dim() == 2, \
+            'The points dimension has to be 2 given radius.'
+    else:
+        assert points.dim() >= 2
+    pdim = points.shape[-1] if pdim is None else pdim
+    assert points.shape[-1] >= pdim
+    diff = points[..., :, None, :pdim] - points[..., None, :, :pdim]
+    dist = torch.linalg.vector_norm(diff, ord=ord, dim=-1)
+    if radius is not None:
+        rmask = torch.sum(dist <= radius, dim=-1) - 1 >= k
+        points, dist = points[rmask], dist[rmask][:, rmask]
+    _, idx = torch.topk(-dist, k + 1, dim=-1)
+    return points[idx].mean(dim=-2)

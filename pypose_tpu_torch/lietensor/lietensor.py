@@ -559,6 +559,21 @@ class LieTensor:
                           -2 * pm * torch.atan2(x, w))
         return torch.stack([roll, pitch, yaw], dim=-1)
 
+    def cumops(self, dim, ops):
+        from ..basics.ops import cumops
+        return cumops(self, dim, ops)
+
+    def cummul(self, dim, left=True):
+        from ..basics.ops import cummul
+        return cummul(self, dim, left)
+
+    def cumprod(self, dim, left=True):
+        from ..basics.ops import cumprod
+        return cumprod(self, dim, left)
+
+    # the JAX package's in-place names alias the pure methods
+    cumops_, cummul_, cumprod_ = cumops, cummul, cumprod
+
     def __add__(self, other):
         return self.add(other)
 

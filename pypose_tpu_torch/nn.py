@@ -77,10 +77,28 @@ pytree.register_pytree_node(
     serialized_type_name='pypose_tpu_torch.nn.Parameter')
 
 
+def _buffer_view(data, ltype):
+    obj = object.__new__(LieTensor)
+    obj._data = data
+    obj._ltype = ltype
+    return obj
+
+
 class Module(torch.nn.Module):
     """``torch.nn.Module`` that also takes LieTensor :class:`Parameter`
-    attributes: their storage is registered under the attribute's name
-    and their ltype kept beside it."""
+    attributes and LieTensor buffers: their storage is registered under
+    the attribute's name (as a ``torch.nn.Parameter`` or a buffer) and
+    their ltype kept beside it, so ``.to()``, ``state_dict()`` and
+    ``torch.func.functional_call`` see plain tensors while the attribute
+    reads back as a LieTensor.  Assigning a LieTensor to a buffer's name
+    replaces the buffer and keeps the new ltype.
+
+    :meth:`parameter_dict` and :meth:`load_parameter_dict` are the JAX
+    module's dict-valued ``parameters()`` / ``load_parameters()``
+    (``pypose_tpu/nn.py:100, 121``), which the optimizers of
+    ``optim/optimizer.py`` use; ``torch.nn.Module``'s own methods return
+    what they always do.
+    """
 
     def __init__(self):
         super().__init__()
@@ -91,13 +109,65 @@ class Module(torch.nn.Module):
             self.register_parameter(name, value.tensor())
             self.__dict__.setdefault('_ltypes', {})[name] = value.ltype
             return
+        buffers = self.__dict__.get('_buffers', {})
+        if name in buffers:
+            ltypes = self.__dict__.setdefault('_ltypes', {})
+            if isinstance(value, LieTensor):
+                buffers[name] = value.tensor()
+                ltypes[name] = value.ltype
+                return
+            ltypes.pop(name, None)
         super().__setattr__(name, value)
 
     def __getattr__(self, name):
         ltypes = self.__dict__.get('_ltypes', {})
         if name in ltypes:
-            return _parameter_view(self._parameters[name], ltypes[name])
+            if name in self._parameters:
+                return _parameter_view(self._parameters[name], ltypes[name])
+            return _buffer_view(self._buffers[name], ltypes[name])
         return super().__getattr__(name)
+
+    def register_buffer(self, name, tensor, persistent=True):
+        """``torch.nn.Module.register_buffer`` that also takes a LieTensor
+        (its storage is the buffer, its ltype kept beside it)."""
+        ltype = tensor.ltype if isinstance(tensor, LieTensor) else None
+        super().register_buffer(
+            name, tensor.tensor() if ltype is not None else tensor,
+            persistent)
+        ltypes = self.__dict__.setdefault('_ltypes', {})
+        if ltype is None:
+            ltypes.pop(name, None)
+        else:
+            ltypes[name] = ltype
+
+    def _owner(self, path):
+        mod = self
+        *parents, name = path.split('.')
+        for p in parents:
+            mod = getattr(mod, p)
+        return mod, name
+
+    def parameter_dict(self):
+        """``name -> value`` of every parameter, submodules' under dotted
+        names: a LieTensor (its ltype kept) for a Lie :class:`Parameter`,
+        the ``torch.nn.Parameter`` otherwise.  Ref:
+        pypose_tpu/nn.py:Module.parameters."""
+        out = {}
+        for path, p in self.named_parameters():
+            mod, name = self._owner(path)
+            ltype = mod.__dict__.get('_ltypes', {}).get(name)
+            out[path] = p if ltype is None else _parameter_view(p, ltype)
+        return out
+
+    def load_parameter_dict(self, params):
+        """Copy ``name -> value`` (LieTensors or tensors, as
+        :meth:`parameter_dict` gives them) into the parameters, in place.
+        Ref: pypose_tpu/nn.py:Module.load_parameters."""
+        with torch.no_grad():
+            for path, value in params.items():
+                mod, name = self._owner(path)
+                v = value.tensor() if isinstance(value, LieTensor) else value
+                mod._parameters[name].copy_(v)
 
 
 def functional_call(module, params, args=(), kwargs=None):

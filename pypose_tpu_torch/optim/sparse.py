@@ -122,7 +122,7 @@ class SparseLM:
         params: dict ``name -> LieTensor [N, D] | tensor [N, D]`` stacked
             variable nodes, all on one device.
         factors: list of :class:`Factor`.
-        strategy: damping strategy (default ``TrustRegion()``).
+        strategy: ``TrustRegion`` (default), ``Adaptive`` or ``Constant``.
         reject: most rejected damping retries per LM step.
         min, max: clamp of the J^T W J diagonal before damping.
         cg_iter, cg_tol: inner CG budget (default ``min(10 * nparam,
@@ -188,7 +188,6 @@ class SparseLM:
         self.reject_count = 0
         self.history = []
         self.cg_iterations = []
-        self._check_route()
         self._build_incidence()
         self._build_stencil()
         if precond == 'auto':
@@ -532,14 +531,6 @@ class SparseLM:
         return lambda x: {n: appliers[n](x[n]) for n in x}
 
     # ------------------------------------------------------------------
-    def _check_route(self):
-        """Raise for what is still to port: strategies other than
-        TrustRegion."""
-        if not isinstance(self.strategy, TrustRegion):
-            raise NotImplementedError(
-                'only TrustRegion is ported; Constant/Adaptive come with '
-                'the dense-optimizer slice (ROADMAP Queue A, slice 7)')
-
     def _core(self, params, strat):
         """One LM step: formation, then damping retries until a step is
         taken or the reject budget is spent.  Returns (params, loss,
@@ -702,9 +693,10 @@ class SparseLM:
         return torch.where(cond, a, b)
 
     def _strategy_update(self, strat, quality):
-        """TrustRegion update from a precomputed gain ratio (SparseLM never
-        forms J, so the dense strategies' (J, D, R) signature is
-        bypassed)."""
+        """The strategy's update from a precomputed gain ratio (SparseLM
+        never forms J, so the dense strategies' (J, D, R) signature is
+        bypassed): ``pypose_tpu/optim/sparse.py:851-870``, for
+        ``TrustRegion``, ``Adaptive`` and ``Constant``."""
         return self.strategy.step(strat, quality)
 
     def _init_strategy(self):

@@ -3,10 +3,10 @@ r"""LM damping strategies as state-transition functions.
 Counterpart of ``pypose_tpu/optim/strategy.py``: ``Constant``,
 ``Adaptive`` and ``TrustRegion``, each with its state as a dict of 0-d
 tensors, so the LM loop can keep it on the card.  ``BundleAdjustment``
-takes all three and ``SparseLM`` ``TrustRegion`` alone; both apply
-``step(state, q)`` to a gain ratio q of their own, which never forms J.
-``update`` takes the dense (J, D, R) of :func:`_quality`, as the JAX
-package's does.
+and ``SparseLM`` apply ``step(state, q)`` to a gain ratio q of their own,
+which never forms J; the dense optimizers of ``optim/optimizer.py`` call
+``update``, which takes the dense (J, D, R) of :func:`_quality`, as the
+JAX package's does.
 """
 
 import torch
@@ -93,6 +93,9 @@ class TrustRegion:
         return {'damping': torch.tensor(1.0 / self.radius, dtype=dtype,
                                         device=device),
                 'down': torch.tensor(self.down0, dtype=dtype, device=device)}
+
+    def update(self, state, last, loss, J, D, R):
+        return self.step(state, _quality(last, loss, J, D, R))
 
     def step(self, state, q):
         """The update from a gain ratio ``q``."""

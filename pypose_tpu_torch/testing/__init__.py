@@ -20,14 +20,20 @@ autograd Functions are held on the card,
 ``instance_checksum`` identifies a generated pose-graph instance against
 a recorded anchor (``bal_checksum`` a bundle-adjustment one),
 ``ba_instance`` and ``ba_optimizer`` build the bundle-adjustment cells,
-and ``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
-rule that holds the nearest-neighbour kernels to their plain versions.
+``nnk_tolerance_failures`` (``nn1_tolerance_failures`` for k = 1) is the
+rule that holds the nearest-neighbour kernels to their plain versions,
+``module_state_from_numpy`` carries a JAX module's state (parameters and
+LieTensor buffers) into a port module, and ``imu_instance`` and
+``batch_lm_instance`` (with ``PoseInvB``) build the IMU and batch-lm
+cells.
 """
 
 import numpy as np
 import torch
 
 from ..lietensor.lietensor import LieTensor, liealgebra, liegroup
+from ..lietensor.utils import identity_se3
+from ..nn import Module, Parameter
 
 _LTYPES = {lt.name: lt for lt in liegroup + liealgebra}
 
@@ -226,12 +232,12 @@ def pgo_factors(ds, split_chains=True, kernel=None, autodiff=False):
 
 
 def pgo_optimizer(ds, radius, cg_iter, cg_tol, split_chains=True,
-                  kernel=None, autodiff=False, **_):
+                  kernel=None, autodiff=False, strategy=None, **_):
     """The port's SparseLM on a pose-graph dict ``ds`` (``synthetic_sphere``,
     ``pgo_loops_instance``) as ``bench.py`` builds its pose-graph
-    workloads: :func:`pgo_factors`, TrustRegion(``radius``), node 0
-    fixed, on the tensors' device.  Extra keys of a schedule dict are
-    ignored."""
+    workloads: :func:`pgo_factors`, TrustRegion(``radius``) unless another
+    ``strategy`` is given, node 0 fixed, on the tensors' device.  Extra
+    keys of a schedule dict are ignored."""
     from ..optim.sparse import SparseLM
     from ..optim.strategy import TrustRegion
     dev = ds['edges'].device
@@ -239,7 +245,8 @@ def pgo_optimizer(ds, radius, cg_iter, cg_tol, split_chains=True,
     fixed = torch.zeros(ds['nodes'].shape[0], dtype=torch.bool, device=dev)
     fixed[0] = True
     return SparseLM({'poses': ds['nodes']}, factors,
-                    strategy=TrustRegion(radius=radius),
+                    strategy=TrustRegion(radius=radius) if strategy is None
+                    else strategy,
                     fixed={'poses': fixed}, cg_iter=cg_iter, cg_tol=cg_tol)
 
 
@@ -543,3 +550,91 @@ def bal_checksum(ds):
             'points_abs_sum': abs_sum(ds['points']),
             'pixels_abs_sum': abs_sum(ds['pixels']),
             'n_obs': int(ds['pixels'].shape[0])}
+
+
+def module_state_from_numpy(module, state, ltypes=None):
+    """Set a module's parameters, buffers and plain attributes from numpy
+    arrays (the JAX module's state), on the module's device: a name whose
+    current value is a LieTensor, or that ``ltypes`` (``name -> 'SO3' |
+    ...``) lists, becomes a LieTensor of that type (e.g.
+    ``IMUPreintegrator``'s ``rot`` and ``Rij``, ``PoseInvB``'s ``pose``);
+    parameters are copied in place.  Returns the module."""
+    ltypes = ltypes or {}
+    dev = next(iter(module.buffers()), next(iter(module.parameters()),
+                                            torch.zeros(0))).device
+    for name, arr in state.items():
+        t = torch.tensor(np.asarray(arr), device=dev)
+        cur = getattr(module, name, None)
+        if name in ltypes:
+            t = LieTensor(t, ltype=_LTYPES[ltypes[name]])
+        elif isinstance(cur, LieTensor):
+            t = LieTensor(t, ltype=cur.ltype)
+        if name in module._parameters:
+            with torch.no_grad():
+                module._parameters[name].copy_(
+                    t.tensor() if isinstance(t, LieTensor) else t)
+        else:
+            setattr(module, name, t)
+    return module
+
+
+def imu_instance(name, F, device='cuda', dtype=torch.float32):
+    """IMU input ``(dt, gyro, acc)``, each [1, F, .], on ``device`` (the
+    card unless the caller asks for ``device='cpu'``):
+
+    - ``'bench'``: ``bench.py:bench_imu``'s constant input (dt 0.005,
+      gyro (0, 0, 0.3), acc (0.2, 0, 9.81007));
+    - ``'synth'``: ``examples/imu_integration.py:synthesize_imu`` (dt
+      0.01, a constant yaw rate of 0.5 on a circle of radius 5, gravity,
+      noise from ``np.random.default_rng(0)``: 1e-4 on gyro, 1e-3 on
+      acc), drawn in float64 with numpy and rounded to ``dtype``, so the
+      JAX package gets the same arrays.
+    """
+    kw = dict(dtype=dtype, device=device)
+    if name == 'bench':
+        return (torch.full((1, F, 1), 0.005, **kw),
+                torch.tensor([0., 0., 0.3], **kw).expand(1, F, 3)
+                .contiguous(),
+                torch.tensor([0.2, 0., 9.81007], **kw).expand(1, F, 3)
+                .contiguous())
+    if name != 'synth':
+        raise ValueError(f"imu_instance: name is 'bench' or 'synth', got "
+                         f'{name!r}')
+    w, R = 0.5, 5.0
+    gyro = np.zeros((F, 3))
+    gyro[:, 2] = w
+    acc = np.zeros((F, 3))
+    acc[:, 1] = R * w * w
+    acc[:, 2] = 9.81007
+    rng = np.random.default_rng(0)
+    gyro += rng.normal(size=gyro.shape) * 1e-4
+    acc += rng.normal(size=acc.shape) * 1e-3
+    return (torch.full((1, F, 1), 0.01, **kw),
+            torch.as_tensor(gyro[None], **kw),
+            torch.as_tensor(acc[None], **kw))
+
+
+class PoseInvB(Module):
+    """``bench.py:bench_batch_lm``'s model: r = Log(Exp(pose) @ x), pose
+    an se3 [1] starting at zero."""
+
+    def __init__(self):
+        super().__init__()
+        self.pose = Parameter(identity_se3(1))
+
+    def forward(self, input):
+        return (self.pose.Exp() @ input).Log().tensor()
+
+
+def batch_lm_instance(B, seed, device='cuda', sigma=0.5):
+    """``bench.py:bench_batch_lm``'s problem: ``B`` SE3 targets [B, 1]
+    (the Exp of se3 vectors with entries drawn from N(0, sigma^2) by
+    ``np.random.default_rng(seed)``, computed in float64 on the CPU, then
+    rounded to float32) and a :class:`PoseInvB` module, both on
+    ``device`` (the card unless the caller asks for ``device='cpu'``).
+    Returns (targets, module)."""
+    from ..lietensor.utils import se3
+    xi = sigma * np.random.default_rng(seed).normal(size=(B, 1, 6))
+    targets = se3(torch.as_tensor(xi, dtype=torch.float64)).Exp()
+    return (targets.to(device=device, dtype=torch.float32),
+            PoseInvB().to(device))

@@ -166,18 +166,20 @@ def test_split_chain_edges_matches_jax():
 
 
 def test_refusals():
-    """What is still to port raises: strategies other than TrustRegion.
-    precond='chain', graphs off one merged stencil, pgo_factor over SO3,
-    RxSO3 and Sim3, factors without a closed-form Jacobian and
-    pgo_factor over other types (a residual-only factor), which raised
-    before they were ported, now build; a residual-only factor keeps the
-    'stencil' route."""
+    """What raised before it was ported now builds: Constant and Adaptive
+    (C5; the strategy does not change the route), precond='chain', graphs
+    off one merged stencil, pgo_factor over SO3, RxSO3 and Sim3, factors
+    without a closed-form Jacobian and pgo_factor over other types (a
+    residual-only factor); a residual-only factor keeps the 'stencil'
+    route."""
+    from pypose_tpu_torch.optim.strategy import Adaptive, Constant
     opt = torch_problem(synthetic_sphere(100))
     assert opt.route == 'stencil'
     assert tsp.SparseLM(opt.params, opt.factors,
                         precond='chain').route == 'chain'
-    with pytest.raises(NotImplementedError, match='TrustRegion'):
-        tsp.SparseLM(opt.params, opt.factors, strategy=object())
+    for strategy in (Constant(1e-6), Adaptive()):
+        assert tsp.SparseLM(opt.params, opt.factors,
+                            strategy=strategy).route == 'stencil'
     so3 = tsp.pgo_factor(torch.zeros((3, 2), dtype=torch.int64),
                          ppt.identity_SO3(3))
     assert so3.batched_jacobian is not None and so3.num_edges == 3

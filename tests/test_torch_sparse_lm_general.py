@@ -348,3 +348,45 @@ def test_first_solve_matches_dense_f64(case):
     scale = np.abs(x_ref).max()
     np.testing.assert_allclose(x[opt._spmv_name].numpy(), x_ref, rtol=0,
                                atol=1e-8 * scale)
+
+
+@pytest.mark.parametrize('name', ['Constant', 'Adaptive', 'Adaptive-1e-2'])
+def test_sparse_lm_strategies_match_jax_f64(name):
+    """SparseLM with Constant(1e-6) and Adaptive() (the JAX package's
+    ``_strategy_update``, ``pypose_tpu/optim/sparse.py:851-870``) on
+    pgo_loops_instance(100) in float64: three step() calls from the same
+    numpy params and strategy state; chi2 and the damping within 1e-9
+    relative.  Adaptive() starts at its floor (1e-6) and stays there on
+    good steps; Adaptive(damping=1e-2) halves it each good step."""
+    from pypose_tpu.optim import strategy as jstrategy
+    from pypose_tpu_torch.optim import strategy as tstrategy
+    from pypose_tpu_torch.testing import (params_from_numpy,
+                                          strategy_state_from_numpy)
+    make = {'Constant': lambda m: m.Constant(1e-6),
+            'Adaptive': lambda m: m.Adaptive(),
+            'Adaptive-1e-2': lambda m: m.Adaptive(damping=1e-2)}[name]
+    ds = pgo_loops_instance(100, dtype=torch.float64, device='cpu')
+    nodes = ds['nodes'].tensor().numpy()
+    sched = dict(radius=1e4, cg_iter=100, cg_tol=1e-10, split_chains=False)
+    with jax.enable_x64(True):
+        jopt = jax_pgo(ds, **sched)
+        jopt.strategy = make(jstrategy)
+        jopt.params = {'poses': JSE3(jnp.asarray(nodes))}
+        jopt.strategy_state = jopt.strategy.init(jnp.float64)
+        state0 = {k: np.asarray(v) for k, v in jopt.strategy_state.items()}
+        jhist, jdamp = [], []
+        for _ in range(3):
+            jhist.append(jopt.step())
+            jdamp.append(float(jopt.strategy_state['damping']))
+    topt = pgo_optimizer(ds, **sched, strategy=make(tstrategy))
+    assert topt.route == 'einsum'
+    topt.params = params_from_numpy({'poses': nodes}, {'poses': 'SE3'})
+    topt.strategy_state = strategy_state_from_numpy(state0)
+    thist, tdamp = [], []
+    for _ in range(3):
+        thist.append(topt.step())
+        tdamp.append(float(topt.strategy_state['damping']))
+    np.testing.assert_allclose(thist, jhist, rtol=1e-9)
+    np.testing.assert_allclose(tdamp, jdamp, rtol=1e-9)
+    if name == 'Adaptive-1e-2':
+        assert len(set(jdamp)) > 1, 'Adaptive never moved the damping'
