@@ -12,7 +12,9 @@ autodiff and robust kernels in SparseLM through the whole-solve kernel,
 and the reprojection pose graph; then bundle adjustment in both Schur
 modes (no kernel on its path); then IMU preintegration at a million
 frames, the dense optimizers (4,096 problems batched), SparseLM's
-Adaptive strategy and the point-cloud filters.
+Adaptive strategy and the point-cloud filters; then LSTSQ on the card,
+EPnP at 10,000 problems, the EKF, UKF and PF over 1,000 steps and MPC on
+the cart-pole (no kernel on these paths).
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -193,7 +195,26 @@ Phases (any failure raises, so the script exits non-zero):
      each: route 'stencil', one whole-solve launch a solve.
  28. filters: nbr_filter, knn_filter, voxel_filter (mean and random) and
      random_filter on 4,096 points, card against CPU.
- 29. prints the kernels' JSON line (each kernel's, and each of the t = 3,
+ 29. lstsq: what torch.linalg.lstsq (gels) does on the card at 6 x 10 and
+     on rank-4 6 x 6 systems, recorded; LSTSQ's SVD route against the
+     CPU's within 1e-5.
+ 30. epnp, epnp-refine: testing.epnp_instance (bench.py:523-545's shapes
+     and intrinsics, numpy-drawn) through EPnP at B = 10,000 and refined
+     at B = 16, cold, warm and profiled: poses/s, pose errors, candidate
+     flips, held by testing.epnp_failures to data/jax_anchor_epnp.json
+     and to the port's CPU run; no kernel.
+ 31. ekf, ukf, pf: filter_rollout over testing.filter_instance(1000)
+     (bench.py:776-805's pendulum), cold, warm and profiled: steps/s,
+     held by testing.filter_failures to data/jax_anchor_filters.json (the
+     PF by its RMSE) and to the CPU run (the PF in float64 on the same
+     draws); no kernel.
+ 32. mpc, mpc-ls: the cart-pole (bench.py:549-600) at T = 32 and at
+     T = 128 with the line search, cold, warm and profiled: ms a solve,
+     host reads, cost and tail max|theta| held by testing.mpc_failures
+     to data/jax_anchor_mpc.json and to the CPU run; no kernel.  The
+     tiled kernels' rows also carry their device time with L2 flushed
+     before each launch (phase 3).
+ 33. prints the kernels' JSON line (each kernel's, and each of the t = 3,
      4, 7 instantiations', launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
@@ -415,9 +436,12 @@ def tiled_kernels_vs_plain(system, launches=20):
     (CUDA events over ``launches`` launches, median of 7).  The
     block-Jacobi apply is also timed as one PyTorch call (``torch.einsum``
     over the [t, t, N] blocks); no one call computes the stencil matvec.
-    Each kernel's device time per launch comes from torch.profiler.
-    Returns {kernel: (err, us, plain us, library us or None, device
-    us)}."""
+    Each kernel's device time per launch comes from torch.profiler, warm
+    (its operands stay in the 50 MB L2 across the repeated launches) and
+    with L2 flushed before each launch (a 128 MB buffer zeroed; only the
+    kernel's own time counted), so that the flushed time is read against
+    the bytes the launch must move.  Returns {kernel: (err, us, plain us,
+    library us or None, device us, device us with L2 flushed)}."""
     import torch
     from pypose_tpu_torch.ops import stencil_cg as scg
     offsets, (b_T, A_T, Minv_T, C_T) = system
@@ -425,6 +449,7 @@ def tiled_kernels_vs_plain(system, launches=20):
     gen = torch.Generator(device=b_T.device).manual_seed(7)
     v = torch.randn(b_T.shape, generator=gen, device=b_T.device)
     M3 = Minv_T.view(t, t, -1)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=v.device)
     pairs = {
         'mv': (lambda: scg._tiled_mv_launch(A_T, C_T, v, offsets, t),
                lambda: scg._stencil_matvec_torch(A_T, C_T, offsets, t, v),
@@ -448,16 +473,20 @@ def tiled_kernels_vs_plain(system, launches=20):
             check(float((y_l - y_p).abs().max()) <= bound,
                   f'tiled {kname}: the library call disagrees')
         d_us = 1e3 * device_ms(kern)
+        f_us = 1e3 * device_ms(lambda: (flush.zero_(), kern()),
+                               match=f'tiled_{kname}_kernel')
         gbs = bytes_per_node * v.shape[1] / (d_us * 1e3)
         print(f'[kernel] tiled {kname} alone, t={t} N={v.shape[1]}: '
               f'max|y_k - y_p| {err:.3e} (bound {bound:.3e}); kernel {k_us:.2f} '
               f'us/launch, device time {d_us:.2f} us/launch ({gbs:.0f} GB/s '
               f'if every operand and vector '
               f'byte is read or written once: {bytes_per_node} B/node), '
+              f'{f_us:.2f} us with L2 flushed before each launch '
+              f'({bytes_per_node * v.shape[1] / (f_us * 1e3):.0f} GB/s), '
               f'plain {p_us:.2f} us, one library call '
               f'{"none" if l_us is None else f"{l_us:.2f} us"}', flush=True)
         check(err <= bound, f'tiled {kname} disagrees with its plain version')
-        out[kname] = (err, k_us, p_us, l_us, d_us)
+        out[kname] = (err, k_us, p_us, l_us, d_us, f_us)
     return out
 
 
@@ -993,16 +1022,32 @@ def knn_k8_phase(dev):
     return counts, err, k_ms, p_ms, t_ms, c_ms
 
 
+def device_totals(prof):
+    """(device ms, device operations) of a torch.profiler trace: the
+    kernels, copies and sets on the card, summed from the trace's raw
+    events.  ``key_averages`` also counts the CUDA runtime's calls (45,148
+    entries against 21,527 device events on one [mpc] trace), and it
+    builds a Python object for every event, which on a trace of 10^5-10^6
+    launches (the filters' rollouts, MPC) takes ~45 times longer
+    (measured on the CPU: 7.7 s against 0.17 s for 10^5 events)."""
+    from torch.autograd import DeviceType
+    ns = n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and \
+                not e.name().startswith('aten::'):
+            ns += e.duration_ns()
+            n += 1
+    return ns / 1e6, n
+
+
 def profiled_run(run):
     """``run('profiled')`` -> (ms, steps) under torch.profiler: (ms,
-    steps, device ms, device operations), the operations being the
-    kernels, copies and sets the profiler saw."""
+    steps, device ms, device operations), as :func:`device_totals` reads
+    them."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ms, steps = run('profiled')
-    ops = [e for e in prof.key_averages() if not e.key.startswith('aten::')]
-    return (ms, steps, sum(e.device_time_total for e in ops) / 1e3,
-            sum(e.count for e in ops))
+    return (ms, steps, *device_totals(prof))
 
 
 def general_graph_phase(tag, ds, anchor_name, route, hold):
@@ -1368,7 +1413,7 @@ def group_graph_phase(name, dev, kernel, profiled=False, autodiff=False):
         out.update(ms_per_step_profiled=ms / steps,
                    idle_share=1 - dev_us / 1e3 / ms,
                    kernel_share=k_us / dev_us,
-                   device_ops_per_step=sum(e.count for e in kernels) / steps)
+                   device_ops_per_step=device_totals(prof)[1] / steps)
         print(f'[{tag}] profiled run: {match} {k_us / 1e3:.3f} ms of '
               f'{dev_us / 1e3:.3f} ms device time '
               f'({out["kernel_share"]:.4f}) and {ms:.3f} ms of the run '
@@ -1933,13 +1978,12 @@ def synced_ms(fn):
 
 def profiled_call(fn):
     """One call of ``fn`` under torch.profiler: (host ms between
-    synchronizations, device ms, device operations)."""
+    synchronizations, device ms, device operations), as
+    :func:`device_totals` reads them."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ms, _ = synced_ms(fn)
-    ops = [e for e in prof.key_averages() if not e.key.startswith('aten::')]
-    return (ms, sum(e.device_time_total for e in ops) / 1e3,
-            sum(e.count for e in ops))
+    return (ms, *device_totals(prof))
 
 
 def no_launches(tag):
@@ -2365,6 +2409,270 @@ def filters_phase(dev):
     return {'ms': ms, 'gaps': gaps}
 
 
+# ---------------------------------------------------------------------------
+# EPnP, the filters' rollouts and MPC (no kernel on their paths)
+# ---------------------------------------------------------------------------
+
+def lstsq_phase(dev):
+    """lstsq: what torch.linalg.lstsq does on the card (its one CUDA
+    driver, gels) on 5 x (6, 10) float32 systems and on 5 x (6, 6) systems
+    of exact rank 4 (integer factors; EPnP's N = 4 and N = 3 beta
+    systems), recorded and not relied on; then LSTSQ on the card (the SVD
+    minimum-norm route) against LSTSQ on the CPU (gelsy, which the CPU
+    tests hold to the JAX package) on the same arrays, within 1e-5 (1 +
+    magnitude)."""
+    import numpy as np
+    import torch
+    from pypose_tpu_torch.optim.solver import LSTSQ
+    rng = np.random.default_rng(0)
+    cases = {'6x10': rng.normal(size=(5, 6, 10)),
+             '6x6 rank 4': rng.integers(-3, 4, size=(5, 6, 4))
+             @ rng.integers(-3, 4, size=(5, 4, 6))}
+    b = torch.tensor(rng.normal(size=(5, 6)), dtype=torch.float32)
+    gaps = {}
+    for name, A in cases.items():
+        A = torch.tensor(A, dtype=torch.float32)
+        want = LSTSQ()(A, b)
+        try:
+            lib = torch.linalg.lstsq(A.to(dev), b.to(dev)[..., None]
+                                     ).solution[..., 0].cpu()
+            lib_note = (f'returns; largest gap from the minimum-norm answer '
+                        f'{float((lib - want).abs().max()):.3e}, finite '
+                        f'{bool(torch.isfinite(lib).all())}')
+        except RuntimeError as e:
+            lib_note = f'raises {type(e).__name__}: {str(e).splitlines()[0]}'
+        got = LSTSQ()(A.to(dev), b.to(dev)).cpu()
+        gaps[name] = float((got - want).abs().max())
+        print(f'[lstsq] {name}: torch.linalg.lstsq on the card {lib_note}; '
+              f'LSTSQ on the card (SVD route) against the CPU\'s: largest '
+              f'gap {gaps[name]:.3e}', flush=True)
+        check(gaps[name] <= 1e-5 * (1 + float(want.abs().max())),
+              f'lstsq: LSTSQ on the card is off the CPU\'s at {name}')
+    return gaps
+
+
+def epnp_phase(dev):
+    """[epnp] and [epnp-refine]: testing.epnp_instance(B) (bench.py:
+    bench_modules' shapes and intrinsics, numpy-drawn, float32) through
+    EPnP at B = 10,000 (refine=False) and B = 16 (refine=True), cold, warm
+    (median of 3) and profiled; poses/s, the pose errors against the true
+    poses, the chosen candidates; held by testing.epnp_failures to
+    data/jax_anchor_epnp.json and to the port's CPU run on the same
+    instance (every problem)."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.module import EPnP
+    from pypose_tpu_torch.testing import (EPNP_CELLS, epnp_failures,
+                                          epnp_instance, epnp_solve,
+                                          epnp_stats)
+    with open(find_data('jax_anchor_epnp.json')) as f:
+        anchor = json.load(f)
+    out = {}
+    for name, (B, refine) in EPNP_CELLS.items():
+        d = epnp_instance(B, device=dev)
+        check(abs(float(d['pixels'].double().abs().sum())
+                  / anchor[name]['instance_checksum'] - 1) < 1e-12,
+              f'{name}: the instance is not the anchor\'s')
+        epnp = EPnP(intrinsics=d['intrinsics'], refine=refine)
+
+        def run():
+            return epnp(d['points'], d['pixels'])
+        reset_counts()
+        cold_ms, _ = synced_ms(run)
+        counts = no_launches(name)
+        warm = [synced_ms(run)[0] for _ in range(3)]
+        warm_ms = statistics.median(warm)
+        prof_ms, dev_ms, n_ops = profiled_call(run)
+        # the 12 x 12 eigh of this instance's M^T M: the path's float64
+        # (cast in and out included) against float32
+        c = epnp._candidates(d['points'], d['pixels'], d['intrinsics'])
+        MtM = epnp._mtm(d['pixels'], c['alpha'], d['intrinsics'])
+        eigh_ms = {
+            'float64': cuda_ms(lambda: torch.linalg.eigh(
+                MtM.double())[1].float())[0],
+            'float32': cuda_ms(lambda: torch.linalg.eigh(MtM)[1])[0]}
+        card = epnp_solve(d, refine)
+        t0 = time.perf_counter()
+        cpu = epnp_solve(epnp_instance(B, device='cpu'), refine)
+        cpu_s = time.perf_counter() - t0
+        bad, nums = epnp_failures(name, anchor[name], *card)
+        cbad, cnums = epnp_failures(
+            f'{name} card-cpu', {'stats': epnp_stats(cpu[2]),
+                                 'candidates': cpu[1], 'poses': cpu[0],
+                                 'errors': cpu[2]}, *card)
+        res = {'B': B, 'refine': refine, 'ms_cold': cold_ms,
+               'ms_warm': warm_ms, 'ms_warm_runs': warm,
+               'poses_per_s': B / (warm_ms / 1e3), 'ms_profiled': prof_ms,
+               'device_ms': dev_ms, 'idle_share': 1 - dev_ms / prof_ms,
+               'device_ops_per_call': n_ops, 'anchor': nums,
+               'card_cpu': cnums, 'cpu_s': cpu_s, 'eigh_ms': eigh_ms,
+               'counts': counts}
+        print(f'[{name}] B={B} n=12 refine={refine}: cold {cold_ms:.3f} ms, '
+              f'warm {warm_ms:.3f} ms (median of {warm}) = '
+              f'{res["poses_per_s"]:.4e} poses/s; profiled call '
+              f'{prof_ms:.3f} ms, device {dev_ms:.3f} ms (idle share '
+              f'{res["idle_share"]:.4f}), {n_ops} device operations; pose '
+              f'error median {nums["stats"]["median"]:.3e}, p99 '
+              f'{nums["stats"]["p99"]:.3e}, max {nums["stats"]["max"]:.3e} '
+              f'(JAX anchor {anchor[name]["stats"]}); candidate flips '
+              f'against the JAX anchor {nums["flips"]}, against the CPU '
+              f'{cnums["flips"]}; largest pose gap to the anchor\'s first '
+              f'{len(anchor[name]["poses"])} {nums["pose_gap"]:.3e}, to the '
+              f'CPU {cnums["pose_gap"]:.3e} (CPU run {cpu_s:.2f} s); the '
+              f'eigh of M^T M (CUDA events, median of 7) '
+              f'{eigh_ms["float64"]:.3f} ms in float64, '
+              f'{eigh_ms["float32"]:.3f} ms in float32; launch counts '
+              f'{counts}', flush=True)
+        check(not bad and not cbad, f'{name}: {bad + cbad}')
+        check(all(bool(torch.isfinite(torch.as_tensor(v)).all())
+                  for v in card), f'{name}: a result is not finite')
+        out[name] = res
+    return out
+
+
+def filters_rollout_phase(dev):
+    """[ekf], [ukf], [pf]: filter_rollout over testing.filter_instance(1000)
+    (bench.py:bench_filters' pendulum, N = 2, Q = 1e-4 I, R = 1e-2 I,
+    numpy-drawn, float32); the PF of 1,000 particles from a torch.Generator
+    seeded 0.  Each cold, warm (median of 2) and profiled, in steps/s;
+    held by testing.filter_failures to data/jax_anchor_filters.json (the
+    PF by its RMSE against the true state: its draws differ) and to the
+    port's CPU run.  The PF is held to the CPU's on the same draws
+    (testing.pf_draws, made on the CPU) in float64, where no resampling
+    index flips: in float32 the cumulative sums' last bits differ between
+    the devices, and a uniform draw that falls between them picks another
+    particle (on the CPU, a float32 cumsum summed in another order moved
+    the estimates by 6e-3 within 50 steps)."""
+    import numpy as np
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.testing import (FILTER_CELLS, filter_failures,
+                                          filter_instance, filter_rmse,
+                                          filter_rollouts, filter_summary,
+                                          pf_draws)
+    with open(find_data('jax_anchor_filters.json')) as f:
+        anchor = json.load(f)
+    d = filter_instance(device=dev)
+    check(abs(float(d['ys'].double().abs().sum())
+              / anchor['instance_checksum'] - 1) < 1e-12,
+          'filters: the instance is not the anchor\'s')
+    T = d['ys'].shape[0]
+    t0 = time.perf_counter()
+    cpu, dc = filter_rollouts('cpu', kinds=('ekf', 'ukf'))
+    cpu_s = time.perf_counter() - t0
+    cpu_ref = filter_summary(cpu, dc['truth'])
+    out = {}
+    for kind in FILTER_CELLS:
+        def run():
+            return filter_rollouts(dev, kinds=(kind,), d=d)[0]
+        reset_counts()
+        cold_ms, card = synced_ms(run)
+        counts = no_launches(kind)
+        warm = [synced_ms(run)[0] for _ in range(2)]
+        warm_ms = statistics.median(warm)
+        prof_ms, dev_ms, n_ops = profiled_call(run)
+        bad, gaps = filter_failures(anchor, d['truth'], card)
+        if kind == 'pf':
+            d64 = {k: v.double() for k, v in d.items()}
+            draws = pf_draws(T)
+            card64 = filter_rollouts(
+                dev, kinds=('pf',), d=d64,
+                draws=tuple(v.to(dev) for v in draws))[0]
+            cpu64 = filter_rollouts(
+                'cpu', kinds=('pf',), d={k: v.cpu() for k, v in d64.items()},
+                draws=draws)[0]
+            cbad, cgaps = filter_failures(filter_summary(cpu64, dc['truth']),
+                                          dc['truth'], card64, exact=('pf',),
+                                          tol=1e-9)
+        else:
+            cbad, cgaps = filter_failures(cpu_ref, dc['truth'], card,
+                                          exact=(kind,))
+        xs = card[kind][0]
+        res = {'T': T, 'ms_cold': cold_ms, 'ms_warm': warm_ms,
+               'ms_warm_runs': warm, 'steps_per_s': T / (warm_ms / 1e3),
+               'ms_profiled': prof_ms, 'device_ms': dev_ms,
+               'idle_share': 1 - dev_ms / prof_ms,
+               'device_ops_per_call': n_ops,
+               'rmse': filter_rmse(xs, d['truth']),
+               'rmse_jax': anchor[kind]['rmse'], 'anchor_gaps': gaps,
+               'cpu_gaps': cgaps, 'counts': counts}
+        print(f'[{kind}] {T}-step rollout: cold {cold_ms:.3f} ms, warm '
+              f'{warm_ms:.3f} ms (median of {warm}) = '
+              f'{res["steps_per_s"]:.4e} steps/s; profiled call '
+              f'{prof_ms:.3f} ms, device {dev_ms:.3f} ms (idle share '
+              f'{res["idle_share"]:.4f}), {n_ops} device operations; RMSE '
+              f'against the true state {res["rmse"]:.6f} (JAX '
+              f'{res["rmse_jax"]:.6f}); gaps to the JAX anchor {gaps}, to '
+              f'the CPU run {cgaps}'
+              + (' (float64, the same draws)' if kind == 'pf' else '')
+              + f' (CPU EKF and UKF rollouts {cpu_s:.2f} s); launch counts '
+              f'{counts}', flush=True)
+        check(not bad and not cbad, f'{kind}: {bad + cbad}')
+        check(bool(np.isfinite(xs.detach().cpu().numpy()).all()),
+              f'{kind}: an estimate is not finite')
+        out[kind] = res
+    return out
+
+
+def mpc_phase(dev):
+    """[mpc] and [mpc-ls]: bench.py:bench_modules' cart-pole through MPC at
+    T = 32 (ReduceToBason(steps=5)) and at T = 128 (line_search=True,
+    ReduceToBason(steps=30)), float32, cold, warm and profiled, with the
+    host reads of the iteration loops; cost and tail max|theta| held by
+    testing.mpc_failures to data/jax_anchor_mpc.json (1e-4 relative, 1e-3)
+    and to the port's CPU run (1e-4 relative and 1e-4: twice the CPU's
+    spread under +-3-ulp nudges of theta0, 4.3e-5 and 3.6e-5 at T = 32)."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.module import mpc as mpc_mod
+    from pypose_tpu_torch.testing import (MPC_CELLS, mpc_cell, mpc_failures,
+                                          mpc_tail)
+    with open(find_data('jax_anchor_mpc.json')) as f:
+        anchor = json.load(f)
+    out = {}
+    for name, (T, steps, ls) in MPC_CELLS.items():
+        reset_counts()
+        reads = mpc_mod.HOST_READS
+        cold_ms, (x, u, cost) = synced_ms(lambda: mpc_cell(name, dev))
+        counts = no_launches(name)
+        reads = mpc_mod.HOST_READS - reads
+        warm = [synced_ms(lambda: mpc_cell(name, dev))[0]
+                for _ in range(2)]
+        warm_ms = statistics.median(warm)
+        prof_ms, dev_ms, n_ops = profiled_call(
+            lambda: mpc_cell(name, dev))
+        t0 = time.perf_counter()
+        cx, _, ccost = mpc_cell(name, 'cpu')
+        cpu_s = time.perf_counter() - t0
+        bad = mpc_failures(name, anchor[name], x, cost)
+        cbad = mpc_failures(name, {'cost': float(ccost[0]),
+                                   'tail': mpc_tail(cx)}, x, cost,
+                            rtol=1e-4, tail_tol=1e-4, against='the CPU')
+        c = float(cost[0])
+        res = {'T': T, 'line_search': ls, 'ms_cold': cold_ms,
+               'ms_warm': warm_ms, 'ms_warm_runs': warm,
+               'ms_profiled': prof_ms, 'device_ms': dev_ms,
+               'idle_share': 1 - dev_ms / prof_ms,
+               'device_ops_per_call': n_ops, 'host_reads': reads,
+               'cost': c, 'tail': mpc_tail(x), 'cost_cpu': float(ccost[0]),
+               'tail_cpu': mpc_tail(cx), 'cost_jax': anchor[name]['cost'],
+               'tail_jax': anchor[name]['tail'], 'cpu_s': cpu_s,
+               'counts': counts}
+        print(f'[{name}] cart-pole T={T} line_search={ls}: cold '
+              f'{cold_ms:.3f} ms, warm {warm_ms:.3f} ms (median of {warm}); '
+              f'profiled call {prof_ms:.3f} ms, device {dev_ms:.3f} ms (idle '
+              f'share {res["idle_share"]:.4f}), {n_ops} device operations, '
+              f'{reads} host reads; cost {c:.6f} (CPU {res["cost_cpu"]:.6f} '
+              f'in {cpu_s:.2f} s, JAX {res["cost_jax"]:.6f}), tail '
+              f'max|theta| {res["tail"]:.6f} (CPU {res["tail_cpu"]:.6f}, JAX '
+              f'{res["tail_jax"]:.6f}); launch counts {counts}', flush=True)
+        check(not bad and not cbad, f'{name}: {bad + cbad}')
+        check(bool(torch.isfinite(x).all()) and bool(torch.isfinite(u).all()),
+              f'{name}: the trajectory is not finite')
+        out[name] = res
+    return out
+
+
 BLOCK_SIZE_CAP = 60
 
 
@@ -2546,6 +2854,12 @@ def main():
              'dense-lm': dense_lm_phase(dev),
              'sparse-strategies': sparse_strategies_phase(dev),
              'filters': filters_phase(dev)}
+    # 29.-32. LSTSQ on the card, EPnP, the filters' rollouts and MPC (no
+    # kernel on their paths)
+    lstsq_phase(dev)
+    newer.update(epnp_phase(dev))
+    newer.update(filters_rollout_phase(dev))
+    newer.update(mpc_phase(dev))
 
     # results: each kernel's bound from this run's shapes (two offsets;
     # float32 operands and vectors, 4 bytes a float)
@@ -2625,7 +2939,10 @@ def main():
               pgo_counts['TILED_MV_LAUNCHES'],
               max(alone['mv'][0], route_err('tiled')), alone['mv'][1] / 1e3,
               alone['mv'][2] / 1e3, mv_b, device_ms=alone['mv'][4] / 1e3,
-              ms_of='one launch, 100k shape (device_ms: torch.profiler)',
+              device_ms_l2_flushed=alone['mv'][5] / 1e3,
+              ms_of='one launch, 100k shape (device_ms: torch.profiler, '
+                    'operands warm in L2; device_ms_l2_flushed: L2 flushed '
+                    'before each launch)',
               routed=False),
         entry('stencil_tiled_pc', 'stencil_cg_tiled.cu', pallas + '149',
               pgo_counts['TILED_PC_LAUNCHES'],
@@ -2633,7 +2950,10 @@ def main():
               alone['pc'][2] / 1e3, pc_b, library_ms=alone['pc'][3] / 1e3,
               library='torch.einsum over the [t, t, N] blocks',
               device_ms=alone['pc'][4] / 1e3,
-              ms_of='one launch, 100k shape (device_ms: torch.profiler)',
+              device_ms_l2_flushed=alone['pc'][5] / 1e3,
+              ms_of='one launch, 100k shape (device_ms: torch.profiler, '
+                    'operands warm in L2; device_ms_l2_flushed: L2 flushed '
+                    'before each launch)',
               routed=False),
         entry('stencil_fused', 'stencil_cg_fused.cu',
               pallas + '253, :290', pgo_counts['FUSED_LAUNCHES'],
@@ -2712,19 +3032,25 @@ def main():
                   max(r['alone']['mv'][0], r['err']['tiled']),
                   r['alone']['mv'][1] / 1e3, r['alone']['mv'][2] / 1e3,
                   mv_bound(t), device_ms=r['alone']['mv'][4] / 1e3,
+                  device_ms_l2_flushed=r['alone']['mv'][5] / 1e3,
                   block_size=t, routed=False,
                   ms_of='one launch, 100k shape (device_ms: '
-                        'torch.profiler)'),
+                        'torch.profiler, operands warm in L2; '
+                        'device_ms_l2_flushed: L2 flushed before each '
+                        'launch)'),
             entry(f'stencil_tiled_pc_t{t}', 'stencil_cg_tiled.cu',
                   pallas + '149', 0,
                   max(r['alone']['pc'][0], r['err']['tiled']),
                   r['alone']['pc'][1] / 1e3, r['alone']['pc'][2] / 1e3,
                   pc_bound(t), library_ms=r['alone']['pc'][3] / 1e3,
                   library='torch.einsum over the [t, t, N] blocks',
-                  device_ms=r['alone']['pc'][4] / 1e3, block_size=t,
-                  routed=False,
+                  device_ms=r['alone']['pc'][4] / 1e3,
+                  device_ms_l2_flushed=r['alone']['pc'][5] / 1e3,
+                  block_size=t, routed=False,
                   ms_of='one launch, 100k shape (device_ms: '
-                        'torch.profiler)'),
+                        'torch.profiler, operands warm in L2; '
+                        'device_ms_l2_flushed: L2 flushed before each '
+                        'launch)'),
             entry(f'stencil_fused_t{t}', 'stencil_cg_fused.cu',
                   pallas + '253, :290',
                   groups[f'{g}_100k']['counts']['FUSED_LAUNCHES'],

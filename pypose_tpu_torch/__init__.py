@@ -56,17 +56,19 @@ from .basics import (  # noqa: F401
     pm, cumops, cummul, cumprod, cumops_, cummul_, cumprod_)
 from .nn import Parameter, Module  # noqa: F401
 from .lietensor import (  # noqa: F401
-    LieTensor, SO3, so3, SE3, se3, Sim3, sim3, RxSO3, rxso3, identity_SO3,
+    LieTensor, SO3_type, so3_type, SE3_type, se3_type, Sim3_type, sim3_type,
+    RxSO3_type, rxso3_type, liegroup, liealgebra, SO3, so3, SE3, se3, Sim3, sim3, RxSO3, rxso3, identity_SO3,
     identity_so3, identity_SE3, identity_se3, identity_Sim3, identity_sim3,
     identity_RxSO3, identity_rxso3, randn_SO3, randn_so3, randn_SE3,
     randn_se3, randn_Sim3, randn_sim3, randn_RxSO3, randn_rxso3, randn_like,
     identity_like, Exp, Log, Inv, Mul, Retr, Act, Adj, AdjT, Jinvp, Jr,
     euler2SO3, mat2SO3, mat2SE3, mat2Sim3, mat2RxSO3, from_matrix,
-    translation, rotation, scale, matrix, euler, quat2unit, vec2skew, add,
-    add_, mul)
+    tensor, translation, rotation, scale, matrix, euler, quat2unit,
+    vec2skew, add, add_, mul, stack, cat, concat, split)
 from .function import (  # noqa: F401
     KNNResult, cart2homo, homo2cart, point2pixel, pixel2point, reprojerr,
-    knn, svdtf, svdstf, is_lietensor, is_SE3, nbr_filter, random_filter,
-    voxel_filter, knn_filter, bvv, bmv, bvmv)
+    knn, svdtf, svdstf, is_lietensor, is_SE3, hasnan, nbr_filter,
+    random_filter, voxel_filter, knn_filter, bvv, bmv, bvmv)
 from .module import ICP, IMUPreintegrator  # noqa: F401
+from .module.loss import geodesic_loss  # noqa: F401
 from .utils import ReduceToBason  # noqa: F401

@@ -102,27 +102,28 @@ def _incidence(idx, n):
     return inc, mask, D
 
 
-def schur_operand(Yl18, cam_slot, incm, C):
+def schur_operand(Yl18, cam_slot, incm, C, dtype=torch.bfloat16):
     """T1 [P * 3, 6 * C] (rows (p, j), columns (a, c)) of the dense Schur
-    Gram, in bf16: each incidence slot's Yl18 [P, D, 18] row, rounded to
-    bf16, summed into its camera's column in float32 slot by slot (within
-    a slot every (point, camera) is distinct, so the sum has one order on
-    every device), then rounded to bf16."""
+    Gram, in ``dtype``: each incidence slot's Yl18 [P, D, 18] row, rounded
+    to ``dtype``, summed into its camera's column in float32 slot by slot
+    (within a slot every (point, camera) is distinct, so the sum has one
+    order on every device), then rounded to ``dtype`` (bf16 by default;
+    float32 leaves every value unrounded)."""
     P, D = cam_slot.shape
-    Y = Yl18.to(torch.bfloat16).to(torch.float32)
+    Y = Yl18.to(dtype).to(torch.float32)
     T1 = torch.zeros(P, 18, C, dtype=torch.float32, device=Y.device)
     for d in range(D):
         T1.scatter_add_(2, cam_slot[:, d].view(P, 1, 1).expand(P, 18, 1),
                         torch.where(incm[:, d, None], Y[:, d], 0.0)
                         .unsqueeze(-1))
-    return T1.to(torch.bfloat16).reshape(P * 3, 6 * C)
+    return T1.to(dtype).reshape(P * 3, 6 * C)
 
 
 def schur_gram(T1):
     """M = T1^T T1 [6 * C, 6 * C] in float32, indices (a, c) by (b, c'),
-    of a bf16 ``T1``: a float32 product of the upcast values, with TF32
-    off on the card (products of bf16 values are exact in float32, so
-    only the summation order is the device's)."""
+    of a bf16 or float32 ``T1``: a float32 product of the upcast values,
+    with TF32 off on the card (products of bf16 values are exact in
+    float32, so only the summation order is the device's)."""
     T = T1.to(torch.float32)
     return T.T @ T
 
@@ -142,6 +143,13 @@ class BundleAdjustment:
         fix_first_pose: gauge-fix camera 0.
         kernel: robust kernel on each observation's chi2.
         schur: ``'auto'``, ``'dense'`` or ``'cg'``.
+        schur_precision: precision of the dense Schur Gram, the JAX
+            package's ``jax.lax.Precision`` by name (``'default'``,
+            ``'high'`` or ``'highest'``, any case, or an object whose
+            ``str`` ends in one): ``None``, default or high form it from
+            bf16-rounded operands and boost the factor's diagonal for the
+            refinement; highest forms it from the float32 values and
+            factors it as it is.
         schur_refine: refinement passes of the dense solve.
 
     Everything lives on the device of ``points``.
@@ -172,10 +180,16 @@ class BundleAdjustment:
     def __init__(self, poses, points, cam_idx, pt_idx, pixels, cameras,
                  residual=None, strategy=None, reject=16, min=1e-6,
                  max=1e32, cg_iter=50, cg_tol=1e-5, fix_first_pose=False,
-                 kernel=None, schur='auto', schur_refine=3):
+                 kernel=None, schur='auto', schur_precision=None,
+                 schur_refine=3):
         if schur not in ('auto', 'dense', 'cg'):
             raise ValueError(f"schur must be 'auto', 'dense' or 'cg', got "
                              f'{schur!r}')
+        precision = 'default' if schur_precision is None else \
+            str(schur_precision).rsplit('.', 1)[-1].lower()
+        if precision not in ('default', 'high', 'highest'):
+            raise ValueError("schur_precision must be None, 'default', "
+                             f"'high' or 'highest', got {schur_precision!r}")
         self.device = points.device
         self.dtype = points.dtype
         require_full_fp32(self.device)
@@ -208,6 +222,9 @@ class BundleAdjustment:
         self.cg_iter, self.cg_tol = cg_iter, cg_tol
         self.fix_first_pose = fix_first_pose
         self.schur = schur
+        # bf16-product Grams (default and high alike: products of bf16
+        # values are exact in float32) or a float32 one (highest)
+        self.schur_precision = precision
         self.schur_refine = schur_refine
         self.strategy_state = None
         self.loss = self.last = None
@@ -531,7 +548,10 @@ class BundleAdjustment:
             [sum(L[:, k, j][:, None] * Gp18[:, :, a * 3 + k]
                  for k in range(3))
              for j in range(3) for a in range(6)], dim=-1)
-        M = schur_gram(schur_operand(Yl18, cam_slot, incm, C))
+        highest = self.schur_precision == 'highest'
+        M = schur_gram(schur_operand(
+            Yl18, cam_slot, incm, C,
+            torch.float32 if highest else torch.bfloat16))
         Mfull = M.reshape(6, C, 6, C).permute(1, 0, 3, 2).reshape(6 * C,
                                                                   6 * C)
         ar = torch.arange(C, device=Hcc_d.device)
@@ -543,7 +563,7 @@ class BundleAdjustment:
             S[:6, :] = 0.0
             S[:, :6] = 0.0
             S[torch.arange(6), torch.arange(6)] = 1.0
-        if self.schur_refine > 0:
+        if self.schur_refine > 0 and not highest:
             # the bf16-formed S can lose positive-definiteness at small
             # damping; as a preconditioner for the refinement its diagonal
             # is boosted

@@ -26,9 +26,27 @@ class PINV:
                                  hermitian=self.hermitian) @ b
 
 
+def lstsq_svd(A, b, rcond=None):
+    """The minimum-norm least-squares solution of ``A x = b`` by SVD, as
+    ``jnp.linalg.lstsq`` computes it: singular values at most ``rcond *
+    sigma_max`` (``rcond`` = eps * max(m, n) by default, eps if negative)
+    are cut.  ``A`` is batch + (M, N), ``b`` batch + (M, K).  Plain tensor
+    code on any device."""
+    eps = torch.finfo(A.dtype).eps
+    if rcond is None:
+        rcond = eps * max(A.shape[-2:])
+    elif rcond < 0:
+        rcond = eps
+    return torch.linalg.pinv(A, rtol=rcond) @ b
+
+
 class LSTSQ:
     """Least-squares solve, batched over leading dims; ``b`` is batch +
-    (M,) or batch + (M, K)."""
+    (M,) or batch + (M, K).  On the CPU, ``torch.linalg.lstsq`` (its
+    default driver, gelsy, gives the JAX package's answer); on CUDA,
+    whose only driver (gels) assumes full rank, :func:`lstsq_svd`, the
+    JAX package's SVD solve (minimum norm, small singular values cut).
+    Ref: pypose_tpu/optim/solver.py:28-46."""
 
     def __init__(self, rcond=None, driver=None):
         self.rcond, self.driver = rcond, driver
@@ -37,10 +55,22 @@ class LSTSQ:
         vec = b.ndim == A.ndim - 1
         bb = b[..., None] if vec else b
         batch = torch.broadcast_shapes(A.shape[:-2], bb.shape[:-2])
-        out = torch.linalg.lstsq(A.expand(batch + A.shape[-2:]),
-                                 bb.expand(batch + bb.shape[-2:]),
-                                 rcond=self.rcond, driver=self.driver)[0]
+        A, bb = A.expand(batch + A.shape[-2:]), bb.expand(batch + bb.shape[-2:])
+        if A.device.type == 'cuda':
+            out = lstsq_svd(A, bb, self.rcond)
+        else:
+            out = torch.linalg.lstsq(A, bb, rcond=self.rcond,
+                                     driver=self.driver)[0]
         return out[..., 0] if vec else out
+
+
+def cholesky_or_nan(A):
+    """Lower Cholesky factor of ``A``, NaN where ``A`` is not positive
+    definite, as ``jnp.linalg.cholesky`` returns it; unlike
+    ``torch.linalg.cholesky`` it neither raises nor reads back to the
+    host."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
 
 
 class Cholesky:
@@ -52,12 +82,9 @@ class Cholesky:
         self.upper = upper
 
     def __call__(self, A, b):
-        L, info = torch.linalg.cholesky_ex(A)
         vec = b.ndim == A.ndim - 1
         bb = b[..., None] if vec else b
-        x = torch.cholesky_solve(bb, L)
-        bad = (info != 0).reshape(info.shape + (1, 1))
-        x = torch.where(bad, torch.nan, x)
+        x = torch.cholesky_solve(bb, cholesky_or_nan(A))
         return x[..., 0] if vec else x
 
 

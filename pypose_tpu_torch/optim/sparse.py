@@ -81,28 +81,37 @@ class Factor:
     r"""A batch of E identical residual factors.
 
     Args:
-        residual: ``residual(values, consts) -> [E, d]`` over the whole
-            batch, where ``values`` maps each group name to the gathered
-            nodes ``[E, arity, D]`` (LieTensor or tensor).  Row e must
-            depend on edge e's values and constants alone: the autodiff
-            Jacobian differentiates the whole batch at once, which is
-            exact only then (the JAX package's per-edge residual makes
-            this structural; here it is the residual's contract).
+        residual: ``residual(values, consts) -> (d,)`` for ONE edge, where
+            ``values`` maps each group name to that edge's gathered nodes
+            ``[arity, D]`` (LieTensor or tensor) and ``consts`` is the
+            edge's slice of the constants; ``SparseLM`` maps it over the
+            edges with ``torch.func.vmap``.
         indices: dict ``name -> int [E, arity]`` (or ``[E]``) rows of each
             variable group.
-        consts: per-edge constants, leading dim E (measurements).
+        consts: per-edge constants, leading dim E (measurements): a
+            tensor, a LieTensor or a pytree of them.
         weight: optional information matrices ``[E, d, d]`` or ``[d, d]``.
         kernel: optional robust kernel on ``chi2 = r^T W r``
             (``optim.kernel``; FastTriggs scaling of r and J).
+        jacobian: optional ``(values, consts) -> (r (d,), {name: J [d,
+            arity, tan]})`` for one edge, a closed-form tangent Jacobian
+            (mapped over the edges); without one ``SparseLM`` takes the
+            Jacobian of ``residual`` by reverse-mode autodiff.
+        valid: optional bool mask ``[E]``: an invalid edge adds nothing to
+            chi2 (its weight must also be zero).
         batched_jacobian: optional ``(values, consts) -> (r [E, d],
-            {name: J [E, d, arity, tan]})``, a closed-form tangent
-            Jacobian; without one ``SparseLM`` takes the Jacobian of
-            ``residual`` by reverse-mode autodiff.
+            {name: J [E, d, arity, tan]})`` over the whole batch, with
+            ``values`` ``[E, arity, D]``: the scalarized closed forms of
+            ``pgo_factor``; it takes precedence over ``jacobian``.
+
+    Ref: pypose_tpu/optim/sparse.py:55-89.
     """
 
     def __init__(self, residual, indices, consts=None, weight=None,
-                 kernel=None, batched_jacobian=None):
+                 kernel=None, jacobian=None, valid=None,
+                 batched_jacobian=None):
         self.residual = residual
+        self.jacobian = jacobian
         self.kernel = kernel
         self.batched_jacobian = batched_jacobian
         self.indices = {}
@@ -111,7 +120,14 @@ class Factor:
             self.indices[k] = v[:, None] if v.ndim == 1 else v
         self.consts = consts
         self.weight = weight
+        self.valid = None if valid is None else torch.as_tensor(
+            valid, dtype=torch.bool)
         self.num_edges = next(iter(self.indices.values())).shape[0]
+
+    def residuals(self, values, consts):
+        """[E, d]: the per-edge residual mapped over the edges of
+        ``values`` (name -> [E, arity, D]) and ``consts``."""
+        return torch.func.vmap(self.residual)(values, consts)
 
 
 class SparseLM:
@@ -122,6 +138,8 @@ class SparseLM:
         params: dict ``name -> LieTensor [N, D] | tensor [N, D]`` stacked
             variable nodes, all on one device.
         factors: list of :class:`Factor`.
+        solver: accepted and ignored, as the JAX package ignores it: the
+            route (below) picks the solve.
         strategy: ``TrustRegion`` (default), ``Adaptive`` or ``Constant``.
         reject: most rejected damping retries per LM step.
         min, max: clamp of the J^T W J diagonal before damping.
@@ -162,10 +180,12 @@ class SparseLM:
     # below this
     MAX_INCIDENCE_DEGREE = 64
 
-    def __init__(self, params, factors, strategy=None, reject=16, min=1e-6,
-                 max=1e32, cg_iter=None, cg_tol=1e-5, fixed=None,
-                 precond='auto'):
+    def __init__(self, params, factors, solver=None, strategy=None,
+                 reject=16, min=1e-6, max=1e32, cg_iter=None, cg_tol=1e-5,
+                 fixed=None, precond='auto'):
         self.params = dict(params)
+        # stored and never read, as in the JAX package (its sparse.py:160)
+        self.solver = solver
         self.factors = list(factors)
         self.strategy = TrustRegion() if strategy is None else strategy
         self.min, self.max = min, max
@@ -182,6 +202,8 @@ class SparseLM:
                       for n, m in (fixed or {}).items()}
         for f in self.factors:
             f.indices = {n: v.to(self.device) for n, v in f.indices.items()}
+            if f.valid is not None:
+                f.valid = f.valid.to(self.device)
         self.strategy_state = None
         self.loss = None
         self.last = None
@@ -351,16 +373,20 @@ class SparseLM:
     # per-factor residuals + tangent Jacobian blocks
     # ------------------------------------------------------------------
     def _edge_r_jac(self, params, factor, fi):
-        """(r [E, d], {name: J [E, d, arity, tan]}): the closed form, or
-        the tangent Jacobian of the residual at ``Retr(eps)``, eps = 0, by
-        one ``torch.func.vjp`` and a ``vmap`` of its pullback over the d
-        one-hot cotangents (``jacrev``'s own construction)."""
+        """(r [E, d], {name: J [E, d, arity, tan]}): the batched closed
+        form, the per-edge one mapped over the edges, or the tangent
+        Jacobian of the mapped residual at ``Retr(eps)``, eps = 0, by one
+        ``torch.func.vjp`` and a ``vmap`` of its pullback over the d
+        one-hot cotangents (``jacrev``'s own construction).  Ref:
+        pypose_tpu/optim/sparse.py:393-411."""
         vals = self._gather(params, factor, fi)
         if factor.batched_jacobian is not None:
             return factor.batched_jacobian(vals, factor.consts)
+        if factor.jacobian is not None:
+            return torch.func.vmap(factor.jacobian)(vals, factor.consts)
 
         def f(eps):
-            return factor.residual(
+            return factor.residuals(
                 {n: v.add(eps[n]) if isinstance(v, LieTensor) else v + eps[n]
                  for n, v in vals.items()}, factor.consts)
 
@@ -403,7 +429,7 @@ class SparseLM:
     def _chi2(self, params):
         total = 0.0
         for fi, f in enumerate(self.factors):
-            r = f.residual(self._gather(params, f, fi), f.consts)
+            r = f.residuals(self._gather(params, f, fi), f.consts)
             w = self._weights(f, r.shape[0])
             if w is not None:
                 chi = torch.sum(r * torch.einsum('eij,ej->ei', w, r), -1)
@@ -411,6 +437,8 @@ class SparseLM:
                 chi = torch.sum(r * r, -1)
             if f.kernel is not None:
                 chi = f.kernel(chi)
+            if f.valid is not None:
+                chi = torch.where(f.valid, chi, 0.0)
             total = total + torch.sum(chi)
         return total
 
@@ -771,8 +799,8 @@ def pgo_factor(edges, poses, infos=None, kernel=None, name='poses'):
     from ..lietensor.scalarized import se3_pgo_blocks
 
     def residual(values, Z):
-        X = values[name]
-        return (Z.Inv() @ (X[:, 0].Inv() @ X[:, 1])).Log().tensor()
+        Xi, Xj = values[name][0], values[name][1]
+        return (Z.Inv() @ (Xi.Inv() @ Xj)).Log().tensor()
 
     batched_jacobian = None
     if poses.ltype is SE3_type:
@@ -817,3 +845,55 @@ def split_chain_edges(edges, min_run=64):
     rest = np.concatenate([rows[~cand]] + rest_extra) if rest_extra \
         else rows[~cand]
     return keep, rest
+
+
+def pgo(nodes, edges, poses, infos=None, steps=10, strategy=None,
+        kernel=None, fix_first=True, cg_iter=100, cg_tol=1e-5, tol=1e-7,
+        verbose=False, split_chains=True):
+    r"""Solve a pose graph with :class:`SparseLM`: one ``pgo_factor`` for
+    each odometry run of :func:`split_chain_edges` and one for the rest
+    (or one for every edge, if not ``split_chains``), node 0 fixed if
+    ``fix_first``, TrustRegion(radius=1e4) unless ``strategy`` is given.
+    Steps until ``steps``, until a step with rejections makes no progress,
+    or until chi2 falls by less than ``tol * max(1, chi2)``.  Returns
+    (the optimized nodes, the chi2 history).
+
+    Ref: pypose_tpu/optim/sparse.py:1066-1113.
+    """
+    edges = torch.as_tensor(edges, dtype=torch.int64)
+    n = nodes.shape[0]
+    dev = nodes.device
+    fixed = None
+    if fix_first:
+        fixed = {'poses': torch.zeros(n, dtype=torch.bool, device=dev)}
+        fixed['poses'][0] = True
+
+    def factor(rows):
+        rows = torch.as_tensor(rows, dtype=torch.int64)
+        return pgo_factor(edges[rows], poses[rows.to(dev)],
+                          None if infos is None else infos[rows.to(dev)],
+                          kernel)
+
+    if split_chains:
+        runs, rest = split_chain_edges(edges)
+        factors = [factor(run) for run in runs]
+        if len(rest):
+            factors.append(factor(rest))
+    else:
+        factors = [pgo_factor(edges, poses, infos, kernel)]
+    opt = SparseLM({'poses': nodes}, factors,
+                   strategy=strategy or TrustRegion(radius=1e4),
+                   fixed=fixed, cg_iter=cg_iter, cg_tol=cg_tol)
+    history = []
+    for i in range(steps):
+        loss = opt.step()
+        history.append(loss)
+        if verbose:
+            print(f'pgo step {i}: chi2 {loss:.6e}')
+        if opt.reject_count > 0 and \
+                (len(history) < 2 or history[-2] - history[-1] <= 0):
+            break
+        if len(history) > 1 and \
+                history[-2] - history[-1] < tol * max(1.0, history[-1]):
+            break
+    return opt.params['poses'], history

@@ -25,8 +25,13 @@ rule that holds the nearest-neighbour kernels to their plain versions,
 ``module_state_from_numpy`` carries a JAX module's state (parameters and
 LieTensor buffers) into a port module, and ``imu_instance`` and
 ``batch_lm_instance`` (with ``PoseInvB``) build the IMU and batch-lm
-cells.
+cells, ``epnp_instance`` (with ``pose_errors``), ``pendulum`` with
+``filter_instance`` (``pf_draws`` a PF rollout's draws), and ``cartpole``
+with ``cartpole_problem`` the EPnP, filter and MPC cells.
+``cap_threads`` shares the CPUs among pytest-xdist's workers.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -36,6 +41,16 @@ from ..lietensor.utils import identity_se3
 from ..nn import Module, Parameter
 
 _LTYPES = {lt.name: lt for lt in liegroup + liealgebra}
+
+
+def cap_threads():
+    """Give torch's CPU kernels this process's share of the CPUs: the CPU
+    count over the pytest-xdist workers (``PYTEST_XDIST_WORKER_COUNT``;
+    one process when unset).  Each worker otherwise starts one intra-op
+    thread a CPU, and six workers on eight CPUs oversubscribe them.  The
+    port's test files call it when they are imported."""
+    workers = int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // max(workers, 1)))
 
 
 def params_from_numpy(params, ltypes, device=None, dtype=None):
@@ -288,10 +303,11 @@ def ring3_problem(N=64, loop_offset=5, dtype=torch.float32, device='cuda',
 
     def residual(values, consts):
         X = values['x']
-        return X[:, 1] - X[:, 0] - consts
+        return X[1] - X[0] - consts
 
     def batched_jacobian(values, consts):
-        return residual(values, consts), {'x': J}
+        X = values['x']
+        return X[:, 1] - X[:, 0] - consts, {'x': J}
 
     fixed = torch.zeros(N, dtype=torch.bool, device=device)
     fixed[0] = True
@@ -362,7 +378,7 @@ def reproj_pgo_optimizer(ds, cg_iter=150, cg_tol=1e-7, radius=1e6, **_):
     dev = ds['edges'].device
 
     def obs_residual(values, meas):
-        return values['poses'][:, 0].Act(values['landmarks'][:, 0]) - meas
+        return values['poses'][0].Act(values['landmarks'][0]) - meas
 
     obs = Factor(obs_residual, indices={'poses': ds['obs_pose'],
                                         'landmarks': ds['obs_landmark']},
@@ -638,3 +654,315 @@ def batch_lm_instance(B, seed, device='cuda', sigma=0.5):
     targets = se3(torch.as_tensor(xi, dtype=torch.float64)).Exp()
     return (targets.to(device=device, dtype=torch.float32),
             PoseInvB().to(device))
+
+
+# bench.py:bench_modules' EPnP intrinsics
+EPNP_K = ((500., 0., 320.), (0., 500., 240.), (0., 0., 1.))
+
+
+def epnp_instance(B, n=12, seed=0, device='cuda', dtype=torch.float32):
+    """``bench.py:bench_modules``' EPnP problem at B problems of n points:
+    camera-frame points uniform in [-2, 2] x [-2, 2] x [4, 12], the pose
+    the Exp of an se3 vector drawn from N(0, 1) scaled by 0.5
+    (translation) and 0.2 (rotation), world points ``pose.Inv().Act``,
+    pixels through :data:`EPNP_K`; drawn by ``np.random.default_rng(seed)``
+    and computed in float64 on the CPU, then rounded to ``dtype`` and
+    moved to ``device`` (the card unless the caller asks for
+    ``device='cpu'``).  Returns dict(points (world) [B, n, 3], pixels
+    [B, n, 2], intrinsics [3, 3], pose (SE3 [B]))."""
+    from ..function.geometry import point2pixel
+    from ..lietensor.utils import se3
+    rng = np.random.default_rng(seed)
+    pts_cam = torch.as_tensor(rng.uniform([-2., -2., 4.], [2., 2., 12.],
+                                          size=(B, n, 3)))
+    xi = rng.normal(size=(B, 6)) * np.array([0.5] * 3 + [0.2] * 3)
+    pose = se3(torch.as_tensor(xi)).Exp()
+    K = torch.tensor(EPNP_K, dtype=torch.float64)
+    world = pose.Inv().unsqueeze(-2).Act(pts_cam)
+    pix = point2pixel(pts_cam, K)
+    kw = dict(device=device, dtype=dtype)
+    return dict(points=world.to(**kw), pixels=pix.to(**kw),
+                intrinsics=K.to(**kw), pose=pose.to(**kw))
+
+
+def pose_errors(est, truth):
+    """Per problem, ``|Log(est^-1 truth)|_inf`` (bench.py's pose error)."""
+    return (est.Inv() @ truth).Log().tensor().abs().amax(-1)
+
+
+def pendulum():
+    """``bench.py:bench_filters``' pendulum, an NLS: theta, omega with a
+    0.05 s Euler step of ``-9.81 sin(theta) + u``, observed directly."""
+    from ..module.dynamics import NLS
+
+    class Pendulum(NLS):
+        def state_transition(self, state, input, t=None):
+            th, om = state[..., 0], state[..., 1]
+            om = om + 0.05 * (-9.81 * torch.sin(th) + input[..., 0])
+            return torch.stack([th + 0.05 * om, om], dim=-1)
+
+        def observation(self, state, input, t=None):
+            return state
+    return Pendulum()
+
+
+def filter_instance(T=1000, seed=0, device='cuda', dtype=torch.float32):
+    """A T-step trajectory of :func:`pendulum`'s system for ``filter_rollout``:
+    inputs u_t ~ N(0, 1), the true state from (0.3, 0) with process noise
+    0.01 N(0, I) (Q = 1e-4 I), observations y_t = x_t + 0.1 N(0, I)
+    (R = 1e-2 I) of the state before step t; drawn by
+    ``np.random.default_rng(seed)`` and computed in float64 on the CPU,
+    then rounded to ``dtype`` and moved to ``device`` (the card unless the
+    caller asks for ``device='cpu'``).  Returns dict(us [T, 1], ys
+    [T, 2], truth [T + 1, 2] (truth[t + 1] is what the estimate after
+    step t estimates), x0 = 0, P0 = I, Q, R)."""
+    rng = np.random.default_rng(seed)
+    us = rng.normal(size=(T, 1))
+    w = 0.01 * rng.normal(size=(T, 2))
+    v = 0.1 * rng.normal(size=(T, 2))
+    x = np.array([0.3, 0.0])
+    truth, ys = [x], []
+    for t in range(T):
+        ys.append(x + v[t])
+        om = x[1] + 0.05 * (-9.81 * np.sin(x[0]) + us[t, 0])
+        x = np.array([x[0] + 0.05 * om, om]) + w[t]
+        truth.append(x)
+    kw = dict(device=device, dtype=dtype)
+    return dict(us=torch.as_tensor(us, **kw),
+                ys=torch.as_tensor(np.stack(ys), **kw),
+                truth=torch.as_tensor(np.stack(truth), **kw),
+                x0=torch.zeros(2, **kw), P0=torch.eye(2, **kw),
+                Q=1e-4 * torch.eye(2, **kw), R=1e-2 * torch.eye(2, **kw))
+
+
+def cartpole():
+    """``bench.py:bench_modules``' cart-pole (the JAX package's MPC
+    example plant): x, dx, theta, dtheta under force u, Euler step 0.05 s,
+    g 9.81, cart 1.0, pole 0.1 at length 0.5, observed directly; an NLS."""
+    from ..module.dynamics import NLS
+
+    class CartPole(NLS):
+        def state_transition(self, state, input, t=None):
+            x, dx, th, dth = (state[..., 0], state[..., 1],
+                              state[..., 2], state[..., 3])
+            f = input[..., 0]
+            dtt, g, mc, mp, l = 0.05, 9.81, 1.0, 0.1, 0.5
+            tmp = (f + mp * l * dth ** 2 * torch.sin(th)) / (mc + mp)
+            thacc = (g * torch.sin(th) - torch.cos(th) * tmp) / \
+                (l * (4.0 / 3 - mp * torch.cos(th) ** 2 / (mc + mp)))
+            xacc = tmp - mp * l * thacc * torch.cos(th) / (mc + mp)
+            return torch.stack([x + dtt * dx, dx + dtt * xacc,
+                                th + dtt * dth, dth + dtt * thacc], dim=-1)
+
+        def observation(self, state, input, t=None):
+            return state
+    return CartPole()
+
+
+def cartpole_problem(device='cuda', dtype=torch.float32):
+    """``bench.py:bench_modules``' MPC cost and start: Q = diag(1, 0.1,
+    10, 0.1, 0.01) [1, 5, 5], p = 0 [1, 5], x0 = (0, 0, 0.3, 0) [1, 4], on
+    ``device`` (the card unless the caller asks for ``device='cpu'``).
+    Returns (Q, p, x0)."""
+    kw = dict(device=device, dtype=dtype)
+    return (torch.diag(torch.tensor([1., 0.1, 10., 0.1, 0.01], **kw))[None],
+            torch.zeros((1, 5), **kw),
+            torch.tensor([[0.0, 0.0, 0.3, 0.0]], **kw))
+
+
+# the anchored cells of the EPnP, filter and MPC slice: bench.py's sizes
+EPNP_CELLS = {'epnp': (10_000, False), 'epnp-refine': (16, True)}
+FILTER_CELLS = ('ekf', 'ukf', 'pf')
+FILTER_T, FILTER_EVERY, PF_PARTICLES = 1000, 100, 1000
+MPC_CELLS = {'mpc': (32, 5, False), 'mpc-ls': (128, 30, True)}
+
+
+def _np64(x):
+    x = x.tensor() if isinstance(x, LieTensor) else x
+    return x.detach().cpu().double().numpy() if torch.is_tensor(x) \
+        else np.asarray(x, np.float64)
+
+
+def epnp_solve(d, refine):
+    """The port's EPnP on an :func:`epnp_instance` dict: float64 numpy
+    (poses [B, 7], each problem's chosen candidate (int), its error
+    against the true pose)."""
+    from ..module import EPnP
+    e = EPnP(intrinsics=d['intrinsics'], refine=refine)
+    pose = e(d['points'], d['pixels'])
+    c = e._candidates(d['points'], d['pixels'], d['intrinsics'])
+    idx = e._best_index(c['errors'])
+    return (_np64(pose), idx.cpu().numpy(),
+            _np64(pose_errors(pose, d['pose'])))
+
+
+def epnp_stats(errs):
+    errs = np.asarray(errs)
+    return {'median': float(np.median(errs)),
+            'p99': float(np.percentile(errs, 99)), 'max': float(errs.max())}
+
+
+def epnp_failures(name, want, poses, cands, errs):
+    """An EPnP result held to a reference (``want``: 'stats' of its
+    errors, 'candidates' (a digit string or a list), and the 'poses' and
+    'errors' of its first problems): each compared pose within 2 (e +
+    e_ref) + 1e-6 of the reference's; candidate flips at most 1% of the
+    problems, or one; from 1,000 problems on, the median and 99th
+    percentile of the errors at most 25% above the reference's and the
+    largest at most twice it (below 1,000, and refined, they are float32
+    noise; below the reference's is better, as on CUDA, whose null space
+    comes from a float64 eigh).  Returns (failures, numbers)."""
+    got = epnp_stats(errs)
+    bad = []
+    if len(errs) >= 1000:
+        bad += [f'{name} {k}' for k in ('median', 'p99')
+                if not got[k] <= 1.25 * want['stats'][k]]
+        if not got['max'] <= 2 * want['stats']['max']:
+            bad.append(f'{name} max')
+    n = len(want['poses'])
+    gap = np.abs(poses[:n] - np.asarray(want['poses'])).max(-1)
+    far = int((gap > 2 * (errs[:n] + np.asarray(want['errors'])) + 1e-6)
+              .sum())
+    if far:
+        bad.append(f'{name}: {far} of the first {n} poses')
+    flips = int(sum(int(c) != int(w) for c, w in zip(cands,
+                                                     want['candidates'])))
+    if flips > max(1, 0.01 * len(cands)):
+        bad.append(f'{name}: {flips} candidate flips')
+    return bad, {'stats': got, 'flips': flips, 'pose_gap': float(gap.max())}
+
+
+def pf_draws(T=FILTER_T, particles=PF_PARTICLES, n=2, dtype=torch.float64,
+             seed=0):
+    """A PF rollout's draws, made on the CPU by a ``torch.Generator``
+    seeded ``seed``: (normals [T, particles, n], uniforms [T, particles]),
+    which :func:`filter_rollouts` feeds through ``PF.draw`` so that two
+    devices resample from the same numbers."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((T, particles, n), generator=gen, dtype=dtype),
+            torch.rand((T, particles), generator=gen, dtype=dtype))
+
+
+def _drawing(pf, z, r):
+    """``pf`` with its ``draw`` reading step t's normals ``z[t]`` and
+    uniforms ``r[t]`` in place of a generator."""
+    steps, now = iter(zip(z, r)), {}
+
+    def draw(kind, shape, like, generator):
+        if kind == 'normal':
+            now['normal'], now['uniform'] = next(steps)
+        got = now[kind]
+        assert tuple(got.shape) == tuple(shape)
+        return got.to(like)
+    pf.draw = draw
+    return pf
+
+
+def filter_rollouts(device='cuda', T=FILTER_T, seed=0, kinds=FILTER_CELLS,
+                    d=None, draws=None):
+    """The filter cells on ``d`` (by default ``filter_instance(T)``):
+    ({kind: (xs, Ps)}, the instance); the PF of :data:`PF_PARTICLES`
+    particles draws from a ``torch.Generator`` on ``device`` seeded
+    ``seed``, or, given ``draws`` (:func:`pf_draws`' pair), from those."""
+    from ..module import EKF, PF, UKF, filter_rollout
+    d = filter_instance(T, device=device) if d is None else d
+
+    def make_pf():
+        pf = PF(pendulum(), d['Q'], d['R'], particles=PF_PARTICLES)
+        return pf if draws is None else _drawing(pf, *draws)
+    make = {'ekf': lambda: EKF(pendulum(), d['Q'], d['R']),
+            'ukf': lambda: UKF(pendulum(), d['Q'], d['R']),
+            'pf': make_pf}
+    out = {}
+    for kind in kinds:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        out[kind] = filter_rollout(make[kind](), d['x0'], d['P0'], d['ys'],
+                                   d['us'], generator=gen)
+    return out, d
+
+
+def filter_rmse(xs, truth):
+    """RMSE of the estimates against the states they estimate."""
+    return float(np.sqrt(((_np64(xs) - _np64(truth)[1:]) ** 2).mean()))
+
+
+# The PF's RMSE against the true state over filter_instance(1000), held to
+# a reference with other draws: over 10 generator seeds the port's CPU PF
+# gave a standard deviation of 1.5e-3 of it and came at most 0.34% from
+# the JAX anchor's; the UKF's is 7% from it.
+PF_RMSE_RTOL = 0.01
+
+
+def filter_failures(ref, truth, out, exact=('ekf', 'ukf'), tol=2e-5):
+    """Filter results held to a reference (the JAX anchor, or another run
+    as ``{kind: {'xs_every', 'P_final', 'rmse'}}``): the estimates at
+    every 100th step and the final covariance of the kinds in ``exact``
+    within ``tol`` (1 + magnitude); a PF not in ``exact`` (its draws
+    differ from the reference's) by |its RMSE against the true state -
+    the reference's|, within :data:`PF_RMSE_RTOL` of the reference's.
+    Returns (failures, gaps)."""
+    bad, gaps = [], {}
+    for kind in [k for k in exact if k in out]:
+        xs, Ps = _np64(out[kind][0]), _np64(out[kind][1])
+        for name, got, want in (
+                ('xs', xs[FILTER_EVERY - 1::FILTER_EVERY],
+                 ref[kind]['xs_every']),
+                ('P_final', Ps[-1], ref[kind]['P_final'])):
+            want = np.asarray(want)
+            gap = float(np.abs(got - want).max())
+            gaps[f'{kind}_{name}'] = gap
+            if not gap <= tol * (1 + np.abs(want).max()):
+                bad.append(f'{kind} {name}')
+    if 'pf' in out and 'pf' not in exact:
+        gap = abs(filter_rmse(out['pf'][0], truth) - ref['pf']['rmse'])
+        gaps['pf_rmse'] = gap
+        if not gap <= PF_RMSE_RTOL * ref['pf']['rmse']:
+            bad.append('pf rmse')
+    return bad, gaps
+
+
+def filter_summary(out, truth):
+    """``out`` in the form :func:`filter_failures` takes as a reference."""
+    res = {}
+    for kind, (xs, Ps) in out.items():
+        xs, Ps = _np64(xs), _np64(Ps)
+        res[kind] = {'rmse': filter_rmse(xs, truth),
+                     'xs_every': xs[FILTER_EVERY - 1::FILTER_EVERY].tolist(),
+                     'P_final': Ps[-1].tolist()}
+    return res
+
+
+def mpc_cell(name, device='cuda'):
+    """One MPC cell of :data:`MPC_CELLS` (``bench.py:bench_modules``' [mpc]
+    and [mpc-ls]) on the port: (x, u, cost)."""
+    from ..module import MPC
+    from ..utils.stepper import ReduceToBason
+    T, steps, ls = MPC_CELLS[name]
+    Q, p, x0 = cartpole_problem(device=device)
+    mpc = MPC(cartpole(), Q, p, T, stepper=ReduceToBason(steps=steps),
+              line_search=ls)
+    return mpc(0.05, x0)
+
+
+def mpc_tail(x):
+    """max |theta| over the back half of the horizon."""
+    x = _np64(x)
+    T = x.shape[1] - 1
+    return float(np.abs(x[0, T // 2:, 2]).max())
+
+
+def mpc_failures(name, want, x, cost, rtol=1e-4, tail_tol=1e-3,
+                 against='the JAX anchor'):
+    """The MPC cell ``name`` held to a reference (``want``: 'cost',
+    'tail'): cost within ``rtol`` relative, the tail within ``tail_tol``
+    (and below 0.1 with the line search, the JAX test's swing-up bound).
+    Returns failures."""
+    c, tl = float(_np64(cost).reshape(-1)[0]), mpc_tail(x)
+    bad = []
+    if not abs(c - want['cost']) <= rtol * abs(want['cost']):
+        bad.append(f'{name} cost {c} against {against}\'s {want["cost"]}')
+    if not abs(tl - want['tail']) <= tail_tol:
+        bad.append(f'{name} tail {tl} against {against}\'s {want["tail"]}')
+    if MPC_CELLS[name][2] and not tl < 0.1:
+        bad.append(f'{name} tail {tl} not swung up')
+    return bad

@@ -25,6 +25,9 @@ import pypose_tpu as jpp
 from pypose_tpu.lietensor import operation as jop
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch.lietensor import operation as top
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TOL = {'float32': 1e-5, 'float64': 1e-9}
 DTYPES = ['float32', 'float64']

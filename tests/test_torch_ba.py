@@ -34,6 +34,9 @@ from pypose_tpu_torch.optim import strategy
 from pypose_tpu_torch.optim.ba import BundleAdjustment, reproj_residual_bal
 from pypose_tpu_torch.optim.kernel import Huber
 from pypose_tpu_torch.testing import ba_instance, ba_optimizer
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 # tests/optim/test_ba.py's problems: (C, P, obs per point, seed, pose
 # noise, point noise)

@@ -53,6 +53,9 @@ import pytest
 from pypose_tpu_torch.datasets import find_data
 from pypose_tpu_torch.testing import (BA_HOLD, BA_PROBLEMS, BA_SCHEDULES,
                                       ba_instance, ba_optimizer, bal_checksum)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REF = 'ref_anchor_bal_16_300.json'
 INSTANCE = 'jax_instance_bal_16_300.npz'

@@ -34,6 +34,9 @@ from pypose_tpu_torch.datasets import (find_data, load_bal, save_bal,
                                        synthetic_bal)
 from pypose_tpu_torch.function import (cart2homo, homo2cart, pixel2point,
                                        point2pixel, reprojerr)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TOL = {np.float32: dict(rtol=1e-6, atol=6e-5),
        np.float64: dict(rtol=1e-12, atol=1e-12)}

@@ -19,6 +19,9 @@ from pypose_tpu_torch.lietensor.scalarized import bal_reproj_blocks
 from pypose_tpu.optim.ba import reproj_residual_pinhole as jax_pinhole
 from pypose_tpu_torch.optim.ba import (reproj_residual_bal,
                                        reproj_residual_pinhole)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TOL = {np.float32: 1e-6, np.float64: 1e-12}
 

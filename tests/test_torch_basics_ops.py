@@ -24,6 +24,9 @@ from pypose_tpu.lietensor.scalarized import _qmul as jqmul
 import pypose_tpu_torch as pp
 from pypose_tpu_torch.basics.ops import associative_scan
 from pypose_tpu_torch.lietensor.scalarized import _qmul as tqmul
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 DTYPES = ['float32', 'float64']
 TOL = {'float32': 1e-5, 'float64': 1e-12}

@@ -29,6 +29,9 @@ from pypose_tpu_torch.datasets import find_data
 from pypose_tpu_torch.optim import make_batch_optimizer
 from pypose_tpu_torch.optim.strategy import Constant
 from pypose_tpu_torch.testing import batch_lm_instance
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ANCHOR = 'jax_anchor_batch_lm.json'
 B, SEED, STEPS = 4096, 7, 4

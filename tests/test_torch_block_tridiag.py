@@ -27,6 +27,9 @@ from pypose_tpu_torch.datasets import synthetic_sphere
 from pypose_tpu_torch.ops import block_tridiag as tbt
 from pypose_tpu_torch.optim import sparse
 from pypose_tpu_torch.testing import pgo_optimizer
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def system(rng, N, t, dtype):

@@ -17,6 +17,9 @@ import torch
 
 from pypose_tpu.ops.spmv import CouplingSpMV as JCoupling
 from pypose_tpu_torch.ops.spmv import TILE, CouplingSpMV
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def tol(dtype):

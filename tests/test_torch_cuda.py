@@ -1,8 +1,8 @@
 """The port's CUDA kernels on an NVIDIA GPU (marked ``cuda``; each test
 skips where torch has no CUDA device): the stencil CG solvers, the
 nearest-neighbour and SE3 kernels against their plain versions, the paths
-through them, and the general SparseLM routes (no kernel) card against
-CPU.  This file imports no jax, so it
+through them, and the general SparseLM routes, LSTSQ and EPnP (no kernel)
+card against CPU.  This file imports no jax, so it
 runs on a machine without the JAX package:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -18,6 +18,9 @@ from pypose_tpu_torch.ops import knn, se3, stencil_cg as scg
 from pypose_tpu_torch.testing import (nn1_tolerance_failures,
                                       nnk_tolerance_failures,
                                       random_stencil_system)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 pytestmark = pytest.mark.cuda
 
@@ -840,3 +843,49 @@ def test_ba_segment_sum_fallbacks_on_card(cuda, monkeypatch):
         want = getattr(c, name)(dict(c._obs_data(), cam_win=None), x)
         assert torch.equal(got, again)
         assert torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('kind', ['6x10', '6x6-rank4'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_lstsq_on_card_is_the_minimum_norm_answer(cuda, kind, dtype):
+    """LSTSQ on CUDA (the SVD minimum-norm route; torch's CUDA lstsq has
+    only gels) against the CPU route (gelsy, held to the JAX package by
+    test_torch_keywords_lstsq.py) on 5 systems of EPnP's N = 4 shape and
+    5 of exact rank 4 (integer factors): within 1e-5 (float32) and 1e-10
+    (float64) of (1 + magnitude), and orthogonal to the null space."""
+    import numpy as np
+    from pypose_tpu_torch.optim.solver import LSTSQ
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(5, 6, 10)) if kind == '6x10' else \
+        rng.integers(-3, 4, size=(5, 6, 4)) @ rng.integers(-3, 4,
+                                                         size=(5, 4, 6))
+    A = torch.tensor(A, dtype=dtype)
+    b = torch.tensor(rng.normal(size=(5, 6)), dtype=dtype)
+    want = LSTSQ()(A, b)
+    got = LSTSQ()(A.to(cuda), b.to(cuda)).cpu()
+    tol = (1e-5 if dtype == torch.float32 else 1e-10) * \
+        (1 + float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    _, _, Vh = torch.linalg.svd(A)
+    null = Vh[..., 4:, :] if kind != '6x10' else Vh[..., 6:, :]
+    assert float((null @ got[..., None]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize('refine', [False, True])
+def test_epnp_card_matches_cpu(cuda, refine):
+    """EPnP on the card against the CPU on the same float32 instance (64
+    problems, or 8 refined), held by testing.epnp_failures (each pose
+    within 2 (e_card + e_cpu) + 1e-6, at most one candidate flip); no
+    kernel launched."""
+    from pypose_tpu_torch.testing import (epnp_failures, epnp_instance,
+                                          epnp_solve, epnp_stats)
+    B = 8 if refine else 64
+    cpu = epnp_solve(epnp_instance(B, seed=1, device='cpu'), refine)
+    before = dict(scg=scg.LAUNCHES, knn=knn.NN1_LAUNCHES + knn.NNK_LAUNCHES)
+    card = epnp_solve(epnp_instance(B, seed=1, device=cuda), refine)
+    assert before == dict(scg=scg.LAUNCHES,
+                          knn=knn.NN1_LAUNCHES + knn.NNK_LAUNCHES)
+    ref = {'stats': epnp_stats(cpu[2]), 'candidates': cpu[1],
+           'poses': cpu[0], 'errors': cpu[2]}
+    bad, numbers = epnp_failures('epnp', ref, *card)
+    assert not bad, (bad, numbers)

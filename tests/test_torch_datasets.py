@@ -20,6 +20,9 @@ from pypose_tpu.datasets import load_g2o as jax_load_g2o
 from pypose_tpu.datasets import synthetic_sphere
 from pypose_tpu_torch import datasets
 from pypose_tpu_torch.datasets import find_data, load_g2o, save_g2o
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,9 @@ import torch
 
 import pypose_tpu as jpp
 import pypose_tpu_torch as pp
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 DTYPES = ['float32', 'float64']
 TOL = {'float32': 1e-6, 'float64': 1e-12}

@@ -25,6 +25,9 @@ from pypose_tpu.function.checking import is_SE3 as j_is_SE3
 from pypose_tpu.utils import ReduceToBason as JReduceToBason
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch.testing import assert_close
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def rotations(rng, n, angles):

@@ -25,6 +25,9 @@ from pypose_tpu.lietensor import jacobian as jjac
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch.lietensor import basics as tbasics
 from pypose_tpu_torch.lietensor import jacobian as tjac
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TOL = {'float32': 1e-6, 'float64': 1e-12}
 DTYPES = ['float32', 'float64']

@@ -22,6 +22,9 @@ from pypose_tpu.utils import ReduceToBason as JReduceToBason
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch.function import geometry as tgeo
 from pypose_tpu_torch.testing import assert_close
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def instance(N, batch=(), scale=1.0, sigma=(0.2, 0.1), seed=0):

@@ -22,6 +22,9 @@ import pypose_tpu as jpp
 from pypose_tpu.optim.implicit import least_squares as jls
 import pypose_tpu_torch as pp
 from pypose_tpu_torch.optim.implicit import least_squares
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 DTYPES = ['float32', 'float64']
 

@@ -26,6 +26,9 @@ import pypose_tpu as jpp
 from pypose_tpu.module import IMUPreintegrator as JIMU
 import pypose_tpu_torch as pp
 from pypose_tpu_torch.module import IMUPreintegrator
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 G = 9.81007
 DTYPES = ['float32', 'float64']

@@ -39,6 +39,9 @@ import torch
 from pypose_tpu_torch.datasets import find_data
 from pypose_tpu_torch.module import IMUPreintegrator
 from pypose_tpu_torch.testing import imu_instance
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ANCHOR = 'jax_anchor_imu_1m.json'
 F = 1_000_000

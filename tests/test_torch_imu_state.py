@@ -22,6 +22,9 @@ from pypose_tpu_torch.testing import module_state_from_numpy
 
 from test_torch_imu import (ATOL, DTYPES, STATE, arr, assert_outputs,
                             random_input, run_both)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

@@ -21,6 +21,9 @@ from pypose_tpu import datasets as jds
 from pypose_tpu.module import IMUPreintegrator as JIMU
 from pypose_tpu_torch import datasets as tds
 from pypose_tpu_torch.module import IMUPreintegrator
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 G = 9.81007
 

@@ -21,6 +21,9 @@ from pypose_tpu.function import geometry as jgeo
 from pypose_tpu.ops import pallas_knn
 from pypose_tpu_torch.function import geometry as tgeo
 from pypose_tpu_torch.ops import knn as tknn
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def clouds(seed, R, N, D=3):

@@ -19,6 +19,9 @@ from pypose_tpu.lietensor import jacobian as jjac, operation as jop
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch.lietensor import jacobian as tjac, operation as top
 from pypose_tpu_torch.testing import assert_close
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 DTYPES = [np.float32, np.float64]
 TOL = {np.float32: dict(rtol=1e-5, atol=1e-6),

@@ -14,6 +14,9 @@ import pypose_tpu.native as jax_native
 from pypose_tpu_torch import native
 from pypose_tpu_torch.datasets import (find_data, load_bal, load_g2o,
                                        save_bal, synthetic_bal)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 G2O = ['realformat_excerpt.g2o', 'synthetic_sphere2500_seed42.g2o']
 

@@ -18,6 +18,9 @@ from pypose_tpu import nn as jnn
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch import func as tfunc
 from pypose_tpu_torch import nn as tnn
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TOL = 1e-10
 

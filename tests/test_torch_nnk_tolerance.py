@@ -12,6 +12,9 @@ import torch
 
 from pypose_tpu_torch.ops import knn
 from pypose_tpu_torch.testing import nnk_tolerance_failures
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def _clouds(seed=0, R=64, N=300):

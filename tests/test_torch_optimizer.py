@@ -25,6 +25,9 @@ import pypose_tpu as jpp
 from pypose_tpu.optim import strategy as jstrat
 import pypose_tpu_torch as pp
 from pypose_tpu_torch.optim import strategy as tstrat
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 LOSS_TOL = {'float32': (1e-4, 1e-9), 'float64': (1e-8, 1e-20)}
 PARAM_TOL = {'float32': 1e-5, 'float64': 1e-10}

@@ -26,6 +26,9 @@ from pypose_tpu_torch.optim.scheduler import StopOnPlateau
 
 from test_torch_optimizer import (LOSS_TOL, PARAM_TOL, JPoseInv, TPoseInv,
                                   draw)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def test_scheduler_stop_on_plateau():

@@ -18,6 +18,9 @@ from pypose_tpu_torch.optim import corrector as tcorr, kernel as tkern, \
     solver as tsolv
 
 from test_torch_optimizer import assert_run, draw, run
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 @pytest.mark.parametrize('name', ['PINV', 'LSTSQ', 'Cholesky', 'CG', 'PCG'])

@@ -31,6 +31,9 @@ import torch
 
 from pypose_tpu_torch.datasets import find_data, synthetic_sphere
 from pypose_tpu_torch.testing import instance_checksum
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ANCHOR = 'jax_anchor_pgo100k_seed42.json'
 N, SEED = 100_000, 42

@@ -38,6 +38,9 @@ import numpy as np
 
 from pypose_tpu_torch.datasets import find_data, synthetic_sphere
 from pypose_tpu_torch.testing import instance_checksum, pgo_optimizer
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ANCHOR = 'jax_anchor_pgo_chain5k_seed5.json'
 N, LOOPS, SEED = 5000, 0.04, 5

@@ -40,6 +40,9 @@ import torch
 from pypose_tpu_torch.datasets import find_data, load_g2o, synthetic_sphere
 from pypose_tpu_torch.testing import (instance_checksum, pgo_group_instance,
                                       pgo_optimizer)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 SCALE_SEED = 7
 SPHERE = dict(radius=1e4, cg_iter=150, cg_tol=1e-8, steps=6,

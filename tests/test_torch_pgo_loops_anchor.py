@@ -30,6 +30,9 @@ import numpy as np
 from pypose_tpu_torch.datasets import find_data
 from pypose_tpu_torch.testing import (instance_checksum, pgo_loops_instance,
                                       pgo_optimizer)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ANCHOR = 'jax_anchor_pgo_loops10k.json'
 N = 10_000

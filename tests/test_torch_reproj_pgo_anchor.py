@@ -26,6 +26,9 @@ import numpy as np
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch.datasets import find_data
 from pypose_tpu_torch.testing import reproj_pgo_instance, reproj_pgo_optimizer
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 REPROJ = dict(radius=1e6, cg_iter=150, cg_tol=1e-7, steps=10,
               decreasing=1e-4, patience=2)

@@ -16,6 +16,9 @@ import torch
 
 from pypose_tpu.optim import kernel as jk
 from pypose_tpu_torch.optim import kernel as tk
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 KERNELS = [('Huber', dict(delta=5.0)), ('Huber', dict(delta=0.5)),
            ('PseudoHuber', dict(delta=2.0)), ('Cauchy', dict(delta=1.5)),

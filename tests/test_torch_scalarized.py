@@ -18,6 +18,9 @@ import torch
 from pypose_tpu.lietensor.scalarized import se3_pgo_blocks as jax_blocks
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch.lietensor.scalarized import se3_pgo_blocks
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TOL = {np.float32: dict(rtol=1e-5, atol=1e-5),
        np.float64: dict(rtol=1e-12, atol=1e-12)}

@@ -17,6 +17,9 @@ import torch
 import pypose_tpu_torch as ppt
 from pypose_tpu.ops import pallas_se3
 from pypose_tpu_torch.ops import se3 as tse3
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 @pytest.fixture

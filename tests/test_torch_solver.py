@@ -18,6 +18,9 @@ import torch
 
 from pypose_tpu.optim import solver as jsolver
 from pypose_tpu_torch.optim import solver as tsolver
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def spd(rng, n, cond=50.0):

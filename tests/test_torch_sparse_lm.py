@@ -25,6 +25,9 @@ from pypose_tpu_torch.optim import sparse as tsp
 from pypose_tpu_torch.optim.strategy import TrustRegion
 from pypose_tpu_torch.testing import (assert_close, params_from_numpy,
                                       strategy_state_from_numpy)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 CG = dict(cg_iter=150, cg_tol=1e-9)
 

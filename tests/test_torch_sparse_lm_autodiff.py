@@ -36,6 +36,9 @@ from pypose_tpu_torch.optim.sparse import (Factor, SparseLM, pgo_factor,
 from pypose_tpu_torch.optim.strategy import TrustRegion
 from pypose_tpu_torch.testing import (
     pgo_group_instance, pgo_loops_instance, pgo_optimizer, residual_only)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 HIST_RTOL = 1e-3
 BLOCK_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}
@@ -151,14 +154,10 @@ def test_sim3_chain_autodiff_matches_jax():
         cg_tol=1e-7)
     jhist = run_steps(jopt, 10)
 
-    def tresid(values, Z):
-        X = values['poses']
-        return (Z.Inv() @ (X[:, 0].Inv() @ X[:, 1])).Log().tensor()
-
     fixed = torch.zeros(N, dtype=torch.bool)
     fixed[0] = True
     opt = SparseLM({'poses': port_lie('Sim3', init)},
-                   [Factor(tresid, {'poses': torch.from_numpy(edges)},
+                   [Factor(jresid, {'poses': torch.from_numpy(edges)},
                            consts=port_lie('Sim3', Z))],
                    fixed={'poses': fixed}, cg_iter=100, cg_tol=1e-7)
     hist = run_steps(opt, 10)
@@ -197,15 +196,12 @@ def test_mixed_groups_ba_style_matches_jax():
                'points': jnp.zeros(P, bool)}, cg_iter=200, cg_tol=1e-7)
     jhist = run_steps(jopt, 10)
 
-    def tresid(values, obs):
-        return values['poses'][:, 0].Act(values['points'][:, 0]) - obs
-
     fixed = {'poses': torch.zeros(C, dtype=torch.bool),
              'points': torch.zeros(P, dtype=torch.bool)}
     fixed['poses'][0] = True
     opt = SparseLM({'poses': port_lie('SE3', init_pose),
                     'points': torch.from_numpy(init_pts)},
-                   [Factor(tresid, {'poses': torch.from_numpy(ci),
+                   [Factor(jresid, {'poses': torch.from_numpy(ci),
                                     'points': torch.from_numpy(pi)},
                            consts=torch.from_numpy(obs))],
                    fixed=fixed, cg_iter=200, cg_tol=1e-7)

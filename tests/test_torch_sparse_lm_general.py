@@ -38,6 +38,9 @@ from pypose_tpu_torch.optim import sparse as tsp
 from pypose_tpu_torch.optim.strategy import TrustRegion
 from pypose_tpu_torch.testing import (assert_close, pgo_loops_instance,
                                       pgo_optimizer, ring3_problem)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 def jax_pgo(ds, radius, cg_iter, cg_tol, split_chains=True):
     """The JAX package's SparseLM on a port pose-graph dict (as numpy), as

@@ -25,6 +25,9 @@ from pypose_tpu_torch.ops.spmv import StencilSpMV
 
 from test_torch_sparse_lm import jax_problem, torch_problem
 from test_torch_stencil_cg import make_system
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 @pytest.fixture(params=['tiled', 'fused'])

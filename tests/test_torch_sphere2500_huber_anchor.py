@@ -31,6 +31,9 @@ from pypose_tpu_torch.datasets import find_data, load_g2o
 from pypose_tpu_torch.optim.kernel import Huber
 from pypose_tpu_torch.testing import (instance_checksum, pgo_optimizer,
                                       two_phase)
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 HUBER_DELTA = 5.0
 # bench.py:199-205: phase 1 (cg_iter 150); phase 2 (cg_iter 1200) in

@@ -19,6 +19,9 @@ from pypose_tpu.ops import smallinv as jinv
 from pypose_tpu.ops.spmv import StencilSpMV as JStencil
 from pypose_tpu_torch.ops import smallinv as tinv
 from pypose_tpu_torch.ops.spmv import StencilSpMV
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 DTYPES = [np.float32, np.float64]
 

@@ -17,6 +17,9 @@ from pypose_tpu_torch.ops import _build
 from pypose_tpu_torch.ops import stencil_cg as scg
 from pypose_tpu_torch.ops.smallinv import blockinv
 from pypose_tpu_torch.ops.spmv import StencilSpMV
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def make_system(N, t=6, seed=0):

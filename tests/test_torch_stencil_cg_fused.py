@@ -20,6 +20,9 @@ from pypose_tpu_torch.testing import random_stencil_system
 
 from test_torch_stencil_cg_tiled import f64_system, lane_major
 from test_torch_stencil_cg import make_system
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 @pytest.mark.parametrize('seed', [5, 6])

@@ -21,6 +21,9 @@ from pypose_tpu_torch.ops import stencil_cg as scg
 from pypose_tpu_torch.ops.spmv import StencilSpMV
 
 from test_torch_stencil_cg import make_system
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def f64_system(N, seed):

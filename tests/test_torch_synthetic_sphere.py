@@ -14,6 +14,9 @@ from pypose_tpu.datasets import synthetic_sphere as jax_synthetic_sphere
 import pypose_tpu_torch as ppt
 from pypose_tpu_torch.datasets import synthetic_sphere
 from pypose_tpu_torch.testing import assert_close, instance_checksum
+from pypose_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 @pytest.mark.parametrize('n', [100, 2500])
