@@ -14,7 +14,11 @@ modes (no kernel on its path); then IMU preintegration at a million
 frames, the dense optimizers (4,096 problems batched), SparseLM's
 Adaptive strategy and the point-cloud filters; then LSTSQ on the card,
 EPnP at 10,000 problems, the EKF, UKF and PF over 1,000 steps and MPC on
-the cart-pole (no kernel on these paths).
+the cart-pole (no kernel on these paths); then trajectory evaluation
+(APE/RPE) of a solved sphere2500 graph and of a EuRoC-sized trajectory
+pair, SE3 B-splines over 60,000 control poses, a block-sparse E E^T at
+ba-trafalgar's size and the 15 examples (no kernel on these paths but
+the whole solve's).
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -214,7 +218,30 @@ Phases (any failure raises, so the script exits non-zero):
      to data/jax_anchor_mpc.json and to the CPU run; no kernel.  The
      tiled kernels' rows also carry their device time with L2 flushed
      before each launch (phase 3).
- 33. prints the kernels' JSON line (each kernel's, and each of the t = 3,
+ 33. traj-eval: synthetic_sphere(2500) through optim.sparse.pgo with
+     examples/pgo.py's schedule (route 'stencil', whole-solve launches),
+     testing.SPHERE_METRICS (APE aligned and Sim3-aligned in degrees, RPE
+     by frames and by 5 m of path) on the solved poses card against CPU
+     and on the initial poses against data/jax_anchor_metric.json; then
+     testing.euroc_instance() (36,000 reference poses at 200 Hz, 3,600
+     estimated at 20 Hz, +-2 ms jitter) through testing.EUROC_METRICS
+     (Sim3-aligned APE, all-pairs RPE at 1 m), cold, warm and profiled,
+     against the anchor and the CPU (testing.metric_failures).
+ 34. spline: bspline over 60,000 SE3 control poses at interval 0.1
+     (599,971 poses), with extrapolate=True, and chspline over 60,000
+     waypoints (599,991 points), cold, warm and profiled, held by
+     testing.spline_failures to data/jax_anchor_spline.json and the CPU.
+ 35. bsr: E = J_c^T J_p of ba-trafalgar's initial state (224,821 blocks
+     of 6 x 3) as BSR, E^T as BSC: bsr_bsc_matmul(E, E^T) (792,959 block
+     pairs, the dense 1,542 x 1,542 product) and bsr_matvec, cold, warm
+     and profiled, the host's pair list timed alone; two card runs bit
+     for bit, within BSR_RTOL of |E| |E|^T of scipy's float64 product and
+     of the CPU's.
+ 36. examples: the 15 scripts of pypose_tpu_torch/examples/ on the card
+     at their default sizes, one subprocess each, EXAMPLE_WORKERS at a
+     time (their output printed); each exits 0, pgo takes the stencil
+     route and prints its APE RMSE.
+ 37. prints the kernels' JSON line (each kernel's, and each of the t = 3,
      4, 7 instantiations', launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
@@ -2673,6 +2700,328 @@ def mpc_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# trajectory evaluation, splines, block-sparse products and the examples
+# (no kernel on their paths but the whole solve's)
+# ---------------------------------------------------------------------------
+
+def _metric_fns():
+    from pypose_tpu_torch.metric import ape, rpe
+    return {'ape': ape, 'rpe': rpe}
+
+
+def _rel_equal(a, b, what):
+    check(all(abs(a[k] / b[k] - 1) < 1e-12 for k in b),
+          f'{what}: the instance is not the anchor\'s ({a} against {b})')
+
+
+def traj_eval_phase(dev):
+    """[traj-eval] (a) synthetic_sphere(2500) solved by optim.sparse.pgo
+    with examples/pgo.py's schedule (TrustRegion(radius=1e4), 10 steps,
+    cg_iter 150, cg_tol 1e-6): route 'stencil' and the whole-solve kernel
+    launched; testing.SPHERE_METRICS on the solved poses, the card's
+    statistics against the port's CPU metric on the same poses, and on
+    (ground truth, initial poses) against data/jax_anchor_metric.json;
+    (b) testing.euroc_instance() (36,000 reference poses at 200 Hz, 3,600
+    estimated at 20 Hz) through testing.EUROC_METRICS, cold, warm and
+    profiled, against the anchor and the CPU (testing.metric_failures)."""
+    import contextlib
+    import io
+    import numpy as np
+    from pypose_tpu_torch.datasets import find_data, synthetic_sphere
+    from pypose_tpu_torch.optim.sparse import pgo
+    from pypose_tpu_torch.optim.strategy import TrustRegion
+    from pypose_tpu_torch.testing import (EUROC_METRICS, SPHERE_METRICS,
+                                          abs_sums, euroc_instance,
+                                          instance_checksum,
+                                          metric_failures, metric_stats)
+    t_phase = time.perf_counter()
+    with open(find_data('jax_anchor_metric.json')) as f:
+        anchor = json.load(f)
+    fns = _metric_fns()
+    ds = synthetic_sphere(2500, device=dev)
+    _rel_equal(instance_checksum(ds), anchor['sphere2500']['instance_checksum'],
+               'traj-eval sphere2500')
+    stamps = np.arange(2500, dtype=np.float64)
+    reset_counts()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        solve_ms, (nodes, hist) = synced_ms(lambda: pgo(
+            ds['nodes'], ds['edges'], ds['poses'], infos=ds['infos'],
+            steps=10, strategy=TrustRegion(radius=1e4), cg_iter=150,
+            cg_tol=1e-6, verbose=True))
+    counts = read_counts()
+    check("pgo: route 'stencil'" in log.getvalue(),
+          f'traj-eval: pgo did not take the stencil route: '
+          f'{log.getvalue().splitlines()[:1]}')
+    check(counts['LAUNCHES'] >= len(hist) and not any(
+        v for k, v in counts.items() if k != 'LAUNCHES'),
+        f'traj-eval: the solve launched {counts} for {len(hist)} steps')
+    solved = (stamps, ds['gt'], stamps, nodes)
+    card_ms, card = synced_ms(lambda: metric_stats(fns, SPHERE_METRICS,
+                                                   *solved))
+    warm_ms = statistics.median(
+        [synced_ms(lambda: metric_stats(fns, SPHERE_METRICS, *solved))[0]
+         for _ in range(3)])
+    cpu = metric_stats(fns, SPHERE_METRICS, stamps, ds['gt'].to('cpu'),
+                       stamps, nodes.to('cpu'))
+    bad, gap = metric_failures(cpu, card)
+    check(not bad, f'traj-eval: the card\'s metric of the solved poses is '
+          f'off the CPU\'s: {bad}')
+    init = metric_stats(fns, SPHERE_METRICS, stamps, ds['gt'], stamps,
+                        ds['nodes'])
+    abad, agap = metric_failures(anchor['sphere2500']['stats'], init)
+    check(not abad, f'traj-eval: the metric of the initial poses is off '
+          f'the JAX anchor: {abad}')
+    rmse = card['ape-align']['RMSE']
+    print(f'[traj-eval] sphere2500: pgo (route stencil) chi2 {hist[0]:.6e} '
+          f'-> {hist[-1]:.6e} in {len(hist)} steps, {solve_ms:.3f} ms, '
+          f'whole-solve launches {counts["LAUNCHES"]}; APE RMSE against '
+          f'ground truth (aligned) {rmse:.6f} (initial '
+          f'{init["ape-align"]["RMSE"]:.6f}); four metric calls on the card '
+          f'{card_ms:.3f} ms cold, {warm_ms:.3f} ms warm (median of 3); '
+          f'card against CPU largest gap {gap:.3e}, '
+          f'initial poses against the JAX anchor {agap:.3e}', flush=True)
+    out = {'pgo_ms': solve_ms, 'chi2': hist, 'launches': counts['LAUNCHES'],
+           'ape_rmse': rmse, 'sphere_metric_ms_cold': card_ms,
+           'sphere_metric_ms_warm': warm_ms,
+           'sphere_card_cpu_gap': gap, 'sphere_anchor_gap': agap}
+
+    d = euroc_instance(device=dev)
+    _rel_equal(abs_sums({k: d[k] for k in ('rpose', 'epose')}),
+               anchor['euroc']['instance_checksum'], 'traj-eval euroc')
+    args = (d['rstamp'], d['rpose'], d['estamp'], d['epose'])
+    res = {}
+    reset_counts()
+    for name in EUROC_METRICS:
+        one = {name: EUROC_METRICS[name]}
+
+        def run():
+            return metric_stats(fns, one, *args)
+        cold_ms, got = synced_ms(run)
+        warm = [synced_ms(run)[0] for _ in range(3)]
+        prof_ms, dev_ms, n_ops = profiled_call(run)
+        res[name] = {'ms_cold': cold_ms, 'ms_warm': statistics.median(warm),
+                     'ms_warm_runs': warm, 'ms_profiled': prof_ms,
+                     'device_ms': dev_ms, 'idle_share': 1 - dev_ms / prof_ms,
+                     'device_ops_per_call': n_ops, 'stats': got[name]}
+    got = {k: v['stats'] for k, v in res.items()}
+    t0 = time.perf_counter()
+    c = euroc_instance(device='cpu')
+    cpu = metric_stats(fns, EUROC_METRICS, c['rstamp'], c['rpose'],
+                       c['estamp'], c['epose'])
+    cpu_s = time.perf_counter() - t0
+    bad, gap = metric_failures(cpu, got)
+    abad, agap = metric_failures(anchor['euroc']['stats'], got)
+    for name, r in res.items():
+        print(f'[traj-eval] euroc {name}: cold {r["ms_cold"]:.3f} ms, warm '
+              f'{r["ms_warm"]:.3f} ms (median of {r["ms_warm_runs"]}); '
+              f'profiled call {r["ms_profiled"]:.3f} ms, device '
+              f'{r["device_ms"]:.3f} ms (idle share {r["idle_share"]:.4f}), '
+              f'{r["device_ops_per_call"]} device operations; {r["stats"]}',
+              flush=True)
+    print(f'[traj-eval] euroc: card against CPU ({cpu_s:.2f} s) largest gap '
+          f'{gap:.3e}, against the JAX anchor {agap:.3e} (bound '
+          f'METRIC_ATOL + METRIC_RTOL |value|); phase '
+          f'{time.perf_counter() - t_phase:.1f} s wall', flush=True)
+    check(not bad and not abad, f'traj-eval euroc: {bad + abad}')
+    check(all(np.isfinite(list(v.values())).all() for v in got.values()),
+          'traj-eval: a statistic is not finite')
+    no_launches('traj-eval euroc')
+    out['euroc'] = res
+    out['euroc_card_cpu_gap'], out['euroc_anchor_gap'] = gap, agap
+    out['wall_s'] = time.perf_counter() - t_phase
+    return out
+
+
+def spline_phase(dev):
+    """[spline] bspline over testing.spline_instance()'s 60,000 SE3 control
+    poses at interval 0.1 (599,971 poses), again with extrapolate=True,
+    and chspline over its 60,000 waypoints (599,991 points), float32,
+    cold, warm and profiled; each output's testing.spline_summary held by
+    testing.spline_failures to data/jax_anchor_spline.json and to the
+    port's CPU run."""
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.testing import (abs_sums, spline_calls,
+                                          spline_failures, spline_instance,
+                                          spline_summary)
+    t_phase = time.perf_counter()
+    with open(find_data('jax_anchor_spline.json')) as f:
+        anchor = json.load(f)
+    d = spline_instance(device=dev)
+    c = spline_instance(device='cpu')
+    _rel_equal(abs_sums(d), anchor['instance_checksum'], 'spline')
+    out = {}
+    reset_counts()
+    for (name, run), cpu_run in zip(spline_calls(ppt, d).items(),
+                                    spline_calls(ppt, c).values()):
+        cold_ms, got = synced_ms(run)
+        warm = [synced_ms(run)[0] for _ in range(3)]
+        prof_ms, dev_ms, n_ops = profiled_call(run)
+        got = spline_summary(got)
+        bad, gaps = spline_failures(anchor[name], got)
+        cbad, cgaps = spline_failures(spline_summary(cpu_run()), got)
+        r = {'rows': got['rows'], 'ms_cold': cold_ms,
+             'ms_warm': statistics.median(warm), 'ms_warm_runs': warm,
+             'ms_profiled': prof_ms, 'device_ms': dev_ms,
+             'idle_share': 1 - dev_ms / prof_ms, 'device_ops_per_call': n_ops,
+             'anchor_gaps': gaps, 'cpu_gaps': cgaps}
+        print(f'[spline] {name}: {got["rows"]} rows; cold {cold_ms:.3f} ms, '
+              f'warm {r["ms_warm"]:.3f} ms (median of {warm}); profiled '
+              f'call {prof_ms:.3f} ms, device {dev_ms:.3f} ms (idle share '
+              f'{r["idle_share"]:.4f}), {n_ops} device operations; gaps to '
+              f'the JAX anchor {gaps}, to the CPU {cgaps}', flush=True)
+        check(not bad and not cbad, f'spline {name}: {bad + cbad}')
+        out[name] = r
+    no_launches('spline')
+    out['wall_s'] = time.perf_counter() - t_phase
+    print(f'[spline] phase {out["wall_s"]:.1f} s wall', flush=True)
+    return out
+
+
+# bsr_bsc_matmul and bsr_matvec against float64: each entry within this
+# share of its |E| |E|^T (or |E| |x|) entry (measured 3.8e-7 and 2.1e-7
+# on the CPU at ba-trafalgar)
+BSR_RTOL = 1e-5
+
+
+def bsr_phase(dev):
+    """[bsr] E = J_c^T J_p of testing.ba_instance('ba-trafalgar') at its
+    initial state (testing.bsr_instance: a 6 x 3 block a camera-point
+    pair, as BSR; E^T as BSC): bsr_bsc_matmul(E, E^T), the dense 1,542 x
+    1,542 E E^T, and bsr_matvec(E, x), cold, warm and profiled, with the
+    host's pair and plan building timed alone; two card runs bit for bit,
+    each entry within BSR_RTOL of |E| |E|^T of scipy's float64 product
+    (testing.bsr_reference), and of the port's CPU result."""
+    import numpy as np
+    import scipy.sparse
+    import torch
+    from pypose_tpu_torch.sparse import bsr_bsc_matmul, bsr_matvec
+    from pypose_tpu_torch.sparse.ops import _segment_plan, bsr_bsc_pairs
+    from pypose_tpu_torch.testing import (ba_instance, bsr_instance,
+                                          bsr_reference)
+    t_phase = time.perf_counter()
+    m = bsr_instance(ba_instance('ba-trafalgar', device=dev))
+    E, Et = m['E'], m['Et']
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    ai, bi, oi = bsr_bsc_pairs(E, Et)
+    plan = _segment_plan(oi)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    x = torch.randn(E.shape[1], generator=torch.Generator().manual_seed(0))
+    xd = x.to(dev)
+    reset_counts()
+    res = {}
+    for name, run in (('matmul', lambda: bsr_bsc_matmul(E, Et)),
+                      ('matvec', lambda: bsr_matvec(E, xd))):
+        cold_ms, first = synced_ms(run)
+        warm = [synced_ms(run)[0] for _ in range(3)]
+        prof_ms, dev_ms, n_ops = profiled_call(run)
+        check(torch.equal(first, run()), f'bsr {name}: two card runs '
+              'differ')
+        res[name] = {'out': first, 'ms_cold': cold_ms,
+                     'ms_warm': statistics.median(warm),
+                     'ms_warm_runs': warm, 'ms_profiled': prof_ms,
+                     'device_ms': dev_ms, 'idle_share': 1 - dev_ms / prof_ms,
+                     'device_ops_per_call': n_ops}
+    no_launches('bsr')
+    ref = bsr_reference(E)
+    scale = bsr_reference(E._replace(values=E.values.abs()))
+    M = scipy.sparse.bsr_matrix((E.values.detach().cpu().double().numpy(),
+                                 E.col_indices, E.crow_indices), shape=E.shape)
+    x64 = x.double().numpy()
+    mv_ref, mv_scale = M @ x64, abs(M) @ np.abs(x64)
+    t0 = time.perf_counter()
+    mc = bsr_instance(ba_instance('ba-trafalgar', device='cpu'))
+    cpu = {'matmul': bsr_bsc_matmul(mc['E'], mc['Et']),
+           'matvec': bsr_matvec(mc['E'], x)}
+    cpu_s = time.perf_counter() - t0
+    gaps = {}
+    for name, want, sc in (('matmul', ref, scale),
+                           ('matvec', mv_ref, mv_scale)):
+        got = res[name].pop('out').cpu().double().numpy()
+        sc = np.maximum(sc, 1e-300)
+        gaps[name] = {'f64': float((np.abs(got - want) / sc).max()),
+                      'cpu': float((np.abs(got - cpu[name].double().numpy())
+                                    / sc).max())}
+        res[name]['gaps'] = gaps[name]
+    res.update(pairs=len(ai), blocks=E.values.shape[0], host_plan_ms=host_ms,
+               setup_s=setup_s, cpu_s=cpu_s)
+    for name in ('matmul', 'matvec'):
+        r = res[name]
+        print(f'[bsr] {name}: cold {r["ms_cold"]:.3f} ms, warm '
+              f'{r["ms_warm"]:.3f} ms (median of {r["ms_warm_runs"]}); '
+              f'profiled call {r["ms_profiled"]:.3f} ms, device '
+              f'{r["device_ms"]:.3f} ms (idle share {r["idle_share"]:.4f}), '
+              f'{r["device_ops_per_call"]} device operations; largest gap '
+              f'of |E| |E|^T (|E| |x|) to float64 {r["gaps"]["f64"]:.3e}, '
+              f'to the CPU {r["gaps"]["cpu"]:.3e} (bound {BSR_RTOL})',
+              flush=True)
+    res['wall_s'] = time.perf_counter() - t_phase
+    print(f'[bsr] E: {res["blocks"]} blocks of 6 x 3, {E.shape}; '
+          f'{res["pairs"]} block pairs; host pair list and summation plan '
+          f'{host_ms:.3f} ms (in each matmul call); set-up (instance and E) '
+          f'{setup_s:.2f} s; CPU run {cpu_s:.2f} s; phase '
+          f'{res["wall_s"]:.1f} s wall', flush=True)
+    check(all(g <= BSR_RTOL for v in gaps.values() for g in v.values()),
+          f'bsr: off float64 or the CPU: {gaps}')
+    return res
+
+
+# the port's examples, one subprocess each, run at their default sizes
+EXAMPLES = ('pgo', 'bundle_adjustment', 'reproj_pgo', 'imu_integration',
+            'imu_corrector', 'filters', 'mpc_cartpole', 'dynamics',
+            'icp_align', 'splines', 'rotation_averaging', 'mini_slam',
+            'bicycle', 'mpc_linear_learning', 'pointcloud_registration')
+EXAMPLE_WORKERS = 4
+
+
+def examples_phase():
+    """[examples] the 15 scripts of pypose_tpu_torch/examples/ on the card
+    at their default sizes, one subprocess each (EXAMPLE_WORKERS at a
+    time); each must exit 0 (the learning examples assert their own
+    improvement); the pgo example must take the stencil route and print
+    its APE RMSE.  Each example's output is printed, its lines prefixed
+    with its name."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def one(name):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', f'pypose_tpu_torch.examples.{name}'],
+            capture_output=True, text=True, timeout=600, cwd=root)
+        return name, proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        runs = [f.result() for f in [pool.submit(one, n) for n in EXAMPLES]]
+    out, failed = {}, []
+    for name, proc, s in runs:
+        lines = proc.stdout.strip().splitlines()
+        print('\n'.join(f'[examples] {name} | {line}' for line in lines),
+              flush=True)
+        out[name] = {'rc': proc.returncode, 's': s,
+                     'last': lines[-1] if lines else ''}
+        print(f'[examples] {name}: rc {proc.returncode}, {s:.1f} s wall; '
+              f'{out[name]["last"]}', flush=True)
+        if proc.returncode != 0:
+            failed.append(name)
+            print(proc.stderr[-2000:], flush=True)
+    pgo_out = dict((n, p) for n, p, _ in runs)['pgo'].stdout
+    ape_line = [line for line in pgo_out.splitlines() if 'APE RMSE' in line]
+    print(f'[examples] pgo: {pgo_out.splitlines()[1:2]}; {ape_line}; phase '
+          f'{time.perf_counter() - t_phase:.1f} s wall', flush=True)
+    check(not failed, f'examples: {failed} exited non-zero')
+    check("pgo: route 'stencil'" in pgo_out and ape_line,
+          'examples: pgo did not take the stencil route or print its APE')
+    out['wall_s'] = time.perf_counter() - t_phase
+    return out
+
+
 BLOCK_SIZE_CAP = 60
 
 
@@ -2860,6 +3209,11 @@ def main():
     newer.update(epnp_phase(dev))
     newer.update(filters_rollout_phase(dev))
     newer.update(mpc_phase(dev))
+    # 33.-36. trajectory evaluation, splines, block-sparse products and the
+    # examples (no kernel on their paths but the whole solve's)
+    newer.update({'traj-eval': traj_eval_phase(dev),
+                  'spline': spline_phase(dev), 'bsr': bsr_phase(dev),
+                  'examples': examples_phase()})
 
     # results: each kernel's bound from this run's shapes (two offsets;
     # float32 operands and vectors, 4 bytes a float)

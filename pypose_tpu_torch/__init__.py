@@ -37,8 +37,17 @@ torch and numpy, never jax.  It covers two paths:
   correctors, ``optim.scheduler.StopOnPlateau``,
   ``optim.make_batch_optimizer`` (``torch.func.vmap`` over independent
   problems) and ``optim.least_squares`` (differentiable by the implicit
-  function theorem), with ``function.linalg``.
+  function theorem), with ``function.linalg``;
+- trajectory evaluation and the support modules: ``metric`` (``ape``,
+  ``rpe``), ``chspline`` and ``bspline`` (``function/spline.py``),
+  ``sparse`` (BSR x BSC products and the BSR matvec in fixed-order
+  sums), ``utils`` (``Timer``, ``checkpoint`` in the JAX package's file
+  format, ``collect_env``), ``testing.comparison``, and ``examples``:
+  the 15 scripts of the JAX package's ``examples/``, run as
+  ``python -m pypose_tpu_torch.examples.<name>``.
 """
+
+__version__ = '0.1.0'
 
 from . import lietensor  # noqa: F401
 from . import datasets  # noqa: F401
@@ -52,6 +61,10 @@ from . import nn  # noqa: F401
 from . import func  # noqa: F401
 from . import native  # noqa: F401
 from . import basics  # noqa: F401
+from . import metric  # noqa: F401
+from . import sparse  # noqa: F401
+from .sparse import (  # noqa: F401
+    bsr_bsc_matmul, bsr_matvec, dense_to_bsr, dense_to_bsc)
 from .basics import (  # noqa: F401
     pm, cumops, cummul, cumprod, cumops_, cummul_, cumprod_)
 from .nn import Parameter, Module  # noqa: F401
@@ -68,7 +81,8 @@ from .lietensor import (  # noqa: F401
 from .function import (  # noqa: F401
     KNNResult, cart2homo, homo2cart, point2pixel, pixel2point, reprojerr,
     knn, svdtf, svdstf, is_lietensor, is_SE3, hasnan, nbr_filter,
-    random_filter, voxel_filter, knn_filter, bvv, bmv, bvmv)
+    random_filter, voxel_filter, knn_filter, bvv, bmv, bvmv, chspline,
+    bspline)
 from .module import ICP, IMUPreintegrator  # noqa: F401
 from .module.loss import geodesic_loss  # noqa: F401
 from .utils import ReduceToBason  # noqa: F401

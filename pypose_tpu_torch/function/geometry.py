@@ -293,7 +293,8 @@ def voxel_filter(points, voxel, random=False, generator=None):
     """Voxel downsampling: the mean (or, if ``random``, one point drawn
     with ``generator``) of each occupied voxel.  A host path through
     numpy, as in the JAX package: the output size depends on the data.
-    The result comes back in ``points``' dtype on its device.
+    ``voxel``: a sequence, array or tensor (on any device).  The result
+    comes back in ``points``' dtype on its device.
 
     Ref: pypose_tpu/function/geometry.py:305.
 
@@ -307,11 +308,13 @@ def voxel_filter(points, voxel, random=False, generator=None):
     import numpy as np
     assert points.dim() == 2, 'The point cloud dimension has to be 2.'
     pts = points.detach().cpu().numpy()
+    voxel = voxel.detach().cpu().numpy() if torch.is_tensor(voxel) \
+        else np.asarray(voxel)
     D, vdim = pts.shape[-1], len(voxel)
     assert D >= vdim
     assert all(v != 0 for v in voxel), 'Voxel size should be nonzero.'
     minp = pts[:, :vdim].min(axis=0)
-    indices = ((pts[:, :vdim] - minp) // np.asarray(voxel)).astype(np.int64)
+    indices = ((pts[:, :vdim] - minp) // voxel).astype(np.int64)
     uniq, inverse, counts = np.unique(indices, axis=0, return_inverse=True,
                                       return_counts=True)
     inverse = inverse.reshape(-1)

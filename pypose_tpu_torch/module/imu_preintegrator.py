@@ -85,9 +85,13 @@ class IMUPreintegrator(Module):
         if isinstance(gyro_cov, float):
             gyro_cov = torch.tensor([[gyro_cov] * 3], **kw)
         self.register_buffer('gravity', torch.tensor([0., 0., gravity], **kw))
-        self.register_buffer('pos', _check(torch.as_tensor(pos)))
-        self.register_buffer('rot', _check(rot))
-        self.register_buffer('vel', _check(torch.as_tensor(vel)))
+        # a given state keeps its dtype and goes to ``device``
+        self.register_buffer('pos', _check(torch.as_tensor(pos,
+                                                           device=device)))
+        self.register_buffer('rot', _check(rot if device is None
+                                           else rot.to(device)))
+        self.register_buffer('vel', _check(torch.as_tensor(vel,
+                                                           device=device)))
         self.register_buffer('cov', torch.zeros(1, 9, 9, **kw))
         self.register_buffer('gyro_cov', gyro_cov)
         self.register_buffer('acc_cov', acc_cov)

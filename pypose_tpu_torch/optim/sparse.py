@@ -856,7 +856,8 @@ def pgo(nodes, edges, poses, infos=None, steps=10, strategy=None,
     ``fix_first``, TrustRegion(radius=1e4) unless ``strategy`` is given.
     Steps until ``steps``, until a step with rejections makes no progress,
     or until chi2 falls by less than ``tol * max(1, chi2)``.  Returns
-    (the optimized nodes, the chi2 history).
+    (the optimized nodes, the chi2 history).  ``verbose`` prints the
+    solve's route (:attr:`SparseLM.route`) and each step's chi2.
 
     Ref: pypose_tpu/optim/sparse.py:1066-1113.
     """
@@ -884,6 +885,8 @@ def pgo(nodes, edges, poses, infos=None, steps=10, strategy=None,
     opt = SparseLM({'poses': nodes}, factors,
                    strategy=strategy or TrustRegion(radius=1e4),
                    fixed=fixed, cg_iter=cg_iter, cg_tol=cg_tol)
+    if verbose:
+        print(f"pgo: route '{opt.route}'")
     history = []
     for i in range(steps):
         loss = opt.step()

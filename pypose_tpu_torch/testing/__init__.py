@@ -1,7 +1,7 @@
-r"""Test helpers: state carried over from the JAX package as numpy, and a
-group-aware closeness assertion.
-
-Counterpart of ``pypose_tpu/testing/comparison.py:9-30`` (``assert_close``).
+r"""Test helpers: state carried over from the JAX package as numpy, the
+cells' instances, and the group-aware closeness assertion
+``assert_close`` (``testing/comparison.py``, the counterpart of
+``pypose_tpu/testing/comparison.py:9-30``).
 ``params_from_numpy`` and ``strategy_state_from_numpy`` let a test start
 the port's ``SparseLM`` from exactly the state the JAX package holds:
 the caller passes ``np.asarray(X.tensor())`` for each LieTensor, so both
@@ -39,6 +39,7 @@ import torch
 from ..lietensor.lietensor import LieTensor, liealgebra, liegroup
 from ..lietensor.utils import identity_se3
 from ..nn import Module, Parameter
+from .comparison import assert_close  # noqa: F401
 
 _LTYPES = {lt.name: lt for lt in liegroup + liealgebra}
 
@@ -77,29 +78,6 @@ def strategy_state_from_numpy(state, device=None, dtype=None):
     and ``down``) as 0-d tensors."""
     return {k: torch.tensor(np.asarray(v), device=device, dtype=dtype)
             for k, v in state.items()}
-
-
-def _numpy(x):
-    x = x.tensor() if isinstance(x, LieTensor) else x
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
-def assert_close(actual, expected, rtol=None, atol=None, **kwargs):
-    """Assert closeness; for group LieTensors compares ``(a^-1 b).Log()``
-    to 0, so that q and -q count as the same rotation."""
-    if isinstance(actual, LieTensor) and isinstance(expected, LieTensor) \
-            and not actual.ltype.on_manifold:
-        error = _numpy((actual.Inv() @ expected).Log())
-        np.testing.assert_allclose(error, np.zeros(error.shape),
-                                   rtol=0 if rtol is None else rtol,
-                                   atol=1e-5 if atol is None else atol)
-        return
-    a, b = _numpy(actual), _numpy(expected)
-    if rtol is None:
-        rtol = 1.3e-6 if a.dtype == np.float32 else 1e-7
-    if atol is None:
-        atol = 1e-5 if a.dtype == np.float32 else 1e-7
-    np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, **kwargs)
 
 
 def random_stencil_system(N, loop_offset, n_loops, fixed, generator,
@@ -966,3 +944,233 @@ def mpc_failures(name, want, x, cost, rtol=1e-4, tail_tol=1e-3,
     if MPC_CELLS[name][2] and not tl < 0.1:
         bad.append(f'{name} tail {tl} not swung up')
     return bad
+
+
+# ---------------------------------------------------------------------------
+# trajectory evaluation, splines and block-sparse products: the instances
+# of chip_smoke.py's [traj-eval], [spline] and [bsr] phases, drawn in
+# float64 numpy from a seed and then rounded, so both packages and every
+# device get the same arrays
+# ---------------------------------------------------------------------------
+
+def _euler_quat(rpy):
+    """Roll, pitch, yaw [n, 3] (ZYX) to quaternions [n, 4] (x, y, z, w)."""
+    cr, cp, cy = (np.cos(rpy[:, i] / 2) for i in range(3))
+    sr, sp, sy = (np.sin(rpy[:, i] / 2) for i in range(3))
+    return np.stack([sr * cp * cy - cr * sp * sy,
+                     cr * sp * cy + sr * cp * sy,
+                     cr * cp * sy - sr * sp * cy,
+                     cr * cp * cy + sr * sp * sy], -1)
+
+
+def _quat_mul(a, b):
+    ax, ay, az, aw = np.moveaxis(a, -1, 0)
+    bx, by, bz, bw = np.moveaxis(b, -1, 0)
+    return np.stack([aw * bx + ax * bw + ay * bz - az * by,
+                     aw * by - ax * bz + ay * bw + az * bx,
+                     aw * bz + ax * by - ay * bx + az * bw,
+                     aw * bw - ax * bx - ay * by - az * bz], -1)
+
+
+def _rotvec_quat(v):
+    th = np.linalg.norm(v, axis=-1, keepdims=True)
+    axis = v / np.maximum(th, 1e-300)
+    return np.concatenate([np.sin(th / 2) * axis, np.cos(th / 2)], -1)
+
+
+def _quat_R(q):
+    x, y, z, w = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+
+
+def _smooth_walk(rng, n, sigma, width):
+    """[n, 3]: the running sum of white noise (``sigma``) smoothed by a
+    Gaussian window of ``2 width + 1`` samples."""
+    w = rng.normal(size=(n + 2 * width, 3)) * sigma
+    k = np.exp(-0.5 * (np.arange(-width, width + 1) / (width / 3)) ** 2)
+    k /= k.sum()
+    return np.cumsum(np.stack([np.convolve(w[:, i], k, mode='valid')
+                               for i in range(3)], -1), axis=0)
+
+
+EUROC_REF_HZ, EUROC_EST_HZ = 200, 20
+
+
+def euroc_instance(n_ref=36_000, n_est=3_600, seed=0, dtype=torch.float32,
+                   device='cuda'):
+    """A EuRoC-like trajectory pair (the metric cell of [traj-eval]): the
+    reference at ``EUROC_REF_HZ`` (a flight on a 4 m circle at 0.8 m/s,
+    1.5 m up, with smooth random walks in position and attitude), the
+    estimate at ``EUROC_EST_HZ`` with +-2 ms of stamp jitter, under a
+    Sim3 drift (scale 1.15, a 0.4 rad rotation, a 2.3 m shift), a smooth
+    position drift and noise (1 cm, 5 mrad).  Drawn from
+    ``np.random.default_rng(seed)`` in float64; the poses rounded to
+    ``dtype`` on ``device`` (the card unless asked), the stamps float64
+    numpy.  Returns dict(rstamp, rpose, estamp, epose)."""
+    from ..lietensor.utils import SE3
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_ref) / EUROC_REF_HZ
+    pos = np.stack([4 * np.cos(0.2 * t), 4 * np.sin(0.2 * t),
+                    1.5 + 0.3 * np.sin(0.05 * t)], -1) \
+        + _smooth_walk(rng, n_ref, 0.003, 100)
+    rpy = np.stack([0 * t, 0 * t, 0.2 * t + np.pi / 2], -1) \
+        + _smooth_walk(rng, n_ref, 0.0005, 100)
+    q = _euler_quat(rpy)
+    idx = np.arange(n_est) * (n_ref // n_est)
+    estamp = t[idx] + rng.uniform(-2e-3, 2e-3, n_est)
+    qd = _rotvec_quat(np.array([0.05, -0.03, 0.4]))
+    epos = 1.15 * pos[idx] @ _quat_R(qd).T + np.array([1.0, -2.0, 0.5]) \
+        + _smooth_walk(rng, n_est, 0.002, 20) \
+        + 0.01 * rng.normal(size=(n_est, 3))
+    eq = _quat_mul(_rotvec_quat(0.005 * rng.normal(size=(n_est, 3))),
+                   _quat_mul(qd[None], q[idx]))
+
+    def se3(p, r):
+        return SE3(torch.tensor(np.concatenate([p, r], -1), dtype=dtype,
+                                device=device))
+    return dict(rstamp=t, rpose=se3(pos, q), estamp=estamp,
+                epose=se3(epos, eq))
+
+
+def spline_instance(n=60_000, seed=0, dtype=torch.float32, device='cuda'):
+    """The [spline] cell's inputs: ``poses``, n SE3 control poses of a
+    random walk (0.1 m and 0.05 rad a step, Euler angles to quaternions),
+    and ``points``, n waypoints of a random walk in R^3 (unit steps); drawn
+    from ``np.random.default_rng(seed)`` in float64, rounded to
+    ``dtype`` on ``device``."""
+    from ..lietensor.utils import SE3
+    rng = np.random.default_rng(seed)
+    pos = np.cumsum(0.1 * rng.normal(size=(n, 3)), 0)
+    rpy = np.cumsum(0.05 * rng.normal(size=(n, 3)), 0)
+    points = np.cumsum(rng.normal(size=(n, 3)), 0)
+    return dict(poses=SE3(torch.tensor(np.concatenate(
+        [pos, _euler_quat(rpy)], -1), dtype=dtype, device=device)),
+        points=torch.tensor(points, dtype=dtype, device=device))
+
+
+def abs_sums(d):
+    """``name -> sum |x|`` (float64, on the host) of a dict of tensors
+    and LieTensors: what the anchors record to tell one instance from
+    another."""
+    return {k: float(np.abs(_np64(v)).sum()) for k, v in d.items()}
+
+
+def spline_calls(pp, d):
+    """The three calls of the [spline] cell on package ``pp``'s splines
+    (the port or the JAX package) over ``d`` (:func:`spline_instance`'s
+    arrays, crossed over for the JAX package)."""
+    return {'bspline': lambda: pp.bspline(d['poses'], interval=0.1),
+            'bspline-extrapolate': lambda: pp.bspline(
+                d['poses'], interval=0.1, extrapolate=True),
+            'chspline': lambda: pp.chspline(d['points'], interval=0.1)}
+
+
+def spline_summary(x, every=1000):
+    """What the spline anchor keeps of an output [M, C] (a LieTensor's
+    storage or a tensor): every ``every``-th row, and the float64 sums,
+    maxima and largest magnitudes of the columns."""
+    x = _np64(x.tensor() if isinstance(x, LieTensor) else x)
+    return {'rows': x.shape[0], 'every': x[::every].tolist(),
+            'sum': x.sum(0).tolist(), 'max': x.max(0).tolist(),
+            'absmax': np.abs(x).max(0).tolist()}
+
+
+# the spline outputs' tolerance, of each column's largest magnitude
+# (about 16 float32 ulps; measured: 4 ulps between the packages on the CPU)
+SPLINE_RTOL = 2e-6
+
+
+def spline_failures(want, got, rtol=SPLINE_RTOL):
+    """Two :func:`spline_summary` dicts held to each other: the same row
+    count, every sampled row, maximum and magnitude within ``rtol`` of
+    its column's largest magnitude, and each column sum within that
+    bound times the row count (what rows within it can give).  Returns
+    (failures, the largest gap of each)."""
+    if want['rows'] != got['rows']:
+        return [f'{got["rows"]} rows, not {want["rows"]}'], {}
+    atol = rtol * np.maximum(np.asarray(want['absmax']), 1.0)
+    gaps, bad = {}, []
+    for key, tol in (('every', atol), ('max', atol), ('absmax', atol),
+                     ('sum', atol * want['rows'])):
+        gap = np.abs(np.asarray(got[key]) - np.asarray(want[key]))
+        gaps[key] = float(gap.max())
+        if not (gap <= tol).all():
+            bad.append(f'{key}: gap {gaps[key]:.3e} past its bound')
+    return bad, gaps
+
+
+def bsr_instance(ds):
+    """The [bsr] cell's matrices from a bundle-adjustment problem ``ds``
+    (``ba_instance``): E = J_c^T J_p at the initial state, one 6 x 3 block
+    a (camera, point) pair observed (duplicate observations summed in a
+    fixed order), as a BSR of shape [6 C, 3 P], and E^T as a BSC of shape
+    [3 P, 6 C] over the same blocks transposed; on ``ds``'s device."""
+    from ..lietensor.scalarized import bal_reproj_blocks
+    from ..sparse.ops import BSC, BSR, _segment_plan, _segment_sum
+    ci, pi = ds['cam_idx'], ds['pt_idx']
+    C, P = ds['poses'].shape[0], ds['points'].shape[0]
+    _, Jc, Jp = bal_reproj_blocks(ds['poses'].tensor()[ci], ds['points'][pi],
+                                  ds['cameras'][ci], ds['pixels'])
+    blocks = (Jc[:, :, :, None] * Jp[:, :, None, :]).sum(dim=1)  # [O, 6, 3]
+    key = ci.cpu().numpy() * P + pi.cpu().numpy()
+    plan = _segment_plan(key)
+    values = _segment_sum(blocks.reshape(-1, 18), plan).reshape(-1, 6, 3)
+    rows, cols = plan[2] // P, plan[2] % P
+    crow = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=C))])
+    return dict(E=BSR(crow, cols, values, (6 * C, 3 * P)),
+                Et=BSC(crow, cols, values.transpose(1, 2).contiguous(),
+                       (3 * P, 6 * C)))
+
+
+def bsr_reference(E):
+    """E E^T of a BSR in float64 through ``scipy.sparse`` (an independent
+    reference for ``bsr_bsc_matmul``), dense numpy."""
+    import scipy.sparse
+    M = scipy.sparse.bsr_matrix(
+        (_np64(E.values), E.col_indices, E.crow_indices), shape=E.shape)
+    return (M @ M.T).toarray()
+
+
+# the metric calls of [traj-eval]: name -> (metric, keywords); on the
+# sphere2500 poses against its ground truth (its poses lie ~1.8 m apart,
+# so the distance pairs are 5 m long: at 1 m, within the default 10%,
+# there are none and the metric raises), and on the EuRoC-like pair
+SPHERE_METRICS = {
+    'ape-align': ('ape', dict(align=True)),
+    'ape-scale-degree': ('ape', dict(scale=True, etype='degree')),
+    'rpe-frame': ('rpe', dict(associate='frame', delta=1)),
+    'rpe-distance-all': ('rpe', dict(associate='distance', delta=5.0,
+                                     all=True))}
+EUROC_METRICS = {
+    'ape-scale': ('ape', dict(scale=True)),
+    'rpe-distance-all': ('rpe', dict(associate='distance', delta=1.0,
+                                     rtol=0.1, all=True))}
+# float32 statistics against the JAX package's or across devices: the
+# same formulas; the Umeyama 3x3 SVD differs between LAPACK builds
+# (tests/test_torch_metric.py measures it)
+METRIC_ATOL, METRIC_RTOL = 2e-5, 1e-5
+
+
+def metric_stats(metrics, cases, rstamp, rpose, estamp, epose):
+    """Each case's statistics as floats: ``metrics`` maps 'ape' and 'rpe'
+    to one package's functions, ``cases`` is :data:`SPHERE_METRICS` or
+    :data:`EUROC_METRICS`."""
+    return {name: {k: float(v) for k, v in metrics[fn](
+        rstamp, rpose, estamp, epose, **kw).items()}
+        for name, (fn, kw) in cases.items()}
+
+
+def metric_failures(want, got, atol=METRIC_ATOL, rtol=METRIC_RTOL):
+    """:func:`metric_stats` dicts held to each other: every statistic
+    within ``atol + rtol |want|``.  Returns (failures, largest gap)."""
+    bad, worst = [], 0.0
+    for name, stats in want.items():
+        for k, w in stats.items():
+            gap = abs(got[name][k] - w)
+            worst = max(worst, gap)
+            if not gap <= atol + rtol * abs(w):
+                bad.append(f'{name} {k}: {got[name][k]} against {w}')
+    return bad, worst

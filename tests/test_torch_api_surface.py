@@ -6,18 +6,23 @@ on its Do-not-port list (ROADMAP.md C7)."""
 import pytest
 
 import pypose_tpu as jpp
+import pypose_tpu.function as jfunction
+import pypose_tpu.metric as jmetric
 import pypose_tpu.module as jmodule
+import pypose_tpu.sparse as jsparse
+import pypose_tpu.testing as jtesting
+import pypose_tpu.utils as jutils
 import pypose_tpu_torch as ppt
+import pypose_tpu_torch.metric as tmetric
 import pypose_tpu_torch.module as tmodule
+import pypose_tpu_torch.sparse as tsparse
+import pypose_tpu_torch.utils as tutils
 from pypose_tpu_torch.testing import cap_threads
 
 cap_threads()
 
 # ROADMAP.md Queue A: the item that still owes each name
-OWED = {'metric': 5, 'chspline': 5, 'bspline': 5,
-        'sparse': 6, 'bsr_bsc_matmul': 6, 'bsr_matvec': 6,
-        'dense_to_bsr': 6, 'dense_to_bsc': 6,
-        'parallel': 7}
+OWED = {'parallel': 7}
 # ROADMAP.md "Do not port"
 DO_NOT_PORT = {'autograd', 'retain_ltype', 'interop', 'seed'}
 
@@ -39,6 +44,28 @@ def test_module_exports():
     assert sorted(tmodule.__all__) == sorted(jmodule.__all__)
     for name in jmodule.__all__:
         assert callable(getattr(tmodule, name))
+
+
+@pytest.mark.parametrize('jmod,tmod', [(jmetric, tmetric),
+                                       (jsparse, tsparse),
+                                       (jutils, tutils)],
+                         ids=['metric', 'sparse', 'utils'])
+def test_subpackage_exports(jmod, tmod):
+    """``metric``, ``sparse`` and ``utils`` export the JAX package's
+    ``__all__``, and each name resolves."""
+    assert sorted(tmod.__all__) == sorted(jmod.__all__)
+    for name in jmod.__all__:
+        assert getattr(tmod, name) is not None
+
+
+def test_function_and_testing_names():
+    """Every name of ``pypose_tpu.function.__all__`` and
+    ``pypose_tpu.testing.__all__`` is in the port's counterpart."""
+    import pypose_tpu_torch.function as tfunction
+    import pypose_tpu_torch.testing as ttesting
+    for jmod, tmod in ((jfunction, tfunction), (jtesting, ttesting)):
+        for name in jmod.__all__:
+            assert callable(getattr(tmod, name)), name
 
 
 def test_c7_names_work():

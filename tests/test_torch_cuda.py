@@ -889,3 +889,172 @@ def test_epnp_card_matches_cpu(cuda, refine):
            'poses': cpu[0], 'errors': cpu[2]}
     bad, numbers = epnp_failures('epnp', ref, *card)
     assert not bad, (bad, numbers)
+
+
+# ---------------------------------------------------------------------------
+# trajectory metrics, splines, block-sparse products, Timer, checkpoints
+# (no kernel on their paths)
+# ---------------------------------------------------------------------------
+
+def test_metric_card_matches_cpu(cuda):
+    """testing.EUROC_METRICS on a tenth of the EuRoC-like instance (3,600
+    reference and 360 estimated poses) and testing.SPHERE_METRICS on the
+    2,500-pose synthetic sphere graph (ground truth against the initial
+    poses): the card's statistics against the CPU's within
+    testing.METRIC_ATOL + METRIC_RTOL |value|."""
+    import numpy as np
+    from pypose_tpu_torch.datasets import synthetic_sphere
+    from pypose_tpu_torch.metric import ape, rpe
+    from pypose_tpu_torch.testing import (EUROC_METRICS, SPHERE_METRICS,
+                                          euroc_instance, metric_failures,
+                                          metric_stats)
+    fns = {'ape': ape, 'rpe': rpe}
+    stats = {}
+    for dev in ('cpu', cuda):
+        d = euroc_instance(3_600, 360, device=dev)
+        ds = synthetic_sphere(2500, device=dev)
+        stamps = np.arange(2500, dtype=np.float64)
+        stats[str(dev)] = (
+            metric_stats(fns, EUROC_METRICS, d['rstamp'], d['rpose'],
+                         d['estamp'], d['epose']),
+            metric_stats(fns, SPHERE_METRICS, stamps, ds['gt'], stamps,
+                         ds['nodes']))
+    for want, got in zip(stats['cpu'], stats[str(cuda)]):
+        bad, _ = metric_failures(want, got)
+        assert not bad, bad
+
+
+def test_svdstf_reflection_card_matches_cpu(cuda):
+    """svdstf (cuSOLVER's SVD on the card) on a planar cloud mirrored in
+    z (det(U V) = -1 without the sign fix) and on a plain one: the card's
+    Sim3 within 1e-5 of the CPU's, a proper rotation either way."""
+    from pypose_tpu_torch.function.geometry import svdstf
+    gen = torch.Generator().manual_seed(0)
+    src = torch.randn(200, 3, generator=gen)
+    src[:, 2] *= 1e-3
+    T = svdstf(src, src * torch.tensor([1.3, 1.3, 1.3]))
+    mirrored = src * torch.tensor([1., 1., -1.]) + torch.tensor([1., 2., 3.])
+    for tgt in (mirrored, 2.0 * src + 0.5):
+        want = svdstf(src, tgt).tensor()
+        got = svdstf(src.to(cuda), tgt.to(cuda)).tensor().cpu()
+        assert float((got - want).abs().max()) <= 1e-5, (got, want)
+        assert abs(float(got[3:7].norm()) - 1) < 1e-5
+    assert abs(float(T.tensor()[7]) - 1.3) < 1e-4
+
+
+def test_splines_card_match_cpu(cuda):
+    """bspline (with and without extrapolate) and chspline over 2,000
+    control poses and waypoints of testing.spline_instance: the card's
+    outputs held to the CPU's by testing.spline_failures."""
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.testing import (spline_failures, spline_instance,
+                                          spline_summary)
+    out = {}
+    for dev in ('cpu', cuda):
+        d = spline_instance(2_000, device=dev)
+        out[str(dev)] = [spline_summary(x, every=37) for x in (
+            ppt.bspline(d['poses'], 0.1),
+            ppt.bspline(d['poses'], 0.1, extrapolate=True),
+            ppt.chspline(d['points'], 0.1))]
+    for want, got in zip(out['cpu'], out[str(cuda)]):
+        bad, _ = spline_failures(want, got)
+        assert not bad, bad
+
+
+def test_bsr_products_deterministic_on_card(cuda):
+    """E = J_c^T J_p of synthetic_bal(16, 300) (testing.bsr_instance):
+    bsr_bsc_matmul(E, E^T) and bsr_matvec on the card, two runs bit for
+    bit, within 1e-5 of scipy's float64 product (entrywise, of |E| |E|^T)
+    and of the CPU's result."""
+    import numpy as np
+    from pypose_tpu_torch.datasets import synthetic_bal
+    from pypose_tpu_torch.sparse import bsr_bsc_matmul, bsr_matvec
+    from pypose_tpu_torch.testing import bsr_instance, bsr_reference
+    res = {}
+    for dev in ('cpu', cuda):
+        m = bsr_instance(synthetic_bal(16, 300, device=dev))
+        x = torch.linspace(-1, 1, m['E'].shape[1], device=dev)
+        res[str(dev)] = (m, bsr_bsc_matmul(m['E'], m['Et']),
+                         bsr_matvec(m['E'], x))
+        if dev == cuda:
+            assert torch.equal(res[str(dev)][1],
+                               bsr_bsc_matmul(m['E'], m['Et']))
+            assert torch.equal(res[str(dev)][2], bsr_matvec(m['E'], x))
+    m = res['cpu'][0]
+    ref = bsr_reference(m['E'])
+    absE = m['E']._replace(values=m['E'].values.abs())
+    scale = bsr_reference(absE)
+    for dev in ('cpu', str(cuda)):
+        got = res[dev][1].cpu().double().numpy()
+        assert (np.abs(got - ref) <= 1e-5 * np.maximum(scale, 1e-30)).all()
+    mv_gap = (res[str(cuda)][2].cpu() - res['cpu'][2]).abs().max()
+    assert float(mv_gap) <= 1e-5 * float(res['cpu'][2].abs().max())
+
+
+def test_timer_waits_for_the_card(cuda):
+    """Timer() (the card by default) measures the queued work: at least
+    0.9 of the CUDA-event time of the same 20 matmuls."""
+    from pypose_tpu_torch.utils import Timer
+    a = torch.randn(4096, 4096, device=cuda)
+
+    def work():
+        for _ in range(20):
+            a @ a
+    work()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    work()
+    end.record()
+    torch.cuda.synchronize()
+    event_s = start.elapsed_time(end) / 1e3
+    t = Timer()
+    work()
+    assert t.toc() >= 0.9 * event_s
+    assert t.device.type == 'cuda'
+
+
+def test_checkpoint_from_card_loads_on_card(cuda, tmp_path):
+    """A tree of card tensors and LieTensors saved and loaded: on the card
+    by default, on the CPU when asked, the same values and ltypes."""
+    import os
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.utils import checkpoint
+    g = torch.Generator().manual_seed(0)
+    tree = {'T': ppt.randn_SE3(4, generator=g, device=cuda),
+            'x': torch.arange(5.0, device=cuda),
+            'l': [ppt.randn_Sim3(2, generator=g, device=cuda), 3, 'a'],
+            't': (torch.ones(2, dtype=torch.float64, device=cuda),)}
+    path = os.path.join(str(tmp_path), 'state')
+    checkpoint.save(path, tree)
+    back = checkpoint.load(path)
+    assert back['T'].device.type == 'cuda' and back['T'].ltype is \
+        ppt.SE3_type
+    assert torch.equal(back['T'].tensor(), tree['T'].tensor())
+    assert torch.equal(back['x'], tree['x'])
+    assert back['l'][0].ltype is ppt.Sim3_type and back['l'][1:] == [3, 'a']
+    assert back['t'][0].dtype == torch.float64
+    cpu = checkpoint.load(path, device='cpu')
+    assert cpu['T'].device.type == 'cpu'
+
+
+def test_imu_state_and_voxel_given_on_another_device(cuda):
+    """IMUPreintegrator(vel=a CPU tensor, device=the card) integrates card
+    inputs (the given state moves to ``device``), and voxel_filter takes
+    its voxel size as a card tensor: both as on the CPU."""
+    from pypose_tpu_torch.function.geometry import voxel_filter
+    from pypose_tpu_torch.module import IMUPreintegrator
+    dt = torch.full((1, 20, 1), 0.01)
+    gyro = torch.tensor([0., 0., 0.5]).expand(1, 20, 3)
+    acc = torch.tensor([0., 1.25, 9.81007]).expand(1, 20, 3)
+    vel = torch.tensor([2.5, 0., 0.])
+    want = IMUPreintegrator(vel=vel, reset=True)(dt, gyro, acc)['pos']
+    got = IMUPreintegrator(vel=vel, reset=True, device=cuda)(
+        dt.to(cuda), gyro.to(cuda), acc.to(cuda))['pos']
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    pts = torch.rand(500, 3, generator=torch.Generator().manual_seed(0))
+    want = voxel_filter(pts, torch.tensor([0.2, 0.2, 0.2]))
+    got = voxel_filter(pts.to(cuda), torch.tensor([0.2, 0.2, 0.2],
+                                                  device=cuda))
+    assert got.device.type == 'cuda'
+    assert torch.equal(got.cpu(), want)
+
