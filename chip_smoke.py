@@ -18,7 +18,10 @@ the cart-pole (no kernel on these paths); then trajectory evaluation
 (APE/RPE) of a solved sphere2500 graph and of a EuRoC-sized trajectory
 pair, SE3 B-splines over 60,000 control poses, a block-sparse E E^T at
 ba-trafalgar's size and the 15 examples (no kernel on these paths but
-the whole solve's).
+the whole solve's); then knn on descriptor clouds (33 and 128
+coordinates) through the nearest-neighbour kernels' wide scans, and the
+sharded optimizers (parallel/) at one NCCL rank and at two gloo ranks on
+the one card (no kernel on that path).
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -241,7 +244,34 @@ Phases (any failure raises, so the script exits non-zero):
      at their default sizes, one subprocess each, EXAMPLE_WORKERS at a
      time (their output printed); each exits 0, pgo takes the stencil
      route and prints its APE RMSE.
- 37. prints the kernels' JSON line (each kernel's, and each of the t = 3,
+ 37. (run after 9.) knn-wide: nn1 and nnk(k=8) through the wide scans
+     of csrc/knn.cu on FPFH-like clouds (33 coordinates, 50,000 x 50,000), SIFT-like
+     clouds (128, 20,000 x 100,000) and FPFH-like float64 clouds (10,000
+     x 10,000), each held to its plain version by the near-tie rule, timed
+     beside the plain version and chunked torch.cdist + torch.min / topk;
+     knn(k=1) and knn(k=8) on the D = 33 clouds launch one nn1 and one nnk.
+ 38. (38.-40. run after 32.) sharded-pgo: parallel.ShardedPGO on
+     data/synthetic_sphere2500_seed42.g2o with examples/pgo.py's schedule,
+     10 steps, at one rank (an NCCL
+     group of one) against SparseLM(matvec='generic', scatter=False) (1e-5
+     each step) and data/jax_anchor_sharded_pgo.json (1e-3), and at two
+     gloo ranks sharing the card (spawned processes) against the one-rank
+     run (1e-4 each step, the ranks' nodes bit-equal); ms a step,
+     all_reduce calls a step, idle share; no kernel on the path.
+ 39. sharded-ba: parallel.ShardedBA on ba-trafalgar (dense Schur, the
+     cell's schedule) at one rank and at two gloo ranks, held by accepted
+     steps (accepted_hold: the last accepted chi2 within 2e-2 of the
+     reference's after as many, at most one accepted step short) to the
+     card's BundleAdjustment and to data/jax_anchor_ba_trafalgar.json, the
+     ranks' states bit-equal; ms a step; the JAX ShardedBA's final
+     (data/jax_anchor_sharded_ba.json) printed beside.
+ 40. sharded-steps: make_pgo_step (sphere2500) and make_ba_step
+     (ba-trafalgar), two steps: chi2 falling in float32 (timed), card
+     against CPU in float64 (1e-4; in float32 the raw steps move with the
+     order of their sums alone, up to 1.6e-3 on the CPU);
+     sharded_stencil_matvec at one rank against StencilSpMV.matvec at the
+     pgo-100k shape (1e-6 of max|y|, no message).
+ 41. prints the kernels' JSON line (each kernel's, and each of the t = 3,
      4, 7 instantiations', launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
@@ -3060,6 +3090,483 @@ def block_size_kernels(t):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 37.-40. C12 (the knn kernels past 8 coordinates) and the sharded path
+# ---------------------------------------------------------------------------
+
+# [knn-wide]: (tag, coordinates, reference rows, neighbours, dtype)
+WIDE_CASES = (('fpfh', 33, 50_000, 50_000, 'float32'),
+              ('sift', 128, 20_000, 100_000, 'float32'),
+              ('fpfh-f64', 33, 10_000, 10_000, 'float64'))
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+FP64_FLOP_PER_S = 34e12
+
+
+def descriptors(kind, n, gen):
+    """float64 descriptor clouds on the CPU: FPFH-like (three 11-bin
+    histograms, each summing to 100) or SIFT-like (128 values, unit
+    length, clipped at 0.2 and normalised again)."""
+    import torch
+    if kind.startswith('fpfh'):
+        h = torch.rand((n, 3, 11), generator=gen, dtype=torch.float64)
+        return (100 * h / h.sum(-1, keepdim=True)).reshape(n, 33)
+    v = torch.rand((n, 128), generator=gen, dtype=torch.float64)
+    v = (v / v.norm(dim=-1, keepdim=True)).clamp(max=0.2)
+    return v / v.norm(dim=-1, keepdim=True)
+
+
+def knn_bound(R, N, D, k, f64):
+    """2 D flop a pair; the clouds read once, d2 and the int64 indices
+    written once."""
+    return bound((8 if f64 else 4) * (R + N) * D + (16 if f64 else 12) * R * k,
+                 2 * R * N * D, FP64_FLOP_PER_S if f64 else FP32_FLOP_PER_S)
+
+
+def knn_wide_phase(dev):
+    """[knn-wide] The wide scans of csrc/knn.cu (D > 8): nn1 and nnk(k=8)
+    on FPFH-like clouds (D = 33, 50,000 x 50,000), SIFT-like clouds
+    (D = 128, 20,000 x 100,000) in float32 and FPFH-like 10,000 x 10,000
+    in float64, each held to its plain version by the near-tie rule
+    (float64 at F64_TOL) and timed (CUDA events, median of 7; device time
+    by torch.profiler over 3 calls) beside the plain version (one call)
+    and chunked torch.cdist + torch.min / topk with TF32 off (one call);
+    then the main path, knn(ref, nbr, k=1) and k=8 on the D = 33 clouds,
+    counted from zero: one nn1 and one nnk launch, the kernels' results.
+    The device time is one call's under torch.profiler (device_totals);
+    an empty trace leaves it None ('not measured').  Returns
+    {('nn1' | 'nnk', tag): numbers} and the main path's counts."""
+    import torch
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.ops import knn as K
+    from pypose_tpu_torch.testing import nnk_tolerance_failures
+    gen = torch.Generator().manual_seed(0)
+    out, clouds = {}, {}
+    for tag, D, R, N, dt in WIDE_CASES:
+        dtype = getattr(torch, dt)
+        f64 = dtype == torch.float64
+        ref = descriptors(tag, R, gen).to(dtype).to(dev)
+        nbr = descriptors(tag, N, gen).to(dtype).to(dev)
+        clouds[tag] = ref, nbr
+        for k in (1, 8):
+            if k == 1:
+                def kern():
+                    return [a[:, None] for a in K.nn1(ref, nbr)]
+
+                def plain():
+                    return [a[:, None] for a in K._nn1_torch(ref, nbr)]
+
+                def lib():
+                    return cdist_min(ref, nbr)
+            else:
+                def kern():
+                    return K.nnk(ref, nbr, k)
+
+                def plain():
+                    return K._nnk_torch(ref, nbr, k)
+
+                def lib():
+                    return cdist_topk(ref, nbr, k)
+            k_ms, (d_k, i_k) = cuda_ms(kern)
+            d_ms = profiled_call(kern)[1] or None
+            p_ms, (d_p, i_p) = cuda_ms(plain, repeat=1)
+            c_ms, _ = cuda_ms(lib, repeat=1)
+            got = nnk_tolerance_failures(ref, nbr, d_k, i_k, i_p,
+                                         **(F64_TOL if f64 else {}))
+            err = float((d_k - d_p).abs().max())
+            b = knn_bound(R, N, D, k, f64)
+            name = 'nn1' if k == 1 else 'nnk'
+            print(f'[knn-wide] {name}, {tag} [{R}, {D}] x [{N}, {D}] {dt}'
+                  f'{"" if k == 1 else ", k=8"}: {got}; max|d2_k - d2_p| '
+                  f'{err:.3e}; kernel {k_ms:.4f} ms (median of 7; device '
+                  f'{"not measured" if d_ms is None else f"{d_ms:.4f} ms"}'
+                  f'), plain {p_ms:.4f} ms, torch.cdist + '
+                  f'torch.{"min" if k == 1 else "topk"} {c_ms:.4f} ms (one '
+                  f'call each); bound {b[0]:.4f} ms ({b[1]})', flush=True)
+            check(bool(torch.isfinite(d_k).all()),
+                  f'knn-wide {name} {tag}: d2 not finite')
+            check(got['index_failures'] == got['repeat_failures']
+                  == got['d2_failures'] == 0,
+                  f'knn-wide {name} {tag}: outside the tolerance: {got}')
+            out[(name, tag)] = dict(err=err, ms=k_ms, device_ms=d_ms,
+                                    plain_ms=p_ms, cdist_ms=c_ms, bound=b,
+                                    shape=f'[{R}, {D}] x [{N}, {D}] {dt}',
+                                    idx=i_k)
+    # the main path: knn on the FPFH clouds, each kernel counted from zero
+    ref, nbr = clouds['fpfh']
+    counts = {}
+    for k, counter in ((1, 'NN1_LAUNCHES'), (8, 'NNK_LAUNCHES')):
+        reset_counts()
+        res = ppt.knn(ref, nbr, k=k)
+        torch.cuda.synchronize()
+        c = read_counts()
+        others = {n: v for n, v in c.items() if n != counter and v}
+        check(c[counter] == 1 and not others,
+              f'knn-wide: knn(k={k}) at D = 33: launch counts {c}')
+        check(torch.equal(res.indices,
+                          out[('nn1' if k == 1 else 'nnk', 'fpfh')]['idx']),
+              f'knn-wide: knn(k={k}) differs from its kernel')
+        counts[counter] = c[counter]
+        print(f'[knn-wide] knn(ref, nbr, k={k}) on the D = 33 clouds: '
+              f'launch counts {c}', flush=True)
+    for v in out.values():
+        del v['idx']
+    return out, counts
+
+
+G2O = 'synthetic_sphere2500_seed42.g2o'
+# examples/pgo.py's schedule (what [traj-eval]'s pgo runs)
+SHARDED_PGO = dict(cg_iter=150, cg_tol=1e-6, steps=10)
+SHARDED_BA_CELL = 'ba-trafalgar'
+
+
+def sharded_pgo_run(mesh, dev):
+    """ShardedPGO on the vendored sphere2500 graph over ``mesh``, one
+    step() at a time: (history, ms per step, all_reduce calls per step,
+    the optimizer)."""
+    from pypose_tpu_torch.datasets import find_data, load_g2o
+    from pypose_tpu_torch.parallel import ShardedPGO, mesh as pmesh
+    ds = load_g2o(find_data(G2O), device=dev)
+    opt = ShardedPGO(ds['nodes'], ds['edges'], ds['poses'],
+                     infos=ds['infos'], mesh=mesh,
+                     cg_iter=SHARDED_PGO['cg_iter'],
+                     cg_tol=SHARDED_PGO['cg_tol'])
+    reduces = pmesh.ALL_REDUCES
+    hist, ms = [], []
+    for _ in range(SHARDED_PGO['steps']):
+        t, loss = synced_ms(opt.step)
+        hist.append(loss)
+        ms.append(t)
+    return (hist, ms, (pmesh.ALL_REDUCES - reduces) / SHARDED_PGO['steps'],
+            opt)
+
+
+def sharded_ba_run(mesh, dev):
+    """ShardedBA on the ba-trafalgar cell over ``mesh`` with the cell's
+    schedule: (history, ms per step, all_reduce calls per step, the
+    optimizer)."""
+    from pypose_tpu_torch.parallel import ShardedBA, mesh as pmesh
+    from pypose_tpu_torch.testing import BA_SCHEDULES, ba_instance
+    sched = BA_SCHEDULES[SHARDED_BA_CELL]
+    ds = ba_instance(SHARDED_BA_CELL, device=dev)
+    opt = ShardedBA(ds['poses'], ds['points'], ds['cam_idx'], ds['pt_idx'],
+                    ds['pixels'], ds['cameras'], mesh=mesh,
+                    **{k: v for k, v in sched.items()
+                       if k not in ('steps', 'patience', 'decreasing')})
+    reduces = pmesh.ALL_REDUCES
+    ms, _ = synced_ms(lambda: opt.optimize(
+        steps=sched['steps'], patience=sched['patience'],
+        decreasing=sched['decreasing']))
+    steps = len(opt.history)
+    return (list(opt.history), ms / steps,
+            (pmesh.ALL_REDUCES - reduces) / steps, opt)
+
+
+def _two_rank_worker(rank, world, directory):
+    """One of the two gloo ranks that share the card: ShardedPGO and
+    ShardedBA as the one-rank phases run them; results to
+    ``directory/rank<r>.pt``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from pypose_tpu_torch.optim.sparse import require_full_fp32
+    from pypose_tpu_torch.parallel import make_mesh
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    require_full_fp32(dev)
+    dist.init_process_group('gloo', store=dist.FileStore(
+        os.path.join(directory, 'store'), world), rank=rank,
+        world_size=world)
+    try:
+        mesh = make_mesh()
+        hist, ms, reduces, opt = sharded_pgo_run(mesh, dev)
+        pgo = dict(hist=hist, ms=ms, reduces=reduces,
+                   nodes=opt.nodes.cpu(), backend=dist.get_backend(),
+                   world=dist.get_world_size(),
+                   local_edges=opt.lm.factors[0].num_edges)
+        del opt
+        hist, ms, reduces, opt = sharded_ba_run(mesh, dev)
+        ba = dict(hist=hist, ms=ms, reduces=reduces,
+                  poses=opt.poses.tensor().cpu(), points=opt.points.cpu(),
+                  local_obs=int(opt.pixels.shape[0]))
+        torch.save(dict(pgo=pgo, ba=ba),
+                   os.path.join(directory, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_two_ranks():
+    """ShardedPGO and ShardedBA at two gloo ranks sharing the one card
+    (spawned processes): each rank's results and the spawn's wall time."""
+    import os
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(_two_rank_worker, args=(2, d), nprocs=2,
+                           join=True, start_method='spawn')
+        res = [torch.load(os.path.join(d, f'rank{r}.pt'), weights_only=False)
+               for r in range(2)]
+    wall = time.perf_counter() - t0
+    print(f'[sharded] two gloo ranks on one card: spawn, both runs and '
+          f'join in {wall:.1f} s', flush=True)
+    return res
+
+
+def rel_gap(a, b):
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def sharded_pgo_phase(dev, two):
+    """[sharded-pgo] ShardedPGO on data/synthetic_sphere2500_seed42.g2o
+    (4,499 edges, identity information matrices) with examples/pgo.py's
+    schedule, 10 steps, at one rank (make_mesh() with nothing set up: an
+    NCCL group of one), counted from zero (no kernel on this path): chi2
+    each step within 1e-5 relative of SparseLM(matvec='generic',
+    scatter=False) with the same strategy and CG settings on the card,
+    the final within 1e-3 of data/jax_anchor_sharded_pgo.json; then the
+    two gloo ranks (``two``): each step within 1e-4 of the one-rank run,
+    the ranks' final nodes bit-equal; ms a step, all_reduce calls a step,
+    and a profiled one-rank run's device idle share."""
+    import json
+    import torch
+    import torch.distributed as dist
+    from pypose_tpu_torch.datasets import find_data, load_g2o
+    from pypose_tpu_torch.optim.sparse import SparseLM, pgo_factor
+    from pypose_tpu_torch.optim.strategy import TrustRegion
+    from pypose_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    check(dist.get_backend() == 'nccl' and dist.get_world_size() == 1,
+          'sharded-pgo: make_mesh() did not make an NCCL group of one')
+    reset_counts()
+    hist, ms, reduces, opt = sharded_pgo_run(mesh, dev)
+    counts = no_launches('[sharded-pgo]')
+    ds = load_g2o(find_data(G2O), device=dev)
+    n = ds['nodes'].shape[0]
+    fixed = torch.zeros(n, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    ref = SparseLM({'poses': ds['nodes']},
+                   [pgo_factor(ds['edges'], ds['poses'], ds['infos'])],
+                   strategy=TrustRegion(radius=1e4), fixed={'poses': fixed},
+                   cg_iter=SHARDED_PGO['cg_iter'],
+                   cg_tol=SHARDED_PGO['cg_tol'], matvec='generic',
+                   scatter=False)
+    ref_ms, ref_hist = synced_ms(
+        lambda: [ref.step() for _ in range(SHARDED_PGO['steps'])])
+    with open(find_data('jax_anchor_sharded_pgo.json')) as f:
+        anchor = json.load(f)
+    gap_ref = rel_gap(hist, ref_hist)
+    gap_anchor = hist[-1] / anchor['final_chi2'] - 1
+    print(f'[sharded-pgo] one rank (NCCL): chi2 {hist}; SparseLM(generic) '
+          f'{ref_hist}: largest relative gap {gap_ref:.3e} (bound 1e-5); '
+          f'JAX anchor final {anchor["final_chi2"]}: {gap_anchor:.3e} '
+          f'(bound 1e-3); {statistics.median(ms):.3f} ms a step (median; '
+          f'SparseLM {ref_ms / SHARDED_PGO["steps"]:.3f} ms), {reduces} '
+          f'all_reduce calls a step; launch counts {counts}', flush=True)
+    check(gap_ref <= 1e-5, 'sharded-pgo: one rank differs from SparseLM')
+    check(abs(gap_anchor) <= 1e-3, 'sharded-pgo: off the JAX anchor')
+    # a fresh run's steps under the profiler (set-up outside it)
+    from pypose_tpu_torch.parallel import ShardedPGO
+    opt = ShardedPGO(ds['nodes'], ds['edges'], ds['poses'],
+                     infos=ds['infos'], mesh=mesh,
+                     cg_iter=SHARDED_PGO['cg_iter'],
+                     cg_tol=SHARDED_PGO['cg_tol'])
+    p_ms, dev_ms, ops = profiled_call(
+        lambda: [opt.step() for _ in range(SHARDED_PGO['steps'])])
+    # an empty trace measures nothing
+    idle = 1 - dev_ms / p_ms if ops else None
+    print(f'[sharded-pgo] profiled one-rank run: {dev_ms:.3f} ms device '
+          f'time of {p_ms:.3f} ms, {ops} device operations: idle share '
+          f'{"not measured" if idle is None else f"{idle:.3f}"}',
+          flush=True)
+    r0, r1 = two[0]['pgo'], two[1]['pgo']
+    gap_two = rel_gap(r0['hist'], hist)
+    same = torch.equal(r0['nodes'], r1['nodes']) and r0['hist'] == r1['hist']
+    print(f'[sharded-pgo] two gloo ranks on the card ({r0["backend"]}, '
+          f'world {r0["world"]}, {r0["local_edges"]} edges a rank): chi2 '
+          f'{r0["hist"]}; largest relative gap to one rank {gap_two:.3e} '
+          f'(bound 1e-4); final nodes bit-equal across ranks: {same}; '
+          f'{statistics.median(r0["ms"]):.3f} ms a step (median), '
+          f'{r0["reduces"]} all_reduce calls a step', flush=True)
+    check(r0['backend'] == 'gloo' and r0['world'] == 2,
+          'sharded-pgo: the two ranks did not run gloo at world size 2')
+    check(gap_two <= 1e-4, 'sharded-pgo: two ranks differ from one')
+    check(same, 'sharded-pgo: the two ranks ended on different states')
+    return dict(hist=hist, ms_per_step=statistics.median(ms),
+                all_reduces_per_step=reduces, gap_sparse_lm=gap_ref,
+                gap_anchor=gap_anchor, idle_share=idle,
+                device_ms=dev_ms, profiled_ms=p_ms,
+                two_ranks=dict(hist=r0['hist'],
+                               ms_per_step=statistics.median(r0['ms']),
+                               all_reduces_per_step=r0['reduces'],
+                               gap_one_rank=gap_two), counts=counts)
+
+
+def sharded_ba_phase(dev, two):
+    """[sharded-ba] ShardedBA on testing.ba_instance('ba-trafalgar') with
+    the cell's schedule (dense Schur), at one rank (NCCL) counted from
+    zero (no kernel), and the two gloo ranks (``two``), each held to the
+    card's BundleAdjustment with the same schedule and to the JAX
+    BundleAdjustment's data/jax_anchor_ba_trafalgar.json by
+    :func:`accepted_hold` at 2e-2 (the JAX package's hold of the dense
+    ShardedBA to BundleAdjustment); the two ranks' poses bit-equal; ms a
+    step.  The JAX ShardedBA's own run over 8 virtual devices
+    (data/jax_anchor_sharded_ba.json) is printed beside: its fourth step
+    is rejected on the knife edge, and its final (68,480) is the others'
+    fourth accepted step, one behind their 65,385."""
+    import json
+    import torch
+    from pypose_tpu_torch.datasets import find_data
+    from pypose_tpu_torch.parallel import make_mesh
+    from pypose_tpu_torch.testing import (BA_SCHEDULES, ba_instance,
+                                          ba_optimizer)
+    sched = BA_SCHEDULES[SHARDED_BA_CELL]
+    card = ba_optimizer(ba_instance(SHARDED_BA_CELL, device=dev),
+                        SHARDED_BA_CELL)
+    card.optimize(steps=sched['steps'], patience=sched['patience'],
+                  decreasing=sched['decreasing'])
+    card_hist = list(card.history)
+    del card
+    mesh = make_mesh()
+    reset_counts()
+    hist, ms, reduces, opt = sharded_ba_run(mesh, dev)
+    counts = no_launches('[sharded-ba]')
+    check(opt._use_dense_schur, 'sharded-ba: not the dense Schur route')
+    with open(find_data('jax_anchor_ba_trafalgar.json')) as f:
+        anchor = json.load(f)
+    with open(find_data('jax_anchor_sharded_ba.json')) as f:
+        jax_sharded = json.load(f)['final_chi2']
+    r0, r1 = two[0]['ba'], two[1]['ba']
+    same = torch.equal(r0['poses'], r1['poses']) and \
+        torch.equal(r0['points'], r1['points'])
+    gaps = {}
+    for who, h in (('one rank', hist), ('two ranks', r0['hist'])):
+        gaps[who] = (accepted_hold(h, card_hist),
+                     accepted_hold(h, anchor['history']))
+        print(f'[sharded-ba] {who}: chi2 {h}; against the card\'s '
+              f'BundleAdjustment {card_hist}: {gaps[who][0]}; against the '
+              f'JAX BundleAdjustment anchor {anchor["history"]}: '
+              f'{gaps[who][1]} (bounds 2e-2, at most one accepted step '
+              f'short); the JAX ShardedBA\'s final over 8 devices: '
+              f'{jax_sharded}', flush=True)
+        check(all(g['ok'] for g in gaps[who]),
+              f'sharded-ba: {who} off its holds')
+    print(f'[sharded-ba] one rank {ms:.3f} ms a step, {reduces} all_reduce '
+          f'calls a step; two ranks ({r0["local_obs"]} observations a '
+          f'rank) {r0["ms"]:.3f} ms a step, {r0["reduces"]} all_reduce '
+          f'calls a step; poses and points bit-equal across ranks: {same};'
+          f' launch counts {counts}', flush=True)
+    check(same, 'sharded-ba: the two ranks ended on different states')
+    return dict(hist=hist, ms_per_step=ms, all_reduces_per_step=reduces,
+                gaps=gaps, two_ranks=dict(hist=r0['hist'],
+                                          ms_per_step=r0['ms'],
+                                          all_reduces_per_step=r0['reduces']),
+                counts=counts)
+
+
+def accepted_hold(hist, ref, rtol=2e-2):
+    """A chi2 history held to a reference history by accepted steps: the
+    chi2 after each accepted step (a step that leaves chi2 where it was
+    had every retry rejected), the run's last against the reference's
+    after as many accepted steps, within ``rtol``, and the run at most one
+    accepted step short of the reference (a step on a TrustRegion knife
+    edge, where the summation order decides, may be rejected).  Returns
+    the numbers and 'ok'."""
+    def accepted(h):
+        out = [h[0]]
+        for v in h[1:]:
+            if v < out[-1]:
+                out.append(v)
+        return out
+    a, r = accepted(hist), accepted(ref)
+    gap = a[-1] / r[min(len(a), len(r)) - 1] - 1
+    return dict(accepted=len(a), reference_accepted=len(r), gap=gap,
+                ok=abs(gap) <= rtol and len(a) >= len(r) - 1)
+
+
+def sharded_steps_phase(dev):
+    """[sharded-steps] make_pgo_step on the sphere2500 graph and
+    make_ba_step on ba-trafalgar, two steps each, at one rank (NCCL) on
+    the card: chi2 falls in float32 (timed), and the card agrees with the
+    CPU (no mesh) within 1e-4 in float64.  In float32 a raw step's second
+    chi2 moves with the order of the sums alone: on the CPU, permuting the
+    edges moves make_pgo_step's by up to 1.6e-3 and make_ba_step's by
+    1.6e-4 (1e-12 in float64), and the card's scatter-add (atomics) sums
+    in a new order every run.  Then sharded_stencil_matvec at one rank
+    against StencilSpMV.matvec at the pgo-100k shape (N = 100,000, t = 6,
+    offsets 1 and 993), within 1e-6 of max|y|, with no message sent."""
+    import torch
+    from pypose_tpu_torch.datasets import find_data, load_g2o
+    from pypose_tpu_torch.ops.spmv import StencilSpMV
+    from pypose_tpu_torch.parallel import (make_ba_step, make_mesh,
+                                           make_pgo_step, stencil)
+    from pypose_tpu_torch.testing import ba_instance
+    mesh = make_mesh()
+    out = {}
+    reset_counts()
+    cpu = torch.device('cpu')
+    for name in ('pgo', 'ba'):
+        res = {}
+        for where, d, m, dt in (('card', dev, mesh, torch.float32),
+                                ('card f64', dev, mesh, torch.float64),
+                                ('cpu f64', cpu, None, torch.float64)):
+            if name == 'pgo':
+                ds = load_g2o(find_data(G2O), device=d)
+                step = make_pgo_step(ds['nodes'].shape[0], mesh=m)
+                state = [ds['nodes'].tensor().to(dt)]
+                args = (ds['edges'], ds['poses'].tensor().to(dt))
+            else:
+                ds = ba_instance(SHARDED_BA_CELL, device=d, dtype=dt)
+                step = make_ba_step(ds['poses'].shape[0],
+                                    ds['points'].shape[0], mesh=m)
+                state = [ds['poses'].tensor(), ds['points']]
+                args = (ds['cam_idx'], ds['pt_idx'], ds['pixels'],
+                        ds['cameras'][ds['cam_idx']])
+            chi, ms = [], []
+            for _ in range(2):
+                t, outs = synced_ms(lambda: step(*state, *args)) \
+                    if d.type == 'cuda' else (0.0, step(*state, *args))
+                state, c = list(outs[:-1]), float(outs[-1])
+                chi.append(c)
+                ms.append(t)
+            res[where] = chi, ms
+            check(chi[1] < chi[0], f'sharded-steps: {name} chi2 did not '
+                  f'fall ({where}): {chi}')
+        gap = rel_gap(res['card f64'][0], res['cpu f64'][0])
+        print(f'[sharded-steps] make_{name}_step: card chi2 float32 '
+              f'{res["card"][0]}, float64 {res["card f64"][0]}; CPU float64 '
+              f'{res["cpu f64"][0]}: largest relative gap {gap:.3e} (bound '
+              f'1e-4); card ms a step (float32) {res["card"][1]}', flush=True)
+        check(gap <= 1e-4, f'sharded-steps: make_{name}_step card and CPU '
+              'differ')
+        out[name] = dict(chi2=res['card'][0], ms=res['card'][1], gap=gap)
+    no_launches('[sharded-steps]')
+    N, t = 100_000, 6
+    ii = torch.arange(N)
+    edges = torch.cat([torch.stack([ii, (ii + 1) % N], 1),
+                       torch.stack([ii[:80_000], ii[:80_000] + 993], 1)])
+    st = StencilSpMV(edges, N, t, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    C = (0.1 * torch.randn((len(st.offsets), N, t, t), generator=gen)).to(dev)
+    D = (torch.eye(t) + 0.1 * torch.randn((N, t, t), generator=gen)).to(dev)
+    x = torch.randn((N, t), generator=gen).to(dev)
+    before = stencil.MESSAGES
+    y = stencil.sharded_stencil_matvec(st, make_mesh(axis='mp'), 'mp')(C, D,
+                                                                        x)
+    want = st.matvec(C, D, x)
+    err = float((y - want).abs().max() / want.abs().max())
+    sent = stencil.MESSAGES - before
+    print(f'[sharded-steps] sharded_stencil_matvec at one rank, N={N}, '
+          f't={t}, offsets {st.offsets}: max|y - y_ref| / max|y_ref| '
+          f'{err:.3e} (bound 1e-6), {sent} messages', flush=True)
+    check(err <= 1e-6 and sent == 0,
+          'sharded-steps: the one-rank stencil matvec is off')
+    out['stencil'] = dict(err=err, messages=sent)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3101,9 +3608,10 @@ def main():
             elif 'spill' in line:
                 spill = line.strip()
             # csrc/knn.cu: the float32 and float64 instantiations for D = 3
-            # and D = 8 only
-            elif 'Used' in line and (path.stem != 'libknn' or any(
-                    f'I{t}Li{d}E' in entry for t in 'fd' for d in (3, 8))):
+            # and D = 8, and the wide scans
+            elif 'Used' in line and (path.stem != 'libknn' or 'wide' in entry
+                                     or any(f'I{t}Li{d}E' in entry
+                                            for t in 'fd' for d in (3, 8))):
                 print(f'[build] {path.stem}: {entry}\n[build] {path.stem}: '
                       f'{spill}; {line.strip()}', flush=True)
 
@@ -3172,6 +3680,8 @@ def main():
     icp_counts = icp_slice(dev)
     k8_counts, k8_err, k8_ms, k8_plain, k8_torch, k8_lib = knn_k8_phase(dev)
     d6 = knn_d6_phase(dev)
+    # 37. the knn kernels past 8 coordinates (the wide scans)
+    wide, wide_counts = knn_wide_phase(dev)
     sparse_f64_phase(dev)
     general = {'pgo-chain': pgo_chain_phase(dev),
                'pgo-loops': pgo_loops_phase(dev)}
@@ -3209,6 +3719,11 @@ def main():
     newer.update(epnp_phase(dev))
     newer.update(filters_rollout_phase(dev))
     newer.update(mpc_phase(dev))
+    # 38.-40. the sharded path (no kernel on it)
+    two = sharded_two_ranks()
+    sharded = {'sharded-pgo': sharded_pgo_phase(dev, two),
+               'sharded-ba': sharded_ba_phase(dev, two),
+               'sharded-steps': sharded_steps_phase(dev)}
     # 33.-36. trajectory evaluation, splines, block-sparse products and the
     # examples (no kernel on their paths but the whole solve's)
     newer.update({'traj-eval': traj_eval_phase(dev),
@@ -3427,6 +3942,30 @@ def main():
             device_ms=point[kname][3], plain_device_ms=point[kname][4],
             ms_of='per call over 50 calls, N=100,000 (device_ms: kernel '
                   'time alone, torch.profiler)', routed=False))
+    # the wide scans (D > 8): launches from knn's main path at D = 33
+    for kname, line, counter in (('nn1', '176', 'NN1_LAUNCHES'),
+                                 ('nnk', '138', 'NNK_LAUNCHES')):
+        cases = {tag: v for (n, tag), v in wide.items() if n == kname}
+        fp = cases['fpfh']
+        kernels.append(entry(
+            f'{kname}_wide', 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:' + line,
+            wide_counts[counter], max(v['err'] for v in cases.values()),
+            fp['ms'], fp['plain_ms'], fp['bound'],
+            library_ms=None if kname == 'nn1' else fp['cdist_ms'],
+            library=None if kname == 'nn1' else
+            'torch.cdist then torch.topk, per chunk of 64 Mi pairs',
+            two_call_reference_ms=fp['cdist_ms'] if kname == 'nn1' else None,
+            device_ms=fp['device_ms'],
+            cases={tag: dict(shape=v['shape'], ms=v['ms'],
+                             device_ms=v['device_ms'], plain_ms=v['plain_ms'],
+                             cdist_ms=v['cdist_ms'], bound_ms=v['bound'][0],
+                             bound_by=v['bound'][1], max_abs_err=v['err'])
+                   for tag, v in cases.items()},
+            ms_of=f'{fp["shape"]}{"" if kname == "nn1" else ", k=8"} (FPFH-'
+                  'like); cases: every shape; launches from knn() on the '
+                  'D = 33 clouds', routed=True))
+    for tag, numbers in sharded.items():
+        print(f'[{tag}] {numbers}', flush=True)
     print(f'[pgo-100k] profiled run {pgo_prof}', flush=True)
     for tag, numbers in general.items():
         print(f'[{tag}] {numbers}', flush=True)

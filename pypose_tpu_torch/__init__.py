@@ -63,6 +63,7 @@ from . import native  # noqa: F401
 from . import basics  # noqa: F401
 from . import metric  # noqa: F401
 from . import sparse  # noqa: F401
+from . import parallel  # noqa: F401
 from .sparse import (  # noqa: F401
     bsr_bsc_matmul, bsr_matvec, dense_to_bsr, dense_to_bsc)
 from .basics import (  # noqa: F401

@@ -1,5 +1,6 @@
 // Brute-force nearest neighbours: nn1 (k = 1) and nnk (2 <= k <= 16), two
-// register-tiled scans of one design.
+// register-tiled scans of one design for clouds of 1 to 8 coordinates, and
+// two wide scans for clouds of more.
 //
 // Replaces the TPU kernels of pypose_tpu/ops/pallas_knn.py:
 //   _knn1_kernel (:22)  per [Tr, Tn] tile, the Gram-form squared distance
@@ -24,7 +25,8 @@
 // (ops/knn.py:_gram_d2, every product and sum rounded alone), so on a
 // near-tie the two may pick different neighbours: the card is held to the
 // tolerance of pypose_tpu_torch/testing:nnk_tolerance_failures (for k = 1,
-// nn1_tolerance_failures).  Both scans are instantiated for 1 <= D <= 8
+// nn1_tolerance_failures).  Both register-tiled scans are instantiated for
+// 1 <= D <= 8
 // and for float32 and float64 clouds (T); a float64 neighbour is staged
 // as double-precision 4-vectors (two LDS.128 each) in a tile of half the
 // length, and a thread keeps half the rows, so that the rows' coordinates
@@ -56,6 +58,18 @@
 // inserts the splits' lists in split order, each in its order, into one
 // list per row, so among equal s the lower index again comes first.
 //
+// Wide clouds (D > 8): nn1_wide_scan and nnk_wide_scan, for any number of
+// coordinates (FPFH descriptors are 33-D, SIFT 128-D).  A block of 128
+// threads takes 64 reference rows and walks the split's neighbours in
+// tiles of 64; each tile's 64 x 64 scores s = |b|^2 - 2 a.b are a small
+// SIMT GEMM (4 x 8 a thread; rows and -2 b staged through shared memory
+// in chunks of 8 coordinates, the next chunk's loads in flight; the cross
+// term an FMA chain from the first coordinate, |b|^2 added after it),
+// written to shared memory, where threads 0-63 each take one row's scores
+// in ascending index: nn1's running min (a strict <: the first index wins),
+// nnk's list inserts.  The splits and the merge passes are the D <= 8
+// scans'.  No tensor core is used (TF32 would round the coordinates).
+
 // What bounds them on an H100: instruction issue.  nn1 needs D FMA a pair;
 // at D = 3:
 // 1e10 pairs (ICP's 100k x 100k) are 6e10 flop, 0.90 ms at 67 TFLOP/s;
@@ -79,7 +93,7 @@ namespace {
 constexpr int kThreads = 128;   // threads a block, both scans
 constexpr int kSub = 32;        // neighbours a sub-tile
 constexpr int kMinSplit = 2048; // neighbours a split, least
-constexpr int kMaxDim = 8;      // ops/knn.py:MAX_DIM
+constexpr int kMaxDim = 8;      // the register-tiled scans' largest D
 constexpr int kMaxK = 16;       // ops/knn.py:MAX_K
 
 // Neighbours staged a pass: 1024 in float32, 512 in float64 (36 KB of
@@ -209,13 +223,15 @@ __device__ __forceinline__ void stage(const T* __restrict__ nbr, int t0,
   }
 }
 
-// |a|^2 of reference row `row`, FMA from the first coordinate.
+// |a|^2 of reference row `row`, FMA from the first coordinate; D = 0
+// (the wide scans) reads the number of coordinates from `dim`.
 template <typename T, int D>
-__device__ __forceinline__ T ref_sqnorm(const T* ref, int row) {
-  const T* a = ref + static_cast<size_t>(row) * D;
+__device__ __forceinline__ T ref_sqnorm(const T* ref, int row, int dim) {
+  const int n = D > 0 ? D : dim;
+  const T* a = ref + static_cast<size_t>(row) * n;
   T an = a[0] * a[0];
 #pragma unroll
-  for (int c = 1; c < D; ++c) an = fma_rn(a[c], a[c], an);
+  for (int c = 1; c < n; ++c) an = fma_rn(a[c], a[c], an);
   return an;
 }
 
@@ -326,7 +342,8 @@ nn1_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R, int N,
 // Each row's best over the splits in order (strict <: the lower index on
 // ties), then d^2 = s + |a|^2 clamped at 0.
 template <typename T, int D>
-__global__ void nn1_merge(const T* __restrict__ ref, int R, int splits,
+__global__ void nn1_merge(const T* __restrict__ ref, int R, int dim,
+                          int splits,
                           const T* __restrict__ part_s,
                           const int* __restrict__ part_i, T* __restrict__ d2,
                           long long* __restrict__ idx) {
@@ -341,7 +358,7 @@ __global__ void nn1_merge(const T* __restrict__ ref, int R, int splits,
       bi = part_i[static_cast<size_t>(sp) * R + row];
     }
   }
-  d2[row] = max_of(add_rn(best, ref_sqnorm<T, D>(ref, row)), T(0));
+  d2[row] = max_of(add_rn(best, ref_sqnorm<T, D>(ref, row, dim)), T(0));
   idx[row] = bi;
 }
 
@@ -355,16 +372,26 @@ cudaError_t launch_nn1(const T* ref, const T* nbr, int R, int N, int splits,
       ref, nbr, R, N, split_chunk(N, splits), part_s, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  nn1_merge<T, D><<<(R + 255) / 256, 256, 0, stream>>>(ref, R, splits,
+  nn1_merge<T, D><<<(R + 255) / 256, 256, 0, stream>>>(ref, R, D, splits,
                                                        part_s, part_i, d2,
                                                        idx);
   return cudaGetLastError();
 }
 
 template <typename T>
+cudaError_t launch_nn1_wide(const T* ref, const T* nbr, int R, int N, int D,
+                            int splits, T* part_s, int* part_i, T* d2,
+                            long long* idx, cudaStream_t stream);
+
+template <typename T>
 cudaError_t nn1_any(const void* ref, const void* nbr, int R, int N, int D,
                     int splits, void* part_s, int* part_i, void* d2,
                     long long* idx, cudaStream_t stream) {
+  if (D > kMaxDim)
+    return launch_nn1_wide<T>(
+        static_cast<const T*>(ref), static_cast<const T*>(nbr), R, N, D,
+        splits, static_cast<T*>(part_s), part_i, static_cast<T*>(d2), idx,
+        stream);
   cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, T*, int*,
                                  T*, long long*, cudaStream_t) = {
       launch_nn1<T, 1>, launch_nn1<T, 2>, launch_nn1<T, 3>, launch_nn1<T, 4>,
@@ -469,7 +496,8 @@ nnk_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R, int N,
 // order, each in its (s, index) order, so that among equal s the lower
 // index stays first; then d^2 = s + |a|^2 clamped at 0.
 template <typename T, int D, int K>
-__global__ void nnk_merge(const T* __restrict__ ref, int R, int k, int splits,
+__global__ void nnk_merge(const T* __restrict__ ref, int R, int dim, int k,
+                          int splits,
                           const T* __restrict__ part_s,
                           const int* __restrict__ part_i, T* __restrict__ d2,
                           long long* __restrict__ idx) {
@@ -490,7 +518,7 @@ __global__ void nnk_merge(const T* __restrict__ ref, int R, int k, int splits,
       insert<K>(s, part_i[o], v, id);
     }
   }
-  const T an = ref_sqnorm<T, D>(ref, row);
+  const T an = ref_sqnorm<T, D>(ref, row, dim);
   const size_t out = static_cast<size_t>(row) * k;
 #pragma unroll
   for (int e = 0; e < K; ++e) {
@@ -512,7 +540,7 @@ cudaError_t launch_nnk_k(const T* ref, const T* nbr, int R, int N, int k,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   nnk_merge<T, D, K><<<(R + 255) / 256, 256, 0, stream>>>(
-      ref, R, k, splits, part_s, part_i, d2, idx);
+      ref, R, D, k, splits, part_s, part_i, d2, idx);
   return cudaGetLastError();
 }
 
@@ -534,9 +562,19 @@ cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
 }
 
 template <typename T>
+cudaError_t launch_nnk_wide(const T* ref, const T* nbr, int R, int N, int D,
+                            int k, int splits, T* part_s, int* part_i, T* d2,
+                            long long* idx, cudaStream_t stream);
+
+template <typename T>
 cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
                     int k, int splits, void* part_s, int* part_i, void* d2,
                     long long* idx, cudaStream_t stream) {
+  if (D > kMaxDim)
+    return launch_nnk_wide<T>(
+        static_cast<const T*>(ref), static_cast<const T*>(nbr), R, N, D, k,
+        splits, static_cast<T*>(part_s), part_i, static_cast<T*>(d2), idx,
+        stream);
   cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, int, T*,
                                  int*, T*, long long*, cudaStream_t) = {
       launch_nnk<T, 1>, launch_nnk<T, 2>, launch_nnk<T, 3>, launch_nnk<T, 4>,
@@ -544,6 +582,222 @@ cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
   return launch[D - 1](static_cast<const T*>(ref), static_cast<const T*>(nbr),
                        R, N, k, splits, static_cast<T*>(part_s), part_i,
                        static_cast<T*>(d2), idx, stream);
+}
+
+// ---- D > 8: the wide scans ------------------------------------------------
+
+constexpr int kWideRows = 64;   // reference rows a block
+constexpr int kWideCols = 64;   // neighbours a tile
+constexpr int kWideChunk = 8;   // coordinates staged a pass
+
+// A wide scan's shared memory: one chunk of the block's rows (a) and of the
+// tile's neighbours as -2 b (b), coordinate-major; the tile's |b|^2; and
+// its scores s[row][neighbour] (a column of padding keeps the selection's
+// reads on distinct banks).
+template <typename T>
+struct WideShared {
+  alignas(16) T a[kWideChunk][kWideRows];
+  alignas(16) T b[kWideChunk][kWideCols];
+  T bn[kWideCols];
+  T s[kWideRows][kWideCols + 1];
+};
+
+// This thread's share of a chunk of coordinates [c0, c0 + 8): element
+// e = threadIdx.x + kThreads * i is (row or neighbour e / 8, coordinate
+// c0 + e % 8); zero past R, past the tile's n neighbours and past D.
+template <typename T>
+__device__ __forceinline__ void wide_load(
+    const T* __restrict__ ref, const T* __restrict__ nbr, int R, int D,
+    int row0, int t0, int n, int c0, T (&pa)[4], T (&pb)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = threadIdx.x + kThreads * i;
+    const int r = e / kWideChunk, c = c0 + e % kWideChunk;
+    pa[i] = row0 + r < R && c < D
+                ? ref[static_cast<size_t>(row0 + r) * D + c] : T(0);
+    pb[i] = r < n && c < D
+                ? T(-2) * nbr[static_cast<size_t>(t0 + r) * D + c] : T(0);
+  }
+}
+
+// The scores s = |b|^2 - 2 a.b of the block's rows [row0, row0 + 64)
+// against the neighbours [t0, t0 + n) into sh.s (inf past n), as a small
+// GEMM: each thread forms 4 rows x 8 neighbours, sum_c a_c (-2 b_c) as an
+// FMA chain from the first coordinate, over chunks of 8 coordinates staged
+// through shared memory (the next chunk's loads in flight while the
+// current one is used), then adds |b|^2 (the chain of (-2 b_c)^2, scaled
+// by 1/4: exact).  Every thread of the block calls it (it synchronizes).
+template <typename T>
+__device__ __forceinline__ void wide_tile(
+    const T* __restrict__ ref, const T* __restrict__ nbr, int R, int D,
+    int row0, int t0, int n, WideShared<T>& sh) {
+  const int tid = threadIdx.x;
+  const int tr = tid % 16, tc = tid / 16;  // rows 4 tr.., neighbours 8 tc..
+  T acc[4][8], bn = T(0), pa[4], pb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = T(0);
+  wide_load<T>(ref, nbr, R, D, row0, t0, n, 0, pa, pb);
+  for (int c0 = 0; c0 < D; c0 += kWideChunk) {
+    __syncthreads();  // the previous chunk, or the previous tile, is read
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + kThreads * i;
+      sh.a[e % kWideChunk][e / kWideChunk] = pa[i];
+      sh.b[e % kWideChunk][e / kWideChunk] = pb[i];
+    }
+    __syncthreads();
+    if (c0 + kWideChunk < D)
+      wide_load<T>(ref, nbr, R, D, row0, t0, n, c0 + kWideChunk, pa, pb);
+    if (tid < kWideCols) {
+#pragma unroll
+      for (int k = 0; k < kWideChunk; ++k)
+        bn = fma_rn(sh.b[k][tid], sh.b[k][tid], bn);
+    }
+#pragma unroll
+    for (int k = 0; k < kWideChunk; ++k) {
+      const vec4_t<T> a4 = *reinterpret_cast<const vec4_t<T>*>(
+          &sh.a[k][4 * tr]);
+      const vec4_t<T> b0 = *reinterpret_cast<const vec4_t<T>*>(
+          &sh.b[k][8 * tc]);
+      const vec4_t<T> b1 = *reinterpret_cast<const vec4_t<T>*>(
+          &sh.b[k][8 * tc + 4]);
+      const T a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const T b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fma_rn(a[i], b[j], acc[i][j]);
+    }
+  }
+  if (tid < kWideCols) sh.bn[tid] = tid < n ? T(0.25) * bn : inf<T>();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sh.s[4 * tr + i][8 * tc + j] = add_rn(acc[i][j], sh.bn[8 * tc + j]);
+  __syncthreads();
+}
+
+// nn1_scan for any D: each row's least s over the split, and the first
+// index that gives it (a strict <, in ascending index), into part_s /
+// part_i [splits, R]; thread r < 64 keeps row row0 + r.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+nn1_wide_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
+              int N, int D, int chunk, T* __restrict__ part_s,
+              int* __restrict__ part_i) {
+  __shared__ WideShared<T> sh;
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(N, j_begin + chunk);
+  const int row0 = blockIdx.x * kWideRows;
+  const int tid = threadIdx.x;
+  T best = inf<T>();
+  int bidx = 0;
+  for (int t0 = j_begin; t0 < j_end; t0 += kWideCols) {
+    wide_tile<T>(ref, nbr, R, D, row0, t0, min(kWideCols, j_end - t0), sh);
+    if (tid < kWideRows) {
+      for (int j = 0; j < kWideCols; ++j) {
+        const T v = sh.s[tid][j];
+        if (v < best) {
+          best = v;
+          bidx = t0 + j;
+        }
+      }
+    }
+  }
+  if (tid < kWideRows && row0 + tid < R) {
+    part_s[static_cast<size_t>(blockIdx.y) * R + row0 + tid] = best;
+    part_i[static_cast<size_t>(blockIdx.y) * R + row0 + tid] = bidx;
+  }
+}
+
+// nnk_scan for any D: each row's best k (s, index) pairs over the split,
+// sorted by (s, index), into part_s / part_i [splits, k, R]; thread r < 64
+// keeps row row0 + r and inserts its scores in ascending index.
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+nnk_wide_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
+              int N, int D, int k, int chunk, T* __restrict__ part_s,
+              int* __restrict__ part_i) {
+  __shared__ WideShared<T> sh;
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(N, j_begin + chunk);
+  const int row0 = blockIdx.x * kWideRows;
+  const int tid = threadIdx.x;
+  T v[K];
+  int id[K];
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    v[e] = inf<T>();
+    id[e] = 0;
+  }
+  for (int t0 = j_begin; t0 < j_end; t0 += kWideCols) {
+    wide_tile<T>(ref, nbr, R, D, row0, t0, min(kWideCols, j_end - t0), sh);
+    if (tid < kWideRows) {
+      for (int j = 0; j < kWideCols; ++j)
+        insert<K>(sh.s[tid][j], t0 + j, v, id);
+    }
+  }
+  if (tid < kWideRows && row0 + tid < R) {
+#pragma unroll
+    for (int e = 0; e < K; ++e) {
+      if (e < k) {
+        const size_t o =
+            (static_cast<size_t>(blockIdx.y) * k + e) * R + row0 + tid;
+        part_s[o] = v[e];
+        part_i[o] = id[e];
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_nn1_wide(const T* ref, const T* nbr, int R, int N, int D,
+                            int splits, T* part_s, int* part_i, T* d2,
+                            long long* idx, cudaStream_t stream) {
+  const dim3 grid((R + kWideRows - 1) / kWideRows, splits);
+  nn1_wide_scan<T><<<grid, kThreads, 0, stream>>>(
+      ref, nbr, R, N, D, split_chunk(N, splits), part_s, part_i);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  nn1_merge<T, 0><<<(R + 255) / 256, 256, 0, stream>>>(ref, R, D, splits,
+                                                       part_s, part_i, d2,
+                                                       idx);
+  return cudaGetLastError();
+}
+
+template <typename T, int K>
+cudaError_t launch_nnk_wide_k(const T* ref, const T* nbr, int R, int N, int D,
+                              int k, int splits, T* part_s, int* part_i,
+                              T* d2, long long* idx, cudaStream_t stream) {
+  const dim3 grid((R + kWideRows - 1) / kWideRows, splits);
+  nnk_wide_scan<T, K><<<grid, kThreads, 0, stream>>>(
+      ref, nbr, R, N, D, k, split_chunk(N, splits), part_s, part_i);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  nnk_merge<T, 0, K><<<(R + 255) / 256, 256, 0, stream>>>(
+      ref, R, D, k, splits, part_s, part_i, d2, idx);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_nnk_wide(const T* ref, const T* nbr, int R, int N, int D,
+                            int k, int splits, T* part_s, int* part_i, T* d2,
+                            long long* idx, cudaStream_t stream) {
+  switch (list_len(k)) {
+    case 2: return launch_nnk_wide_k<T, 2>(ref, nbr, R, N, D, k, splits,
+                                           part_s, part_i, d2, idx, stream);
+    case 4: return launch_nnk_wide_k<T, 4>(ref, nbr, R, N, D, k, splits,
+                                           part_s, part_i, d2, idx, stream);
+    case 8: return launch_nnk_wide_k<T, 8>(ref, nbr, R, N, D, k, splits,
+                                           part_s, part_i, d2, idx, stream);
+    default: return launch_nnk_wide_k<T, kMaxK>(ref, nbr, R, N, D, k, splits,
+                                                part_s, part_i, d2, idx,
+                                                stream);
+  }
 }
 
 }  // namespace
@@ -556,23 +810,24 @@ extern "C" {
 // scratch holds splits * R values of the clouds' type and splits * R
 // ints.  Returns 0 on invalid sizes or a device query failure.
 int ppt_nn1_splits(int R, int N, int D, int f64) {
-  if (D < 1 || D > kMaxDim) return 0;
-  const int rt = f64 ? nn1_rt<double>(D) : nn1_rt<float>(D);
-  return splits_for(R, N, kThreads * rt, kNn1BlocksPerSm);
+  if (D < 1) return 0;
+  const int rows = D > kMaxDim ? kWideRows
+                   : kThreads * (f64 ? nn1_rt<double>(D) : nn1_rt<float>(D));
+  return splits_for(R, N, rows, kNn1BlocksPerSm);
 }
 
 // The nearest of N neighbours (nbr [N, D]) of each of R reference rows
 // (ref [R, D]), both row-major float64 if f64, else float32: d2 [R] of
 // the same type, clamped at 0, and idx [R] int64, on `stream`, through
 // `splits` (ppt_nn1_splits) partial results in part_s [splits, R] (the
-// clouds' type) / part_i [splits, R].  Returns cudaGetLastError() (0 on
-// success); invalid sizes (R, N, splits >= 1, 1 <= D <= 8) return
+// clouds' type) / part_i [splits, R]: the register-tiled scan for
+// D <= 8, the wide scan past it.  Returns cudaGetLastError() (0 on
+// success); invalid sizes (R, N, splits >= 1, D >= 1) return
 // cudaErrorInvalidValue without launching.
 int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
             int splits, void* part_s, int* part_i, void* d2, long long* idx,
             void* stream) {
-  if (R <= 0 || N <= 0 || splits < 1 || splits > N || D < 1 ||
-      D > kMaxDim)
+  if (R <= 0 || N <= 0 || splits < 1 || splits > N || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
@@ -582,30 +837,32 @@ int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
                            s));
 }
 
-// Splits of the neighbour range that nnk uses for R rows, N neighbours
-// and k (float64 if f64, else float32) on the current device: enough for
-// ~4 blocks an SM, at least 2048 neighbours each.  ppt_nnk's scratch
-// holds splits * k * R values of the clouds' type and as many ints.
-// Returns 0 on invalid sizes or a device query failure.
-int ppt_nnk_splits(int R, int N, int k, int f64) {
-  if (k < 1 || k > kMaxK) return 0;
+// Splits of the neighbour range that nnk uses for R rows of D coordinates,
+// N neighbours and k (float64 if f64, else float32) on the current device:
+// enough for ~4 blocks an SM, at least 2048 neighbours each.  ppt_nnk's
+// scratch holds splits * k * R values of the clouds' type and as many
+// ints.  Returns 0 on invalid sizes or a device query failure.
+int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
+  if (D < 1 || k < 1 || k > kMaxK) return 0;
   const int K = list_len(k);
-  const int rt = f64 ? nnk_rows<double>(K) : nnk_rows<float>(K);
-  return splits_for(R, N, kThreads * rt, kNnkBlocksPerSm);
+  const int rows = D > kMaxDim ? kWideRows
+                   : kThreads * (f64 ? nnk_rows<double>(K) : nnk_rows<float>(K));
+  return splits_for(R, N, rows, kNnkBlocksPerSm);
 }
 
 // The k nearest of N neighbours (nbr [N, D]) of each of R reference rows
 // (ref [R, D]), both row-major float64 if f64, else float32: d2 [R, k] of
 // the same type, ascending by (d^2, index), clamped at 0, and idx [R, k]
 // int64, on `stream`, through `splits` (ppt_nnk_splits) partial lists in
-// part_s / part_i [splits, k, R].  Returns cudaGetLastError() (0 on
-// success); invalid sizes (R >= 1, 1 <= k <= min(N, 16), 1 <= D <= 8,
-// 1 <= splits <= N) return cudaErrorInvalidValue without launching.
+// part_s / part_i [splits, k, R]: the register-tiled scan for D <= 8, the
+// wide scan past it.  Returns cudaGetLastError() (0 on success); invalid
+// sizes (R >= 1, 1 <= k <= min(N, 16), D >= 1, 1 <= splits <= N) return
+// cudaErrorInvalidValue without launching.
 int ppt_nnk(const void* ref, const void* nbr, int R, int N, int D, int k,
             int f64, int splits, void* part_s, int* part_i, void* d2,
             long long* idx, void* stream) {
   if (R <= 0 || N <= 0 || k < 1 || k > N || k > kMaxK || D < 1 ||
-      D > kMaxDim || splits < 1 || splits > N)
+      splits < 1 || splits > N)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(

@@ -110,8 +110,8 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
     forms the dense ``(*, R, N)`` distance matrix.  On CUDA that route
     takes the ``nn1`` kernel for k = 1 and the ``nnk`` kernel for
     2 <= k <= ``ops.knn.MAX_K`` (not ``largest``), which take float32 and
-    float64 clouds of at most ``ops.knn.MAX_DIM`` coordinates and raise
-    for others, and the chunked Gram path for larger k and ``largest``.
+    float64 clouds of any number of coordinates and raise for other
+    dtypes, and the chunked Gram path for larger k and ``largest``.
 
     Example:
         >>> import torch
@@ -138,8 +138,10 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
 def _knn_tiled(ref, nbr, k, largest, chunk):
     """Gram-form kNN of ``[R, D]`` in ``[N, D]``: on CUDA, k = 1 (not
     ``largest``) launches the ``nn1`` kernel and 2 <= k <= ``MAX_K`` the
-    ``nnk`` kernel (which raise for clouds they are not instantiated for);
-    everything else takes :func:`_knn_gram`."""
+    ``nnk`` kernel, at any D (the register-tiled scans up to 8
+    coordinates, the wide scans past 8; a dtype other than float32 and
+    float64 raises); k > ``MAX_K`` and ``largest`` take
+    :func:`_knn_gram`."""
     N = nbr.shape[0]
     if (ref.device.type == 'cuda' and not largest
             and 1 <= k <= min(N, knn_ops.MAX_K)):

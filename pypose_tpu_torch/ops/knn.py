@@ -19,10 +19,14 @@ card holds them to :func:`pypose_tpu_torch.testing.nnk_tolerance_failures`
 after the neighbours are chosen (``pallas_knn.py:153, 191``).  Indices
 are int64 (torch's index type), where the JAX package returns int32.
 
-Both kernels are instantiated for float32 and float64 clouds of 1 to
-:data:`MAX_DIM` coordinates.  ``function/geometry.py:_knn_tiled`` routes
-k = 1 (not ``largest``) on CUDA to :func:`nn1` and 2 <= k <=
-:data:`MAX_K` to :func:`nnk`; clouds of more coordinates raise there.
+Both kernels take float32 and float64 clouds of any number of
+coordinates: register-tiled scans for 1 to 8 coordinates, and wide scans
+past 8 (descriptor clouds: FPFH's 33, SIFT's 128), which form 64 x 64
+tiles of scores as a small GEMM over chunks of 8 coordinates (the cross
+term an FMA chain from the first coordinate, |b|^2 added after it) and
+select from them in ascending index (``csrc/knn.cu``).  ``function/geometry.py:_knn_tiled`` routes k = 1 (not
+``largest``) on CUDA to :func:`nn1` and 2 <= k <= :data:`MAX_K` to
+:func:`nnk`.
 """
 
 import ctypes
@@ -35,9 +39,8 @@ from ._build import bind, raise_on
 # Launches of each kernel in this process.
 NN1_LAUNCHES = 0
 NNK_LAUNCHES = 0
-# What csrc/knn.cu is instantiated for: float32 and float64 points of 1 to
-# MAX_DIM coordinates, and k up to MAX_K.  Anything else raises on CUDA.
-MAX_DIM = 8
+# What csrc/knn.cu is instantiated for: float32 and float64 points of any
+# number of coordinates, and k up to MAX_K.  Anything else raises on CUDA.
 MAX_K = 16
 _DTYPES = (torch.float32, torch.float64)
 
@@ -53,7 +56,7 @@ def _kernel_lib():
     return bind('knn', {
         'ppt_nn1_splits': [_INT] * 4,
         'ppt_nn1': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 5,
-        'ppt_nnk_splits': [_INT] * 4,
+        'ppt_nnk_splits': [_INT] * 5,
         'ppt_nnk': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 5})
 
 
@@ -134,10 +137,9 @@ def _check_cuda(ref, nbr, k):
                             'clouds')
         if not a.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-    if ref.shape[1] > MAX_DIM:
-        raise ValueError(f'the knn kernels are instantiated for points of '
-                         f'at most {MAX_DIM} coordinates, got '
-                         f'{ref.shape[1]}')
+    if ref.shape[1] < 1:
+        raise ValueError('the knn kernels take points of at least one '
+                         'coordinate')
     if k > MAX_K:
         raise ValueError(f'k={k} > {MAX_K}, the largest k the nnk kernel '
                          'holds')
@@ -189,7 +191,7 @@ def _launch_nnk(ref, nbr, k):
         return d2, idx
     lib = _kernel_lib()
     with torch.cuda.device(ref.device):
-        splits = lib.ppt_nnk_splits(R, N, k, f64)
+        splits = lib.ppt_nnk_splits(R, N, D, k, f64)
         if splits < 1:
             raise RuntimeError(f'nnk: no split of {N} neighbours for {R} '
                                'rows (device query failed)')
@@ -209,10 +211,10 @@ def nn1(ref, nbr):
     """Squared distance to, and index of, the nearest ``nbr`` row of each
     ``ref`` row: ``(d2 [R], idx [R] int64)``.
 
-    CUDA tensors launch the register-tiled kernel of ``csrc/knn.cu`` on the
-    current stream (two float32 or two float64 clouds, contiguous, at most
-    :data:`MAX_DIM` coordinates; anything else raises); CPU tensors run
-    :func:`_nn1_torch`.  On a near-tie the two may return different
+    CUDA tensors launch the kernel of ``csrc/knn.cu`` on the current
+    stream (two float32 or two float64 clouds, contiguous, of any number
+    of coordinates: the register-tiled scan up to 8, the wide scan past
+    it; anything else raises); CPU tensors run :func:`_nn1_torch`.  On a near-tie the two may return different
     neighbours (module docstring).
     """
     _check(ref, nbr)

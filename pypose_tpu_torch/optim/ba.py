@@ -154,6 +154,14 @@ class BundleAdjustment:
 
     Everything lives on the device of ``points``.
 
+    Attributes:
+        obs_valid: ``None`` or a bool mask [O] in the camera-sorted order
+            (``mask[self._obs_perm]`` of a mask in the input order): an
+            invalid observation adds nothing to chi2 under any kernel; its
+            residual and Jacobians must already vanish (the zero-focal
+            padding of ``parallel.ShardedBA``).  Ref:
+            pypose_tpu/optim/ba.py:166-169, 414-415, 431-432.
+
     Example:
         >>> from pypose_tpu_torch.datasets import synthetic_bal
         >>> from pypose_tpu_torch.optim.ba import BundleAdjustment
@@ -226,6 +234,7 @@ class BundleAdjustment:
         # values are exact in float32) or a float32 one (highest)
         self.schur_precision = precision
         self.schur_refine = schur_refine
+        self.obs_valid = None
         self.strategy_state = None
         self.loss = self.last = None
         self.reject_count = 0
@@ -314,7 +323,7 @@ class BundleAdjustment:
         pass a copy without ``cam_win`` to take the gather forms)."""
         return dict(cam_idx=self.cam_idx, pt_idx=self.pt_idx,
                     pixels=self.pixels, cameras=self.cameras,
-                    pt_inc=self._pt_inc,
+                    obs_valid=self.obs_valid, pt_inc=self._pt_inc,
                     cam_inc=self._cam_inc, cam_win=self._cam_win,
                     pt_seg=self._pt_seg, cam_seg=self._cam_seg)
 
@@ -404,11 +413,19 @@ class BundleAdjustment:
             g1, = torch.autograd.grad(self.kernel(chi).sum(), chi)
         return torch.sqrt(torch.clamp(g1, min=0.0))
 
-    def _sum_chi2(self, r):
+    def _reduce(self, sums):
+        """Sums over the observations, from the partial sums over the
+        observations this optimizer holds: the identity here;
+        ``parallel.ShardedBA`` all-reduces them over its ranks."""
+        return sums
+
+    def _sum_chi2(self, r, obs):
         chi = torch.sum(r * r, -1)
         if self.kernel is not None:
             chi = self.kernel(chi)
-        return torch.sum(chi)
+        if obs.get('obs_valid') is not None:
+            chi = torch.where(obs['obs_valid'], chi, 0.0)
+        return self._reduce(torch.sum(chi))
 
     def _chi2(self, poses_data, points, obs=None):
         """chi2 of the residual of one observation, vmapped."""
@@ -417,7 +434,7 @@ class BundleAdjustment:
         return self._sum_chi2(torch.func.vmap(
             lambda t, x, c, p: residual(SE3(t), x, c, p))(
             self._bcast_cams(obs, poses_data), points[obs['pt_idx']],
-            obs['cameras'], obs['pixels']))
+            obs['cameras'], obs['pixels']), obs)
 
     def _mask_cam(self, x):
         if self.fix_first_pose:
@@ -443,7 +460,7 @@ class BundleAdjustment:
         global HOST_READS
         r, Jc, Jp = self._r_jac(obs, poses_data, points)
         # the current chi2 from the residuals in hand
-        last = self._sum_chi2(r)
+        last = self._sum_chi2(r, obs)
         s = self._robust_scale(r)
         r = s * r
         Jc = s[..., None] * Jc
@@ -494,7 +511,7 @@ class BundleAdjustment:
 
         def pred_reduction(dc, dp):
             Jd = _mv_cols(Jc, self._bcast_cams(obs, dc)) + _mv_cols(Jp, dp[pi])
-            return -torch.sum(Jd * (2.0 * r + Jd))
+            return -self._reduce(torch.sum(Jd * (2.0 * r + Jd)))
 
         count, its = 0, []
         while True:
@@ -540,18 +557,9 @@ class BundleAdjustment:
         The factor of S with its diagonal boosted is a preconditioner for
         ``schur_refine`` passes against the exact operator ``Svp``; a
         factor that fails (S not positive definite) gives a NaN step."""
-        Gp18, cam_slot, incm = pieces
         C = self.C
-        L = chol3x3(Hpp_inv)
-        # Yl[p, d, j * 6 + a] = sum_k L[p, k, j] Gp[p, d, a * 3 + k]
-        Yl18 = torch.stack(
-            [sum(L[:, k, j][:, None] * Gp18[:, :, a * 3 + k]
-                 for k in range(3))
-             for j in range(3) for a in range(6)], dim=-1)
         highest = self.schur_precision == 'highest'
-        M = schur_gram(schur_operand(
-            Yl18, cam_slot, incm, C,
-            torch.float32 if highest else torch.bfloat16))
+        M = self._schur_M(Hpp_inv, *pieces)
         Mfull = M.reshape(6, C, 6, C).permute(1, 0, 3, 2).reshape(6 * C,
                                                                   6 * C)
         ar = torch.arange(C, device=Hcc_d.device)
@@ -580,6 +588,21 @@ class BundleAdjustment:
         for _ in range(self.schur_refine):
             dc = dc + cho_solve(bs - Svp(dc))
         return dc
+
+    def _schur_M(self, Hpp_inv, Gp18, cam_slot, incm):
+        """M = T1^T T1 [6 C, 6 C], the Gram of the points' eliminated
+        couplings: a sum over points (``parallel.ShardedBA`` forms it over
+        its share of the points and all-reduces it)."""
+        L = chol3x3(Hpp_inv)
+        # Yl[p, d, j * 6 + a] = sum_k L[p, k, j] Gp[p, d, a * 3 + k]
+        Yl18 = torch.stack(
+            [sum(L[:, k, j][:, None] * Gp18[:, :, a * 3 + k]
+                 for k in range(3))
+             for j in range(3) for a in range(6)], dim=-1)
+        return schur_gram(schur_operand(
+            Yl18, cam_slot, incm, self.C,
+            torch.float32 if self.schur_precision == 'highest'
+            else torch.bfloat16))
 
     # ------------------------------------------------------------------
     def _init_strategy(self):

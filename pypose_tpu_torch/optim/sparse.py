@@ -149,6 +149,15 @@ class SparseLM:
         precond: 'auto', 'jacobi' or 'chain' ('auto' picks the chain
             preconditioner for chain-dominated graphs: a chain factor and
             fewer than 0.3 non-chain edges a node).
+        scatter: sum the J^T-side contributions of factors that are not
+            chain slices by scatter-add (``index_add_``) instead of the
+            per-node incidence gather (the sharded optimizers' default on
+            more than one rank).
+        matvec: 'auto' (the stencil and coupling-block structures where
+            the graph has the PGO shape), 'coupling' (the same, and a
+            ``ValueError`` for a graph without that shape) or 'generic'
+            (neither: the gather matvec, so the route is 'chain' or
+            'einsum', never 'stencil').
 
     Attributes:
         route: 'stencil', 'chain' or 'einsum', the solve's route (module
@@ -182,7 +191,10 @@ class SparseLM:
 
     def __init__(self, params, factors, solver=None, strategy=None,
                  reject=16, min=1e-6, max=1e32, cg_iter=None, cg_tol=1e-5,
-                 fixed=None, precond='auto'):
+                 fixed=None, precond='auto', scatter=False, matvec='auto'):
+        if matvec not in ('auto', 'coupling', 'generic'):
+            raise ValueError(f'matvec must be auto|coupling|generic, got '
+                             f'{matvec}')
         self.params = dict(params)
         # stored and never read, as in the JAX package (its sparse.py:160)
         self.solver = solver
@@ -204,14 +216,19 @@ class SparseLM:
             f.indices = {n: v.to(self.device) for n, v in f.indices.items()}
             if f.valid is not None:
                 f.valid = f.valid.to(self.device)
+        # node count and tangent dim of each group (the sharded optimizers
+        # may hold a group's rows split over ranks)
+        self._shape = {n: (_n_nodes(v), _tan_dim(v))
+                       for n, v in self.params.items()}
         self.strategy_state = None
         self.loss = None
         self.last = None
         self.reject_count = 0
         self.history = []
         self.cg_iterations = []
+        self._force_scatter = scatter
         self._build_incidence()
-        self._build_stencil()
+        self._build_stencil(matvec)
         if precond == 'auto':
             # the chain-exact preconditioner pays off on chain-dominated
             # graphs: few non-chain edges per node
@@ -241,6 +258,13 @@ class SparseLM:
         self._spmv = None
         if self._route != 'stencil' and self._spmv_name is not None:
             self._build_spmv()
+        # Ref: pypose_tpu/optim/sparse.py:196-209
+        if matvec == 'coupling' and self._spmv_name is None:
+            raise ValueError(
+                'matvec=\'coupling\' requires every factor to be an '
+                'arity-2 factor over one shared [N, d] variable group '
+                '(the PGO shape); this problem does not qualify — use '
+                "matvec='auto' to fall back to the generic path")
 
     @property
     def route(self):
@@ -260,11 +284,12 @@ class SparseLM:
             return None
         return name
 
-    def _build_stencil(self):
+    def _build_stencil(self, matvec):
         """The one merged stencil of all edges, for a graph of the PGO shape
-        whose edge offsets cluster; None otherwise."""
+        whose edge offsets cluster; None otherwise, and with
+        ``matvec='generic'``."""
         self._stencil_all = None
-        self._spmv_name = self._pgo_shape()
+        self._spmv_name = None if matvec == 'generic' else self._pgo_shape()
         if self._spmv_name is None:
             return
         v = self.params[self._spmv_name]
@@ -298,7 +323,8 @@ class SparseLM:
         contribution to node n, plus a validity mask, so every J^T-side
         accumulation is a gather and a masked sum.  Chain-structured
         factors (``idx[:, a] == offset_a + arange(E)``) use static slices
-        instead."""
+        instead; ``scatter=True`` (or a node degree past
+        ``MAX_INCIDENCE_DEGREE``) leaves the others to scatter-add."""
         self._inc = {}
         self._slice = {}
         for fi, f in enumerate(self.factors):
@@ -311,30 +337,33 @@ class SparseLM:
                     self._slice[(fi, n)] = tuple(int(o) for o in offs)
                     continue
                 self._slice[(fi, n)] = None
-                N = _n_nodes(self.params[n])
-                flat = idxn.reshape(-1)
-                deg = np.bincount(flat, minlength=N)
-                D = int(deg.max()) if len(flat) else 0
-                if D > self.MAX_INCIDENCE_DEGREE:
-                    self._inc[(fi, n)] = None  # scatter-add instead
-                    continue
-                # the k-th contribution to each node, in edge order
-                order = np.argsort(flat, kind='stable')
-                first = np.concatenate([[0], np.cumsum(deg)[:-1]])
-                k = np.arange(len(flat)) - first[flat[order]]
-                inc = np.zeros((N, max(D, 1)), dtype=np.int64)
-                mask = np.zeros((N, max(D, 1)), dtype=bool)
-                inc[flat[order], k] = order
-                mask[flat[order], k] = True
-                self._inc[(fi, n)] = (
-                    torch.as_tensor(inc, device=self.device),
-                    torch.as_tensor(mask, device=self.device))
+                self._inc[(fi, n)] = self._incidence(idxn, self._shape[n][0])
+
+    def _incidence(self, idxn, N):
+        """(inc [N, D], mask [N, D]) of an [E, arity] index array: the
+        flat positions of each node's contributions in edge order; None
+        (scatter-add) with ``scatter=True`` or past the degree cap."""
+        flat = idxn.reshape(-1)
+        deg = np.bincount(flat, minlength=N)
+        D = int(deg.max()) if len(flat) else 0
+        if self._force_scatter or D > self.MAX_INCIDENCE_DEGREE:
+            return None
+        # the k-th contribution to each node, in edge order
+        order = np.argsort(flat, kind='stable')
+        first = np.concatenate([[0], np.cumsum(deg)[:-1]])
+        k = np.arange(len(flat)) - first[flat[order]]
+        inc = np.zeros((N, max(D, 1)), dtype=np.int64)
+        mask = np.zeros((N, max(D, 1)), dtype=bool)
+        inc[flat[order], k] = order
+        mask[flat[order], k] = True
+        return (torch.as_tensor(inc, device=self.device),
+                torch.as_tensor(mask, device=self.device))
 
     def _accumulate(self, fi, n, contrib, idx):
         """Sum per-(edge, slot) contributions into per-node rows:
         contrib [E, arity, ...] -> [N, ...]."""
         tail = contrib.shape[2:]
-        N = _n_nodes(self.params[n])
+        N = self._shape[n][0]
         offs = self._slice.get((fi, n))
         if offs is not None:
             E = contrib.shape[0]
@@ -426,7 +455,14 @@ class SparseLM:
         WJ = {n: torch.einsum('eij,ejat->eiat', w, j) for n, j in J.items()}
         return r, J, WR, WJ
 
+    def _reduce(self, sums):
+        """Sums over the edges, from the partial sums over the edges this
+        optimizer holds (a pytree of tensors): the identity here;
+        ``parallel.ShardedLM`` all-reduces them over its ranks."""
+        return sums
+
     def _chi2(self, params):
+        """chi2 over the edges this optimizer holds."""
         total = 0.0
         for fi, f in enumerate(self.factors):
             r = f.residuals(self._gather(params, f, fi), f.consts)
@@ -512,7 +548,7 @@ class SparseLM:
                     Jx).reshape(E, A, -1)
                 out[n] = out[n] + self._accumulate(fi, n, contrib,
                                                    f.indices[n])
-        return {n: self._mask(n, v) for n, v in out.items()}
+        return {n: self._mask(n, v) for n, v in self._reduce(out).items()}
 
     def _block_jacobi(self, accum, damped_scale):
         """Per-node damped blocks of J^T W J, inverted."""
@@ -522,7 +558,7 @@ class SparseLM:
     def _chain_offdiag(self, blocks, n):
         """Super-diagonal blocks U[i] (node i -> i+1) of group ``n`` from
         its chain-structured factors; None if it has no chain."""
-        N, t = _n_nodes(self.params[n]), _tan_dim(self.params[n])
+        N, t = self._shape[n]
         U = None
         for fi, (f, (r, J, WR, WJ)) in enumerate(zip(self.factors, blocks)):
             offs = self._slice.get((fi, n))
@@ -533,7 +569,7 @@ class SparseLM:
             if U is None:
                 U = blk.new_zeros((N, t, t))
             U[offs[0]:offs[0] + blk.shape[0]] += blk
-        return U
+        return None if U is None else self._reduce(U)
 
     def _chain_preconditioner(self, blocks, accum, damped_scale):
         """The block-tridiagonal (chain-exact) preconditioner where a group
@@ -565,15 +601,14 @@ class SparseLM:
         last, strategy state, rejections, CG iterations per solve)."""
         blocks = [self._weighted(f, *self._edge_r_jac(params, f, fi))
                   for fi, f in enumerate(self.factors)]
-        b = self._rhs(blocks)
-        diag_raw = self._diag(blocks)
+        b, diag_raw, accum, last = self._reduce(
+            (self._rhs(blocks), self._diag(blocks),
+             self._block_diag_accum(blocks), self._chi2(params)))
         diagA = {n: torch.clamp(v, self.min, self.max)
                  for n, v in diag_raw.items()}
-        last = self._chi2(params)
-        nparam = sum(_n_nodes(v) * _tan_dim(v) for v in params.values())
+        nparam = sum(N * t for N, t in self._shape.values())
         maxiter = self.cg_iter if self.cg_iter is not None \
             else min(10 * nparam, 500)
-        accum = self._block_diag_accum(blocks)
         solve = self._stencil_solver(b, diagA, diag_raw, accum, blocks,
                                      maxiter) if self.route == 'stencil' \
             else self._einsum_solver(b, diagA, diag_raw, accum, blocks,
@@ -587,7 +622,8 @@ class SparseLM:
             return out
 
         def pred_reduction(delta):
-            """-(J D)^T W (2 R + J D), summed over factors."""
+            """-(J D)^T W (2 R + J D), summed over factors (the edges held
+            here)."""
             total = 0.0
             for fi, (f, (r, J, WR, WJ)) in enumerate(
                     zip(self.factors, blocks)):
@@ -610,10 +646,10 @@ class SparseLM:
                 torch.cat([v.reshape(-1) for v in x.values()])))
             D = {n: torch.where(bad, 0.0, v) for n, v in x.items()}
             cand = retract_all(params, D)
-            loss_new = self._chi2(cand)
+            loss_new, pred = self._reduce(
+                (self._chi2(cand), pred_reduction(D)))
             # a non-finite candidate loss is as bad as a non-finite delta
             bad = bad | ~torch.isfinite(loss_new)
-            pred = pred_reduction(D)
             q = (last - loss_new) / torch.where(pred == 0, 1e-31, pred)
             # a non-positive predicted reduction (unconverged-CG garbage
             # step) is a hard reject; the reference divides blindly
@@ -779,6 +815,8 @@ class SparseLM:
 _PGO_FORMS = {SO3_type: (_jac.so3_Jl_inv, _op.SO3_Adj),
               RxSO3_type: (_jac.rxso3_Jl_inv, _op.RxSO3_Adj),
               Sim3_type: (_jac.sim3_Jl_inv, _op.Sim3_Adj)}
+# the same for one edge, SE3 included
+_EDGE_FORMS = {SE3_type: (_jac.se3_Jl_inv, _op.SE3_Adj), **_PGO_FORMS}
 
 
 def pgo_factor(edges, poses, infos=None, kernel=None, name='poses'):
@@ -792,9 +830,12 @@ def pgo_factor(edges, poses, infos=None, kernel=None, name='poses'):
     (left perturbation), written over the whole edge batch; SE3 takes the
     scalarized :func:`~pypose_tpu_torch.lietensor.scalarized.se3_pgo_blocks`.
     Sim3's ``Jl^-1`` is exact (scaling and squaring, then a batched 7x7
-    solve).  Another type gets a residual-only factor, whose Jacobian
-    ``SparseLM`` takes by autodiff.  ``kernel``: an optional robust kernel
-    (``optim.kernel``).
+    solve).  The factor also carries the per-edge form of the same
+    Jacobian (``Jl^-1(r) @ Adj(M)`` for one edge), which the padded
+    factors of ``parallel.ShardedLM`` take, as the JAX package's do.
+    Another type gets a residual-only factor, whose Jacobian ``SparseLM``
+    takes by autodiff.  ``kernel``: an optional robust kernel
+    (``optim.kernel``).  Ref: pypose_tpu/optim/sparse.py:980-1039.
     """
     from ..lietensor.scalarized import se3_pgo_blocks
 
@@ -802,7 +843,17 @@ def pgo_factor(edges, poses, infos=None, kernel=None, name='poses'):
         Xi, Xj = values[name][0], values[name][1]
         return (Z.Inv() @ (Xi.Inv() @ Xj)).Log().tensor()
 
-    batched_jacobian = None
+    jacobian = batched_jacobian = None
+    if poses.ltype in _EDGE_FORMS:
+        Jl_inv_e, Adj_e = _EDGE_FORMS[poses.ltype]
+
+        def jacobian(values, Z):
+            Xi, Xj = values[name][0], values[name][1]
+            M = Z.Inv() @ Xi.Inv()
+            r = (M @ Xj).Log().tensor()
+            Jj = torch.matmul(Jl_inv_e(r), Adj_e(M.tensor()))
+            return r, {name: torch.stack([-Jj, Jj], dim=1)}
+
     if poses.ltype is SE3_type:
         def batched_jacobian(values, Z):
             X = values[name].tensor()
@@ -819,7 +870,7 @@ def pgo_factor(edges, poses, infos=None, kernel=None, name='poses'):
             return r, {name: torch.stack([-Jj, Jj], dim=2)}
 
     return Factor(residual, indices={name: edges}, consts=poses,
-                  weight=infos, kernel=kernel,
+                  weight=infos, kernel=kernel, jacobian=jacobian,
                   batched_jacobian=batched_jacobian)
 
 

@@ -22,7 +22,7 @@ from pypose_tpu_torch.testing import cap_threads
 cap_threads()
 
 # ROADMAP.md Queue A: the item that still owes each name
-OWED = {'parallel': 7}
+OWED = {}
 # ROADMAP.md "Do not port"
 DO_NOT_PORT = {'autograd', 'retain_ltype', 'interop', 'seed'}
 

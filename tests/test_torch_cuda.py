@@ -270,8 +270,8 @@ def test_nnk_kernel_matches_plain(cuda, R, N, k):
 
 def test_knn_kernel_ties_and_refusals(cuda):
     """Duplicated neighbours: the lower index first; k above the kernel's
-    largest, points of more than 8 coordinates, float16 clouds and
-    clouds of two dtypes raise."""
+    largest, float16 clouds and clouds of two dtypes raise; points of
+    more than 8 coordinates take the wide scans (one launch)."""
     base = _clouds(1, 200, cuda)[1]
     nbr = torch.cat([base, base[:50]])
     d2, idx = knn.nnk(base[:50] + 1e-3, nbr, 2)
@@ -279,9 +279,11 @@ def test_knn_kernel_ties_and_refusals(cuda):
     assert torch.equal(idx[:, 1].cpu(), 200 + torch.arange(50))
     with pytest.raises(ValueError, match='k=17'):
         knn.nnk(base, base, knn.MAX_K + 1)
-    with pytest.raises(ValueError, match='coordinates'):
-        knn.nn1(torch.zeros((4, 9), device=cuda),
-                torch.zeros((6, 9), device=cuda))
+    before = knn.NN1_LAUNCHES
+    d2, idx = knn.nn1(torch.zeros((4, 9), device=cuda),
+                      torch.zeros((6, 9), device=cuda))
+    assert knn.NN1_LAUNCHES == before + 1
+    assert not d2.any() and not idx.any()
     with pytest.raises(TypeError, match='float32'):
         knn.nn1(base.half(), base.half())
     with pytest.raises(TypeError, match='float32'):
@@ -336,7 +338,7 @@ def test_float64_kernels_match_plain(cuda, D):
 def test_knn_float64_launches_kernels(cuda, k):
     """float64 clouds past 64 Mi pairs launch the kernels' float64
     instantiation through knn, held to the near-tie rule at F64_TOL
-    against the CPU's result; D = 9 raises on the card."""
+    against the CPU's result; at D = 9 through the wide scans alike."""
     from pypose_tpu_torch.function.geometry import knn as knn_fn
     ref, nbr = (a.double() for a in _clouds(9000, 9000, cuda, seed=6, D=6))
     before = (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES)
@@ -350,8 +352,71 @@ def test_knn_float64_launches_kernels(cuda, k):
                                  cpu.indices.to(cuda), **F64_TOL)
     assert got['index_failures'] == got['repeat_failures'] == \
         got['d2_failures'] == 0, got
-    with pytest.raises(ValueError, match='coordinates'):
-        knn_fn(*_clouds(9000, 9000, cuda, D=9), k=k)
+    ref, nbr = (a.double() for a in _clouds(9000, 9000, cuda, seed=9, D=9))
+    before = (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES)
+    res = knn_fn(ref, nbr, k=k)
+    torch.cuda.synchronize()
+    assert (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES) == \
+        (before[0] + (k == 1), before[1] + (k > 1))
+    cpu = knn_fn(ref.cpu(), nbr.cpu(), k=k)
+    got = nnk_tolerance_failures(ref, nbr, res.values ** 2, res.indices,
+                                 cpu.indices.to(cuda), **F64_TOL)
+    assert got['index_failures'] == got['repeat_failures'] == \
+        got['d2_failures'] == 0, got
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('D', [9, 16, 33, 128])
+def test_descriptor_kernels_match_plain(cuda, D, dtype):
+    """The wide scans (D > 8): nn1 and nnk (k = 2, 8, 16), one launch
+    each, under the near-tie rules (float64 at F64_TOL), on clouds whose
+    sizes are not multiples of the tiles."""
+    ref, nbr = (a.to(dtype) for a in _clouds(1001, 3003, cuda, seed=D, D=D))
+    tol = F64_TOL if dtype == torch.float64 else {}
+    for k in (1, 2, 8, 16):
+        name = 'NN1_LAUNCHES' if k == 1 else 'NNK_LAUNCHES'
+        before = getattr(knn, name)
+        d_k, i_k = knn.nnk(ref, nbr, k)
+        torch.cuda.synchronize()
+        assert getattr(knn, name) == before + 1
+        got = nnk_tolerance_failures(ref, nbr, d_k, i_k,
+                                     knn._nnk_torch(ref, nbr, k)[1], **tol)
+        assert got['index_failures'] == got['repeat_failures'] == \
+            got['d2_failures'] == 0, got
+
+
+def test_sharded_pgo_one_rank_matches_sparse_lm(cuda):
+    """ShardedPGO at one rank (make_mesh() with nothing set up: an NCCL
+    group of one) against SparseLM(matvec='generic', scatter=False) on a
+    sphere graph, five steps: chi2 within 1e-5 relative, no kernel."""
+    import torch.distributed as dist
+    from pypose_tpu_torch.datasets import synthetic_sphere
+    from pypose_tpu_torch.optim.sparse import SparseLM, pgo_factor
+    from pypose_tpu_torch.optim.strategy import TrustRegion
+    from pypose_tpu_torch.parallel import ShardedPGO, make_mesh
+    ds = synthetic_sphere(500, device=cuda)
+    created = not dist.is_initialized()
+    try:
+        mesh = make_mesh()
+        assert mesh.device_type == 'cuda'
+        before = (scg.LAUNCHES, scg.FUSED_LAUNCHES)
+        s = ShardedPGO(ds['nodes'], ds['edges'], ds['poses'], mesh=mesh,
+                       cg_iter=100, cg_tol=1e-6)
+        got = [s.step() for _ in range(5)]
+        assert (scg.LAUNCHES, scg.FUSED_LAUNCHES) == before
+    finally:
+        if created:
+            dist.destroy_process_group()
+    fixed = torch.zeros(500, dtype=torch.bool, device=cuda)
+    fixed[0] = True
+    ref = SparseLM({'poses': ds['nodes']},
+                   [pgo_factor(ds['edges'], ds['poses'])],
+                   strategy=TrustRegion(radius=1e4), fixed={'poses': fixed},
+                   cg_iter=100, cg_tol=1e-6, matvec='generic', scatter=False)
+    want = [ref.step() for _ in range(5)]
+    assert ref.route == 'einsum'
+    for a, b in zip(got, want):
+        assert abs(a - b) <= 1e-5 * abs(b)
 
 
 def _steps_card_and_cpu(make, steps, route='einsum'):
