@@ -28,7 +28,10 @@ Phases (any failure raises, so the script exits non-zero):
      turns TF32 off.
   2. build: compiles pypose_tpu_torch/csrc/stencil_cg{,_tiled,_fused}.cu,
      knn.cu and se3.cu, one nvcc each, all at once (timed as set-up);
-     prints ptxas' registers and shared memory (knn.cu: for D = 3 and 8).
+     prints ptxas' registers and shared memory (knn.cu: for D = 3 and 8,
+     the wide scans and their split pre-pass), and the HGMMA
+     instructions in the float32 wide scans' SASS (cuobjdump), which
+     must be there.
   3. kernel vs plain, on the same random SPD stencil systems on the card,
      each timed with CUDA events (median of 7):
      - the whole-solve cluster kernel at N=40, at sphere2500's shape
@@ -245,11 +248,14 @@ Phases (any failure raises, so the script exits non-zero):
      time (their output printed); each exits 0, pgo takes the stencil
      route and prints its APE RMSE.
  37. (run after 9.) knn-wide: nn1 and nnk(k=8) through the wide scans
-     of csrc/knn.cu on FPFH-like clouds (33 coordinates, 50,000 x 50,000), SIFT-like
-     clouds (128, 20,000 x 100,000) and FPFH-like float64 clouds (10,000
-     x 10,000), each held to its plain version by the near-tie rule, timed
-     beside the plain version and chunked torch.cdist + torch.min / topk;
-     knn(k=1) and knn(k=8) on the D = 33 clouds launch one nn1 and one nnk.
+     of csrc/knn.cu on FPFH-like clouds (33 coordinates, 50,000 x 50,000)
+     and SIFT-like clouds (128, 20,000 x 100,000; also nnk(k=2), the
+     ratio test) in float32 (on the tensor cores) and FPFH-like float64
+     clouds (10,000 x 10,000; SIMT), each held to its plain version by
+     the near-tie rule, timed beside the plain version and chunked
+     torch.cdist + torch.min / topk, the device time of each traced in a
+     fresh process; knn(k=1) and knn(k=8) on the D = 33 clouds launch one
+     nn1 and one nnk.
  38. (38.-40. run after 32.) sharded-pgo: parallel.ShardedPGO on
      data/synthetic_sphere2500_seed42.g2o with examples/pgo.py's schedule,
      10 steps, at one rank (an NCCL
@@ -274,7 +280,8 @@ Phases (any failure raises, so the script exits non-zero):
  41. prints the kernels' JSON line (each kernel's, and each of the t = 3,
      4, 7 instantiations', launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
-     counts at 3.35 TB/s and 67 TFLOP/s float32, bound_by, library_ms;
+     counts at 3.35 TB/s and 67 TFLOP/s float32 (the float32 wide scans
+     at three TF32 passes' 165 TFLOP/s), bound_by, library_ms;
      nn1 and nnk also at D = 6, bound at 2 D flop a pair, in float32 and
      in float64 at 34 TFLOP/s; the whole solve's launches on each
      sphere2500 path, launches_by_path), the card line and the result
@@ -284,10 +291,13 @@ Run from the repository root:  python3 chip_smoke.py
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+
+_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): device
@@ -3094,12 +3104,15 @@ def block_size_kernels(t):
 # 37.-40. C12 (the knn kernels past 8 coordinates) and the sharded path
 # ---------------------------------------------------------------------------
 
-# [knn-wide]: (tag, coordinates, reference rows, neighbours, dtype)
-WIDE_CASES = (('fpfh', 33, 50_000, 50_000, 'float32'),
-              ('sift', 128, 20_000, 100_000, 'float32'),
-              ('fpfh-f64', 33, 10_000, 10_000, 'float64'))
-# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+# [knn-wide]: (tag, coordinates, reference rows, neighbours, dtype, the
+# k of each case: nn1 at 1, else nnk; k = 2 is Lowe's ratio test)
+WIDE_CASES = (('fpfh', 33, 50_000, 50_000, 'float32', (1, 8)),
+              ('sift', 128, 20_000, 100_000, 'float32', (1, 8, 2)),
+              ('fpfh-f64', 33, 10_000, 10_000, 'float64', (1, 8)))
+# float64 outside the tensor cores, and TF32 on them, dense (NVIDIA's H100
+# SXM data sheet)
 FP64_FLOP_PER_S = 34e12
+TF32_FLOP_PER_S = 495e12
 
 
 def descriptors(kind, n, gen):
@@ -3117,66 +3130,147 @@ def descriptors(kind, n, gen):
 
 def knn_bound(R, N, D, k, f64):
     """2 D flop a pair; the clouds read once, d2 and the int64 indices
-    written once."""
+    written once.  float64 at its SIMT peak; float32 at the faster of the
+    SIMT peak and three TF32 passes on the tensor cores (3 x 2 D flop a
+    pair at 495 TFLOP/s, the precision the near-tie rule needs)."""
     return bound((8 if f64 else 4) * (R + N) * D + (16 if f64 else 12) * R * k,
-                 2 * R * N * D, FP64_FLOP_PER_S if f64 else FP32_FLOP_PER_S)
+                 2 * R * N * D, FP64_FLOP_PER_S if f64 else
+                 max(FP32_FLOP_PER_S, TF32_FLOP_PER_S / 3))
+
+
+def wide_clouds(dev):
+    """{tag: (ref, nbr)} of WIDE_CASES on ``dev``, drawn in order from
+    generator seed 0."""
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for tag, D, R, N, dt, _ in WIDE_CASES:
+        dtype = getattr(torch, dt)
+        out[tag] = tuple(descriptors(tag, n, gen).to(dtype).to(dev)
+                         for n in (R, N))
+    return out
+
+
+def wide_call(ref, nbr, k):
+    """The kernel of a [knn-wide] case as (d2 [R, k], idx [R, k])."""
+    from pypose_tpu_torch.ops import knn as K
+    if k == 1:
+        return [a[:, None] for a in K.nn1(ref, nbr)]
+    return K.nnk(ref, nbr, k)
+
+
+def wide_device_worker():
+    """Run in a fresh process by :func:`wide_device_ms`: the device ms of
+    one call of each [knn-wide] case under torch.profiler, as a JSON line
+    {"tag k": ms}."""
+    import torch
+    dev = torch.device('cuda', 0)
+    clouds = wide_clouds(dev)
+    out = {}
+    for tag, _, _, _, _, ks in WIDE_CASES:
+        for k in ks:
+            wide_call(*clouds[tag], k)
+            torch.cuda.synchronize()
+            out[f'{tag} {k}'] = profiled_call(
+                lambda: wide_call(*clouds[tag], k))[1]
+    print(json.dumps(out))
+
+
+def wide_device_ms():
+    """The [knn-wide] calls' device time, traced in a fresh process: late
+    in this script torch.profiler handed back empty traces of these calls
+    on two full runs, where a fresh process traces them."""
+    res = subprocess.run(
+        [sys.executable, '-c',
+         'import chip_smoke; chip_smoke.wide_device_worker()'],
+        capture_output=True, text=True, timeout=300, cwd=str(_ROOT))
+    check(res.returncode == 0,
+          f'knn-wide: the profiling process failed: {res.stderr[-2000:]}')
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def compiled_kernels(lib, match):
+    """{kernel: [ptxas' registers / shared memory line, its spill line,
+    HGMMA instructions in its SASS (None where cuobjdump cannot say)]} of
+    the kernels of the built ``lib`` whose mangled name holds one of
+    ``match``."""
+    import shutil
+    from pypose_tpu_torch.ops import _build
+    out, entry, spill = {}, '', ''
+    for line in lib.with_suffix('.log').read_text().splitlines():
+        if 'Compiling entry' in line:
+            entry = line.strip()
+        elif 'spill' in line:
+            spill = line.strip()
+        elif 'Used' in line and any(m in entry for m in match):
+            out[entry.split("'")[1]] = [line.strip(), spill, None]
+    tool = shutil.which('cuobjdump') or os.path.join(
+        os.path.dirname(_build.nvcc_path()), 'cuobjdump')
+    try:
+        sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f'[build] cuobjdump -sass {lib.name}: {e}', flush=True)
+        return out
+    name = None
+    for line in sass.splitlines():
+        if 'Function : ' in line:
+            name = line.split('Function : ')[1].strip()
+            if name in out:
+                out[name][2] = 0
+        elif name in out and 'HGMMA' in line:
+            out[name][2] += 1
+    return out
 
 
 def knn_wide_phase(dev):
     """[knn-wide] The wide scans of csrc/knn.cu (D > 8): nn1 and nnk(k=8)
     on FPFH-like clouds (D = 33, 50,000 x 50,000), SIFT-like clouds
-    (D = 128, 20,000 x 100,000) in float32 and FPFH-like 10,000 x 10,000
-    in float64, each held to its plain version by the near-tie rule
+    (D = 128, 20,000 x 100,000; also nnk(k=2), the ratio test) in float32
+    (the tensor-core scans) and FPFH-like 10,000 x 10,000 in float64 (the
+    SIMT scans), each held to its plain version by the near-tie rule
     (float64 at F64_TOL) and timed (CUDA events, median of 7; device time
-    by torch.profiler over 3 calls) beside the plain version (one call)
-    and chunked torch.cdist + torch.min / topk with TF32 off (one call);
-    then the main path, knn(ref, nbr, k=1) and k=8 on the D = 33 clouds,
-    counted from zero: one nn1 and one nnk launch, the kernels' results.
-    The device time is one call's under torch.profiler (device_totals);
-    an empty trace leaves it None ('not measured').  Returns
-    {('nn1' | 'nnk', tag): numbers} and the main path's counts."""
+    of one call under torch.profiler in a fresh process, wide_device_ms)
+    beside the plain version (one call) and chunked torch.cdist +
+    torch.min / topk with TF32 off (one call); then the main path,
+    knn(ref, nbr, k=1) and k=8 on the D = 33 clouds, counted from zero:
+    one nn1 and one nnk launch, the kernels' results.  Returns
+    {('nn1' | 'nnk', case): numbers} (case: the tag, with ', k=2' for the
+    ratio test) and the main path's counts."""
     import torch
     import pypose_tpu_torch as ppt
     from pypose_tpu_torch.ops import knn as K
     from pypose_tpu_torch.testing import nnk_tolerance_failures
-    gen = torch.Generator().manual_seed(0)
-    out, clouds = {}, {}
-    for tag, D, R, N, dt in WIDE_CASES:
-        dtype = getattr(torch, dt)
-        f64 = dtype == torch.float64
-        ref = descriptors(tag, R, gen).to(dtype).to(dev)
-        nbr = descriptors(tag, N, gen).to(dtype).to(dev)
-        clouds[tag] = ref, nbr
-        for k in (1, 8):
+    clouds = wide_clouds(dev)
+    device = wide_device_ms()
+    out = {}
+    for tag, D, R, N, dt, ks in WIDE_CASES:
+        f64 = dt == 'float64'
+        ref, nbr = clouds[tag]
+        for k in ks:
             if k == 1:
-                def kern():
-                    return [a[:, None] for a in K.nn1(ref, nbr)]
-
                 def plain():
                     return [a[:, None] for a in K._nn1_torch(ref, nbr)]
 
                 def lib():
                     return cdist_min(ref, nbr)
             else:
-                def kern():
-                    return K.nnk(ref, nbr, k)
-
                 def plain():
                     return K._nnk_torch(ref, nbr, k)
 
                 def lib():
                     return cdist_topk(ref, nbr, k)
-            k_ms, (d_k, i_k) = cuda_ms(kern)
-            d_ms = profiled_call(kern)[1] or None
+            k_ms, (d_k, i_k) = cuda_ms(lambda: wide_call(ref, nbr, k))
             p_ms, (d_p, i_p) = cuda_ms(plain, repeat=1)
             c_ms, _ = cuda_ms(lib, repeat=1)
             got = nnk_tolerance_failures(ref, nbr, d_k, i_k, i_p,
                                          **(F64_TOL if f64 else {}))
             err = float((d_k - d_p).abs().max())
             b = knn_bound(R, N, D, k, f64)
+            d_ms = device[f'{tag} {k}'] or None
             name = 'nn1' if k == 1 else 'nnk'
             print(f'[knn-wide] {name}, {tag} [{R}, {D}] x [{N}, {D}] {dt}'
-                  f'{"" if k == 1 else ", k=8"}: {got}; max|d2_k - d2_p| '
+                  f'{"" if k == 1 else f", k={k}"}: {got}; max|d2_k - d2_p| '
                   f'{err:.3e}; kernel {k_ms:.4f} ms (median of 7; device '
                   f'{"not measured" if d_ms is None else f"{d_ms:.4f} ms"}'
                   f'), plain {p_ms:.4f} ms, torch.cdist + '
@@ -3187,10 +3281,12 @@ def knn_wide_phase(dev):
             check(got['index_failures'] == got['repeat_failures']
                   == got['d2_failures'] == 0,
                   f'knn-wide {name} {tag}: outside the tolerance: {got}')
-            out[(name, tag)] = dict(err=err, ms=k_ms, device_ms=d_ms,
-                                    plain_ms=p_ms, cdist_ms=c_ms, bound=b,
-                                    shape=f'[{R}, {D}] x [{N}, {D}] {dt}',
-                                    idx=i_k)
+            case = tag if k in (1, 8) else f'{tag}, k={k}'
+            out[(name, case)] = dict(err=err, ms=k_ms, device_ms=d_ms,
+                                     plain_ms=p_ms, cdist_ms=c_ms, bound=b,
+                                     shape=f'[{R}, {D}] x [{N}, {D}] {dt}'
+                                     f'{"" if k == 1 else f", k={k}"}',
+                                     idx=i_k)
     # the main path: knn on the FPFH clouds, each kernel counted from zero
     ref, nbr = clouds['fpfh']
     counts = {}
@@ -3610,10 +3706,20 @@ def main():
             # csrc/knn.cu: the float32 and float64 instantiations for D = 3
             # and D = 8, and the wide scans
             elif 'Used' in line and (path.stem != 'libknn' or 'wide' in entry
+                                     or 'tf32_split' in entry
                                      or any(f'I{t}Li{d}E' in entry
                                             for t in 'fd' for d in (3, 8))):
                 print(f'[build] {path.stem}: {entry}\n[build] {path.stem}: '
                       f'{spill}; {line.strip()}', flush=True)
+    # the float32 wide scans run on the tensor cores: HGMMA in their SASS
+    tc = compiled_kernels(_build.BUILD / 'libknn.so', ('wide_tc_scan',))
+    for name, (used, spill, hgmma) in tc.items():
+        print(f'[build] libknn: {name}: HGMMA instructions in its SASS '
+              f'{"not read (no cuobjdump)" if hgmma is None else hgmma}; '
+              f'{used}; {spill}', flush=True)
+    check(len(tc) == 5 and all(h is None or h > 0 for _, _, h in tc.values()),
+          f'the float32 wide scans: five instantiations with HGMMA '
+          f'expected, found {tc}')
 
     # 3. kernels vs plain versions on the card
     whole = [
@@ -3961,8 +4067,8 @@ def main():
                              cdist_ms=v['cdist_ms'], bound_ms=v['bound'][0],
                              bound_by=v['bound'][1], max_abs_err=v['err'])
                    for tag, v in cases.items()},
-            ms_of=f'{fp["shape"]}{"" if kname == "nn1" else ", k=8"} (FPFH-'
-                  'like); cases: every shape; launches from knn() on the '
+            ms_of=f'{fp["shape"]} (FPFH-like; float32 on the tensor '
+                  'cores); cases: every shape; launches from knn() on the '
                   'D = 33 clouds', routed=True))
     for tag, numbers in sharded.items():
         print(f'[{tag}] {numbers}', flush=True)

@@ -58,19 +58,64 @@
 // inserts the splits' lists in split order, each in its order, into one
 // list per row, so among equal s the lower index again comes first.
 //
-// Wide clouds (D > 8): nn1_wide_scan and nnk_wide_scan, for any number of
-// coordinates (FPFH descriptors are 33-D, SIFT 128-D).  A block of 128
-// threads takes 64 reference rows and walks the split's neighbours in
-// tiles of 64; each tile's 64 x 64 scores s = |b|^2 - 2 a.b are a small
-// SIMT GEMM (4 x 8 a thread; rows and -2 b staged through shared memory
-// in chunks of 8 coordinates, the next chunk's loads in flight; the cross
-// term an FMA chain from the first coordinate, |b|^2 added after it),
-// written to shared memory, where threads 0-63 each take one row's scores
-// in ascending index: nn1's running min (a strict <: the first index wins),
-// nnk's list inserts.  The splits and the merge passes are the D <= 8
-// scans'.  No tensor core is used (TF32 would round the coordinates).
+// Wide clouds (D > 8), float32: nn1_wide_scan and nnk_wide_scan (both
+// wide_tc_scan), the same TPU kernels (pallas_knn.py:nn1 :176 and nnk
+// :138) past 8 coordinates (FPFH descriptors are 33-D, SIFT 128-D), on
+// Hopper's tensor cores in three-pass TF32.  What bounds them: the cross
+// term a.b, 2 D flop a pair, which on the SIMT units can never pass 67
+// TFLOP/s; the tensor cores run TF32 at 495 TFLOP/s, but one TF32 pass
+// keeps 11 bits of each coordinate, hundreds of times the near-tie
+// tolerance.  So:
+//  - a pre-pass (tf32_split) splits each coordinate once a call into
+//    hi = rna_tf32(x) and lo = rna_tf32(x - hi) (cvt.rna: rounded, not the
+//    tensor core's truncation of raw float32), zero-padded to Dp, a
+//    multiple of 8 coordinates, in panels of 64 rows laid out as wgmma's
+//    K-major operand with the 32-byte swizzle (a row's k-step contiguous;
+//    the unswizzled layout, its two 16-byte halves 1 KB apart, timed the
+//    same), with |b|^2 (the FMA chain from the first coordinate; +inf past
+//    N) after each panel;
+//  - a block of two consumer warpgroups (64 reference rows each) and one
+//    producer warp walks the split's tiles of 64 neighbours; the producer
+//    brings each tile's hi, lo and |b|^2 by cp.async.bulk into a ring of
+//    2-4 shared-memory stages (the most that keep the most blocks an SM,
+//    tc_plan_for) behind mbarriers (full: bytes arrived; empty:
+//    the 256 consumer threads are done), in chunks of 64 coordinates; the
+//    block's rows stay resident while Dp <= 128 and ride in each stage
+//    past that (any D);
+//  - each warpgroup forms its 64 x 64 tile of cross terms with
+//    wgmma.m64n64k8.tf32, both operands from shared memory: for each block
+//    of 32 coordinates (40 where 8 are left) a fresh sum, a_lo b_hi and
+//    a_hi b_lo first (the small products), a_hi b_hi last, added to a
+//    float32 total rounded to nearest; s = |b|^2 - 2 total.  The tensor
+//    cores truncate as they accumulate: one sum over 128 coordinates put
+//    d^2 1.05 times the near-tie tolerance off on 100-sum descriptors (the
+//    card test at D = 128); blocks keep each sum's magnitude, and so its
+//    truncation, small.  Three passes cost 3 x 2 D flop a pair, 165
+//    TFLOP/s of effective rate at the TF32 peak, and hold the float32 FMA
+//    chain's accuracy (the emulation in ops/knn.py:_tf32_scores);
+//  - selection stays in registers: a thread holds two rows' scores of 16
+//    columns a tile (wgmma's accumulator layout) and scans them in
+//    ascending index; nn1 keeps a running (s, index) minimum (a tile's
+//    min first, its first index only when it improves), nnk a K-list a row
+//    and thread pruned by the least K-th s of the row's four threads; the
+//    four threads of a row merge by shuffles in (s, index) order, so the
+//    lowest index wins a tie.
+// On the card (PERF.md; probes/knn_probes.py): ptxas serialized
+// every wgmma while the consumers' code sat on a path it could not prove
+// uniform (C7520: the role branch, a C++ wait loop), 1.3-1.4 times the
+// time; hence the shuffled role and the PTX wait loop.  Alone, the
+// m64n64k8 TF32 wgmma runs at 0.96 of the peak with two warpgroups an SM
+// (probes/wgmma_rate.cu).  With the products removed a scan still takes
+// a half (D = 33) to a third (D = 128) of its time: the neighbours'
+// stream from L2 and the selection.
+// The splits of the neighbour range and the merge passes are the D <= 8
+// scans'.  Float64 wide clouds keep the SIMT scans (nn1_wide_scan_f64,
+// nnk_wide_scan_f64): a 64 x 64 tile of scores as a small SIMT GEMM (4 x 8
+// a thread, chunks of 8 coordinates through shared memory), read by
+// threads 0-63 a row each.
 
-// What bounds them on an H100: instruction issue.  nn1 needs D FMA a pair;
+// What bounds the register-tiled scans on an H100: instruction issue.  nn1
+// needs D FMA a pair;
 // at D = 3:
 // 1e10 pairs (ICP's 100k x 100k) are 6e10 flop, 0.90 ms at 67 TFLOP/s;
 // with the FMNMX and one LDS.128 per kRT pairs the scan issues ~4.2
@@ -87,6 +132,7 @@
 #include <math_constants.h>
 
 #include <algorithm>
+#include <cstdint>
 
 namespace {
 
@@ -378,20 +424,26 @@ cudaError_t launch_nn1(const T* ref, const T* nbr, int R, int N, int splits,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_nn1_wide(const T* ref, const T* nbr, int R, int N, int D,
-                            int splits, T* part_s, int* part_i, T* d2,
+// The wide scans (below): float32 on the tensor cores through `scratch`,
+// float64 on the SIMT units.
+cudaError_t launch_nn1_wide(const float* ref, const float* nbr, int R, int N,
+                            int D, int splits, float* scratch, float* part_s,
+                            int* part_i, float* d2, long long* idx,
+                            cudaStream_t stream);
+cudaError_t launch_nn1_wide(const double* ref, const double* nbr, int R,
+                            int N, int D, int splits, float* scratch,
+                            double* part_s, int* part_i, double* d2,
                             long long* idx, cudaStream_t stream);
 
 template <typename T>
 cudaError_t nn1_any(const void* ref, const void* nbr, int R, int N, int D,
-                    int splits, void* part_s, int* part_i, void* d2,
-                    long long* idx, cudaStream_t stream) {
+                    int splits, void* scratch, void* part_s, int* part_i,
+                    void* d2, long long* idx, cudaStream_t stream) {
   if (D > kMaxDim)
-    return launch_nn1_wide<T>(
+    return launch_nn1_wide(
         static_cast<const T*>(ref), static_cast<const T*>(nbr), R, N, D,
-        splits, static_cast<T*>(part_s), part_i, static_cast<T*>(d2), idx,
-        stream);
+        splits, static_cast<float*>(scratch), static_cast<T*>(part_s), part_i,
+        static_cast<T*>(d2), idx, stream);
   cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, T*, int*,
                                  T*, long long*, cudaStream_t) = {
       launch_nn1<T, 1>, launch_nn1<T, 2>, launch_nn1<T, 3>, launch_nn1<T, 4>,
@@ -561,20 +613,25 @@ cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
   }
 }
 
-template <typename T>
-cudaError_t launch_nnk_wide(const T* ref, const T* nbr, int R, int N, int D,
-                            int k, int splits, T* part_s, int* part_i, T* d2,
+cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
+                            int D, int k, int splits, float* scratch,
+                            float* part_s, int* part_i, float* d2,
+                            long long* idx, cudaStream_t stream);
+cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
+                            int N, int D, int k, int splits, float* scratch,
+                            double* part_s, int* part_i, double* d2,
                             long long* idx, cudaStream_t stream);
 
 template <typename T>
 cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
-                    int k, int splits, void* part_s, int* part_i, void* d2,
-                    long long* idx, cudaStream_t stream) {
+                    int k, int splits, void* scratch, void* part_s,
+                    int* part_i, void* d2, long long* idx,
+                    cudaStream_t stream) {
   if (D > kMaxDim)
-    return launch_nnk_wide<T>(
+    return launch_nnk_wide(
         static_cast<const T*>(ref), static_cast<const T*>(nbr), R, N, D, k,
-        splits, static_cast<T*>(part_s), part_i, static_cast<T*>(d2), idx,
-        stream);
+        splits, static_cast<float*>(scratch), static_cast<T*>(part_s), part_i,
+        static_cast<T*>(d2), idx, stream);
   cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, int, T*,
                                  int*, T*, long long*, cudaStream_t) = {
       launch_nnk<T, 1>, launch_nnk<T, 2>, launch_nnk<T, 3>, launch_nnk<T, 4>,
@@ -584,7 +641,7 @@ cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
                        static_cast<T*>(d2), idx, stream);
 }
 
-// ---- D > 8: the wide scans ------------------------------------------------
+// ---- D > 8, float64: the SIMT wide scans ---------------------------------
 
 constexpr int kWideRows = 64;   // reference rows a block
 constexpr int kWideCols = 64;   // neighbours a tile
@@ -681,14 +738,14 @@ __device__ __forceinline__ void wide_tile(
   __syncthreads();
 }
 
-// nn1_scan for any D: each row's least s over the split, and the first
-// index that gives it (a strict <, in ascending index), into part_s /
+// nn1_scan for any D in float64: each row's least s over the split, and the
+// first index that gives it (a strict <, in ascending index), into part_s /
 // part_i [splits, R]; thread r < 64 keeps row row0 + r.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-nn1_wide_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
-              int N, int D, int chunk, T* __restrict__ part_s,
-              int* __restrict__ part_i) {
+nn1_wide_scan_f64(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
+                  int N, int D, int chunk, T* __restrict__ part_s,
+                  int* __restrict__ part_i) {
   __shared__ WideShared<T> sh;
   const int j_begin = blockIdx.y * chunk;
   const int j_end = min(N, j_begin + chunk);
@@ -714,14 +771,15 @@ nn1_wide_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
   }
 }
 
-// nnk_scan for any D: each row's best k (s, index) pairs over the split,
-// sorted by (s, index), into part_s / part_i [splits, k, R]; thread r < 64
-// keeps row row0 + r and inserts its scores in ascending index.
+// nnk_scan for any D in float64: each row's best k (s, index) pairs over
+// the split, sorted by (s, index), into part_s / part_i [splits, k, R];
+// thread r < 64 keeps row row0 + r and inserts its scores in ascending
+// index.
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-nnk_wide_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
-              int N, int D, int k, int chunk, T* __restrict__ part_s,
-              int* __restrict__ part_i) {
+nnk_wide_scan_f64(const T* __restrict__ ref, const T* __restrict__ nbr,
+                  int R, int N, int D, int k, int chunk,
+                  T* __restrict__ part_s, int* __restrict__ part_i) {
   __shared__ WideShared<T> sh;
   const int j_begin = blockIdx.y * chunk;
   const int j_end = min(N, j_begin + chunk);
@@ -754,49 +812,645 @@ nnk_wide_scan(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
   }
 }
 
-template <typename T>
-cudaError_t launch_nn1_wide(const T* ref, const T* nbr, int R, int N, int D,
-                            int splits, T* part_s, int* part_i, T* d2,
+cudaError_t launch_nn1_wide(const double* ref, const double* nbr, int R,
+                            int N, int D, int splits, float*,
+                            double* part_s, int* part_i, double* d2,
                             long long* idx, cudaStream_t stream) {
   const dim3 grid((R + kWideRows - 1) / kWideRows, splits);
-  nn1_wide_scan<T><<<grid, kThreads, 0, stream>>>(
+  nn1_wide_scan_f64<double><<<grid, kThreads, 0, stream>>>(
       ref, nbr, R, N, D, split_chunk(N, splits), part_s, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  nn1_merge<T, 0><<<(R + 255) / 256, 256, 0, stream>>>(ref, R, D, splits,
-                                                       part_s, part_i, d2,
-                                                       idx);
+  nn1_merge<double, 0><<<(R + 255) / 256, 256, 0, stream>>>(
+      ref, R, D, splits, part_s, part_i, d2, idx);
   return cudaGetLastError();
 }
 
-template <typename T, int K>
-cudaError_t launch_nnk_wide_k(const T* ref, const T* nbr, int R, int N, int D,
-                              int k, int splits, T* part_s, int* part_i,
-                              T* d2, long long* idx, cudaStream_t stream) {
+template <int K>
+cudaError_t launch_nnk_wide_f64(const double* ref, const double* nbr, int R,
+                                int N, int D, int k, int splits,
+                                double* part_s, int* part_i, double* d2,
+                                long long* idx, cudaStream_t stream) {
   const dim3 grid((R + kWideRows - 1) / kWideRows, splits);
-  nnk_wide_scan<T, K><<<grid, kThreads, 0, stream>>>(
+  nnk_wide_scan_f64<double, K><<<grid, kThreads, 0, stream>>>(
       ref, nbr, R, N, D, k, split_chunk(N, splits), part_s, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  nnk_merge<T, 0, K><<<(R + 255) / 256, 256, 0, stream>>>(
+  nnk_merge<double, 0, K><<<(R + 255) / 256, 256, 0, stream>>>(
       ref, R, D, k, splits, part_s, part_i, d2, idx);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_nnk_wide(const T* ref, const T* nbr, int R, int N, int D,
-                            int k, int splits, T* part_s, int* part_i, T* d2,
+cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
+                            int N, int D, int k, int splits, float*,
+                            double* part_s, int* part_i, double* d2,
                             long long* idx, cudaStream_t stream) {
   switch (list_len(k)) {
-    case 2: return launch_nnk_wide_k<T, 2>(ref, nbr, R, N, D, k, splits,
-                                           part_s, part_i, d2, idx, stream);
-    case 4: return launch_nnk_wide_k<T, 4>(ref, nbr, R, N, D, k, splits,
-                                           part_s, part_i, d2, idx, stream);
-    case 8: return launch_nnk_wide_k<T, 8>(ref, nbr, R, N, D, k, splits,
-                                           part_s, part_i, d2, idx, stream);
-    default: return launch_nnk_wide_k<T, kMaxK>(ref, nbr, R, N, D, k, splits,
-                                                part_s, part_i, d2, idx,
-                                                stream);
+    case 2: return launch_nnk_wide_f64<2>(ref, nbr, R, N, D, k, splits,
+                                          part_s, part_i, d2, idx, stream);
+    case 4: return launch_nnk_wide_f64<4>(ref, nbr, R, N, D, k, splits,
+                                          part_s, part_i, d2, idx, stream);
+    case 8: return launch_nnk_wide_f64<8>(ref, nbr, R, N, D, k, splits,
+                                          part_s, part_i, d2, idx, stream);
+    default: return launch_nnk_wide_f64<kMaxK>(ref, nbr, R, N, D, k, splits,
+                                               part_s, part_i, d2, idx,
+                                               stream);
+  }
+}
+
+// ---- D > 8, float32: the wide scans on the tensor cores -------------------
+
+constexpr int kPanel = 64;          // rows a panel: a warpgroup's rows, a tile
+constexpr int kGroups = 2;          // consumer warpgroups a block
+constexpr int kTcRows = kPanel * kGroups;       // reference rows a block
+constexpr int kTcThreads = 128 * kGroups + 32;  // and one producer warp
+constexpr int kTcChunk = 64;        // coordinates a stage holds, most
+constexpr int kBlockDim = 32;       // coordinates a fresh sum, 40 at most
+constexpr int kMaxStages = 4;
+constexpr int kResidentDim = 128;   // padded D up to which rows stay resident
+constexpr int kBarBytes = 256;      // the mbarriers, at the head of the smem
+constexpr int kMinTcSplitTiles = 8; // tiles a split, least
+
+// The layout of one panel of 64 rows (tf32_split writes it, the stages
+// receive it as it is): for each chunk c of kc = min(64, Dp - 64 c)
+// coordinates, at 128 * 64 c floats, the hi words and then the lo words,
+// each as kc / 8 k-steps of [64 rows][8 coordinates] in wgmma's K-major
+// 32-byte swizzle (row r's 32 bytes at 32 r, its two 16-byte halves
+// swapped where bit 2 of r is set, so that a k-step's rows read from
+// distinct banks); then 64 floats of |row|^2.
+__host__ __device__ constexpr size_t panel_floats(int Dp) {
+  return 2 * static_cast<size_t>(kPanel) * Dp + kPanel;
+}
+__host__ __device__ constexpr int chunk_dim(int Dp, int c) {
+  return Dp - kTcChunk * c < kTcChunk ? Dp - kTcChunk * c : kTcChunk;
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  unsigned u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
+  return __uint_as_float(u);
+}
+
+// Splits rows [0, panels * 64) of x [n, D] (zero past n and past D) into
+// the panels above; |row|^2 is the FMA chain from the first coordinate
+// (ref_sqnorm's), +inf past n.  One thread a row.
+__global__ void tf32_split(const float* __restrict__ x, int n, int D, int Dp,
+                           int panels, float* __restrict__ out) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= panels * kPanel) return;
+  const int r = row % kPanel;
+  float* panel = out + static_cast<size_t>(row / kPanel) * panel_floats(Dp);
+  const float* src = x + static_cast<size_t>(row) * D;
+  const bool live = row < n;
+  float sq = 0.f;
+  for (int g = 0; g < Dp / 4; ++g) {
+    float v[4], hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * g + e;
+      v[e] = live && c < D ? src[c] : 0.f;
+      sq = c == 0 ? __fmul_rn(v[e], v[e]) : __fmaf_rn(v[e], v[e], sq);
+      hi[e] = tf32_rna(v[e]);
+      lo[e] = tf32_rna(__fsub_rn(v[e], hi[e]));
+    }
+    const int c = g / (kTcChunk / 4), kc = chunk_dim(Dp, c);
+    float4* h = reinterpret_cast<float4*>(panel + 2 * kPanel * kTcChunk * c);
+    float4* l = h + kPanel * kc / 4;
+    const int o = (g % (kTcChunk / 4)) / 2 * 2 * kPanel + 2 * r +
+                  ((g % 2) ^ ((r >> 2) & 1));
+    h[o] = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    l[o] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  }
+  panel[2 * kPanel * Dp + r] = live ? sq : CUDART_INF_F;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Waits for the completion of the barrier's phase of this parity; traps
+// (the launch fails) after 2^26 polls instead of hanging.  The loop is
+// PTX's: a C++ loop whose exit differs by thread would put the wgmmas
+// after it on a divergent path, which ptxas serializes (C7520).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 67108864;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// bytes from global to shared memory by the bulk-copy engine, counted on
+// `bar` (16-byte aligned, a multiple of 16 bytes)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma's descriptor of a k-step of a panel in shared memory (256-byte
+// aligned): K-major, 32-byte swizzle (layout type 3), groups of 8 rows 256
+// bytes apart (the stride byte offset; the leading one is unused).
+__device__ __forceinline__ uint64_t operand_desc(const float* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         uint64_t{1} << 16 | static_cast<uint64_t>(256 >> 4) << 32 |
+         uint64_t{3} << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving accumulator accesses across a wgmma fence
+// or wait
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d = A B^T (+ d if accumulate) for a 64 x 8 A and a 64 x 8 B (64
+// neighbours), TF32 in, float32 accumulators in wgmma's layout.
+__device__ __forceinline__ void wgmma_64x64x8(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// (a, ia) before (b, ib) in (s, index) order
+__device__ __forceinline__ bool lex_less(float a, int ia, float b, int ib) {
+  return a < b || (a == b && ia < ib);
+}
+
+// insert<K> in (s, index) order, for lists whose indices interleave
+template <int K>
+__device__ __forceinline__ void insert_lex(float d, int j, float* v,
+                                           int* id) {
+  if (!lex_less(d, j, v[K - 1], id[K - 1])) return;
+#pragma unroll
+  for (int s = K - 1; s > 0; --s) {
+    if (lex_less(d, j, v[s - 1], id[s - 1])) {
+      v[s] = v[s - 1];
+      id[s] = id[s - 1];
+    } else if (lex_less(d, j, v[s], id[s])) {
+      v[s] = d;
+      id[s] = j;
+    }
+  }
+  if (lex_less(d, j, v[0], id[0])) {
+    v[0] = d;
+    id[0] = j;
+  }
+}
+
+// How a call of the tensor-core scans is cut: Dp coordinates in chunks, the
+// block's rows resident or streamed with each stage, the ring's stages (as
+// many as fit, at most max_stages) and the dynamic shared memory.
+struct TcPlan {
+  int Dp, resident, stages, tiles, row_panels;
+  size_t pf, smem;
+};
+
+TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages) {
+  TcPlan p;
+  p.Dp = (D + 7) / 8 * 8;
+  p.resident = p.Dp <= kResidentDim;
+  p.tiles = (N + kPanel - 1) / kPanel;
+  p.row_panels = kGroups * ((R + kTcRows - 1) / kTcRows);
+  p.pf = panel_floats(p.Dp);
+  // a stage: a tile's chunk (hi, lo) and its |b|^2; streamed rows: the
+  // block's two panels' chunk too
+  const size_t kc = std::min(p.Dp, kTcChunk);
+  const size_t stage = 4 * (2 * kPanel * kc + kPanel +
+                            (p.resident ? 0 : 2 * kTcRows * kc));
+  // and 256 bytes to align the base
+  const size_t fixed = 256 + kBarBytes +
+                       (p.resident ? 4 * kGroups * p.pf : 0);
+  const size_t fit = static_cast<size_t>(smem_max) > fixed
+                         ? (smem_max - fixed) / stage : 0;
+  p.stages = static_cast<int>(std::min<size_t>(max_stages, fit));
+  p.smem = fixed + stage * p.stages;
+  return p;
+}
+
+// The scan of nn1 (K = 1) or nnk (K the list length) on the tensor cores:
+// rows [128 blockIdx.x, + 128) against the tiles [split_tiles blockIdx.y,
+// + split_tiles), each row's best into part_s / part_i [splits, k, R]
+// (nn1: [splits, R]).  Threads 0-255: two consumer warpgroups; warp 8:
+// the producer.
+template <int K>
+__global__ void __launch_bounds__(kTcThreads, 1)
+wide_tc_scan(const float* __restrict__ ref_pan,
+             const float* __restrict__ nbr_pan, int R, int Dp, int resident,
+             int stages, int tiles, int split_tiles, int k,
+             float* __restrict__ part_s, int* __restrict__ part_i) {
+  extern __shared__ __align__(256) unsigned char smem_raw[];
+  // the swizzle pattern repeats every 256 bytes of shared address
+  unsigned char* smem = smem_raw + (256 - smem_addr(smem_raw) % 256) % 256;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* rows_in = empty + kMaxStages;
+  const size_t pf = panel_floats(Dp);
+  const int kc_max = Dp < kTcChunk ? Dp : kTcChunk;
+  const int chunks = (Dp + kTcChunk - 1) / kTcChunk;
+  float* rows = reinterpret_cast<float*>(smem + kBarBytes);
+  float* ring = rows + (resident ? kGroups * pf : 0);
+  const size_t b_floats = 2 * static_cast<size_t>(kPanel) * kc_max + kPanel;
+  const size_t stage_floats =
+      b_floats + (resident ? 0 : 2 * static_cast<size_t>(kTcRows) * kc_max);
+  const int tile0 = blockIdx.y * split_tiles;
+  const int tile1 = min(tiles, tile0 + split_tiles);
+  const float* my_rows = ref_pan + static_cast<size_t>(kGroups) *
+                                       blockIdx.x * pf;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warpgroup, by a shuffle so that ptxas sees it uniform: the role
+  // branch below must not make the consumers' wgmmas divergent (C7520)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMaxStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * kGroups);
+    }
+    mbar_init(rows_in, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (role == kGroups) {
+    // the producer: one thread keeps the ring full
+    if (lane != 0) return;
+    if (resident) {
+      mbar_expect_tx(rows_in, 4 * kGroups * pf);
+      bulk_load(rows, my_rows, 4 * kGroups * pf, rows_in);
+    }
+    int it = 0;
+    for (int t = tile0; t < tile1; ++t) {
+      const float* tile = nbr_pan + static_cast<size_t>(t) * pf;
+      for (int c = 0; c < chunks; ++c, ++it) {
+        const int s = it % stages, kc = chunk_dim(Dp, c);
+        if (it >= stages) mbar_wait(&empty[s], ((it / stages) - 1) & 1);
+        float* st = ring + s * stage_floats;
+        // the last chunk's copy runs on into the panel's |b|^2
+        const uint32_t b_bytes =
+            4 * (2 * kPanel * kc + (c == chunks - 1 ? kPanel : 0));
+        const uint32_t a_bytes = 4 * 2 * kPanel * kc;
+        mbar_expect_tx(&full[s],
+                       b_bytes + (resident ? 0 : kGroups * a_bytes));
+        const size_t off = 2 * static_cast<size_t>(kPanel) * kTcChunk * c;
+        bulk_load(st, tile + off, b_bytes, &full[s]);
+        if (!resident) {
+          for (int g = 0; g < kGroups; ++g)
+            bulk_load(st + b_floats + g * 2 * kPanel * kc,
+                      my_rows + g * pf + off, a_bytes, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup g: rows 64 g + 16 w + lane / 4 (+ 8) of the block
+  const int g = role, w = warp % 4, q = lane % 4;
+  const int r0 = kTcRows * blockIdx.x + kPanel * g + 16 * w + lane / 4;
+  float best[2] = {CUDART_INF_F, CUDART_INF_F};
+  int bidx[2] = {0, 0};
+  constexpr int KL = K > 1 ? K : 1;
+  float v[2][KL];
+  int id[2][KL];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < KL; ++e) {
+      v[h][e] = CUDART_INF_F;
+      id[h][e] = 0;
+    }
+  if (resident) mbar_wait(rows_in, 0);
+  // a block's sum (fresh each block of coordinates), the tile's total
+  float acc[32], total[32], bn[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  int it = 0;
+  for (int t = tile0; t < tile1; ++t) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) total[i] = 0.f;
+    for (int c = 0; c < chunks; ++c, ++it) {
+      const int s = it % stages, kc = chunk_dim(Dp, c);
+      mbar_wait(&full[s], (it / stages) & 1);
+      const float* st = ring + s * stage_floats;
+      const float* a_hi =
+          resident ? rows + g * pf + 2 * kPanel * kTcChunk * c
+                   : st + b_floats + g * 2 * kPanel * kc;
+      const float* a_lo = a_hi + kPanel * kc;
+      const float* b_hi = st;
+      const float* b_lo = st + kPanel * kc;
+      // a k-step of 8 coordinates is a [64][8] block: 512 floats.  Each
+      // block of 32 coordinates (40 where 8 are left) is summed fresh,
+      // small products first, big ones last, and added to `total`
+      // rounded to nearest
+      for (int k0 = 0, k1; k0 < kc; k0 = k1) {
+        k1 = kc - k0 <= kBlockDim + 8 ? kc : k0 + kBlockDim;
+        __syncwarp();
+        fence_operands(acc);
+        wgmma_fence();
+        for (int j = k0 / 8; j < k1 / 8; ++j)
+          wgmma_64x64x8(acc, operand_desc(a_lo + 512 * j),
+                        operand_desc(b_hi + 512 * j), j > k0 / 8);
+        for (int j = k0 / 8; j < k1 / 8; ++j)
+          wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
+                        operand_desc(b_lo + 512 * j), 1);
+        for (int j = k0 / 8; j < k1 / 8; ++j)
+          wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
+                        operand_desc(b_hi + 512 * j), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(acc);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) total[i] = __fadd_rn(total[i], acc[i]);
+      }
+      if (c == chunks - 1) {
+        // |b|^2 of this thread's columns 8 j + 2 q (+ 1)
+        const float2* bn2 =
+            reinterpret_cast<const float2*>(st + 2 * kPanel * kc);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 x = bn2[4 * j + q];
+          bn[2 * j] = x.x;
+          bn[2 * j + 1] = x.y;
+        }
+      }
+      mbar_arrive(&empty[s]);
+    }
+    // accumulator i holds row r0 + 8 ((i >> 1) & 1), column
+    // 8 (i >> 2) + 2 q + (i & 1): each row's 16 in ascending column
+    const int col0 = kPanel * t + 2 * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sc[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int i = 4 * (e >> 1) + 2 * h + (e & 1);
+        sc[e] = __fmaf_rn(-2.f, total[i], bn[e]);
+      }
+      if constexpr (K == 1) {
+        // min first, its first index only where it improves
+        float m = sc[0];
+#pragma unroll
+        for (int e = 1; e < 16; ++e) m = fminf(m, sc[e]);
+        if (m < best[h]) {
+          int f = 15;
+#pragma unroll
+          for (int e = 14; e >= 0; --e) f = sc[e] == m ? e : f;
+          best[h] = m;
+          bidx[h] = col0 + 8 * (f >> 1) + (f & 1);
+        }
+      } else {
+        // the row's threshold: the least of its four threads' K-th s (a
+        // candidate equal to it may still win on its index)
+        float thr = v[h][K - 1];
+        thr = fminf(thr, __shfl_xor_sync(0xffffffffu, thr, 1));
+        thr = fminf(thr, __shfl_xor_sync(0xffffffffu, thr, 2));
+        unsigned cand = 0;
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          cand |= sc[e] <= thr && sc[e] < v[h][K - 1] ? 1u << e : 0u;
+        // one insert site, candidates in ascending column: a warp runs as
+        // many rounds as its busiest lane has candidates
+        while (cand) {
+          const int e = __ffs(cand) - 1;
+          cand &= cand - 1;
+          float x = sc[0];
+#pragma unroll
+          for (int f = 1; f < 16; ++f) x = f == e ? sc[f] : x;
+          insert<K>(x, col0 + 8 * (e >> 1) + (e & 1), v[h], id[h]);
+        }
+      }
+    }
+  }
+  // the four threads of a row merge in (s, index) order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if constexpr (K == 1) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best[h], off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bidx[h], off);
+        if (lex_less(ob, oi, best[h], bidx[h])) {
+          best[h] = ob;
+          bidx[h] = oi;
+        }
+      }
+      if (q == 0 && row < R) {
+        part_s[static_cast<size_t>(blockIdx.y) * R + row] = best[h];
+        part_i[static_cast<size_t>(blockIdx.y) * R + row] = bidx[h];
+      }
+    } else {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        // the partner's list as it was, then merged into this one
+        float ov[K];
+        int oi[K];
+#pragma unroll
+        for (int e = 0; e < K; ++e) {
+          ov[e] = __shfl_xor_sync(0xffffffffu, v[h][e], off);
+          oi[e] = __shfl_xor_sync(0xffffffffu, id[h][e], off);
+        }
+#pragma unroll
+        for (int e = 0; e < K; ++e) insert_lex<K>(ov[e], oi[e], v[h], id[h]);
+      }
+      if (q == 0 && row < R) {
+#pragma unroll
+        for (int e = 0; e < K; ++e) {
+          if (e < k) {
+            const size_t o =
+                (static_cast<size_t>(blockIdx.y) * k + e) * R + row;
+            part_s[o] = v[h][e];
+            part_i[o] = id[h][e];
+          }
+        }
+      }
+    }
+  }
+}
+
+int smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
+// Blocks of the scan of list length K an SM holds with `smem` bytes of
+// dynamic shared memory (0 on a query failure).
+template <int K>
+int blocks_per_sm(size_t smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(wide_tc_scan<K>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, wide_tc_scan<K>, kTcThreads, smem) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// tc_plan with the most stages (2 to 4) among those that let the most
+// blocks share an SM: at D = 33 two blocks of two stages took 2.37 ms
+// where one of four took 3.27 (PERF.md); *per_sm gets that count.
+template <int K>
+TcPlan tc_plan_for(int R, int N, int D, int* per_sm) {
+  const int smem_max = smem_optin();
+  TcPlan best = tc_plan(R, N, D, smem_max, kMaxStages);
+  *per_sm = best.stages < 2 ? 0 : blocks_per_sm<K>(best.smem);
+  for (int st = best.stages - 1; st >= 2; --st) {
+    const TcPlan p = tc_plan(R, N, D, smem_max, st);
+    const int n = blocks_per_sm<K>(p.smem);
+    if (n > *per_sm) {
+      best = p;
+      *per_sm = n;
+    }
+  }
+  return best;
+}
+
+// Splits of the tiles for the tensor-core scan of list length K: the count
+// (each split at least kMinTcSplitTiles tiles) whose waves of blocks, at
+// the blocks an SM the kernel holds, take the fewest tile-steps (two more a
+// block for its start); 0 on a device query failure.
+template <int K>
+int tc_splits(int R, int N, int D) {
+  int dev = 0, sms = 0, per_sm = 0;
+  const TcPlan p = tc_plan_for<K>(R, N, D, &per_sm);
+  if (p.stages < 2 || per_sm < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  const long long row_blocks = p.row_panels / kGroups;
+  const long long slots = static_cast<long long>(sms) * per_sm;
+  const int most = std::max(1, std::min(64, p.tiles / kMinTcSplitTiles));
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; s <= most; ++s) {
+    const int per = (p.tiles + s - 1) / s;
+    const int used = (p.tiles + per - 1) / per;
+    const long long cost = (row_blocks * used + slots - 1) / slots * (per + 2);
+    if (best_cost < 0 || cost < best_cost) {
+      best = used;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int K>
+cudaError_t launch_tc(const float* ref, const float* nbr, int R, int N, int D,
+                      int k, int splits, float* scratch, float* part_s,
+                      int* part_i, float* d2, long long* idx,
+                      cudaStream_t stream) {
+  int per_sm = 0;
+  const TcPlan p = tc_plan_for<K>(R, N, D, &per_sm);
+  if (scratch == nullptr || p.stages < 2 || per_sm < 1)
+    return cudaErrorInvalidValue;
+  float* ref_pan = scratch;
+  float* nbr_pan = scratch + static_cast<size_t>(p.row_panels) * p.pf;
+  tf32_split<<<(p.row_panels * kPanel + 127) / 128, 128, 0, stream>>>(
+      ref, R, D, p.Dp, p.row_panels, ref_pan);
+  tf32_split<<<(p.tiles * kPanel + 127) / 128, 128, 0, stream>>>(
+      nbr, N, D, p.Dp, p.tiles, nbr_pan);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(wide_tc_scan<K>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(p.smem));
+  if (e != cudaSuccess) return e;
+  const int split_tiles = (p.tiles + splits - 1) / splits;
+  const dim3 grid(p.row_panels / kGroups, splits);
+  wide_tc_scan<K><<<grid, kTcThreads, p.smem, stream>>>(
+      ref_pan, nbr_pan, R, p.Dp, p.resident, p.stages, p.tiles, split_tiles,
+      k, part_s, part_i);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (K == 1)
+    nn1_merge<float, 0><<<(R + 255) / 256, 256, 0, stream>>>(
+        ref, R, D, splits, part_s, part_i, d2, idx);
+  else
+    nnk_merge<float, 0, K><<<(R + 255) / 256, 256, 0, stream>>>(
+        ref, R, D, k, splits, part_s, part_i, d2, idx);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_nn1_wide(const float* ref, const float* nbr, int R, int N,
+                            int D, int splits, float* scratch, float* part_s,
+                            int* part_i, float* d2, long long* idx,
+                            cudaStream_t stream) {
+  return launch_tc<1>(ref, nbr, R, N, D, 1, splits, scratch, part_s, part_i,
+                      d2, idx, stream);
+}
+
+cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
+                            int D, int k, int splits, float* scratch,
+                            float* part_s, int* part_i, float* d2,
+                            long long* idx, cudaStream_t stream) {
+  switch (list_len(k)) {
+    case 2: return launch_tc<2>(ref, nbr, R, N, D, k, splits, scratch,
+                                part_s, part_i, d2, idx, stream);
+    case 4: return launch_tc<4>(ref, nbr, R, N, D, k, splits, scratch,
+                                part_s, part_i, d2, idx, stream);
+    case 8: return launch_tc<8>(ref, nbr, R, N, D, k, splits, scratch,
+                                part_s, part_i, d2, idx, stream);
+    default: return launch_tc<kMaxK>(ref, nbr, R, N, D, k, splits, scratch,
+                                     part_s, part_i, d2, idx, stream);
+  }
+}
+
+int nnk_tc_splits(int R, int N, int D, int k) {
+  switch (list_len(k)) {
+    case 2: return tc_splits<2>(R, N, D);
+    case 4: return tc_splits<4>(R, N, D);
+    case 8: return tc_splits<8>(R, N, D);
+    default: return tc_splits<kMaxK>(R, N, D);
   }
 }
 
@@ -806,14 +1460,33 @@ extern "C" {
 
 // Splits of the neighbour range that nn1 uses for R rows of D coordinates
 // (float64 if f64, else float32) and N neighbours on the current device:
-// enough for ~16 blocks an SM, at least 2048 neighbours each.  ppt_nn1's
-// scratch holds splits * R values of the clouds' type and splits * R
-// ints.  Returns 0 on invalid sizes or a device query failure.
+// the register-tiled and float64 wide scans aim at ~16 blocks an SM, at
+// least 2048 neighbours each; the float32 wide scan at whole waves of
+// blocks (tc_splits).  ppt_nn1's part_s / part_i hold splits * R values of
+// the clouds' type and splits * R ints.  Returns 0 on invalid sizes or a
+// device query failure.
 int ppt_nn1_splits(int R, int N, int D, int f64) {
-  if (D < 1) return 0;
+  if (D < 1 || R <= 0 || N <= 0) return 0;
+  if (D > kMaxDim && !f64) return tc_splits<1>(R, N, D);
   const int rows = D > kMaxDim ? kWideRows
                    : kThreads * (f64 ? nn1_rt<double>(D) : nn1_rt<float>(D));
   return splits_for(R, N, rows, kNn1BlocksPerSm);
+}
+
+// The float32 scratch (*floats of them) that ppt_nn1 and ppt_nnk need for
+// R rows and N neighbours of D coordinates (float64 if f64): the split
+// clouds of the float32 wide scans, 0 elsewhere.  Returns
+// cudaErrorInvalidValue on invalid sizes.
+int ppt_knn_scratch(int R, int N, int D, int f64, long long* floats) {
+  *floats = 0;
+  if (R <= 0 || N <= 0 || D < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D > kMaxDim && !f64) {
+    const TcPlan p = tc_plan(R, N, D, 0, kMaxStages);
+    *floats = static_cast<long long>(p.row_panels + p.tiles) *
+              static_cast<long long>(p.pf);
+  }
+  return 0;
 }
 
 // The nearest of N neighbours (nbr [N, D]) of each of R reference rows
@@ -821,29 +1494,32 @@ int ppt_nn1_splits(int R, int N, int D, int f64) {
 // the same type, clamped at 0, and idx [R] int64, on `stream`, through
 // `splits` (ppt_nn1_splits) partial results in part_s [splits, R] (the
 // clouds' type) / part_i [splits, R]: the register-tiled scan for
-// D <= 8, the wide scan past it.  Returns cudaGetLastError() (0 on
-// success); invalid sizes (R, N, splits >= 1, D >= 1) return
-// cudaErrorInvalidValue without launching.
+// D <= 8, the wide scan past it (float32 on the tensor cores, through
+// `scratch`, ppt_knn_scratch's floats).  Returns cudaGetLastError() (0 on
+// success); invalid sizes (R, N, splits >= 1, D >= 1) or a missing
+// scratch return cudaErrorInvalidValue without launching.
 int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
-            int splits, void* part_s, int* part_i, void* d2, long long* idx,
-            void* stream) {
+            int splits, void* scratch, void* part_s, int* part_i, void* d2,
+            long long* idx, void* stream) {
   if (R <= 0 || N <= 0 || splits < 1 || splits > N || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      f64 ? nn1_any<double>(ref, nbr, R, N, D, splits, part_s, part_i, d2,
-                            idx, s)
-          : nn1_any<float>(ref, nbr, R, N, D, splits, part_s, part_i, d2, idx,
-                           s));
+      f64 ? nn1_any<double>(ref, nbr, R, N, D, splits, scratch, part_s,
+                            part_i, d2, idx, s)
+          : nn1_any<float>(ref, nbr, R, N, D, splits, scratch, part_s,
+                           part_i, d2, idx, s));
 }
 
 // Splits of the neighbour range that nnk uses for R rows of D coordinates,
 // N neighbours and k (float64 if f64, else float32) on the current device:
-// enough for ~4 blocks an SM, at least 2048 neighbours each.  ppt_nnk's
-// scratch holds splits * k * R values of the clouds' type and as many
-// ints.  Returns 0 on invalid sizes or a device query failure.
+// the register-tiled and float64 wide scans aim at ~4 blocks an SM, at
+// least 2048 neighbours each; the float32 wide scan at whole waves.
+// ppt_nnk's part_s / part_i hold splits * k * R values of the clouds' type
+// and as many ints.  Returns 0 on invalid sizes or a device query failure.
 int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
-  if (D < 1 || k < 1 || k > kMaxK) return 0;
+  if (D < 1 || R <= 0 || N <= 0 || k < 1 || k > kMaxK) return 0;
+  if (D > kMaxDim && !f64) return nnk_tc_splits(R, N, D, k);
   const int K = list_len(k);
   const int rows = D > kMaxDim ? kWideRows
                    : kThreads * (f64 ? nnk_rows<double>(K) : nnk_rows<float>(K));
@@ -855,21 +1531,22 @@ int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
 // the same type, ascending by (d^2, index), clamped at 0, and idx [R, k]
 // int64, on `stream`, through `splits` (ppt_nnk_splits) partial lists in
 // part_s / part_i [splits, k, R]: the register-tiled scan for D <= 8, the
-// wide scan past it.  Returns cudaGetLastError() (0 on success); invalid
-// sizes (R >= 1, 1 <= k <= min(N, 16), D >= 1, 1 <= splits <= N) return
-// cudaErrorInvalidValue without launching.
+// wide scan past it (float32 through `scratch`, as ppt_nn1).  Returns
+// cudaGetLastError() (0 on success); invalid sizes (R >= 1,
+// 1 <= k <= min(N, 16), D >= 1, 1 <= splits <= N) or a missing scratch
+// return cudaErrorInvalidValue without launching.
 int ppt_nnk(const void* ref, const void* nbr, int R, int N, int D, int k,
-            int f64, int splits, void* part_s, int* part_i, void* d2,
-            long long* idx, void* stream) {
+            int f64, int splits, void* scratch, void* part_s, int* part_i,
+            void* d2, long long* idx, void* stream) {
   if (R <= 0 || N <= 0 || k < 1 || k > N || k > kMaxK || D < 1 ||
       splits < 1 || splits > N)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      f64 ? nnk_any<double>(ref, nbr, R, N, D, k, splits, part_s, part_i, d2,
-                            idx, s)
-          : nnk_any<float>(ref, nbr, R, N, D, k, splits, part_s, part_i, d2,
-                           idx, s));
+      f64 ? nnk_any<double>(ref, nbr, R, N, D, k, splits, scratch, part_s,
+                            part_i, d2, idx, s)
+          : nnk_any<float>(ref, nbr, R, N, D, k, splits, scratch, part_s,
+                           part_i, d2, idx, s));
 }
 
 const char* ppt_cuda_error_string(int code) {

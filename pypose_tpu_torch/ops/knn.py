@@ -21,12 +21,17 @@ are int64 (torch's index type), where the JAX package returns int32.
 
 Both kernels take float32 and float64 clouds of any number of
 coordinates: register-tiled scans for 1 to 8 coordinates, and wide scans
-past 8 (descriptor clouds: FPFH's 33, SIFT's 128), which form 64 x 64
-tiles of scores as a small GEMM over chunks of 8 coordinates (the cross
-term an FMA chain from the first coordinate, |b|^2 added after it) and
-select from them in ascending index (``csrc/knn.cu``).  ``function/geometry.py:_knn_tiled`` routes k = 1 (not
-``largest``) on CUDA to :func:`nn1` and 2 <= k <= :data:`MAX_K` to
-:func:`nnk`.
+past 8 (descriptor clouds: FPFH's 33, SIFT's 128).  In float32 the wide
+scans run on the tensor cores in three-pass TF32 (``csrc/knn.cu``): each
+coordinate is split once a call into ``hi = tf32(x)`` and
+``lo = tf32(x - hi)``, both rounded to nearest (:func:`_tf32_split`), and
+the cross term is ``a_lo.b_hi + a_hi.b_lo`` (the small products, first)
+plus ``a_hi.b_hi``, summed fresh in blocks of 32 coordinates, which holds
+the float32 chain's accuracy where one TF32 pass does not (:func:`_tf32_scores` emulates both on the CPU;
+nothing on the card's path runs it).  In float64 the wide scans form
+64 x 64 tiles of scores as a small SIMT GEMM.
+``function/geometry.py:_knn_tiled`` routes k = 1 (not ``largest``) on
+CUDA to :func:`nn1` and 2 <= k <= :data:`MAX_K` to :func:`nnk`.
 """
 
 import ctypes
@@ -55,9 +60,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 def _kernel_lib():
     return bind('knn', {
         'ppt_nn1_splits': [_INT] * 4,
-        'ppt_nn1': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 5,
+        'ppt_knn_scratch': [_INT] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
+        'ppt_nn1': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 6,
         'ppt_nnk_splits': [_INT] * 5,
-        'ppt_nnk': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 5})
+        'ppt_nnk': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 6})
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +119,82 @@ def _nnk_torch(ref, nbr, k):
     return torch.cat(vals).clamp_min(0.0), torch.cat(idxs)
 
 
+def _tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 explicit mantissa bits), to
+    nearest with ties away from zero, as ``cvt.rna.tf32.f32`` rounds: on
+    the integer view, half an ulp of TF32 added, the 13 low bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(x):
+    """``(hi, lo)`` of float32 ``x``: ``hi = tf32(x)``, ``lo = tf32(x -
+    hi)`` (``x - hi`` is exact), the split the wide scans' pre-pass makes;
+    ``|x - hi - lo| <= 2^-22 |x|``."""
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
+# coordinates a stage of the tensor-core scans holds, and a fresh sum
+# (csrc/knn.cu:kTcChunk, kBlockDim)
+_TC_CHUNK, _TC_BLOCK = 64, 32
+
+
+def _tc_blocks(D):
+    """The blocks ``[k0, k1)`` of coordinates whose products the wide
+    scans sum fresh: 32 at a time within each stage's 64 (padded to a
+    multiple of 8), 40 where 8 are left, clipped to D."""
+    Dp = -(-D // 8) * 8
+    out = []
+    for c0 in range(0, Dp, _TC_CHUNK):
+        kc, k0 = min(_TC_CHUNK, Dp - c0), 0
+        while k0 < kc:
+            k1 = kc if kc - k0 <= _TC_BLOCK + 8 else k0 + _TC_BLOCK
+            if c0 + k0 < D:
+                out.append((c0 + k0, min(D, c0 + k1)))
+            k0 = k1
+    return out
+
+
+def _tf32_scores(ref, nbr, passes=3):
+    """[R, N] scores ``s = |b|^2 - 2 a.b`` of float32 clouds with the cross
+    term in TF32, summed in float32 coordinate by coordinate: three passes
+    as the wide scans form it (per block of :func:`_tc_blocks`, a fresh
+    sum of the small products ``a_lo b_hi`` and ``a_hi b_lo`` first and
+    the big ones ``a_hi b_hi`` last, added to the total; ``s = |b|^2 - 2
+    total``), or one (``a_hi b_hi`` alone, in one sum).  Each product of
+    two TF32 values is exact in float32; the tensor cores sum a k-step of
+    8 in an order of their own, and truncate, so this is the kernels'
+    arithmetic up to that order and rounding."""
+    (a_hi, a_lo), (b_hi, b_lo) = _tf32_split(ref), _tf32_split(nbr)
+    shape = (ref.shape[0], nbr.shape[0])
+    total = torch.zeros(shape, dtype=torch.float32)
+    if passes == 1:
+        for c in range(ref.shape[1]):
+            total += a_hi[:, None, c] * b_hi[None, :, c]
+        return _sqnorm(nbr)[None, :] - 2.0 * total
+    for k0, k1 in _tc_blocks(ref.shape[1]):
+        part = a_lo[:, None, k0] * b_hi[None, :, k0]
+        for c in range(k0 + 1, k1):
+            part += a_lo[:, None, c] * b_hi[None, :, c]
+        for c in range(k0, k1):
+            part += a_hi[:, None, c] * b_lo[None, :, c]
+        for c in range(k0, k1):
+            part += a_hi[:, None, c] * b_hi[None, :, c]
+        total += part
+    return _sqnorm(nbr)[None, :] - 2.0 * total
+
+
+def _nnk_tf32(ref, nbr, k, passes=3):
+    """The wide scans' selection on :func:`_tf32_scores`: the k least s of
+    each row by (s, index), then ``d2 = s + |a|^2`` clamped at 0:
+    ``(d2 [R, k], idx [R, k] int64)``."""
+    s = _tf32_scores(ref, nbr, passes)
+    v, i = torch.sort(s, dim=1, stable=True)
+    d2 = (v[:, :k] + _sqnorm(ref)[:, None]).clamp_min(0.0)
+    return d2, i[:, :k].contiguous()
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrapper
 # ---------------------------------------------------------------------------
@@ -149,9 +231,26 @@ def _stream(a):
     return torch.cuda.current_stream(a.device).cuda_stream
 
 
+def _scratch(lib, ref, R, N, D, f64):
+    """The float32 scratch of the wide scans on the tensor cores (None
+    where the kernels need none)."""
+    floats = ctypes.c_longlong()
+    raise_on(lib, lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(floats)),
+             'knn scratch')
+    if not floats.value:
+        return None
+    return torch.empty((floats.value,), dtype=torch.float32,
+                       device=ref.device)
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
 def _launch_nn1(ref, nbr):
-    """One launch of csrc/knn.cu's nn1 (its scan and merge passes):
-    (d2 [R], idx [R] int64)."""
+    """One launch of csrc/knn.cu's nn1 (its scan and merge passes; in
+    float32 past 8 coordinates the split pre-pass first): (d2 [R], idx [R]
+    int64)."""
     global NN1_LAUNCHES
     _check_cuda(ref, nbr, 1)
     (R, D), N = ref.shape, nbr.shape[0]
@@ -170,10 +269,11 @@ def _launch_nn1(ref, nbr):
                              device=ref.device)
         part_i = torch.empty((splits, R), dtype=torch.int32,
                              device=ref.device)
+        scratch = _scratch(lib, ref, R, N, D, f64)
         raise_on(lib, lib.ppt_nn1(
             ref.data_ptr(), nbr.data_ptr(), R, N, D, f64, splits,
-            part_s.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
-            idx.data_ptr(), _stream(ref)), 'nn1')
+            _ptr(scratch), part_s.data_ptr(), part_i.data_ptr(),
+            d2.data_ptr(), idx.data_ptr(), _stream(ref)), 'nn1')
     NN1_LAUNCHES += 1
     return d2, idx
 
@@ -199,10 +299,11 @@ def _launch_nnk(ref, nbr, k):
                              device=ref.device)
         part_i = torch.empty((splits, k, R), dtype=torch.int32,
                              device=ref.device)
+        scratch = _scratch(lib, ref, R, N, D, f64)
         raise_on(lib, lib.ppt_nnk(
             ref.data_ptr(), nbr.data_ptr(), R, N, D, k, f64, splits,
-            part_s.data_ptr(), part_i.data_ptr(), d2.data_ptr(),
-            idx.data_ptr(), _stream(ref)), 'nnk')
+            _ptr(scratch), part_s.data_ptr(), part_i.data_ptr(),
+            d2.data_ptr(), idx.data_ptr(), _stream(ref)), 'nnk')
     NNK_LAUNCHES += 1
     return d2, idx
 
@@ -214,8 +315,9 @@ def nn1(ref, nbr):
     CUDA tensors launch the kernel of ``csrc/knn.cu`` on the current
     stream (two float32 or two float64 clouds, contiguous, of any number
     of coordinates: the register-tiled scan up to 8, the wide scan past
-    it; anything else raises); CPU tensors run :func:`_nn1_torch`.  On a near-tie the two may return different
-    neighbours (module docstring).
+    it, on the tensor cores in float32; anything else raises); CPU
+    tensors run :func:`_nn1_torch`.  On a near-tie the two may return
+    different neighbours (module docstring).
     """
     _check(ref, nbr)
     if ref.device.type == 'cpu':

@@ -1,0 +1,290 @@
+r"""The float32 wide knn scans (D > 8) on the card: what the compiler made
+of them, and their times against an earlier build of ``csrc/knn.cu``.
+
+Prints ``-Xptxas -v``'s registers, shared memory and spills of the
+tensor-core scans (``wide_tc_scan``) and the pre-pass (``tf32_split``),
+and the count of HGMMA instructions in each one's SASS (``cuobjdump
+-sass``, where the toolkit has it).  Then, at FPFH-like 50,000 x 50,000
+(D = 33) and SIFT-like 20,000 x 100,000 (D = 128) clouds
+(``chip_smoke.descriptors``), ``nn1`` and ``nnk`` at k = 8, and ``nnk`` at
+k = 2 on the SIFT clouds (Lowe's ratio test): each case held to the plain
+version by the near-tie rule, and timed with CUDA events (median of 7,
+the 50 MB L2 flushed before each launch).  Given ``--old PATH``, a
+``knn.cu`` of the earlier C interface (``ppt_nn1``/``ppt_nnk`` without a
+scratch argument; e.g. ``git show 70b6c1b:pypose_tpu_torch/csrc/knn.cu``,
+the SIMT wide scans) is built beside it and each case is timed old, new,
+new, old in one process.  ``--variants`` also times the text edits of
+``csrc/knn.cu`` in ``VARIANTS`` (no tensor-core products, no copies into
+shared memory, two stages, one consumer warpgroup): where the scans'
+time goes.  ``--wgmma`` first measures how many cycles of an SM one
+``wgmma.m64nNk8.tf32`` takes at N = 64, 128 and 256
+(``probes/wgmma_rate.cu``).  Needs an NVIDIA GPU:
+
+    python3 -m pypose_tpu_torch.probes.knn_probes [--old PATH] [--variants]
+        [--wgmma]
+"""
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from pypose_tpu_torch.ops import _build
+from pypose_tpu_torch.ops import knn as K
+from pypose_tpu_torch.testing import nnk_tolerance_failures
+
+ROOT = Path(__file__).resolve().parents[2]
+CASES = (('fpfh', 33, 50_000, 50_000, 1), ('fpfh', 33, 50_000, 50_000, 8),
+         ('sift', 128, 20_000, 100_000, 1), ('sift', 128, 20_000, 100_000, 8),
+         ('sift', 128, 20_000, 100_000, 2))
+
+
+def old_lib(path):
+    """The earlier knn.cu built with the same flags, its two entry points
+    bound (their C interface without a scratch argument)."""
+    out = _build.BUILD / 'libknn_old.so'
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-o', str(out),
+                    str(path)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (('ppt_nn1_splits', [I] * 4),
+                     ('ppt_nn1', [P, P] + [I] * 5 + [P] * 5),
+                     ('ppt_nnk_splits', [I] * 5),
+                     ('ppt_nnk', [P, P] + [I] * 6 + [P] * 5)):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = I
+    return lib
+
+
+def old_call(lib, ref, nbr, k):
+    (R, D), N = ref.shape, nbr.shape[0]
+    dev = ref.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    d2 = torch.empty((R, k), device=dev)
+    idx = torch.empty((R, k), dtype=torch.int64, device=dev)
+    if k == 1:
+        sp = lib.ppt_nn1_splits(R, N, D, 0)
+        ps = torch.empty((sp, R), device=dev)
+        pi = torch.empty((sp, R), dtype=torch.int32, device=dev)
+        rc = lib.ppt_nn1(ref.data_ptr(), nbr.data_ptr(), R, N, D, 0, sp,
+                         ps.data_ptr(), pi.data_ptr(), d2.data_ptr(),
+                         idx.data_ptr(), stream)
+    else:
+        sp = lib.ppt_nnk_splits(R, N, D, k, 0)
+        ps = torch.empty((sp, k, R), device=dev)
+        pi = torch.empty((sp, k, R), dtype=torch.int32, device=dev)
+        rc = lib.ppt_nnk(ref.data_ptr(), nbr.data_ptr(), R, N, D, k, 0, sp,
+                         ps.data_ptr(), pi.data_ptr(), d2.data_ptr(),
+                         idx.data_ptr(), stream)
+    if rc:
+        raise RuntimeError(f'old knn launch failed: {rc}')
+    return d2, idx
+
+
+def err_over_tol(ref, nbr, d2, idx):
+    """The largest |d2 - |a - b|^2| over the near-tie rule's tolerance
+    1e-6 (|a|^2 + |b|^2) + 1e-6, in float64."""
+    a = ref.double()[:, None, :]
+    b = nbr.double()[idx]
+    exact = ((a - b) ** 2).sum(-1)
+    tol = 1e-6 * ((a * a).sum(-1) + (b * b).sum(-1)) + 1e-6
+    return float(((d2.double() - exact).abs() / tol).max())
+
+
+# Variants of csrc/knn.cu for --variants, each a text edit of the source:
+# what the float32 wide scans take without their tensor-core products,
+# without their copies into shared memory (the stages then hold stale
+# data: times only), or with two stages.
+VARIANTS = {
+    'no-mma': [('uint64_t db, int accumulate) {',
+                'uint64_t db, int accumulate) {\n  if (accumulate >= 0) '
+                'return;')],
+    'no-copy': [('        bulk_load(st, tile + off, b_bytes, &full[s]);\n',
+                 ''),
+                ('        mbar_expect_tx(&full[s],\n                       '
+                 'b_bytes + (resident ? 0 : kGroups * a_bytes));',
+                 '        mbar_arrive(&full[s]);')],
+    'stages-2': [('constexpr int kMaxStages = 4;',
+                  'constexpr int kMaxStages = 2;')],
+    'groups-1': [('constexpr int kGroups = 2;', 'constexpr int kGroups = 1;')],
+}
+
+
+def variant_libs(names):
+    """csrc/knn.cu with each VARIANTS[name]'s edits, built (one nvcc each,
+    all at once) and bound as ops/knn.py binds the real one."""
+    src = (_build.CSRC / 'knn.cu').read_text()
+    procs = {}
+    for name in names:
+        text = src
+        for old, new in VARIANTS[name]:
+            if old not in text:
+                raise RuntimeError(f'variant {name}: {old!r} not in knn.cu')
+            text = text.replace(old, new)
+        path = _build.BUILD / f'knn_{name}.cu'
+        path.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, '-o',
+             str(path.with_suffix('.so')), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f'variant {name}: {log}')
+        lib = ctypes.CDLL(str(_build.BUILD / f'knn_{name}.so'))
+        for fn, args in (('ppt_nn1_splits', [I] * 4),
+                         ('ppt_knn_scratch',
+                          [I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]),
+                         ('ppt_nn1', [P, P] + [I] * 5 + [P] * 6),
+                         ('ppt_nnk_splits', [I] * 5),
+                         ('ppt_nnk', [P, P] + [I] * 6 + [P] * 6)):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = I
+        libs[name] = lib
+    return libs
+
+
+def variant_call(lib, ref, nbr, k):
+    """One float32 call of ``lib``'s nn1 (k = 1) or nnk."""
+    (R, D), N = ref.shape, nbr.shape[0]
+    dev = ref.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    d2 = torch.empty((R, k), device=dev)
+    idx = torch.empty((R, k), dtype=torch.int64, device=dev)
+    n = ctypes.c_longlong()
+    lib.ppt_knn_scratch(R, N, D, 0, ctypes.byref(n))
+    scratch = torch.empty((n.value,), device=dev)
+    sp = (lib.ppt_nn1_splits(R, N, D, 0) if k == 1
+          else lib.ppt_nnk_splits(R, N, D, k, 0))
+    ps = torch.empty((sp, k, R), device=dev)
+    pi = torch.empty((sp, k, R), dtype=torch.int32, device=dev)
+    args = (scratch.data_ptr(), ps.data_ptr(), pi.data_ptr(), d2.data_ptr(),
+            idx.data_ptr(), stream)
+    rc = (lib.ppt_nn1(ref.data_ptr(), nbr.data_ptr(), R, N, D, 0, sp, *args)
+          if k == 1 else
+          lib.ppt_nnk(ref.data_ptr(), nbr.data_ptr(), R, N, D, k, 0, sp,
+                      *args))
+    if rc:
+        raise RuntimeError(f'variant launch failed: {rc}')
+    return d2, idx
+
+
+def wgmma_rates(dev, steps=15, rounds=2000):
+    """probes/wgmma_rate.cu on every SM: {(N, warpgroups): (cycles a
+    wgmma.m64nNk8.tf32 takes an SM, MAC a cycle an SM)}, from the slowest
+    warpgroup's clock64 span over `rounds` groups of `steps` wgmmas."""
+    src = Path(__file__).with_name('wgmma_rate.cu')
+    out = _build.BUILD / 'libwgmma_rate.so'
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-o', str(out),
+                    str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ppt_wgmma_rate.argtypes = [I] * 4 + [P, P, I]
+    lib.ppt_wgmma_rate.restype = I
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cycles = torch.zeros(2 * sms, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, device=dev)
+    rates = {}
+    for n in (64, 128, 256):
+        for groups in (1, 2):
+            cycles.zero_()
+            rc = lib.ppt_wgmma_rate(n, groups, steps, rounds,
+                                    cycles.data_ptr(), sink.data_ptr(), sms)
+            torch.cuda.synchronize()
+            if rc:
+                raise RuntimeError(f'wgmma_rate launch failed: {rc}')
+            span = float(cycles.view(sms, 2).max(1).values.double().median())
+            per = span / (groups * steps * rounds)
+            rates[(n, groups)] = (per, 64 * n * 8 / per)
+    return rates
+
+
+def flushed_ms(fn, flush, repeat=7):
+    """Median ms of ``fn()`` between CUDA events, L2 flushed before each."""
+    times = []
+    for _ in range(repeat):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--old', type=Path, help='an earlier csrc/knn.cu')
+    ap.add_argument('--variants', action='store_true',
+                    help='time the VARIANTS of csrc/knn.cu beside it')
+    ap.add_argument('--wgmma', action='store_true',
+                    help='the TF32 wgmma rate at n64, n128, n256 first')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('knn_probes: needs an NVIDIA GPU')
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import compiled_kernels, descriptors, knn_bound
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda', 0)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader', '-i', '0'],
+                         capture_output=True, text=True).stdout.strip()
+    print(f'[probe] {smi}; torch {torch.__version__}', flush=True)
+    K._kernel_lib()
+    for name, (used, spill, hgmma) in compiled_kernels(
+            _build.BUILD / 'libknn.so', ('wide_tc_scan', 'tf32_split')).items():
+        print(f'[probe] {name}: {used}; {spill}; HGMMA in SASS: {hgmma}',
+              flush=True)
+    if args.wgmma:
+        for (n, groups), (per, mac) in wgmma_rates(dev).items():
+            print(f'[probe] wgmma.m64n{n}k8.tf32, {groups} warpgroup(s) an '
+                  f'SM: {per:.1f} cycles a wgmma an SM, {mac:.0f} MAC a cycle '
+                  f'an SM ({mac / 1024:.2f} of the 1024 of 495 TFLOP/s at '
+                  f'~1.83 GHz)', flush=True)
+    old = old_lib(args.old) if args.old else None
+    variants = variant_libs(VARIANTS) if args.variants else {}
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    clouds = {}
+    for tag, D, R, N, k in CASES:
+        if tag not in clouds:
+            clouds[tag] = tuple(descriptors(tag, n, gen).float().to(dev)
+                                for n in (R, N))
+        ref, nbr = clouds[tag]
+        d_k, i_k = K.nnk(ref, nbr, k)
+        i_p = K._nnk_torch(ref, nbr, k)[1]
+        got = nnk_tolerance_failures(ref, nbr, d_k, i_k, i_p)
+        got['max_err_over_tol'] = err_over_tol(ref, nbr, d_k, i_k)
+        new_ms = lambda: K.nnk(ref, nbr, k)  # noqa: E731
+        if old is not None:
+            o_d, o_i = old_call(old, ref, nbr, k)
+            got_old = nnk_tolerance_failures(ref, nbr, o_d, o_i, i_p)
+            old_ms = lambda: old_call(old, ref, nbr, k)  # noqa: E731
+            t = [flushed_ms(old_ms, flush), flushed_ms(new_ms, flush),
+                 flushed_ms(new_ms, flush), flushed_ms(old_ms, flush)]
+            times = (f'old {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, old '
+                     f'{t[3]:.4f} ms; old rule {got_old}')
+        else:
+            times = f'new {flushed_ms(new_ms, flush):.4f} ms'
+        for v, vlib in variants.items():
+            t = flushed_ms(lambda: variant_call(vlib, ref, nbr, k), flush)
+            times += f'; {v} {t:.4f} ms'
+        b = knn_bound(R, N, D, k, False)
+        print(f'[probe] {tag} [{R}, {D}] x [{N}, {D}], k={k}: {got}; {times}'
+              f' (median of 7, L2 flushed); bound {b[0]:.4f} ms ({b[1]})',
+              flush=True)
+        if got['index_failures'] or got['repeat_failures'] \
+                or got['d2_failures']:
+            raise SystemExit(f'{tag} k={k}: outside the near-tie rule')
+
+
+if __name__ == '__main__':
+    main()

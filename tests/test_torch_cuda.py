@@ -366,11 +366,13 @@ def test_knn_float64_launches_kernels(cuda, k):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('D', [9, 16, 33, 128])
+@pytest.mark.parametrize('D', [9, 15, 16, 17, 33, 64, 128, 300])
 def test_descriptor_kernels_match_plain(cuda, D, dtype):
-    """The wide scans (D > 8): nn1 and nnk (k = 2, 8, 16), one launch
-    each, under the near-tie rules (float64 at F64_TOL), on clouds whose
-    sizes are not multiples of the tiles."""
+    """The wide scans (D > 8; float32 on the tensor cores, its rows
+    resident in shared memory up to 128 coordinates and streamed past):
+    nn1 and nnk (k = 2, 8, 16), one launch each, under the near-tie rules
+    (float64 at F64_TOL), on clouds whose sizes are not multiples of the
+    tiles."""
     ref, nbr = (a.to(dtype) for a in _clouds(1001, 3003, cuda, seed=D, D=D))
     tol = F64_TOL if dtype == torch.float64 else {}
     for k in (1, 2, 8, 16):
@@ -383,6 +385,91 @@ def test_descriptor_kernels_match_plain(cuda, D, dtype):
                                      knn._nnk_torch(ref, nbr, k)[1], **tol)
         assert got['index_failures'] == got['repeat_failures'] == \
             got['d2_failures'] == 0, got
+
+
+def _descriptor_clouds(R, N, D, dev, seed):
+    """FPFH-like clouds (uniform bins, each row summing to 100): the
+    descriptors' own scale, where one TF32 pass breaks the near-tie
+    rule."""
+    gen = torch.Generator().manual_seed(seed)
+    a, b = torch.rand((R, D), generator=gen), torch.rand((N, D), generator=gen)
+    return ((100 * a / a.sum(1, keepdim=True)).to(dev),
+            (100 * b / b.sum(1, keepdim=True)).to(dev))
+
+
+@pytest.mark.parametrize('R,N', [(1, 20), (5, 63), (130, 50), (127, 64),
+                                 (129, 65), (300, 1000)])
+@pytest.mark.parametrize('D', [9, 33, 128])
+def test_descriptor_kernels_ragged_shapes(cuda, R, N, D):
+    """The float32 wide scans at row counts around a block's 128, neighbour
+    counts around a tile's 64 and below it: nn1 and nnk (k = 2, 8, 16 up
+    to N), one launch each, under the near-tie rules."""
+    ref, nbr = _descriptor_clouds(R, N, D, cuda, seed=R + N + D)
+    for k in (1, 2, 8, 16):
+        if k > N:
+            continue
+        name = 'NN1_LAUNCHES' if k == 1 else 'NNK_LAUNCHES'
+        before = getattr(knn, name)
+        d_k, i_k = knn.nnk(ref, nbr, k)
+        torch.cuda.synchronize()
+        assert getattr(knn, name) == before + 1
+        assert d_k.shape == i_k.shape == (R, k)
+        assert (d_k[:, 1:] >= d_k[:, :-1]).all()
+        _assert_nnk_within_tolerance(ref, nbr, d_k, i_k,
+                                     knn._nnk_torch(ref, nbr, k)[1])
+
+
+@pytest.mark.parametrize('D', [33, 128, 300])
+def test_descriptor_kernels_rule_at_scale(cuda, D):
+    """FPFH-like clouds of 2,000 x 20,000 in float32, whose large norms
+    (|a|^2 ~ 10^2-10^4) make the tensor cores' truncating sums the
+    largest share of the error: nn1 and nnk (k = 16) under the near-tie
+    rules."""
+    ref, nbr = _descriptor_clouds(2000, 20_000, D, cuda, seed=D)
+    for k in (1, 16):
+        d_k, i_k = knn.nnk(ref, nbr, k)
+        _assert_nnk_within_tolerance(ref, nbr, d_k, i_k,
+                                     knn._nnk_torch(ref, nbr, k)[1])
+
+
+@pytest.mark.parametrize('D', [17, 33, 128])
+def test_descriptor_kernels_exact_ties(cuda, D):
+    """Duplicated neighbours (every point twice, and copies of some
+    reference rows) in float32: nn1 takes the first of equal distances,
+    as the plain version does; nnk's pairs of copies come lower index
+    first; both under the near-tie rules."""
+    ref, base = _descriptor_clouds(500, 700, D, cuda, seed=D)
+    nbr = torch.cat([base, base, ref[:100]])
+    d_k, i_k = knn.nn1(ref, nbr)
+    _assert_nn1_within_tolerance(ref, nbr, d_k, i_k,
+                                 knn._nn1_torch(ref, nbr)[1])
+    assert not bool(((i_k >= 700) & (i_k < 1400)).any())
+    assert torch.equal(i_k[:100].cpu(), 1400 + torch.arange(100))
+    d_k, i_k = knn.nnk(ref, nbr, 4)
+    _assert_nnk_within_tolerance(ref, nbr, d_k, i_k,
+                                 knn._nnk_torch(ref, nbr, 4)[1])
+    # a neighbour's copy ranks right after it (rows past 100 may also
+    # find a reference row's copy, at 1400 and up, which has none)
+    first = i_k[100:, 0]
+    assert not bool(((first >= 700) & (first < 1400)).any())
+    base_first = first < 700
+    assert bool(base_first.any())
+    assert torch.equal(i_k[100:, 1][base_first], first[base_first] + 700)
+
+
+def test_descriptor_scratch_sizes(cuda):
+    """The float32 wide scans' scratch: the split clouds, zero for the
+    float64 and the register-tiled scans."""
+    import ctypes
+    lib = knn._kernel_lib()
+    n = ctypes.c_longlong()
+    assert lib.ppt_knn_scratch(20_000, 100_000, 128, 0, ctypes.byref(n)) == 0
+    # 157 blocks of 128 rows and 1563 tiles of 64, each panel 64 x 128 x 2
+    # words and 64 norms
+    assert n.value == (2 * 157 + 1563) * (2 * 64 * 128 + 64)
+    for D, f64 in ((128, 1), (8, 0)):
+        assert lib.ppt_knn_scratch(100, 100, D, f64, ctypes.byref(n)) == 0
+        assert n.value == 0
 
 
 def test_sharded_pgo_one_rank_matches_sparse_lm(cuda):
