@@ -19,9 +19,11 @@ the cart-pole (no kernel on these paths); then trajectory evaluation
 pair, SE3 B-splines over 60,000 control poses, a block-sparse E E^T at
 ba-trafalgar's size and the 15 examples (no kernel on these paths but
 the whole solve's); then knn on descriptor clouds (33 and 128
-coordinates) through the nearest-neighbour kernels' wide scans, and the
-sharded optimizers (parallel/) at one NCCL rank and at two gloo ranks on
-the one card (no kernel on that path).
+coordinates) through the nearest-neighbour kernels' wide scans, nnk at
+k > 16 (normal estimation, outlier removal and FPFH neighbourhoods at 100k
+points, descriptors, k up to N), and the sharded optimizers (parallel/)
+at one NCCL rank and at two gloo ranks on the one card (no kernel on
+that path).
 
 Phases (any failure raises, so the script exits non-zero):
   1. device: needs torch.cuda; prints nvidia-smi's name and power limit;
@@ -29,9 +31,10 @@ Phases (any failure raises, so the script exits non-zero):
   2. build: compiles pypose_tpu_torch/csrc/stencil_cg{,_tiled,_fused}.cu,
      knn.cu and se3.cu, one nvcc each, all at once (timed as set-up);
      prints ptxas' registers and shared memory (knn.cu: for D = 3 and 8,
-     the wide scans and their split pre-pass), and the HGMMA
-     instructions in the float32 wide scans' SASS (cuobjdump), which
-     must be there.
+     the wide scans and their split pre-pass, and every k > 16 scan), and
+     the HGMMA instructions in the float32 wide scans' SASS (cuobjdump),
+     which must be there, as many in each of the six instantiations; a
+     C7520 (serialized wgmma) in ptxas' output fails.
   3. kernel vs plain, on the same random SPD stencil systems on the card,
      each timed with CUDA events (median of 7):
      - the whole-solve cluster kernel at N=40, at sphere2500's shape
@@ -256,6 +259,19 @@ Phases (any failure raises, so the script exits non-zero):
      torch.cdist + torch.min / topk, the device time of each traced in a
      fresh process; knn(k=1) and knn(k=8) on the D = 33 clouds launch one
      nn1 and one nnk.
+ 37b. knn-bigk: nnk at k > 16 (the lists off the registers), each case
+     once through knn() from zeroed counts (one nnk launch): k = 30, 50
+     and 100 on ICP's 100k target against itself (normal estimation,
+     outlier removal, FPFH neighbourhoods) and k = 1024 (beside the
+     route it replaced), k = 30 on [knn-d6]'s clouds in float64, k = 32
+     on [knn-wide]'s FPFH clouds in float32 (tensor cores) and float64
+     (SIMT) and on its SIFT clouds (float32 SIMT); through ops.knn.nnk,
+     k = 1024 on 10,000 x 100,000 and k = N on 4096 x 4096 points;
+     each held to the plain version by the near-tie rule (its largest d^2
+     error over the tolerance printed), timed with L2 flushed, its device
+     time traced in a fresh process, beside the plain version, the
+     chunked Gram route k > 16 took before and chunked torch.cdist +
+     torch.topk, and its bound.
  38. (38.-40. run after 32.) sharded-pgo: parallel.ShardedPGO on
      data/synthetic_sphere2500_seed42.g2o with examples/pgo.py's schedule,
      10 steps, at one rank (an NCCL
@@ -283,7 +299,7 @@ Phases (any failure raises, so the script exits non-zero):
      counts at 3.35 TB/s and 67 TFLOP/s float32 (the float32 wide scans
      at three TF32 passes' 165 TFLOP/s), bound_by, library_ms;
      nn1 and nnk also at D = 6, bound at 2 D flop a pair, in float32 and
-     in float64 at 34 TFLOP/s; the whole solve's launches on each
+     in float64 at 67 TFLOP/s; the whole solve's launches on each
      sphere2500 path, launches_by_path), the card line and the result
      line.
 
@@ -3109,9 +3125,10 @@ def block_size_kernels(t):
 WIDE_CASES = (('fpfh', 33, 50_000, 50_000, 'float32', (1, 8)),
               ('sift', 128, 20_000, 100_000, 'float32', (1, 8, 2)),
               ('fpfh-f64', 33, 10_000, 10_000, 'float64', (1, 8)))
-# float64 outside the tensor cores, and TF32 on them, dense (NVIDIA's H100
-# SXM data sheet)
-FP64_FLOP_PER_S = 34e12
+# float64 and TF32 on the tensor cores, dense (NVIDIA's H100 SXM data
+# sheet; float64 outside them is 34 TFLOP/s, but the cross term of a
+# distance scan is a GEMM that DMMA computes in full float64)
+FP64_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 
 
@@ -3130,9 +3147,10 @@ def descriptors(kind, n, gen):
 
 def knn_bound(R, N, D, k, f64):
     """2 D flop a pair; the clouds read once, d2 and the int64 indices
-    written once.  float64 at its SIMT peak; float32 at the faster of the
-    SIMT peak and three TF32 passes on the tensor cores (3 x 2 D flop a
-    pair at 495 TFLOP/s, the precision the near-tie rule needs)."""
+    written once.  float64 at its tensor-core peak (DMMA); float32 at the
+    faster of the SIMT peak and three TF32 passes on the tensor cores
+    (3 x 2 D flop a pair at 495 TFLOP/s, the precision the near-tie rule
+    needs)."""
     return bound((8 if f64 else 4) * (R + N) * D + (16 if f64 else 12) * R * k,
                  2 * R * N * D, FP64_FLOP_PER_S if f64 else
                  max(FP32_FLOP_PER_S, TF32_FLOP_PER_S / 3))
@@ -3307,6 +3325,183 @@ def knn_wide_phase(dev):
     for v in out.values():
         del v['idx']
     return out, counts
+
+
+# [knn-bigk]: (tag, clouds, k, the k > 16 scan it takes, its users); the
+# clouds of bigk_clouds, each case called through knn() but the two range
+# cases, which call ops.knn.nnk
+BIGK_CASES = (
+    ('normals', 'icp', 30, 'register-tiled float32',
+     'Open3D normal estimation, KDTreeSearchParamKNN(knn=30)'),
+    ('outliers', 'icp', 50, 'register-tiled float32',
+     'PCL StatisticalOutlierRemoval, setMeanK(50)'),
+    ('fpfh-nbhd', 'icp', 100, 'register-tiled float32',
+     'Open3D FPFH, KDTreeSearchParamHybrid(max_nn=100)'),
+    ('d6-f64', 'd6-f64', 30, 'register-tiled float64', 'float64 clouds'),
+    ('fpfh-33', 'fpfh', 32, 'tensor-core float32',
+     'descriptor neighbourhoods'),
+    ('fpfh-33-f64', 'fpfh-f64', 32, 'wide SIMT float64',
+     'descriptor neighbourhoods in float64'),
+    ('sift-128', 'sift', 32, 'wide SIMT float32',
+     'SIFT-width descriptors (past the tensor-core scan\'s 96 coordinates)'),
+    ('range-100k', 'icp', 1024, 'register-tiled float32',
+     'coverage: k ~ 1000 at ICP scale, beside the route it replaced'),
+    ('range', 'range', 1024, 'register-tiled float32', 'coverage: range'),
+    ('full', 'full', 4096, 'register-tiled float32',
+     'coverage: a whole row sorted'))
+BIGK_RANGE = ('range', 'full')
+
+
+def bigk_clouds(dev):
+    """{name: (ref, nbr)} of BIGK_CASES on ``dev``: ICP's 100k target
+    against itself; [knn-d6]'s [10000, 6] clouds in float64; [knn-wide]'s
+    FPFH-like clouds (50,000^2 float32, 10,000^2 float64) and SIFT-like
+    clouds (20,000 x 100,000 float32); 10,000 ICP
+    source points against the 100k target; 4096 target points against
+    themselves."""
+    import torch
+    src, _, tgt = icp_instance(100_000, dev)
+    gen = torch.Generator().manual_seed(0)
+    d6 = [torch.randn((10_000, 6), generator=gen).double().to(dev)
+          for _ in range(2)]
+    wide = wide_clouds(dev)
+    full = tgt[:4096].contiguous()
+    return {'icp': (tgt, tgt), 'd6-f64': tuple(d6), 'fpfh': wide['fpfh'],
+            'fpfh-f64': wide['fpfh-f64'], 'sift': wide['sift'],
+            'range': (src[:10_000].contiguous(), tgt), 'full': (full, full)}
+
+
+def bigk_device_worker():
+    """Run in a fresh process by :func:`bigk_device_ms`: the device ms of
+    one ops.knn.nnk call of each [knn-bigk] case under torch.profiler, as
+    a JSON line {tag: ms}."""
+    import torch
+    from pypose_tpu_torch.ops import knn as K
+    clouds = bigk_clouds(torch.device('cuda', 0))
+    out = {}
+    for tag, cl, k, _, _ in BIGK_CASES:
+        ref, nbr = clouds[cl]
+        K.nnk(ref, nbr, k)
+        torch.cuda.synchronize()
+        out[tag] = profiled_call(lambda: K.nnk(ref, nbr, k))[1]
+    print(json.dumps(out))
+
+
+def bigk_device_ms():
+    """The [knn-bigk] calls' device time, traced in a fresh process (late
+    in this script torch.profiler traced knn calls empty)."""
+    res = subprocess.run(
+        [sys.executable, '-c',
+         'import chip_smoke; chip_smoke.bigk_device_worker()'],
+        capture_output=True, text=True, timeout=300, cwd=str(_ROOT))
+    check(res.returncode == 0,
+          f'knn-bigk: the profiling process failed: {res.stderr[-2000:]}')
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def flushed_ms(fn, repeat=7):
+    """Median ms of ``fn()`` between CUDA events, the 50 MB L2 flushed
+    (64 MB zeroed) before each call; and the last call's result."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.float32, device='cuda')
+    times, out = [], None
+    for _ in range(repeat):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), out
+
+
+def d2_err_over_tol(ref, nbr, d2, idx, rtol=1e-6, atol=1e-6):
+    """The largest |d2 - |a - b|^2| over the near-tie rule's tolerance
+    rtol (|a|^2 + |b|^2) + atol, in float64."""
+    a = ref.double()[:, None, :]
+    b = nbr.double()[idx]
+    exact = ((a - b) ** 2).sum(-1)
+    tol = rtol * ((a * a).sum(-1) + (b * b).sum(-1)) + atol
+    return float(((d2.double() - exact).abs() / tol).max())
+
+
+def knn_bigk_phase(dev):
+    """[knn-bigk] nnk at k > 16 (csrc/knn.cu's k > 16 scans): each case of
+    BIGK_CASES called once through knn() (ops.knn.nnk for the range
+    cases) from zeroed counts, one nnk launch and no other; held to the
+    plain version by the near-tie rule (float64 at F64_TOL), its largest
+    d^2 error over the tolerance printed; the kernel timed (CUDA events,
+    median of 7, L2 flushed before each call), its device time traced in
+    a fresh process (bigk_device_ms), beside the plain version, the
+    chunked Gram route k > 16 took before (function/geometry.py:
+    _knn_gram) and chunked torch.cdist + torch.topk (one call each), and
+    the bound (D <= 8: bound(), 2 D flop a pair at 67 TFLOP/s, float32
+    SIMT or float64 DMMA; D > 8: knn_bound()).  Returns {tag: numbers}."""
+    import torch
+    import pypose_tpu_torch as ppt
+    from pypose_tpu_torch.function import geometry
+    from pypose_tpu_torch.ops import knn as K
+    from pypose_tpu_torch.testing import nnk_tolerance_failures
+    t0 = time.perf_counter()
+    device = bigk_device_ms()
+    clouds = bigk_clouds(dev)
+    out = {}
+    for tag, cl, k, family, users in BIGK_CASES:
+        ref, nbr = clouds[cl]
+        (R, D), N = ref.shape, nbr.shape[0]
+        f64 = ref.dtype == torch.float64
+        tol = F64_TOL if f64 else {}
+        reset_counts()
+        if tag in BIGK_RANGE:
+            d2, idx = K.nnk(ref, nbr, k)
+        else:
+            res = ppt.knn(ref, nbr, k=k)
+            d2, idx = res.values ** 2, res.indices
+        torch.cuda.synchronize()
+        counts = read_counts()
+        others = {n: c for n, c in counts.items() if n != 'NNK_LAUNCHES' and c}
+        check(counts['NNK_LAUNCHES'] == 1 and not others,
+              f'knn-bigk {tag}: launch counts {counts}')
+        check(tuple(idx.shape) == (R, k) and bool(torch.isfinite(d2).all()),
+              f'knn-bigk {tag}: wrong shape or not finite')
+        p_ms, (d_p, i_p) = cuda_ms(lambda: K._nnk_torch(ref, nbr, k),
+                                   repeat=1)
+        got = nnk_tolerance_failures(ref, nbr, d2, idx, i_p, **tol)
+        ratio = d2_err_over_tol(ref, nbr, d2, idx, **tol)
+        err = float((d2 - d_p).abs().max())
+        del d_p, i_p
+        check(got['index_failures'] == got['repeat_failures']
+              == got['d2_failures'] == 0,
+              f'knn-bigk {tag}: outside the tolerance: {got}')
+        k_ms, _ = flushed_ms(lambda: K.nnk(ref, nbr, k))
+        chunk = max(128, (64 << 20) // N)
+        g_ms, _ = cuda_ms(lambda: geometry._knn_gram(ref, nbr, k, False,
+                                                     chunk), repeat=1)
+        c_ms, _ = cuda_ms(lambda: cdist_topk(ref, nbr, k), repeat=1)
+        b = knn_bound(R, N, D, k, f64) if D > 8 else bound(
+            (8 if f64 else 4) * (R + N) * D + (16 if f64 else 12) * R * k,
+            2 * R * N * D, FP64_FLOP_PER_S if f64 else FP32_FLOP_PER_S)
+        d_ms = device.get(tag) or None
+        print(f'[knn-bigk] {tag} ({users}): {family}, [{R}, {D}] x [{N}, '
+              f'{D}] {ref.dtype}, k={k}, through '
+              f'{"ops.knn.nnk" if tag in BIGK_RANGE else "knn"}: launch '
+              f'counts {counts}; {got}; largest d2 error {ratio:.3f} of '
+              f'its tolerance; max|d2 - d2_p| {err:.3e}; kernel '
+              f'{k_ms:.4f} ms (median of 7, L2 flushed; device '
+              f'{"not measured" if d_ms is None else f"{d_ms:.4f} ms"}), '
+              f'plain {p_ms:.4f} ms, _knn_gram {g_ms:.4f} ms, torch.cdist '
+              f'+ torch.topk {c_ms:.4f} ms (one call each); bound '
+              f'{b[0]:.4f} ms ({b[1]})', flush=True)
+        out[tag] = dict(family=family, shape=f'[{R}, {D}] x [{N}, {D}] '
+                        f'{str(ref.dtype)[6:]}, k={k}',
+                        launches=counts['NNK_LAUNCHES'],
+                        err=err, err_over_tol=ratio, ms=k_ms, device_ms=d_ms,
+                        plain_ms=p_ms, gram_ms=g_ms, cdist_ms=c_ms,
+                        bound=b)
+    print(f'[knn-bigk] phase {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
 
 
 G2O = 'synthetic_sphere2500_seed42.g2o'
@@ -3706,6 +3901,7 @@ def main():
             # csrc/knn.cu: the float32 and float64 instantiations for D = 3
             # and D = 8, and the wide scans
             elif 'Used' in line and (path.stem != 'libknn' or 'wide' in entry
+                                     or 'big' in entry
                                      or 'tf32_split' in entry
                                      or any(f'I{t}Li{d}E' in entry
                                             for t in 'fd' for d in (3, 8))):
@@ -3717,9 +3913,19 @@ def main():
         print(f'[build] libknn: {name}: HGMMA instructions in its SASS '
               f'{"not read (no cuobjdump)" if hgmma is None else hgmma}; '
               f'{used}; {spill}', flush=True)
-    check(len(tc) == 5 and all(h is None or h > 0 for _, _, h in tc.values()),
-          f'the float32 wide scans: five instantiations with HGMMA '
+    # six: nn1, nnk at 2, 4, 8, 16 and past 16 (K = 0), one HGMMA count
+    hgmma = {h for _, _, h in tc.values()}
+    check(len(tc) == 6 and (hgmma == {None} or
+                            (len(hgmma) == 1 and min(hgmma) > 0)),
+          f'the float32 wide scans: six instantiations with one HGMMA count '
           f'expected, found {tc}')
+    # ptxas warns C7520 where it serializes the wgmmas
+    knn_log = (_build.BUILD / 'libknn.log').read_text()
+    check('C7520' not in knn_log,
+          'ptxas serialized wgmma in csrc/knn.cu (C7520): '
+          + '; '.join(l for l in knn_log.splitlines() if 'C7520' in l))
+    print('[build] libknn: no C7520 (serialized wgmma) in ptxas\' output',
+          flush=True)
 
     # 3. kernels vs plain versions on the card
     whole = [
@@ -3788,6 +3994,8 @@ def main():
     d6 = knn_d6_phase(dev)
     # 37. the knn kernels past 8 coordinates (the wide scans)
     wide, wide_counts = knn_wide_phase(dev)
+    # 37b. nnk at k > 16
+    bigk = knn_bigk_phase(dev)
     sparse_f64_phase(dev)
     general = {'pgo-chain': pgo_chain_phase(dev),
                'pgo-loops': pgo_loops_phase(dev)}
@@ -3876,11 +4084,11 @@ def main():
     d6_n = 10_000
     nn1_d6_b = bound(4 * 2 * d6_n * 6 + 12 * d6_n, 12 * d6_n * d6_n)
     nnk_d6_b = bound(4 * 2 * d6_n * 6 + 12 * d6_n * 8, 12 * d6_n * d6_n)
-    # the same in float64, its operations at 34 TFLOP/s (NVIDIA's H100 SXM
-    # data sheet, float64 outside the tensor cores)
-    nn1_d6_b64 = bound(8 * 2 * d6_n * 6 + 16 * d6_n, 12 * d6_n * d6_n, 34e12)
+    # the same in float64, its operations at FP64_FLOP_PER_S
+    nn1_d6_b64 = bound(8 * 2 * d6_n * 6 + 16 * d6_n, 12 * d6_n * d6_n,
+                       FP64_FLOP_PER_S)
     nnk_d6_b64 = bound(8 * 2 * d6_n * 6 + 16 * d6_n * 8, 12 * d6_n * d6_n,
-                       34e12)
+                       FP64_FLOP_PER_S)
     # SE3: [N, 7] x [N, 7] -> [N, 7] (~60 flop), [N, 7] x [N, 3] -> [N, 3]
     # (~30 flop)
     se3_b = {'se3_mul': bound(4 * N100k * 21, 60 * N100k),
@@ -4070,6 +4278,38 @@ def main():
             ms_of=f'{fp["shape"]} (FPFH-like; float32 on the tensor '
                   'cores); cases: every shape; launches from knn() on the '
                   'D = 33 clouds', routed=True))
+    # k > 16: one entry a scan family, launches from its first case's
+    # call through knn() (counted from zero)
+    for kname, line, first, tags in (
+            ('nnk_bigk', '50', 'normals',
+             ('normals', 'outliers', 'fpfh-nbhd', 'range-100k', 'range',
+              'full')),
+            ('nnk_bigk_f64', '50', 'd6-f64', ('d6-f64',)),
+            ('nnk_wide_bigk', '138', 'fpfh-33', ('fpfh-33',)),
+            ('nnk_wide_bigk_simt', '138', 'sift-128', ('sift-128',)),
+            ('nnk_wide_bigk_f64', '138', 'fpfh-33-f64', ('fpfh-33-f64',))):
+        fc = bigk[first]
+        kernels.append(entry(
+            kname, 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:' + line,
+            fc['launches'], max(bigk[t]['err'] for t in tags), fc['ms'],
+            fc['plain_ms'], fc['bound'], library_ms=fc['cdist_ms'],
+            library='torch.cdist then torch.topk, per chunk of 64 Mi pairs',
+            device_ms=fc['device_ms'], gram_ms=fc['gram_ms'],
+            gram='function/geometry.py:_knn_gram, the route k > 16 took '
+                 'before',
+            cases={t: dict(family=bigk[t]['family'], shape=bigk[t]['shape'],
+                           ms=bigk[t]['ms'], device_ms=bigk[t]['device_ms'],
+                           plain_ms=bigk[t]['plain_ms'],
+                           gram_ms=bigk[t]['gram_ms'],
+                           cdist_ms=bigk[t]['cdist_ms'],
+                           bound_ms=bigk[t]['bound'][0],
+                           bound_by=bigk[t]['bound'][1],
+                           max_abs_err=bigk[t]['err'],
+                           err_over_tol=bigk[t]['err_over_tol'])
+                   for t in tags},
+            ms_of=f'{fc["shape"]} ({fc["family"]}; L2 flushed); cases: '
+                  'every shape; launches from its call through knn()',
+            routed=True))
     for tag, numbers in sharded.items():
         print(f'[{tag}] {numbers}', flush=True)
     print(f'[pgo-100k] profiled run {pgo_prof}', flush=True)

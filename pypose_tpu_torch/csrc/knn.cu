@@ -1,6 +1,7 @@
-// Brute-force nearest neighbours: nn1 (k = 1) and nnk (2 <= k <= 16), two
+// Brute-force nearest neighbours: nn1 (k = 1) and nnk (2 <= k <= N), two
 // register-tiled scans of one design for clouds of 1 to 8 coordinates, and
-// two wide scans for clouds of more.
+// two wide scans for clouds of more; past k = 16 the lists leave the
+// registers (below).
 //
 // Replaces the TPU kernels of pypose_tpu/ops/pallas_knn.py:
 //   _knn1_kernel (:22)  per [Tr, Tn] tile, the Gram-form squared distance
@@ -113,6 +114,46 @@
 // nnk_wide_scan_f64): a 64 x 64 tile of scores as a small SIMT GEMM (4 x 8
 // a thread, chunks of 8 coordinates through shared memory), read by
 // threads 0-63 a row each.
+//
+// nnk past k = 16 (nnk_scan_big, nnk_wide_scan_big, wide_tc_scan<kBig>):
+// the same TPU kernel (pallas_knn.py:_knnk_kernel :50, which takes any
+// k <= N).  A list of k = 100 pairs a row would take 200 registers, so:
+//  - each family scores its pairs as at k <= 16 (the same FMA chain; on
+//    the tensor cores the same three-pass total) and appends each pair
+//    before its row's k-th pair in (s, index) order (every pair until the
+//    row's list holds k) to the row's buffer in shared memory: the
+//    register-tiled scan at one row a thread (128 rows a block; 32
+//    candidates a row, kBigBatch: 64 halved the blocks an SM and won only
+//    at k ~ 1000, which no user of the repo asks for), the float64 wide
+//    scan one row a thread of threads 0-63, the tensor-core scan from the
+//    row's four threads (their columns interleave, hence the (s, index)
+//    order in the test); the wide scans' buffers hold 64 (kBuf: a tile
+//    of 64 neighbours appends at most 64);
+//  - where a buffer would overflow, and at the end of the split, the
+//    row's warp merges it into the row's sorted list (flush_row): a
+//    bitonic sort of the buffer in registers by shuffles, then the list
+//    rewritten in place from its top down, each entry moving up by the
+//    candidates before it; the row's k-th pair, the threshold, tightens.
+//    A random cloud makes ~k (1 + ln(M / k)) entries a row over a split
+//    of M neighbours; a merge moves up to k entries, 128 a round, so
+//    k ~ 1000 is bound by the merges;
+//  - the lists live in global memory, in part_s / part_i [splits, R, k]
+//    (in L2 while the split runs: 128 rows x k x 8 bytes a block): lists
+//    in shared memory, where they fit, cost blocks an SM and took longer
+//    at k = 30-100, and past ~100 they do not fit.  Shared memory holds
+//    the buffers (33 KB a register-tiled block in float32) and each
+//    warp's counters;
+//  - splits as many as one wave of blocks holds (each split pays its own
+//    candidates), at most 32, within 1 GB of lists; a split of fewer than
+//    k neighbours sorts them all, its list ending in (inf, INT_MAX) pairs
+//    that every real pair precedes; the merge pass (nnk_merge_big) takes
+//    a warp a row, lane sp the head of split sp's list, and writes the k
+//    least heads in (s, index) order.
+// The tensor-core scan keeps its 128 rows a block, its producer and its
+// ring; the buffers take 66 KB past the ring, which leaves two stages up
+// to 96 padded coordinates.  Past that, float32 takes the SIMT wide scan
+// (nnk_wide_scan_big in float32: the FMA chain), since the resident rows,
+// two stages and the buffers do not fit 227 KB.
 
 // What bounds the register-tiled scans on an H100: instruction issue.  nn1
 // needs D FMA a pair;
@@ -132,6 +173,7 @@
 #include <math_constants.h>
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -140,7 +182,7 @@ constexpr int kThreads = 128;   // threads a block, both scans
 constexpr int kSub = 32;        // neighbours a sub-tile
 constexpr int kMinSplit = 2048; // neighbours a split, least
 constexpr int kMaxDim = 8;      // the register-tiled scans' largest D
-constexpr int kMaxK = 16;       // ops/knn.py:MAX_K
+constexpr int kMaxK = 16;       // the longest list kept in registers
 
 // Neighbours staged a pass: 1024 in float32, 512 in float64 (36 KB of
 // shared memory at D = 8 either way).
@@ -596,10 +638,485 @@ cudaError_t launch_nnk_k(const T* ref, const T* nbr, int R, int N, int k,
   return cudaGetLastError();
 }
 
+// ---- k > 16: the lists off the registers ----------------------------------
+
+constexpr int kBig = 0;           // wide_tc_scan's K for k > kMaxK
+constexpr int kBuf = 64;          // candidates a row's buffer holds, most
+// neighbours a batch of nnk_scan_big (a 32-bit candidate mask), and the
+// candidates its rows' buffers hold
+constexpr int kBigBatch = 32;
+constexpr int kMaxBigSplits = 32; // splits at k > kMaxK: one a merge lane
+// bytes of partial lists at k > kMaxK, most (one split always)
+constexpr size_t kPartBudget = size_t{1} << 30;
+
+// (a, ia) before (b, ib) in (s, index) order
+template <typename T>
+__device__ __forceinline__ bool lex_less(T a, int ia, T b, int ib) {
+  return a < b || (a == b && ia < ib);
+}
+
+// Sorts the 64 (s, index) pairs a warp holds, two a lane (position lane
+// in slot 0, lane + 32 in slot 1), ascending by (s, index): a bitonic
+// network over shuffles.  Pairs are distinct but for equal padding.
+template <typename T>
+__device__ __forceinline__ void warp_sort64(T (&s)[2], int (&id)[2]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      if (stride == 32) {
+        if (lex_less(s[1], id[1], s[0], id[0])) {
+          const T x = s[0];
+          const int xi = id[0];
+          s[0] = s[1];
+          id[0] = id[1];
+          s[1] = x;
+          id[1] = xi;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = lane + 32 * h;
+        const T os = __shfl_xor_sync(0xffffffffu, s[h], stride);
+        const int oi = __shfl_xor_sync(0xffffffffu, id[h], stride);
+        // the lower position of an ascending pair keeps the least
+        const bool keep_min = ((p & stride) == 0) == ((p & size) == 0);
+        if (keep_min ? lex_less(os, oi, s[h], id[h])
+                     : lex_less(s[h], id[h], os, oi)) {
+          s[h] = os;
+          id[h] = oi;
+        }
+      }
+    }
+  }
+}
+
+// How many of the warp's 64 sorted pairs (warp_sort64's layout) come
+// before (x, xi); every lane calls it.
+template <typename T>
+__device__ __forceinline__ int below_in_buffer(const T (&s)[2],
+                                               const int (&id)[2], T x,
+                                               int xi) {
+  int cnt = 0;
+#pragma unroll
+  for (int step = 64; step > 0; step >>= 1) {
+    const int p = min(cnt + step, 64) - 1;
+    const T s0 = __shfl_sync(0xffffffffu, s[0], p % 32);
+    const T s1 = __shfl_sync(0xffffffffu, s[1], p % 32);
+    const int i0 = __shfl_sync(0xffffffffu, id[0], p % 32);
+    const int i1 = __shfl_sync(0xffffffffu, id[1], p % 32);
+    if (cnt + step <= 64 &&
+        lex_less(p < 32 ? s0 : s1, p < 32 ? i0 : i1, x, xi))
+      cnt += step;
+  }
+  return cnt;
+}
+
+constexpr int kRound = 4;    // list entries a lane moves a round
+constexpr int kHist = 68;    // a warp's counters: 65, padded to 16 bytes
+
+// The warp merges one row's buffer of c >= 1 candidates (entry e at
+// bs[e * bstride], bi[e * bstride]) into the row's list (ls, li in global
+// memory: n pairs sorted by (s, index)), keeping the first k; returns the
+// list's new length.  Every lane calls it with the same arguments; hist is
+// the warp's kHist counters in shared memory, zero on entry and on return.
+// The buffer is sorted in registers.  A list entry j moves up by c_j, the
+// candidates before it (indices are distinct, so the places are too); the
+// list is rewritten in place from its top down, 32 kRound entries a round,
+// each round's reads before its writes (which land at or above its
+// entries) and the next round's reads in flight over them; the rounds stop
+// at the first whose lowest entry stays (c_j = 0: so does every entry
+// under it).  Candidate i lands at i plus its rank in the list, the
+// entries with c_j <= i: those under the last round and a histogram of the
+// rounds' c_j.
+template <typename T>
+__device__ int flush_row(const T* bs, const int* bi, int bstride, int c,
+                         T* ls, int* li, int n, int k, int* hist) {
+  const int lane = threadIdx.x % 32;
+  T s[2];
+  int id[2];
+  __syncwarp();  // the owner's appends
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e = lane + 32 * h;
+    s[h] = e < c ? bs[static_cast<size_t>(e) * bstride] : inf<T>();
+    id[h] = e < c ? bi[static_cast<size_t>(e) * bstride] : INT_MAX;
+  }
+  warp_sort64(s, id);
+  T xs[kRound], ns[kRound];
+  int xi[kRound], ni[kRound];
+  int top = n, below = 0;
+#pragma unroll
+  for (int u = 0; u < kRound; ++u) {
+    const int j = top - 32 * kRound + lane + 32 * u;
+    xs[u] = j >= 0 ? ls[j] : T(0);
+    xi[u] = j >= 0 ? li[j] : 0;
+  }
+  while (top > 0) {
+    const int base = top - 32 * kRound;
+    int cj[kRound];
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const int jn = base - 32 * kRound + lane + 32 * u;
+      ns[u] = jn >= 0 ? ls[jn] : T(0);
+      ni[u] = jn >= 0 ? li[jn] : 0;
+    }
+    if (base >= 0) {
+      // a whole round: the slots' shuffle chains interleave
+#pragma unroll
+      for (int u = 0; u < kRound; ++u)
+        cj[u] = below_in_buffer(s, id, xs[u], xi[u]);
+    } else {
+      // the last round: a slot wholly under the list's bottom (the same
+      // on every lane) skips its shuffles, as most of a short list's do
+#pragma unroll
+      for (int u = 0; u < kRound; ++u) {
+        cj[u] = -1;
+        if (base + 32 * u + 31 < 0) continue;
+        const int c_j = below_in_buffer(s, id, xs[u], xi[u]);
+        cj[u] = base + lane + 32 * u >= 0 ? c_j : -1;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      if (base + 32 * u + 31 < 0) continue;
+      const int j = base + lane + 32 * u;
+      if (cj[u] > 0 && j + cj[u] < k) {
+        ls[j + cj[u]] = xs[u];
+        li[j + cj[u]] = xi[u];
+      }
+      // the histogram: the last lane of each run of equal c_j adds the run
+      const int prev = __shfl_up_sync(0xffffffffu, cj[u], 1);
+      const int next = __shfl_down_sync(0xffffffffu, cj[u], 1);
+      const unsigned starts =
+          __ballot_sync(0xffffffffu, lane == 0 || prev != cj[u]);
+      // the run's first lane: the last start at or below this lane
+      const int first = 31 - __clz(starts & (0xffffffffu >> (31 - lane)));
+      if (cj[u] >= 0 && (lane == 31 || next != cj[u]))
+        atomicAdd(&hist[cj[u]], lane + 1 - first);
+    }
+    const int lowest = __shfl_sync(0xffffffffu, cj[0], 0);
+    top = base;
+    if (base <= 0 || lowest == 0) {
+      below = max(base, 0);
+      break;
+    }
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      xs[u] = ns[u];
+      xi[u] = ni[u];
+    }
+  }
+  __syncwarp();
+  // rank of candidates lane and lane + 32: below + the counts up to them
+  int r0 = hist[lane], r1 = hist[lane + 32];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int a0 = __shfl_up_sync(0xffffffffu, r0, off);
+    const int a1 = __shfl_up_sync(0xffffffffu, r1, off);
+    if (lane >= off) {
+      r0 += a0;
+      r1 += a1;
+    }
+  }
+  r1 += __shfl_sync(0xffffffffu, r0, 31);
+  const int pos[2] = {lane + below + r0, lane + 32 + below + r1};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (lane + 32 * h < c && pos[h] < k) {
+      ls[pos[h]] = s[h];
+      li[pos[h]] = id[h];
+    }
+  }
+  hist[lane] = 0;
+  hist[lane + 32] = 0;
+  if (lane == 0) hist[64] = 0;
+  __syncwarp();
+  return min(k, n + c);
+}
+
+// Where a block of the k > kMaxK scans keeps its rows' candidates and
+// lists.  Dynamic shared memory holds the buffers (`cap` entries a row,
+// at most kBuf), entry e of block row r at e * (rows + 1) + r (rows + 1:
+// a warp's lanes on distinct banks both when each appends to its row and
+// when the warp reads one row), then each warp's kHist counters; the
+// lists are part_s / part_i [splits, R, k] themselves.
+template <typename T>
+struct BigLists {
+  T* bs;
+  int* bi;
+  T* ls;
+  int* li;
+  int* hist;
+  int stride, k;
+
+  __device__ BigLists(unsigned char* smem, int rows, int k_, T* part_s,
+                      int* part_i, int R, int row0, int cap = kBuf)
+      : stride(rows + 1), k(k_) {
+    bs = reinterpret_cast<T*>(smem);
+    bi = reinterpret_cast<int*>(bs + cap * stride);
+    hist = bi + cap * stride + kHist * (threadIdx.x / 32);
+    const size_t o = (static_cast<size_t>(blockIdx.y) * R + row0) * k;
+    ls = part_s + o;
+    li = part_i + o;
+  }
+  // the calling warp zeroes its counters
+  __device__ void init() const {
+    for (int e = threadIdx.x % 32; e < kHist; e += 32) hist[e] = 0;
+    __syncwarp();
+  }
+  __device__ T* list_s(int r) const { return ls + static_cast<size_t>(r) * k; }
+  __device__ int* list_i(int r) const {
+    return li + static_cast<size_t>(r) * k;
+  }
+  // the warp merges the buffer of block row r (c candidates) into its
+  // list of n; returns the new length
+  __device__ int flush(int r, int c, int n) const {
+    return flush_row(bs + r, bi + r, stride, c, list_s(r), list_i(r), n, k,
+                     hist);
+  }
+  // the warp ends block row r's list of n < k pairs (a split of fewer
+  // than k neighbours) with (inf, INT_MAX), after every real pair
+  __device__ void pad(int r, int n) const {
+    for (int e = n + threadIdx.x % 32; e < k; e += 32) {
+      list_s(r)[e] = inf<T>();
+      list_i(r)[e] = INT_MAX;
+    }
+  }
+  // appends (s, j) as entry e of block row r's buffer
+  __device__ void put(int r, int e, T s, int j) const {
+    bs[static_cast<size_t>(e) * stride + r] = s;
+    bi[static_cast<size_t>(e) * stride + r] = j;
+  }
+};
+
+// Dynamic shared memory of a k > kMaxK block of `rows` rows and `threads`
+// threads: buffers of `cap` candidates and the warps' counters.
+size_t big_bytes(int rows, int threads, size_t scalar, int cap = kBuf) {
+  return cap * static_cast<size_t>(rows + 1) * (scalar + sizeof(int)) +
+         sizeof(int) * kHist * static_cast<size_t>((threads + 31) / 32);
+}
+
+int smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
+// Splits at k > kMaxK for the SIMT scans (blocks of `rows` rows, `fixed`
+// bytes of static shared memory): as many as one wave of blocks holds (at
+// the blocks an SM their shared memory allows): each split pays its
+// candidates, ~k (1 + ln(M / k)) a row over M neighbours, and a split of
+// M < k sorts them all, so past one wave more splits only add work; at
+// least kBatch neighbours each, at most kMaxBigSplits and what
+// kPartBudget holds, as split_chunk cuts them (none empty); 0 on a device
+// query failure.
+int big_splits(int R, int N, int k, int rows, size_t scalar, size_t fixed,
+               int cap) {
+  int dev = 0, sms = 0, smem_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&smem_sm,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess)
+    return 0;
+  // and 1 KB a block the runtime keeps
+  const size_t block = big_bytes(rows, kThreads, scalar, cap) + fixed + 1024;
+  const int per_sm =
+      std::max(1, static_cast<int>(static_cast<size_t>(smem_sm) / block));
+  const int row_blocks = (R + rows - 1) / rows;
+  const int want = std::max(1, sms * per_sm / row_blocks);
+  const size_t per = static_cast<size_t>(R) * k * (scalar + sizeof(int));
+  const int s = static_cast<int>(std::min<size_t>(
+      std::min({want, N / kBatch, kMaxBigSplits}), kPartBudget / per));
+  const int c = split_chunk(N, std::max(1, s));
+  return (N + c - 1) / c;
+}
+
+// nnk_scan at k > kMaxK: one row a thread, 128 rows a block, buffers of
+// kBigBatch candidates.  A batch of kBigBatch neighbours is scored as
+// nnk_scan scores it, against the row's k-th s (its list's last entry)
+// once the list holds k, every neighbour until then; the batch's
+// candidates are scored again (the same function, the same bits) into the row's buffer,
+// which the warp first merges into the list (flush_row) where they would
+// overflow it, and at the end.
+// Within a split a row sees its neighbours in ascending index, so a
+// candidate equal to the k-th s comes later than it and loses: a strict <
+// is the (s, index) order.  The lists end in part_s / part_i
+// [splits, R, k].
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+nnk_scan_big(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
+             int N, int k, int chunk, T* __restrict__ part_s,
+             int* __restrict__ part_i) {
+  __shared__ Tile<T, D> tl;
+  extern __shared__ __align__(16) unsigned char big_smem[];
+  const int row0 = blockIdx.x * kThreads;
+  const BigLists<T> L(big_smem, kThreads, k, part_s, part_i, R, row0,
+                      kBigBatch);
+  L.init();
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(N, j_begin + chunk);
+  const int r = threadIdx.x, lane = r % 32, warp0 = r - lane;
+  const bool live = row0 + r < R;
+  T a[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c)
+    a[c] = live ? ref[static_cast<size_t>(row0 + r) * D + c] : T(0);
+  int n = 0, cnt = 0;
+  T thr = inf<T>();
+  for (int t0 = j_begin; t0 < j_end; t0 += tile_len<T>()) {
+    const int len = min(tile_len<T>(), j_end - t0);
+    const int n_pad = (len + kBigBatch - 1) / kBigBatch * kBigBatch;
+    __syncthreads();  // the previous tile has been read
+    stage<T, D>(nbr, t0, len, n_pad, tl);
+    __syncthreads();
+    for (int s0 = 0; s0 < n_pad; s0 += kBigBatch) {
+      const int real = min(len - s0, kBigBatch);
+      const unsigned in =
+          !live ? 0u : real >= 32 ? ~0u : (1u << real) - 1u;
+      unsigned m = in;
+      if (n == k) {
+        m = 0u;
+#pragma unroll
+        for (int s = 0; s < kBigBatch; ++s)
+          m |= score<T, D>(a, load<T, D>(tl, s0 + s)) < thr ? 1u << s : 0u;
+        m &= in;
+      }
+      // rows whose buffer would overflow merge it into their list first
+      for (unsigned todo = __ballot_sync(0xffffffffu,
+                                         cnt + __popc(m) > kBigBatch);
+           todo; todo &= todo - 1) {
+        const int o = __ffs(todo) - 1;
+        const int n2 = L.flush(warp0 + o, __shfl_sync(0xffffffffu, cnt, o),
+                               __shfl_sync(0xffffffffu, n, o));
+        if (lane == o) {
+          n = n2;
+          cnt = 0;
+          if (n == k) thr = L.list_s(r)[k - 1];
+        }
+      }
+      while (m) {
+        const int s = __ffs(m) - 1;
+        m &= m - 1u;
+        L.put(r, cnt++, score<T, D>(a, load<T, D>(tl, s0 + s)), t0 + s0 + s);
+      }
+    }
+  }
+  for (unsigned todo = __ballot_sync(0xffffffffu, cnt > 0); todo;
+       todo &= todo - 1) {
+    const int o = __ffs(todo) - 1;
+    const int n2 = L.flush(warp0 + o, __shfl_sync(0xffffffffu, cnt, o),
+                           __shfl_sync(0xffffffffu, n, o));
+    if (lane == o) n = n2;
+  }
+  for (unsigned todo = __ballot_sync(0xffffffffu, live && n < k); todo;
+       todo &= todo - 1) {
+    const int o = __ffs(todo) - 1;
+    L.pad(warp0 + o, __shfl_sync(0xffffffffu, n, o));
+  }
+}
+
+// Each row's best k over the splits' lists (part_s / part_i [splits, R,
+// k], each sorted by (s, index)): a warp a row, lane sp the head of split
+// sp's list (the next entry already loaded); each step the least head in
+// (s, index) order (the earlier split's on equal s, whose indices are
+// lower) is the row's next, written 32 at a time; then d^2 = s + |a|^2
+// clamped at 0.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+nnk_merge_big(const T* __restrict__ ref, int R, int dim, int k, int splits,
+              const T* __restrict__ part_s, const int* __restrict__ part_i,
+              T* __restrict__ d2, long long* __restrict__ idx) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= R) return;
+  const T an = ref_sqnorm<T, D>(ref, row, dim);
+  const size_t out = static_cast<size_t>(row) * k;
+  if (splits == 1) {
+    for (int e = lane; e < k; e += 32) {
+      d2[out + e] = max_of(add_rn(part_s[out + e], an), T(0));
+      idx[out + e] = part_i[out + e];
+    }
+    return;
+  }
+  const bool mine = lane < splits;
+  const size_t base = (static_cast<size_t>(mine ? lane : 0) * R + row) * k;
+  T hs = mine ? part_s[base] : inf<T>();
+  int hi = mine ? part_i[base] : INT_MAX;
+  T ns = mine && k > 1 ? part_s[base + 1] : inf<T>();
+  int ni = mine && k > 1 ? part_i[base + 1] : INT_MAX;
+  int cur = 0;
+  T os = T(0);
+  int oi = 0;
+  for (int e = 0; e < k; ++e) {
+    T bs = hs;
+    int bi = hi, bl = lane;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const T xs = __shfl_xor_sync(0xffffffffu, bs, off);
+      const int xi = __shfl_xor_sync(0xffffffffu, bi, off);
+      const int xl = __shfl_xor_sync(0xffffffffu, bl, off);
+      if (lex_less(xs, xi, bs, bi) || (!lex_less(bs, bi, xs, xi) && xl < bl)) {
+        bs = xs;
+        bi = xi;
+        bl = xl;
+      }
+    }
+    if (lane == e % 32) {
+      os = bs;
+      oi = bi;
+    }
+    if (lane == bl) {
+      ++cur;
+      hs = ns;
+      hi = ni;
+      ns = cur + 1 < k ? part_s[base + cur + 1] : inf<T>();
+      ni = cur + 1 < k ? part_i[base + cur + 1] : INT_MAX;
+    }
+    if (e % 32 == 31 || e == k - 1) {
+      const int e0 = e - e % 32;
+      if (lane <= e % 32) {
+        d2[out + e0 + lane] = max_of(add_rn(os, an), T(0));
+        idx[out + e0 + lane] = oi;
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_nnk_big(const T* ref, const T* nbr, int R, int N, int k,
+                           int splits, T* part_s, int* part_i, T* d2,
+                           long long* idx, cudaStream_t stream) {
+  const size_t bytes = big_bytes(kThreads, kThreads, sizeof(T), kBigBatch);
+  cudaError_t e = cudaFuncSetAttribute(
+      nnk_scan_big<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((R + kThreads - 1) / kThreads, splits);
+  nnk_scan_big<T, D><<<grid, kThreads, bytes, stream>>>(
+      ref, nbr, R, N, k, split_chunk(N, splits), part_s, part_i);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  nnk_merge_big<T, D><<<(R + 7) / 8, 256, 0, stream>>>(
+      ref, R, D, k, splits, part_s, part_i, d2, idx);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
                        int splits, T* part_s, int* part_i, T* d2,
                        long long* idx, cudaStream_t stream) {
+  if (k > kMaxK)
+    return launch_nnk_big<T, D>(ref, nbr, R, N, k, splits, part_s, part_i,
+                                d2, idx, stream);
   switch (list_len(k)) {
     case 2: return launch_nnk_k<T, D, 2>(ref, nbr, R, N, k, splits, part_s,
                                          part_i, d2, idx, stream);
@@ -812,6 +1329,92 @@ nnk_wide_scan_f64(const T* __restrict__ ref, const T* __restrict__ nbr,
   }
 }
 
+// nnk_wide_scan_f64 at k > kMaxK (float64, and float32 where the
+// tensor-core scan's buffers do not fit): thread r < 64 keeps row row0 + r,
+// its candidates of a tile (its scores under the k-th s, or every
+// neighbour until the list holds k) appended to its buffer as
+// nnk_scan_big appends them, the stored score itself; warps 0 and 1 merge
+// the buffers.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+nnk_wide_scan_big(const T* __restrict__ ref, const T* __restrict__ nbr,
+                      int R, int N, int D, int k, int chunk,
+                      T* __restrict__ part_s, int* __restrict__ part_i) {
+  __shared__ WideShared<T> sh;
+  extern __shared__ __align__(16) unsigned char big_smem[];
+  const int row0 = blockIdx.x * kWideRows;
+  const BigLists<T> L(big_smem, kWideRows, k, part_s, part_i, R, row0);
+  L.init();
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(N, j_begin + chunk);
+  const int r = threadIdx.x, lane = r % 32, warp0 = r - lane;
+  const bool live = row0 + r < R;
+  int n = 0, cnt = 0;
+  T thr = inf<T>();
+  for (int t0 = j_begin; t0 < j_end; t0 += kWideCols) {
+    const int len = min(kWideCols, j_end - t0);
+    wide_tile<T>(ref, nbr, R, D, row0, t0, len, sh);
+    if (r >= kWideRows) continue;
+    const unsigned long long in =
+        !live ? 0ull : len >= 64 ? ~0ull : (1ull << len) - 1ull;
+    unsigned long long m = in;
+    if (n == k) {
+      m = 0ull;
+      for (int j = 0; j < kWideCols; ++j)
+        m |= sh.s[r][j] < thr ? 1ull << j : 0ull;
+      m &= in;
+    }
+    for (unsigned todo = __ballot_sync(0xffffffffu, cnt + __popcll(m) > kBuf);
+         todo; todo &= todo - 1) {
+      const int o = __ffs(todo) - 1;
+      const int n2 = L.flush(warp0 + o, __shfl_sync(0xffffffffu, cnt, o),
+                             __shfl_sync(0xffffffffu, n, o));
+      if (lane == o) {
+        n = n2;
+        cnt = 0;
+        if (n == k) thr = L.list_s(r)[k - 1];
+      }
+    }
+    while (m) {
+      const int j = __ffsll(m) - 1;
+      m &= m - 1ull;
+      L.put(r, cnt++, sh.s[r][j], t0 + j);
+    }
+  }
+  if (r >= kWideRows) return;
+  for (unsigned todo = __ballot_sync(0xffffffffu, cnt > 0); todo;
+       todo &= todo - 1) {
+    const int o = __ffs(todo) - 1;
+    const int n2 = L.flush(warp0 + o, __shfl_sync(0xffffffffu, cnt, o),
+                           __shfl_sync(0xffffffffu, n, o));
+    if (lane == o) n = n2;
+  }
+  for (unsigned todo = __ballot_sync(0xffffffffu, live && n < k); todo;
+       todo &= todo - 1) {
+    const int o = __ffs(todo) - 1;
+    L.pad(warp0 + o, __shfl_sync(0xffffffffu, n, o));
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide_big(const T* ref, const T* nbr, int R, int N, int D,
+                            int k, int splits, T* part_s, int* part_i, T* d2,
+                            long long* idx, cudaStream_t stream) {
+  const size_t bytes = big_bytes(kWideRows, kThreads, sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      nnk_wide_scan_big<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((R + kWideRows - 1) / kWideRows, splits);
+  nnk_wide_scan_big<T><<<grid, kThreads, bytes, stream>>>(
+      ref, nbr, R, N, D, k, split_chunk(N, splits), part_s, part_i);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  nnk_merge_big<T, 0><<<(R + 7) / 8, 256, 0, stream>>>(
+      ref, R, D, k, splits, part_s, part_i, d2, idx);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_nn1_wide(const double* ref, const double* nbr, int R,
                             int N, int D, int splits, float*,
                             double* part_s, int* part_i, double* d2,
@@ -845,6 +1448,9 @@ cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
                             int N, int D, int k, int splits, float*,
                             double* part_s, int* part_i, double* d2,
                             long long* idx, cudaStream_t stream) {
+  if (k > kMaxK)
+    return launch_wide_big<double>(ref, nbr, R, N, D, k, splits, part_s,
+                                   part_i, d2, idx, stream);
   switch (list_len(k)) {
     case 2: return launch_nnk_wide_f64<2>(ref, nbr, R, N, D, k, splits,
                                           part_s, part_i, d2, idx, stream);
@@ -1018,11 +1624,6 @@ __device__ __forceinline__ void wgmma_64x64x8(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// (a, ia) before (b, ib) in (s, index) order
-__device__ __forceinline__ bool lex_less(float a, int ia, float b, int ib) {
-  return a < b || (a == b && ia < ib);
-}
-
 // insert<K> in (s, index) order, for lists whose indices interleave
 template <int K>
 __device__ __forceinline__ void insert_lex(float d, int j, float* v,
@@ -1046,13 +1647,15 @@ __device__ __forceinline__ void insert_lex(float d, int j, float* v,
 
 // How a call of the tensor-core scans is cut: Dp coordinates in chunks, the
 // block's rows resident or streamed with each stage, the ring's stages (as
-// many as fit, at most max_stages) and the dynamic shared memory.
+// many as fit beside `extra` bytes after the ring, at most max_stages) and
+// the dynamic shared memory.
 struct TcPlan {
   int Dp, resident, stages, tiles, row_panels;
   size_t pf, smem;
 };
 
-TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages) {
+TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages,
+               size_t extra = 0) {
   TcPlan p;
   p.Dp = (D + 7) / 8 * 8;
   p.resident = p.Dp <= kResidentDim;
@@ -1066,7 +1669,7 @@ TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages) {
                             (p.resident ? 0 : 2 * kTcRows * kc));
   // and 256 bytes to align the base
   const size_t fixed = 256 + kBarBytes +
-                       (p.resident ? 4 * kGroups * p.pf : 0);
+                       (p.resident ? 4 * kGroups * p.pf : 0) + extra;
   const size_t fit = static_cast<size_t>(smem_max) > fixed
                          ? (smem_max - fixed) / stage : 0;
   p.stages = static_cast<int>(std::min<size_t>(max_stages, fit));
@@ -1084,7 +1687,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 wide_tc_scan(const float* __restrict__ ref_pan,
              const float* __restrict__ nbr_pan, int R, int Dp, int resident,
              int stages, int tiles, int split_tiles, int k,
-             float* __restrict__ part_s, int* __restrict__ part_i) {
+             float* __restrict__ part_s, int* __restrict__ part_i, int N) {
   extern __shared__ __align__(256) unsigned char smem_raw[];
   // the swizzle pattern repeats every 256 bytes of shared address
   unsigned char* smem = smem_raw + (256 - smem_addr(smem_raw) % 256) % 256;
@@ -1152,6 +1755,16 @@ wide_tc_scan(const float* __restrict__ ref_pan,
   // a consumer warpgroup g: rows 64 g + 16 w + lane / 4 (+ 8) of the block
   const int g = role, w = warp % 4, q = lane % 4;
   const int r0 = kTcRows * blockIdx.x + kPanel * g + 16 * w + lane / 4;
+  // k > kMaxK: the block's buffers past the ring, the lists in part_s /
+  // part_i; the state of each of this thread's rows (its list's length,
+  // its buffer's count and its k-th pair), the same on the row's four
+  // threads
+  const BigLists<float> L(
+      reinterpret_cast<unsigned char*>(ring + stages * stage_floats),
+      kTcRows, k, part_s, part_i, R, kTcRows * blockIdx.x);
+  if constexpr (K == kBig) L.init();
+  int big_n[2] = {0, 0}, big_cnt[2] = {0, 0}, thr_i[2] = {INT_MAX, INT_MAX};
+  float thr_s[2] = {CUDART_INF_F, CUDART_INF_F};
   float best[2] = {CUDART_INF_F, CUDART_INF_F};
   int bidx[2] = {0, 0};
   constexpr int KL = K > 1 ? K : 1;
@@ -1243,6 +1856,56 @@ wide_tc_scan(const float* __restrict__ ref_pan,
           best[h] = m;
           bidx[h] = col0 + 8 * (f >> 1) + (f & 1);
         }
+      } else if constexpr (K == kBig) {
+        // the row's candidates: every neighbour until its list holds k,
+        // then those before its k-th pair in (s, index) order (the row's
+        // four threads see its columns interleaved)
+        const int rb = kPanel * g + 16 * w + lane / 4 + 8 * h;
+        unsigned cand = 0;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int col = col0 + 8 * (e >> 1) + (e & 1);
+          cand |= col < N && (big_n[h] < k ||
+                              lex_less(sc[e], col, thr_s[h], thr_i[h]))
+                      ? 1u << e : 0u;
+        }
+        if (r0 + 8 * h >= R) cand = 0;
+        // this thread's place among the row's candidates, and their count
+        const int pc = __popc(cand);
+        int incl = pc;
+        int up = __shfl_up_sync(0xffffffffu, incl, 1, 4);
+        if (q >= 1) incl += up;
+        up = __shfl_up_sync(0xffffffffu, incl, 2, 4);
+        if (q >= 2) incl += up;
+        const int total_c = __shfl_sync(0xffffffffu, incl, 3, 4);
+        // rows whose buffer would overflow merge it into their list first
+        for (unsigned todo = __ballot_sync(
+                 0xffffffffu, q == 0 && big_cnt[h] + total_c > kBuf);
+             todo; todo &= todo - 1) {
+          const int o = __ffs(todo) - 1;
+          const int n2 = L.flush(rb - lane / 4 + o / 4,
+                                 __shfl_sync(0xffffffffu, big_cnt[h], o),
+                                 __shfl_sync(0xffffffffu, big_n[h], o));
+          if (lane / 4 == o / 4) {
+            big_n[h] = n2;
+            big_cnt[h] = 0;
+            if (n2 == k) {
+              thr_s[h] = L.list_s(rb)[k - 1];
+              thr_i[h] = L.list_i(rb)[k - 1];
+            }
+          }
+        }
+        // one append site, candidates in ascending column
+        int at = big_cnt[h] + incl - pc;
+        while (cand) {
+          const int e = __ffs(cand) - 1;
+          cand &= cand - 1;
+          float x = sc[0];
+#pragma unroll
+          for (int f = 1; f < 16; ++f) x = f == e ? sc[f] : x;
+          L.put(rb, at++, x, col0 + 8 * (e >> 1) + (e & 1));
+        }
+        big_cnt[h] += total_c;
       } else {
         // the row's threshold: the least of its four threads' K-th s (a
         // candidate equal to it may still win on its index)
@@ -1266,6 +1929,28 @@ wide_tc_scan(const float* __restrict__ ref_pan,
       }
     }
   }
+  if constexpr (K == kBig) {
+    // the last merges
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rb = kPanel * g + 16 * w + 8 * h;  // the warp's first row
+      for (unsigned todo = __ballot_sync(0xffffffffu,
+                                         q == 0 && big_cnt[h] > 0);
+           todo; todo &= todo - 1) {
+        const int o = __ffs(todo) - 1;
+        const int n2 = L.flush(rb + o / 4,
+                               __shfl_sync(0xffffffffu, big_cnt[h], o),
+                               __shfl_sync(0xffffffffu, big_n[h], o));
+        if (lane / 4 == o / 4) big_n[h] = n2;
+      }
+      for (unsigned todo = __ballot_sync(
+               0xffffffffu, q == 0 && r0 + 8 * h < R && big_n[h] < k);
+           todo; todo &= todo - 1) {
+        const int o = __ffs(todo) - 1;
+        L.pad(rb + o / 4, __shfl_sync(0xffffffffu, big_n[h], o));
+      }
+    }
+  }
   // the four threads of a row merge in (s, index) order
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -1284,7 +1969,7 @@ wide_tc_scan(const float* __restrict__ ref_pan,
         part_s[static_cast<size_t>(blockIdx.y) * R + row] = best[h];
         part_i[static_cast<size_t>(blockIdx.y) * R + row] = bidx[h];
       }
-    } else {
+    } else if constexpr (K > 1) {
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         // the partner's list as it was, then merged into this one
@@ -1313,15 +1998,6 @@ wide_tc_scan(const float* __restrict__ ref_pan,
   }
 }
 
-int smem_optin() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return bytes;
-}
-
 // Blocks of the scan of list length K an SM holds with `smem` bytes of
 // dynamic shared memory (0 on a query failure).
 template <int K>
@@ -1340,12 +2016,12 @@ int blocks_per_sm(size_t smem) {
 // blocks share an SM: at D = 33 two blocks of two stages took 2.37 ms
 // where one of four took 3.27 (PERF.md); *per_sm gets that count.
 template <int K>
-TcPlan tc_plan_for(int R, int N, int D, int* per_sm) {
+TcPlan tc_plan_for(int R, int N, int D, int* per_sm, size_t extra = 0) {
   const int smem_max = smem_optin();
-  TcPlan best = tc_plan(R, N, D, smem_max, kMaxStages);
+  TcPlan best = tc_plan(R, N, D, smem_max, kMaxStages, extra);
   *per_sm = best.stages < 2 ? 0 : blocks_per_sm<K>(best.smem);
   for (int st = best.stages - 1; st >= 2; --st) {
-    const TcPlan p = tc_plan(R, N, D, smem_max, st);
+    const TcPlan p = tc_plan(R, N, D, smem_max, st, extra);
     const int n = blocks_per_sm<K>(p.smem);
     if (n > *per_sm) {
       best = p;
@@ -1355,14 +2031,34 @@ TcPlan tc_plan_for(int R, int N, int D, int* per_sm) {
   return best;
 }
 
+// tc_plan_for; at k > kMaxK (K = kBig) with the buffers and counters past
+// the ring.
+template <int K>
+TcPlan tc_plan_k(int R, int N, int D, int* per_sm) {
+  return tc_plan_for<K>(R, N, D, per_sm,
+                        K == kBig ? big_bytes(kTcRows, kTcThreads,
+                                              sizeof(float))
+                                  : 0);
+}
+
+// Whether the tensor-core scan at k > kMaxK fits an SM: its rows (resident
+// up to 128 padded coordinates), two stages and the buffers fit 227 KB up
+// to 96 padded coordinates; past that float32 takes the SIMT wide scan.
+bool tc_big_fits(int R, int N, int D) {
+  int per_sm = 0;
+  const TcPlan p = tc_plan_k<kBig>(R, N, D, &per_sm);
+  return p.stages >= 2 && per_sm >= 1;
+}
+
 // Splits of the tiles for the tensor-core scan of list length K: the count
 // (each split at least kMinTcSplitTiles tiles) whose waves of blocks, at
 // the blocks an SM the kernel holds, take the fewest tile-steps (two more a
-// block for its start); 0 on a device query failure.
+// block for its start); at k > kMaxK at most kMaxBigSplits and what
+// kPartBudget holds; 0 on a device query failure.
 template <int K>
-int tc_splits(int R, int N, int D) {
+int tc_splits(int R, int N, int D, int k = 0) {
   int dev = 0, sms = 0, per_sm = 0;
-  const TcPlan p = tc_plan_for<K>(R, N, D, &per_sm);
+  const TcPlan p = tc_plan_k<K>(R, N, D, &per_sm);
   if (p.stages < 2 || per_sm < 1 || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
@@ -1375,6 +2071,11 @@ int tc_splits(int R, int N, int D) {
   for (int s = 1; s <= most; ++s) {
     const int per = (p.tiles + s - 1) / s;
     const int used = (p.tiles + per - 1) / per;
+    if (K == kBig &&
+        (used > kMaxBigSplits ||
+         static_cast<size_t>(used) * R * k * 8 > std::max<size_t>(
+             kPartBudget, static_cast<size_t>(R) * k * 8)))
+      continue;
     const long long cost = (row_blocks * used + slots - 1) / slots * (per + 2);
     if (best_cost < 0 || cost < best_cost) {
       best = used;
@@ -1390,7 +2091,7 @@ cudaError_t launch_tc(const float* ref, const float* nbr, int R, int N, int D,
                       int* part_i, float* d2, long long* idx,
                       cudaStream_t stream) {
   int per_sm = 0;
-  const TcPlan p = tc_plan_for<K>(R, N, D, &per_sm);
+  const TcPlan p = tc_plan_k<K>(R, N, D, &per_sm);
   if (scratch == nullptr || p.stages < 2 || per_sm < 1)
     return cudaErrorInvalidValue;
   float* ref_pan = scratch;
@@ -1409,12 +2110,15 @@ cudaError_t launch_tc(const float* ref, const float* nbr, int R, int N, int D,
   const dim3 grid(p.row_panels / kGroups, splits);
   wide_tc_scan<K><<<grid, kTcThreads, p.smem, stream>>>(
       ref_pan, nbr_pan, R, p.Dp, p.resident, p.stages, p.tiles, split_tiles,
-      k, part_s, part_i);
+      k, part_s, part_i, N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (K == 1)
+  if constexpr (K == 1)
     nn1_merge<float, 0><<<(R + 255) / 256, 256, 0, stream>>>(
         ref, R, D, splits, part_s, part_i, d2, idx);
+  else if constexpr (K == kBig)
+    nnk_merge_big<float, 0><<<(R + 7) / 8, 256, 0, stream>>>(
+        ref, R, D, k, splits, part_s, part_i, d2, idx);
   else
     nnk_merge<float, 0, K><<<(R + 255) / 256, 256, 0, stream>>>(
         ref, R, D, k, splits, part_s, part_i, d2, idx);
@@ -1433,6 +2137,12 @@ cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
                             int D, int k, int splits, float* scratch,
                             float* part_s, int* part_i, float* d2,
                             long long* idx, cudaStream_t stream) {
+  if (k > kMaxK)
+    return tc_big_fits(R, N, D)
+               ? launch_tc<kBig>(ref, nbr, R, N, D, k, splits, scratch,
+                                 part_s, part_i, d2, idx, stream)
+               : launch_wide_big<float>(ref, nbr, R, N, D, k, splits, part_s,
+                                        part_i, d2, idx, stream);
   switch (list_len(k)) {
     case 2: return launch_tc<2>(ref, nbr, R, N, D, k, splits, scratch,
                                 part_s, part_i, d2, idx, stream);
@@ -1446,6 +2156,11 @@ cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
 }
 
 int nnk_tc_splits(int R, int N, int D, int k) {
+  if (k > kMaxK)
+    return tc_big_fits(R, N, D)
+               ? tc_splits<kBig>(R, N, D, k)
+               : big_splits(R, N, k, kWideRows, sizeof(float),
+                            sizeof(WideShared<float>), kBuf);
   switch (list_len(k)) {
     case 2: return tc_splits<2>(R, N, D);
     case 4: return tc_splits<4>(R, N, D);
@@ -1514,12 +2229,27 @@ int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
 // Splits of the neighbour range that nnk uses for R rows of D coordinates,
 // N neighbours and k (float64 if f64, else float32) on the current device:
 // the register-tiled and float64 wide scans aim at ~4 blocks an SM, at
-// least 2048 neighbours each; the float32 wide scan at whole waves.
-// ppt_nnk's part_s / part_i hold splits * k * R values of the clouds' type
-// and as many ints.  Returns 0 on invalid sizes or a device query failure.
+// least 2048 neighbours each; the float32 wide scan at whole waves; at
+// k > 16 at most 32, within kPartBudget's bytes of lists, each split at
+// least k neighbours.  ppt_nnk's part_s / part_i hold splits * k * R
+// values of the clouds' type and as many ints.  Returns 0 on invalid
+// sizes (1 <= k <= N) or a device query failure.
 int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
-  if (D < 1 || R <= 0 || N <= 0 || k < 1 || k > kMaxK) return 0;
+  if (D < 1 || R <= 0 || N <= 0 || k < 1 || k > N) return 0;
   if (D > kMaxDim && !f64) return nnk_tc_splits(R, N, D, k);
+  if (k > kMaxK) {
+    const size_t scalar = f64 ? sizeof(double) : sizeof(float);
+    if (D > kMaxDim)
+      return big_splits(R, N, k, kWideRows, scalar,
+                        f64 ? sizeof(WideShared<double>)
+                            : sizeof(WideShared<float>), kBuf);
+    // Tile<T, D>: tile_len 4-vectors, two past D = 4, and |b|^2 apart
+    // at D = 4 and 8
+    const size_t len = 4096 / scalar;
+    return big_splits(R, N, k, kThreads, scalar,
+                      len * scalar * (4 * (D > 4 ? 2 : 1) +
+                                      (D % 4 == 0 ? 1 : 0)), kBigBatch);
+  }
   const int K = list_len(k);
   const int rows = D > kMaxDim ? kWideRows
                    : kThreads * (f64 ? nnk_rows<double>(K) : nnk_rows<float>(K));
@@ -1530,16 +2260,17 @@ int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
 // (ref [R, D]), both row-major float64 if f64, else float32: d2 [R, k] of
 // the same type, ascending by (d^2, index), clamped at 0, and idx [R, k]
 // int64, on `stream`, through `splits` (ppt_nnk_splits) partial lists in
-// part_s / part_i [splits, k, R]: the register-tiled scan for D <= 8, the
-// wide scan past it (float32 through `scratch`, as ppt_nn1).  Returns
-// cudaGetLastError() (0 on success); invalid sizes (R >= 1,
-// 1 <= k <= min(N, 16), D >= 1, 1 <= splits <= N) or a missing scratch
-// return cudaErrorInvalidValue without launching.
+// part_s / part_i (splits * k * R each; [splits, k, R] up to k = 16,
+// [splits, R, k] past it): the register-tiled scan for D <= 8, the wide
+// scan past it (float32 through `scratch`, as ppt_nn1).  Returns
+// cudaGetLastError() (0 on success); invalid sizes (R >= 1, 1 <= k <= N,
+// D >= 1, 1 <= splits <= N) or a missing scratch return
+// cudaErrorInvalidValue without launching.
 int ppt_nnk(const void* ref, const void* nbr, int R, int N, int D, int k,
             int f64, int splits, void* scratch, void* part_s, int* part_i,
             void* d2, long long* idx, void* stream) {
-  if (R <= 0 || N <= 0 || k < 1 || k > N || k > kMaxK || D < 1 ||
-      splits < 1 || splits > N)
+  if (R <= 0 || N <= 0 || k < 1 || k > N || D < 1 || splits < 1 ||
+      splits > N)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(

@@ -108,10 +108,10 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
     Two-dimensional clouds with ``ord=2`` above 64 Mi pairs, or with an
     explicit ``chunk``, go through :func:`_knn_tiled`; everything else
     forms the dense ``(*, R, N)`` distance matrix.  On CUDA that route
-    takes the ``nn1`` kernel for k = 1 and the ``nnk`` kernel for
-    2 <= k <= ``ops.knn.MAX_K`` (not ``largest``), which take float32 and
-    float64 clouds of any number of coordinates and raise for other
-    dtypes, and the chunked Gram path for larger k and ``largest``.
+    takes the ``nn1`` kernel for k = 1 and the ``nnk`` kernel for every
+    other ``k <= N`` (not ``largest``), which take float32 and float64
+    clouds of any number of coordinates and raise for other dtypes, and
+    the chunked Gram path for ``largest``.
 
     Example:
         >>> import torch
@@ -137,14 +137,13 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
 
 def _knn_tiled(ref, nbr, k, largest, chunk):
     """Gram-form kNN of ``[R, D]`` in ``[N, D]``: on CUDA, k = 1 (not
-    ``largest``) launches the ``nn1`` kernel and 2 <= k <= ``MAX_K`` the
-    ``nnk`` kernel, at any D (the register-tiled scans up to 8
+    ``largest``) launches the ``nn1`` kernel and every other ``k <= N``
+    the ``nnk`` kernel, at any D (the register-tiled scans up to 8
     coordinates, the wide scans past 8; a dtype other than float32 and
-    float64 raises); k > ``MAX_K`` and ``largest`` take
-    :func:`_knn_gram`."""
+    float64 raises); ``largest``, and every k on the CPU, take
+    :func:`_knn_gram`, as the JAX package's ``lax.map`` path."""
     N = nbr.shape[0]
-    if (ref.device.type == 'cuda' and not largest
-            and 1 <= k <= min(N, knn_ops.MAX_K)):
+    if ref.device.type == 'cuda' and not largest and 1 <= k <= N:
         d2, idx = knn_ops.nnk(ref.contiguous(), nbr.contiguous(), k)
         return KNNResult(torch.sqrt(d2), idx)
     return _knn_gram(ref, nbr, k, largest, chunk)

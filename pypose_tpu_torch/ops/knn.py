@@ -21,7 +21,13 @@ are int64 (torch's index type), where the JAX package returns int32.
 
 Both kernels take float32 and float64 clouds of any number of
 coordinates: register-tiled scans for 1 to 8 coordinates, and wide scans
-past 8 (descriptor clouds: FPFH's 33, SIFT's 128).  In float32 the wide
+past 8 (descriptor clouds: FPFH's 33, SIFT's 128).  :func:`nnk` takes any
+``1 <= k <= N``, as the Pallas kernel does: up to k = 16 each row's list
+lives in registers (2, 4, 8 or 16 entries); past 16 a row's candidates
+gather in a buffer in shared memory (32 a row in the register-tiled
+scan, 64 in the wide scans), which its warp merges into the row's sorted
+list, always in global memory (the header of ``csrc/knn.cu`` says
+why).  In float32 the wide
 scans run on the tensor cores in three-pass TF32 (``csrc/knn.cu``): each
 coordinate is split once a call into ``hi = tf32(x)`` and
 ``lo = tf32(x - hi)``, both rounded to nearest (:func:`_tf32_split`), and
@@ -31,7 +37,7 @@ the float32 chain's accuracy where one TF32 pass does not (:func:`_tf32_scores` 
 nothing on the card's path runs it).  In float64 the wide scans form
 64 x 64 tiles of scores as a small SIMT GEMM.
 ``function/geometry.py:_knn_tiled`` routes k = 1 (not ``largest``) on
-CUDA to :func:`nn1` and 2 <= k <= :data:`MAX_K` to :func:`nnk`.
+CUDA to :func:`nn1` and every other ``k <= N`` to :func:`nnk`.
 """
 
 import ctypes
@@ -45,8 +51,7 @@ from ._build import bind, raise_on
 NN1_LAUNCHES = 0
 NNK_LAUNCHES = 0
 # What csrc/knn.cu is instantiated for: float32 and float64 points of any
-# number of coordinates, and k up to MAX_K.  Anything else raises on CUDA.
-MAX_K = 16
+# number of coordinates.  Anything else raises on CUDA.
 _DTYPES = (torch.float32, torch.float64)
 
 # Pairs in one [chunk, N] block of the plain versions (the JAX package's
@@ -209,7 +214,7 @@ def _check(ref, nbr):
         raise ValueError(f'ref is on {ref.device}, nbr on {nbr.device}')
 
 
-def _check_cuda(ref, nbr, k):
+def _check_cuda(ref, nbr):
     if ref.device.type != 'cuda':
         raise ValueError(f'unsupported device {ref.device}')
     for name, a in (('ref', ref), ('nbr', nbr)):
@@ -222,9 +227,6 @@ def _check_cuda(ref, nbr, k):
     if ref.shape[1] < 1:
         raise ValueError('the knn kernels take points of at least one '
                          'coordinate')
-    if k > MAX_K:
-        raise ValueError(f'k={k} > {MAX_K}, the largest k the nnk kernel '
-                         'holds')
 
 
 def _stream(a):
@@ -252,7 +254,7 @@ def _launch_nn1(ref, nbr):
     float32 past 8 coordinates the split pre-pass first): (d2 [R], idx [R]
     int64)."""
     global NN1_LAUNCHES
-    _check_cuda(ref, nbr, 1)
+    _check_cuda(ref, nbr)
     (R, D), N = ref.shape, nbr.shape[0]
     f64 = int(ref.dtype == torch.float64)
     d2 = torch.empty((R,), dtype=ref.dtype, device=ref.device)
@@ -282,7 +284,7 @@ def _launch_nnk(ref, nbr, k):
     """One launch of csrc/knn.cu's nnk (its threshold scan and merge
     passes): (d2 [R, k], idx [R, k] int64)."""
     global NNK_LAUNCHES
-    _check_cuda(ref, nbr, k)
+    _check_cuda(ref, nbr)
     (R, D), N = ref.shape, nbr.shape[0]
     f64 = int(ref.dtype == torch.float64)
     d2 = torch.empty((R, k), dtype=ref.dtype, device=ref.device)
@@ -331,8 +333,8 @@ def nnk(ref, nbr, k):
     :func:`nn1`; ``k`` above the number of neighbours raises.
 
     CUDA tensors launch the threshold-scan kernel of ``csrc/knn.cu`` (as
-    :func:`nn1`, and ``k`` at most :data:`MAX_K`); CPU tensors run
-    :func:`_nnk_torch`.  On a near-tie the two may return different
+    :func:`nn1`, at any ``k``: past 16 the lists leave the registers);
+    CPU tensors run :func:`_nnk_torch`.  On a near-tie the two may return different
     neighbours (module docstring).
     """
     if k == 1:

@@ -18,15 +18,18 @@ new, old in one process.  ``--variants`` also times the text edits of
 shared memory, two stages, one consumer warpgroup): where the scans'
 time goes.  ``--wgmma`` first measures how many cycles of an SM one
 ``wgmma.m64nNk8.tf32`` takes at N = 64, 128 and 256
-(``probes/wgmma_rate.cu``).  Needs an NVIDIA GPU:
+(``probes/wgmma_rate.cu``).  ``--bigk`` instead times nnk at k > 16 on
+``chip_smoke.py``'s [knn-bigk] float32 cases against ``BIGK_VARIANTS``
+(all, or those named after ``--bigk``), the choices of that path: the
+register-tiled scan's buffers, its splits, its merge's rounds, and the
+SIMT wide scan in place of the tensor-core one.  Needs an NVIDIA GPU:
 
     python3 -m pypose_tpu_torch.probes.knn_probes [--old PATH] [--variants]
-        [--wgmma]
+        [--wgmma] [--bigk [VARIANT ...]]
 """
 
 import argparse
 import ctypes
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -85,16 +88,6 @@ def old_call(lib, ref, nbr, k):
     return d2, idx
 
 
-def err_over_tol(ref, nbr, d2, idx):
-    """The largest |d2 - |a - b|^2| over the near-tie rule's tolerance
-    1e-6 (|a|^2 + |b|^2) + 1e-6, in float64."""
-    a = ref.double()[:, None, :]
-    b = nbr.double()[idx]
-    exact = ((a - b) ** 2).sum(-1)
-    tol = 1e-6 * ((a * a).sum(-1) + (b * b).sum(-1)) + 1e-6
-    return float(((d2.double() - exact).abs() / tol).max())
-
-
 # Variants of csrc/knn.cu for --variants, each a text edit of the source:
 # what the float32 wide scans take without their tensor-core products,
 # without their copies into shared memory (the stages then hold stale
@@ -112,16 +105,35 @@ VARIANTS = {
                   'constexpr int kMaxStages = 2;')],
     'groups-1': [('constexpr int kGroups = 2;', 'constexpr int kGroups = 1;')],
 }
+# Variants for --bigk, the choices of nnk at k > 16: its register-tiled
+# buffers at 64 candidates a row (kBuf) in place of 32, the float32 wide
+# scan always on the SIMT cores (nnk_wide_scan_big<float>), one split
+# whatever the wave, and one list entry a lane a merge round.
+BIGK_VARIANTS = {
+    'cap-64': [('cnt + __popc(m) > kBigBatch);', 'cnt + __popc(m) > kBuf);'),
+               ('R, row0,\n                      kBigBatch);', 'R, row0);'),
+               ('big_bytes(kThreads, kThreads, sizeof(T), kBigBatch);',
+                'big_bytes(kThreads, kThreads, sizeof(T));'),
+               ('(D % 4 == 0 ? 1 : 0)), kBigBatch);',
+                '(D % 4 == 0 ? 1 : 0)), kBuf);')],
+    'simt-wide': [('  const TcPlan p = tc_plan_k<kBig>(R, N, D, &per_sm);\n'
+                   '  return p.stages >= 2 && per_sm >= 1;',
+                   '  return per_sm > R + N + D;')],
+    'one-split': [('  const int want = std::max(1, sms * per_sm / row_blocks);',
+                   '  const int want = 1;')],
+    'round-1': [('constexpr int kRound = 4;', 'constexpr int kRound = 1;')],
+}
 
 
-def variant_libs(names):
-    """csrc/knn.cu with each VARIANTS[name]'s edits, built (one nvcc each,
-    all at once) and bound as ops/knn.py binds the real one."""
+def variant_libs(variants):
+    """csrc/knn.cu with each variant's edits ({name: [(old, new)]}), built
+    (one nvcc each, all at once) and bound as ops/knn.py binds the real
+    one."""
     src = (_build.CSRC / 'knn.cu').read_text()
     procs = {}
-    for name in names:
+    for name, edits in variants.items():
         text = src
-        for old, new in VARIANTS[name]:
+        for old, new in edits:
             if old not in text:
                 raise RuntimeError(f'variant {name}: {old!r} not in knn.cu')
             text = text.replace(old, new)
@@ -175,6 +187,35 @@ def variant_call(lib, ref, nbr, k):
     return d2, idx
 
 
+def bigk(dev, libs):
+    """The float32 [knn-bigk] cases (chip_smoke.BIGK_CASES) timed
+    against each variant of ``libs`` in turns (this build, the variant,
+    the variant, this build; L2 flushed, median of 7), each held to the
+    plain version by the near-tie rule."""
+    from chip_smoke import BIGK_CASES, bigk_clouds, flushed_ms
+    clouds = bigk_clouds(dev)
+    for tag, cl, k, family, _ in BIGK_CASES:
+        ref, nbr = clouds[cl]
+        if ref.dtype != torch.float32:
+            continue
+        i_p = K._nnk_torch(ref, nbr, k)[1]
+        got = nnk_tolerance_failures(ref, nbr, *K.nnk(ref, nbr, k), i_p)
+        line = f'[probe] {tag} ({family}), k={k}: {got}'
+        for name, lib in libs.items():
+            vgot = nnk_tolerance_failures(
+                ref, nbr, *variant_call(lib, ref, nbr, k), i_p)
+            this = lambda: K.nnk(ref, nbr, k)  # noqa: E731
+            var = lambda: variant_call(lib, ref, nbr, k)  # noqa: E731
+            t = [flushed_ms(f)[0] for f in (this, var, var, this)]
+            line += (f'; {name}: this {t[0]:.4f}, {name} {t[1]:.4f}, '
+                     f'{t[2]:.4f}, this {t[3]:.4f} ms (rule failures '
+                     f'{vgot["index_failures"] + vgot["repeat_failures"]})')
+        print(line + ' (median of 7, L2 flushed)', flush=True)
+        if got['index_failures'] or got['repeat_failures'] \
+                or got['d2_failures']:
+            raise SystemExit(f'{tag} k={k}: outside the near-tie rule')
+
+
 def wgmma_rates(dev, steps=15, rounds=2000):
     """probes/wgmma_rate.cu on every SM: {(N, warpgroups): (cycles a
     wgmma.m64nNk8.tf32 takes an SM, MAC a cycle an SM)}, from the slowest
@@ -205,21 +246,6 @@ def wgmma_rates(dev, steps=15, rounds=2000):
     return rates
 
 
-def flushed_ms(fn, flush, repeat=7):
-    """Median ms of ``fn()`` between CUDA events, L2 flushed before each."""
-    times = []
-    for _ in range(repeat):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--old', type=Path, help='an earlier csrc/knn.cu')
@@ -227,11 +253,15 @@ def main():
                     help='time the VARIANTS of csrc/knn.cu beside it')
     ap.add_argument('--wgmma', action='store_true',
                     help='the TF32 wgmma rate at n64, n128, n256 first')
+    ap.add_argument('--bigk', nargs='*', metavar='VARIANT',
+                    help='only the [knn-bigk] float32 cases against '
+                         'BIGK_VARIANTS (all, or those named)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('knn_probes: needs an NVIDIA GPU')
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import compiled_kernels, descriptors, knn_bound
+    from chip_smoke import (compiled_kernels, d2_err_over_tol, descriptors,
+                            flushed_ms, knn_bound)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda', 0)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -251,7 +281,10 @@ def main():
                   f'~1.83 GHz)', flush=True)
     old = old_lib(args.old) if args.old else None
     variants = variant_libs(VARIANTS) if args.variants else {}
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    if args.bigk is not None:
+        bigk(dev, variant_libs({n: e for n, e in BIGK_VARIANTS.items()
+                                if not args.bigk or n in args.bigk}))
+        return
     gen = torch.Generator().manual_seed(0)
     clouds = {}
     for tag, D, R, N, k in CASES:
@@ -262,20 +295,19 @@ def main():
         d_k, i_k = K.nnk(ref, nbr, k)
         i_p = K._nnk_torch(ref, nbr, k)[1]
         got = nnk_tolerance_failures(ref, nbr, d_k, i_k, i_p)
-        got['max_err_over_tol'] = err_over_tol(ref, nbr, d_k, i_k)
+        got['max_err_over_tol'] = d2_err_over_tol(ref, nbr, d_k, i_k)
         new_ms = lambda: K.nnk(ref, nbr, k)  # noqa: E731
         if old is not None:
             o_d, o_i = old_call(old, ref, nbr, k)
             got_old = nnk_tolerance_failures(ref, nbr, o_d, o_i, i_p)
             old_ms = lambda: old_call(old, ref, nbr, k)  # noqa: E731
-            t = [flushed_ms(old_ms, flush), flushed_ms(new_ms, flush),
-                 flushed_ms(new_ms, flush), flushed_ms(old_ms, flush)]
+            t = [flushed_ms(f)[0] for f in (old_ms, new_ms, new_ms, old_ms)]
             times = (f'old {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, old '
                      f'{t[3]:.4f} ms; old rule {got_old}')
         else:
-            times = f'new {flushed_ms(new_ms, flush):.4f} ms'
+            times = f'new {flushed_ms(new_ms)[0]:.4f} ms'
         for v, vlib in variants.items():
-            t = flushed_ms(lambda: variant_call(vlib, ref, nbr, k), flush)
+            t = flushed_ms(lambda: variant_call(vlib, ref, nbr, k))[0]
             times += f'; {v} {t:.4f} ms'
         b = knn_bound(R, N, D, k, False)
         print(f'[probe] {tag} [{R}, {D}] x [{N}, {D}], k={k}: {got}; {times}'

@@ -269,16 +269,16 @@ def test_nnk_kernel_matches_plain(cuda, R, N, k):
 
 
 def test_knn_kernel_ties_and_refusals(cuda):
-    """Duplicated neighbours: the lower index first; k above the kernel's
-    largest, float16 clouds and clouds of two dtypes raise; points of
+    """Duplicated neighbours: the lower index first; k above the number of
+    neighbours, float16 clouds and clouds of two dtypes raise; points of
     more than 8 coordinates take the wide scans (one launch)."""
     base = _clouds(1, 200, cuda)[1]
     nbr = torch.cat([base, base[:50]])
     d2, idx = knn.nnk(base[:50] + 1e-3, nbr, 2)
     assert torch.equal(idx[:, 0].cpu(), torch.arange(50))
     assert torch.equal(idx[:, 1].cpu(), 200 + torch.arange(50))
-    with pytest.raises(ValueError, match='k=17'):
-        knn.nnk(base, base, knn.MAX_K + 1)
+    with pytest.raises(ValueError, match='k=201'):
+        knn.nnk(base, base, 201)
     before = knn.NN1_LAUNCHES
     d2, idx = knn.nn1(torch.zeros((4, 9), device=cuda),
                       torch.zeros((6, 9), device=cuda))
@@ -470,6 +470,158 @@ def test_descriptor_scratch_sizes(cuda):
     for D, f64 in ((128, 1), (8, 0)):
         assert lib.ppt_knn_scratch(100, 100, D, f64, ctypes.byref(n)) == 0
         assert n.value == 0
+
+
+# k > 16: the lists off the registers (csrc/knn.cu:nnk_scan_big,
+# nnk_wide_scan_f64_big, wide_tc_scan<kBig>), one launch each, under the
+# near-tie rules (float64 at F64_TOL).
+BIG_KS = (17, 31, 32, 33, 64, 100, 257, 1024)
+
+
+def _assert_big(ref, nbr, k, **tol):
+    before = knn.NNK_LAUNCHES
+    d_k, i_k = knn.nnk(ref, nbr, k)
+    torch.cuda.synchronize()
+    assert knn.NNK_LAUNCHES == before + 1
+    assert d_k.shape == i_k.shape == (ref.shape[0], k)
+    assert d_k.dtype == ref.dtype and i_k.dtype == torch.int64
+    assert (d_k[:, 1:] >= d_k[:, :-1]).all()
+    got = nnk_tolerance_failures(ref, nbr, d_k, i_k,
+                                 knn._nnk_torch(ref, nbr, k)[1], **tol)
+    assert got['index_failures'] == got['repeat_failures'] == \
+        got['d2_failures'] == 0, got
+    return d_k, i_k
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('D', [1, 3, 4, 8, 9, 33, 128])
+@pytest.mark.parametrize('k', BIG_KS)
+def test_nnk_big_k_matches_plain(cuda, k, D, dtype):
+    """Every k > 16 family (register-tiled up to D = 8, the float32
+    tensor-core and float64 SIMT wide scans past it) on clouds of 333 x
+    3003 (R not a multiple of a block's rows); the lists live in global
+    memory at every k, and k = 257 and 1024 merge many buffers into
+    them."""
+    ref, nbr = (a.to(dtype) for a in _clouds(333, 3003, cuda, seed=k + D,
+                                             D=D))
+    _assert_big(ref, nbr, k, **(F64_TOL if dtype == torch.float64 else {}))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('D', [3, 33])
+@pytest.mark.parametrize('R,N,k', [(1, 17, 17), (1, 300, 100), (50, 64, 64),
+                                   (129, 40, 20), (129, 300, 300),
+                                   (300, 4096, 4096)])
+def test_nnk_big_k_ragged_and_whole_rows(cuda, R, N, k, D, dtype):
+    """R = 1, R past a block's rows, N under one tile, and k = N (the
+    whole row sorted)."""
+    ref, nbr = (a.to(dtype) for a in _clouds(R, N, cuda, seed=R + N, D=D))
+    _assert_big(ref, nbr, k, **(F64_TOL if dtype == torch.float64 else {}))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('D', [3, 8, 33])
+@pytest.mark.parametrize('k', [20, 64, 300])
+def test_nnk_big_k_exact_ties(cuda, k, D, dtype):
+    """Small-integer clouds, every neighbour four times over 40,000
+    neighbours (several splits; a tensor-core row's four threads see
+    interleaved columns): every score is exact in both versions, so the
+    kernel's indices equal the plain version's, ties lower index first."""
+    gen = torch.Generator().manual_seed(k + D)
+    ref = torch.randint(0, 6, (500, D), generator=gen).to(dtype).to(cuda)
+    base = torch.randint(0, 6, (10_000, D), generator=gen).to(dtype)
+    nbr = base.repeat(4, 1).to(cuda)
+    d_k, i_k = knn.nnk(ref, nbr, k)
+    d_p, i_p = knn._nnk_torch(ref, nbr, k)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(d_k, d_p)
+
+
+def test_knn_k30_launches_nnk_never_the_gram_path(cuda, monkeypatch):
+    """knn(k=30) on CUDA, auto-tiled (past 64 Mi pairs) and with an
+    explicit chunk, makes one nnk launch and never reaches _knn_gram."""
+    from pypose_tpu_torch.function import geometry
+
+    def refuse(*args):
+        raise AssertionError('_knn_gram reached on CUDA')
+
+    monkeypatch.setattr(geometry, '_knn_gram', refuse)
+    ref, nbr = _clouds(9000, 9000, cuda, seed=30)
+    for chunk in (None, 1000):
+        before = (knn.NNK_LAUNCHES, knn.NN1_LAUNCHES)
+        res = geometry.knn(ref, nbr, k=30, chunk=chunk)
+        torch.cuda.synchronize()
+        assert (knn.NNK_LAUNCHES, knn.NN1_LAUNCHES) == (before[0] + 1,
+                                                        before[1])
+        _assert_nnk_within_tolerance(ref, nbr, res.values ** 2,
+                                     res.indices,
+                                     knn._nnk_torch(ref, nbr, 30)[1])
+
+
+def _old_nnk_lib(path):
+    """An earlier csrc/knn.cu (its C interface with a scratch argument,
+    as since the tensor-core scans) built with the same flags."""
+    import ctypes
+    import hashlib
+    from pypose_tpu_torch.ops import _build
+    text = open(path, 'rb').read()
+    out = _build.BUILD / f'libknn_old_{hashlib.sha1(text).hexdigest()[:12]}.so'
+    if not out.exists():
+        _build.BUILD.mkdir(exist_ok=True)
+        import subprocess
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-o',
+                        str(out), str(path)], check=True,
+                       capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (('ppt_knn_scratch',
+                      [I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]),
+                     ('ppt_nnk_splits', [I] * 5),
+                     ('ppt_nnk', [P, P] + [I] * 6 + [P] * 6)):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = I
+    return lib
+
+
+def _nnk_with(lib, ref, nbr, k):
+    """ops/knn.py:_launch_nnk through ``lib``."""
+    import ctypes
+    (R, D), N = ref.shape, nbr.shape[0]
+    f64 = int(ref.dtype == torch.float64)
+    splits = lib.ppt_nnk_splits(R, N, D, k, f64)
+    part_s = torch.empty((splits, k, R), dtype=ref.dtype, device=ref.device)
+    part_i = torch.empty((splits, k, R), dtype=torch.int32,
+                         device=ref.device)
+    floats = ctypes.c_longlong()
+    assert lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(floats)) == 0
+    scratch = torch.empty((max(1, floats.value),), device=ref.device)
+    d2 = torch.empty((R, k), dtype=ref.dtype, device=ref.device)
+    idx = torch.empty((R, k), dtype=torch.int64, device=ref.device)
+    assert lib.ppt_nnk(ref.data_ptr(), nbr.data_ptr(), R, N, D, k, f64,
+                       splits, scratch.data_ptr(), part_s.data_ptr(),
+                       part_i.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream) == 0
+    return d2, idx
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('D', [3, 33])
+def test_small_k_bit_equal_to_an_earlier_build(cuda, D, dtype):
+    """k = 2, 8, 16 give the same bits as an earlier csrc/knn.cu (the
+    instantiations of the register lists), built beside this one from
+    the file named by $PPT_KNN_OLD_CU (e.g. ``git show
+    66cd375:pypose_tpu_torch/csrc/knn.cu``)."""
+    import os
+    path = os.environ.get('PPT_KNN_OLD_CU')
+    if not path:
+        pytest.skip('PPT_KNN_OLD_CU names no earlier csrc/knn.cu')
+    old = _old_nnk_lib(path)
+    ref, nbr = (a.to(dtype) for a in _clouds(3000, 20_000, cuda, seed=D,
+                                             D=D))
+    for k in (2, 8, 16):
+        d_o, i_o = _nnk_with(old, ref, nbr, k)
+        d_n, i_n = knn.nnk(ref, nbr, k)
+        assert torch.equal(i_o, i_n) and torch.equal(d_o, d_n), (D, k)
 
 
 def test_sharded_pgo_one_rank_matches_sparse_lm(cuda):
