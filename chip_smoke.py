@@ -31,7 +31,8 @@ Phases (any failure raises, so the script exits non-zero):
   2. build: compiles pypose_tpu_torch/csrc/stencil_cg{,_tiled,_fused}.cu,
      knn.cu and se3.cu, one nvcc each, all at once (timed as set-up);
      prints ptxas' registers and shared memory (knn.cu: for D = 3 and 8,
-     the wide scans and their split pre-pass, and every k > 16 scan), and
+     the wide scans and their split pre-pass, every k > 16 scan and the
+     select path's kernels), and
      the HGMMA instructions in the float32 wide scans' SASS (cuobjdump),
      which must be there, as many in each of the six instantiations; a
      C7520 (serialized wgmma) in ptxas' output fails.
@@ -259,13 +260,17 @@ Phases (any failure raises, so the script exits non-zero):
      torch.cdist + torch.min / topk, the device time of each traced in a
      fresh process; knn(k=1) and knn(k=8) on the D = 33 clouds launch one
      nn1 and one nnk.
- 37b. knn-bigk: nnk at k > 16 (the lists off the registers), each case
+ 37b. knn-bigk: nnk at k > 16 (the lists off the registers, and the
+     select-then-sort path from ops.knn.select_k(dtype) on and at
+     k = N, where D <= 8: each case's path and scratch printed), each case
      once through knn() from zeroed counts (one nnk launch): k = 30, 50
      and 100 on ICP's 100k target against itself (normal estimation,
      outlier removal, FPFH neighbourhoods) and k = 1024 (beside the
-     route it replaced), k = 30 on [knn-d6]'s clouds in float64, k = 32
+     route it replaced), k = 30 and 1024 on [knn-d6]'s clouds in float64
+     (the merge scan; the select path), k = 32
      on [knn-wide]'s FPFH clouds in float32 (tensor cores) and float64
-     (SIMT) and on its SIFT clouds (float32 SIMT); through ops.knn.nnk,
+     (SIMT) and on its SIFT clouds (float32 SIMT), k = 1024 on the FPFH
+     clouds in float32 (tensor cores); through ops.knn.nnk,
      k = 1024 on 10,000 x 100,000 and k = N on 4096 x 4096 points;
      each held to the plain version by the near-tie rule (its largest d^2
      error over the tolerance printed), timed with L2 flushed, its device
@@ -3327,7 +3332,9 @@ def knn_wide_phase(dev):
     return out, counts
 
 
-# [knn-bigk]: (tag, clouds, k, the k > 16 scan it takes, its users); the
+# [knn-bigk]: (tag, clouds, k, the k > 16 family it takes (the register-
+# tiled one: the merge scan below ops.knn.select_k(dtype), the select
+# path from it on and at k = N), its users); the
 # clouds of bigk_clouds, each case called through knn() but the two range
 # cases, which call ops.knn.nnk
 BIGK_CASES = (
@@ -3340,6 +3347,8 @@ BIGK_CASES = (
     ('d6-f64', 'd6-f64', 30, 'register-tiled float64', 'float64 clouds'),
     ('fpfh-33', 'fpfh', 32, 'tensor-core float32',
      'descriptor neighbourhoods'),
+    ('fpfh-33-1024', 'fpfh', 1024, 'tensor-core float32',
+     'coverage: the wide families keep the merge scan at large k'),
     ('fpfh-33-f64', 'fpfh-f64', 32, 'wide SIMT float64',
      'descriptor neighbourhoods in float64'),
     ('sift-128', 'sift', 32, 'wide SIMT float32',
@@ -3348,13 +3357,16 @@ BIGK_CASES = (
      'coverage: k ~ 1000 at ICP scale, beside the route it replaced'),
     ('range', 'range', 1024, 'register-tiled float32', 'coverage: range'),
     ('full', 'full', 4096, 'register-tiled float32',
-     'coverage: a whole row sorted'))
+     'coverage: a whole row sorted'),
+    ('d6-f64-1024', 'd6-f64', 1024, 'register-tiled float64',
+     'coverage: the float64 select path'))
 BIGK_RANGE = ('range', 'full')
 
 
 def bigk_clouds(dev):
     """{name: (ref, nbr)} of BIGK_CASES on ``dev``: ICP's 100k target
-    against itself; [knn-d6]'s [10000, 6] clouds in float64; [knn-wide]'s
+    against itself (and in float64, for probes/knn_probes.py
+    --crossover); [knn-d6]'s [10000, 6] clouds in float64; [knn-wide]'s
     FPFH-like clouds (50,000^2 float32, 10,000^2 float64) and SIFT-like
     clouds (20,000 x 100,000 float32); 10,000 ICP
     source points against the 100k target; 4096 target points against
@@ -3366,7 +3378,9 @@ def bigk_clouds(dev):
           for _ in range(2)]
     wide = wide_clouds(dev)
     full = tgt[:4096].contiguous()
-    return {'icp': (tgt, tgt), 'd6-f64': tuple(d6), 'fpfh': wide['fpfh'],
+    tgt64 = tgt.double()
+    return {'icp': (tgt, tgt), 'icp-f64': (tgt64, tgt64),
+            'd6-f64': tuple(d6), 'fpfh': wide['fpfh'],
             'fpfh-f64': wide['fpfh-f64'], 'sift': wide['sift'],
             'range': (src[:10_000].contiguous(), tgt), 'full': (full, full)}
 
@@ -3428,9 +3442,12 @@ def d2_err_over_tol(ref, nbr, d2, idx, rtol=1e-6, atol=1e-6):
 
 
 def knn_bigk_phase(dev):
-    """[knn-bigk] nnk at k > 16 (csrc/knn.cu's k > 16 scans): each case of
-    BIGK_CASES called once through knn() (ops.knn.nnk for the range
-    cases) from zeroed counts, one nnk launch and no other; held to the
+    """[knn-bigk] nnk at k > 16 (csrc/knn.cu's k > 16 scans, and the
+    select-then-sort path at k >= ops.knn.select_k(dtype) and k = N,
+    D <= 8): each case of BIGK_CASES called once through knn()
+    (ops.knn.nnk for the range cases) from zeroed counts, one nnk launch
+    and no other, its path and the bytes the wrapper allocates beside the
+    outputs (ops.knn.nnk_plan) printed; held to the
     plain version by the near-tie rule (float64 at F64_TOL), its largest
     d^2 error over the tolerance printed; the kernel timed (CUDA events,
     median of 7, L2 flushed before each call), its device time traced in
@@ -3453,6 +3470,7 @@ def knn_bigk_phase(dev):
         (R, D), N = ref.shape, nbr.shape[0]
         f64 = ref.dtype == torch.float64
         tol = F64_TOL if f64 else {}
+        plan = K.nnk_plan(R, N, D, k, ref.dtype)
         reset_counts()
         if tag in BIGK_RANGE:
             d2, idx = K.nnk(ref, nbr, k)
@@ -3486,7 +3504,9 @@ def knn_bigk_phase(dev):
         d_ms = device.get(tag) or None
         print(f'[knn-bigk] {tag} ({users}): {family}, [{R}, {D}] x [{N}, '
               f'{D}] {ref.dtype}, k={k}, through '
-              f'{"ops.knn.nnk" if tag in BIGK_RANGE else "knn"}: launch '
+              f'{"ops.knn.nnk" if tag in BIGK_RANGE else "knn"}: path '
+              f'{plan["route"]} (scratch {plan["scratch_bytes"]} B, partial '
+              f'lists {plan["part_bytes"]} B); launch '
               f'counts {counts}; {got}; largest d2 error {ratio:.3f} of '
               f'its tolerance; max|d2 - d2_p| {err:.3e}; kernel '
               f'{k_ms:.4f} ms (median of 7, L2 flushed; device '
@@ -3495,7 +3515,9 @@ def knn_bigk_phase(dev):
               f'+ torch.topk {c_ms:.4f} ms (one call each); bound '
               f'{b[0]:.4f} ms ({b[1]})', flush=True)
         out[tag] = dict(family=family, shape=f'[{R}, {D}] x [{N}, {D}] '
-                        f'{str(ref.dtype)[6:]}, k={k}',
+                        f'{str(ref.dtype)[6:]}, k={k}', route=plan['route'],
+                        scratch_bytes=plan['scratch_bytes'],
+                        part_bytes=plan['part_bytes'],
                         launches=counts['NNK_LAUNCHES'],
                         err=err, err_over_tol=ratio, ms=k_ms, device_ms=d_ms,
                         plain_ms=p_ms, gram_ms=g_ms, cdist_ms=c_ms,
@@ -3859,6 +3881,7 @@ def sharded_steps_phase(dev):
 
 
 def main():
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -3901,7 +3924,7 @@ def main():
             # csrc/knn.cu: the float32 and float64 instantiations for D = 3
             # and D = 8, and the wide scans
             elif 'Used' in line and (path.stem != 'libknn' or 'wide' in entry
-                                     or 'big' in entry
+                                     or 'big' in entry or 'sel_' in entry
                                      or 'tf32_split' in entry
                                      or any(f'I{t}Li{d}E' in entry
                                             for t in 'fd' for d in (3, 8))):
@@ -4278,14 +4301,23 @@ def main():
             ms_of=f'{fp["shape"]} (FPFH-like; float32 on the tensor '
                   'cores); cases: every shape; launches from knn() on the '
                   'D = 33 clouds', routed=True))
-    # k > 16: one entry a scan family, launches from its first case's
-    # call through knn() (counted from zero)
+    # k > 16: one entry a scan family, and one for the select-then-sort
+    # path (the register-tiled families' cases that took it); launches
+    # from its first case's call through knn() (counted from zero)
+    tiled = ('normals', 'outliers', 'fpfh-nbhd', 'range-100k', 'range',
+             'full')
+    scan = tuple(t for t in tiled if bigk[t]['route'] == 'scan')
+    select = tuple(t for t in tiled if bigk[t]['route'] == 'select')
+    check(select and scan and bigk['d6-f64']['route'] == 'scan'
+          and bigk['d6-f64-1024']['route'] == 'select',
+          f'knn-bigk: paths {({t: v["route"] for t, v in bigk.items()})}')
+    first_via_knn = [t for t in select if t not in BIGK_RANGE]
     for kname, line, first, tags in (
-            ('nnk_bigk', '50', 'normals',
-             ('normals', 'outliers', 'fpfh-nbhd', 'range-100k', 'range',
-              'full')),
+            ('nnk_select', '50', (first_via_knn or select)[0], select),
+            ('nnk_select_f64', '50', 'd6-f64-1024', ('d6-f64-1024',)),
+            ('nnk_bigk', '50', scan[0], scan),
             ('nnk_bigk_f64', '50', 'd6-f64', ('d6-f64',)),
-            ('nnk_wide_bigk', '138', 'fpfh-33', ('fpfh-33',)),
+            ('nnk_wide_bigk', '138', 'fpfh-33', ('fpfh-33', 'fpfh-33-1024')),
             ('nnk_wide_bigk_simt', '138', 'sift-128', ('sift-128',)),
             ('nnk_wide_bigk_f64', '138', 'fpfh-33-f64', ('fpfh-33-f64',))):
         fc = bigk[first]
@@ -4298,6 +4330,9 @@ def main():
             gram='function/geometry.py:_knn_gram, the route k > 16 took '
                  'before',
             cases={t: dict(family=bigk[t]['family'], shape=bigk[t]['shape'],
+                           route=bigk[t]['route'],
+                           scratch_bytes=bigk[t]['scratch_bytes'],
+                           part_bytes=bigk[t]['part_bytes'],
                            ms=bigk[t]['ms'], device_ms=bigk[t]['device_ms'],
                            plain_ms=bigk[t]['plain_ms'],
                            gram_ms=bigk[t]['gram_ms'],
@@ -4307,8 +4342,9 @@ def main():
                            max_abs_err=bigk[t]['err'],
                            err_over_tol=bigk[t]['err_over_tol'])
                    for t in tags},
-            ms_of=f'{fc["shape"]} ({fc["family"]}; L2 flushed); cases: '
-                  'every shape; launches from its call through knn()',
+            ms_of=f'{fc["shape"]} ({fc["family"]}, {fc["route"]} path; '
+                  'L2 flushed); cases: every shape; launches from its call '
+                  'through knn()',
             routed=True))
     for tag, numbers in sharded.items():
         print(f'[{tag}] {numbers}', flush=True)
@@ -4334,6 +4370,9 @@ def main():
                          if k.get('routed', True) and k['launches'] < 1]
     check(not routed_unlaunched,
           f'kernels on a path with no launch there: {routed_unlaunched}')
+    print(f'[total] the script took {time.perf_counter() - t_script:.1f} s '
+          '(PERF.md: 559 s on the H100 before the select path)',
+          flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

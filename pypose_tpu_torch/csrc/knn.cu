@@ -115,45 +115,88 @@
 // a thread, chunks of 8 coordinates through shared memory), read by
 // threads 0-63 a row each.
 //
-// nnk past k = 16 (nnk_scan_big, nnk_wide_scan_big, wide_tc_scan<kBig>):
-// the same TPU kernel (pallas_knn.py:_knnk_kernel :50, which takes any
-// k <= N).  A list of k = 100 pairs a row would take 200 registers, so:
+// nnk past k = 16, two ways.  The same TPU kernel (pallas_knn.py:
+// _knnk_kernel :50, which takes any k <= N).
+//
+// The merge scans (nnk_scan_big, nnk_wide_scan_big, wide_tc_scan<kBig>):
+// every family at 16 < k < kSelectK below N, and the wide families (D > 8)
+// at any k.  A list of k = 100 pairs a row would take 200 registers, so:
 //  - each family scores its pairs as at k <= 16 (the same FMA chain; on
 //    the tensor cores the same three-pass total) and appends each pair
 //    before its row's k-th pair in (s, index) order (every pair until the
 //    row's list holds k) to the row's buffer in shared memory: the
 //    register-tiled scan at one row a thread (128 rows a block; 32
-//    candidates a row, kBigBatch: 64 halved the blocks an SM and won only
-//    at k ~ 1000, which no user of the repo asks for), the float64 wide
-//    scan one row a thread of threads 0-63, the tensor-core scan from the
-//    row's four threads (their columns interleave, hence the (s, index)
-//    order in the test); the wide scans' buffers hold 64 (kBuf: a tile
-//    of 64 neighbours appends at most 64);
+//    candidates a row, kBigBatch), the float64 wide scan one row a thread
+//    of threads 0-63, the tensor-core scan from the row's four threads
+//    (their columns interleave, hence the (s, index) order in the test);
+//    the wide scans' buffers hold 64 (kBuf: a tile of 64 neighbours
+//    appends at most 64);
 //  - where a buffer would overflow, and at the end of the split, the
 //    row's warp merges it into the row's sorted list (flush_row): a
 //    bitonic sort of the buffer in registers by shuffles, then the list
 //    rewritten in place from its top down, each entry moving up by the
 //    candidates before it; the row's k-th pair, the threshold, tightens.
 //    A random cloud makes ~k (1 + ln(M / k)) entries a row over a split
-//    of M neighbours; a merge moves up to k entries, 128 a round, so
-//    k ~ 1000 is bound by the merges;
+//    of M neighbours, and a merge moves up to k entries, so past a few
+//    hundred the merges bound the scan (at k = N a row of 4096 is 128
+//    merges of ~2048 moves each);
 //  - the lists live in global memory, in part_s / part_i [splits, R, k]
-//    (in L2 while the split runs: 128 rows x k x 8 bytes a block): lists
-//    in shared memory, where they fit, cost blocks an SM and took longer
-//    at k = 30-100, and past ~100 they do not fit.  Shared memory holds
-//    the buffers (33 KB a register-tiled block in float32) and each
-//    warp's counters;
-//  - splits as many as one wave of blocks holds (each split pays its own
-//    candidates), at most 32, within 1 GB of lists; a split of fewer than
-//    k neighbours sorts them all, its list ending in (inf, INT_MAX) pairs
-//    that every real pair precedes; the merge pass (nnk_merge_big) takes
-//    a warp a row, lane sp the head of split sp's list, and writes the k
-//    least heads in (s, index) order.
+//    (in L2 while the split runs); splits as many as one wave of blocks
+//    holds, at most 32, within 1 GB of lists (kPartBudget); a split of
+//    fewer than k neighbours sorts them all, its list ending in (inf,
+//    INT_MAX) pairs; the merge pass (nnk_merge_big) takes a warp a row,
+//    lane sp the head of split sp's list, and writes the k least heads.
 // The tensor-core scan keeps its 128 rows a block, its producer and its
 // ring; the buffers take 66 KB past the ring, which leaves two stages up
 // to 96 padded coordinates.  Past that, float32 takes the SIMT wide scan
-// (nnk_wide_scan_big in float32: the FMA chain), since the resident rows,
-// two stages and the buffers do not fit 227 KB.
+// (nnk_wide_scan_big in float32: the FMA chain).
+//
+// Select, then sort (launch_nnk_select): the register-tiled family
+// (D <= 8) at k >= kSelectK (kSelectK64 in float64: the crossovers,
+// measured) and at k = N.
+// Rather than merge candidates, find each row's k-th (s, index) pair
+// first, write the pairs before it once, and sort them once:
+//  - keys: s as an order-preserving unsigned key (Sel<T>::key: every bit
+//    flipped where s < 0, the sign bit where s >= 0, -0 made +0 first, as
+//    the (s, index) order holds them equal); a pair's place is its (key,
+//    index), packed into 64 bits in float32;
+//  - select (sel_count, sel_pick): counting passes fix the row's
+//    threshold 8 bits at a time, the key's from the top, then the
+//    index's (exact ties, as on integer clouds, cut by index).  Each pass
+//    scores every pair again from the staged tiles, the scans' function
+//    and bits: at D <= 8 a score is 3-8 FMA, far cheaper than storing
+//    10^9 pairs.  It counts the digit of the pairs that share the prefix
+//    fixed so far in the row's 256 counters in shared memory (one row a
+//    thread, 128 a block, the counters the thread's own: two 16-bit
+//    counts a word, so splits of at most 65,504 neighbours); the blocks
+//    of a row add theirs into its global histogram (integer atomics: the
+//    same counts in any order), and a warp a row fixes the digit where
+//    the k-th pair falls, until the pairs of that bin complete the k or
+//    fit the row's boundary buffer (256-512 pairs);
+//  - emit (sel_emit): one more pass writes every pair before the prefix
+//    into the row's slots of the outputs (as pairs, slots by atomics) and
+//    the bin's pairs there or into the boundary buffer; no [splits, R, k]
+//    lists, so no budget on them;
+//  - sort (sel_sort): one block a row sorts its list (at most k - 1 plus
+//    its boundary pairs, padded to a power of 2) by (key, index), a
+//    bitonic network with 8 pairs a thread in registers: a step runs in
+//    the layout that holds its stride's bit, the layouts exchanged
+//    through shared memory (~log2(P) / 3 + 1 a merge); then the first k
+//    as d^2 = s + |a|^2 clamped at 0.  Past kSortMax pairs the network's
+//    long strides run in global memory (sel_step) between blocks of the
+//    row's tiles.  k = N within a block: the sort alone (sel_sort_all),
+//    scoring its pairs itself.
+// What bounds it on an H100: instruction issue over the R x N pairs, in
+// two or three counting passes (on random float32 clouds) and the
+// emission.  The first count is the dear one: every pair forms its key
+// and counts; a thread's pairs of one digit count in a register until
+// the digit changes, which spares most of its shared-memory atomics.  In
+// the later passes a pair outside the prefix's score bounds (sel_bounds)
+// costs its score and two compares.  Then the sort, ~P/2 log2(P)
+// (log2(P) + 1) / 2 compare-exchanges a row of P, in registers.  Both
+// paths rank the same s in the same (s, index) order, so they return the
+// same bits (the card test against the merge scan's build,
+// probes/knn_probes.py --crossover).
 
 // What bounds the register-tiled scans on an H100: instruction issue.  nn1
 // needs D FMA a pair;
@@ -286,11 +329,12 @@ __device__ __forceinline__ T score(const T* a, const Nbr<T>& b) {
 }
 
 // Stages neighbours [t0, t0 + n) into the tile, padded to n_pad with zero
-// coordinates and |b|^2 = inf, so s = inf.
+// coordinates and |b|^2 = inf, so s = inf, by a block of `threads`.
 template <typename T, int D>
 __device__ __forceinline__ void stage(const T* __restrict__ nbr, int t0,
-                                      int n, int n_pad, Tile<T, D>& tl) {
-  for (int t = threadIdx.x; t < n_pad; t += kThreads) {
+                                      int n, int n_pad, Tile<T, D>& tl,
+                                      int threads = kThreads) {
+  for (int t = threadIdx.x; t < n_pad; t += threads) {
     T b[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     T bn = inf<T>();
     if (t < n) {
@@ -1110,10 +1154,825 @@ cudaError_t launch_nnk_big(const T* ref, const T* nbr, int R, int N, int k,
   return cudaGetLastError();
 }
 
+// ---- k >= kSelectK and k = N, D <= 8: select, then sort ------------------
+
+// The least k that takes the select-then-sort path, in float32 and in
+// float64 (the crossovers measured by probes/knn_probes.py --crossover,
+// PERF.md); k = N takes it at any k.
+constexpr int kSelectK = 256;
+constexpr int kSelectK64 = 512;
+constexpr int kSelRows = 128;       // rows an emission block, one a thread
+constexpr int kCountRT = 2;         // rows a lane of a counting block
+constexpr int kCountRows = 32 * kCountRT;  // rows a counting block
+constexpr int kBins = 256;          // a digit: 8 bits of the (key, index)
+// a row's counters in shared memory: two 16-bit counts a word, and a word
+// of padding (row r's word w on bank (r + w) % 32)
+constexpr int kHistStride = kBins / 2 + 1;
+// neighbours a counting split, most (a 16-bit count never carries), and
+// least where the splits are many
+constexpr int kMaxSelChunk = 65504;
+constexpr int kMinSelChunk = 4096;
+constexpr int kSelBlocksPerSm = 24; // counting blocks a pass an SM, aim
+// pairs of a row that share the threshold's bin and go to the boundary
+// buffer, least (the sort's length: k - 1 + kMinBoundary) and most
+constexpr int kMinBoundary = 256;
+constexpr int kMaxBoundary = 512;
+constexpr int kSortE = 8;           // pairs a sorting thread holds
+constexpr int kSortMax = 8192;      // pairs one block sorts, most
+constexpr int kMinSort = 64;        // and least: a layout's bits [3, 6)
+
+// A row's mode: counting digits; done, the pairs in the prefix's bin
+// complete its k; done, they go to the boundary buffer.
+enum { kCounting = 0, kTakeAll = 1, kToBoundary = 2 };
+
+// A pair's place in the (s, index) order: the key of s (its bits made an
+// order-preserving unsigned: every bit flipped where s < 0, the sign bit
+// where s >= 0; -0 made +0 first, as the order holds them equal; +inf
+// last) and the index.  float32 packs both into one 64-bit word, key
+// above; float64 keeps its 64-bit key beside the index.
+struct Pair64 {
+  unsigned long long k;
+  unsigned int j, pad;
+};
+
+template <typename T> struct Sel;
+template <> struct Sel<float> {
+  using Key = unsigned int;
+  using Pair = unsigned long long;
+  __device__ static Key key(float s) {
+    const unsigned u = __float_as_uint(__fadd_rn(s, 0.0f));
+    return u ^ (static_cast<unsigned>(static_cast<int>(u) >> 31) |
+                0x80000000u);
+  }
+  __device__ static float unkey(Key k) {
+    return __uint_as_float(k & 0x80000000u ? k ^ 0x80000000u : ~k);
+  }
+  __device__ static float score(const Pair& p) {
+    return unkey(static_cast<Key>(p >> 32));
+  }
+  __device__ static float below_zero() { return -CUDART_MIN_DENORM_F; }
+  __device__ static Pair pair(Key k, unsigned j) {
+    return (static_cast<Pair>(k) << 32) | j;
+  }
+  __device__ static long long index(const Pair& p) {
+    return static_cast<unsigned>(p);
+  }
+  __device__ static Pair last() { return ~0ull; }
+  __device__ static bool less(const Pair& a, const Pair& b) { return a < b; }
+  // a pair kept in slot o of the outputs until the sort: idx's 8 bytes
+  __device__ static void put(float*, long long* idx, size_t o, Pair p) {
+    reinterpret_cast<Pair*>(idx)[o] = p;
+  }
+  __device__ static Pair get(const float*, const long long* idx, size_t o) {
+    return reinterpret_cast<const Pair*>(idx)[o];
+  }
+};
+template <> struct Sel<double> {
+  using Key = unsigned long long;
+  using Pair = Pair64;
+  __device__ static Key key(double s) {
+    const Key u = static_cast<Key>(__double_as_longlong(__dadd_rn(s, 0.0)));
+    return u ^ (static_cast<Key>(static_cast<long long>(u) >> 63) |
+                0x8000000000000000ull);
+  }
+  __device__ static double unkey(Key k) {
+    return __longlong_as_double(static_cast<long long>(
+        k >> 63 ? k ^ 0x8000000000000000ull : ~k));
+  }
+  __device__ static double score(const Pair& p) { return unkey(p.k); }
+  __device__ static double below_zero() { return -CUDART_MIN_DENORM; }
+  __device__ static Pair pair(Key k, unsigned j) { return Pair{k, j, 0u}; }
+  __device__ static long long index(const Pair& p) { return p.j; }
+  __device__ static Pair last() { return Pair{~0ull, ~0u, 0u}; }
+  __device__ static bool less(const Pair& a, const Pair& b) {
+    return a.k < b.k || (a.k == b.k && a.j < b.j);
+  }
+  // d2's 8 bytes hold the key, idx's the index
+  __device__ static void put(double* d2, long long* idx, size_t o, Pair p) {
+    reinterpret_cast<Key*>(d2)[o] = p.k;
+    idx[o] = p.j;
+  }
+  __device__ static Pair get(const double* d2, const long long* idx,
+                             size_t o) {
+    return Pair{reinterpret_cast<const Key*>(d2)[o],
+                static_cast<unsigned>(idx[o]), 0u};
+  }
+};
+
+// A row's threshold so far: the prefix (the key's and the index's bits of
+// the digits fixed, `level` of them, the key's first), the pairs before
+// it and the pairs that share it.
+template <typename K>
+struct SelRow {
+  K pk;
+  unsigned pj;
+  int level, below, count, mode;
+};
+
+// Index bits the index digits read: N - 1's, rounded up to whole digits.
+int index_bits(int N) {
+  int b = 8;
+  while (b < 32 && (static_cast<unsigned>(N - 1) >> b)) b += 8;
+  return b;
+}
+// The bits that `level` fixed digits fix: of the key, then of the index.
+template <typename K>
+__device__ __forceinline__ K key_mask(int level) {
+  constexpr int kd = sizeof(K);
+  const int l = min(level, kd);
+  return l == 0 ? K(0) : ~K(0) << (8 * (kd - l));
+}
+__device__ __forceinline__ unsigned index_mask(int level, int kd,
+                                               int ibits) {
+  return level <= kd ? 0u : ~0u << (ibits - 8 * (level - kd));
+}
+
+// The pairs that share a row's prefix (its key's bits of `km` and its
+// index's of `jm` fixed) as bounds the scores and indices can be held to
+// without forming keys: s in [lo, hi], j in [jlo, jhi].  The key map is
+// monotone, so a key range is a score range; past the keys of +-inf it
+// is open; an upper bound of -0 (the key below 0's) becomes the least
+// negative score, since s <= -0 would admit 0, whose key is above it.
+template <typename T>
+struct SelBounds {
+  T lo, hi;
+  unsigned jlo, jhi;
+};
+
+template <typename T, typename K>
+__device__ __forceinline__ SelBounds<T> sel_bounds(K pk, unsigned pj,
+                                                   int level, int ibits) {
+  using S = Sel<T>;
+  constexpr int kd = sizeof(K);
+  const K km = key_mask<K>(level);
+  const unsigned jm = index_mask(level, kd, ibits);
+  const K top = pk | ~km;
+  SelBounds<T> b;
+  b.lo = pk <= S::key(-inf<T>()) ? -inf<T>() : S::unkey(pk);
+  b.hi = top >= S::key(inf<T>()) ? inf<T>() : S::unkey(top);
+  if (b.hi == T(0) && signbit(b.hi)) b.hi = S::below_zero();
+  b.jlo = pj;
+  b.jhi = pj | ~jm;
+  return b;
+}
+
+// The scratch of the select path for R rows, N neighbours and k, and how
+// its passes run: P pairs a row's sort (a power of 2), at most `cap`
+// boundary pairs a row, `levels` counting passes at most; the offsets of
+// the rows' states, global histograms [R, 256] (uint32), the emission's
+// counts [R, 2] (int32), the boundary buffers [R, cap] and, past kSortMax,
+// the rows' sort buffers [R, P] (pairs: 8 bytes in float32, 16 in
+// float64).  k = N within one block's sort needs none of it.
+struct SelPlan {
+  long long P;
+  int cap, ibits, levels;
+  size_t st, hist, cnt, bnd, big, bytes;
+};
+
+template <typename T>
+SelPlan sel_plan(int R, int N, int k) {
+  using S = Sel<T>;
+  SelPlan p{};
+  const long long want = k == N ? k : k - 1LL + kMinBoundary;
+  p.P = kMinSort;
+  while (p.P < want) p.P <<= 1;
+  p.cap = k == N ? 0 : static_cast<int>(std::min<long long>(
+                           kMaxBoundary, p.P - (k - 1)));
+  p.ibits = index_bits(N);
+  p.levels = k == N ? 0 : static_cast<int>(sizeof(typename S::Key)) +
+                              p.ibits / 8;
+  if (k == N && p.P <= kSortMax) return p;
+  size_t o = 0;
+  const auto take = [&o](size_t bytes) {
+    const size_t at = o;
+    o += (bytes + 255) / 256 * 256;
+    return at;
+  };
+  const size_t rows = static_cast<size_t>(R);
+  p.st = take(rows * sizeof(SelRow<typename S::Key>));
+  p.hist = take(rows * kBins * sizeof(unsigned));
+  p.cnt = take(rows * 2 * sizeof(int));
+  p.bnd = take(rows * p.cap * sizeof(typename S::Pair));
+  p.big = take(p.P > kSortMax ? rows * p.P * sizeof(typename S::Pair) : 0);
+  p.bytes = o;
+  return p;
+}
+
+// Splits of N neighbours for the counting and emission passes: about
+// kSelBlocksPerSm blocks an SM in all, each split at most kMaxSelChunk
+// neighbours and, where more would be wanted, at least kMinSelChunk; 0 on
+// a device query failure.
+int sel_splits(int R, int N, int* chunk) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  const int row_blocks = (R + kCountRows - 1) / kCountRows;
+  const int want = (kSelBlocksPerSm * sms + row_blocks - 1) / row_blocks;
+  const int splits = std::max({1, (N + kMaxSelChunk - 1) / kMaxSelChunk,
+                               std::min(want, N / kMinSelChunk)});
+  *chunk = split_chunk(N, splits);
+  return (N + *chunk - 1) / *chunk;
+}
+
+// Each row's state at the start: no digit fixed, all N pairs share the
+// empty prefix (done at once where k = N, or N fits the boundary buffer);
+// its histogram and counts zeroed.
+template <typename K>
+__global__ void sel_init(int R, int N, int k, int cap, SelRow<K>* st,
+                         unsigned* hist, int* cnt) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t q0 = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  for (size_t q = q0; q < static_cast<size_t>(R) * kBins; q += stride)
+    hist[q] = 0;
+  for (size_t r = q0; r < static_cast<size_t>(R); r += stride) {
+    st[r] = SelRow<K>{K(0), 0u, 0, 0, N,
+                      k == N ? kTakeAll : N <= cap ? kToBoundary : kCounting};
+    cnt[2 * r] = cnt[2 * r + 1] = 0;
+  }
+}
+
+// One counting pass: each counting row's histogram of digit `level` (the
+// key's 8 bits from the top, then the index's) over the pairs of its
+// prefix, in the neighbours [split * chunk, + chunk).  A block holds
+// kCountRows rows, kCountRT a lane (lane l of every warp rows l, l + 32,
+// ...), and its four warps take a quarter of each staged tile each,
+// scored as nnk_scan_big scores (the same staged tile, the same function,
+// the same bits; one load of a neighbour serves the lane's rows); a pair
+// outside its row's prefix bounds (sel_bounds) costs its score and two
+// compares, a pair inside forms its key and digit and adds one to the
+// row's counters in shared memory (two 16-bit counts a word), which the
+// block adds to the row's global histogram after the split.  The
+// counters of kCountRows rows take 33 KB, so several blocks share an SM.
+// ByIndex: the digit is the index's (the key fixed); else the key's, and
+// the index is not compared.  Blocks whose rows are all done leave at once.
+template <typename T, int D, bool ByIndex>
+__global__ void __launch_bounds__(kThreads)
+sel_count(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
+          int N, int chunk, int level, int ibits,
+          const SelRow<typename Sel<T>::Key>* __restrict__ st,
+          unsigned* __restrict__ ghist) {
+  using S = Sel<T>;
+  using K = typename S::Key;
+  constexpr int kd = sizeof(K);
+  constexpr int kWarps = kThreads / 32;
+  __shared__ Tile<T, D> tl;
+  extern __shared__ unsigned hist[];  // kCountRows * kHistStride
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int row[kCountRT];
+  bool live[kCountRT];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < kCountRT; ++r) {
+    row[r] = blockIdx.x * kCountRows + lane + 32 * r;
+    live[r] = row[r] < R && st[row[r]].mode == kCounting;
+    any |= live[r];
+  }
+  if (!__syncthreads_or(any)) return;
+  for (int w = threadIdx.x; w < kCountRows * kHistStride; w += kThreads)
+    hist[w] = 0u;
+  T a[kCountRT][D];
+  SelBounds<T> bd[kCountRT];
+#pragma unroll
+  for (int r = 0; r < kCountRT; ++r) {
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      a[r][c] = live[r] ? ref[static_cast<size_t>(row[r]) * D + c] : T(0);
+    // a row that does not count keeps bounds no score meets
+    bd[r] = live[r] ? sel_bounds<T, K>(st[row[r]].pk, st[row[r]].pj, level,
+                                       ibits)
+                    : SelBounds<T>{inf<T>(), -inf<T>(), 1u, 0u};
+  }
+  const int sh = ByIndex ? ibits - 8 * (level - kd + 1)
+                        : 8 * (kd - 1 - level);
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(N, j_begin + chunk);
+  for (int t0 = j_begin; t0 < j_end; t0 += tile_len<T>()) {
+    const int n = min(tile_len<T>(), j_end - t0);
+    const int n_pad = (n + 7) / 8 * 8;
+    __syncthreads();  // the previous tile has been read
+    stage<T, D>(nbr, t0, n, n_pad, tl);
+    __syncthreads();
+    if (!any) continue;
+    // this warp's quarter of the tile, in batches of 8
+    const int q = (n_pad / 8 + kWarps - 1) / kWarps * 8;
+    const int s_end = min(n_pad, (warp + 1) * q);
+    for (int s0 = warp * q; s0 < s_end; s0 += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int s = s0 + u;
+        const Nbr<T> b = load<T, D>(tl, s);
+        const unsigned j = t0 + s;
+#pragma unroll
+        for (int r = 0; r < kCountRT; ++r) {
+          const T sc = score<T, D>(a[r], b);
+          if (s < n && sc >= bd[r].lo && sc <= bd[r].hi &&
+              (!ByIndex || (j >= bd[r].jlo && j <= bd[r].jhi))) {
+            const unsigned d = (ByIndex ? j >> sh
+                                        : static_cast<unsigned>(
+                                              S::key(sc) >> sh)) &
+                               (kBins - 1);
+            atomicAdd(&hist[(lane + 32 * r) * kHistStride + (d >> 1)],
+                      1u << ((d & 1u) * 16));
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kCountRT; ++r) {
+    if (!live[r]) continue;
+    const unsigned* h = hist + (lane + 32 * r) * kHistStride;
+    unsigned* g = ghist + static_cast<size_t>(row[r]) * kBins;
+    for (int w = warp; w < kBins / 2; w += kWarps) {
+      const unsigned v = h[w];
+      if (v & 0xffffu) atomicAdd(&g[2 * w], v & 0xffffu);
+      if (v >> 16) atomicAdd(&g[2 * w + 1], v >> 16);
+    }
+  }
+}
+
+// After counting pass `level`: each counting row's digit, the bin where
+// its k-th pair falls (a warp a row, 8 bins a lane, a scan over lanes),
+// fixed into its prefix; the row is done where that bin's pairs complete
+// its k, or fit `cap`.  The histogram is zeroed for the next pass.  Counts
+// are integers, the same in any order of the atomics: the threshold does
+// not depend on the blocks' order.
+template <typename K>
+__global__ void sel_pick(int R, int k, int level, int ibits, int cap,
+                         SelRow<K>* st, unsigned* ghist) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= R) return;
+  SelRow<K> r = st[row];
+  if (r.mode != kCounting) return;
+  unsigned* g = ghist + static_cast<size_t>(row) * kBins;
+  unsigned c[8], sum = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    c[e] = g[lane * 8 + e];
+    sum += c[e];
+  }
+  unsigned inc = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned v = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += v;
+  }
+  const unsigned need = static_cast<unsigned>(k - r.below);
+  const unsigned excl = inc - sum;
+  const unsigned owner =
+      __ballot_sync(0xffffffffu, excl < need && need <= inc);
+  if (!owner) __trap();  // the counts do not hold the row's k-th pair
+  const int o = __ffs(owner) - 1;
+  unsigned d = 0, before = 0, cnt = 0, acc = excl;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (lane == o && !cnt && acc + c[e] >= need) {
+      d = lane * 8 + e;
+      before = acc;
+      cnt = c[e];
+    }
+    acc += c[e];
+  }
+  d = __shfl_sync(0xffffffffu, d, o);
+  before = __shfl_sync(0xffffffffu, before, o);
+  cnt = __shfl_sync(0xffffffffu, cnt, o);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) g[lane * 8 + e] = 0u;
+  if (lane == 0) {
+    constexpr int kd = sizeof(K);
+    if (level < kd)
+      r.pk |= static_cast<K>(d) << (8 * (kd - 1 - level));
+    else
+      r.pj |= d << (ibits - 8 * (level - kd + 1));
+    r.level = level + 1;
+    r.below += static_cast<int>(before);
+    r.count = static_cast<int>(cnt);
+    r.mode = r.below + r.count == k ? kTakeAll
+             : r.count <= cap       ? kToBoundary
+                                    : kCounting;
+    st[row] = r;
+  }
+}
+
+// The emission: every pair before its row's prefix, and those that share
+// it where they complete the k, into the row's slots of the outputs (as
+// pairs, Sel<T>::put); the others that share it into the row's boundary
+// buffer.  A pair is held to the prefix's bounds (sel_bounds), so most
+// cost their score and two compares.  Slots come from atomics, in no
+// order: the sort orders them.
+template <typename T, int D>
+__global__ void __launch_bounds__(kSelRows)
+sel_emit(const T* __restrict__ ref, const T* __restrict__ nbr, int R, int N,
+         int k, int chunk, int ibits, int cap,
+         const SelRow<typename Sel<T>::Key>* __restrict__ st,
+         int* __restrict__ cnt, typename Sel<T>::Pair* __restrict__ bnd,
+         T* __restrict__ d2, long long* __restrict__ idx) {
+  using S = Sel<T>;
+  using K = typename S::Key;
+  __shared__ Tile<T, D> tl;
+  const int row = blockIdx.x * kSelRows + threadIdx.x;
+  const bool live = row < R;
+  const SelRow<K> r = live ? st[row] : SelRow<K>{};
+  T a[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c)
+    a[c] = live ? ref[static_cast<size_t>(row) * D + c] : T(0);
+  const SelBounds<T> bd = sel_bounds<T, K>(r.pk, r.pj, r.level, ibits);
+  const bool take = r.mode == kTakeAll;
+  int* oc = cnt + 2 * static_cast<size_t>(live ? row : 0);
+  const size_t out0 = static_cast<size_t>(live ? row : 0) * k;
+  typename S::Pair* b = bnd + static_cast<size_t>(live ? row : 0) * cap;
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(N, j_begin + chunk);
+  for (int t0 = j_begin; t0 < j_end; t0 += tile_len<T>()) {
+    const int n = min(tile_len<T>(), j_end - t0);
+    const int n_pad = (n + 7) / 8 * 8;
+    __syncthreads();  // the previous tile has been read
+    stage<T, D>(nbr, t0, n, n_pad, tl);
+    __syncthreads();
+    if (!live) continue;
+    for (int s0 = 0; s0 < n_pad; s0 += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int s = s0 + u;
+        const T sc = score<T, D>(a, load<T, D>(tl, s));
+        const unsigned j = t0 + s;
+        // before the prefix: a lower score, or the prefix's score (index
+        // digits fixed: lo = hi) at a lower index
+        if (s < n && sc <= bd.hi && (sc < bd.lo || j <= bd.jhi)) {
+          const bool before = sc < bd.lo || j < bd.jlo;
+          if (before || take)
+            S::put(d2, idx, out0 + atomicAdd(oc, 1), S::pair(S::key(sc), j));
+          else
+            b[atomicAdd(oc + 1, 1)] = S::pair(S::key(sc), j);
+        }
+      }
+    }
+  }
+}
+
+// ---- the sort: a bitonic network a block, pairs in registers --------------
+
+// A block sorts Pb = kSortE * blockDim.x pairs, element i at shared-memory
+// slot spos(i) (one padding slot every 16: no bank conflict in the
+// layouts below).  Thread t holds kSortE elements, in layout b: b = 0, the
+// blocked layout, i = t * kSortE + e; b >= 3, the elements whose bits
+// [b, b + 3) are e and whose other bits are t's.  A step of stride 2^q
+// runs in registers in the layout that holds bit q; the layouts change
+// through shared memory, one barrier each: ~log2(Pb) / 3 + 1 a merge.
+__device__ __forceinline__ int spos(int i) { return i + (i >> 4); }
+
+__device__ __forceinline__ int lay_index(int t, int e, int b) {
+  return b == 0 ? t * kSortE + e
+                : (t & ((1 << b) - 1)) | (e << b) | ((t >> b) << (b + 3));
+}
+
+template <typename S, typename P>
+__device__ __forceinline__ void lay_put(const P (&x)[kSortE], P* sh, int b) {
+#pragma unroll
+  for (int e = 0; e < kSortE; ++e)
+    sh[spos(lay_index(threadIdx.x, e, b))] = x[e];
+}
+
+template <typename S, typename P>
+__device__ __forceinline__ void lay_get(P (&x)[kSortE], const P* sh, int b) {
+#pragma unroll
+  for (int e = 0; e < kSortE; ++e)
+    x[e] = sh[spos(lay_index(threadIdx.x, e, b))];
+}
+
+// Elements e and e + 2^q of layout b (i the first's index from `base`),
+// in order: ascending where ((base + i) & s) == 0, as the bitonic network
+// of the whole row sorts them at size s.
+template <typename S, typename P>
+__device__ __forceinline__ void cmpx(P (&x)[kSortE], int e, int q, int b,
+                                     long long base, long long s) {
+  P& lo = x[e];
+  P& hi = x[e | (1 << q)];
+  const bool up = ((base + lay_index(threadIdx.x, e, b)) & s) == 0;
+  if (up ? S::less(hi, lo) : S::less(lo, hi)) {
+    const P t = lo;
+    lo = hi;
+    hi = t;
+  }
+}
+
+// The bitonic network's sizes s_from..s_to (powers of 2) over the block's
+// Pb elements, element i being element base + i of its row; each size's
+// strides from min(s, Pb) / 2 down to 1.  x holds the thread's elements
+// in the blocked layout on entry and on return; sh is Pb + Pb / 16 slots.
+template <typename S, typename P>
+__device__ void bitonic(P (&x)[kSortE], P* sh, long long base,
+                        long long s_from, long long s_to) {
+  const long long half = static_cast<long long>(kSortE) * blockDim.x / 2;
+  int lay = 0;
+  for (long long s = s_from; s <= s_to; s <<= 1) {
+    int cur = 63 - __clzll(min(s / 2, half));
+    while (cur >= 3) {
+      const int b = max(3, cur - 2);
+      if (lay != b) {
+        lay_put<S>(x, sh, lay);
+        __syncthreads();
+        lay_get<S>(x, sh, b);
+        lay = b;
+      }
+#pragma unroll
+      for (int q = 2; q >= 0; --q) {
+        if (q > cur - b) continue;
+#pragma unroll
+        for (int e = 0; e < kSortE; ++e)
+          if (!(e & (1 << q))) cmpx<S>(x, e, q, b, base, s);
+      }
+      cur = b - 1;
+    }
+    if (lay != 0) {
+      lay_put<S>(x, sh, lay);
+      __syncthreads();
+      lay_get<S>(x, sh, 0);
+      lay = 0;
+    }
+#pragma unroll
+    for (int q = 2; q >= 0; --q) {
+      if (q > cur) continue;
+#pragma unroll
+      for (int e = 0; e < kSortE; ++e)
+        if (!(e & (1 << q))) cmpx<S>(x, e, q, 0, base, s);
+    }
+  }
+}
+
+// The block's sorted pairs [base, base + Pb) of row `row` (in sh) written
+// where they are among the row's first k: d^2 = s + |a|^2 clamped at 0,
+// and the index.
+template <typename T>
+__device__ void sel_finish(const typename Sel<T>::Pair* sh, const T* ref,
+                           int dim, int row, int k, long long base, T* d2,
+                           long long* idx) {
+  using S = Sel<T>;
+  const T an = ref_sqnorm<T, 0>(ref, row, dim);
+  const int Pb = kSortE * blockDim.x;
+  const size_t out = static_cast<size_t>(row) * k;
+  for (int i = threadIdx.x; i < Pb && base + i < k; i += blockDim.x) {
+    const typename S::Pair p = sh[spos(i)];
+    d2[out + base + i] = max_of(add_rn(S::score(p), an), T(0));
+    idx[out + base + i] = S::index(p);
+  }
+}
+
+template <typename P>
+size_t sort_smem(long long Pb) {
+  return static_cast<size_t>(Pb + Pb / 16) * sizeof(P);
+}
+
+// k = N within one block (N <= kSortMax): a block a row scores its N
+// pairs itself, a staged tile at a time (stage and score: the scans'
+// bits), sorts them and writes them.  No select pass, no scratch.
+template <typename T, int D>
+__global__ void __launch_bounds__(kSortMax / kSortE)
+sel_sort_all(const T* __restrict__ ref, const T* __restrict__ nbr, int N,
+             T* __restrict__ d2, long long* __restrict__ idx) {
+  using S = Sel<T>;
+  using P = typename S::Pair;
+  __shared__ Tile<T, D> tl;
+  extern __shared__ __align__(16) unsigned char sel_sort_smem[];
+  P* sh = reinterpret_cast<P*>(sel_sort_smem);
+  const int row = blockIdx.x;
+  const int Pb = kSortE * blockDim.x;
+  T a[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) a[c] = ref[static_cast<size_t>(row) * D + c];
+  for (int i = threadIdx.x; i < Pb; i += blockDim.x)
+    if (i >= N) sh[spos(i)] = S::last();
+  for (int t0 = 0; t0 < N; t0 += tile_len<T>()) {
+    const int n = min(tile_len<T>(), N - t0);
+    __syncthreads();  // the previous tile has been read
+    stage<T, D>(nbr, t0, n, n, tl, blockDim.x);
+    __syncthreads();
+    for (int s = threadIdx.x; s < n; s += blockDim.x)
+      sh[spos(t0 + s)] = S::pair(S::key(score<T, D>(a, load<T, D>(tl, s))),
+                                 static_cast<unsigned>(t0 + s));
+  }
+  __syncthreads();
+  P x[kSortE];
+  lay_get<S>(x, sh, 0);
+  bitonic<S>(x, sh, 0, 2, Pb);
+  lay_put<S>(x, sh, 0);
+  __syncthreads();
+  sel_finish<T>(sh, ref, D, row, N, 0, d2, idx);
+}
+
+// The pair at position i of row `row`'s list after the emission: its
+// `n_out` pairs in the outputs' slots, then its boundary pairs, then
+// padding that sorts last.
+template <typename T>
+__device__ __forceinline__ typename Sel<T>::Pair sel_item(
+    long long i, int n_out, int n_b, const T* d2, const long long* idx,
+    const typename Sel<T>::Pair* bnd, int row, int k, int cap) {
+  using S = Sel<T>;
+  return i < n_out ? S::get(d2, idx, static_cast<size_t>(row) * k + i)
+         : i < n_out + n_b
+             ? bnd[static_cast<size_t>(row) * cap + (i - n_out)]
+             : S::last();
+}
+
+// A block of Pb pairs of row blockIdx.x, pairs [base, base + Pb) with
+// base = blockIdx.y * Pb: read from the emission's slots and boundary
+// buffer (from_big = 0, one block a row) or the row's sort buffer; the
+// network's sizes s_from..s_to; then the row's first k written as
+// results (finish) or the pairs put back into the sort buffer.
+template <typename T>
+__global__ void __launch_bounds__(kSortMax / kSortE)
+sel_sort(const T* __restrict__ ref, int dim, int k, int cap, long long P,
+         const SelRow<typename Sel<T>::Key>* __restrict__ st,
+         const int* __restrict__ cnt,
+         const typename Sel<T>::Pair* __restrict__ bnd,
+         typename Sel<T>::Pair* __restrict__ big, T* __restrict__ d2,
+         long long* __restrict__ idx, long long s_from, long long s_to,
+         int from_big, int finish) {
+  using S = Sel<T>;
+  using Pr = typename S::Pair;
+  extern __shared__ __align__(16) unsigned char sel_sort_smem[];
+  Pr* sh = reinterpret_cast<Pr*>(sel_sort_smem);
+  const int row = blockIdx.x;
+  const int Pb = kSortE * blockDim.x;
+  const long long base = static_cast<long long>(blockIdx.y) * Pb;
+  const size_t at = static_cast<size_t>(row) * P + base;
+  if (from_big) {
+    for (int i = threadIdx.x; i < Pb; i += blockDim.x)
+      sh[spos(i)] = big[at + i];
+  } else {
+    const int n_out = cnt[2 * row];
+    const int n_b = st[row].mode == kToBoundary ? cnt[2 * row + 1] : 0;
+    for (int i = threadIdx.x; i < Pb; i += blockDim.x)
+      sh[spos(i)] = sel_item<T>(i, n_out, n_b, d2, idx, bnd, row, k, cap);
+  }
+  __syncthreads();
+  Pr x[kSortE];
+  lay_get<S>(x, sh, 0);
+  bitonic<S>(x, sh, base, s_from, s_to);
+  lay_put<S>(x, sh, 0);
+  __syncthreads();
+  if (finish)
+    sel_finish<T>(sh, ref, dim, row, k, base, d2, idx);
+  else
+    for (int i = threadIdx.x; i < Pb; i += blockDim.x)
+      big[at + i] = sh[spos(i)];
+}
+
+// Past kSortMax: each row's list copied into its sort buffer of P pairs,
+// padded with pairs that sort last.
+template <typename T>
+__global__ void sel_gather(int R, int k, int cap, long long P,
+                           const SelRow<typename Sel<T>::Key>* st,
+                           const int* cnt, const typename Sel<T>::Pair* bnd,
+                           typename Sel<T>::Pair* big, const T* d2,
+                           const long long* idx) {
+  const size_t total = static_cast<size_t>(R) * P;
+  for (size_t q = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       q < total; q += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int row = static_cast<int>(q / P);
+    const int n_out = cnt[2 * row];
+    const int n_b = st[row].mode == kToBoundary ? cnt[2 * row + 1] : 0;
+    big[q] = sel_item<T>(static_cast<long long>(q % P), n_out, n_b, d2, idx,
+                         bnd, row, k, cap);
+  }
+}
+
+// One step of the network past a block's pairs: stride j >= kSortMax at
+// size s, in the rows' sort buffers.
+template <typename T>
+__global__ void sel_step(typename Sel<T>::Pair* big, int R, long long P,
+                         long long s, long long j) {
+  using S = Sel<T>;
+  const long long half = P / 2, total = static_cast<long long>(R) * half;
+  for (long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       q < total; q += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = q % half;
+    const long long lo = i / j * 2 * j + i % j;
+    typename S::Pair* b = big + q / half * P;
+    const typename S::Pair x = b[lo], y = b[lo + j];
+    if ((lo & s) == 0 ? S::less(y, x) : S::less(x, y)) {
+      b[lo] = y;
+      b[lo + j] = x;
+    }
+  }
+}
+
+// k >= kSelectK or k = N: select, then sort.  The counting passes fix the
+// (key, index) threshold of each row digit by digit until the pairs in
+// its bin complete its k or fit its boundary buffer; the emission writes
+// the row's pairs before it, and the bin's, once; one block a row sorts
+// them (past kSortMax, blocks of the row's tiles and network steps in
+// global memory).  k = N within a block: the sort alone, scoring its own
+// pairs.
+template <typename T, int D>
+cudaError_t launch_nnk_select(const T* ref, const T* nbr, int R, int N,
+                              int k, void* scratch, T* d2, long long* idx,
+                              cudaStream_t stream) {
+  using S = Sel<T>;
+  using K = typename S::Key;
+  using Pr = typename S::Pair;
+  const SelPlan p = sel_plan<T>(R, N, k);
+  cudaError_t e;
+  if (k == N && p.P <= kSortMax) {
+    const size_t smem = sort_smem<Pr>(p.P);
+    e = cudaFuncSetAttribute(sel_sort_all<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    sel_sort_all<T, D><<<R, static_cast<int>(p.P / kSortE), smem, stream>>>(
+        ref, nbr, N, d2, idx);
+    return cudaGetLastError();
+  }
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  auto* st = reinterpret_cast<SelRow<K>*>(base + p.st);
+  auto* hist = reinterpret_cast<unsigned*>(base + p.hist);
+  auto* cnt = reinterpret_cast<int*>(base + p.cnt);
+  auto* bnd = reinterpret_cast<Pr*>(base + p.bnd);
+  auto* big = reinterpret_cast<Pr*>(base + p.big);
+  int chunk = 0;
+  const int splits = sel_splits(R, N, &chunk);
+  if (splits < 1) return cudaErrorInvalidValue;
+  const dim3 grid((R + kSelRows - 1) / kSelRows, splits);
+  const dim3 count_grid((R + kCountRows - 1) / kCountRows, splits);
+  const int fill = static_cast<int>(std::min<size_t>(
+      65535, (static_cast<size_t>(R) * kBins + 255) / 256));
+  sel_init<K><<<fill, 256, 0, stream>>>(R, N, k, p.cap, st, hist, cnt);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const size_t hist_smem = sizeof(unsigned) * kCountRows * kHistStride;
+  for (auto* count : {sel_count<T, D, false>, sel_count<T, D, true>}) {
+    e = cudaFuncSetAttribute(count,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(hist_smem));
+    if (e != cudaSuccess) return e;
+  }
+  for (int level = 0; level < p.levels; ++level) {
+    auto* count = level < static_cast<int>(sizeof(K))
+                      ? sel_count<T, D, false>
+                      : sel_count<T, D, true>;
+    count<<<count_grid, kThreads, hist_smem, stream>>>(
+        ref, nbr, R, N, chunk, level, p.ibits, st, hist);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    sel_pick<K><<<(R + 7) / 8, 256, 0, stream>>>(R, k, level, p.ibits,
+                                                 p.cap, st, hist);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  sel_emit<T, D><<<grid, kSelRows, 0, stream>>>(
+      ref, nbr, R, N, k, chunk, p.ibits, p.cap, st, cnt, bnd, d2, idx);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long Pb = std::min<long long>(p.P, kSortMax);
+  const size_t smem = sort_smem<Pr>(Pb);
+  e = cudaFuncSetAttribute(sel_sort<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int threads = static_cast<int>(Pb / kSortE);
+  if (p.P <= kSortMax) {
+    sel_sort<T><<<dim3(R, 1), threads, smem, stream>>>(
+        ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, 2, p.P, 0, 1);
+    return cudaGetLastError();
+  }
+  const dim3 tiles(R, static_cast<unsigned>(p.P / kSortMax));
+  const int blocks = static_cast<int>(std::min<long long>(
+      65535, (static_cast<long long>(R) * p.P / 2 + 255) / 256));
+  sel_gather<T><<<blocks, 256, 0, stream>>>(R, k, p.cap, p.P, st, cnt, bnd,
+                                            big, d2, idx);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  sel_sort<T><<<tiles, threads, smem, stream>>>(
+      ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, 2, kSortMax, 1, 0);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  for (long long s = 2LL * kSortMax; s <= p.P; s <<= 1) {
+    for (long long j = s / 2; j >= kSortMax; j >>= 1) {
+      sel_step<T><<<blocks, 256, 0, stream>>>(big, R, p.P, s, j);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    sel_sort<T><<<tiles, threads, smem, stream>>>(
+        ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, s, s, 1,
+        s == p.P);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// Whether nnk's register-tiled family (D <= 8) takes the select path.
+bool takes_select(int N, int k, bool f64) {
+  return k >= (f64 ? kSelectK64 : kSelectK) || k == N;
+}
+
 template <typename T, int D>
 cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
-                       int splits, T* part_s, int* part_i, T* d2,
-                       long long* idx, cudaStream_t stream) {
+                       int splits, void* scratch, T* part_s, int* part_i,
+                       T* d2, long long* idx, cudaStream_t stream) {
+  if (takes_select(N, k, sizeof(T) == sizeof(double)))
+    return launch_nnk_select<T, D>(ref, nbr, R, N, k, scratch, d2, idx,
+                                   stream);
   if (k > kMaxK)
     return launch_nnk_big<T, D>(ref, nbr, R, N, k, splits, part_s, part_i,
                                 d2, idx, stream);
@@ -1149,13 +2008,14 @@ cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
         static_cast<const T*>(ref), static_cast<const T*>(nbr), R, N, D, k,
         splits, static_cast<float*>(scratch), static_cast<T*>(part_s), part_i,
         static_cast<T*>(d2), idx, stream);
-  cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, int, T*,
-                                 int*, T*, long long*, cudaStream_t) = {
+  cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, int,
+                                 void*, T*, int*, T*, long long*,
+                                 cudaStream_t) = {
       launch_nnk<T, 1>, launch_nnk<T, 2>, launch_nnk<T, 3>, launch_nnk<T, 4>,
       launch_nnk<T, 5>, launch_nnk<T, 6>, launch_nnk<T, 7>, launch_nnk<T, 8>};
   return launch[D - 1](static_cast<const T*>(ref), static_cast<const T*>(nbr),
-                       R, N, k, splits, static_cast<T*>(part_s), part_i,
-                       static_cast<T*>(d2), idx, stream);
+                       R, N, k, splits, scratch, static_cast<T*>(part_s),
+                       part_i, static_cast<T*>(d2), idx, stream);
 }
 
 // ---- D > 8, float64: the SIMT wide scans ---------------------------------
@@ -2232,10 +3092,12 @@ int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
 // least 2048 neighbours each; the float32 wide scan at whole waves; at
 // k > 16 at most 32, within kPartBudget's bytes of lists, each split at
 // least k neighbours.  ppt_nnk's part_s / part_i hold splits * k * R
-// values of the clouds' type and as many ints.  Returns 0 on invalid
-// sizes (1 <= k <= N) or a device query failure.
+// values of the clouds' type and as many ints; on the select path
+// (ppt_nnk_select_scratch) 1 and no lists.  Returns 0 on invalid sizes
+// (1 <= k <= N) or a device query failure.
 int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
   if (D < 1 || R <= 0 || N <= 0 || k < 1 || k > N) return 0;
+  if (D <= kMaxDim && takes_select(N, k, f64)) return 1;
   if (D > kMaxDim && !f64) return nnk_tc_splits(R, N, D, k);
   if (k > kMaxK) {
     const size_t scalar = f64 ? sizeof(double) : sizeof(float);
@@ -2256,13 +3118,42 @@ int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
   return splits_for(R, N, rows, kNnkBlocksPerSm);
 }
 
+// The least k from which nnk's register-tiled family (D <= 8) takes the
+// select path below k = N: kSelectK64 if f64, else kSelectK.
+int ppt_nnk_select_k(int f64) { return f64 ? kSelectK64 : kSelectK; }
+
+// The select path's scratch for R rows of D coordinates, N neighbours and
+// k (float64 if f64, else float32): *bytes = -1 where nnk does not take
+// the path (D > 8, or k < N below kSelectK, kSelectK64 in float64), else
+// its bytes, the scratch ppt_nnk then reads: 0 for k = N up to 8192 pairs
+// a row; else per row a state (24 bytes, 32 in float64), a histogram of
+// 256 counts (1 KB), two counts, a boundary buffer of min(512, P - k + 1)
+// pairs (8 bytes a pair, 16 in float64), and past 8192 a sort buffer of P
+// pairs, P the least power of 2 >= k - 1 + 256 (>= k at k = N), each part
+// rounded up to 256 bytes.  k = 4096 at R = 100,000 in float32: 0.52 GB
+// beside the outputs' 4.9 GB.  Returns cudaErrorInvalidValue on invalid
+// sizes.
+int ppt_nnk_select_scratch(int R, int N, int D, int k, int f64,
+                           long long* bytes) {
+  *bytes = -1;
+  if (R <= 0 || N <= 0 || D < 1 || k < 1 || k > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= kMaxDim && takes_select(N, k, f64))
+    *bytes = static_cast<long long>(
+        f64 ? sel_plan<double>(R, N, k).bytes
+            : sel_plan<float>(R, N, k).bytes);
+  return 0;
+}
+
 // The k nearest of N neighbours (nbr [N, D]) of each of R reference rows
 // (ref [R, D]), both row-major float64 if f64, else float32: d2 [R, k] of
 // the same type, ascending by (d^2, index), clamped at 0, and idx [R, k]
 // int64, on `stream`, through `splits` (ppt_nnk_splits) partial lists in
 // part_s / part_i (splits * k * R each; [splits, k, R] up to k = 16,
 // [splits, R, k] past it): the register-tiled scan for D <= 8, the wide
-// scan past it (float32 through `scratch`, as ppt_nn1).  Returns
+// scan past it (float32 through `scratch`, as ppt_nn1); for D <= 8 at
+// k >= kSelectK (kSelectK64) or k = N the select path through `scratch`
+// (ppt_nnk_select_scratch's bytes; part_s / part_i unused).  Returns
 // cudaGetLastError() (0 on success); invalid sizes (R >= 1, 1 <= k <= N,
 // D >= 1, 1 <= splits <= N) or a missing scratch return
 // cudaErrorInvalidValue without launching.

@@ -6,10 +6,12 @@ point-cloud filters: ``cart2homo``, ``homo2cart``, ``point2pixel``,
 Counterpart of ``pypose_tpu/function/geometry.py``.  ``knn``
 keeps the JAX package's routes: the dense distance matrix up to 64 Mi
 pairs, above it (or with an explicit ``chunk``) :func:`_knn_tiled`, which
-sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel and
-2 <= k <= 16 to the ``nnk`` kernel (in place of the JAX package's TPU
-test; float32 or float64 clouds of at most 8 coordinates, others raise)
-and takes the chunked Gram form everywhere else.
+sends k = 1 (not ``largest``) on CUDA to the ``nn1`` kernel and every
+other k <= N to the ``nnk`` kernel (in place of the JAX package's TPU
+test; float32 or float64 clouds of any number of coordinates, other
+dtypes raise) and takes the chunked Gram form everywhere else.  k above
+the number of neighbours raises ``ValueError`` on every path, as
+``jax.lax.top_k`` does.
 Indices are int64 (torch's index type), where the JAX package returns
 int32.  Ties go to the lower index, as ``jax.lax.top_k`` gives them,
 through stable sorts on the CPU and the kernels' strict comparisons on
@@ -107,7 +109,8 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
 
     Two-dimensional clouds with ``ord=2`` above 64 Mi pairs, or with an
     explicit ``chunk``, go through :func:`_knn_tiled`; everything else
-    forms the dense ``(*, R, N)`` distance matrix.  On CUDA that route
+    forms the dense ``(*, R, N)`` distance matrix; k above N raises
+    ``ValueError`` before either runs.  On CUDA the first route
     takes the ``nn1`` kernel for k = 1 and the ``nnk`` kernel for every
     other ``k <= N`` (not ``largest``), which take float32 and float64
     clouds of any number of coordinates and raise for other dtypes, and
@@ -122,6 +125,7 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
         tensor([[1, 2]])
     """
     R, N = ref.shape[-2], nbr.shape[-2]
+    _check_k(k, N)
     flat = ref.ndim == 2 and nbr.ndim == 2
     auto_tiled = chunk is None and ord == 2 and flat and R * N > _DENSE_PAIRS
     if (chunk is not None or auto_tiled) and ord == 2 and flat:
@@ -133,6 +137,14 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
     values, indices = torch.sort(dist, dim=-1, descending=largest,
                                  stable=True)
     return KNNResult(values[..., :k], indices[..., :k])
+
+
+def _check_k(k, N):
+    """k above the N points to choose from raises, before any kernel or
+    sort runs, as ``jax.lax.top_k`` (and ``torch.topk``) refuse it."""
+    if k > N:
+        raise ValueError(f'k={k} must be no larger than the number of '
+                         f'neighbors N={N}')
 
 
 def _knn_tiled(ref, nbr, k, largest, chunk):
@@ -341,7 +353,8 @@ def knn_filter(points, k, pdim=None, radius=None, ord=2):
     (itself included), dropping first, if ``radius`` is given, the points
     with fewer than k neighbours within it.  The dense distance matrix and
     a top-(k + 1) of its negation, as the JAX package computes it (not
-    :func:`knn`).
+    :func:`knn`); k + 1 above the points left raises ``ValueError``, as
+    ``jax.lax.top_k`` does.
 
     Ref: pypose_tpu/function/geometry.py:342.
     """
@@ -357,5 +370,6 @@ def knn_filter(points, k, pdim=None, radius=None, ord=2):
     if radius is not None:
         rmask = torch.sum(dist <= radius, dim=-1) - 1 >= k
         points, dist = points[rmask], dist[rmask][:, rmask]
+    _check_k(k + 1, dist.shape[-1])
     _, idx = torch.topk(-dist, k + 1, dim=-1)
     return points[idx].mean(dim=-2)

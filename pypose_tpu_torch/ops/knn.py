@@ -27,7 +27,13 @@ lives in registers (2, 4, 8 or 16 entries); past 16 a row's candidates
 gather in a buffer in shared memory (32 a row in the register-tiled
 scan, 64 in the wide scans), which its warp merges into the row's sorted
 list, always in global memory (the header of ``csrc/knn.cu`` says
-why).  In float32 the wide
+why).  Up to 8 coordinates, from a crossover k on (:func:`select_k`,
+measured; ``csrc/knn.cu`` holds it) and at k = N,
+the kernel instead selects, then sorts: counting passes fix each row's
+k-th (key, index) pair 8 bits at a time, one pass writes the pairs
+before it, and a block a row sorts them (:func:`_select_rows` emulates
+the cut on the CPU; nothing on the card's path runs it); both ways
+return the same bits.  In float32 the wide
 scans run on the tensor cores in three-pass TF32 (``csrc/knn.cu``): each
 coordinate is split once a call into ``hi = tf32(x)`` and
 ``lo = tf32(x - hi)``, both rounded to nearest (:func:`_tf32_split`), and
@@ -68,6 +74,9 @@ def _kernel_lib():
         'ppt_knn_scratch': [_INT] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
         'ppt_nn1': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 6,
         'ppt_nnk_splits': [_INT] * 5,
+        'ppt_nnk_select_k': [_INT],
+        'ppt_nnk_select_scratch': [_INT] * 5
+                                  + [ctypes.POINTER(ctypes.c_longlong)],
         'ppt_nnk': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 6})
 
 
@@ -200,6 +209,101 @@ def _nnk_tf32(ref, nbr, k, passes=3):
     return d2, i[:, :k].contiguous()
 
 
+def _select_scores(ref, nbr):
+    """[R, N] scores ``s = |b|^2 - 2 a.b`` in the register-tiled scans'
+    order (``|b|^2`` summed from the first coordinate, then ``a_c (-2 b_c)``
+    added from the first), each product and sum rounded once: the card
+    fuses them (FMA), which this CPU version does not."""
+    s = _sqnorm(nbr)[None, :].expand(ref.shape[0], -1)
+    for c in range(ref.shape[1]):
+        s = s + ref[:, None, c] * (-2.0 * nbr[None, :, c])
+    return s
+
+
+def _select_keys(s):
+    """The select path's key of each score (csrc/knn.cu:Sel<T>::key): its
+    bits as an order-preserving unsigned integer, every bit flipped where
+    s < 0 and the sign bit where s >= 0, after ``s + 0`` (which makes -0
+    +0: the (s, index) order holds them equal; +inf sorts last).  int64:
+    the 32-bit key of float32, or the 64-bit key's bits of float64."""
+    s = s + 0.0
+    if s.dtype == torch.float32:
+        u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    u = s.view(torch.int64)
+    return torch.where(u < 0, ~u, u ^ torch.iinfo(torch.int64).min)
+
+
+def _index_bits(N):
+    """Index bits the index digits read: N - 1's, rounded up to 8s
+    (csrc/knn.cu:index_bits)."""
+    b = 8
+    while b < 32 and (N - 1) >> b:
+        b += 8
+    return b
+
+
+def _select_rows(s, k, cap=0):
+    """The select path's selection on scores ``s`` [R, N], as csrc/knn.cu
+    runs it (nothing on the card's path runs this): each row's (key, index)
+    pairs are cut digit by digit, 8 bits at a time, the key's (4 digits in
+    float32, 8 in float64) then the index's (:func:`_index_bits`): a pass
+    counts the digit over the pairs that share the row's prefix and fixes
+    the bin where the row's k-th pair falls, until that bin's pairs
+    complete the k or number at most ``cap`` (the boundary buffer, whose
+    size on the card ``csrc/knn.cu:sel_plan`` sets; 0, the default, cuts
+    at the k-th pair exactly).  The pairs before the prefix, and the bin's, are then sorted by
+    (key, index) and the first k kept; k = N sorts every pair.  Returns
+    (s [R, k], idx [R, k] int64, passes): ``passes`` the counting passes
+    that ran."""
+    R, N = s.shape
+    if not 1 <= k <= N:
+        raise ValueError(f'k={k} > number of neighbors {N}')
+    key = _select_keys(s)
+    kd = 4 if s.dtype == torch.float32 else 8
+    ibits = _index_bits(N)
+    j = torch.arange(N).expand(R, N)
+    digits = ([(key >> (8 * (kd - 1 - d))) & 255 for d in range(kd)]
+              + [(j >> (ibits - 8 * (d + 1))) & 255
+                 for d in range(ibits // 8)])
+    rows = torch.arange(R)
+    below = torch.zeros(R, dtype=torch.int64)
+    in_bin = torch.ones((R, N), dtype=torch.bool)   # shares the prefix
+    before = torch.zeros((R, N), dtype=torch.bool)  # comes before it
+    done = torch.full((R,), k == N or N <= cap)
+    passes = 0
+    for dig in digits:
+        if bool(done.all()):
+            break
+        passes += 1
+        live = ~done
+        hist = torch.zeros((R, 256), dtype=torch.int64)
+        hist.scatter_add_(1, dig, (in_bin & live[:, None]).long())
+        cum = hist.cumsum(1)
+        need = k - below
+        pick = torch.argmax((cum >= need[:, None]).long(), dim=1)
+        count = hist[rows, pick]
+        below = torch.where(live, below + cum[rows, pick] - count, below)
+        before |= live[:, None] & in_bin & (dig < pick[:, None])
+        in_bin &= ~live[:, None] | (dig == pick[:, None])
+        done |= (below + count == k) | (count <= cap)
+    take = before | in_bin   # the emitted pairs: before, and the bin's
+    order_key = key if kd == 4 else key ^ torch.iinfo(torch.int64).min
+    order_key = torch.where(take, order_key, torch.iinfo(torch.int64).max)
+    # (key, index) order: indices ascend, then a stable sort by key
+    _, i = torch.sort(order_key, dim=1, stable=True)
+    i = i[:, :k].contiguous()
+    return s.gather(1, i), i, passes
+
+
+def _nnk_select(ref, nbr, k, cap=0):
+    """CPU emulation of nnk's select-then-sort path: :func:`_select_rows`
+    on :func:`_select_scores`, then ``d2 = s + |a|^2`` clamped at 0:
+    ``(d2 [R, k], idx [R, k] int64)``."""
+    v, i, _ = _select_rows(_select_scores(ref, nbr), k, cap)
+    return (v + _sqnorm(ref)[:, None]).clamp_min(0.0), i
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrapper
 # ---------------------------------------------------------------------------
@@ -280,9 +384,49 @@ def _launch_nn1(ref, nbr):
     return d2, idx
 
 
+def select_k(dtype):
+    """The least k from which :func:`nnk`'s register-tiled family (up to 8
+    coordinates) takes the select-then-sort path below k = N, in
+    ``dtype`` (float32 or float64): the crossover that
+    ``probes/knn_probes.py --crossover`` measures, held in
+    ``csrc/knn.cu`` alone (kSelectK, kSelectK64).  Builds the library."""
+    return _kernel_lib().ppt_nnk_select_k(int(dtype == torch.float64))
+
+
+def nnk_plan(R, N, D, k, dtype):
+    """How :func:`nnk` runs on the current CUDA device for R rows, N
+    neighbours of D coordinates and k (float32 or float64): ``route``
+    ``'select'`` (the select-then-sort path: D <= 8 at k >=
+    :func:`select_k` or k = N) or ``'scan'`` (the threshold scans and
+    their merge), the
+    ``splits`` of the neighbour range, and the bytes the wrapper allocates
+    beside the outputs: ``scratch_bytes`` (the select path's, or the
+    tensor-core scans' split clouds) and ``part_bytes`` (the scans'
+    partial lists, ``splits * k * R`` pairs)."""
+    lib = _kernel_lib()
+    f64 = int(dtype == torch.float64)
+    sel = ctypes.c_longlong()
+    raise_on(lib, lib.ppt_nnk_select_scratch(R, N, D, k, f64,
+                                             ctypes.byref(sel)),
+             'nnk scratch')
+    if sel.value >= 0:
+        return dict(route='select', splits=1, scratch_bytes=sel.value,
+                    part_bytes=0)
+    splits = lib.ppt_nnk_splits(R, N, D, k, f64)
+    if splits < 1:
+        raise RuntimeError(f'nnk: no split of {N} neighbours for {R} rows '
+                           '(device query failed)')
+    floats = ctypes.c_longlong()
+    raise_on(lib, lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(floats)),
+             'knn scratch')
+    return dict(route='scan', splits=splits, scratch_bytes=4 * floats.value,
+                part_bytes=splits * k * R * ((8 if f64 else 4) + 4))
+
+
 def _launch_nnk(ref, nbr, k):
-    """One launch of csrc/knn.cu's nnk (its threshold scan and merge
-    passes): (d2 [R, k], idx [R, k] int64)."""
+    """One launch of csrc/knn.cu's nnk (the select path's passes and
+    sort, or the threshold scan and its merge; :func:`nnk_plan`): (d2 [R,
+    k], idx [R, k] int64)."""
     global NNK_LAUNCHES
     _check_cuda(ref, nbr)
     (R, D), N = ref.shape, nbr.shape[0]
@@ -293,19 +437,20 @@ def _launch_nnk(ref, nbr, k):
         return d2, idx
     lib = _kernel_lib()
     with torch.cuda.device(ref.device):
-        splits = lib.ppt_nnk_splits(R, N, D, k, f64)
-        if splits < 1:
-            raise RuntimeError(f'nnk: no split of {N} neighbours for {R} '
-                               'rows (device query failed)')
-        part_s = torch.empty((splits, k, R), dtype=ref.dtype,
-                             device=ref.device)
-        part_i = torch.empty((splits, k, R), dtype=torch.int32,
-                             device=ref.device)
-        scratch = _scratch(lib, ref, R, N, D, f64)
+        plan = nnk_plan(R, N, D, k, ref.dtype)
+        part_s = part_i = scratch = None
+        if plan['part_bytes']:
+            part_s = torch.empty((plan['splits'], k, R), dtype=ref.dtype,
+                                 device=ref.device)
+            part_i = torch.empty((plan['splits'], k, R), dtype=torch.int32,
+                                 device=ref.device)
+        if plan['scratch_bytes']:
+            scratch = torch.empty((plan['scratch_bytes'],),
+                                  dtype=torch.uint8, device=ref.device)
         raise_on(lib, lib.ppt_nnk(
-            ref.data_ptr(), nbr.data_ptr(), R, N, D, k, f64, splits,
-            _ptr(scratch), part_s.data_ptr(), part_i.data_ptr(),
-            d2.data_ptr(), idx.data_ptr(), _stream(ref)), 'nnk')
+            ref.data_ptr(), nbr.data_ptr(), R, N, D, k, f64, plan['splits'],
+            _ptr(scratch), _ptr(part_s), _ptr(part_i), d2.data_ptr(),
+            idx.data_ptr(), _stream(ref)), 'nnk')
     NNK_LAUNCHES += 1
     return d2, idx
 
@@ -332,8 +477,10 @@ def nnk(ref, nbr, k):
     (distance, index): ``(d2 [R, k], idx [R, k] int64)``.  ``k = 1`` is
     :func:`nn1`; ``k`` above the number of neighbours raises.
 
-    CUDA tensors launch the threshold-scan kernel of ``csrc/knn.cu`` (as
-    :func:`nn1`, at any ``k``: past 16 the lists leave the registers);
+    CUDA tensors launch the kernel of ``csrc/knn.cu`` (as :func:`nn1`, at
+    any ``k``: past 16 the lists leave the registers, and up to 8
+    coordinates from ``k = select_k(dtype)`` on, and at ``k = N``, it
+    selects, then sorts; :func:`nnk_plan`);
     CPU tensors run :func:`_nnk_torch`.  On a near-tie the two may return different
     neighbours (module docstring).
     """

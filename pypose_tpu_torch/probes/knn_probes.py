@@ -22,10 +22,20 @@ time goes.  ``--wgmma`` first measures how many cycles of an SM one
 ``chip_smoke.py``'s [knn-bigk] float32 cases against ``BIGK_VARIANTS``
 (all, or those named after ``--bigk``), the choices of that path: the
 register-tiled scan's buffers, its splits, its merge's rounds, and the
-SIMT wide scan in place of the tensor-core one.  Needs an NVIDIA GPU:
+SIMT wide scan in place of the tensor-core one.  ``--crossover`` times
+the register-tiled family's two paths past k = 16, the merge scan and the
+select-then-sort path, each forced by a build of ``csrc/knn.cu`` with
+another ``kSelectK`` (``CROSSOVER_VARIANTS``), on ``CROSSOVER_SHAPES``
+(all, or those of the clouds named) at each k, and checks that they give
+the same bits: where ``kSelectK`` and ``kSelectK64`` come from.
+``--sort-all`` times k = N both ways, the fused sort kernel and the
+general select path (``SORT_ALL_VARIANTS``).  ``--breakdown`` traces one call of each [knn-bigk] case on
+the select path and sums its device time by kernel (counting passes,
+picks, emission, sort).  Needs an NVIDIA GPU:
 
     python3 -m pypose_tpu_torch.probes.knn_probes [--old PATH] [--variants]
-        [--wgmma] [--bigk [VARIANT ...]]
+        [--wgmma] [--bigk [VARIANT ...]] [--crossover [CLOUDS ...]]
+        [--sort-all] [--breakdown]
 """
 
 import argparse
@@ -108,7 +118,8 @@ VARIANTS = {
 # Variants for --bigk, the choices of nnk at k > 16: its register-tiled
 # buffers at 64 candidates a row (kBuf) in place of 32, the float32 wide
 # scan always on the SIMT cores (nnk_wide_scan_big<float>), one split
-# whatever the wave, and one list entry a lane a merge round.
+# whatever the wave, one list entry a lane a merge round, and the select
+# path's counting passes at one row a lane (kCountRT).
 BIGK_VARIANTS = {
     'cap-64': [('cnt + __popc(m) > kBigBatch);', 'cnt + __popc(m) > kBuf);'),
                ('R, row0,\n                      kBigBatch);', 'R, row0);'),
@@ -122,7 +133,43 @@ BIGK_VARIANTS = {
     'one-split': [('  const int want = std::max(1, sms * per_sm / row_blocks);',
                    '  const int want = 1;')],
     'round-1': [('constexpr int kRound = 4;', 'constexpr int kRound = 1;')],
+    'count-rt-1': [('constexpr int kCountRT = 2;',
+                    'constexpr int kCountRT = 1;')],
 }
+# Variants for --crossover: the register-tiled family's two paths past
+# k = 16 forced (kSelectK and kSelectK64), the merge scan (the select
+# path only at k = N) and the select-then-sort path (at every k > 16).
+CROSSOVER_VARIANTS = {
+    'merge': [('constexpr int kSelectK = ',
+               'constexpr int kSelectK = 1 << 30; //'),
+              ('constexpr int kSelectK64 = ',
+               'constexpr int kSelectK64 = 1 << 30; //')],
+    'select': [('constexpr int kSelectK = ',
+                'constexpr int kSelectK = 17; //'),
+               ('constexpr int kSelectK64 = ',
+                'constexpr int kSelectK64 = 17; //')],
+}
+# --crossover's shapes: (tag, clouds, ks); the clouds of chip_smoke.py's
+# [knn-bigk] range case (10,000 ICP source points against the 100k
+# target), its 100k target against itself (in float32 and float64), and
+# [knn-d6]'s float64 clouds.
+CROSSOVER_SHAPES = (
+    ('10k x 100k', 'range', (64, 100, 128, 256, 512, 1024)),
+    ('100k x 100k', 'icp', (64, 100, 128, 256, 512, 1024)),
+    ('100k x 100k f64', 'icp-f64', (64, 100, 128, 256, 512, 1024)),
+    ('d6-f64 10k x 10k', 'd6-f64', (30, 64, 100, 128, 256, 512, 1024)))
+# --sort-all: k = N within one block's sort, the fused kernel
+# (sel_sort_all: scores and sorts) against the general path (sel_init, sel_emit, sel_sort)
+# with the early returns that send k = N to the fused kernel taken out;
+# on (tag, clouds, rows): the first `rows` points of the clouds against
+# themselves.
+SORT_ALL_VARIANTS = {
+    'fused': [],
+    'general': [('  if (k == N && p.P <= kSortMax) return p;\n', ''),
+                ('  if (k == N && p.P <= kSortMax) {\n', '  if (false) {\n')],
+}
+SORT_ALL_SHAPES = (('full 4096^2', 'full', 4096), ('2048^2', 'full', 2048),
+                   ('8192^2', 'icp', 8192), ('d6-f64 4096^2', 'd6-f64', 4096))
 
 
 def variant_libs(variants):
@@ -155,6 +202,8 @@ def variant_libs(variants):
                           [I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]),
                          ('ppt_nn1', [P, P] + [I] * 5 + [P] * 6),
                          ('ppt_nnk_splits', [I] * 5),
+                         ('ppt_nnk_select_scratch',
+                          [I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
                          ('ppt_nnk', [P, P] + [I] * 6 + [P] * 6)):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = I
@@ -163,24 +212,34 @@ def variant_libs(variants):
 
 
 def variant_call(lib, ref, nbr, k):
-    """One float32 call of ``lib``'s nn1 (k = 1) or nnk."""
+    """One call of ``lib``'s nn1 (k = 1) or nnk, its scratch as
+    ops/knn.py:_launch_nnk allocates it."""
     (R, D), N = ref.shape, nbr.shape[0]
-    dev = ref.device
+    dev, f64 = ref.device, int(ref.dtype == torch.float64)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    d2 = torch.empty((R, k), device=dev)
+    d2 = torch.empty((R, k), dtype=ref.dtype, device=dev)
     idx = torch.empty((R, k), dtype=torch.int64, device=dev)
     n = ctypes.c_longlong()
-    lib.ppt_knn_scratch(R, N, D, 0, ctypes.byref(n))
-    scratch = torch.empty((n.value,), device=dev)
-    sp = (lib.ppt_nn1_splits(R, N, D, 0) if k == 1
-          else lib.ppt_nnk_splits(R, N, D, k, 0))
-    ps = torch.empty((sp, k, R), device=dev)
-    pi = torch.empty((sp, k, R), dtype=torch.int32, device=dev)
+    sel = ctypes.c_longlong(-1)
+    if k > 1:
+        lib.ppt_nnk_select_scratch(R, N, D, k, f64, ctypes.byref(sel))
+    if sel.value >= 0:   # the select path: its scratch, no lists
+        sp, n.value = 1, sel.value
+        ps = pi = torch.empty((1,), dtype=torch.int32, device=dev)
+    else:
+        lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(n))
+        n.value *= 4
+        sp = (lib.ppt_nn1_splits(R, N, D, f64) if k == 1
+              else lib.ppt_nnk_splits(R, N, D, k, f64))
+        ps = torch.empty((sp, k, R), dtype=ref.dtype, device=dev)
+        pi = torch.empty((sp, k, R), dtype=torch.int32, device=dev)
+    scratch = torch.empty((max(1, n.value),), dtype=torch.uint8, device=dev)
     args = (scratch.data_ptr(), ps.data_ptr(), pi.data_ptr(), d2.data_ptr(),
             idx.data_ptr(), stream)
-    rc = (lib.ppt_nn1(ref.data_ptr(), nbr.data_ptr(), R, N, D, 0, sp, *args)
+    rc = (lib.ppt_nn1(ref.data_ptr(), nbr.data_ptr(), R, N, D, f64, sp,
+                      *args)
           if k == 1 else
-          lib.ppt_nnk(ref.data_ptr(), nbr.data_ptr(), R, N, D, k, 0, sp,
+          lib.ppt_nnk(ref.data_ptr(), nbr.data_ptr(), R, N, D, k, f64, sp,
                       *args))
     if rc:
         raise RuntimeError(f'variant launch failed: {rc}')
@@ -214,6 +273,85 @@ def bigk(dev, libs):
         if got['index_failures'] or got['repeat_failures'] \
                 or got['d2_failures']:
             raise SystemExit(f'{tag} k={k}: outside the near-tie rule')
+
+
+def crossover(dev, libs, shapes=()):
+    """nnk's two paths past k = 16 (CROSSOVER_VARIANTS, forced by
+    kSelectK) on CROSSOVER_SHAPES (all, or those whose clouds are named in
+    ``shapes``) at each k, timed in turns (merge, select, select, merge;
+    L2 flushed, median of 7); the two must give the same bits (they rank
+    the same scores in the same order)."""
+    from chip_smoke import bigk_clouds
+    clouds = bigk_clouds(dev)
+    for tag, cl, ks in CROSSOVER_SHAPES:
+        if shapes and cl not in shapes:
+            continue
+        ref, nbr = clouds[cl]
+        for k in ks:
+            turns(libs, 'merge', 'select', f'[crossover] {tag} {ref.dtype}, '
+                  f'k={k}', ref, nbr, k)
+
+
+def sort_all(dev, libs):
+    """k = N within a block's sort, both ways (SORT_ALL_VARIANTS) on
+    SORT_ALL_SHAPES, timed in turns as --crossover times them."""
+    from chip_smoke import bigk_clouds
+    clouds = bigk_clouds(dev)
+    for tag, cl, rows in SORT_ALL_SHAPES:
+        pts = clouds[cl][1][:rows].contiguous()
+        turns(libs, 'fused', 'general', f'[sort-all] {tag} {pts.dtype}, '
+              f'k=N={rows}', pts, pts, rows)
+
+
+def turns(libs, a, b, tag, ref, nbr, k):
+    """``libs[a]`` and ``libs[b]`` at k, timed a, b, b, a (L2 flushed,
+    median of 7 each) and printed; exits unless they give the same bits."""
+    from chip_smoke import flushed_ms
+    outs = {n: variant_call(libs[n], ref, nbr, k) for n in (a, b)}
+    same = all(torch.equal(x, y) for x, y in zip(outs[a], outs[b]))
+    del outs
+    fa = lambda: variant_call(libs[a], ref, nbr, k)  # noqa: E731
+    fb = lambda: variant_call(libs[b], ref, nbr, k)  # noqa: E731
+    t = [flushed_ms(f)[0] for f in (fa, fb, fb, fa)]
+    print(f'{tag}: {a} {t[0]:.4f} {t[3]:.4f}, {b} {t[1]:.4f} {t[2]:.4f} ms '
+          f'(median of 7, L2 flushed); {b}/{a} '
+          f'{(t[1] + t[2]) / (t[0] + t[3]):.3f}; bit-equal {same}',
+          flush=True)
+    if not same:
+        raise SystemExit(f'{tag}: the two paths differ')
+
+
+def breakdown(dev):
+    """Where the select path's time goes: each [knn-bigk] case that takes
+    it (chip_smoke.BIGK_CASES, ops.knn.nnk_plan), one call under
+    torch.profiler after a warm one, its device time summed by kernel."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import BIGK_CASES, bigk_clouds
+    clouds = bigk_clouds(dev)
+    for tag, cl, k, _, _ in BIGK_CASES:
+        ref, nbr = clouds[cl]
+        (R, D), N = ref.shape, nbr.shape[0]
+        if K.nnk_plan(R, N, D, k, ref.dtype)['route'] != 'select':
+            continue
+        K.nnk(ref, nbr, k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            K.nnk(ref, nbr, k)
+            torch.cuda.synchronize()
+        tot = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                m = re.search(r'::(\w+)<', e.name())
+                name = m.group(1) if m else e.name()[:40]
+                n, ns = tot.get(name, (0, 0))
+                tot[name] = (n + 1, ns + e.duration_ns())
+        print(f'[breakdown] {tag} [{R}, {D}] x [{N}, {D}] {ref.dtype}, k={k}: '
+              + ', '.join(f'{name} x{n} {ns / 1e6:.4f} ms'
+                          for name, (n, ns) in tot.items())
+              + f'; all {sum(ns for _, ns in tot.values()) / 1e6:.4f} ms',
+              flush=True)
 
 
 def wgmma_rates(dev, steps=15, rounds=2000):
@@ -253,6 +391,17 @@ def main():
                     help='time the VARIANTS of csrc/knn.cu beside it')
     ap.add_argument('--wgmma', action='store_true',
                     help='the TF32 wgmma rate at n64, n128, n256 first')
+    ap.add_argument('--breakdown', action='store_true',
+                    help='the select path\'s device time by kernel on the '
+                         '[knn-bigk] cases that take it')
+    ap.add_argument('--crossover', nargs='*', metavar='CLOUDS',
+                    help='nnk past k = 16: the merge scan against the '
+                         'select path (CROSSOVER_VARIANTS) at each k, on '
+                         'CROSSOVER_SHAPES (all, or those of the clouds '
+                         'named)')
+    ap.add_argument('--sort-all', action='store_true',
+                    help='k = N: the fused sort kernel against the general '
+                         'select path (SORT_ALL_VARIANTS)')
     ap.add_argument('--bigk', nargs='*', metavar='VARIANT',
                     help='only the [knn-bigk] float32 cases against '
                          'BIGK_VARIANTS (all, or those named)')
@@ -281,6 +430,18 @@ def main():
                   f'~1.83 GHz)', flush=True)
     old = old_lib(args.old) if args.old else None
     variants = variant_libs(VARIANTS) if args.variants else {}
+    if args.crossover is not None or args.sort_all:
+        libs = variant_libs({  # one build of each, all at once
+            **(SORT_ALL_VARIANTS if args.sort_all else {}),
+            **(CROSSOVER_VARIANTS if args.crossover is not None else {})})
+        if args.sort_all:
+            sort_all(dev, libs)
+        if args.crossover is not None:
+            crossover(dev, libs, args.crossover)
+        return
+    if args.breakdown:
+        breakdown(dev)
+        return
     if args.bigk is not None:
         bigk(dev, variant_libs({n: e for n, e in BIGK_VARIANTS.items()
                                 if not args.bigk or n in args.bigk}))

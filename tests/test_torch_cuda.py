@@ -624,6 +624,142 @@ def test_small_k_bit_equal_to_an_earlier_build(cuda, D, dtype):
         assert torch.equal(i_o, i_n) and torch.equal(d_o, d_n), (D, k)
 
 
+# The select-then-sort path (csrc/knn.cu:launch_nnk_select): D <= 8 at
+# k >= knn.select_k(dtype) and at k = N.
+def _assert_select(ref, nbr, k, **tol):
+    (R, D), N = ref.shape, nbr.shape[0]
+    assert knn.nnk_plan(R, N, D, k, ref.dtype)['route'] == 'select'
+    return _assert_big(ref, nbr, k, **tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('D', [3, 6])
+def test_select_path_bit_equal_to_an_earlier_build(cuda, D, dtype):
+    """k = select_k - 1 (the scan), select_k (each dtype's), 1024 and N
+    give the same
+    d^2 and index bits as an earlier csrc/knn.cu (the merge scan past
+    k = 16: e.g. ``git show 42cbb8c:pypose_tpu_torch/csrc/knn.cu``), built
+    beside this one from the file named by $PPT_KNN_OLD_CU: both rank the
+    same s, by the same FMA chain, in the same (s, index) order."""
+    import os
+    path = os.environ.get('PPT_KNN_OLD_CU')
+    if not path:
+        pytest.skip('PPT_KNN_OLD_CU names no earlier csrc/knn.cu')
+    old = _old_nnk_lib(path)
+    ref, nbr = (a.to(dtype) for a in _clouds(3001, 20_011, cuda, seed=D,
+                                             D=D))
+    sel = knn.select_k(dtype)
+    for k in (sel - 1, sel, 1024):
+        route = knn.nnk_plan(3001, 20_011, D, k, dtype)['route']
+        assert route == ('scan' if k < sel else 'select'), k
+        d_o, i_o = _nnk_with(old, ref, nbr, k)
+        d_n, i_n = knn.nnk(ref, nbr, k)
+        assert torch.equal(i_o, i_n) and torch.equal(d_o, d_n), (D, k)
+    ref, nbr = ref[:500].contiguous(), nbr[:3003].contiguous()
+    d_o, i_o = _nnk_with(old, ref, nbr, 3003)
+    d_n, i_n = knn.nnk(ref, nbr, 3003)
+    assert torch.equal(i_o, i_n) and torch.equal(d_o, d_n), (D, 'N')
+
+
+def test_select_route_starts_at_select_k(cuda):
+    """The register-tiled family takes the select path from select_k on
+    (csrc/knn.cu's crossovers, each past 16) and at k = N (any k), the
+    scans below; the wide families never."""
+    for dtype in (torch.float32, torch.float64):
+        sel = knn.select_k(dtype)
+        assert 16 < sel <= 1024, (dtype, sel)
+
+        def plan(R, N, D, k):
+            return knn.nnk_plan(R, N, D, k, dtype)['route']
+        assert plan(1000, 5000, 3, sel - 1) == 'scan'
+        assert plan(1000, 5000, 3, sel) == 'select'
+        assert plan(1000, 5000, 8, 5000) == 'select'
+        assert plan(1000, 20, 1, 20) == 'select'
+        assert plan(1000, 5000, 3, 16) == 'scan'
+        assert plan(1000, 5000, 9, 1024) == 'scan'
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('R,N,k,D', [
+    (1, 700, 512, 3), (1, 100_000, 1024, 3), (7, 100_003, 600, 2),
+    (129, 333, 333, 1), (333, 3003, 513, 4), (333, 3003, 1024, 8),
+    (1000, 1000, 999, 5), (200, 9000, 7000, 3), (3, 20_000, 20_000, 3),
+    (5, 12_000, 9000, 6)])
+def test_select_path_ragged_shapes(cuda, R, N, k, D, dtype):
+    """R = 1, R small against N = 100k (many splits), R and N not a
+    multiple of a block or a tile, k = N in one block, and past one
+    block's 8192 pairs (the sort's steps in global memory: k = N = 20,000
+    and k = 9000, 7000)."""
+    ref, nbr = (a.to(dtype) for a in _clouds(R, N, cuda, seed=R + k, D=D))
+    _assert_select(ref, nbr, k, **(F64_TOL if dtype == torch.float64
+                                   else {}))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('k', [520, 600, 1999, 40_000])
+def test_select_path_exact_ties_at_the_threshold(cuda, k, dtype):
+    """Small-integer clouds, every neighbour four times over 40,000: exact
+    scores, runs of equal ones hundreds long, so the k-th pair falls
+    inside a run and the cut goes by index (the index digits); the
+    indices and d^2 equal the plain version's and the CPU emulation's
+    (ops/knn.py:_nnk_select), the lower index first."""
+    gen = torch.Generator().manual_seed(k)
+    ref = torch.randint(0, 5, (300, 3), generator=gen).to(dtype)
+    base = torch.randint(0, 5, (10_000, 3), generator=gen).to(dtype)
+    nbr = base.repeat(4, 1)
+    d_e, i_e = knn._nnk_select(ref, nbr, k)
+    ref, nbr = ref.to(cuda), nbr.to(cuda)
+    d_k, i_k = _assert_select(ref, nbr, k)
+    d_p, i_p = knn._nnk_torch(ref, nbr, k)
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+    assert torch.equal(i_k.cpu(), i_e) and torch.equal(d_k.cpu(), d_e)
+
+
+def test_select_path_k4096_at_100k_rows(cuda):
+    """k = 4096 on ICP-scale clouds (100,000 x 100,000): the outputs take
+    4.9 GB, and the select path's scratch ~0.52 GB beside them (the merge
+    scan's one split of lists took 3.3 GB); the call allocates nothing
+    else (up to the caching allocator's rounding: 2 MB a block, three
+    blocks).  Rows sorted, every 997th row held to the plain version."""
+    ref, nbr = _clouds(100_000, 100_000, cuda, seed=4096)
+    k, R = 4096, 100_000
+    plan = knn.nnk_plan(R, R, 3, k, torch.float32)
+    out = R * k * (4 + 8)
+    per_row = sum((b + 255) // 256 * 256 for b in (24 * R, 1024 * R,
+                                                   8 * R, 512 * 8 * R))
+    assert plan['route'] == 'select' and plan['scratch_bytes'] == per_row
+    assert plan['scratch_bytes'] < 0.11 * out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    d_k, i_k = knn.nnk(ref, nbr, k)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before <= \
+        out + plan['scratch_bytes'] + 3 * (2 << 20)
+    assert (d_k[:, 1:] >= d_k[:, :-1]).all()
+    rows = torch.arange(0, R, 997, device=cuda)
+    got = nnk_tolerance_failures(ref[rows], nbr, d_k[rows], i_k[rows],
+                                 knn._nnk_torch(ref[rows], nbr, k)[1])
+    assert got['index_failures'] == got['repeat_failures'] == \
+        got['d2_failures'] == 0, got
+
+
+def test_knn_k_above_n_raises_before_any_launch(cuda):
+    """knn with k > N raises ValueError on the chunked path (the kernels'
+    route) and the dense one, as the JAX package does, and launches
+    nothing; k = N still returns N columns."""
+    from pypose_tpu_torch.function import geometry
+    ref, nbr = _clouds(4, 5, cuda)
+    before = (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES)
+    for chunk in (2, None):
+        with pytest.raises(ValueError, match='k=7'):
+            geometry.knn(ref, nbr, k=7, chunk=chunk)
+    assert (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES) == before
+    res = geometry.knn(ref, nbr, k=5, chunk=2)
+    assert res.indices.shape == (4, 5)
+    assert knn.NNK_LAUNCHES == before[1] + 1
+
+
 def test_sharded_pgo_one_rank_matches_sparse_lm(cuda):
     """ShardedPGO at one rank (make_mesh() with nothing set up: an NCCL
     group of one) against SparseLM(matvec='generic', scatter=False) on a
