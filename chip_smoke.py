@@ -34,8 +34,10 @@ Phases (any failure raises, so the script exits non-zero):
      the wide scans and their split pre-pass, every k > 16 scan and the
      select path's kernels), and
      the HGMMA instructions in the float32 wide scans' SASS (cuobjdump),
-     which must be there, as many in each of the six instantiations; a
-     C7520 (serialized wgmma) in ptxas' output fails.
+     which must be there, as many in each of the eight instantiations
+     (nn1, the lists of 2-16, past 16, and the select path's counting
+     passes and emission); a C7520 (serialized wgmma) in ptxas' output
+     fails.
   3. kernel vs plain, on the same random SPD stencil systems on the card,
      each timed with CUDA events (median of 7):
      - the whole-solve cluster kernel at N=40, at sphere2500's shape
@@ -261,22 +263,26 @@ Phases (any failure raises, so the script exits non-zero):
      fresh process; knn(k=1) and knn(k=8) on the D = 33 clouds launch one
      nn1 and one nnk.
  37b. knn-bigk: nnk at k > 16 (the lists off the registers, and the
-     select-then-sort path from ops.knn.select_k(dtype) on and at
-     k = N, where D <= 8: each case's path and scratch printed), each case
-     once through knn() from zeroed counts (one nnk launch): k = 30, 50
-     and 100 on ICP's 100k target against itself (normal estimation,
-     outlier removal, FPFH neighbourhoods) and k = 1024 (beside the
-     route it replaced), k = 30 and 1024 on [knn-d6]'s clouds in float64
-     (the merge scan; the select path), k = 32
-     on [knn-wide]'s FPFH clouds in float32 (tensor cores) and float64
-     (SIMT) and on its SIFT clouds (float32 SIMT), k = 1024 on the FPFH
-     clouds in float32 (tensor cores); through ops.knn.nnk,
-     k = 1024 on 10,000 x 100,000 and k = N on 4096 x 4096 points;
-     each held to the plain version by the near-tie rule (its largest d^2
-     error over the tolerance printed), timed with L2 flushed, its device
-     time traced in a fresh process, beside the plain version, the
-     chunked Gram route k > 16 took before and chunked torch.cdist +
-     torch.topk, and its bound.
+     select-then-sort paths from ops.knn.select_k(dtype, R, D) on and at
+     k = N, up to 8 coordinates and in float32 past them: each case's
+     path, kernels and scratch printed), each case once through knn()
+     from zeroed counts (one nnk launch): k = 30, 50 and 100 on ICP's
+     100k target against itself (normal estimation, outlier removal,
+     FPFH neighbourhoods) and k = 1024 (beside the route it replaced),
+     k = 30 and 1024 on [knn-d6]'s clouds in float64 (the merge scan;
+     the select path), k = 32 and 1024 on [knn-wide]'s FPFH and SIFT
+     clouds in float32 (tensor cores: the merge scan; the wide select)
+     and on its float64 FPFH clouds (SIMT), k = 100 on 10,000 SIFT-like
+     queries against 1,000,000 (ANN-Benchmarks' sift-128-euclidean
+     ground truth's shape; the plain version on every 10th row); through
+     ops.knn.nnk, k = 1024 on 10,000 x 100,000, k = N on 4096 x 4096
+     points and on 4096 FPFH-like points; each held to the plain version
+     by the near-tie rule (its largest d^2 error over the tolerance
+     printed), each wide select bit for bit to the tensor-core merge
+     scan forced at the same k (ops.knn._nnk_wide_merge, timed beside),
+     timed with L2 flushed, its device time traced in a fresh process,
+     beside the plain version, the chunked Gram route k > 16 took before
+     and chunked torch.cdist + torch.topk, and its bound.
  38. (38.-40. run after 32.) sharded-pgo: parallel.ShardedPGO on
      data/synthetic_sphere2500_seed42.g2o with examples/pgo.py's schedule,
      10 steps, at one rank (an NCCL
@@ -3348,19 +3354,31 @@ BIGK_CASES = (
     ('fpfh-33', 'fpfh', 32, 'tensor-core float32',
      'descriptor neighbourhoods'),
     ('fpfh-33-1024', 'fpfh', 1024, 'tensor-core float32',
-     'coverage: the wide families keep the merge scan at large k'),
+     'coverage: the wide family at large k'),
     ('fpfh-33-f64', 'fpfh-f64', 32, 'wide SIMT float64',
      'descriptor neighbourhoods in float64'),
-    ('sift-128', 'sift', 32, 'wide SIMT float32',
-     'SIFT-width descriptors (past the tensor-core scan\'s 96 coordinates)'),
+    ('sift-128', 'sift', 32, 'tensor-core float32',
+     'SIFT-width descriptors'),
     ('range-100k', 'icp', 1024, 'register-tiled float32',
      'coverage: k ~ 1000 at ICP scale, beside the route it replaced'),
     ('range', 'range', 1024, 'register-tiled float32', 'coverage: range'),
     ('full', 'full', 4096, 'register-tiled float32',
      'coverage: a whole row sorted'),
     ('d6-f64-1024', 'd6-f64', 1024, 'register-tiled float64',
-     'coverage: the float64 select path'))
-BIGK_RANGE = ('range', 'full')
+     'coverage: the float64 select path'),
+    ('sift-128-1024', 'sift', 1024, 'tensor-core float32',
+     'coverage: large k at SIFT width'),
+    ('fpfh-33-f64-1024', 'fpfh-f64', 1024, 'wide SIMT float64',
+     'coverage: the float64 wide family at large k'),
+    ('fpfh-33-full', 'fpfh-full', 4096, 'tensor-core float32',
+     'coverage: a whole row sorted at D = 33'),
+    ('sift-gt', 'sift-gt', 100, 'tensor-core float32',
+     'the exact ground truth of ANN-Benchmarks\' sift-128-euclidean (10k '
+     'queries, 1M base, 100 neighbours)'))
+BIGK_RANGE = ('range', 'full', 'fpfh-33-full')
+# cases whose plain version runs on every SUBSET-th reference row alone
+# (sift-gt's plain version over all 10,000 rows would sort 10^10 pairs)
+BIGK_SUBSET = {'sift-gt': 10}
 
 
 def bigk_clouds(dev):
@@ -3370,7 +3388,8 @@ def bigk_clouds(dev):
     FPFH-like clouds (50,000^2 float32, 10,000^2 float64) and SIFT-like
     clouds (20,000 x 100,000 float32); 10,000 ICP
     source points against the 100k target; 4096 target points against
-    themselves."""
+    themselves; the FPFH clouds' first 4096 rows against themselves; and
+    10,000 SIFT-like queries against 1,000,000 (generator seed 1)."""
     import torch
     src, _, tgt = icp_instance(100_000, dev)
     gen = torch.Generator().manual_seed(0)
@@ -3379,21 +3398,28 @@ def bigk_clouds(dev):
     wide = wide_clouds(dev)
     full = tgt[:4096].contiguous()
     tgt64 = tgt.double()
+    fpfh_full = wide['fpfh'][0][:4096].contiguous()
+    gen = torch.Generator().manual_seed(1)
+    sift_gt = tuple(descriptors('sift', n, gen).float().to(dev)
+                    for n in (10_000, 1_000_000))
     return {'icp': (tgt, tgt), 'icp-f64': (tgt64, tgt64),
             'd6-f64': tuple(d6), 'fpfh': wide['fpfh'],
             'fpfh-f64': wide['fpfh-f64'], 'sift': wide['sift'],
-            'range': (src[:10_000].contiguous(), tgt), 'full': (full, full)}
+            'range': (src[:10_000].contiguous(), tgt), 'full': (full, full),
+            'fpfh-full': (fpfh_full, fpfh_full), 'sift-gt': sift_gt}
 
 
-def bigk_device_worker():
+def bigk_device_worker(tags=None):
     """Run in a fresh process by :func:`bigk_device_ms`: the device ms of
-    one ops.knn.nnk call of each [knn-bigk] case under torch.profiler, as
-    a JSON line {tag: ms}."""
+    one ops.knn.nnk call of each [knn-bigk] case (or of those in
+    ``tags``) under torch.profiler, as a JSON line {tag: ms}."""
     import torch
     from pypose_tpu_torch.ops import knn as K
     clouds = bigk_clouds(torch.device('cuda', 0))
     out = {}
     for tag, cl, k, _, _ in BIGK_CASES:
+        if tags and tag not in tags:
+            continue
         ref, nbr = clouds[cl]
         K.nnk(ref, nbr, k)
         torch.cuda.synchronize()
@@ -3401,12 +3427,12 @@ def bigk_device_worker():
     print(json.dumps(out))
 
 
-def bigk_device_ms():
+def bigk_device_ms(tags=None):
     """The [knn-bigk] calls' device time, traced in a fresh process (late
     in this script torch.profiler traced knn calls empty)."""
     res = subprocess.run(
         [sys.executable, '-c',
-         'import chip_smoke; chip_smoke.bigk_device_worker()'],
+         f'import chip_smoke; chip_smoke.bigk_device_worker({tags!r})'],
         capture_output=True, text=True, timeout=300, cwd=str(_ROOT))
     check(res.returncode == 0,
           f'knn-bigk: the profiling process failed: {res.stderr[-2000:]}')
@@ -3433,39 +3459,67 @@ def flushed_ms(fn, repeat=7):
 
 def d2_err_over_tol(ref, nbr, d2, idx, rtol=1e-6, atol=1e-6):
     """The largest |d2 - |a - b|^2| over the near-tie rule's tolerance
-    rtol (|a|^2 + |b|^2) + atol, in float64."""
-    a = ref.double()[:, None, :]
-    b = nbr.double()[idx]
-    exact = ((a - b) ** 2).sum(-1)
-    tol = rtol * ((a * a).sum(-1) + (b * b).sum(-1)) + atol
-    return float(((d2.double() - exact).abs() / tol).max())
+    rtol (|a|^2 + |b|^2) + atol, in float64, by chunks of rows."""
+    worst = 0.0
+    for s in row_chunks(ref, idx):
+        a = ref[s].double()[:, None, :]
+        b = nbr.double()[idx[s]]
+        exact = ((a - b) ** 2).sum(-1)
+        tol = rtol * ((a * a).sum(-1) + (b * b).sum(-1)) + atol
+        worst = max(worst, float(((d2[s].double() - exact).abs() / tol)
+                                 .max()))
+    return worst
 
 
-def knn_bigk_phase(dev):
+def row_chunks(ref, idx):
+    """Slices of reference rows whose [rows, k, D] float64 gathers take
+    about 1 GB each (sift-128-1024's whole one would take 21 GB)."""
+    R, k = idx.shape
+    step = max(1, (1 << 27) // (k * ref.shape[1]))
+    return [slice(s, s + step) for s in range(0, R, step)]
+
+
+def rule_by_rows(ref, nbr, d2, idx, idx_plain, **tol):
+    """testing.nnk_tolerance_failures by chunks of rows (row_chunks): its
+    counts summed, its largest d^2 error the largest."""
+    from pypose_tpu_torch.testing import nnk_tolerance_failures
+    got = {}
+    for s in row_chunks(ref, idx):
+        part = nnk_tolerance_failures(ref[s], nbr, d2[s], idx[s],
+                                      idx_plain[s], **tol)
+        for key, v in part.items():
+            got[key] = max(got.get(key, v), v) if key == 'max_d2_err' \
+                else got.get(key, 0) + v
+    return got
+
+
+def knn_bigk_phase(dev, tags=None):
     """[knn-bigk] nnk at k > 16 (csrc/knn.cu's k > 16 scans, and the
-    select-then-sort path at k >= ops.knn.select_k(dtype) and k = N,
-    D <= 8): each case of BIGK_CASES called once through knn()
-    (ops.knn.nnk for the range cases) from zeroed counts, one nnk launch
-    and no other, its path and the bytes the wrapper allocates beside the
-    outputs (ops.knn.nnk_plan) printed; held to the
-    plain version by the near-tie rule (float64 at F64_TOL), its largest
-    d^2 error over the tolerance printed; the kernel timed (CUDA events,
-    median of 7, L2 flushed before each call), its device time traced in
-    a fresh process (bigk_device_ms), beside the plain version, the
-    chunked Gram route k > 16 took before (function/geometry.py:
-    _knn_gram) and chunked torch.cdist + torch.topk (one call each), and
-    the bound (D <= 8: bound(), 2 D flop a pair at 67 TFLOP/s, float32
-    SIMT or float64 DMMA; D > 8: knn_bound()).  Returns {tag: numbers}."""
+    select-then-sort paths at k >= ops.knn.select_k(dtype, R, D) and
+    k = N): each case of BIGK_CASES (or of those in ``tags``) called once
+    through knn() (ops.knn.nnk for the range cases) from zeroed counts,
+    one nnk launch and no other, its path and the bytes the wrapper
+    allocates beside the outputs (ops.knn.nnk_plan) printed; held to the
+    plain version by the near-tie rule (float64 at F64_TOL; sift-gt on
+    every 10th row, BIGK_SUBSET), its largest d^2 error over the
+    tolerance printed; the kernel timed (CUDA events, median of 7, L2
+    flushed before each call), its device time traced in a fresh process
+    (bigk_device_ms), beside the plain version, the chunked Gram route
+    k > 16 took before (function/geometry.py: _knn_gram) and chunked
+    torch.cdist + torch.topk (one call each), and the bound (D <= 8:
+    bound(), 2 D flop a pair at 67 TFLOP/s, float32 SIMT or float64
+    DMMA; D > 8: knn_bound()).  Returns {tag: numbers}."""
     import torch
     import pypose_tpu_torch as ppt
     from pypose_tpu_torch.function import geometry
     from pypose_tpu_torch.ops import knn as K
-    from pypose_tpu_torch.testing import nnk_tolerance_failures
     t0 = time.perf_counter()
-    device = bigk_device_ms()
+    device = bigk_device_ms(tags)
     clouds = bigk_clouds(dev)
     out = {}
     for tag, cl, k, family, users in BIGK_CASES:
+        if tags and tag not in tags:
+            continue
         ref, nbr = clouds[cl]
         (R, D), N = ref.shape, nbr.shape[0]
         f64 = ref.dtype == torch.float64
@@ -3484,16 +3538,29 @@ def knn_bigk_phase(dev):
               f'knn-bigk {tag}: launch counts {counts}')
         check(tuple(idx.shape) == (R, k) and bool(torch.isfinite(d2).all()),
               f'knn-bigk {tag}: wrong shape or not finite')
-        p_ms, (d_p, i_p) = cuda_ms(lambda: K._nnk_torch(ref, nbr, k),
+        rows = torch.arange(0, R, BIGK_SUBSET.get(tag, 1), device=dev)
+        sub = ref[rows].contiguous()
+        p_ms, (d_p, i_p) = cuda_ms(lambda: K._nnk_torch(sub, nbr, k),
                                    repeat=1)
-        got = nnk_tolerance_failures(ref, nbr, d2, idx, i_p, **tol)
+        got = rule_by_rows(sub, nbr, d2[rows], idx[rows], i_p, **tol)
         ratio = d2_err_over_tol(ref, nbr, d2, idx, **tol)
-        err = float((d2 - d_p).abs().max())
+        err = float((d2[rows] - d_p).abs().max())
         del d_p, i_p
         check(got['index_failures'] == got['repeat_failures']
               == got['d2_failures'] == 0,
               f'knn-bigk {tag}: outside the tolerance: {got}')
-        k_ms, _ = flushed_ms(lambda: K.nnk(ref, nbr, k))
+        k_ms, (d_k, i_k) = flushed_ms(lambda: K.nnk(ref, nbr, k))
+        # the wide select path against the tensor-core merge scan forced
+        # at the same k: the same bits
+        merge_ms = same = None
+        if plan['route'] == 'select' and plan['family'] == 'tensor-core':
+            merge_ms, (d_m, i_m) = flushed_ms(
+                lambda: K._nnk_wide_merge(ref, nbr, k), repeat=3)
+            same = torch.equal(d_k, d_m) and torch.equal(i_k, i_m)
+            del d_m, i_m
+            check(same, f'knn-bigk {tag}: the wide select path and the '
+                        'merge scan differ')
+        del d_k, i_k
         chunk = max(128, (64 << 20) // N)
         g_ms, _ = cuda_ms(lambda: geometry._knn_gram(ref, nbr, k, False,
                                                      chunk), repeat=1)
@@ -3507,21 +3574,27 @@ def knn_bigk_phase(dev):
               f'{"ops.knn.nnk" if tag in BIGK_RANGE else "knn"}: path '
               f'{plan["route"]} (scratch {plan["scratch_bytes"]} B, partial '
               f'lists {plan["part_bytes"]} B); launch '
-              f'counts {counts}; {got}; largest d2 error {ratio:.3f} of '
+              f'counts {counts}; {got} (plain version on '
+              f'{len(rows)} rows); largest d2 error {ratio:.3f} of '
               f'its tolerance; max|d2 - d2_p| {err:.3e}; kernel '
               f'{k_ms:.4f} ms (median of 7, L2 flushed; device '
               f'{"not measured" if d_ms is None else f"{d_ms:.4f} ms"}), '
-              f'plain {p_ms:.4f} ms, _knn_gram {g_ms:.4f} ms, torch.cdist '
-              f'+ torch.topk {c_ms:.4f} ms (one call each); bound '
-              f'{b[0]:.4f} ms ({b[1]})', flush=True)
+              + ('' if same is None else
+                 f'the merge scan forced {merge_ms:.4f} ms (median of 3, '
+                 f'L2 flushed; bit-equal {same}), ')
+              + f'plain {p_ms:.4f} ms ({len(rows)} rows), _knn_gram '
+              f'{g_ms:.4f} ms, torch.cdist + torch.topk {c_ms:.4f} ms (one '
+              f'call each); bound {b[0]:.4f} ms ({b[1]})', flush=True)
         out[tag] = dict(family=family, shape=f'[{R}, {D}] x [{N}, {D}] '
                         f'{str(ref.dtype)[6:]}, k={k}', route=plan['route'],
+                        kernels=plan['family'], merge_ms=merge_ms,
+                        bit_equal_to_merge=same,
                         scratch_bytes=plan['scratch_bytes'],
                         part_bytes=plan['part_bytes'],
                         launches=counts['NNK_LAUNCHES'],
                         err=err, err_over_tol=ratio, ms=k_ms, device_ms=d_ms,
-                        plain_ms=p_ms, gram_ms=g_ms, cdist_ms=c_ms,
-                        bound=b)
+                        plain_ms=p_ms, plain_rows=len(rows), gram_ms=g_ms,
+                        cdist_ms=c_ms, bound=b)
     print(f'[knn-bigk] phase {time.perf_counter() - t0:.1f} s', flush=True)
     return out
 
@@ -3936,12 +4009,13 @@ def main():
         print(f'[build] libknn: {name}: HGMMA instructions in its SASS '
               f'{"not read (no cuobjdump)" if hgmma is None else hgmma}; '
               f'{used}; {spill}', flush=True)
-    # six: nn1, nnk at 2, 4, 8, 16 and past 16 (K = 0), one HGMMA count
+    # eight: nn1, nnk at 2, 4, 8, 16 and past 16 (K = 0), and the select
+    # path's counting passes and emission (K = -1, -3), one HGMMA count
     hgmma = {h for _, _, h in tc.values()}
-    check(len(tc) == 6 and (hgmma == {None} or
+    check(len(tc) == 8 and (hgmma == {None} or
                             (len(hgmma) == 1 and min(hgmma) > 0)),
-          f'the float32 wide scans: six instantiations with one HGMMA count '
-          f'expected, found {tc}')
+          f'the float32 wide scans: eight instantiations with one HGMMA '
+          f'count expected, found {tc}')
     # ptxas warns C7520 where it serializes the wgmmas
     knn_log = (_build.BUILD / 'libknn.log').read_text()
     check('C7520' not in knn_log,
@@ -4308,8 +4382,16 @@ def main():
              'full')
     scan = tuple(t for t in tiled if bigk[t]['route'] == 'scan')
     select = tuple(t for t in tiled if bigk[t]['route'] == 'select')
+    wide = ('fpfh-33', 'fpfh-33-1024', 'sift-128', 'sift-128-1024',
+            'fpfh-33-full', 'sift-gt')
+    wide_scan = tuple(t for t in wide if bigk[t]['route'] == 'scan')
+    wide_select = tuple(t for t in wide if bigk[t]['route'] == 'select')
     check(select and scan and bigk['d6-f64']['route'] == 'scan'
-          and bigk['d6-f64-1024']['route'] == 'select',
+          and bigk['d6-f64-1024']['route'] == 'select'
+          and all(bigk[t]['kernels'] == 'tensor-core' for t in wide)
+          and 'fpfh-33' in wide_scan and 'sift-128' in wide_scan
+          and 'fpfh-33-1024' in wide_select
+          and 'fpfh-33-full' in wide_select,
           f'knn-bigk: paths {({t: v["route"] for t, v in bigk.items()})}')
     first_via_knn = [t for t in select if t not in BIGK_RANGE]
     for kname, line, first, tags in (
@@ -4317,9 +4399,10 @@ def main():
             ('nnk_select_f64', '50', 'd6-f64-1024', ('d6-f64-1024',)),
             ('nnk_bigk', '50', scan[0], scan),
             ('nnk_bigk_f64', '50', 'd6-f64', ('d6-f64',)),
-            ('nnk_wide_bigk', '138', 'fpfh-33', ('fpfh-33', 'fpfh-33-1024')),
-            ('nnk_wide_bigk_simt', '138', 'sift-128', ('sift-128',)),
-            ('nnk_wide_bigk_f64', '138', 'fpfh-33-f64', ('fpfh-33-f64',))):
+            ('nnk_wide_bigk', '138', 'fpfh-33', wide_scan),
+            ('nnk_wide_select', '138', 'fpfh-33-1024', wide_select),
+            ('nnk_wide_bigk_f64', '138', 'fpfh-33-f64',
+             ('fpfh-33-f64', 'fpfh-33-f64-1024'))):
         fc = bigk[first]
         kernels.append(entry(
             kname, 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:' + line,
@@ -4340,7 +4423,10 @@ def main():
                            bound_ms=bigk[t]['bound'][0],
                            bound_by=bigk[t]['bound'][1],
                            max_abs_err=bigk[t]['err'],
-                           err_over_tol=bigk[t]['err_over_tol'])
+                           err_over_tol=bigk[t]['err_over_tol'],
+                           plain_rows=bigk[t]['plain_rows'],
+                           merge_ms=bigk[t]['merge_ms'],
+                           bit_equal_to_merge=bigk[t]['bit_equal_to_merge'])
                    for t in tags},
             ms_of=f'{fc["shape"]} ({fc["family"]}, {fc["route"]} path; '
                   'L2 flushed); cases: every shape; launches from its call '
@@ -4371,7 +4457,7 @@ def main():
     check(not routed_unlaunched,
           f'kernels on a path with no launch there: {routed_unlaunched}')
     print(f'[total] the script took {time.perf_counter() - t_script:.1f} s '
-          '(PERF.md: 559 s on the H100 before the select path)',
+          '(PERF.md: 651.9 s on the H100 before the wide select path)',
           flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)

@@ -79,10 +79,12 @@
 //    producer warp walks the split's tiles of 64 neighbours; the producer
 //    brings each tile's hi, lo and |b|^2 by cp.async.bulk into a ring of
 //    2-4 shared-memory stages (the most that keep the most blocks an SM,
-//    tc_plan_for) behind mbarriers (full: bytes arrived; empty:
+//    tc_plan_k) behind mbarriers (full: bytes arrived; empty:
 //    the 256 consumer threads are done), in chunks of 64 coordinates; the
 //    block's rows stay resident while Dp <= 128 and ride in each stage
-//    past that (any D);
+//    past that (any D); where 66 KB past the ring leave no room for two
+//    such stages (past k = 16 and in the select path, below), a stage
+//    holds one block of a fresh sum (32 or 40 coordinates) instead;
 //  - each warpgroup forms its 64 x 64 tile of cross terms with
 //    wgmma.m64n64k8.tf32, both operands from shared memory: for each block
 //    of 32 coordinates (40 where 8 are left) a fresh sum, a_lo b_hi and
@@ -119,8 +121,9 @@
 // _knnk_kernel :50, which takes any k <= N).
 //
 // The merge scans (nnk_scan_big, nnk_wide_scan_big, wide_tc_scan<kBig>):
-// every family at 16 < k < kSelectK below N, and the wide families (D > 8)
-// at any k.  A list of k = 100 pairs a row would take 200 registers, so:
+// the register-tiled and the float32 wide families at 16 < k below their
+// crossovers and N, and the float64 wide family at any k > 16.  A list of
+// k = 100 pairs a row would take 200 registers, so:
 //  - each family scores its pairs as at k <= 16 (the same FMA chain; on
 //    the tensor cores the same three-pass total) and appends each pair
 //    before its row's k-th pair in (s, index) order (every pair until the
@@ -147,13 +150,16 @@
 //    INT_MAX) pairs; the merge pass (nnk_merge_big) takes a warp a row,
 //    lane sp the head of split sp's list, and writes the k least heads.
 // The tensor-core scan keeps its 128 rows a block, its producer and its
-// ring; the buffers take 66 KB past the ring, which leaves two stages up
-// to 96 padded coordinates.  Past that, float32 takes the SIMT wide scan
-// (nnk_wide_scan_big in float32: the FMA chain).
+// ring; the buffers take 66 KB past the ring, which leaves two stages of a
+// chunk up to 96 padded coordinates; past that a stage holds a block of
+// 32 coordinates and the rows ride in it (tc_plan_k), at any D, so every
+// float32 wide call runs on the tensor cores.
 //
-// Select, then sort (launch_nnk_select): the register-tiled family
-// (D <= 8) at k >= kSelectK (kSelectK64 in float64: the crossovers,
-// measured) and at k = N.
+// Select, then sort (launch_nnk_select, launch_nnk_wide_select): the
+// register-tiled family at k >= select_k(R) (kSelectK, kSelectK64 in
+// float64, past kSmallR rows; kSelectKSmallR up to them) and the float32
+// wide family at k >= wide_select_k (the crossovers, measured), both at
+// k = N.
 // Rather than merge candidates, find each row's k-th (s, index) pair
 // first, write the pairs before it once, and sort them once:
 //  - keys: s as an order-preserving unsigned key (Sel<T>::key: every bit
@@ -172,8 +178,16 @@
 //    of a row add theirs into its global histogram (integer atomics: the
 //    same counts in any order), and a warp a row fixes the digit where
 //    the k-th pair falls, until the pairs of that bin complete the k or
-//    fit the row's boundary buffer (256-512 pairs);
-//  - emit (sel_emit): one more pass writes every pair before the prefix
+//    fit the row's boundary buffer (256-512 pairs).  Past 8 coordinates
+//    in float32 each pass is a mode of the tensor-core scan
+//    (wide_tc_scan<kCount>): the merge scan's products and sums, so the
+//    same s; a row's four threads add into its counters by shared
+//    atomics (the counters take the 66 KB past the ring that the merge
+//    scan's buffers take), and the first digit is guessed from a sample
+//    of every 8th tile and checked by the pass that counts the second
+//    (launch_nnk_wide_select);
+//  - emit (sel_emit; wide_tc_scan<kEmit>): one more pass writes every
+//    pair before the prefix
 //    into the row's slots of the outputs (as pairs, slots by atomics) and
 //    the bin's pairs there or into the boundary buffer; no [splits, R, k]
 //    lists, so no budget on them;
@@ -185,7 +199,9 @@
 //    as d^2 = s + |a|^2 clamped at 0.  Past kSortMax pairs the network's
 //    long strides run in global memory (sel_step) between blocks of the
 //    row's tiles.  k = N within a block: the sort alone (sel_sort_all),
-//    scoring its pairs itself.
+//    scoring its pairs itself, in the register-tiled family; the wide
+//    family emits its N pairs a row by the tensor-core pass and sorts
+//    them.
 // What bounds it on an H100: instruction issue over the R x N pairs, in
 // two or three counting passes (on random float32 clouds) and the
 // emission.  The first count is the dear one: every pair forms its key
@@ -355,12 +371,26 @@ __device__ __forceinline__ void stage(const T* __restrict__ nbr, int t0,
   }
 }
 
-// |a|^2 of reference row `row`, FMA from the first coordinate; D = 0
-// (the wide scans) reads the number of coordinates from `dim`.
+// Coordinates past which a float32 |x|^2 sums in float64 and rounds once:
+// at 300 coordinates the float32 chains of |a|^2 and |b|^2 put d^2 1.07
+// times the near-tie tolerance off (3e-5 and 5e-5 on 300-bin histograms,
+// whose cross term three TF32 passes hold to 1e-7; the card test at
+// D = 300).
+constexpr int kLongNorm = 128;
+
+// |a|^2 of reference row `row`, FMA from the first coordinate (in float64,
+// rounded once, for float32 rows past kLongNorm coordinates); D = 0 (the
+// wide scans) reads the number of coordinates from `dim`.
 template <typename T, int D>
 __device__ __forceinline__ T ref_sqnorm(const T* ref, int row, int dim) {
   const int n = D > 0 ? D : dim;
   const T* a = ref + static_cast<size_t>(row) * n;
+  if (sizeof(T) == sizeof(float) && n > kLongNorm) {
+    double an = 0.0;
+    for (int c = 0; c < n; ++c)
+      an = __fma_rn(static_cast<double>(a[c]), static_cast<double>(a[c]), an);
+    return static_cast<T>(an);
+  }
   T an = a[0] * a[0];
 #pragma unroll
   for (int c = 1; c < n; ++c) an = fma_rn(a[c], a[c], an);
@@ -1156,11 +1186,19 @@ cudaError_t launch_nnk_big(const T* ref, const T* nbr, int R, int N, int k,
 
 // ---- k >= kSelectK and k = N, D <= 8: select, then sort ------------------
 
-// The least k that takes the select-then-sort path, in float32 and in
-// float64 (the crossovers measured by probes/knn_probes.py --crossover,
-// PERF.md); k = N takes it at any k.
+// The least k that takes the select-then-sort path (the crossovers
+// measured by probes/knn_probes.py --crossover, PERF.md; k = N takes it
+// at any k): the register-tiled family (D <= 8) in float32 and float64
+// past kSmallR rows, and at most kSmallR rows in both (measured at 10,000
+// rows, against 100,000 and 10,000 neighbours: there the merge scan runs
+// more splits, each paying its own candidates); the float32 wide family
+// (D > 8; measured on FPFH-like 50,000^2, D = 33, and SIFT-like 20,000 x
+// 100,000, D = 128: 256 at both).
 constexpr int kSelectK = 256;
 constexpr int kSelectK64 = 512;
+constexpr int kSelectKSmallR = 100;
+constexpr int kSmallR = 32768;    // between the measured 10,000 and 100,000
+constexpr int kWideSelectK = 256;
 constexpr int kSelRows = 128;       // rows an emission block, one a thread
 constexpr int kCountRT = 2;         // rows a lane of a counting block
 constexpr int kCountRows = 32 * kCountRT;  // rows a counting block
@@ -1182,8 +1220,10 @@ constexpr int kSortMax = 8192;      // pairs one block sorts, most
 constexpr int kMinSort = 64;        // and least: a layout's bits [3, 6)
 
 // A row's mode: counting digits; done, the pairs in the prefix's bin
-// complete its k; done, they go to the boundary buffer.
-enum { kCounting = 0, kTakeAll = 1, kToBoundary = 2 };
+// complete its k; done, they go to the boundary buffer; counting the
+// digit after a first digit guessed from a sample, and the pairs before
+// that digit's bin, which sel_pick checks (the float32 wide family).
+enum { kCounting = 0, kTakeAll = 1, kToBoundary = 2, kGuess = 3 };
 
 // A pair's place in the (s, index) order: the key of s (its bits made an
 // order-preserving unsigned: every bit flipped where s < 0, the sign bit
@@ -1322,7 +1362,8 @@ __device__ __forceinline__ SelBounds<T> sel_bounds(K pk, unsigned pj,
 // the rows' states, global histograms [R, 256] (uint32), the emission's
 // counts [R, 2] (int32), the boundary buffers [R, cap] and, past kSortMax,
 // the rows' sort buffers [R, P] (pairs: 8 bytes in float32, 16 in
-// float64).  k = N within one block's sort needs none of it.
+// float64).  k = N within one block's sort needs none of it where the
+// sort scores its own pairs (`fused`: the register-tiled family).
 struct SelPlan {
   long long P;
   int cap, ibits, levels;
@@ -1330,7 +1371,7 @@ struct SelPlan {
 };
 
 template <typename T>
-SelPlan sel_plan(int R, int N, int k) {
+SelPlan sel_plan(int R, int N, int k, bool fused = true) {
   using S = Sel<T>;
   SelPlan p{};
   const long long want = k == N ? k : k - 1LL + kMinBoundary;
@@ -1341,7 +1382,7 @@ SelPlan sel_plan(int R, int N, int k) {
   p.ibits = index_bits(N);
   p.levels = k == N ? 0 : static_cast<int>(sizeof(typename S::Key)) +
                               p.ibits / 8;
-  if (k == N && p.P <= kSortMax) return p;
+  if (fused && k == N && p.P <= kSortMax) return p;
   size_t o = 0;
   const auto take = [&o](size_t bytes) {
     const size_t at = o;
@@ -1501,14 +1542,22 @@ sel_count(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
 // its k, or fit `cap`.  The histogram is zeroed for the next pass.  Counts
 // are integers, the same in any order of the atomics: the threshold does
 // not depend on the blocks' order.
+// level < 0: each row's own level (the float32 wide family, whose rows
+// may guess their first digit, below).  A guessing row (kGuess) takes its
+// guess where the pairs before the guessed bin (`below` [R, 2]: the
+// count in below[2 row], zeroed here) fall short of its k and those in it
+// reach it, and then fixes its next digit as any row; else it starts over
+// from no digit.
 template <typename K>
 __global__ void sel_pick(int R, int k, int level, int ibits, int cap,
-                         SelRow<K>* st, unsigned* ghist) {
+                         SelRow<K>* st, unsigned* ghist,
+                         int* below = nullptr) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (row >= R) return;
   SelRow<K> r = st[row];
-  if (r.mode != kCounting) return;
+  if (r.mode != kCounting && r.mode != kGuess) return;
+  if (level < 0) level = r.level;
   unsigned* g = ghist + static_cast<size_t>(row) * kBins;
   unsigned c[8], sum = 0;
 #pragma unroll
@@ -1521,6 +1570,19 @@ __global__ void sel_pick(int R, int k, int level, int ibits, int cap,
   for (int off = 1; off < 32; off <<= 1) {
     const unsigned v = __shfl_up_sync(0xffffffffu, inc, off);
     if (lane >= off) inc += v;
+  }
+  if (r.mode == kGuess) {
+    const int b = below[2 * row];
+    const unsigned in_bin = __shfl_sync(0xffffffffu, inc, 31);
+    __syncwarp();
+    if (lane == 0) below[2 * row] = 0;
+    if (!(b < k && static_cast<unsigned>(k - b) <= in_bin)) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) g[lane * 8 + e] = 0u;
+      if (lane == 0) st[row] = SelRow<K>{K(0), 0u, 0, 0, 0, kCounting};
+      return;
+    }
+    r.below = b;
   }
   const unsigned need = static_cast<unsigned>(k - r.below);
   const unsigned excl = inc - sum;
@@ -1864,6 +1926,51 @@ __global__ void sel_step(typename Sel<T>::Pair* big, int R, long long P,
   }
 }
 
+// After the emission: one block a row sorts its pairs (past kSortMax,
+// blocks of the row's tiles and network steps in global memory) and
+// writes its first k.
+template <typename T>
+cudaError_t launch_sel_sort(const T* ref, int D, int R, int k,
+                            const SelPlan& p,
+                            const SelRow<typename Sel<T>::Key>* st,
+                            const int* cnt, const typename Sel<T>::Pair* bnd,
+                            typename Sel<T>::Pair* big, T* d2, long long* idx,
+                            cudaStream_t stream) {
+  using Pr = typename Sel<T>::Pair;
+  const long long Pb = std::min<long long>(p.P, kSortMax);
+  const size_t smem = sort_smem<Pr>(Pb);
+  cudaError_t e = cudaFuncSetAttribute(
+      sel_sort<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int threads = static_cast<int>(Pb / kSortE);
+  if (p.P <= kSortMax) {
+    sel_sort<T><<<dim3(R, 1), threads, smem, stream>>>(
+        ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, 2, p.P, 0, 1);
+    return cudaGetLastError();
+  }
+  const dim3 tiles(R, static_cast<unsigned>(p.P / kSortMax));
+  const int blocks = static_cast<int>(std::min<long long>(
+      65535, (static_cast<long long>(R) * p.P / 2 + 255) / 256));
+  sel_gather<T><<<blocks, 256, 0, stream>>>(R, k, p.cap, p.P, st, cnt, bnd,
+                                            big, d2, idx);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  sel_sort<T><<<tiles, threads, smem, stream>>>(
+      ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, 2, kSortMax, 1, 0);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  for (long long s = 2LL * kSortMax; s <= p.P; s <<= 1) {
+    for (long long j = s / 2; j >= kSortMax; j >>= 1) {
+      sel_step<T><<<blocks, 256, 0, stream>>>(big, R, p.P, s, j);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    sel_sort<T><<<tiles, threads, smem, stream>>>(
+        ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, s, s, 1,
+        s == p.P);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 // k >= kSelectK or k = N: select, then sort.  The counting passes fix the
 // (key, index) threshold of each row digit by digit until the pairs in
 // its bin complete its k or fit its boundary buffer; the emission writes
@@ -1927,50 +2034,24 @@ cudaError_t launch_nnk_select(const T* ref, const T* nbr, int R, int N,
   sel_emit<T, D><<<grid, kSelRows, 0, stream>>>(
       ref, nbr, R, N, k, chunk, p.ibits, p.cap, st, cnt, bnd, d2, idx);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const long long Pb = std::min<long long>(p.P, kSortMax);
-  const size_t smem = sort_smem<Pr>(Pb);
-  e = cudaFuncSetAttribute(sel_sort<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const int threads = static_cast<int>(Pb / kSortE);
-  if (p.P <= kSortMax) {
-    sel_sort<T><<<dim3(R, 1), threads, smem, stream>>>(
-        ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, 2, p.P, 0, 1);
-    return cudaGetLastError();
-  }
-  const dim3 tiles(R, static_cast<unsigned>(p.P / kSortMax));
-  const int blocks = static_cast<int>(std::min<long long>(
-      65535, (static_cast<long long>(R) * p.P / 2 + 255) / 256));
-  sel_gather<T><<<blocks, 256, 0, stream>>>(R, k, p.cap, p.P, st, cnt, bnd,
-                                            big, d2, idx);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  sel_sort<T><<<tiles, threads, smem, stream>>>(
-      ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, 2, kSortMax, 1, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  for (long long s = 2LL * kSortMax; s <= p.P; s <<= 1) {
-    for (long long j = s / 2; j >= kSortMax; j >>= 1) {
-      sel_step<T><<<blocks, 256, 0, stream>>>(big, R, p.P, s, j);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    }
-    sel_sort<T><<<tiles, threads, smem, stream>>>(
-        ref, D, k, p.cap, p.P, st, cnt, bnd, big, d2, idx, s, s, 1,
-        s == p.P);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  return cudaSuccess;
+  return launch_sel_sort<T>(ref, D, R, k, p, st, cnt, bnd, big, d2, idx,
+                            stream);
 }
 
-// Whether nnk's register-tiled family (D <= 8) takes the select path.
-bool takes_select(int N, int k, bool f64) {
-  return k >= (f64 ? kSelectK64 : kSelectK) || k == N;
+// The crossover k of nnk's register-tiled family (D <= 8) for R rows,
+// and whether a call takes the select path.
+int select_k(int R, bool f64) {
+  return R <= kSmallR ? kSelectKSmallR : f64 ? kSelectK64 : kSelectK;
+}
+bool takes_select(int R, int N, int k, bool f64) {
+  return k >= select_k(R, f64) || k == N;
 }
 
 template <typename T, int D>
 cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
                        int splits, void* scratch, T* part_s, int* part_i,
                        T* d2, long long* idx, cudaStream_t stream) {
-  if (takes_select(N, k, sizeof(T) == sizeof(double)))
+  if (takes_select(R, N, k, sizeof(T) == sizeof(double)))
     return launch_nnk_select<T, D>(ref, nbr, R, N, k, scratch, d2, idx,
                                    stream);
   if (k > kMaxK)
@@ -1992,7 +2073,8 @@ cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
 cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
                             int D, int k, int splits, float* scratch,
                             float* part_s, int* part_i, float* d2,
-                            long long* idx, cudaStream_t stream);
+                            long long* idx, cudaStream_t stream,
+                            bool merge = false);
 cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
                             int N, int D, int k, int splits, float* scratch,
                             double* part_s, int* part_i, double* d2,
@@ -2189,8 +2271,7 @@ nnk_wide_scan_f64(const T* __restrict__ ref, const T* __restrict__ nbr,
   }
 }
 
-// nnk_wide_scan_f64 at k > kMaxK (float64, and float32 where the
-// tensor-core scan's buffers do not fit): thread r < 64 keeps row row0 + r,
+// nnk_wide_scan_f64 at k > kMaxK (float64): thread r < 64 keeps row row0 + r,
 // its candidates of a tile (its scores under the k-th s, or every
 // neighbour until the list holds k) appended to its buffer as
 // nnk_scan_big appends them, the stored score itself; warps 0 and 1 merge
@@ -2332,7 +2413,8 @@ constexpr int kTcRows = kPanel * kGroups;       // reference rows a block
 constexpr int kTcThreads = 128 * kGroups + 32;  // and one producer warp
 constexpr int kTcChunk = 64;        // coordinates a stage holds, most
 constexpr int kBlockDim = 32;       // coordinates a fresh sum, 40 at most
-constexpr int kMaxStages = 4;
+constexpr int kMaxStages = 8;       // stages a ring, most (a block a stage)
+constexpr int kMaxChunkStages = 4;  // and a chunk a stage
 constexpr int kResidentDim = 128;   // padded D up to which rows stay resident
 constexpr int kBarBytes = 256;      // the mbarriers, at the head of the smem
 constexpr int kMinTcSplitTiles = 8; // tiles a split, least
@@ -2359,7 +2441,8 @@ __device__ __forceinline__ float tf32_rna(float x) {
 
 // Splits rows [0, panels * 64) of x [n, D] (zero past n and past D) into
 // the panels above; |row|^2 is the FMA chain from the first coordinate
-// (ref_sqnorm's), +inf past n.  One thread a row.
+// (ref_sqnorm's: in float64 past kLongNorm coordinates), +inf past n.
+// One thread a row.
 __global__ void tf32_split(const float* __restrict__ x, int n, int D, int Dp,
                            int panels, float* __restrict__ out) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
@@ -2369,6 +2452,7 @@ __global__ void tf32_split(const float* __restrict__ x, int n, int D, int Dp,
   const float* src = x + static_cast<size_t>(row) * D;
   const bool live = row < n;
   float sq = 0.f;
+  double sq64 = 0.0;
   for (int g = 0; g < Dp / 4; ++g) {
     float v[4], hi[4], lo[4];
 #pragma unroll
@@ -2376,6 +2460,8 @@ __global__ void tf32_split(const float* __restrict__ x, int n, int D, int Dp,
       const int c = 4 * g + e;
       v[e] = live && c < D ? src[c] : 0.f;
       sq = c == 0 ? __fmul_rn(v[e], v[e]) : __fmaf_rn(v[e], v[e], sq);
+      sq64 = __fma_rn(static_cast<double>(v[e]), static_cast<double>(v[e]),
+                      sq64);
       hi[e] = tf32_rna(v[e]);
       lo[e] = tf32_rna(__fsub_rn(v[e], hi[e]));
     }
@@ -2387,7 +2473,8 @@ __global__ void tf32_split(const float* __restrict__ x, int n, int D, int Dp,
     h[o] = make_float4(hi[0], hi[1], hi[2], hi[3]);
     l[o] = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
-  panel[2 * kPanel * Dp + r] = live ? sq : CUDART_INF_F;
+  panel[2 * kPanel * Dp + r] =
+      !live ? CUDART_INF_F : D > kLongNorm ? static_cast<float>(sq64) : sq;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -2403,6 +2490,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                                                uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Orders this thread's reads of shared memory through the generic proxy
+// before the async proxy's later writes there (the bulk copy that refills
+// a stage): a stage's |b|^2, read by plain loads, was overwritten under
+// them at 4096^2, intermittently, without it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -2505,28 +2600,57 @@ __device__ __forceinline__ void insert_lex(float d, int j, float* v,
   }
 }
 
-// How a call of the tensor-core scans is cut: Dp coordinates in chunks, the
-// block's rows resident or streamed with each stage, the ring's stages (as
-// many as fit beside `extra` bytes after the ring, at most max_stages) and
-// the dynamic shared memory.
+// How a call of the tensor-core scans is cut: Dp coordinates in chunks;
+// the block's rows resident or streamed with each stage; a stage's unit,
+// a chunk of up to 64 coordinates or one block of a fresh sum (32, or 40
+// where 8 are left: `blocks`), whose widest is unit_max; the ring's stages
+// (as many as fit beside `extra` bytes after the ring, at most
+// max_stages) and the dynamic shared memory.
 struct TcPlan {
-  int Dp, resident, stages, tiles, row_panels;
+  int Dp, resident, blocks, unit_max, stages, tiles, row_panels;
   size_t pf, smem;
 };
 
+// The end of the fresh sum's block of coordinates that starts at k0 in a
+// chunk of kc: 32 on, or the chunk's end where at most 40 are left.
+__host__ __device__ __forceinline__ int block_end(int kc, int k0) {
+  return kc - k0 <= kBlockDim + 8 ? kc : k0 + kBlockDim;
+}
+
+// The end of the stage unit that starts at u0 in a chunk of kc: the
+// chunk's, or the block's.
+__host__ __device__ __forceinline__ int unit_end(int kc, int u0,
+                                                 int blocks) {
+  return blocks ? block_end(kc, u0) : kc;
+}
+
+int unit_dim_max(int Dp, int blocks) {
+  int m = 0;
+  for (int c = 0; kTcChunk * c < Dp; ++c) {
+    const int kc = chunk_dim(Dp, c);
+    for (int u0 = 0, u1; u0 < kc; u0 = u1) {
+      u1 = unit_end(kc, u0, blocks);
+      m = std::max(m, u1 - u0);
+    }
+  }
+  return m;
+}
+
 TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages,
-               size_t extra = 0) {
+               size_t extra = 0, int resident = 1, int blocks = 0) {
   TcPlan p;
   p.Dp = (D + 7) / 8 * 8;
-  p.resident = p.Dp <= kResidentDim;
+  p.resident = resident && p.Dp <= kResidentDim;
+  p.blocks = blocks;
+  p.unit_max = unit_dim_max(p.Dp, blocks);
   p.tiles = (N + kPanel - 1) / kPanel;
   p.row_panels = kGroups * ((R + kTcRows - 1) / kTcRows);
   p.pf = panel_floats(p.Dp);
-  // a stage: a tile's chunk (hi, lo) and its |b|^2; streamed rows: the
-  // block's two panels' chunk too
-  const size_t kc = std::min(p.Dp, kTcChunk);
-  const size_t stage = 4 * (2 * kPanel * kc + kPanel +
-                            (p.resident ? 0 : 2 * kTcRows * kc));
+  // a stage: a tile's unit (hi, lo) and its |b|^2; streamed rows: the
+  // block's two panels' unit too
+  const size_t u = p.unit_max;
+  const size_t stage = 4 * (2 * kPanel * u + kPanel +
+                            (p.resident ? 0 : 2 * kTcRows * u));
   // and 256 bytes to align the base
   const size_t fixed = 256 + kBarBytes +
                        (p.resident ? 4 * kGroups * p.pf : 0) + extra;
@@ -2537,31 +2661,64 @@ TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages,
   return p;
 }
 
-// The scan of nn1 (K = 1) or nnk (K the list length) on the tensor cores:
-// rows [128 blockIdx.x, + 128) against the tiles [split_tiles blockIdx.y,
-// + split_tiles), each row's best into part_s / part_i [splits, k, R]
-// (nn1: [splits, R]).  Threads 0-255: two consumer warpgroups; warp 8:
-// the producer.
+// The select path's arguments of the tensor-core scan in its counting and
+// emission modes (launch_nnk_wide_select): the rows' states, their global
+// histograms [R, 256], the emission's counts [R, 2], the boundary buffers
+// [R, cap], the outputs' slots (idx's 8 bytes a pair) and k.
+struct TcSelect {
+  const SelRow<unsigned>* st;
+  unsigned* hist;
+  int* cnt;
+  unsigned long long* bnd;
+  long long* slots;
+  int ibits, cap, k;
+};
+
+// wide_tc_scan's K past the lists: the select path's counting passes (a
+// digit of each counting row, at the row's own level: of the key, then of
+// the index) and its emission.
+constexpr int kCount = -1;
+constexpr int kEmit = -2;
+
+// The scan of nn1 (K = 1), nnk (K the list length, kBig past 16) or the
+// select path's passes (kCount, kEmit) on the tensor cores: rows
+// [128 blockIdx.x, + 128) against every tile_step-th tile of
+// [split_tiles blockIdx.y, + split_tiles), each row's best into part_s /
+// part_i [splits, k, R]
+// (nn1: [splits, R]; kBig: [splits, R, k]), or its counts into
+// sel.hist, or its pairs into the slots.  Threads 0-255: two consumer
+// warpgroups; warp 8: the producer.  Every mode scores a pair with the
+// same products in the same order, so every mode sees the same s.
 template <int K>
 __global__ void __launch_bounds__(kTcThreads, 1)
 wide_tc_scan(const float* __restrict__ ref_pan,
              const float* __restrict__ nbr_pan, int R, int Dp, int resident,
-             int stages, int tiles, int split_tiles, int k,
-             float* __restrict__ part_s, int* __restrict__ part_i, int N) {
+             int blocks, int unit_max, int stages, int tiles,
+             int split_tiles, int tile_step, int k,
+             float* __restrict__ part_s, int* __restrict__ part_i, int N,
+             TcSelect sel) {
+  constexpr bool kCounts = K == kCount;
   extern __shared__ __align__(256) unsigned char smem_raw[];
+  if constexpr (kCounts) {
+    // blocks whose rows all have their threshold leave at once
+    const int row = kTcRows * blockIdx.x + threadIdx.x;
+    const bool live = threadIdx.x < kTcRows && row < R &&
+                      (sel.st[row].mode == kCounting ||
+                       sel.st[row].mode == kGuess);
+    if (!__syncthreads_or(live)) return;
+  }
   // the swizzle pattern repeats every 256 bytes of shared address
   unsigned char* smem = smem_raw + (256 - smem_addr(smem_raw) % 256) % 256;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   uint64_t* rows_in = empty + kMaxStages;
   const size_t pf = panel_floats(Dp);
-  const int kc_max = Dp < kTcChunk ? Dp : kTcChunk;
   const int chunks = (Dp + kTcChunk - 1) / kTcChunk;
   float* rows = reinterpret_cast<float*>(smem + kBarBytes);
   float* ring = rows + (resident ? kGroups * pf : 0);
-  const size_t b_floats = 2 * static_cast<size_t>(kPanel) * kc_max + kPanel;
+  const size_t b_floats = 2 * static_cast<size_t>(kPanel) * unit_max + kPanel;
   const size_t stage_floats =
-      b_floats + (resident ? 0 : 2 * static_cast<size_t>(kTcRows) * kc_max);
+      b_floats + (resident ? 0 : 2 * static_cast<size_t>(kTcRows) * unit_max);
   const int tile0 = blockIdx.y * split_tiles;
   const int tile1 = min(tiles, tile0 + split_tiles);
   const float* my_rows = ref_pan + static_cast<size_t>(kGroups) *
@@ -2588,24 +2745,45 @@ wide_tc_scan(const float* __restrict__ ref_pan,
       bulk_load(rows, my_rows, 4 * kGroups * pf, rows_in);
     }
     int it = 0;
-    for (int t = tile0; t < tile1; ++t) {
+    for (int t = tile0; t < tile1; t += tile_step) {
       const float* tile = nbr_pan + static_cast<size_t>(t) * pf;
-      for (int c = 0; c < chunks; ++c, ++it) {
-        const int s = it % stages, kc = chunk_dim(Dp, c);
-        if (it >= stages) mbar_wait(&empty[s], ((it / stages) - 1) & 1);
-        float* st = ring + s * stage_floats;
-        // the last chunk's copy runs on into the panel's |b|^2
-        const uint32_t b_bytes =
-            4 * (2 * kPanel * kc + (c == chunks - 1 ? kPanel : 0));
-        const uint32_t a_bytes = 4 * 2 * kPanel * kc;
-        mbar_expect_tx(&full[s],
-                       b_bytes + (resident ? 0 : kGroups * a_bytes));
+      for (int c = 0; c < chunks; ++c) {
+        const int kc = chunk_dim(Dp, c);
         const size_t off = 2 * static_cast<size_t>(kPanel) * kTcChunk * c;
-        bulk_load(st, tile + off, b_bytes, &full[s]);
-        if (!resident) {
-          for (int g = 0; g < kGroups; ++g)
-            bulk_load(st + b_floats + g * 2 * kPanel * kc,
-                      my_rows + g * pf + off, a_bytes, &full[s]);
+        for (int u0 = 0, u1; u0 < kc; u0 = u1, ++it) {
+          u1 = unit_end(kc, u0, blocks);
+          const int kw = u1 - u0, s = it % stages;
+          if (it >= stages) mbar_wait(&empty[s], ((it / stages) - 1) & 1);
+          float* st = ring + s * stage_floats;
+          // the last unit's lo words run on into the panel's |b|^2
+          const bool last = c == chunks - 1 && u1 == kc;
+          const uint32_t hi_bytes = 4 * kPanel * kw;
+          const uint32_t lo_bytes = hi_bytes + (last ? 4 * kPanel : 0);
+          const uint32_t a_bytes = 2 * hi_bytes;  // a panel's hi and lo
+          mbar_expect_tx(&full[s], hi_bytes + lo_bytes +
+                                       (resident ? 0 : kGroups * a_bytes));
+          if (kw == kc) {
+            // a whole chunk: hi and lo are contiguous
+            bulk_load(st, tile + off, hi_bytes + lo_bytes, &full[s]);
+            if (!resident) {
+              for (int g = 0; g < kGroups; ++g)
+                bulk_load(st + b_floats + g * 2 * kPanel * kw,
+                          my_rows + g * pf + off, a_bytes, &full[s]);
+            }
+          } else {
+            // a block of it: its k-steps of the hi words, of the lo words
+            const size_t hi = off + kPanel * u0, lo = hi + kPanel * kc;
+            bulk_load(st, tile + hi, hi_bytes, &full[s]);
+            bulk_load(st + kPanel * kw, tile + lo, lo_bytes, &full[s]);
+            if (!resident) {
+              for (int g = 0; g < kGroups; ++g) {
+                float* a = st + b_floats + g * 2 * kPanel * kw;
+                bulk_load(a, my_rows + g * pf + hi, hi_bytes, &full[s]);
+                bulk_load(a + kPanel * kw, my_rows + g * pf + lo, hi_bytes,
+                          &full[s]);
+              }
+            }
+          }
         }
       }
     }
@@ -2619,10 +2797,47 @@ wide_tc_scan(const float* __restrict__ ref_pan,
   // part_i; the state of each of this thread's rows (its list's length,
   // its buffer's count and its k-th pair), the same on the row's four
   // threads
-  const BigLists<float> L(
-      reinterpret_cast<unsigned char*>(ring + stages * stage_floats),
-      kTcRows, k, part_s, part_i, R, kTcRows * blockIdx.x);
+  unsigned char* past_ring =
+      reinterpret_cast<unsigned char*>(ring + stages * stage_floats);
+  const BigLists<float> L(past_ring, kTcRows, k, part_s, part_i, R,
+                          kTcRows * blockIdx.x);
   if constexpr (K == kBig) L.init();
+  // the select path: the bounds of each of this thread's rows' prefix
+  // (bounds no score meets where the row does not count or emit); in the
+  // counting passes each row's digit (its shift, of the key or of the
+  // index), whether it guesses, its pairs before the prefix so far, and
+  // its counters past the ring (two 16-bit counts a word; a warp's 16
+  // rows are its own)
+  SelBounds<float> bd[2];
+  bool take[2] = {false, false}, by_index[2] = {false, false};
+  bool guess[2] = {false, false};
+  int sh[2] = {0, 0};
+  unsigned below[2] = {0u, 0u};
+  unsigned emit_out[2] = {0u, 0u}, emit_bnd[2] = {0u, 0u};
+  unsigned* counters = reinterpret_cast<unsigned*>(past_ring);
+  if constexpr (kCounts || K == kEmit) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      const SelRow<unsigned> r =
+          row < R ? sel.st[row] : SelRow<unsigned>{0u, 0u, 0, 0, 0, -1};
+      const bool live =
+          kCounts ? r.mode == kCounting || r.mode == kGuess : row < R;
+      bd[h] = live ? sel_bounds<float, unsigned>(r.pk, r.pj, r.level,
+                                                 sel.ibits)
+                   : SelBounds<float>{CUDART_INF_F, -CUDART_INF_F, 1u, 0u};
+      take[h] = r.mode == kTakeAll;
+      guess[h] = r.mode == kGuess;
+      by_index[h] = r.level >= 4;
+      sh[h] = by_index[h] ? sel.ibits - 8 * (r.level - 4 + 1)
+                          : 8 * (4 - 1 - r.level);
+    }
+  }
+  if constexpr (kCounts) {
+    unsigned* mine = counters + (kPanel * g + 16 * w) * kHistStride;
+    for (int e = lane; e < 16 * kHistStride; e += 32) mine[e] = 0u;
+    __syncwarp();
+  }
   int big_n[2] = {0, 0}, big_cnt[2] = {0, 0}, thr_i[2] = {INT_MAX, INT_MAX};
   float thr_s[2] = {CUDART_INF_F, CUDART_INF_F};
   float best[2] = {CUDART_INF_F, CUDART_INF_F};
@@ -2643,55 +2858,62 @@ wide_tc_scan(const float* __restrict__ ref_pan,
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   int it = 0;
-  for (int t = tile0; t < tile1; ++t) {
+  for (int t = tile0; t < tile1; t += tile_step) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) total[i] = 0.f;
-    for (int c = 0; c < chunks; ++c, ++it) {
-      const int s = it % stages, kc = chunk_dim(Dp, c);
-      mbar_wait(&full[s], (it / stages) & 1);
-      const float* st = ring + s * stage_floats;
-      const float* a_hi =
-          resident ? rows + g * pf + 2 * kPanel * kTcChunk * c
-                   : st + b_floats + g * 2 * kPanel * kc;
-      const float* a_lo = a_hi + kPanel * kc;
-      const float* b_hi = st;
-      const float* b_lo = st + kPanel * kc;
-      // a k-step of 8 coordinates is a [64][8] block: 512 floats.  Each
-      // block of 32 coordinates (40 where 8 are left) is summed fresh,
-      // small products first, big ones last, and added to `total`
-      // rounded to nearest
-      for (int k0 = 0, k1; k0 < kc; k0 = k1) {
-        k1 = kc - k0 <= kBlockDim + 8 ? kc : k0 + kBlockDim;
-        __syncwarp();
-        fence_operands(acc);
-        wgmma_fence();
-        for (int j = k0 / 8; j < k1 / 8; ++j)
-          wgmma_64x64x8(acc, operand_desc(a_lo + 512 * j),
-                        operand_desc(b_hi + 512 * j), j > k0 / 8);
-        for (int j = k0 / 8; j < k1 / 8; ++j)
-          wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
-                        operand_desc(b_lo + 512 * j), 1);
-        for (int j = k0 / 8; j < k1 / 8; ++j)
-          wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
-                        operand_desc(b_hi + 512 * j), 1);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_operands(acc);
+    for (int c = 0; c < chunks; ++c) {
+      const int kc = chunk_dim(Dp, c);
+      const size_t off = 2 * static_cast<size_t>(kPanel) * kTcChunk * c;
+      for (int u0 = 0, u1; u0 < kc; u0 = u1, ++it) {
+        u1 = unit_end(kc, u0, blocks);
+        const int kw = u1 - u0, s = it % stages;
+        mbar_wait(&full[s], (it / stages) & 1);
+        const float* st = ring + s * stage_floats;
+        // the unit's first k-step of each operand
+        const float* a_hi = resident ? rows + g * pf + off + kPanel * u0
+                                     : st + b_floats + g * 2 * kPanel * kw;
+        const float* a_lo =
+            resident ? a_hi + kPanel * kc : a_hi + kPanel * kw;
+        const float* b_hi = st;
+        const float* b_lo = st + kPanel * kw;
+        // a k-step of 8 coordinates is a [64][8] block: 512 floats.  Each
+        // block of 32 coordinates (40 where 8 are left) is summed fresh,
+        // small products first, big ones last, and added to `total`
+        // rounded to nearest
+        for (int k0 = u0, k1; k0 < u1; k0 = k1) {
+          k1 = block_end(kc, k0);
+          __syncwarp();
+          fence_operands(acc);
+          wgmma_fence();
+          for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
+            wgmma_64x64x8(acc, operand_desc(a_lo + 512 * j),
+                          operand_desc(b_hi + 512 * j), j > (k0 - u0) / 8);
+          for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
+            wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
+                          operand_desc(b_lo + 512 * j), 1);
+          for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
+            wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
+                          operand_desc(b_hi + 512 * j), 1);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_operands(acc);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) total[i] = __fadd_rn(total[i], acc[i]);
-      }
-      if (c == chunks - 1) {
-        // |b|^2 of this thread's columns 8 j + 2 q (+ 1)
-        const float2* bn2 =
-            reinterpret_cast<const float2*>(st + 2 * kPanel * kc);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 x = bn2[4 * j + q];
-          bn[2 * j] = x.x;
-          bn[2 * j + 1] = x.y;
+          for (int i = 0; i < 32; ++i) total[i] = __fadd_rn(total[i], acc[i]);
         }
+        if (c == chunks - 1 && u1 == kc) {
+          // |b|^2 of this thread's columns 8 j + 2 q (+ 1)
+          const float2* bn2 =
+              reinterpret_cast<const float2*>(st + 2 * kPanel * kw);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 x = bn2[4 * j + q];
+            bn[2 * j] = x.x;
+            bn[2 * j + 1] = x.y;
+          }
+          fence_proxy_async();
+        }
+        mbar_arrive(&empty[s]);
       }
-      mbar_arrive(&empty[s]);
     }
     // accumulator i holds row r0 + 8 ((i >> 1) & 1), column
     // 8 (i >> 2) + 2 q + (i & 1): each row's 16 in ascending column
@@ -2715,6 +2937,40 @@ wide_tc_scan(const float* __restrict__ ref_pan,
           for (int e = 14; e >= 0; --e) f = sc[e] == m ? e : f;
           best[h] = m;
           bidx[h] = col0 + 8 * (f >> 1) + (f & 1);
+        }
+      } else if constexpr (kCounts) {
+        // the digit of each pair that shares the row's prefix into the
+        // row's counters; the pairs before the prefix counted alone
+        unsigned* hr =
+            counters + (kPanel * g + 16 * w + lane / 4 + 8 * h) * kHistStride;
+        const bool whole = kPanel * (t + 1) <= N;  // no column past N
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const unsigned col = col0 + 8 * (e >> 1) + (e & 1);
+          const bool real = whole || col < static_cast<unsigned>(N);
+          below[h] += real && sc[e] < bd[h].lo ? 1u : 0u;
+          if (real && sc[e] >= bd[h].lo && sc[e] <= bd[h].hi &&
+              col >= bd[h].jlo && col <= bd[h].jhi) {
+            const unsigned d = (by_index[h] ? col >> sh[h]
+                                            : Sel<float>::key(sc[e]) >> sh[h]) &
+                               (kBins - 1);
+            atomicAdd(&hr[d >> 1], 1u << ((d & 1u) * 16));
+          }
+        }
+      } else if constexpr (K == kEmit) {
+        // the pairs before the row's prefix (and the prefix's own where
+        // they complete the k), for the row's slots, and the others that
+        // share it, for its boundary buffer (written below)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const unsigned col = col0 + 8 * (e >> 1) + (e & 1);
+          if (col < static_cast<unsigned>(N) && sc[e] <= bd[h].hi &&
+              (sc[e] < bd[h].lo || col <= bd[h].jhi)) {
+            if (take[h] || sc[e] < bd[h].lo || col < bd[h].jlo)
+              emit_out[h] |= 1u << e;
+            else
+              emit_bnd[h] |= 1u << e;
+          }
         }
       } else if constexpr (K == kBig) {
         // the row's candidates: every neighbour until its list holds k,
@@ -2788,7 +3044,86 @@ wide_tc_scan(const float* __restrict__ ref_pan,
         }
       }
     }
+    if constexpr (K == kEmit) {
+      // a row's pairs of the tile take their slots by one atomic a kind
+      // (the four threads' counts scanned by shuffles), both rows' in
+      // flight at once; then each thread writes its own
+      int at[2][2], first[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int pc = __popc(b ? emit_bnd[h] : emit_out[h]);
+          int incl = pc;
+          int up = __shfl_up_sync(0xffffffffu, incl, 1, 4);
+          if (q >= 1) incl += up;
+          up = __shfl_up_sync(0xffffffffu, incl, 2, 4);
+          if (q >= 2) incl += up;
+          at[h][b] = incl - pc;
+          first[h][b] = 0;
+          if (q == 3 && incl > 0)
+            first[h][b] = atomicAdd(&sel.cnt[2 * (r0 + 8 * h) + b], incl);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t row = static_cast<size_t>(r0 + 8 * h);
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          unsigned m = b ? emit_bnd[h] : emit_out[h];
+          int o = __shfl_sync(0xffffffffu, first[h][b], 3, 4) + at[h][b];
+          while (m) {
+            const int e = __ffs(m) - 1;
+            m &= m - 1;
+            // the pair's s again, its operands picked without indexing the
+            // arrays by a variable (which would put them in local memory)
+            const int i = 4 * (e >> 1) + 2 * h + (e & 1);
+            float tv = total[0], bv = bn[0];
+#pragma unroll
+            for (int f = 1; f < 32; ++f) tv = f == i ? total[f] : tv;
+#pragma unroll
+            for (int f = 1; f < 16; ++f) bv = f == e ? bn[f] : bv;
+            const unsigned long long p = Sel<float>::pair(
+                Sel<float>::key(__fmaf_rn(-2.f, tv, bv)),
+                col0 + 8 * (e >> 1) + (e & 1));
+            if (b)
+              sel.bnd[row * sel.cap + o++] = p;
+            else
+              Sel<float>::put(nullptr, sel.slots, row * sel.k + o++, p);
+          }
+        }
+        emit_out[h] = emit_bnd[h] = 0u;
+      }
+    }
   }
+  if constexpr (kCounts) {
+    // a guessing row's pairs before its prefix, summed over its four
+    // threads, into its count for sel_pick; then the warp adds its 16
+    // rows' counts to their global histograms
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned b = below[h];
+      b += __shfl_xor_sync(0xffffffffu, b, 1);
+      b += __shfl_xor_sync(0xffffffffu, b, 2);
+      if (q == 0 && guess[h] && b)
+        atomicAdd(&sel.cnt[2 * (r0 + 8 * h)], static_cast<int>(b));
+    }
+    __syncwarp();
+    for (int r = 0; r < 16; ++r) {
+      const int rb = kPanel * g + 16 * w + r;
+      const int row = kTcRows * blockIdx.x + rb;
+      if (row >= R) break;
+      const unsigned* hr = counters + rb * kHistStride;
+      unsigned* gh = sel.hist + static_cast<size_t>(row) * kBins;
+      for (int x = lane; x < kBins / 2; x += 32) {
+        const unsigned c = hr[x];
+        if (c & 0xffffu) atomicAdd(&gh[2 * x], c & 0xffffu);
+        if (c >> 16) atomicAdd(&gh[2 * x + 1], c >> 16);
+      }
+    }
+    return;
+  }
+  if constexpr (K == kEmit) return;
   if constexpr (K == kBig) {
     // the last merges
 #pragma unroll
@@ -2858,8 +3193,8 @@ wide_tc_scan(const float* __restrict__ ref_pan,
   }
 }
 
-// Blocks of the scan of list length K an SM holds with `smem` bytes of
-// dynamic shared memory (0 on a query failure).
+// Blocks of the scan of mode K an SM holds with `smem` bytes of dynamic
+// shared memory (0 on a query failure).
 template <int K>
 int blocks_per_sm(size_t smem) {
   int n = 0;
@@ -2872,65 +3207,73 @@ int blocks_per_sm(size_t smem) {
   return n;
 }
 
-// tc_plan with the most stages (2 to 4) among those that let the most
-// blocks share an SM: at D = 33 two blocks of two stages took 2.37 ms
-// where one of four took 3.27 (PERF.md); *per_sm gets that count.
+// The bytes past the ring of the scan of mode K: at k > kMaxK the buffers
+// and the warps' counters, in the counting passes 256 counters a row.
 template <int K>
-TcPlan tc_plan_for(int R, int N, int D, int* per_sm, size_t extra = 0) {
+size_t tc_extra() {
+  return K == kBig ? big_bytes(kTcRows, kTcThreads, sizeof(float))
+         : K == kCount ? sizeof(unsigned) * kTcRows * kHistStride
+             : 0;
+}
+
+// The plan of the scan of mode K: the first of these that holds two
+// stages and a block an SM, with the most stages among those that let the
+// most blocks share an SM (at D = 33 two blocks of two stages took 2.37 ms
+// where one of four took 3.27, PERF.md): the rows resident (to 128 padded
+// coordinates) and a chunk a stage, as every mode up to k = 16 at every D;
+// resident and a block a stage; streamed and a chunk; streamed and a
+// block.  Past k = 16 and in the select path's counting passes the 66 KB
+// past the ring leave no room for the first at D = 128, and the last
+// holds at any D.  *per_sm gets the blocks an SM (0: none fits).
+template <int K>
+TcPlan tc_plan_k(int R, int N, int D, int* per_sm) {
   const int smem_max = smem_optin();
-  TcPlan best = tc_plan(R, N, D, smem_max, kMaxStages, extra);
-  *per_sm = best.stages < 2 ? 0 : blocks_per_sm<K>(best.smem);
-  for (int st = best.stages - 1; st >= 2; --st) {
-    const TcPlan p = tc_plan(R, N, D, smem_max, st, extra);
-    const int n = blocks_per_sm<K>(p.smem);
-    if (n > *per_sm) {
-      best = p;
-      *per_sm = n;
+  const size_t extra = tc_extra<K>();
+  TcPlan best{};
+  *per_sm = 0;
+  for (const int layout : {0, 1, 2, 3}) {
+    const int resident = layout < 2, blocks = layout % 2;
+    const int most = blocks ? kMaxStages : kMaxChunkStages;
+    best = tc_plan(R, N, D, smem_max, most, extra, resident, blocks);
+    *per_sm = best.stages < 2 ? 0 : blocks_per_sm<K>(best.smem);
+    for (int st = best.stages - 1; st >= 2; --st) {
+      const TcPlan p =
+          tc_plan(R, N, D, smem_max, st, extra, resident, blocks);
+      const int n = blocks_per_sm<K>(p.smem);
+      if (n > *per_sm) {
+        best = p;
+        *per_sm = n;
+      }
     }
+    if (*per_sm >= 1) break;
   }
   return best;
 }
 
-// tc_plan_for; at k > kMaxK (K = kBig) with the buffers and counters past
-// the ring.
+// Splits of the tiles for the tensor-core scan of mode K: the count (each
+// split at least kMinTcSplitTiles tiles, at most max_tiles) whose waves of
+// blocks, at the blocks an SM the kernel holds, take the fewest tile-steps
+// (two more a block for its start); at k > kMaxK at most kMaxBigSplits
+// and what kPartBudget holds; 0 where no plan fits or on a device query
+// failure.
 template <int K>
-TcPlan tc_plan_k(int R, int N, int D, int* per_sm) {
-  return tc_plan_for<K>(R, N, D, per_sm,
-                        K == kBig ? big_bytes(kTcRows, kTcThreads,
-                                              sizeof(float))
-                                  : 0);
-}
-
-// Whether the tensor-core scan at k > kMaxK fits an SM: its rows (resident
-// up to 128 padded coordinates), two stages and the buffers fit 227 KB up
-// to 96 padded coordinates; past that float32 takes the SIMT wide scan.
-bool tc_big_fits(int R, int N, int D) {
-  int per_sm = 0;
-  const TcPlan p = tc_plan_k<kBig>(R, N, D, &per_sm);
-  return p.stages >= 2 && per_sm >= 1;
-}
-
-// Splits of the tiles for the tensor-core scan of list length K: the count
-// (each split at least kMinTcSplitTiles tiles) whose waves of blocks, at
-// the blocks an SM the kernel holds, take the fewest tile-steps (two more a
-// block for its start); at k > kMaxK at most kMaxBigSplits and what
-// kPartBudget holds; 0 on a device query failure.
-template <int K>
-int tc_splits(int R, int N, int D, int k = 0) {
+int tc_splits(int R, int N, int D, int k = 0, int max_tiles = INT_MAX) {
   int dev = 0, sms = 0, per_sm = 0;
   const TcPlan p = tc_plan_k<K>(R, N, D, &per_sm);
-  if (p.stages < 2 || per_sm < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+  if (per_sm < 1 || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     return 0;
   const long long row_blocks = p.row_panels / kGroups;
   const long long slots = static_cast<long long>(sms) * per_sm;
-  const int most = std::max(1, std::min(64, p.tiles / kMinTcSplitTiles));
-  int best = 1;
+  const int most = std::max({1, std::min(64, p.tiles / kMinTcSplitTiles),
+                             p.tiles / max_tiles + 1});
+  int best = 0;
   long long best_cost = -1;
   for (int s = 1; s <= most; ++s) {
     const int per = (p.tiles + s - 1) / s;
     const int used = (p.tiles + per - 1) / per;
+    if (per > max_tiles) continue;
     if (K == kBig &&
         (used > kMaxBigSplits ||
          static_cast<size_t>(used) * R * k * 8 > std::max<size_t>(
@@ -2945,23 +3288,29 @@ int tc_splits(int R, int N, int D, int k = 0) {
   return best;
 }
 
+// The split pre-pass of both clouds into `scratch` (the reference rows'
+// panels, then the neighbours'), then the scan of mode K on `splits`
+// splits of the tiles, every tile_step-th tile of each.
 template <int K>
-cudaError_t launch_tc(const float* ref, const float* nbr, int R, int N, int D,
-                      int k, int splits, float* scratch, float* part_s,
-                      int* part_i, float* d2, long long* idx,
-                      cudaStream_t stream) {
+cudaError_t launch_tc_scan(const float* ref, const float* nbr, int R, int N,
+                           int D, int k, int splits, float* scratch,
+                           float* part_s, int* part_i, const TcSelect& sel,
+                           bool split_clouds, cudaStream_t stream,
+                           int tile_step = 1) {
   int per_sm = 0;
   const TcPlan p = tc_plan_k<K>(R, N, D, &per_sm);
-  if (scratch == nullptr || p.stages < 2 || per_sm < 1)
+  if (scratch == nullptr || per_sm < 1 || splits < 1)
     return cudaErrorInvalidValue;
   float* ref_pan = scratch;
   float* nbr_pan = scratch + static_cast<size_t>(p.row_panels) * p.pf;
-  tf32_split<<<(p.row_panels * kPanel + 127) / 128, 128, 0, stream>>>(
-      ref, R, D, p.Dp, p.row_panels, ref_pan);
-  tf32_split<<<(p.tiles * kPanel + 127) / 128, 128, 0, stream>>>(
-      nbr, N, D, p.Dp, p.tiles, nbr_pan);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  cudaError_t e;
+  if (split_clouds) {
+    tf32_split<<<(p.row_panels * kPanel + 127) / 128, 128, 0, stream>>>(
+        ref, R, D, p.Dp, p.row_panels, ref_pan);
+    tf32_split<<<(p.tiles * kPanel + 127) / 128, 128, 0, stream>>>(
+        nbr, N, D, p.Dp, p.tiles, nbr_pan);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
   e = cudaFuncSetAttribute(wide_tc_scan<K>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(p.smem));
@@ -2969,9 +3318,19 @@ cudaError_t launch_tc(const float* ref, const float* nbr, int R, int N, int D,
   const int split_tiles = (p.tiles + splits - 1) / splits;
   const dim3 grid(p.row_panels / kGroups, splits);
   wide_tc_scan<K><<<grid, kTcThreads, p.smem, stream>>>(
-      ref_pan, nbr_pan, R, p.Dp, p.resident, p.stages, p.tiles, split_tiles,
-      k, part_s, part_i, N);
-  e = cudaGetLastError();
+      ref_pan, nbr_pan, R, p.Dp, p.resident, p.blocks, p.unit_max, p.stages,
+      p.tiles, split_tiles, tile_step, k, part_s, part_i, N, sel);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_tc(const float* ref, const float* nbr, int R, int N, int D,
+                      int k, int splits, float* scratch, float* part_s,
+                      int* part_i, float* d2, long long* idx,
+                      cudaStream_t stream) {
+  cudaError_t e = launch_tc_scan<K>(ref, nbr, R, N, D, k, splits, scratch,
+                                    part_s, part_i, TcSelect{}, true,
+                                    stream);
   if (e != cudaSuccess) return e;
   if constexpr (K == 1)
     nn1_merge<float, 0><<<(R + 255) / 256, 256, 0, stream>>>(
@@ -2993,17 +3352,165 @@ cudaError_t launch_nn1_wide(const float* ref, const float* nbr, int R, int N,
                       d2, idx, stream);
 }
 
+// The crossover k of the float32 wide family (D > 8), and whether a call
+// takes the select path; float64 wide clouds keep the merge scan.  One k
+// at both measured widths (and rows: 50,000 at D = 33, 20,000 at 128).
+int wide_select_k(int R, int D) {
+  (void)R;
+  (void)D;
+  return kWideSelectK;
+}
+bool wide_takes_select(int R, int N, int D, int k) {
+  return k >= wide_select_k(R, D) || k == N;
+}
+
+// The wide select path's sample: every kSampleStride-th tile of each
+// counting split, taken where the rank of the k-th pair in it is at least
+// kMinSampleRank.
+constexpr int kSampleStride = 8;
+constexpr int kMinSampleRank = 32;
+
+// After the sample pass: each counting row's first digit guessed, the bin
+// of its ks-th sampled pair (ks = k sampled / N rounded up: the bin where
+// its k-th pair would fall were the sample the whole), which the next
+// pass checks (sel_pick); the histogram zeroed.  A row whose sample holds
+// fewer than ks pairs keeps counting from no digit.
+template <typename K>
+__global__ void sel_guess(int R, int ks, SelRow<K>* st, unsigned* ghist) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= R || st[row].mode != kCounting) return;
+  unsigned* g = ghist + static_cast<size_t>(row) * kBins;
+  unsigned c[8], sum = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    c[e] = g[lane * 8 + e];
+    sum += c[e];
+    g[lane * 8 + e] = 0u;
+  }
+  unsigned inc = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned v = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += v;
+  }
+  const unsigned need = static_cast<unsigned>(ks), excl = inc - sum;
+  const unsigned owner =
+      __ballot_sync(0xffffffffu, excl < need && need <= inc);
+  if (!owner || lane != __ffs(owner) - 1) return;
+  unsigned d = 0, acc = excl;
+  bool got = false;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    acc += c[e];
+    if (!got && acc >= need) {
+      d = lane * 8 + e;
+      got = true;
+    }
+  }
+  st[row] = SelRow<K>{static_cast<K>(d) << (8 * (sizeof(K) - 1)), 0u, 1, 0,
+                      0, kGuess};
+}
+
+// Bytes of the float32 split clouds (ppt_knn_scratch's floats), rounded
+// up to 256.
+size_t tc_panel_bytes(int R, int N, int D) {
+  const TcPlan p = tc_plan(R, N, D, 0, kMaxStages);
+  return (4 * static_cast<size_t>(p.row_panels + p.tiles) * p.pf + 255) /
+         256 * 256;
+}
+
+// The float32 wide family at k >= wide_select_k or k = N: select, then
+// sort, as launch_nnk_select, with every pass a mode of the tensor-core
+// scan (the merge scan's products, sums and s: the same bits).  Each
+// full counting pass costs its scan and ~10 SIMT instructions a pair
+// (PERF.md), so the first digit, which a row's key takes two or three
+// values of, is guessed from a sample (sel_guess) and checked by the
+// pass that counts the second (sel_pick): a random cloud then takes one
+// full counting pass where the digit walk took two.  The counting
+// passes run every row at its own level (a failed guess starts over),
+// as many as the digits and one more.  The scratch holds the split
+// clouds (tc_panel_bytes), then the select path's state (sel_plan, with
+// no fused k = N).  The counting passes' splits hold at most
+// kMaxSelChunk neighbours (a 16-bit count never carries).
+cudaError_t launch_nnk_wide_select(const float* ref, const float* nbr, int R,
+                                   int N, int D, int k, void* scratch,
+                                   float* d2, long long* idx,
+                                   cudaStream_t stream) {
+  using S = Sel<float>;
+  using Pr = S::Pair;
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const SelPlan p = sel_plan<float>(R, N, k, false);
+  float* pan = static_cast<float*>(scratch);
+  unsigned char* base =
+      static_cast<unsigned char*>(scratch) + tc_panel_bytes(R, N, D);
+  auto* st = reinterpret_cast<SelRow<unsigned>*>(base + p.st);
+  auto* hist = reinterpret_cast<unsigned*>(base + p.hist);
+  auto* cnt = reinterpret_cast<int*>(base + p.cnt);
+  auto* bnd = reinterpret_cast<Pr*>(base + p.bnd);
+  auto* big = reinterpret_cast<Pr*>(base + p.big);
+  const int count_splits =
+      tc_splits<kCount>(R, N, D, 0, kMaxSelChunk / kPanel);
+  const int emit_splits = tc_splits<kEmit>(R, N, D);
+  if (count_splits < 1 || emit_splits < 1) return cudaErrorInvalidValue;
+  const int fill = static_cast<int>(std::min<size_t>(
+      65535, (static_cast<size_t>(R) * kBins + 255) / 256));
+  sel_init<unsigned><<<fill, 256, 0, stream>>>(R, N, k, p.cap, st, hist, cnt);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const TcSelect sel{st, hist, cnt, bnd, idx, p.ibits, p.cap, k};
+  bool split = true;
+  if (p.levels > 0) {
+    // the pairs a row's sample holds: every kSampleStride-th tile of each
+    // counting split (launch_tc_scan's cut)
+    const int tiles = (N + kPanel - 1) / kPanel;
+    const int split_tiles = (tiles + count_splits - 1) / count_splits;
+    long long sampled = 0;
+    for (int t0 = 0; t0 < tiles; t0 += split_tiles)
+      for (int t = t0; t < std::min(tiles, t0 + split_tiles);
+           t += kSampleStride)
+        sampled += std::min(kPanel, N - kPanel * t);
+    const long long ks = (static_cast<long long>(k) * sampled + N - 1) / N;
+    int passes = p.levels;
+    if (ks >= kMinSampleRank && sampled < N) {
+      e = launch_tc_scan<kCount>(ref, nbr, R, N, D, k, count_splits, pan,
+                                 nullptr, nullptr, sel, true, stream,
+                                 kSampleStride);
+      if (e != cudaSuccess) return e;
+      sel_guess<unsigned><<<(R + 7) / 8, 256, 0, stream>>>(
+          R, static_cast<int>(ks), st, hist);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      split = false;
+      ++passes;  // a failed guess starts over
+    }
+    for (int i = 0; i < passes; ++i, split = false) {
+      e = launch_tc_scan<kCount>(ref, nbr, R, N, D, k, count_splits, pan,
+                                 nullptr, nullptr, sel, split, stream);
+      if (e != cudaSuccess) return e;
+      sel_pick<unsigned><<<(R + 7) / 8, 256, 0, stream>>>(
+          R, k, -1, p.ibits, p.cap, st, hist, cnt);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+  }
+  e = launch_tc_scan<kEmit>(ref, nbr, R, N, D, k, emit_splits, pan, nullptr,
+                            nullptr, sel, split, stream);
+  if (e != cudaSuccess) return e;
+  return launch_sel_sort<float>(ref, D, R, k, p, st, cnt, bnd, big, d2, idx,
+                                stream);
+}
+
+// The float32 wide family: the select path at k >= wide_select_k and
+// k = N, else (or where `merge`) the tensor-core scans.
 cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
                             int D, int k, int splits, float* scratch,
                             float* part_s, int* part_i, float* d2,
-                            long long* idx, cudaStream_t stream) {
-  if (k > kMaxK)
-    return tc_big_fits(R, N, D)
-               ? launch_tc<kBig>(ref, nbr, R, N, D, k, splits, scratch,
-                                 part_s, part_i, d2, idx, stream)
-               : launch_wide_big<float>(ref, nbr, R, N, D, k, splits, part_s,
-                                        part_i, d2, idx, stream);
-  switch (list_len(k)) {
+                            long long* idx, cudaStream_t stream, bool merge) {
+  if (!merge && wide_takes_select(R, N, D, k))
+    return launch_nnk_wide_select(ref, nbr, R, N, D, k, scratch, d2, idx,
+                                  stream);
+  switch (k > kMaxK ? kBig : list_len(k)) {
+    case kBig: return launch_tc<kBig>(ref, nbr, R, N, D, k, splits, scratch,
+                                      part_s, part_i, d2, idx, stream);
     case 2: return launch_tc<2>(ref, nbr, R, N, D, k, splits, scratch,
                                 part_s, part_i, d2, idx, stream);
     case 4: return launch_tc<4>(ref, nbr, R, N, D, k, splits, scratch,
@@ -3015,13 +3522,10 @@ cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
   }
 }
 
-int nnk_tc_splits(int R, int N, int D, int k) {
-  if (k > kMaxK)
-    return tc_big_fits(R, N, D)
-               ? tc_splits<kBig>(R, N, D, k)
-               : big_splits(R, N, k, kWideRows, sizeof(float),
-                            sizeof(WideShared<float>), kBuf);
-  switch (list_len(k)) {
+int nnk_tc_splits(int R, int N, int D, int k, bool merge = false) {
+  if (!merge && wide_takes_select(R, N, D, k)) return 1;
+  switch (k > kMaxK ? kBig : list_len(k)) {
+    case kBig: return tc_splits<kBig>(R, N, D, k);
     case 2: return tc_splits<2>(R, N, D);
     case 4: return tc_splits<4>(R, N, D);
     case 8: return tc_splits<8>(R, N, D);
@@ -3092,12 +3596,12 @@ int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
 // least 2048 neighbours each; the float32 wide scan at whole waves; at
 // k > 16 at most 32, within kPartBudget's bytes of lists, each split at
 // least k neighbours.  ppt_nnk's part_s / part_i hold splits * k * R
-// values of the clouds' type and as many ints; on the select path
+// values of the clouds' type and as many ints; on the select paths
 // (ppt_nnk_select_scratch) 1 and no lists.  Returns 0 on invalid sizes
 // (1 <= k <= N) or a device query failure.
 int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
   if (D < 1 || R <= 0 || N <= 0 || k < 1 || k > N) return 0;
-  if (D <= kMaxDim && takes_select(N, k, f64)) return 1;
+  if (D <= kMaxDim && takes_select(R, N, k, f64)) return 1;
   if (D > kMaxDim && !f64) return nnk_tc_splits(R, N, D, k);
   if (k > kMaxK) {
     const size_t scalar = f64 ? sizeof(double) : sizeof(float);
@@ -3118,30 +3622,53 @@ int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
   return splits_for(R, N, rows, kNnkBlocksPerSm);
 }
 
-// The least k from which nnk's register-tiled family (D <= 8) takes the
-// select path below k = N: kSelectK64 if f64, else kSelectK.
-int ppt_nnk_select_k(int f64) { return f64 ? kSelectK64 : kSelectK; }
+// The least k from which nnk takes a select path below k = N for R rows
+// of D coordinates (float64 if f64): the register-tiled family's
+// crossover (kSelectK, kSelectK64 past kSmallR rows, kSelectKSmallR up to
+// them), the float32 wide family's (kWideSelectK); 0 for float64 wide
+// clouds, which never select; -1 on invalid sizes.
+int ppt_nnk_select_k(int R, int D, int f64) {
+  if (R <= 0 || D < 1) return -1;
+  if (D <= kMaxDim) return select_k(R, f64);
+  return f64 ? 0 : wide_select_k(R, D);
+}
 
-// The select path's scratch for R rows of D coordinates, N neighbours and
-// k (float64 if f64, else float32): *bytes = -1 where nnk does not take
-// the path (D > 8, or k < N below kSelectK, kSelectK64 in float64), else
-// its bytes, the scratch ppt_nnk then reads: 0 for k = N up to 8192 pairs
-// a row; else per row a state (24 bytes, 32 in float64), a histogram of
-// 256 counts (1 KB), two counts, a boundary buffer of min(512, P - k + 1)
-// pairs (8 bytes a pair, 16 in float64), and past 8192 a sort buffer of P
-// pairs, P the least power of 2 >= k - 1 + 256 (>= k at k = N), each part
-// rounded up to 256 bytes.  k = 4096 at R = 100,000 in float32: 0.52 GB
-// beside the outputs' 4.9 GB.  Returns cudaErrorInvalidValue on invalid
-// sizes.
+// Which kernels nnk runs for R rows, N neighbours of D coordinates and k
+// (float64 if f64): 0 the register-tiled merge scans, 1 the register-
+// tiled select path, 2 the tensor-core scans, 3 the tensor-core select
+// path, 4 the float64 SIMT wide scans; -1 on invalid sizes.
+int ppt_nnk_family(int R, int N, int D, int k, int f64) {
+  if (R <= 0 || N <= 0 || D < 1 || k < 1 || k > N) return -1;
+  if (D <= kMaxDim) return takes_select(R, N, k, f64) ? 1 : 0;
+  if (f64) return 4;
+  return wide_takes_select(R, N, D, k) ? 3 : 2;
+}
+
+// The select paths' scratch for R rows of D coordinates, N neighbours and
+// k (float64 if f64, else float32): *bytes = -1 where nnk takes no select
+// path (k < N below ppt_nnk_select_k, and float64 wide clouds), else its
+// bytes, the scratch ppt_nnk then reads: for D <= 8, 0 for k = N up to
+// 8192 pairs a row; else per row a state (24 bytes, 32 in float64), a
+// histogram of 256 counts (1 KB), two counts, a boundary buffer of
+// min(512, P - k + 1) pairs (8 bytes a pair, 16 in float64), and past
+// 8192 a sort buffer of P pairs, P the least power of 2 >= k - 1 + 256
+// (>= k at k = N), each part rounded up to 256 bytes; for the float32
+// wide family the split clouds (ppt_knn_scratch's floats, rounded up to
+// 256 bytes) and then those parts, at k = N too.  k = 4096 at R = 100,000
+// in float32, D <= 8: 0.52 GB beside the outputs' 4.9 GB.  Returns
+// cudaErrorInvalidValue on invalid sizes.
 int ppt_nnk_select_scratch(int R, int N, int D, int k, int f64,
                            long long* bytes) {
   *bytes = -1;
   if (R <= 0 || N <= 0 || D < 1 || k < 1 || k > N)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= kMaxDim && takes_select(N, k, f64))
+  if (D <= kMaxDim && takes_select(R, N, k, f64))
     *bytes = static_cast<long long>(
         f64 ? sel_plan<double>(R, N, k).bytes
             : sel_plan<float>(R, N, k).bytes);
+  else if (D > kMaxDim && !f64 && wide_takes_select(R, N, D, k))
+    *bytes = static_cast<long long>(tc_panel_bytes(R, N, D) +
+                                    sel_plan<float>(R, N, k, false).bytes);
   return 0;
 }
 
@@ -3169,6 +3696,30 @@ int ppt_nnk(const void* ref, const void* nbr, int R, int N, int D, int k,
                             part_i, d2, idx, s)
           : nnk_any<float>(ref, nbr, R, N, D, k, splits, scratch, part_s,
                            part_i, d2, idx, s));
+}
+
+// The float32 wide family's merge scan (the tensor-core scans: K-lists up
+// to k = 16, buffers merged into lists past it) at any 1 <= k <= N of
+// D > 8 coordinates, whatever ppt_nnk_select_k says: the yardstick the
+// wide select path is held to bit for bit.  Its splits (0 on invalid
+// sizes), and the call, as ppt_nnk's (scratch: ppt_knn_scratch's floats;
+// part_s / part_i: splits * k * R each).
+int ppt_nnk_wide_merge_splits(int R, int N, int D, int k) {
+  if (D <= kMaxDim || R <= 0 || N <= 0 || k < 1 || k > N) return 0;
+  return nnk_tc_splits(R, N, D, k, true);
+}
+
+int ppt_nnk_wide_merge(const void* ref, const void* nbr, int R, int N, int D,
+                       int k, int splits, void* scratch, void* part_s,
+                       int* part_i, void* d2, long long* idx, void* stream) {
+  if (D <= kMaxDim || R <= 0 || N <= 0 || k < 1 || k > N || splits < 1 ||
+      splits > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_nnk_wide(
+      static_cast<const float*>(ref), static_cast<const float*>(nbr), R, N,
+      D, k, splits, static_cast<float*>(scratch), static_cast<float*>(part_s),
+      part_i, static_cast<float*>(d2), idx,
+      static_cast<cudaStream_t>(stream), true));
 }
 
 const char* ppt_cuda_error_string(int code) {

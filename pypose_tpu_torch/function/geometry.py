@@ -113,8 +113,11 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
     ``ValueError`` before either runs.  On CUDA the first route
     takes the ``nn1`` kernel for k = 1 and the ``nnk`` kernel for every
     other ``k <= N`` (not ``largest``), which take float32 and float64
-    clouds of any number of coordinates and raise for other dtypes, and
-    the chunked Gram path for ``largest``.
+    clouds of any number of coordinates and raise for other dtypes (past
+    a crossover k, ``ops.knn.select_k``, and at k = N, ``nnk`` selects,
+    then sorts, but for float64 past 8 coordinates; float32 past 8 runs
+    on the tensor cores at every k), and the chunked Gram path for
+    ``largest``.
 
     Example:
         >>> import torch
@@ -151,9 +154,12 @@ def _knn_tiled(ref, nbr, k, largest, chunk):
     """Gram-form kNN of ``[R, D]`` in ``[N, D]``: on CUDA, k = 1 (not
     ``largest``) launches the ``nn1`` kernel and every other ``k <= N``
     the ``nnk`` kernel, at any D (the register-tiled scans up to 8
-    coordinates, the wide scans past 8; a dtype other than float32 and
-    float64 raises); ``largest``, and every k on the CPU, take
-    :func:`_knn_gram`, as the JAX package's ``lax.map`` path."""
+    coordinates, the wide scans past 8, on the tensor cores in float32;
+    from ``ops.knn.select_k(dtype, R, D)`` on and at k = N the select
+    paths of both float32 families and of float64 up to 8 coordinates; a
+    dtype other than float32 and float64 raises); ``largest``, and every
+    k on the CPU, take :func:`_knn_gram`, as the JAX package's
+    ``lax.map`` path."""
     N = nbr.shape[0]
     if ref.device.type == 'cuda' and not largest and 1 <= k <= N:
         d2, idx = knn_ops.nnk(ref.contiguous(), nbr.contiguous(), k)

@@ -10,7 +10,8 @@ its kernel or raises: it never falls back to the plain version.
 The plain versions compute squared distances in the Gram form
 ``(|a|^2 + |b|^2) - 2 a.b`` with every product and sum rounded once, in
 the order of the Pallas kernel (``cross`` summed over the coordinates
-from the first), and pick the first index among equal distances, as the
+from the first; float32 past 128 coordinates in float64, rounded once),
+and pick the first index among equal distances, as the
 Pallas kernels' first-occurrence argmin and merge do.  Both kernels rank
 by ``|b|^2 - 2 a.b`` in FMA form and add ``|a|^2`` after the scan, so on a
 near-tie they may pick another neighbour than their plain versions: the
@@ -27,13 +28,16 @@ lives in registers (2, 4, 8 or 16 entries); past 16 a row's candidates
 gather in a buffer in shared memory (32 a row in the register-tiled
 scan, 64 in the wide scans), which its warp merges into the row's sorted
 list, always in global memory (the header of ``csrc/knn.cu`` says
-why).  Up to 8 coordinates, from a crossover k on (:func:`select_k`,
-measured; ``csrc/knn.cu`` holds it) and at k = N,
-the kernel instead selects, then sorts: counting passes fix each row's
-k-th (key, index) pair 8 bits at a time, one pass writes the pairs
-before it, and a block a row sorts them (:func:`_select_rows` emulates
-the cut on the CPU; nothing on the card's path runs it); both ways
-return the same bits.  In float32 the wide
+why).  From a crossover k on (:func:`select_k`, measured for each
+family, and a function of R for the register-tiled one; ``csrc/knn.cu``
+holds it) and at k = N, the
+register-tiled family and the float32 wide family instead select, then
+sort: counting passes fix each row's k-th (key, index) pair 8 bits at a
+time, one pass writes the pairs before it, and a block a row sorts them
+(:func:`_select_rows` emulates the cut on the CPU, over
+:func:`_select_scores` or, for the wide family, :func:`_tf32_scores`;
+nothing on the card's path runs it); both ways return the same bits.
+Float64 wide clouds keep the merge scan.  In float32 the wide
 scans run on the tensor cores in three-pass TF32 (``csrc/knn.cu``): each
 coordinate is split once a call into ``hi = tf32(x)`` and
 ``lo = tf32(x - hi)``, both rounded to nearest (:func:`_tf32_split`), and
@@ -74,10 +78,13 @@ def _kernel_lib():
         'ppt_knn_scratch': [_INT] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
         'ppt_nn1': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 6,
         'ppt_nnk_splits': [_INT] * 5,
-        'ppt_nnk_select_k': [_INT],
+        'ppt_nnk_select_k': [_INT] * 3,
+        'ppt_nnk_family': [_INT] * 5,
         'ppt_nnk_select_scratch': [_INT] * 5
                                   + [ctypes.POINTER(ctypes.c_longlong)],
-        'ppt_nnk': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 6})
+        'ppt_nnk': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 6,
+        'ppt_nnk_wide_merge_splits': [_INT] * 4,
+        'ppt_nnk_wide_merge': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 6})
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +92,11 @@ def _kernel_lib():
 # ---------------------------------------------------------------------------
 
 def _sqnorm(x):
-    """|x|^2 over the last dim, summed from the first coordinate."""
+    """|x|^2 over the last dim, summed from the first coordinate; float32
+    past 128 coordinates in float64, rounded once, as the kernels sum it
+    (``csrc/knn.cu:kLongNorm``)."""
+    if x.dtype == torch.float32 and x.shape[-1] > 128:
+        return _sqnorm(x.double()).float()
     s = x[..., 0] * x[..., 0]
     for c in range(1, x.shape[-1]):
         s = s + x[..., c] * x[..., c]
@@ -103,11 +114,19 @@ def _gram_d2(a, b, an, bn):
 
 
 def _plain_blocks(ref, nbr):
-    """Yield the [chunk, N] distance blocks of the plain versions."""
+    """Yield the [chunk, N] distance blocks of the plain versions; float32
+    past 128 coordinates formed in float64 and rounded once, as the
+    kernels form the norms there (their three TF32 passes hold the cross
+    term to ~1e-7, where a float32 sum of 300 products drifts by up to
+    the near-tie tolerance)."""
+    wide = ref.dtype == torch.float32 and ref.shape[1] > 128
+    if wide:
+        ref, nbr = ref.double(), nbr.double()
     an, bn = _sqnorm(ref), _sqnorm(nbr)
     chunk = max(128, _PLAIN_PAIRS // nbr.shape[0])
     for s in range(0, ref.shape[0], chunk):
-        yield _gram_d2(ref[s:s + chunk], nbr, an[s:s + chunk], bn)
+        d2 = _gram_d2(ref[s:s + chunk], nbr, an[s:s + chunk], bn)
+        yield d2.float() if wide else d2
 
 
 def _nn1_torch(ref, nbr):
@@ -156,8 +175,9 @@ _TC_CHUNK, _TC_BLOCK = 64, 32
 
 def _tc_blocks(D):
     """The blocks ``[k0, k1)`` of coordinates whose products the wide
-    scans sum fresh: 32 at a time within each stage's 64 (padded to a
-    multiple of 8), 40 where 8 are left, clipped to D."""
+    scans sum fresh: 32 at a time within each chunk of 64 (padded to a
+    multiple of 8), 40 where 8 are left, clipped to D
+    (``csrc/knn.cu:block_end``)."""
     Dp = -(-D // 8) * 8
     out = []
     for c0 in range(0, Dp, _TC_CHUNK):
@@ -298,9 +318,13 @@ def _select_rows(s, k, cap=0):
 
 def _nnk_select(ref, nbr, k, cap=0):
     """CPU emulation of nnk's select-then-sort path: :func:`_select_rows`
-    on :func:`_select_scores`, then ``d2 = s + |a|^2`` clamped at 0:
-    ``(d2 [R, k], idx [R, k] int64)``."""
-    v, i, _ = _select_rows(_select_scores(ref, nbr), k, cap)
+    on :func:`_select_scores` (the register-tiled family's scores) or, for
+    float32 clouds of more than 8 coordinates, :func:`_tf32_scores` (the
+    wide family's three-pass TF32 scores), then ``d2 = s + |a|^2``
+    clamped at 0: ``(d2 [R, k], idx [R, k] int64)``."""
+    wide = ref.shape[1] > 8 and ref.dtype == torch.float32
+    s = _tf32_scores(ref, nbr) if wide else _select_scores(ref, nbr)
+    v, i, _ = _select_rows(s, k, cap)
     return (v + _sqnorm(ref)[:, None]).clamp_min(0.0), i
 
 
@@ -384,34 +408,52 @@ def _launch_nn1(ref, nbr):
     return d2, idx
 
 
-def select_k(dtype):
-    """The least k from which :func:`nnk`'s register-tiled family (up to 8
-    coordinates) takes the select-then-sort path below k = N, in
-    ``dtype`` (float32 or float64): the crossover that
-    ``probes/knn_probes.py --crossover`` measures, held in
-    ``csrc/knn.cu`` alone (kSelectK, kSelectK64).  Builds the library."""
-    return _kernel_lib().ppt_nnk_select_k(int(dtype == torch.float64))
+# the kernels' families (csrc/knn.cu:ppt_nnk_family)
+_FAMILIES = ('register-tiled', 'register-tiled', 'tensor-core',
+             'tensor-core', 'simt-f64')
+
+
+def select_k(dtype, R, D=3):
+    """The least k from which :func:`nnk` takes a select-then-sort path
+    below k = N for R rows of D coordinates in ``dtype`` (float32 or
+    float64), or None where it never does (float64 past 8 coordinates):
+    the crossovers that ``probes/knn_probes.py --crossover`` measures,
+    held in ``csrc/knn.cu`` alone (kSelectK, kSelectK64 and
+    kSelectKSmallR for the register-tiled family, by R; kWideSelectK for
+    the float32 wide family, the same at both measured widths).  Builds
+    the library."""
+    k = _kernel_lib().ppt_nnk_select_k(R, D, int(dtype == torch.float64))
+    if k < 0:
+        raise ValueError(f'select_k: invalid R={R}, D={D}')
+    return k or None
 
 
 def nnk_plan(R, N, D, k, dtype):
     """How :func:`nnk` runs on the current CUDA device for R rows, N
     neighbours of D coordinates and k (float32 or float64): ``route``
-    ``'select'`` (the select-then-sort path: D <= 8 at k >=
-    :func:`select_k` or k = N) or ``'scan'`` (the threshold scans and
-    their merge), the
-    ``splits`` of the neighbour range, and the bytes the wrapper allocates
-    beside the outputs: ``scratch_bytes`` (the select path's, or the
-    tensor-core scans' split clouds) and ``part_bytes`` (the scans'
-    partial lists, ``splits * k * R`` pairs)."""
+    ``'select'`` (a select-then-sort path: at k >= :func:`select_k` or
+    k = N, D <= 8 or float32) or ``'scan'`` (the threshold scans and
+    their merge); ``family`` ``'register-tiled'`` (D <= 8),
+    ``'tensor-core'`` (float32 past 8 coordinates) or ``'simt-f64'``
+    (float64 past 8); ``select_k``; the ``splits`` of the neighbour range;
+    and the bytes the wrapper allocates beside the outputs:
+    ``scratch_bytes`` (the select path's, with the split clouds in the
+    tensor-core family, or the tensor-core scans' split clouds) and
+    ``part_bytes`` (the scans' partial lists, ``splits * k * R``
+    pairs)."""
     lib = _kernel_lib()
     f64 = int(dtype == torch.float64)
+    fam = lib.ppt_nnk_family(R, N, D, k, f64)
+    if fam < 0:
+        raise ValueError(f'nnk_plan: invalid R={R}, N={N}, D={D}, k={k}')
+    info = dict(family=_FAMILIES[fam], select_k=select_k(dtype, R, D))
     sel = ctypes.c_longlong()
     raise_on(lib, lib.ppt_nnk_select_scratch(R, N, D, k, f64,
                                              ctypes.byref(sel)),
              'nnk scratch')
     if sel.value >= 0:
         return dict(route='select', splits=1, scratch_bytes=sel.value,
-                    part_bytes=0)
+                    part_bytes=0, **info)
     splits = lib.ppt_nnk_splits(R, N, D, k, f64)
     if splits < 1:
         raise RuntimeError(f'nnk: no split of {N} neighbours for {R} rows '
@@ -420,7 +462,7 @@ def nnk_plan(R, N, D, k, dtype):
     raise_on(lib, lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(floats)),
              'knn scratch')
     return dict(route='scan', splits=splits, scratch_bytes=4 * floats.value,
-                part_bytes=splits * k * R * ((8 if f64 else 4) + 4))
+                part_bytes=splits * k * R * ((8 if f64 else 4) + 4), **info)
 
 
 def _launch_nnk(ref, nbr, k):
@@ -455,6 +497,42 @@ def _launch_nnk(ref, nbr, k):
     return d2, idx
 
 
+def _nnk_wide_merge(ref, nbr, k):
+    """The float32 wide family's merge scan (the tensor-core scans, lists
+    merged past k = 16) at any ``1 <= k <= N``, whatever :func:`select_k`
+    says: what ``chip_smoke.py``, the card tests and
+    ``probes/knn_probes.py --crossover`` hold the wide select path to, bit
+    for bit (both rank the same s).  Float32 CUDA clouds of more than 8
+    coordinates; counted in ``NNK_LAUNCHES``.  Nothing on :func:`nnk`'s
+    path calls it."""
+    global NNK_LAUNCHES
+    _check(ref, nbr)
+    _check_cuda(ref, nbr)
+    (R, D), N = ref.shape, nbr.shape[0]
+    if ref.dtype != torch.float32 or D <= 8 or not 1 <= k <= N or R == 0:
+        raise ValueError(f'the wide merge scan takes float32 clouds of more '
+                         f'than 8 coordinates and 1 <= k <= N: {ref.dtype}, '
+                         f'D={D}, k={k}, N={N}, R={R}')
+    lib = _kernel_lib()
+    with torch.cuda.device(ref.device):
+        splits = lib.ppt_nnk_wide_merge_splits(R, N, D, k)
+        if splits < 1:
+            raise RuntimeError(f'nnk: no split of {N} neighbours for {R} rows '
+                               '(device query failed)')
+        part_s = torch.empty((splits, k, R), device=ref.device)
+        part_i = torch.empty((splits, k, R), dtype=torch.int32,
+                             device=ref.device)
+        scratch = _scratch(lib, ref, R, N, D, 0)
+        d2 = torch.empty((R, k), device=ref.device)
+        idx = torch.empty((R, k), dtype=torch.int64, device=ref.device)
+        raise_on(lib, lib.ppt_nnk_wide_merge(
+            ref.data_ptr(), nbr.data_ptr(), R, N, D, k, splits,
+            _ptr(scratch), part_s.data_ptr(), part_i.data_ptr(),
+            d2.data_ptr(), idx.data_ptr(), _stream(ref)), 'nnk')
+    NNK_LAUNCHES += 1
+    return d2, idx
+
+
 def nn1(ref, nbr):
     """Squared distance to, and index of, the nearest ``nbr`` row of each
     ``ref`` row: ``(d2 [R], idx [R] int64)``.
@@ -478,9 +556,9 @@ def nnk(ref, nbr, k):
     :func:`nn1`; ``k`` above the number of neighbours raises.
 
     CUDA tensors launch the kernel of ``csrc/knn.cu`` (as :func:`nn1`, at
-    any ``k``: past 16 the lists leave the registers, and up to 8
-    coordinates from ``k = select_k(dtype)`` on, and at ``k = N``, it
-    selects, then sorts; :func:`nnk_plan`);
+    any ``k``: past 16 the lists leave the registers, and from
+    ``k = select_k(dtype, R, D)`` on, and at ``k = N``, it selects, then
+    sorts, but for float64 clouds past 8 coordinates; :func:`nnk_plan`);
     CPU tensors run :func:`_nnk_torch`.  On a near-tie the two may return different
     neighbours (module docstring).
     """

@@ -21,21 +21,22 @@ time goes.  ``--wgmma`` first measures how many cycles of an SM one
 (``probes/wgmma_rate.cu``).  ``--bigk`` instead times nnk at k > 16 on
 ``chip_smoke.py``'s [knn-bigk] float32 cases against ``BIGK_VARIANTS``
 (all, or those named after ``--bigk``), the choices of that path: the
-register-tiled scan's buffers, its splits, its merge's rounds, and the
-SIMT wide scan in place of the tensor-core one.  ``--crossover`` times
-the register-tiled family's two paths past k = 16, the merge scan and the
-select-then-sort path, each forced by a build of ``csrc/knn.cu`` with
-another ``kSelectK`` (``CROSSOVER_VARIANTS``), on ``CROSSOVER_SHAPES``
-(all, or those of the clouds named) at each k, and checks that they give
-the same bits: where ``kSelectK`` and ``kSelectK64`` come from.
+register-tiled scan's buffers, its splits, its merge's rounds.
+``--crossover`` times each family's two paths past k = 16, the merge
+scan and the select-then-sort path, each forced by a build of
+``csrc/knn.cu`` with other crossover constants (``CROSSOVER_VARIANTS``),
+on ``CROSSOVER_SHAPES`` (all, or those of the clouds named) at each k,
+and checks that they give the same bits: where ``kSelectK``,
+``kSelectK64``, ``kSelectKSmallR`` and ``kWideSelectK`` come from.
 ``--sort-all`` times k = N both ways, the fused sort kernel and the
-general select path (``SORT_ALL_VARIANTS``).  ``--breakdown`` traces one call of each [knn-bigk] case on
+general select path (``SORT_ALL_VARIANTS``).  ``--cases [TAG ...]`` runs ``chip_smoke.py``'s [knn-bigk] phase on
+the cases named.  ``--breakdown`` traces one call of each [knn-bigk] case on
 the select path and sums its device time by kernel (counting passes,
 picks, emission, sort).  Needs an NVIDIA GPU:
 
     python3 -m pypose_tpu_torch.probes.knn_probes [--old PATH] [--variants]
         [--wgmma] [--bigk [VARIANT ...]] [--crossover [CLOUDS ...]]
-        [--sort-all] [--breakdown]
+        [--sort-all] [--breakdown] [--cases [TAG ...]]
 """
 
 import argparse
@@ -106,18 +107,18 @@ VARIANTS = {
     'no-mma': [('uint64_t db, int accumulate) {',
                 'uint64_t db, int accumulate) {\n  if (accumulate >= 0) '
                 'return;')],
-    'no-copy': [('        bulk_load(st, tile + off, b_bytes, &full[s]);\n',
-                 ''),
-                ('        mbar_expect_tx(&full[s],\n                       '
-                 'b_bytes + (resident ? 0 : kGroups * a_bytes));',
-                 '        mbar_arrive(&full[s]);')],
-    'stages-2': [('constexpr int kMaxStages = 4;',
-                  'constexpr int kMaxStages = 2;')],
+    'no-copy': [('            bulk_load(st, tile + off, hi_bytes + lo_bytes, '
+                 '&full[s]);\n', ''),
+                ('          mbar_expect_tx(&full[s], hi_bytes + lo_bytes +\n'
+                 '                                       (resident ? 0 : '
+                 'kGroups * a_bytes));',
+                 '          mbar_arrive(&full[s]);')],
+    'stages-2': [('constexpr int kMaxChunkStages = 4;',
+                  'constexpr int kMaxChunkStages = 2;')],
     'groups-1': [('constexpr int kGroups = 2;', 'constexpr int kGroups = 1;')],
 }
 # Variants for --bigk, the choices of nnk at k > 16: its register-tiled
-# buffers at 64 candidates a row (kBuf) in place of 32, the float32 wide
-# scan always on the SIMT cores (nnk_wide_scan_big<float>), one split
+# buffers at 64 candidates a row (kBuf) in place of 32, one split
 # whatever the wave, one list entry a lane a merge round, and the select
 # path's counting passes at one row a lane (kCountRT).
 BIGK_VARIANTS = {
@@ -127,33 +128,28 @@ BIGK_VARIANTS = {
                 'big_bytes(kThreads, kThreads, sizeof(T));'),
                ('(D % 4 == 0 ? 1 : 0)), kBigBatch);',
                 '(D % 4 == 0 ? 1 : 0)), kBuf);')],
-    'simt-wide': [('  const TcPlan p = tc_plan_k<kBig>(R, N, D, &per_sm);\n'
-                   '  return p.stages >= 2 && per_sm >= 1;',
-                   '  return per_sm > R + N + D;')],
     'one-split': [('  const int want = std::max(1, sms * per_sm / row_blocks);',
                    '  const int want = 1;')],
     'round-1': [('constexpr int kRound = 4;', 'constexpr int kRound = 1;')],
     'count-rt-1': [('constexpr int kCountRT = 2;',
                     'constexpr int kCountRT = 1;')],
 }
-# Variants for --crossover: the register-tiled family's two paths past
-# k = 16 forced (kSelectK and kSelectK64), the merge scan (the select
-# path only at k = N) and the select-then-sort path (at every k > 16).
+# Variants for --crossover: each family's two paths past k = 16 forced
+# (every crossover constant), the merge scans (the select paths only at
+# k = N) and the select-then-sort paths (at every k > 16).
+_CROSSOVERS = ('kSelectK', 'kSelectK64', 'kSelectKSmallR', 'kWideSelectK')
 CROSSOVER_VARIANTS = {
-    'merge': [('constexpr int kSelectK = ',
-               'constexpr int kSelectK = 1 << 30; //'),
-              ('constexpr int kSelectK64 = ',
-               'constexpr int kSelectK64 = 1 << 30; //')],
-    'select': [('constexpr int kSelectK = ',
-                'constexpr int kSelectK = 17; //'),
-               ('constexpr int kSelectK64 = ',
-                'constexpr int kSelectK64 = 17; //')],
-}
+    name: [(f'constexpr int {c} = ', f'constexpr int {c} = {k}; //')
+           for c in _CROSSOVERS]
+    for name, k in (('merge', '1 << 30'), ('select', '17'))}
 # --crossover's shapes: (tag, clouds, ks); the clouds of chip_smoke.py's
 # [knn-bigk] range case (10,000 ICP source points against the 100k
-# target), its 100k target against itself (in float32 and float64), and
-# [knn-d6]'s float64 clouds.
+# target), its 100k target against itself (in float32 and float64),
+# [knn-d6]'s float64 clouds, and [knn-wide]'s FPFH-like (D = 33) and
+# SIFT-like (D = 128) float32 clouds.
 CROSSOVER_SHAPES = (
+    ('fpfh 50k x 50k', 'fpfh', (64, 100, 128, 256, 512, 1024)),
+    ('sift 20k x 100k', 'sift', (64, 100, 128, 256, 512, 1024)),
     ('10k x 100k', 'range', (64, 100, 128, 256, 512, 1024)),
     ('100k x 100k', 'icp', (64, 100, 128, 256, 512, 1024)),
     ('100k x 100k f64', 'icp-f64', (64, 100, 128, 256, 512, 1024)),
@@ -165,7 +161,7 @@ CROSSOVER_SHAPES = (
 # themselves.
 SORT_ALL_VARIANTS = {
     'fused': [],
-    'general': [('  if (k == N && p.P <= kSortMax) return p;\n', ''),
+    'general': [('  if (fused && k == N && p.P <= kSortMax) return p;\n', ''),
                 ('  if (k == N && p.P <= kSortMax) {\n', '  if (false) {\n')],
 }
 SORT_ALL_SHAPES = (('full 4096^2', 'full', 4096), ('2048^2', 'full', 2048),
@@ -321,9 +317,10 @@ def turns(libs, a, b, tag, ref, nbr, k):
         raise SystemExit(f'{tag}: the two paths differ')
 
 
-def breakdown(dev):
+def breakdown(dev, tags=()):
     """Where the select path's time goes: each [knn-bigk] case that takes
-    it (chip_smoke.BIGK_CASES, ops.knn.nnk_plan), one call under
+    it (chip_smoke.BIGK_CASES, ops.knn.nnk_plan; those in ``tags`` where
+    given: ``--breakdown --cases TAG ...``), one call under
     torch.profiler after a warm one, its device time summed by kernel."""
     import re
     from torch.autograd import DeviceType
@@ -333,25 +330,30 @@ def breakdown(dev):
     for tag, cl, k, _, _ in BIGK_CASES:
         ref, nbr = clouds[cl]
         (R, D), N = ref.shape, nbr.shape[0]
-        if K.nnk_plan(R, N, D, k, ref.dtype)['route'] != 'select':
+        if K.nnk_plan(R, N, D, k, ref.dtype)['route'] != 'select' or \
+                tags and tag not in tags:
             continue
         K.nnk(ref, nbr, k)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             K.nnk(ref, nbr, k)
             torch.cuda.synchronize()
-        tot = {}
+        tot, scans = {}, []
         for e in prof.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA:
-                m = re.search(r'::(\w+)<', e.name())
-                name = m.group(1) if m else e.name()[:40]
+                if 'wide_tc_scan' in e.name() or 'sel_count' in e.name():
+                    scans.append(e.duration_ns() / 1e6)
+                m = re.search(r'::(\w+)(<[^>(]*>)?', e.name())
+                name = m.group(1) + (m.group(2) or '') if m \
+                    else e.name()[:40]
                 n, ns = tot.get(name, (0, 0))
                 tot[name] = (n + 1, ns + e.duration_ns())
         print(f'[breakdown] {tag} [{R}, {D}] x [{N}, {D}] {ref.dtype}, k={k}: '
               + ', '.join(f'{name} x{n} {ns / 1e6:.4f} ms'
                           for name, (n, ns) in tot.items())
-              + f'; all {sum(ns for _, ns in tot.values()) / 1e6:.4f} ms',
-              flush=True)
+              + f'; all {sum(ns for _, ns in tot.values()) / 1e6:.4f} ms; '
+              'the scans and counting passes in order '
+              + ', '.join(f'{ms:.4f}' for ms in scans) + ' ms', flush=True)
 
 
 def wgmma_rates(dev, steps=15, rounds=2000):
@@ -402,6 +404,9 @@ def main():
     ap.add_argument('--sort-all', action='store_true',
                     help='k = N: the fused sort kernel against the general '
                          'select path (SORT_ALL_VARIANTS)')
+    ap.add_argument('--cases', nargs='*', metavar='TAG',
+                    help='chip_smoke.py\'s [knn-bigk] phase on the cases '
+                         'of BIGK_CASES named (all if none)')
     ap.add_argument('--bigk', nargs='*', metavar='VARIANT',
                     help='only the [knn-bigk] float32 cases against '
                          'BIGK_VARIANTS (all, or those named)')
@@ -440,7 +445,11 @@ def main():
             crossover(dev, libs, args.crossover)
         return
     if args.breakdown:
-        breakdown(dev)
+        breakdown(dev, args.cases or ())
+        return
+    if args.cases is not None:
+        from chip_smoke import knn_bigk_phase
+        knn_bigk_phase(dev, args.cases or None)
         return
     if args.bigk is not None:
         bigk(dev, variant_libs({n: e for n, e in BIGK_VARIANTS.items()

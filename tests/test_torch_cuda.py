@@ -624,8 +624,9 @@ def test_small_k_bit_equal_to_an_earlier_build(cuda, D, dtype):
         assert torch.equal(i_o, i_n) and torch.equal(d_o, d_n), (D, k)
 
 
-# The select-then-sort path (csrc/knn.cu:launch_nnk_select): D <= 8 at
-# k >= knn.select_k(dtype) and at k = N.
+# The select-then-sort paths (csrc/knn.cu:launch_nnk_select,
+# launch_nnk_wide_select): D <= 8, and float32 past 8, at
+# k >= knn.select_k(dtype, R, D) and at k = N.
 def _assert_select(ref, nbr, k, **tol):
     (R, D), N = ref.shape, nbr.shape[0]
     assert knn.nnk_plan(R, N, D, k, ref.dtype)['route'] == 'select'
@@ -648,7 +649,7 @@ def test_select_path_bit_equal_to_an_earlier_build(cuda, D, dtype):
     old = _old_nnk_lib(path)
     ref, nbr = (a.to(dtype) for a in _clouds(3001, 20_011, cuda, seed=D,
                                              D=D))
-    sel = knn.select_k(dtype)
+    sel = knn.select_k(dtype, 3001, D)
     for k in (sel - 1, sel, 1024):
         route = knn.nnk_plan(3001, 20_011, D, k, dtype)['route']
         assert route == ('scan' if k < sel else 'select'), k
@@ -663,20 +664,27 @@ def test_select_path_bit_equal_to_an_earlier_build(cuda, D, dtype):
 
 def test_select_route_starts_at_select_k(cuda):
     """The register-tiled family takes the select path from select_k on
-    (csrc/knn.cu's crossovers, each past 16) and at k = N (any k), the
-    scans below; the wide families never."""
+    (csrc/knn.cu's crossovers, each past 16, lower at 10,000 rows than at
+    100,000) and at k = N (any k), the scans below; the float64 wide
+    family never (its select_k is None), the float32 one from its own
+    crossover on."""
     for dtype in (torch.float32, torch.float64):
-        sel = knn.select_k(dtype)
-        assert 16 < sel <= 1024, (dtype, sel)
+        for R in (1000, 100_000):
+            sel = knn.select_k(dtype, R)
+            assert 16 < sel <= 1024, (dtype, R, sel)
 
-        def plan(R, N, D, k):
-            return knn.nnk_plan(R, N, D, k, dtype)['route']
-        assert plan(1000, 5000, 3, sel - 1) == 'scan'
-        assert plan(1000, 5000, 3, sel) == 'select'
-        assert plan(1000, 5000, 8, 5000) == 'select'
-        assert plan(1000, 20, 1, 20) == 'select'
-        assert plan(1000, 5000, 3, 16) == 'scan'
-        assert plan(1000, 5000, 9, 1024) == 'scan'
+            def plan(N, D, k):
+                return knn.nnk_plan(R, N, D, k, dtype)['route']
+            assert plan(5000, 3, sel - 1) == 'scan'
+            assert plan(5000, 3, sel) == 'select'
+            assert plan(5000, 8, 5000) == 'select'
+            assert plan(20, 1, 20) == 'select'
+            assert plan(5000, 3, 16) == 'scan'
+        assert knn.select_k(dtype, 1000) <= knn.select_k(dtype, 100_000)
+    assert knn.select_k(torch.float64, 1000, 9) is None
+    for k in (17, 1024, 5000):
+        plan = knn.nnk_plan(1000, 5000, 9, k, torch.float64)
+        assert (plan['route'], plan['family']) == ('scan', 'simt-f64')
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -758,6 +766,148 @@ def test_knn_k_above_n_raises_before_any_launch(cuda):
     res = geometry.knn(ref, nbr, k=5, chunk=2)
     assert res.indices.shape == (4, 5)
     assert knn.NNK_LAUNCHES == before[1] + 1
+
+
+@pytest.mark.parametrize('D', [33, 128])
+def test_wide_knn_k_above_n_raises_before_any_launch(cuda, D):
+    """knn with k > N raises ValueError on descriptor clouds too, before
+    the select path's plan runs, and launches nothing; k = N (the wide
+    select path) returns N columns under the near-tie rule."""
+    from pypose_tpu_torch.function import geometry
+    ref, nbr = _descriptor_clouds(40, 50, D, cuda, seed=D)
+    before = (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES)
+    for chunk in (7, None):
+        with pytest.raises(ValueError, match='k=51'):
+            geometry.knn(ref, nbr, k=51, chunk=chunk)
+    with pytest.raises(ValueError, match='k=51'):
+        knn.nnk(ref, nbr, 51)
+    assert (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES) == before
+    assert knn.nnk_plan(40, 50, D, 50, torch.float32)['route'] == 'select'
+    _assert_big(ref, nbr, 50)
+
+
+def test_wide_nnk_plan_reports_select(cuda):
+    """nnk_plan for float32 past 8 coordinates: the tensor-core family,
+    'select' from select_k(float32, R, D) on and at k = N (its scratch the
+    split clouds and the select state, no partial lists), 'scan' below;
+    the crossover is past 16 and no lower at D = 128 than at D = 33."""
+    import ctypes
+    lib = knn._kernel_lib()
+    for D in (9, 33, 128, 300):
+        R, N = 2000, 20_000
+        sel = knn.select_k(torch.float32, R, D)
+        assert 16 < sel <= 1024, (D, sel)
+        below = knn.nnk_plan(R, N, D, sel - 1, torch.float32)
+        assert (below['route'], below['family']) == ('scan', 'tensor-core')
+        assert below['select_k'] == sel and below['part_bytes'] > 0
+        for k in (sel, 1024, N):
+            plan = knn.nnk_plan(R, N, D, k, torch.float32)
+            assert (plan['route'], plan['family']) == ('select',
+                                                       'tensor-core'), k
+            assert plan['splits'] == 1 and plan['part_bytes'] == 0
+            floats = ctypes.c_longlong()
+            assert lib.ppt_knn_scratch(R, N, D, 0, ctypes.byref(floats)) == 0
+            assert plan['scratch_bytes'] > 4 * floats.value + 1024 * R
+    assert knn.select_k(torch.float32, 2000, 33) <= \
+        knn.select_k(torch.float32, 2000, 128)
+
+
+def _sift_clouds(R, N, dev, seed):
+    """SIFT-like clouds (128 values, unit length, clipped at 0.2 and
+    normalised again), as chip_smoke.descriptors draws them."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for n in (R, N):
+        v = torch.rand((n, 128), generator=gen, dtype=torch.float64)
+        v = (v / v.norm(dim=-1, keepdim=True)).clamp(max=0.2)
+        out.append((v / v.norm(dim=-1, keepdim=True)).float().to(dev))
+    return out
+
+
+@pytest.mark.parametrize('D', [9, 33, 128, 300])
+def test_wide_select_bit_equal_to_the_merge_scan(cuda, D):
+    """The float32 wide select path (csrc/knn.cu:launch_nnk_wide_select) at
+    its crossover, at 1024 and at k = N gives the same d^2 and index bits
+    as the tensor-core merge scan forced at the same k
+    (knn._nnk_wide_merge): both rank the same three-pass TF32 s in the
+    same (s, index) order; and holds the near-tie rule."""
+    ref, nbr = (_sift_clouds(1500, 20_011, cuda, seed=D) if D == 128
+                else _descriptor_clouds(1500, 20_011, D, cuda, seed=D))
+    sel = knn.select_k(torch.float32, 1500, D)
+    for k in (sel, 1024):
+        assert knn.nnk_plan(1500, 20_011, D, k,
+                            torch.float32)['route'] == 'select'
+        d_m, i_m = knn._nnk_wide_merge(ref, nbr, k)
+        d_s, i_s = _assert_big(ref, nbr, k)
+        assert torch.equal(i_m, i_s) and torch.equal(d_m, d_s), (D, k)
+    ref, nbr = ref[:300].contiguous(), nbr[:3003].contiguous()
+    d_m, i_m = knn._nnk_wide_merge(ref, nbr, 3003)
+    d_s, i_s = _assert_big(ref, nbr, 3003)
+    assert torch.equal(i_m, i_s) and torch.equal(d_m, d_s), (D, 'N')
+
+
+@pytest.mark.parametrize('far', [False, True])
+def test_wide_select_sampled_digit(cuda, far):
+    """The wide select path guesses each row's first digit from every 8th
+    tile of 64 neighbours and checks the guess in the next pass: on
+    clouds whose sampled tiles are like the rest the guess holds, and
+    where every sampled tile lies far off (50 added to each of its
+    coordinates) the guess fails and the row starts over; both ways the
+    bits equal the merge scan's, under the near-tie rule."""
+    ref, nbr = _descriptor_clouds(700, 64 * 8 * 40, 33, cuda, seed=7)
+    if far:
+        tile = torch.arange(nbr.shape[0], device=cuda) // 64
+        nbr = torch.where((tile % 8 == 0)[:, None], nbr + 50.0, nbr)
+    d_m, i_m = knn._nnk_wide_merge(ref, nbr, 1024)
+    d_s, i_s = _assert_big(ref, nbr, 1024)
+    assert torch.equal(i_m, i_s) and torch.equal(d_m, d_s)
+
+
+@pytest.mark.parametrize('k', [17, 32, 100])
+def test_sift_width_big_k_on_the_tensor_cores(cuda, k):
+    """SIFT-like clouds (D = 128) at 16 < k below the crossover take the
+    tensor-core merge scan (its buffers past a ring of 32-coordinate
+    stages; no SIMT float32 scan is left), one launch, under the near-tie
+    rule against the plain version; exact ties (every neighbour twice)
+    come lower index first."""
+    ref, nbr = _sift_clouds(2000, 30_000, cuda, seed=k)
+    plan = knn.nnk_plan(2000, 30_000, 128, k, torch.float32)
+    assert (plan['route'], plan['family']) == ('scan', 'tensor-core')
+    _assert_big(ref, nbr, k)
+    twice = torch.cat([nbr[:5000], nbr[:5000]])
+    d_k, i_k = knn.nnk(ref, twice, k)
+    _assert_nnk_within_tolerance(ref, twice, d_k, i_k,
+                                 knn._nnk_torch(ref, twice, k)[1])
+    # equal d^2 in ascending index, and every copy after its original,
+    # at the same d^2
+    same = d_k[:, 1:] == d_k[:, :-1]
+    assert bool((i_k[:, 1:][same] > i_k[:, :-1][same]).all())
+    copy = i_k >= 5000
+    orig = i_k[:, None, :] == (i_k - 5000)[:, :, None]
+    assert bool(copy.any()) and bool(orig.any(-1)[copy].all())
+    before = torch.arange(k, device=cuda)[None, :] < \
+        torch.arange(k, device=cuda)[:, None]
+    assert bool((orig & before[None]).any(-1)[copy].all())
+
+
+def test_select_path_d6_f64_k256_at_10k_rows(cuda):
+    """[knn-d6]'s float64 clouds (10,000 x 10,000, D = 6) at k = 256: at
+    10,000 rows the select path wins from k = 100 (PERF.md's crossover
+    table: 2.22 against the merge scan's 7.33 ms at 256), so select_k
+    reads R and the call selects; under the near-tie rule (F64_TOL); bit
+    for bit the merge scan of an earlier csrc/knn.cu where
+    $PPT_KNN_OLD_CU names one (e.g. ``git show
+    42cbb8c:pypose_tpu_torch/csrc/knn.cu``, the merge scan at every k)."""
+    import os
+    gen = torch.Generator().manual_seed(0)
+    ref, nbr = (torch.randn((10_000, 6), generator=gen).double().to(cuda)
+                for _ in range(2))
+    assert knn.select_k(torch.float64, 10_000, 6) <= 256
+    d_k, i_k = _assert_select(ref, nbr, 256, **F64_TOL)
+    path = os.environ.get('PPT_KNN_OLD_CU')
+    if path:
+        d_o, i_o = _nnk_with(_old_nnk_lib(path), ref, nbr, 256)
+        assert torch.equal(i_o, i_k) and torch.equal(d_o, d_k)
 
 
 def test_sharded_pgo_one_rank_matches_sparse_lm(cuda):
