@@ -36,8 +36,9 @@ Phases (any failure raises, so the script exits non-zero):
      the HGMMA instructions in the float32 wide scans' SASS (cuobjdump),
      which must be there, as many in each of the eight instantiations
      (nn1, the lists of 2-16, past 16, and the select path's counting
-     passes and emission); a C7520 (serialized wgmma) in ptxas' output
-     fails.
+     passes and emission), and the DMMA instructions in the float64 ones'
+     (past 16, counting passes, emission: three, as many in each); a
+     C7520 (serialized wgmma) in ptxas' output fails.
   3. kernel vs plain, on the same random SPD stencil systems on the card,
      each timed with CUDA events (median of 7):
      - the whole-solve cluster kernel at N=40, at sphere2500's shape
@@ -264,19 +265,21 @@ Phases (any failure raises, so the script exits non-zero):
      nn1 and one nnk.
  37b. knn-bigk: nnk at k > 16 (the lists off the registers, and the
      select-then-sort paths from ops.knn.select_k(dtype, R, D) on and at
-     k = N, up to 8 coordinates and in float32 past them: each case's
-     path, kernels and scratch printed), each case once through knn()
+     k = N: each case's path, kernels and scratch printed), each case
+     once through knn()
      from zeroed counts (one nnk launch): k = 30, 50 and 100 on ICP's
      100k target against itself (normal estimation, outlier removal,
      FPFH neighbourhoods) and k = 1024 (beside the route it replaced),
      k = 30 and 1024 on [knn-d6]'s clouds in float64 (the merge scan;
      the select path), k = 32 and 1024 on [knn-wide]'s FPFH and SIFT
      clouds in float32 (tensor cores: the merge scan; the wide select)
-     and on its float64 FPFH clouds (SIMT), k = 100 on 10,000 SIFT-like
+     and on its float64 FPFH clouds (DMMA: the merge scan; the wide
+     select), k = 100 on 10,000 SIFT-like
      queries against 1,000,000 (ANN-Benchmarks' sift-128-euclidean
      ground truth's shape; the plain version on every 10th row); through
      ops.knn.nnk, k = 1024 on 10,000 x 100,000, k = N on 4096 x 4096
-     points and on 4096 FPFH-like points; each held to the plain version
+     points and on 4096 FPFH-like points (float32 and float64); each
+     held to the plain version
      by the near-tie rule (its largest d^2 error over the tolerance
      printed), each wide select bit for bit to the tensor-core merge
      scan forced at the same k (ops.knn._nnk_wide_merge, timed beside),
@@ -3218,9 +3221,9 @@ def wide_device_ms():
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-def compiled_kernels(lib, match):
+def compiled_kernels(lib, match, op='HGMMA'):
     """{kernel: [ptxas' registers / shared memory line, its spill line,
-    HGMMA instructions in its SASS (None where cuobjdump cannot say)]} of
+    ``op`` instructions in its SASS (None where cuobjdump cannot say)]} of
     the kernels of the built ``lib`` whose mangled name holds one of
     ``match``."""
     import shutil
@@ -3247,7 +3250,7 @@ def compiled_kernels(lib, match):
             name = line.split('Function : ')[1].strip()
             if name in out:
                 out[name][2] = 0
-        elif name in out and 'HGMMA' in line:
+        elif name in out and op in line:
             out[name][2] += 1
     return out
 
@@ -3355,7 +3358,7 @@ BIGK_CASES = (
      'descriptor neighbourhoods'),
     ('fpfh-33-1024', 'fpfh', 1024, 'tensor-core float32',
      'coverage: the wide family at large k'),
-    ('fpfh-33-f64', 'fpfh-f64', 32, 'wide SIMT float64',
+    ('fpfh-33-f64', 'fpfh-f64', 32, 'DMMA float64',
      'descriptor neighbourhoods in float64'),
     ('sift-128', 'sift', 32, 'tensor-core float32',
      'SIFT-width descriptors'),
@@ -3368,14 +3371,16 @@ BIGK_CASES = (
      'coverage: the float64 select path'),
     ('sift-128-1024', 'sift', 1024, 'tensor-core float32',
      'coverage: large k at SIFT width'),
-    ('fpfh-33-f64-1024', 'fpfh-f64', 1024, 'wide SIMT float64',
+    ('fpfh-33-f64-1024', 'fpfh-f64', 1024, 'DMMA float64',
      'coverage: the float64 wide family at large k'),
     ('fpfh-33-full', 'fpfh-full', 4096, 'tensor-core float32',
      'coverage: a whole row sorted at D = 33'),
+    ('fpfh-33-f64-full', 'fpfh-f64-full', 4096, 'DMMA float64',
+     'coverage: a whole row sorted at D = 33 in float64'),
     ('sift-gt', 'sift-gt', 100, 'tensor-core float32',
      'the exact ground truth of ANN-Benchmarks\' sift-128-euclidean (10k '
      'queries, 1M base, 100 neighbours)'))
-BIGK_RANGE = ('range', 'full', 'fpfh-33-full')
+BIGK_RANGE = ('range', 'full', 'fpfh-33-full', 'fpfh-33-f64-full')
 # cases whose plain version runs on every SUBSET-th reference row alone
 # (sift-gt's plain version over all 10,000 rows would sort 10^10 pairs)
 BIGK_SUBSET = {'sift-gt': 10}
@@ -3386,10 +3391,12 @@ def bigk_clouds(dev):
     against itself (and in float64, for probes/knn_probes.py
     --crossover); [knn-d6]'s [10000, 6] clouds in float64; [knn-wide]'s
     FPFH-like clouds (50,000^2 float32, 10,000^2 float64) and SIFT-like
-    clouds (20,000 x 100,000 float32); 10,000 ICP
+    clouds (20,000 x 100,000 float32; their first 10,000 x 20,000 in
+    float64, for --crossover); 10,000 ICP
     source points against the 100k target; 4096 target points against
-    themselves; the FPFH clouds' first 4096 rows against themselves; and
-    10,000 SIFT-like queries against 1,000,000 (generator seed 1)."""
+    themselves; the FPFH clouds' first 4096 rows against themselves (in
+    float32 and float64); and 10,000 SIFT-like queries against 1,000,000
+    (generator seed 1)."""
     import torch
     src, _, tgt = icp_instance(100_000, dev)
     gen = torch.Generator().manual_seed(0)
@@ -3399,6 +3406,9 @@ def bigk_clouds(dev):
     full = tgt[:4096].contiguous()
     tgt64 = tgt.double()
     fpfh_full = wide['fpfh'][0][:4096].contiguous()
+    fpfh64_full = wide['fpfh-f64'][0][:4096].contiguous()
+    sift64 = (wide['sift'][0][:10_000].double(),
+              wide['sift'][1][:20_000].double())
     gen = torch.Generator().manual_seed(1)
     sift_gt = tuple(descriptors('sift', n, gen).float().to(dev)
                     for n in (10_000, 1_000_000))
@@ -3406,7 +3416,9 @@ def bigk_clouds(dev):
             'd6-f64': tuple(d6), 'fpfh': wide['fpfh'],
             'fpfh-f64': wide['fpfh-f64'], 'sift': wide['sift'],
             'range': (src[:10_000].contiguous(), tgt), 'full': (full, full),
-            'fpfh-full': (fpfh_full, fpfh_full), 'sift-gt': sift_gt}
+            'fpfh-full': (fpfh_full, fpfh_full),
+            'fpfh-f64-full': (fpfh64_full, fpfh64_full), 'sift-f64': sift64,
+            'sift-gt': sift_gt}
 
 
 def bigk_device_worker(tags=None):
@@ -3550,10 +3562,11 @@ def knn_bigk_phase(dev, tags=None):
               == got['d2_failures'] == 0,
               f'knn-bigk {tag}: outside the tolerance: {got}')
         k_ms, (d_k, i_k) = flushed_ms(lambda: K.nnk(ref, nbr, k))
-        # the wide select path against the tensor-core merge scan forced
+        # the wide select paths against the tensor-core merge scan forced
         # at the same k: the same bits
         merge_ms = same = None
-        if plan['route'] == 'select' and plan['family'] == 'tensor-core':
+        if plan['route'] == 'select' and plan['family'].startswith(
+                'tensor-core'):
             merge_ms, (d_m, i_m) = flushed_ms(
                 lambda: K._nnk_wide_merge(ref, nbr, k), repeat=3)
             same = torch.equal(d_k, d_m) and torch.equal(i_k, i_m)
@@ -4003,19 +4016,25 @@ def main():
                                             for t in 'fd' for d in (3, 8))):
                 print(f'[build] {path.stem}: {entry}\n[build] {path.stem}: '
                       f'{spill}; {line.strip()}', flush=True)
-    # the float32 wide scans run on the tensor cores: HGMMA in their SASS
-    tc = compiled_kernels(_build.BUILD / 'libknn.so', ('wide_tc_scan',))
-    for name, (used, spill, hgmma) in tc.items():
-        print(f'[build] libknn: {name}: HGMMA instructions in its SASS '
-              f'{"not read (no cuobjdump)" if hgmma is None else hgmma}; '
-              f'{used}; {spill}', flush=True)
-    # eight: nn1, nnk at 2, 4, 8, 16 and past 16 (K = 0), and the select
-    # path's counting passes and emission (K = -1, -3), one HGMMA count
-    hgmma = {h for _, _, h in tc.values()}
-    check(len(tc) == 8 and (hgmma == {None} or
-                            (len(hgmma) == 1 and min(hgmma) > 0)),
-          f'the float32 wide scans: eight instantiations with one HGMMA '
-          f'count expected, found {tc}')
+    # the wide scans run on the tensor cores: HGMMA in the float32 ones'
+    # SASS, DMMA in the float64 ones'; eight float32 instantiations (nn1,
+    # nnk at 2, 4, 8, 16 and past 16 (K = 0), and the select path's
+    # counting passes and emission (K = -1, -2)) and three float64 ones
+    # (past 16, counting, emission), one count a type
+    for tname, code, op, many in (('float32', 'f', 'HGMMA', 8),
+                                  ('float64', 'd', 'DMMA', 3)):
+        # the mangled names: wide_tc_scan<float, K> is wide_tc_scanIf...
+        tc = compiled_kernels(_build.BUILD / 'libknn.so',
+                              (f'wide_tc_scanI{code}',), op)
+        for name, (used, spill, n) in tc.items():
+            print(f'[build] libknn: {name}: {op} instructions in its SASS '
+                  f'{"not read (no cuobjdump)" if n is None else n}; '
+                  f'{used}; {spill}', flush=True)
+        counts = {n for _, _, n in tc.values()}
+        check(len(tc) == many and (counts == {None} or
+                                   (len(counts) == 1 and min(counts) > 0)),
+              f'the {tname} wide scans: {many} instantiations with one '
+              f'{op} count expected, found {tc}')
     # ptxas warns C7520 where it serializes the wgmmas
     knn_log = (_build.BUILD / 'libknn.log').read_text()
     check('C7520' not in knn_log,
@@ -4386,13 +4405,21 @@ def main():
             'fpfh-33-full', 'sift-gt')
     wide_scan = tuple(t for t in wide if bigk[t]['route'] == 'scan')
     wide_select = tuple(t for t in wide if bigk[t]['route'] == 'select')
+    # the float64 wide family past k = 16 on DMMA: the merge scan at 32,
+    # the select path at 1024 and k = N
+    wide64 = ('fpfh-33-f64', 'fpfh-33-f64-1024', 'fpfh-33-f64-full')
+    wide64_select = ('fpfh-33-f64-1024', 'fpfh-33-f64-full')
     check(select and scan and bigk['d6-f64']['route'] == 'scan'
           and bigk['d6-f64-1024']['route'] == 'select'
           and all(bigk[t]['kernels'] == 'tensor-core' for t in wide)
           and 'fpfh-33' in wide_scan and 'sift-128' in wide_scan
           and 'fpfh-33-1024' in wide_select
-          and 'fpfh-33-full' in wide_select,
-          f'knn-bigk: paths {({t: v["route"] for t, v in bigk.items()})}')
+          and 'fpfh-33-full' in wide_select
+          and all(bigk[t]['kernels'] == 'tensor-core-f64' for t in wide64)
+          and bigk['fpfh-33-f64']['route'] == 'scan'
+          and all(bigk[t]['route'] == 'select' for t in wide64_select),
+          f'knn-bigk: paths '
+          f'{({t: (v["route"], v["kernels"]) for t, v in bigk.items()})}')
     first_via_knn = [t for t in select if t not in BIGK_RANGE]
     for kname, line, first, tags in (
             ('nnk_select', '50', (first_via_knn or select)[0], select),
@@ -4401,8 +4428,9 @@ def main():
             ('nnk_bigk_f64', '50', 'd6-f64', ('d6-f64',)),
             ('nnk_wide_bigk', '138', 'fpfh-33', wide_scan),
             ('nnk_wide_select', '138', 'fpfh-33-1024', wide_select),
-            ('nnk_wide_bigk_f64', '138', 'fpfh-33-f64',
-             ('fpfh-33-f64', 'fpfh-33-f64-1024'))):
+            ('nnk_wide_bigk_f64', '138', 'fpfh-33-f64', ('fpfh-33-f64',)),
+            ('nnk_wide_select_f64', '138', 'fpfh-33-f64-1024',
+             wide64_select)):
         fc = bigk[first]
         kernels.append(entry(
             kname, 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:' + line,

@@ -112,28 +112,61 @@
 // a half (D = 33) to a third (D = 128) of its time: the neighbours'
 // stream from L2 and the selection.
 // The splits of the neighbour range and the merge passes are the D <= 8
-// scans'.  Float64 wide clouds keep the SIMT scans (nn1_wide_scan_f64,
-// nnk_wide_scan_f64): a 64 x 64 tile of scores as a small SIMT GEMM (4 x 8
-// a thread, chunks of 8 coordinates through shared memory), read by
-// threads 0-63 a row each.
+// scans'.  Float64 wide clouds up to k = 16 keep the SIMT scans
+// (nn1_wide_scan_f64, nnk_wide_scan_f64): a 64 x 64 tile of scores as a
+// small SIMT GEMM (4 x 8 a thread, chunks of 8 coordinates through shared
+// memory), read by threads 0-63 a row each.
+//
+// Wide clouds (D > 8), float64, past k = 16: the same tensor-core scan,
+// wide_tc_scan<double, K> (K: kBig, kCount, kEmit), on the FP64 tensor
+// cores.  What bounds it: the cross term, 2 D flop a pair, at 34 TFLOP/s
+// on the SIMT units (the small GEMM above: 2.67 ms at FPFH-like 10,000^2,
+// k = 32) and 67 on DMMA; and past a few hundred k the merge scan's
+// merges (44.34 ms at k = 1024).  So:
+//  - Hopper has no float64 wgmma: each warp forms its 16 rows x 64
+//    neighbours by mma.sync.m16n8k8.f64 (dmma_unit), eight column slices
+//    of 8, whose accumulators sit where wgmma.m64n64's do, so every
+//    selection mode, the buffers, flush_row, the lists, nnk_merge_big,
+//    the counting passes, the emission and the sample, reads them as it
+//    reads float32's; alone each m16n8 shape runs at 66 TFLOP/s
+//    (probes/dmma_rate.cu), m8n8k4 at 33;
+//  - a pre-pass (f64_panels) lays each cloud out once a call in panels of
+//    the float32 split's bytes (a float64 coordinate takes a hi and lo
+//    pair's 8 bytes; |b|^2, the FMA chain, after each panel in 64
+//    doubles): each k-step's row in the order 0 4 1 5 2 6 3 7, so a
+//    thread's two coordinates t and t + 4 come by one 16-byte load and a
+//    quarter-warp's loads cover 128 contiguous bytes (no 64-bit ldmatrix
+//    exists; alone the loads move 127 of an SM's 128 bytes a cycle, two
+//    8-byte loads in coordinate order 64, probes/dmma_rate.cu); the
+//    producer's bulk copies and mbarriers are float32's, one copy a
+//    unit, and the consumers fence the async proxy before each release
+//    (every operand is read by plain loads);
+//  - one sum a tile, k-steps in ascending order, then s = |b|^2 - 2 a.b
+//    by one FMA (|b|^2 + sum a (-2 b): the factor -2 is exact), the same
+//    in every mode, so the merge scan and the select path return the
+//    same bits; DMMA rounds otherwise than the SIMT chain: the card holds
+//    it at rtol = atol = 1e-13;
+//  - tc_plan_k's layouts hold as in float32 at D = 33, 128 and 300 but
+//    the merge scan's buffers: an entry is 12 bytes, 99 KB past the ring,
+//    two block stages where float32 has three past 96 coordinates.
+// Past the crossover (wide_select_k: 48 up to 64 coordinates, 192 past)
+// and at k = N the select path (launch_nnk_wide_select<double>).
 //
 // nnk past k = 16, two ways.  The same TPU kernel (pallas_knn.py:
 // _knnk_kernel :50, which takes any k <= N).
 //
-// The merge scans (nnk_scan_big, nnk_wide_scan_big, wide_tc_scan<kBig>):
-// the register-tiled and the float32 wide families at 16 < k below their
-// crossovers and N, and the float64 wide family at any k > 16.  A list of
+// The merge scans (nnk_scan_big, wide_tc_scan<T, kBig>): each family at
+// 16 < k below its crossover and N.  A list of
 // k = 100 pairs a row would take 200 registers, so:
 //  - each family scores its pairs as at k <= 16 (the same FMA chain; on
-//    the tensor cores the same three-pass total) and appends each pair
-//    before its row's k-th pair in (s, index) order (every pair until the
-//    row's list holds k) to the row's buffer in shared memory: the
-//    register-tiled scan at one row a thread (128 rows a block; 32
-//    candidates a row, kBigBatch), the float64 wide scan one row a thread
-//    of threads 0-63, the tensor-core scan from the row's four threads
-//    (their columns interleave, hence the (s, index) order in the test);
-//    the wide scans' buffers hold 64 (kBuf: a tile of 64 neighbours
-//    appends at most 64);
+//    the tensor cores the same three-pass total, or DMMA's float64 sum)
+//    and appends each pair before its row's k-th pair in (s, index) order
+//    (every pair until the row's list holds k) to the row's buffer in
+//    shared memory: the register-tiled scan at one row a thread (128 rows
+//    a block; 32 candidates a row, kBigBatch), the tensor-core scans from
+//    the row's four threads (their columns interleave, hence the (s,
+//    index) order in the test), whose buffers hold 64 (kBuf: a tile of 64
+//    neighbours appends at most 64);
 //  - where a buffer would overflow, and at the end of the split, the
 //    row's warp merges it into the row's sorted list (flush_row): a
 //    bitonic sort of the buffer in registers by shuffles, then the list
@@ -150,16 +183,18 @@
 //    INT_MAX) pairs; the merge pass (nnk_merge_big) takes a warp a row,
 //    lane sp the head of split sp's list, and writes the k least heads.
 // The tensor-core scan keeps its 128 rows a block, its producer and its
-// ring; the buffers take 66 KB past the ring, which leaves two stages of a
-// chunk up to 96 padded coordinates; past that a stage holds a block of
-// 32 coordinates and the rows ride in it (tc_plan_k), at any D, so every
-// float32 wide call runs on the tensor cores.
+// ring; the buffers take 66 KB past the ring (float64: 99 KB), which
+// leaves two stages of a chunk up to 96 padded coordinates; past that a
+// stage holds a block of 32 coordinates and the rows ride in it
+// (tc_plan_k), at any D, so every wide call past k = 16 runs on the
+// tensor cores.
 //
 // Select, then sort (launch_nnk_select, launch_nnk_wide_select): the
 // register-tiled family at k >= select_k(R) (kSelectK, kSelectK64 in
-// float64, past kSmallR rows; kSelectKSmallR up to them) and the float32
-// wide family at k >= wide_select_k (the crossovers, measured), both at
-// k = N.
+// float64, past kSmallR rows; kSelectKSmallR up to them) and the wide
+// families at k >= wide_select_k (kWideSelectK in float32; kWideSelectK64
+// and kWideSelectK64Long in float64, by D; the crossovers, measured), all
+// at k = N (the float64 wide family past k = 16).
 // Rather than merge candidates, find each row's k-th (s, index) pair
 // first, write the pairs before it once, and sort them once:
 //  - keys: s as an order-preserving unsigned key (Sel<T>::key: every bit
@@ -179,14 +214,15 @@
 //    same counts in any order), and a warp a row fixes the digit where
 //    the k-th pair falls, until the pairs of that bin complete the k or
 //    fit the row's boundary buffer (256-512 pairs).  Past 8 coordinates
-//    in float32 each pass is a mode of the tensor-core scan
-//    (wide_tc_scan<kCount>): the merge scan's products and sums, so the
-//    same s; a row's four threads add into its counters by shared
-//    atomics (the counters take the 66 KB past the ring that the merge
-//    scan's buffers take), and the first digit is guessed from a sample
-//    of every 8th tile and checked by the pass that counts the second
-//    (launch_nnk_wide_select);
-//  - emit (sel_emit; wide_tc_scan<kEmit>): one more pass writes every
+//    each pass is a mode of the tensor-core scan (wide_tc_scan<T,
+//    kCount>): the merge scan's products and sums, so the same s; a row's
+//    four threads add into its counters by shared atomics (the counters
+//    take 66 KB past the ring, as the float32 merge scan's buffers do),
+//    and the first digit is guessed from a sample of every 8th tile and
+//    checked by the pass that counts the second (launch_nnk_wide_select;
+//    float64's keys take 8 digits, the walk a row three full passes on
+//    FPFH-like clouds, the guess spares one);
+//  - emit (sel_emit; wide_tc_scan<T, kEmit>): one more pass writes every
 //    pair before the prefix
 //    into the row's slots of the outputs (as pairs, slots by atomics) and
 //    the bin's pairs there or into the boundary buffer; no [splits, R, k]
@@ -1199,6 +1235,14 @@ constexpr int kSelectK64 = 512;
 constexpr int kSelectKSmallR = 100;
 constexpr int kSmallR = 32768;    // between the measured 10,000 and 100,000
 constexpr int kWideSelectK = 256;
+// the float64 wide family (D > 8, k > 16), by width: up to kShortDim64
+// coordinates (measured on FPFH-like 10,000^2, D = 33: the merge scan
+// wins at 32, the select path from 48) and past them (SIFT-like 10,000 x
+// 20,000, D = 128: at 128, from 192); a pass's products grow with D, the
+// merge scan's merges do not
+constexpr int kWideSelectK64 = 48;
+constexpr int kWideSelectK64Long = 192;
+constexpr int kShortDim64 = 64;
 constexpr int kSelRows = 128;       // rows an emission block, one a thread
 constexpr int kCountRT = 2;         // rows a lane of a counting block
 constexpr int kCountRows = 32 * kCountRT;  // rows a counting block
@@ -2070,15 +2114,19 @@ cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
   }
 }
 
+// The wide families (below): float32 on the tensor cores through
+// `scratch` at every k; float64 up to k = 16 on the SIMT units, past it on
+// the tensor cores through `scratch`.
 cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
-                            int D, int k, int splits, float* scratch,
+                            int D, int k, int splits, void* scratch,
                             float* part_s, int* part_i, float* d2,
                             long long* idx, cudaStream_t stream,
                             bool merge = false);
 cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
-                            int N, int D, int k, int splits, float* scratch,
+                            int N, int D, int k, int splits, void* scratch,
                             double* part_s, int* part_i, double* d2,
-                            long long* idx, cudaStream_t stream);
+                            long long* idx, cudaStream_t stream,
+                            bool merge = false);
 
 template <typename T>
 cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
@@ -2088,7 +2136,7 @@ cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
   if (D > kMaxDim)
     return launch_nnk_wide(
         static_cast<const T*>(ref), static_cast<const T*>(nbr), R, N, D, k,
-        splits, static_cast<float*>(scratch), static_cast<T*>(part_s), part_i,
+        splits, scratch, static_cast<T*>(part_s), part_i,
         static_cast<T*>(d2), idx, stream);
   cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, int,
                                  void*, T*, int*, T*, long long*,
@@ -2271,91 +2319,6 @@ nnk_wide_scan_f64(const T* __restrict__ ref, const T* __restrict__ nbr,
   }
 }
 
-// nnk_wide_scan_f64 at k > kMaxK (float64): thread r < 64 keeps row row0 + r,
-// its candidates of a tile (its scores under the k-th s, or every
-// neighbour until the list holds k) appended to its buffer as
-// nnk_scan_big appends them, the stored score itself; warps 0 and 1 merge
-// the buffers.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nnk_wide_scan_big(const T* __restrict__ ref, const T* __restrict__ nbr,
-                      int R, int N, int D, int k, int chunk,
-                      T* __restrict__ part_s, int* __restrict__ part_i) {
-  __shared__ WideShared<T> sh;
-  extern __shared__ __align__(16) unsigned char big_smem[];
-  const int row0 = blockIdx.x * kWideRows;
-  const BigLists<T> L(big_smem, kWideRows, k, part_s, part_i, R, row0);
-  L.init();
-  const int j_begin = blockIdx.y * chunk;
-  const int j_end = min(N, j_begin + chunk);
-  const int r = threadIdx.x, lane = r % 32, warp0 = r - lane;
-  const bool live = row0 + r < R;
-  int n = 0, cnt = 0;
-  T thr = inf<T>();
-  for (int t0 = j_begin; t0 < j_end; t0 += kWideCols) {
-    const int len = min(kWideCols, j_end - t0);
-    wide_tile<T>(ref, nbr, R, D, row0, t0, len, sh);
-    if (r >= kWideRows) continue;
-    const unsigned long long in =
-        !live ? 0ull : len >= 64 ? ~0ull : (1ull << len) - 1ull;
-    unsigned long long m = in;
-    if (n == k) {
-      m = 0ull;
-      for (int j = 0; j < kWideCols; ++j)
-        m |= sh.s[r][j] < thr ? 1ull << j : 0ull;
-      m &= in;
-    }
-    for (unsigned todo = __ballot_sync(0xffffffffu, cnt + __popcll(m) > kBuf);
-         todo; todo &= todo - 1) {
-      const int o = __ffs(todo) - 1;
-      const int n2 = L.flush(warp0 + o, __shfl_sync(0xffffffffu, cnt, o),
-                             __shfl_sync(0xffffffffu, n, o));
-      if (lane == o) {
-        n = n2;
-        cnt = 0;
-        if (n == k) thr = L.list_s(r)[k - 1];
-      }
-    }
-    while (m) {
-      const int j = __ffsll(m) - 1;
-      m &= m - 1ull;
-      L.put(r, cnt++, sh.s[r][j], t0 + j);
-    }
-  }
-  if (r >= kWideRows) return;
-  for (unsigned todo = __ballot_sync(0xffffffffu, cnt > 0); todo;
-       todo &= todo - 1) {
-    const int o = __ffs(todo) - 1;
-    const int n2 = L.flush(warp0 + o, __shfl_sync(0xffffffffu, cnt, o),
-                           __shfl_sync(0xffffffffu, n, o));
-    if (lane == o) n = n2;
-  }
-  for (unsigned todo = __ballot_sync(0xffffffffu, live && n < k); todo;
-       todo &= todo - 1) {
-    const int o = __ffs(todo) - 1;
-    L.pad(warp0 + o, __shfl_sync(0xffffffffu, n, o));
-  }
-}
-
-template <typename T>
-cudaError_t launch_wide_big(const T* ref, const T* nbr, int R, int N, int D,
-                            int k, int splits, T* part_s, int* part_i, T* d2,
-                            long long* idx, cudaStream_t stream) {
-  const size_t bytes = big_bytes(kWideRows, kThreads, sizeof(T));
-  cudaError_t e = cudaFuncSetAttribute(
-      nnk_wide_scan_big<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((R + kWideRows - 1) / kWideRows, splits);
-  nnk_wide_scan_big<T><<<grid, kThreads, bytes, stream>>>(
-      ref, nbr, R, N, D, k, split_chunk(N, splits), part_s, part_i);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  nnk_merge_big<T, 0><<<(R + 7) / 8, 256, 0, stream>>>(
-      ref, R, D, k, splits, part_s, part_i, d2, idx);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_nn1_wide(const double* ref, const double* nbr, int R,
                             int N, int D, int splits, float*,
                             double* part_s, int* part_i, double* d2,
@@ -2385,27 +2348,9 @@ cudaError_t launch_nnk_wide_f64(const double* ref, const double* nbr, int R,
   return cudaGetLastError();
 }
 
-cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
-                            int N, int D, int k, int splits, float*,
-                            double* part_s, int* part_i, double* d2,
-                            long long* idx, cudaStream_t stream) {
-  if (k > kMaxK)
-    return launch_wide_big<double>(ref, nbr, R, N, D, k, splits, part_s,
-                                   part_i, d2, idx, stream);
-  switch (list_len(k)) {
-    case 2: return launch_nnk_wide_f64<2>(ref, nbr, R, N, D, k, splits,
-                                          part_s, part_i, d2, idx, stream);
-    case 4: return launch_nnk_wide_f64<4>(ref, nbr, R, N, D, k, splits,
-                                          part_s, part_i, d2, idx, stream);
-    case 8: return launch_nnk_wide_f64<8>(ref, nbr, R, N, D, k, splits,
-                                          part_s, part_i, d2, idx, stream);
-    default: return launch_nnk_wide_f64<kMaxK>(ref, nbr, R, N, D, k, splits,
-                                               part_s, part_i, d2, idx,
-                                               stream);
-  }
-}
-
-// ---- D > 8, float32: the wide scans on the tensor cores -------------------
+// ---- D > 8: the wide scans on the tensor cores ------------------------------
+// float32 at every k in three-pass TF32 (wgmma); float64 past k = 16 on
+// the FP64 tensor cores (DMMA, mma.sync)
 
 constexpr int kPanel = 64;          // rows a panel: a warpgroup's rows, a tile
 constexpr int kGroups = 2;          // consumer warpgroups a block
@@ -2418,6 +2363,9 @@ constexpr int kMaxChunkStages = 4;  // and a chunk a stage
 constexpr int kResidentDim = 128;   // padded D up to which rows stay resident
 constexpr int kBarBytes = 256;      // the mbarriers, at the head of the smem
 constexpr int kMinTcSplitTiles = 8; // tiles a split, least
+// bytes a coordinate of a panel's 64 rows takes in both types: a float32
+// coordinate's hi and lo words, a float64 coordinate's value
+constexpr int kCoordBytes = 512;
 
 // The layout of one panel of 64 rows (tf32_split writes it, the stages
 // receive it as it is): for each chunk c of kc = min(64, Dp - 64 c)
@@ -2425,9 +2373,15 @@ constexpr int kMinTcSplitTiles = 8; // tiles a split, least
 // each as kc / 8 k-steps of [64 rows][8 coordinates] in wgmma's K-major
 // 32-byte swizzle (row r's 32 bytes at 32 r, its two 16-byte halves
 // swapped where bit 2 of r is set, so that a k-step's rows read from
-// distinct banks); then 64 floats of |row|^2.
+// distinct banks); then 64 floats of |row|^2.  Float64 (f64_panels): the
+// same bytes a chunk, the values as Dp / 8 k-steps of [64 rows][8
+// coordinates], then 64 doubles of |row|^2.
 __host__ __device__ constexpr size_t panel_floats(int Dp) {
   return 2 * static_cast<size_t>(kPanel) * Dp + kPanel;
+}
+template <typename T>
+__host__ __device__ constexpr size_t panel_bytes(int Dp) {
+  return static_cast<size_t>(kCoordBytes) * Dp + kPanel * sizeof(T);
 }
 __host__ __device__ constexpr int chunk_dim(int Dp, int c) {
   return Dp - kTcChunk * c < kTcChunk ? Dp - kTcChunk * c : kTcChunk;
@@ -2475,6 +2429,38 @@ __global__ void tf32_split(const float* __restrict__ x, int n, int D, int Dp,
   }
   panel[2 * kPanel * Dp + r] =
       !live ? CUDART_INF_F : D > kLongNorm ? static_cast<float>(sq64) : sq;
+}
+
+// Lays rows [0, panels * 64) of float64 x [n, D] (zero past n and past D)
+// out in the DMMA scan's panels: each k-step's row holds its 8 coordinates
+// in the order 0 4 1 5 2 6 3 7, so that the thread of an mma's k-column t
+// reads coordinates t and t + 4 by one 16-byte load (a quarter-warp's
+// eight loads: two rows' 128 contiguous bytes, no bank conflict); |row|^2
+// is the FMA chain from the first coordinate, +inf past n.  One thread a
+// row.
+__global__ void f64_panels(const double* __restrict__ x, int n, int D, int Dp,
+                           int panels, double* __restrict__ out) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= panels * kPanel) return;
+  const int r = row % kPanel;
+  double* panel = out + static_cast<size_t>(row / kPanel) *
+                            (panel_bytes<double>(Dp) / sizeof(double));
+  const double* src = x + static_cast<size_t>(row) * D;
+  const bool live = row < n;
+  double sq = 0.0;
+  for (int j = 0; j < Dp / 8; ++j) {
+    double v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = 8 * j + e;
+      v[e] = live && c < D ? src[c] : 0.0;
+      sq = c == 0 ? __dmul_rn(v[e], v[e]) : __fma_rn(v[e], v[e], sq);
+    }
+    double2* o = reinterpret_cast<double2*>(panel + kPanel * 8 * j + 8 * r);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) o[u] = make_double2(v[u], v[u + 4]);
+  }
+  panel[kPanel * Dp + r] = live ? sq : CUDART_INF;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -2579,10 +2565,59 @@ __device__ __forceinline__ void wgmma_64x64x8(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The DMMA scan's products.  Hopper has no float64 wgmma, so each warp of
+// a consumer warpgroup forms its 16 rows x 64 neighbours by
+// mma.sync.m16n8k8, as eight column slices of 8: an m16n8 accumulator puts
+// rows g and g + 8, columns 2t and 2t + 1 of its slice on thread 4g + t,
+// the layout that wgmma.m64n64 gives each warp of a warpgroup, so every
+// selection mode reads either.  Alone m16n8k4, m16n8k8 and m16n8k16 run at
+// 66.1-66.4 TFLOP/s (m8n8k4 at 33.3; probes/dmma_rate.cu); in the scan
+// m16n8k8 took the least time (PERF.md).
+__device__ __forceinline__ void dmma_m16n8k8(double* d, double a0, double a1,
+                                             double a2, double a3, double b0,
+                                             double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+// d += the products of a stage unit's `steps` k-steps of 8 coordinates: a
+// the warpgroup's 64 rows, b the tile's 64 neighbours, each k-step
+// [64][8] doubles in f64_panels' order; warp w's rows 16 w + g (+ 8), and
+// column slice n's neighbour 8 n + g, each at coordinates (t, t + 4) of
+// the k-step; k-steps in ascending order.  Operands by 16-byte loads (no
+// 64-bit ldmatrix exists).
+__device__ __forceinline__ void dmma_unit(double (&d)[32],
+                                          const double* __restrict__ a,
+                                          const double* __restrict__ b,
+                                          int steps, int w, int lane) {
+  constexpr int kStep = kPanel * 8;  // doubles a k-step
+  const double* ar = a + 8 * (16 * w + lane / 4) + 2 * (lane % 4);
+  const double* br = b + 8 * (lane / 4) + 2 * (lane % 4);
+  __syncwarp();  // mma.sync is .aligned: the warp's lanes together
+  for (int j = 0; j < steps; ++j) {
+    const double2 x0 = *reinterpret_cast<const double2*>(ar + kStep * j);
+    const double2 x1 = *reinterpret_cast<const double2*>(ar + kStep * j + 64);
+    double2 y[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      y[n] = *reinterpret_cast<const double2*>(br + kStep * j + 64 * n);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      dmma_m16n8k8(d + 4 * n, x0.x, x1.x, x0.y, x1.y, y[n].x, y[n].y);
+  }
+}
+
+// The two scores a thread reads of |b|^2: a float2, or its float64 peer.
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<double> { using type = double2; };
+
 // insert<K> in (s, index) order, for lists whose indices interleave
-template <int K>
-__device__ __forceinline__ void insert_lex(float d, int j, float* v,
-                                           int* id) {
+template <int K, typename T>
+__device__ __forceinline__ void insert_lex(T d, int j, T* v, int* id) {
   if (!lex_less(d, j, v[K - 1], id[K - 1])) return;
 #pragma unroll
   for (int s = K - 1; s > 0; --s) {
@@ -2608,7 +2643,7 @@ __device__ __forceinline__ void insert_lex(float d, int j, float* v,
 // max_stages) and the dynamic shared memory.
 struct TcPlan {
   int Dp, resident, blocks, unit_max, stages, tiles, row_panels;
-  size_t pf, smem;
+  size_t pb, smem;  // a panel's bytes, the dynamic shared memory's
 };
 
 // The end of the fresh sum's block of coordinates that starts at k0 in a
@@ -2636,6 +2671,7 @@ int unit_dim_max(int Dp, int blocks) {
   return m;
 }
 
+template <typename T>
 TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages,
                size_t extra = 0, int resident = 1, int blocks = 0) {
   TcPlan p;
@@ -2645,15 +2681,16 @@ TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages,
   p.unit_max = unit_dim_max(p.Dp, blocks);
   p.tiles = (N + kPanel - 1) / kPanel;
   p.row_panels = kGroups * ((R + kTcRows - 1) / kTcRows);
-  p.pf = panel_floats(p.Dp);
-  // a stage: a tile's unit (hi, lo) and its |b|^2; streamed rows: the
-  // block's two panels' unit too
+  p.pb = panel_bytes<T>(p.Dp);
+  // a stage: a tile's unit (hi, lo; float64: the values) and its |b|^2;
+  // streamed rows: the block's two panels' unit too (the same bytes in
+  // both types but the 64 norms)
   const size_t u = p.unit_max;
-  const size_t stage = 4 * (2 * kPanel * u + kPanel +
-                            (p.resident ? 0 : 2 * kTcRows * u));
+  const size_t stage = kCoordBytes * u + kPanel * sizeof(T) +
+                       (p.resident ? 0 : kGroups * kCoordBytes * u);
   // and 256 bytes to align the base
-  const size_t fixed = 256 + kBarBytes +
-                       (p.resident ? 4 * kGroups * p.pf : 0) + extra;
+  const size_t fixed = 256 + kBarBytes + (p.resident ? kGroups * p.pb : 0) +
+                       extra;
   const size_t fit = static_cast<size_t>(smem_max) > fixed
                          ? (smem_max - fixed) / stage : 0;
   p.stages = static_cast<int>(std::min<size_t>(max_stages, fit));
@@ -2664,13 +2701,16 @@ TcPlan tc_plan(int R, int N, int D, int smem_max, int max_stages,
 // The select path's arguments of the tensor-core scan in its counting and
 // emission modes (launch_nnk_wide_select): the rows' states, their global
 // histograms [R, 256], the emission's counts [R, 2], the boundary buffers
-// [R, cap], the outputs' slots (idx's 8 bytes a pair) and k.
+// [R, cap], the outputs (whose slots hold the pairs until the sort,
+// Sel<T>::put) and k.
+template <typename T>
 struct TcSelect {
-  const SelRow<unsigned>* st;
+  const SelRow<typename Sel<T>::Key>* st;
   unsigned* hist;
   int* cnt;
-  unsigned long long* bnd;
-  long long* slots;
+  typename Sel<T>::Pair* bnd;
+  T* d2;
+  long long* idx;
   int ibits, cap, k;
 };
 
@@ -2686,17 +2726,24 @@ constexpr int kEmit = -2;
 // [split_tiles blockIdx.y, + split_tiles), each row's best into part_s /
 // part_i [splits, k, R]
 // (nn1: [splits, R]; kBig: [splits, R, k]), or its counts into
-// sel.hist, or its pairs into the slots.  Threads 0-255: two consumer
-// warpgroups; warp 8: the producer.  Every mode scores a pair with the
-// same products in the same order, so every mode sees the same s.
-template <int K>
+// sel.hist, or its pairs into the outputs' slots.  Threads 0-255: two
+// consumer warpgroups; warp 8: the producer.  Every mode scores a pair
+// with the same products in the same order, so every mode sees the same
+// s.  T: float32 (three-pass TF32 wgmma from the split panels, every K)
+// or float64 (DMMA from f64_panels: kBig, kCount, kEmit); the products are
+// the only part that differs.
+template <typename T, int K>
 __global__ void __launch_bounds__(kTcThreads, 1)
-wide_tc_scan(const float* __restrict__ ref_pan,
-             const float* __restrict__ nbr_pan, int R, int Dp, int resident,
-             int blocks, int unit_max, int stages, int tiles,
+wide_tc_scan(const unsigned char* __restrict__ ref_pan,
+             const unsigned char* __restrict__ nbr_pan, int R, int Dp,
+             int resident, int blocks, int unit_max, int stages, int tiles,
              int split_tiles, int tile_step, int k,
-             float* __restrict__ part_s, int* __restrict__ part_i, int N,
-             TcSelect sel) {
+             T* __restrict__ part_s, int* __restrict__ part_i, int N,
+             TcSelect<T> sel) {
+  using S = Sel<T>;
+  using Key = typename S::Key;
+  constexpr bool kF64 = sizeof(T) == sizeof(double);
+  constexpr int kd = sizeof(Key);  // the key's digits
   constexpr bool kCounts = K == kCount;
   extern __shared__ __align__(256) unsigned char smem_raw[];
   if constexpr (kCounts) {
@@ -2712,17 +2759,20 @@ wide_tc_scan(const float* __restrict__ ref_pan,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   uint64_t* rows_in = empty + kMaxStages;
-  const size_t pf = panel_floats(Dp);
+  const size_t pb = panel_bytes<T>(Dp);
   const int chunks = (Dp + kTcChunk - 1) / kTcChunk;
-  float* rows = reinterpret_cast<float*>(smem + kBarBytes);
-  float* ring = rows + (resident ? kGroups * pf : 0);
-  const size_t b_floats = 2 * static_cast<size_t>(kPanel) * unit_max + kPanel;
-  const size_t stage_floats =
-      b_floats + (resident ? 0 : 2 * static_cast<size_t>(kTcRows) * unit_max);
+  unsigned char* rows = smem + kBarBytes;
+  unsigned char* ring = rows + (resident ? kGroups * pb : 0);
+  // a stage: the tile's unit and |b|^2, then (streamed) the rows' unit
+  const size_t b_bytes =
+      static_cast<size_t>(kCoordBytes) * unit_max + kPanel * sizeof(T);
+  const size_t stage_bytes =
+      b_bytes +
+      (resident ? 0 : static_cast<size_t>(kGroups) * kCoordBytes * unit_max);
   const int tile0 = blockIdx.y * split_tiles;
   const int tile1 = min(tiles, tile0 + split_tiles);
-  const float* my_rows = ref_pan + static_cast<size_t>(kGroups) *
-                                       blockIdx.x * pf;
+  const unsigned char* my_rows =
+      ref_pan + static_cast<size_t>(kGroups) * blockIdx.x * pb;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // the warpgroup, by a shuffle so that ptxas sees it uniform: the role
   // branch below must not make the consumers' wgmmas divergent (C7520)
@@ -2741,46 +2791,49 @@ wide_tc_scan(const float* __restrict__ ref_pan,
     // the producer: one thread keeps the ring full
     if (lane != 0) return;
     if (resident) {
-      mbar_expect_tx(rows_in, 4 * kGroups * pf);
-      bulk_load(rows, my_rows, 4 * kGroups * pf, rows_in);
+      mbar_expect_tx(rows_in, kGroups * pb);
+      bulk_load(rows, my_rows, kGroups * pb, rows_in);
     }
     int it = 0;
     for (int t = tile0; t < tile1; t += tile_step) {
-      const float* tile = nbr_pan + static_cast<size_t>(t) * pf;
+      const unsigned char* tile = nbr_pan + static_cast<size_t>(t) * pb;
       for (int c = 0; c < chunks; ++c) {
         const int kc = chunk_dim(Dp, c);
-        const size_t off = 2 * static_cast<size_t>(kPanel) * kTcChunk * c;
+        const size_t off = static_cast<size_t>(kCoordBytes) * kTcChunk * c;
         for (int u0 = 0, u1; u0 < kc; u0 = u1, ++it) {
           u1 = unit_end(kc, u0, blocks);
           const int kw = u1 - u0, s = it % stages;
           if (it >= stages) mbar_wait(&empty[s], ((it / stages) - 1) & 1);
-          float* st = ring + s * stage_floats;
-          // the last unit's lo words run on into the panel's |b|^2
+          unsigned char* st = ring + s * stage_bytes;
+          // the last unit (float32: its lo words) runs on into the
+          // panel's |b|^2
           const bool last = c == chunks - 1 && u1 == kc;
-          const uint32_t hi_bytes = 4 * kPanel * kw;
-          const uint32_t lo_bytes = hi_bytes + (last ? 4 * kPanel : 0);
-          const uint32_t a_bytes = 2 * hi_bytes;  // a panel's hi and lo
-          mbar_expect_tx(&full[s], hi_bytes + lo_bytes +
-                                       (resident ? 0 : kGroups * a_bytes));
-          if (kw == kc) {
-            // a whole chunk: hi and lo are contiguous
-            bulk_load(st, tile + off, hi_bytes + lo_bytes, &full[s]);
+          const uint32_t unit = kCoordBytes * kw;  // a panel's unit
+          const uint32_t norms = last ? kPanel * sizeof(T) : 0;
+          mbar_expect_tx(&full[s],
+                         unit + norms + (resident ? 0 : kGroups * unit));
+          if (kF64 || kw == kc) {
+            // float64: a unit's k-steps are contiguous; float32: a whole
+            // chunk's hi and lo are
+            const size_t at = off + (kF64 ? kCoordBytes * u0 : 0);
+            bulk_load(st, tile + at, unit + norms, &full[s]);
             if (!resident) {
               for (int g = 0; g < kGroups; ++g)
-                bulk_load(st + b_floats + g * 2 * kPanel * kw,
-                          my_rows + g * pf + off, a_bytes, &full[s]);
+                bulk_load(st + b_bytes + g * unit, my_rows + g * pb + at,
+                          unit, &full[s]);
             }
           } else {
-            // a block of it: its k-steps of the hi words, of the lo words
-            const size_t hi = off + kPanel * u0, lo = hi + kPanel * kc;
-            bulk_load(st, tile + hi, hi_bytes, &full[s]);
-            bulk_load(st + kPanel * kw, tile + lo, lo_bytes, &full[s]);
+            // a float32 block: its k-steps of the hi words, of the lo words
+            const uint32_t half = unit / 2;
+            const size_t hi = off + kCoordBytes / 2 * u0,
+                         lo = hi + kCoordBytes / 2 * kc;
+            bulk_load(st, tile + hi, half, &full[s]);
+            bulk_load(st + half, tile + lo, half + norms, &full[s]);
             if (!resident) {
               for (int g = 0; g < kGroups; ++g) {
-                float* a = st + b_floats + g * 2 * kPanel * kw;
-                bulk_load(a, my_rows + g * pf + hi, hi_bytes, &full[s]);
-                bulk_load(a + kPanel * kw, my_rows + g * pf + lo, hi_bytes,
-                          &full[s]);
+                unsigned char* a = st + b_bytes + g * unit;
+                bulk_load(a, my_rows + g * pb + hi, half, &full[s]);
+                bulk_load(a + half, my_rows + g * pb + lo, half, &full[s]);
               }
             }
           }
@@ -2797,10 +2850,9 @@ wide_tc_scan(const float* __restrict__ ref_pan,
   // part_i; the state of each of this thread's rows (its list's length,
   // its buffer's count and its k-th pair), the same on the row's four
   // threads
-  unsigned char* past_ring =
-      reinterpret_cast<unsigned char*>(ring + stages * stage_floats);
-  const BigLists<float> L(past_ring, kTcRows, k, part_s, part_i, R,
-                          kTcRows * blockIdx.x);
+  unsigned char* past_ring = ring + stages * stage_bytes;
+  const BigLists<T> L(past_ring, kTcRows, k, part_s, part_i, R,
+                      kTcRows * blockIdx.x);
   if constexpr (K == kBig) L.init();
   // the select path: the bounds of each of this thread's rows' prefix
   // (bounds no score meets where the row does not count or emit); in the
@@ -2808,7 +2860,7 @@ wide_tc_scan(const float* __restrict__ ref_pan,
   // index), whether it guesses, its pairs before the prefix so far, and
   // its counters past the ring (two 16-bit counts a word; a warp's 16
   // rows are its own)
-  SelBounds<float> bd[2];
+  SelBounds<T> bd[2];
   bool take[2] = {false, false}, by_index[2] = {false, false};
   bool guess[2] = {false, false};
   int sh[2] = {0, 0};
@@ -2819,18 +2871,17 @@ wide_tc_scan(const float* __restrict__ ref_pan,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
-      const SelRow<unsigned> r =
-          row < R ? sel.st[row] : SelRow<unsigned>{0u, 0u, 0, 0, 0, -1};
+      const SelRow<Key> r =
+          row < R ? sel.st[row] : SelRow<Key>{Key(0), 0u, 0, 0, 0, -1};
       const bool live =
           kCounts ? r.mode == kCounting || r.mode == kGuess : row < R;
-      bd[h] = live ? sel_bounds<float, unsigned>(r.pk, r.pj, r.level,
-                                                 sel.ibits)
-                   : SelBounds<float>{CUDART_INF_F, -CUDART_INF_F, 1u, 0u};
+      bd[h] = live ? sel_bounds<T, Key>(r.pk, r.pj, r.level, sel.ibits)
+                   : SelBounds<T>{inf<T>(), -inf<T>(), 1u, 0u};
       take[h] = r.mode == kTakeAll;
       guess[h] = r.mode == kGuess;
-      by_index[h] = r.level >= 4;
-      sh[h] = by_index[h] ? sel.ibits - 8 * (r.level - 4 + 1)
-                          : 8 * (4 - 1 - r.level);
+      by_index[h] = r.level >= kd;
+      sh[h] = by_index[h] ? sel.ibits - 8 * (r.level - kd + 1)
+                          : 8 * (kd - 1 - r.level);
     }
   }
   if constexpr (kCounts) {
@@ -2839,79 +2890,95 @@ wide_tc_scan(const float* __restrict__ ref_pan,
     __syncwarp();
   }
   int big_n[2] = {0, 0}, big_cnt[2] = {0, 0}, thr_i[2] = {INT_MAX, INT_MAX};
-  float thr_s[2] = {CUDART_INF_F, CUDART_INF_F};
-  float best[2] = {CUDART_INF_F, CUDART_INF_F};
+  T thr_s[2] = {inf<T>(), inf<T>()};
+  T best[2] = {inf<T>(), inf<T>()};
   int bidx[2] = {0, 0};
   constexpr int KL = K > 1 ? K : 1;
-  float v[2][KL];
+  T v[2][KL];
   int id[2][KL];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int e = 0; e < KL; ++e) {
-      v[h][e] = CUDART_INF_F;
+      v[h][e] = inf<T>();
       id[h][e] = 0;
     }
   if (resident) mbar_wait(rows_in, 0);
-  // a block's sum (fresh each block of coordinates), the tile's total
-  float acc[32], total[32], bn[16];
+  // float32: a block's sum (fresh each block of coordinates); the tile's
+  // total (float64: the DMMA accumulators themselves)
+  float acc[32];
+  T total[32], bn[16];
+  if constexpr (!kF64) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  }
   int it = 0;
   for (int t = tile0; t < tile1; t += tile_step) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) total[i] = 0.f;
+    for (int i = 0; i < 32; ++i) total[i] = T(0);
     for (int c = 0; c < chunks; ++c) {
       const int kc = chunk_dim(Dp, c);
-      const size_t off = 2 * static_cast<size_t>(kPanel) * kTcChunk * c;
+      const size_t off = static_cast<size_t>(kCoordBytes) * kTcChunk * c;
       for (int u0 = 0, u1; u0 < kc; u0 = u1, ++it) {
         u1 = unit_end(kc, u0, blocks);
         const int kw = u1 - u0, s = it % stages;
         mbar_wait(&full[s], (it / stages) & 1);
-        const float* st = ring + s * stage_floats;
-        // the unit's first k-step of each operand
-        const float* a_hi = resident ? rows + g * pf + off + kPanel * u0
-                                     : st + b_floats + g * 2 * kPanel * kw;
-        const float* a_lo =
-            resident ? a_hi + kPanel * kc : a_hi + kPanel * kw;
-        const float* b_hi = st;
-        const float* b_lo = st + kPanel * kw;
-        // a k-step of 8 coordinates is a [64][8] block: 512 floats.  Each
-        // block of 32 coordinates (40 where 8 are left) is summed fresh,
-        // small products first, big ones last, and added to `total`
-        // rounded to nearest
-        for (int k0 = u0, k1; k0 < u1; k0 = k1) {
-          k1 = block_end(kc, k0);
-          __syncwarp();
-          fence_operands(acc);
-          wgmma_fence();
-          for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
-            wgmma_64x64x8(acc, operand_desc(a_lo + 512 * j),
-                          operand_desc(b_hi + 512 * j), j > (k0 - u0) / 8);
-          for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
-            wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
-                          operand_desc(b_lo + 512 * j), 1);
-          for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
-            wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
-                          operand_desc(b_hi + 512 * j), 1);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_operands(acc);
+        const unsigned char* st = ring + s * stage_bytes;
+        // the unit's first k-step of the rows (float32: of their hi words)
+        const unsigned char* a_unit =
+            resident ? rows + g * pb + off +
+                           (kF64 ? kCoordBytes : kCoordBytes / 2) * u0
+                     : st + b_bytes + g * kCoordBytes * kw;
+        if constexpr (kF64) {
+          dmma_unit(total, reinterpret_cast<const double*>(a_unit),
+                    reinterpret_cast<const double*>(st), kw / 8, w, lane);
+        } else {
+          const float* a_hi = reinterpret_cast<const float*>(a_unit);
+          const float* a_lo =
+              resident ? a_hi + kPanel * kc : a_hi + kPanel * kw;
+          const float* b_hi = reinterpret_cast<const float*>(st);
+          const float* b_lo = b_hi + kPanel * kw;
+          // a k-step of 8 coordinates is a [64][8] block: 512 floats.  Each
+          // block of 32 coordinates (40 where 8 are left) is summed fresh,
+          // small products first, big ones last, and added to `total`
+          // rounded to nearest
+          for (int k0 = u0, k1; k0 < u1; k0 = k1) {
+            k1 = block_end(kc, k0);
+            __syncwarp();
+            fence_operands(acc);
+            wgmma_fence();
+            for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
+              wgmma_64x64x8(acc, operand_desc(a_lo + 512 * j),
+                            operand_desc(b_hi + 512 * j), j > (k0 - u0) / 8);
+            for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
+              wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
+                            operand_desc(b_lo + 512 * j), 1);
+            for (int j = (k0 - u0) / 8; j < (k1 - u0) / 8; ++j)
+              wgmma_64x64x8(acc, operand_desc(a_hi + 512 * j),
+                            operand_desc(b_hi + 512 * j), 1);
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_operands(acc);
 #pragma unroll
-          for (int i = 0; i < 32; ++i) total[i] = __fadd_rn(total[i], acc[i]);
+            for (int i = 0; i < 32; ++i)
+              total[i] = __fadd_rn(total[i], acc[i]);
+          }
         }
         if (c == chunks - 1 && u1 == kc) {
           // |b|^2 of this thread's columns 8 j + 2 q (+ 1)
-          const float2* bn2 =
-              reinterpret_cast<const float2*>(st + 2 * kPanel * kw);
+          const auto* bn2 = reinterpret_cast<const typename Vec2<T>::type*>(
+              st + kCoordBytes * kw);
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const float2 x = bn2[4 * j + q];
+            const auto x = bn2[4 * j + q];
             bn[2 * j] = x.x;
             bn[2 * j + 1] = x.y;
           }
-          fence_proxy_async();
+          if constexpr (!kF64) fence_proxy_async();
         }
+        // float64 reads every operand by plain loads: all of them before
+        // the next bulk copy into the stage
+        if constexpr (kF64) fence_proxy_async();
         mbar_arrive(&empty[s]);
       }
     }
@@ -2920,17 +2987,17 @@ wide_tc_scan(const float* __restrict__ ref_pan,
     const int col0 = kPanel * t + 2 * q;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float sc[16];
+      T sc[16];
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         const int i = 4 * (e >> 1) + 2 * h + (e & 1);
-        sc[e] = __fmaf_rn(-2.f, total[i], bn[e]);
+        sc[e] = fma_rn(T(-2), total[i], bn[e]);
       }
       if constexpr (K == 1) {
         // min first, its first index only where it improves
-        float m = sc[0];
+        T m = sc[0];
 #pragma unroll
-        for (int e = 1; e < 16; ++e) m = fminf(m, sc[e]);
+        for (int e = 1; e < 16; ++e) m = min_of(m, sc[e]);
         if (m < best[h]) {
           int f = 15;
 #pragma unroll
@@ -2951,9 +3018,10 @@ wide_tc_scan(const float* __restrict__ ref_pan,
           below[h] += real && sc[e] < bd[h].lo ? 1u : 0u;
           if (real && sc[e] >= bd[h].lo && sc[e] <= bd[h].hi &&
               col >= bd[h].jlo && col <= bd[h].jhi) {
-            const unsigned d = (by_index[h] ? col >> sh[h]
-                                            : Sel<float>::key(sc[e]) >> sh[h]) &
-                               (kBins - 1);
+            const unsigned d =
+                (by_index[h] ? col >> sh[h]
+                             : static_cast<unsigned>(S::key(sc[e]) >> sh[h])) &
+                (kBins - 1);
             atomicAdd(&hr[d >> 1], 1u << ((d & 1u) * 16));
           }
         }
@@ -3016,7 +3084,7 @@ wide_tc_scan(const float* __restrict__ ref_pan,
         while (cand) {
           const int e = __ffs(cand) - 1;
           cand &= cand - 1;
-          float x = sc[0];
+          T x = sc[0];
 #pragma unroll
           for (int f = 1; f < 16; ++f) x = f == e ? sc[f] : x;
           L.put(rb, at++, x, col0 + 8 * (e >> 1) + (e & 1));
@@ -3025,9 +3093,9 @@ wide_tc_scan(const float* __restrict__ ref_pan,
       } else {
         // the row's threshold: the least of its four threads' K-th s (a
         // candidate equal to it may still win on its index)
-        float thr = v[h][K - 1];
-        thr = fminf(thr, __shfl_xor_sync(0xffffffffu, thr, 1));
-        thr = fminf(thr, __shfl_xor_sync(0xffffffffu, thr, 2));
+        T thr = v[h][K - 1];
+        thr = min_of(thr, __shfl_xor_sync(0xffffffffu, thr, 1));
+        thr = min_of(thr, __shfl_xor_sync(0xffffffffu, thr, 2));
         unsigned cand = 0;
 #pragma unroll
         for (int e = 0; e < 16; ++e)
@@ -3037,7 +3105,7 @@ wide_tc_scan(const float* __restrict__ ref_pan,
         while (cand) {
           const int e = __ffs(cand) - 1;
           cand &= cand - 1;
-          float x = sc[0];
+          T x = sc[0];
 #pragma unroll
           for (int f = 1; f < 16; ++f) x = f == e ? sc[f] : x;
           insert<K>(x, col0 + 8 * (e >> 1) + (e & 1), v[h], id[h]);
@@ -3078,18 +3146,18 @@ wide_tc_scan(const float* __restrict__ ref_pan,
             // the pair's s again, its operands picked without indexing the
             // arrays by a variable (which would put them in local memory)
             const int i = 4 * (e >> 1) + 2 * h + (e & 1);
-            float tv = total[0], bv = bn[0];
+            T tv = total[0], bv = bn[0];
 #pragma unroll
             for (int f = 1; f < 32; ++f) tv = f == i ? total[f] : tv;
 #pragma unroll
             for (int f = 1; f < 16; ++f) bv = f == e ? bn[f] : bv;
-            const unsigned long long p = Sel<float>::pair(
-                Sel<float>::key(__fmaf_rn(-2.f, tv, bv)),
-                col0 + 8 * (e >> 1) + (e & 1));
+            const typename S::Pair p =
+                S::pair(S::key(fma_rn(T(-2), tv, bv)),
+                        col0 + 8 * (e >> 1) + (e & 1));
             if (b)
               sel.bnd[row * sel.cap + o++] = p;
             else
-              Sel<float>::put(nullptr, sel.slots, row * sel.k + o++, p);
+              S::put(sel.d2, sel.idx, row * sel.k + o++, p);
           }
         }
         emit_out[h] = emit_bnd[h] = 0u;
@@ -3153,7 +3221,7 @@ wide_tc_scan(const float* __restrict__ ref_pan,
     if constexpr (K == 1) {
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best[h], off);
+        const T ob = __shfl_xor_sync(0xffffffffu, best[h], off);
         const int oi = __shfl_xor_sync(0xffffffffu, bidx[h], off);
         if (lex_less(ob, oi, best[h], bidx[h])) {
           best[h] = ob;
@@ -3168,7 +3236,7 @@ wide_tc_scan(const float* __restrict__ ref_pan,
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         // the partner's list as it was, then merged into this one
-        float ov[K];
+        T ov[K];
         int oi[K];
 #pragma unroll
         for (int e = 0; e < K; ++e) {
@@ -3193,25 +3261,27 @@ wide_tc_scan(const float* __restrict__ ref_pan,
   }
 }
 
-// Blocks of the scan of mode K an SM holds with `smem` bytes of dynamic
-// shared memory (0 on a query failure).
-template <int K>
+// Blocks of the scan of type T and mode K an SM holds with `smem` bytes of
+// dynamic shared memory (0 on a query failure).
+template <typename T, int K>
 int blocks_per_sm(size_t smem) {
   int n = 0;
-  if (cudaFuncSetAttribute(wide_tc_scan<K>,
+  if (cudaFuncSetAttribute(wide_tc_scan<T, K>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, wide_tc_scan<K>, kTcThreads, smem) != cudaSuccess)
+          &n, wide_tc_scan<T, K>, kTcThreads, smem) != cudaSuccess)
     return 0;
   return n;
 }
 
 // The bytes past the ring of the scan of mode K: at k > kMaxK the buffers
-// and the warps' counters, in the counting passes 256 counters a row.
-template <int K>
+// and the warps' counters (66 KB in float32, 99 KB in float64: an entry
+// is its score and its index), in the counting passes 256 counters a row
+// (66 KB in both).
+template <typename T, int K>
 size_t tc_extra() {
-  return K == kBig ? big_bytes(kTcRows, kTcThreads, sizeof(float))
+  return K == kBig ? big_bytes(kTcRows, kTcThreads, sizeof(T))
          : K == kCount ? sizeof(unsigned) * kTcRows * kHistStride
              : 0;
 }
@@ -3222,24 +3292,25 @@ size_t tc_extra() {
 // where one of four took 3.27, PERF.md): the rows resident (to 128 padded
 // coordinates) and a chunk a stage, as every mode up to k = 16 at every D;
 // resident and a block a stage; streamed and a chunk; streamed and a
-// block.  Past k = 16 and in the select path's counting passes the 66 KB
+// block.  Past k = 16 and in the select path's counting passes the bytes
 // past the ring leave no room for the first at D = 128, and the last
-// holds at any D.  *per_sm gets the blocks an SM (0: none fits).
-template <int K>
+// holds at any D (float64's stages take float32's bytes but 256 of |b|^2,
+// PERF.md).  *per_sm gets the blocks an SM (0: none fits).
+template <typename T, int K>
 TcPlan tc_plan_k(int R, int N, int D, int* per_sm) {
   const int smem_max = smem_optin();
-  const size_t extra = tc_extra<K>();
+  const size_t extra = tc_extra<T, K>();
   TcPlan best{};
   *per_sm = 0;
   for (const int layout : {0, 1, 2, 3}) {
     const int resident = layout < 2, blocks = layout % 2;
     const int most = blocks ? kMaxStages : kMaxChunkStages;
-    best = tc_plan(R, N, D, smem_max, most, extra, resident, blocks);
-    *per_sm = best.stages < 2 ? 0 : blocks_per_sm<K>(best.smem);
+    best = tc_plan<T>(R, N, D, smem_max, most, extra, resident, blocks);
+    *per_sm = best.stages < 2 ? 0 : blocks_per_sm<T, K>(best.smem);
     for (int st = best.stages - 1; st >= 2; --st) {
       const TcPlan p =
-          tc_plan(R, N, D, smem_max, st, extra, resident, blocks);
-      const int n = blocks_per_sm<K>(p.smem);
+          tc_plan<T>(R, N, D, smem_max, st, extra, resident, blocks);
+      const int n = blocks_per_sm<T, K>(p.smem);
       if (n > *per_sm) {
         best = p;
         *per_sm = n;
@@ -3256,10 +3327,10 @@ TcPlan tc_plan_k(int R, int N, int D, int* per_sm) {
 // (two more a block for its start); at k > kMaxK at most kMaxBigSplits
 // and what kPartBudget holds; 0 where no plan fits or on a device query
 // failure.
-template <int K>
+template <typename T, int K>
 int tc_splits(int R, int N, int D, int k = 0, int max_tiles = INT_MAX) {
   int dev = 0, sms = 0, per_sm = 0;
-  const TcPlan p = tc_plan_k<K>(R, N, D, &per_sm);
+  const TcPlan p = tc_plan_k<T, K>(R, N, D, &per_sm);
   if (per_sm < 1 || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
@@ -3268,6 +3339,7 @@ int tc_splits(int R, int N, int D, int k = 0, int max_tiles = INT_MAX) {
   const long long slots = static_cast<long long>(sms) * per_sm;
   const int most = std::max({1, std::min(64, p.tiles / kMinTcSplitTiles),
                              p.tiles / max_tiles + 1});
+  const size_t pair = sizeof(T) + sizeof(int);  // a list entry's bytes
   int best = 0;
   long long best_cost = -1;
   for (int s = 1; s <= most; ++s) {
@@ -3276,8 +3348,8 @@ int tc_splits(int R, int N, int D, int k = 0, int max_tiles = INT_MAX) {
     if (per > max_tiles) continue;
     if (K == kBig &&
         (used > kMaxBigSplits ||
-         static_cast<size_t>(used) * R * k * 8 > std::max<size_t>(
-             kPartBudget, static_cast<size_t>(R) * k * 8)))
+         static_cast<size_t>(used) * R * k * pair > std::max<size_t>(
+             kPartBudget, static_cast<size_t>(R) * k * pair)))
       continue;
     const long long cost = (row_blocks * used + slots - 1) / slots * (per + 2);
     if (best_cost < 0 || cost < best_cost) {
@@ -3288,58 +3360,65 @@ int tc_splits(int R, int N, int D, int k = 0, int max_tiles = INT_MAX) {
   return best;
 }
 
-// The split pre-pass of both clouds into `scratch` (the reference rows'
-// panels, then the neighbours'), then the scan of mode K on `splits`
-// splits of the tiles, every tile_step-th tile of each.
-template <int K>
-cudaError_t launch_tc_scan(const float* ref, const float* nbr, int R, int N,
-                           int D, int k, int splits, float* scratch,
-                           float* part_s, int* part_i, const TcSelect& sel,
+// The pre-pass of both clouds into `scratch` (the reference rows' panels,
+// then the neighbours': tf32_split in float32, f64_panels in float64),
+// then the scan of mode K on `splits` splits of the tiles, every
+// tile_step-th tile of each.
+template <typename T, int K>
+cudaError_t launch_tc_scan(const T* ref, const T* nbr, int R, int N, int D,
+                           int k, int splits, void* scratch, T* part_s,
+                           int* part_i, const TcSelect<T>& sel,
                            bool split_clouds, cudaStream_t stream,
                            int tile_step = 1) {
   int per_sm = 0;
-  const TcPlan p = tc_plan_k<K>(R, N, D, &per_sm);
+  const TcPlan p = tc_plan_k<T, K>(R, N, D, &per_sm);
   if (scratch == nullptr || per_sm < 1 || splits < 1)
     return cudaErrorInvalidValue;
-  float* ref_pan = scratch;
-  float* nbr_pan = scratch + static_cast<size_t>(p.row_panels) * p.pf;
+  unsigned char* ref_pan = static_cast<unsigned char*>(scratch);
+  unsigned char* nbr_pan = ref_pan + static_cast<size_t>(p.row_panels) * p.pb;
   cudaError_t e;
   if (split_clouds) {
-    tf32_split<<<(p.row_panels * kPanel + 127) / 128, 128, 0, stream>>>(
-        ref, R, D, p.Dp, p.row_panels, ref_pan);
-    tf32_split<<<(p.tiles * kPanel + 127) / 128, 128, 0, stream>>>(
-        nbr, N, D, p.Dp, p.tiles, nbr_pan);
+    if constexpr (sizeof(T) == sizeof(double)) {
+      f64_panels<<<(p.row_panels * kPanel + 127) / 128, 128, 0, stream>>>(
+          ref, R, D, p.Dp, p.row_panels, reinterpret_cast<double*>(ref_pan));
+      f64_panels<<<(p.tiles * kPanel + 127) / 128, 128, 0, stream>>>(
+          nbr, N, D, p.Dp, p.tiles, reinterpret_cast<double*>(nbr_pan));
+    } else {
+      tf32_split<<<(p.row_panels * kPanel + 127) / 128, 128, 0, stream>>>(
+          ref, R, D, p.Dp, p.row_panels, reinterpret_cast<float*>(ref_pan));
+      tf32_split<<<(p.tiles * kPanel + 127) / 128, 128, 0, stream>>>(
+          nbr, N, D, p.Dp, p.tiles, reinterpret_cast<float*>(nbr_pan));
+    }
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  e = cudaFuncSetAttribute(wide_tc_scan<K>,
+  e = cudaFuncSetAttribute(wide_tc_scan<T, K>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(p.smem));
   if (e != cudaSuccess) return e;
   const int split_tiles = (p.tiles + splits - 1) / splits;
   const dim3 grid(p.row_panels / kGroups, splits);
-  wide_tc_scan<K><<<grid, kTcThreads, p.smem, stream>>>(
+  wide_tc_scan<T, K><<<grid, kTcThreads, p.smem, stream>>>(
       ref_pan, nbr_pan, R, p.Dp, p.resident, p.blocks, p.unit_max, p.stages,
       p.tiles, split_tiles, tile_step, k, part_s, part_i, N, sel);
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t launch_tc(const float* ref, const float* nbr, int R, int N, int D,
-                      int k, int splits, float* scratch, float* part_s,
-                      int* part_i, float* d2, long long* idx,
-                      cudaStream_t stream) {
-  cudaError_t e = launch_tc_scan<K>(ref, nbr, R, N, D, k, splits, scratch,
-                                    part_s, part_i, TcSelect{}, true,
-                                    stream);
+template <typename T, int K>
+cudaError_t launch_tc(const T* ref, const T* nbr, int R, int N, int D, int k,
+                      int splits, void* scratch, T* part_s, int* part_i,
+                      T* d2, long long* idx, cudaStream_t stream) {
+  cudaError_t e = launch_tc_scan<T, K>(ref, nbr, R, N, D, k, splits, scratch,
+                                       part_s, part_i, TcSelect<T>{}, true,
+                                       stream);
   if (e != cudaSuccess) return e;
   if constexpr (K == 1)
-    nn1_merge<float, 0><<<(R + 255) / 256, 256, 0, stream>>>(
+    nn1_merge<T, 0><<<(R + 255) / 256, 256, 0, stream>>>(
         ref, R, D, splits, part_s, part_i, d2, idx);
   else if constexpr (K == kBig)
-    nnk_merge_big<float, 0><<<(R + 7) / 8, 256, 0, stream>>>(
+    nnk_merge_big<T, 0><<<(R + 7) / 8, 256, 0, stream>>>(
         ref, R, D, k, splits, part_s, part_i, d2, idx);
   else
-    nnk_merge<float, 0, K><<<(R + 255) / 256, 256, 0, stream>>>(
+    nnk_merge<T, 0, K><<<(R + 255) / 256, 256, 0, stream>>>(
         ref, R, D, k, splits, part_s, part_i, d2, idx);
   return cudaGetLastError();
 }
@@ -3348,25 +3427,34 @@ cudaError_t launch_nn1_wide(const float* ref, const float* nbr, int R, int N,
                             int D, int splits, float* scratch, float* part_s,
                             int* part_i, float* d2, long long* idx,
                             cudaStream_t stream) {
-  return launch_tc<1>(ref, nbr, R, N, D, 1, splits, scratch, part_s, part_i,
-                      d2, idx, stream);
+  return launch_tc<float, 1>(ref, nbr, R, N, D, 1, splits, scratch, part_s,
+                             part_i, d2, idx, stream);
 }
 
-// The crossover k of the float32 wide family (D > 8), and whether a call
-// takes the select path; float64 wide clouds keep the merge scan.  One k
-// at both measured widths (and rows: 50,000 at D = 33, 20,000 at 128).
-int wide_select_k(int R, int D) {
+// The crossover k of the wide families (D > 8), and whether a call takes
+// the select path: float32 at k >= kWideSelectK and k = N (one k at both
+// measured widths and rows: 50,000 at D = 33, 20,000 at 128); float64
+// past k = 16 alone (up to it the SIMT scans), at k >= kWideSelectK64
+// (kWideSelectK64Long past kShortDim64 coordinates) and k = N.
+int wide_select_k(int R, int D, bool f64) {
   (void)R;
-  (void)D;
-  return kWideSelectK;
+  return !f64 ? kWideSelectK
+         : D <= kShortDim64 ? kWideSelectK64 : kWideSelectK64Long;
 }
-bool wide_takes_select(int R, int N, int D, int k) {
-  return k >= wide_select_k(R, D) || k == N;
+bool wide_takes_select(int R, int N, int D, int k, bool f64) {
+  return (!f64 || k > kMaxK) && (k >= wide_select_k(R, D, f64) || k == N);
 }
 
 // The wide select path's sample: every kSampleStride-th tile of each
 // counting split, taken where the rank of the k-th pair in it is at least
-// kMinSampleRank.
+// kMinSampleRank; from it each row's first digit is guessed.  A float64
+// key's first digit, the sign and 7 of 11 exponent bits, takes one or two
+// values a row on descriptor clouds, and its second holds 16 bins a
+// binade where float32's holds 128, so the digit walk takes a row three
+// full passes where float32's takes two (PERF.md); the guess spares the
+// first.  Two digits guessed spared none: the sample's rank of the k-th
+// pair missed the second digit's bin of 1/16 binade on many rows, which
+// then started over (PERF.md).
 constexpr int kSampleStride = 8;
 constexpr int kMinSampleRank = 32;
 
@@ -3374,7 +3462,7 @@ constexpr int kMinSampleRank = 32;
 // of its ks-th sampled pair (ks = k sampled / N rounded up: the bin where
 // its k-th pair would fall were the sample the whole), which the next
 // pass checks (sel_pick); the histogram zeroed.  A row whose sample holds
-// fewer than ks pairs keeps counting from no digit.
+// fewer than ks pairs keeps counting.
 template <typename K>
 __global__ void sel_guess(int R, int ks, SelRow<K>* st, unsigned* ghist) {
   const int lane = threadIdx.x % 32;
@@ -3412,53 +3500,53 @@ __global__ void sel_guess(int R, int ks, SelRow<K>* st, unsigned* ghist) {
                       0, kGuess};
 }
 
-// Bytes of the float32 split clouds (ppt_knn_scratch's floats), rounded
-// up to 256.
+// Bytes of the split clouds (ppt_knn_scratch's floats), rounded up to 256.
+template <typename T>
 size_t tc_panel_bytes(int R, int N, int D) {
-  const TcPlan p = tc_plan(R, N, D, 0, kMaxStages);
-  return (4 * static_cast<size_t>(p.row_panels + p.tiles) * p.pf + 255) /
-         256 * 256;
+  const TcPlan p = tc_plan<T>(R, N, D, 0, kMaxStages);
+  return (static_cast<size_t>(p.row_panels + p.tiles) * p.pb + 255) / 256 *
+         256;
 }
 
-// The float32 wide family at k >= wide_select_k or k = N: select, then
-// sort, as launch_nnk_select, with every pass a mode of the tensor-core
-// scan (the merge scan's products, sums and s: the same bits).  Each
-// full counting pass costs its scan and ~10 SIMT instructions a pair
-// (PERF.md), so the first digit, which a row's key takes two or three
-// values of, is guessed from a sample (sel_guess) and checked by the
-// pass that counts the second (sel_pick): a random cloud then takes one
-// full counting pass where the digit walk took two.  The counting
-// passes run every row at its own level (a failed guess starts over),
-// as many as the digits and one more.  The scratch holds the split
-// clouds (tc_panel_bytes), then the select path's state (sel_plan, with
-// no fused k = N).  The counting passes' splits hold at most
-// kMaxSelChunk neighbours (a 16-bit count never carries).
-cudaError_t launch_nnk_wide_select(const float* ref, const float* nbr, int R,
-                                   int N, int D, int k, void* scratch,
-                                   float* d2, long long* idx,
-                                   cudaStream_t stream) {
-  using S = Sel<float>;
-  using Pr = S::Pair;
+// The wide families at k >= wide_select_k or k = N: select, then sort, as
+// launch_nnk_select, with every pass a mode of the tensor-core scan (the
+// merge scan's products, sums and s: the same bits).  Each full counting
+// pass costs its scan and ~10 SIMT instructions a pair (PERF.md), so the
+// first digit, which a row's key takes few values of, is guessed from a
+// sample (sel_guess) and checked by the full pass that counts the second
+// (sel_pick): a random float32 cloud then takes one full counting pass
+// where the digit walk took two.  The counting passes run every row at its own
+// level (a failed guess starts over), as many as the digits and one
+// more.  The scratch holds the split clouds (tc_panel_bytes), then the
+// select path's state (sel_plan, with no fused k = N).  The counting
+// passes' splits hold at most kMaxSelChunk neighbours (a 16-bit count
+// never carries).
+template <typename T>
+cudaError_t launch_nnk_wide_select(const T* ref, const T* nbr, int R, int N,
+                                   int D, int k, void* scratch, T* d2,
+                                   long long* idx, cudaStream_t stream) {
+  using S = Sel<T>;
+  using Key = typename S::Key;
+  using Pr = typename S::Pair;
   if (scratch == nullptr) return cudaErrorInvalidValue;
-  const SelPlan p = sel_plan<float>(R, N, k, false);
-  float* pan = static_cast<float*>(scratch);
+  const SelPlan p = sel_plan<T>(R, N, k, false);
   unsigned char* base =
-      static_cast<unsigned char*>(scratch) + tc_panel_bytes(R, N, D);
-  auto* st = reinterpret_cast<SelRow<unsigned>*>(base + p.st);
+      static_cast<unsigned char*>(scratch) + tc_panel_bytes<T>(R, N, D);
+  auto* st = reinterpret_cast<SelRow<Key>*>(base + p.st);
   auto* hist = reinterpret_cast<unsigned*>(base + p.hist);
   auto* cnt = reinterpret_cast<int*>(base + p.cnt);
   auto* bnd = reinterpret_cast<Pr*>(base + p.bnd);
   auto* big = reinterpret_cast<Pr*>(base + p.big);
   const int count_splits =
-      tc_splits<kCount>(R, N, D, 0, kMaxSelChunk / kPanel);
-  const int emit_splits = tc_splits<kEmit>(R, N, D);
+      tc_splits<T, kCount>(R, N, D, 0, kMaxSelChunk / kPanel);
+  const int emit_splits = tc_splits<T, kEmit>(R, N, D);
   if (count_splits < 1 || emit_splits < 1) return cudaErrorInvalidValue;
   const int fill = static_cast<int>(std::min<size_t>(
       65535, (static_cast<size_t>(R) * kBins + 255) / 256));
-  sel_init<unsigned><<<fill, 256, 0, stream>>>(R, N, k, p.cap, st, hist, cnt);
+  sel_init<Key><<<fill, 256, 0, stream>>>(R, N, k, p.cap, st, hist, cnt);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const TcSelect sel{st, hist, cnt, bnd, idx, p.ibits, p.cap, k};
+  const TcSelect<T> sel{st, hist, cnt, bnd, d2, idx, p.ibits, p.cap, k};
   bool split = true;
   if (p.levels > 0) {
     // the pairs a row's sample holds: every kSampleStride-th tile of each
@@ -3473,63 +3561,101 @@ cudaError_t launch_nnk_wide_select(const float* ref, const float* nbr, int R,
     const long long ks = (static_cast<long long>(k) * sampled + N - 1) / N;
     int passes = p.levels;
     if (ks >= kMinSampleRank && sampled < N) {
-      e = launch_tc_scan<kCount>(ref, nbr, R, N, D, k, count_splits, pan,
-                                 nullptr, nullptr, sel, true, stream,
-                                 kSampleStride);
+      e = launch_tc_scan<T, kCount>(ref, nbr, R, N, D, k, count_splits,
+                                    scratch, nullptr, nullptr, sel, split,
+                                    stream, kSampleStride);
       if (e != cudaSuccess) return e;
-      sel_guess<unsigned><<<(R + 7) / 8, 256, 0, stream>>>(
+      split = false;
+      sel_guess<Key><<<(R + 7) / 8, 256, 0, stream>>>(
           R, static_cast<int>(ks), st, hist);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
-      split = false;
       ++passes;  // a failed guess starts over
     }
     for (int i = 0; i < passes; ++i, split = false) {
-      e = launch_tc_scan<kCount>(ref, nbr, R, N, D, k, count_splits, pan,
-                                 nullptr, nullptr, sel, split, stream);
+      e = launch_tc_scan<T, kCount>(ref, nbr, R, N, D, k, count_splits,
+                                    scratch, nullptr, nullptr, sel, split,
+                                    stream);
       if (e != cudaSuccess) return e;
-      sel_pick<unsigned><<<(R + 7) / 8, 256, 0, stream>>>(
+      sel_pick<Key><<<(R + 7) / 8, 256, 0, stream>>>(
           R, k, -1, p.ibits, p.cap, st, hist, cnt);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
   }
-  e = launch_tc_scan<kEmit>(ref, nbr, R, N, D, k, emit_splits, pan, nullptr,
-                            nullptr, sel, split, stream);
+  e = launch_tc_scan<T, kEmit>(ref, nbr, R, N, D, k, emit_splits, scratch,
+                               nullptr, nullptr, sel, split, stream);
   if (e != cudaSuccess) return e;
-  return launch_sel_sort<float>(ref, D, R, k, p, st, cnt, bnd, big, d2, idx,
-                                stream);
+  return launch_sel_sort<T>(ref, D, R, k, p, st, cnt, bnd, big, d2, idx,
+                            stream);
 }
 
 // The float32 wide family: the select path at k >= wide_select_k and
 // k = N, else (or where `merge`) the tensor-core scans.
 cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
-                            int D, int k, int splits, float* scratch,
+                            int D, int k, int splits, void* scratch,
                             float* part_s, int* part_i, float* d2,
                             long long* idx, cudaStream_t stream, bool merge) {
-  if (!merge && wide_takes_select(R, N, D, k))
-    return launch_nnk_wide_select(ref, nbr, R, N, D, k, scratch, d2, idx,
-                                  stream);
+  if (!merge && wide_takes_select(R, N, D, k, false))
+    return launch_nnk_wide_select<float>(ref, nbr, R, N, D, k, scratch, d2,
+                                         idx, stream);
   switch (k > kMaxK ? kBig : list_len(k)) {
-    case kBig: return launch_tc<kBig>(ref, nbr, R, N, D, k, splits, scratch,
-                                      part_s, part_i, d2, idx, stream);
-    case 2: return launch_tc<2>(ref, nbr, R, N, D, k, splits, scratch,
-                                part_s, part_i, d2, idx, stream);
-    case 4: return launch_tc<4>(ref, nbr, R, N, D, k, splits, scratch,
-                                part_s, part_i, d2, idx, stream);
-    case 8: return launch_tc<8>(ref, nbr, R, N, D, k, splits, scratch,
-                                part_s, part_i, d2, idx, stream);
-    default: return launch_tc<kMaxK>(ref, nbr, R, N, D, k, splits, scratch,
-                                     part_s, part_i, d2, idx, stream);
+    case kBig: return launch_tc<float, kBig>(ref, nbr, R, N, D, k, splits,
+                                             scratch, part_s, part_i, d2, idx,
+                                             stream);
+    case 2: return launch_tc<float, 2>(ref, nbr, R, N, D, k, splits, scratch,
+                                       part_s, part_i, d2, idx, stream);
+    case 4: return launch_tc<float, 4>(ref, nbr, R, N, D, k, splits, scratch,
+                                       part_s, part_i, d2, idx, stream);
+    case 8: return launch_tc<float, 8>(ref, nbr, R, N, D, k, splits, scratch,
+                                       part_s, part_i, d2, idx, stream);
+    default: return launch_tc<float, kMaxK>(ref, nbr, R, N, D, k, splits,
+                                            scratch, part_s, part_i, d2, idx,
+                                            stream);
   }
 }
 
+// The float64 wide family: up to k = 16 the SIMT scans; past it the DMMA
+// scans, the select path at k >= wide_select_k and k = N, else (or where
+// `merge`) the merge scan.
+cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
+                            int N, int D, int k, int splits, void* scratch,
+                            double* part_s, int* part_i, double* d2,
+                            long long* idx, cudaStream_t stream, bool merge) {
+  if (k > kMaxK) {
+    if (!merge && wide_takes_select(R, N, D, k, true))
+      return launch_nnk_wide_select<double>(ref, nbr, R, N, D, k, scratch,
+                                            d2, idx, stream);
+    return launch_tc<double, kBig>(ref, nbr, R, N, D, k, splits, scratch,
+                                   part_s, part_i, d2, idx, stream);
+  }
+  switch (list_len(k)) {
+    case 2: return launch_nnk_wide_f64<2>(ref, nbr, R, N, D, k, splits,
+                                          part_s, part_i, d2, idx, stream);
+    case 4: return launch_nnk_wide_f64<4>(ref, nbr, R, N, D, k, splits,
+                                          part_s, part_i, d2, idx, stream);
+    case 8: return launch_nnk_wide_f64<8>(ref, nbr, R, N, D, k, splits,
+                                          part_s, part_i, d2, idx, stream);
+    default: return launch_nnk_wide_f64<kMaxK>(ref, nbr, R, N, D, k, splits,
+                                               part_s, part_i, d2, idx,
+                                               stream);
+  }
+}
+
+// Splits of the wide families' tensor-core scans (1 on the select paths);
+// float64 past k = 16 alone.
+template <typename T>
 int nnk_tc_splits(int R, int N, int D, int k, bool merge = false) {
-  if (!merge && wide_takes_select(R, N, D, k)) return 1;
-  switch (k > kMaxK ? kBig : list_len(k)) {
-    case kBig: return tc_splits<kBig>(R, N, D, k);
-    case 2: return tc_splits<2>(R, N, D);
-    case 4: return tc_splits<4>(R, N, D);
-    case 8: return tc_splits<8>(R, N, D);
-    default: return tc_splits<kMaxK>(R, N, D);
+  constexpr bool f64 = sizeof(T) == sizeof(double);
+  if (!merge && wide_takes_select(R, N, D, k, f64)) return 1;
+  if constexpr (f64) {
+    return tc_splits<double, kBig>(R, N, D, k);
+  } else {
+    switch (k > kMaxK ? kBig : list_len(k)) {
+      case kBig: return tc_splits<float, kBig>(R, N, D, k);
+      case 2: return tc_splits<float, 2>(R, N, D);
+      case 4: return tc_splits<float, 4>(R, N, D);
+      case 8: return tc_splits<float, 8>(R, N, D);
+      default: return tc_splits<float, kMaxK>(R, N, D);
+    }
   }
 }
 
@@ -3546,24 +3672,27 @@ extern "C" {
 // device query failure.
 int ppt_nn1_splits(int R, int N, int D, int f64) {
   if (D < 1 || R <= 0 || N <= 0) return 0;
-  if (D > kMaxDim && !f64) return tc_splits<1>(R, N, D);
+  if (D > kMaxDim && !f64) return tc_splits<float, 1>(R, N, D);
   const int rows = D > kMaxDim ? kWideRows
                    : kThreads * (f64 ? nn1_rt<double>(D) : nn1_rt<float>(D));
   return splits_for(R, N, rows, kNn1BlocksPerSm);
 }
 
-// The float32 scratch (*floats of them) that ppt_nn1 and ppt_nnk need for
-// R rows and N neighbours of D coordinates (float64 if f64): the split
-// clouds of the float32 wide scans, 0 elsewhere.  Returns
-// cudaErrorInvalidValue on invalid sizes.
-int ppt_knn_scratch(int R, int N, int D, int f64, long long* floats) {
+// The float32 scratch (*floats of them) that ppt_nn1 (k = 1) and ppt_nnk
+// need for R rows, N neighbours of D coordinates and k (float64 if f64)
+// on their merge scans: the split clouds of the wide scans on the tensor
+// cores past 8 coordinates (float32 at every k; float64 past k = 16, where
+// nn1 and nnk up to k = 16 run the SIMT scans, which read none), 0
+// elsewhere.  Returns cudaErrorInvalidValue on invalid sizes.
+int ppt_knn_scratch(int R, int N, int D, int k, int f64, long long* floats) {
   *floats = 0;
-  if (R <= 0 || N <= 0 || D < 1)
+  if (R <= 0 || N <= 0 || D < 1 || k < 1 || k > N)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D > kMaxDim && !f64) {
-    const TcPlan p = tc_plan(R, N, D, 0, kMaxStages);
+  if (D > kMaxDim && (!f64 || k > kMaxK)) {
+    const TcPlan p = f64 ? tc_plan<double>(R, N, D, 0, kMaxStages)
+                         : tc_plan<float>(R, N, D, 0, kMaxStages);
     *floats = static_cast<long long>(p.row_panels + p.tiles) *
-              static_cast<long long>(p.pf);
+              static_cast<long long>(p.pb / sizeof(float));
   }
   return 0;
 }
@@ -3574,9 +3703,10 @@ int ppt_knn_scratch(int R, int N, int D, int f64, long long* floats) {
 // `splits` (ppt_nn1_splits) partial results in part_s [splits, R] (the
 // clouds' type) / part_i [splits, R]: the register-tiled scan for
 // D <= 8, the wide scan past it (float32 on the tensor cores, through
-// `scratch`, ppt_knn_scratch's floats).  Returns cudaGetLastError() (0 on
-// success); invalid sizes (R, N, splits >= 1, D >= 1) or a missing
-// scratch return cudaErrorInvalidValue without launching.
+// `scratch`, ppt_knn_scratch's floats; float64 on the SIMT units).
+// Returns cudaGetLastError() (0 on success); invalid sizes (R, N,
+// splits >= 1, D >= 1) or a missing scratch return cudaErrorInvalidValue
+// without launching.
 int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
             int splits, void* scratch, void* part_s, int* part_i, void* d2,
             long long* idx, void* stream) {
@@ -3592,25 +3722,22 @@ int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
 
 // Splits of the neighbour range that nnk uses for R rows of D coordinates,
 // N neighbours and k (float64 if f64, else float32) on the current device:
-// the register-tiled and float64 wide scans aim at ~4 blocks an SM, at
-// least 2048 neighbours each; the float32 wide scan at whole waves; at
-// k > 16 at most 32, within kPartBudget's bytes of lists, each split at
-// least k neighbours.  ppt_nnk's part_s / part_i hold splits * k * R
-// values of the clouds' type and as many ints; on the select paths
-// (ppt_nnk_select_scratch) 1 and no lists.  Returns 0 on invalid sizes
-// (1 <= k <= N) or a device query failure.
+// the register-tiled and float64 SIMT wide scans aim at ~4 blocks an SM,
+// at least 2048 neighbours each; the wide scans on the tensor cores at
+// whole waves; at k > 16 at most 32, within kPartBudget's bytes of lists,
+// each split at least k neighbours.  ppt_nnk's part_s / part_i hold
+// splits * k * R values of the clouds' type and as many ints; on the
+// select paths (ppt_nnk_select_scratch) 1 and no lists.  Returns 0 on
+// invalid sizes (1 <= k <= N) or a device query failure.
 int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
   if (D < 1 || R <= 0 || N <= 0 || k < 1 || k > N) return 0;
   if (D <= kMaxDim && takes_select(R, N, k, f64)) return 1;
-  if (D > kMaxDim && !f64) return nnk_tc_splits(R, N, D, k);
+  if (D > kMaxDim && !f64) return nnk_tc_splits<float>(R, N, D, k);
+  if (D > kMaxDim && k > kMaxK) return nnk_tc_splits<double>(R, N, D, k);
   if (k > kMaxK) {
-    const size_t scalar = f64 ? sizeof(double) : sizeof(float);
-    if (D > kMaxDim)
-      return big_splits(R, N, k, kWideRows, scalar,
-                        f64 ? sizeof(WideShared<double>)
-                            : sizeof(WideShared<float>), kBuf);
     // Tile<T, D>: tile_len 4-vectors, two past D = 4, and |b|^2 apart
     // at D = 4 and 8
+    const size_t scalar = f64 ? sizeof(double) : sizeof(float);
     const size_t len = 4096 / scalar;
     return big_splits(R, N, k, kThreads, scalar,
                       len * scalar * (4 * (D > 4 ? 2 : 1) +
@@ -3625,37 +3752,38 @@ int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
 // The least k from which nnk takes a select path below k = N for R rows
 // of D coordinates (float64 if f64): the register-tiled family's
 // crossover (kSelectK, kSelectK64 past kSmallR rows, kSelectKSmallR up to
-// them), the float32 wide family's (kWideSelectK); 0 for float64 wide
-// clouds, which never select; -1 on invalid sizes.
+// them), the wide families' (kWideSelectK, kWideSelectK64); -1 on invalid
+// sizes.
 int ppt_nnk_select_k(int R, int D, int f64) {
   if (R <= 0 || D < 1) return -1;
   if (D <= kMaxDim) return select_k(R, f64);
-  return f64 ? 0 : wide_select_k(R, D);
+  return wide_select_k(R, D, f64);
 }
 
 // Which kernels nnk runs for R rows, N neighbours of D coordinates and k
 // (float64 if f64): 0 the register-tiled merge scans, 1 the register-
 // tiled select path, 2 the tensor-core scans, 3 the tensor-core select
-// path, 4 the float64 SIMT wide scans; -1 on invalid sizes.
+// path, 4 the float64 SIMT wide scans (k <= 16), 5 the float64 DMMA merge
+// scan, 6 the float64 DMMA select path; -1 on invalid sizes.
 int ppt_nnk_family(int R, int N, int D, int k, int f64) {
   if (R <= 0 || N <= 0 || D < 1 || k < 1 || k > N) return -1;
   if (D <= kMaxDim) return takes_select(R, N, k, f64) ? 1 : 0;
-  if (f64) return 4;
-  return wide_takes_select(R, N, D, k) ? 3 : 2;
+  if (f64 && k <= kMaxK) return 4;
+  return (wide_takes_select(R, N, D, k, f64) ? 3 : 2) + (f64 ? 3 : 0);
 }
 
 // The select paths' scratch for R rows of D coordinates, N neighbours and
 // k (float64 if f64, else float32): *bytes = -1 where nnk takes no select
-// path (k < N below ppt_nnk_select_k, and float64 wide clouds), else its
-// bytes, the scratch ppt_nnk then reads: for D <= 8, 0 for k = N up to
-// 8192 pairs a row; else per row a state (24 bytes, 32 in float64), a
-// histogram of 256 counts (1 KB), two counts, a boundary buffer of
-// min(512, P - k + 1) pairs (8 bytes a pair, 16 in float64), and past
-// 8192 a sort buffer of P pairs, P the least power of 2 >= k - 1 + 256
-// (>= k at k = N), each part rounded up to 256 bytes; for the float32
-// wide family the split clouds (ppt_knn_scratch's floats, rounded up to
-// 256 bytes) and then those parts, at k = N too.  k = 4096 at R = 100,000
-// in float32, D <= 8: 0.52 GB beside the outputs' 4.9 GB.  Returns
+// path (k < N below ppt_nnk_select_k, and float64 wide clouds up to
+// k = 16), else its bytes, the scratch ppt_nnk then reads: for D <= 8, 0
+// for k = N up to 8192 pairs a row; else per row a state (24 bytes, 32 in
+// float64), a histogram of 256 counts (1 KB), two counts, a boundary
+// buffer of min(512, P - k + 1) pairs (8 bytes a pair, 16 in float64),
+// and past 8192 a sort buffer of P pairs, P the least power of 2 >= k - 1
+// + 256 (>= k at k = N), each part rounded up to 256 bytes; for the wide
+// families the split clouds (ppt_knn_scratch's floats, rounded up to 256
+// bytes) and then those parts, at k = N too.  k = 4096 at R = 100,000 in
+// float32, D <= 8: 0.52 GB beside the outputs' 4.9 GB.  Returns
 // cudaErrorInvalidValue on invalid sizes.
 int ppt_nnk_select_scratch(int R, int N, int D, int k, int f64,
                            long long* bytes) {
@@ -3666,9 +3794,12 @@ int ppt_nnk_select_scratch(int R, int N, int D, int k, int f64,
     *bytes = static_cast<long long>(
         f64 ? sel_plan<double>(R, N, k).bytes
             : sel_plan<float>(R, N, k).bytes);
-  else if (D > kMaxDim && !f64 && wide_takes_select(R, N, D, k))
-    *bytes = static_cast<long long>(tc_panel_bytes(R, N, D) +
-                                    sel_plan<float>(R, N, k, false).bytes);
+  else if (D > kMaxDim && wide_takes_select(R, N, D, k, f64))
+    *bytes = static_cast<long long>(
+        f64 ? tc_panel_bytes<double>(R, N, D) +
+                  sel_plan<double>(R, N, k, false).bytes
+            : tc_panel_bytes<float>(R, N, D) +
+                  sel_plan<float>(R, N, k, false).bytes);
   return 0;
 }
 
@@ -3678,12 +3809,13 @@ int ppt_nnk_select_scratch(int R, int N, int D, int k, int f64,
 // int64, on `stream`, through `splits` (ppt_nnk_splits) partial lists in
 // part_s / part_i (splits * k * R each; [splits, k, R] up to k = 16,
 // [splits, R, k] past it): the register-tiled scan for D <= 8, the wide
-// scan past it (float32 through `scratch`, as ppt_nn1); for D <= 8 at
-// k >= kSelectK (kSelectK64) or k = N the select path through `scratch`
-// (ppt_nnk_select_scratch's bytes; part_s / part_i unused).  Returns
-// cudaGetLastError() (0 on success); invalid sizes (R >= 1, 1 <= k <= N,
-// D >= 1, 1 <= splits <= N) or a missing scratch return
-// cudaErrorInvalidValue without launching.
+// scan past it (on the tensor cores through `scratch`, as ppt_nn1, in
+// float32, and in float64 past k = 16); the select paths (D <= 8 at
+// k >= kSelectK (kSelectK64), the wide ones from their crossovers, and
+// k = N) through `scratch` (ppt_nnk_select_scratch's bytes; part_s /
+// part_i unused).  Returns cudaGetLastError() (0 on success); invalid
+// sizes (R >= 1, 1 <= k <= N, D >= 1, 1 <= splits <= N) or a missing
+// scratch return cudaErrorInvalidValue without launching.
 int ppt_nnk(const void* ref, const void* nbr, int R, int N, int D, int k,
             int f64, int splits, void* scratch, void* part_s, int* part_i,
             void* d2, long long* idx, void* stream) {
@@ -3698,28 +3830,37 @@ int ppt_nnk(const void* ref, const void* nbr, int R, int N, int D, int k,
                            part_i, d2, idx, s));
 }
 
-// The float32 wide family's merge scan (the tensor-core scans: K-lists up
-// to k = 16, buffers merged into lists past it) at any 1 <= k <= N of
-// D > 8 coordinates, whatever ppt_nnk_select_k says: the yardstick the
-// wide select path is held to bit for bit.  Its splits (0 on invalid
-// sizes), and the call, as ppt_nnk's (scratch: ppt_knn_scratch's floats;
-// part_s / part_i: splits * k * R each).
-int ppt_nnk_wide_merge_splits(int R, int N, int D, int k) {
+// The wide families' merge scan (float32: the tensor-core scans, K-lists
+// up to k = 16, buffers merged into lists past it; float64 (f64): the
+// SIMT scans up to k = 16, the DMMA merge scan past it) at any
+// 1 <= k <= N of D > 8 coordinates, whatever ppt_nnk_select_k says: the
+// yardstick the wide select paths are held to bit for bit.  Its splits
+// (0 on invalid sizes), and the call, as ppt_nnk's (scratch:
+// ppt_knn_scratch's floats; part_s / part_i: splits * k * R each).
+int ppt_nnk_wide_merge_splits(int R, int N, int D, int k, int f64) {
   if (D <= kMaxDim || R <= 0 || N <= 0 || k < 1 || k > N) return 0;
-  return nnk_tc_splits(R, N, D, k, true);
+  if (!f64) return nnk_tc_splits<float>(R, N, D, k, true);
+  if (k > kMaxK) return nnk_tc_splits<double>(R, N, D, k, true);
+  return splits_for(R, N, kWideRows, kNnkBlocksPerSm);
 }
 
 int ppt_nnk_wide_merge(const void* ref, const void* nbr, int R, int N, int D,
-                       int k, int splits, void* scratch, void* part_s,
-                       int* part_i, void* d2, long long* idx, void* stream) {
+                       int k, int f64, int splits, void* scratch,
+                       void* part_s, int* part_i, void* d2, long long* idx,
+                       void* stream) {
   if (D <= kMaxDim || R <= 0 || N <= 0 || k < 1 || k > N || splits < 1 ||
       splits > N)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_nnk_wide(
-      static_cast<const float*>(ref), static_cast<const float*>(nbr), R, N,
-      D, k, splits, static_cast<float*>(scratch), static_cast<float*>(part_s),
-      part_i, static_cast<float*>(d2), idx,
-      static_cast<cudaStream_t>(stream), true));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      f64 ? launch_nnk_wide(static_cast<const double*>(ref),
+                            static_cast<const double*>(nbr), R, N, D, k,
+                            splits, scratch, static_cast<double*>(part_s),
+                            part_i, static_cast<double*>(d2), idx, s, true)
+          : launch_nnk_wide(static_cast<const float*>(ref),
+                            static_cast<const float*>(nbr), R, N, D, k,
+                            splits, scratch, static_cast<float*>(part_s),
+                            part_i, static_cast<float*>(d2), idx, s, true));
 }
 
 const char* ppt_cuda_error_string(int code) {

@@ -31,13 +31,13 @@ list, always in global memory (the header of ``csrc/knn.cu`` says
 why).  From a crossover k on (:func:`select_k`, measured for each
 family, and a function of R for the register-tiled one; ``csrc/knn.cu``
 holds it) and at k = N, the
-register-tiled family and the float32 wide family instead select, then
+register-tiled family and the wide families instead select, then
 sort: counting passes fix each row's k-th (key, index) pair 8 bits at a
 time, one pass writes the pairs before it, and a block a row sorts them
 (:func:`_select_rows` emulates the cut on the CPU, over
-:func:`_select_scores` or, for the wide family, :func:`_tf32_scores`;
-nothing on the card's path runs it); both ways return the same bits.
-Float64 wide clouds keep the merge scan.  In float32 the wide
+:func:`_select_scores` or, for the float32 wide family,
+:func:`_tf32_scores`; nothing on the card's path runs it); both ways
+return the same bits.  In float32 the wide
 scans run on the tensor cores in three-pass TF32 (``csrc/knn.cu``): each
 coordinate is split once a call into ``hi = tf32(x)`` and
 ``lo = tf32(x - hi)``, both rounded to nearest (:func:`_tf32_split`), and
@@ -45,7 +45,9 @@ the cross term is ``a_lo.b_hi + a_hi.b_lo`` (the small products, first)
 plus ``a_hi.b_hi``, summed fresh in blocks of 32 coordinates, which holds
 the float32 chain's accuracy where one TF32 pass does not (:func:`_tf32_scores` emulates both on the CPU;
 nothing on the card's path runs it).  In float64 the wide scans form
-64 x 64 tiles of scores as a small SIMT GEMM.
+64 x 64 tiles of scores as a small SIMT GEMM up to k = 16, and past it
+on the FP64 tensor cores (DMMA), the merge scan below the crossover and
+the select path from it on and at k = N.
 ``function/geometry.py:_knn_tiled`` routes k = 1 (not ``largest``) on
 CUDA to :func:`nn1` and every other ``k <= N`` to :func:`nnk`.
 """
@@ -75,7 +77,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 def _kernel_lib():
     return bind('knn', {
         'ppt_nn1_splits': [_INT] * 4,
-        'ppt_knn_scratch': [_INT] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
+        'ppt_knn_scratch': [_INT] * 5 + [ctypes.POINTER(ctypes.c_longlong)],
         'ppt_nn1': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 6,
         'ppt_nnk_splits': [_INT] * 5,
         'ppt_nnk_select_k': [_INT] * 3,
@@ -83,8 +85,8 @@ def _kernel_lib():
         'ppt_nnk_select_scratch': [_INT] * 5
                                   + [ctypes.POINTER(ctypes.c_longlong)],
         'ppt_nnk': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 6,
-        'ppt_nnk_wide_merge_splits': [_INT] * 4,
-        'ppt_nnk_wide_merge': [_PTR, _PTR] + [_INT] * 5 + [_PTR] * 6})
+        'ppt_nnk_wide_merge_splits': [_INT] * 5,
+        'ppt_nnk_wide_merge': [_PTR, _PTR] + [_INT] * 6 + [_PTR] * 6})
 
 
 # ---------------------------------------------------------------------------
@@ -318,10 +320,12 @@ def _select_rows(s, k, cap=0):
 
 def _nnk_select(ref, nbr, k, cap=0):
     """CPU emulation of nnk's select-then-sort path: :func:`_select_rows`
-    on :func:`_select_scores` (the register-tiled family's scores) or, for
-    float32 clouds of more than 8 coordinates, :func:`_tf32_scores` (the
-    wide family's three-pass TF32 scores), then ``d2 = s + |a|^2``
-    clamped at 0: ``(d2 [R, k], idx [R, k] int64)``."""
+    on :func:`_select_scores` (the register-tiled family's scores, and the
+    float64 wide family's: its passes on the card form the same s on the
+    FP64 tensor cores, in another rounding order) or, for float32 clouds
+    of more than 8 coordinates, :func:`_tf32_scores` (the wide family's
+    three-pass TF32 scores), then ``d2 = s + |a|^2`` clamped at 0:
+    ``(d2 [R, k], idx [R, k] int64)``."""
     wide = ref.shape[1] > 8 and ref.dtype == torch.float32
     s = _tf32_scores(ref, nbr) if wide else _select_scores(ref, nbr)
     v, i, _ = _select_rows(s, k, cap)
@@ -361,11 +365,11 @@ def _stream(a):
     return torch.cuda.current_stream(a.device).cuda_stream
 
 
-def _scratch(lib, ref, R, N, D, f64):
-    """The float32 scratch of the wide scans on the tensor cores (None
-    where the kernels need none)."""
+def _scratch(lib, ref, R, N, D, k, f64):
+    """The float32 scratch of the wide merge scans on the tensor cores at
+    k (1 for nn1; None where the kernels need none)."""
     floats = ctypes.c_longlong()
-    raise_on(lib, lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(floats)),
+    raise_on(lib, lib.ppt_knn_scratch(R, N, D, k, f64, ctypes.byref(floats)),
              'knn scratch')
     if not floats.value:
         return None
@@ -399,7 +403,7 @@ def _launch_nn1(ref, nbr):
                              device=ref.device)
         part_i = torch.empty((splits, R), dtype=torch.int32,
                              device=ref.device)
-        scratch = _scratch(lib, ref, R, N, D, f64)
+        scratch = _scratch(lib, ref, R, N, D, 1, f64)
         raise_on(lib, lib.ppt_nn1(
             ref.data_ptr(), nbr.data_ptr(), R, N, D, f64, splits,
             _ptr(scratch), part_s.data_ptr(), part_i.data_ptr(),
@@ -410,37 +414,38 @@ def _launch_nn1(ref, nbr):
 
 # the kernels' families (csrc/knn.cu:ppt_nnk_family)
 _FAMILIES = ('register-tiled', 'register-tiled', 'tensor-core',
-             'tensor-core', 'simt-f64')
+             'tensor-core', 'simt-f64', 'tensor-core-f64', 'tensor-core-f64')
 
 
 def select_k(dtype, R, D=3):
     """The least k from which :func:`nnk` takes a select-then-sort path
     below k = N for R rows of D coordinates in ``dtype`` (float32 or
-    float64), or None where it never does (float64 past 8 coordinates):
-    the crossovers that ``probes/knn_probes.py --crossover`` measures,
-    held in ``csrc/knn.cu`` alone (kSelectK, kSelectK64 and
+    float64): the crossovers that ``probes/knn_probes.py --crossover``
+    measures, held in ``csrc/knn.cu`` alone (kSelectK, kSelectK64 and
     kSelectKSmallR for the register-tiled family, by R; kWideSelectK for
-    the float32 wide family, the same at both measured widths).  Builds
-    the library."""
+    the float32 wide family, the same at both measured widths;
+    kWideSelectK64 and kWideSelectK64Long for the float64 one, by D).
+    Builds the library."""
     k = _kernel_lib().ppt_nnk_select_k(R, D, int(dtype == torch.float64))
     if k < 0:
         raise ValueError(f'select_k: invalid R={R}, D={D}')
-    return k or None
+    return k
 
 
 def nnk_plan(R, N, D, k, dtype):
     """How :func:`nnk` runs on the current CUDA device for R rows, N
     neighbours of D coordinates and k (float32 or float64): ``route``
     ``'select'`` (a select-then-sort path: at k >= :func:`select_k` or
-    k = N, D <= 8 or float32) or ``'scan'`` (the threshold scans and
-    their merge); ``family`` ``'register-tiled'`` (D <= 8),
-    ``'tensor-core'`` (float32 past 8 coordinates) or ``'simt-f64'``
-    (float64 past 8); ``select_k``; the ``splits`` of the neighbour range;
-    and the bytes the wrapper allocates beside the outputs:
-    ``scratch_bytes`` (the select path's, with the split clouds in the
-    tensor-core family, or the tensor-core scans' split clouds) and
-    ``part_bytes`` (the scans' partial lists, ``splits * k * R``
-    pairs)."""
+    k = N, but float64 past 8 coordinates up to k = 16) or ``'scan'``
+    (the threshold scans and their merge); ``family``
+    ``'register-tiled'`` (D <= 8), ``'tensor-core'`` (float32 past 8
+    coordinates), ``'simt-f64'`` (float64 past 8, k <= 16) or
+    ``'tensor-core-f64'`` (float64 past 8, k > 16: DMMA); ``select_k``;
+    the ``splits`` of the neighbour range; and the bytes the wrapper
+    allocates beside the outputs: ``scratch_bytes`` (the select path's,
+    with the split clouds in the tensor-core families, or the tensor-core
+    scans' split clouds) and ``part_bytes`` (the scans' partial lists,
+    ``splits * k * R`` pairs)."""
     lib = _kernel_lib()
     f64 = int(dtype == torch.float64)
     fam = lib.ppt_nnk_family(R, N, D, k, f64)
@@ -459,7 +464,7 @@ def nnk_plan(R, N, D, k, dtype):
         raise RuntimeError(f'nnk: no split of {N} neighbours for {R} rows '
                            '(device query failed)')
     floats = ctypes.c_longlong()
-    raise_on(lib, lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(floats)),
+    raise_on(lib, lib.ppt_knn_scratch(R, N, D, k, f64, ctypes.byref(floats)),
              'knn scratch')
     return dict(route='scan', splits=splits, scratch_bytes=4 * floats.value,
                 part_bytes=splits * k * R * ((8 if f64 else 4) + 4), **info)
@@ -498,35 +503,38 @@ def _launch_nnk(ref, nbr, k):
 
 
 def _nnk_wide_merge(ref, nbr, k):
-    """The float32 wide family's merge scan (the tensor-core scans, lists
-    merged past k = 16) at any ``1 <= k <= N``, whatever :func:`select_k`
-    says: what ``chip_smoke.py``, the card tests and
-    ``probes/knn_probes.py --crossover`` hold the wide select path to, bit
-    for bit (both rank the same s).  Float32 CUDA clouds of more than 8
+    """The wide families' merge scan at any ``1 <= k <= N``, whatever
+    :func:`select_k` says (float32: the tensor-core scans, lists merged
+    past k = 16; float64: the DMMA merge scan past k = 16, the SIMT scans
+    up to it): what ``chip_smoke.py``, the card tests and
+    ``probes/knn_probes.py --crossover`` hold the wide select paths to,
+    bit for bit (both rank the same s).  CUDA clouds of more than 8
     coordinates; counted in ``NNK_LAUNCHES``.  Nothing on :func:`nnk`'s
     path calls it."""
     global NNK_LAUNCHES
     _check(ref, nbr)
     _check_cuda(ref, nbr)
     (R, D), N = ref.shape, nbr.shape[0]
-    if ref.dtype != torch.float32 or D <= 8 or not 1 <= k <= N or R == 0:
-        raise ValueError(f'the wide merge scan takes float32 clouds of more '
-                         f'than 8 coordinates and 1 <= k <= N: {ref.dtype}, '
-                         f'D={D}, k={k}, N={N}, R={R}')
+    if D <= 8 or not 1 <= k <= N or R == 0:
+        raise ValueError(f'the wide merge scan takes clouds of more than 8 '
+                         f'coordinates and 1 <= k <= N: D={D}, k={k}, N={N}, '
+                         f'R={R}')
+    f64 = int(ref.dtype == torch.float64)
     lib = _kernel_lib()
     with torch.cuda.device(ref.device):
-        splits = lib.ppt_nnk_wide_merge_splits(R, N, D, k)
+        splits = lib.ppt_nnk_wide_merge_splits(R, N, D, k, f64)
         if splits < 1:
             raise RuntimeError(f'nnk: no split of {N} neighbours for {R} rows '
                                '(device query failed)')
-        part_s = torch.empty((splits, k, R), device=ref.device)
+        part_s = torch.empty((splits, k, R), dtype=ref.dtype,
+                             device=ref.device)
         part_i = torch.empty((splits, k, R), dtype=torch.int32,
                              device=ref.device)
-        scratch = _scratch(lib, ref, R, N, D, 0)
-        d2 = torch.empty((R, k), device=ref.device)
+        scratch = _scratch(lib, ref, R, N, D, k, f64)
+        d2 = torch.empty((R, k), dtype=ref.dtype, device=ref.device)
         idx = torch.empty((R, k), dtype=torch.int64, device=ref.device)
         raise_on(lib, lib.ppt_nnk_wide_merge(
-            ref.data_ptr(), nbr.data_ptr(), R, N, D, k, splits,
+            ref.data_ptr(), nbr.data_ptr(), R, N, D, k, f64, splits,
             _ptr(scratch), part_s.data_ptr(), part_i.data_ptr(),
             d2.data_ptr(), idx.data_ptr(), _stream(ref)), 'nnk')
     NNK_LAUNCHES += 1
@@ -557,8 +565,8 @@ def nnk(ref, nbr, k):
 
     CUDA tensors launch the kernel of ``csrc/knn.cu`` (as :func:`nn1`, at
     any ``k``: past 16 the lists leave the registers, and from
-    ``k = select_k(dtype, R, D)`` on, and at ``k = N``, it selects, then
-    sorts, but for float64 clouds past 8 coordinates; :func:`nnk_plan`);
+    ``k = select_k(dtype, R, D)`` on, and at ``k = N`` (float64 past 8
+    coordinates: past 16), it selects, then sorts; :func:`nnk_plan`);
     CPU tensors run :func:`_nnk_torch`.  On a near-tie the two may return different
     neighbours (module docstring).
     """

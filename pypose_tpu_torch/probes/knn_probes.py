@@ -1,10 +1,11 @@
-r"""The float32 wide knn scans (D > 8) on the card: what the compiler made
-of them, and their times against an earlier build of ``csrc/knn.cu``.
+r"""The wide knn scans (D > 8) on the card: what the compiler made of them,
+and their times against an earlier build of ``csrc/knn.cu``.
 
 Prints ``-Xptxas -v``'s registers, shared memory and spills of the
-tensor-core scans (``wide_tc_scan``) and the pre-pass (``tf32_split``),
-and the count of HGMMA instructions in each one's SASS (``cuobjdump
--sass``, where the toolkit has it).  Then, at FPFH-like 50,000 x 50,000
+tensor-core scans (``wide_tc_scan``) and the pre-passes (``tf32_split``,
+``f64_panels``), and the count of HGMMA (float32) or DMMA (float64)
+instructions in each one's SASS (``cuobjdump -sass``, where the toolkit
+has it).  Then, at FPFH-like 50,000 x 50,000
 (D = 33) and SIFT-like 20,000 x 100,000 (D = 128) clouds
 (``chip_smoke.descriptors``), ``nn1`` and ``nnk`` at k = 8, and ``nnk`` at
 k = 2 on the SIFT clouds (Lowe's ratio test): each case held to the plain
@@ -18,7 +19,11 @@ new, old in one process.  ``--variants`` also times the text edits of
 shared memory, two stages, one consumer warpgroup): where the scans'
 time goes.  ``--wgmma`` first measures how many cycles of an SM one
 ``wgmma.m64nNk8.tf32`` takes at N = 64, 128 and 256
-(``probes/wgmma_rate.cu``).  ``--bigk`` instead times nnk at k > 16 on
+(``probes/wgmma_rate.cu``); ``--dmma`` checks the fragment layouts the
+DMMA scan assumes (an exact integer product through each float64
+``mma.sync`` shape), measures each shape's rate alone, and the
+fragments' shared-memory loads in the panels' order against coordinate
+order (bytes a cycle an SM: bank conflicts; ``probes/dmma_rate.cu``).  ``--bigk`` instead times nnk at k > 16 on
 ``chip_smoke.py``'s [knn-bigk] float32 cases against ``BIGK_VARIANTS``
 (all, or those named after ``--bigk``), the choices of that path: the
 register-tiled scan's buffers, its splits, its merge's rounds.
@@ -27,16 +32,20 @@ scan and the select-then-sort path, each forced by a build of
 ``csrc/knn.cu`` with other crossover constants (``CROSSOVER_VARIANTS``),
 on ``CROSSOVER_SHAPES`` (all, or those of the clouds named) at each k,
 and checks that they give the same bits: where ``kSelectK``,
-``kSelectK64``, ``kSelectKSmallR`` and ``kWideSelectK`` come from.
-``--sort-all`` times k = N both ways, the fused sort kernel and the
+``kSelectK64``, ``kSelectKSmallR``, ``kWideSelectK``, ``kWideSelectK64``
+and ``kWideSelectK64Long`` come from.  ``--sort-all`` times k = N both ways, the fused sort kernel and the
 general select path (``SORT_ALL_VARIANTS``).  ``--cases [TAG ...]`` runs ``chip_smoke.py``'s [knn-bigk] phase on
 the cases named.  ``--breakdown`` traces one call of each [knn-bigk] case on
-the select path and sums its device time by kernel (counting passes,
-picks, emission, sort).  Needs an NVIDIA GPU:
+the select path and sums its device time by kernel (sample and counting
+passes, picks, emission, sort), and counts the counting passes the
+digit walk takes each of its first 128 rows (``ops.knn._select_rows`` on
+their FMA-chain scores in the clouds' type, with the card's boundary
+buffer; no guess).  Needs an NVIDIA GPU:
 
     python3 -m pypose_tpu_torch.probes.knn_probes [--old PATH] [--variants]
-        [--wgmma] [--bigk [VARIANT ...]] [--crossover [CLOUDS ...]]
-        [--sort-all] [--breakdown] [--cases [TAG ...]]
+        [--wgmma] [--dmma] [--bigk [VARIANT ...]] [--crossover [CLOUDS ...]]
+        [--sort-all] [--breakdown]
+        [--cases [TAG ...]]
 """
 
 import argparse
@@ -137,7 +146,8 @@ BIGK_VARIANTS = {
 # Variants for --crossover: each family's two paths past k = 16 forced
 # (every crossover constant), the merge scans (the select paths only at
 # k = N) and the select-then-sort paths (at every k > 16).
-_CROSSOVERS = ('kSelectK', 'kSelectK64', 'kSelectKSmallR', 'kWideSelectK')
+_CROSSOVERS = ('kSelectK', 'kSelectK64', 'kSelectKSmallR', 'kWideSelectK',
+               'kWideSelectK64', 'kWideSelectK64Long')
 CROSSOVER_VARIANTS = {
     name: [(f'constexpr int {c} = ', f'constexpr int {c} = {k}; //')
            for c in _CROSSOVERS]
@@ -145,11 +155,16 @@ CROSSOVER_VARIANTS = {
 # --crossover's shapes: (tag, clouds, ks); the clouds of chip_smoke.py's
 # [knn-bigk] range case (10,000 ICP source points against the 100k
 # target), its 100k target against itself (in float32 and float64),
-# [knn-d6]'s float64 clouds, and [knn-wide]'s FPFH-like (D = 33) and
-# SIFT-like (D = 128) float32 clouds.
+# [knn-d6]'s float64 clouds, [knn-wide]'s FPFH-like (D = 33) and
+# SIFT-like (D = 128) float32 clouds, its FPFH-like float64 clouds, and
+# the SIFT-like clouds' first 10,000 x 20,000 in float64.
 CROSSOVER_SHAPES = (
     ('fpfh 50k x 50k', 'fpfh', (64, 100, 128, 256, 512, 1024)),
     ('sift 20k x 100k', 'sift', (64, 100, 128, 256, 512, 1024)),
+    ('fpfh-f64 10k x 10k', 'fpfh-f64',
+     (17, 24, 32, 48, 64, 128, 256, 512, 1024)),
+    ('sift-f64 10k x 20k', 'sift-f64',
+     (32, 64, 96, 128, 192, 256, 512, 1024)),
     ('10k x 100k', 'range', (64, 100, 128, 256, 512, 1024)),
     ('100k x 100k', 'icp', (64, 100, 128, 256, 512, 1024)),
     ('100k x 100k f64', 'icp-f64', (64, 100, 128, 256, 512, 1024)),
@@ -195,7 +210,7 @@ def variant_libs(variants):
         lib = ctypes.CDLL(str(_build.BUILD / f'knn_{name}.so'))
         for fn, args in (('ppt_nn1_splits', [I] * 4),
                          ('ppt_knn_scratch',
-                          [I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]),
+                          [I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
                          ('ppt_nn1', [P, P] + [I] * 5 + [P] * 6),
                          ('ppt_nnk_splits', [I] * 5),
                          ('ppt_nnk_select_scratch',
@@ -223,7 +238,7 @@ def variant_call(lib, ref, nbr, k):
         sp, n.value = 1, sel.value
         ps = pi = torch.empty((1,), dtype=torch.int32, device=dev)
     else:
-        lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(n))
+        lib.ppt_knn_scratch(R, N, D, k, f64, ctypes.byref(n))
         n.value *= 4
         sp = (lib.ppt_nn1_splits(R, N, D, f64) if k == 1
               else lib.ppt_nnk_splits(R, N, D, k, f64))
@@ -353,7 +368,28 @@ def breakdown(dev, tags=()):
                           for name, (n, ns) in tot.items())
               + f'; all {sum(ns for _, ns in tot.values()) / 1e6:.4f} ms; '
               'the scans and counting passes in order '
-              + ', '.join(f'{ms:.4f}' for ms in scans) + ' ms', flush=True)
+              + ', '.join(f'{ms:.4f}' for ms in scans) + ' ms; counting '
+              f'passes a row (digit walk, first 128 rows): '
+              f'{walk_passes(ref, nbr, k)}', flush=True)
+
+
+def walk_passes(ref, nbr, k, rows=128):
+    """{passes: rows} of the digit walk (ops.knn._select_rows, no guess)
+    on the FMA-chain scores, in the clouds' type, of the first ``rows``
+    rows, with the card's boundary buffer (csrc/knn.cu:sel_plan's cap)."""
+    N = nbr.shape[0]
+    if k == N:
+        return {0: min(rows, ref.shape[0])}
+    P = 64
+    while P < k - 1 + 256:
+        P *= 2
+    cap = min(512, P - (k - 1))
+    s = K._select_scores(ref[:rows], nbr).cpu()
+    out = {}
+    for r in range(s.shape[0]):
+        n = K._select_rows(s[r:r + 1], k, cap)[2]
+        out[n] = out.get(n, 0) + 1
+    return dict(sorted(out.items()))
 
 
 def wgmma_rates(dev, steps=15, rounds=2000):
@@ -386,6 +422,73 @@ def wgmma_rates(dev, steps=15, rounds=2000):
     return rates
 
 
+def dmma_rates(dev, rounds=20_000, warps=8):
+    """probes/dmma_rate.cu on every SM: {shape: (its layout check exact,
+    cycles an SM a k-step of a warp's tile, TFLOP/s by CUDA events)}, and
+    {fragment loads: (None, cycles a round, bytes a cycle an SM)}."""
+    src = Path(__file__).with_name('dmma_rate.cu')
+    out = _build.BUILD / 'libdmma_rate.so'
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-o', str(out),
+                    str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ppt_dmma_rate.argtypes = [I] * 3 + [P, P, I]
+    lib.ppt_dmma_layout.argtypes = [I, P, P, P]
+    lib.ppt_lds_rate.argtypes = [I] * 3 + [P, P, I]
+    lib.ppt_dmma_rate.restype = lib.ppt_dmma_layout.restype = I
+    lib.ppt_lds_rate.restype = I
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cycles = torch.zeros(32 * sms, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.float64, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randint(-8, 8, (16, 16), generator=gen).double().to(dev)
+    b = torch.randint(-8, 8, (8, 16), generator=gen).double().to(dev)
+    rates = {}
+    for shape, name in ((0, 'm8n8k4'), (4, 'm16n8k4'), (8, 'm16n8k8'),
+                        (16, 'm16n8k16')):
+        d = torch.zeros((16, 8), dtype=torch.float64, device=dev)
+        rc = lib.ppt_dmma_layout(shape, a.data_ptr(), b.data_ptr(),
+                                 d.data_ptr())
+        torch.cuda.synchronize()
+        if rc:
+            raise RuntimeError(f'dmma_layout launch failed: {rc}')
+        exact = torch.equal(d, a @ b.T)
+        run = lambda: lib.ppt_dmma_rate(  # noqa: E731
+            shape, warps, rounds, cycles.data_ptr(), sink.data_ptr(), sms)
+        run()
+        torch.cuda.synchronize()
+        cycles.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = run()
+        end.record()
+        torch.cuda.synchronize()
+        if rc:
+            raise RuntimeError(f'dmma_rate launch failed: {rc}')
+        span = float(cycles.view(sms, 32)[:, :warps].max(1).values.double()
+                     .median())
+        # a k-step of 8 of a 16 x 64 tile: 16 * 64 * 8 * 2 flop a warp
+        flop = 16 * 64 * 8 * 2 * rounds * warps * sms
+        rates[name] = (exact, span / rounds / warps,
+                       flop / (start.elapsed_time(end) * 1e-3) / 1e12)
+    # the fragments' loads alone: bytes an SM a cycle, 128 at most
+    for permuted, name in ((1, 'fragment loads, panel order (LDS.128)'),
+                           (0, 'fragment loads, coordinate order (LDS.64)')):
+        cycles.zero_()
+        rc = lib.ppt_lds_rate(permuted, warps, rounds, cycles.data_ptr(),
+                              sink.data_ptr(), sms)
+        torch.cuda.synchronize()
+        if rc:
+            raise RuntimeError(f'lds_rate launch failed: {rc}')
+        span = float(cycles.view(sms, 32)[:, :warps].max(1).values.double()
+                     .median())
+        # a round: 10 fragment pairs of 16 bytes a thread, 32 threads a warp
+        rates[name] = (None, span / rounds, 10 * 16 * 32 * warps * rounds
+                       / span)
+    return rates
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--old', type=Path, help='an earlier csrc/knn.cu')
@@ -401,6 +504,8 @@ def main():
                          'select path (CROSSOVER_VARIANTS) at each k, on '
                          'CROSSOVER_SHAPES (all, or those of the clouds '
                          'named)')
+    ap.add_argument('--dmma', action='store_true',
+                    help='the float64 mma.sync layouts and rates first')
     ap.add_argument('--sort-all', action='store_true',
                     help='k = N: the fused sort kernel against the general '
                          'select path (SORT_ALL_VARIANTS)')
@@ -423,10 +528,24 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     print(f'[probe] {smi}; torch {torch.__version__}', flush=True)
     K._kernel_lib()
-    for name, (used, spill, hgmma) in compiled_kernels(
-            _build.BUILD / 'libknn.so', ('wide_tc_scan', 'tf32_split')).items():
-        print(f'[probe] {name}: {used}; {spill}; HGMMA in SASS: {hgmma}',
-              flush=True)
+    for match, op in (('wide_tc_scanIf', 'HGMMA'), ('tf32_split', 'HGMMA'),
+                      ('wide_tc_scanId', 'DMMA'), ('f64_panels', 'DMMA')):
+        for name, (used, spill, n) in compiled_kernels(
+                _build.BUILD / 'libknn.so', (match,), op).items():
+            print(f'[probe] {name}: {used}; {spill}; {op} in SASS: {n}',
+                  flush=True)
+    if args.dmma:
+        for shape, (exact, per, rate) in dmma_rates(dev).items():
+            if exact is None:
+                print(f'[probe] {shape}: {per:.2f} cycles a round of a '
+                      f'warp\'s 10 loads (8 warps an SM), {rate:.1f} bytes '
+                      'a cycle an SM (128 without bank conflicts)',
+                      flush=True)
+                continue
+            print(f'[probe] {shape}: layout exact {exact}; {per:.2f} cycles '
+                  f'an SM a k-step of 8 of a warp\'s 16 x 64 tile '
+                  f'(8 warps an SM), {rate:.2f} TFLOP/s (CUDA events, all '
+                  'SMs)', flush=True)
     if args.wgmma:
         for (n, groups), (per, mac) in wgmma_rates(dev).items():
             print(f'[probe] wgmma.m64n{n}k8.tf32, {groups} warpgroup(s) an '
@@ -443,7 +562,8 @@ def main():
             sort_all(dev, libs)
         if args.crossover is not None:
             crossover(dev, libs, args.crossover)
-        return
+        if not args.breakdown:
+            return
     if args.breakdown:
         breakdown(dev, args.cases or ())
         return

@@ -458,23 +458,34 @@ def test_descriptor_kernels_exact_ties(cuda, D):
 
 
 def test_descriptor_scratch_sizes(cuda):
-    """The float32 wide scans' scratch: the split clouds, zero for the
-    float64 and the register-tiled scans."""
+    """The wide merge scans' scratch on the tensor cores: the split
+    clouds (float64: its panels, past k = 16 alone), zero for the
+    register-tiled scans and the float64 SIMT scans."""
     import ctypes
     lib = knn._kernel_lib()
     n = ctypes.c_longlong()
-    assert lib.ppt_knn_scratch(20_000, 100_000, 128, 0, ctypes.byref(n)) == 0
+    assert lib.ppt_knn_scratch(20_000, 100_000, 128, 1, 0,
+                               ctypes.byref(n)) == 0
     # 157 blocks of 128 rows and 1563 tiles of 64, each panel 64 x 128 x 2
     # words and 64 norms
     assert n.value == (2 * 157 + 1563) * (2 * 64 * 128 + 64)
-    for D, f64 in ((128, 1), (8, 0)):
-        assert lib.ppt_knn_scratch(100, 100, D, f64, ctypes.byref(n)) == 0
+    # float64: 2 panels of rows and 2 tiles, each 64 x 128 doubles and 64
+    # norms, in float32 words
+    assert lib.ppt_knn_scratch(100, 100, 128, 17, 1, ctypes.byref(n)) == 0
+    assert n.value == (2 + 2) * (2 * 64 * 128 + 2 * 64)
+    assert lib.ppt_knn_scratch(100, 100, 8, 1, 0, ctypes.byref(n)) == 0
+    assert n.value == 0
+    # the float64 SIMT scans (nn1 and k <= 16) read none
+    for k in (1, 16):
+        assert lib.ppt_knn_scratch(100, 100, 128, k, 1, ctypes.byref(n)) == 0
         assert n.value == 0
+    plan = knn.nnk_plan(100, 100, 128, 16, torch.float64)
+    assert (plan['family'], plan['scratch_bytes']) == ('simt-f64', 0)
 
 
 # k > 16: the lists off the registers (csrc/knn.cu:nnk_scan_big,
-# nnk_wide_scan_f64_big, wide_tc_scan<kBig>), one launch each, under the
-# near-tie rules (float64 at F64_TOL).
+# wide_tc_scan<float, kBig> and wide_tc_scan<double, kBig>, DMMA), one
+# launch each, under the near-tie rules (float64 at F64_TOL).
 BIG_KS = (17, 31, 32, 33, 64, 100, 257, 1024)
 
 
@@ -498,7 +509,7 @@ def _assert_big(ref, nbr, k, **tol):
 @pytest.mark.parametrize('k', BIG_KS)
 def test_nnk_big_k_matches_plain(cuda, k, D, dtype):
     """Every k > 16 family (register-tiled up to D = 8, the float32
-    tensor-core and float64 SIMT wide scans past it) on clouds of 333 x
+    tensor-core and float64 DMMA wide scans past it) on clouds of 333 x
     3003 (R not a multiple of a block's rows); the lists live in global
     memory at every k, and k = 257 and 1024 merge many buffers into
     them."""
@@ -666,8 +677,8 @@ def test_select_route_starts_at_select_k(cuda):
     """The register-tiled family takes the select path from select_k on
     (csrc/knn.cu's crossovers, each past 16, lower at 10,000 rows than at
     100,000) and at k = N (any k), the scans below; the float64 wide
-    family never (its select_k is None), the float32 one from its own
-    crossover on."""
+    family past k = 16 from its own crossover on and at k = N (DMMA), the
+    SIMT scans up to k = 16 (at k = N too)."""
     for dtype in (torch.float32, torch.float64):
         for R in (1000, 100_000):
             sel = knn.select_k(dtype, R)
@@ -681,10 +692,16 @@ def test_select_route_starts_at_select_k(cuda):
             assert plan(20, 1, 20) == 'select'
             assert plan(5000, 3, 16) == 'scan'
         assert knn.select_k(dtype, 1000) <= knn.select_k(dtype, 100_000)
-    assert knn.select_k(torch.float64, 1000, 9) is None
-    for k in (17, 1024, 5000):
+    sel = knn.select_k(torch.float64, 1000, 9)
+    assert 16 < sel <= 1024
+    for k, route in ((2, 'scan'), (16, 'scan'), (17, 'scan'),
+                     (sel - 1, 'scan'), (sel, 'select'), (1024, 'select'),
+                     (5000, 'select')):
         plan = knn.nnk_plan(1000, 5000, 9, k, torch.float64)
-        assert (plan['route'], plan['family']) == ('scan', 'simt-f64')
+        family = 'simt-f64' if k <= 16 else 'tensor-core-f64'
+        assert (plan['route'], plan['family']) == (route, family), k
+    plan = knn.nnk_plan(1000, 16, 9, 16, torch.float64)
+    assert (plan['route'], plan['family']) == ('scan', 'simt-f64')
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -806,10 +823,43 @@ def test_wide_nnk_plan_reports_select(cuda):
                                                        'tensor-core'), k
             assert plan['splits'] == 1 and plan['part_bytes'] == 0
             floats = ctypes.c_longlong()
-            assert lib.ppt_knn_scratch(R, N, D, 0, ctypes.byref(floats)) == 0
+            assert lib.ppt_knn_scratch(R, N, D, k, 0,
+                                       ctypes.byref(floats)) == 0
             assert plan['scratch_bytes'] > 4 * floats.value + 1024 * R
     assert knn.select_k(torch.float32, 2000, 33) <= \
         knn.select_k(torch.float32, 2000, 128)
+
+
+def test_wide_nnk_plan_reports_select_f64(cuda):
+    """nnk_plan for float64 past 8 coordinates: the DMMA family past
+    k = 16, 'select' from select_k(float64, R, D) on and at k = N (its
+    scratch the float64 panels and the select state, no partial lists),
+    'scan' below (the merge scan: partial lists and the panels); the SIMT
+    scans up to k = 16, with no scratch."""
+    import ctypes
+    lib = knn._kernel_lib()
+    for D in (9, 33, 128, 300):
+        R, N = 2000, 20_000
+        sel = knn.select_k(torch.float64, R, D)
+        assert 16 < sel <= 1024, (D, sel)
+        floats = ctypes.c_longlong()
+        assert lib.ppt_knn_scratch(R, N, D, sel - 1, 1,
+                                   ctypes.byref(floats)) == 0
+        assert floats.value > 0
+        below = knn.nnk_plan(R, N, D, sel - 1, torch.float64)
+        assert (below['route'], below['family']) == ('scan',
+                                                     'tensor-core-f64')
+        assert below['select_k'] == sel and below['part_bytes'] > 0
+        assert below['scratch_bytes'] == 4 * floats.value
+        for k in (sel, 1024, N):
+            plan = knn.nnk_plan(R, N, D, k, torch.float64)
+            assert (plan['route'], plan['family']) == ('select',
+                                                       'tensor-core-f64'), k
+            assert plan['splits'] == 1 and plan['part_bytes'] == 0
+            assert plan['scratch_bytes'] > 4 * floats.value + 1024 * R
+        small = knn.nnk_plan(R, N, D, 16, torch.float64)
+        assert (small['route'], small['family'], small['scratch_bytes']) \
+            == ('scan', 'simt-f64', 0)
 
 
 def _sift_clouds(R, N, dev, seed):
@@ -824,42 +874,49 @@ def _sift_clouds(R, N, dev, seed):
     return out
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('D', [9, 33, 128, 300])
-def test_wide_select_bit_equal_to_the_merge_scan(cuda, D):
-    """The float32 wide select path (csrc/knn.cu:launch_nnk_wide_select) at
-    its crossover, at 1024 and at k = N gives the same d^2 and index bits
-    as the tensor-core merge scan forced at the same k
-    (knn._nnk_wide_merge): both rank the same three-pass TF32 s in the
-    same (s, index) order; and holds the near-tie rule."""
+def test_wide_select_bit_equal_to_the_merge_scan(cuda, D, dtype):
+    """The wide select path (csrc/knn.cu:launch_nnk_wide_select) at its
+    crossover, at 1024 and at k = N gives the same d^2 and index bits as
+    the tensor-core merge scan forced at the same k (knn._nnk_wide_merge):
+    both rank the same s (float32: three-pass TF32; float64: DMMA) in the
+    same (s, index) order; and holds the near-tie rule (float64 at
+    F64_TOL)."""
     ref, nbr = (_sift_clouds(1500, 20_011, cuda, seed=D) if D == 128
                 else _descriptor_clouds(1500, 20_011, D, cuda, seed=D))
-    sel = knn.select_k(torch.float32, 1500, D)
+    ref, nbr = ref.to(dtype), nbr.to(dtype)
+    tol = F64_TOL if dtype == torch.float64 else {}
+    sel = knn.select_k(dtype, 1500, D)
     for k in (sel, 1024):
-        assert knn.nnk_plan(1500, 20_011, D, k,
-                            torch.float32)['route'] == 'select'
+        assert knn.nnk_plan(1500, 20_011, D, k, dtype)['route'] == 'select'
         d_m, i_m = knn._nnk_wide_merge(ref, nbr, k)
-        d_s, i_s = _assert_big(ref, nbr, k)
+        d_s, i_s = _assert_big(ref, nbr, k, **tol)
         assert torch.equal(i_m, i_s) and torch.equal(d_m, d_s), (D, k)
     ref, nbr = ref[:300].contiguous(), nbr[:3003].contiguous()
     d_m, i_m = knn._nnk_wide_merge(ref, nbr, 3003)
-    d_s, i_s = _assert_big(ref, nbr, 3003)
+    d_s, i_s = _assert_big(ref, nbr, 3003, **tol)
     assert torch.equal(i_m, i_s) and torch.equal(d_m, d_s), (D, 'N')
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('far', [False, True])
-def test_wide_select_sampled_digit(cuda, far):
-    """The wide select path guesses each row's first digit from every 8th
-    tile of 64 neighbours and checks the guess in the next pass: on
-    clouds whose sampled tiles are like the rest the guess holds, and
-    where every sampled tile lies far off (50 added to each of its
-    coordinates) the guess fails and the row starts over; both ways the
-    bits equal the merge scan's, under the near-tie rule."""
+def test_wide_select_sampled_digit(cuda, far, dtype):
+    """The wide select path guesses each row's first digit (float32 and
+    float64 alike) from every 8th tile of 64 neighbours and checks the guess
+    in the next pass: on clouds whose sampled tiles are like the rest the
+    guess holds, and where every sampled tile lies far off (50 added to
+    each of its coordinates) the guess fails and the row starts over;
+    both ways the bits equal the merge scan's, under the near-tie rule
+    (float64 at F64_TOL)."""
     ref, nbr = _descriptor_clouds(700, 64 * 8 * 40, 33, cuda, seed=7)
+    ref, nbr = ref.to(dtype), nbr.to(dtype)
     if far:
         tile = torch.arange(nbr.shape[0], device=cuda) // 64
         nbr = torch.where((tile % 8 == 0)[:, None], nbr + 50.0, nbr)
     d_m, i_m = knn._nnk_wide_merge(ref, nbr, 1024)
-    d_s, i_s = _assert_big(ref, nbr, 1024)
+    d_s, i_s = _assert_big(ref, nbr, 1024,
+                           **(F64_TOL if dtype == torch.float64 else {}))
     assert torch.equal(i_m, i_s) and torch.equal(d_m, d_s)
 
 

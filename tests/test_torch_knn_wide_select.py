@@ -1,12 +1,14 @@
-"""The CPU emulation of ``nnk``'s select-then-sort path for the float32
-wide family (D > 8, ``csrc/knn.cu:launch_nnk_wide_select``):
+"""The CPU emulation of ``nnk``'s select-then-sort path for the wide
+families (D > 8, ``csrc/knn.cu:launch_nnk_wide_select``):
 ``ops/knn.py:_select_rows`` over ``_tf32_scores``, the three-pass TF32
-scores that the tensor-core passes form (``_nnk_select`` joins them for
-float32 clouds past 8 coordinates).  Nothing on the card's path runs the
-emulation; the card tests hold the kernel to the tensor-core merge scan
-bit for bit.
+scores that the float32 tensor-core passes form, or over
+``_select_scores``, the float64 scores that the DMMA passes form in
+another rounding order (``_nnk_select`` joins them for clouds past 8
+coordinates).  Nothing on the card's path runs the emulation; the card
+tests hold the kernel to the tensor-core merge scan bit for bit.
 
-Held here, on identical numpy clouds:
+Held here, on identical numpy clouds, in float32 and float64 (JAX under
+``jax.enable_x64``, as ``test_torch_knn_bigk.py`` runs it):
 
 - the cut and sort against a stable sort of the same scores, bit for bit,
   exact (no boundary buffer) and with boundary buffers of 8 pairs, where
@@ -19,13 +21,15 @@ Held here, on identical numpy clouds:
   larger k go to ``lax.top_k``), under
   ``test_torch_knn_bigk.assert_agree``'s rule (d^2 within
   1e-6 (|a|^2 + |b|^2) + 1e-6; indices equal at every clear rank);
-- on integer clouds, whose TF32 splits, products and sums are exact, the
-  indices equal the JAX package's everywhere, ties lower index first.
+- on integer clouds, whose TF32 splits (float64: whose products and
+  sums) are exact, the indices equal the JAX package's everywhere, ties
+  lower index first.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -39,35 +43,50 @@ cap_threads()
 
 
 def _jax_top_k(ref, nbr, k):
-    res = jgeo._knn_tiled(jnp.asarray(ref), jnp.asarray(nbr), k, False, 64)
-    return np.asarray(res.values) ** 2, np.asarray(res.indices)
+    with jax.enable_x64(ref.dtype == np.float64):
+        res = jgeo._knn_tiled(jnp.asarray(ref), jnp.asarray(nbr), k, False,
+                              64)
+        return np.asarray(res.values) ** 2, np.asarray(res.indices)
 
 
+def _wide_scores(ref, nbr):
+    """The wide family's scores of ``ref`` and ``nbr`` (numpy): the
+    three-pass TF32 ones in float32, the FMA chain's in float64."""
+    rt, nt = torch.from_numpy(ref), torch.from_numpy(nbr)
+    if ref.dtype == np.float32:
+        return tknn._tf32_scores(rt, nt)
+    return tknn._select_scores(rt, nt)
+
+
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
 @pytest.mark.parametrize('cap', [0, 8])
 @pytest.mark.parametrize('D', [33, 128])
 @pytest.mark.parametrize('k', [32, 257, 300])
-def test_wide_cut_is_a_stable_sort_of_the_tf32_scores(k, D, cap):
-    """The digit cut over the three-pass TF32 scores, exact and with a
+def test_wide_cut_is_a_stable_sort_of_the_tf32_scores(k, D, cap, dtype):
+    """The digit cut over the wide family's scores (float32: three-pass
+    TF32; float64: 8 key digits, then the index's), exact and with a
     boundary buffer of 8 pairs, gives a stable sort's first k of the same
     scores, indices and values."""
-    ref, nbr = clouds(k + D, 64, 300, D)
-    s = tknn._tf32_scores(torch.from_numpy(ref), torch.from_numpy(nbr))
+    ref, nbr = clouds(k + D, 64, 300, D, dtype)
+    s = _wide_scores(ref, nbr)
+    assert s.dtype == torch.from_numpy(ref).dtype
     v, i, passes = tknn._select_rows(s, k, cap)
     v_s, i_s = torch.sort(s, dim=1, stable=True)
     assert torch.equal(i, i_s[:, :k]) and torch.equal(v, v_s[:, :k])
     assert passes == 0 if k == 300 else passes >= 1
 
 
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
 @pytest.mark.parametrize('D', [33, 128])
 @pytest.mark.parametrize('k', [32, 257, 300])
-def test_wide_select_matches_jax_top_k(k, D):
-    """``_nnk_select`` on float32 64 x 300 clouds (the wide family's TF32
-    scores) against the JAX package's ``_knn_tiled`` and the plain
-    ``_nnk_torch``, at k = 32, 257 and N."""
-    ref, nbr = clouds(k + 10 * D, 64, 300, D)
+def test_wide_select_matches_jax_top_k(k, D, dtype):
+    """``_nnk_select`` on 64 x 300 clouds (the wide family's scores:
+    three-pass TF32 in float32) against the JAX package's ``_knn_tiled``
+    and the plain ``_nnk_torch``, at k = 32, 257 and N."""
+    ref, nbr = clouds(k + 10 * D, 64, 300, D, dtype)
     rt, nt = torch.from_numpy(ref), torch.from_numpy(nbr)
     d2_e, idx_e = tknn._nnk_select(rt, nt, k)
-    assert d2_e.dtype == torch.float32 and idx_e.dtype == torch.int64
+    assert d2_e.dtype == rt.dtype and idx_e.dtype == torch.int64
     assert (torch.diff(d2_e, dim=1) >= 0).all()
     assert_agree(ref, nbr, d2_e, idx_e, *_jax_top_k(ref, nbr, k))
     d2_p, idx_p = tknn._nnk_torch(rt, nt, k)
@@ -86,18 +105,20 @@ def test_wide_select_matches_pallas(D):
     assert_agree(ref, nbr, d2_e, idx_e, d2_j, idx_j)
 
 
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
 @pytest.mark.parametrize('D', [33, 128])
 @pytest.mark.parametrize('k', [40, 250, 500])
-def test_wide_select_integer_ties(k, D):
+def test_wide_select_integer_ties(k, D, dtype):
     """Small-integer clouds, every neighbour twice: every TF32 split,
-    product and sum is exact, so the scores are, and runs of equal ones
-    straddle the k-th pair (cut by index, with a boundary buffer of 8);
-    the emulation's indices and distances equal the JAX package's and the
-    plain version's everywhere, the lower index first."""
+    product and sum is exact (float64: every product and sum), so the
+    scores are, and runs of equal ones straddle the k-th pair (cut by
+    index, with a boundary buffer of 8); the emulation's indices and
+    distances equal the JAX package's and the plain version's everywhere,
+    the lower index first."""
     rng = np.random.default_rng(k + D)
-    base = rng.integers(0, 3, size=(250, D)).astype(np.float32)
+    base = rng.integers(0, 3, size=(250, D)).astype(dtype)
     nbr = np.concatenate([base, base])
-    ref = rng.integers(0, 3, size=(40, D)).astype(np.float32)
+    ref = rng.integers(0, 3, size=(40, D)).astype(dtype)
     rt, nt = torch.from_numpy(ref), torch.from_numpy(nbr)
     d2_e, idx_e = tknn._nnk_select(rt, nt, k, cap=8)
     d2_j, idx_j = _jax_top_k(ref, nbr, k)
