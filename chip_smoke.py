@@ -258,11 +258,11 @@ Phases (any failure raises, so the script exits non-zero):
      of csrc/knn.cu on FPFH-like clouds (33 coordinates, 50,000 x 50,000)
      and SIFT-like clouds (128, 20,000 x 100,000; also nnk(k=2), the
      ratio test) in float32 (on the tensor cores) and FPFH-like float64
-     clouds (10,000 x 10,000; SIMT), each held to its plain version by
+     clouds (10,000 x 10,000; DMMA), each held to its plain version by
      the near-tie rule, timed beside the plain version and chunked
      torch.cdist + torch.min / topk, the device time of each traced in a
      fresh process; knn(k=1) and knn(k=8) on the D = 33 clouds launch one
-     nn1 and one nnk.
+     nn1 and one nnk, in float32 and in float64.
  37b. knn-bigk: nnk at k > 16 (the lists off the registers, and the
      select-then-sort paths from ops.knn.select_k(dtype, R, D) on and at
      k = N: each case's path, kernels and scratch printed), each case
@@ -3260,15 +3260,16 @@ def knn_wide_phase(dev):
     on FPFH-like clouds (D = 33, 50,000 x 50,000), SIFT-like clouds
     (D = 128, 20,000 x 100,000; also nnk(k=2), the ratio test) in float32
     (the tensor-core scans) and FPFH-like 10,000 x 10,000 in float64 (the
-    SIMT scans), each held to its plain version by the near-tie rule
+    DMMA scans), each held to its plain version by the near-tie rule
     (float64 at F64_TOL) and timed (CUDA events, median of 7; device time
     of one call under torch.profiler in a fresh process, wide_device_ms)
     beside the plain version (one call) and chunked torch.cdist +
     torch.min / topk with TF32 off (one call); then the main path,
-    knn(ref, nbr, k=1) and k=8 on the D = 33 clouds, counted from zero:
-    one nn1 and one nnk launch, the kernels' results.  Returns
-    {('nn1' | 'nnk', case): numbers} (case: the tag, with ', k=2' for the
-    ratio test) and the main path's counts."""
+    knn(ref, nbr, k=1) and k=8 on the D = 33 clouds in float32 and in
+    float64, each counted from zero: one nn1 and one nnk launch, the
+    kernels' results.  Returns {('nn1' | 'nnk', case): numbers} (case:
+    the tag, with ', k=2' for the ratio test) and the main path's counts
+    ({'float32' | 'float64': {counter: launches}})."""
     import torch
     import pypose_tpu_torch as ppt
     from pypose_tpu_torch.ops import knn as K
@@ -3316,26 +3317,29 @@ def knn_wide_phase(dev):
             case = tag if k in (1, 8) else f'{tag}, k={k}'
             out[(name, case)] = dict(err=err, ms=k_ms, device_ms=d_ms,
                                      plain_ms=p_ms, cdist_ms=c_ms, bound=b,
+                                     dtype=dt,
                                      shape=f'[{R}, {D}] x [{N}, {D}] {dt}'
                                      f'{"" if k == 1 else f", k={k}"}',
                                      idx=i_k)
     # the main path: knn on the FPFH clouds, each kernel counted from zero
-    ref, nbr = clouds['fpfh']
     counts = {}
-    for k, counter in ((1, 'NN1_LAUNCHES'), (8, 'NNK_LAUNCHES')):
-        reset_counts()
-        res = ppt.knn(ref, nbr, k=k)
-        torch.cuda.synchronize()
-        c = read_counts()
-        others = {n: v for n, v in c.items() if n != counter and v}
-        check(c[counter] == 1 and not others,
-              f'knn-wide: knn(k={k}) at D = 33: launch counts {c}')
-        check(torch.equal(res.indices,
-                          out[('nn1' if k == 1 else 'nnk', 'fpfh')]['idx']),
-              f'knn-wide: knn(k={k}) differs from its kernel')
-        counts[counter] = c[counter]
-        print(f'[knn-wide] knn(ref, nbr, k={k}) on the D = 33 clouds: '
-              f'launch counts {c}', flush=True)
+    for tag, dt in (('fpfh', 'float32'), ('fpfh-f64', 'float64')):
+        ref, nbr = clouds[tag]
+        counts[dt] = {}
+        for k, counter in ((1, 'NN1_LAUNCHES'), (8, 'NNK_LAUNCHES')):
+            reset_counts()
+            res = ppt.knn(ref, nbr, k=k)
+            torch.cuda.synchronize()
+            c = read_counts()
+            others = {n: v for n, v in c.items() if n != counter and v}
+            check(c[counter] == 1 and not others,
+                  f'knn-wide: knn(k={k}) at D = 33 {dt}: launch counts {c}')
+            check(torch.equal(res.indices,
+                              out[('nn1' if k == 1 else 'nnk', tag)]['idx']),
+                  f'knn-wide: knn(k={k}) {dt} differs from its kernel')
+            counts[dt][counter] = c[counter]
+            print(f'[knn-wide] knn(ref, nbr, k={k}) on the D = 33 {dt} '
+                  f'clouds: launch counts {c}', flush=True)
     for v in out.values():
         del v['idx']
     return out, counts
@@ -4008,21 +4012,22 @@ def main():
             elif 'spill' in line:
                 spill = line.strip()
             # csrc/knn.cu: the float32 and float64 instantiations for D = 3
-            # and D = 8, and the wide scans
+            # and D = 8, the warp merge scan's at every D, and the wide
+            # scans
             elif 'Used' in line and (path.stem != 'libknn' or 'wide' in entry
                                      or 'big' in entry or 'sel_' in entry
+                                     or 'warp_scan' in entry
                                      or 'tf32_split' in entry
                                      or any(f'I{t}Li{d}E' in entry
                                             for t in 'fd' for d in (3, 8))):
                 print(f'[build] {path.stem}: {entry}\n[build] {path.stem}: '
                       f'{spill}; {line.strip()}', flush=True)
     # the wide scans run on the tensor cores: HGMMA in the float32 ones'
-    # SASS, DMMA in the float64 ones'; eight float32 instantiations (nn1,
+    # SASS, DMMA in the float64 ones'; eight instantiations a type (nn1,
     # nnk at 2, 4, 8, 16 and past 16 (K = 0), and the select path's
-    # counting passes and emission (K = -1, -2)) and three float64 ones
-    # (past 16, counting, emission), one count a type
+    # counting passes and emission (K = -1, -2)), one count a type
     for tname, code, op, many in (('float32', 'f', 'HGMMA', 8),
-                                  ('float64', 'd', 'DMMA', 3)):
+                                  ('float64', 'd', 'DMMA', 8)):
         # the mangled names: wide_tc_scan<float, K> is wide_tc_scanIf...
         tc = compiled_kernels(_build.BUILD / 'libknn.so',
                               (f'wide_tc_scanI{code}',), op)
@@ -4372,14 +4377,20 @@ def main():
             device_ms=point[kname][3], plain_device_ms=point[kname][4],
             ms_of='per call over 50 calls, N=100,000 (device_ms: kernel '
                   'time alone, torch.profiler)', routed=False))
-    # the wide scans (D > 8): launches from knn's main path at D = 33
-    for kname, line, counter in (('nn1', '176', 'NN1_LAUNCHES'),
-                                 ('nnk', '138', 'NNK_LAUNCHES')):
-        cases = {tag: v for (n, tag), v in wide.items() if n == kname}
-        fp = cases['fpfh']
+    # the wide scans (D > 8): launches from knn's main path at D = 33,
+    # float32 (three-pass TF32) and float64 (DMMA) apart
+    for kname, line, counter, dt, first in (
+            ('nn1', '176', 'NN1_LAUNCHES', 'float32', 'fpfh'),
+            ('nnk', '138', 'NNK_LAUNCHES', 'float32', 'fpfh'),
+            ('nn1', '176', 'NN1_LAUNCHES', 'float64', 'fpfh-f64'),
+            ('nnk', '138', 'NNK_LAUNCHES', 'float64', 'fpfh-f64')):
+        cases = {tag: v for (n, tag), v in wide.items()
+                 if n == kname and v['dtype'] == dt}
+        fp = cases[first]
         kernels.append(entry(
-            f'{kname}_wide', 'knn.cu', 'pypose_tpu/ops/pallas_knn.py:' + line,
-            wide_counts[counter], max(v['err'] for v in cases.values()),
+            f'{kname}_wide' + ('_f64' if dt == 'float64' else ''), 'knn.cu',
+            'pypose_tpu/ops/pallas_knn.py:' + line,
+            wide_counts[dt][counter], max(v['err'] for v in cases.values()),
             fp['ms'], fp['plain_ms'], fp['bound'],
             library_ms=None if kname == 'nn1' else fp['cdist_ms'],
             library=None if kname == 'nn1' else
@@ -4391,9 +4402,10 @@ def main():
                              cdist_ms=v['cdist_ms'], bound_ms=v['bound'][0],
                              bound_by=v['bound'][1], max_abs_err=v['err'])
                    for tag, v in cases.items()},
-            ms_of=f'{fp["shape"]} (FPFH-like; float32 on the tensor '
-                  'cores); cases: every shape; launches from knn() on the '
-                  'D = 33 clouds', routed=True))
+            ms_of=f'{fp["shape"]} (FPFH-like; on the tensor cores: '
+                  f'{"DMMA" if dt == "float64" else "three-pass TF32"}); '
+                  f'cases: every {dt} shape; launches from knn() on the '
+                  f'D = 33 {dt} clouds', routed=True))
     # k > 16: one entry a scan family, and one for the select-then-sort
     # path (the register-tiled families' cases that took it); launches
     # from its first case's call through knn() (counted from zero)
@@ -4424,8 +4436,8 @@ def main():
     for kname, line, first, tags in (
             ('nnk_select', '50', (first_via_knn or select)[0], select),
             ('nnk_select_f64', '50', 'd6-f64-1024', ('d6-f64-1024',)),
-            ('nnk_bigk', '50', scan[0], scan),
-            ('nnk_bigk_f64', '50', 'd6-f64', ('d6-f64',)),
+            ('nnk_warp_scan', '50', scan[0], scan),
+            ('nnk_warp_scan_f64', '50', 'd6-f64', ('d6-f64',)),
             ('nnk_wide_bigk', '138', 'fpfh-33', wide_scan),
             ('nnk_wide_select', '138', 'fpfh-33-1024', wide_select),
             ('nnk_wide_bigk_f64', '138', 'fpfh-33-f64', ('fpfh-33-f64',)),

@@ -112,23 +112,21 @@
 // a half (D = 33) to a third (D = 128) of its time: the neighbours'
 // stream from L2 and the selection.
 // The splits of the neighbour range and the merge passes are the D <= 8
-// scans'.  Float64 wide clouds up to k = 16 keep the SIMT scans
-// (nn1_wide_scan_f64, nnk_wide_scan_f64): a 64 x 64 tile of scores as a
-// small SIMT GEMM (4 x 8 a thread, chunks of 8 coordinates through shared
-// memory), read by threads 0-63 a row each.
+// scans'.
 //
-// Wide clouds (D > 8), float64, past k = 16: the same tensor-core scan,
-// wide_tc_scan<double, K> (K: kBig, kCount, kEmit), on the FP64 tensor
-// cores.  What bounds it: the cross term, 2 D flop a pair, at 34 TFLOP/s
-// on the SIMT units (the small GEMM above: 2.67 ms at FPFH-like 10,000^2,
-// k = 32) and 67 on DMMA; and past a few hundred k the merge scan's
-// merges (44.34 ms at k = 1024).  So:
+// Wide clouds (D > 8), float64: the same tensor-core scan,
+// wide_tc_scan<double, K> (every K: 1, the list lengths, kBig, kCount,
+// kEmit), on the FP64 tensor cores.  What bounds it: the cross term, 2 D
+// flop a pair, at 34 TFLOP/s on the SIMT units (an earlier small SIMT GEMM:
+// 2.67 ms at FPFH-like 10,000^2, k = 32; 1.14 ms for nn1) and 67 on DMMA;
+// and past a few hundred k the merge scan's merges (44.34 ms at
+// k = 1024).  So:
 //  - Hopper has no float64 wgmma: each warp forms its 16 rows x 64
 //    neighbours by mma.sync.m16n8k8.f64 (dmma_unit), eight column slices
 //    of 8, whose accumulators sit where wgmma.m64n64's do, so every
-//    selection mode, the buffers, flush_row, the lists, nnk_merge_big,
-//    the counting passes, the emission and the sample, reads them as it
-//    reads float32's; alone each m16n8 shape runs at 66 TFLOP/s
+//    selection mode (nn1's running minimum, the K-lists, the buffers,
+//    flush_row, the lists, nnk_merge_big, the counting passes, the
+//    emission and the sample) reads them as it reads float32's; alone each m16n8 shape runs at 66 TFLOP/s
 //    (probes/dmma_rate.cu), m8n8k4 at 33;
 //  - a pre-pass (f64_panels) lays each cloud out once a call in panels of
 //    the float32 split's bytes (a float64 coordinate takes a hi and lo
@@ -150,42 +148,74 @@
 //    the merge scan's buffers: an entry is 12 bytes, 99 KB past the ring,
 //    two block stages where float32 has three past 96 coordinates.
 // Past the crossover (wide_select_k: 48 up to 64 coordinates, 192 past)
-// and at k = N the select path (launch_nnk_wide_select<double>).
+// and at k = N the select path (launch_nnk_wide_select<double>).  Up to
+// k = 16 every mode forms the same s as the merge scan past it, so nnk(16)
+// is nnk(32)'s first 16 columns bit for bit, and nn1 nnk(2)'s first.
 //
 // nnk past k = 16, two ways.  The same TPU kernel (pallas_knn.py:
 // _knnk_kernel :50, which takes any k <= N).
 //
-// The merge scans (nnk_scan_big, wide_tc_scan<T, kBig>): each family at
-// 16 < k below its crossover and N.  A list of
-// k = 100 pairs a row would take 200 registers, so:
-//  - each family scores its pairs as at k <= 16 (the same FMA chain; on
-//    the tensor cores the same three-pass total, or DMMA's float64 sum)
-//    and appends each pair before its row's k-th pair in (s, index) order
-//    (every pair until the row's list holds k) to the row's buffer in
-//    shared memory: the register-tiled scan at one row a thread (128 rows
-//    a block; 32 candidates a row, kBigBatch), the tensor-core scans from
-//    the row's four threads (their columns interleave, hence the (s,
-//    index) order in the test), whose buffers hold 64 (kBuf: a tile of 64
-//    neighbours appends at most 64);
-//  - where a buffer would overflow, and at the end of the split, the
-//    row's warp merges it into the row's sorted list (flush_row): a
-//    bitonic sort of the buffer in registers by shuffles, then the list
-//    rewritten in place from its top down, each entry moving up by the
-//    candidates before it; the row's k-th pair, the threshold, tightens.
-//    A random cloud makes ~k (1 + ln(M / k)) entries a row over a split
-//    of M neighbours, and a merge moves up to k entries, so past a few
-//    hundred the merges bound the scan (at k = N a row of 4096 is 128
-//    merges of ~2048 moves each);
-//  - the lists live in global memory, in part_s / part_i [splits, R, k]
-//    (in L2 while the split runs); splits as many as one wave of blocks
-//    holds, at most 32, within 1 GB of lists (kPartBudget); a split of
-//    fewer than k neighbours sorts them all, its list ending in (inf,
-//    INT_MAX) pairs; the merge pass (nnk_merge_big) takes a warp a row,
-//    lane sp the head of split sp's list, and writes the k least heads.
-// The tensor-core scan keeps its 128 rows a block, its producer and its
-// ring; the buffers take 66 KB past the ring (float64: 99 KB), which
-// leaves two stages of a chunk up to 96 padded coordinates; past that a
-// stage holds a block of 32 coordinates and the rows ride in it
+// The merge scans (nnk_warp_scan, wide_tc_scan<T, kBig>): each family at
+// 16 < k below its crossover and N.  A list of k = 100 pairs a row would
+// take 200 registers, so each family scores its pairs as at k <= 16 (the
+// same FMA chain; on the tensor cores the same three-pass total, or
+// DMMA's float64 sum) and appends each pair before its row's k-th pair
+// in (s, index) order (every pair until the row's list holds k) to the
+// row's buffer in shared memory, which the row's warp merges into the
+// row's sorted list (flush_row: a bitonic sort of 64 candidates in
+// registers by shuffles, then the list rewritten in place from its top
+// down, each entry moving up by the candidates before it); the row's
+// k-th pair, the threshold, tightens.  A random cloud makes ~k (1 +
+// ln(M / k)) candidates a row over a split of M neighbours.
+//
+// The register-tiled family (D <= 8), nnk_warp_scan.  The earlier design (one
+// row a thread, buffers of 32, the lists in global memory) took 8.3-14.8
+// ms at k = 30-100 on 100,000^2 (0.06-0.11 of its bound, PERF.md): each
+// warp merged its 32 rows one after another, the lists' reads and writes
+// chains through L2, every row's first ceil(k / 32) batches all merges;
+// one neighbour's load fed one row; and its splits left 1.5 waves.  So:
+//  - the lists stay in shared memory: a warp keeps 4 rows (2 in float64),
+//    each row's list of k pairs, its buffer and its state beside them; no
+//    merge leaves the SM, and where one split covers the rows the scan
+//    writes d^2 and the indices itself (no merge pass);
+//  - the warp's lanes score different neighbours against the same rows:
+//    a lane's LDS.128 of a neighbour feeds the warp's 4 rows, the pair
+//    costs its D FFMA, a compare with the row's threshold and an OR into
+//    the lane's candidate bits; a batch of 64 neighbours (two a lane) ends
+//    in one vote, and only where some lane has a candidate do its lanes
+//    take buffer places by shared atomics (with the scores they already
+//    hold);
+//  - a row's buffer holds 64, merged before a batch would overflow it
+//    (a batch brings one or two candidates a row in the scan's long
+//    tail, so a merge takes 60-64; the split's first k take ceil(k / 64)
+//    merges);
+//  - warps do not wait for each other: the neighbours are staged once a
+//    call (warp_tiles, in global memory) and one producer thread streams
+//    them by bulk copies into a ring of 4 stages behind mbarriers (with a
+//    block barrier a tile, the tile staged by all, every warp waited for
+//    the block's slowest, whose merges fell in that tile);
+//  - the warps a block and the splits come from the blocks an SM holds
+//    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the lists' bytes,
+//    warp_plan): the warps that let the most share an SM, then the split
+//    count whose waves cost least (one split at ICP's 100,000 rows);
+//    several splits' lists meet in nnk_merge_big.
+// The lists' bytes grow with k (a block of 8 warps at k = 100 takes 58
+// KB in float32), so past a few hundred k fewer warps share an SM while
+// each row merges more often: there the select path takes over.
+//
+// The tensor-core scans (wide_tc_scan<T, kBig>) append from a row's four
+// threads (their columns interleave, hence the (s, index) order in the
+// test) to buffers of 64 (kBuf: a tile of 64 neighbours appends at most
+// 64), merged by flush_row into lists in global memory, in part_s /
+// part_i [splits, R, k] (in L2 while the split runs); splits as many as
+// one wave of blocks holds, at most 32, within 1 GB of lists
+// (kPartBudget); a split of fewer than k neighbours sorts them all, its
+// list ending in (inf, INT_MAX) pairs; the merge pass (nnk_merge_big)
+// takes a warp a row, lane sp the head of split sp's list, and writes
+// the k least heads.  The scan keeps its 128 rows a block, its producer
+// and its ring; the buffers take 66 KB past the ring (float64: 99 KB),
+// which leaves two stages of a chunk up to 96 padded coordinates; past
+// that a stage holds a block of 32 coordinates and the rows ride in it
 // (tc_plan_k), at any D, so every wide call past k = 16 runs on the
 // tensor cores.
 //
@@ -269,6 +299,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -338,14 +369,14 @@ __device__ __forceinline__ void insert(T d, int j, T* v, int* id) {
 template <int D>
 __host__ __device__ constexpr bool own_bn() { return D % 4 == 0; }
 
-// The shared-memory tile of tile_len<T>() staged neighbours: the
-// 4-vectors of coordinates 0-3 and 4-7 (the second only past D = 4), and
-// |b|^2 where own_bn<D>().
-template <typename T, int D>
+// The shared-memory tile of L (tile_len<T>() unless named) staged
+// neighbours: the 4-vectors of coordinates 0-3 and 4-7 (the second only
+// past D = 4), and |b|^2 where own_bn<D>().
+template <typename T, int D, int L = tile_len<T>()>
 struct Tile {
-  vec4_t<T> w0[tile_len<T>()];
-  vec4_t<T> w1[D > 4 ? tile_len<T>() : 1];
-  T bn[own_bn<D>() ? tile_len<T>() : 1];
+  vec4_t<T> w0[L];
+  vec4_t<T> w1[D > 4 ? L : 1];
+  T bn[own_bn<D>() ? L : 1];
 };
 
 // A staged neighbour as a scan reads it.
@@ -355,8 +386,8 @@ struct Nbr {
   T bn;
 };
 
-template <typename T, int D>
-__device__ __forceinline__ Nbr<T> load(const Tile<T, D>& tl, int t) {
+template <typename T, int D, int L>
+__device__ __forceinline__ Nbr<T> load(const Tile<T, D, L>& tl, int t) {
   Nbr<T> b;
   b.w0 = tl.w0[t];
   b.w1 = D > 4 ? tl.w1[t] : b.w0;
@@ -381,12 +412,14 @@ __device__ __forceinline__ T score(const T* a, const Nbr<T>& b) {
 }
 
 // Stages neighbours [t0, t0 + n) into the tile, padded to n_pad with zero
-// coordinates and |b|^2 = inf, so s = inf, by a block of `threads`.
-template <typename T, int D>
+// coordinates and |b|^2 = inf, so s = inf, by `threads` threads (thread
+// `first` the first).
+template <typename T, int D, int L>
 __device__ __forceinline__ void stage(const T* __restrict__ nbr, int t0,
-                                      int n, int n_pad, Tile<T, D>& tl,
-                                      int threads = kThreads) {
-  for (int t = threadIdx.x; t < n_pad; t += threads) {
+                                      int n, int n_pad, Tile<T, D, L>& tl,
+                                      int threads = kThreads,
+                                      int first = threadIdx.x) {
+  for (int t = first; t < n_pad; t += threads) {
     T b[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     T bn = inf<T>();
     if (t < n) {
@@ -576,16 +609,13 @@ cudaError_t launch_nn1(const T* ref, const T* nbr, int R, int N, int splits,
   return cudaGetLastError();
 }
 
-// The wide scans (below): float32 on the tensor cores through `scratch`,
-// float64 on the SIMT units.
-cudaError_t launch_nn1_wide(const float* ref, const float* nbr, int R, int N,
-                            int D, int splits, float* scratch, float* part_s,
-                            int* part_i, float* d2, long long* idx,
+// The wide scan (below): on the tensor cores through `scratch`, float32
+// in three-pass TF32, float64 on DMMA.
+template <typename T>
+cudaError_t launch_nn1_wide(const T* ref, const T* nbr, int R, int N, int D,
+                            int splits, void* scratch, T* part_s,
+                            int* part_i, T* d2, long long* idx,
                             cudaStream_t stream);
-cudaError_t launch_nn1_wide(const double* ref, const double* nbr, int R,
-                            int N, int D, int splits, float* scratch,
-                            double* part_s, int* part_i, double* d2,
-                            long long* idx, cudaStream_t stream);
 
 template <typename T>
 cudaError_t nn1_any(const void* ref, const void* nbr, int R, int N, int D,
@@ -594,7 +624,7 @@ cudaError_t nn1_any(const void* ref, const void* nbr, int R, int N, int D,
   if (D > kMaxDim)
     return launch_nn1_wide(
         static_cast<const T*>(ref), static_cast<const T*>(nbr), R, N, D,
-        splits, static_cast<float*>(scratch), static_cast<T*>(part_s), part_i,
+        splits, scratch, static_cast<T*>(part_s), part_i,
         static_cast<T*>(d2), idx, stream);
   cudaError_t (*launch[kMaxDim])(const T*, const T*, int, int, int, T*, int*,
                                  T*, long long*, cudaStream_t) = {
@@ -752,9 +782,6 @@ cudaError_t launch_nnk_k(const T* ref, const T* nbr, int R, int N, int k,
 
 constexpr int kBig = 0;           // wide_tc_scan's K for k > kMaxK
 constexpr int kBuf = 64;          // candidates a row's buffer holds, most
-// neighbours a batch of nnk_scan_big (a 32-bit candidate mask), and the
-// candidates its rows' buffers hold
-constexpr int kBigBatch = 32;
 constexpr int kMaxBigSplits = 32; // splits at k > kMaxK: one a merge lane
 // bytes of partial lists at k > kMaxK, most (one split always)
 constexpr size_t kPartBudget = size_t{1} << 30;
@@ -834,14 +861,14 @@ constexpr int kHist = 68;    // a warp's counters: 65, padded to 16 bytes
 // the warp's kHist counters in shared memory, zero on entry and on return.
 // The buffer is sorted in registers.  A list entry j moves up by c_j, the
 // candidates before it (indices are distinct, so the places are too); the
-// list is rewritten in place from its top down, 32 kRound entries a round,
+// list is rewritten in place from its top down, 32 Round entries a round,
 // each round's reads before its writes (which land at or above its
 // entries) and the next round's reads in flight over them; the rounds stop
 // at the first whose lowest entry stays (c_j = 0: so does every entry
 // under it).  Candidate i lands at i plus its rank in the list, the
 // entries with c_j <= i: those under the last round and a histogram of the
 // rounds' c_j.
-template <typename T>
+template <typename T, int Round = kRound>
 __device__ int flush_row(const T* bs, const int* bi, int bstride, int c,
                          T* ls, int* li, int n, int k, int* hist) {
   const int lane = threadIdx.x % 32;
@@ -855,34 +882,34 @@ __device__ int flush_row(const T* bs, const int* bi, int bstride, int c,
     id[h] = e < c ? bi[static_cast<size_t>(e) * bstride] : INT_MAX;
   }
   warp_sort64(s, id);
-  T xs[kRound], ns[kRound];
-  int xi[kRound], ni[kRound];
+  T xs[Round], ns[Round];
+  int xi[Round], ni[Round];
   int top = n, below = 0;
 #pragma unroll
-  for (int u = 0; u < kRound; ++u) {
-    const int j = top - 32 * kRound + lane + 32 * u;
+  for (int u = 0; u < Round; ++u) {
+    const int j = top - 32 * Round + lane + 32 * u;
     xs[u] = j >= 0 ? ls[j] : T(0);
     xi[u] = j >= 0 ? li[j] : 0;
   }
   while (top > 0) {
-    const int base = top - 32 * kRound;
-    int cj[kRound];
+    const int base = top - 32 * Round;
+    int cj[Round];
 #pragma unroll
-    for (int u = 0; u < kRound; ++u) {
-      const int jn = base - 32 * kRound + lane + 32 * u;
+    for (int u = 0; u < Round; ++u) {
+      const int jn = base - 32 * Round + lane + 32 * u;
       ns[u] = jn >= 0 ? ls[jn] : T(0);
       ni[u] = jn >= 0 ? li[jn] : 0;
     }
     if (base >= 0) {
       // a whole round: the slots' shuffle chains interleave
 #pragma unroll
-      for (int u = 0; u < kRound; ++u)
+      for (int u = 0; u < Round; ++u)
         cj[u] = below_in_buffer(s, id, xs[u], xi[u]);
     } else {
       // the last round: a slot wholly under the list's bottom (the same
       // on every lane) skips its shuffles, as most of a short list's do
 #pragma unroll
-      for (int u = 0; u < kRound; ++u) {
+      for (int u = 0; u < Round; ++u) {
         cj[u] = -1;
         if (base + 32 * u + 31 < 0) continue;
         const int c_j = below_in_buffer(s, id, xs[u], xi[u]);
@@ -891,7 +918,7 @@ __device__ int flush_row(const T* bs, const int* bi, int bstride, int c,
     }
     __syncwarp();
 #pragma unroll
-    for (int u = 0; u < kRound; ++u) {
+    for (int u = 0; u < Round; ++u) {
       if (base + 32 * u + 31 < 0) continue;
       const int j = base + lane + 32 * u;
       if (cj[u] > 0 && j + cj[u] < k) {
@@ -915,7 +942,7 @@ __device__ int flush_row(const T* bs, const int* bi, int bstride, int c,
       break;
     }
 #pragma unroll
-    for (int u = 0; u < kRound; ++u) {
+    for (int u = 0; u < Round; ++u) {
       xs[u] = ns[u];
       xi[u] = ni[u];
     }
@@ -1019,118 +1046,361 @@ int smem_optin() {
   return bytes;
 }
 
-// Splits at k > kMaxK for the SIMT scans (blocks of `rows` rows, `fixed`
-// bytes of static shared memory): as many as one wave of blocks holds (at
-// the blocks an SM their shared memory allows): each split pays its
-// candidates, ~k (1 + ln(M / k)) a row over M neighbours, and a split of
-// M < k sorts them all, so past one wave more splits only add work; at
-// least kBatch neighbours each, at most kMaxBigSplits and what
-// kPartBudget holds, as split_chunk cuts them (none empty); 0 on a device
-// query failure.
-int big_splits(int R, int N, int k, int rows, size_t scalar, size_t fixed,
-               int cap) {
-  int dev = 0, sms = 0, smem_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&smem_sm,
-                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                             dev) != cudaSuccess)
-    return 0;
-  // and 1 KB a block the runtime keeps
-  const size_t block = big_bytes(rows, kThreads, scalar, cap) + fixed + 1024;
-  const int per_sm =
-      std::max(1, static_cast<int>(static_cast<size_t>(smem_sm) / block));
-  const int row_blocks = (R + rows - 1) / rows;
-  const int want = std::max(1, sms * per_sm / row_blocks);
-  const size_t per = static_cast<size_t>(R) * k * (scalar + sizeof(int));
-  const int s = static_cast<int>(std::min<size_t>(
-      std::min({want, N / kBatch, kMaxBigSplits}), kPartBudget / per));
-  const int c = split_chunk(N, std::max(1, s));
-  return (N + c - 1) / c;
+// ---- shared memory by the bulk-copy engine, behind mbarriers --------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// nnk_scan at k > kMaxK: one row a thread, 128 rows a block, buffers of
-// kBigBatch candidates.  A batch of kBigBatch neighbours is scored as
-// nnk_scan scores it, against the row's k-th s (its list's last entry)
-// once the list holds k, every neighbour until then; the batch's
-// candidates are scored again (the same function, the same bits) into the row's buffer,
-// which the warp first merges into the list (flush_row) where they would
-// overflow it, and at the end.
-// Within a split a row sees its neighbours in ascending index, so a
-// candidate equal to the k-th s comes later than it and loses: a strict <
-// is the (s, index) order.  The lists end in part_s / part_i
-// [splits, R, k].
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Orders this thread's reads of shared memory through the generic proxy
+// before the async proxy's later writes there (the bulk copy that refills
+// a stage): a stage's |b|^2, read by plain loads, was overwritten under
+// them at 4096^2, intermittently, without it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Waits for the completion of the barrier's phase of this parity; traps
+// (the launch fails) after 2^26 polls instead of hanging.  The loop is
+// PTX's: a C++ loop whose exit differs by thread would put the wgmmas
+// after it on a divergent path, which ptxas serializes (C7520).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 67108864;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// bytes from global to shared memory by the bulk-copy engine, counted on
+// `bar` (16-byte aligned, a multiple of 16 bytes)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- k > 16, D <= 8: the warp merge scan ---------------------------------
+
+// Rows a warp of nnk_warp_scan keeps (float32 4, float64 2: their
+// coordinates stay at 32 registers either way), neighbours a lane scores
+// a batch, scanning warps a block (most; one producer warp beside them),
+// the neighbours a ring stage holds (a tile of that length, 4 KB of
+// coordinates) and the ring's stages.
+template <typename T>
+__host__ __device__ constexpr int warp_rows() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+constexpr int kLaneNbrs = 2;
+constexpr int kWarpBatch = 32 * kLaneNbrs;  // neighbours a warp's batch
+constexpr int kMaxWarps = 7;
+template <typename T>
+__host__ __device__ constexpr int ring_len() {
+  return 1024 / static_cast<int>(sizeof(T));
+}
+constexpr int kRingStages = 4;
+constexpr int kWarpBarBytes = 128;  // the ring's mbarriers, at the head
+// list entries a lane moves a merge round (flush_row): fewer registers
+// live beside the rows' than kRound's
+constexpr int kWarpRound = 1;
+// a row's buffer: a batch appends at most kWarpBatch candidates to the
+// fewer than kBuf it holds
+constexpr int kWarpBuf = kBuf + kWarpBatch;
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-nnk_scan_big(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
-             int N, int k, int chunk, T* __restrict__ part_s,
-             int* __restrict__ part_i) {
-  __shared__ Tile<T, D> tl;
-  extern __shared__ __align__(16) unsigned char big_smem[];
-  const int row0 = blockIdx.x * kThreads;
-  const BigLists<T> L(big_smem, kThreads, k, part_s, part_i, R, row0,
-                      kBigBatch);
-  L.init();
-  const int j_begin = blockIdx.y * chunk;
-  const int j_end = min(N, j_begin + chunk);
-  const int r = threadIdx.x, lane = r % 32, warp0 = r - lane;
-  const bool live = row0 + r < R;
-  T a[D];
+using RingTile = Tile<T, D, ring_len<T>()>;
+
+// Dynamic shared memory of a block of nnk_warp_scan of `warps` scanning
+// warps (`rows` rows) of D coordinates at k: the ring's mbarriers and
+// stages, each row's list (k pairs), buffer (kWarpBuf pairs) and state
+// (threshold, list length, buffer count), then each warp's kHist
+// counters.
+template <typename T, int D>
+size_t warp_bytes(int rows, int warps, int k) {
+  return kWarpBarBytes + kRingStages * sizeof(RingTile<T, D>) +
+         static_cast<size_t>(rows) *
+             ((static_cast<size_t>(k) + kWarpBuf) * (sizeof(T) + sizeof(int)) +
+              sizeof(T) + 2 * sizeof(int)) +
+         sizeof(int) * kHist * static_cast<size_t>(warps);
+}
+
+// The pre-pass: neighbours [0, tiles * L) of nbr [N, D] staged once a call
+// into `tiles` ring tiles in global memory, as stage() lays them out
+// (zero coordinates and |b|^2 = inf past N), which the scan's producer
+// copies whole.  One thread a neighbour.
+template <typename T, int D>
+__global__ void warp_tiles(const T* __restrict__ nbr, int N, int tiles,
+                           RingTile<T, D>* __restrict__ out) {
+  constexpr int L = ring_len<T>();
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= tiles * L) return;
+  stage<T, D>(nbr, j / L * L, max(0, min(L, N - j / L * L)), L, out[j / L],
+              L, j % L);
+}
+
+// nnk at 16 < k below the crossover, D <= 8: each scanning warp keeps
+// warp_rows() rows (the same on every lane), and its lanes score a batch
+// of kWarpBatch staged neighbours against them, kLaneNbrs a lane (a
+// neighbour's LDS.128 feeds every row of the warp): the score of
+// nnk_scan, compared with the row's threshold, its k-th s.  A pair under
+// it is a candidate (every neighbour of the split's first k is one): it
+// takes a place in the row's buffer in shared memory, ranked among the
+// warp's by a ballot, with the score it already has; the counts live in
+// registers (uniform), shared memory only at the merges.  Where a row's
+// buffer then holds kBuf, the warp merges kBuf of them into the row's
+// sorted list of k, also in shared memory (flush_row: a bitonic sort of
+// the 64 by shuffles, then the list rewritten in place from its top
+// down), the rest moving to the buffer's front, and the threshold
+// tightens; the split's first k fill the list by ceil(k / 64) such
+// merges, the rest of the buffers merged after them.  The merges come
+// after the appends, when the batch's scores are dead: fewer registers.  Within a split the lists hold only
+// neighbours of earlier batches, so a candidate equal to the k-th s comes
+// later than it and loses: a strict < is the (s, index) order.  The
+// staged tiles (warp_tiles) come by bulk copies of the last warp's lane 0
+// into a ring of kRingStages stages behind mbarriers (full: the bytes
+// arrived; empty: every scanning warp is done with it), so no warp waits
+// for another's merges.  One split (the rows' whole range) writes d^2 = s
+// + |a|^2, clamped at 0, and the indices; several write their lists to
+// part_s / part_i [splits, R, k] (ending in (inf, INT_MAX) past a split of
+// fewer than k neighbours) for nnk_merge_big.  Rows past R take no
+// candidate (a threshold of -inf).
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * (kMaxWarps + 1), 3)
+nnk_warp_scan(const T* __restrict__ ref, const RingTile<T, D>* __restrict__ tiles,
+              int R, int N, int k, int split_tiles, T* __restrict__ part_s,
+              int* __restrict__ part_i, T* __restrict__ d2,
+              long long* __restrict__ idx) {
+  constexpr int RW = warp_rows<T>();
+  constexpr int L = ring_len<T>();
+  using Stage = RingTile<T, D>;
+  extern __shared__ __align__(16) unsigned char warp_smem[];
+  const int warps = blockDim.x / 32 - 1, rows = warps * RW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(warp_smem);
+  uint64_t* const empty = full + kRingStages;
+  Stage* const ring = reinterpret_cast<Stage*>(warp_smem + kWarpBarBytes);
+  const int all_tiles = (N + L - 1) / L;
+  const int tile0 = blockIdx.y * split_tiles;
+  const int tile1 = min(all_tiles, tile0 + split_tiles);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kRingStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == warps) {
+    // the producer: one thread keeps the ring full
+    if (lane != 0) return;
+    for (int t = tile0, it = 0; t < tile1; ++t, ++it) {
+      const int st = it % kRingStages;
+      if (it >= kRingStages)
+        mbar_wait(&empty[st], ((it / kRingStages) - 1) & 1);
+      mbar_expect_tx(&full[st], sizeof(Stage));
+      bulk_load(&ring[st], &tiles[t], sizeof(Stage), &full[st]);
+    }
+    return;
+  }
+  T* const ls = reinterpret_cast<T*>(ring + kRingStages);
+  T* const bs = ls + static_cast<size_t>(rows) * k;
+  T* const sthr = bs + rows * kWarpBuf;
+  int* const li = reinterpret_cast<int*>(sthr + rows);
+  int* const bi = li + static_cast<size_t>(rows) * k;
+  int* const slen = bi + rows * kWarpBuf;
+  int* const scnt = slen + rows;
+  int* const hist = scnt + rows + kHist * warp;
+  const int rb0 = warp * RW, row0 = blockIdx.x * rows + rb0;
+  for (int e = lane; e < kHist; e += 32) hist[e] = 0;
+  if (lane < RW) {
+    sthr[rb0 + lane] = row0 + lane < R ? inf<T>() : -inf<T>();
+    slen[rb0 + lane] = 0;
+    scnt[rb0 + lane] = 0;
+  }
+  __syncwarp();
+  T a[RW][D], thr[RW];
+  int cnt[RW];  // each row's buffer count (scnt is written at its merges)
+  bool live[RW];
 #pragma unroll
-  for (int c = 0; c < D; ++c)
-    a[c] = live ? ref[static_cast<size_t>(row0 + r) * D + c] : T(0);
-  int n = 0, cnt = 0;
-  T thr = inf<T>();
-  for (int t0 = j_begin; t0 < j_end; t0 += tile_len<T>()) {
-    const int len = min(tile_len<T>(), j_end - t0);
-    const int n_pad = (len + kBigBatch - 1) / kBigBatch * kBigBatch;
-    __syncthreads();  // the previous tile has been read
-    stage<T, D>(nbr, t0, len, n_pad, tl);
-    __syncthreads();
-    for (int s0 = 0; s0 < n_pad; s0 += kBigBatch) {
-      const int real = min(len - s0, kBigBatch);
-      const unsigned in =
-          !live ? 0u : real >= 32 ? ~0u : (1u << real) - 1u;
-      unsigned m = in;
-      if (n == k) {
-        m = 0u;
+  for (int r = 0; r < RW; ++r) {
+    live[r] = row0 + r < R;
 #pragma unroll
-        for (int s = 0; s < kBigBatch; ++s)
-          m |= score<T, D>(a, load<T, D>(tl, s0 + s)) < thr ? 1u << s : 0u;
-        m &= in;
-      }
-      // rows whose buffer would overflow merge it into their list first
-      for (unsigned todo = __ballot_sync(0xffffffffu,
-                                         cnt + __popc(m) > kBigBatch);
-           todo; todo &= todo - 1) {
-        const int o = __ffs(todo) - 1;
-        const int n2 = L.flush(warp0 + o, __shfl_sync(0xffffffffu, cnt, o),
-                               __shfl_sync(0xffffffffu, n, o));
-        if (lane == o) {
-          n = n2;
-          cnt = 0;
-          if (n == k) thr = L.list_s(r)[k - 1];
+    for (int c = 0; c < D; ++c)
+      a[r][c] = live[r] ? ref[static_cast<size_t>(row0 + r) * D + c] : T(0);
+    thr[r] = sthr[rb0 + r];
+    cnt[r] = 0;
+  }
+  const int j_end = min(N, tile1 * L);
+  const int j_fill = tile0 * L + k;  // the split's first k: all candidates
+  // The warp merges block row rb's first min(kBuf, count) candidates into
+  // its list; the rest move to the buffer's front.
+  auto merge = [&](int rb) {
+    const int c = scnt[rb], m = min(kBuf, c);
+    T* const b_s = bs + rb * kWarpBuf;
+    int* const b_i = bi + rb * kWarpBuf;
+    T* const l_s = ls + static_cast<size_t>(rb) * k;
+    const int n = flush_row<T, kWarpRound>(b_s, b_i, 1, m, l_s,
+                                           li + static_cast<size_t>(rb) * k,
+                                           slen[rb], k, hist);
+    const int e = m + lane;  // the rest: fewer than kWarpBatch + 1
+    const T xs0 = e < c ? b_s[e] : T(0), xs1 = e + 32 < c ? b_s[e + 32] : T(0);
+    const int xi0 = e < c ? b_i[e] : 0, xi1 = e + 32 < c ? b_i[e + 32] : 0;
+    __syncwarp();
+    if (e < c) {
+      b_s[e - m] = xs0;
+      b_i[e - m] = xi0;
+    }
+    if (e + 32 < c) {
+      b_s[e + 32 - m] = xs1;
+      b_i[e + 32 - m] = xi1;
+    }
+    if (lane == 0) {
+      slen[rb] = n;
+      scnt[rb] = c - m;
+      sthr[rb] = n == k ? l_s[k - 1] : inf<T>();
+    }
+    __syncwarp();
+  };
+  // The warp merges the buffers of its rows that hold at least `least`
+  // candidates until none does, then reloads their counts and thresholds.
+  auto drain = [&](int least) {
+    unsigned todo = 0u;
+    int mine = 0;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      todo |= cnt[r] >= least ? 1u << r : 0u;
+      mine = lane == r ? cnt[r] : mine;
+    }
+    if (!todo) return;
+    if (lane < RW) scnt[rb0 + lane] = mine;
+    __syncwarp();
+    for (unsigned t = todo; t; t &= t - 1u) {
+      const int rb = rb0 + __ffs(t) - 1;
+      while (scnt[rb] >= least) merge(rb);
+    }
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      cnt[r] = scnt[rb0 + r];
+      thr[r] = sthr[rb0 + r];
+    }
+  };
+  // The candidates of the batch at j0 (each lane's bits m, scores sc)
+  // into their rows' buffers, ranked by ballots (neighbour slot u's
+  // candidates of the warp, then u + 1's); then the merges of the buffers
+  // that hold kBuf (`last`: of every buffer).
+  auto take = [&](const unsigned (&m)[RW], const T (&sc)[RW][kLaneNbrs],
+                  int j0, bool last) {
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      if (__any_sync(0xffffffffu, m[r] != 0u)) {
+        int at = (rb0 + r) * kWarpBuf + cnt[r];
+#pragma unroll
+        for (int u = 0; u < kLaneNbrs; ++u) {
+          const unsigned w = __ballot_sync(0xffffffffu, m[r] >> u & 1u);
+          if (m[r] >> u & 1u) {
+            bs[at + __popc(w & below)] = sc[r][u];
+            bi[at + __popc(w & below)] = j0 + 32 * u + lane;
+          }
+          at += __popc(w);
         }
-      }
-      while (m) {
-        const int s = __ffs(m) - 1;
-        m &= m - 1u;
-        L.put(r, cnt++, score<T, D>(a, load<T, D>(tl, s0 + s)), t0 + s0 + s);
+        cnt[r] = at - (rb0 + r) * kWarpBuf;
       }
     }
+    __syncwarp();
+    drain(last ? 1 : kBuf);
+  };
+  for (int t = tile0, it = 0; t < tile1; ++t, ++it) {
+    const int st = it % kRingStages;
+    mbar_wait(&full[st], (it / kRingStages) & 1);
+    const Stage& tl = ring[st];
+    const int t0 = t * L;
+    T sc[RW][kLaneNbrs];
+    unsigned m[RW];
+    int s0 = 0;
+    // the split's first k (and the rest of their batch): every neighbour
+    // a candidate; the last such batch empties the buffers, so that every
+    // list holds k before the thresholds apply
+    for (; s0 < L && t0 + s0 < min(j_fill, j_end); s0 += kWarpBatch) {
+#pragma unroll
+      for (int u = 0; u < kLaneNbrs; ++u) {
+        const int s = s0 + 32 * u + lane;
+        const Nbr<T> b = load<T, D>(tl, s);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          sc[r][u] = score<T, D>(a[r], b);
+          m[r] = (u ? m[r] : 0u) | (live[r] && t0 + s < j_end ? 1u << u : 0u);
+        }
+      }
+      take(m, sc, t0 + s0,
+           t0 + s0 + kWarpBatch >= min(j_fill, j_end));
+    }
+    for (; s0 < L && t0 + s0 < j_end; s0 += kWarpBatch) {
+#pragma unroll
+      for (int u = 0; u < kLaneNbrs; ++u) {
+        const Nbr<T> b = load<T, D>(tl, s0 + 32 * u + lane);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          sc[r][u] = score<T, D>(a[r], b);
+          m[r] = (u ? m[r] : 0u) | (sc[r][u] < thr[r] ? 1u << u : 0u);
+        }
+      }
+      unsigned any = 0u;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) any |= m[r];
+      if (__any_sync(0xffffffffu, any != 0u)) take(m, sc, t0 + s0, false);
+    }
+    // every read of the stage before the next bulk copy into it
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
   }
-  for (unsigned todo = __ballot_sync(0xffffffffu, cnt > 0); todo;
-       todo &= todo - 1) {
-    const int o = __ffs(todo) - 1;
-    const int n2 = L.flush(warp0 + o, __shfl_sync(0xffffffffu, cnt, o),
-                           __shfl_sync(0xffffffffu, n, o));
-    if (lane == o) n = n2;
-  }
-  for (unsigned todo = __ballot_sync(0xffffffffu, live && n < k); todo;
-       todo &= todo - 1) {
-    const int o = __ffs(todo) - 1;
-    L.pad(warp0 + o, __shfl_sync(0xffffffffu, n, o));
+  drain(1);
+#pragma unroll 1
+  for (int r = 0; r < RW; ++r) {
+    const int row = row0 + r, rb = rb0 + r;
+    if (row >= R) break;
+    const int n = slen[rb];
+    const T* l_s = ls + static_cast<size_t>(rb) * k;
+    const int* l_i = li + static_cast<size_t>(rb) * k;
+    if (gridDim.y == 1) {
+      const T an = ref_sqnorm<T, D>(ref, row, D);
+      for (int e = lane; e < k; e += 32) {
+        d2[static_cast<size_t>(row) * k + e] = max_of(add_rn(l_s[e], an), T(0));
+        idx[static_cast<size_t>(row) * k + e] = l_i[e];
+      }
+    } else {
+      const size_t o = (static_cast<size_t>(blockIdx.y) * R + row) * k;
+      for (int e = lane; e < k; e += 32) {
+        part_s[o + e] = e < n ? l_s[e] : inf<T>();
+        part_i[o + e] = e < n ? l_i[e] : INT_MAX;
+      }
+    }
   }
 }
 
@@ -1201,38 +1471,145 @@ nnk_merge_big(const T* __restrict__ ref, int R, int dim, int k, int splits,
   }
 }
 
+// How nnk_warp_scan runs R rows against N neighbours at k: the scanning
+// warps a block (of those whose blocks fit, the count that lets the most
+// scan on an SM, the most a block on a tie: each block streams every
+// neighbour of its split once), the splits (the count whose waves of
+// blocks, at the blocks an SM the kernel holds, cost least: a split of M
+// neighbours costs a block its M scored and ~k (1 + ln(M / k)) candidates
+// at kCandCost neighbours each; at most kMaxBigSplits and what
+// kPartBudget holds, whole ring tiles), each split's tiles, and the
+// dynamic shared memory; warps 0 where no block fits or a device query
+// fails.
+struct WarpPlan {
+  int warps, splits, split_tiles;
+  size_t smem;
+};
+constexpr double kCandCost = 64.0;
+
 template <typename T, int D>
-cudaError_t launch_nnk_big(const T* ref, const T* nbr, int R, int N, int k,
-                           int splits, T* part_s, int* part_i, T* d2,
-                           long long* idx, cudaStream_t stream) {
-  const size_t bytes = big_bytes(kThreads, kThreads, sizeof(T), kBigBatch);
-  cudaError_t e = cudaFuncSetAttribute(
-      nnk_scan_big<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+WarpPlan warp_plan(int R, int N, int k) {
+  constexpr int RW = warp_rows<T>(), L = ring_len<T>();
+  WarpPlan best{0, 0, 0, 0};
+  int dev = 0, sms = 0, most = 0, per_sm = 0;
+  if (R <= 0 || N <= 0 || k < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return best;
+  for (int w = kMaxWarps; w >= 1; --w) {
+    const size_t smem = warp_bytes<T, D>(w * RW, w, k);
+    int n = 0;
+    if (smem > static_cast<size_t>(INT_MAX) ||
+        cudaFuncSetAttribute(nnk_warp_scan<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, nnk_warp_scan<T, D>, 32 * (w + 1), smem) != cudaSuccess) {
+      (void)cudaGetLastError();  // a block this large does not fit
+      continue;
+    }
+    if (n * w > most) {
+      most = n * w;
+      per_sm = n;
+      best = WarpPlan{w, 0, 0, smem};
+    }
+  }
+  if (most == 0) return best;
+  const long long row_blocks = (R + best.warps * RW - 1) / (best.warps * RW);
+  const long long slots = static_cast<long long>(sms) * per_sm;
+  const int tiles = (N + L - 1) / L;
+  const size_t pair = sizeof(T) + sizeof(int);
+  double best_cost = -1.0;
+  for (int s = 1; s <= std::min(kMaxBigSplits, tiles); ++s) {
+    const int per = (tiles + s - 1) / s;
+    if ((tiles + per - 1) / per != s) continue;  // as the tiles cut
+    if (s > 1 && static_cast<size_t>(s) * R * k * pair > kPartBudget) break;
+    const double M = static_cast<double>(per) * L;
+    const double cand = M > k ? k * (1.0 + std::log(M / k)) : M;
+    const long long waves = (row_blocks * s + slots - 1) / slots;
+    const double cost = static_cast<double>(waves) * (M + kCandCost * cand);
+    if (best_cost < 0.0 || cost < best_cost) {
+      best_cost = cost;
+      best.splits = s;
+      best.split_tiles = per;
+    }
+  }
+  return best;
+}
+
+// Bytes of the ring tiles the pre-pass writes for N neighbours.
+template <typename T, int D>
+size_t warp_tile_bytes(int N) {
+  return static_cast<size_t>((N + ring_len<T>() - 1) / ring_len<T>()) *
+         sizeof(RingTile<T, D>);
+}
+
+// The pre-pass into `scratch` (warp_tile_bytes), the warp merge scan on
+// `splits` splits (warp_plan's), and past one split the merge of their
+// lists.
+template <typename T, int D>
+cudaError_t launch_nnk_warp(const T* ref, const T* nbr, int R, int N, int k,
+                            int splits, void* scratch, T* part_s,
+                            int* part_i, T* d2, long long* idx,
+                            cudaStream_t stream) {
+  const WarpPlan p = warp_plan<T, D>(R, N, k);
+  if (p.warps < 1 || splits != p.splits || scratch == nullptr ||
+      (splits > 1 && (part_s == nullptr || part_i == nullptr)))
+    return cudaErrorInvalidValue;
+  auto* tiles = static_cast<RingTile<T, D>*>(scratch);
+  const int n_tiles = (N + ring_len<T>() - 1) / ring_len<T>();
+  warp_tiles<T, D><<<(n_tiles * ring_len<T>() + 255) / 256, 256, 0, stream>>>(
+      nbr, N, n_tiles, tiles);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 grid((R + kThreads - 1) / kThreads, splits);
-  nnk_scan_big<T, D><<<grid, kThreads, bytes, stream>>>(
-      ref, nbr, R, N, k, split_chunk(N, splits), part_s, part_i);
+  e = cudaFuncSetAttribute(nnk_warp_scan<T, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(p.smem));
+  if (e != cudaSuccess) return e;
+  const int rows = p.warps * warp_rows<T>();
+  const dim3 grid((R + rows - 1) / rows, splits);
+  nnk_warp_scan<T, D><<<grid, 32 * (p.warps + 1), p.smem, stream>>>(
+      ref, tiles, R, N, k, p.split_tiles, part_s, part_i, d2, idx);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || splits == 1) return e;
   nnk_merge_big<T, D><<<(R + 7) / 8, 256, 0, stream>>>(
       ref, R, D, k, splits, part_s, part_i, d2, idx);
   return cudaGetLastError();
+}
+
+// warp_plan's splits, and the pre-pass's scratch bytes, for D coordinates
+// (0 where no plan fits).
+template <typename T>
+int warp_splits(int R, int N, int D, int k) {
+  WarpPlan (*plan[kMaxDim])(int, int, int) = {
+      warp_plan<T, 1>, warp_plan<T, 2>, warp_plan<T, 3>, warp_plan<T, 4>,
+      warp_plan<T, 5>, warp_plan<T, 6>, warp_plan<T, 7>, warp_plan<T, 8>};
+  const WarpPlan p = plan[D - 1](R, N, k);
+  return p.warps < 1 ? 0 : p.splits;
+}
+template <typename T>
+size_t warp_scratch(int N, int D) {
+  size_t (*bytes[kMaxDim])(int) = {
+      warp_tile_bytes<T, 1>, warp_tile_bytes<T, 2>, warp_tile_bytes<T, 3>,
+      warp_tile_bytes<T, 4>, warp_tile_bytes<T, 5>, warp_tile_bytes<T, 6>,
+      warp_tile_bytes<T, 7>, warp_tile_bytes<T, 8>};
+  return bytes[D - 1](N);
 }
 
 // ---- k >= kSelectK and k = N, D <= 8: select, then sort ------------------
 
 // The least k that takes the select-then-sort path (the crossovers
 // measured by probes/knn_probes.py --crossover, PERF.md; k = N takes it
-// at any k): the register-tiled family (D <= 8) in float32 and float64
-// past kSmallR rows, and at most kSmallR rows in both (measured at 10,000
-// rows, against 100,000 and 10,000 neighbours: there the merge scan runs
-// more splits, each paying its own candidates); the float32 wide family
-// (D > 8; measured on FPFH-like 50,000^2, D = 33, and SIFT-like 20,000 x
-// 100,000, D = 128: 256 at both).
-constexpr int kSelectK = 256;
-constexpr int kSelectK64 = 512;
-constexpr int kSelectKSmallR = 100;
+// at any k): the register-tiled family (D <= 8) past kSmallR rows
+// (measured on ICP's 100,000^2 at D = 3: float32 from 320, float64 from
+// 384), and at most kSmallR rows (measured at 10,000 rows: float32 from
+// 320 against 100,000 neighbours, float64 from 448 on [knn-d6]'s
+// 10,000^2, D = 6); the float32 wide family (D > 8; measured on FPFH-like
+// 50,000^2, D = 33, and SIFT-like 20,000 x 100,000, D = 128: 256 at both).
+constexpr int kSelectK = 320;
+constexpr int kSelectK64 = 384;
+constexpr int kSelectKSmallR = 320;
+constexpr int kSelectKSmallR64 = 448;
 constexpr int kSmallR = 32768;    // between the measured 10,000 and 100,000
 constexpr int kWideSelectK = 256;
 // the float64 wide family (D > 8, k > 16), by width: up to kShortDim64
@@ -1484,7 +1861,7 @@ __global__ void sel_init(int R, int N, int k, int cap, SelRow<K>* st,
 // prefix, in the neighbours [split * chunk, + chunk).  A block holds
 // kCountRows rows, kCountRT a lane (lane l of every warp rows l, l + 32,
 // ...), and its four warps take a quarter of each staged tile each,
-// scored as nnk_scan_big scores (the same staged tile, the same function,
+// scored as the scans score (the same staged tile, the same function,
 // the same bits; one load of a neighbour serves the lane's rows); a pair
 // outside its row's prefix bounds (sel_bounds) costs its score and two
 // compares, a pair inside forms its key and digit and adds one to the
@@ -2085,7 +2462,8 @@ cudaError_t launch_nnk_select(const T* ref, const T* nbr, int R, int N,
 // The crossover k of nnk's register-tiled family (D <= 8) for R rows,
 // and whether a call takes the select path.
 int select_k(int R, bool f64) {
-  return R <= kSmallR ? kSelectKSmallR : f64 ? kSelectK64 : kSelectK;
+  return R <= kSmallR ? (f64 ? kSelectKSmallR64 : kSelectKSmallR)
+                      : f64 ? kSelectK64 : kSelectK;
 }
 bool takes_select(int R, int N, int k, bool f64) {
   return k >= select_k(R, f64) || k == N;
@@ -2099,8 +2477,8 @@ cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
     return launch_nnk_select<T, D>(ref, nbr, R, N, k, scratch, d2, idx,
                                    stream);
   if (k > kMaxK)
-    return launch_nnk_big<T, D>(ref, nbr, R, N, k, splits, part_s, part_i,
-                                d2, idx, stream);
+    return launch_nnk_warp<T, D>(ref, nbr, R, N, k, splits, scratch,
+                                 part_s, part_i, d2, idx, stream);
   switch (list_len(k)) {
     case 2: return launch_nnk_k<T, D, 2>(ref, nbr, R, N, k, splits, part_s,
                                          part_i, d2, idx, stream);
@@ -2114,19 +2492,13 @@ cudaError_t launch_nnk(const T* ref, const T* nbr, int R, int N, int k,
   }
 }
 
-// The wide families (below): float32 on the tensor cores through
-// `scratch` at every k; float64 up to k = 16 on the SIMT units, past it on
-// the tensor cores through `scratch`.
-cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
-                            int D, int k, int splits, void* scratch,
-                            float* part_s, int* part_i, float* d2,
-                            long long* idx, cudaStream_t stream,
-                            bool merge = false);
-cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
-                            int N, int D, int k, int splits, void* scratch,
-                            double* part_s, int* part_i, double* d2,
-                            long long* idx, cudaStream_t stream,
-                            bool merge = false);
+// The wide families (below): on the tensor cores through `scratch` at
+// every k, float32 in three-pass TF32, float64 on DMMA.
+template <typename T>
+cudaError_t launch_nnk_wide(const T* ref, const T* nbr, int R, int N, int D,
+                            int k, int splits, void* scratch, T* part_s,
+                            int* part_i, T* d2, long long* idx,
+                            cudaStream_t stream, bool merge = false);
 
 template <typename T>
 cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
@@ -2148,206 +2520,6 @@ cudaError_t nnk_any(const void* ref, const void* nbr, int R, int N, int D,
                        part_i, static_cast<T*>(d2), idx, stream);
 }
 
-// ---- D > 8, float64: the SIMT wide scans ---------------------------------
-
-constexpr int kWideRows = 64;   // reference rows a block
-constexpr int kWideCols = 64;   // neighbours a tile
-constexpr int kWideChunk = 8;   // coordinates staged a pass
-
-// A wide scan's shared memory: one chunk of the block's rows (a) and of the
-// tile's neighbours as -2 b (b), coordinate-major; the tile's |b|^2; and
-// its scores s[row][neighbour] (a column of padding keeps the selection's
-// reads on distinct banks).
-template <typename T>
-struct WideShared {
-  alignas(16) T a[kWideChunk][kWideRows];
-  alignas(16) T b[kWideChunk][kWideCols];
-  T bn[kWideCols];
-  T s[kWideRows][kWideCols + 1];
-};
-
-// This thread's share of a chunk of coordinates [c0, c0 + 8): element
-// e = threadIdx.x + kThreads * i is (row or neighbour e / 8, coordinate
-// c0 + e % 8); zero past R, past the tile's n neighbours and past D.
-template <typename T>
-__device__ __forceinline__ void wide_load(
-    const T* __restrict__ ref, const T* __restrict__ nbr, int R, int D,
-    int row0, int t0, int n, int c0, T (&pa)[4], T (&pb)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int e = threadIdx.x + kThreads * i;
-    const int r = e / kWideChunk, c = c0 + e % kWideChunk;
-    pa[i] = row0 + r < R && c < D
-                ? ref[static_cast<size_t>(row0 + r) * D + c] : T(0);
-    pb[i] = r < n && c < D
-                ? T(-2) * nbr[static_cast<size_t>(t0 + r) * D + c] : T(0);
-  }
-}
-
-// The scores s = |b|^2 - 2 a.b of the block's rows [row0, row0 + 64)
-// against the neighbours [t0, t0 + n) into sh.s (inf past n), as a small
-// GEMM: each thread forms 4 rows x 8 neighbours, sum_c a_c (-2 b_c) as an
-// FMA chain from the first coordinate, over chunks of 8 coordinates staged
-// through shared memory (the next chunk's loads in flight while the
-// current one is used), then adds |b|^2 (the chain of (-2 b_c)^2, scaled
-// by 1/4: exact).  Every thread of the block calls it (it synchronizes).
-template <typename T>
-__device__ __forceinline__ void wide_tile(
-    const T* __restrict__ ref, const T* __restrict__ nbr, int R, int D,
-    int row0, int t0, int n, WideShared<T>& sh) {
-  const int tid = threadIdx.x;
-  const int tr = tid % 16, tc = tid / 16;  // rows 4 tr.., neighbours 8 tc..
-  T acc[4][8], bn = T(0), pa[4], pb[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = T(0);
-  wide_load<T>(ref, nbr, R, D, row0, t0, n, 0, pa, pb);
-  for (int c0 = 0; c0 < D; c0 += kWideChunk) {
-    __syncthreads();  // the previous chunk, or the previous tile, is read
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = tid + kThreads * i;
-      sh.a[e % kWideChunk][e / kWideChunk] = pa[i];
-      sh.b[e % kWideChunk][e / kWideChunk] = pb[i];
-    }
-    __syncthreads();
-    if (c0 + kWideChunk < D)
-      wide_load<T>(ref, nbr, R, D, row0, t0, n, c0 + kWideChunk, pa, pb);
-    if (tid < kWideCols) {
-#pragma unroll
-      for (int k = 0; k < kWideChunk; ++k)
-        bn = fma_rn(sh.b[k][tid], sh.b[k][tid], bn);
-    }
-#pragma unroll
-    for (int k = 0; k < kWideChunk; ++k) {
-      const vec4_t<T> a4 = *reinterpret_cast<const vec4_t<T>*>(
-          &sh.a[k][4 * tr]);
-      const vec4_t<T> b0 = *reinterpret_cast<const vec4_t<T>*>(
-          &sh.b[k][8 * tc]);
-      const vec4_t<T> b1 = *reinterpret_cast<const vec4_t<T>*>(
-          &sh.b[k][8 * tc + 4]);
-      const T a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const T b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fma_rn(a[i], b[j], acc[i][j]);
-    }
-  }
-  if (tid < kWideCols) sh.bn[tid] = tid < n ? T(0.25) * bn : inf<T>();
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      sh.s[4 * tr + i][8 * tc + j] = add_rn(acc[i][j], sh.bn[8 * tc + j]);
-  __syncthreads();
-}
-
-// nn1_scan for any D in float64: each row's least s over the split, and the
-// first index that gives it (a strict <, in ascending index), into part_s /
-// part_i [splits, R]; thread r < 64 keeps row row0 + r.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nn1_wide_scan_f64(const T* __restrict__ ref, const T* __restrict__ nbr, int R,
-                  int N, int D, int chunk, T* __restrict__ part_s,
-                  int* __restrict__ part_i) {
-  __shared__ WideShared<T> sh;
-  const int j_begin = blockIdx.y * chunk;
-  const int j_end = min(N, j_begin + chunk);
-  const int row0 = blockIdx.x * kWideRows;
-  const int tid = threadIdx.x;
-  T best = inf<T>();
-  int bidx = 0;
-  for (int t0 = j_begin; t0 < j_end; t0 += kWideCols) {
-    wide_tile<T>(ref, nbr, R, D, row0, t0, min(kWideCols, j_end - t0), sh);
-    if (tid < kWideRows) {
-      for (int j = 0; j < kWideCols; ++j) {
-        const T v = sh.s[tid][j];
-        if (v < best) {
-          best = v;
-          bidx = t0 + j;
-        }
-      }
-    }
-  }
-  if (tid < kWideRows && row0 + tid < R) {
-    part_s[static_cast<size_t>(blockIdx.y) * R + row0 + tid] = best;
-    part_i[static_cast<size_t>(blockIdx.y) * R + row0 + tid] = bidx;
-  }
-}
-
-// nnk_scan for any D in float64: each row's best k (s, index) pairs over
-// the split, sorted by (s, index), into part_s / part_i [splits, k, R];
-// thread r < 64 keeps row row0 + r and inserts its scores in ascending
-// index.
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-nnk_wide_scan_f64(const T* __restrict__ ref, const T* __restrict__ nbr,
-                  int R, int N, int D, int k, int chunk,
-                  T* __restrict__ part_s, int* __restrict__ part_i) {
-  __shared__ WideShared<T> sh;
-  const int j_begin = blockIdx.y * chunk;
-  const int j_end = min(N, j_begin + chunk);
-  const int row0 = blockIdx.x * kWideRows;
-  const int tid = threadIdx.x;
-  T v[K];
-  int id[K];
-#pragma unroll
-  for (int e = 0; e < K; ++e) {
-    v[e] = inf<T>();
-    id[e] = 0;
-  }
-  for (int t0 = j_begin; t0 < j_end; t0 += kWideCols) {
-    wide_tile<T>(ref, nbr, R, D, row0, t0, min(kWideCols, j_end - t0), sh);
-    if (tid < kWideRows) {
-      for (int j = 0; j < kWideCols; ++j)
-        insert<K>(sh.s[tid][j], t0 + j, v, id);
-    }
-  }
-  if (tid < kWideRows && row0 + tid < R) {
-#pragma unroll
-    for (int e = 0; e < K; ++e) {
-      if (e < k) {
-        const size_t o =
-            (static_cast<size_t>(blockIdx.y) * k + e) * R + row0 + tid;
-        part_s[o] = v[e];
-        part_i[o] = id[e];
-      }
-    }
-  }
-}
-
-cudaError_t launch_nn1_wide(const double* ref, const double* nbr, int R,
-                            int N, int D, int splits, float*,
-                            double* part_s, int* part_i, double* d2,
-                            long long* idx, cudaStream_t stream) {
-  const dim3 grid((R + kWideRows - 1) / kWideRows, splits);
-  nn1_wide_scan_f64<double><<<grid, kThreads, 0, stream>>>(
-      ref, nbr, R, N, D, split_chunk(N, splits), part_s, part_i);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  nn1_merge<double, 0><<<(R + 255) / 256, 256, 0, stream>>>(
-      ref, R, D, splits, part_s, part_i, d2, idx);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t launch_nnk_wide_f64(const double* ref, const double* nbr, int R,
-                                int N, int D, int k, int splits,
-                                double* part_s, int* part_i, double* d2,
-                                long long* idx, cudaStream_t stream) {
-  const dim3 grid((R + kWideRows - 1) / kWideRows, splits);
-  nnk_wide_scan_f64<double, K><<<grid, kThreads, 0, stream>>>(
-      ref, nbr, R, N, D, k, split_chunk(N, splits), part_s, part_i);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  nnk_merge<double, 0, K><<<(R + 255) / 256, 256, 0, stream>>>(
-      ref, R, D, k, splits, part_s, part_i, d2, idx);
-  return cudaGetLastError();
-}
-
 // ---- D > 8: the wide scans on the tensor cores ------------------------------
 // float32 at every k in three-pass TF32 (wgmma); float64 past k = 16 on
 // the FP64 tensor cores (DMMA, mma.sync)
@@ -2356,6 +2528,7 @@ constexpr int kPanel = 64;          // rows a panel: a warpgroup's rows, a tile
 constexpr int kGroups = 2;          // consumer warpgroups a block
 constexpr int kTcRows = kPanel * kGroups;       // reference rows a block
 constexpr int kTcThreads = 128 * kGroups + 32;  // and one producer warp
+static_assert(128 * kGroups == 256, "kConsumers below assumes two groups");
 constexpr int kTcChunk = 64;        // coordinates a stage holds, most
 constexpr int kBlockDim = 32;       // coordinates a fresh sum, 40 at most
 constexpr int kMaxStages = 8;       // stages a ring, most (a block a stage)
@@ -2463,63 +2636,6 @@ __global__ void f64_panels(const double* __restrict__ x, int n, int D, int Dp,
   panel[kPanel * Dp + r] = live ? sq : CUDART_INF;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Orders this thread's reads of shared memory through the generic proxy
-// before the async proxy's later writes there (the bulk copy that refills
-// a stage): a stage's |b|^2, read by plain loads, was overwritten under
-// them at 4096^2, intermittently, without it.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// Waits for the completion of the barrier's phase of this parity; traps
-// (the launch fails) after 2^26 polls instead of hanging.  The loop is
-// PTX's: a C++ loop whose exit differs by thread would put the wgmmas
-// after it on a divergent path, which ptxas serializes (C7520).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 67108864;\n"
-      "@p bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n}\n"
-      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// bytes from global to shared memory by the bulk-copy engine, counted on
-// `bar` (16-byte aligned, a multiple of 16 bytes)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // wgmma's descriptor of a k-step of a panel in shared memory (256-byte
 // aligned): K-major, 32-byte swizzle (layout type 3), groups of 8 rows 256
 // bytes apart (the stride byte offset; the leading one is unused).
@@ -2597,6 +2713,8 @@ __device__ __forceinline__ void dmma_unit(double (&d)[32],
   const double* ar = a + 8 * (16 * w + lane / 4) + 2 * (lane % 4);
   const double* br = b + 8 * (lane / 4) + 2 * (lane % 4);
   __syncwarp();  // mma.sync is .aligned: the warp's lanes together
+  // rolled: unrolled, ptxas spilled every float64 mode (40-652 bytes)
+#pragma unroll 1
   for (int j = 0; j < steps; ++j) {
     const double2 x0 = *reinterpret_cast<const double2*>(ar + kStep * j);
     const double2 x1 = *reinterpret_cast<const double2*>(ar + kStep * j + 64);
@@ -2630,6 +2748,39 @@ __device__ __forceinline__ void insert_lex(T d, int j, T* v, int* id) {
     }
   }
   if (lex_less(d, j, v[0], id[0])) {
+    v[0] = d;
+    id[0] = j;
+  }
+}
+
+// Whether the tensor-core scan of mode K keeps its consumers' K-lists in
+// shared memory: float64 from K = 4, whose 2 x K pairs a thread do not fit
+// beside the 32 float64 accumulators and the DMMA operands in the 168
+// registers a thread of 9 warps gets (ptxas spilled 60-652 bytes).
+// Entry e of row h of consumer thread t sits at (h K + e) kConsumers + t.
+constexpr int kConsumers = 128 * 2;  // consumer threads a block (kGroups)
+template <typename T, int K>
+__host__ __device__ constexpr bool smem_lists() {
+  return sizeof(T) == sizeof(double) && K >= 4;
+}
+
+// insert<K> on a list whose entries lie `stride` apart
+template <int K, typename T>
+__device__ __forceinline__ void insert_strided(T d, int j, T* v, int* id,
+                                               int stride) {
+  if (!(d < v[(K - 1) * stride])) return;
+#pragma unroll
+  for (int s = K - 1; s > 0; --s) {
+    const T prev = v[(s - 1) * stride];
+    if (d < prev) {
+      v[s * stride] = prev;
+      id[s * stride] = id[(s - 1) * stride];
+    } else if (d < v[s * stride]) {
+      v[s * stride] = d;
+      id[s * stride] = j;
+    }
+  }
+  if (d < v[0]) {
     v[0] = d;
     id[0] = j;
   }
@@ -2729,9 +2880,9 @@ constexpr int kEmit = -2;
 // sel.hist, or its pairs into the outputs' slots.  Threads 0-255: two
 // consumer warpgroups; warp 8: the producer.  Every mode scores a pair
 // with the same products in the same order, so every mode sees the same
-// s.  T: float32 (three-pass TF32 wgmma from the split panels, every K)
-// or float64 (DMMA from f64_panels: kBig, kCount, kEmit); the products are
-// the only part that differs.
+// s.  T: float32 (three-pass TF32 wgmma from the split panels) or float64
+// (DMMA from f64_panels), every K; the products are the only part that
+// differs.
 template <typename T, int K>
 __global__ void __launch_bounds__(kTcThreads, 1)
 wide_tc_scan(const unsigned char* __restrict__ ref_pan,
@@ -2893,8 +3044,11 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
   T thr_s[2] = {inf<T>(), inf<T>()};
   T best[2] = {inf<T>(), inf<T>()};
   int bidx[2] = {0, 0};
-  constexpr int KL = K > 1 ? K : 1;
-  T v[2][KL];
+  // the K-lists: in registers, or (smem_lists) past the ring with each
+  // row's K-th s in vk
+  constexpr bool kSmemList = smem_lists<T, K>();
+  constexpr int KL = K > 1 && !kSmemList ? K : 1;
+  T v[2][KL], vk[2] = {inf<T>(), inf<T>()}, vj[2] = {inf<T>(), inf<T>()};
   int id[2][KL];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -2903,6 +3057,17 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
       v[h][e] = inf<T>();
       id[h][e] = 0;
     }
+  T* const lst_v = reinterpret_cast<T*>(past_ring) + threadIdx.x;
+  int* const lst_i = reinterpret_cast<int*>(
+      reinterpret_cast<T*>(past_ring) + 2 * (K > 1 ? K : 1) * kConsumers) +
+      threadIdx.x;
+  if constexpr (kSmemList) {
+#pragma unroll
+    for (int e = 0; e < 2 * K; ++e) {
+      lst_v[e * kConsumers] = inf<T>();
+      lst_i[e * kConsumers] = 0;
+    }
+  }
   if (resident) mbar_wait(rows_in, 0);
   // float32: a block's sum (fresh each block of coordinates); the tile's
   // total (float64: the DMMA accumulators themselves)
@@ -2983,16 +3148,19 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
       }
     }
     // accumulator i holds row r0 + 8 ((i >> 1) & 1), column
-    // 8 (i >> 2) + 2 q + (i & 1): each row's 16 in ascending column
+    // 8 (i >> 2) + 2 q + (i & 1): each row's 16 in ascending column.  The
+    // scores replace the sums, s = |b|^2 - 2 a.b (|b|^2 dead after: fewer
+    // registers live through the selection)
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      total[i] = fma_rn(T(-2), total[i], bn[2 * (i >> 2) + (i & 1)]);
     const int col0 = kPanel * t + 2 * q;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       T sc[16];
 #pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const int i = 4 * (e >> 1) + 2 * h + (e & 1);
-        sc[e] = fma_rn(T(-2), total[i], bn[e]);
-      }
+      for (int e = 0; e < 16; ++e)
+        sc[e] = total[4 * (e >> 1) + 2 * h + (e & 1)];
       if constexpr (K == 1) {
         // min first, its first index only where it improves
         T m = sc[0];
@@ -3091,15 +3259,29 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
         }
         big_cnt[h] += total_c;
       } else {
-        // the row's threshold: the least of its four threads' K-th s (a
-        // candidate equal to it may still win on its index)
-        T thr = v[h][K - 1];
+        // the row's threshold: the least of its four threads' K-th s, and
+        // no more than the largest of their ceil(K / 4)-th s (the four
+        // lists hold K pairs at or under it, so the row's K-th is too); a
+        // candidate equal to it may still win on its index
+        constexpr int kJ = (K + 3) / 4 - 1;
+        T last, jth;
+        if constexpr (kSmemList) {
+          last = vk[h];
+          jth = vj[h];
+        } else {
+          last = v[h][K - 1];
+          jth = v[h][kJ];
+        }
+        T thr = last;
         thr = min_of(thr, __shfl_xor_sync(0xffffffffu, thr, 1));
         thr = min_of(thr, __shfl_xor_sync(0xffffffffu, thr, 2));
+        jth = max_of(jth, __shfl_xor_sync(0xffffffffu, jth, 1));
+        jth = max_of(jth, __shfl_xor_sync(0xffffffffu, jth, 2));
+        thr = min_of(thr, jth);
         unsigned cand = 0;
 #pragma unroll
         for (int e = 0; e < 16; ++e)
-          cand |= sc[e] <= thr && sc[e] < v[h][K - 1] ? 1u << e : 0u;
+          cand |= sc[e] <= thr && sc[e] < last ? 1u << e : 0u;
         // one insert site, candidates in ascending column: a warp runs as
         // many rounds as its busiest lane has candidates
         while (cand) {
@@ -3108,7 +3290,15 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
           T x = sc[0];
 #pragma unroll
           for (int f = 1; f < 16; ++f) x = f == e ? sc[f] : x;
-          insert<K>(x, col0 + 8 * (e >> 1) + (e & 1), v[h], id[h]);
+          if constexpr (kSmemList) {
+            insert_strided<K>(x, col0 + 8 * (e >> 1) + (e & 1),
+                              lst_v + h * K * kConsumers,
+                              lst_i + h * K * kConsumers, kConsumers);
+            vk[h] = lst_v[(h * K + K - 1) * kConsumers];
+            vj[h] = lst_v[(h * K + (K + 3) / 4 - 1) * kConsumers];
+          } else {
+            insert<K>(x, col0 + 8 * (e >> 1) + (e & 1), v[h], id[h]);
+          }
         }
       }
     }
@@ -3143,17 +3333,14 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
           while (m) {
             const int e = __ffs(m) - 1;
             m &= m - 1;
-            // the pair's s again, its operands picked without indexing the
-            // arrays by a variable (which would put them in local memory)
+            // the pair's s, picked without indexing the array by a
+            // variable (which would put it in local memory)
             const int i = 4 * (e >> 1) + 2 * h + (e & 1);
-            T tv = total[0], bv = bn[0];
+            T tv = total[0];
 #pragma unroll
             for (int f = 1; f < 32; ++f) tv = f == i ? total[f] : tv;
-#pragma unroll
-            for (int f = 1; f < 16; ++f) bv = f == e ? bn[f] : bv;
             const typename S::Pair p =
-                S::pair(S::key(fma_rn(T(-2), tv, bv)),
-                        col0 + 8 * (e >> 1) + (e & 1));
+                S::pair(S::key(tv), col0 + 8 * (e >> 1) + (e & 1));
             if (b)
               sel.bnd[row * sel.cap + o++] = p;
             else
@@ -3233,6 +3420,20 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
         part_i[static_cast<size_t>(blockIdx.y) * R + row] = bidx[h];
       }
     } else if constexpr (K > 1) {
+      // this thread's list of the row (the products are done: registers
+      // hold it now)
+      T mv[K];
+      int mi[K];
+#pragma unroll
+      for (int e = 0; e < K; ++e) {
+        if constexpr (kSmemList) {
+          mv[e] = lst_v[(h * K + e) * kConsumers];
+          mi[e] = lst_i[(h * K + e) * kConsumers];
+        } else {
+          mv[e] = v[h][e];
+          mi[e] = id[h][e];
+        }
+      }
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         // the partner's list as it was, then merged into this one
@@ -3240,11 +3441,11 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
         int oi[K];
 #pragma unroll
         for (int e = 0; e < K; ++e) {
-          ov[e] = __shfl_xor_sync(0xffffffffu, v[h][e], off);
-          oi[e] = __shfl_xor_sync(0xffffffffu, id[h][e], off);
+          ov[e] = __shfl_xor_sync(0xffffffffu, mv[e], off);
+          oi[e] = __shfl_xor_sync(0xffffffffu, mi[e], off);
         }
 #pragma unroll
-        for (int e = 0; e < K; ++e) insert_lex<K>(ov[e], oi[e], v[h], id[h]);
+        for (int e = 0; e < K; ++e) insert_lex<K>(ov[e], oi[e], mv, mi);
       }
       if (q == 0 && row < R) {
 #pragma unroll
@@ -3252,8 +3453,8 @@ wide_tc_scan(const unsigned char* __restrict__ ref_pan,
           if (e < k) {
             const size_t o =
                 (static_cast<size_t>(blockIdx.y) * k + e) * R + row;
-            part_s[o] = v[h][e];
-            part_i[o] = id[h][e];
+            part_s[o] = mv[e];
+            part_i[o] = mi[e];
           }
         }
       }
@@ -3278,11 +3479,13 @@ int blocks_per_sm(size_t smem) {
 // The bytes past the ring of the scan of mode K: at k > kMaxK the buffers
 // and the warps' counters (66 KB in float32, 99 KB in float64: an entry
 // is its score and its index), in the counting passes 256 counters a row
-// (66 KB in both).
+// (66 KB in both), float64's K-lists from 4 (smem_lists: 24-96 KB).
 template <typename T, int K>
 size_t tc_extra() {
   return K == kBig ? big_bytes(kTcRows, kTcThreads, sizeof(T))
          : K == kCount ? sizeof(unsigned) * kTcRows * kHistStride
+         : smem_lists<T, K>()
+             ? static_cast<size_t>(2) * K * kConsumers * (sizeof(T) + sizeof(int))
              : 0;
 }
 
@@ -3423,26 +3626,27 @@ cudaError_t launch_tc(const T* ref, const T* nbr, int R, int N, int D, int k,
   return cudaGetLastError();
 }
 
-cudaError_t launch_nn1_wide(const float* ref, const float* nbr, int R, int N,
-                            int D, int splits, float* scratch, float* part_s,
-                            int* part_i, float* d2, long long* idx,
+template <typename T>
+cudaError_t launch_nn1_wide(const T* ref, const T* nbr, int R, int N, int D,
+                            int splits, void* scratch, T* part_s,
+                            int* part_i, T* d2, long long* idx,
                             cudaStream_t stream) {
-  return launch_tc<float, 1>(ref, nbr, R, N, D, 1, splits, scratch, part_s,
-                             part_i, d2, idx, stream);
+  return launch_tc<T, 1>(ref, nbr, R, N, D, 1, splits, scratch, part_s,
+                         part_i, d2, idx, stream);
 }
 
 // The crossover k of the wide families (D > 8), and whether a call takes
-// the select path: float32 at k >= kWideSelectK and k = N (one k at both
-// measured widths and rows: 50,000 at D = 33, 20,000 at 128); float64
-// past k = 16 alone (up to it the SIMT scans), at k >= kWideSelectK64
-// (kWideSelectK64Long past kShortDim64 coordinates) and k = N.
+// the select path: float32 at k >= kWideSelectK (one k at both measured
+// widths and rows: 50,000 at D = 33, 20,000 at 128), float64 at
+// k >= kWideSelectK64 (kWideSelectK64Long past kShortDim64 coordinates),
+// and both at k = N.
 int wide_select_k(int R, int D, bool f64) {
   (void)R;
   return !f64 ? kWideSelectK
          : D <= kShortDim64 ? kWideSelectK64 : kWideSelectK64Long;
 }
 bool wide_takes_select(int R, int N, int D, int k, bool f64) {
-  return (!f64 || k > kMaxK) && (k >= wide_select_k(R, D, f64) || k == N);
+  return k >= wide_select_k(R, D, f64) || k == N;
 }
 
 // The wide select path's sample: every kSampleStride-th tile of each
@@ -3588,74 +3792,43 @@ cudaError_t launch_nnk_wide_select(const T* ref, const T* nbr, int R, int N,
                             stream);
 }
 
-// The float32 wide family: the select path at k >= wide_select_k and
-// k = N, else (or where `merge`) the tensor-core scans.
-cudaError_t launch_nnk_wide(const float* ref, const float* nbr, int R, int N,
-                            int D, int k, int splits, void* scratch,
-                            float* part_s, int* part_i, float* d2,
-                            long long* idx, cudaStream_t stream, bool merge) {
-  if (!merge && wide_takes_select(R, N, D, k, false))
-    return launch_nnk_wide_select<float>(ref, nbr, R, N, D, k, scratch, d2,
-                                         idx, stream);
+// The wide families: the select path at k >= wide_select_k and k = N,
+// else (or where `merge`) the tensor-core scans.
+template <typename T>
+cudaError_t launch_nnk_wide(const T* ref, const T* nbr, int R, int N, int D,
+                            int k, int splits, void* scratch, T* part_s,
+                            int* part_i, T* d2, long long* idx,
+                            cudaStream_t stream, bool merge) {
+  if (!merge && wide_takes_select(R, N, D, k, sizeof(T) == sizeof(double)))
+    return launch_nnk_wide_select<T>(ref, nbr, R, N, D, k, scratch, d2, idx,
+                                     stream);
   switch (k > kMaxK ? kBig : list_len(k)) {
-    case kBig: return launch_tc<float, kBig>(ref, nbr, R, N, D, k, splits,
-                                             scratch, part_s, part_i, d2, idx,
-                                             stream);
-    case 2: return launch_tc<float, 2>(ref, nbr, R, N, D, k, splits, scratch,
-                                       part_s, part_i, d2, idx, stream);
-    case 4: return launch_tc<float, 4>(ref, nbr, R, N, D, k, splits, scratch,
-                                       part_s, part_i, d2, idx, stream);
-    case 8: return launch_tc<float, 8>(ref, nbr, R, N, D, k, splits, scratch,
-                                       part_s, part_i, d2, idx, stream);
-    default: return launch_tc<float, kMaxK>(ref, nbr, R, N, D, k, splits,
-                                            scratch, part_s, part_i, d2, idx,
-                                            stream);
-  }
-}
-
-// The float64 wide family: up to k = 16 the SIMT scans; past it the DMMA
-// scans, the select path at k >= wide_select_k and k = N, else (or where
-// `merge`) the merge scan.
-cudaError_t launch_nnk_wide(const double* ref, const double* nbr, int R,
-                            int N, int D, int k, int splits, void* scratch,
-                            double* part_s, int* part_i, double* d2,
-                            long long* idx, cudaStream_t stream, bool merge) {
-  if (k > kMaxK) {
-    if (!merge && wide_takes_select(R, N, D, k, true))
-      return launch_nnk_wide_select<double>(ref, nbr, R, N, D, k, scratch,
-                                            d2, idx, stream);
-    return launch_tc<double, kBig>(ref, nbr, R, N, D, k, splits, scratch,
+    case kBig: return launch_tc<T, kBig>(ref, nbr, R, N, D, k, splits,
+                                         scratch, part_s, part_i, d2, idx,
+                                         stream);
+    case 2: return launch_tc<T, 2>(ref, nbr, R, N, D, k, splits, scratch,
                                    part_s, part_i, d2, idx, stream);
-  }
-  switch (list_len(k)) {
-    case 2: return launch_nnk_wide_f64<2>(ref, nbr, R, N, D, k, splits,
-                                          part_s, part_i, d2, idx, stream);
-    case 4: return launch_nnk_wide_f64<4>(ref, nbr, R, N, D, k, splits,
-                                          part_s, part_i, d2, idx, stream);
-    case 8: return launch_nnk_wide_f64<8>(ref, nbr, R, N, D, k, splits,
-                                          part_s, part_i, d2, idx, stream);
-    default: return launch_nnk_wide_f64<kMaxK>(ref, nbr, R, N, D, k, splits,
-                                               part_s, part_i, d2, idx,
-                                               stream);
+    case 4: return launch_tc<T, 4>(ref, nbr, R, N, D, k, splits, scratch,
+                                   part_s, part_i, d2, idx, stream);
+    case 8: return launch_tc<T, 8>(ref, nbr, R, N, D, k, splits, scratch,
+                                   part_s, part_i, d2, idx, stream);
+    default: return launch_tc<T, kMaxK>(ref, nbr, R, N, D, k, splits,
+                                        scratch, part_s, part_i, d2, idx,
+                                        stream);
   }
 }
 
-// Splits of the wide families' tensor-core scans (1 on the select paths);
-// float64 past k = 16 alone.
+// Splits of the wide families' tensor-core scans (1 on the select paths).
 template <typename T>
 int nnk_tc_splits(int R, int N, int D, int k, bool merge = false) {
-  constexpr bool f64 = sizeof(T) == sizeof(double);
-  if (!merge && wide_takes_select(R, N, D, k, f64)) return 1;
-  if constexpr (f64) {
-    return tc_splits<double, kBig>(R, N, D, k);
-  } else {
-    switch (k > kMaxK ? kBig : list_len(k)) {
-      case kBig: return tc_splits<float, kBig>(R, N, D, k);
-      case 2: return tc_splits<float, 2>(R, N, D);
-      case 4: return tc_splits<float, 4>(R, N, D);
-      case 8: return tc_splits<float, 8>(R, N, D);
-      default: return tc_splits<float, kMaxK>(R, N, D);
-    }
+  if (!merge && wide_takes_select(R, N, D, k, sizeof(T) == sizeof(double)))
+    return 1;
+  switch (k > kMaxK ? kBig : list_len(k)) {
+    case kBig: return tc_splits<T, kBig>(R, N, D, k);
+    case 2: return tc_splits<T, 2>(R, N, D);
+    case 4: return tc_splits<T, 4>(R, N, D);
+    case 8: return tc_splits<T, 8>(R, N, D);
+    default: return tc_splits<T, kMaxK>(R, N, D);
   }
 }
 
@@ -3665,34 +3838,38 @@ extern "C" {
 
 // Splits of the neighbour range that nn1 uses for R rows of D coordinates
 // (float64 if f64, else float32) and N neighbours on the current device:
-// the register-tiled and float64 wide scans aim at ~16 blocks an SM, at
-// least 2048 neighbours each; the float32 wide scan at whole waves of
-// blocks (tc_splits).  ppt_nn1's part_s / part_i hold splits * R values of
+// the register-tiled scan aims at ~16 blocks an SM, at least 2048
+// neighbours each; the wide scan at whole waves of blocks (tc_splits).  ppt_nn1's part_s / part_i hold splits * R values of
 // the clouds' type and splits * R ints.  Returns 0 on invalid sizes or a
 // device query failure.
 int ppt_nn1_splits(int R, int N, int D, int f64) {
   if (D < 1 || R <= 0 || N <= 0) return 0;
-  if (D > kMaxDim && !f64) return tc_splits<float, 1>(R, N, D);
-  const int rows = D > kMaxDim ? kWideRows
-                   : kThreads * (f64 ? nn1_rt<double>(D) : nn1_rt<float>(D));
-  return splits_for(R, N, rows, kNn1BlocksPerSm);
+  if (D > kMaxDim)
+    return f64 ? tc_splits<double, 1>(R, N, D) : tc_splits<float, 1>(R, N, D);
+  return splits_for(R, N,
+                    kThreads * (f64 ? nn1_rt<double>(D) : nn1_rt<float>(D)),
+                    kNn1BlocksPerSm);
 }
 
 // The float32 scratch (*floats of them) that ppt_nn1 (k = 1) and ppt_nnk
 // need for R rows, N neighbours of D coordinates and k (float64 if f64)
 // on their merge scans: the split clouds of the wide scans on the tensor
-// cores past 8 coordinates (float32 at every k; float64 past k = 16, where
-// nn1 and nnk up to k = 16 run the SIMT scans, which read none), 0
-// elsewhere.  Returns cudaErrorInvalidValue on invalid sizes.
+// cores past 8 coordinates, the staged neighbours of the warp merge scan
+// (up to 8, k > 16 below the select path), 0 elsewhere.  Returns
+// cudaErrorInvalidValue on invalid sizes.
 int ppt_knn_scratch(int R, int N, int D, int k, int f64, long long* floats) {
   *floats = 0;
   if (R <= 0 || N <= 0 || D < 1 || k < 1 || k > N)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D > kMaxDim && (!f64 || k > kMaxK)) {
+  if (D > kMaxDim) {
     const TcPlan p = f64 ? tc_plan<double>(R, N, D, 0, kMaxStages)
                          : tc_plan<float>(R, N, D, 0, kMaxStages);
     *floats = static_cast<long long>(p.row_panels + p.tiles) *
               static_cast<long long>(p.pb / sizeof(float));
+  } else if (k > kMaxK && !takes_select(R, N, k, f64)) {
+    *floats = static_cast<long long>(
+        (f64 ? warp_scratch<double>(N, D) : warp_scratch<float>(N, D)) /
+        sizeof(float));
   }
   return 0;
 }
@@ -3702,8 +3879,8 @@ int ppt_knn_scratch(int R, int N, int D, int k, int f64, long long* floats) {
 // the same type, clamped at 0, and idx [R] int64, on `stream`, through
 // `splits` (ppt_nn1_splits) partial results in part_s [splits, R] (the
 // clouds' type) / part_i [splits, R]: the register-tiled scan for
-// D <= 8, the wide scan past it (float32 on the tensor cores, through
-// `scratch`, ppt_knn_scratch's floats; float64 on the SIMT units).
+// D <= 8, the wide scan past it (on the tensor cores, through `scratch`,
+// ppt_knn_scratch's floats).
 // Returns cudaGetLastError() (0 on success); invalid sizes (R, N,
 // splits >= 1, D >= 1) or a missing scratch return cudaErrorInvalidValue
 // without launching.
@@ -3722,38 +3899,34 @@ int ppt_nn1(const void* ref, const void* nbr, int R, int N, int D, int f64,
 
 // Splits of the neighbour range that nnk uses for R rows of D coordinates,
 // N neighbours and k (float64 if f64, else float32) on the current device:
-// the register-tiled and float64 SIMT wide scans aim at ~4 blocks an SM,
-// at least 2048 neighbours each; the wide scans on the tensor cores at
-// whole waves; at k > 16 at most 32, within kPartBudget's bytes of lists,
-// each split at least k neighbours.  ppt_nnk's part_s / part_i hold
-// splits * k * R values of the clouds' type and as many ints; on the
-// select paths (ppt_nnk_select_scratch) 1 and no lists.  Returns 0 on
+// the register-tiled scans up to k = 16 aim at ~4 blocks an SM, at least
+// 2048 neighbours each, the warp merge scan past it at the least cost of
+// its waves (warp_plan), the wide scans on the tensor cores at whole
+// waves; past k = 16 at most 32, within kPartBudget's bytes of lists.
+// ppt_nnk's part_s / part_i hold splits * k * R values of the clouds' type
+// and as many ints (none where the warp merge scan takes one split); on
+// the select paths (ppt_nnk_select_scratch) 1 and no lists.  Returns 0 on
 // invalid sizes (1 <= k <= N) or a device query failure.
 int ppt_nnk_splits(int R, int N, int D, int k, int f64) {
   if (D < 1 || R <= 0 || N <= 0 || k < 1 || k > N) return 0;
   if (D <= kMaxDim && takes_select(R, N, k, f64)) return 1;
-  if (D > kMaxDim && !f64) return nnk_tc_splits<float>(R, N, D, k);
-  if (D > kMaxDim && k > kMaxK) return nnk_tc_splits<double>(R, N, D, k);
-  if (k > kMaxK) {
-    // Tile<T, D>: tile_len 4-vectors, two past D = 4, and |b|^2 apart
-    // at D = 4 and 8
-    const size_t scalar = f64 ? sizeof(double) : sizeof(float);
-    const size_t len = 4096 / scalar;
-    return big_splits(R, N, k, kThreads, scalar,
-                      len * scalar * (4 * (D > 4 ? 2 : 1) +
-                                      (D % 4 == 0 ? 1 : 0)), kBigBatch);
-  }
+  if (D > kMaxDim)
+    return f64 ? nnk_tc_splits<double>(R, N, D, k)
+               : nnk_tc_splits<float>(R, N, D, k);
+  if (k > kMaxK)
+    return f64 ? warp_splits<double>(R, N, D, k)
+               : warp_splits<float>(R, N, D, k);
   const int K = list_len(k);
-  const int rows = D > kMaxDim ? kWideRows
-                   : kThreads * (f64 ? nnk_rows<double>(K) : nnk_rows<float>(K));
-  return splits_for(R, N, rows, kNnkBlocksPerSm);
+  return splits_for(R, N,
+                    kThreads * (f64 ? nnk_rows<double>(K) : nnk_rows<float>(K)),
+                    kNnkBlocksPerSm);
 }
 
 // The least k from which nnk takes a select path below k = N for R rows
 // of D coordinates (float64 if f64): the register-tiled family's
-// crossover (kSelectK, kSelectK64 past kSmallR rows, kSelectKSmallR up to
-// them), the wide families' (kWideSelectK, kWideSelectK64); -1 on invalid
-// sizes.
+// crossover (kSelectK, kSelectK64 past kSmallR rows, kSelectKSmallR,
+// kSelectKSmallR64 up to them), the wide families' (kWideSelectK,
+// kWideSelectK64); -1 on invalid sizes.
 int ppt_nnk_select_k(int R, int D, int f64) {
   if (R <= 0 || D < 1) return -1;
   if (D <= kMaxDim) return select_k(R, f64);
@@ -3763,19 +3936,17 @@ int ppt_nnk_select_k(int R, int D, int f64) {
 // Which kernels nnk runs for R rows, N neighbours of D coordinates and k
 // (float64 if f64): 0 the register-tiled merge scans, 1 the register-
 // tiled select path, 2 the tensor-core scans, 3 the tensor-core select
-// path, 4 the float64 SIMT wide scans (k <= 16), 5 the float64 DMMA merge
-// scan, 6 the float64 DMMA select path; -1 on invalid sizes.
+// path, 4 the float64 DMMA scans, 5 the float64 DMMA select path; -1 on
+// invalid sizes.
 int ppt_nnk_family(int R, int N, int D, int k, int f64) {
   if (R <= 0 || N <= 0 || D < 1 || k < 1 || k > N) return -1;
   if (D <= kMaxDim) return takes_select(R, N, k, f64) ? 1 : 0;
-  if (f64 && k <= kMaxK) return 4;
-  return (wide_takes_select(R, N, D, k, f64) ? 3 : 2) + (f64 ? 3 : 0);
+  return (wide_takes_select(R, N, D, k, f64) ? 3 : 2) + (f64 ? 2 : 0);
 }
 
 // The select paths' scratch for R rows of D coordinates, N neighbours and
 // k (float64 if f64, else float32): *bytes = -1 where nnk takes no select
-// path (k < N below ppt_nnk_select_k, and float64 wide clouds up to
-// k = 16), else its bytes, the scratch ppt_nnk then reads: for D <= 8, 0
+// path (k < N below ppt_nnk_select_k), else its bytes, the scratch ppt_nnk then reads: for D <= 8, 0
 // for k = N up to 8192 pairs a row; else per row a state (24 bytes, 32 in
 // float64), a histogram of 256 counts (1 KB), two counts, a boundary
 // buffer of min(512, P - k + 1) pairs (8 bytes a pair, 16 in float64),
@@ -3808,9 +3979,10 @@ int ppt_nnk_select_scratch(int R, int N, int D, int k, int f64,
 // the same type, ascending by (d^2, index), clamped at 0, and idx [R, k]
 // int64, on `stream`, through `splits` (ppt_nnk_splits) partial lists in
 // part_s / part_i (splits * k * R each; [splits, k, R] up to k = 16,
-// [splits, R, k] past it): the register-tiled scan for D <= 8, the wide
-// scan past it (on the tensor cores through `scratch`, as ppt_nn1, in
-// float32, and in float64 past k = 16); the select paths (D <= 8 at
+// [splits, R, k] past it; none where the warp merge scan takes one
+// split): the register-tiled scan for D <= 8, the wide
+// scan past it (on the tensor cores through `scratch`, as ppt_nn1); the
+// select paths (D <= 8 at
 // k >= kSelectK (kSelectK64), the wide ones from their crossovers, and
 // k = N) through `scratch` (ppt_nnk_select_scratch's bytes; part_s /
 // part_i unused).  Returns cudaGetLastError() (0 on success); invalid
@@ -3830,18 +4002,17 @@ int ppt_nnk(const void* ref, const void* nbr, int R, int N, int D, int k,
                            part_i, d2, idx, s));
 }
 
-// The wide families' merge scan (float32: the tensor-core scans, K-lists
-// up to k = 16, buffers merged into lists past it; float64 (f64): the
-// SIMT scans up to k = 16, the DMMA merge scan past it) at any
+// The wide families' merge scan (the tensor-core scans, float32 in
+// three-pass TF32, float64 (f64) on DMMA: K-lists up to k = 16, buffers
+// merged into lists past it) at any
 // 1 <= k <= N of D > 8 coordinates, whatever ppt_nnk_select_k says: the
 // yardstick the wide select paths are held to bit for bit.  Its splits
 // (0 on invalid sizes), and the call, as ppt_nnk's (scratch:
 // ppt_knn_scratch's floats; part_s / part_i: splits * k * R each).
 int ppt_nnk_wide_merge_splits(int R, int N, int D, int k, int f64) {
   if (D <= kMaxDim || R <= 0 || N <= 0 || k < 1 || k > N) return 0;
-  if (!f64) return nnk_tc_splits<float>(R, N, D, k, true);
-  if (k > kMaxK) return nnk_tc_splits<double>(R, N, D, k, true);
-  return splits_for(R, N, kWideRows, kNnkBlocksPerSm);
+  return f64 ? nnk_tc_splits<double>(R, N, D, k, true)
+             : nnk_tc_splits<float>(R, N, D, k, true);
 }
 
 int ppt_nnk_wide_merge(const void* ref, const void* nbr, int R, int N, int D,

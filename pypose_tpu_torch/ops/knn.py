@@ -25,10 +25,12 @@ coordinates: register-tiled scans for 1 to 8 coordinates, and wide scans
 past 8 (descriptor clouds: FPFH's 33, SIFT's 128).  :func:`nnk` takes any
 ``1 <= k <= N``, as the Pallas kernel does: up to k = 16 each row's list
 lives in registers (2, 4, 8 or 16 entries); past 16 a row's candidates
-gather in a buffer in shared memory (32 a row in the register-tiled
-scan, 64 in the wide scans), which its warp merges into the row's sorted
-list, always in global memory (the header of ``csrc/knn.cu`` says
-why).  From a crossover k on (:func:`select_k`, measured for each
+gather in a buffer in shared memory, which its warp merges 64 at a time
+into the row's sorted list: in the register-tiled scan a warp keeps four
+rows (two in float64) and their lists in shared memory, its lanes
+scoring different neighbours against them, the neighbours staged once a
+call and streamed to the warps by bulk copies; the wide scans keep the
+lists in global memory (the header of ``csrc/knn.cu`` says why).  From a crossover k on (:func:`select_k`, measured for each
 family, and a function of R for the register-tiled one; ``csrc/knn.cu``
 holds it) and at k = N, the
 register-tiled family and the wide families instead select, then
@@ -45,9 +47,9 @@ the cross term is ``a_lo.b_hi + a_hi.b_lo`` (the small products, first)
 plus ``a_hi.b_hi``, summed fresh in blocks of 32 coordinates, which holds
 the float32 chain's accuracy where one TF32 pass does not (:func:`_tf32_scores` emulates both on the CPU;
 nothing on the card's path runs it).  In float64 the wide scans form
-64 x 64 tiles of scores as a small SIMT GEMM up to k = 16, and past it
-on the FP64 tensor cores (DMMA), the merge scan below the crossover and
-the select path from it on and at k = N.
+their 64 x 64 tiles of scores on the FP64 tensor cores (DMMA) at every
+k: the merge scans below the crossover and the select path from it on
+and at k = N.
 ``function/geometry.py:_knn_tiled`` routes k = 1 (not ``largest``) on
 CUDA to :func:`nn1` and every other ``k <= N`` to :func:`nnk`.
 """
@@ -367,7 +369,8 @@ def _stream(a):
 
 def _scratch(lib, ref, R, N, D, k, f64):
     """The float32 scratch of the wide merge scans on the tensor cores at
-    k (1 for nn1; None where the kernels need none)."""
+    k (1 for nn1), or of the warp merge scan past k = 16 (its neighbours
+    staged once a call); None where the kernels need none."""
     floats = ctypes.c_longlong()
     raise_on(lib, lib.ppt_knn_scratch(R, N, D, k, f64, ctypes.byref(floats)),
              'knn scratch')
@@ -414,15 +417,16 @@ def _launch_nn1(ref, nbr):
 
 # the kernels' families (csrc/knn.cu:ppt_nnk_family)
 _FAMILIES = ('register-tiled', 'register-tiled', 'tensor-core',
-             'tensor-core', 'simt-f64', 'tensor-core-f64', 'tensor-core-f64')
+             'tensor-core', 'tensor-core-f64', 'tensor-core-f64')
 
 
 def select_k(dtype, R, D=3):
     """The least k from which :func:`nnk` takes a select-then-sort path
     below k = N for R rows of D coordinates in ``dtype`` (float32 or
     float64): the crossovers that ``probes/knn_probes.py --crossover``
-    measures, held in ``csrc/knn.cu`` alone (kSelectK, kSelectK64 and
-    kSelectKSmallR for the register-tiled family, by R; kWideSelectK for
+    measures, held in ``csrc/knn.cu`` alone (kSelectK, kSelectK64,
+    kSelectKSmallR and kSelectKSmallR64 for the register-tiled family, by
+    R; kWideSelectK for
     the float32 wide family, the same at both measured widths;
     kWideSelectK64 and kWideSelectK64Long for the float64 one, by D).
     Builds the library."""
@@ -436,16 +440,16 @@ def nnk_plan(R, N, D, k, dtype):
     """How :func:`nnk` runs on the current CUDA device for R rows, N
     neighbours of D coordinates and k (float32 or float64): ``route``
     ``'select'`` (a select-then-sort path: at k >= :func:`select_k` or
-    k = N, but float64 past 8 coordinates up to k = 16) or ``'scan'``
-    (the threshold scans and their merge); ``family``
-    ``'register-tiled'`` (D <= 8), ``'tensor-core'`` (float32 past 8
-    coordinates), ``'simt-f64'`` (float64 past 8, k <= 16) or
-    ``'tensor-core-f64'`` (float64 past 8, k > 16: DMMA); ``select_k``;
-    the ``splits`` of the neighbour range; and the bytes the wrapper
-    allocates beside the outputs: ``scratch_bytes`` (the select path's,
-    with the split clouds in the tensor-core families, or the tensor-core
-    scans' split clouds) and ``part_bytes`` (the scans' partial lists,
-    ``splits * k * R`` pairs)."""
+    k = N) or ``'scan'`` (the threshold scans and their merge);
+    ``family`` ``'register-tiled'`` (D <= 8), ``'tensor-core'`` (float32
+    past 8 coordinates) or ``'tensor-core-f64'`` (float64 past 8: DMMA);
+    ``select_k``; the ``splits`` of the neighbour range; and the bytes the
+    wrapper allocates beside the outputs: ``scratch_bytes`` (the select
+    path's, with the split clouds in the tensor-core families, the
+    tensor-core scans' split clouds, or the register-tiled warp merge
+    scan's staged neighbours past k = 16) and ``part_bytes`` (the scans'
+    partial lists, ``splits * k * R`` pairs; none where the warp merge
+    scan takes one split, which writes its lists' first k itself)."""
     lib = _kernel_lib()
     f64 = int(dtype == torch.float64)
     fam = lib.ppt_nnk_family(R, N, D, k, f64)
@@ -466,8 +470,10 @@ def nnk_plan(R, N, D, k, dtype):
     floats = ctypes.c_longlong()
     raise_on(lib, lib.ppt_knn_scratch(R, N, D, k, f64, ctypes.byref(floats)),
              'knn scratch')
+    one = info['family'] == 'register-tiled' and k > 16 and splits == 1
     return dict(route='scan', splits=splits, scratch_bytes=4 * floats.value,
-                part_bytes=splits * k * R * ((8 if f64 else 4) + 4), **info)
+                part_bytes=0 if one else
+                splits * k * R * ((8 if f64 else 4) + 4), **info)
 
 
 def _launch_nnk(ref, nbr, k):
@@ -504,9 +510,8 @@ def _launch_nnk(ref, nbr, k):
 
 def _nnk_wide_merge(ref, nbr, k):
     """The wide families' merge scan at any ``1 <= k <= N``, whatever
-    :func:`select_k` says (float32: the tensor-core scans, lists merged
-    past k = 16; float64: the DMMA merge scan past k = 16, the SIMT scans
-    up to it): what ``chip_smoke.py``, the card tests and
+    :func:`select_k` says (the tensor-core scans, float32 in three-pass
+    TF32, float64 on DMMA; lists merged past k = 16): what ``chip_smoke.py``, the card tests and
     ``probes/knn_probes.py --crossover`` hold the wide select paths to,
     bit for bit (both rank the same s).  CUDA clouds of more than 8
     coordinates; counted in ``NNK_LAUNCHES``.  Nothing on :func:`nnk`'s
@@ -548,7 +553,7 @@ def nn1(ref, nbr):
     CUDA tensors launch the kernel of ``csrc/knn.cu`` on the current
     stream (two float32 or two float64 clouds, contiguous, of any number
     of coordinates: the register-tiled scan up to 8, the wide scan past
-    it, on the tensor cores in float32; anything else raises); CPU
+    it, on the tensor cores (float64 on DMMA); anything else raises); CPU
     tensors run :func:`_nn1_torch`.  On a near-tie the two may return
     different neighbours (module docstring).
     """
@@ -565,8 +570,8 @@ def nnk(ref, nbr, k):
 
     CUDA tensors launch the kernel of ``csrc/knn.cu`` (as :func:`nn1`, at
     any ``k``: past 16 the lists leave the registers, and from
-    ``k = select_k(dtype, R, D)`` on, and at ``k = N`` (float64 past 8
-    coordinates: past 16), it selects, then sorts; :func:`nnk_plan`);
+    ``k = select_k(dtype, R, D)`` on, and at ``k = N``, it selects, then
+    sorts; :func:`nnk_plan`);
     CPU tensors run :func:`_nnk_torch`.  On a near-tie the two may return different
     neighbours (module docstring).
     """

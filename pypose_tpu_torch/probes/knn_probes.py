@@ -11,10 +11,14 @@ has it).  Then, at FPFH-like 50,000 x 50,000
 k = 2 on the SIFT clouds (Lowe's ratio test): each case held to the plain
 version by the near-tie rule, and timed with CUDA events (median of 7,
 the 50 MB L2 flushed before each launch).  Given ``--old PATH``, a
-``knn.cu`` of the earlier C interface (``ppt_nn1``/``ppt_nnk`` without a
-scratch argument; e.g. ``git show 70b6c1b:pypose_tpu_torch/csrc/knn.cu``,
-the SIMT wide scans) is built beside it and each case is timed old, new,
-new, old in one process.  ``--variants`` also times the text edits of
+``knn.cu`` of this C interface (``ppt_knn_scratch`` taking k; e.g. ``git
+show 89bb3cd:pypose_tpu_torch/csrc/knn.cu``) is built beside it and
+instead the cases of ``OLD_CASES`` are timed old, new, new, old in one
+process: the [knn-bigk] merge-scan cases of the register-tiled family,
+held bit for bit to the old build, and the float64 [knn-wide] cases,
+each build held to the plain version by the near-tie rule at F64_TOL
+(with ``--crossover`` both run, every library built at once).
+``--variants`` also times the text edits of
 ``csrc/knn.cu`` in ``VARIANTS`` (no tensor-core products, no copies into
 shared memory, two stages, one consumer warpgroup): where the scans'
 time goes.  ``--wgmma`` first measures how many cycles of an SM one
@@ -24,16 +28,17 @@ DMMA scan assumes (an exact integer product through each float64
 ``mma.sync`` shape), measures each shape's rate alone, and the
 fragments' shared-memory loads in the panels' order against coordinate
 order (bytes a cycle an SM: bank conflicts; ``probes/dmma_rate.cu``).  ``--bigk`` instead times nnk at k > 16 on
-``chip_smoke.py``'s [knn-bigk] float32 cases against ``BIGK_VARIANTS``
-(all, or those named after ``--bigk``), the choices of that path: the
-register-tiled scan's buffers, its splits, its merge's rounds.
+``chip_smoke.py``'s [knn-bigk] cases on the warp merge scan against
+``BIGK_VARIANTS`` (all, or those named after ``--bigk``), the choices of
+that path: its merge rounds, ring stages and blocks an SM.
 ``--crossover`` times each family's two paths past k = 16, the merge
 scan and the select-then-sort path, each forced by a build of
 ``csrc/knn.cu`` with other crossover constants (``CROSSOVER_VARIANTS``),
 on ``CROSSOVER_SHAPES`` (all, or those of the clouds named) at each k,
 and checks that they give the same bits: where ``kSelectK``,
-``kSelectK64``, ``kSelectKSmallR``, ``kWideSelectK``, ``kWideSelectK64``
-and ``kWideSelectK64Long`` come from.  ``--sort-all`` times k = N both ways, the fused sort kernel and the
+``kSelectK64``, ``kSelectKSmallR``, ``kSelectKSmallR64``,
+``kWideSelectK``, ``kWideSelectK64`` and ``kWideSelectK64Long`` come
+from.  ``--sort-all`` times k = N both ways, the fused sort kernel and the
 general select path (``SORT_ALL_VARIANTS``).  ``--cases [TAG ...]`` runs ``chip_smoke.py``'s [knn-bigk] phase on
 the cases named.  ``--breakdown`` traces one call of each [knn-bigk] case on
 the select path and sums its device time by kernel (sample and counting
@@ -67,45 +72,65 @@ CASES = (('fpfh', 33, 50_000, 50_000, 1), ('fpfh', 33, 50_000, 50_000, 8),
 
 
 def old_lib(path):
-    """The earlier knn.cu built with the same flags, its two entry points
-    bound (their C interface without a scratch argument)."""
-    out = _build.BUILD / 'libknn_old.so'
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-o', str(out),
-                    str(path)], check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for fn, args in (('ppt_nn1_splits', [I] * 4),
-                     ('ppt_nn1', [P, P] + [I] * 5 + [P] * 5),
-                     ('ppt_nnk_splits', [I] * 5),
-                     ('ppt_nnk', [P, P] + [I] * 6 + [P] * 5)):
-        getattr(lib, fn).argtypes = args
-        getattr(lib, fn).restype = I
-    return lib
+    """The earlier knn.cu (this C interface) built with the same flags
+    (once: the card tests' library of the same source is reused) and bound
+    as :func:`variant_libs` binds a variant."""
+    import hashlib
+    digest = hashlib.sha1(Path(path).read_bytes()).hexdigest()[:12]
+    out = _build.BUILD / f'libknn_old_{digest}.so'   # as the card tests name it
+    if not out.exists():
+        _build.BUILD.mkdir(exist_ok=True)
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-o',
+                        str(out), str(path)], check=True, capture_output=True,
+                       text=True)
+    return _bind(out)
 
 
-def old_call(lib, ref, nbr, k):
-    (R, D), N = ref.shape, nbr.shape[0]
-    dev = ref.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    d2 = torch.empty((R, k), device=dev)
-    idx = torch.empty((R, k), dtype=torch.int64, device=dev)
-    if k == 1:
-        sp = lib.ppt_nn1_splits(R, N, D, 0)
-        ps = torch.empty((sp, R), device=dev)
-        pi = torch.empty((sp, R), dtype=torch.int32, device=dev)
-        rc = lib.ppt_nn1(ref.data_ptr(), nbr.data_ptr(), R, N, D, 0, sp,
-                         ps.data_ptr(), pi.data_ptr(), d2.data_ptr(),
-                         idx.data_ptr(), stream)
-    else:
-        sp = lib.ppt_nnk_splits(R, N, D, k, 0)
-        ps = torch.empty((sp, k, R), device=dev)
-        pi = torch.empty((sp, k, R), dtype=torch.int32, device=dev)
-        rc = lib.ppt_nnk(ref.data_ptr(), nbr.data_ptr(), R, N, D, k, 0, sp,
-                         ps.data_ptr(), pi.data_ptr(), d2.data_ptr(),
-                         idx.data_ptr(), stream)
-    if rc:
-        raise RuntimeError(f'old knn launch failed: {rc}')
-    return d2, idx
+# --old's cases: (tag, clouds of chip_smoke.bigk_clouds, k, bit-equal):
+# the register-tiled merge scan's [knn-bigk] cases (the same bits in both
+# builds), and [knn-wide]'s float64 FPFH-like clouds at nn1 and k = 8 (the
+# earlier SIMT scans against DMMA: each held to the plain version).
+OLD_CASES = (('normals', 'icp', 30, True), ('outliers', 'icp', 50, True),
+             ('fpfh-nbhd', 'icp', 100, True), ('d6-f64', 'd6-f64', 30, True),
+             ('fpfh-f64 nn1', 'fpfh-f64', 1, False),
+             ('fpfh-f64 k=8', 'fpfh-f64', 8, False))
+
+
+def against_old(dev, old):
+    """OLD_CASES, each timed old, new, new, old (L2 flushed, median of 7)
+    and held to the old build bit for bit or, with it, to the plain
+    version by the near-tie rule (float64 at F64_TOL)."""
+    from chip_smoke import F64_TOL, bigk_clouds, flushed_ms
+    clouds = bigk_clouds(dev)
+    for tag, cl, k, same in OLD_CASES:
+        ref, nbr = clouds[cl]
+        tol = F64_TOL if ref.dtype == torch.float64 else {}
+        d_o, i_o = variant_call(old, ref, nbr, k)
+        d_n, i_n = variant_call(_bind(_build.BUILD / 'libknn.so'), ref, nbr,
+                                k)
+        if same:
+            check = torch.equal(d_o, d_n) and torch.equal(i_o, i_n)
+            line = f'bit-equal {check}'
+        else:
+            i_p = (K._nn1_torch(ref, nbr)[1][:, None] if k == 1
+                   else K._nnk_torch(ref, nbr, k)[1])
+            rules = [nnk_tolerance_failures(ref, nbr, d, i, i_p, **tol)
+                     for d, i in ((d_o, i_o), (d_n, i_n))]
+            check = all(r['index_failures'] == r['repeat_failures']
+                        == r['d2_failures'] == 0 for r in rules)
+            line = f'old rule {rules[0]}, new rule {rules[1]}'
+        del d_o, i_o, d_n, i_n
+        fo = lambda: variant_call(old, ref, nbr, k)  # noqa: E731
+        fn = ((lambda: K.nn1(ref, nbr)) if k == 1 else
+              (lambda: K.nnk(ref, nbr, k)))
+        t = [flushed_ms(f)[0] for f in (fo, fn, fn, fo)]
+        print(f'[old] {tag} {ref.dtype} [{ref.shape[0]}, {ref.shape[1]}] x '
+              f'[{nbr.shape[0]}, {nbr.shape[1]}], k={k}: old {t[0]:.4f} '
+              f'{t[3]:.4f}, new {t[1]:.4f} {t[2]:.4f} ms (median of 7, L2 '
+              f'flushed); new/old {(t[1] + t[2]) / (t[0] + t[3]):.3f}; '
+              f'{line}', flush=True)
+        if not check:
+            raise SystemExit(f'--old {tag}: {line}')
 
 
 # Variants of csrc/knn.cu for --variants, each a text edit of the source:
@@ -126,28 +151,23 @@ VARIANTS = {
                   'constexpr int kMaxChunkStages = 2;')],
     'groups-1': [('constexpr int kGroups = 2;', 'constexpr int kGroups = 1;')],
 }
-# Variants for --bigk, the choices of nnk at k > 16: its register-tiled
-# buffers at 64 candidates a row (kBuf) in place of 32, one split
-# whatever the wave, one list entry a lane a merge round, and the select
-# path's counting passes at one row a lane (kCountRT).
+# Variants for --bigk, the warp merge scan's choices: its merge rounds at
+# four list entries a lane (kRound's), its ring at two stages, its blocks
+# at two an SM (the register cap of 128).
 BIGK_VARIANTS = {
-    'cap-64': [('cnt + __popc(m) > kBigBatch);', 'cnt + __popc(m) > kBuf);'),
-               ('R, row0,\n                      kBigBatch);', 'R, row0);'),
-               ('big_bytes(kThreads, kThreads, sizeof(T), kBigBatch);',
-                'big_bytes(kThreads, kThreads, sizeof(T));'),
-               ('(D % 4 == 0 ? 1 : 0)), kBigBatch);',
-                '(D % 4 == 0 ? 1 : 0)), kBuf);')],
-    'one-split': [('  const int want = std::max(1, sms * per_sm / row_blocks);',
-                   '  const int want = 1;')],
-    'round-1': [('constexpr int kRound = 4;', 'constexpr int kRound = 1;')],
-    'count-rt-1': [('constexpr int kCountRT = 2;',
-                    'constexpr int kCountRT = 1;')],
+    'warp-round-4': [('constexpr int kWarpRound = 1;',
+                      'constexpr int kWarpRound = 4;')],
+    'ring-2': [('constexpr int kRingStages = 4;',
+                'constexpr int kRingStages = 2;')],
+    'blocks-2': [('__launch_bounds__(32 * (kMaxWarps + 1), 3)',
+                  '__launch_bounds__(32 * (kMaxWarps + 1), 2)')],
 }
 # Variants for --crossover: each family's two paths past k = 16 forced
 # (every crossover constant), the merge scans (the select paths only at
 # k = N) and the select-then-sort paths (at every k > 16).
-_CROSSOVERS = ('kSelectK', 'kSelectK64', 'kSelectKSmallR', 'kWideSelectK',
-               'kWideSelectK64', 'kWideSelectK64Long')
+_CROSSOVERS = ('kSelectK', 'kSelectK64', 'kSelectKSmallR',
+               'kSelectKSmallR64', 'kWideSelectK', 'kWideSelectK64',
+               'kWideSelectK64Long')
 CROSSOVER_VARIANTS = {
     name: [(f'constexpr int {c} = ', f'constexpr int {c} = {k}; //')
            for c in _CROSSOVERS]
@@ -165,10 +185,14 @@ CROSSOVER_SHAPES = (
      (17, 24, 32, 48, 64, 128, 256, 512, 1024)),
     ('sift-f64 10k x 20k', 'sift-f64',
      (32, 64, 96, 128, 192, 256, 512, 1024)),
-    ('10k x 100k', 'range', (64, 100, 128, 256, 512, 1024)),
-    ('100k x 100k', 'icp', (64, 100, 128, 256, 512, 1024)),
-    ('100k x 100k f64', 'icp-f64', (64, 100, 128, 256, 512, 1024)),
-    ('d6-f64 10k x 10k', 'd6-f64', (30, 64, 100, 128, 256, 512, 1024)))
+    ('10k x 100k', 'range',
+     (64, 100, 128, 256, 320, 384, 448, 512, 1024, 2048)),
+    ('100k x 100k', 'icp',
+     (64, 100, 128, 256, 320, 384, 448, 512, 1024, 2048)),
+    ('100k x 100k f64', 'icp-f64',
+     (64, 100, 128, 256, 320, 384, 448, 512, 1024, 2048)),
+    ('d6-f64 10k x 10k', 'd6-f64',
+     (30, 64, 100, 128, 256, 320, 384, 448, 512, 1024, 2048)))
 # --sort-all: k = N within one block's sort, the fused kernel
 # (sel_sort_all: scores and sorts) against the general path (sel_init, sel_emit, sel_sort)
 # with the early returns that send k = N to the fused kernel taken out;
@@ -183,14 +207,16 @@ SORT_ALL_SHAPES = (('full 4096^2', 'full', 4096), ('2048^2', 'full', 2048),
                    ('8192^2', 'icp', 8192), ('d6-f64 4096^2', 'd6-f64', 4096))
 
 
-def variant_libs(variants):
-    """csrc/knn.cu with each variant's edits ({name: [(old, new)]}), built
-    (one nvcc each, all at once) and bound as ops/knn.py binds the real
-    one."""
+def variant_libs(variants, sources=None):
+    """csrc/knn.cu with each variant's edits ({name: [(old, new)]}), and
+    each other source of ``sources`` ({name: path}) as it is, built (one
+    nvcc each, all at once) and bound as ops/knn.py binds the real one."""
     src = (_build.CSRC / 'knn.cu').read_text()
     procs = {}
-    for name, edits in variants.items():
-        text = src
+    texts = {name: Path(path).read_text()
+             for name, path in (sources or {}).items()}
+    for name, edits in {**variants, **{n: [] for n in texts}}.items():
+        text = texts.get(name, src)
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f'variant {name}: {old!r} not in knn.cu')
@@ -202,24 +228,30 @@ def variant_libs(variants):
              str(path.with_suffix('.so')), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    P, I = ctypes.c_void_p, ctypes.c_int
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f'variant {name}: {log}')
-        lib = ctypes.CDLL(str(_build.BUILD / f'knn_{name}.so'))
-        for fn, args in (('ppt_nn1_splits', [I] * 4),
-                         ('ppt_knn_scratch',
-                          [I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
-                         ('ppt_nn1', [P, P] + [I] * 5 + [P] * 6),
-                         ('ppt_nnk_splits', [I] * 5),
-                         ('ppt_nnk_select_scratch',
-                          [I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
-                         ('ppt_nnk', [P, P] + [I] * 6 + [P] * 6)):
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = I
-        libs[name] = lib
+        (_build.BUILD / f'knn_{name}.log').write_text(log)  # ptxas' report
+        libs[name] = _bind(_build.BUILD / f'knn_{name}.so')
     return libs
+
+
+def _bind(path):
+    """A built knn.cu's entry points that :func:`variant_call` calls."""
+    lib = ctypes.CDLL(str(path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (('ppt_nn1_splits', [I] * 4),
+                     ('ppt_knn_scratch',
+                      [I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
+                     ('ppt_nn1', [P, P] + [I] * 5 + [P] * 6),
+                     ('ppt_nnk_splits', [I] * 5),
+                     ('ppt_nnk_select_scratch',
+                      [I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]),
+                     ('ppt_nnk', [P, P] + [I] * 6 + [P] * 6)):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = I
+    return lib
 
 
 def variant_call(lib, ref, nbr, k):
@@ -258,22 +290,27 @@ def variant_call(lib, ref, nbr, k):
 
 
 def bigk(dev, libs):
-    """The float32 [knn-bigk] cases (chip_smoke.BIGK_CASES) timed
-    against each variant of ``libs`` in turns (this build, the variant,
-    the variant, this build; L2 flushed, median of 7), each held to the
-    plain version by the near-tie rule."""
-    from chip_smoke import BIGK_CASES, bigk_clouds, flushed_ms
+    """The [knn-bigk] cases on the warp merge scan (chip_smoke.BIGK_CASES
+    of the register-tiled family whose path is the scan) timed against
+    each variant of ``libs`` in turns (this build, the variant, the
+    variant, this build; L2 flushed, median of 7), each held to the plain
+    version by the near-tie rule (float64 at F64_TOL)."""
+    from chip_smoke import BIGK_CASES, F64_TOL, bigk_clouds, flushed_ms
     clouds = bigk_clouds(dev)
     for tag, cl, k, family, _ in BIGK_CASES:
         ref, nbr = clouds[cl]
-        if ref.dtype != torch.float32:
+        (R, D), N = ref.shape, nbr.shape[0]
+        if not family.startswith('register-tiled') or \
+                K.nnk_plan(R, N, D, k, ref.dtype)['route'] != 'scan':
             continue
+        tol = F64_TOL if ref.dtype == torch.float64 else {}
         i_p = K._nnk_torch(ref, nbr, k)[1]
-        got = nnk_tolerance_failures(ref, nbr, *K.nnk(ref, nbr, k), i_p)
+        got = nnk_tolerance_failures(ref, nbr, *K.nnk(ref, nbr, k), i_p,
+                                     **tol)
         line = f'[probe] {tag} ({family}), k={k}: {got}'
         for name, lib in libs.items():
             vgot = nnk_tolerance_failures(
-                ref, nbr, *variant_call(lib, ref, nbr, k), i_p)
+                ref, nbr, *variant_call(lib, ref, nbr, k), i_p, **tol)
             this = lambda: K.nnk(ref, nbr, k)  # noqa: E731
             var = lambda: variant_call(lib, ref, nbr, k)  # noqa: E731
             t = [flushed_ms(f)[0] for f in (this, var, var, this)]
@@ -513,8 +550,8 @@ def main():
                     help='chip_smoke.py\'s [knn-bigk] phase on the cases '
                          'of BIGK_CASES named (all if none)')
     ap.add_argument('--bigk', nargs='*', metavar='VARIANT',
-                    help='only the [knn-bigk] float32 cases against '
-                         'BIGK_VARIANTS (all, or those named)')
+                    help='only the [knn-bigk] cases on the warp merge scan '
+                         'against BIGK_VARIANTS (all, or those named)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('knn_probes: needs an NVIDIA GPU')
@@ -529,7 +566,8 @@ def main():
     print(f'[probe] {smi}; torch {torch.__version__}', flush=True)
     K._kernel_lib()
     for match, op in (('wide_tc_scanIf', 'HGMMA'), ('tf32_split', 'HGMMA'),
-                      ('wide_tc_scanId', 'DMMA'), ('f64_panels', 'DMMA')):
+                      ('wide_tc_scanId', 'DMMA'), ('f64_panels', 'DMMA'),
+                      ('nnk_warp_scan', 'ATOMS')):
         for name, (used, spill, n) in compiled_kernels(
                 _build.BUILD / 'libknn.so', (match,), op).items():
             print(f'[probe] {name}: {used}; {spill}; {op} in SASS: {n}',
@@ -552,7 +590,15 @@ def main():
                   f'SM: {per:.1f} cycles a wgmma an SM, {mac:.0f} MAC a cycle '
                   f'an SM ({mac / 1024:.2f} of the 1024 of 495 TFLOP/s at '
                   f'~1.83 GHz)', flush=True)
-    old = old_lib(args.old) if args.old else None
+    if args.old:
+        if args.crossover is None:
+            against_old(dev, old_lib(args.old))
+            return
+        # both: every build at once
+        libs = variant_libs(CROSSOVER_VARIANTS, {'old': args.old})
+        against_old(dev, libs.pop('old'))
+        crossover(dev, libs, args.crossover)
+        return
     variants = variant_libs(VARIANTS) if args.variants else {}
     if args.crossover is not None or args.sort_all:
         libs = variant_libs({  # one build of each, all at once
@@ -587,15 +633,7 @@ def main():
         got = nnk_tolerance_failures(ref, nbr, d_k, i_k, i_p)
         got['max_err_over_tol'] = d2_err_over_tol(ref, nbr, d_k, i_k)
         new_ms = lambda: K.nnk(ref, nbr, k)  # noqa: E731
-        if old is not None:
-            o_d, o_i = old_call(old, ref, nbr, k)
-            got_old = nnk_tolerance_failures(ref, nbr, o_d, o_i, i_p)
-            old_ms = lambda: old_call(old, ref, nbr, k)  # noqa: E731
-            t = [flushed_ms(f)[0] for f in (old_ms, new_ms, new_ms, old_ms)]
-            times = (f'old {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, old '
-                     f'{t[3]:.4f} ms; old rule {got_old}')
-        else:
-            times = f'new {flushed_ms(new_ms)[0]:.4f} ms'
+        times = f'new {flushed_ms(new_ms)[0]:.4f} ms'
         for v, vlib in variants.items():
             t = flushed_ms(lambda: variant_call(vlib, ref, nbr, k))[0]
             times += f'; {v} {t:.4f} ms'

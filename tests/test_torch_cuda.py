@@ -459,8 +459,8 @@ def test_descriptor_kernels_exact_ties(cuda, D):
 
 def test_descriptor_scratch_sizes(cuda):
     """The wide merge scans' scratch on the tensor cores: the split
-    clouds (float64: its panels, past k = 16 alone), zero for the
-    register-tiled scans and the float64 SIMT scans."""
+    clouds (float64: its panels, at every k), zero for the register-tiled
+    scans."""
     import ctypes
     lib = knn._kernel_lib()
     n = ctypes.c_longlong()
@@ -475,15 +475,16 @@ def test_descriptor_scratch_sizes(cuda):
     assert n.value == (2 + 2) * (2 * 64 * 128 + 2 * 64)
     assert lib.ppt_knn_scratch(100, 100, 8, 1, 0, ctypes.byref(n)) == 0
     assert n.value == 0
-    # the float64 SIMT scans (nn1 and k <= 16) read none
+    # float64 nn1 and k <= 16 read the same panels (DMMA)
     for k in (1, 16):
         assert lib.ppt_knn_scratch(100, 100, 128, k, 1, ctypes.byref(n)) == 0
-        assert n.value == 0
+        assert n.value == (2 + 2) * (2 * 64 * 128 + 2 * 64)
     plan = knn.nnk_plan(100, 100, 128, 16, torch.float64)
-    assert (plan['family'], plan['scratch_bytes']) == ('simt-f64', 0)
+    assert (plan['family'], plan['scratch_bytes']) == ('tensor-core-f64',
+                                                       4 * n.value)
 
 
-# k > 16: the lists off the registers (csrc/knn.cu:nnk_scan_big,
+# k > 16: the lists off the registers (csrc/knn.cu:nnk_warp_scan,
 # wide_tc_scan<float, kBig> and wide_tc_scan<double, kBig>, DMMA), one
 # launch each, under the near-tie rules (float64 at F64_TOL).
 BIG_KS = (17, 31, 32, 33, 64, 100, 257, 1024)
@@ -510,9 +511,8 @@ def _assert_big(ref, nbr, k, **tol):
 def test_nnk_big_k_matches_plain(cuda, k, D, dtype):
     """Every k > 16 family (register-tiled up to D = 8, the float32
     tensor-core and float64 DMMA wide scans past it) on clouds of 333 x
-    3003 (R not a multiple of a block's rows); the lists live in global
-    memory at every k, and k = 257 and 1024 merge many buffers into
-    them."""
+    3003 (R not a multiple of a block's rows); k = 257 and 1024 merge
+    many buffers into the lists."""
     ref, nbr = (a.to(dtype) for a in _clouds(333, 3003, cuda, seed=k + D,
                                              D=D))
     _assert_big(ref, nbr, k, **(F64_TOL if dtype == torch.float64 else {}))
@@ -571,11 +571,14 @@ def test_knn_k30_launches_nnk_never_the_gram_path(cuda, monkeypatch):
 
 def _old_nnk_lib(path):
     """An earlier csrc/knn.cu (its C interface with a scratch argument,
-    as since the tensor-core scans) built with the same flags."""
+    as since the tensor-core scans; ``ppt_knn_scratch`` taking k or not,
+    as its source says) built with the same flags."""
     import ctypes
     import hashlib
     from pypose_tpu_torch.ops import _build
     text = open(path, 'rb').read()
+    takes_k = b'int ppt_knn_scratch(int R, int N, int D, int k,' in text
+    selects = b'int ppt_nnk_select_scratch(' in text
     out = _build.BUILD / f'libknn_old_{hashlib.sha1(text).hexdigest()[:12]}.so'
     if not out.exists():
         _build.BUILD.mkdir(exist_ok=True)
@@ -586,16 +589,23 @@ def _old_nnk_lib(path):
     lib = ctypes.CDLL(str(out))
     P, I = ctypes.c_void_p, ctypes.c_int
     for fn, args in (('ppt_knn_scratch',
-                      [I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]),
+                      [I] * (5 if takes_k else 4)
+                      + [ctypes.POINTER(ctypes.c_longlong)]),
                      ('ppt_nnk_splits', [I] * 5),
                      ('ppt_nnk', [P, P] + [I] * 6 + [P] * 6)):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = I
+    if selects:
+        lib.ppt_nnk_select_scratch.argtypes = [I] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.ppt_nnk_select_scratch.restype = I
+    lib.takes_k, lib.selects = takes_k, selects
     return lib
 
 
 def _nnk_with(lib, ref, nbr, k):
-    """ops/knn.py:_launch_nnk through ``lib``."""
+    """ops/knn.py:_launch_nnk through ``lib`` (the select path's scratch
+    where ``lib`` has one and takes it at k)."""
     import ctypes
     (R, D), N = ref.shape, nbr.shape[0]
     f64 = int(ref.dtype == torch.float64)
@@ -604,8 +614,14 @@ def _nnk_with(lib, ref, nbr, k):
     part_i = torch.empty((splits, k, R), dtype=torch.int32,
                          device=ref.device)
     floats = ctypes.c_longlong()
-    assert lib.ppt_knn_scratch(R, N, D, f64, ctypes.byref(floats)) == 0
-    scratch = torch.empty((max(1, floats.value),), device=ref.device)
+    assert lib.ppt_knn_scratch(R, N, D, *((k,) if lib.takes_k else ()), f64,
+                               ctypes.byref(floats)) == 0
+    sel = ctypes.c_longlong(-1)
+    if lib.selects:
+        assert lib.ppt_nnk_select_scratch(R, N, D, k, f64,
+                                          ctypes.byref(sel)) == 0
+    scratch = torch.empty((max(1, 4 * floats.value, sel.value),),
+                          dtype=torch.uint8, device=ref.device)
     d2 = torch.empty((R, k), dtype=ref.dtype, device=ref.device)
     idx = torch.empty((R, k), dtype=torch.int64, device=ref.device)
     assert lib.ppt_nnk(ref.data_ptr(), nbr.data_ptr(), R, N, D, k, f64,
@@ -615,13 +631,16 @@ def _nnk_with(lib, ref, nbr, k):
     return d2, idx
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('D', [3, 33])
+@pytest.mark.parametrize('D,dtype', [(3, torch.float32),
+                                     (33, torch.float32),
+                                     (3, torch.float64)])
 def test_small_k_bit_equal_to_an_earlier_build(cuda, D, dtype):
     """k = 2, 8, 16 give the same bits as an earlier csrc/knn.cu (the
     instantiations of the register lists), built beside this one from
     the file named by $PPT_KNN_OLD_CU (e.g. ``git show
-    66cd375:pypose_tpu_torch/csrc/knn.cu``)."""
+    66cd375:pypose_tpu_torch/csrc/knn.cu``).  Float64 past 8 coordinates
+    now sums on DMMA, in another order than the earlier SIMT scans:
+    test_wide_f64_small_k_bit_equal_to_the_dmma_merge_scan holds it."""
     import os
     path = os.environ.get('PPT_KNN_OLD_CU')
     if not path:
@@ -633,6 +652,95 @@ def test_small_k_bit_equal_to_an_earlier_build(cuda, D, dtype):
         d_o, i_o = _nnk_with(old, ref, nbr, k)
         d_n, i_n = knn.nnk(ref, nbr, k)
         assert torch.equal(i_o, i_n) and torch.equal(d_o, d_n), (D, k)
+
+
+@pytest.mark.parametrize('D', [9, 33, 64, 128, 300])
+def test_wide_f64_small_k_bit_equal_to_the_dmma_merge_scan(cuda, D):
+    """Float64 nn1 and nnk up to k = 16 past 8 coordinates run on DMMA
+    (wide_tc_scan<double, K>): under the near-tie rule at F64_TOL against
+    the plain version, and bit for bit the DMMA merge scan's first
+    columns, which forms the same s in the same order: nnk(16) is
+    nnk(32)[:, :16] and nn1 is nnk(2)[:, :1]."""
+    ref, nbr = (_sift_clouds(1001, 3003, cuda, seed=D) if D == 128 else
+                _descriptor_clouds(1001, 3003, D, cuda, seed=D))
+    ref, nbr = ref.double(), nbr.double()
+    for k in (2, 4, 8, 16, 32):
+        assert knn.nnk_plan(1001, 3003, D, k, torch.float64)['family'] == \
+            'tensor-core-f64'
+    outs = {k: _assert_big(ref, nbr, k, **F64_TOL) for k in (2, 4, 16, 32)}
+    assert knn.nnk_plan(1001, 3003, D, 32, torch.float64)['route'] == 'scan'
+    d1, i1 = knn.nn1(ref, nbr)
+    got = nnk_tolerance_failures(ref, nbr, d1[:, None], i1[:, None],
+                                 knn._nn1_torch(ref, nbr)[1][:, None],
+                                 **F64_TOL)
+    assert got['index_failures'] == got['d2_failures'] == 0, got
+    assert torch.equal(outs[16][0], outs[32][0][:, :16])
+    assert torch.equal(outs[16][1], outs[32][1][:, :16])
+    assert torch.equal(d1, outs[2][0][:, 0])
+    assert torch.equal(i1, outs[2][1][:, 0])
+    assert torch.equal(outs[4][1], outs[16][1][:, :4])
+
+
+# The register-tiled merge scan past k = 16 (csrc/knn.cu:nnk_warp_scan):
+# its k values, each Tile layout (D = 1-3, 4, 5-7 and 8), both types,
+# with one split and with several.
+WARP_KS = (17, 30, 50, 100)
+WARP_SHAPES = ((333, 20_011), (20_011, 3_003))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('D', [1, 3, 4, 6, 8])
+@pytest.mark.parametrize('R,N', WARP_SHAPES)
+def test_warp_merge_scan_bit_equal_to_an_earlier_build(cuda, R, N, D, dtype):
+    """The warp merge scan at k = 17, 30, 50, 100 and select_k - 1, on
+    ragged R and N (333 rows against 20,011 neighbours: several splits;
+    20,011 rows against 3,003: one split, no merge pass), gives the same
+    d^2 and index bits as an earlier csrc/knn.cu's merge scan past k = 16
+    (the file named by $PPT_KNN_OLD_CU, e.g. ``git show
+    89bb3cd:pypose_tpu_torch/csrc/knn.cu``): both rank the same s, by the
+    same FMA chain, in the same (s, index) order; and holds the near-tie
+    rule against the plain version (float64 at F64_TOL)."""
+    import os
+    ref, nbr = (a.to(dtype) for a in _clouds(R, N, cuda, seed=R + D, D=D))
+    sel = knn.select_k(dtype, R, D)
+    splits = set()
+    for k in sorted({k for k in WARP_KS if k < sel} | {sel - 1}):
+        plan = knn.nnk_plan(R, N, D, k, dtype)
+        assert (plan['route'], plan['family']) == ('scan', 'register-tiled')
+        assert (plan['part_bytes'] == 0) == (plan['splits'] == 1)
+        splits.add(plan['splits'] > 1)
+        d_n, i_n = _assert_big(ref, nbr, k, **(F64_TOL if dtype ==
+                                               torch.float64 else {}))
+        path = os.environ.get('PPT_KNN_OLD_CU')
+        if path:
+            d_o, i_o = _nnk_with(_old_nnk_lib(path), ref, nbr, k)
+            assert torch.equal(i_o, i_n) and torch.equal(d_o, d_n), k
+    assert splits == {R < N}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('D', [1, 3, 8])
+def test_warp_merge_scan_exact_ties(cuda, D, dtype):
+    """Small-integer clouds, every neighbour eight times: runs of equal
+    scores far longer than a batch, across batches, merges and splits;
+    the indices and d^2 equal the plain version's (lower index first) at
+    k = 17, 64 and 100 (those below select_k) and select_k - 1, and an
+    earlier build's where $PPT_KNN_OLD_CU names one."""
+    import os
+    gen = torch.Generator().manual_seed(D)
+    ref = torch.randint(0, 4, (701, D), generator=gen).to(dtype).to(cuda)
+    base = torch.randint(0, 4, (2_501, D), generator=gen).to(dtype)
+    nbr = base.repeat(8, 1).to(cuda)
+    path = os.environ.get('PPT_KNN_OLD_CU')
+    sel = knn.select_k(dtype, 701, D)
+    for k in sorted({k for k in (17, 64, 100) if k < sel} | {sel - 1}):
+        assert knn.nnk_plan(701, 20_008, D, k, dtype)['route'] == 'scan'
+        d_k, i_k = knn.nnk(ref, nbr, k)
+        d_p, i_p = knn._nnk_torch(ref, nbr, k)
+        assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p), k
+        if path:
+            d_o, i_o = _nnk_with(_old_nnk_lib(path), ref, nbr, k)
+            assert torch.equal(i_o, i_k) and torch.equal(d_o, d_k), k
 
 
 # The select-then-sort paths (csrc/knn.cu:launch_nnk_select,
@@ -675,10 +783,11 @@ def test_select_path_bit_equal_to_an_earlier_build(cuda, D, dtype):
 
 def test_select_route_starts_at_select_k(cuda):
     """The register-tiled family takes the select path from select_k on
-    (csrc/knn.cu's crossovers, each past 16, lower at 10,000 rows than at
-    100,000) and at k = N (any k), the scans below; the float64 wide
-    family past k = 16 from its own crossover on and at k = N (DMMA), the
-    SIMT scans up to k = 16 (at k = N too)."""
+    (csrc/knn.cu's crossovers, each past 16: since the warp merge scan
+    float32's the same at 10,000 rows as at 100,000, float64's higher at
+    10,000) and at k = N (any k), the scans below; the float64 wide
+    family from its own crossover on and at k = N (any k), the DMMA scans
+    below, up to k = 16 too."""
     for dtype in (torch.float32, torch.float64):
         for R in (1000, 100_000):
             sel = knn.select_k(dtype, R)
@@ -691,17 +800,20 @@ def test_select_route_starts_at_select_k(cuda):
             assert plan(5000, 8, 5000) == 'select'
             assert plan(20, 1, 20) == 'select'
             assert plan(5000, 3, 16) == 'scan'
-        assert knn.select_k(dtype, 1000) <= knn.select_k(dtype, 100_000)
+    assert knn.select_k(torch.float32, 1000) == \
+        knn.select_k(torch.float32, 100_000)
+    assert knn.select_k(torch.float64, 1000) > \
+        knn.select_k(torch.float64, 100_000)
     sel = knn.select_k(torch.float64, 1000, 9)
     assert 16 < sel <= 1024
     for k, route in ((2, 'scan'), (16, 'scan'), (17, 'scan'),
                      (sel - 1, 'scan'), (sel, 'select'), (1024, 'select'),
                      (5000, 'select')):
         plan = knn.nnk_plan(1000, 5000, 9, k, torch.float64)
-        family = 'simt-f64' if k <= 16 else 'tensor-core-f64'
-        assert (plan['route'], plan['family']) == (route, family), k
+        assert (plan['route'], plan['family']) == (route,
+                                                   'tensor-core-f64'), k
     plan = knn.nnk_plan(1000, 16, 9, 16, torch.float64)
-    assert (plan['route'], plan['family']) == ('scan', 'simt-f64')
+    assert (plan['route'], plan['family']) == ('select', 'tensor-core-f64')
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -834,8 +946,8 @@ def test_wide_nnk_plan_reports_select_f64(cuda):
     """nnk_plan for float64 past 8 coordinates: the DMMA family past
     k = 16, 'select' from select_k(float64, R, D) on and at k = N (its
     scratch the float64 panels and the select state, no partial lists),
-    'scan' below (the merge scan: partial lists and the panels); the SIMT
-    scans up to k = 16, with no scratch."""
+    'scan' below (the merge scan: partial lists and the panels), and up to
+    k = 16 the DMMA scans on the same panels."""
     import ctypes
     lib = knn._kernel_lib()
     for D in (9, 33, 128, 300):
@@ -859,7 +971,7 @@ def test_wide_nnk_plan_reports_select_f64(cuda):
             assert plan['scratch_bytes'] > 4 * floats.value + 1024 * R
         small = knn.nnk_plan(R, N, D, 16, torch.float64)
         assert (small['route'], small['family'], small['scratch_bytes']) \
-            == ('scan', 'simt-f64', 0)
+            == ('scan', 'tensor-core-f64', 4 * floats.value)
 
 
 def _sift_clouds(R, N, dev, seed):
@@ -948,23 +1060,29 @@ def test_sift_width_big_k_on_the_tensor_cores(cuda, k):
 
 
 def test_select_path_d6_f64_k256_at_10k_rows(cuda):
-    """[knn-d6]'s float64 clouds (10,000 x 10,000, D = 6) at k = 256: at
-    10,000 rows the select path wins from k = 100 (PERF.md's crossover
-    table: 2.22 against the merge scan's 7.33 ms at 256), so select_k
-    reads R and the call selects; under the near-tie rule (F64_TOL); bit
-    for bit the merge scan of an earlier csrc/knn.cu where
+    """[knn-d6]'s float64 clouds (10,000 x 10,000, D = 6) at k = 256 and at
+    select_k: at 10,000 rows the warp merge scan wins up to k = 384 and
+    the select path from 448 (PERF.md's crossover table: 1.65 against
+    2.28 ms at 256, 3.54 against 3.09 at 448), so k = 256 takes the scan
+    and select_k (448) the select path; both under the near-tie rule
+    (F64_TOL), and bit for bit an earlier csrc/knn.cu where
     $PPT_KNN_OLD_CU names one (e.g. ``git show
-    42cbb8c:pypose_tpu_torch/csrc/knn.cu``, the merge scan at every k)."""
+    89bb3cd:pypose_tpu_torch/csrc/knn.cu``)."""
     import os
     gen = torch.Generator().manual_seed(0)
     ref, nbr = (torch.randn((10_000, 6), generator=gen).double().to(cuda)
                 for _ in range(2))
-    assert knn.select_k(torch.float64, 10_000, 6) <= 256
-    d_k, i_k = _assert_select(ref, nbr, 256, **F64_TOL)
+    sel = knn.select_k(torch.float64, 10_000, 6)
+    assert 256 < sel <= 512
+    assert knn.nnk_plan(10_000, 10_000, 6, 256, torch.float64)['route'] \
+        == 'scan'
+    outs = {256: _assert_big(ref, nbr, 256, **F64_TOL),
+            sel: _assert_select(ref, nbr, sel, **F64_TOL)}
     path = os.environ.get('PPT_KNN_OLD_CU')
     if path:
-        d_o, i_o = _nnk_with(_old_nnk_lib(path), ref, nbr, 256)
-        assert torch.equal(i_o, i_k) and torch.equal(d_o, d_k)
+        for k, (d_k, i_k) in outs.items():
+            d_o, i_o = _nnk_with(_old_nnk_lib(path), ref, nbr, k)
+            assert torch.equal(i_o, i_k) and torch.equal(d_o, d_k), k
 
 
 def test_sharded_pgo_one_rank_matches_sparse_lm(cuda):

@@ -4,7 +4,10 @@ knn`` / ``_knn_tiled`` (the chunked Gram route on the CPU) against the JAX
 package on identical numpy inputs: the Pallas kernel in interpret mode
 (``pallas_knn.nnk``) at k = 17, and the ``lax.map`` + ``lax.top_k`` route
 (``geometry._knn_tiled``) at k = 32, 100 and N, at 3, 6 and 33
-coordinates, in float32 and float64.
+coordinates, in float32 and float64, and on either side of the card's
+crossovers from the merge scan to select-then-sort (``csrc/knn.cu``'s
+``kSelectKSmallR``, ``kSelectKSmallR64``, ``kSelectK``, ``kSelectK64``)
+at 3 and 6.
 
 Tolerance (``test_torch_knn.py:assert_knn_agree``'s rule): squared
 distances within rtol (|a|^2 + |b|^2) + rtol of the JAX ones, rtol 1e-6 in
@@ -15,6 +18,9 @@ ties (integer points), where both packages take the lower index.  The
 Pallas merge unrolls k^2 steps: k = 17 compiles in ~19 s on the CPU, k =
 24 in more than 3 minutes, so only k = 17 runs against it.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +38,18 @@ from pypose_tpu_torch.testing import cap_threads
 cap_threads()
 
 RTOL = {np.float32: 1e-6, np.float64: 1e-12}
+
+
+def _crossover(name):
+    """A crossover constant of csrc/knn.cu, read from the source (the
+    card's library holds it; ops.knn.select_k needs the card)."""
+    src = (Path(tknn.__file__).resolve().parents[1] / 'csrc'
+           / 'knn.cu').read_text()
+    return int(re.search(rf'constexpr int {name} = (\d+);', src).group(1))
+
+
+SMALL_R, SMALL_R64, LARGE_R, LARGE_R64 = (_crossover(n) for n in (
+    'kSelectKSmallR', 'kSelectKSmallR64', 'kSelectK', 'kSelectK64'))
 
 
 def clouds(seed, R, N, D, dtype=np.float32):
@@ -75,14 +93,27 @@ def test_plain_matches_pallas_k17():
     assert (np.diff(d2_t.numpy(), axis=1) >= 0).all()
 
 
-@pytest.mark.parametrize('dtype', [np.float32, np.float64])
-@pytest.mark.parametrize('D', [3, 6, 33])
-@pytest.mark.parametrize('k', [32, 100, 300])
+# k on either side of the card's crossovers for up to 8 coordinates
+# (csrc/knn.cu: kSelectKSmallR and kSelectKSmallR64 up to 32,768 rows,
+# kSelectK and kSelectK64 past them; ops.knn.select_k), where nnk turns
+# from the warp merge scan to select-then-sort: (k, dtype), each at D = 3
+# and 6
+SIDE_KS = ((SMALL_R - 1, np.float32), (SMALL_R, np.float32),
+           (SMALL_R64 - 1, np.float64), (SMALL_R64, np.float64),
+           (LARGE_R - 1, np.float32), (LARGE_R, np.float32),
+           (LARGE_R64 - 1, np.float64), (LARGE_R64, np.float64))
+TOP_K_CASES = ([(k, D, dt) for dt in (np.float32, np.float64)
+                for D in (3, 6, 33) for k in (32, 100, 300)]
+               + [(k, D, dt) for k, dt in SIDE_KS for D in (3, 6)])
+
+
+@pytest.mark.parametrize('k,D,dtype', TOP_K_CASES)
 def test_plain_and_tiled_match_jax_top_k(k, D, dtype):
     """``nnk``'s plain version, ``_knn_tiled`` and ``knn`` with a chunk
     (150 rows in chunks of 64) against the JAX package's ``_knn_tiled``
-    (``lax.map`` over chunks, ``lax.top_k``) at k = 32, 100 and N = 300."""
-    ref, nbr = clouds(k + D, 150, 300, D, dtype)
+    (``lax.map`` over chunks, ``lax.top_k``) at k = 32, 100 and N = 300,
+    and on either side of the card's crossovers (N = k + 13 past 300)."""
+    ref, nbr = clouds(k + D, 150, 300 if k <= 300 else k + 13, D, dtype)
     with jax.enable_x64(dtype == np.float64):
         res_j = jgeo._knn_tiled(jnp.asarray(ref), jnp.asarray(nbr), k,
                                 False, 64)
@@ -97,24 +128,26 @@ def test_plain_and_tiled_match_jax_top_k(k, D, dtype):
                      v_j ** 2, i_j)
 
 
-@pytest.mark.parametrize('dtype', [np.float32, np.float64])
-def test_exact_ties_take_the_lower_index(dtype):
-    """Integer points, every neighbour twice: the distances are exact in
-    both packages and both order equal ones by index, so at k = 40 the
-    indices are equal everywhere."""
+@pytest.mark.parametrize('k,dtype', [(40, np.float32), (40, np.float64),
+                                     *SIDE_KS])
+def test_exact_ties_take_the_lower_index(k, dtype):
+    """Integer points, every neighbour twice (k past 150: as often as k
+    needs): the distances are exact in both packages and both order equal
+    ones by index, so at k = 40 and on either side of the card's
+    crossovers the indices are equal everywhere."""
     rng = np.random.default_rng(40)
     base = rng.integers(0, 4, size=(150, 3)).astype(dtype)
-    nbr = np.concatenate([base, base])
+    nbr = np.concatenate([base] * max(2, -(-(k + 1) // 150)))
     ref = rng.integers(0, 4, size=(60, 3)).astype(dtype)
     with jax.enable_x64(dtype == np.float64):
-        res_j = jgeo._knn_tiled(jnp.asarray(ref), jnp.asarray(nbr), 40,
+        res_j = jgeo._knn_tiled(jnp.asarray(ref), jnp.asarray(nbr), k,
                                 False, 64)
         v_j, i_j = np.asarray(res_j.values), np.asarray(res_j.indices)
-    d2_t, idx_t = tknn.nnk(torch.from_numpy(ref), torch.from_numpy(nbr), 40)
+    d2_t, idx_t = tknn.nnk(torch.from_numpy(ref), torch.from_numpy(nbr), k)
     np.testing.assert_array_equal(idx_t.numpy(), i_j)
     # JAX returns distances: integers' square roots, rounded once in both
     np.testing.assert_array_equal(np.sqrt(d2_t.numpy()), v_j)
-    res_t = tgeo.knn(torch.from_numpy(ref), torch.from_numpy(nbr), k=40,
+    res_t = tgeo.knn(torch.from_numpy(ref), torch.from_numpy(nbr), k=k,
                      chunk=64)
     np.testing.assert_array_equal(res_t.indices.numpy(), i_j)
     # equal distances in ascending index: every original before the
