@@ -2,7 +2,9 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU and check them:
 sphere2500 through the whole-solve CG kernel, a 100k-pose graph through
 the fused (Chronopoulos-Gear) CG kernel, the same two graphs over SO3,
-RxSO3 and Sim3 through those kernels' t = 3, 4 and 7 instantiations, ICP
+RxSO3 and Sim3 through those kernels' t = 3, 4 and 7 instantiations,
+Euclidean rings of 2, 5, 9 and 16 coordinates through their runtime-t
+instantiation, ICP
 on 100k-point clouds through the nearest-neighbour kernel, knn(k=8) on
 those clouds through the k-nearest kernel, knn on 6-coordinate clouds, and
 the general factor-graph routes (no kernel): a chain-dominated and three
@@ -56,12 +58,17 @@ Phases (any failure raises, so the script exits non-zero):
        at the 100k shape, with their device time (torch.profiler) and the
        block-Jacobi apply also as one torch.einsum;
      - the same three sources at block sizes t = 3, 4 and 7 (SO3, RxSO3,
-       Sim3): the whole solve at N=40 and at sphere2500's shape
-       (converged and to 60 iterations, two launches bit-equal), the
-       tiled and fused (float32, bf16) solvers at N=53 and at the 100k
-       shape (tol 1e-3 and 60 iterations; the fused plan printed:
-       shared-memory mode at t = 3 and 4, global-memory mode at t = 7),
-       the tiled kernels alone; t = 5 must raise;
+       Sim3; their templates) and t = 1, 2, 5, 9 and 16 (the runtime-t
+       instantiation): the whole solve at N=40 and at sphere2500's shape
+       (converged and to 60 iterations, two launches bit-equal; operands
+       in shared memory to t = 8, in L2 from t = 9), the tiled and fused
+       (float32, bf16) solvers at N=53 and at the 100k shape (tol 1e-3
+       and 60 iterations; the fused plan printed: shared-memory mode to
+       t = 6, global-memory mode from t = 7), the tiled kernels alone;
+       every other t from 1 to 17 at N=40 / 53 alone; the runtime-t
+       instantiation forced at t = 3 and 6 (any_t=True) bit for bit
+       against the templates and timed beside them (device time); t = 0
+       must raise before any launch;
      - nn1 at 100k x 100k on ICP's clouds and on a cloud with duplicated
        points, and nnk at k = 4 and 16 on a 20k x 100k slice of them,
        under pypose_tpu_torch.testing.nnk_tolerance_failures (each index
@@ -126,7 +133,16 @@ Phases (any failure raises, so the script exits non-zero):
      route 'einsum', no kernel), a Euclidean [64, 3] ring factor
      (testing.ring3_problem, t = 3, three calls: route 'stencil', one
      whole-solve launch a solve on the card) and the same ring at t = 5
-     ('einsum', no kernel), card against CPU.
+     ('stencil' too, the runtime-t instantiation), card against CPU.
+ 10b. stencil-any-t: testing.ring3_problem at (N, t) = (2500, 9), (100000,
+     9), (100000, 2), (100000, 5), (2500, 16) in float32, three step()
+     calls each: route 'stencil' through the runtime-t instantiation (the
+     whole solve with its operands in L2 at (2500, 9), (100000, 2) and
+     (2500, 16); the fused solver with its state in global memory at
+     (100000, 9) and in shared memory at (100000, 5)), one launch a solve, the final chi2 within 1e-4 and the
+     points within 1e-4 of the same instance through
+     SparseLM(matvec='generic') on the card (no kernel); ms a step and the
+     kernel's device ms a solve.
  11. pgo-chain: synthetic_sphere(5000, loops_per_pose=0.04, seed=5),
      bench.py:bench_pgo_chain's factors and schedule (route 'chain': the
      einsum CG with the block cyclic reduction preconditioner), and
@@ -307,8 +323,10 @@ Phases (any failure raises, so the script exits non-zero):
      order of their sums alone, up to 1.6e-3 on the CPU);
      sharded_stencil_matvec at one rank against StencilSpMV.matvec at the
      pgo-100k shape (1e-6 of max|y|, no message).
- 41. prints the kernels' JSON line (each kernel's, and each of the t = 3,
-     4, 7 instantiations', launches on its path,
+ 41. prints the kernels' JSON line (each kernel's, each of the t = 3,
+     4, 7 instantiations', and the runtime-t instantiations' (t = 9, the
+     other t in `cases`, their cost against the templates at t = 3 and 6
+     in `runtime_t_cost`), launches on its path,
      error, ms, plain ms, bound_ms from this run's shapes and iteration
      counts at 3.35 TB/s and 67 TFLOP/s float32 (the float32 wide scans
      at three TF32 passes' 165 TFLOP/s), bound_by, library_ms;
@@ -321,6 +339,7 @@ Run from the repository root:  python3 chip_smoke.py
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -571,7 +590,7 @@ def tiled_kernels_vs_plain(system, launches=20):
                   f'tiled {kname}: the library call disagrees')
         d_us = 1e3 * device_ms(kern)
         f_us = 1e3 * device_ms(lambda: (flush.zero_(), kern()),
-                               match=f'tiled_{kname}_kernel')
+                               match=f'tiled_{kname}')
         gbs = bytes_per_node * v.shape[1] / (d_us * 1e3)
         print(f'[kernel] tiled {kname} alone, t={t} N={v.shape[1]}: '
               f'max|y_k - y_p| {err:.3e} (bound {bound:.3e}); kernel {k_us:.2f} '
@@ -1271,9 +1290,9 @@ def sparse_f64_phase(dev):
     synthetic_sphere(100) in float64 (four step() calls, cg_iter 150,
     cg_tol 1e-9; chi2 within 1e-8; route 'einsum', no kernel), a Euclidean
     [64, 3] ring factor in float32 (testing.ring3_problem, three step()
-    calls; chi2 within 1e-4; route 'stencil': t = 3 is a block size the
-    kernels are built for, so on the card one whole-solve launch a solve)
-    and the same ring at t = 5 (route 'einsum', no kernel)."""
+    calls; chi2 within 1e-4; route 'stencil': on the card one whole-solve
+    launch a solve, through its t = 3 template) and the same ring at t = 5
+    (route 'stencil' too, through the runtime-t instantiation)."""
     import torch
     from pypose_tpu_torch.datasets import synthetic_sphere
     from pypose_tpu_torch.optim.sparse import SparseLM
@@ -1296,7 +1315,7 @@ def sparse_f64_phase(dev):
     for name, make, steps, rtol, route in (
             ('sphere100 float64', sphere, 4, 1e-8, 'einsum'),
             ('ring3 float32', ring(3), 3, 1e-4, 'stencil'),
-            ('ring t=5 float32', ring(5), 3, 1e-4, 'einsum')):
+            ('ring t=5 float32', ring(5), 3, 1e-4, 'stencil')):
         hist = {}
         for d in (dev, 'cpu'):
             opt = make(d)
@@ -3096,8 +3115,9 @@ BLOCK_SIZE_CAP = 60
 
 
 def block_size_kernels(t):
-    """The whole-solve, tiled and fused kernels' instantiation for block
-    size t against their plain versions, as t = 6 is held: N = 53 (40 for
+    """The whole-solve, tiled and fused kernels at block size t (their
+    template at t = 3, 4, 7, else the runtime-t instantiation) against
+    their plain versions, as t = 6 is held: N = 53 (40 for
     the whole solve), sphere2500's shape (converged, and to a cap, two
     launches bit-equal) and the 100k shape (tol 1e-3, and to a cap), and
     the tiled matvec and block-Jacobi kernels alone.  The capped runs stop
@@ -3127,6 +3147,183 @@ def block_size_kernels(t):
            'err': {r: max(x[r][0] for x in (small, big, full))
                    for r in ('tiled', 'fused', 'fused_bf16')}}
     out.update(full)
+    return out
+
+
+# block sizes held at the small shapes alone: every t from 1 to 17 but 6
+# (phase 3's own) and those block_size_kernels holds at the full shapes
+SMALL_ONLY_T = (8, 10, 11, 12, 13, 14, 15, 17)
+
+
+def small_shape_kernels(t):
+    """The three sources at block size t on the small systems alone: the
+    whole solve at N = 40, the tiled and fused (float32, bf16) solvers at
+    N = 53, each against its plain version (two launches bit-equal but
+    the tiled solver's); returns {route: largest error}."""
+    whole = whole_solve_vs_plain('N=40', 40, 9, 15, False, 500, 1e-6, t)
+    small, _ = oversize_solvers_vs_plain(
+        'N=53', stencil_system(53, 9, 15, False, t), 200, 1e-7)
+    return {'whole': whole[0], **{r: v[0] for r, v in small.items()}}
+
+
+def runtime_t_cost(t):
+    """The runtime-t instantiation forced at a template's block size
+    (``any_t=True``) against the template, on the systems the templates
+    are timed on: the whole solve at sphere2500's shape (150 iterations),
+    the fused solver at the 100k shape (float32 and bf16 operands, 250
+    iterations), the tiled matvec and block-Jacobi kernels alone at the
+    100k shape (one launch).  Each pair must agree bit for bit (x and the
+    iteration count, or y).  Device time per call from torch.profiler
+    (the kernel alone), taken template, runtime, runtime, template, each
+    side's two readings averaged.  Returns {kernel: (template ms, runtime
+    ms, bit-equal)}."""
+    import torch
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    offsets, ops = stencil_system(2500, 157, 2000, True, t)
+    offsets_b, (b_T, *big) = stencil_system(100_000, 993, 80_000, True, t)
+    gen = torch.Generator(device=b_T.device).manual_seed(7)
+    v = torch.randn(b_T.shape, generator=gen, device=b_T.device)
+
+    def fused(dtype):
+        stored = scg.round_operands(*big, dtype)
+        return lambda any_t: scg.stencil_cg_fused(
+            b_T, *stored, offsets_b, t, 250, 0.0, operand_dtype=dtype,
+            any_t=any_t)
+    # (run(any_t) -> (x or y, iterations or None), kernel name, calls)
+    pairs = {
+        'whole': (lambda any_t: scg.stencil_cg_transposed(
+            *ops, offsets, t, 150, 0.0, any_t=any_t), 'stencil_pcg', 20),
+        'fused': (fused(None), 'fused_pcg', 10),
+        'fused_bf16': (fused(torch.bfloat16), 'fused_pcg', 10),
+        'tiled_mv': (lambda any_t: (scg._tiled_mv_launch(
+            big[0], big[2], v, offsets_b, t, any_t), None), 'tiled_mv', 50),
+        'tiled_pc': (lambda any_t: (scg._tiled_pc_launch(
+            big[1], v, t, any_t), None), 'tiled_pc', 50)}
+    out = {}
+    for name, (run, match, calls) in pairs.items():
+        a, b = run(False), run(True)
+        same = bool(torch.equal(a[0], b[0])) and (
+            a[1] is None or int(a[1]) == int(b[1]))
+        ms = {False: [], True: []}
+        for any_t in (False, True, True, False):
+            ms[any_t].append(device_ms(lambda: run(any_t), calls=calls,
+                                       match=match))
+        tm, rm = statistics.mean(ms[False]), statistics.mean(ms[True])
+        print(f'[kernel] runtime-t cost, {name}, t={t}: template {tm:.5f} '
+              f'ms, runtime-t {rm:.5f} ms a call (device time, '
+              f'{calls} calls, readings template {ms[False]}, runtime-t '
+              f'{ms[True]}): runtime-t / template {rm / tm:.3f}; bit-equal '
+              f'{same}', flush=True)
+        check(same, f'runtime-t cost, {name}, t={t}: the runtime-t '
+              'instantiation differs from the template')
+        out[name] = (tm, rm, same)
+    return out
+
+
+# [stencil-any-t]: (tag, N, t, the solver stencil_cg takes there: at
+# t = 2 the 100k ring's operands (9.6 MB) and state (200,512 B a CTA) fit
+# the whole solve's budgets, its L2 mode; at t = 5 they do not, and the
+# fused solver keeps its state in shared memory)
+ANY_T_CASES = (('ring-t9-2500', 2500, 9, 'whole'),
+               ('ring-t9-100k', 100_000, 9, 'fused'),
+               ('ring-t2-100k', 100_000, 2, 'whole'),
+               ('ring-t5-100k', 100_000, 5, 'fused'),
+               ('ring-t16-2500', 2500, 16, 'whole'))
+ANY_T_STEPS = 3
+
+
+def stencil_any_t_phase(dev):
+    """SparseLM through the stencil kernels' runtime-t instantiation:
+    testing.ring3_problem (Euclidean relative displacements i -> i+1 and
+    i -> i+5 over N points of t coordinates, node 0 fixed, float32) at
+    ANY_T_CASES' sizes (the whole solve with its operands in L2, the
+    fused solver with its state in global and in shared memory),
+    ANY_T_STEPS step() calls with the ring cases' schedule
+    (TrustRegion(1e4), cg_iter 100, cg_tol 1e-8), counted from zero:
+    route 'stencil', one launch a solve of the kernel stencil_cg takes
+    (the whole solve within stencil_cg_fits, else the fused solver) and
+    no other; the final chi2 within 1e-4 relative of the same instance
+    through SparseLM(matvec='generic') on the card (route 'einsum', no
+    kernel), the points within 1e-4 of their largest magnitude; ms a step
+    (host clock), and the kernel's device time a solve from one more,
+    profiled step.  Returns {tag: numbers}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pypose_tpu_torch.ops import stencil_cg as scg
+    from pypose_tpu_torch.optim.sparse import SparseLM
+    from pypose_tpu_torch.optim.strategy import TrustRegion
+    from pypose_tpu_torch.testing import ring3_problem
+    out = {}
+    for tag, N, t, solver in ANY_T_CASES:
+        def make(matvec):
+            params, factors, fixed = ring3_problem(N=N, t=t, device=dev)
+            return SparseLM(params, factors,
+                            strategy=TrustRegion(radius=1e4), fixed=fixed,
+                            cg_iter=100, cg_tol=1e-8, matvec=matvec)
+
+        def run(opt):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            hist, solves = [], 0
+            for _ in range(ANY_T_STEPS):
+                hist.append(opt.step())
+                solves += len(opt.cg_iterations[0])
+            torch.cuda.synchronize()
+            return (hist, solves, 1e3 * (time.perf_counter() - t0)
+                    / ANY_T_STEPS, read_counts())
+        opt = make('auto')
+        n_off = len(opt._stencil_all.offsets)
+        whole = scg.stencil_cg_fits(N, t, n_off)
+        where = (('shared memory' if scg.stencil_cg_smem_fits(N, t, n_off)
+                  else 'L2') if whole else
+                 ('shared memory' if scg.fused_plan(N, t, dev)['smem']
+                  else 'global memory'))
+        check(opt.route == 'stencil' and whole == (solver == 'whole'),
+              f'stencil-any-t, {tag}: route {opt.route}, whole solve '
+              f'{whole}; expected stencil through the {solver} solver')
+        hist, solves, ms, counts = run(opt)
+        counter = 'LAUNCHES' if solver == 'whole' else 'FUSED_LAUNCHES'
+        launches = counts.pop(counter)
+        check(launches == solves and not any(counts.values()),
+              f'stencil-any-t, {tag}: {launches} {counter} for {solves} '
+              f'solves, other counts {counts}')
+        ref = make('generic')
+        check(ref.route == 'einsum', f'stencil-any-t, {tag}: the generic '
+              f'reference took route {ref.route}')
+        r_hist, _, r_ms, r_counts = run(ref)
+        check(not any(r_counts.values()), f'stencil-any-t, {tag}: the '
+              f'generic reference launched {r_counts}')
+        gap = abs(hist[-1] / r_hist[-1] - 1)
+        x, x_ref = opt.params['x'], ref.params['x']
+        x_gap = float((x - x_ref).abs().max() / x_ref.abs().max())
+        prof_opt = make('auto')
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prof_opt.step()
+            torch.cuda.synchronize()
+        kname = 'stencil_pcg' if solver == 'whole' else 'fused_pcg'
+        p_solves = len(prof_opt.cg_iterations[0])
+        dev_ms = sum(e.device_time_total for e in prof.key_averages()
+                     if kname in e.key) / 1e3 / p_solves
+        print(f'[stencil-any-t] {tag}: N={N} t={t}, route {opt.route}, '
+              f'{solver} solve (operands in {where}), chi2 {hist}, CG '
+              f'iterations of the last step {opt.cg_iterations}, {launches} '
+              f'{counter} for {solves} solves, no other launch; '
+              f'{ms:.3f} ms/LM step (host clock); the kernel '
+              f'{dev_ms:.4f} device ms a solve (torch.profiler, '
+              f'{p_solves} solves of one step); matvec=\'generic\' '
+              f'(einsum, no kernel) chi2 {r_hist}, {r_ms:.3f} ms/LM step; '
+              f'final chi2 gap {gap:.3e} (bound 1e-4), points {x_gap:.3e} '
+              'of their largest magnitude (bound 1e-4)', flush=True)
+        check(all(map(math.isfinite, hist)) and bool(
+            torch.isfinite(x).all()), f'stencil-any-t, {tag}: not finite')
+        check(gap <= 1e-4 and x_gap <= 1e-4, f'stencil-any-t, {tag}: the '
+              'stencil route disagrees with matvec=\'generic\'')
+        out[tag] = dict(N=N, t=t, solver=solver, operands_in=where,
+                        launches=launches, solves=solves, chi2=hist,
+                        generic_chi2=r_hist, chi2_gap=gap, x_gap=x_gap,
+                        ms_per_step=ms, generic_ms_per_step=r_ms,
+                        device_ms_per_solve=dev_ms)
     return out
 
 
@@ -3978,6 +4175,7 @@ def main():
                          'this script needs an NVIDIA GPU')
     from pypose_tpu_torch.ops import _build, knn, se3
     from pypose_tpu_torch.ops import stencil_cg as scg
+    from pypose_tpu_torch.ops.stencil_cg import TEMPLATE_T
     from pypose_tpu_torch.optim.sparse import require_full_fp32
 
     # 1. device
@@ -4014,7 +4212,15 @@ def main():
             # csrc/knn.cu: the float32 and float64 instantiations for D = 3
             # and D = 8, the warp merge scan's at every D, and the wide
             # scans
-            elif 'Used' in line and (path.stem != 'libknn' or 'wide' in entry
+            elif 'Used' in line and path.stem != 'libknn':
+                # the stencil kernels: each template, and the runtime-t
+                # instantiation (template argument 0, or tiled_*_any_t)
+                kind = '' if 'stencil' not in path.stem else (
+                    ' (runtime t)' if 'ILi0E' in entry or 'any_t' in entry
+                    else ' (template)')
+                print(f'[build] {path.stem}{kind}: {entry}\n[build] '
+                      f'{path.stem}: {spill}; {line.strip()}', flush=True)
+            elif 'Used' in line and ('wide' in entry
                                      or 'big' in entry or 'sel_' in entry
                                      or 'warp_scan' in entry
                                      or 'tf32_split' in entry
@@ -4077,23 +4283,30 @@ def main():
         'N=200,000', stencil_system(200_000, 993, 160_000, True), 250, 1e-3)
     check(not past_plan['smem'], 'N=200,000 is within the fused kernel\'s '
           'shared-memory mode: it would not test the global mode')
-    # the same kernels' instantiations for the other groups' block sizes
-    by_t = {t: block_size_kernels(t) for t in (3, 4, 7)}
-    check(by_t[3]['plan']['smem'] and by_t[4]['plan']['smem']
-          and not by_t[7]['plan']['smem'],
-          'the fused plan at the 100k shape: shared-memory mode expected at '
-          't = 3 and 4 (27 and 40 floats a node), global-memory mode at '
-          't = 7 (91 floats a node, 758 nodes a CTA)')
+    # the same kernels at the other groups' block sizes (their templates)
+    # and at t = 1, 2, 5, 9, 16 (the runtime-t instantiation), on the full
+    # shapes; every other t from 1 to 17 on the small ones
+    by_t = {t: block_size_kernels(t) for t in (3, 4, 7, 1, 2, 5, 9, 16)}
+    check(all(by_t[t]['plan']['smem'] == (t <= 6) for t in by_t),
+          'the fused plan at the 100k shape: shared-memory mode expected up '
+          'to t = 6 (6t + tt floats a node: 7 at t = 1, 55 at t = 5), '
+          'global-memory mode from t = 7 (91 floats a node, 758 nodes a '
+          f'CTA): {({t: r["plan"]["smem"] for t, r in by_t.items()})}')
+    small_t = {t: small_shape_kernels(t) for t in SMALL_ONLY_T}
+    # the runtime-t instantiation's cost at a template's t
+    rt_cost = {t: runtime_t_cost(t) for t in (3, 6)}
+    offsets0, ops0 = stencil_system(40, 9, 15, False, 5)
+    before = read_counts()
     for solver in (scg.stencil_cg_transposed, scg.stencil_cg_tiled,
                    scg.stencil_cg_fused):
-        offsets5, ops5 = stencil_system(40, 9, 15, False, 5)
         try:
-            solver(*ops5, offsets5, 5, 5, 1e-6)
+            solver(*(a[:0] for a in ops0), offsets0, 0, 5, 1e-6)
         except ValueError as e:
-            print(f'[kernel] {solver.__name__} at t=5 raises: {e}',
+            print(f'[kernel] {solver.__name__} at t=0 raises: {e}',
                   flush=True)
         else:
-            raise RuntimeError(f'{solver.__name__} took t=5 on the card')
+            raise RuntimeError(f'{solver.__name__} took t=0 on the card')
+    check(read_counts() == before, 't = 0 launched a kernel')
     point = point_kernels_vs_plain(dev)
 
     # 4., 5., 7.-11. the paths, each counted from zero over its cold run
@@ -4118,6 +4331,8 @@ def main():
     # 37b. nnk at k > 16
     bigk = knn_bigk_phase(dev)
     sparse_f64_phase(dev)
+    # the runtime-t instantiation on SparseLM's path
+    any_t = stencil_any_t_phase(dev)
     general = {'pgo-chain': pgo_chain_phase(dev),
                'pgo-loops': pgo_loops_phase(dev)}
     # 13.-17. the Lie core's autograd and the paths it opens
@@ -4369,6 +4584,121 @@ def main():
                         'float32 operands (ms_bf16: bf16 operands; '
                         'tiled_ms: the tiled solver on the same system); '
                         f'launches from {g}-100k')]
+    # the runtime-t instantiations (template argument 0; tiled_*_any_t):
+    # the headline numbers at t = 9, every full-shape t in `cases`, the
+    # small shapes' errors at the other t, the cost against the templates
+    # at t = 3 and 6; launches from [stencil-any-t], each case counted
+    # from zero
+    def any_t_launches(solver):
+        return {tag: v['launches'] for tag, v in any_t.items()
+                if v['solver'] == solver}
+
+    def cost(name):
+        return {t: dict(template_ms=c[name][0], ms=c[name][1],
+                        bit_equal=c[name][2]) for t, c in rt_cost.items()}
+
+    def small_err(route):
+        return {t: e[route] for t, e in small_t.items()}
+
+    def tiled_cases(kname, b_fn):
+        return {t: dict(ms=r['alone'][kname][1] / 1e3,
+                        plain_ms=r['alone'][kname][2] / 1e3,
+                        library_ms=None if r['alone'][kname][3] is None
+                        else r['alone'][kname][3] / 1e3,
+                        device_ms=r['alone'][kname][4] / 1e3,
+                        device_ms_l2_flushed=r['alone'][kname][5] / 1e3,
+                        bound_ms=b_fn(t)[0], bound_by=b_fn(t)[1],
+                        max_abs_err=max(r['alone'][kname][0],
+                                        r['err']['tiled']))
+                for t, r in by_t.items() if t not in TEMPLATE_T}
+
+    any_ts = [t for t in by_t if t not in TEMPLATE_T]
+    r9 = by_t[9]
+    w_launch, f_launch = any_t_launches('whole'), any_t_launches('fused')
+    kernels += [
+        entry('stencil_pcg_any_t', 'stencil_cg.cu', pallas + '101',
+              sum(w_launch.values()),
+              max([by_t[t]['whole'][0] for t in any_ts]
+                  + list(small_err('whole').values())),
+              r9['whole'][1], r9['whole'][2], pcg_bound(9, r9['whole'][3]),
+              block_size=9, launches_by_path=w_launch,
+              cases={t: dict(ms=by_t[t]['whole'][1],
+                             plain_ms=by_t[t]['whole'][2],
+                             iterations=by_t[t]['whole'][3],
+                             bound_ms=pcg_bound(t, by_t[t]['whole'][3])[0],
+                             bound_by=pcg_bound(t, by_t[t]['whole'][3])[1],
+                             max_abs_err=by_t[t]['whole'][0],
+                             operands_in='shared memory'
+                             if scg.stencil_cg_smem_fits(N2500, t, n_off)
+                             else 'L2') for t in any_ts},
+              max_abs_err_small=small_err('whole'),
+              runtime_t_cost=cost('whole'),
+              ms_of=f'one {r9["whole"][3]}-iteration solve, sphere2500 '
+                    'shape, t = 9, operands in L2 (cases: t = 1, 2, 5, 9, '
+                    '16; max_abs_err_small: N = 40 at the other t; '
+                    'runtime_t_cost: device ms of one 150-iteration solve '
+                    'at sphere2500\'s shape, template against runtime-t); '
+                    'launches from [stencil-any-t]', routed=True),
+        entry('stencil_tiled_mv_any_t', 'stencil_cg_tiled.cu',
+              pallas + '131', 0,
+              max(v['max_abs_err'] for v in
+                  tiled_cases('mv', mv_bound).values()),
+              r9['alone']['mv'][1] / 1e3, r9['alone']['mv'][2] / 1e3,
+              mv_bound(9), device_ms=r9['alone']['mv'][4] / 1e3,
+              device_ms_l2_flushed=r9['alone']['mv'][5] / 1e3,
+              block_size=9, cases=tiled_cases('mv', mv_bound),
+              max_abs_err_small=small_err('tiled'),
+              runtime_t_cost=cost('tiled_mv'), routed=False,
+              ms_of='one launch, 100k shape, t = 9 (device_ms: '
+                    'torch.profiler, operands warm in L2; '
+                    'device_ms_l2_flushed: L2 flushed before each launch; '
+                    'runtime_t_cost: device ms of one launch)'),
+        entry('stencil_tiled_pc_any_t', 'stencil_cg_tiled.cu',
+              pallas + '149', 0,
+              max(v['max_abs_err'] for v in
+                  tiled_cases('pc', pc_bound).values()),
+              r9['alone']['pc'][1] / 1e3, r9['alone']['pc'][2] / 1e3,
+              pc_bound(9), library_ms=r9['alone']['pc'][3] / 1e3,
+              library='torch.einsum over the [t, t, N] blocks',
+              device_ms=r9['alone']['pc'][4] / 1e3,
+              device_ms_l2_flushed=r9['alone']['pc'][5] / 1e3,
+              block_size=9, cases=tiled_cases('pc', pc_bound),
+              runtime_t_cost=cost('tiled_pc'), routed=False,
+              ms_of='one launch, 100k shape, t = 9 (as '
+                    'stencil_tiled_mv_any_t)'),
+        entry('stencil_fused_any_t', 'stencil_cg_fused.cu',
+              pallas + '253, :290', sum(f_launch.values()),
+              max([max(by_t[t]['err']['fused'], by_t[t]['err']['fused_bf16'])
+                   for t in any_ts]
+                  + [max(e['fused'], e['fused_bf16'])
+                     for e in small_t.values()]),
+              r9['fused'][1], r9['fused'][2],
+              fused_bound(9, r9['fused'][3]), block_size=9,
+              launches_by_path=f_launch,
+              cases={t: dict(ms=by_t[t]['fused'][1],
+                             plain_ms=by_t[t]['fused'][2],
+                             ms_bf16=by_t[t]['fused_bf16'][1],
+                             plain_ms_bf16=by_t[t]['fused_bf16'][2],
+                             tiled_ms=by_t[t]['tiled'][1],
+                             iterations=by_t[t]['fused'][3],
+                             bound_ms=fused_bound(t, by_t[t]['fused'][3])[0],
+                             bound_by=fused_bound(t, by_t[t]['fused'][3])[1],
+                             max_abs_err=max(by_t[t]['err']['fused'],
+                                             by_t[t]['err']['fused_bf16']),
+                             state_in='shared memory'
+                             if by_t[t]['plan']['smem'] else 'global memory')
+                     for t in any_ts},
+              max_abs_err_small={t: max(e['fused'], e['fused_bf16'])
+                                 for t, e in small_t.items()},
+              runtime_t_cost={t: dict(fused=v, fused_bf16=w) for (t, v), w
+                              in zip(cost('fused').items(),
+                                     cost('fused_bf16').values())},
+              ms_of=f'one {r9["fused"][3]}-iteration solve, 100k shape, '
+                    't = 9, float32 operands, state in global memory '
+                    '(cases: t = 1, 2, 5, 9, 16, ms_bf16 with bf16 operands; '
+                    'runtime_t_cost: device ms of one 250-iteration solve '
+                    'at the 100k shape); launches from [stencil-any-t]',
+              routed=True)]
     for kname, line in (('se3_mul', '51'), ('se3_act', '68')):
         kernels.append(entry(
             kname, 'se3.cu', 'pypose_tpu/ops/pallas_se3.py:' + line,
@@ -4475,6 +4805,8 @@ def main():
     for tag, numbers in sharded.items():
         print(f'[{tag}] {numbers}', flush=True)
     print(f'[pgo-100k] profiled run {pgo_prof}', flush=True)
+    for tag, numbers in any_t.items():
+        print(f'[stencil-any-t] {tag}: {numbers}', flush=True)
     for tag, numbers in general.items():
         print(f'[{tag}] {numbers}', flush=True)
     for name, numbers in groups.items():
@@ -4497,7 +4829,8 @@ def main():
     check(not routed_unlaunched,
           f'kernels on a path with no launch there: {routed_unlaunched}')
     print(f'[total] the script took {time.perf_counter() - t_script:.1f} s '
-          '(PERF.md: 651.9 s on the H100 before the wide select path)',
+          '(PERF.md: 634.0 s on the H100 before the runtime-t stencil '
+          'kernels)',
           flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)

@@ -19,9 +19,12 @@
 // SMs of one GPC) of up to 1024 threads runs the whole loop.  CTA c owns
 // nodes [c*NL, c*NL + NL), NL = ceil(N / 16), one thread per (node, block
 // row), or a stride of rows a thread where t NL passes 1024 (t = 7 at
-// sphere2500: 1,099 rows).  The block size t is a template parameter,
+// sphere2500: 1,099 rows).  The block size t is a template parameter T,
 // instantiated for the tangent dimensions of SO3, RxSO3, SE3 and Sim3 (3,
-// 4, 6, 7; the Pallas kernel takes any static t).  Only t-float vectors
+// 4, 6, 7), and T = 0 reads t from a kernel argument: every other t >= 1
+// takes that instantiation (the Pallas kernel takes any static t).  A
+// thread holds one row's accumulator, never a t-float array, so the same
+// body serves both: with T > 0 its row loops unroll.  Only t-float vectors
 // cross SMs, never t*t-float blocks: node n needs p at n + d_k and the
 // back-product q_k = C_k^T p at n - d_k, both computed by their owners.
 // Two modes, one template:
@@ -192,15 +195,17 @@ __device__ __forceinline__ void cluster_sum(float (&v)[NV], float* sm,
   }
 }
 
+// T > 0: block size T; T = 0: block size t_rt.
 template <int T, bool kSmemOps>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
                     const float* __restrict__ Minv,
                     const float* __restrict__ C, Offsets offs, int n_off,
                     int N, int NL, int maxiter, float tol2_scale,
-                    float* x_out, float* scratch, int* it_out) {
+                    float* x_out, float* scratch, int* it_out, int t_rt) {
   extern __shared__ __align__(16) float sm[];
-  constexpr int TT = T * T;
+  const int t = T > 0 ? T : t_rt;
+  const int tt = t * t;
   cg::cluster_group cl = cg::this_cluster();
   const int rank = static_cast<int>(cl.block_rank());
   const int n0 = rank * NL;
@@ -208,7 +213,7 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
   const size_t NN = static_cast<size_t>(N);
 
   float* p = sm + kHeader;  // [t][NL]
-  float* r = p + T * NL;    // [t][NL]
+  float* r = p + t * NL;    // [t][NL]
   float* q = nullptr;       // [n_off][t][NL], operands in L2: read remotely
   float* pf = nullptr;      // [n_off][t][NL]: p at n + d_k, pushed here
   float* qg = nullptr;      // [n_off][t][NL]: q_k at n - d_k, pushed here
@@ -216,20 +221,20 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
   const float *Ao, *Mo, *Co;  // [tt][os], [tt][os], [n_off*tt][os]
   int vs, os;               // row strides (N < 2^31 / (16 tt) here)
   if constexpr (kSmemOps) {
-    x = r + T * NL;
-    z = x + T * NL;
-    Ap = z + T * NL;
-    pf = Ap + T * NL;
-    qg = pf + n_off * T * NL;
-    float* a = qg + n_off * T * NL;
-    float* m = a + TT * NL;
-    float* c = m + TT * NL;
-    for (int e = threadIdx.x; e < TT * n_own; e += blockDim.x) {
+    x = r + t * NL;
+    z = x + t * NL;
+    Ap = z + t * NL;
+    pf = Ap + t * NL;
+    qg = pf + n_off * t * NL;
+    float* a = qg + n_off * t * NL;
+    float* m = a + tt * NL;
+    float* c = m + tt * NL;
+    for (int e = threadIdx.x; e < tt * n_own; e += blockDim.x) {
       const int i = e / n_own, nl = e - i * n_own;
       a[i * NL + nl] = A[i * NN + n0 + nl];
       m[i * NL + nl] = Minv[i * NN + n0 + nl];
     }
-    for (int e = threadIdx.x; e < n_off * TT * n_own; e += blockDim.x) {
+    for (int e = threadIdx.x; e < n_off * tt * n_own; e += blockDim.x) {
       const int i = e / n_own, nl = e - i * n_own;
       c[i * NL + nl] = C[i * NN + n0 + nl];
     }
@@ -238,10 +243,10 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
     Co = c;
     vs = os = NL;
   } else {
-    q = r + T * NL;
+    q = r + t * NL;
     x = x_out + n0;
     z = scratch + n0;
-    Ap = scratch + T * NN + n0;
+    Ap = scratch + t * NN + n0;
     Ao = A + n0;
     Mo = Minv + n0;
     Co = C + n0;
@@ -259,13 +264,13 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
 
   // This thread's rows j = threadIdx.x + m * blockDim.x, as (block row i,
   // local node nl) with j = i * n_own + nl, stepped without divisions.
-  const int i0 = n_own > 0 ? static_cast<int>(threadIdx.x) / n_own : T;
+  const int i0 = n_own > 0 ? static_cast<int>(threadIdx.x) / n_own : t;
   const int nl0 = n_own > 0 ? static_cast<int>(threadIdx.x) - i0 * n_own : 0;
   const int di = n_own > 0 ? static_cast<int>(blockDim.x) / n_own : 0;
   const int dnl = static_cast<int>(blockDim.x) - di * n_own;
   auto for_rows = [&](auto&& f) {
     int i = i0, nl = nl0;
-    while (i < T) {
+    while (i < t) {
       f(i, nl);
       i += di;
       nl += dnl;
@@ -284,11 +289,11 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
   };
   // q_k = C_k^T p at row (i, nl), from this CTA's p
   auto back = [&](int k, int i, int nl) {
-    const float* ck = Co + k * TT * os;
+    const float* ck = Co + k * tt * os;
     float acc = 0.f;
 #pragma unroll
-    for (int u = 0; u < T; ++u)
-      acc += ck[(u * T + i) * os + nl] * p[u * NL + nl];
+    for (int u = 0; u < t; ++u)
+      acc += ck[(u * t + i) * os + nl] * p[u * NL + nl];
     return acc;
   };
   // operands in shared memory: push p_i at node n0 + nl to the node at
@@ -300,7 +305,7 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
       int n = m - offs.d[k];
       if (n < 0) n += N;
       const int o = owner(n);
-      push(in_rank(smem_addr(pf + (k * T + i) * NL + n - o * NL), o), v,
+      push(in_rank(smem_addr(pf + (k * t + i) * NL + n - o * NL), o), v,
            in_rank(mbar0 + 8 * kMbarG, o));
     }
   };
@@ -310,20 +315,20 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
       int n = m + offs.d[k];
       if (n >= N) n -= N;
       const int o = owner(n);
-      push(in_rank(smem_addr(qg + (k * T + i) * NL + n - o * NL), o),
+      push(in_rank(smem_addr(qg + (k * t + i) * NL + n - o * NL), o),
            back(k, i, nl), in_rank(mbar0 + 8 * kMbarG, o));
     }
   };
   // operands in L2: store q for the readers
   auto store_q = [&](int i, int nl) {
-    for (int k = 0; k < n_off; ++k) q[(k * T + i) * NL + nl] = back(k, i, nl);
+    for (int k = 0; k < n_off; ++k) q[(k * t + i) * NL + nl] = back(k, i, nl);
   };
   // z = Minv r at row (i, nl)
   auto precond = [&](int i, int nl) {
     float acc = 0.f;
 #pragma unroll
-    for (int u = 0; u < T; ++u)
-      acc += Mo[(i * T + u) * os + nl] * r[u * NL + nl];
+    for (int u = 0; u < t; ++u)
+      acc += Mo[(i * t + u) * os + nl] * r[u * NL + nl];
     return acc;
   };
 
@@ -365,7 +370,7 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
     // Ap = A p (p at n + d_k, q_k at n - d_k) and p.Ap
     if constexpr (kSmemOps) {
       if (threadIdx.x == 0)
-        expect(mbar0 + 8 * kMbarG, 4 * 2 * n_off * T * n_own);
+        expect(mbar0 + 8 * kMbarG, 4 * 2 * n_off * t * n_own);
       wait_phase(mbar0 + 8 * kMbarG, phase_g);
       phase_g ^= 1;
     }
@@ -374,14 +379,14 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
       const int n = n0 + nl;
       float y = 0.f;
 #pragma unroll
-      for (int u = 0; u < T; ++u)
-        y += Ao[(i * T + u) * os + nl] * p[u * NL + nl];
+      for (int u = 0; u < t; ++u)
+        y += Ao[(i * t + u) * os + nl] * p[u * NL + nl];
       for (int k = 0; k < n_off; ++k) {
         const float* pk;
         float qb;
         if constexpr (kSmemOps) {
-          pk = pf + k * T * NL + nl;
-          qb = qg[(k * T + i) * NL + nl];
+          pk = pf + k * t * NL + nl;
+          qb = qg[(k * t + i) * NL + nl];
         } else {
           const int d = offs.d[k];
           int nf = n + d;
@@ -390,12 +395,12 @@ stencil_pcg_cluster(const float* __restrict__ b, const float* __restrict__ A,
           if (nb < 0) nb += N;
           const int of = owner(nf), ob = owner(nb);
           pk = cl.map_shared_rank(p, of) + nf - of * NL;
-          qb = cl.map_shared_rank(q, ob)[(k * T + i) * NL + nb - ob * NL];
+          qb = cl.map_shared_rank(q, ob)[(k * t + i) * NL + nb - ob * NL];
         }
-        const float* ck = Co + (k * T + i) * T * os;
+        const float* ck = Co + (k * t + i) * t * os;
         float acc = 0.f;
 #pragma unroll
-        for (int u = 0; u < T; ++u) acc += ck[u * os + nl] * pk[u * NL];
+        for (int u = 0; u < t; ++u) acc += ck[u * os + nl] * pk[u * NL];
         y += acc;
         y += qb;
       }
@@ -462,8 +467,10 @@ int smem_optin_bytes() {
   return bytes;
 }
 
+// One launch at block size t (T = t, or T = 0 for the runtime-t
+// instantiation).
 template <int T, bool kSmemOps>
-cudaError_t launch(const float* b, const float* A, const float* Minv,
+cudaError_t launch(int t, const float* b, const float* A, const float* Minv,
                    const float* C, const Offsets& offs, int n_off, int N,
                    int NL, int maxiter, float tol2_scale, float* x,
                    float* scratch, int* it, size_t bytes,
@@ -478,7 +485,7 @@ cudaError_t launch(const float* b, const float* A, const float* Minv,
   if (e != cudaSuccess) return e;
   // one thread per (node, block row) of the largest CTA, whole warps
   const int threads =
-      std::min(kMaxThreads, std::max(32, (T * NL + 31) / 32 * 32));
+      std::min(kMaxThreads, std::max(32, (t * NL + 31) / 32 * 32));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster);
   cfg.blockDim = dim3(threads);
@@ -496,17 +503,17 @@ cudaError_t launch(const float* b, const float* A, const float* Minv,
   if (e != cudaSuccess) return e;
   if (clusters < 1) return cudaErrorInvalidClusterSize;
   e = cudaLaunchKernelEx(&cfg, kernel, b, A, Minv, C, offs, n_off, N, NL,
-                         maxiter, tol2_scale, x, scratch, it);
+                         maxiter, tol2_scale, x, scratch, it, t);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// The solve at block size T: operands in shared memory if they fit, else
-// in L2 (see ppt_stencil_pcg).
+// The solve at block size t (T as launch): operands in shared memory if
+// they fit, else in L2 (see ppt_stencil_pcg).
 template <int T>
-int solve(const float* b, const float* A, const float* Minv, const float* C,
-          const int* offsets, int n_off, int N, int maxiter, double tol,
-          float* x, float* scratch, int* it, void* stream) {
+int solve(int t, const float* b, const float* A, const float* Minv,
+          const float* C, const int* offsets, int n_off, int N, int maxiter,
+          double tol, float* x, float* scratch, int* it, void* stream) {
   Offsets offs;
   if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -515,16 +522,42 @@ int solve(const float* b, const float* A, const float* Minv, const float* C,
   const int NL = (N + kCluster - 1) / kCluster;
   const size_t limit = static_cast<size_t>(smem_optin_bytes());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t with_ops = sizeof(float) * smem_floats(true, NL, n_off, T);
+  const size_t with_ops = sizeof(float) * smem_floats(true, NL, n_off, t);
   if (with_ops <= limit)
-    return static_cast<int>(launch<T, true>(b, A, Minv, C, offs, n_off, N,
+    return static_cast<int>(launch<T, true>(t, b, A, Minv, C, offs, n_off, N,
                                             NL, maxiter, tol2_scale, x,
                                             scratch, it, with_ops, s));
-  const size_t state = sizeof(float) * smem_floats(false, NL, n_off, T);
+  const size_t state = sizeof(float) * smem_floats(false, NL, n_off, t);
   if (state > limit) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<T, false>(b, A, Minv, C, offs, n_off, N, NL,
-                                           maxiter, tol2_scale, x, scratch,
-                                           it, state, s));
+  return static_cast<int>(launch<T, false>(t, b, A, Minv, C, offs, n_off, N,
+                                           NL, maxiter, tol2_scale, x,
+                                           scratch, it, state, s));
+}
+
+// The solve at block size t >= 1: its template at t = 3, 4, 6, 7 unless
+// `any_t`, else the runtime-t instantiation.
+int solve_t(int t, bool any_t, const float* b, const float* A,
+            const float* Minv, const float* C, const int* offsets, int n_off,
+            int N, int maxiter, double tol, float* x, float* scratch,
+            int* it, void* stream) {
+  if (t < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (any_t ? 0 : t) {
+    case 3:
+      return solve<3>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+    case 4:
+      return solve<4>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+    case 6:
+      return solve<6>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+    case 7:
+      return solve<7>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+    default:
+      return solve<0>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                      scratch, it, stream);
+  }
 }
 
 }  // namespace
@@ -534,31 +567,30 @@ extern "C" {
 // Launches the solve on `stream` and returns a CUDA error code (0 on
 // success).  `offsets` is a host array of n_off circular offsets in
 // [0, N); `scratch` holds 2*t*N floats (z and Ap when the operands do not
-// fit shared memory); `it` receives the iteration count.  Instantiated for
-// t = 3, 4, 6 and 7 (any other t: cudaErrorInvalidValue).  The operands go
-// to shared memory when smem_floats(true) fits the device's opt-in limit,
-// else the state alone must fit (cudaErrorInvalidValue if not); a cluster
-// of 16 that cannot be placed returns cudaErrorInvalidClusterSize.
+// fit shared memory); `it` receives the iteration count.  Any t >= 1: t =
+// 3, 4, 6 and 7 take their templates, every other t the runtime-t
+// instantiation; t < 1 or more than 16 offsets return
+// cudaErrorInvalidValue.  The operands go to shared memory when
+// smem_floats(true) fits the device's opt-in limit, else the state alone
+// must fit (cudaErrorInvalidValue if not); a cluster of 16 that cannot be
+// placed returns cudaErrorInvalidClusterSize.
 int ppt_stencil_pcg(int t, const float* b, const float* A, const float* Minv,
                     const float* C, const int* offsets, int n_off, int N,
                     int maxiter, double tol, float* x, float* scratch,
                     int* it, void* stream) {
-  switch (t) {
-    case 3:
-      return solve<3>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
-                      scratch, it, stream);
-    case 4:
-      return solve<4>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
-                      scratch, it, stream);
-    case 6:
-      return solve<6>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
-                      scratch, it, stream);
-    case 7:
-      return solve<7>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
-                      scratch, it, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return solve_t(t, false, b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                 scratch, it, stream);
+}
+
+// ppt_stencil_pcg through the runtime-t instantiation at every t, the
+// templates' t included (to hold it against them).
+int ppt_stencil_pcg_any_t(int t, const float* b, const float* A,
+                          const float* Minv, const float* C,
+                          const int* offsets, int n_off, int N, int maxiter,
+                          double tol, float* x, float* scratch, int* it,
+                          void* stream) {
+  return solve_t(t, true, b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
+                 scratch, it, stream);
 }
 
 const char* ppt_cuda_error_string(int code) {

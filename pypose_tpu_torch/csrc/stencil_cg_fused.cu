@@ -37,9 +37,15 @@
 // pass 2), so a CTA never overwrites a post another CTA has yet to read.
 // A poll that spins 2^26 times traps, so a lost post fails the launch
 // instead of hanging.
-// The block size t is a template parameter, instantiated for 3, 4, 6 and 7
-// (the tangent dimensions of SO3, RxSO3, SE3 and Sim3; the Pallas kernels
-// take any static t).  Two modes, one template:
+// The block size t is a template parameter T, instantiated for 3, 4, 6 and
+// 7 (the tangent dimensions of SO3, RxSO3, SE3 and Sim3), and T = 0 reads
+// t from a kernel argument: every other t >= 1 takes that instantiation
+// (the Pallas kernels take any static t).  The templates hold a node's
+// t-vectors in registers; the runtime-t instantiation holds none: each
+// node's thread loops over its rows, one accumulator a row, and reads the
+// vectors back from where the mode keeps them (shared or global memory)
+// and the neighbours' u from the global copy, in the templates' order of
+// operations.  Two modes, one template:
 //   kSmem = true   x, r, p, s, w, this CTA's u (6t floats a node) and its
 //                  Minv, widened to float32 (tt floats), live in shared
 //                  memory: at t = 6 288 B a node, 218 KB a CTA at the
@@ -162,6 +168,7 @@ __device__ __forceinline__ void gather(const unsigned long long* set, int G,
   }
 }
 
+// T > 0: block size T; T = 0: block size t_rt.
 template <int T, typename OpT, bool kSmem>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
@@ -169,9 +176,10 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
           Offsets offs, int n_off, int N, int NL, int maxiter,
           float tol2_scale, float* __restrict__ x_out, float* u,
           float* __restrict__ scratch, unsigned long long* mail,
-          int* it_out) {
+          int* it_out, int t_rt) {
   extern __shared__ __align__(16) float sm[];
-  constexpr int TT = T * T;
+  const int t = T > 0 ? T : t_rt;
+  const int tt = t * t;
   __shared__ float red[66];  // ppt::block_sum2
   __shared__ float tot[kMaxWarps * 2];
   const int G = static_cast<int>(gridDim.x);
@@ -187,8 +195,8 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
   if constexpr (kSmem) {
     x = sm;
     vs = NL;
-    float* m = sm + 6 * T * NL;
-    for (int e = threadIdx.x; e < TT * n_own; e += blockDim.x) {
+    float* m = sm + 6 * t * NL;
+    for (int e = threadIdx.x; e < tt * n_own; e += blockDim.x) {
       const int i = e / n_own, nl = e - i * n_own;
       m[i * NL + nl] = ppt::to_f32(Minv[i * NN + n0 + nl]);
     }
@@ -197,17 +205,17 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
     x = x_out + n0;
     vs = N;
   }
-  r = (kSmem ? x + T * NL : scratch + n0);
-  p = r + T * static_cast<size_t>(vs);
-  s = p + T * static_cast<size_t>(vs);
-  w = s + T * static_cast<size_t>(vs);
-  uo = kSmem ? w + T * NL : u + n0;
+  r = (kSmem ? x + t * NL : scratch + n0);
+  p = r + t * static_cast<size_t>(vs);
+  s = p + t * static_cast<size_t>(vs);
+  w = s + t * static_cast<size_t>(vs);
+  uo = kSmem ? w + t * NL : u + n0;
 
   // x = p = s = w = u = 0, r = b: pass 1 with alpha = 0 then gives the
   // init pass's x0, r0, u0
   for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
 #pragma unroll
-    for (int i = 0; i < T; ++i) {
+    for (int i = 0; i < t; ++i) {
       const int j = i * vs + nl;
       r[j] = b[i * NN + n0 + nl];
       x[j] = p[j] = s[j] = w[j] = uo[j] = 0.f;
@@ -223,7 +231,31 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
   for (bool init = true;; init = false) {
     // pass 1: x += alpha p, r -= alpha s, u = Minv r, (r, u) and (r, r)
     float part[2] = {0.f, 0.f};
-    for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+    if constexpr (T == 0) {
+      for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+        const size_t n = static_cast<size_t>(n0 + nl);
+        for (int i = 0; i < t; ++i) {
+          const int j = i * vs + nl;
+          x[j] = x[j] + alpha * p[j];
+          r[j] = r[j] - alpha * s[j];
+        }
+        for (int i = 0; i < t; ++i) {
+          float acc = 0.f;
+          for (int v = 0; v < t; ++v) {
+            const int e = i * t + v;
+            acc += (kSmem ? Ms[e * NL + nl] : ppt::to_f32(Minv[e * NN + n]))
+                   * r[v * vs + nl];
+          }
+          float zi = 0.f;
+          zi += acc;
+          const float ri = r[i * vs + nl];
+          uo[i * vs + nl] = zi;
+          if (kSmem) u[i * NN + n] = zi;
+          part[0] += ri * zi;
+          part[1] += ri * ri;
+        }
+      }
+    } else for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
       const size_t n = static_cast<size_t>(n0 + nl);
       float rv[T], zv[T];
 #pragma unroll
@@ -251,7 +283,19 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
     if (threadIdx.x == 0) post(mail_1 + 2 * blockIdx.x, part[0], part[1], e);
 
     // while the others post: w = A u at this CTA's nodes (own u only)
-    for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+    if constexpr (T == 0) {
+      for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+        const size_t n = static_cast<size_t>(n0 + nl);
+        for (int i = 0; i < t; ++i) {
+          float acc = 0.f;
+          for (int v = 0; v < t; ++v)
+            acc += ppt::to_f32(A[(i * t + v) * NN + n]) * uo[v * vs + nl];
+          float y = 0.f;
+          y += acc;
+          w[i * vs + nl] = y;
+        }
+      }
+    } else for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
       float un[T], y[T];
 #pragma unroll
       for (int i = 0; i < T; ++i) {
@@ -272,14 +316,41 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
 
     // pass 2: w += the couplings (u at n +- d_k), (w, u)
     float wu = 0.f, unused = 0.f;
-    for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+    if constexpr (T == 0) {
+      for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
+        const int n = n0 + nl;
+        for (int i = 0; i < t; ++i) {
+          float y = w[i * vs + nl];
+          for (int k = 0; k < n_off; ++k) {
+            const int d = offs.d[k];
+            const OpT* Ck = C + k * tt * NN;
+            int nf = n + d;
+            if (nf >= N) nf -= N;
+            int nb = n - d;
+            if (nb < 0) nb += N;
+            float acc = 0.f;
+            for (int v = 0; v < t; ++v)
+              acc += ppt::to_f32(Ck[(i * t + v) * NN + n]) *
+                     __ldcg(u + v * NN + nf);
+            y += acc;
+            acc = 0.f;
+            for (int v = 0; v < t; ++v)
+              acc += ppt::to_f32(Ck[(v * t + i) * NN + nb]) *
+                     __ldcg(u + v * NN + nb);
+            y += acc;
+          }
+          w[i * vs + nl] = y;
+          wu += y * uo[i * vs + nl];
+        }
+      }
+    } else for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
       const int n = n0 + nl;
       float y[T], q[T];
 #pragma unroll
       for (int i = 0; i < T; ++i) y[i] = w[i * vs + nl];
       for (int k = 0; k < n_off; ++k) {
         const int d = offs.d[k];
-        const OpT* Ck = C + k * TT * NN;
+        const OpT* Ck = C + k * tt * NN;
         int nf = n + d;
         if (nf >= N) nf -= N;
         int nb = n - d;
@@ -306,7 +377,7 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
     const float beta = init ? 0.f : dots[0] / guard(gamma);
     for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
 #pragma unroll
-      for (int i = 0; i < T; ++i) {
+      for (int i = 0; i < t; ++i) {
         const int j = i * vs + nl;
         p[j] = uo[j] + beta * p[j];
         s[j] = w[j] + beta * s[j];
@@ -324,7 +395,7 @@ fused_pcg(const float* __restrict__ b, const OpT* __restrict__ A,
   if constexpr (kSmem) {
     for (int nl = threadIdx.x; nl < n_own; nl += blockDim.x) {
 #pragma unroll
-      for (int i = 0; i < T; ++i) x_out[i * NN + n0 + nl] = x[i * vs + nl];
+      for (int i = 0; i < t; ++i) x_out[i * NN + n0 + nl] = x[i * vs + nl];
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *it_out = it;
@@ -354,14 +425,16 @@ bool make_plan(int N, int t, Plan* out) {
   return true;
 }
 
+// One launch at block size t (T = t, or T = 0 for the runtime-t
+// instantiation).
 template <int T, typename OpT, bool kSmem>
-cudaError_t launch(const Plan& plan, const float* b, const OpT* A,
+cudaError_t launch(int t, const Plan& plan, const float* b, const OpT* A,
                    const OpT* Minv, const OpT* C, Offsets offs, int n_off,
                    int N, int maxiter, float tol2_scale, float* x, float* u,
                    float* scratch, unsigned long long* mail, int* it,
                    cudaStream_t stream) {
   auto kernel = fused_pcg<T, OpT, kSmem>;
-  const size_t bytes = kSmem ? sizeof(float) * smem_floats(plan.NL, T) : 0;
+  const size_t bytes = kSmem ? sizeof(float) * smem_floats(plan.NL, t) : 0;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -378,7 +451,7 @@ cudaError_t launch(const Plan& plan, const float* b, const OpT* A,
   if (per_sm * sms < plan.grid) return cudaErrorCooperativeLaunchTooLarge;
   int NL = plan.NL;
   void* args[] = {&b, &A, &Minv, &C, &offs, &n_off, &N, &NL, &maxiter,
-                  &tol2_scale, &x, &u, &scratch, &mail, &it};
+                  &tol2_scale, &x, &u, &scratch, &mail, &it, &t};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                   dim3(plan.grid), dim3(plan.threads), args,
                                   bytes, stream);
@@ -387,15 +460,15 @@ cudaError_t launch(const Plan& plan, const float* b, const OpT* A,
 }
 
 template <int T, typename OpT>
-int solve(const float* b, const void* A, const void* Minv, const void* C,
-          const int* offsets, int n_off, int N, int maxiter, double tol,
-          float* x, float* u, float* scratch, unsigned long long* mail,
-          int* it, void* stream) {
+int solve(int t, const float* b, const void* A, const void* Minv,
+          const void* C, const int* offsets, int n_off, int N, int maxiter,
+          double tol, float* x, float* u, float* scratch,
+          unsigned long long* mail, int* it, void* stream) {
   Offsets offs;
   Plan plan;
   if (!ppt::make_offsets(offsets, n_off, &offs) || N <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!make_plan(N, T, &plan))
+  if (!make_plan(N, t, &plan))
     return static_cast<int>(cudaErrorInvalidDevice);
   // same rounding as (tol * tol) * |b|^2 with a float32 |b|^2
   const float tol2_scale = static_cast<float>(tol * tol);
@@ -405,37 +478,53 @@ int solve(const float* b, const void* A, const void* Minv, const void* C,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       plan.smem
-          ? launch<T, OpT, true>(plan, b, a, m, c, offs, n_off, N, maxiter,
-                                 tol2_scale, x, u, scratch, mail, it, s)
-          : launch<T, OpT, false>(plan, b, a, m, c, offs, n_off, N, maxiter,
-                                  tol2_scale, x, u, scratch, mail, it, s);
+          ? launch<T, OpT, true>(t, plan, b, a, m, c, offs, n_off, N,
+                                 maxiter, tol2_scale, x, u, scratch, mail,
+                                 it, s)
+          : launch<T, OpT, false>(t, plan, b, a, m, c, offs, n_off, N,
+                                  maxiter, tol2_scale, x, u, scratch, mail,
+                                  it, s);
   return static_cast<int>(e);
 }
 
-// True for the block sizes the kernel is instantiated for.
-bool block_size_ok(int t) { return t == 3 || t == 4 || t == 6 || t == 7; }
-
+// The solve at block size t >= 1: its template at t = 3, 4, 6, 7 unless
+// `any_t`, else the runtime-t instantiation.
 template <typename OpT>
-int solve_t(int t, const float* b, const void* A, const void* Minv,
-            const void* C, const int* offsets, int n_off, int N, int maxiter,
-            double tol, float* x, float* u, float* scratch,
-            unsigned long long* mail, int* it, void* stream) {
-  switch (t) {
+int solve_t(int t, bool any_t, const float* b, const void* A,
+            const void* Minv, const void* C, const int* offsets, int n_off,
+            int N, int maxiter, double tol, float* x, float* u,
+            float* scratch, unsigned long long* mail, int* it,
+            void* stream) {
+  if (t < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (any_t ? 0 : t) {
     case 3:
-      return solve<3, OpT>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
-                           u, scratch, mail, it, stream);
+      return solve<3, OpT>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol,
+                           x, u, scratch, mail, it, stream);
     case 4:
-      return solve<4, OpT>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
-                           u, scratch, mail, it, stream);
+      return solve<4, OpT>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol,
+                           x, u, scratch, mail, it, stream);
     case 6:
-      return solve<6, OpT>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
-                           u, scratch, mail, it, stream);
+      return solve<6, OpT>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol,
+                           x, u, scratch, mail, it, stream);
     case 7:
-      return solve<7, OpT>(b, A, Minv, C, offsets, n_off, N, maxiter, tol, x,
-                           u, scratch, mail, it, stream);
+      return solve<7, OpT>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol,
+                           x, u, scratch, mail, it, stream);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return solve<0, OpT>(t, b, A, Minv, C, offsets, n_off, N, maxiter, tol,
+                           x, u, scratch, mail, it, stream);
   }
+}
+
+int solve_any(int t, bool any_t, int bf16, const float* b, const void* A,
+              const void* Minv, const void* C, const int* offsets,
+              int n_off, int N, int maxiter, double tol, float* x, float* u,
+              float* scratch, unsigned long long* mail, int* it,
+              void* stream) {
+  return bf16 ? solve_t<__nv_bfloat16>(t, any_t, b, A, Minv, C, offsets,
+                                       n_off, N, maxiter, tol, x, u, scratch,
+                                       mail, it, stream)
+              : solve_t<float>(t, any_t, b, A, Minv, C, offsets, n_off, N,
+                               maxiter, tol, x, u, scratch, mail, it, stream);
 }
 
 }  // namespace
@@ -446,11 +535,10 @@ extern "C" {
 // out[0] CTAs, out[1] nodes a CTA, out[2] threads a CTA, out[3] 1 if the
 // state and Minv live in shared memory (6t + tt floats a node).
 // ppt_fused_pcg's mailboxes hold 4 * out[0] 64-bit words.  Returns a CUDA
-// error code (0 on success).
+// error code (0 on success; t < 1: cudaErrorInvalidValue).
 int ppt_fused_plan(int N, int t, int* out) {
   Plan plan;
-  if (N <= 0 || !block_size_ok(t))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || t < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (!make_plan(N, t, &plan))
     return static_cast<int>(cudaErrorInvalidDevice);
   out[0] = plan.grid;
@@ -467,18 +555,27 @@ int ppt_fused_plan(int N, int t, int* out) {
 // `offsets` a host array of n_off circular offsets in [0, N); scratch
 // 4*t*N floats (r, p, s, w, used past the shared-memory mode); `mail`
 // 4 * ppt_fused_plan's CTAs 64-bit words, zero; `it` receives the
-// iteration count.  Instantiated for t = 3, 4, 6 and 7 (any other t:
-// cudaErrorInvalidValue).
+// iteration count.  Any t >= 1: t = 3, 4, 6 and 7 take their templates,
+// every other t the runtime-t instantiation; t < 1 or more than 16
+// offsets return cudaErrorInvalidValue.
 int ppt_fused_pcg(int t, int bf16, const float* b, const void* A,
                   const void* Minv, const void* C, const int* offsets,
                   int n_off, int N, int maxiter, double tol, float* x,
                   float* u, float* scratch, unsigned long long* mail,
                   int* it, void* stream) {
-  return bf16 ? solve_t<__nv_bfloat16>(t, b, A, Minv, C, offsets, n_off, N,
-                                       maxiter, tol, x, u, scratch, mail,
-                                       it, stream)
-              : solve_t<float>(t, b, A, Minv, C, offsets, n_off, N, maxiter,
-                               tol, x, u, scratch, mail, it, stream);
+  return solve_any(t, false, bf16, b, A, Minv, C, offsets, n_off, N, maxiter,
+                   tol, x, u, scratch, mail, it, stream);
+}
+
+// ppt_fused_pcg through the runtime-t instantiation at every t, the
+// templates' t included (to hold it against them).
+int ppt_fused_pcg_any_t(int t, int bf16, const float* b, const void* A,
+                        const void* Minv, const void* C, const int* offsets,
+                        int n_off, int N, int maxiter, double tol, float* x,
+                        float* u, float* scratch, unsigned long long* mail,
+                        int* it, void* stream) {
+  return solve_any(t, true, bf16, b, A, Minv, C, offsets, n_off, N, maxiter,
+                   tol, x, u, scratch, mail, it, stream);
 }
 
 const char* ppt_cuda_error_string(int code) {

@@ -22,10 +22,13 @@ kernel or raises: it never falls back to the plain version.
   CG state in torch ops; plain version :func:`_tiled_cg_torch`.  Nothing
   routes to it.
 
-The Pallas kernels take the block size t as a static argument; the CUDA
-kernels are templates on it, built for :data:`KERNEL_T` (3, 4, 6, 7: the
-tangent dimensions of SO3, RxSO3, SE3 and Sim3).  Any other t raises on
-CUDA tensors; the plain versions take any t.
+The Pallas kernels take the block size t as a static argument, and so do
+the CUDA kernels: every t >= 1.  Each is a template on t, built for
+:data:`TEMPLATE_T` (3, 4, 6, 7: the tangent dimensions of SO3, RxSO3, SE3
+and Sim3), and has one runtime-t instantiation that takes every other t
+(it reads t from an argument and keeps no t-float array in registers).
+``any_t=True`` sends the templates' t to it as well, to hold the two
+against each other.  The plain versions take any t.
 
 Matvec (see ``ops/spmv.py``):
 
@@ -60,9 +63,11 @@ TILED_PC_LAUNCHES = 0
 # stop flag; a stopped solve makes the extra ones no-ops.
 CHECK_EVERY = 8
 
-# The block sizes the kernels are instantiated for (the tangent dimensions
-# of SO3, RxSO3, SE3 and Sim3); StencilSpMV refuses more than 16 offsets.
-KERNEL_T = frozenset({3, 4, 6, 7})
+# The block sizes with a compile-time instantiation of each kernel (the
+# tangent dimensions of SO3, RxSO3, SE3 and Sim3); every other t >= 1 takes
+# the runtime-t one.  Nothing routes on it.  StencilSpMV refuses more than
+# 16 offsets.
+TEMPLATE_T = frozenset({3, 4, 6, 7})
 MAX_OFFSETS = 16
 
 # Budgets of the whole-solve kernel (csrc/stencil_cg.cu), one cluster of
@@ -258,19 +263,21 @@ def _fused_cg_torch(A_T, Minv_T, C_T, b, offsets, t, maxiter, tol):
 
 _INT, _PTR, _DBL = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
 
-# argument types of each library's C functions (all return an int)
+# argument types of each library's C functions (all return an int); each
+# solve and kernel also has an ``_any_t`` entry point, the runtime-t
+# instantiation at every t
+_PCG = [_INT] + [_PTR] * 5 + [_INT] * 3 + [_DBL] + [_PTR] * 4
+_MV = [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _PTR, _PTR]
+_PC = [_INT, _PTR, _INT, _PTR, _PTR, _PTR]
+_FUSED = [_INT, _INT] + [_PTR] * 5 + [_INT] * 3 + [_DBL] + [_PTR] * 6
 _SIGNATURES = {
-    'stencil_cg': {
-        'ppt_stencil_pcg': [_INT] + [_PTR] * 5 + [_INT] * 3 + [_DBL]
-        + [_PTR] * 4},
+    'stencil_cg': {'ppt_stencil_pcg': _PCG, 'ppt_stencil_pcg_any_t': _PCG},
     'stencil_cg_tiled': {
-        'ppt_tiled_mv': [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _PTR,
-                         _PTR],
-        'ppt_tiled_pc': [_INT, _PTR, _INT, _PTR, _PTR, _PTR]},
+        'ppt_tiled_mv': _MV, 'ppt_tiled_mv_any_t': _MV,
+        'ppt_tiled_pc': _PC, 'ppt_tiled_pc_any_t': _PC},
     'stencil_cg_fused': {
         'ppt_fused_plan': [_INT, _INT, _PTR],
-        'ppt_fused_pcg': [_INT, _INT] + [_PTR] * 5 + [_INT] * 3 + [_DBL]
-        + [_PTR] * 6},
+        'ppt_fused_pcg': _FUSED, 'ppt_fused_pcg_any_t': _FUSED},
 }
 
 
@@ -296,7 +303,7 @@ def _check_operands(b_T, A_T, Minv_T, C_T, offsets, t):
 def _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t, operand_dtype=None):
     """What the CUDA kernels take: float32 (the operands A, Minv, C in
     ``operand_dtype`` where the fused solver stores them so), contiguous,
-    t in :data:`KERNEL_T`, at most 16 offsets, on a CUDA device."""
+    any block size t >= 1, at most 16 offsets, on a CUDA device."""
     if b_T.device.type != 'cuda':
         raise ValueError(f'unsupported device {b_T.device}')
     for name, a in (('b_T', b_T), ('A_T', A_T), ('Minv_T', Minv_T),
@@ -308,9 +315,8 @@ def _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t, operand_dtype=None):
                             f'{want} here')
         if not a.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-    if t not in KERNEL_T:
-        raise ValueError(f'the CUDA kernels are instantiated for t in '
-                         f'{sorted(KERNEL_T)}, got t={t}')
+    if t < 1:
+        raise ValueError(f'block size t={t}: the CUDA kernels take t >= 1')
     if len(offsets) > MAX_OFFSETS:
         raise ValueError(f'{len(offsets)} offsets > {MAX_OFFSETS}')
 
@@ -325,15 +331,17 @@ def _stream(a):
     return torch.cuda.current_stream(a.device).cuda_stream
 
 
-def stencil_cg_transposed(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
+def stencil_cg_transposed(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
+                          any_t=False):
     """Solve ``A x = b`` in the lane-major layout.
 
     Returns ``(x_T [t, N], iterations)`` with the iteration count as a
     0-d int32 tensor on the operands' device.  CUDA tensors go through the
-    kernel (float32, contiguous, t in :data:`KERNEL_T`, at most 16
-    offsets; anything else raises), launched on the current stream without
-    synchronising; CPU
-    tensors run :func:`_cg_body_torch`.
+    kernel (float32, contiguous, any t >= 1, at most 16 offsets; anything
+    else raises), launched on the current stream without synchronising:
+    t in :data:`TEMPLATE_T` through its template unless ``any_t``, every
+    other t through the runtime-t instantiation.  CPU tensors run
+    :func:`_cg_body_torch`.
     """
     global LAUNCHES
     offsets = tuple(int(d) for d in offsets)
@@ -348,7 +356,8 @@ def stencil_cg_transposed(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
     it = torch.empty((1,), dtype=torch.int32, device=b_T.device)
     lib = _kernel_lib('stencil_cg')
     with torch.cuda.device(b_T.device):
-        rc = lib.ppt_stencil_pcg(
+        entry = lib.ppt_stencil_pcg_any_t if any_t else lib.ppt_stencil_pcg
+        rc = entry(
             t, b_T.data_ptr(), A_T.data_ptr(), Minv_T.data_ptr(),
             C_T.data_ptr(), _c_offsets(offsets, N), len(offsets), N,
             int(maxiter), float(tol), x.data_ptr(), scratch.data_ptr(),
@@ -358,7 +367,8 @@ def stencil_cg_transposed(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
     return x, it[0]
 
 
-def stencil_cg_tiled(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
+def stencil_cg_tiled(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
+                     any_t=False):
     """Solve ``A x = b`` in the lane-major layout with the operands
     streamed from device memory on every iteration (``pallas_cg.py:
     stencil_cg_tiled``): zero initial guess, stop when |r|^2 <= tol^2
@@ -367,10 +377,9 @@ def stencil_cg_tiled(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
     Returns ``(x_T [t, N], iterations)``, the count a 0-d int32 tensor on
     the operands' device.  CUDA tensors launch the matvec and
     block-Jacobi kernels of ``csrc/stencil_cg_tiled.cu`` once each per
-    iteration (float32, contiguous, t in :data:`KERNEL_T`, at most 16
-    offsets; anything else raises), with the CG state in torch ops; CPU
-    tensors run
-    :func:`_tiled_cg_torch`.
+    iteration (float32, contiguous, any t >= 1, at most 16 offsets;
+    anything else raises; ``any_t`` as :func:`stencil_cg_transposed`), with
+    the CG state in torch ops; CPU tensors run :func:`_tiled_cg_torch`.
     """
     offsets = tuple(int(d) for d in offsets)
     _check_operands(b_T, A_T, Minv_T, C_T, offsets, t)
@@ -380,21 +389,23 @@ def stencil_cg_tiled(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol):
     _check_cuda(b_T, A_T, Minv_T, C_T, offsets, t)
     with torch.cuda.device(b_T.device):
         return _tiled_cg(
-            lambda p: _tiled_mv_launch(A_T, C_T, p, offsets, t),
-            lambda r: _tiled_pc_launch(Minv_T, r, t),
+            lambda p: _tiled_mv_launch(A_T, C_T, p, offsets, t, any_t),
+            lambda r: _tiled_pc_launch(Minv_T, r, t, any_t),
             b_T, maxiter, tol)
 
 
-def _tiled_mv_launch(A_T, C_T, p, offsets, t):
+def _tiled_mv_launch(A_T, C_T, p, offsets, t, any_t=False):
     """``q = A p``: one launch of the tiled matvec kernel on the current
-    stream.  Unchecked (it runs once per CG iteration): takes operands
-    :func:`stencil_cg_tiled` has checked (CUDA, float32, contiguous,
-    t in :data:`KERNEL_T`)."""
+    stream (``any_t`` as :func:`stencil_cg_transposed`).  Unchecked (it
+    runs once per CG iteration): takes operands :func:`stencil_cg_tiled`
+    has checked (CUDA, float32, contiguous); the C entry point refuses
+    t < 1 and more than 16 offsets."""
     global TILED_MV_LAUNCHES
     lib = _kernel_lib('stencil_cg_tiled')
     N = p.shape[1]
     q = torch.empty_like(p)
-    _raise_on(lib, lib.ppt_tiled_mv(
+    entry = lib.ppt_tiled_mv_any_t if any_t else lib.ppt_tiled_mv
+    _raise_on(lib, entry(
         t, A_T.data_ptr(), C_T.data_ptr(), _c_offsets(offsets, N),
         len(offsets), N, p.data_ptr(), q.data_ptr(), _stream(p)),
         'tiled_mv')
@@ -402,13 +413,14 @@ def _tiled_mv_launch(A_T, C_T, p, offsets, t):
     return q
 
 
-def _tiled_pc_launch(Minv_T, r, t):
+def _tiled_pc_launch(Minv_T, r, t, any_t=False):
     """``z = Minv r``: one launch of the block-Jacobi kernel (operands as
     :func:`_tiled_mv_launch`)."""
     global TILED_PC_LAUNCHES
     lib = _kernel_lib('stencil_cg_tiled')
     z = torch.empty_like(r)
-    _raise_on(lib, lib.ppt_tiled_pc(
+    entry = lib.ppt_tiled_pc_any_t if any_t else lib.ppt_tiled_pc
+    _raise_on(lib, entry(
         t, Minv_T.data_ptr(), r.shape[1], r.data_ptr(), z.data_ptr(),
         _stream(r)), 'tiled_pc')
     TILED_PC_LAUNCHES += 1
@@ -432,7 +444,8 @@ def fused_plan(N, t, device=None):
     on a CUDA ``device``: ``{'ctas', 'nodes_per_cta', 'threads', 'smem'}``,
     ``smem`` True where each CTA keeps its state and Minv in shared memory
     (6t + tt floats a node: 72 at t = 6, 91 at t = 7, 27 at t = 3), else
-    in global memory."""
+    in global memory.  Any t >= 1 (the same plan for the templates and the
+    runtime-t instantiation)."""
     lib = _kernel_lib('stencil_cg_fused')
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
@@ -442,7 +455,7 @@ def fused_plan(N, t, device=None):
 
 
 def stencil_cg_fused(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
-                     operand_dtype=None):
+                     operand_dtype=None, any_t=False):
     """Solve ``A x = b`` in the lane-major layout by Chronopoulos-Gear PCG
     (``pallas_cg.py:stencil_cg_fused``): zero initial guess, stop when
     |r|^2 <= tol^2 |b|^2 or at ``maxiter``, 1e-31 division guards; the
@@ -455,9 +468,10 @@ def stencil_cg_fused(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
     the operands' device.  CUDA tensors go through one launch of
     ``csrc/stencil_cg_fused.cu`` on the current stream, without
     synchronising (b float32; A, Minv, C float32, or bf16 where
-    ``operand_dtype`` says so; contiguous, t in :data:`KERNEL_T`, at most
-    16 offsets; anything else raises); CPU tensors run :func:`_fused_cg_torch` on the
-    stored operands widened back to b's dtype.
+    ``operand_dtype`` says so; contiguous, any t >= 1, at most 16 offsets;
+    anything else raises; ``any_t`` as :func:`stencil_cg_transposed`); CPU
+    tensors run :func:`_fused_cg_torch` on the stored operands widened back
+    to b's dtype.
     """
     global FUSED_LAUNCHES
     offsets = tuple(int(d) for d in offsets)
@@ -479,7 +493,8 @@ def stencil_cg_fused(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
     mail = torch.zeros((2, plan['ctas'], 2), dtype=torch.int64, device=dev)
     it = torch.empty((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.ppt_fused_pcg(
+        entry = lib.ppt_fused_pcg_any_t if any_t else lib.ppt_fused_pcg
+        rc = entry(
             t, int(operand_dtype is not None), b_T.data_ptr(),
             A_T.data_ptr(), Minv_T.data_ptr(), C_T.data_ptr(),
             _c_offsets(offsets, N), len(offsets), N, int(maxiter),
@@ -531,7 +546,7 @@ def stencil_cg(b, Ablk, dcorr, Minv, C, offsets, fixed_mask=None,
 
     Systems within the L2 budget (:func:`stencil_cg_fits`) take the
     whole-solve kernel, larger ones the fused solver with float32
-    operands, on every device.
+    operands, on every device and at every block size t.
     """
     N, t = b.shape
     solve = stencil_cg_transposed if stencil_cg_fits(N, t, C.shape[0]) \

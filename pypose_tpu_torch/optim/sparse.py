@@ -12,13 +12,13 @@ decides its route at construction (:attr:`SparseLM.route`), by one
 predicate that holds alike on every device:
 
 - ``'stencil'``: all edges merge into one circulant stencil, the
-  preconditioner is block-Jacobi, the parameters are float32 and the
-  tangent dimension t is one the kernels are built for
-  (``ops/stencil_cg.KERNEL_T``: 3, 4, 6, 7, the four groups' and a
-  Euclidean group's of those sizes).  The whole solve runs in the CUDA
-  kernels of ``ops/stencil_cg.py`` (their plain PyTorch versions on the
-  CPU): the cluster kernel while the system fits the L2 budget, else the
-  fused Chronopoulos-Gear kernel.
+  preconditioner is block-Jacobi and the parameters are float32, at any
+  tangent dimension t (the four groups' 3, 4, 6, 7 through the kernels'
+  templates, every other t, a Euclidean group's, through their runtime-t
+  instantiation).  The whole solve runs in the CUDA kernels of
+  ``ops/stencil_cg.py`` (their plain PyTorch versions on the CPU): the
+  cluster kernel while the system fits the L2 budget, else the fused
+  Chronopoulos-Gear kernel.
 - ``'chain'``: the block-tridiagonal chain preconditioner, solved exactly
   by block cyclic reduction (``ops/block_tridiag.py``), inside the
   einsum CG.
@@ -30,10 +30,9 @@ predicate that holds alike on every device:
   6) or ``blockinv``.
 
 This mirrors the JAX package's own predicate
-(``pypose_tpu/optim/sparse.py:671-687``): systems its kernel does not take
-go to the einsum CG.  Its Pallas kernels take any static block size; the
-CUDA kernels are built for the four groups' and other sizes take the
-einsum CG.  How a factor's Jacobian is formed does not change its route.
+(``pypose_tpu/optim/sparse.py:670-688``), which sends every block size to
+its Pallas kernels; float64 takes the einsum CG here.  How a factor's
+Jacobian is formed does not change its route.
 
 The JAX package runs the LM reject loop, the plateau schedule and the
 einsum CG inside ``lax.while_loop``; here they are Python loops that read
@@ -51,7 +50,7 @@ from ..lietensor.lietensor import (LieTensor, SO3_type, SE3_type, RxSO3_type,
 from ..ops.block_tridiag import bcr_factor, bcr_solve
 from ..ops.smallinv import blockinv, blockinv_scalar
 from ..ops.spmv import CouplingSpMV, StencilSpMV
-from ..ops.stencil_cg import KERNEL_T, stencil_cg
+from ..ops.stencil_cg import stencil_cg
 from .solver import cg
 from .strategy import TrustRegion
 
@@ -250,8 +249,7 @@ class SparseLM:
                              f'{precond!r}')
         if self.precond == 'chain':
             self._route = 'chain'
-        elif (self._stencil_all is not None and self.dtype == torch.float32
-              and self._stencil_all.tan in KERNEL_T):
+        elif self._stencil_all is not None and self.dtype == torch.float32:
             self._route = 'stencil'
         else:
             self._route = 'einsum'

@@ -1151,7 +1151,8 @@ def test_sparse_lm_float64_card_matches_cpu(cuda):
 def test_ring3_card_matches_cpu(cuda):
     """The C3 input, a Euclidean [64, 3] factor on stencil edges (t = 3):
     the 'stencil' route through the whole-solve kernel at t = 3, chi2
-    within 1e-4 of the CPU's; the same graph at t = 5 takes 'einsum'."""
+    within 1e-4 of the CPU's; the same graph at t = 5 takes 'stencil'
+    too, through the kernel's runtime-t instantiation."""
     from pypose_tpu_torch.optim.sparse import SparseLM
     from pypose_tpu_torch.optim.strategy import TrustRegion
     from pypose_tpu_torch.testing import ring3_problem
@@ -1167,7 +1168,7 @@ def test_ring3_card_matches_cpu(cuda):
         params, factors, fixed = ring3_problem(device=dev, t=5)
         return SparseLM(params, factors, strategy=TrustRegion(radius=1e4),
                         fixed=fixed, cg_iter=100, cg_tol=1e-8)
-    card, cpu = _steps_card_and_cpu(make5, 2)
+    card, cpu = _steps_card_and_cpu(make5, 2, route='stencil')
     assert max(abs(a / b - 1) for a, b in zip(card, cpu)) <= 1e-4
 
 
@@ -1346,38 +1347,223 @@ def test_oversize_solvers_match_plain_at_block_size(
     assert torch.equal(x_k, x_k2) and int(it_k) == int(it_k2)
 
 
-@pytest.mark.parametrize('t,nodes_in_smem', [(3, 2147), (4, 1449), (6, 805),
-                                             (7, 637)])
+@pytest.mark.parametrize('t,nodes_in_smem', [
+    (1, 8283), (2, 3624), (3, 2147), (4, 1449), (5, 1054), (6, 805),
+    (7, 637), (8, 517), (9, 429), (16, 164), (17, 148)])
 def test_fused_plan_takes_block_size(cuda, t, nodes_in_smem):
     """The fused kernel's shared-memory mode holds 6t + tt floats a node
     within 232,448 - 512 bytes a CTA: 2,147 nodes a CTA at t = 3, 1,449 at
-    t = 4, 805 at t = 6 and 637 at t = 7; the 100k shape (758 nodes a CTA
-    on 132 SMs) is within it at t <= 6 and in global-memory mode at
-    t = 7; other block sizes are refused."""
+    t = 4, 805 at t = 6 and 637 at t = 7 (517 at t = 8, 429 at t = 9);
+    the 100k shape (758 nodes a CTA on 132 SMs) is within it at t <= 6
+    and in global-memory mode from t = 7; on both sides of the switch at
+    each t; t < 1 is refused."""
     assert (232_448 - 512) // (4 * (6 * t + t * t)) == nodes_in_smem
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for N in (53, 100_000, 200_000):
+    edge = [sms * nodes_in_smem, sms * nodes_in_smem + sms]
+    for N in (53, 100_000, 200_000, *edge):
         plan = scg.fused_plan(N, t, cuda)
         assert plan['nodes_per_cta'] == -(-N // min(sms, max(1, N // 8)))
         assert plan['smem'] == (plan['nodes_per_cta'] <= nodes_in_smem)
-    with pytest.raises(RuntimeError, match='invalid argument'):
-        scg.fused_plan(100, 5, cuda)
+    assert [scg.fused_plan(N, t, cuda)['smem'] for N in edge] == \
+        [True, False]
+    for bad in (0, -1):
+        with pytest.raises(RuntimeError, match='invalid argument'):
+            scg.fused_plan(100, bad, cuda)
 
 
 def test_other_block_sizes_raise_on_card(cuda):
-    """t = 5: every wrapper raises on CUDA tensors (no fall to the plain
-    version); the C entry points refuse it too."""
+    """t = 0 and 17 offsets: every wrapper raises on CUDA tensors before
+    any launch (no fall to the plain version); the C entry points refuse
+    them too, the runtime-t ones included."""
+    import ctypes
     gen = torch.Generator(device=cuda).manual_seed(0)
     offsets, ops = random_stencil_system(40, 9, 15, False, gen, cuda, t=5)
-    before = (scg.LAUNCHES, scg.FUSED_LAUNCHES, scg.TILED_MV_LAUNCHES)
+    empty = [torch.empty((0, 40), device=cuda) for _ in range(4)]
+    many = tuple(range(1, 18))
+    wide = [ops[0], ops[1], ops[2],
+            torch.zeros((17 * 25, 40), device=cuda)]
+    counters = ('LAUNCHES', 'FUSED_LAUNCHES', 'TILED_MV_LAUNCHES',
+                'TILED_PC_LAUNCHES')
+    before = [getattr(scg, c) for c in counters]
     for solver in (scg.stencil_cg_transposed, scg.stencil_cg_tiled,
                    scg.stencil_cg_fused):
-        with pytest.raises(ValueError, match='instantiated'):
-            solver(*ops, offsets, 5, 5, 1e-6)
-    with pytest.raises(RuntimeError, match='invalid argument'):
-        scg._tiled_pc_launch(ops[2], ops[0], 5)
-    assert (scg.LAUNCHES, scg.FUSED_LAUNCHES,
-            scg.TILED_MV_LAUNCHES) == before
+        for any_t in (False, True):
+            with pytest.raises(ValueError, match='t >= 1'):
+                solver(*empty, offsets, 0, 5, 1e-6, any_t=any_t)
+            with pytest.raises(ValueError, match='17 offsets'):
+                solver(*wide, many, 5, 5, 1e-6, any_t=any_t)
+    for any_t in (False, True):
+        with pytest.raises(RuntimeError, match='invalid argument'):
+            scg._tiled_pc_launch(ops[2], ops[0], 0, any_t)
+        with pytest.raises(RuntimeError, match='invalid argument'):
+            scg._tiled_mv_launch(ops[1], wide[3], ops[0], many, 5, any_t)
+    lib = scg._kernel_lib('stencil_cg')
+    x = torch.empty_like(ops[0])
+    scratch = torch.empty((2, 5, 40), device=cuda)
+    it = torch.empty((1,), dtype=torch.int32, device=cuda)
+    for entry in (lib.ppt_stencil_pcg, lib.ppt_stencil_pcg_any_t):
+        for t, offs in ((0, offsets), (5, many)):
+            rc = entry(t, ops[0].data_ptr(), ops[1].data_ptr(),
+                       ops[2].data_ptr(), wide[3].data_ptr(),
+                       scg._c_offsets(offs, 40), len(offs), 40, 5, 1e-6,
+                       x.data_ptr(), scratch.data_ptr(), it.data_ptr(),
+                       ctypes.c_void_p(0))
+            assert lib.ppt_cuda_error_string(rc).decode() == \
+                'invalid argument'
+    torch.cuda.synchronize()
+    assert [getattr(scg, c) for c in counters] == before
+
+
+# block sizes 1-17: the templates' 3, 4, 6, 7 and the runtime-t
+# instantiation at every other
+ALL_T = tuple(range(1, 18))
+
+
+def _any_t_solver(solver, b_T, ops, offsets, t, maxiter, tol, any_t=False):
+    """(kernel call, plain version, stored operands) of ``solver`` ('whole',
+    'tiled', 'fused' or 'fused_bf16') on one system."""
+    if solver == 'whole':
+        return (lambda: scg.stencil_cg_transposed(
+            b_T, *ops, offsets, t, maxiter, tol, any_t=any_t),
+            scg._cg_body_torch, ops)
+    if solver == 'tiled':
+        return (lambda: scg.stencil_cg_tiled(
+            b_T, *ops, offsets, t, maxiter, tol, any_t=any_t),
+            scg._tiled_cg_torch, ops)
+    dtype = torch.bfloat16 if solver == 'fused_bf16' else None
+    stored = scg.round_operands(*ops, dtype)
+    return (lambda: scg.stencil_cg_fused(
+        b_T, *stored, offsets, t, maxiter, tol, operand_dtype=dtype,
+        any_t=any_t), scg._fused_cg_torch, stored)
+
+
+_ANY_T_COUNTER = {'whole': 'LAUNCHES', 'tiled': 'TILED_MV_LAUNCHES',
+                  'fused': 'FUSED_LAUNCHES', 'fused_bf16': 'FUSED_LAUNCHES'}
+
+
+@pytest.mark.parametrize('t', ALL_T)
+@pytest.mark.parametrize('solver', ['whole', 'tiled', 'fused', 'fused_bf16'])
+def test_any_t_solvers_match_plain(cuda, solver, t):
+    """Every block size from 1 to 17 (the runtime-t instantiation but at
+    3, 4, 6, 7): the whole solve at N = 40, the tiled and fused solvers
+    (float32 and bf16 operands) at N = 53, against their plain versions
+    on the same CUDA tensors as test_kernel_matches_plain holds t = 6 (x
+    within 1e-4 of max|x| + 1e-5, iterations within one), the launches
+    counted (one a solve; the tiled solver one matvec and one apply an
+    iteration, CHECK_EVERY at a time, and one apply more), and a second
+    run bit-equal."""
+    N = 40 if solver == 'whole' else 53
+    gen = torch.Generator(device=cuda).manual_seed(100 + t)
+    offsets, (b_T, *ops) = random_stencil_system(N, 9, 15, t % 2 == 0, gen,
+                                                 cuda, t=t)
+    kernel, plain, stored = _any_t_solver(solver, b_T, ops, offsets, t, 300,
+                                          1e-7)
+    counter = _ANY_T_COUNTER[solver]
+    before = getattr(scg, counter), scg.TILED_PC_LAUNCHES
+    x_k, it_k = kernel()
+    torch.cuda.synchronize()
+    launched = getattr(scg, counter) - before[0]
+    if solver == 'tiled':
+        # one apply more than matvecs (z0), the iterations in batches of
+        # CHECK_EVERY
+        assert launched + 1 == scg.TILED_PC_LAUNCHES - before[1]
+        assert launched >= int(it_k)
+    else:
+        assert launched == 1
+    x_p, it_p = plain(*(a.float() for a in stored), b_T, offsets, t, 300,
+                      1e-7)
+    err = float((x_k - x_p).abs().max())
+    assert err <= 1e-4 * float(x_p.abs().max()) + 1e-5
+    assert abs(int(it_k) - int(it_p)) <= 1 and int(it_k) < 300
+    x_k2, it_k2 = kernel()
+    assert torch.equal(x_k, x_k2) and int(it_k) == int(it_k2)
+
+
+@pytest.mark.parametrize('t', [3, 4, 6, 7])
+@pytest.mark.parametrize('solver', ['whole', 'tiled', 'fused', 'fused_bf16'])
+@pytest.mark.parametrize('shape', ['small', 'full'])
+def test_any_t_bit_equal_to_templates(cuda, shape, solver, t):
+    """The runtime-t instantiation forced at a template's t (any_t=True)
+    gives the template's bits and iteration count: the same operations in
+    the same order.  Small: N = 40 / 53; full: the whole solve at
+    sphere2500's shape, the others at the 100k shape, to 60 iterations."""
+    if shape == 'small':
+        N, d, loops, fixed, maxiter, tol = (40 if solver == 'whole' else 53,
+                                            9, 15, False, 300, 1e-7)
+    elif solver == 'whole':
+        N, d, loops, fixed, maxiter, tol = 2500, 157, 2000, True, 60, 0.0
+    else:
+        N, d, loops, fixed, maxiter, tol = 100_000, 993, 80_000, True, 60, 0.0
+    gen = torch.Generator(device=cuda).manual_seed(200 + t)
+    offsets, (b_T, *ops) = random_stencil_system(N, d, loops, fixed, gen,
+                                                 cuda, t=t)
+    template, _, _ = _any_t_solver(solver, b_T, ops, offsets, t, maxiter, tol)
+    runtime, _, _ = _any_t_solver(solver, b_T, ops, offsets, t, maxiter, tol,
+                                  any_t=True)
+    x_a, it_a = template()
+    x_b, it_b = runtime()
+    assert int(it_a) == int(it_b)
+    assert torch.equal(x_a, x_b)
+
+
+@pytest.mark.parametrize('t', [2, 5, 9, 16])
+def test_any_t_tiled_kernels_alone(cuda, t):
+    """The runtime-t matvec and block-Jacobi kernels alone, one launch
+    each, at the 100k shape: within 1e-5 of max|y| (+1e-6) of the plain
+    versions, and bit-equal to a second launch."""
+    gen = torch.Generator(device=cuda).manual_seed(300 + t)
+    offsets, (b_T, A_T, Minv_T, C_T) = random_stencil_system(
+        100_000, 993, 80_000, True, gen, cuda, t=t)
+    v = torch.randn(b_T.shape, generator=gen, device=cuda)
+    for kern, plain in (
+            (lambda: scg._tiled_mv_launch(A_T, C_T, v, offsets, t),
+             lambda: scg._stencil_matvec_torch(A_T, C_T, offsets, t, v)),
+            (lambda: scg._tiled_pc_launch(Minv_T, v, t),
+             lambda: scg._block_mul(Minv_T, v, t))):
+        y_k, y_p = kern(), plain()
+        err = float((y_k - y_p).abs().max())
+        assert err <= 1e-5 * float(y_p.abs().max()) + 1e-6
+        assert torch.equal(y_k, kern())
+
+
+@pytest.mark.parametrize('t,smem', [(2, True), (5, True), (8, True),
+                                    (9, False), (16, False)])
+def test_any_t_whole_solve_at_sphere2500_shape(cuda, t, smem):
+    """The whole solve's runtime-t instantiation at sphere2500's shape on
+    both sides of its shared-memory switch (operands in shared memory to
+    t = 8, in L2 from t = 9), converged and to 60 iterations, against the
+    plain version; one launch each."""
+    assert scg.stencil_cg_smem_fits(2500, t, 2) == smem
+    gen = torch.Generator(device=cuda).manual_seed(400 + t)
+    offsets, (b_T, *ops) = random_stencil_system(2500, 157, 2000, True, gen,
+                                                 cuda, t=t)
+    for maxiter, tol in ((500, 1e-6), (60, 0.0)):
+        before = scg.LAUNCHES
+        x_k, it_k = scg.stencil_cg_transposed(b_T, *ops, offsets, t, maxiter,
+                                              tol)
+        torch.cuda.synchronize()
+        assert scg.LAUNCHES == before + 1
+        x_p, it_p = scg._cg_body_torch(*ops, b_T, offsets, t, maxiter, tol)
+        err = float((x_k - x_p).abs().max())
+        assert err <= 1e-4 * float(x_p.abs().max()) + 1e-5
+        assert abs(int(it_k) - int(it_p)) <= 1
+
+
+@pytest.mark.parametrize('t', [1, 2, 5, 9, 16])
+def test_any_t_ring_card_matches_cpu(cuda, t):
+    """ring3_problem at block size t: route 'stencil' through the
+    whole-solve kernel's runtime-t instantiation on the card (one launch a
+    solve), chi2 within 1e-4 of the CPU's over two steps."""
+    from pypose_tpu_torch.optim.sparse import SparseLM
+    from pypose_tpu_torch.optim.strategy import TrustRegion
+    from pypose_tpu_torch.testing import ring3_problem
+
+    def make(dev):
+        params, factors, fixed = ring3_problem(device=dev, t=t)
+        return SparseLM(params, factors, strategy=TrustRegion(radius=1e4),
+                        fixed=fixed, cg_iter=100, cg_tol=1e-8)
+    card, cpu = _steps_card_and_cpu(make, 2, route='stencil')
+    assert max(abs(a / b - 1) for a, b in zip(card, cpu)) <= 1e-4
 
 
 @pytest.mark.parametrize('group', ['SO3', 'RxSO3', 'Sim3'])

@@ -183,11 +183,12 @@ def test_blockinv_other_sizes_match_jax(n, dtype):
 @pytest.mark.parametrize('t,dtype,route', [
     (3, 'float32', 'stencil'), (4, 'float32', 'stencil'),
     (6, 'float32', 'stencil'), (7, 'float32', 'stencil'),
-    (5, 'float32', 'einsum'), (3, 'float64', 'einsum'),
-    (7, 'float64', 'einsum')])
+    (5, 'float32', 'stencil'), (3, 'float64', 'einsum'),
+    (7, 'float64', 'einsum'), (5, 'float64', 'einsum')])
 def test_route_by_block_size(t, dtype, route):
     """A merged-stencil, block-Jacobi graph takes 'stencil' in float32 at
-    the block sizes the kernels are built for, 'einsum' otherwise."""
+    every block size (t = 5: the kernels' runtime-t instantiation on the
+    card), 'einsum' in float64."""
     groups = {3: 'SO3', 4: 'RxSO3', 6: 'SE3', 7: 'Sim3'}
     if t in groups:
         opt = pgo_optimizer(instance(groups[t], dtype, n=40), radius=1e4,

@@ -2,8 +2,8 @@
 numpy inputs: 'chain' (the BCR chain preconditioner), 'einsum' through
 per-factor CouplingSpMV and through the generic gather matvec (two
 variable groups), the inputs the stencil kernels do not take (float64
-sphere graphs; a Euclidean t = 3 factor in float64, which in float32 now
-takes 'stencil', and one of t = 5), and the route predicate.
+sphere graphs; a Euclidean t = 3 factor in float64, which in float32
+takes 'stencil', as it does at every t), and the route predicate.
 
 Tolerances.  float64 against the JAX package: chi2 per step rtol 1e-8
 and poses within 1e-8, except where the JAX package's stencil couple
@@ -230,18 +230,21 @@ def test_c2_sphere_f64_matches_jax():
 
 
 def jax_ring3(params, factors, fixed):
-    """The JAX package's SparseLM on testing.ring3_problem's data."""
+    """The JAX package's SparseLM on testing.ring3_problem's data, at the
+    block size t of its points (3 unless the problem was drawn at
+    another)."""
     (f,) = factors
     edges = jnp.asarray(f.indices['x'].numpy())
     z = jnp.asarray(f.consts.numpy())
-    eye = jnp.eye(3, dtype=z.dtype)
+    t = z.shape[-1]
+    eye = jnp.eye(t, dtype=z.dtype)
 
-    def residual(v, c):              # one edge: v['x'] [2, 3]
+    def residual(v, c):              # one edge: v['x'] [2, t]
         return v['x'][1] - v['x'][0] - c
 
     def bjac(v, c):
         J = jnp.broadcast_to(jnp.stack([-eye, eye], 1),
-                             (c.shape[0], 3, 2, 3))
+                             (c.shape[0], t, 2, t))
         return v['x'][:, 1] - v['x'][:, 0] - c, {'x': J}
     return jsp.SparseLM({'x': jnp.asarray(params['x'].numpy())},
                         [jsp.Factor(residual, {'x': edges}, z,
@@ -254,8 +257,8 @@ def jax_ring3(params, factors, fixed):
 @pytest.mark.parametrize('dtype', ['float32', 'float64'])
 def test_c3_ring3_matches_jax(dtype):
     """The C3 input (an arity-2 factor over a Euclidean [64, 3] group on
-    stencil edges, t = 3): route 'stencil' in float32 (t = 3 is a block
-    size the kernels are built for; its plain version here) and 'einsum'
+    stencil edges, t = 3): route 'stencil' in float32 (t = 3 has a
+    template in the kernels; its plain version here) and 'einsum'
     in float64, the plain stencil CG in the JAX package."""
     params, factors, fixed = ring3_problem(dtype=getattr(torch, dtype),
                                            device='cpu')
@@ -275,9 +278,10 @@ def test_c3_ring3_matches_jax(dtype):
 
 
 def test_route_predicate():
-    """'stencil' only for one merged stencil, block-Jacobi, float32 and
-    t in {3, 4, 6, 7}; 'chain' for the chain preconditioner; 'einsum'
-    otherwise (t = 5 here)."""
+    """'stencil' for one merged stencil, block-Jacobi and float32, at any
+    block size t (3 and 5 here: t = 5 takes the kernels' runtime-t
+    instantiation on the card); 'chain' for the chain preconditioner;
+    'einsum' otherwise (float64 here, at t = 3 and 5)."""
     def sphere(dtype, **kw):
         return pgo_optimizer(synthetic_sphere(100, dtype=dtype,
                                               device='cpu'),
@@ -291,7 +295,11 @@ def test_route_predicate():
     params, factors, fixed = ring3_problem(device='cpu')
     assert tsp.SparseLM(params, factors).route == 'stencil'
     params, factors, fixed = ring3_problem(device='cpu', t=5)
-    assert tsp.SparseLM(params, factors).route == 'einsum'
+    assert tsp.SparseLM(params, factors).route == 'stencil'
+    for t in (3, 5):
+        params, factors, fixed = ring3_problem(device='cpu', t=t,
+                                               dtype=torch.float64)
+        assert tsp.SparseLM(params, factors).route == 'einsum'
     chain = pgo_optimizer(chain_instance(torch.float32), **CHAIN)
     assert chain.route == chain.precond == 'chain'
 

@@ -183,8 +183,10 @@ def test_stencil_cg_matches_jax_kernel_at_block_size(t, fixed):
 @pytest.mark.parametrize('t,per_node,smem_bytes', [
     (3, 63, 40_076), (4, 100, 63_312), (6, 198, 124_856), (7, 259, 163_164)])
 def test_smem_budget_by_block_size(t, per_node, smem_bytes):
-    """sphere2500's shape (NL = 157, 2 offsets) at each block size the
-    kernels are built for: 5t + 4t + 2tt + 2tt floats a node, all within
+    """sphere2500's shape (NL = 157, 2 offsets) at each block size with a
+    template (every other t takes the kernels' runtime-t instantiation;
+    tests/test_torch_stencil_any_t.py): 5t + 4t + 2tt + 2tt floats a node,
+    all within
     the 232,448 bytes a CTA may use; the 100k shape is past the whole-solve
     budgets at every size (at t = 3 its 19.2 MB are within the L2 budget,
     but p, r and q of 6,250 nodes a CTA take 300,512 bytes of shared
@@ -195,4 +197,4 @@ def test_smem_budget_by_block_size(t, per_node, smem_bytes):
     assert scg.stencil_cg_fits(2500, t, 2)
     assert not scg.stencil_cg_fits(100_000, t, 2)
     assert 4 * (128 + 6250 * 4 * 3) == 300_512 > scg.SMEM_PER_BLOCK
-    assert t in scg.KERNEL_T and 5 not in scg.KERNEL_T
+    assert t in scg.TEMPLATE_T and 5 not in scg.TEMPLATE_T
