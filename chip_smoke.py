@@ -56,7 +56,9 @@ Phases (any failure raises, so the script exits non-zero):
        same bits, and its device time per solve comes from torch.profiler;
      - the tiled matvec and block-Jacobi kernels alone, one launch each,
        at the 100k shape, with their device time (torch.profiler) and the
-       block-Jacobi apply also as one torch.einsum;
+       block-Jacobi apply also as one torch.einsum; the tiled solve and
+       its two kernels against the fused solve per iteration at t = 6, 7,
+       9 and 16 (no route changes);
      - the same three sources at block sizes t = 3, 4 and 7 (SO3, RxSO3,
        Sim3; their templates) and t = 1, 2, 5, 9 and 16 (the runtime-t
        instantiation): the whole solve at N=40 and at sphere2500's shape
@@ -396,20 +398,26 @@ def device_ms(fn, calls=50, match=None):
     fn()
     torch.cuda.synchronize()
     # the tracer now and then hands back an empty trace (seen once, on a
-    # trace of 50 launches of a 2 us kernel, the 13th trace of its run):
-    # trace again, up to three times, before failing
+    # trace of 50 launches of a 2 us kernel, the 13th trace of its run), or
+    # one short of launches (a tiled apply's L2-flushed reading of 12.54 us
+    # beside 57.41): trace again, up to three times, and with `match` until
+    # it records one matched launch a call; never return a short reading
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.device_time_total for e in prof.key_averages()
-                       if not e.key.startswith('aten::')
-                       and (match is None or match in e.key))
-        if total_us > 0:
+        events = [e for e in prof.key_averages()
+                  if not e.key.startswith('aten::')
+                  and (match is None or match in e.key)]
+        total_us = sum(e.device_time_total for e in events)
+        if total_us > 0 and (match is None
+                             or sum(e.count for e in events) == calls):
             return total_us / calls / 1e3
-    raise RuntimeError('torch.profiler recorded no device time in three '
-                       'traces')
+    raise RuntimeError(
+        'torch.profiler recorded no device time in three traces' if match
+        is None else f'torch.profiler recorded no trace of one {match!r} '
+        f'launch a call in three traces of {calls} calls')
 
 
 def stencil_system(N, loop_offset, n_loops, fixed, t=6):
@@ -524,6 +532,41 @@ def oversize_solvers_vs_plain(name, system, maxiter, tol):
               f'ms/solve ({t_it} it, {1e3 * t_ms / max(t_it, 1):.2f} us/it): '
               f'{route}/tiled {f_ms / t_ms:.3f}', flush=True)
     return out, plan
+
+
+# the block sizes at which the tiled solve is timed against the fused one
+# per iteration (the 100k shape: t = 6 at 250 iterations, phase 3's own;
+# the others block_size_kernels' 60)
+TILED_VS_FUSED_T = (6, 7, 9, 16)
+
+
+def tiled_vs_fused(runs):
+    """The tiled solve against the fused solve per iteration at the 100k
+    shape, from ``runs`` = {t: (oversize_solvers_vs_plain's routes at
+    the cap, tiled_kernels_vs_plain's)}: the whole tiled solve (CUDA
+    events: its two kernels and the CG state's torch ops, a host read
+    every CHECK_EVERY iterations) and its two kernels' device time alone
+    (L2 flushed, warm) against the fused solve (float32 operands); prints
+    one line a t and returns {t: us an iteration by what}."""
+    out = {}
+    for t, (routes, alone) in runs.items():
+        (_, t_ms, _, t_it), (_, f_ms, _, f_it) = routes['tiled'], \
+            routes['fused']
+        row = {'tiled_solve_us': 1e3 * t_ms / max(t_it, 1),
+               'tiled_kernels_flushed_us': alone['mv'][5] + alone['pc'][5],
+               'tiled_kernels_warm_us': alone['mv'][4] + alone['pc'][4],
+               'fused_us': 1e3 * f_ms / max(f_it, 1),
+               'iterations': (t_it, f_it)}
+        print(f'[kernel] tiled vs fused solve, 100k shape, t={t}, us an '
+              f'iteration: tiled solve {row["tiled_solve_us"]:.2f} (its '
+              f'kernels alone {row["tiled_kernels_flushed_us"]:.2f} L2 '
+              f'flushed, {row["tiled_kernels_warm_us"]:.2f} warm) vs fused '
+              f'{row["fused_us"]:.2f} ({t_it} and {f_it} iterations): '
+              f'kernels / fused {row["tiled_kernels_flushed_us"] / row["fused_us"]:.3f} '
+              f'flushed, solve / fused '
+              f'{row["tiled_solve_us"] / row["fused_us"]:.3f}', flush=True)
+        out[t] = row
+    return out
 
 
 def fused_device_ms(system, maxiter, tol):
@@ -4214,10 +4257,11 @@ def main():
             # scans
             elif 'Used' in line and path.stem != 'libknn':
                 # the stencil kernels: each template, and the runtime-t
-                # instantiation (template argument 0, or tiled_*_any_t)
+                # instantiation (template argument 0, tiled_*_any_t, or
+                # the ring matvec)
                 kind = '' if 'stencil' not in path.stem else (
                     ' (runtime t)' if 'ILi0E' in entry or 'any_t' in entry
-                    else ' (template)')
+                    or 'tiled_mv_ring' in entry else ' (template)')
                 print(f'[build] {path.stem}{kind}: {entry}\n[build] '
                       f'{path.stem}: {spill}; {line.strip()}', flush=True)
             elif 'Used' in line and ('wide' in entry
@@ -4295,6 +4339,9 @@ def main():
     small_t = {t: small_shape_kernels(t) for t in SMALL_ONLY_T}
     # the runtime-t instantiation's cost at a template's t
     rt_cost = {t: runtime_t_cost(t) for t in (3, 6)}
+    vs_fused = tiled_vs_fused({t: (full, alone) if t == 6 else
+                               (by_t[t], by_t[t]['alone'])
+                               for t in TILED_VS_FUSED_T})
     offsets0, ops0 = stencil_system(40, 9, 15, False, 5)
     before = read_counts()
     for solver in (scg.stencil_cg_transposed, scg.stencil_cg_tiled,
@@ -4461,8 +4508,11 @@ def main():
               device_ms_l2_flushed=alone['mv'][5] / 1e3,
               ms_of='one launch, 100k shape (device_ms: torch.profiler, '
                     'operands warm in L2; device_ms_l2_flushed: L2 flushed '
-                    'before each launch)',
-              routed=False),
+                    'before each launch; vs_fused: us an iteration of the '
+                    'tiled solve and of its kernels alone against the '
+                    'fused solve, 100k shape, t = 6 at 250 iterations, '
+                    'the others at 60)',
+              vs_fused=vs_fused, routed=False),
         entry('stencil_tiled_pc', 'stencil_cg_tiled.cu', pallas + '149',
               pgo_counts['TILED_PC_LAUNCHES'],
               max(alone['pc'][0], route_err('tiled')), alone['pc'][1] / 1e3,
@@ -4649,10 +4699,14 @@ def main():
               block_size=9, cases=tiled_cases('mv', mv_bound),
               max_abs_err_small=small_err('tiled'),
               runtime_t_cost=cost('tiled_mv'), routed=False,
+              kernel_by_t={t: 'tiled_mv_ring' if t >= 5 else
+                           'tiled_mv_any_t' for t in any_ts},
               ms_of='one launch, 100k shape, t = 9 (device_ms: '
                     'torch.profiler, operands warm in L2; '
                     'device_ms_l2_flushed: L2 flushed before each launch; '
-                    'runtime_t_cost: device ms of one launch)'),
+                    'runtime_t_cost: device ms of one launch; '
+                    'kernel_by_t: the runtime-t matvec takes the ring '
+                    '(persistent CTAs fed by bulk copies) from t = 5)'),
         entry('stencil_tiled_pc_any_t', 'stencil_cg_tiled.cu',
               pallas + '149', 0,
               max(v['max_abs_err'] for v in

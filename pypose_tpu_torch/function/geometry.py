@@ -143,8 +143,11 @@ def knn(ref, nbr, k=1, ord=2, dim=-1, largest=False, sorted=True,
 
 
 def _check_k(k, N):
-    """k above the N points to choose from raises, before any kernel or
-    sort runs, as ``jax.lax.top_k`` (and ``torch.topk``) refuse it."""
+    """k below 0 or above the N points to choose from raises, before any
+    kernel or sort runs, as ``jax.lax.top_k`` refuses it; k = 0 returns no
+    columns."""
+    if k < 0:
+        raise ValueError(f'k={k} must be nonnegative')
     if k > N:
         raise ValueError(f'k={k} must be no larger than the number of '
                          f'neighbors N={N}')
@@ -359,8 +362,8 @@ def knn_filter(points, k, pdim=None, radius=None, ord=2):
     (itself included), dropping first, if ``radius`` is given, the points
     with fewer than k neighbours within it.  The dense distance matrix and
     a top-(k + 1) of its negation, as the JAX package computes it (not
-    :func:`knn`); k + 1 above the points left raises ``ValueError``, as
-    ``jax.lax.top_k`` does.
+    :func:`knn`); k + 1 below 0 or above the points left raises
+    ``ValueError``, as ``jax.lax.top_k`` does.
 
     Ref: pypose_tpu/function/geometry.py:342.
     """

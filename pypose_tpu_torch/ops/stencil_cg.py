@@ -274,7 +274,9 @@ _SIGNATURES = {
     'stencil_cg': {'ppt_stencil_pcg': _PCG, 'ppt_stencil_pcg_any_t': _PCG},
     'stencil_cg_tiled': {
         'ppt_tiled_mv': _MV, 'ppt_tiled_mv_any_t': _MV,
-        'ppt_tiled_pc': _PC, 'ppt_tiled_pc_any_t': _PC},
+        'ppt_tiled_mv_ring': _MV,
+        'ppt_tiled_pc': _PC, 'ppt_tiled_pc_any_t': _PC,
+        'ppt_tiled_plan': [_INT, _INT, _PTR]},
     'stencil_cg_fused': {
         'ppt_fused_plan': [_INT, _INT, _PTR],
         'ppt_fused_pcg': _FUSED, 'ppt_fused_pcg_any_t': _FUSED},
@@ -394,17 +396,19 @@ def stencil_cg_tiled(b_T, A_T, Minv_T, C_T, offsets, t, maxiter, tol,
             b_T, maxiter, tol)
 
 
-def _tiled_mv_launch(A_T, C_T, p, offsets, t, any_t=False):
+def _tiled_mv_launch(A_T, C_T, p, offsets, t, any_t=False, ring=False):
     """``q = A p``: one launch of the tiled matvec kernel on the current
-    stream (``any_t`` as :func:`stencil_cg_transposed`).  Unchecked (it
-    runs once per CG iteration): takes operands :func:`stencil_cg_tiled`
-    has checked (CUDA, float32, contiguous); the C entry point refuses
-    t < 1 and more than 16 offsets."""
+    stream (``any_t`` as :func:`stencil_cg_transposed`; ``ring`` forces
+    the ring kernel, which the runtime-t matvec takes from t = 5, at any
+    t).  Unchecked (it runs once per CG iteration): takes operands
+    :func:`stencil_cg_tiled` has checked (CUDA, float32, contiguous); the
+    C entry point refuses t < 1 and more than 16 offsets."""
     global TILED_MV_LAUNCHES
     lib = _kernel_lib('stencil_cg_tiled')
     N = p.shape[1]
     q = torch.empty_like(p)
-    entry = lib.ppt_tiled_mv_any_t if any_t else lib.ppt_tiled_mv
+    entry = lib.ppt_tiled_mv_ring if ring else \
+        lib.ppt_tiled_mv_any_t if any_t else lib.ppt_tiled_mv
     _raise_on(lib, entry(
         t, A_T.data_ptr(), C_T.data_ptr(), _c_offsets(offsets, N),
         len(offsets), N, p.data_ptr(), q.data_ptr(), _stream(p)),
@@ -425,6 +429,109 @@ def _tiled_pc_launch(Minv_T, r, t, any_t=False):
         _stream(r)), 'tiled_pc')
     TILED_PC_LAUNCHES += 1
     return z
+
+
+# The tiled matvec's ring plan (csrc/stencil_cg_tiled.cu mirrors these):
+# each CTA walks its share of the nodes (at most one CTA a
+# _TILED_MIN_CTA_NODES nodes) in tiles of at most TILE_NODES (two a
+# consumer thread); a row slot of a tile plus _TILED_MARGIN floats
+# (alignment, a wrap at N); at most _TILED_MAX_GROUP block rows and
+# _TILED_MAX_STAGES stages, at least _TILED_MIN_STAGES where a stage can
+# shrink; the mbarriers in _TILED_BAR_BYTES; one CTA an SM within
+# SMEM_PER_BLOCK; at most _TILED_MAX_ROWS row windows a stage (three a
+# producer lane).
+TILE_NODES = 512
+_TILED_MIN_CTA_NODES = 128
+_TILED_MARGIN = 18
+_TILED_MAX_GROUP = 8
+_TILED_MAX_STAGES = 16
+_TILED_MIN_STAGES = 4
+_TILED_BAR_BYTES = 256
+_TILED_MAX_ROWS = 96
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def tiled_tiles(N, ctas):
+    """The tiles (first node, nodes) a ring launch of ``ctas`` CTAs walks:
+    CTA c takes nodes [N c / ctas, N (c + 1) / ctas) in as few tiles of at
+    most TILE_NODES as cover them, of balanced length."""
+    out = []
+    for c in range(ctas):
+        nb, ne = N * c // ctas, N * (c + 1) // ctas
+        tiles = _ceil_div(ne - nb, TILE_NODES)
+        if not tiles:
+            continue
+        length = _ceil_div(ne - nb, tiles)
+        out += [(n0, min(length, ne - n0)) for n0 in range(nb, ne, length)]
+    return out
+
+
+def tiled_plan(N, t, n_off, sms):
+    """How a launch of the tiled matvec's ring kernel (``n_off`` offsets)
+    at N nodes and block size t lays out its work on a card of ``sms``
+    SMs; the kernel computes the same plan (the card tests hold the two
+    equal through ``ppt_tiled_plan``).  Pure arithmetic: any device.
+
+    ``ctas`` persistent CTAs (one an SM, at most one a 128 nodes) take
+    balanced shares of the nodes, each in tiles of at most ``tile_nodes``
+    (:func:`tiled_tiles`).  A tile's work is ``parts`` = 1 + 2 ``n_off``
+    t x t block products (A, then each offset's forward and back channel),
+    each cut into stages of ``group`` (at most 8) block rows and ``slab``
+    columns, as many as let four stages fit: a stage holds
+    ``rows_per_stage`` = slab + group * slab row windows (the vector's,
+    then the operands'), ``stage_bytes`` in all, at ``row_pitch`` floats a
+    row (= N mod 4) and ``forward_pitch`` / ``back_pitch`` a block row /
+    column (= t N mod 4), so a row's slot keeps its residue mod 16 bytes
+    in device memory.  ``stages`` of them make the ring, ``smem`` bytes of
+    dynamic shared memory with the mbarriers."""
+    if t < 1 or N < 1:
+        raise ValueError(f'N={N}, t={t}: the tiled kernels take N, t >= 1')
+    if not 0 <= n_off <= MAX_OFFSETS:
+        raise ValueError(f'{n_off} offsets: the tiled kernels take 0 to '
+                         f'{MAX_OFFSETS}')
+    pitch = TILE_NODES + _TILED_MARGIN + (N - TILE_NODES - _TILED_MARGIN) % 4
+    tn = (t * N) % 4
+    g = _ceil_div(t, _ceil_div(t, _TILED_MAX_GROUP))
+    slabs = 1
+    while True:
+        us = _ceil_div(t, slabs)
+        gpf = us * pitch + (tn - us * pitch) % 4
+        gpb = g * pitch + (tn - g * pitch) % 4
+        vec = _ceil_div(us * pitch, 4) * 4
+        stage = vec + _ceil_div(max(g * gpf, us * gpb), 4) * 4
+        if us == 1 or (
+                _TILED_BAR_BYTES + 4 * _TILED_MIN_STAGES * stage
+                <= SMEM_PER_BLOCK and us * (1 + g) <= _TILED_MAX_ROWS):
+            break
+        slabs += 1
+    stages = min(_TILED_MAX_STAGES,
+                 (SMEM_PER_BLOCK - _TILED_BAR_BYTES) // (4 * stage))
+    ctas = min(_ceil_div(N, _TILED_MIN_CTA_NODES), sms)
+    return {'tile_nodes': TILE_NODES, 'ctas': ctas,
+            'tiles': len(tiled_tiles(N, ctas)),
+            'parts': 1 + 2 * n_off, 'group': g, 'slab': us,
+            'rows_per_stage': us + g * us, 'stages': stages,
+            'row_pitch': pitch, 'forward_pitch': gpf, 'back_pitch': gpb,
+            'stage_bytes': 4 * stage,
+            'smem': _TILED_BAR_BYTES + 4 * stages * stage}
+
+
+def _tiled_plan_on_device(N, t, device=None):
+    """The plan ``csrc/stencil_cg_tiled.cu`` computes (``ppt_tiled_plan``),
+    in :func:`tiled_plan`'s keys; CUDA only."""
+    lib = _kernel_lib('stencil_cg_tiled')
+    out = (ctypes.c_int * 10)()
+    with torch.cuda.device(device):
+        _raise_on(lib, lib.ppt_tiled_plan(int(N), int(t), out),
+                  'tiled_plan')
+    keys = ('tile_nodes', 'group', 'slab', 'stages', 'row_pitch',
+            'forward_pitch', 'back_pitch', 'stage_bytes', 'smem', 'ctas')
+    plan = dict(zip(keys, out))
+    plan['stage_bytes'] *= 4
+    return plan
 
 
 def round_operands(A_T, Minv_T, C_T, operand_dtype):

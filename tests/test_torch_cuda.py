@@ -897,6 +897,22 @@ def test_knn_k_above_n_raises_before_any_launch(cuda):
     assert knn.NNK_LAUNCHES == before[1] + 1
 
 
+def test_knn_negative_k_raises_before_any_launch(cuda):
+    """knn with k < 0 raises ValueError on the chunked path (the kernels'
+    route) and the dense one, as the JAX package does, and so does
+    knn_filter at a top-(k + 1) below 0; no kernel launches."""
+    from pypose_tpu_torch.function import geometry
+    ref, nbr = _clouds(4, 5, cuda)
+    before = (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES)
+    for k in (-1, -3):
+        for chunk in (2, None):
+            with pytest.raises(ValueError, match=f'k={k} must be'):
+                geometry.knn(ref, nbr, k=k, chunk=chunk)
+    with pytest.raises(ValueError, match='k=-1 must be'):
+        geometry.knn_filter(nbr, -2, radius=1.0)
+    assert (knn.NN1_LAUNCHES, knn.NNK_LAUNCHES) == before
+
+
 @pytest.mark.parametrize('D', [33, 128])
 def test_wide_knn_k_above_n_raises_before_any_launch(cuda, D):
     """knn with k > N raises ValueError on descriptor clouds too, before
@@ -1524,6 +1540,110 @@ def test_any_t_tiled_kernels_alone(cuda, t):
         err = float((y_k - y_p).abs().max())
         assert err <= 1e-5 * float(y_p.abs().max()) + 1e-6
         assert torch.equal(y_k, kern())
+
+
+# the tiled kernels' shapes: (N, offsets): d = N - 1, d = 0, a d past a
+# tile (128 nodes), N % 4 != 0 (its rows start off 16-byte boundaries),
+# N below a tile (every window wraps), the 100k shape with d = N - 1
+_TILED_SHAPES = {
+    'N=40': (40, (39, 9)),
+    'N=53': (53, (1, 52, 0)),
+    'N=100,000': (100_000, (1, 993, 99_999, 700))}
+
+
+def _tiled_operands(N, t, n_off, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((t * t, N), generator=gen, device=dev),
+            torch.randn((n_off * t * t, N), generator=gen, device=dev),
+            torch.randn((t, N), generator=gen, device=dev))
+
+
+def _hold_tiled(A_T, C_T, v, offsets, t, any_t=False):
+    """One launch of each tiled kernel against its plain version, within
+    1e-5 of max|y| (+1e-6), and one of the ring matvec (forced at every t)
+    bit-equal to the routed matvec, each counted once; returns (q, z)."""
+    before = (scg.TILED_MV_LAUNCHES, scg.TILED_PC_LAUNCHES)
+    q = scg._tiled_mv_launch(A_T, C_T, v, offsets, t, any_t)
+    assert scg.TILED_MV_LAUNCHES == before[0] + 1
+    z = scg._tiled_pc_launch(A_T, v, t, any_t)
+    assert scg.TILED_PC_LAUNCHES == before[1] + 1
+    q_ring = scg._tiled_mv_launch(A_T, C_T, v, offsets, t, ring=True)
+    assert scg.TILED_MV_LAUNCHES == before[0] + 2
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_ring), float((q - q_ring).abs().max())
+    for y_k, y_p in ((q, scg._stencil_matvec_torch(A_T, C_T, offsets, t, v)),
+                     (z, scg._block_mul(A_T, v, t))):
+        err = float((y_k - y_p).abs().max())
+        assert err <= 1e-5 * float(y_p.abs().max()) + 1e-6, err
+    return q, z
+
+
+@pytest.mark.parametrize('shape', list(_TILED_SHAPES))
+@pytest.mark.parametrize('t', [1, 2, 3, 5, 7, 9, 16, 17])
+def test_tiled_kernels_at_every_shape(cuda, t, shape):
+    """The tiled matvec and block-Jacobi kernels at the templates' t and at
+    runtime t, one launch each, against their plain versions, and the ring
+    matvec (persistent CTAs, bulk copies into shared memory) bit-equal to
+    the routed one, on windows that wrap at N, start off 16-byte
+    boundaries and reach past a tile; counted once a call."""
+    N, offsets = _TILED_SHAPES[shape]
+    A_T, C_T, v = _tiled_operands(N, t, len(offsets), cuda, seed=500 + t)
+    _hold_tiled(A_T, C_T, v, offsets, t)
+
+
+@pytest.mark.parametrize('t', [2, 7])
+def test_tiled_kernels_with_sixteen_offsets(cuda, t):
+    """16 offsets (the most the kernels take) at N = 1,001, among them
+    d = 0 and d = N - 1, and at N = 53 (every window wraps)."""
+    for N in (1001, 53):
+        offsets = (0, N - 1) + tuple(range(1, N - 1, (N - 2) // 14))[:14]
+        assert len(set(offsets)) == 16
+        A_T, C_T, v = _tiled_operands(N, t, 16, cuda, seed=600 + N)
+        _hold_tiled(A_T, C_T, v, offsets, t)
+
+
+@pytest.mark.parametrize('shape', ['N=53', 'N=100,000'])
+@pytest.mark.parametrize('t', [3, 4, 6, 7])
+def test_tiled_templates_bit_equal_to_any_t(cuda, t, shape):
+    """At a template's t the runtime-t kernels (any_t=True) give the
+    template's bits, matvec and apply."""
+    N, offsets = _TILED_SHAPES[shape]
+    A_T, C_T, v = _tiled_operands(N, t, len(offsets), cuda, seed=700 + t)
+    q, z = _hold_tiled(A_T, C_T, v, offsets, t)
+    q2, z2 = _hold_tiled(A_T, C_T, v, offsets, t, any_t=True)
+    assert torch.equal(q, q2) and torch.equal(z, z2)
+
+
+def test_tiled_kernels_take_views_off_16_byte_boundaries(cuda):
+    """Operands that start 4, 8 and 12 bytes past a 16-byte boundary (views
+    into larger buffers) and end off one: the windows' aligned supersets
+    stay inside the tensors, the floats outside their aligned interiors
+    come one by one."""
+    N, offsets, t = 53, (1, 52), 5
+    A_T, C_T, v = _tiled_operands(N, t, 2, cuda, seed=800)
+    views = []
+    for shift, a in zip((1, 2, 3), (A_T, C_T, v)):
+        buf = torch.full((a.numel() + 8,), float('nan'), device=cuda)
+        view = buf[shift:shift + a.numel()].view_as(a)
+        view.copy_(a)
+        views.append(view)
+    q, z = _hold_tiled(*views, offsets, t)
+    q2, z2 = _hold_tiled(A_T, C_T, v, offsets, t)
+    assert torch.equal(q, q2) and torch.equal(z, z2)
+
+
+def test_tiled_plan_matches_the_kernels(cuda):
+    """ops.stencil_cg.tiled_plan (CPU arithmetic) gives the plan the ring
+    kernel computes (ppt_tiled_plan), CTAs included, at t = 1..32 and N of
+    each residue mod 4."""
+    keys = ('tile_nodes', 'group', 'slab', 'stages', 'row_pitch',
+            'forward_pitch', 'back_pitch', 'stage_bytes', 'smem', 'ctas')
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for t in range(1, 33):
+        for N in (53, 100_000, 100_001, 100_002, 100_003):
+            host = scg.tiled_plan(N, t, 2, sms)
+            dev = scg._tiled_plan_on_device(N, t, cuda)
+            assert {k: host[k] for k in keys} == dev, (N, t)
 
 
 @pytest.mark.parametrize('t,smem', [(2, True), (5, True), (8, True),
