@@ -35,10 +35,30 @@ its Pallas kernels; float64 takes the einsum CG here.  How a factor's
 Jacobian is formed does not change its route.
 
 The JAX package runs the LM reject loop, the plateau schedule and the
-einsum CG inside ``lax.while_loop``; here they are Python loops that read
-one host scalar per damping retry, one per LM step, and, on the einsum
-and chain routes, one per CG iteration.
+einsum CG inside ``lax.while_loop``; here they are Python loops.
+``SparseLM`` reads the device one time a step, one time a damping try, and
+one time per CG solve's iteration count at the end of ``optimize``
+(counted in :data:`HOST_READS`); on the einsum and chain routes the CG
+reads one host scalar an iteration besides (``solver.CG_HOST_READS``).
+Library calls may read the device without a count here: ``torch.linalg.inv``
+(``blockinv`` at t other than 3 and 6) and ``torch.linalg.solve``
+(``sim3_Jl_inv``, the Sim3 Log) check their ``info`` on the host.
+
+Tracing: under a ``torch.profiler.profile`` (or any running autograd
+profiler) ``SparseLM`` opens ``record_function`` ranges, nested by time on
+the host thread: ``sparselm.optimize`` (an ``optimize`` or ``step`` call),
+``sparselm.step`` (one LM step), inside it ``sparselm.formation`` (the
+residuals and Jacobians, weighted), ``sparselm.normal_eq`` (the right-hand
+side, the diagonal and its blocks, chi2, the route's once-a-step
+precompute) and ``sparselm.try`` (one damping try: ``sparselm.precond``,
+``sparselm.pcg``, ``sparselm.evaluate``, the candidate's chi2 and the gain
+ratio); ``sparselm.host_read`` wraps each read counted in
+:data:`HOST_READS`.  With no profiler running each span costs one check of
+the profiler's state.  ``python3 -m pypose_tpu_torch.probes.lm_probes``
+puts the card's idle gaps of a traced solve under these spans.
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -53,6 +73,37 @@ from ..ops.spmv import CouplingSpMV, StencilSpMV
 from ..ops.stencil_cg import stencil_cg
 from .solver import cg
 from .strategy import TrustRegion
+
+# Device-to-host reads made by SparseLM itself in this process: each LM
+# step's chi2 and progress test, each damping try's reject test, and each
+# CG solve's iteration count.
+HOST_READS = 0
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _span(name):
+    """A ``record_function`` range named ``name`` while an autograd
+    profiler runs, else one shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def _host_read(read, x):
+    """``read(x)`` for a device value ``x``, counted in :data:`HOST_READS`
+    and spanned as ``sparselm.host_read``."""
+    global HOST_READS
+    HOST_READS += 1
+    with _span('sparselm.host_read'):
+        return read(x)
+
+
+def _iterations(its):
+    """The CG solves' iteration counts as ints (a read each where the
+    solver returned a tensor)."""
+    return [_host_read(int, i) if isinstance(i, torch.Tensor) else int(i)
+            for i in its]
 
 
 def _tan_dim(v):
@@ -597,20 +648,22 @@ class SparseLM:
         """One LM step: formation, then damping retries until a step is
         taken or the reject budget is spent.  Returns (params, loss,
         last, strategy state, rejections, CG iterations per solve)."""
-        blocks = [self._weighted(f, *self._edge_r_jac(params, f, fi))
-                  for fi, f in enumerate(self.factors)]
-        b, diag_raw, accum, last = self._reduce(
-            (self._rhs(blocks), self._diag(blocks),
-             self._block_diag_accum(blocks), self._chi2(params)))
-        diagA = {n: torch.clamp(v, self.min, self.max)
-                 for n, v in diag_raw.items()}
-        nparam = sum(N * t for N, t in self._shape.values())
-        maxiter = self.cg_iter if self.cg_iter is not None \
-            else min(10 * nparam, 500)
-        solve = self._stencil_solver(b, diagA, diag_raw, accum, blocks,
-                                     maxiter) if self.route == 'stencil' \
-            else self._einsum_solver(b, diagA, diag_raw, accum, blocks,
-                                     maxiter)
+        with _span('sparselm.formation'):
+            blocks = [self._weighted(f, *self._edge_r_jac(params, f, fi))
+                      for fi, f in enumerate(self.factors)]
+        with _span('sparselm.normal_eq'):
+            b, diag_raw, accum, last = self._reduce(
+                (self._rhs(blocks), self._diag(blocks),
+                 self._block_diag_accum(blocks), self._chi2(params)))
+            diagA = {n: torch.clamp(v, self.min, self.max)
+                     for n, v in diag_raw.items()}
+            nparam = sum(N * t for N, t in self._shape.values())
+            maxiter = self.cg_iter if self.cg_iter is not None \
+                else min(10 * nparam, 500)
+            solve = self._stencil_solver(
+                b, diagA, diag_raw, accum, blocks, maxiter) \
+                if self.route == 'stencil' else self._einsum_solver(
+                    b, diagA, diag_raw, accum, blocks, maxiter)
 
         def retract_all(p, delta):
             out = {}
@@ -638,28 +691,33 @@ class SparseLM:
         count = 0
         its = []
         while True:
-            x, it = solve(strat['damping'])
-            its.append(it)
-            bad = ~torch.all(torch.isfinite(
-                torch.cat([v.reshape(-1) for v in x.values()])))
-            D = {n: torch.where(bad, 0.0, v) for n, v in x.items()}
-            cand = retract_all(params, D)
-            loss_new, pred = self._reduce(
-                (self._chi2(cand), pred_reduction(D)))
-            # a non-finite candidate loss is as bad as a non-finite delta
-            bad = bad | ~torch.isfinite(loss_new)
-            q = (last - loss_new) / torch.where(pred == 0, 1e-31, pred)
-            # a non-positive predicted reduction (unconverged-CG garbage
-            # step) is a hard reject; the reference divides blindly
-            q = torch.where(pred > 0, q, -1.0)
-            strat = self._strategy_update(strat, q)
-            rejectable = (last < loss_new) & ~bad
-            if count >= self.reject or not bool(rejectable):
-                take = ~bad
-                p_out = {n: self._where_param(take, cand[n], params[n])
-                         for n in params}
-                return (p_out, torch.where(take, loss_new, last), last,
-                        strat, count, its)
+            with _span('sparselm.try'):
+                x, it = solve(strat['damping'])
+                its.append(it)
+                with _span('sparselm.evaluate'):
+                    bad = ~torch.all(torch.isfinite(
+                        torch.cat([v.reshape(-1) for v in x.values()])))
+                    D = {n: torch.where(bad, 0.0, v) for n, v in x.items()}
+                    cand = retract_all(params, D)
+                    loss_new, pred = self._reduce(
+                        (self._chi2(cand), pred_reduction(D)))
+                    # a non-finite candidate loss is as bad as a non-finite
+                    # delta
+                    bad = bad | ~torch.isfinite(loss_new)
+                    q = (last - loss_new) / torch.where(pred == 0, 1e-31,
+                                                        pred)
+                    # a non-positive predicted reduction (unconverged-CG
+                    # garbage step) is a hard reject; the reference divides
+                    # blindly
+                    q = torch.where(pred > 0, q, -1.0)
+                    strat = self._strategy_update(strat, q)
+                    rejectable = (last < loss_new) & ~bad
+                if count >= self.reject or not _host_read(bool, rejectable):
+                    take = ~bad
+                    p_out = {n: self._where_param(take, cand[n], params[n])
+                             for n in params}
+                    return (p_out, torch.where(take, loss_new, last), last,
+                            strat, count, its)
             count += 1
 
     def _stencil_solver(self, b, diagA, diag_raw, accum, blocks, maxiter):
@@ -671,12 +729,14 @@ class SparseLM:
         offsets = tuple(self._stencil_all.offsets)
 
         def solve(damping):
-            dcorr = diagA[nm] - diag_raw[nm] + damping * diagA[nm]
-            Minv = blockinv(self._damped_blocks(
-                accum, {nm: 1.0 + damping})[nm])
-            x, it = stencil_cg(b[nm], accum[nm], dcorr, Minv, C_all, offsets,
-                               fixed_mask=self.fixed.get(nm),
-                               maxiter=maxiter, tol=self.cg_tol)
+            with _span('sparselm.precond'):
+                dcorr = diagA[nm] - diag_raw[nm] + damping * diagA[nm]
+                Minv = blockinv(self._damped_blocks(
+                    accum, {nm: 1.0 + damping})[nm])
+            with _span('sparselm.pcg'):
+                x, it = stencil_cg(b[nm], accum[nm], dcorr, Minv, C_all,
+                                   offsets, fixed_mask=self.fixed.get(nm),
+                                   maxiter=maxiter, tol=self.cg_tol)
             return {nm: x}, it
         return solve
 
@@ -727,24 +787,27 @@ class SparseLM:
                         for n in y}
 
             scale = {n: 1.0 + damping for n in diagA}
-            if self.route == 'chain':
-                M = self._chain_preconditioner(blocks, accum, scale)
-            elif scalar_pc:
-                comps = list(pc_comps)
-                for i in range(t0):
-                    comps[i * t0 + i] = pc_diag_cl[i] * (1.0 + damping) + 1e-8
-                Binv = torch.stack(blockinv_scalar(comps)).reshape(
-                    t0, t0, -1).permute(2, 0, 1)
+            with _span('sparselm.precond'):
+                if self.route == 'chain':
+                    M = self._chain_preconditioner(blocks, accum, scale)
+                elif scalar_pc:
+                    comps = list(pc_comps)
+                    for i in range(t0):
+                        comps[i * t0 + i] = \
+                            pc_diag_cl[i] * (1.0 + damping) + 1e-8
+                    Binv = torch.stack(blockinv_scalar(comps)).reshape(
+                        t0, t0, -1).permute(2, 0, 1)
 
-                def M(x):
-                    return {n0: torch.einsum('ntu,nu->nt', Binv, x[n0])}
-            else:
-                Binv = self._block_jacobi(accum, scale)
+                    def M(x):
+                        return {n0: torch.einsum('ntu,nu->nt', Binv, x[n0])}
+                else:
+                    Binv = self._block_jacobi(accum, scale)
 
-                def M(x):
-                    return {n: torch.einsum('ntu,nu->nt', Binv[n], x[n])
-                            for n in x}
-            return cg(Avp, b, tol=self.cg_tol, maxiter=maxiter, M=M)
+                    def M(x):
+                        return {n: torch.einsum('ntu,nu->nt', Binv[n], x[n])
+                                for n in x}
+            with _span('sparselm.pcg'):
+                return cg(Avp, b, tol=self.cg_tol, maxiter=maxiter, M=M)
         return solve
 
     @staticmethod
@@ -767,14 +830,17 @@ class SparseLM:
 
     def step(self):
         """One LM step; returns the new chi2."""
-        self._init_strategy()
-        p, loss, last, strat, count, its = self._core(
-            self.params, self.strategy_state)
-        self.params = p
-        self.strategy_state = strat
-        self.reject_count = count
-        self.last, self.loss = torch.stack([last, loss]).tolist()
-        self.cg_iterations = [[int(i) for i in its]]
+        with _span('sparselm.optimize'):
+            self._init_strategy()
+            with _span('sparselm.step'):
+                p, loss, last, strat, count, its = self._core(
+                    self.params, self.strategy_state)
+            self.params = p
+            self.strategy_state = strat
+            self.reject_count = count
+            self.last, self.loss = _host_read(torch.Tensor.tolist,
+                                              torch.stack([last, loss]))
+            self.cg_iterations = [_iterations(its)]
         return self.loss
 
     def optimize(self, steps=10, patience=5, decreasing=1e-3):
@@ -784,28 +850,31 @@ class SparseLM:
         less than that.  Returns the final chi2; per-step values land in
         ``self.history`` and per-solve CG iterations in
         ``self.cg_iterations``."""
-        self._init_strategy()
-        p, strat = self.params, self.strategy_state
-        loss = None
-        hist, its_all = [], []
-        pat = 0
-        for _ in range(steps):
-            p, loss, last, strat, count, its = self._core(p, strat)
-            its_all.append(its)
-            # one host read per LM step: chi2 and the progress test
-            lossv, small = torch.stack(
-                [loss, (last - loss < decreasing).to(loss.dtype)]).tolist()
-            hist.append(lossv)
-            pat = pat + 1 if small else 0
-            # quit on rejection only when the step also failed to make the
-            # required progress (the reference quits on any rejection)
-            if pat >= patience or (count > 0 and small):
-                break
-        self.params = p
-        self.strategy_state = strat
-        self.loss = hist[-1] if hist else None
-        self.history = hist
-        self.cg_iterations = [[int(i) for i in its] for its in its_all]
+        with _span('sparselm.optimize'):
+            self._init_strategy()
+            p, strat = self.params, self.strategy_state
+            loss = None
+            hist, its_all = [], []
+            pat = 0
+            for _ in range(steps):
+                with _span('sparselm.step'):
+                    p, loss, last, strat, count, its = self._core(p, strat)
+                its_all.append(its)
+                # one host read per LM step: chi2 and the progress test
+                lossv, small = _host_read(torch.Tensor.tolist, torch.stack(
+                    [loss, (last - loss < decreasing).to(loss.dtype)]))
+                hist.append(lossv)
+                pat = pat + 1 if small else 0
+                # quit on rejection only when the step also failed to make
+                # the required progress (the reference quits on any
+                # rejection)
+                if pat >= patience or (count > 0 and small):
+                    break
+            self.params = p
+            self.strategy_state = strat
+            self.loss = hist[-1] if hist else None
+            self.history = hist
+            self.cg_iterations = [_iterations(its) for its in its_all]
         return self.loss
 
 
